@@ -1,0 +1,161 @@
+// Flash-decode attention for Hopper (sm_90a): one query token against the
+// live prefix 0..pos of one layer of the stacked f32 KV cache.
+//
+//   q (n_kv * kv_mul, hs) f32; k_all, v_all (L, S, n_kv, hs) f32;
+//   out (n_kv * kv_mul * hs) f32; query head h = g * kv_mul + m attends
+//   kv head g; scores scaled by 1/sqrt(hs); softmax over keys 0..pos.
+//
+// Replaces the JAX package's ops/pallas_attention.py decode_attention
+// (_kernel / _flash_over_row): the same online softmax with running
+// (m, l, o), reading only the live prefix. `layer` and `pos` are kernel
+// arguments, so the call needs no device-to-host sync.
+//
+// Bound: the K and V bytes of the live prefix, 2 * (pos+1) * n_kv * hs * 4,
+// read once. Design, simple first:
+//   * one thread block per kv head, covering its kv_mul query heads, so K
+//     and V are read once;
+//   * kWarps warps take keys t = warp, warp + kWarps, ...; lane i holds
+//     dims 4i..4i+3 of q, k, v and o as float4 (head size up to 128);
+//   * each warp keeps a running (m, l, o) per query head; the warps combine
+//     through shared memory at the end.
+// Only n_kv blocks run (32 at 7B on 132 SMs): splitting the keys across
+// blocks (flash-decoding) is left for later.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kWarps = 16;
+
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+template <int KV_MUL>
+__global__ void __launch_bounds__(kWarps * 32)
+decode_attention_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k_all,
+                        const float* __restrict__ v_all,
+                        float* __restrict__ out, int layer, int pos, int S,
+                        int n_kv, int hs, float scale) {
+  const int g = blockIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  const bool live = 4 * lane < hs;  // lanes past the head size hold zeros
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 qv[KV_MUL], o[KV_MUL];
+  float m[KV_MUL], l[KV_MUL];
+#pragma unroll
+  for (int h = 0; h < KV_MUL; ++h) {
+    const float* qh = q + static_cast<size_t>(g * KV_MUL + h) * hs;
+    qv[h] = live ? *reinterpret_cast<const float4*>(qh + 4 * lane) : zero;
+    o[h] = zero;
+    m[h] = -INFINITY;
+    l[h] = 0.f;
+  }
+
+  const size_t row = static_cast<size_t>(n_kv) * hs;  // stride between keys
+  const size_t base = (static_cast<size_t>(layer) * S * n_kv + g) * hs;
+  for (int t = warp; t <= pos; t += kWarps) {
+    const float* kr = k_all + base + t * row;
+    const float* vr = v_all + base + t * row;
+    const float4 kv =
+        live ? __ldg(reinterpret_cast<const float4*>(kr + 4 * lane)) : zero;
+    const float4 vv =
+        live ? __ldg(reinterpret_cast<const float4*>(vr + 4 * lane)) : zero;
+#pragma unroll
+    for (int h = 0; h < KV_MUL; ++h) {
+      float s = dot4(qv[h], kv);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      }
+      s *= scale;
+      const float m_new = fmaxf(m[h], s);
+      const float corr = expf(m[h] - m_new);
+      const float p = expf(s - m_new);
+      l[h] = l[h] * corr + p;
+      o[h].x = o[h].x * corr + p * vv.x;
+      o[h].y = o[h].y * corr + p * vv.y;
+      o[h].z = o[h].z * corr + p * vv.z;
+      o[h].w = o[h].w * corr + p * vv.w;
+      m[h] = m_new;
+    }
+  }
+
+  // combine the warps: sm_m, sm_l (kWarps, KV_MUL), sm_o (kWarps, KV_MUL, hs)
+  extern __shared__ float sm[];
+  float* sm_m = sm;
+  float* sm_l = sm_m + kWarps * KV_MUL;
+  float* sm_o = sm_l + kWarps * KV_MUL;
+#pragma unroll
+  for (int h = 0; h < KV_MUL; ++h) {
+    if (lane == 0) {
+      sm_m[warp * KV_MUL + h] = m[h];
+      sm_l[warp * KV_MUL + h] = l[h];
+    }
+    float* oh = sm_o + static_cast<size_t>(warp * KV_MUL + h) * hs;
+    if (live) *reinterpret_cast<float4*>(oh + 4 * lane) = o[h];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < KV_MUL * hs; i += blockDim.x) {
+    const int h = i / hs;
+    const int dd = i - h * hs;
+    float mx = -INFINITY;
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w * KV_MUL + h]);
+    float lsum = 0.f, osum = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      // a warp that saw no key holds m = -inf, l = 0, o = 0: weight 0
+      const float f = expf(sm_m[w * KV_MUL + h] - mx);
+      lsum += sm_l[w * KV_MUL + h] * f;
+      osum += sm_o[static_cast<size_t>(w * KV_MUL + h) * hs + dd] * f;
+    }
+    out[static_cast<size_t>(g * KV_MUL + h) * hs + dd] = osum / lsum;
+  }
+}
+
+template <int KV_MUL>
+int launch(const float* q, const float* k, const float* v, float* out,
+           int layer, int pos, int S, int n_kv, int hs, float scale,
+           cudaStream_t stream) {
+  const size_t smem =
+      static_cast<size_t>(kWarps) * KV_MUL * (hs + 2) * sizeof(float);
+  // the opt-in above 48 KB is per device, so it is made on every such launch
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_attention_kernel<KV_MUL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  decode_attention_kernel<KV_MUL>
+      <<<n_kv, kWarps * 32, smem, stream>>>(q, k, v, out, layer, pos, S,
+                                            n_kv, hs, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launch on `stream`; returns the cudaGetLastError() code (0 = launched).
+// Takes kv_mul in {1, 2, 4, 8} and hs a multiple of 4 up to 128.
+extern "C" int decode_attention(const void* q, const void* k_all,
+                                const void* v_all, void* out, int layer,
+                                int pos, int S, int n_kv, int kv_mul, int hs,
+                                float scale, void* stream) {
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k_all);
+  const float* vf = static_cast<const float*>(v_all);
+  float* of = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hs % 4 != 0 || hs > 128) return static_cast<int>(cudaErrorInvalidValue);
+  switch (kv_mul) {
+    case 1: return launch<1>(qf, kf, vf, of, layer, pos, S, n_kv, hs, scale, s);
+    case 2: return launch<2>(qf, kf, vf, of, layer, pos, S, n_kv, hs, scale, s);
+    case 4: return launch<4>(qf, kf, vf, of, layer, pos, S, n_kv, hs, scale, s);
+    case 8: return launch<8>(qf, kf, vf, of, layer, pos, S, n_kv, hs, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -1,0 +1,145 @@
+"""CLI entry point: the ``inference`` mode of the reference CLI, on one
+device.
+
+Flags ported in this slice: --model, --tokenizer, --prompt, --steps,
+--temperature, --topp, --seed, --weights-float-type, --buffer-float-type
+(f32), and --device {cuda,cpu} (default cuda; without a GPU the default
+fails instead of running on the CPU). Every other flag of the JAX package's
+``inference`` exits 2 with "not yet ported" before the model loads — no flag
+is accepted and then ignored. --tp 1, --sp 1, --prefill-chunk 0/1 and
+--kv-cache-dtype f32 name what this slice runs and are accepted.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import torch
+
+from ..ops.quants import FloatType
+
+_FT = {"f32": FloatType.F32, "f16": FloatType.F16, "q40": FloatType.Q40,
+       "q80": FloatType.Q80}
+
+# the JAX package's inference flags this slice does not port
+_UNPORTED_SWITCHES = ("--fast", "--continuous", "--fast-prefill", "--metrics",
+                      "--log-json", "--stream-slices")
+_UNPORTED_VALUED = ("--tp-scheme", "--workers", "--save-state",
+                    "--resume-state", "--prompts-file", "--slots",
+                    "--block-steps", "--kv-page-size", "--kv-pages",
+                    "--spec-k", "--spec-ngram", "--dispatch-tokens",
+                    "--kv-quant", "--kv-host-pages", "--kv-disk-dir",
+                    "--kv-disk-gb", "--profile", "--nthreads",
+                    "--coordinator", "--num-hosts", "--host-id",
+                    "--serve-weights", "--serve-weights-bind",
+                    "--model-from-root")
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="dllama-torch inference")
+    ap.add_argument("--model", required=True,
+                    help="path to the reference-format .bin model")
+    ap.add_argument("--tokenizer", required=True)
+    ap.add_argument("--prompt", default=None)
+    ap.add_argument("--weights-float-type", default="q40", choices=sorted(_FT))
+    ap.add_argument("--buffer-float-type", default="f32", choices=sorted(_FT),
+                    help="only f32 is ported")
+    ap.add_argument("--steps", type=int, default=64)
+    ap.add_argument("--temperature", type=float, default=0.8)
+    ap.add_argument("--topp", type=float, default=0.9)
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the model runs (default cuda; the CPU runs "
+                         "the kernels' plain versions)")
+    ap.add_argument("--tp", type=int, default=1, help="only 1 is ported")
+    ap.add_argument("--sp", type=int, default=1, help="only 1 is ported")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="only 0/1 (per-token prompt) is ported")
+    ap.add_argument("--kv-cache-dtype", default="f32", choices=("f32", "bf16"),
+                    help="only f32 is ported")
+    for flag in _UNPORTED_SWITCHES:
+        ap.add_argument(flag, action="store_true", default=argparse.SUPPRESS,
+                        help="not yet ported")
+    for flag in _UNPORTED_VALUED:
+        ap.add_argument(flag, nargs="*", default=argparse.SUPPRESS,
+                        help="not yet ported")
+    return ap
+
+
+def _unported(args) -> list[str]:
+    given = [f for f in _UNPORTED_SWITCHES + _UNPORTED_VALUED
+             if f[2:].replace("-", "_") in vars(args)]
+    if args.tp != 1:
+        given.append(f"--tp {args.tp}")
+    if args.sp != 1:
+        given.append(f"--sp {args.sp}")
+    if args.prefill_chunk > 1:
+        given.append(f"--prefill-chunk {args.prefill_chunk}")
+    if args.kv_cache_dtype != "f32":
+        given.append(f"--kv-cache-dtype {args.kv_cache_dtype}")
+    if args.buffer_float_type != "f32":
+        given.append(f"--buffer-float-type {args.buffer_float_type}")
+    return given
+
+
+def cmd_inference(argv: list[str]) -> int:
+    args = _parser().parse_args(argv)
+    unported = _unported(args)
+    if unported:
+        print(f"not yet ported: {', '.join(unported)} (this port runs "
+              f"single-device, token-by-token inference with f32 buffers "
+              f"and an f32 KV cache)", file=sys.stderr)
+        return 2
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("no GPU: torch.cuda.is_available() is False — pass --device "
+              "cpu to run on the CPU", file=sys.stderr)
+        return 1
+
+    from ..io.loader import load_model
+    from ..io.tokenizer import Tokenizer
+    from ..runtime.generate import Engine, generate
+    from ..runtime.sampling import Sampler
+
+    t0 = time.perf_counter()
+    spec, params = load_model(args.model,
+                              weights_float_type=_FT[args.weights_float_type],
+                              buffer_float_type=FloatType.F32)
+    device = torch.device(args.device)
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+    print(f"💡 dim: {spec.dim}\n💡 hiddenDim: {spec.hidden_dim}\n"
+          f"💡 nLayers: {spec.n_layers}\n💡 nHeads: {spec.n_heads}\n"
+          f"💡 nKvHeads: {spec.n_kv_heads}\n"
+          f"💡 vocabSize: {spec.vocab_size}\n💡 seqLen: {spec.seq_len}\n"
+          f"💡 nSlices: 1 (device {args.device}: {where})")
+    engine = Engine(spec, params, device)
+    del params  # the host copy; the engine holds the device tree
+    print(f"⏩ Loaded model in {time.perf_counter() - t0:.1f}s")
+
+    tokenizer = Tokenizer(args.tokenizer, spec.vocab_size)
+    seed = args.seed if args.seed is not None else int(time.time())
+    sampler = Sampler(spec.vocab_size, args.temperature, args.topp, seed)
+    generate(engine, tokenizer, sampler, args.prompt or "", args.steps)
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print(f"usage: dllama-torch inference [options]\n{__doc__}")
+        return 0 if argv else 1
+    mode, rest = argv[0], argv[1:]
+    if mode == "inference":
+        return cmd_inference(rest)
+    if mode in ("worker", "serve", "train", "convert"):
+        print(f"mode {mode!r} is not yet ported (this port runs 'inference')",
+              file=sys.stderr)
+        return 2
+    print(f"unknown mode {mode!r} (expected inference)", file=sys.stderr)
+    return 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

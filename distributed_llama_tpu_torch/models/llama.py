@@ -1,0 +1,220 @@
+"""The Llama-2 forward (7B/13B/70B incl. GQA) in PyTorch, one token per step.
+
+Numerics follow the JAX package's models/llama.py (the parity contract):
+
+* RoPE: interleaved (2p, 2p+1) pairs, freq = 10000^-((2p mod hs)/hs), q
+  rotated over the full dim and k over kvDim — not the half-split rotation.
+* Attention: score = q.k/sqrt(hs); GQA maps query head h to kv head
+  h // kv_mul; keys 0..pos of the stacked (L, S, n_kv, hs) f32 cache.
+* SwiGLU: silu(w1 x) * (w3 x); rmsnorm with eps=1e-5 added after the mean.
+
+Departures, none of which changes a value: the KV write is in place at
+(layer, pos) instead of a functional update; the RoPE frequencies are
+computed once per model and the angles once per step, shared by every
+layer; the layer loop is a Python loop over zero-copy per-layer views of
+the stacked weights. Only T=1 (one token per forward) is ported: chunked
+prefill is a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..io.loader import Q40Weight
+from ..ops.attention import (attention_core, decode_attention,
+                             decode_attention_plain)
+from ..ops.linear import (fuse_q40_layer_matmuls, matmul, q40_to_device,
+                          rmsnorm, silu)
+from ..ops.q40 import q40_matmul, q40_matmul_plain
+from .spec import TransformerSpec
+
+__all__ = ["KVCache", "init_cache", "attention_core", "Route", "KERNELS",
+           "PLAIN", "LOGIT_RTOL", "Llama", "params_to_device",
+           "params_from_reference"]
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (n_layers, seq_len, n_kv_heads, head_size) f32
+    v: torch.Tensor
+
+
+def init_cache(spec: TransformerSpec, device) -> KVCache:
+    shape = (spec.n_layers, spec.seq_len, spec.n_kv_heads, spec.head_size)
+    return KVCache(torch.zeros(shape, dtype=torch.float32, device=device),
+                   torch.zeros(shape, dtype=torch.float32, device=device))
+
+
+class Route(NamedTuple):
+    """Which Q40 matmul and decode attention the forward calls."""
+
+    q40: Callable
+    attention: Callable
+
+
+# the kernel wrappers (the plain versions on CPU tensors) — the main path
+KERNELS = Route(q40_matmul, decode_attention)
+# the plain versions on any device — to hold the kernels against on the card
+PLAIN = Route(q40_matmul_plain, decode_attention_plain)
+
+# |kernel logits - plain logits| <= LOGIT_RTOL * max|plain logits|: the two
+# routes sum in different orders through every layer (f32 throughout)
+LOGIT_RTOL = 1e-3
+
+
+def rope_freq(n: int, head_size: int, device) -> torch.Tensor:
+    """Per-pair frequencies (n/2,) f32: pair p uses head_dim = (2p) mod hs."""
+    i = torch.arange(0, n, 2, dtype=torch.float32, device=device)
+    head_dim = torch.remainder(i, head_size)
+    base = torch.tensor(10000.0, dtype=torch.float32, device=device)
+    return 1.0 / torch.pow(base, head_dim / head_size)
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor,
+            sin: torch.Tensor) -> torch.Tensor:
+    """Rotate the interleaved pairs of x (..., n) by angles (..., n/2)."""
+    pairs = x.reshape(*x.shape[:-1], x.shape[-1] // 2, 2)
+    v0, v1 = pairs[..., 0], pairs[..., 1]
+    return torch.stack([v0 * cos - v1 * sin, v0 * sin + v1 * cos],
+                       dim=-1).reshape(x.shape)
+
+
+def rope_tables(freq: torch.Tensor,
+                pos: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin (1, n/2) of the angles at position ``pos`` — computed once
+    per step and shared by every layer (a Python int scales the f32
+    frequencies, so no host-to-device copy is issued)."""
+    val = (freq * pos)[None, :]
+    return torch.cos(val), torch.sin(val)
+
+
+def _qkv_proj(spec: TransformerSpec, lw: dict[str, Any], x: torch.Tensor,
+              rope: tuple[torch.Tensor, torch.Tensor], route: Route):
+    """norm -> q/k/v matmuls (fused wqkv when present) -> RoPE on q and k.
+    Returns q (1, dim), k (1, kv_dim), v (1, kv_dim)."""
+    xb = rmsnorm(x, lw["rms_att"])
+    qk_dim = spec.dim + spec.kv_dim
+    if "wqkv" in lw:
+        qkv = matmul(lw["wqkv"], xb, route.q40)
+        qk, v = qkv[:, :qk_dim], qkv[:, qk_dim:]
+    else:
+        qk = torch.cat([matmul(lw["wq"], xb, route.q40),
+                        matmul(lw["wk"], xb, route.q40)], dim=-1)
+        v = matmul(lw["wv"], xb, route.q40)
+    # q and k rotate together: head_dim = (2p) mod hs runs on across the
+    # q/k boundary because dim is a multiple of hs
+    qk = _rotate(qk, *rope)
+    return qk[:, :spec.dim], qk[:, spec.dim:], v
+
+
+def _post_attention(spec: TransformerSpec, lw: dict[str, Any],
+                    x: torch.Tensor, ao: torch.Tensor,
+                    route: Route) -> torch.Tensor:
+    """wo + residual, then the SwiGLU ffn sub-block + residual."""
+    x = x + matmul(lw["wo"], ao, route.q40)
+    xb = rmsnorm(x, lw["rms_ffn"])
+    if "w13" in lw:
+        h13 = matmul(lw["w13"], xb, route.q40)
+        hid = h13.shape[-1] // 2
+        hb = silu(h13[:, :hid]) * h13[:, hid:]
+    else:
+        hb = silu(matmul(lw["w1"], xb, route.q40)) * matmul(lw["w3"], xb,
+                                                            route.q40)
+    return x + matmul(lw["w2"], hb, route.q40)
+
+
+def _layer(spec: TransformerSpec, x: torch.Tensor, lw: dict[str, Any],
+           cache: KVCache, idx: int, pos: int,
+           rope: tuple[torch.Tensor, torch.Tensor],
+           route: Route = KERNELS) -> torch.Tensor:
+    """One transformer layer at T=1: writes k/v into the stacked cache in
+    place at (idx, pos), attends over 0..pos, returns the new residual."""
+    q, k, v = _qkv_proj(spec, lw, x, rope, route)
+    cache.k[idx, pos].copy_(k.reshape(spec.n_kv_heads, spec.head_size))
+    cache.v[idx, pos].copy_(v.reshape(spec.n_kv_heads, spec.head_size))
+    ao = route.attention(q.reshape(spec.n_heads, spec.head_size), cache.k,
+                         cache.v, idx, pos, spec.kv_mul)
+    return _post_attention(spec, lw, x, ao, route)
+
+
+LAYER_KEYS = ("rms_att", "rms_ffn", "wq", "wk", "wv", "wo", "w1", "w2", "w3",
+              "wqkv", "w13")
+
+
+def _layer_view(params: dict[str, Any], i: int) -> dict[str, Any]:
+    """Layer i of every stacked weight, as zero-copy views."""
+    lw = {}
+    for k in LAYER_KEYS:
+        if k in params:
+            w = params[k]
+            lw[k] = (Q40Weight(w.qs[i], w.d16[i]) if isinstance(w, Q40Weight)
+                     else w[i])
+    return lw
+
+
+class Llama(nn.Module):
+    """The T=1 decode forward over device-resident weights.
+
+    ``params`` is the tree params_to_device built; the module keeps it as it
+    is (Q40 pairs are not tensors, so nothing is registered as a buffer) and
+    precomputes the per-layer views and the RoPE frequencies once.
+    ``route`` picks the kernels (default) or their plain versions.
+    """
+
+    def __init__(self, spec: TransformerSpec, params: dict[str, Any],
+                 route: Route = KERNELS):
+        super().__init__()
+        self.spec = spec
+        self.params = params
+        self.route = route
+        self.layers = [_layer_view(params, i) for i in range(spec.n_layers)]
+        device = params["tok_embedding"].device
+        self.register_buffer("freq", rope_freq(spec.dim + spec.kv_dim,
+                                               spec.head_size, device))
+
+    def forward(self, cache: KVCache, token: int, pos: int) -> torch.Tensor:
+        """One token at position ``pos``: returns logits (1, vocab) f32 and
+        writes this position's k/v into ``cache``."""
+        spec, p = self.spec, self.params
+        if not 0 <= pos < spec.seq_len:
+            raise ValueError(f"pos {pos} outside the cache (seq_len "
+                             f"{spec.seq_len})")
+        x = p["tok_embedding"][token].reshape(1, spec.dim).to(torch.float32)
+        rope = rope_tables(self.freq, pos)
+        for idx, lw in enumerate(self.layers):
+            x = _layer(spec, x, lw, cache, idx, pos, rope, self.route)
+        x = rmsnorm(x, p["rms_final"])
+        return matmul(p["wcls"], x, self.route.q40)
+
+
+def params_to_device(params: dict[str, Any], device) -> dict[str, Any]:
+    """Move a host numpy param tree onto ``device``: Q40 q/k/v and w1/w3 are
+    fused at load (ops/linear.fuse_q40_layer_matmuls), Q40 weights take the
+    port's device layout (ops/linear.q40_to_device), dense leaves keep their
+    f32/f16 dtype."""
+    device = torch.device(device)
+    out = {}
+    for k, v in fuse_q40_layer_matmuls(params).items():
+        if isinstance(v, Q40Weight):
+            out[k] = q40_to_device(v, device)
+        else:
+            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    return out
+
+
+def params_from_reference(tree: dict[str, Any], device) -> dict[str, Any]:
+    """The JAX package's numpy parameter tree -> this port's device tree.
+
+    Q40 leaves are recognised by their ``.qs`` / ``.d16`` attributes (the
+    reference's Q40Weight), so no import of the reference package is
+    needed; every leaf is read through numpy."""
+    host = {}
+    for k, v in tree.items():
+        if hasattr(v, "qs") and hasattr(v, "d16"):
+            host[k] = Q40Weight(np.asarray(v.qs), np.asarray(v.d16))
+        else:
+            host[k] = np.asarray(v)
+    return params_to_device(host, device)

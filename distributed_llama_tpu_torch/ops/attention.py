@@ -1,0 +1,121 @@
+"""Decode attention: the hand-written CUDA kernel ``csrc/decode_attention.cu``
+(K2), its plain PyTorch version, and the attention math they share.
+
+Replaces the JAX package's ops/pallas_attention.py ``decode_attention``:
+one query token at position ``pos`` against keys and values 0..pos of layer
+``layer`` of the stacked (L, S, n_kv, hs) f32 cache, scale 1/sqrt(hs),
+query head h on kv head h // kv_mul. Only the live prefix is read, so
+whatever a longer earlier run left past ``pos`` is invisible. It is bound by
+the K and V bytes of that prefix; csrc/decode_attention.cu says how its
+design meets that.
+
+``decode_attention`` takes the plain version only for tensors on the CPU. On
+a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ._build import CudaKernel
+
+KERNEL = CudaKernel("decode_attention.cu", "decode_attention",
+                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                    + [ctypes.c_float, ctypes.c_void_p])
+
+_KV_MULS = (1, 2, 4, 8)  # the kernel's instantiations
+_MAX_HEAD = 128
+
+# |kernel - plain| <= KERNEL_ATOL on N(0, 1) queries, keys and values: the
+# outputs are convex mixes of the values, summed in a different order
+KERNEL_ATOL = 1e-5
+
+
+def attention_scale(head_size: int) -> float:
+    """1/sqrt(hs) rounded to f32 as the reference computes it (f32 sqrt,
+    then f32 division)."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(head_size)))
+
+
+def attention_core(head_size: int, kv_mul: int, q: torch.Tensor,
+                   k: torch.Tensor, v: torch.Tensor,
+                   mask: torch.Tensor | None) -> torch.Tensor:
+    """Grouped (GQA) attention — the math every port path shares.
+
+    q: (T, n_q, hs); k/v: (S, n_kv, hs); mask: (T, S) True where a key is
+    visible, or None when every key is. Query head h = g*kv_mul + m attends
+    kv head g, via einsum against the unexpanded cache. f32 throughout.
+    Returns (T, n_q * hs).
+    """
+    t_len, n_q, _ = q.shape
+    n_kv = k.shape[-2]
+    qg = q.reshape(t_len, n_kv, kv_mul, head_size).to(torch.float32)
+    scores = torch.einsum("tgmd,sgd->gmts", qg, k.to(torch.float32))
+    scores = scores * attention_scale(head_size)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, float("-inf"))
+    att = torch.softmax(scores, dim=-1)
+    out = torch.einsum("gmts,sgd->tgmd", att, v.to(torch.float32))
+    return out.reshape(t_len, n_q * head_size)
+
+
+def decode_attention_plain(q: torch.Tensor, k_all: torch.Tensor,
+                           v_all: torch.Tensor, layer: int, pos: int,
+                           kv_mul: int) -> torch.Tensor:
+    """attention_core over the live prefix 0..pos. q (n_q, hs) -> (1, n_q*hs)."""
+    hs = k_all.shape[-1]
+    return attention_core(hs, kv_mul, q.reshape(1, -1, hs),
+                          k_all[layer, :pos + 1], v_all[layer, :pos + 1],
+                          None)
+
+
+def _check(q, k_all, v_all, layer, pos, kv_mul) -> None:
+    if k_all.dim() != 4 or k_all.shape != v_all.shape:
+        raise ValueError(f"decode_attention: caches must be equal (L, S, "
+                         f"n_kv, hs), got {tuple(k_all.shape)} and "
+                         f"{tuple(v_all.shape)}")
+    n_layers, seq_len, n_kv, hs = k_all.shape
+    if tuple(q.shape) != (n_kv * kv_mul, hs):
+        raise ValueError(f"decode_attention: q must be ({n_kv * kv_mul}, "
+                         f"{hs}), got {tuple(q.shape)}")
+    for name, t in (("q", q), ("k_all", k_all), ("v_all", v_all)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"decode_attention: {name} must be float32, "
+                             f"got {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"decode_attention: {name} on {t.device}, q on "
+                             f"{q.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {name} must be contiguous "
+                             f"and 16-byte aligned")
+    if kv_mul not in _KV_MULS or hs % 4 or hs > _MAX_HEAD:
+        raise ValueError(f"decode_attention: the kernel takes kv_mul in "
+                         f"{_KV_MULS} and head size a multiple of 4 up to "
+                         f"{_MAX_HEAD}, got kv_mul={kv_mul} hs={hs}")
+    if not (0 <= layer < n_layers and 0 <= pos < seq_len):
+        raise ValueError(f"decode_attention: layer {layer} / pos {pos} out "
+                         f"of range for cache {tuple(k_all.shape)}")
+
+
+def decode_attention(q: torch.Tensor, k_all: torch.Tensor,
+                     v_all: torch.Tensor, layer: int, pos: int,
+                     kv_mul: int) -> torch.Tensor:
+    """Attention of one token's queries q (n_q, hs) at position ``pos``
+    against keys/values 0..pos of cache layer ``layer``. Returns
+    (1, n_q * hs) f32. CPU tensors take the plain version; CUDA tensors
+    launch K2."""
+    if q.device.type == "cpu" and k_all.device.type == "cpu":
+        return decode_attention_plain(q, k_all, v_all, layer, pos, kv_mul)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: no kernel for device {q.device}")
+    _check(q, k_all, v_all, layer, pos, kv_mul)
+    _, seq_len, n_kv, hs = k_all.shape
+    out = torch.empty((1, q.numel()), dtype=torch.float32, device=q.device)
+    KERNEL.launch(q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
+                  out.data_ptr(), layer, pos, seq_len, n_kv, kv_mul, hs,
+                  attention_scale(hs),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+    return out

@@ -1,0 +1,93 @@
+"""Matmul dispatch over weight dtypes, the norm/activation glue, and the
+load-time Q40 weight preparation.
+
+Semantics (the JAX package's ops/linear.py, the logit-parity contract):
+* matmul: weight w of shape (d, n), out[i] = sum_j w[i,j] * x[..., j], f32
+  accumulation. Q40 weights go to the Q40 matvec (ops/q40.py); dense F32/F16
+  weights go to one f32 ``F.linear``, as the JAX package leaves its dense
+  weights to an XLA einsum.
+* rms: 1/sqrt(sum(x^2)/size + 1e-5) — eps added AFTER the mean.
+* rmsnorm(x, w) = x * rms(x) * w.
+* silu(x) = x / (1 + e^-x).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..io.loader import Q40Weight
+from .q40 import q40_matmul
+
+RMS_EPS = 1e-5
+
+
+def rms_inv(x: torch.Tensor) -> torch.Tensor:
+    """The reference's ``rms()``: inverse RMS with eps added after the mean."""
+    ss = torch.sum(x.to(torch.float32) ** 2, dim=-1, keepdim=True)
+    ss = ss / x.shape[-1] + RMS_EPS
+    return torch.rsqrt(ss)
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    return (x * rms_inv(x)) * weight
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x / (1.0 + torch.exp(-x))
+
+
+def matmul(w, x: torch.Tensor,
+           q40: Callable[[Q40Weight, torch.Tensor], torch.Tensor] = q40_matmul
+           ) -> torch.Tensor:
+    """out[..., d] = w(d, n) @ x[..., n] with f32 accumulation.
+
+    ``w`` is a dense f32/f16 tensor or a ``Q40Weight``; Q40 goes to ``q40``
+    (the kernel wrapper by default; a caller that compares the kernel with
+    its plain version passes ``q40_matmul_plain``)."""
+    if isinstance(w, Q40Weight):
+        return q40(w, x)
+    return F.linear(x.to(torch.float32), w.to(torch.float32))
+
+
+def fuse_q40_layer_matmuls(params: dict) -> dict:
+    """Concatenate the stacked Q40 q/k/v (and w1/w3) weights along the output
+    dim into single tensors ``wqkv`` / ``w13``, host-side, at load.
+
+    The three qkv matmuls (and the two SwiGLU input matmuls) share one input
+    vector; one wide kernel launch replaces three (two) narrow ones. Row-wise
+    the math is unchanged — models/llama splits the outputs back. Fires on
+    stacked (L, d, nb, 16) numpy Q40 weights only; dense trees pass through.
+    """
+    out = dict(params)
+
+    def fuse(dst, keys):
+        ws = [out.get(k) for k in keys]
+        if not all(isinstance(w, Q40Weight) and isinstance(w.qs, np.ndarray)
+                   and w.qs.ndim == 4 for w in ws):
+            return
+        out[dst] = Q40Weight(np.concatenate([w.qs for w in ws], axis=1),
+                             np.concatenate([w.d16 for w in ws], axis=1))
+        for k in keys:
+            del out[k]
+
+    fuse("wqkv", ("wq", "wk", "wv"))
+    fuse("w13", ("w1", "w3"))
+    return out
+
+
+def q40_to_device(w: Q40Weight, device: torch.device) -> Q40Weight:
+    """Place a host Q40 weight in the port's device layout: the codec layout
+    itself, qs uint8 (..., d, nb, 16) and d16 float16 (..., d, nb), both
+    contiguous. The TPU package re-tiled here for Mosaic ((16, d, nb),
+    nb-major, int4 planes, f32 scales); on the GPU the codec layout already
+    gives one aligned 16-byte load per block, and the f16 scales are widened
+    in registers."""
+    qs = torch.from_numpy(np.ascontiguousarray(w.qs)).to(device)
+    d16 = torch.from_numpy(np.ascontiguousarray(w.d16)).to(device)
+    if qs.data_ptr() % 16:
+        raise ValueError("Q40 codes must start 16-byte aligned on the device")
+    return Q40Weight(qs, d16)

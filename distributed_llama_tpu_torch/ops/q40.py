@@ -1,0 +1,102 @@
+"""Q40 matvec: the hand-written CUDA kernel ``csrc/q40_matvec.cu`` (K1) and
+its plain PyTorch version.
+
+Replaces the T=1 branches of the JAX package's ops/pallas_q40.py
+``q40_matmul`` (the ``_kernel_matvec`` bodies of ``_q40_matmul_2d`` /
+``_q40_matmul_stacked`` and their nb-major and int4-plane tilings): the same
+value map, ``out[r] = sum_b d16[r,b] * sum_j (code[r,b,j] - 8) * x[32b+j]``
+in f32, on the codec layout (see io/loader.Q40Weight). It is bound by the
+packed weight bytes; csrc/q40_matvec.cu says how its design meets that.
+
+``q40_matmul`` takes the plain version only for tensors on the CPU. On a
+CUDA tensor it launches the kernel or raises; T>1 raises NotImplementedError
+(the prefill GEMM is not ported yet).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from ..io.loader import Q40Weight
+from ._build import CudaKernel
+from .quants import QK, dequantize_q40_torch
+
+KERNEL = CudaKernel("q40_matvec.cu", "q40_matvec",
+                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                    + [ctypes.c_void_p])
+
+_SMEM_LIMIT = 232448   # bytes of shared memory a block may use on sm_90
+_SMEM_PER_BLOCK = 144  # staged bytes per 32-value block of x (36 floats)
+
+# |kernel - plain| <= KERNEL_RTOL * max|plain|: they differ in summation
+# order only (both f32)
+KERNEL_RTOL = 1e-4
+
+
+def random_q40(d: int, n: int, device, generator: torch.Generator
+               ) -> Q40Weight:
+    """A (d, n) Q40 weight with uniform random codes and scales in
+    [1e-4, 0.0101), made on ``device`` from ``generator`` — the input on
+    which the kernel is held against its plain version."""
+    nb = n // QK
+    qs = torch.randint(0, 256, (d, nb, 16), dtype=torch.uint8, device=device,
+                       generator=generator)
+    d16 = (torch.rand((d, nb), device=device, generator=generator) * 0.01
+           + 1e-4).to(torch.float16)
+    return Q40Weight(qs, d16)
+
+
+def q40_matmul_plain(w: Q40Weight, x: torch.Tensor) -> torch.Tensor:
+    """Dequantize, then one f32 product: out[..., d] = W(d, n) @ x[..., n]."""
+    return F.linear(x.to(torch.float32), dequantize_q40_torch(w.qs, w.d16))
+
+
+def _check(w: Q40Weight, x: torch.Tensor) -> tuple[int, int]:
+    qs, d16 = w.qs, w.d16
+    if qs.dim() != 3 or qs.shape[-1] != 16 or qs.dtype != torch.uint8:
+        raise ValueError(f"q40_matmul: qs must be uint8 (d, nb, 16), got "
+                         f"{qs.dtype} {tuple(qs.shape)}")
+    d, nb = qs.shape[0], qs.shape[1]
+    if d16.dtype != torch.float16 or tuple(d16.shape) != (d, nb):
+        raise ValueError(f"q40_matmul: d16 must be float16 ({d}, {nb}), got "
+                         f"{d16.dtype} {tuple(d16.shape)}")
+    if x.dtype != torch.float32 or x.shape[-1] != nb * QK:
+        raise ValueError(f"q40_matmul: x must be float32 (..., {nb * QK}), "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    for name, t in (("qs", qs), ("d16", d16), ("x", x)):
+        if t.device != x.device:
+            raise ValueError(f"q40_matmul: {name} on {t.device}, x on "
+                             f"{x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"q40_matmul: {name} must be contiguous")
+    if qs.data_ptr() % 16:
+        raise ValueError("q40_matmul: qs must be 16-byte aligned")
+    if nb * _SMEM_PER_BLOCK > _SMEM_LIMIT:
+        raise ValueError(f"q40_matmul: input width {nb * QK} exceeds the "
+                         f"kernel's shared-memory staging of x")
+    return d, nb
+
+
+def q40_matmul(w: Q40Weight, x: torch.Tensor) -> torch.Tensor:
+    """out[..., d] = dequant(w)(d, n) @ x[..., n], f32.
+
+    CPU tensors take the plain version; CUDA tensors launch K1 (T=1 only).
+    """
+    if x.device.type == "cpu" and w.qs.device.type == "cpu":
+        return q40_matmul_plain(w, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"q40_matmul: no kernel for device {x.device}")
+    d, nb = _check(w, x)
+    if x.numel() != nb * QK:
+        raise NotImplementedError(
+            f"q40_matmul on CUDA takes one token (T=1); got x of shape "
+            f"{tuple(x.shape)} — the T>1 prefill kernel is not ported yet")
+    out = torch.empty((*x.shape[:-1], d), dtype=torch.float32,
+                      device=x.device)
+    KERNEL.launch(w.qs.data_ptr(), w.d16.data_ptr(), x.data_ptr(),
+                  out.data_ptr(), d, nb,
+                  torch.cuda.current_stream(x.device).cuda_stream)
+    return out

@@ -1,0 +1,146 @@
+"""Generation loop + engine (the reference's generate()).
+
+``Engine`` owns the device params, the KV cache and the forward behind the
+reference's ``infer(token, pos) -> logits`` shape; ``generate`` reproduces
+the reference's observable behaviour: prompt tokens forced one at a time,
+sampling after the prompt, stop on BOS, the per-token 🔶 stats line and the
+final averages.
+
+Stats: I = device step time (the forward up to the host copy of the
+logits, which waits for the device), T = host time (sampling + loop). A
+single device exchanges nothing, so the S/R (sent/received) fields of the
+🔶 line are 0.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..io.tokenizer import BOS, Tokenizer
+from ..models.llama import Llama, init_cache, params_to_device
+from ..models.spec import TransformerSpec
+from ..ops import attention, q40
+from ..ops._build import build
+from .sampling import Sampler
+
+
+class Engine:
+    """Owns params + cache + the forward on one device; exposes
+    infer(token, pos)."""
+
+    def __init__(self, spec: TransformerSpec, params: dict[str, Any],
+                 device="cuda"):
+        self.spec = spec
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            # build (or find) the kernels now, not inside the first token
+            build([q40.KERNEL, attention.KERNEL])
+        self.params = params_to_device(params, self.device)
+        self.model = Llama(spec, self.params)
+        self.cache = init_cache(spec, self.device)
+
+    @torch.inference_mode()
+    def infer(self, token: int, pos: int) -> np.ndarray:
+        """One decode step; returns host f32 logits (vocab,)."""
+        logits = self.model(self.cache, token, pos)
+        return logits[0].cpu().numpy()
+
+    def reset(self) -> None:
+        self.cache.k.zero_()
+        self.cache.v.zero_()
+
+
+@dataclasses.dataclass
+class GenStats:
+    tokens: int = 0
+    total_ms: float = 0.0
+    infer_ms: float = 0.0
+    host_ms: float = 0.0
+    token_ms: list = dataclasses.field(default_factory=list)
+    # ^ per-token wall ms — feeds the final-line latency summary
+
+    @property
+    def avg(self) -> tuple[float, float, float]:
+        n = max(self.tokens, 1)
+        return self.total_ms / n, self.infer_ms / n, self.host_ms / n
+
+
+def summarize_values(values) -> dict:
+    """Exact {'count','mean','p50','p95','p99'} of a list of samples
+    (linear interpolation between ranks, numpy's 'linear' method)."""
+    vals = sorted(float(v) for v in values)
+    if not vals:
+        return {"count": 0, "mean": 0.0, "p50": 0.0, "p95": 0.0, "p99": 0.0}
+
+    def pct(q: float) -> float:
+        idx = q * (len(vals) - 1)
+        lo = int(math.floor(idx))
+        hi = min(lo + 1, len(vals) - 1)
+        return vals[lo] + (vals[hi] - vals[lo]) * (idx - lo)
+
+    return {"count": len(vals), "mean": sum(vals) / len(vals),
+            "p50": pct(0.50), "p95": pct(0.95), "p99": pct(0.99)}
+
+
+def generate(engine: Engine, tokenizer: Tokenizer, sampler: Sampler,
+             prompt: str, steps: int,
+             quiet: bool = False) -> tuple[list[int], GenStats]:
+    """The reference generation loop.
+
+    Encodes the prompt with BOS (no EOS), forces prompt tokens, samples after,
+    stops early on BOS, prints the per-token stats line and final averages.
+    """
+    steps = min(steps, engine.spec.seq_len)
+    prompt_tokens = tokenizer.encode(prompt or "", bos=True, eos=False)
+    if not prompt_tokens:
+        raise ValueError("something is wrong, expected at least 1 prompt token")
+    token = prompt_tokens[0]
+    out_tokens: list[int] = []
+    stats = GenStats()
+    pos = 0
+    while pos < steps:
+        t0 = time.perf_counter()
+        logits = engine.infer(token, pos)
+        t1 = time.perf_counter()
+
+        if pos + 1 < len(prompt_tokens):
+            next_token = prompt_tokens[pos + 1]
+        else:
+            next_token = sampler.sample(logits)
+        t2 = time.perf_counter()
+
+        gen_ms = (t2 - t0) * 1000
+        stats.tokens += 1
+        stats.total_ms += gen_ms
+        stats.infer_ms += (t1 - t0) * 1000
+        stats.host_ms += (t2 - t1) * 1000
+        stats.token_ms.append(gen_ms)
+
+        pos += 1
+        if next_token == BOS:
+            break  # the reference stops on BOS before decoding it
+        out_tokens.append(next_token)
+        piece = tokenizer.decode_piece(token, next_token)
+        text = piece.decode("utf-8", errors="replace")
+        if not quiet:
+            print(f"🔶 G {gen_ms:7.2f} ms I {(t1 - t0) * 1000:7.2f} ms "
+                  f"T {(t2 - t1) * 1000:7.2f} ms S {0:7.0f} kB "
+                  f"R {0:7.0f} kB {text!r}")
+        token = next_token
+
+    if stats.tokens and not quiet:
+        lat = summarize_values(stats.token_ms)
+        g, i, t = stats.avg
+        print(f"Generated tokens:    {stats.tokens}")
+        print(f"Avg generation time: {g:.2f} ms")
+        print(f"Avg inference time:  {i:.2f} ms")
+        print(f"Avg transfer time:   {t:.2f} ms")
+        print(f"Latency ms/token:    p50 {lat['p50']:.2f}  "
+              f"p95 {lat['p95']:.2f}  p99 {lat['p99']:.2f}")
+    return out_tokens, stats

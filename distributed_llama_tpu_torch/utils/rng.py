@@ -1,0 +1,39 @@
+"""xorshift64* RNG with bit-exact parity to the reference.
+
+The reference draws its sampling coins from a xorshift64* generator
+(randomU32/randomF32); seeded sampling parity needs its exact integer
+sequence.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+_MASK64 = (1 << 64) - 1
+_MULT = 0x2545F4914F6CDD1D
+
+
+def random_u32(state: int) -> tuple[int, int]:
+    """One xorshift64* step. Returns (new_state, u32 sample)."""
+    s = state & _MASK64
+    s ^= s >> 12
+    s ^= (s << 25) & _MASK64
+    s ^= s >> 27
+    return s, ((s * _MULT) & _MASK64) >> 32
+
+
+def random_f32(state: int) -> tuple[int, float]:
+    """float32 in [0, 1): (randomU32 >> 8) / 2^24."""
+    s, u = random_u32(state)
+    return s, np.float32(u >> 8) / np.float32(16777216.0)
+
+
+class Xorshift64:
+    """Stateful generator of the sampler's coins."""
+
+    def __init__(self, seed: int):
+        self.state = seed & _MASK64
+
+    def f32(self) -> float:
+        self.state, f = random_f32(self.state)
+        return f
