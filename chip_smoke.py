@@ -9,24 +9,45 @@ Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
 
 1. Card: name and power limit (nvidia-smi), torch/CUDA versions, and the
-   build of every kernel from ``distributed_llama_tpu_torch/csrc``.
+   build of every kernel from ``distributed_llama_tpu_torch/csrc`` (one
+   nvcc per source, all started together), with the build seconds.
 2. Kernels against their plain versions on the card at the Llama-2-7B
-   shapes: the Q40 matvec on wqkv/wo/w13/w2/wcls, the decode attention at
-   kv_mul 1 (7B) and 8 (70B-style GQA) over positions 0..2047. Max error
-   against the stated tolerance; kernel, plain and library times (CUDA
-   events, median of 25 launches, L2 flushed before each); the bound.
+   shapes: the Q40 matvec (K1) on wqkv/wo/w13/w2/wcls, the decode
+   attention (K2) at kv_mul 1 (7B) and 8 (70B-style GQA) over positions
+   0..2047, the small-T Q40 matvec (K1m) at T = 2, 4, 8 and the Q40 GEMM
+   (K3) at T = 16, 100, 128 on wqkv/wo/w13/w2 (and wcls at T = 16), the
+   prefill attention (K4) at T = 128 and pos 0, 384, 1920 for 7B and the
+   GQA shape, with a poisoned cache suffix past pos+T that must not change
+   its output. Max error against the stated tolerance; kernel, plain and
+   library times (CUDA events, median of 25 launches, L2 flushed before
+   each); the bound and what bounds it.
 3. End to end: a 7B-shaped Q40 model with random codes (seeded) and a
    32000-piece tokenizer are written to build/smoke/, then the port's CLI
-   runs ``inference`` in-process for 64 steps, greedy. Every kernel's
-   launch count is reset just before and read just after: the Q40 matvec
-   must run 4*L+1 = 129 times and the attention L = 32 times per step.
+   runs ``inference`` in-process three times, every kernel's launch count
+   reset just before and read just after each run:
+   a. 64 steps token by token, greedy: K1 4*L+1 = 129 and K2 L = 32
+      launches per step;
+   b. a 512-token prompt (BOS + 511 " hi") with ``--prefill-chunk 128
+      --steps 576``: 4 chunks of T = 128 (K3 4*L*4 = 512, K4 L*4 = 128,
+      K1m 0), then 65 decode steps from pos 511 (K1 129*65, K2 32*65);
+   c. ``--buffer-float-type q80 --prefill-chunk 8``, 64 steps over the
+      20-token prompt: 3 chunks of T = 8 (K1m 4*L*3 = 384, K4 L*3 = 96),
+      then 45 decode steps; every step's logits must be finite.
 4. Kernels against plain at full width: the first 4 positions of the same
    model through the forward with the kernels and with the plain versions;
    then 8 more kernel steps timed, and 8 under torch.profiler for the
-   device time by kernel and the device's busy share. The random codes make
-   that model's logits nearly position-independent, so a small model with
-   quantized-Gaussian weights also runs through the kernels on the card
-   and is held against the plain path on the CPU.
+   device time by kernel and the device's busy share. Then Engine.prefill
+   of the 512-token prompt at chunk 128, timed (host clock, synchronised,
+   median of 3), beside its matmul and attention bounds, and once more
+   under torch.profiler for the in-situ device time of K3, K4 and the
+   torch glue against that wall time; its cache rows
+   and next-step logits held against the same tokens stepped at T = 1
+   through K1 and K2, and against prefill through the plain versions on
+   the card. The random codes make that model's logits nearly
+   position-independent, so a small model with quantized-Gaussian weights
+   also runs through the kernels on the card (8 decode steps, and prefill
+   at chunk 4 through K1m and chunk 16 through K3) and is held against the
+   plain path on the CPU.
 5. The ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -58,6 +79,10 @@ PEAKS = {"sxm": (3.35e12, 67e12), "pcie": (2.0e12, 51e12)}
 REPS = 25
 STEPS = 64
 PROMPT = " ".join(["hi"] * 19)  # BOS + 19 merged " hi" pieces = 20 tokens
+PROMPT_512 = " ".join(["hi"] * 511)  # BOS + 511 " hi" = 512 tokens
+CHUNK = 128          # the prefill chunk of phases 3b and 4
+STEPS_512 = 576      # 511 prefilled positions + 65 decode steps
+Q80_CHUNK = 8        # phase 3c: q80 buffers, prefill through K1m
 
 
 def log(msg: str) -> None:
@@ -121,10 +146,11 @@ def phase_card(torch):
     from distributed_llama_tpu_torch.ops import attention, q40
     from distributed_llama_tpu_torch.ops._build import build
 
-    kernels = [q40.KERNEL, attention.KERNEL]
+    kernels = [*q40.KERNELS, *attention.KERNELS]
     secs = build(kernels)
-    log(f"built {[k.source for k in kernels]} in {secs:.1f} s")
-    return smi, name, peaks
+    log(f"built {sorted({k.source for k in kernels})} "
+        f"({[k.symbol for k in kernels]}) in {secs:.1f} s")
+    return smi, name, peaks, secs
 
 
 # --------------------------------------------------------------------------
@@ -225,6 +251,150 @@ def phase_k2(torch, timer, peaks):
     return rows
 
 
+def _q40_rows(torch, timer, peaks, kernel, cases, seed):
+    """K1m or K3 against the plain version on the 7B shapes; the library
+    yardstick is cuBLAS SGEMM (torch.matmul, TF32 off) on the weight
+    dequantized beforehand (the dequant is not timed)."""
+    from distributed_llama_tpu_torch.ops.q40 import (KERNEL_RTOL, q40_matmul,
+                                                     q40_matmul_plain,
+                                                     random_q40)
+    from distributed_llama_tpu_torch.ops.quants import dequantize_q40_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for name, d, n, t, per_unit in cases:
+        nb = n // 32
+        w = random_q40(d, n, "cuda", g)
+        x = torch.randn((t, n), device="cuda", generator=g)
+        before = kernel.launches
+        got = q40_matmul(w, x)
+        torch.cuda.synchronize()
+        if kernel.launches != before + 1:
+            raise AssertionError(f"{kernel.symbol} {name} T={t}: not launched")
+        want = q40_matmul_plain(w, x)
+        err = (got - want).abs().max().item()
+        tol = KERNEL_RTOL * want.abs().max().item()
+        wf = dequantize_q40_torch(w.qs, w.d16)
+        lib_err = (torch.matmul(x, wf.T) - want).abs().max().item()
+        ms = timer(lambda: q40_matmul(w, x))
+        plain_ms = timer(lambda: q40_matmul_plain(w, x))
+        library_ms = timer(lambda: torch.matmul(x, wf.T))
+        nbytes = d * nb * 18 + t * n * 4 + t * d * 4
+        b_ms, b_by = bound(nbytes, 2.0 * t * d * n, peaks)
+        log(f"{kernel.symbol} {name:5s} T={t:3d} ({d}x{n}): max_abs_err "
+            f"{err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms sgemm {library_ms:.4f} ms (err {lib_err:.1e})"
+            f" bound {b_ms:.4f} ms ({b_by})")
+        if not err <= tol:
+            raise AssertionError(f"{kernel.symbol} {name} T={t}: error {err}"
+                                 f" above {tol}")
+        rows.append(dict(shape=name, d=d, n=n, t=t, per_token=per_unit,
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms))
+        del w, x, got, want, wf
+    return rows
+
+
+# (name, d, n) of the four layer matrices at 7B
+LAYER_SHAPES = [(name, d, n) for name, d, n, _ in K1_SHAPES[:4]]
+
+
+def phase_k1m(torch, timer, peaks):
+    from distributed_llama_tpu_torch.ops.q40 import KERNEL_MULTI
+
+    cases = [(name, d, n, t, 32 if t == Q80_CHUNK else 0)
+             for t in (2, 4, 8) for name, d, n in LAYER_SHAPES]
+    return _q40_rows(torch, timer, peaks, KERNEL_MULTI, cases, seed=2)
+
+
+def phase_k3(torch, timer, peaks):
+    from distributed_llama_tpu_torch.ops.q40 import KERNEL_GEMM
+
+    cases = [(name, d, n, t, 32 if t == CHUNK else 0)
+             for t in (16, 100, CHUNK) for name, d, n in LAYER_SHAPES]
+    cases.append(("wcls", 32000, 4096, 16, 0))
+    return _q40_rows(torch, timer, peaks, KERNEL_GEMM, cases, seed=3)
+
+
+K4_CASES = [  # (label, L, n_kv, kv_mul)
+    ("7b", 32, 32, 1), ("gqa8", 4, 8, 8)]
+K4_POS = (0, 384, 1920)
+
+
+def phase_k4(torch, timer, peaks):
+    import torch.nn.functional as F
+
+    from distributed_llama_tpu_torch.ops.attention import (
+        KERNEL_ATOL, PREFILL_KERNEL, attention_scale, prefill_attention,
+        prefill_attention_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    t_len, hs = CHUNK, K2_HS
+    for label, L, n_kv, kv_mul in K4_CASES:
+        shape = (L, K2_SEQ, n_kv, hs)
+        n_q = n_kv * kv_mul
+        layer = L - 1
+        for pos in K4_POS:
+            k_all = torch.randn(shape, device="cuda", generator=g)
+            v_all = torch.randn(shape, device="cuda", generator=g)
+            q = torch.randn((t_len, n_q, hs), device="cuda", generator=g)
+            before = PREFILL_KERNEL.launches
+            got = prefill_attention(q, k_all, v_all, layer, pos, kv_mul)
+            torch.cuda.synchronize()
+            if PREFILL_KERNEL.launches != before + 1:
+                raise AssertionError(f"K4 {label} pos {pos}: not launched")
+            want = prefill_attention_plain(q, k_all, v_all, layer, pos,
+                                           kv_mul)
+            err = (got - want).abs().max().item()
+            live = pos + t_len
+            # yardstick only: the port never calls SDPA
+            qs = q.permute(1, 0, 2).unsqueeze(0)
+            ks = k_all[layer, :live].permute(1, 0, 2).unsqueeze(0)
+            vs = v_all[layer, :live].permute(1, 0, 2).unsqueeze(0)
+            mask = (torch.arange(live, device="cuda")[None, :]
+                    <= torch.arange(pos, live, device="cuda")[:, None])
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask, scale=attention_scale(hs),
+                    enable_gqa=kv_mul > 1)
+
+            lib_err = (lib()[0].permute(1, 0, 2).reshape(t_len, -1)
+                       - want).abs().max().item()
+            ms = timer(lambda: prefill_attention(q, k_all, v_all, layer, pos,
+                                                 kv_mul))
+            plain_ms = timer(lambda: prefill_attention_plain(
+                q, k_all, v_all, layer, pos, kv_mul))
+            library_ms = timer(lib)
+            # a poisoned suffix past pos+T-1 must stay unread
+            k_all[layer, live:] = 1e9
+            v_all[layer, live:] = float("nan")
+            again = prefill_attention(q, k_all, v_all, layer, pos, kv_mul)
+            torch.cuda.synchronize()
+            poisoned = not torch.equal(again, got)
+            nbytes = 2 * live * n_kv * hs * 4 + 2 * t_len * n_q * hs * 4
+            row_keys = t_len * pos + t_len * (t_len + 1) // 2
+            b_ms, b_by = bound(nbytes, 4.0 * n_q * hs * row_keys, peaks)
+            log(f"K4 {label} T={t_len} pos {pos:4d}: max_abs_err {err:.3e} "
+                f"(tol {KERNEL_ATOL:.0e}) kernel {ms:.4f} ms plain "
+                f"{plain_ms:.4f} ms sdpa {library_ms:.4f} ms (err "
+                f"{lib_err:.1e}) bound {b_ms:.5f} ms ({b_by}); poisoned "
+                f"suffix {'CHANGED the output' if poisoned else 'invisible'}")
+            if not err <= KERNEL_ATOL:
+                raise AssertionError(f"K4 {label} pos {pos}: error {err}")
+            if poisoned:
+                raise AssertionError(f"K4 {label} pos {pos}: keys past "
+                                     f"pos+T changed the output")
+            rows.append(dict(case=label, n_kv=n_kv, kv_mul=kv_mul, t=t_len,
+                             pos=pos, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=library_ms))
+            del k_all, v_all, q, got, want, again
+    return rows
+
+
 # --------------------------------------------------------------------------
 # phase 3: the main path, end to end through the CLI
 # --------------------------------------------------------------------------
@@ -275,25 +445,66 @@ class _Tee(io.TextIOBase):
             st.flush()
 
 
-def phase_e2e(torch, model, tok):
-    from distributed_llama_tpu_torch.frontend import cli
+def _all_kernels():
     from distributed_llama_tpu_torch.ops import attention, q40
 
+    return [*q40.KERNELS, *attention.KERNELS]
+
+
+@contextlib.contextmanager
+def _finite_logits(seen: list):
+    """Record, for every decode step the engine runs, whether its logits
+    are all finite."""
+    import numpy as np
+
+    from distributed_llama_tpu_torch.runtime import generate
+
+    infer = generate.Engine.infer
+
+    def checked(self, token, pos):
+        logits = infer(self, token, pos)
+        seen.append(bool(np.isfinite(logits).all()))
+        return logits
+
+    generate.Engine.infer = checked
+    try:
+        yield
+    finally:
+        generate.Engine.infer = infer
+
+
+def _run_cli(torch, model, tok, args: list[str]):
+    """The CLI in-process with every kernel's count set to 0 just before and
+    read just after. Returns (stdout, launches by kernel symbol, wall s,
+    per-step logits-finite flags)."""
+    from distributed_llama_tpu_torch.frontend import cli
+
     buf = io.StringIO()
-    torch.cuda.reset_peak_memory_stats()
-    q40.KERNEL.launches = 0
-    attention.KERNEL.launches = 0
+    finite = []
+    for k in _all_kernels():
+        k.launches = 0
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)), \
+            _finite_logits(finite):
         rc = cli.main(["inference", "--model", str(model), "--tokenizer",
-                       str(tok), "--prompt", PROMPT, "--steps", str(STEPS),
-                       "--temperature", "0", "--seed", "1"])
+                       str(tok), *args])
     wall = time.perf_counter() - t0
-    launches = {"q40_matvec": q40.KERNEL.launches,
-                "decode_attention": attention.KERNEL.launches}
+    launches = {k.symbol: k.launches for k in _all_kernels()}
     if rc != 0:
-        raise RuntimeError(f"CLI exited {rc}")
-    out = buf.getvalue()
+        raise RuntimeError(f"CLI {args} exited {rc}")
+    return buf.getvalue(), launches, wall, finite
+
+
+def phase_e2e(torch, model, tok):
+    torch.cuda.reset_peak_memory_stats()
+    out, counts, wall, _ = _run_cli(torch, model, tok, [
+        "--prompt", PROMPT, "--steps", str(STEPS), "--temperature", "0",
+        "--seed", "1"])
+    launches = {"q40_matvec": counts["q40_matvec"],
+                "decode_attention": counts["decode_attention"]}
+    if any(n for sym, n in counts.items()
+           if sym not in ("q40_matvec", "decode_attention")):
+        raise AssertionError(f"token-by-token run launched {counts}")
     steps = int(re.search(r"Generated tokens:\s+(\d+)", out).group(1))
     p50 = float(re.search(r"p50 ([\d.]+)", out).group(1))
     avg = float(re.search(r"Avg generation time: ([\d.]+) ms", out).group(1))
@@ -312,22 +523,80 @@ def phase_e2e(torch, model, tok):
     return e2e
 
 
+def _expect(label, counts, want):
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, want {want}")
+
+
+def phase_e2e_prefill(torch, model, tok, n_layers):
+    """Run b: the 512-token prompt through --prefill-chunk 128."""
+    torch.cuda.reset_peak_memory_stats()
+    out, counts, wall, finite = _run_cli(torch, model, tok, [
+        "--prompt", PROMPT_512, "--steps", str(STEPS_512), "--temperature",
+        "0", "--seed", "1", "--prefill-chunk", str(CHUNK)])
+    steps = int(re.search(r"Generated tokens:\s+(\d+)", out).group(1))
+    n_chunks = (511 + CHUNK - 1) // CHUNK
+    _expect("prefill run", counts, {
+        "q40_matvec": (4 * n_layers + 1) * steps,
+        "q40_matvec_multi": 0,
+        "q40_gemm": 4 * n_layers * n_chunks,
+        "decode_attention": n_layers * steps,
+        "prefill_attention": n_layers * n_chunks})
+    if steps != STEPS_512 - 511 or not all(finite) or len(finite) != steps:
+        raise AssertionError(f"prefill run: {steps} decode steps, finite "
+                             f"logits {sum(finite)}/{len(finite)}")
+    if out.count("🔶") < steps - 1:
+        raise AssertionError("missing per-token 🔶 lines")
+    res = dict(prompt_tokens=512, chunk=CHUNK, decode_steps=steps,
+               wall_s=wall, launches=counts,
+               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+               ms_per_token_avg=float(re.search(
+                   r"Avg generation time: ([\d.]+) ms", out).group(1)))
+    log(f"e2e prefill: {json.dumps(res)}")
+    return res
+
+
+def phase_e2e_q80(torch, model, tok, n_layers):
+    """Run c: q80 buffers, the 20-token prompt through --prefill-chunk 8."""
+    out, counts, wall, finite = _run_cli(torch, model, tok, [
+        "--prompt", PROMPT, "--steps", str(STEPS), "--temperature", "0",
+        "--seed", "1", "--buffer-float-type", "q80", "--prefill-chunk",
+        str(Q80_CHUNK)])
+    steps = int(re.search(r"Generated tokens:\s+(\d+)", out).group(1))
+    n_chunks = (19 + Q80_CHUNK - 1) // Q80_CHUNK
+    _expect("q80 run", counts, {
+        "q40_matvec": (4 * n_layers + 1) * steps,
+        "q40_matvec_multi": 4 * n_layers * n_chunks,
+        "q40_gemm": 0,
+        "decode_attention": n_layers * steps,
+        "prefill_attention": n_layers * n_chunks})
+    if steps != STEPS - 19 or not all(finite) or len(finite) != steps:
+        raise AssertionError(f"q80 run: {steps} decode steps, finite "
+                             f"logits {sum(finite)}/{len(finite)}")
+    res = dict(buffer="q80", chunk=Q80_CHUNK, decode_steps=steps,
+               wall_s=wall, launches=counts, finite_steps=sum(finite))
+    log(f"e2e q80: {json.dumps(res)}")
+    return res
+
+
 # --------------------------------------------------------------------------
 # phase 4: kernels against plain at full width, end to end
 # --------------------------------------------------------------------------
 
-def phase_full_width(torch, model, tok):
+def phase_full_width(torch, model, tok, peaks):
     from distributed_llama_tpu_torch.io.loader import load_model
     from distributed_llama_tpu_torch.io.tokenizer import Tokenizer
     from distributed_llama_tpu_torch.models import llama
     from distributed_llama_tpu_torch.ops.quants import FloatType
+    from distributed_llama_tpu_torch.runtime.generate import Engine
 
     spec, host = load_model(str(model), weights_float_type=FloatType.Q40)
-    params = llama.params_to_device(host, "cuda")
+    engine = Engine(spec, host, "cuda")
     del host
-    tokens = Tokenizer(str(tok), spec.vocab_size).encode(PROMPT)[:4]
-    kern = llama.Llama(spec, params)
-    plain = llama.Llama(spec, params, llama.PLAIN)
+    tokenizer = Tokenizer(str(tok), spec.vocab_size)
+    tokens = tokenizer.encode(PROMPT)[:4]
+    kern = engine.model
+    plain = llama.Llama(spec, engine.params, llama.PLAIN)
     ck = llama.init_cache(spec, "cuda")
     cp = llama.init_cache(spec, "cuda")
     worst = 0.0
@@ -347,7 +616,105 @@ def phase_full_width(torch, model, tok):
                                      f"differ by {err}")
             worst = max(worst, err)
         busy = profile_steps(torch, kern, ck, tokens[-1], len(tokens))
-    return worst, busy
+    del ck, cp
+    prefill = prefill_full_width(torch, engine, plain,
+                                 tokenizer.encode(PROMPT_512), peaks)
+    return worst, busy, prefill
+
+
+def _prefill_bounds(spec, n_tokens, peaks):
+    """(matmul bound ms, attention bound ms) of prefilling n_tokens at
+    CHUNK: the 4 layer matrices of every layer at T = CHUNK per chunk, and
+    K4's bound per layer and chunk (as phase_k4 counts it)."""
+    hs, n_q, n_kv = spec.head_size, spec.n_heads, spec.n_kv_heads
+    mm = att = 0.0
+    for pos in range(0, n_tokens, CHUNK):
+        for _, d, n in LAYER_SHAPES:
+            nbytes = d * (n // 32) * 18 + CHUNK * (n + d) * 4
+            mm += bound(nbytes, 2.0 * CHUNK * d * n, peaks)[0] * spec.n_layers
+        live = pos + CHUNK
+        nbytes = 2 * live * n_kv * hs * 4 + 2 * CHUNK * n_q * hs * 4
+        row_keys = CHUNK * pos + CHUNK * (CHUNK + 1) // 2
+        att += bound(nbytes, 4.0 * n_q * hs * row_keys,
+                     peaks)[0] * spec.n_layers
+    return mm, att
+
+
+def prefill_full_width(torch, engine, plain, tokens, peaks):
+    """Engine.prefill of the 512-token prompt at CHUNK: timed, then held
+    against the same tokens stepped at T = 1 (K1 + K2) and against prefill
+    through the plain versions, on the cache rows and the next-step
+    logits. Tolerance: LOGIT_RTOL of the reference's largest magnitude
+    (f32 throughout; the routes sum in different orders through 32
+    layers)."""
+    from distributed_llama_tpu_torch.models import llama
+    from distributed_llama_tpu_torch.runtime.generate import \
+        run_chunked_prefill
+
+    spec, kern = engine.spec, engine.model
+    n = len(tokens)
+    if n != 512:
+        raise AssertionError(f"the 512-token prompt encodes to {n} tokens")
+    with torch.inference_mode():
+        engine.prefill(tokens, 0, CHUNK)  # warm-up
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.prefill(tokens, 0, CHUNK)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        mm_bound, att_bound = _prefill_bounds(spec, n, peaks)
+        log(f"prefill {n} tokens at chunk {CHUNK}: {ms:.2f} ms (runs "
+            f"{', '.join(f'{t:.2f}' for t in times)}), {n / ms * 1e3:.0f} "
+            f"tokens/s; bound {mm_bound:.2f} ms of matmuls (operations) + "
+            f"{att_bound:.3f} ms of attention")
+        in_situ = profile_prefill(torch, engine, tokens, ms)
+        nxt = tokens[-1]
+        got = kern(engine.cache, nxt, n)
+
+        stepped = llama.init_cache(spec, "cuda")
+        for pos, t in enumerate(tokens):
+            kern(stepped, t, pos, logits=False)
+        want = kern(stepped, nxt, n)
+        checks = {"stepwise": (stepped, want)}
+        del stepped
+
+        viaplain = llama.init_cache(spec, "cuda")
+        run_chunked_prefill(
+            lambda part, start: plain(viaplain, part, start, logits=False),
+            tokens, 0, CHUNK, spec.seq_len)
+        checks["plain"] = (viaplain, plain(viaplain, nxt, n))
+        del viaplain
+
+        res = dict(tokens=n, chunk=CHUNK, ms=ms, runs_ms=times,
+                   tokens_per_s=n / ms * 1e3, matmul_bound_ms=mm_bound,
+                   attention_bound_ms=att_bound, in_situ=in_situ)
+        if not torch.isfinite(got).all():
+            raise AssertionError("prefilled next-step logits not finite")
+        for label, (cache, ref) in checks.items():
+            cache_err = max((engine.cache.k[:, :n] - cache.k[:, :n]).abs()
+                            .max().item(),
+                            (engine.cache.v[:, :n] - cache.v[:, :n]).abs()
+                            .max().item())
+            cache_tol = llama.LOGIT_RTOL * max(
+                cache.k[:, :n].abs().max().item(),
+                cache.v[:, :n].abs().max().item())
+            err = (got - ref).abs().max().item()
+            tol = llama.LOGIT_RTOL * ref.abs().max().item()
+            log(f"prefill vs {label}: cache rows 0..{n - 1} max_abs_err "
+                f"{cache_err:.3e} (tol {cache_tol:.3e}); next logits "
+                f"max_abs_err {err:.3e} (tol {tol:.3e})")
+            if not (cache_err <= cache_tol and err <= tol):
+                raise AssertionError(f"prefill vs {label}: cache {cache_err}"
+                                     f" / logits {err} above tolerance")
+            res[f"vs_{label}"] = dict(cache_err=cache_err,
+                                      cache_tol=cache_tol, logit_err=err,
+                                      logit_tol=tol)
+            del cache
+        checks.clear()
+    return res
 
 
 def profile_steps(torch, model, cache, token, pos0, n=8):
@@ -356,38 +723,85 @@ def profile_steps(torch, model, cache, token, pos0, n=8):
     torch.profiler for the device time by kernel. Returns the device busy
     share (device kernel time / wall), or None when the trace holds no
     device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(n):
         model(cache, token, pos0 + i)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def steps():
         for i in range(n):
             model(cache, token, pos0 + n + i)
-        torch.cuda.synchronize()
-    # kernel entries only: an aten op's entry repeats its kernels' time
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev = sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count / n)
-                  for e in events if e.self_device_time_total > 0),
-                 key=lambda r: -r[1])
+
+    dev, prof_ms = _profiled(torch, steps, n)
     dev_ms = sum(ms for _, ms, _ in dev)
-    log(f"decode step (no profiler): {wall_ms:.4f} ms wall; device kernel "
-        f"time {dev_ms:.4f} ms/step over {sum(c for *_, c in dev):.0f} "
-        f"kernels/step")
+    log(f"decode step (no profiler): {wall_ms:.4f} ms wall ({prof_ms:.4f} "
+        f"under the profiler); device kernel time {dev_ms:.4f} ms/step over "
+        f"{sum(c for *_, c in dev):.0f} kernels/step")
     for key, ms, count in dev[:10]:
         log(f"  {ms:8.4f} ms/step  x{count:5.0f}  {key[:90]}")
     if dev_ms == 0:
         log("  the profiler traced no device time: busy share not measured")
         return None
-    return dict(wall_ms=wall_ms, device_ms=dev_ms, busy=dev_ms / wall_ms,
+    return dict(wall_ms=wall_ms, profiled_wall_ms=prof_ms, device_ms=dev_ms,
+                busy=dev_ms / wall_ms,
                 kernels_per_step=sum(c for *_, c in dev),
                 top=[dict(kernel=k[:80], ms=ms, count=c)
                      for k, ms, c in dev[:6]])
+
+
+def _profiled(torch, fn, n):
+    """Run ``fn`` (n units of work) once under torch.profiler. Returns
+    ([(kernel, device ms per unit, launches per unit)], slowest first, and
+    the profiled wall ms per unit). Kernel entries only: an aten op's entry
+    repeats its kernels' time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof_ms = (time.perf_counter() - t0) * 1e3 / n
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+                  for e in events if e.self_device_time_total > 0),
+                 key=lambda r: -r[1])
+    return dev, prof_ms
+
+
+def profile_prefill(torch, engine, tokens, wall_ms):
+    """Where a prefill's time goes in situ: one Engine.prefill of ``tokens``
+    at CHUNK under torch.profiler, its device time split into K3, K4 and
+    the rest (the torch glue), each read against ``wall_ms``, the
+    unprofiled wall time of the same call. Returns None when the trace
+    holds no device time."""
+    dev, prof_ms = _profiled(torch, lambda: engine.prefill(tokens, 0, CHUNK),
+                             1)
+    dev_ms = sum(ms for _, ms, _ in dev)
+    if dev_ms == 0:
+        log("prefill profile: the profiler traced no device time")
+        return None
+    split = {"q40_gemm": [0.0, 0.0], "prefill_attention": [0.0, 0.0],
+             "other": [0.0, 0.0]}
+    for key, ms, count in dev:
+        part = next((p for p in ("q40_gemm", "prefill_attention")
+                     if f"{p}_kernel" in key), "other")
+        split[part][0] += ms
+        split[part][1] += count
+    log(f"prefill in situ: {wall_ms:.2f} ms wall ({prof_ms:.2f} under the "
+        f"profiler); device kernel time {dev_ms:.2f} ms (busy "
+        f"{dev_ms / wall_ms:.1%}): " + ", ".join(
+            f"{p} {ms:.2f} ms x{c:.0f} ({ms / wall_ms:.1%} of the wall)"
+            for p, (ms, c) in split.items()))
+    for key, ms, count in dev[:6]:
+        log(f"  {ms:8.3f} ms  x{count:5.0f}  {key[:90]}")
+    return dict(wall_ms=wall_ms, profiled_wall_ms=prof_ms, device_ms=dev_ms,
+                busy=dev_ms / wall_ms,
+                **{f"{p}_ms": ms for p, (ms, _) in split.items()},
+                **{f"{p}_launches": c for p, (_, c) in split.items()})
 
 
 def phase_small_reference(torch):
@@ -421,6 +835,54 @@ def phase_small_reference(torch):
             argmaxes.add(int(b.argmax()))
     log(f"small model, kernels on the card vs plain on the CPU: 8 positions, "
         f"max_abs_err {worst:.3e}, {len(argmaxes)} distinct argmaxes")
+    return max(worst, small_prefill(torch, spec, gpu, cpu))
+
+
+def small_prefill(torch, spec, gpu, cpu):
+    """Prefill of 40 tokens at chunk 4 (through K1m) and 16 (through K3) on
+    the card against the plain path on the CPU: cache rows and next-step
+    logits, with the exact launch counts."""
+    import numpy as np
+
+    from distributed_llama_tpu_torch.models import llama
+    from distributed_llama_tpu_torch.runtime.generate import \
+        run_chunked_prefill
+
+    tokens = [int(t) for t in np.random.default_rng(8).integers(
+        2, spec.vocab_size, 40)]
+    L = spec.n_layers
+    want_counts = {4: {"q40_matvec_multi": 4 * L * 10,
+                       "prefill_attention": L * 10},
+                   16: {"q40_gemm": 4 * L * 3, "prefill_attention": L * 3}}
+    worst = 0.0
+    with torch.inference_mode():
+        for chunk, want in want_counts.items():
+            cg = llama.init_cache(spec, "cuda")
+            cc = llama.init_cache(spec, "cpu")
+            for k in _all_kernels():
+                k.launches = 0
+            run_chunked_prefill(
+                lambda part, start: gpu(cg, part, start, logits=False),
+                tokens, 0, chunk, spec.seq_len)
+            counts = {k.symbol: k.launches for k in _all_kernels()
+                      if k.launches}
+            _expect(f"small prefill chunk {chunk}", counts, want)
+            run_chunked_prefill(
+                lambda part, start: cpu(cc, part, start, logits=False),
+                tokens, 0, chunk, spec.seq_len)
+            a = gpu(cg, 7, 40).cpu()
+            b = cpu(cc, 7, 40)
+            cache_err = (cg.k[:, :40].cpu() - cc.k[:, :40]).abs().max().item()
+            cache_tol = llama.LOGIT_RTOL * cc.k[:, :40].abs().max().item()
+            err = (a - b).abs().max().item()
+            tol = llama.LOGIT_RTOL * b.abs().max().item()
+            log(f"small model prefill at chunk {chunk}, card vs CPU: cache "
+                f"max_abs_err {cache_err:.3e} (tol {cache_tol:.3e}), next "
+                f"logits {err:.3e} (tol {tol:.3e})")
+            if not (cache_err <= cache_tol and err <= tol):
+                raise AssertionError(f"small prefill chunk {chunk}: cache "
+                                     f"{cache_err} / logits {err}")
+            worst = max(worst, err)
     return worst
 
 
@@ -447,16 +909,23 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     t_start = time.perf_counter()
-    smi, name, peaks = phase_card(torch)
+    smi, name, peaks, build_s = phase_card(torch)
     timer = Timer(torch)
     k1 = phase_k1(torch, timer, peaks)
     k2 = phase_k2(torch, timer, peaks)
+    k1m = phase_k1m(torch, timer, peaks)
+    k3 = phase_k3(torch, timer, peaks)
+    k4 = phase_k4(torch, timer, peaks)
     del timer
-    spec, model, tok = smoke_files()
-    e2e = phase_e2e(torch, model, tok)
     gc.collect()
     torch.cuda.empty_cache()
-    logit_err, busy = phase_full_width(torch, model, tok)
+    spec, model, tok = smoke_files()
+    e2e = phase_e2e(torch, model, tok)
+    e2e_prefill = phase_e2e_prefill(torch, model, tok, spec.n_layers)
+    e2e_q80 = phase_e2e_q80(torch, model, tok, spec.n_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    logit_err, busy, prefill = phase_full_width(torch, model, tok, peaks)
     small_err = phase_small_reference(torch)
 
     def per_token(rows):
@@ -486,11 +955,51 @@ def main() -> int:
              library_ms=sum(r["library_ms"] * 32 for r in k2_63),
              unit="one 7B token at pos 63: 32 layers", shapes=k2),
     ]
+
+    def unit_row(rows):
+        unit = [r for r in rows if r["per_token"]]
+        return dict(per_token(unit), bound_by=_bound_by(unit),
+                    library_ms=sum(r["library_ms"] * r["per_token"]
+                                   for r in unit))
+
+    k4_unit = [dict(r, per_token=32) for r in k4
+               if r["case"] == "7b" and r["pos"] == 384]
+    kernels += [
+        dict(name="q40_matvec_multi", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/q40_matvec.cu",
+             replaces="distributed_llama_tpu/ops/pallas_q40.py:730",
+             launches=e2e_q80["launches"]["q40_matvec_multi"],
+             max_abs_err=max(r["max_abs_err"] for r in k1m), **unit_row(k1m),
+             unit=f"one 7B {Q80_CHUNK}-token chunk: 32 x (wqkv, wo, w13, "
+                  f"w2) at T = {Q80_CHUNK}; library = cuBLAS SGEMM on the "
+                  f"weight dequantized beforehand (dequant not timed)",
+             shapes=k1m),
+        dict(name="q40_gemm", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/q40_gemm.cu",
+             replaces="distributed_llama_tpu/ops/pallas_q40.py:749",
+             launches=e2e_prefill["launches"]["q40_gemm"],
+             max_abs_err=max(r["max_abs_err"] for r in k3), **unit_row(k3),
+             unit=f"one 7B {CHUNK}-token chunk: 32 x (wqkv, wo, w13, w2) "
+                  f"at T = {CHUNK}; library = cuBLAS SGEMM on the weight "
+                  f"dequantized beforehand (dequant not timed)",
+             shapes=k3),
+        dict(name="prefill_attention", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/prefill_attention.cu",
+             replaces="distributed_llama_tpu/ops/pallas_attention.py:492",
+             launches=e2e_prefill["launches"]["prefill_attention"],
+             max_abs_err=max(r["max_abs_err"] for r in k4),
+             **unit_row(k4_unit),
+             unit=f"one 7B {CHUNK}-token chunk at pos 384: 32 layers; "
+                  f"library = scaled_dot_product_attention with the causal "
+                  f"offset mask over the live prefix", shapes=k4),
+    ]
     log(f"full-width logits max_abs_err {logit_err:.3e}; small-model "
-        f"max_abs_err {small_err:.3e}; total "
+        f"max_abs_err {small_err:.3e}; build {build_s:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
-    print(json.dumps({"kernels": kernels, "e2e": e2e, "step_profile": busy}))
+    print(json.dumps({"kernels": kernels, "e2e": e2e, "step_profile": busy,
+                      "e2e_prefill": e2e_prefill, "e2e_q80": e2e_q80,
+                      "prefill": prefill, "build_s": build_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,13 +1,17 @@
 """CLI entry point: the ``inference`` mode of the reference CLI, on one
 device.
 
-Flags ported in this slice: --model, --tokenizer, --prompt, --steps,
+Flags ported so far: --model, --tokenizer, --prompt, --steps,
 --temperature, --topp, --seed, --weights-float-type, --buffer-float-type
-(f32), and --device {cuda,cpu} (default cuda; without a GPU the default
-fails instead of running on the CPU). Every other flag of the JAX package's
-``inference`` exits 2 with "not yet ported" before the model loads — no flag
-is accepted and then ignored. --tp 1, --sp 1, --prefill-chunk 0/1 and
---kv-cache-dtype f32 name what this slice runs and are accepted.
+(f32 or q80: q80 passes every matmul input of a layer through the Q80 round
+trip), --prefill-chunk N (N > 1: the prompt fills the cache in T=N forward
+passes; 0/1: token by token), and --device {cuda,cpu} (default cuda;
+without a GPU the default fails instead of running on the CPU). Every other
+flag of the JAX package's ``inference`` exits 2 with "not yet ported"
+before the model loads — no flag is accepted and then ignored; that
+includes --fast-prefill (the bf16 prefill) and the f16/q40 buffer types.
+--tp 1, --sp 1 and --kv-cache-dtype f32 name what the port runs and are
+accepted.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from ..ops.quants import FloatType
 _FT = {"f32": FloatType.F32, "f16": FloatType.F16, "q40": FloatType.Q40,
        "q80": FloatType.Q80}
 
-# the JAX package's inference flags this slice does not port
+# the JAX package's inference flags the port does not run yet
 _UNPORTED_SWITCHES = ("--fast", "--continuous", "--fast-prefill", "--metrics",
                       "--log-json", "--stream-slices")
 _UNPORTED_VALUED = ("--tp-scheme", "--workers", "--save-state",
@@ -45,7 +49,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt", default=None)
     ap.add_argument("--weights-float-type", default="q40", choices=sorted(_FT))
     ap.add_argument("--buffer-float-type", default="f32", choices=sorted(_FT),
-                    help="only f32 is ported")
+                    help="f32 or q80 (f16/q40 are not ported)")
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--topp", type=float, default=0.9)
@@ -56,7 +60,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--tp", type=int, default=1, help="only 1 is ported")
     ap.add_argument("--sp", type=int, default=1, help="only 1 is ported")
     ap.add_argument("--prefill-chunk", type=int, default=0,
-                    help="only 0/1 (per-token prompt) is ported")
+                    help="N > 1: prefill the prompt in T=N chunks; 0/1: "
+                         "token by token")
     ap.add_argument("--kv-cache-dtype", default="f32", choices=("f32", "bf16"),
                     help="only f32 is ported")
     for flag in _UNPORTED_SWITCHES:
@@ -75,11 +80,9 @@ def _unported(args) -> list[str]:
         given.append(f"--tp {args.tp}")
     if args.sp != 1:
         given.append(f"--sp {args.sp}")
-    if args.prefill_chunk > 1:
-        given.append(f"--prefill-chunk {args.prefill_chunk}")
     if args.kv_cache_dtype != "f32":
         given.append(f"--kv-cache-dtype {args.kv_cache_dtype}")
-    if args.buffer_float_type != "f32":
+    if args.buffer_float_type not in ("f32", "q80"):
         given.append(f"--buffer-float-type {args.buffer_float_type}")
     return given
 
@@ -89,8 +92,9 @@ def cmd_inference(argv: list[str]) -> int:
     unported = _unported(args)
     if unported:
         print(f"not yet ported: {', '.join(unported)} (this port runs "
-              f"single-device, token-by-token inference with f32 buffers "
-              f"and an f32 KV cache)", file=sys.stderr)
+              f"single-device inference, token by token or with "
+              f"--prefill-chunk N in f32, with f32 or q80 buffers and an "
+              f"f32 KV cache)", file=sys.stderr)
         return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("no GPU: torch.cuda.is_available() is False — pass --device "
@@ -105,7 +109,7 @@ def cmd_inference(argv: list[str]) -> int:
     t0 = time.perf_counter()
     spec, params = load_model(args.model,
                               weights_float_type=_FT[args.weights_float_type],
-                              buffer_float_type=FloatType.F32)
+                              buffer_float_type=_FT[args.buffer_float_type])
     device = torch.device(args.device)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
@@ -121,7 +125,8 @@ def cmd_inference(argv: list[str]) -> int:
     tokenizer = Tokenizer(args.tokenizer, spec.vocab_size)
     seed = args.seed if args.seed is not None else int(time.time())
     sampler = Sampler(spec.vocab_size, args.temperature, args.topp, seed)
-    generate(engine, tokenizer, sampler, args.prompt or "", args.steps)
+    generate(engine, tokenizer, sampler, args.prompt or "", args.steps,
+             prefill_chunk=args.prefill_chunk)
     return 0
 
 

@@ -1,4 +1,4 @@
-"""The Llama-2 forward (7B/13B/70B incl. GQA) in PyTorch, one token per step.
+"""The Llama-2 forward (7B/13B/70B incl. GQA) in PyTorch, T tokens per call.
 
 Numerics follow the JAX package's models/llama.py (the parity contract):
 
@@ -7,18 +7,26 @@ Numerics follow the JAX package's models/llama.py (the parity contract):
 * Attention: score = q.k/sqrt(hs); GQA maps query head h to kv head
   h // kv_mul; keys 0..pos of the stacked (L, S, n_kv, hs) f32 cache.
 * SwiGLU: silu(w1 x) * (w3 x); rmsnorm with eps=1e-5 added after the mean.
+* Under ``buffer_float_type == Q80`` the four matmul inputs of a layer pass
+  through the Q80 round trip (ops/linear.fake_quant_q80), at the JAX
+  package's ``_maybe_q80`` cut points.
+
+T = 1 is a decode step (attention through K2); T > 1 is a chunk of chunked
+prefill at positions pos..pos+T-1 (attention through K4 for every T > 1,
+where the JAX package sends T <= 8 to a dense XLA einsum — the same values,
+as no Pallas kernel is involved there).
 
 Departures, none of which changes a value: the KV write is in place at
-(layer, pos) instead of a functional update; the RoPE frequencies are
-computed once per model and the angles once per step, shared by every
+(layer, pos..pos+T-1) instead of a functional update; the RoPE frequencies
+are computed once per model and the angles once per call, shared by every
 layer; the layer loop is a Python loop over zero-copy per-layer views of
-the stacked weights. Only T=1 (one token per forward) is ported: chunked
-prefill is a later slice.
+the stacked weights; a prefill call may skip the final norm and ``wcls``,
+whose logits the JAX prefill discards.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -26,10 +34,12 @@ from torch import nn
 
 from ..io.loader import Q40Weight
 from ..ops.attention import (attention_core, decode_attention,
-                             decode_attention_plain)
-from ..ops.linear import (fuse_q40_layer_matmuls, matmul, q40_to_device,
-                          rmsnorm, silu)
+                             decode_attention_plain, prefill_attention,
+                             prefill_attention_plain)
+from ..ops.linear import (fake_quant_q80, fuse_q40_layer_matmuls, matmul,
+                          q40_to_device, rmsnorm, silu)
 from ..ops.q40 import q40_matmul, q40_matmul_plain
+from ..ops.quants import FloatType
 from .spec import TransformerSpec
 
 __all__ = ["KVCache", "init_cache", "attention_core", "Route", "KERNELS",
@@ -49,16 +59,19 @@ def init_cache(spec: TransformerSpec, device) -> KVCache:
 
 
 class Route(NamedTuple):
-    """Which Q40 matmul and decode attention the forward calls."""
+    """Which Q40 matmul, decode attention (T = 1) and prefill attention
+    (T > 1) the forward calls."""
 
     q40: Callable
     attention: Callable
+    prefill: Callable
 
 
 # the kernel wrappers (the plain versions on CPU tensors) — the main path
-KERNELS = Route(q40_matmul, decode_attention)
+KERNELS = Route(q40_matmul, decode_attention, prefill_attention)
 # the plain versions on any device — to hold the kernels against on the card
-PLAIN = Route(q40_matmul_plain, decode_attention_plain)
+PLAIN = Route(q40_matmul_plain, decode_attention_plain,
+              prefill_attention_plain)
 
 # |kernel logits - plain logits| <= LOGIT_RTOL * max|plain logits|: the two
 # routes sum in different orders through every layer (f32 throughout)
@@ -82,20 +95,33 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor,
                        dim=-1).reshape(x.shape)
 
 
-def rope_tables(freq: torch.Tensor,
-                pos: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin (1, n/2) of the angles at position ``pos`` — computed once
-    per step and shared by every layer (a Python int scales the f32
-    frequencies, so no host-to-device copy is issued)."""
-    val = (freq * pos)[None, :]
+def rope_tables(freq: torch.Tensor, pos: int,
+                t_len: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin (T, n/2) of the angles at positions pos..pos+T-1 (the f32
+    positions times the frequencies, as the reference's rope_rotate) —
+    computed once per call and shared by every layer. Positions are made on
+    the frequencies' device (a Python int scales them at T = 1), so no
+    host-to-device copy is issued."""
+    if t_len == 1:
+        val = (freq * pos)[None, :]
+    else:
+        positions = torch.arange(pos, pos + t_len, dtype=torch.float32,
+                                 device=freq.device)
+        val = positions[:, None] * freq[None, :]
     return torch.cos(val), torch.sin(val)
+
+
+def _maybe_q80(spec: TransformerSpec, x: torch.Tensor) -> torch.Tensor:
+    if spec.buffer_float_type == FloatType.Q80:
+        return fake_quant_q80(x)
+    return x
 
 
 def _qkv_proj(spec: TransformerSpec, lw: dict[str, Any], x: torch.Tensor,
               rope: tuple[torch.Tensor, torch.Tensor], route: Route):
-    """norm -> q/k/v matmuls (fused wqkv when present) -> RoPE on q and k.
-    Returns q (1, dim), k (1, kv_dim), v (1, kv_dim)."""
-    xb = rmsnorm(x, lw["rms_att"])
+    """norm -> (q80) -> q/k/v matmuls (fused wqkv when present) -> RoPE on
+    q and k. Returns q (T, dim), k (T, kv_dim), v (T, kv_dim)."""
+    xb = _maybe_q80(spec, rmsnorm(x, lw["rms_att"]))
     qk_dim = spec.dim + spec.kv_dim
     if "wqkv" in lw:
         qkv = matmul(lw["wqkv"], xb, route.q40)
@@ -113,9 +139,10 @@ def _qkv_proj(spec: TransformerSpec, lw: dict[str, Any], x: torch.Tensor,
 def _post_attention(spec: TransformerSpec, lw: dict[str, Any],
                     x: torch.Tensor, ao: torch.Tensor,
                     route: Route) -> torch.Tensor:
-    """wo + residual, then the SwiGLU ffn sub-block + residual."""
-    x = x + matmul(lw["wo"], ao, route.q40)
-    xb = rmsnorm(x, lw["rms_ffn"])
+    """wo + residual, then the SwiGLU ffn sub-block + residual (each matmul
+    input through the q80 cut point)."""
+    x = x + matmul(lw["wo"], _maybe_q80(spec, ao), route.q40)
+    xb = _maybe_q80(spec, rmsnorm(x, lw["rms_ffn"]))
     if "w13" in lw:
         h13 = matmul(lw["w13"], xb, route.q40)
         hid = h13.shape[-1] // 2
@@ -123,20 +150,27 @@ def _post_attention(spec: TransformerSpec, lw: dict[str, Any],
     else:
         hb = silu(matmul(lw["w1"], xb, route.q40)) * matmul(lw["w3"], xb,
                                                             route.q40)
-    return x + matmul(lw["w2"], hb, route.q40)
+    return x + matmul(lw["w2"], _maybe_q80(spec, hb), route.q40)
 
 
 def _layer(spec: TransformerSpec, x: torch.Tensor, lw: dict[str, Any],
            cache: KVCache, idx: int, pos: int,
            rope: tuple[torch.Tensor, torch.Tensor],
            route: Route = KERNELS) -> torch.Tensor:
-    """One transformer layer at T=1: writes k/v into the stacked cache in
-    place at (idx, pos), attends over 0..pos, returns the new residual."""
+    """One transformer layer over T tokens: writes their k/v into the
+    stacked cache in place at (idx, pos..pos+T-1), attends causally over
+    0..pos+T-1, returns the new residual (T, dim)."""
+    t_len = x.shape[0]
+    hs, n_kv = spec.head_size, spec.n_kv_heads
     q, k, v = _qkv_proj(spec, lw, x, rope, route)
-    cache.k[idx, pos].copy_(k.reshape(spec.n_kv_heads, spec.head_size))
-    cache.v[idx, pos].copy_(v.reshape(spec.n_kv_heads, spec.head_size))
-    ao = route.attention(q.reshape(spec.n_heads, spec.head_size), cache.k,
-                         cache.v, idx, pos, spec.kv_mul)
+    cache.k[idx, pos:pos + t_len].copy_(k.reshape(t_len, n_kv, hs))
+    cache.v[idx, pos:pos + t_len].copy_(v.reshape(t_len, n_kv, hs))
+    if t_len == 1:
+        ao = route.attention(q.reshape(spec.n_heads, hs), cache.k, cache.v,
+                             idx, pos, spec.kv_mul)
+    else:  # q is a strided slice of the rotated q|k: the kernel wants rows
+        ao = route.prefill(q.reshape(t_len, spec.n_heads, hs).contiguous(),
+                           cache.k, cache.v, idx, pos, spec.kv_mul)
     return _post_attention(spec, lw, x, ao, route)
 
 
@@ -156,7 +190,7 @@ def _layer_view(params: dict[str, Any], i: int) -> dict[str, Any]:
 
 
 class Llama(nn.Module):
-    """The T=1 decode forward over device-resident weights.
+    """The forward over device-resident weights, T >= 1 tokens per call.
 
     ``params`` is the tree params_to_device built; the module keeps it as it
     is (Q40 pairs are not tensors, so nothing is registered as a buffer) and
@@ -175,17 +209,28 @@ class Llama(nn.Module):
         self.register_buffer("freq", rope_freq(spec.dim + spec.kv_dim,
                                                spec.head_size, device))
 
-    def forward(self, cache: KVCache, token: int, pos: int) -> torch.Tensor:
-        """One token at position ``pos``: returns logits (1, vocab) f32 and
-        writes this position's k/v into ``cache``."""
+    def forward(self, cache: KVCache, tokens: int | Sequence[int], pos: int,
+                logits: bool = True) -> torch.Tensor | None:
+        """T tokens (one int, or a sequence) at positions pos..pos+T-1:
+        writes their k/v into ``cache`` and returns logits (T, vocab) f32,
+        or None with ``logits=False`` (prefill: the final norm and wcls are
+        skipped, as the JAX prefill discards those logits)."""
         spec, p = self.spec, self.params
-        if not 0 <= pos < spec.seq_len:
-            raise ValueError(f"pos {pos} outside the cache (seq_len "
-                             f"{spec.seq_len})")
-        x = p["tok_embedding"][token].reshape(1, spec.dim).to(torch.float32)
-        rope = rope_tables(self.freq, pos)
+        tokens = ([int(tokens)] if isinstance(tokens, (int, np.integer))
+                  else [int(t) for t in tokens])
+        t_len = len(tokens)
+        if t_len < 1 or pos < 0 or pos + t_len > spec.seq_len:
+            raise ValueError(f"positions {pos}..{pos + t_len - 1} outside "
+                             f"the cache (seq_len {spec.seq_len})")
+        emb = p["tok_embedding"]
+        x = (emb[tokens[0]].reshape(1, spec.dim) if t_len == 1
+             else emb[torch.tensor(tokens, device=emb.device)])
+        x = x.to(torch.float32)
+        rope = rope_tables(self.freq, pos, t_len)
         for idx, lw in enumerate(self.layers):
             x = _layer(spec, x, lw, cache, idx, pos, rope, self.route)
+        if not logits:
+            return None
         x = rmsnorm(x, p["rms_final"])
         return matmul(p["wcls"], x, self.route.q40)
 

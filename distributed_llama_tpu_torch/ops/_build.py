@@ -109,11 +109,13 @@ class CudaKernel:
 
 
 def build(kernels: list[CudaKernel]) -> float:
-    """Build every kernel not built yet — one nvcc per source, all started
-    together — and bind them. Returns the wall seconds spent. Raises with
-    the compiler's output if any build fails."""
+    """Build every kernel not built yet — one nvcc per source (kernels that
+    share a source share its library), all started together — and bind
+    them. Returns the wall seconds spent. Raises with the compiler's output
+    if any build fails."""
     t0 = time.perf_counter()
-    jobs = [(k, k._start_build()) for k in kernels]
+    by_source = {k.source: k for k in kernels}
+    jobs = [(k, k._start_build()) for k in by_source.values()]
     failures = []
     for k, job in jobs:
         if job is None:

@@ -1,16 +1,22 @@
-"""Decode attention: the hand-written CUDA kernel ``csrc/decode_attention.cu``
-(K2), its plain PyTorch version, and the attention math they share.
+"""Attention: the hand-written CUDA kernels ``csrc/decode_attention.cu`` (K2)
+and ``csrc/prefill_attention.cu`` (K4), their plain PyTorch versions, and
+the attention math they share.
 
-Replaces the JAX package's ops/pallas_attention.py ``decode_attention``:
+K2 replaces the JAX package's ops/pallas_attention.py ``decode_attention``:
 one query token at position ``pos`` against keys and values 0..pos of layer
 ``layer`` of the stacked (L, S, n_kv, hs) f32 cache, scale 1/sqrt(hs),
-query head h on kv head h // kv_mul. Only the live prefix is read, so
-whatever a longer earlier run left past ``pos`` is invisible. It is bound by
-the K and V bytes of that prefix; csrc/decode_attention.cu says how its
-design meets that.
+query head h on kv head h // kv_mul. It is bound by the K and V bytes of
+the live prefix.
 
-``decode_attention`` takes the plain version only for tensors on the CPU. On
-a CUDA tensor it launches the kernel or raises.
+K4 replaces ``prefill_attention`` (``_prefill_kernel``) there in f32: T
+queries at pos..pos+T-1, row i seeing keys 0..pos+i, with the chunk's own
+keys already in the cache. It is bound by bytes for an early chunk and by
+operations once the prefix is a few hundred keys long.
+
+Both read only the live prefix, so whatever a longer earlier run left past
+it is invisible; the sources say how their designs meet their bounds. The
+wrappers take the plain versions only for tensors on the CPU. On a CUDA
+tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -25,6 +31,10 @@ from ._build import CudaKernel
 KERNEL = CudaKernel("decode_attention.cu", "decode_attention",
                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                     + [ctypes.c_float, ctypes.c_void_p])
+PREFILL_KERNEL = CudaKernel("prefill_attention.cu", "prefill_attention",
+                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                            + [ctypes.c_float, ctypes.c_void_p])
+KERNELS = (KERNEL, PREFILL_KERNEL)
 
 _KV_MULS = (1, 2, 4, 8)  # the kernel's instantiations
 _MAX_HEAD = 128
@@ -118,4 +128,63 @@ def decode_attention(q: torch.Tensor, k_all: torch.Tensor,
                   out.data_ptr(), layer, pos, seq_len, n_kv, kv_mul, hs,
                   attention_scale(hs),
                   torch.cuda.current_stream(q.device).cuda_stream)
+    return out
+
+
+# --------------------------------------------------------------------------
+# causal prefill attention (K4)
+# --------------------------------------------------------------------------
+
+def prefill_attention_plain(q: torch.Tensor, k_all: torch.Tensor,
+                            v_all: torch.Tensor, layer: int, pos: int,
+                            kv_mul: int) -> torch.Tensor:
+    """attention_core of T queries at pos..pos+T-1 over the live prefix
+    0..pos+T-1, query row i seeing keys 0..pos+i (the JAX package's
+    causal_cache_mask restricted to the live keys). q (T, n_q, hs) ->
+    (T, n_q*hs)."""
+    t_len, hs = q.shape[0], k_all.shape[-1]
+    live = pos + t_len
+    keys = torch.arange(live, device=q.device)
+    rows = torch.arange(pos, live, device=q.device)
+    mask = keys[None, :] <= rows[:, None]
+    return attention_core(hs, kv_mul, q, k_all[layer, :live],
+                          v_all[layer, :live], mask)
+
+
+def _check_prefill(q, k_all, v_all, layer, pos, kv_mul) -> None:
+    if q.dim() != 3:
+        raise ValueError(f"prefill_attention: q must be (T, n_q, hs), got "
+                         f"{tuple(q.shape)}")
+    t_len = q.shape[0]
+    if t_len < 1 or pos + t_len > k_all.shape[1]:
+        raise ValueError(f"prefill_attention: positions {pos}.."
+                         f"{pos + t_len - 1} outside the cache (seq_len "
+                         f"{k_all.shape[1]})")
+    _check(q[0], k_all, v_all, layer, pos, kv_mul)
+    if not q.is_contiguous() or q.data_ptr() % 16:
+        raise ValueError("prefill_attention: q must be contiguous and "
+                         "16-byte aligned")
+
+
+def prefill_attention(q: torch.Tensor, k_all: torch.Tensor,
+                      v_all: torch.Tensor, layer: int, pos: int,
+                      kv_mul: int) -> torch.Tensor:
+    """Causal attention of T queries q (T, n_q, hs) at positions
+    pos..pos+T-1 against keys/values 0..pos+T-1 of cache layer ``layer``
+    (the chunk's own keys already written). Returns (T, n_q * hs) f32. CPU
+    tensors take the plain version; CUDA tensors launch K4."""
+    if q.device.type == "cpu" and k_all.device.type == "cpu":
+        return prefill_attention_plain(q, k_all, v_all, layer, pos, kv_mul)
+    if q.device.type != "cuda":
+        raise ValueError(f"prefill_attention: no kernel for device "
+                         f"{q.device}")
+    _check_prefill(q, k_all, v_all, layer, pos, kv_mul)
+    t_len = q.shape[0]
+    _, seq_len, n_kv, hs = k_all.shape
+    out = torch.empty((t_len, q[0].numel()), dtype=torch.float32,
+                      device=q.device)
+    PREFILL_KERNEL.launch(q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
+                          out.data_ptr(), layer, pos, t_len, seq_len, n_kv,
+                          kv_mul, hs, attention_scale(hs),
+                          torch.cuda.current_stream(q.device).cuda_stream)
     return out

@@ -9,6 +9,7 @@ Semantics (the JAX package's ops/linear.py, the logit-parity contract):
 * rms: 1/sqrt(sum(x^2)/size + 1e-5) — eps added AFTER the mean.
 * rmsnorm(x, w) = x * rms(x) * w.
 * silu(x) = x / (1 + e^-x).
+* fake_quant_q80: the Q80 round trip of ``--buffer-float-type q80``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from ..io.loader import Q40Weight
 from .q40 import q40_matmul
+from .quants import dequantize_q80_torch, quantize_q80_torch
 
 RMS_EPS = 1e-5
 
@@ -51,6 +53,13 @@ def matmul(w, x: torch.Tensor,
     if isinstance(w, Q40Weight):
         return q40(w, x)
     return F.linear(x.to(torch.float32), w.to(torch.float32))
+
+
+def fake_quant_q80(x: torch.Tensor) -> torch.Tensor:
+    """Quantize -> dequantize through Q80 (``--buffer-float-type q80``): the
+    value rounding the reference applies to every activation it quantizes
+    before a matmul. Plain tensor code on any device (no kernel)."""
+    return dequantize_q80_torch(*quantize_q80_torch(x))
 
 
 def fuse_q40_layer_matmuls(params: dict) -> dict:

@@ -1,16 +1,24 @@
-"""Q40 matvec: the hand-written CUDA kernel ``csrc/q40_matvec.cu`` (K1) and
-its plain PyTorch version.
+"""Q40 matmul: three hand-written CUDA kernels and their one plain PyTorch
+version.
 
-Replaces the T=1 branches of the JAX package's ops/pallas_q40.py
-``q40_matmul`` (the ``_kernel_matvec`` bodies of ``_q40_matmul_2d`` /
-``_q40_matmul_stacked`` and their nb-major and int4-plane tilings): the same
-value map, ``out[r] = sum_b d16[r,b] * sum_j (code[r,b,j] - 8) * x[32b+j]``
-in f32, on the codec layout (see io/loader.Q40Weight). It is bound by the
-packed weight bytes; csrc/q40_matvec.cu says how its design meets that.
+``q40_matmul(w, x)`` computes ``out[t, r] = sum_b d16[r,b] * sum_j
+(code[r,b,j] - 8) * x[t, 32b+j]`` in f32 on the codec layout (see
+io/loader.Q40Weight), for T = x.numel() // n tokens. On a CUDA tensor it
+dispatches on T as the JAX package's ops/pallas_q40.py ``q40_matmul`` does
+on ``MULTI_T_MAX``:
 
-``q40_matmul`` takes the plain version only for tensors on the CPU. On a
-CUDA tensor it launches the kernel or raises; T>1 raises NotImplementedError
-(the prefill GEMM is not ported yet).
+* T = 1: K1, ``csrc/q40_matvec.cu`` ``q40_matvec`` (the T=1 matvec
+  bodies, every TPU tiling), bound by the packed weight bytes;
+* 2 <= T <= 8: K1m, ``csrc/q40_matvec.cu`` ``q40_matvec_multi``
+  (``_kernel_multi`` -> ``_matvec_body_multi``), one unpack of each weight
+  block for all T rows;
+* T > 8: K3, ``csrc/q40_gemm.cu`` (``_kernel`` -> ``_matmul_body`` in f32
+  parity mode, and its scratch / nb-major tilings), a tiled SIMT GEMM bound
+  by its f32 operations.
+
+The sources say how each design meets its bound. ``q40_matmul`` takes the
+plain version only for tensors on the CPU; on a CUDA tensor it launches one
+of the kernels or raises.
 """
 
 from __future__ import annotations
@@ -27,9 +35,18 @@ from .quants import QK, dequantize_q40_torch
 KERNEL = CudaKernel("q40_matvec.cu", "q40_matvec",
                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
                     + [ctypes.c_void_p])
+KERNEL_MULTI = CudaKernel("q40_matvec.cu", "q40_matvec_multi",
+                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                          + [ctypes.c_void_p])
+KERNEL_GEMM = CudaKernel("q40_gemm.cu", "q40_gemm",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                         + [ctypes.c_void_p])
+KERNELS = (KERNEL, KERNEL_MULTI, KERNEL_GEMM)
+
+MULTI_T_MAX = 8  # T above this takes the GEMM (the JAX package's threshold)
 
 _SMEM_LIMIT = 232448   # bytes of shared memory a block may use on sm_90
-_SMEM_PER_BLOCK = 144  # staged bytes per 32-value block of x (36 floats)
+_SMEM_PER_BLOCK = 144  # K1's staged bytes per 32-value block of x (36 floats)
 
 # |kernel - plain| <= KERNEL_RTOL * max|plain|: they differ in summation
 # order only (both f32)
@@ -40,7 +57,7 @@ def random_q40(d: int, n: int, device, generator: torch.Generator
                ) -> Q40Weight:
     """A (d, n) Q40 weight with uniform random codes and scales in
     [1e-4, 0.0101), made on ``device`` from ``generator`` — the input on
-    which the kernel is held against its plain version."""
+    which the kernels are held against their plain version."""
     nb = n // QK
     qs = torch.randint(0, 256, (d, nb, 16), dtype=torch.uint8, device=device,
                        generator=generator)
@@ -50,7 +67,8 @@ def random_q40(d: int, n: int, device, generator: torch.Generator
 
 
 def q40_matmul_plain(w: Q40Weight, x: torch.Tensor) -> torch.Tensor:
-    """Dequantize, then one f32 product: out[..., d] = W(d, n) @ x[..., n]."""
+    """Dequantize, then one f32 product: out[..., d] = W(d, n) @ x[..., n].
+    The plain version of K1, K1m and K3 alike."""
     return F.linear(x.to(torch.float32), dequantize_q40_torch(w.qs, w.d16))
 
 
@@ -72,31 +90,37 @@ def _check(w: Q40Weight, x: torch.Tensor) -> tuple[int, int]:
                              f"{x.device}")
         if not t.is_contiguous():
             raise ValueError(f"q40_matmul: {name} must be contiguous")
-    if qs.data_ptr() % 16:
-        raise ValueError("q40_matmul: qs must be 16-byte aligned")
-    if nb * _SMEM_PER_BLOCK > _SMEM_LIMIT:
-        raise ValueError(f"q40_matmul: input width {nb * QK} exceeds the "
-                         f"kernel's shared-memory staging of x")
+    for name, t in (("qs", qs), ("x", x)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"q40_matmul: {name} must be 16-byte aligned")
     return d, nb
 
 
 def q40_matmul(w: Q40Weight, x: torch.Tensor) -> torch.Tensor:
     """out[..., d] = dequant(w)(d, n) @ x[..., n], f32.
 
-    CPU tensors take the plain version; CUDA tensors launch K1 (T=1 only).
+    CPU tensors take the plain version; CUDA tensors launch K1 (T = 1), K1m
+    (2 <= T <= 8) or K3 (T > 8).
     """
     if x.device.type == "cpu" and w.qs.device.type == "cpu":
         return q40_matmul_plain(w, x)
     if x.device.type != "cuda":
         raise ValueError(f"q40_matmul: no kernel for device {x.device}")
     d, nb = _check(w, x)
-    if x.numel() != nb * QK:
-        raise NotImplementedError(
-            f"q40_matmul on CUDA takes one token (T=1); got x of shape "
-            f"{tuple(x.shape)} — the T>1 prefill kernel is not ported yet")
+    t = x.numel() // (nb * QK)
     out = torch.empty((*x.shape[:-1], d), dtype=torch.float32,
                       device=x.device)
-    KERNEL.launch(w.qs.data_ptr(), w.d16.data_ptr(), x.data_ptr(),
-                  out.data_ptr(), d, nb,
-                  torch.cuda.current_stream(x.device).cuda_stream)
+    if t == 0:
+        return out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = (w.qs.data_ptr(), w.d16.data_ptr(), x.data_ptr(), out.data_ptr())
+    if t == 1:
+        if nb * _SMEM_PER_BLOCK > _SMEM_LIMIT:
+            raise ValueError(f"q40_matmul: input width {nb * QK} exceeds "
+                             f"the T=1 kernel's shared-memory staging of x")
+        KERNEL.launch(*ptrs, d, nb, stream)
+    elif t <= MULTI_T_MAX:
+        KERNEL_MULTI.launch(*ptrs, t, d, nb, stream)
+    else:
+        KERNEL_GEMM.launch(*ptrs, t, d, nb, stream)
     return out

@@ -11,6 +11,9 @@ truncates.
 Planar layout: ``(qs uint8 [..., nb, 16], d16 float16 [..., nb])`` — the
 codec layout, which is also the port's device layout (one block is one
 aligned 16-byte load).
+
+Q80 (the ``--buffer-float-type q80`` activation codec): blocks of 32 values
+-> one float16 delta ``amax / 127`` + 32 int8 codes ``rint(x / delta)``.
 """
 
 from __future__ import annotations
@@ -88,6 +91,48 @@ def dequantize_q40_torch(qs: torch.Tensor, d16: torch.Tensor) -> torch.Tensor:
     hi = (qs >> 4).to(torch.float32) - 8.0
     codes = torch.cat([lo, hi], dim=-1)                       # [..., nb, 32]
     y = codes * d16.to(torch.float32).unsqueeze(-1)
+    return y.reshape(*qs.shape[:-2], qs.shape[-2] * QK)
+
+
+def quantize_q80(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Encode f32 -> (qs int8 [..., nb, 32], delta float16 [..., nb]):
+    ``d = amax / 127`` in f32, codes ``rint(x / d)`` (ties to even, computed
+    as ``x * (1/d)`` with ``1/d = 0`` for an all-zero block)."""
+    x = np.asarray(x, dtype=np.float32)
+    n = x.shape[-1]
+    if n % QK != 0:
+        raise ValueError(f"last dim {n} not divisible by {QK}")
+    g = x.reshape(*x.shape[:-1], n // QK, QK)
+    d = np.abs(g).max(axis=-1) / np.float32(127.0)
+    with np.errstate(divide="ignore"):  # zero blocks take the where-branch
+        id_ = np.where(d != 0, np.float32(1.0) / d, np.float32(0.0))
+    qs = np.rint(g * id_[..., None]).astype(np.int8)
+    return qs, d.astype(np.float16)
+
+
+def dequantize_q80(qs: np.ndarray, d: np.ndarray) -> np.ndarray:
+    """Decode (qs int8 [..., nb, 32], d f16 [..., nb]) -> f32 [..., nb*32]."""
+    y = qs.astype(np.float32) * d.astype(np.float32)[..., None]
+    return y.reshape(*qs.shape[:-2], qs.shape[-2] * QK)
+
+
+def quantize_q80_torch(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Torch twin of quantize_q80 on any device: the same f32 arithmetic,
+    ``torch.round`` rounding ties to even as ``np.rint`` does."""
+    n = x.shape[-1]
+    if n % QK != 0:
+        raise ValueError(f"last dim {n} not divisible by {QK}")
+    g = x.to(torch.float32).reshape(*x.shape[:-1], n // QK, QK)
+    d = g.abs().amax(dim=-1) / 127.0
+    id_ = torch.where(d != 0, 1.0 / d, torch.zeros_like(d))
+    qs = torch.round(g * id_.unsqueeze(-1)).to(torch.int8)
+    return qs, d.to(torch.float16)
+
+
+def dequantize_q80_torch(qs: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Torch twin of dequantize_q80: codes times the f16 delta widened to
+    f32 (exact)."""
+    y = qs.to(torch.float32) * d.to(torch.float32).unsqueeze(-1)
     return y.reshape(*qs.shape[:-2], qs.shape[-2] * QK)
 
 

@@ -1,10 +1,12 @@
 """Generation loop + engine (the reference's generate()).
 
 ``Engine`` owns the device params, the KV cache and the forward behind the
-reference's ``infer(token, pos) -> logits`` shape; ``generate`` reproduces
-the reference's observable behaviour: prompt tokens forced one at a time,
-sampling after the prompt, stop on BOS, the per-token 🔶 stats line and the
-final averages.
+reference's ``infer(token, pos) -> logits`` shape, plus ``prefill`` (the
+prompt in T=chunk forward passes); ``generate`` reproduces the reference's
+observable behaviour: prompt tokens forced one at a time (or prefilled in
+chunks with ``prefill_chunk > 1``, the same token stream), sampling after
+the prompt, stop on BOS, the per-token 🔶 stats line and the final
+averages.
 
 Stats: I = device step time (the forward up to the host copy of the
 logits, which waits for the device), T = host time (sampling + loop). A
@@ -17,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -32,7 +34,7 @@ from .sampling import Sampler
 
 class Engine:
     """Owns params + cache + the forward on one device; exposes
-    infer(token, pos)."""
+    infer(token, pos) and prefill(tokens, pos0, chunk)."""
 
     def __init__(self, spec: TransformerSpec, params: dict[str, Any],
                  device="cuda"):
@@ -40,7 +42,7 @@ class Engine:
         self.device = torch.device(device)
         if self.device.type == "cuda":
             # build (or find) the kernels now, not inside the first token
-            build([q40.KERNEL, attention.KERNEL])
+            build([*q40.KERNELS, *attention.KERNELS])
         self.params = params_to_device(params, self.device)
         self.model = Llama(spec, self.params)
         self.cache = init_cache(spec, self.device)
@@ -51,9 +53,54 @@ class Engine:
         logits = self.model(self.cache, token, pos)
         return logits[0].cpu().numpy()
 
+    @torch.inference_mode()
+    def prefill(self, tokens: list[int], pos0: int = 0,
+                chunk: int = 128) -> None:
+        """Fill the KV cache for ``tokens`` at positions pos0.. in T=chunk
+        forward passes (run_chunked_prefill's schedule); their logits are
+        never computed. Raises before any cache write when the tokens do
+        not fit in the cache.
+
+        A zero-padded last window writes junk k/v at positions past the
+        prompt. Nothing reads it: the causal mask hides it from the real rows
+        of its own chunk, and decode writes slot p before it attends 0..p,
+        so every padded slot is overwritten first. The JAX package runs two
+        or more full windows as one device loop; here they are the same
+        forward calls in a Python loop, with the same values.
+        """
+        seq_len = self.spec.seq_len
+        if pos0 + len(tokens) > seq_len:
+            raise ValueError(f"prefill overflow: pos0={pos0} + {len(tokens)} "
+                             f"tokens > seq_len={seq_len}")
+
+        def fwd(part: list[int], start: int) -> None:
+            self.model(self.cache, part, start, logits=False)
+
+        run_chunked_prefill(fwd, tokens, pos0, chunk, seq_len)
+
     def reset(self) -> None:
         self.cache.k.zero_()
         self.cache.v.zero_()
+
+
+def run_chunked_prefill(fwd: Callable[[list[int], int], None],
+                        tokens: list[int], pos0: int, chunk: int,
+                        seq_len: int) -> None:
+    """The fixed-chunk prefill schedule: full T=chunk windows, a zero-padded
+    partial window while it stays inside seq_len, and a per-token tail when
+    the padded window would cross seq_len (it must never be clamped back
+    over real positions). ``fwd(part, start)`` runs one forward pass."""
+    chunk = min(chunk, seq_len)
+    for lo in range(0, len(tokens), chunk):
+        part = tokens[lo:lo + chunk]
+        start = pos0 + lo
+        if len(part) == chunk:
+            fwd(part, start)
+        elif start + chunk <= seq_len:
+            fwd(part + [0] * (chunk - len(part)), start)
+        else:  # padded window would cross seq_len: per-token tail
+            for i, t in enumerate(part):
+                fwd([t], start + i)
 
 
 @dataclasses.dataclass
@@ -88,13 +135,38 @@ def summarize_values(values) -> dict:
             "p50": pct(0.50), "p95": pct(0.95), "p99": pct(0.99)}
 
 
+def _prefill_prefix(engine: Engine, prompt_tokens: list[int], steps: int,
+                    chunk: int, out_tokens: list[int]) -> int | None:
+    """Prefill the cache for the prompt prefix in T=chunk passes and echo
+    the prefilled prompt tokens into ``out_tokens`` (the loop appends forced
+    prompt tokens to the output, so the prefilled ones must appear too).
+
+    Returns the decode loop's start position (len(prompt) - 1), or None
+    when prefill does not apply: chunk <= 1, fewer than 2 tokens to
+    prefill, a prompt that does not fit in ``steps`` (the per-token path
+    keeps the forced-token output exactly), or a BOS inside the prompt
+    (only the per-token loop reproduces the stop it causes).
+    """
+    n_pre = len(prompt_tokens) - 1
+    if chunk <= 1 or n_pre < 2 or n_pre >= steps:
+        return None
+    if BOS in prompt_tokens[1:]:
+        return None
+    engine.prefill(prompt_tokens[:n_pre], 0, chunk)
+    out_tokens.extend(prompt_tokens[1:n_pre + 1])
+    return n_pre
+
+
 def generate(engine: Engine, tokenizer: Tokenizer, sampler: Sampler,
-             prompt: str, steps: int,
-             quiet: bool = False) -> tuple[list[int], GenStats]:
+             prompt: str, steps: int, quiet: bool = False,
+             prefill_chunk: int = 0) -> tuple[list[int], GenStats]:
     """The reference generation loop.
 
     Encodes the prompt with BOS (no EOS), forces prompt tokens, samples after,
     stops early on BOS, prints the per-token stats line and final averages.
+    ``prefill_chunk > 1`` fills the cache for the prompt prefix in chunked
+    T>1 passes (Engine.prefill) instead of forcing it through the T=1 path:
+    the same token stream, minus the prompt positions' stats lines.
     """
     steps = min(steps, engine.spec.seq_len)
     prompt_tokens = tokenizer.encode(prompt or "", bos=True, eos=False)
@@ -104,6 +176,10 @@ def generate(engine: Engine, tokenizer: Tokenizer, sampler: Sampler,
     out_tokens: list[int] = []
     stats = GenStats()
     pos = 0
+    pre = _prefill_prefix(engine, prompt_tokens, steps, prefill_chunk,
+                          out_tokens)
+    if pre is not None:
+        pos, token = pre, prompt_tokens[pre]
     while pos < steps:
         t0 = time.perf_counter()
         logits = engine.infer(token, pos)

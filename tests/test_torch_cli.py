@@ -1,8 +1,9 @@
 """The port's ``inference`` CLI (``--device cpu``) and generation loop against
 the JAX package's ``generate`` on the tests/test_generate_cli.py fixture
 model: token streams must be equal, greedy and seeded (temperature 0.8,
-top-p 0.9, the numpy sampler on both sides). Unported flags exit 2 before
-the model loads; the CUDA default fails without a GPU."""
+top-p 0.9, the numpy sampler on both sides), token by token and with
+``--prefill-chunk`` and q80 buffers. Unported flags exit 2 before the model
+loads; the CUDA default fails without a GPU."""
 
 import numpy as np
 import pytest
@@ -122,8 +123,10 @@ def test_cli_pieces_match_reference(model_files, capsys, mode):
     assert pieces(out) == want
 
 
-UNPORTED = [["--tp", "2"], ["--sp", "2"], ["--prefill-chunk", "8"],
-            ["--kv-cache-dtype", "bf16"], ["--buffer-float-type", "q80"],
+UNPORTED = [["--tp", "2"], ["--sp", "2"],
+            ["--prefill-chunk", "8", "--fast-prefill"],
+            ["--kv-cache-dtype", "bf16"], ["--buffer-float-type", "f16"],
+            ["--slots", "4"],
             ["--fast"], ["--continuous"], ["--fast-prefill"], ["--metrics"],
             ["--log-json"], ["--save-state", "s.ckpt"],
             ["--resume-state", "s.ckpt"], ["--prompts-file", "p.txt"],
@@ -146,6 +149,63 @@ def test_unported_flags_exit_2_before_loading(extra, capsys, tmp_path):
     assert rc == 2
     err = capsys.readouterr().err
     assert "not yet ported" in err and extra[0] in err
+
+
+LONG_PROMPT = " ".join(["hi"] * 7)  # BOS + 7 merged " hi" pieces
+
+
+def _lines(out):
+    """The piece reprs the 🔶 lines end with."""
+    return [ln.rsplit(" kB ", 1)[1] for ln in out.splitlines()
+            if ln.startswith("🔶")]
+
+
+@pytest.mark.parametrize("mode", sorted(SAMPLING))
+@pytest.mark.parametrize("buf", ["f32", "q80"])
+def test_cli_prefill_streams_match_reference(model_files, capsys, mode, buf):
+    """``inference --prefill-chunk 4`` (f32 and q80 buffers) on the CPU: the
+    decoded pieces equal those of the JAX ``generate(..., prefill_chunk=4)``
+    stream (numpy sampler) and the tail of the port's own token-by-token
+    run; the prompt's positions print no 🔶 line."""
+    import dataclasses
+
+    from distributed_llama_tpu.io.loader import load_model
+    from distributed_llama_tpu.io.tokenizer import Tokenizer
+    from distributed_llama_tpu.runtime.generate import Engine, generate
+    from distributed_llama_tpu.runtime.sampling import Sampler
+    from distributed_llama_tpu_torch.frontend.cli import main
+
+    model, tokp = model_files
+    temperature, topp, seed = SAMPLING[mode]
+    steps = 20
+    spec, params = load_model(model, weights_float_type=FloatType.Q40)
+    spec = dataclasses.replace(spec, buffer_float_type=FloatType[buf.upper()])
+    tok = Tokenizer(tokp, spec.vocab_size)
+    prompt = tok.encode(LONG_PROMPT, bos=True, eos=False)
+    n_pre = len(prompt) - 1
+    assert 2 <= n_pre < steps
+    ref, _ = generate(Engine(spec, params), tok,
+                      Sampler(spec.vocab_size, temperature, topp, seed,
+                              use_native=False),
+                      LONG_PROMPT, steps, quiet=True, prefill_chunk=4)
+    assert ref[:n_pre] == prompt[1:]
+    prev, want = prompt[-1], []
+    for t in ref[n_pre:]:
+        want.append(repr(tok.decode_piece(prev, t).decode(
+            "utf-8", errors="replace")))
+        prev = t
+
+    base = ["inference", "--model", model, "--tokenizer", tokp, "--prompt",
+            LONG_PROMPT, "--steps", str(steps), "--temperature",
+            str(temperature), "--topp", str(topp), "--seed", str(seed),
+            "--device", "cpu", "--buffer-float-type", buf]
+    assert main(base + ["--prefill-chunk", "4"]) == 0
+    got = _lines(capsys.readouterr().out)
+    assert main(base) == 0
+    stepwise = _lines(capsys.readouterr().out)
+    assert len(got) > 4
+    assert got == want
+    assert stepwise[-len(got):] == got and len(stepwise) == n_pre + len(got)
 
 
 def test_neutral_values_of_unported_flags_are_accepted(model_files):

@@ -1,10 +1,11 @@
 """The port's CUDA kernels against their plain versions on the card, at the
 small and ragged shapes that chip_smoke.py's 7B shapes do not reach: row
-counts off the kernel's 8-row block, block counts off its 4 x 32 unroll, an
-input width whose staged x needs more than 48 KB of shared memory (70B's
-w2), head sizes below 128, and every kv_mul the attention kernel is built
-for. Every test takes the ``gen`` fixture, which skips it without a GPU;
-on one, run
+counts off the kernels' row blocks, block counts off their unrolls, stages
+and x slices, odd T, an input width whose staged x needs more than 48 KB
+of shared memory (70B's w2), head sizes below 128, and every kv_mul the
+attention kernels are built for; then the forward and Engine.prefill
+through the kernels, with their launch counts. Every test takes the ``gen``
+fixture, which skips it without a GPU; on one, run
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
@@ -21,6 +22,8 @@ from distributed_llama_tpu_torch.models.spec import TransformerSpec
 from distributed_llama_tpu_torch.models.synth import synth_params
 from distributed_llama_tpu_torch.ops import attention, q40
 from distributed_llama_tpu_torch.ops.quants import FloatType
+from distributed_llama_tpu_torch.runtime.generate import (Engine,
+                                                          run_chunked_prefill)
 
 
 @pytest.fixture
@@ -45,10 +48,62 @@ def test_q40_kernel_matches_plain(gen, d, n):
     assert err <= q40.KERNEL_RTOL * want.abs().max().item(), err
 
 
+@pytest.mark.parametrize("d,n,t", [(1, 32, 2), (7, 64, 3), (9, 4096, 4),
+                                   (33, 32 * 129, 5), (100, 4096, 6),
+                                   (64, 11008, 8), (5, 28672, 7)])
+def test_q40_small_t_kernel_matches_plain(gen, d, n, t):
+    w = q40.random_q40(d, n, "cuda", gen)
+    x = torch.randn((t, n), device="cuda", generator=gen)
+    counts = [k.launches for k in q40.KERNELS]
+    got = q40.q40_matmul(w, x)
+    torch.cuda.synchronize()
+    assert [k.launches for k in q40.KERNELS] == [counts[0], counts[1] + 1,
+                                                 counts[2]]
+    want = q40.q40_matmul_plain(w, x)
+    assert got.shape == want.shape == (t, d)
+    err = (got - want).abs().max().item()
+    assert err <= q40.KERNEL_RTOL * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("d,n,t", [(1, 32, 9), (7, 64, 16), (65, 4096, 17),
+                                   (64, 96, 33), (33, 32 * 129, 100),
+                                   (130, 11008, 128), (3, 64, 300)])
+def test_q40_gemm_kernel_matches_plain(gen, d, n, t):
+    w = q40.random_q40(d, n, "cuda", gen)
+    x = torch.randn((t, n), device="cuda", generator=gen)
+    counts = [k.launches for k in q40.KERNELS]
+    got = q40.q40_matmul(w, x)
+    torch.cuda.synchronize()
+    assert [k.launches for k in q40.KERNELS] == [counts[0], counts[1],
+                                                 counts[2] + 1]
+    want = q40.q40_matmul_plain(w, x)
+    assert got.shape == want.shape == (t, d)
+    err = (got - want).abs().max().item()
+    assert err <= q40.KERNEL_RTOL * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("d,n", [(33, 32 * 129), (8, 64)])
+def test_q40_gemm_reads_scales_at_an_odd_offset(gen, d, n):
+    """K3 copies the f16 scales as aligned 32-bit words: scales that start
+    in the second half of one (a layer view of a stacked weight can), with
+    an odd count, so the last word is half past the end."""
+    w = q40.random_q40(d, n, "cuda", gen)
+    raw = torch.empty(w.d16.numel() + 1, dtype=torch.float16, device="cuda")
+    raw[1:] = w.d16.reshape(-1)
+    odd = Q40Weight(w.qs, raw[1:].view(w.d16.shape))
+    x = torch.randn((40, n), device="cuda", generator=gen)
+    got = q40.q40_matmul(odd, x)
+    want = q40.q40_matmul_plain(w, x)
+    err = (got - want).abs().max().item()
+    assert err <= q40.KERNEL_RTOL * want.abs().max().item(), err
+
+
 def test_q40_kernel_raises_instead_of_falling_back(gen):
     w = q40.random_q40(16, 64, "cuda", gen)
-    with pytest.raises(NotImplementedError, match="T=1"):
-        q40.q40_matmul(w, torch.randn((2, 64), device="cuda", generator=gen))
+    for t in (1, 2, 9):  # K1, K1m and K3 check alike
+        x = torch.randn((t * 64 + 1,), device="cuda", generator=gen)
+        with pytest.raises(ValueError, match="x must be 16-byte aligned"):
+            q40.q40_matmul(w, x[1:].view(t, 64))
     raw = torch.zeros(16 * 2 * 16 + 1, dtype=torch.uint8, device="cuda")
     shifted = Q40Weight(raw[1:].view(16, 2, 16), w.d16)
     with pytest.raises(ValueError, match="16-byte aligned"):
@@ -80,6 +135,40 @@ def test_attention_kernel_matches_plain(gen, kv_mul, hs, pos):
     torch.testing.assert_close(again, got, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("kv_mul", [1, 2, 4, 8])
+@pytest.mark.parametrize("hs", [64, 128])
+@pytest.mark.parametrize("pos,t_len", [(0, 2), (5, 33), (40, 70)])
+def test_prefill_attention_kernel_matches_plain(gen, kv_mul, hs, pos, t_len):
+    shape = (2, 120, 2, hs)  # (L, S, n_kv, hs)
+    k_all = torch.randn(shape, device="cuda", generator=gen)
+    v_all = torch.randn(shape, device="cuda", generator=gen)
+    q = torch.randn((t_len, 2 * kv_mul, hs), device="cuda", generator=gen)
+    before = attention.PREFILL_KERNEL.launches
+    got = attention.prefill_attention(q, k_all, v_all, 1, pos, kv_mul)
+    torch.cuda.synchronize()
+    assert attention.PREFILL_KERNEL.launches == before + 1
+    want = attention.prefill_attention_plain(q, k_all, v_all, 1, pos, kv_mul)
+    assert got.shape == want.shape == (t_len, 2 * kv_mul * hs)
+    assert (got - want).abs().max().item() <= attention.KERNEL_ATOL
+    # a poisoned suffix past pos + T - 1 stays unread
+    k_all[1, pos + t_len:] = 1e9
+    v_all[1, pos + t_len:] = float("nan")
+    again = attention.prefill_attention(q, k_all, v_all, 1, pos, kv_mul)
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+def test_prefill_attention_kernel_raises_instead_of_falling_back(gen):
+    k_all = torch.randn((1, 16, 2, 64), device="cuda", generator=gen)
+    q = torch.randn((4, 2, 64), device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention.prefill_attention(q.transpose(0, 1).contiguous()
+                                    .transpose(0, 1), k_all, k_all, 0, 0, 1)
+    with pytest.raises(ValueError, match="on cuda"):
+        attention.prefill_attention(q, k_all.cpu(), k_all.cpu(), 0, 0, 1)
+    with pytest.raises(ValueError, match="outside the cache"):
+        attention.prefill_attention(q, k_all, k_all, 0, 13, 1)
+
+
 def test_forward_kernels_match_plain_and_count_launches(gen):
     spec = TransformerSpec(dim=256, hidden_dim=704, n_layers=3, n_heads=4,
                            n_kv_heads=2, vocab_size=300, seq_len=16,
@@ -99,3 +188,43 @@ def test_forward_kernels_match_plain_and_count_launches(gen):
             assert torch.isfinite(a).all()
             err = (a - b).abs().max().item()
             assert err <= llama.LOGIT_RTOL * b.abs().max().item(), (pos, err)
+        # chunks of T = 4 and 7 (positions 5..15): every matmul, wcls too,
+        # through K1m and the attention through K4
+        for pos, toks in ((5, [3, 4, 5, 6]), (9, [9, 8, 7, 6, 5, 4, 3])):
+            counts = [k.launches for k in (*q40.KERNELS, *attention.KERNELS)]
+            a = kern(ck, toks, pos)
+            got = [k.launches for k in (*q40.KERNELS, *attention.KERNELS)]
+            assert [g - c for g, c in zip(got, counts)] == [
+                0, 4 * spec.n_layers + 1, 0, 0, spec.n_layers]
+            b = plain(cp, toks, pos)
+            err = (a - b).abs().max().item()
+            assert err <= llama.LOGIT_RTOL * b.abs().max().item(), (pos, err)
+    torch.testing.assert_close(ck.k, cp.k, rtol=1e-4, atol=1e-5)
+
+
+def test_engine_prefill_through_the_gemm_counts_launches(gen):
+    """Engine.prefill at chunk 16 over 40 tokens: two full windows and one
+    padded, each 4L K3 launches and L K4 launches, no logits; the cache
+    rows and next-step logits match the plain route on the card."""
+    spec = TransformerSpec(dim=256, hidden_dim=704, n_layers=2, n_heads=2,
+                           n_kv_heads=2, vocab_size=300, seq_len=64,
+                           weights_float_type=FloatType.Q40)
+    kern = Engine(spec, synth_params(spec, q40=True, seed=6), "cuda")
+    plain = llama.Llama(spec, kern.params, llama.PLAIN)
+    cp = llama.init_cache(spec, "cuda")
+    tokens = [int(t) for t in torch.randint(2, 300, (40,), generator=torch
+                                            .Generator().manual_seed(1))]
+    counts = [k.launches for k in (*q40.KERNELS, *attention.KERNELS)]
+    kern.prefill(tokens, 0, 16)
+    got = [k.launches for k in (*q40.KERNELS, *attention.KERNELS)]
+    assert [g - c for g, c in zip(got, counts)] == [
+        0, 0, 3 * 4 * spec.n_layers, 0, 3 * spec.n_layers]
+    with torch.inference_mode():
+        run_chunked_prefill(
+            lambda part, start: plain(cp, part, start, logits=False),
+            tokens, 0, 16, spec.seq_len)
+        b = plain(cp, 7, 40)[0].cpu().numpy()
+    torch.testing.assert_close(kern.cache.k[:, :40], cp.k[:, :40],
+                               rtol=1e-4, atol=1e-5)
+    a = kern.infer(7, 40)
+    assert abs(a - b).max() <= llama.LOGIT_RTOL * abs(b).max()

@@ -1,6 +1,6 @@
-"""Port Q40 matmul (K1 wrapper, CPU tensors -> plain version) vs the JAX
-package's Pallas ``q40_matmul`` in interpret mode, at the T=1 shapes of
-tests/test_pallas_q40.py.
+"""Port Q40 matmul (the K1/K1m/K3 wrapper, CPU tensors -> plain version) vs
+the JAX package's Pallas ``q40_matmul`` in interpret mode, at the T=1 shapes
+of tests/test_pallas_q40.py and at T = 2..24.
 
 Tolerance rtol 1e-5 / atol 1e-4, the one test_pallas_q40.py holds the Pallas
 kernel to: both sides read the identical Q40 value map in f32 and differ
@@ -43,6 +43,30 @@ def test_plain_matches_pallas_interpret(d, n, x_shape):
     got = q40.q40_matmul(_port(w), torch.from_numpy(x))
     assert q40.KERNEL.launches == before  # the CPU path launches nothing
     assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("t", [2, 4, 8, 16, 24])
+def test_plain_matches_pallas_small_t_and_gemm_bodies(t):
+    """The plain version of K1m (2 <= T <= 8) and K3 (T > 8) against the
+    JAX package's ``q40_matmul`` in interpret mode, which reaches the Pallas
+    small-T body (_kernel_multi -> _matvec_body_multi) at T <= 8 and the
+    f32 GEMM body (_kernel -> _matmul_body) above, as
+    tests/test_pallas_q40.py runs them. Same tolerance as above."""
+    import jax.numpy as jnp
+
+    from distributed_llama_tpu.ops.pallas_q40 import MULTI_T_MAX
+    from distributed_llama_tpu.ops.pallas_q40 import q40_matmul as ref
+    from distributed_llama_tpu_torch.ops import q40
+
+    assert q40.MULTI_T_MAX == MULTI_T_MAX
+    w = _mk(128, 256, seed=t)
+    x = np.random.default_rng(t).standard_normal((t, 256)).astype(np.float32)
+    want = np.asarray(ref(w, jnp.asarray(x), interpret=True))
+    counts = [k.launches for k in q40.KERNELS]
+    got = q40.q40_matmul(_port(w), torch.from_numpy(x))
+    assert [k.launches for k in q40.KERNELS] == counts
+    assert tuple(got.shape) == want.shape == (t, 128)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
 
 

@@ -130,3 +130,54 @@ def test_7b_file_size():
     from distributed_llama_tpu_torch.models.synth import llama2_7b_spec
 
     assert llama2_7b_spec().file_size() == 4242882588
+
+
+def _q80_input(shape, seed):
+    """N(0, 1) values with an all-zero block and a block of exact .5 ties
+    (amax 127, so 1/d = 1 and x * (1/d) lands on the halves)."""
+    x = _x(shape, seed)
+    flat = x.reshape(-1)
+    if flat.size >= 64:
+        flat[32:64] = np.arange(32, dtype=np.float32) - 15.5
+        flat[32] = 127.0
+    return x
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_q80_codec_bit_exact(shape):
+    """Q80 encode/decode, numpy and torch, against the JAX package's numpy
+    codec: codes and f16 deltas bit for bit, decoded values exactly."""
+    x = _q80_input(shape, seed=len(shape) + 20)
+    rqs, rd = ref_quants.quantize_q80(x)
+    qs, d = quants.quantize_q80(x)
+    np.testing.assert_array_equal(qs, rqs)
+    np.testing.assert_array_equal(d.view(np.uint16), rd.view(np.uint16))
+    tqs, td = quants.quantize_q80_torch(torch.from_numpy(x))
+    assert tqs.dtype == torch.int8 and td.dtype == torch.float16
+    np.testing.assert_array_equal(tqs.numpy(), rqs)
+    np.testing.assert_array_equal(td.numpy().view(np.uint16),
+                                  rd.view(np.uint16))
+    want = ref_quants.dequantize_q80(rqs, rd)
+    np.testing.assert_array_equal(quants.dequantize_q80(qs, d), want)
+    np.testing.assert_array_equal(
+        quants.dequantize_q80_torch(tqs, td).numpy(), want)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fake_quant_q80_bit_exact_with_jax(seed):
+    """ops/linear.fake_quant_q80 against the JAX package's, on random
+    inputs of several scales with an all-zero block and exact .5 ties:
+    equal bit for bit (same f32 arithmetic, both round ties to even)."""
+    import jax.numpy as jnp
+
+    from distributed_llama_tpu.ops.linear import fake_quant_q80 as ref
+    from distributed_llama_tpu_torch.ops.linear import fake_quant_q80
+
+    rng = np.random.default_rng(seed)
+    x = _q80_input((5, 256), seed) * np.float32(10.0 ** rng.uniform(-3, 3))
+    x.reshape(-1)[32:64] = np.arange(32, dtype=np.float32) - 15.5
+    x.reshape(-1)[32] = 127.0
+    want = np.asarray(ref(jnp.asarray(x)))
+    got = fake_quant_q80(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert not got.reshape(-1)[:32].any()  # the zero block stays zero
