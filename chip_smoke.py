@@ -14,16 +14,19 @@ no result line):
 2. Kernels against their plain versions on the card at the Llama-2-7B
    shapes: the Q40 matvec (K1) on wqkv/wo/w13/w2/wcls, the decode
    attention (K2) at kv_mul 1 (7B) and 8 (70B-style GQA) over positions
-   0..2047, the small-T Q40 matvec (K1m) at T = 2, 4, 8 and the Q40 GEMM
-   (K3) at T = 16, 100, 128 on wqkv/wo/w13/w2 (and wcls at T = 16), the
-   prefill attention (K4) at T = 128 and pos 0, 384, 1920 for 7B and the
-   GQA shape, with a poisoned cache suffix past pos+T that must not change
-   its output. Max error against the stated tolerance; kernel, plain and
-   library times (CUDA events, median of 25 launches, L2 flushed before
-   each); the bound and what bounds it.
+   0..2047 on an f32 and a bf16 cache, the small-T Q40 matvec (K1m) at
+   T = 2, 4, 8, the Q40 GEMM (K3) at T = 16, 100, 128 on wqkv/wo/w13/w2
+   (and wcls at T = 16), its bf16 tensor-core twin (K3b) at T = 16, 128,
+   and the prefill attention at T = 128 and pos 0, 384, 1920 for 7B and
+   the GQA shape, with f32 dots (K4) and bf16 dots (K4b), each over an f32
+   and a bf16 cache, with a poisoned cache suffix past pos+T that must not
+   change its output. Max error against the stated tolerance; kernel,
+   plain and library times (CUDA events, median of 25 launches, L2
+   flushed before each); the bound (bf16 rate for K3b and K4b) and what
+   bounds it.
 3. End to end: a 7B-shaped Q40 model with random codes (seeded) and a
    32000-piece tokenizer are written to build/smoke/, then the port's CLI
-   runs ``inference`` in-process three times, every kernel's launch count
+   runs ``inference`` in-process six times, every kernel's launch count
    reset just before and read just after each run:
    a. 64 steps token by token, greedy: K1 4*L+1 = 129 and K2 L = 32
       launches per step;
@@ -32,7 +35,14 @@ no result line):
       K1m 0), then 65 decode steps from pos 511 (K1 129*65, K2 32*65);
    c. ``--buffer-float-type q80 --prefill-chunk 8``, 64 steps over the
       20-token prompt: 3 chunks of T = 8 (K1m 4*L*3 = 384, K4 L*3 = 96),
-      then 45 decode steps; every step's logits must be finite.
+      then 45 decode steps; every step's logits must be finite;
+   d. run b with ``--fast-prefill --kv-cache-dtype bf16`` (the slice's
+      main path): K3b 512 and K4b (bf16-cache build) 128 in the prefill,
+      K3 and K4 0, then K1 and the bf16-cache K2 per decode step; its peak
+      device memory must lie ~1.07 GB (the halved cache) below run b's;
+   e. and f. run b with ``--fast-prefill`` alone (K3b, K4b over an f32
+      cache) and with ``--kv-cache-dtype bf16`` alone (K3, the bf16-cache
+      K4 and K2), 9 decode steps each.
 4. Kernels against plain at full width: the first 4 positions of the same
    model through the forward with the kernels and with the plain versions;
    then 8 more kernel steps timed, and 8 under torch.profiler for the
@@ -47,7 +57,11 @@ no result line):
    position-independent, so a small model with quantized-Gaussian weights
    also runs through the kernels on the card (8 decode steps, and prefill
    at chunk 4 through K1m and chunk 16 through K3) and is held against the
-   plain path on the CPU.
+   plain path on the CPU. Then the same 512-token Engine.prefill with
+   ``fast_prefill``, timed back to back with the parity prefill and
+   profiled once, its cache rows and next logits held against the plain
+   fast route on the card (llama.FAST_RTOL); the small model also
+   prefills at chunk 16 on the fast route, over an f32 and a bf16 cache.
 5. The ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -70,9 +84,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SMOKE_DIR = ROOT / "build" / "smoke"
 
-# peak rates (bytes/s, f32 FLOP/s outside the tensor cores) for the bound:
-# the H100 SXM data-sheet numbers; a PCIe part reads ~2.0 TB/s, 51 TFLOP/s
-PEAKS = {"sxm": (3.35e12, 67e12), "pcie": (2.0e12, 51e12)}
+# peak rates (bytes/s, f32 FLOP/s outside the tensor cores, dense bf16
+# tensor-core FLOP/s) for the bound: the H100 SXM data-sheet numbers; a
+# PCIe part reads ~2.0 TB/s, 51 TFLOP/s f32, 756 TFLOP/s bf16
+PEAKS = {"sxm": (3.35e12, 67e12, 989e12), "pcie": (2.0e12, 51e12, 756e12)}
 
 # the tolerances are the port's own (ops/q40.KERNEL_RTOL,
 # ops/attention.KERNEL_ATOL, models/llama.LOGIT_RTOL), shared with the tests
@@ -82,6 +97,7 @@ PROMPT = " ".join(["hi"] * 19)  # BOS + 19 merged " hi" pieces = 20 tokens
 PROMPT_512 = " ".join(["hi"] * 511)  # BOS + 511 " hi" = 512 tokens
 CHUNK = 128          # the prefill chunk of phases 3b and 4
 STEPS_512 = 576      # 511 prefilled positions + 65 decode steps
+STEPS_SHORT = 520    # runs e and f: 9 decode steps after the prefill
 Q80_CHUNK = 8        # phase 3c: q80 buffers, prefill through K1m
 
 
@@ -120,10 +136,12 @@ class Timer:
         return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float, peaks) -> tuple[float, str]:
-    """(least ms, 'bytes' | 'operations') on this card."""
+def bound(nbytes: float, flops: float, peaks,
+          bf16: bool = False) -> tuple[float, str]:
+    """(least ms, 'bytes' | 'operations') on this card; ``bf16`` counts the
+    flops at the bf16 tensor-core rate instead of the f32 one."""
     t_bytes = nbytes / peaks[0] * 1e3
-    t_ops = flops / peaks[1] * 1e3
+    t_ops = flops / peaks[2 if bf16 else 1] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -141,7 +159,8 @@ def phase_card(torch):
     peaks = PEAKS["pcie"] if "PCIe" in name else PEAKS["sxm"]
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}; bound uses "
-        f"{peaks[0] / 1e12:.2f} TB/s, {peaks[1] / 1e12:.0f} TFLOP/s f32")
+        f"{peaks[0] / 1e12:.2f} TB/s, {peaks[1] / 1e12:.0f} TFLOP/s f32, "
+        f"{peaks[2] / 1e12:.0f} TFLOP/s bf16")
 
     from distributed_llama_tpu_torch.ops import attention, q40
     from distributed_llama_tpu_torch.ops._build import build
@@ -168,10 +187,15 @@ K2_SEQ, K2_HS = 2048, 128
 
 
 def phase_k1(torch, timer, peaks):
+    """K1 against plain; the library yardstick is cuBLAS's f32 GEMV
+    (torch.matmul, TF32 off) on the weight dequantized beforehand (the
+    dequant is not timed)."""
     from distributed_llama_tpu_torch.ops.q40 import (KERNEL_RTOL, q40_matmul,
                                                      q40_matmul_plain,
                                                      random_q40)
+    from distributed_llama_tpu_torch.ops.quants import dequantize_q40_torch
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for name, d, n, per_token in K1_SHAPES:
@@ -185,48 +209,62 @@ def phase_k1(torch, timer, peaks):
         tol = KERNEL_RTOL * want.abs().max().item()
         ms = timer(lambda: q40_matmul(w, x))
         plain_ms = timer(lambda: q40_matmul_plain(w, x))
+        wf = dequantize_q40_torch(w.qs, w.d16)
+        library_ms = timer(lambda: torch.matmul(x, wf.T))
         nbytes = d * nb * 18 + n * 4 + d * 4
         b_ms, b_by = bound(nbytes, 2.0 * d * n, peaks)
         log(f"K1 {name:5s} ({d}x{n}): max_abs_err {err:.3e} (tol {tol:.3e}) "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.4f} ms "
-            f"({b_by}, {nbytes / ms / 1e6:.0f} GB/s)")
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms gemv "
+            f"{library_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
+            f"{nbytes / ms / 1e6:.0f} GB/s)")
         if not err <= tol:
             raise AssertionError(f"K1 {name}: error {err} above {tol}")
         rows.append(dict(shape=name, d=d, n=n, per_token=per_token,
                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
-        del w, x, got, want
+                         bound_ms=b_ms, bound_by=b_by,
+                         library_ms=library_ms))
+        del w, x, got, want, wf
     return rows
 
 
-def phase_k2(torch, timer, peaks):
+def phase_k2(torch, timer, peaks, cache=None):
+    """K2 against plain over an f32 cache, or over a bf16 one (``cache`` =
+    torch.bfloat16, the kvbf16 build); SDPA (in the cache dtype) is the
+    library yardstick."""
     import torch.nn.functional as F
 
     from distributed_llama_tpu_torch.ops.attention import (
-        KERNEL_ATOL, attention_scale, decode_attention,
-        decode_attention_plain)
+        KERNEL, KERNEL_ATOL, KERNEL_KVBF16, attention_scale,
+        decode_attention, decode_attention_plain)
 
+    cache = cache or torch.float32
+    kernel = KERNEL if cache == torch.float32 else KERNEL_KVBF16
+    size = torch.tensor([], dtype=cache).element_size()
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     for label, L, n_kv, kv_mul in K2_CASES:
         shape = (L, K2_SEQ, n_kv, K2_HS)
-        k_all = torch.randn(shape, device="cuda", generator=g)
-        v_all = torch.randn(shape, device="cuda", generator=g)
+        k_all = torch.randn(shape, device="cuda", generator=g).to(cache)
+        v_all = torch.randn(shape, device="cuda", generator=g).to(cache)
         n_q = n_kv * kv_mul
         q = torch.randn((n_q, K2_HS), device="cuda", generator=g)
         layer = L - 1
         scale = attention_scale(K2_HS)
         for pos in K2_POS:
+            before = kernel.launches
             got = decode_attention(q, k_all, v_all, layer, pos, kv_mul)
-            want = decode_attention_plain(q, k_all, v_all, layer, pos, kv_mul)
             torch.cuda.synchronize()
+            if kernel.launches != before + 1:
+                raise AssertionError(f"{kernel.symbol} {label} pos {pos}: "
+                                     f"not launched")
+            want = decode_attention_plain(q, k_all, v_all, layer, pos, kv_mul)
             err = (got - want).abs().max().item()
             ms = timer(lambda: decode_attention(q, k_all, v_all, layer, pos,
                                                 kv_mul))
             plain_ms = timer(lambda: decode_attention_plain(
                 q, k_all, v_all, layer, pos, kv_mul))
             # yardstick only: the port never calls SDPA
-            qs = q.reshape(1, n_q, 1, K2_HS)
+            qs = q.reshape(1, n_q, 1, K2_HS).to(cache)
             ks = k_all[layer, :pos + 1].permute(1, 0, 2).unsqueeze(0)
             vs = v_all[layer, :pos + 1].permute(1, 0, 2).unsqueeze(0)
             def lib():
@@ -235,14 +273,16 @@ def phase_k2(torch, timer, peaks):
 
             lib_err = (lib().reshape(1, -1) - want).abs().max().item()
             library_ms = timer(lib)
-            nbytes = 2 * (pos + 1) * n_kv * K2_HS * 4 + 2 * n_q * K2_HS * 4
+            nbytes = (2 * (pos + 1) * n_kv * K2_HS * size
+                      + 2 * n_q * K2_HS * 4)
             b_ms, b_by = bound(nbytes, 4.0 * (pos + 1) * n_q * K2_HS, peaks)
-            log(f"K2 {label} pos {pos:4d}: max_abs_err {err:.3e} (tol "
-                f"{KERNEL_ATOL:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                f"sdpa {library_ms:.4f} ms (err {lib_err:.1e}) bound "
-                f"{b_ms:.5f} ms ({b_by})")
+            log(f"{kernel.symbol} {label} pos {pos:4d}: max_abs_err "
+                f"{err:.3e} (tol {KERNEL_ATOL:.0e}) kernel {ms:.4f} ms "
+                f"plain {plain_ms:.4f} ms sdpa {library_ms:.4f} ms (err "
+                f"{lib_err:.1e}) bound {b_ms:.5f} ms ({b_by})")
             if not err <= KERNEL_ATOL:
-                raise AssertionError(f"K2 {label} pos {pos}: error {err}")
+                raise AssertionError(f"{kernel.symbol} {label} pos {pos}: "
+                                     f"error {err}")
             rows.append(dict(case=label, n_kv=n_kv, kv_mul=kv_mul, pos=pos,
                              max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=b_ms, bound_by=b_by,
@@ -251,16 +291,35 @@ def phase_k2(torch, timer, peaks):
     return rows
 
 
-def _q40_rows(torch, timer, peaks, kernel, cases, seed):
-    """K1m or K3 against the plain version on the 7B shapes; the library
-    yardstick is cuBLAS SGEMM (torch.matmul, TF32 off) on the weight
-    dequantized beforehand (the dequant is not timed)."""
-    from distributed_llama_tpu_torch.ops.q40 import (KERNEL_RTOL, q40_matmul,
+def _library_gemm(torch, x, wf, bf16):
+    """The one-call yardstick of a Q40 GEMM on the weight dequantized
+    beforehand: cuBLAS SGEMM (TF32 off), or for bf16 cuBLAS's bf16 GEMM
+    with f32 output (``torch.mm(..., out_dtype=)``; where this torch lacks
+    it, the bf16-output ``torch.matmul``). Returns (fn, label); the
+    operands' conversion is not timed."""
+    if not bf16:
+        return (lambda: torch.matmul(x, wf.T)), "sgemm"
+    xb, wt = x.to(torch.bfloat16), wf.to(torch.bfloat16).T
+    try:
+        torch.mm(xb, wt, out_dtype=torch.float32)
+        return (lambda: torch.mm(xb, wt, out_dtype=torch.float32)), \
+            "bf16 gemm f32-out"
+    except (TypeError, RuntimeError, NotImplementedError):
+        return (lambda: torch.matmul(xb, wt)), "bf16 gemm bf16-out"
+
+
+def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False):
+    """K1m, K3 or (``bf16``) K3b against the plain version on the 7B
+    shapes; the library yardstick is _library_gemm's."""
+    from distributed_llama_tpu_torch.ops.q40 import (KERNEL_RTOL,
+                                                     KERNEL_RTOL_BF16,
+                                                     q40_matmul,
                                                      q40_matmul_plain,
                                                      random_q40)
     from distributed_llama_tpu_torch.ops.quants import dequantize_q40_torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    rtol = KERNEL_RTOL_BF16 if bf16 else KERNEL_RTOL
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
     for name, d, n, t, per_unit in cases:
@@ -268,31 +327,33 @@ def _q40_rows(torch, timer, peaks, kernel, cases, seed):
         w = random_q40(d, n, "cuda", g)
         x = torch.randn((t, n), device="cuda", generator=g)
         before = kernel.launches
-        got = q40_matmul(w, x)
+        got = q40_matmul(w, x, bf16=bf16)
         torch.cuda.synchronize()
         if kernel.launches != before + 1:
             raise AssertionError(f"{kernel.symbol} {name} T={t}: not launched")
-        want = q40_matmul_plain(w, x)
+        want = q40_matmul_plain(w, x, bf16=bf16)
         err = (got - want).abs().max().item()
-        tol = KERNEL_RTOL * want.abs().max().item()
+        tol = rtol * want.abs().max().item()
         wf = dequantize_q40_torch(w.qs, w.d16)
-        lib_err = (torch.matmul(x, wf.T) - want).abs().max().item()
-        ms = timer(lambda: q40_matmul(w, x))
-        plain_ms = timer(lambda: q40_matmul_plain(w, x))
-        library_ms = timer(lambda: torch.matmul(x, wf.T))
+        lib, lib_name = _library_gemm(torch, x, wf, bf16)
+        lib_err = (lib().float() - want).abs().max().item()
+        ms = timer(lambda: q40_matmul(w, x, bf16=bf16))
+        plain_ms = timer(lambda: q40_matmul_plain(w, x, bf16=bf16))
+        library_ms = timer(lib)
         nbytes = d * nb * 18 + t * n * 4 + t * d * 4
-        b_ms, b_by = bound(nbytes, 2.0 * t * d * n, peaks)
+        b_ms, b_by = bound(nbytes, 2.0 * t * d * n, peaks, bf16)
         log(f"{kernel.symbol} {name:5s} T={t:3d} ({d}x{n}): max_abs_err "
             f"{err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms sgemm {library_ms:.4f} ms (err {lib_err:.1e})"
-            f" bound {b_ms:.4f} ms ({b_by})")
+            f"{plain_ms:.4f} ms {lib_name} {library_ms:.4f} ms (err "
+            f"{lib_err:.1e}) bound {b_ms:.4f} ms ({b_by})")
         if not err <= tol:
             raise AssertionError(f"{kernel.symbol} {name} T={t}: error {err}"
                                  f" above {tol}")
         rows.append(dict(shape=name, d=d, n=n, t=t, per_token=per_unit,
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms))
-        del w, x, got, want, wf
+                         max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                         library=lib_name))
+        del w, x, got, want, wf, lib
     return rows
 
 
@@ -317,18 +378,36 @@ def phase_k3(torch, timer, peaks):
     return _q40_rows(torch, timer, peaks, KERNEL_GEMM, cases, seed=3)
 
 
+def phase_k3b(torch, timer, peaks):
+    from distributed_llama_tpu_torch.ops.q40 import KERNEL_GEMM_BF16
+
+    cases = [(name, d, n, t, 32 if t == CHUNK else 0)
+             for t in (16, CHUNK) for name, d, n in LAYER_SHAPES]
+    return _q40_rows(torch, timer, peaks, KERNEL_GEMM_BF16, cases, seed=5,
+                     bf16=True)
+
+
 K4_CASES = [  # (label, L, n_kv, kv_mul)
     ("7b", 32, 32, 1), ("gqa8", 4, 8, 8)]
 K4_POS = (0, 384, 1920)
 
 
-def phase_k4(torch, timer, peaks):
+def phase_k4(torch, timer, peaks, bf16=False, cache=None):
+    """K4 (f32 dots) or K4b (``bf16`` dots) over an f32 cache or (``cache``
+    = torch.bfloat16) a bf16 one, against the matching plain version at
+    T = CHUNK; SDPA is the library yardstick (in bf16 where the kernel
+    takes bf16 operands or a bf16 cache)."""
     import torch.nn.functional as F
 
-    from distributed_llama_tpu_torch.ops.attention import (
-        KERNEL_ATOL, PREFILL_KERNEL, attention_scale, prefill_attention,
-        prefill_attention_plain)
+    from distributed_llama_tpu_torch.ops import attention
 
+    cache = cache or torch.float32
+    kernel = attention._PREFILL[bf16, cache]
+    plain = (attention.prefill_attention_bf16_plain if bf16
+             else attention.prefill_attention_plain)
+    atol = attention.KERNEL_ATOL_BF16 if bf16 else attention.KERNEL_ATOL
+    lib_dtype = torch.bfloat16 if bf16 else cache
+    size = torch.tensor([], dtype=cache).element_size()
     g = torch.Generator(device="cuda").manual_seed(4)
     rows = []
     t_len, hs = CHUNK, K2_HS
@@ -337,61 +416,69 @@ def phase_k4(torch, timer, peaks):
         n_q = n_kv * kv_mul
         layer = L - 1
         for pos in K4_POS:
-            k_all = torch.randn(shape, device="cuda", generator=g)
-            v_all = torch.randn(shape, device="cuda", generator=g)
+            k_all = torch.randn(shape, device="cuda", generator=g).to(cache)
+            v_all = torch.randn(shape, device="cuda", generator=g).to(cache)
             q = torch.randn((t_len, n_q, hs), device="cuda", generator=g)
-            before = PREFILL_KERNEL.launches
-            got = prefill_attention(q, k_all, v_all, layer, pos, kv_mul)
+
+            def run():
+                return attention.prefill_attention(q, k_all, v_all, layer,
+                                                   pos, kv_mul, bf16=bf16)
+
+            before = kernel.launches
+            got = run()
             torch.cuda.synchronize()
-            if PREFILL_KERNEL.launches != before + 1:
-                raise AssertionError(f"K4 {label} pos {pos}: not launched")
-            want = prefill_attention_plain(q, k_all, v_all, layer, pos,
-                                           kv_mul)
+            if kernel.launches != before + 1:
+                raise AssertionError(f"{kernel.symbol} {label} pos {pos}: "
+                                     f"not launched")
+            want = plain(q, k_all, v_all, layer, pos, kv_mul)
             err = (got - want).abs().max().item()
             live = pos + t_len
             # yardstick only: the port never calls SDPA
-            qs = q.permute(1, 0, 2).unsqueeze(0)
-            ks = k_all[layer, :live].permute(1, 0, 2).unsqueeze(0)
-            vs = v_all[layer, :live].permute(1, 0, 2).unsqueeze(0)
+            qs = q.permute(1, 0, 2).unsqueeze(0).to(lib_dtype)
+            ks = k_all[layer, :live].permute(1, 0, 2).unsqueeze(0) \
+                .to(lib_dtype)
+            vs = v_all[layer, :live].permute(1, 0, 2).unsqueeze(0) \
+                .to(lib_dtype)
             mask = (torch.arange(live, device="cuda")[None, :]
                     <= torch.arange(pos, live, device="cuda")[:, None])
 
             def lib():
                 return F.scaled_dot_product_attention(
-                    qs, ks, vs, attn_mask=mask, scale=attention_scale(hs),
-                    enable_gqa=kv_mul > 1)
+                    qs, ks, vs, attn_mask=mask, scale=attention.
+                    attention_scale(hs), enable_gqa=kv_mul > 1)
 
-            lib_err = (lib()[0].permute(1, 0, 2).reshape(t_len, -1)
+            lib_err = (lib()[0].permute(1, 0, 2).reshape(t_len, -1).float()
                        - want).abs().max().item()
-            ms = timer(lambda: prefill_attention(q, k_all, v_all, layer, pos,
-                                                 kv_mul))
-            plain_ms = timer(lambda: prefill_attention_plain(
-                q, k_all, v_all, layer, pos, kv_mul))
+            ms = timer(run)
+            plain_ms = timer(lambda: plain(q, k_all, v_all, layer, pos,
+                                           kv_mul))
             library_ms = timer(lib)
             # a poisoned suffix past pos+T-1 must stay unread
             k_all[layer, live:] = 1e9
             v_all[layer, live:] = float("nan")
-            again = prefill_attention(q, k_all, v_all, layer, pos, kv_mul)
+            again = run()
             torch.cuda.synchronize()
             poisoned = not torch.equal(again, got)
-            nbytes = 2 * live * n_kv * hs * 4 + 2 * t_len * n_q * hs * 4
+            nbytes = 2 * live * n_kv * hs * size + 2 * t_len * n_q * hs * 4
             row_keys = t_len * pos + t_len * (t_len + 1) // 2
-            b_ms, b_by = bound(nbytes, 4.0 * n_q * hs * row_keys, peaks)
-            log(f"K4 {label} T={t_len} pos {pos:4d}: max_abs_err {err:.3e} "
-                f"(tol {KERNEL_ATOL:.0e}) kernel {ms:.4f} ms plain "
-                f"{plain_ms:.4f} ms sdpa {library_ms:.4f} ms (err "
+            b_ms, b_by = bound(nbytes, 4.0 * n_q * hs * row_keys, peaks,
+                               bf16)
+            log(f"{kernel.symbol} {label} T={t_len} pos {pos:4d}: "
+                f"max_abs_err {err:.3e} (tol {atol:.0e}) kernel {ms:.4f} ms "
+                f"plain {plain_ms:.4f} ms sdpa {library_ms:.4f} ms (err "
                 f"{lib_err:.1e}) bound {b_ms:.5f} ms ({b_by}); poisoned "
                 f"suffix {'CHANGED the output' if poisoned else 'invisible'}")
-            if not err <= KERNEL_ATOL:
-                raise AssertionError(f"K4 {label} pos {pos}: error {err}")
+            if not err <= atol:
+                raise AssertionError(f"{kernel.symbol} {label} pos {pos}: "
+                                     f"error {err}")
             if poisoned:
-                raise AssertionError(f"K4 {label} pos {pos}: keys past "
-                                     f"pos+T changed the output")
+                raise AssertionError(f"{kernel.symbol} {label} pos {pos}: "
+                                     f"keys past pos+T changed the output")
             rows.append(dict(case=label, n_kv=n_kv, kv_mul=kv_mul, t=t_len,
                              pos=pos, max_abs_err=err, ms=ms,
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                              library_ms=library_ms))
-            del k_all, v_all, q, got, want, again
+            del k_all, v_all, q, got, want, again, qs, ks, vs
     return rows
 
 
@@ -524,36 +611,75 @@ def phase_e2e(torch, model, tok):
 
 
 def _expect(label, counts, want):
-    if counts != want:
-        raise AssertionError(f"{label}: launches {counts}, want {want}")
+    """Every kernel's launches equal ``want``'s, 0 for a kernel it omits."""
+    full = dict.fromkeys(counts, 0)
+    full.update(want)
+    if counts != full:
+        raise AssertionError(f"{label}: launches {counts}, want {full}")
 
 
-def phase_e2e_prefill(torch, model, tok, n_layers):
-    """Run b: the 512-token prompt through --prefill-chunk 128."""
+def phase_e2e_prefill(torch, model, tok, n_layers, label="prefill",
+                      flags=(), steps=STEPS_512):
+    """The 512-token prompt through --prefill-chunk 128 and ``flags``: 4
+    chunks of T = 128, then decode from pos 511 to ``steps``. The launch
+    counts are exact, with the Q40 GEMM, prefill attention and decode
+    attention builds that the flags select (--fast-prefill: K3b and K4b;
+    --kv-cache-dtype bf16: the bf16-cache builds), every other kernel 0."""
+    fast = "--fast-prefill" in flags
+    kvbf16 = "bf16" in flags
+    gemm = "q40_gemm_bf16" if fast else "q40_gemm"
+    prefill = ("prefill_attention_bf16" if fast else "prefill_attention") \
+        + ("_kvbf16" if kvbf16 else "")
+    decode = "decode_attention" + ("_kvbf16" if kvbf16 else "")
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     out, counts, wall, finite = _run_cli(torch, model, tok, [
-        "--prompt", PROMPT_512, "--steps", str(STEPS_512), "--temperature",
-        "0", "--seed", "1", "--prefill-chunk", str(CHUNK)])
-    steps = int(re.search(r"Generated tokens:\s+(\d+)", out).group(1))
+        "--prompt", PROMPT_512, "--steps", str(steps), "--temperature",
+        "0", "--seed", "1", "--prefill-chunk", str(CHUNK), *flags])
+    decode_steps = int(re.search(r"Generated tokens:\s+(\d+)", out).group(1))
     n_chunks = (511 + CHUNK - 1) // CHUNK
-    _expect("prefill run", counts, {
-        "q40_matvec": (4 * n_layers + 1) * steps,
-        "q40_matvec_multi": 0,
-        "q40_gemm": 4 * n_layers * n_chunks,
-        "decode_attention": n_layers * steps,
-        "prefill_attention": n_layers * n_chunks})
-    if steps != STEPS_512 - 511 or not all(finite) or len(finite) != steps:
-        raise AssertionError(f"prefill run: {steps} decode steps, finite "
-                             f"logits {sum(finite)}/{len(finite)}")
-    if out.count("🔶") < steps - 1:
+    _expect(f"{label} run", counts, {
+        "q40_matvec": (4 * n_layers + 1) * decode_steps,
+        gemm: 4 * n_layers * n_chunks,
+        decode: n_layers * decode_steps,
+        prefill: n_layers * n_chunks})
+    if (decode_steps != steps - 511 or not all(finite)
+            or len(finite) != decode_steps):
+        raise AssertionError(f"{label} run: {decode_steps} decode steps, "
+                             f"finite logits {sum(finite)}/{len(finite)}")
+    if out.count("🔶") < decode_steps - 1:
         raise AssertionError("missing per-token 🔶 lines")
-    res = dict(prompt_tokens=512, chunk=CHUNK, decode_steps=steps,
-               wall_s=wall, launches=counts,
+    res = dict(prompt_tokens=512, chunk=CHUNK, flags=list(flags),
+               decode_steps=decode_steps, wall_s=wall, launches=counts,
                peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
                ms_per_token_avg=float(re.search(
                    r"Avg generation time: ([\d.]+) ms", out).group(1)))
-    log(f"e2e prefill: {json.dumps(res)}")
+    log(f"e2e {label}: {json.dumps(res)}")
     return res
+
+
+def phase_e2e_bf16(torch, model, tok, n_layers, f32_run):
+    """Runs d-f: the 512-token prompt with --fast-prefill and a bf16 cache
+    (d, the slice's main path; its peak device memory must lie about the
+    1.07 GB of the halved 7B cache below run b's), --fast-prefill alone
+    (e) and the bf16 cache alone (f), each with exact launch counts."""
+    both = phase_e2e_prefill(torch, model, tok, n_layers, "fast bf16-cache",
+                             ("--fast-prefill", "--kv-cache-dtype", "bf16"))
+    saved = f32_run["peak_device_gb"] - both["peak_device_gb"]
+    log(f"peak device memory: {both['peak_device_gb']:.3f} GB with a bf16 "
+        f"cache, {f32_run['peak_device_gb']:.3f} GB with f32: "
+        f"{saved:.3f} GB less")
+    if not 0.9 <= saved <= 1.25:
+        raise AssertionError(f"the bf16 cache saved {saved:.3f} GB of peak "
+                             f"device memory, not ~1.07")
+    fast = phase_e2e_prefill(torch, model, tok, n_layers, "fast",
+                             ("--fast-prefill",), steps=STEPS_SHORT)
+    kvbf16 = phase_e2e_prefill(torch, model, tok, n_layers, "bf16-cache",
+                               ("--kv-cache-dtype", "bf16"),
+                               steps=STEPS_SHORT)
+    return dict(fast_bf16_cache=both, fast=fast, bf16_cache=kvbf16,
+                peak_saved_gb=saved)
 
 
 def phase_e2e_q80(torch, model, tok, n_layers):
@@ -619,24 +745,28 @@ def phase_full_width(torch, model, tok, peaks):
     del ck, cp
     prefill = prefill_full_width(torch, engine, plain,
                                  tokenizer.encode(PROMPT_512), peaks)
+    prefill["fast"] = prefill_fast_full_width(
+        torch, engine, tokenizer.encode(PROMPT_512), peaks)
     return worst, busy, prefill
 
 
-def _prefill_bounds(spec, n_tokens, peaks):
+def _prefill_bounds(spec, n_tokens, peaks, bf16=False):
     """(matmul bound ms, attention bound ms) of prefilling n_tokens at
     CHUNK: the 4 layer matrices of every layer at T = CHUNK per chunk, and
-    K4's bound per layer and chunk (as phase_k4 counts it)."""
+    K4's bound per layer and chunk (as phase_k4 counts it); ``bf16`` counts
+    the operations at the bf16 rate (K3b, K4b)."""
     hs, n_q, n_kv = spec.head_size, spec.n_heads, spec.n_kv_heads
     mm = att = 0.0
     for pos in range(0, n_tokens, CHUNK):
         for _, d, n in LAYER_SHAPES:
             nbytes = d * (n // 32) * 18 + CHUNK * (n + d) * 4
-            mm += bound(nbytes, 2.0 * CHUNK * d * n, peaks)[0] * spec.n_layers
+            mm += bound(nbytes, 2.0 * CHUNK * d * n, peaks,
+                        bf16)[0] * spec.n_layers
         live = pos + CHUNK
         nbytes = 2 * live * n_kv * hs * 4 + 2 * CHUNK * n_q * hs * 4
         row_keys = CHUNK * pos + CHUNK * (CHUNK + 1) // 2
-        att += bound(nbytes, 4.0 * n_q * hs * row_keys,
-                     peaks)[0] * spec.n_layers
+        att += bound(nbytes, 4.0 * n_q * hs * row_keys, peaks,
+                     bf16)[0] * spec.n_layers
     return mm, att
 
 
@@ -717,6 +847,85 @@ def prefill_full_width(torch, engine, plain, tokens, peaks):
     return res
 
 
+def prefill_fast_full_width(torch, engine, tokens, peaks):
+    """The same 512-token Engine.prefill with ``fast_prefill`` (every
+    window of CHUNK tokens through K3b and K4b, the engine's f32 cache):
+    timed back to back with the parity prefill in turns (parity, fast,
+    fast, parity, parity, fast; medians), profiled once in situ, then its
+    cache rows and next-step logits held against the same windows through
+    the plain fast route on the card (FAST_PLAIN) within llama.FAST_RTOL.
+    The drift against the parity prefill's cache is recorded."""
+    from distributed_llama_tpu_torch.models import llama
+    from distributed_llama_tpu_torch.runtime.generate import \
+        run_chunked_prefill
+
+    spec, kern = engine.spec, engine.model
+    n, nxt = len(tokens), tokens[-1]
+    times = {False: [], True: []}
+    with torch.inference_mode():
+        for fast in (False, True, True, False, False, True):
+            engine.fast_prefill = fast
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.prefill(tokens, 0, CHUNK)
+            torch.cuda.synchronize()
+            times[fast].append((time.perf_counter() - t0) * 1e3)
+        parity_ms = statistics.median(times[False])
+        ms = statistics.median(times[True])
+        mm_bound, att_bound = _prefill_bounds(spec, n, peaks, bf16=True)
+        log(f"fast prefill {n} tokens at chunk {CHUNK}: {ms:.2f} ms (runs "
+            f"{', '.join(f'{t:.2f}' for t in times[True])}) against parity "
+            f"{parity_ms:.2f} ms (runs "
+            f"{', '.join(f'{t:.2f}' for t in times[False])}) in the same "
+            f"call; {n / ms * 1e3:.0f} tokens/s; bound {mm_bound:.3f} ms of "
+            f"matmuls + {att_bound:.3f} ms of attention (bf16 rate)")
+        in_situ = profile_prefill(torch, engine, tokens, ms)
+        engine.prefill(tokens, 0, CHUNK)  # fast, into engine.cache
+        engine.fast_prefill = False
+        got = kern(engine.cache, nxt, n)
+        viaplain = llama.init_cache(spec, "cuda")
+        run_chunked_prefill(
+            lambda part, start: kern(viaplain, part, start, logits=False,
+                                     route=llama.FAST_PLAIN),
+            tokens, 0, CHUNK, spec.seq_len)
+        want = kern(viaplain, nxt, n, route=llama.PLAIN)
+        parity = llama.init_cache(spec, "cuda")
+        run_chunked_prefill(
+            lambda part, start: kern(parity, part, start, logits=False),
+            tokens, 0, CHUNK, spec.seq_len)
+        par_logits = kern(parity, nxt, n)
+        if not torch.isfinite(got).all():
+            raise AssertionError("fast-prefilled next logits not finite")
+        cache_err = max((engine.cache.k[:, :n] - viaplain.k[:, :n]).abs()
+                        .max().item(),
+                        (engine.cache.v[:, :n] - viaplain.v[:, :n]).abs()
+                        .max().item())
+        scale = max(viaplain.k[:, :n].abs().max().item(),
+                    viaplain.v[:, :n].abs().max().item())
+        cache_tol = llama.FAST_RTOL * scale
+        err = (got - want).abs().max().item()
+        tol = llama.FAST_RTOL * want.abs().max().item()
+        drift = (engine.cache.k[:, :n] - parity.k[:, :n]).abs().max().item() \
+            / parity.k[:, :n].abs().max().item()
+        logit_drift = ((got - par_logits).abs().max()
+                       / par_logits.abs().max()).item()
+        log(f"fast prefill vs plain fast route: cache rows 0..{n - 1} "
+            f"max_abs_err {cache_err:.3e} (tol {cache_tol:.3e}); next "
+            f"logits max_abs_err {err:.3e} (tol {tol:.3e}); drift against "
+            f"the parity prefill: cache {drift:.3e}, logits "
+            f"{logit_drift:.3e} of their scale")
+        del viaplain, parity
+        if not (cache_err <= cache_tol and err <= tol):
+            raise AssertionError(f"fast prefill vs plain: cache {cache_err} "
+                                 f"/ logits {err} above tolerance")
+    return dict(tokens=n, chunk=CHUNK, ms=ms, runs_ms=times[True],
+                parity_ms=parity_ms, parity_runs_ms=times[False],
+                tokens_per_s=n / ms * 1e3, matmul_bound_ms=mm_bound,
+                attention_bound_ms=att_bound, in_situ=in_situ,
+                cache_err=cache_err, cache_tol=cache_tol, logit_err=err,
+                logit_tol=tol, cache_drift=drift, logit_drift=logit_drift)
+
+
 def profile_steps(torch, model, cache, token, pos0, n=8):
     """Where a decode step's time goes: the wall time of n forward steps
     (host clock, ending in a synchronize), then the same steps under
@@ -774,10 +983,10 @@ def _profiled(torch, fn, n):
 
 def profile_prefill(torch, engine, tokens, wall_ms):
     """Where a prefill's time goes in situ: one Engine.prefill of ``tokens``
-    at CHUNK under torch.profiler, its device time split into K3, K4 and
-    the rest (the torch glue), each read against ``wall_ms``, the
-    unprofiled wall time of the same call. Returns None when the trace
-    holds no device time."""
+    at CHUNK under torch.profiler, its device time split into the Q40 GEMM
+    (K3 or K3b), the prefill attention (K4 or K4b) and the rest (the torch
+    glue), each read against ``wall_ms``, the unprofiled wall time of the
+    same call. Returns None when the trace holds no device time."""
     dev, prof_ms = _profiled(torch, lambda: engine.prefill(tokens, 0, CHUNK),
                              1)
     dev_ms = sum(ms for _, ms, _ in dev)
@@ -788,7 +997,8 @@ def profile_prefill(torch, engine, tokens, wall_ms):
              "other": [0.0, 0.0]}
     for key, ms, count in dev:
         part = next((p for p in ("q40_gemm", "prefill_attention")
-                     if f"{p}_kernel" in key), "other")
+                     if f"{p}_kernel" in key or f"{p}_bf16_kernel" in key),
+                    "other")
         split[part][0] += ms
         split[part][1] += count
     log(f"prefill in situ: {wall_ms:.2f} ms wall ({prof_ms:.2f} under the "
@@ -839,8 +1049,9 @@ def phase_small_reference(torch):
 
 
 def small_prefill(torch, spec, gpu, cpu):
-    """Prefill of 40 tokens at chunk 4 (through K1m) and 16 (through K3) on
-    the card against the plain path on the CPU: cache rows and next-step
+    """Prefill of 40 tokens at chunk 4 (through K1m) and 16 (through K3),
+    and at chunk 16 on the fast route (K3b and K4b, f32 and bf16 caches),
+    on the card against the plain path on the CPU: cache rows and next-step
     logits, with the exact launch counts."""
     import numpy as np
 
@@ -851,36 +1062,51 @@ def small_prefill(torch, spec, gpu, cpu):
     tokens = [int(t) for t in np.random.default_rng(8).integers(
         2, spec.vocab_size, 40)]
     L = spec.n_layers
-    want_counts = {4: {"q40_matvec_multi": 4 * L * 10,
-                       "prefill_attention": L * 10},
-                   16: {"q40_gemm": 4 * L * 3, "prefill_attention": L * 3}}
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (label, chunk, route, cache dtype, launches, rtol)
+        ("chunk 4", 4, None, f32, {"q40_matvec_multi": 4 * L * 10,
+                                   "prefill_attention": L * 10},
+         llama.LOGIT_RTOL),
+        ("chunk 16", 16, None, f32, {"q40_gemm": 4 * L * 3,
+                                     "prefill_attention": L * 3},
+         llama.LOGIT_RTOL),
+        ("fast chunk 16", 16, llama.FAST, f32,
+         {"q40_gemm_bf16": 4 * L * 3, "prefill_attention_bf16": L * 3},
+         llama.FAST_RTOL),
+        ("fast chunk 16 bf16 cache", 16, llama.FAST, bf16,
+         {"q40_gemm_bf16": 4 * L * 3,
+          "prefill_attention_bf16_kvbf16": L * 3}, llama.FAST_RTOL)]
     worst = 0.0
     with torch.inference_mode():
-        for chunk, want in want_counts.items():
-            cg = llama.init_cache(spec, "cuda")
-            cc = llama.init_cache(spec, "cpu")
+        for label, chunk, route, dtype, want, rtol in cases:
+            cg = llama.init_cache(spec, "cuda", dtype)
+            cc = llama.init_cache(spec, "cpu", dtype)
             for k in _all_kernels():
                 k.launches = 0
             run_chunked_prefill(
-                lambda part, start: gpu(cg, part, start, logits=False),
+                lambda part, start: gpu(cg, part, start, logits=False,
+                                        route=route),
                 tokens, 0, chunk, spec.seq_len)
             counts = {k.symbol: k.launches for k in _all_kernels()
                       if k.launches}
-            _expect(f"small prefill chunk {chunk}", counts, want)
+            _expect(f"small prefill {label}", counts, want)
             run_chunked_prefill(
-                lambda part, start: cpu(cc, part, start, logits=False),
+                lambda part, start: cpu(cc, part, start, logits=False,
+                                        route=route),
                 tokens, 0, chunk, spec.seq_len)
             a = gpu(cg, 7, 40).cpu()
             b = cpu(cc, 7, 40)
-            cache_err = (cg.k[:, :40].cpu() - cc.k[:, :40]).abs().max().item()
-            cache_tol = llama.LOGIT_RTOL * cc.k[:, :40].abs().max().item()
+            ref_k = cc.k[:, :40].float()
+            cache_err = (cg.k[:, :40].cpu().float() - ref_k).abs().max() \
+                .item()
+            cache_tol = rtol * ref_k.abs().max().item()
             err = (a - b).abs().max().item()
-            tol = llama.LOGIT_RTOL * b.abs().max().item()
-            log(f"small model prefill at chunk {chunk}, card vs CPU: cache "
+            tol = rtol * b.abs().max().item()
+            log(f"small model prefill {label}, card vs CPU: cache "
                 f"max_abs_err {cache_err:.3e} (tol {cache_tol:.3e}), next "
                 f"logits {err:.3e} (tol {tol:.3e})")
             if not (cache_err <= cache_tol and err <= tol):
-                raise AssertionError(f"small prefill chunk {chunk}: cache "
+                raise AssertionError(f"small prefill {label}: cache "
                                      f"{cache_err} / logits {err}")
             worst = max(worst, err)
     return worst
@@ -913,9 +1139,15 @@ def main() -> int:
     timer = Timer(torch)
     k1 = phase_k1(torch, timer, peaks)
     k2 = phase_k2(torch, timer, peaks)
+    k2_kvbf16 = phase_k2(torch, timer, peaks, cache=torch.bfloat16)
     k1m = phase_k1m(torch, timer, peaks)
     k3 = phase_k3(torch, timer, peaks)
+    k3b = phase_k3b(torch, timer, peaks)
     k4 = phase_k4(torch, timer, peaks)
+    k4_kvbf16 = phase_k4(torch, timer, peaks, cache=torch.bfloat16)
+    k4b = phase_k4(torch, timer, peaks, bf16=True)
+    k4b_kvbf16 = phase_k4(torch, timer, peaks, bf16=True,
+                          cache=torch.bfloat16)
     del timer
     gc.collect()
     torch.cuda.empty_cache()
@@ -923,6 +1155,7 @@ def main() -> int:
     e2e = phase_e2e(torch, model, tok)
     e2e_prefill = phase_e2e_prefill(torch, model, tok, spec.n_layers)
     e2e_q80 = phase_e2e_q80(torch, model, tok, spec.n_layers)
+    e2e_bf16 = phase_e2e_bf16(torch, model, tok, spec.n_layers, e2e_prefill)
     gc.collect()
     torch.cuda.empty_cache()
     logit_err, busy, prefill = phase_full_width(torch, model, tok, peaks)
@@ -943,8 +1176,11 @@ def main() -> int:
              replaces="distributed_llama_tpu/ops/pallas_q40.py:696",
              launches=e2e["launches"]["q40_matvec"],
              max_abs_err=max(r["max_abs_err"] for r in k1), **k1_tok,
-             bound_by=_bound_by(k1), library_ms=None,
-             unit="one 7B token: 32 x (wqkv, wo, w13, w2) + wcls",
+             bound_by=_bound_by(k1),
+             library_ms=sum(r["library_ms"] * r["per_token"] for r in k1),
+             unit="one 7B token: 32 x (wqkv, wo, w13, w2) + wcls; library "
+                  "= cuBLAS f32 GEMV on the weight dequantized beforehand "
+                  "(dequant not timed)",
              shapes=k1),
         dict(name="decode_attention", route="cuda",
              source="distributed_llama_tpu_torch/csrc/decode_attention.cu",
@@ -993,13 +1229,66 @@ def main() -> int:
                   f"library = scaled_dot_product_attention with the causal "
                   f"offset mask over the live prefix", shapes=k4),
     ]
+    runs = {"d": e2e_bf16["fast_bf16_cache"]["launches"],
+            "e": e2e_bf16["fast"]["launches"],
+            "f": e2e_bf16["bf16_cache"]["launches"]}
+
+    def at_pos(rows, pos):
+        return [dict(r, per_token=32) for r in rows
+                if r["case"] == "7b" and r["pos"] == pos]
+
+    def attention_row(name, source, replaces, run, rows, pos, unit):
+        unit_rows = at_pos(rows, pos)
+        return dict(name=name, route="cuda",
+                    source=f"distributed_llama_tpu_torch/csrc/{source}",
+                    replaces=f"distributed_llama_tpu/ops/{replaces}",
+                    launches=runs[run][name],
+                    max_abs_err=max(r["max_abs_err"] for r in rows),
+                    **unit_row(unit_rows), unit=unit, shapes=rows)
+
+    sdpa = ("library = scaled_dot_product_attention in bf16 with the "
+            "causal offset mask over the live prefix")
+    kernels += [
+        attention_row("decode_attention_kvbf16", "decode_attention.cu",
+                      "pallas_attention.py:304", "d", k2_kvbf16, 63,
+                      "one 7B token at pos 63 over a bf16 cache: 32 layers;"
+                      " library = scaled_dot_product_attention in bf16"),
+        dict(name="q40_gemm_bf16", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/q40_gemm_bf16.cu",
+             replaces="distributed_llama_tpu/ops/pallas_q40.py:749",
+             launches=runs["d"]["q40_gemm_bf16"],
+             max_abs_err=max(r["max_abs_err"] for r in k3b),
+             **unit_row(k3b),
+             unit=f"one 7B {CHUNK}-token chunk: 32 x (wqkv, wo, w13, w2) "
+                  f"at T = {CHUNK}; library = "
+                  f"{k3b[0]['library']} (cuBLAS) on the weight dequantized "
+                  f"to bf16 beforehand (dequant not timed)", shapes=k3b),
+        attention_row("prefill_attention_kvbf16", "prefill_attention.cu",
+                      "pallas_attention.py:492", "f", k4_kvbf16, 384,
+                      f"one 7B {CHUNK}-token chunk at pos 384 over a bf16 "
+                      f"cache, f32 dots: 32 layers; {sdpa}"),
+        attention_row("prefill_attention_bf16", "prefill_attention_bf16.cu",
+                      "pallas_attention.py:492", "e", k4b, 384,
+                      f"one 7B {CHUNK}-token chunk at pos 384, bf16 dots, "
+                      f"f32 cache: 32 layers; {sdpa}"),
+        attention_row("prefill_attention_bf16_kvbf16",
+                      "prefill_attention_bf16.cu", "pallas_attention.py:492",
+                      "d", k4b_kvbf16, 384,
+                      f"one 7B {CHUNK}-token chunk at pos 384, bf16 dots, "
+                      f"bf16 cache: 32 layers; {sdpa}"),
+    ]
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{idle}")
     log(f"full-width logits max_abs_err {logit_err:.3e}; small-model "
         f"max_abs_err {small_err:.3e}; build {build_s:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels, "e2e": e2e, "step_profile": busy,
                       "e2e_prefill": e2e_prefill, "e2e_q80": e2e_q80,
-                      "prefill": prefill, "build_s": build_s}))
+                      "e2e_bf16": e2e_bf16, "prefill": prefill,
+                      "build_s": build_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -9,8 +9,8 @@ The package imports torch, numpy and the standard library only — never jax,
 and nothing of the JAX package; it keeps its own copies of what it needs. Its layout mirrors the JAX package module for module:
 
   ops.quants      block codecs (numpy) + torch Q40 dequant
-  ops.q40         Q40 matvec: CUDA kernel + plain version
-  ops.attention   flash-decode attention: CUDA kernel + plain version
+  ops.q40         Q40 matvec / GEMM (f32, bf16): CUDA kernels + plain versions
+  ops.attention   flash decode / prefill attention: CUDA kernels + plain versions
   ops.linear      rmsnorm / silu / matmul dispatch / load-time Q40 fusion
   models          spec, synthetic params, the Llama forward
   io              .bin loader/writer, tokenizer

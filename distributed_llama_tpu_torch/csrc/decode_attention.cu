@@ -1,25 +1,29 @@
 // Flash-decode attention for Hopper (sm_90a): one query token against the
-// live prefix 0..pos of one layer of the stacked f32 KV cache.
+// live prefix 0..pos of one layer of the stacked KV cache, f32 or bf16.
 //
-//   q (n_kv * kv_mul, hs) f32; k_all, v_all (L, S, n_kv, hs) f32;
+//   q (n_kv * kv_mul, hs) f32; k_all, v_all (L, S, n_kv, hs) f32 or bf16;
 //   out (n_kv * kv_mul * hs) f32; query head h = g * kv_mul + m attends
 //   kv head g; scores scaled by 1/sqrt(hs); softmax over keys 0..pos.
 //
 // Replaces the JAX package's ops/pallas_attention.py decode_attention
 // (_kernel / _flash_over_row): the same online softmax with running
 // (m, l, o), reading only the live prefix. `layer` and `pos` are kernel
-// arguments, so the call needs no device-to-host sync.
+// arguments, so the call needs no device-to-host sync. A bf16 cache (the
+// JAX kernel's scratch in the cache dtype, --kv-cache-dtype bf16) is
+// widened to f32 exactly as it is loaded, and all math stays f32.
 //
-// Bound: the K and V bytes of the live prefix, 2 * (pos+1) * n_kv * hs * 4,
-// read once. Design, simple first:
+// Bound: the K and V bytes of the live prefix, 2 * (pos+1) * n_kv * hs * 4
+// (2 per value for a bf16 cache), read once. Design, simple first:
 //   * one thread block per kv head, covering its kv_mul query heads, so K
 //     and V are read once;
 //   * kWarps warps take keys t = warp, warp + kWarps, ...; lane i holds
-//     dims 4i..4i+3 of q, k, v and o as float4 (head size up to 128);
+//     dims 4i..4i+3 of q, k, v and o as float4 (head size up to 128): a
+//     16-byte load per lane and key from an f32 cache, 8 from a bf16 one;
 //   * each warp keeps a running (m, l, o) per query head; the warps combine
 //     through shared memory at the end.
 // Only n_kv blocks run (32 at 7B on 132 SMs): splitting the keys across
 // blocks (flash-decoding) is left for later.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -34,11 +38,11 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
-template <int KV_MUL>
+template <typename KV, int KV_MUL>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_attention_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k_all,
-                        const float* __restrict__ v_all,
+                        const KV* __restrict__ k_all,
+                        const KV* __restrict__ v_all,
                         float* __restrict__ out, int layer, int pos, int S,
                         int n_kv, int hs, float scale) {
   const int g = blockIdx.x;
@@ -61,12 +65,10 @@ decode_attention_kernel(const float* __restrict__ q,
   const size_t row = static_cast<size_t>(n_kv) * hs;  // stride between keys
   const size_t base = (static_cast<size_t>(layer) * S * n_kv + g) * hs;
   for (int t = warp; t <= pos; t += kWarps) {
-    const float* kr = k_all + base + t * row;
-    const float* vr = v_all + base + t * row;
-    const float4 kv =
-        live ? __ldg(reinterpret_cast<const float4*>(kr + 4 * lane)) : zero;
-    const float4 vv =
-        live ? __ldg(reinterpret_cast<const float4*>(vr + 4 * lane)) : zero;
+    const KV* kr = k_all + base + t * row;
+    const KV* vr = v_all + base + t * row;
+    const float4 kv = live ? load_f4(kr + 4 * lane) : zero;
+    const float4 vv = live ? load_f4(vr + 4 * lane) : zero;
 #pragma unroll
     for (int h = 0; h < KV_MUL; ++h) {
       float s = dot4(qv[h], kv);
@@ -118,44 +120,68 @@ decode_attention_kernel(const float* __restrict__ q,
   }
 }
 
-template <int KV_MUL>
-int launch(const float* q, const float* k, const float* v, float* out,
-           int layer, int pos, int S, int n_kv, int hs, float scale,
+template <typename KV, int KV_MUL>
+int launch(const float* q, const KV* k, const KV* v, float* out, int layer,
+           int pos, int S, int n_kv, int hs, float scale,
            cudaStream_t stream) {
   const size_t smem =
       static_cast<size_t>(kWarps) * KV_MUL * (hs + 2) * sizeof(float);
   // the opt-in above 48 KB is per device, so it is made on every such launch
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_attention_kernel<KV_MUL>,
+        decode_attention_kernel<KV, KV_MUL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  decode_attention_kernel<KV_MUL>
+  decode_attention_kernel<KV, KV_MUL>
       <<<n_kv, kWarps * 32, smem, stream>>>(q, k, v, out, layer, pos, S,
                                             n_kv, hs, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Launch on `stream`; returns the cudaGetLastError() code (0 = launched).
-// Takes kv_mul in {1, 2, 4, 8} and hs a multiple of 4 up to 128.
-extern "C" int decode_attention(const void* q, const void* k_all,
-                                const void* v_all, void* out, int layer,
-                                int pos, int S, int n_kv, int kv_mul, int hs,
-                                float scale, void* stream) {
+template <typename KV>
+int dispatch(const void* q, const void* k_all, const void* v_all, void* out,
+             int layer, int pos, int S, int n_kv, int kv_mul, int hs,
+             float scale, void* stream) {
   const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k_all);
-  const float* vf = static_cast<const float*>(v_all);
+  const KV* kc = static_cast<const KV*>(k_all);
+  const KV* vc = static_cast<const KV*>(v_all);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hs % 4 != 0 || hs > 128) return static_cast<int>(cudaErrorInvalidValue);
   switch (kv_mul) {
-    case 1: return launch<1>(qf, kf, vf, of, layer, pos, S, n_kv, hs, scale, s);
-    case 2: return launch<2>(qf, kf, vf, of, layer, pos, S, n_kv, hs, scale, s);
-    case 4: return launch<4>(qf, kf, vf, of, layer, pos, S, n_kv, hs, scale, s);
-    case 8: return launch<8>(qf, kf, vf, of, layer, pos, S, n_kv, hs, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 1:
+      return launch<KV, 1>(qf, kc, vc, of, layer, pos, S, n_kv, hs, scale, s);
+    case 2:
+      return launch<KV, 2>(qf, kc, vc, of, layer, pos, S, n_kv, hs, scale, s);
+    case 4:
+      return launch<KV, 4>(qf, kc, vc, of, layer, pos, S, n_kv, hs, scale, s);
+    case 8:
+      return launch<KV, 8>(qf, kc, vc, of, layer, pos, S, n_kv, hs, scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+// Launch on `stream`; returns the cudaGetLastError() code (0 = launched).
+// Takes kv_mul in {1, 2, 4, 8} and hs a multiple of 4 up to 128. An f32
+// cache:
+extern "C" int decode_attention(const void* q, const void* k_all,
+                                const void* v_all, void* out, int layer,
+                                int pos, int S, int n_kv, int kv_mul, int hs,
+                                float scale, void* stream) {
+  return dispatch<float>(q, k_all, v_all, out, layer, pos, S, n_kv, kv_mul,
+                         hs, scale, stream);
+}
+
+// A bf16 cache:
+extern "C" int decode_attention_kvbf16(const void* q, const void* k_all,
+                                       const void* v_all, void* out,
+                                       int layer, int pos, int S, int n_kv,
+                                       int kv_mul, int hs, float scale,
+                                       void* stream) {
+  return dispatch<__nv_bfloat16>(q, k_all, v_all, out, layer, pos, S, n_kv,
+                                 kv_mul, hs, scale, stream);
 }

@@ -1,8 +1,8 @@
 // Causal flash-prefill attention for Hopper (sm_90a), K4: T query tokens at
 // positions pos..pos+T-1 against the live prefix of one layer of the stacked
-// f32 KV cache (the chunk's own keys are already written there).
+// KV cache, f32 or bf16 (the chunk's own keys are already written there).
 //
-//   q (T, n_kv * kv_mul, hs) f32; k_all, v_all (L, S, n_kv, hs) f32;
+//   q (T, n_kv * kv_mul, hs) f32; k_all, v_all (L, S, n_kv, hs) f32 or bf16;
 //   out (T, n_kv * kv_mul * hs) f32. Query row i (position pos + i) sees
 //   keys 0..pos+i; query head h attends kv head h / kv_mul; scores scaled by
 //   1/sqrt(hs); softmax online in f32 (running m, l, o).
@@ -10,7 +10,10 @@
 // Replaces the JAX package's ops/pallas_attention.py prefill_attention
 // (_prefill_kernel), in its f32 parity mode. Keys past pos+T-1 are never
 // read, as the JAX kernel clamps its walk with n_blk. `pos` and `layer` are
-// kernel arguments, so a call needs no device-to-host sync.
+// kernel arguments, so a call needs no device-to-host sync. A bf16 cache
+// (--kv-cache-dtype bf16) is widened to f32 exactly as a tile is staged
+// (an 8-byte load of 4 values where an f32 cache takes a 16-byte one);
+// all math stays f32.
 //
 // Bound: at 7B and T = 128 the bytes (K and V of the live prefix, read once)
 // set it for an early chunk; from a few hundred keys on, the
@@ -36,6 +39,7 @@
 // Takes kv_mul in {1, 2, 4, 8}, hs a multiple of 4 up to 128, any T >= 1.
 // Shared memory: 49 KB at hs 128 and 32 items per block (opt-in above 48 KB
 // made on every launch).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -56,11 +60,11 @@ __host__ __device__ __forceinline__ int key_stride4(int hs4) {
   return hs4 + 1 + (hs4 & 1);  // odd, so 8 lanes' float4 reads hit 8 slots
 }
 
-template <int KV_MUL, int IPW>
+template <typename KV, int KV_MUL, int IPW>
 __global__ void __launch_bounds__(kWarps * 32)
 prefill_attention_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k_all,
-                         const float* __restrict__ v_all,
+                         const KV* __restrict__ k_all,
+                         const KV* __restrict__ v_all,
                          float* __restrict__ out, int layer, int pos,
                          int t_len, int S, int n_kv, int hs, float scale) {
   constexpr int kItems = kWarps * IPW;    // (row, head) pairs of the block
@@ -117,9 +121,9 @@ prefill_attention_kernel(const float* __restrict__ q,
       const int key = k0 + j;
       float4 kv = zero, vv = zero;
       if (key <= kmax) {
-        const size_t off = base + key * key_row;
-        kv = __ldg(reinterpret_cast<const float4*>(k_all + off) + c);
-        vv = __ldg(reinterpret_cast<const float4*>(v_all + off) + c);
+        const size_t off = base + key * key_row + 4 * c;
+        kv = load_f4(k_all + off);
+        vv = load_f4(v_all + off);
       }
       k_s[j * ks4 + c] = kv;
       v_s[j * hs4 + c] = vv;
@@ -194,8 +198,8 @@ prefill_attention_kernel(const float* __restrict__ q,
   }
 }
 
-template <int KV_MUL, int IPW>
-int launch(const float* q, const float* k, const float* v, float* out,
+template <typename KV, int KV_MUL, int IPW>
+int launch(const float* q, const KV* k, const KV* v, float* out,
            int layer, int pos, int t_len, int S, int n_kv, int hs,
            float scale, cudaStream_t stream) {
   constexpr int kItems = kWarps * IPW;
@@ -207,27 +211,25 @@ int launch(const float* q, const float* k, const float* v, float* out,
   // the opt-in above 48 KB is per device, so it is made on every such launch
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        prefill_attention_kernel<KV_MUL, IPW>,
+        prefill_attention_kernel<KV, KV_MUL, IPW>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(n_kv, (t_len + kRows - 1) / kRows);
-  prefill_attention_kernel<KV_MUL, IPW><<<grid, kWarps * 32, smem, stream>>>(
+  prefill_attention_kernel<KV, KV_MUL, IPW>
+      <<<grid, kWarps * 32, smem, stream>>>(
       q, k, v, out, layer, pos, t_len, S, n_kv, hs, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
 
-// Launch on `stream`; returns the cudaGetLastError() code (0 = launched).
-extern "C" int prefill_attention(const void* q, const void* k_all,
-                                 const void* v_all, void* out, int layer,
-                                 int pos, int t_len, int S, int n_kv,
-                                 int kv_mul, int hs, float scale,
-                                 void* stream) {
+template <typename KV>
+int dispatch(const void* q, const void* k_all, const void* v_all, void* out,
+             int layer, int pos, int t_len, int S, int n_kv, int kv_mul,
+             int hs, float scale, void* stream) {
   const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k_all);
-  const float* vf = static_cast<const float*>(v_all);
+  const KV* kc = static_cast<const KV*>(k_all);
+  const KV* vc = static_cast<const KV*>(v_all);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hs % 4 != 0 || hs > 128 || t_len < 1 || pos < 0 || pos + t_len > S) {
@@ -235,18 +237,41 @@ extern "C" int prefill_attention(const void* q, const void* k_all,
   }
   switch (kv_mul) {
     case 1:
-      return launch<1, 2>(qf, kf, vf, of, layer, pos, t_len, S, n_kv, hs,
-                          scale, s);
+      return launch<KV, 1, 2>(qf, kc, vc, of, layer, pos, t_len, S, n_kv, hs,
+                              scale, s);
     case 2:
-      return launch<2, 4>(qf, kf, vf, of, layer, pos, t_len, S, n_kv, hs,
-                          scale, s);
+      return launch<KV, 2, 4>(qf, kc, vc, of, layer, pos, t_len, S, n_kv, hs,
+                              scale, s);
     case 4:
-      return launch<4, 4>(qf, kf, vf, of, layer, pos, t_len, S, n_kv, hs,
-                          scale, s);
+      return launch<KV, 4, 4>(qf, kc, vc, of, layer, pos, t_len, S, n_kv, hs,
+                              scale, s);
     case 8:
-      return launch<8, 4>(qf, kf, vf, of, layer, pos, t_len, S, n_kv, hs,
-                          scale, s);
+      return launch<KV, 8, 4>(qf, kc, vc, of, layer, pos, t_len, S, n_kv, hs,
+                              scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+// Launch on `stream`; returns the cudaGetLastError() code (0 = launched).
+// An f32 cache:
+extern "C" int prefill_attention(const void* q, const void* k_all,
+                                 const void* v_all, void* out, int layer,
+                                 int pos, int t_len, int S, int n_kv,
+                                 int kv_mul, int hs, float scale,
+                                 void* stream) {
+  return dispatch<float>(q, k_all, v_all, out, layer, pos, t_len, S, n_kv,
+                         kv_mul, hs, scale, stream);
+}
+
+// A bf16 cache:
+extern "C" int prefill_attention_kvbf16(const void* q, const void* k_all,
+                                        const void* v_all, void* out,
+                                        int layer, int pos, int t_len, int S,
+                                        int n_kv, int kv_mul, int hs,
+                                        float scale, void* stream) {
+  return dispatch<__nv_bfloat16>(q, k_all, v_all, out, layer, pos, t_len, S,
+                                 n_kv, kv_mul, hs, scale, stream);
 }

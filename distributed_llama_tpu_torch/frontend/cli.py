@@ -5,13 +5,14 @@ Flags ported so far: --model, --tokenizer, --prompt, --steps,
 --temperature, --topp, --seed, --weights-float-type, --buffer-float-type
 (f32 or q80: q80 passes every matmul input of a layer through the Q80 round
 trip), --prefill-chunk N (N > 1: the prompt fills the cache in T=N forward
-passes; 0/1: token by token), and --device {cuda,cpu} (default cuda;
-without a GPU the default fails instead of running on the CPU). Every other
-flag of the JAX package's ``inference`` exits 2 with "not yet ported"
-before the model loads — no flag is accepted and then ignored; that
-includes --fast-prefill (the bf16 prefill) and the f16/q40 buffer types.
---tp 1, --sp 1 and --kv-cache-dtype f32 name what the port runs and are
-accepted.
+passes; 0/1: token by token), --fast-prefill (the prompt's chunks of more
+than 8 tokens take bf16 products with f32 accumulation; needs
+--prefill-chunk N > 1), --kv-cache-dtype {f32,bf16}, and --device
+{cuda,cpu} (default cuda; without a GPU the default fails instead of
+running on the CPU). Every other flag of the JAX package's ``inference``
+exits 2 with "not yet ported" before the model loads — no flag is accepted
+and then ignored; that includes the f16/q40 buffer types. --tp 1 and
+--sp 1 name what the port runs and are accepted.
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ _FT = {"f32": FloatType.F32, "f16": FloatType.F16, "q40": FloatType.Q40,
        "q80": FloatType.Q80}
 
 # the JAX package's inference flags the port does not run yet
-_UNPORTED_SWITCHES = ("--fast", "--continuous", "--fast-prefill", "--metrics",
-                      "--log-json", "--stream-slices")
+_UNPORTED_SWITCHES = ("--fast", "--continuous", "--metrics", "--log-json",
+                      "--stream-slices")
 _UNPORTED_VALUED = ("--tp-scheme", "--workers", "--save-state",
                     "--resume-state", "--prompts-file", "--slots",
                     "--block-steps", "--kv-page-size", "--kv-pages",
@@ -63,7 +64,11 @@ def _parser() -> argparse.ArgumentParser:
                     help="N > 1: prefill the prompt in T=N chunks; 0/1: "
                          "token by token")
     ap.add_argument("--kv-cache-dtype", default="f32", choices=("f32", "bf16"),
-                    help="only f32 is ported")
+                    help="bf16 halves the KV cache and its attention bytes")
+    ap.add_argument("--fast-prefill", action="store_true",
+                    help="bf16 products (f32 accumulation) for the prompt's "
+                         "chunks of more than 8 tokens; needs "
+                         "--prefill-chunk N > 1")
     for flag in _UNPORTED_SWITCHES:
         ap.add_argument(flag, action="store_true", default=argparse.SUPPRESS,
                         help="not yet ported")
@@ -80,8 +85,6 @@ def _unported(args) -> list[str]:
         given.append(f"--tp {args.tp}")
     if args.sp != 1:
         given.append(f"--sp {args.sp}")
-    if args.kv_cache_dtype != "f32":
-        given.append(f"--kv-cache-dtype {args.kv_cache_dtype}")
     if args.buffer_float_type not in ("f32", "q80"):
         given.append(f"--buffer-float-type {args.buffer_float_type}")
     return given
@@ -93,8 +96,12 @@ def cmd_inference(argv: list[str]) -> int:
     if unported:
         print(f"not yet ported: {', '.join(unported)} (this port runs "
               f"single-device inference, token by token or with "
-              f"--prefill-chunk N in f32, with f32 or q80 buffers and an "
-              f"f32 KV cache)", file=sys.stderr)
+              f"--prefill-chunk N [--fast-prefill], with f32 or q80 buffers "
+              f"and an f32 or bf16 KV cache)", file=sys.stderr)
+        return 2
+    if args.fast_prefill and args.prefill_chunk <= 1:
+        print("--fast-prefill only affects chunked prefill; pass "
+              "--prefill-chunk N (N > 1)", file=sys.stderr)
         return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("no GPU: torch.cuda.is_available() is False — pass --device "
@@ -118,7 +125,10 @@ def cmd_inference(argv: list[str]) -> int:
           f"💡 nKvHeads: {spec.n_kv_heads}\n"
           f"💡 vocabSize: {spec.vocab_size}\n💡 seqLen: {spec.seq_len}\n"
           f"💡 nSlices: 1 (device {args.device}: {where})")
-    engine = Engine(spec, params, device)
+    cache_dtype = (torch.bfloat16 if args.kv_cache_dtype == "bf16"
+                   else torch.float32)
+    engine = Engine(spec, params, device, cache_dtype=cache_dtype,
+                    fast_prefill=args.fast_prefill)
     del params  # the host copy; the engine holds the device tree
     print(f"⏩ Loaded model in {time.perf_counter() - t0:.1f}s")
 

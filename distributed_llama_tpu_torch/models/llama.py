@@ -5,7 +5,9 @@ Numerics follow the JAX package's models/llama.py (the parity contract):
 * RoPE: interleaved (2p, 2p+1) pairs, freq = 10000^-((2p mod hs)/hs), q
   rotated over the full dim and k over kvDim — not the half-split rotation.
 * Attention: score = q.k/sqrt(hs); GQA maps query head h to kv head
-  h // kv_mul; keys 0..pos of the stacked (L, S, n_kv, hs) f32 cache.
+  h // kv_mul; keys 0..pos of the stacked (L, S, n_kv, hs) cache, f32 or
+  (``--kv-cache-dtype bf16``) bf16: the cache write rounds to the cache
+  dtype (nearest even, as ``astype``) and every read widens it exactly.
 * SwiGLU: silu(w1 x) * (w3 x); rmsnorm with eps=1e-5 added after the mean.
 * Under ``buffer_float_type == Q80`` the four matmul inputs of a layer pass
   through the Q80 round trip (ops/linear.fake_quant_q80), at the JAX
@@ -15,6 +17,13 @@ T = 1 is a decode step (attention through K2); T > 1 is a chunk of chunked
 prefill at positions pos..pos+T-1 (attention through K4 for every T > 1,
 where the JAX package sends T <= 8 to a dense XLA einsum — the same values,
 as no Pallas kernel is involved there).
+
+The precision is an explicit ``Route`` per call, where the JAX package
+traces a second program under a context variable (ops/linear.py
+``matmul_precision("bf16")``): ``FAST`` is the ``--fast-prefill`` route for
+T > 8 chunks, with the bf16 Q40 GEMM (K3b), bf16 dense products and bf16
+prefill attention (K4b); ``FAST_PLAIN`` is its plain twin. One module and
+one parameter tree serve every route.
 
 Departures, none of which changes a value: the KV write is in place at
 (layer, pos..pos+T-1) instead of a functional update; the RoPE frequencies
@@ -26,6 +35,7 @@ whose logits the JAX prefill discards.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
@@ -35,47 +45,62 @@ from torch import nn
 from ..io.loader import Q40Weight
 from ..ops.attention import (attention_core, decode_attention,
                              decode_attention_plain, prefill_attention,
+                             prefill_attention_bf16_plain,
                              prefill_attention_plain)
-from ..ops.linear import (fake_quant_q80, fuse_q40_layer_matmuls, matmul,
-                          q40_to_device, rmsnorm, silu)
+from ..ops.linear import (dense_matmul, dense_matmul_bf16, fake_quant_q80,
+                          fuse_q40_layer_matmuls, matmul, q40_to_device,
+                          rmsnorm, silu)
 from ..ops.q40 import q40_matmul, q40_matmul_plain
 from ..ops.quants import FloatType
 from .spec import TransformerSpec
 
 __all__ = ["KVCache", "init_cache", "attention_core", "Route", "KERNELS",
-           "PLAIN", "LOGIT_RTOL", "Llama", "params_to_device",
-           "params_from_reference"]
+           "PLAIN", "FAST", "FAST_PLAIN", "LOGIT_RTOL", "FAST_RTOL", "Llama",
+           "params_to_device", "params_from_reference"]
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor  # (n_layers, seq_len, n_kv_heads, head_size) f32
+    k: torch.Tensor  # (n_layers, seq_len, n_kv_heads, head_size) f32 / bf16
     v: torch.Tensor
 
 
-def init_cache(spec: TransformerSpec, device) -> KVCache:
+def init_cache(spec: TransformerSpec, device,
+               dtype: torch.dtype = torch.float32) -> KVCache:
     shape = (spec.n_layers, spec.seq_len, spec.n_kv_heads, spec.head_size)
-    return KVCache(torch.zeros(shape, dtype=torch.float32, device=device),
-                   torch.zeros(shape, dtype=torch.float32, device=device))
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
 
 
 class Route(NamedTuple):
-    """Which Q40 matmul, decode attention (T = 1) and prefill attention
-    (T > 1) the forward calls."""
+    """Which Q40 matmul, dense matmul, decode attention (T = 1) and prefill
+    attention (T > 1) the forward calls."""
 
     q40: Callable
+    dense: Callable
     attention: Callable
     prefill: Callable
 
 
 # the kernel wrappers (the plain versions on CPU tensors) — the main path
-KERNELS = Route(q40_matmul, decode_attention, prefill_attention)
+KERNELS = Route(q40_matmul, dense_matmul, decode_attention,
+                prefill_attention)
 # the plain versions on any device — to hold the kernels against on the card
-PLAIN = Route(q40_matmul_plain, decode_attention_plain,
+PLAIN = Route(q40_matmul_plain, dense_matmul, decode_attention_plain,
               prefill_attention_plain)
+# --fast-prefill's T > 8 chunks: bf16 products, f32 accumulation (K3b, K4b)
+FAST = Route(partial(q40_matmul, bf16=True), dense_matmul_bf16,
+             decode_attention, partial(prefill_attention, bf16=True))
+FAST_PLAIN = Route(partial(q40_matmul_plain, bf16=True), dense_matmul_bf16,
+                   decode_attention_plain, prefill_attention_bf16_plain)
 
 # |kernel logits - plain logits| <= LOGIT_RTOL * max|plain logits|: the two
 # routes sum in different orders through every layer (f32 throughout)
 LOGIT_RTOL = 1e-3
+# the same for FAST against FAST_PLAIN (logits after a fast prefill, and the
+# prefilled cache rows): the sums' order differs as above, and wherever it
+# moves a value across a bf16 rounding boundary the next product sees it
+# one bf16 step (2^-8 relative) apart
+FAST_RTOL = 1e-2
 
 
 def rope_freq(n: int, head_size: int, device) -> torch.Tensor:
@@ -111,6 +136,10 @@ def rope_tables(freq: torch.Tensor, pos: int,
     return torch.cos(val), torch.sin(val)
 
 
+def _mm(w, x: torch.Tensor, route: Route) -> torch.Tensor:
+    return matmul(w, x, route.q40, route.dense)
+
+
 def _maybe_q80(spec: TransformerSpec, x: torch.Tensor) -> torch.Tensor:
     if spec.buffer_float_type == FloatType.Q80:
         return fake_quant_q80(x)
@@ -124,12 +153,12 @@ def _qkv_proj(spec: TransformerSpec, lw: dict[str, Any], x: torch.Tensor,
     xb = _maybe_q80(spec, rmsnorm(x, lw["rms_att"]))
     qk_dim = spec.dim + spec.kv_dim
     if "wqkv" in lw:
-        qkv = matmul(lw["wqkv"], xb, route.q40)
+        qkv = _mm(lw["wqkv"], xb, route)
         qk, v = qkv[:, :qk_dim], qkv[:, qk_dim:]
     else:
-        qk = torch.cat([matmul(lw["wq"], xb, route.q40),
-                        matmul(lw["wk"], xb, route.q40)], dim=-1)
-        v = matmul(lw["wv"], xb, route.q40)
+        qk = torch.cat([_mm(lw["wq"], xb, route),
+                        _mm(lw["wk"], xb, route)], dim=-1)
+        v = _mm(lw["wv"], xb, route)
     # q and k rotate together: head_dim = (2p) mod hs runs on across the
     # q/k boundary because dim is a multiple of hs
     qk = _rotate(qk, *rope)
@@ -141,16 +170,15 @@ def _post_attention(spec: TransformerSpec, lw: dict[str, Any],
                     route: Route) -> torch.Tensor:
     """wo + residual, then the SwiGLU ffn sub-block + residual (each matmul
     input through the q80 cut point)."""
-    x = x + matmul(lw["wo"], _maybe_q80(spec, ao), route.q40)
+    x = x + _mm(lw["wo"], _maybe_q80(spec, ao), route)
     xb = _maybe_q80(spec, rmsnorm(x, lw["rms_ffn"]))
     if "w13" in lw:
-        h13 = matmul(lw["w13"], xb, route.q40)
+        h13 = _mm(lw["w13"], xb, route)
         hid = h13.shape[-1] // 2
         hb = silu(h13[:, :hid]) * h13[:, hid:]
     else:
-        hb = silu(matmul(lw["w1"], xb, route.q40)) * matmul(lw["w3"], xb,
-                                                            route.q40)
-    return x + matmul(lw["w2"], _maybe_q80(spec, hb), route.q40)
+        hb = silu(_mm(lw["w1"], xb, route)) * _mm(lw["w3"], xb, route)
+    return x + _mm(lw["w2"], _maybe_q80(spec, hb), route)
 
 
 def _layer(spec: TransformerSpec, x: torch.Tensor, lw: dict[str, Any],
@@ -195,7 +223,8 @@ class Llama(nn.Module):
     ``params`` is the tree params_to_device built; the module keeps it as it
     is (Q40 pairs are not tensors, so nothing is registered as a buffer) and
     precomputes the per-layer views and the RoPE frequencies once.
-    ``route`` picks the kernels (default) or their plain versions.
+    ``route`` picks the kernels (default) or their plain versions; a call
+    may name another route (``FAST`` for a --fast-prefill chunk).
     """
 
     def __init__(self, spec: TransformerSpec, params: dict[str, Any],
@@ -210,12 +239,15 @@ class Llama(nn.Module):
                                                spec.head_size, device))
 
     def forward(self, cache: KVCache, tokens: int | Sequence[int], pos: int,
-                logits: bool = True) -> torch.Tensor | None:
+                logits: bool = True,
+                route: Route | None = None) -> torch.Tensor | None:
         """T tokens (one int, or a sequence) at positions pos..pos+T-1:
         writes their k/v into ``cache`` and returns logits (T, vocab) f32,
         or None with ``logits=False`` (prefill: the final norm and wcls are
-        skipped, as the JAX prefill discards those logits)."""
+        skipped, as the JAX prefill discards those logits). ``route``
+        overrides the module's route for this call."""
         spec, p = self.spec, self.params
+        route = self.route if route is None else route
         tokens = ([int(tokens)] if isinstance(tokens, (int, np.integer))
                   else [int(t) for t in tokens])
         t_len = len(tokens)
@@ -228,11 +260,11 @@ class Llama(nn.Module):
         x = x.to(torch.float32)
         rope = rope_tables(self.freq, pos, t_len)
         for idx, lw in enumerate(self.layers):
-            x = _layer(spec, x, lw, cache, idx, pos, rope, self.route)
+            x = _layer(spec, x, lw, cache, idx, pos, rope, route)
         if not logits:
             return None
         x = rmsnorm(x, p["rms_final"])
-        return matmul(p["wcls"], x, self.route.q40)
+        return _mm(p["wcls"], x, route)
 
 
 def params_to_device(params: dict[str, Any], device) -> dict[str, Any]:

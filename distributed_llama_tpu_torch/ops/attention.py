@@ -1,17 +1,25 @@
-"""Attention: the hand-written CUDA kernels ``csrc/decode_attention.cu`` (K2)
-and ``csrc/prefill_attention.cu`` (K4), their plain PyTorch versions, and
-the attention math they share.
+"""Attention: the hand-written CUDA kernels ``csrc/decode_attention.cu`` (K2),
+``csrc/prefill_attention.cu`` (K4) and ``csrc/prefill_attention_bf16.cu``
+(K4b), their plain PyTorch versions, and the attention math they share.
 
 K2 replaces the JAX package's ops/pallas_attention.py ``decode_attention``:
 one query token at position ``pos`` against keys and values 0..pos of layer
-``layer`` of the stacked (L, S, n_kv, hs) f32 cache, scale 1/sqrt(hs),
-query head h on kv head h // kv_mul. It is bound by the K and V bytes of
-the live prefix.
+``layer`` of the stacked (L, S, n_kv, hs) cache, scale 1/sqrt(hs), query
+head h on kv head h // kv_mul. It is bound by the K and V bytes of the live
+prefix.
 
 K4 replaces ``prefill_attention`` (``_prefill_kernel``) there in f32: T
 queries at pos..pos+T-1, row i seeing keys 0..pos+i, with the chunk's own
 keys already in the cache. It is bound by bytes for an early chunk and by
-operations once the prefix is a few hundred keys long.
+operations once the prefix is a few hundred keys long. K4b is the same
+function with ``bf16=True`` (``--fast-prefill``): both products take
+bf16-rounded operands on the tensor cores with f32 accumulation, the scale
+applies after the q.k dot, the softmax statistics stay f32 (l sums the
+unrounded p) and p is rounded to bf16 for the p.v product.
+
+The cache is f32 or bf16 (``--kv-cache-dtype bf16``, where the JAX kernels
+keep their scratch in the cache dtype); each kernel has a build for either,
+and a bf16 cache is widened to f32 exactly where the f32 math reads it.
 
 Both read only the live prefix, so whatever a longer earlier run left past
 it is invisible; the sources say how their designs meet their bounds. The
@@ -28,20 +36,43 @@ import torch
 
 from ._build import CudaKernel
 
-KERNEL = CudaKernel("decode_attention.cu", "decode_attention",
-                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                    + [ctypes.c_float, ctypes.c_void_p])
+_DECODE_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                + [ctypes.c_float, ctypes.c_void_p])
+_PREFILL_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                 + [ctypes.c_float, ctypes.c_void_p])
+KERNEL = CudaKernel("decode_attention.cu", "decode_attention", _DECODE_ARGS)
+KERNEL_KVBF16 = CudaKernel("decode_attention.cu", "decode_attention_kvbf16",
+                           _DECODE_ARGS)
 PREFILL_KERNEL = CudaKernel("prefill_attention.cu", "prefill_attention",
-                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                            + [ctypes.c_float, ctypes.c_void_p])
-KERNELS = (KERNEL, PREFILL_KERNEL)
+                            _PREFILL_ARGS)
+PREFILL_KERNEL_KVBF16 = CudaKernel("prefill_attention.cu",
+                                   "prefill_attention_kvbf16", _PREFILL_ARGS)
+PREFILL_BF16_KERNEL = CudaKernel("prefill_attention_bf16.cu",
+                                 "prefill_attention_bf16", _PREFILL_ARGS)
+PREFILL_BF16_KERNEL_KVBF16 = CudaKernel("prefill_attention_bf16.cu",
+                                        "prefill_attention_bf16_kvbf16",
+                                        _PREFILL_ARGS)
+KERNELS = (KERNEL, KERNEL_KVBF16, PREFILL_KERNEL, PREFILL_KERNEL_KVBF16,
+           PREFILL_BF16_KERNEL, PREFILL_BF16_KERNEL_KVBF16)
+# by (bf16 dots, cache dtype)
+_PREFILL = {(False, torch.float32): PREFILL_KERNEL,
+            (False, torch.bfloat16): PREFILL_KERNEL_KVBF16,
+            (True, torch.float32): PREFILL_BF16_KERNEL,
+            (True, torch.bfloat16): PREFILL_BF16_KERNEL_KVBF16}
 
 _KV_MULS = (1, 2, 4, 8)  # the kernel's instantiations
 _MAX_HEAD = 128
+CACHE_DTYPES = (torch.float32, torch.bfloat16)
 
 # |kernel - plain| <= KERNEL_ATOL on N(0, 1) queries, keys and values: the
-# outputs are convex mixes of the values, summed in a different order
+# outputs are convex mixes of the values, summed in a different order (f32
+# math on either cache dtype)
 KERNEL_ATOL = 1e-5
+# the same for K4b against prefill_attention_bf16_plain: the kernel rounds
+# p to bf16 against the running max of the keys walked so far (tiles of 64)
+# and the plain version against the row's final max, so a p may land one
+# bf16 step (2^-8 relative) apart; the outputs mix such p over many keys
+KERNEL_ATOL_BF16 = 2e-3
 
 
 def attention_scale(head_size: int) -> float:
@@ -91,10 +122,14 @@ def _check(q, k_all, v_all, layer, pos, kv_mul) -> None:
     if tuple(q.shape) != (n_kv * kv_mul, hs):
         raise ValueError(f"decode_attention: q must be ({n_kv * kv_mul}, "
                          f"{hs}), got {tuple(q.shape)}")
+    if q.dtype != torch.float32:
+        raise ValueError(f"decode_attention: q must be float32, got "
+                         f"{q.dtype}")
+    if k_all.dtype not in CACHE_DTYPES or v_all.dtype != k_all.dtype:
+        raise ValueError(f"decode_attention: the caches must both be "
+                         f"float32 or both bfloat16, got {k_all.dtype} and "
+                         f"{v_all.dtype}")
     for name, t in (("q", q), ("k_all", k_all), ("v_all", v_all)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"decode_attention: {name} must be float32, "
-                             f"got {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"decode_attention: {name} on {t.device}, q on "
                              f"{q.device}")
@@ -116,7 +151,7 @@ def decode_attention(q: torch.Tensor, k_all: torch.Tensor,
     """Attention of one token's queries q (n_q, hs) at position ``pos``
     against keys/values 0..pos of cache layer ``layer``. Returns
     (1, n_q * hs) f32. CPU tensors take the plain version; CUDA tensors
-    launch K2."""
+    launch K2, built for the cache's dtype (f32 or bf16)."""
     if q.device.type == "cpu" and k_all.device.type == "cpu":
         return decode_attention_plain(q, k_all, v_all, layer, pos, kv_mul)
     if q.device.type != "cuda":
@@ -124,7 +159,8 @@ def decode_attention(q: torch.Tensor, k_all: torch.Tensor,
     _check(q, k_all, v_all, layer, pos, kv_mul)
     _, seq_len, n_kv, hs = k_all.shape
     out = torch.empty((1, q.numel()), dtype=torch.float32, device=q.device)
-    KERNEL.launch(q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
+    kernel = KERNEL if k_all.dtype == torch.float32 else KERNEL_KVBF16
+    kernel.launch(q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
                   out.data_ptr(), layer, pos, seq_len, n_kv, kv_mul, hs,
                   attention_scale(hs),
                   torch.cuda.current_stream(q.device).cuda_stream)
@@ -132,23 +168,60 @@ def decode_attention(q: torch.Tensor, k_all: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# causal prefill attention (K4)
+# causal prefill attention (K4, K4b)
 # --------------------------------------------------------------------------
+
+def _causal_mask(pos: int, t_len: int, device) -> torch.Tensor:
+    """(T, pos+T): row i sees keys 0..pos+i (the JAX package's
+    causal_cache_mask restricted to the live keys)."""
+    live = pos + t_len
+    keys = torch.arange(live, device=device)
+    rows = torch.arange(pos, live, device=device)
+    return keys[None, :] <= rows[:, None]
+
 
 def prefill_attention_plain(q: torch.Tensor, k_all: torch.Tensor,
                             v_all: torch.Tensor, layer: int, pos: int,
                             kv_mul: int) -> torch.Tensor:
     """attention_core of T queries at pos..pos+T-1 over the live prefix
-    0..pos+T-1, query row i seeing keys 0..pos+i (the JAX package's
-    causal_cache_mask restricted to the live keys). q (T, n_q, hs) ->
+    0..pos+T-1, query row i seeing keys 0..pos+i. q (T, n_q, hs) ->
     (T, n_q*hs)."""
     t_len, hs = q.shape[0], k_all.shape[-1]
     live = pos + t_len
-    keys = torch.arange(live, device=q.device)
-    rows = torch.arange(pos, live, device=q.device)
-    mask = keys[None, :] <= rows[:, None]
     return attention_core(hs, kv_mul, q, k_all[layer, :live],
-                          v_all[layer, :live], mask)
+                          v_all[layer, :live],
+                          _causal_mask(pos, t_len, q.device))
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (nearest even), held in f32."""
+    return x.to(torch.float32).to(torch.bfloat16).to(torch.float32)
+
+
+def prefill_attention_bf16_plain(q: torch.Tensor, k_all: torch.Tensor,
+                                 v_all: torch.Tensor, layer: int, pos: int,
+                                 kv_mul: int) -> torch.Tensor:
+    """K4b's function over the live prefix (the JAX package's bf16 prefill
+    partials): q, k and v rounded to bf16; s = (q.k in f32) * scale; p =
+    exp(s - rowmax) in f32; l sums the f32 p; the p.v product takes p
+    rounded to bf16; out = o / l. q (T, n_q, hs) -> (T, n_q*hs).
+
+    The JAX package's CPU path (one block when the live prefix fits its
+    512-key block) and its Pallas body in interpret mode (one block of the
+    largest divisor of seq_len up to 512) take the row max over the same
+    keys at the shapes its tests run; over longer prefixes they round p
+    against the running max of each walked block instead."""
+    t_len, n_q, hs = q.shape
+    n_kv = k_all.shape[-2]
+    live = pos + t_len
+    qg = _bf16(q).reshape(t_len, n_kv, kv_mul, hs)
+    s = torch.einsum("tgmd,sgd->gmts", qg, _bf16(k_all[layer, :live]))
+    s = s * attention_scale(hs)
+    s = s.masked_fill(~_causal_mask(pos, t_len, q.device), float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("gmts,sgd->gmtd", _bf16(p), _bf16(v_all[layer, :live]))
+    return (o / l).permute(2, 0, 1, 3).reshape(t_len, n_q * hs)
 
 
 def _check_prefill(q, k_all, v_all, layer, pos, kv_mul) -> None:
@@ -168,23 +241,30 @@ def _check_prefill(q, k_all, v_all, layer, pos, kv_mul) -> None:
 
 def prefill_attention(q: torch.Tensor, k_all: torch.Tensor,
                       v_all: torch.Tensor, layer: int, pos: int,
-                      kv_mul: int) -> torch.Tensor:
+                      kv_mul: int, bf16: bool = False) -> torch.Tensor:
     """Causal attention of T queries q (T, n_q, hs) at positions
     pos..pos+T-1 against keys/values 0..pos+T-1 of cache layer ``layer``
-    (the chunk's own keys already written). Returns (T, n_q * hs) f32. CPU
-    tensors take the plain version; CUDA tensors launch K4."""
+    (the chunk's own keys already written), with f32 dots or, with
+    ``bf16``, bf16 ones. Returns (T, n_q * hs) f32. CPU tensors take the
+    plain versions; CUDA tensors launch K4 or K4b, built for the cache's
+    dtype."""
     if q.device.type == "cpu" and k_all.device.type == "cpu":
-        return prefill_attention_plain(q, k_all, v_all, layer, pos, kv_mul)
+        plain = prefill_attention_bf16_plain if bf16 else \
+            prefill_attention_plain
+        return plain(q, k_all, v_all, layer, pos, kv_mul)
     if q.device.type != "cuda":
         raise ValueError(f"prefill_attention: no kernel for device "
                          f"{q.device}")
     _check_prefill(q, k_all, v_all, layer, pos, kv_mul)
     t_len = q.shape[0]
     _, seq_len, n_kv, hs = k_all.shape
+    if bf16 and hs % 16:
+        raise ValueError(f"prefill_attention: the bf16 kernel takes a head "
+                         f"size that is a multiple of 16, got {hs}")
     out = torch.empty((t_len, q[0].numel()), dtype=torch.float32,
                       device=q.device)
-    PREFILL_KERNEL.launch(q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
-                          out.data_ptr(), layer, pos, t_len, seq_len, n_kv,
-                          kv_mul, hs, attention_scale(hs),
-                          torch.cuda.current_stream(q.device).cuda_stream)
+    _PREFILL[bf16, k_all.dtype].launch(
+        q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), out.data_ptr(),
+        layer, pos, t_len, seq_len, n_kv, kv_mul, hs, attention_scale(hs),
+        torch.cuda.current_stream(q.device).cuda_stream)
     return out

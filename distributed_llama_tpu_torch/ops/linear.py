@@ -4,8 +4,11 @@ load-time Q40 weight preparation.
 Semantics (the JAX package's ops/linear.py, the logit-parity contract):
 * matmul: weight w of shape (d, n), out[i] = sum_j w[i,j] * x[..., j], f32
   accumulation. Q40 weights go to the Q40 matvec (ops/q40.py); dense F32/F16
-  weights go to one f32 ``F.linear``, as the JAX package leaves its dense
-  weights to an XLA einsum.
+  weights go to one f32 ``F.linear`` (``dense_matmul``), as the JAX package
+  leaves its dense weights to an XLA einsum. Under ``--fast-prefill`` the
+  dense product takes bf16-rounded operands with f32 output
+  (``dense_matmul_bf16``, the JAX package's bf16 einsum branch), still
+  plain torch: no Pallas kernel computes it there either.
 * rms: 1/sqrt(sum(x^2)/size + 1e-5) — eps added AFTER the mean.
 * rmsnorm(x, w) = x * rms(x) * w.
 * silu(x) = x / (1 + e^-x).
@@ -42,17 +45,36 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x / (1.0 + torch.exp(-x))
 
 
+def dense_matmul(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """out[..., d] = w(d, n) @ x[..., n], f32 operands and output."""
+    return F.linear(x.to(torch.float32), w.to(torch.float32))
+
+
+def dense_matmul_bf16(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The same over operands rounded to bf16 (nearest even), f32 output.
+    The products of two bf16 values are exact in f32, so this is the JAX
+    package's ``einsum(bf16(W), bf16(x), preferred_element_type=f32)`` up
+    to the order of the sum. (``F.linear`` on two bf16 tensors would return
+    bf16 and round the sums.)"""
+    def bf16(t):
+        return t.to(torch.float32).to(torch.bfloat16).to(torch.float32)
+
+    return F.linear(bf16(x), bf16(w))
+
+
 def matmul(w, x: torch.Tensor,
-           q40: Callable[[Q40Weight, torch.Tensor], torch.Tensor] = q40_matmul
-           ) -> torch.Tensor:
+           q40: Callable[[Q40Weight, torch.Tensor], torch.Tensor] = q40_matmul,
+           dense: Callable[[torch.Tensor, torch.Tensor],
+                           torch.Tensor] = dense_matmul) -> torch.Tensor:
     """out[..., d] = w(d, n) @ x[..., n] with f32 accumulation.
 
-    ``w`` is a dense f32/f16 tensor or a ``Q40Weight``; Q40 goes to ``q40``
-    (the kernel wrapper by default; a caller that compares the kernel with
-    its plain version passes ``q40_matmul_plain``)."""
+    ``w`` is a dense f32/f16 tensor, which goes to ``dense``, or a
+    ``Q40Weight``, which goes to ``q40`` (the kernel wrapper by default; a
+    caller that compares the kernel with its plain version passes
+    ``q40_matmul_plain``)."""
     if isinstance(w, Q40Weight):
         return q40(w, x)
-    return F.linear(x.to(torch.float32), w.to(torch.float32))
+    return dense(w, x)
 
 
 def fake_quant_q80(x: torch.Tensor) -> torch.Tensor:

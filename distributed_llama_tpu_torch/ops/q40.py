@@ -1,5 +1,5 @@
-"""Q40 matmul: three hand-written CUDA kernels and their one plain PyTorch
-version.
+"""Q40 matmul: four hand-written CUDA kernels and their plain PyTorch
+versions.
 
 ``q40_matmul(w, x)`` computes ``out[t, r] = sum_b d16[r,b] * sum_j
 (code[r,b,j] - 8) * x[t, 32b+j]`` in f32 on the codec layout (see
@@ -14,11 +14,17 @@ on ``MULTI_T_MAX``:
   block for all T rows;
 * T > 8: K3, ``csrc/q40_gemm.cu`` (``_kernel`` -> ``_matmul_body`` in f32
   parity mode, and its scratch / nb-major tilings), a tiled SIMT GEMM bound
-  by its f32 operations.
+  by its f32 operations;
+* T > 8 with ``bf16=True`` (``--fast-prefill``, the JAX package's
+  ``q40_matmul`` under ``matmul_precision("bf16")``): K3b,
+  ``csrc/q40_gemm_bf16.cu``, the same sum over bf16-rounded x and
+  bf16-rounded dequantized weights with f32 accumulation, on the tensor
+  cores. At T <= 8 the flag changes nothing, as the JAX package's T=1 and
+  small-T bodies ignore it.
 
 The sources say how each design meets its bound. ``q40_matmul`` takes the
-plain version only for tensors on the CPU; on a CUDA tensor it launches one
-of the kernels or raises.
+plain versions only for tensors on the CPU; on a CUDA tensor it launches
+one of the kernels or raises.
 """
 
 from __future__ import annotations
@@ -41,7 +47,10 @@ KERNEL_MULTI = CudaKernel("q40_matvec.cu", "q40_matvec_multi",
 KERNEL_GEMM = CudaKernel("q40_gemm.cu", "q40_gemm",
                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                          + [ctypes.c_void_p])
-KERNELS = (KERNEL, KERNEL_MULTI, KERNEL_GEMM)
+KERNEL_GEMM_BF16 = CudaKernel("q40_gemm_bf16.cu", "q40_gemm_bf16",
+                              [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                              + [ctypes.c_void_p])
+KERNELS = (KERNEL, KERNEL_MULTI, KERNEL_GEMM, KERNEL_GEMM_BF16)
 
 MULTI_T_MAX = 8  # T above this takes the GEMM (the JAX package's threshold)
 
@@ -51,6 +60,10 @@ _SMEM_PER_BLOCK = 144  # K1's staged bytes per 32-value block of x (36 floats)
 # |kernel - plain| <= KERNEL_RTOL * max|plain|: they differ in summation
 # order only (both f32)
 KERNEL_RTOL = 1e-4
+# the same for K3b against q40_matmul_bf16_plain: both sum the same exact
+# products of bf16 values in f32, but the tensor cores add in another order
+# and in wider steps than cuBLAS's f32 GEMM
+KERNEL_RTOL_BF16 = 1e-3
 
 
 def random_q40(d: int, n: int, device, generator: torch.Generator
@@ -66,9 +79,27 @@ def random_q40(d: int, n: int, device, generator: torch.Generator
     return Q40Weight(qs, d16)
 
 
-def q40_matmul_plain(w: Q40Weight, x: torch.Tensor) -> torch.Tensor:
+def _tokens(w: Q40Weight, x: torch.Tensor) -> int:
+    return x.numel() // (w.qs.shape[-2] * QK)
+
+
+def q40_matmul_bf16_plain(w: Q40Weight, x: torch.Tensor) -> torch.Tensor:
+    """K3b's function: x and the dequantized weight rounded to bf16 (nearest
+    even; the weight after its exact f32 product with the scale), then one
+    f32 product. A product of two bf16 values is exact in f32, so this is
+    the JAX package's bf16 einsum up to the order of the sum."""
+    xb = x.to(torch.float32).to(torch.bfloat16).to(torch.float32)
+    wb = dequantize_q40_torch(w.qs, w.d16).to(torch.bfloat16)
+    return F.linear(xb, wb.to(torch.float32))
+
+
+def q40_matmul_plain(w: Q40Weight, x: torch.Tensor,
+                     bf16: bool = False) -> torch.Tensor:
     """Dequantize, then one f32 product: out[..., d] = W(d, n) @ x[..., n].
-    The plain version of K1, K1m and K3 alike."""
+    The plain version of K1, K1m and K3 alike; with ``bf16`` and T > 8,
+    that of K3b (q40_matmul_bf16_plain)."""
+    if bf16 and _tokens(w, x) > MULTI_T_MAX:
+        return q40_matmul_bf16_plain(w, x)
     return F.linear(x.to(torch.float32), dequantize_q40_torch(w.qs, w.d16))
 
 
@@ -96,18 +127,19 @@ def _check(w: Q40Weight, x: torch.Tensor) -> tuple[int, int]:
     return d, nb
 
 
-def q40_matmul(w: Q40Weight, x: torch.Tensor) -> torch.Tensor:
+def q40_matmul(w: Q40Weight, x: torch.Tensor,
+               bf16: bool = False) -> torch.Tensor:
     """out[..., d] = dequant(w)(d, n) @ x[..., n], f32.
 
     CPU tensors take the plain version; CUDA tensors launch K1 (T = 1), K1m
-    (2 <= T <= 8) or K3 (T > 8).
+    (2 <= T <= 8) or, for T > 8, K3 (f32) or K3b (``bf16``).
     """
     if x.device.type == "cpu" and w.qs.device.type == "cpu":
-        return q40_matmul_plain(w, x)
+        return q40_matmul_plain(w, x, bf16)
     if x.device.type != "cuda":
         raise ValueError(f"q40_matmul: no kernel for device {x.device}")
     d, nb = _check(w, x)
-    t = x.numel() // (nb * QK)
+    t = _tokens(w, x)
     out = torch.empty((*x.shape[:-1], d), dtype=torch.float32,
                       device=x.device)
     if t == 0:
@@ -122,5 +154,6 @@ def q40_matmul(w: Q40Weight, x: torch.Tensor) -> torch.Tensor:
     elif t <= MULTI_T_MAX:
         KERNEL_MULTI.launch(*ptrs, t, d, nb, stream)
     else:
-        KERNEL_GEMM.launch(*ptrs, t, d, nb, stream)
+        (KERNEL_GEMM_BF16 if bf16 else KERNEL_GEMM).launch(*ptrs, t, d, nb,
+                                                           stream)
     return out

@@ -1,12 +1,13 @@
 """Generation loop + engine (the reference's generate()).
 
-``Engine`` owns the device params, the KV cache and the forward behind the
-reference's ``infer(token, pos) -> logits`` shape, plus ``prefill`` (the
-prompt in T=chunk forward passes); ``generate`` reproduces the reference's
-observable behaviour: prompt tokens forced one at a time (or prefilled in
-chunks with ``prefill_chunk > 1``, the same token stream), sampling after
-the prompt, stop on BOS, the per-token 🔶 stats line and the final
-averages.
+``Engine`` owns the device params, the KV cache (f32, or bf16 with
+``cache_dtype``) and the forward behind the reference's ``infer(token, pos)
+-> logits`` shape, plus ``prefill`` (the prompt in T=chunk forward passes;
+with ``fast_prefill``, its T > 8 windows take the bf16 route). ``generate``
+reproduces the reference's observable behaviour: prompt tokens forced one
+at a time (or prefilled in chunks with ``prefill_chunk > 1``, the same
+token stream), sampling after the prompt, stop on BOS, the per-token 🔶
+stats line and the final averages.
 
 Stats: I = device step time (the forward up to the host copy of the
 logits, which waits for the device), T = host time (sampling + loop). A
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from ..io.tokenizer import BOS, Tokenizer
-from ..models.llama import Llama, init_cache, params_to_device
+from ..models.llama import FAST, Llama, init_cache, params_to_device
 from ..models.spec import TransformerSpec
 from ..ops import attention, q40
 from ..ops._build import build
@@ -34,18 +35,27 @@ from .sampling import Sampler
 
 class Engine:
     """Owns params + cache + the forward on one device; exposes
-    infer(token, pos) and prefill(tokens, pos0, chunk)."""
+    infer(token, pos) and prefill(tokens, pos0, chunk).
+
+    ``cache_dtype`` is torch.float32 (the parity default) or torch.bfloat16
+    (``--kv-cache-dtype bf16``: half the cache memory and attention bytes).
+    ``fast_prefill`` sends prefill windows of more than 8 tokens through
+    the bf16 route (models/llama.FAST); the T = 1 tail and every decode
+    step keep the parity route, as the JAX Engine keeps its parity program
+    for them."""
 
     def __init__(self, spec: TransformerSpec, params: dict[str, Any],
-                 device="cuda"):
+                 device="cuda", cache_dtype: torch.dtype = torch.float32,
+                 fast_prefill: bool = False):
         self.spec = spec
         self.device = torch.device(device)
+        self.fast_prefill = fast_prefill
         if self.device.type == "cuda":
             # build (or find) the kernels now, not inside the first token
             build([*q40.KERNELS, *attention.KERNELS])
         self.params = params_to_device(params, self.device)
         self.model = Llama(spec, self.params)
-        self.cache = init_cache(spec, self.device)
+        self.cache = init_cache(spec, self.device, cache_dtype)
 
     @torch.inference_mode()
     def infer(self, token: int, pos: int) -> np.ndarray:
@@ -74,7 +84,12 @@ class Engine:
                              f"tokens > seq_len={seq_len}")
 
         def fwd(part: list[int], start: int) -> None:
-            self.model(self.cache, part, start, logits=False)
+            # the bf16 route takes the T > 8 windows only (the JAX Engine's
+            # rule); the T = 1 tail shares the decode route
+            if self.fast_prefill and len(part) > q40.MULTI_T_MAX:
+                self.model(self.cache, part, start, logits=False, route=FAST)
+            else:
+                self.model(self.cache, part, start, logits=False)
 
         run_chunked_prefill(fwd, tokens, pos0, chunk, seq_len)
 

@@ -38,15 +38,16 @@ def build_variants() -> dict:
     out = BUILD_DIR.parent / "k4_rows"
     out.mkdir(parents=True, exist_ok=True)
     src = (CSRC / "prefill_attention.cu").read_text()
-    for site in ("launch<1, 2>", "launch<8, 4>"):
+    for site in ("launch<KV, 1, 2>", "launch<KV, 8, 4>"):
         if site not in src:
             raise RuntimeError(f"prefill_attention.cu has no {site!r} "
                                f"launch to vary")
     jobs = {}
     for i, (name, (ipw1, ipw8)) in enumerate(VARIANTS.items()):
         cu = out / f"v{i}.cu"
-        cu.write_text(src.replace("launch<1, 2>", f"launch<1, {ipw1}>")
-                      .replace("launch<8, 4>", f"launch<8, {ipw8}>"))
+        cu.write_text(
+            src.replace("launch<KV, 1, 2>", f"launch<KV, 1, {ipw1}>")
+            .replace("launch<KV, 8, 4>", f"launch<KV, 8, {ipw8}>"))
         jobs[name] = (out / f"v{i}.so", subprocess.Popen(
             [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out / f"v{i}.so"),
              str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

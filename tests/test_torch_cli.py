@@ -2,8 +2,9 @@
 the JAX package's ``generate`` on the tests/test_generate_cli.py fixture
 model: token streams must be equal, greedy and seeded (temperature 0.8,
 top-p 0.9, the numpy sampler on both sides), token by token and with
-``--prefill-chunk`` and q80 buffers. Unported flags exit 2 before the model
-loads; the CUDA default fails without a GPU."""
+``--prefill-chunk``, q80 buffers, ``--fast-prefill`` and a bf16 KV cache.
+Unported flags exit 2 before the model loads; the CUDA default fails
+without a GPU."""
 
 import numpy as np
 import pytest
@@ -123,11 +124,11 @@ def test_cli_pieces_match_reference(model_files, capsys, mode):
     assert pieces(out) == want
 
 
-UNPORTED = [["--tp", "2"], ["--sp", "2"],
-            ["--prefill-chunk", "8", "--fast-prefill"],
-            ["--kv-cache-dtype", "bf16"], ["--buffer-float-type", "f16"],
-            ["--slots", "4"],
-            ["--fast"], ["--continuous"], ["--fast-prefill"], ["--metrics"],
+UNPORTED = [["--tp", "2"], ["--sp", "2"], ["--buffer-float-type", "f16"],
+            ["--slots", "4"], ["--kv-pages", "64"], ["--dispatch-tokens", "8"],
+            ["--block-steps", "4"], ["--kv-host-pages", "8"],
+            ["--stream-slices"],
+            ["--fast"], ["--continuous"], ["--metrics"],
             ["--log-json"], ["--save-state", "s.ckpt"],
             ["--resume-state", "s.ckpt"], ["--prompts-file", "p.txt"],
             ["--kv-page-size", "16"], ["--spec-k", "4"],
@@ -149,6 +150,22 @@ def test_unported_flags_exit_2_before_loading(extra, capsys, tmp_path):
     assert rc == 2
     err = capsys.readouterr().err
     assert "not yet ported" in err and extra[0] in err
+
+
+@pytest.mark.parametrize("chunk", [[], ["--prefill-chunk", "1"]],
+                         ids=["no-chunk", "chunk-1"])
+def test_fast_prefill_needs_a_chunk(chunk, capsys, tmp_path):
+    """--fast-prefill without --prefill-chunk N (N > 1) exits 2 with the JAX
+    CLI's message, before any load (the model path does not exist)."""
+    from distributed_llama_tpu_torch.frontend.cli import main
+
+    rc = main(["inference", "--model", str(tmp_path / "absent.bin"),
+               "--tokenizer", str(tmp_path / "absent.tok"), "--device",
+               "cpu", *chunk, "--fast-prefill"])
+    assert rc == 2
+    assert capsys.readouterr().err.strip() == (
+        "--fast-prefill only affects chunked prefill; pass --prefill-chunk "
+        "N (N > 1)")
 
 
 LONG_PROMPT = " ".join(["hi"] * 7)  # BOS + 7 merged " hi" pieces
@@ -251,3 +268,40 @@ def test_python_dash_m_entry_point(model_files):
         capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.count("🔶") == 4
+
+
+FAST_PROMPT = " ".join(["hi"] * 15)  # BOS + 15 pieces: more than a chunk
+BF16_OPTIONS = {"fast": ["--prefill-chunk", "12", "--fast-prefill"],
+                "bf16-cache": ["--kv-cache-dtype", "bf16"],
+                "both": ["--prefill-chunk", "12", "--fast-prefill",
+                         "--kv-cache-dtype", "bf16"]}
+
+
+@pytest.mark.parametrize("mode", sorted(SAMPLING))
+@pytest.mark.parametrize("opts", sorted(BF16_OPTIONS))
+def test_cli_bf16_streams_match_reference(model_files, capsys, mode, opts):
+    """``inference --device cpu`` with --fast-prefill at chunk 12 (the
+    15-token prefix takes a full and a padded T=12 window through the bf16
+    route), with --kv-cache-dtype bf16, and with both: the 🔶 pieces equal
+    the JAX CLI's with the same flags, greedy and seeded. ``--steps`` lies
+    above the prompt, or prefill would not run."""
+    from distributed_llama_tpu.frontend.cli import main as ref_main
+    from distributed_llama_tpu.io.tokenizer import Tokenizer
+    from distributed_llama_tpu_torch.frontend.cli import main
+
+    model, tokp = model_files
+    temperature, topp, seed = SAMPLING[mode]
+    steps = 28
+    n_pre = len(Tokenizer(tokp, SPEC.vocab_size).encode(
+        FAST_PROMPT, bos=True, eos=False)) - 1
+    assert 12 < n_pre < steps
+    base = ["inference", "--model", model, "--tokenizer", tokp, "--prompt",
+            FAST_PROMPT, "--steps", str(steps), "--temperature",
+            str(temperature), "--topp", str(topp), "--seed", str(seed),
+            *BF16_OPTIONS[opts]]
+    assert ref_main(base + ["--tp", "1"]) == 0
+    want = _lines(capsys.readouterr().out)
+    assert main(base + ["--device", "cpu"]) == 0
+    got = _lines(capsys.readouterr().out)
+    assert len(got) > 4
+    assert got == want

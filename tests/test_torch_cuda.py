@@ -4,7 +4,9 @@ counts off the kernels' row blocks, block counts off their unrolls, stages
 and x slices, odd T, an input width whose staged x needs more than 48 KB
 of shared memory (70B's w2), head sizes below 128, and every kv_mul the
 attention kernels are built for; then the forward and Engine.prefill
-through the kernels, with their launch counts. Every test takes the ``gen``
+through the kernels, with their launch counts; the same for the bf16
+kernels (K3b, K4b) and the bf16-cache builds of K2, K4 and K4b, and the
+``--fast-prefill`` Engine over a bf16 cache. Every test takes the ``gen``
 fixture, which skips it without a GPU; on one, run
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -58,7 +60,7 @@ def test_q40_small_t_kernel_matches_plain(gen, d, n, t):
     got = q40.q40_matmul(w, x)
     torch.cuda.synchronize()
     assert [k.launches for k in q40.KERNELS] == [counts[0], counts[1] + 1,
-                                                 counts[2]]
+                                                 counts[2], counts[3]]
     want = q40.q40_matmul_plain(w, x)
     assert got.shape == want.shape == (t, d)
     err = (got - want).abs().max().item()
@@ -75,7 +77,7 @@ def test_q40_gemm_kernel_matches_plain(gen, d, n, t):
     got = q40.q40_matmul(w, x)
     torch.cuda.synchronize()
     assert [k.launches for k in q40.KERNELS] == [counts[0], counts[1],
-                                                 counts[2] + 1]
+                                                 counts[2] + 1, counts[3]]
     want = q40.q40_matmul_plain(w, x)
     assert got.shape == want.shape == (t, d)
     err = (got - want).abs().max().item()
@@ -195,7 +197,8 @@ def test_forward_kernels_match_plain_and_count_launches(gen):
             a = kern(ck, toks, pos)
             got = [k.launches for k in (*q40.KERNELS, *attention.KERNELS)]
             assert [g - c for g, c in zip(got, counts)] == [
-                0, 4 * spec.n_layers + 1, 0, 0, spec.n_layers]
+                0, 4 * spec.n_layers + 1, 0, 0, 0, 0, spec.n_layers, 0, 0,
+                0]
             b = plain(cp, toks, pos)
             err = (a - b).abs().max().item()
             assert err <= llama.LOGIT_RTOL * b.abs().max().item(), (pos, err)
@@ -218,7 +221,7 @@ def test_engine_prefill_through_the_gemm_counts_launches(gen):
     kern.prefill(tokens, 0, 16)
     got = [k.launches for k in (*q40.KERNELS, *attention.KERNELS)]
     assert [g - c for g, c in zip(got, counts)] == [
-        0, 0, 3 * 4 * spec.n_layers, 0, 3 * spec.n_layers]
+        0, 0, 3 * 4 * spec.n_layers, 0, 0, 0, 3 * spec.n_layers, 0, 0, 0]
     with torch.inference_mode():
         run_chunked_prefill(
             lambda part, start: plain(cp, part, start, logits=False),
@@ -228,3 +231,171 @@ def test_engine_prefill_through_the_gemm_counts_launches(gen):
                                rtol=1e-4, atol=1e-5)
     a = kern.infer(7, 40)
     assert abs(a - b).max() <= llama.LOGIT_RTOL * abs(b).max()
+
+
+# ---------------------------------------------------------------------------
+# bf16: K3b, K4b and the bf16-cache builds
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d,n,t", [(1, 32, 9), (7, 64, 16), (65, 4096, 17),
+                                   (64, 96, 33), (33, 32 * 129, 100),
+                                   (130, 11008, 128), (3, 64, 300)])
+def test_q40_gemm_bf16_kernel_matches_plain(gen, d, n, t):
+    w = q40.random_q40(d, n, "cuda", gen)
+    x = torch.randn((t, n), device="cuda", generator=gen)
+    counts = [k.launches for k in q40.KERNELS]
+    got = q40.q40_matmul(w, x, bf16=True)
+    torch.cuda.synchronize()
+    assert [k.launches for k in q40.KERNELS] == [*counts[:3], counts[3] + 1]
+    want = q40.q40_matmul_bf16_plain(w, x)
+    assert got.shape == want.shape == (t, d)
+    err = (got - want).abs().max().item()
+    assert err <= q40.KERNEL_RTOL_BF16 * want.abs().max().item(), err
+
+
+def test_q40_gemm_bf16_reads_scales_at_an_odd_offset(gen):
+    """The f16 scales of a layer view may start at any 2-byte offset."""
+    w = q40.random_q40(33, 32 * 129, "cuda", gen)
+    raw = torch.empty(w.d16.numel() + 1, dtype=torch.float16, device="cuda")
+    raw[1:] = w.d16.reshape(-1)
+    odd = Q40Weight(w.qs, raw[1:].view(w.d16.shape))
+    x = torch.randn((40, 32 * 129), device="cuda", generator=gen)
+    got = q40.q40_matmul(odd, x, bf16=True)
+    want = q40.q40_matmul_bf16_plain(w, x)
+    err = (got - want).abs().max().item()
+    assert err <= q40.KERNEL_RTOL_BF16 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("t", [1, 5, 8])
+def test_q40_bf16_flag_at_small_t_takes_the_f32_kernels(gen, t):
+    """T <= 8 under bf16 launches K1 / K1m, as the JAX package's T=1 and
+    small-T bodies ignore the flag: bitwise the parity result."""
+    w = q40.random_q40(40, 256, "cuda", gen)
+    x = torch.randn((t, 256), device="cuda", generator=gen)
+    counts = [k.launches for k in q40.KERNELS]
+    got = q40.q40_matmul(w, x, bf16=True)
+    assert q40.KERNEL_GEMM_BF16.launches == counts[3]
+    assert torch.equal(got, q40.q40_matmul(w, x))
+
+
+def _bf16_caches(gen, shape):
+    k_all = torch.randn(shape, device="cuda", generator=gen)
+    v_all = torch.randn(shape, device="cuda", generator=gen)
+    return k_all.to(torch.bfloat16), v_all.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("kv_mul", [1, 2, 4, 8])
+@pytest.mark.parametrize("hs", [64, 128])
+@pytest.mark.parametrize("pos", [0, 5, 39])
+def test_attention_kernel_bf16_cache_matches_plain(gen, kv_mul, hs, pos):
+    k_all, v_all = _bf16_caches(gen, (2, 40, 2, hs))
+    q = torch.randn((2 * kv_mul, hs), device="cuda", generator=gen)
+    before = attention.KERNEL_KVBF16.launches
+    got = attention.decode_attention(q, k_all, v_all, 1, pos, kv_mul)
+    torch.cuda.synchronize()
+    assert attention.KERNEL_KVBF16.launches == before + 1
+    want = attention.decode_attention_plain(q, k_all, v_all, 1, pos, kv_mul)
+    assert (got - want).abs().max().item() <= attention.KERNEL_ATOL
+
+
+@pytest.mark.parametrize("kv_mul", [1, 2, 4, 8])
+@pytest.mark.parametrize("pos,t_len", [(0, 2), (5, 33), (40, 70)])
+def test_prefill_attention_kernel_bf16_cache_matches_plain(gen, kv_mul, pos,
+                                                           t_len):
+    k_all, v_all = _bf16_caches(gen, (2, 120, 2, 128))
+    q = torch.randn((t_len, 2 * kv_mul, 128), device="cuda", generator=gen)
+    before = attention.PREFILL_KERNEL_KVBF16.launches
+    got = attention.prefill_attention(q, k_all, v_all, 1, pos, kv_mul)
+    torch.cuda.synchronize()
+    assert attention.PREFILL_KERNEL_KVBF16.launches == before + 1
+    want = attention.prefill_attention_plain(q, k_all, v_all, 1, pos, kv_mul)
+    assert (got - want).abs().max().item() <= attention.KERNEL_ATOL
+
+
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_mul", [1, 2, 4, 8])
+@pytest.mark.parametrize("hs", [64, 128])
+@pytest.mark.parametrize("pos,t_len", [(0, 9), (5, 33), (40, 70),
+                                       (100, 120)])
+def test_prefill_attention_bf16_kernel_matches_plain(gen, cache, kv_mul, hs,
+                                                     pos, t_len):
+    shape = (2, 240, 2, hs)
+    k_all = torch.randn(shape, device="cuda", generator=gen).to(cache)
+    v_all = torch.randn(shape, device="cuda", generator=gen).to(cache)
+    q = torch.randn((t_len, 2 * kv_mul, hs), device="cuda", generator=gen)
+    kernel = (attention.PREFILL_BF16_KERNEL if cache == torch.float32
+              else attention.PREFILL_BF16_KERNEL_KVBF16)
+    before = kernel.launches
+    got = attention.prefill_attention(q, k_all, v_all, 1, pos, kv_mul,
+                                      bf16=True)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = attention.prefill_attention_bf16_plain(q, k_all, v_all, 1, pos,
+                                                  kv_mul)
+    assert got.shape == want.shape == (t_len, 2 * kv_mul * hs)
+    assert (got - want).abs().max().item() <= attention.KERNEL_ATOL_BF16
+    # a poisoned suffix past pos + T - 1 stays unread
+    k_all[1, pos + t_len:] = 1e4
+    v_all[1, pos + t_len:] = float("nan")
+    again = attention.prefill_attention(q, k_all, v_all, 1, pos, kv_mul,
+                                        bf16=True)
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+def test_bf16_kernels_raise_instead_of_falling_back(gen):
+    k_all = torch.randn((1, 16, 2, 40), device="cuda", generator=gen)
+    q = torch.randn((4, 2, 40), device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        attention.prefill_attention(q, k_all, k_all, 0, 0, 1, bf16=True)
+    kb = k_all[..., :32].contiguous()
+    with pytest.raises(ValueError, match="both bfloat16"):
+        attention.prefill_attention(q[..., :32].contiguous(), kb,
+                                    kb.to(torch.bfloat16), 0, 0, 1,
+                                    bf16=True)
+    with pytest.raises(ValueError, match="q must be float32"):
+        attention.decode_attention(q[0, :, :32].to(torch.bfloat16),
+                                   kb.to(torch.bfloat16),
+                                   kb.to(torch.bfloat16), 0, 0, 1)
+    w = q40.random_q40(16, 64, "cuda", gen)
+    x = torch.randn((9 * 64 + 1,), device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="x must be 16-byte aligned"):
+        q40.q40_matmul(w, x[1:].view(9, 64), bf16=True)
+
+
+def test_engine_fast_prefill_counts_launches(gen):
+    """Engine(fast_prefill=True, cache_dtype=bf16).prefill at chunk 16 over
+    40 tokens: three T = 16 windows, each 4L K3b and L K4b (bf16-cache
+    build) launches, nothing else; its cache rows and next-step logits
+    match the plain fast route on the card. The next decode step takes K1
+    and the bf16-cache K2."""
+    spec = TransformerSpec(dim=256, hidden_dim=704, n_layers=2, n_heads=4,
+                           n_kv_heads=2, vocab_size=300, seq_len=64,
+                           weights_float_type=FloatType.Q40)
+    kern = Engine(spec, synth_params(spec, q40=True, seed=6), "cuda",
+                  cache_dtype=torch.bfloat16, fast_prefill=True)
+    plain = llama.Llama(spec, kern.params, llama.FAST_PLAIN)
+    cp = llama.init_cache(spec, "cuda", torch.bfloat16)
+    tokens = [int(t) for t in torch.randint(2, 300, (40,), generator=torch
+                                            .Generator().manual_seed(1))]
+    kernels = (*q40.KERNELS, *attention.KERNELS)
+    counts = [k.launches for k in kernels]
+    kern.prefill(tokens, 0, 16)
+    got = [k.launches for k in kernels]
+    L = spec.n_layers
+    assert [g - c for g, c in zip(got, counts)] == [
+        0, 0, 0, 3 * 4 * L, 0, 0, 0, 0, 0, 3 * L]
+    with torch.inference_mode():
+        run_chunked_prefill(
+            lambda part, start: plain(cp, part, start, logits=False),
+            tokens, 0, 16, spec.seq_len)
+        b = llama.Llama(spec, kern.params, llama.PLAIN)(cp, 7, 40)[0]
+    k_ref = cp.k[:, :40].float()
+    assert ((kern.cache.k[:, :40].float() - k_ref).abs().max()
+            <= llama.FAST_RTOL * k_ref.abs().max())
+    counts = [k.launches for k in kernels]
+    a = kern.infer(7, 40)
+    got = [k.launches for k in kernels]
+    assert [g - c for g, c in zip(got, counts)] == [
+        4 * L + 1, 0, 0, 0, 0, L, 0, 0, 0, 0]
+    b = b.cpu().numpy()
+    assert abs(a - b).max() <= llama.FAST_RTOL * abs(b).max()
