@@ -17,16 +17,19 @@ no result line):
    0..2047 on an f32 and a bf16 cache, the small-T Q40 matvec (K1m) at
    T = 2, 4, 8, the Q40 GEMM (K3) at T = 16, 100, 128 on wqkv/wo/w13/w2
    (and wcls at T = 16), its bf16 tensor-core twin (K3b) at T = 16, 128,
-   and the prefill attention at T = 128 and pos 0, 384, 1920 for 7B and
-   the GQA shape, with f32 dots (K4) and bf16 dots (K4b), each over an f32
+   the prefill attention at T = 128 and pos 0, 384, 1920 for 7B and the
+   GQA shape, with f32 dots (K4) and bf16 dots (K4b), each over an f32
    and a bf16 cache, with a poisoned cache suffix past pos+T that must not
-   change its output. Max error against the stated tolerance; kernel,
-   plain and library times (CUDA events, median of 25 launches, L2
-   flushed before each); the bound (bf16 rate for K3b and K4b) and what
-   bounds it.
+   change its output; the small-T bf16-product Q40 body (K1d) at T = 2, 4,
+   8 on the four layer matrices, and the batched decode attention (K5) at
+   7B and GQA shapes for B = 1 and 8 at a shared pos 63 and 2047 and at
+   ragged positions, over an f32 and a bf16 cache (at B = 1 bit for bit
+   K2). Max error against the stated tolerance; kernel, plain and library
+   times (CUDA events, median of 25 launches, L2 flushed before each); the
+   bound (bf16 rate for K3b, K4b and K1d) and what bounds it.
 3. End to end: a 7B-shaped Q40 model with random codes (seeded) and a
    32000-piece tokenizer are written to build/smoke/, then the port's CLI
-   runs ``inference`` in-process six times, every kernel's launch count
+   runs ``inference`` in-process ten times, every kernel's launch count
    reset just before and read just after each run:
    a. 64 steps token by token, greedy: K1 4*L+1 = 129 and K2 L = 32
       launches per step;
@@ -36,13 +39,24 @@ no result line):
    c. ``--buffer-float-type q80 --prefill-chunk 8``, 64 steps over the
       20-token prompt: 3 chunks of T = 8 (K1m 4*L*3 = 384, K4 L*3 = 96),
       then 45 decode steps; every step's logits must be finite;
-   d. run b with ``--fast-prefill --kv-cache-dtype bf16`` (the slice's
-      main path): K3b 512 and K4b (bf16-cache build) 128 in the prefill,
-      K3 and K4 0, then K1 and the bf16-cache K2 per decode step; its peak
-      device memory must lie ~1.07 GB (the halved cache) below run b's;
+   d. run b with ``--fast-prefill --kv-cache-dtype bf16``: K3b 512 and K4b
+      (bf16-cache build) 128 in the prefill, K3 and K4 0, then K1 and the
+      bf16-cache K2 per decode step; its peak device memory must lie ~1.07
+      GB (the halved cache) below run b's;
    e. and f. run b with ``--fast-prefill`` alone (K3b, K4b over an f32
       cache) and with ``--kv-cache-dtype bf16`` alone (K3, the bf16-cache
-      K4 and K2), 9 decode steps each.
+      K4 and K2), 9 decode steps each;
+   g. ``--prompts-file`` with 8 prompts of 4 to 40 tokens, 64 greedy
+      lockstep steps, each a CUDA graph replay: K1m 129 and K5 32 launches
+      per step, K1, K2 and K3 0; 8 rows of 64 tokens;
+   h. run g under ``DLLAMA_MULTI_T_BODY=dequant --kv-cache-dtype bf16``:
+      K1d 129 and the bf16-cache K5 32 per step, K1m 0; its peak device
+      memory ~8.6 GB (the halved 8-row cache) below run g's;
+   i. ``--fast`` with run a's prompt and steps: its stream equals run a's
+      token for token, through K1 and K5 at B = 1 (K2 0);
+   j. ``--fast --prefill-chunk 128`` on the 512-token prompt: K3 and K4
+      for the prompt, then 65 chained steps (K1, K5) whose text ends with
+      run b's.
 4. Kernels against plain at full width: the first 4 positions of the same
    model through the forward with the kernels and with the plain versions;
    then 8 more kernel steps timed, and 8 under torch.profiler for the
@@ -50,18 +64,24 @@ no result line):
    of the 512-token prompt at chunk 128, timed (host clock, synchronised,
    median of 3), beside its matmul and attention bounds, and once more
    under torch.profiler for the in-situ device time of K3, K4 and the
-   torch glue against that wall time; its cache rows
-   and next-step logits held against the same tokens stepped at T = 1
-   through K1 and K2, and against prefill through the plain versions on
-   the card. The random codes make that model's logits nearly
-   position-independent, so a small model with quantized-Gaussian weights
-   also runs through the kernels on the card (8 decode steps, and prefill
-   at chunk 4 through K1m and chunk 16 through K3) and is held against the
-   plain path on the CPU. Then the same 512-token Engine.prefill with
-   ``fast_prefill``, timed back to back with the parity prefill and
-   profiled once, its cache rows and next logits held against the plain
-   fast route on the card (llama.FAST_RTOL); the small model also
-   prefills at chunk 16 on the fast route, over an f32 and a bf16 cache.
+   torch glue against that wall time; its cache rows and next-step logits
+   held against the same tokens forced one by one through the captured
+   T = 1 loop and against prefill through the plain versions on the card.
+   The same 512-token Engine.prefill with ``fast_prefill``, timed back to
+   back with the parity prefill and profiled once, its cache rows and next
+   logits held against the plain fast route on the card
+   (llama.FAST_RTOL). Then --fast against the host loop: 64 greedy steps
+   of each on one engine, in turns, and the captured step under
+   torch.profiler (ms/token, device busy share); and the captured 8-row
+   batch step's logits held against the plain route of forward_batch
+   (K1m over an f32 cache within LOGIT_RTOL; K1d over a bf16 cache within
+   FAST_RTOL), and its time with nothing but replays. The random codes
+   make that model's logits nearly position-independent, so a small model
+   with quantized-Gaussian weights also runs through the kernels on the
+   card (8 decode steps; prefill at chunk 4 through K1m, chunk 16 through
+   K3 and chunk 16 on the fast route over both caches; generate_batch of 3
+   prompts and generate_fast, both captured) and is held against the
+   plain path on the CPU.
 5. The ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -70,10 +90,12 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import gc
 import io
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -99,10 +121,18 @@ CHUNK = 128          # the prefill chunk of phases 3b and 4
 STEPS_512 = 576      # 511 prefilled positions + 65 decode steps
 STEPS_SHORT = 520    # runs e and f: 9 decode steps after the prefill
 Q80_CHUNK = 8        # phase 3c: q80 buffers, prefill through K1m
+BATCH = 8            # runs g and h: 8 prompts in one lockstep batch
+# runs g and h: prompts of 4, 9, ..., 40 tokens (BOS + that many - 1 " hi")
+BATCH_PROMPTS = [" ".join(["hi"] * (n - 1)) for n in
+                 (4, 9, 14, 19, 24, 29, 34, 40)]
+
+
+_T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A progress line, stamped with the seconds since the script began."""
+    print(f"[{time.perf_counter() - _T0:6.1f} s] {msg}", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -113,7 +143,12 @@ class Timer:
     """Median device time of ``fn`` over REPS launches, each timed with CUDA
     events after a 128 MB read that evicts the 50 MB L2 (the main path
     finds every weight matrix cold; a read leaves no dirty lines to write
-    back inside the timed launch)."""
+    back inside the timed launch). A spin of ~0.5 ms on the card follows
+    the read, so the host has queued the start event, ``fn``'s kernels and
+    the end event before the card reaches them: a kernel of a few
+    microseconds is timed without the host's launch time inside it."""
+
+    SPIN_CYCLES = 1_000_000
 
     def __init__(self, torch):
         self.torch = torch
@@ -128,6 +163,7 @@ class Timer:
         times = []
         for _ in range(REPS):
             self.flush.sum()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             start.record()
             fn()
             end.record()
@@ -308,9 +344,11 @@ def _library_gemm(torch, x, wf, bf16):
         return (lambda: torch.matmul(xb, wt)), "bf16 gemm bf16-out"
 
 
-def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False):
-    """K1m, K3 or (``bf16``) K3b against the plain version on the 7B
-    shapes; the library yardstick is _library_gemm's."""
+def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False,
+              body="vpu"):
+    """K1m, K3, (``bf16``) K3b or (``body="dequant"``) K1d against the plain
+    version on the 7B shapes; the library yardstick is _library_gemm's (the
+    bf16 one for K3b and K1d)."""
     from distributed_llama_tpu_torch.ops.q40 import (KERNEL_RTOL,
                                                      KERNEL_RTOL_BF16,
                                                      q40_matmul,
@@ -319,7 +357,8 @@ def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False):
     from distributed_llama_tpu_torch.ops.quants import dequantize_q40_torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    rtol = KERNEL_RTOL_BF16 if bf16 else KERNEL_RTOL
+    tensor_cores = bf16 or body == "dequant"
+    rtol = KERNEL_RTOL_BF16 if tensor_cores else KERNEL_RTOL
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
     for name, d, n, t, per_unit in cases:
@@ -327,21 +366,22 @@ def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False):
         w = random_q40(d, n, "cuda", g)
         x = torch.randn((t, n), device="cuda", generator=g)
         before = kernel.launches
-        got = q40_matmul(w, x, bf16=bf16)
+        got = q40_matmul(w, x, bf16=bf16, multi_body=body)
         torch.cuda.synchronize()
         if kernel.launches != before + 1:
             raise AssertionError(f"{kernel.symbol} {name} T={t}: not launched")
-        want = q40_matmul_plain(w, x, bf16=bf16)
+        want = q40_matmul_plain(w, x, bf16=bf16, multi_body=body)
         err = (got - want).abs().max().item()
         tol = rtol * want.abs().max().item()
         wf = dequantize_q40_torch(w.qs, w.d16)
-        lib, lib_name = _library_gemm(torch, x, wf, bf16)
+        lib, lib_name = _library_gemm(torch, x, wf, tensor_cores)
         lib_err = (lib().float() - want).abs().max().item()
-        ms = timer(lambda: q40_matmul(w, x, bf16=bf16))
-        plain_ms = timer(lambda: q40_matmul_plain(w, x, bf16=bf16))
+        ms = timer(lambda: q40_matmul(w, x, bf16=bf16, multi_body=body))
+        plain_ms = timer(lambda: q40_matmul_plain(w, x, bf16=bf16,
+                                                  multi_body=body))
         library_ms = timer(lib)
         nbytes = d * nb * 18 + t * n * 4 + t * d * 4
-        b_ms, b_by = bound(nbytes, 2.0 * t * d * n, peaks, bf16)
+        b_ms, b_by = bound(nbytes, 2.0 * t * d * n, peaks, tensor_cores)
         log(f"{kernel.symbol} {name:5s} T={t:3d} ({d}x{n}): max_abs_err "
             f"{err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms plain "
             f"{plain_ms:.4f} ms {lib_name} {library_ms:.4f} ms (err "
@@ -385,6 +425,120 @@ def phase_k3b(torch, timer, peaks):
              for t in (16, CHUNK) for name, d, n in LAYER_SHAPES]
     return _q40_rows(torch, timer, peaks, KERNEL_GEMM_BF16, cases, seed=5,
                      bf16=True)
+
+
+def phase_k1d(torch, timer, peaks):
+    """K1d on the 7B layer shapes at T = 2, 4, 8 (the batched decode step of
+    2..8 rows under DLLAMA_MULTI_T_BODY=dequant); K1m's rows at the same
+    shapes come from phase_k1m in the same call."""
+    from distributed_llama_tpu_torch.ops.q40 import KERNEL_MULTI_BF16
+
+    cases = [(name, d, n, t, 32 if t == BATCH else 0)
+             for t in (2, 4, 8) for name, d, n in LAYER_SHAPES]
+    return _q40_rows(torch, timer, peaks, KERNEL_MULTI_BF16, cases, seed=6,
+                     body="dequant")
+
+
+K5_CASES = [  # (label, n_kv, kv_mul): two layers of the cache, layer 1 read
+    ("7b", 32, 1), ("gqa8", 8, 8)]
+K5_BATCHES = (1, 8)
+
+
+def _k5_positions(batch):
+    """(label, positions): a shared clock at 63 and at 2047, and ragged
+    clocks spread over the cache."""
+    lo, hi = 5, K2_SEQ - 1
+    ragged = ([lo + (hi - lo) * i // (batch - 1) for i in range(batch)]
+              if batch > 1 else [900])
+    return [("shared 63", [63] * batch), ("shared 2047", [2047] * batch),
+            ("ragged", ragged)]
+
+
+def phase_k5(torch, timer, peaks, cache=None):
+    """K5 against plain over an f32 cache, or a bf16 one (``cache`` =
+    torch.bfloat16), at 7B and GQA shapes for B = 1, 4, 8, shared and
+    ragged clocks; at B = 1 it must equal K2 bit for bit. SDPA over the
+    padded prefix with a per-row mask (in the cache dtype) is the library
+    yardstick."""
+    import torch.nn.functional as F
+
+    from distributed_llama_tpu_torch.ops.attention import (
+        BATCH_KERNEL, BATCH_KERNEL_KVBF16, KERNEL_ATOL, attention_scale,
+        decode_attention, decode_attention_batch,
+        decode_attention_batch_plain)
+
+    cache = cache or torch.float32
+    kernel = BATCH_KERNEL if cache == torch.float32 else BATCH_KERNEL_KVBF16
+    size = torch.tensor([], dtype=cache).element_size()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    hs, layer = K2_HS, 1
+    for label, n_kv, kv_mul in K5_CASES:
+        n_q = n_kv * kv_mul
+        for batch in K5_BATCHES:
+            shape = (2 * batch, K2_SEQ, n_kv, hs)
+            k4 = torch.randn(shape, device="cuda", generator=g).to(cache)
+            v4 = torch.randn(shape, device="cuda", generator=g).to(cache)
+            q = torch.randn((batch, n_q, hs), device="cuda", generator=g)
+            for pos_label, pos in _k5_positions(batch):
+                pv = torch.tensor(pos, dtype=torch.int32, device="cuda")
+
+                def run():
+                    return decode_attention_batch(q, k4, v4, layer, pv,
+                                                  kv_mul)
+
+                before = kernel.launches
+                got = run()
+                torch.cuda.synchronize()
+                if kernel.launches != before + 1:
+                    raise AssertionError(f"{kernel.symbol}: not launched")
+                want = decode_attention_batch_plain(q, k4, v4, layer, pv,
+                                                    kv_mul)
+                err = (got - want).abs().max().item()
+                if batch == 1:
+                    k2 = decode_attention(q[0], k4, v4, layer, pos[0],
+                                          kv_mul)
+                    if not torch.equal(k2, got):
+                        raise AssertionError(f"{kernel.symbol} {label} B=1 "
+                                             f"{pos_label}: not K2's bits")
+                live = max(pos) + 1
+                qs = q.reshape(batch, n_q, 1, hs).to(cache)
+                ks = k4[layer * batch:(layer + 1) * batch, :live] \
+                    .permute(0, 2, 1, 3)
+                vs = v4[layer * batch:(layer + 1) * batch, :live] \
+                    .permute(0, 2, 1, 3)
+                mask = (torch.arange(live, device="cuda")[None, :]
+                        <= pv[:, None].long())[:, None, None, :]
+
+                def lib():
+                    return F.scaled_dot_product_attention(
+                        qs, ks, vs, attn_mask=mask,
+                        scale=attention_scale(hs), enable_gqa=kv_mul > 1)
+
+                lib_err = (lib().reshape(batch, -1).float() - want).abs() \
+                    .max().item()
+                ms = timer(run)
+                plain_ms = timer(lambda: decode_attention_batch_plain(
+                    q, k4, v4, layer, pv, kv_mul))
+                library_ms = timer(lib)
+                keys = sum(p + 1 for p in pos)
+                nbytes = 2 * keys * n_kv * hs * size + 2 * batch * n_q * hs * 4
+                b_ms, b_by = bound(nbytes, 4.0 * keys * n_q * hs, peaks)
+                log(f"{kernel.symbol} {label} B={batch} {pos_label}: "
+                    f"max_abs_err {err:.3e} (tol {KERNEL_ATOL:.0e}) kernel "
+                    f"{ms:.4f} ms plain {plain_ms:.4f} ms sdpa "
+                    f"{library_ms:.4f} ms (err {lib_err:.1e}) bound "
+                    f"{b_ms:.5f} ms ({b_by})")
+                if not err <= KERNEL_ATOL:
+                    raise AssertionError(f"{kernel.symbol} {label} B={batch}"
+                                         f" {pos_label}: error {err}")
+                rows.append(dict(case=label, n_kv=n_kv, kv_mul=kv_mul,
+                                 batch=batch, pos=pos_label,
+                                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=library_ms))
+            del k4, v4, q
+    return rows
 
 
 K4_CASES = [  # (label, L, n_kv, kv_mul)
@@ -560,21 +714,31 @@ def _finite_logits(seen: list):
         generate.Engine.infer = infer
 
 
-def _run_cli(torch, model, tok, args: list[str]):
-    """The CLI in-process with every kernel's count set to 0 just before and
-    read just after. Returns (stdout, launches by kernel symbol, wall s,
-    per-step logits-finite flags)."""
+def _run_cli(torch, model, tok, args: list[str], env=None):
+    """The CLI in-process, with ``env`` set in the environment, and with
+    every kernel's count set to 0 just before and read just after. Returns
+    (stdout, launches by kernel symbol, wall s, per-step logits-finite
+    flags)."""
     from distributed_llama_tpu_torch.frontend import cli
 
     buf = io.StringIO()
     finite = []
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
     for k in _all_kernels():
         k.launches = 0
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)), \
-            _finite_logits(finite):
-        rc = cli.main(["inference", "--model", str(model), "--tokenizer",
-                       str(tok), *args])
+    try:
+        with contextlib.redirect_stdout(_Tee(sys.stdout, buf)), \
+                _finite_logits(finite):
+            rc = cli.main(["inference", "--model", str(model), "--tokenizer",
+                           str(tok), *args])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     wall = time.perf_counter() - t0
     launches = {k.symbol: k.launches for k in _all_kernels()}
     if rc != 0:
@@ -607,7 +771,7 @@ def phase_e2e(torch, model, tok):
                tokens_per_s=1000.0 / avg, load_s=load_s,
                peak_device_gb=peak_gb, wall_s=wall, launches=launches)
     log(f"e2e: {json.dumps(e2e)}")
-    return e2e
+    return e2e, out
 
 
 def _expect(label, counts, want):
@@ -656,6 +820,8 @@ def phase_e2e_prefill(torch, model, tok, n_layers, label="prefill",
                ms_per_token_avg=float(re.search(
                    r"Avg generation time: ([\d.]+) ms", out).group(1)))
     log(f"e2e {label}: {json.dumps(res)}")
+    if label == "prefill":
+        res["pieces"] = _pieces(out)  # run j's reference stream
     return res
 
 
@@ -680,6 +846,100 @@ def phase_e2e_bf16(torch, model, tok, n_layers, f32_run):
                                steps=STEPS_SHORT)
     return dict(fast_bf16_cache=both, fast=fast, bf16_cache=kvbf16,
                 peak_saved_gb=saved)
+
+
+def _pieces(out):
+    """The decoded text of the 🔶 lines, in order."""
+    return "".join(ast.literal_eval(ln.rsplit(" kB ", 1)[1])
+                   for ln in out.splitlines() if ln.startswith("🔶"))
+
+
+def _fast_text(out):
+    """The text --fast prints before its stats line."""
+    lines = out.splitlines()
+    i = next(i for i, ln in enumerate(lines)
+             if ln.startswith("Generated tokens:"))
+    return lines[i - 1]
+
+
+def phase_e2e_batch(torch, model, tok, n_layers, label, env=None,
+                    flags=()):
+    """Runs g and h: the 8 ragged prompts through --prompts-file, STEPS
+    greedy lockstep steps, every step one graph replay of K5 and the
+    8-token Q40 body: K1m, or K1d under DLLAMA_MULTI_T_BODY=dequant; the
+    bf16-cache K5 with --kv-cache-dtype bf16. Exact launch counts, 8 rows
+    of STEPS tokens each (no row meets BOS on the random-code model)."""
+    dequant = (env or {}).get("DLLAMA_MULTI_T_BODY") == "dequant"
+    kvbf16 = "bf16" in flags
+    small = "q40_matvec_bf16" if dequant else "q40_matvec_multi"
+    attn = "decode_attention_batch" + ("_kvbf16" if kvbf16 else "")
+    path = SMOKE_DIR / "prompts.txt"
+    path.write_text("\n".join(BATCH_PROMPTS) + "\n")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, counts, wall, _ = _run_cli(torch, model, tok, [
+        "--prompts-file", str(path), "--steps", str(STEPS),
+        "--temperature", "0", "--seed", "1", *flags], env)
+    _expect(f"{label} run", counts, {small: (4 * n_layers + 1) * STEPS,
+                                     attn: n_layers * STEPS})
+    rows = re.findall(r"^\[(\d)\] (.*)$", out, re.M)
+    m = re.search(r"Generated tokens:\s+(\d+) across (\d+) rows", out)
+    tokens = int(m.group(1))
+    avg = float(re.search(r"Avg generation time: ([\d.]+) ms/token",
+                          out).group(1))
+    if len(rows) != BATCH or int(m.group(2)) != BATCH \
+            or tokens != BATCH * STEPS:
+        raise AssertionError(f"{label} run: {len(rows)} rows, {tokens} "
+                             f"tokens, want {BATCH} rows of {STEPS}")
+    res = dict(batch=BATCH, steps=STEPS, env=env or {}, flags=list(flags),
+               prompt_tokens=[len(p.split()) + 1 for p in BATCH_PROMPTS],
+               tokens=tokens, ms_per_row_token=avg,
+               # the CLI's one run captures the graph inside its timing
+               tokens_per_s_with_capture=1000.0 / avg, wall_s=wall,
+               launches=counts,
+               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"e2e {label}: {json.dumps(res)}")
+    res["rows"] = [text for _, text in rows]
+    return res
+
+
+def phase_e2e_fast(torch, model, tok, n_layers, ref_a, ref_b):
+    """Runs i and j: --fast with run a's prompt and steps (its stream must
+    equal run a's token for token, through K1 and K5 at B = 1, K2 never
+    launched), and --fast --prefill-chunk 128 on the 512-token prompt (K3
+    and K4 for the 4 chunks, then the chain from pos 511; its text must
+    end with run b's decode pieces)."""
+    res = {}
+    for label, args, ref, chain, chunks in (
+            ("fast", ["--prompt", PROMPT, "--steps", str(STEPS)],
+             ref_a, STEPS, 0),
+            ("fast prefill", ["--prompt", PROMPT_512, "--steps",
+                              str(STEPS_512), "--prefill-chunk",
+                              str(CHUNK)], ref_b, STEPS_512 - 511, 4)):
+        out, counts, wall, _ = _run_cli(torch, model, tok, [
+            *args, "--temperature", "0", "--seed", "1", "--fast"])
+        want = {"q40_matvec": (4 * n_layers + 1) * chain,
+                "decode_attention_batch": n_layers * chain}
+        if chunks:
+            want.update(q40_gemm=4 * n_layers * chunks,
+                        prefill_attention=n_layers * chunks)
+        _expect(f"{label} run", counts, want)
+        text = _fast_text(out)
+        same = text == ref if not chunks else text.endswith(ref)
+        steps = int(re.search(r"fused loop, (\d+) device steps",
+                              out).group(1))
+        avg = float(re.search(r"Avg generation time: ([\d.]+) ms",
+                              out).group(1))
+        log(f"e2e {label}: {steps} device steps, {avg:.3f} ms/token (the "
+            f"first run includes the capture); stream "
+            f"{'equals' if same else 'DIFFERS from'} the host loop's")
+        if not same or steps != chain:
+            raise AssertionError(f"{label} run: stream differs from the "
+                                 f"host loop's or {steps} != {chain} steps")
+        res[label] = dict(device_steps=steps, ms_per_token_avg=avg,
+                          wall_s=wall, launches=counts)
+    return res
 
 
 def phase_e2e_q80(torch, model, tok, n_layers):
@@ -747,7 +1007,144 @@ def phase_full_width(torch, model, tok, peaks):
                                  tokenizer.encode(PROMPT_512), peaks)
     prefill["fast"] = prefill_fast_full_width(
         torch, engine, tokenizer.encode(PROMPT_512), peaks)
-    return worst, busy, prefill
+    fast = fast_full_width(torch, engine, tokenizer)
+    batch = batch_full_width(torch, engine)
+    return worst, busy, prefill, fast, batch
+
+
+def fast_full_width(torch, engine, tokenizer):
+    """--fast against the host loop at full width: generate and
+    generate_fast of run a's prompt and STEPS greedy steps on the same
+    engine, timed in turns after one warm-up run of each (which captures
+    the graph): host, fast, fast, host, host, fast (medians of the mean
+    ms/token). Then one generate_fast under torch.profiler for the device
+    time per step, read against the unprofiled ms/token: the busy share."""
+    from distributed_llama_tpu_torch.runtime.generate import (generate,
+                                                              generate_fast)
+    from distributed_llama_tpu_torch.runtime.sampling import Sampler
+
+    def run(fast):
+        engine.reset()
+        fn = generate_fast if fast else generate
+        out, stats = fn(engine, tokenizer, Sampler(32000, 0.0, 0.9, 1),
+                        PROMPT, STEPS, quiet=True)
+        torch.cuda.synchronize()
+        return out, stats.total_ms / stats.tokens
+
+    ms = {False: [], True: []}
+    streams = {fast: run(fast)[0] for fast in (False, True)}
+    if streams[True] != streams[False]:
+        raise AssertionError("full width: --fast stream differs from the "
+                             "host loop's")
+    for fast in (False, True, True, False, False, True):
+        ms[fast].append(run(fast)[1])
+    loop = engine.decode_loop(0.0, 0.9)
+    replays = loop.replays
+    dev, prof_ms = _profiled(torch, lambda: run(True), STEPS)
+    if loop.replays - replays != STEPS:
+        raise AssertionError(f"the fused loop replayed its graph "
+                             f"{loop.replays - replays} times, not {STEPS}")
+    dev_ms = sum(m for _, m, _ in dev)
+    host_ms, fast_ms = statistics.median(ms[False]), statistics.median(
+        ms[True])
+    log(f"--fast vs host loop, {STEPS} greedy 7B steps in turns: fused "
+        f"{fast_ms:.3f} ms/token (runs "
+        f"{', '.join(f'{t:.3f}' for t in ms[True])}), host {host_ms:.3f} "
+        f"ms/token (runs "
+        f"{', '.join(f'{t:.3f}' for t in ms[False])}); fused step device "
+        f"time {dev_ms:.4f} ms over {sum(c for *_, c in dev):.0f} kernels "
+        f"(busy {dev_ms / fast_ms:.1%} of the unprofiled step)")
+    for key, m, count in dev[:8]:
+        log(f"  {m:8.4f} ms/step  x{count:5.0f}  {key[:90]}")
+    return dict(steps=STEPS, fast_ms_per_token=fast_ms,
+                fast_runs_ms=ms[True], host_ms_per_token=host_ms,
+                host_runs_ms=ms[False], device_ms_per_step=dev_ms,
+                kernels_per_step=sum(c for *_, c in dev),
+                busy=dev_ms / fast_ms if dev_ms else None,
+                profiled_ms_per_token=prof_ms, replays=loop.replays)
+
+
+def batch_full_width(torch, engine):
+    """The captured batch step's logits against the plain route of
+    forward_batch at full width, 8 rows (a cache of seq_len 128: the
+    kernels do not depend on it): the loop runs n steps, its cache and
+    inputs are copied, the same loop runs n + 1 steps (bitwise the same
+    first n), and the last replayed step's logits are held against the
+    PLAIN forward_batch from the copy. For the 'vpu' body over an f32 cache
+    (K1m, K5) within LOGIT_RTOL, and for 'dequant' over a bf16 cache (K1d,
+    bf16-cache K5) against the plain bf16-product route within FAST_RTOL.
+    Then the step's time with nothing but replays: three timed runs of
+    n + 1 steps (median ms/step, tokens/s across the rows) and one under
+    torch.profiler (device time per step, busy share)."""
+    import dataclasses
+
+    import numpy as np
+
+    from distributed_llama_tpu_torch.models import llama
+    from distributed_llama_tpu_torch.runtime.decode import DecodeLoop
+
+    spec = dataclasses.replace(engine.spec, seq_len=128)
+    rng = np.random.default_rng(12)
+    steps = 24
+    prompts = np.full((BATCH, steps + 2), -1)
+    for b in range(BATCH):
+        n = 1 + 2 * b
+        prompts[b, :n] = rng.integers(3, spec.vocab_size, n)
+    res = {}
+    for body, dtype, rtol in (("vpu", torch.float32, llama.LOGIT_RTOL),
+                              ("dequant", torch.bfloat16, llama.FAST_RTOL)):
+        model = llama.Llama(spec, engine.params,
+                            llama.with_body(llama.KERNELS, body))
+        cache = llama.init_cache_batch(spec, BATCH, "cuda", dtype)
+        loop = DecodeLoop(lambda t, p: model.forward_batch(cache, t, p),
+                          BATCH, steps + 1, 0.0, 0.9, "cuda")
+        coins = np.zeros((BATCH, steps + 1), np.float32)
+        start = np.zeros(BATCH, np.int32)
+        with torch.inference_mode():
+            loop.run(prompts, prompts[:, 0], coins, start, steps)
+            snap = llama.KVCache(cache.k.clone(), cache.v.clone())
+            tokens, pos = loop.tokens.clone(), loop.pos.clone()
+            loop.run(prompts, prompts[:, 0], coins, start, steps + 1)
+            got = loop.logits.clone()
+            want = model.forward_batch(snap, tokens, pos,
+                                       route=llama.with_body(llama.PLAIN,
+                                                             body))
+        err = (got - want).abs().max().item()
+        tol = rtol * want.abs().max().item()
+        log(f"captured batch step ({body}, {dtype}) vs plain forward_batch "
+            f"at full width, B={BATCH}, pos {steps}: max_abs_err {err:.3e} "
+            f"(tol {tol:.3e}); {loop.replays} replays")
+        if not (err <= tol and torch.isfinite(got).all()
+                and loop.replays == 2 * steps):
+            raise AssertionError(f"captured batch step ({body}): error {err}"
+                                 f" or {loop.replays} replays")
+
+        def steps_run():
+            with torch.inference_mode():
+                loop.run(prompts, prompts[:, 0], coins, start, steps + 1)
+            torch.cuda.synchronize()
+
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            steps_run()
+            times.append((time.perf_counter() - t0) * 1e3 / (steps + 1))
+        ms = statistics.median(times)
+        dev, _ = _profiled(torch, steps_run, steps + 1)
+        dev_ms = sum(m for _, m, _ in dev)
+        log(f"captured batch step ({body}): {ms:.3f} ms/step (runs "
+            f"{', '.join(f'{t:.3f}' for t in times)}), "
+            f"{BATCH * 1e3 / ms:.0f} tokens/s across {BATCH} rows; device "
+            f"{dev_ms:.3f} ms/step (busy {dev_ms / ms:.1%})")
+        for key, m, count in dev[:5]:
+            log(f"  {m:8.4f} ms/step  x{count:5.0f}  {key[:90]}")
+        res[body] = dict(logit_err=err, logit_tol=tol, ms_per_step=ms,
+                         runs_ms=times, tokens_per_s=BATCH * 1e3 / ms,
+                         device_ms_per_step=dev_ms,
+                         busy=dev_ms / ms if dev_ms else None,
+                         replays=loop.replays)
+        del snap, cache, loop
+    return res
 
 
 def _prefill_bounds(spec, n_tokens, peaks, bf16=False):
@@ -772,12 +1169,16 @@ def _prefill_bounds(spec, n_tokens, peaks, bf16=False):
 
 def prefill_full_width(torch, engine, plain, tokens, peaks):
     """Engine.prefill of the 512-token prompt at CHUNK: timed, then held
-    against the same tokens stepped at T = 1 (K1 + K2) and against prefill
+    against the same tokens stepped at T = 1 (forced through the captured
+    loop: K1 and K5, whose B = 1 sums are K2's) and against prefill
     through the plain versions, on the cache rows and the next-step
     logits. Tolerance: LOGIT_RTOL of the reference's largest magnitude
     (f32 throughout; the routes sum in different orders through 32
     layers)."""
+    import numpy as np
+
     from distributed_llama_tpu_torch.models import llama
+    from distributed_llama_tpu_torch.runtime.decode import DecodeLoop
     from distributed_llama_tpu_torch.runtime.generate import \
         run_chunked_prefill
 
@@ -804,9 +1205,13 @@ def prefill_full_width(torch, engine, plain, tokens, peaks):
         nxt = tokens[-1]
         got = kern(engine.cache, nxt, n)
 
+        # the same tokens stepped at T = 1, forced one by one through the
+        # captured loop (K1 and K5, whose B = 1 sums are K2's)
         stepped = llama.init_cache(spec, "cuda")
-        for pos, t in enumerate(tokens):
-            kern(stepped, t, pos, logits=False)
+        view = llama.KVCache(stepped.k.unsqueeze(1), stepped.v.unsqueeze(1))
+        DecodeLoop(lambda t, p: kern.forward_batch(view, t, p), 1, n, 0.0,
+                   0.9, "cuda").run(np.array([tokens + [-1]]), tokens[:1],
+                                    np.zeros((1, n), np.float32), [0], n)
         want = kern(stepped, nxt, n)
         checks = {"stepwise": (stepped, want)}
         del stepped
@@ -1045,7 +1450,41 @@ def phase_small_reference(torch):
             argmaxes.add(int(b.argmax()))
     log(f"small model, kernels on the card vs plain on the CPU: 8 positions, "
         f"max_abs_err {worst:.3e}, {len(argmaxes)} distinct argmaxes")
+    small_loops(torch, spec, host)
     return max(worst, small_prefill(torch, spec, gpu, cpu))
+
+
+def small_loops(torch, spec, host):
+    """The on-device loops on the small model: generate_batch of 3 ragged
+    prompts (captured K1m / K5 on the card) and generate_fast (captured K1
+    / K5) against the same calls on the CPU's plain versions: greedy token
+    streams equal."""
+    from distributed_llama_tpu_torch.runtime.generate import (Engine,
+                                                              generate_batch,
+                                                              generate_fast)
+    from distributed_llama_tpu_torch.runtime.sampling import Sampler
+
+    class Tok:  # ids as pieces: "a b c" -> [1, a, b, c]
+        def encode(self, text, bos=True, eos=False):
+            return [1, *map(int, text.split())]
+
+        def decode_piece(self, prev, tok):
+            return b"."
+
+    prompts = ["17", "400 3 3 999", "42 7"]
+    rows = {dev: generate_batch(spec, host, Tok(), prompts, 20, 0.0, 0.9, 1,
+                                device=dev, quiet=True)[0]
+            for dev in ("cuda", "cpu")}
+    fast = {dev: generate_fast(Engine(spec, host, dev), Tok(),
+                               Sampler(spec.vocab_size, 0.0, 0.9, 1),
+                               "5 6 7", 20, quiet=True)[0]
+            for dev in ("cuda", "cpu")}
+    log(f"small model loops, card vs CPU: batch rows "
+        f"{'equal' if rows['cuda'] == rows['cpu'] else 'DIFFER'}, fused "
+        f"stream {'equal' if fast['cuda'] == fast['cpu'] else 'DIFFERS'}")
+    if rows["cuda"] != rows["cpu"] or fast["cuda"] != fast["cpu"]:
+        raise AssertionError("small model: a loop's card stream differs "
+                             "from the CPU's")
 
 
 def small_prefill(torch, spec, gpu, cpu):
@@ -1148,17 +1587,37 @@ def main() -> int:
     k4b = phase_k4(torch, timer, peaks, bf16=True)
     k4b_kvbf16 = phase_k4(torch, timer, peaks, bf16=True,
                           cache=torch.bfloat16)
+    k1d = phase_k1d(torch, timer, peaks)
+    k5 = phase_k5(torch, timer, peaks)
+    k5_kvbf16 = phase_k5(torch, timer, peaks, cache=torch.bfloat16)
     del timer
     gc.collect()
     torch.cuda.empty_cache()
     spec, model, tok = smoke_files()
-    e2e = phase_e2e(torch, model, tok)
+    e2e, out_a = phase_e2e(torch, model, tok)
     e2e_prefill = phase_e2e_prefill(torch, model, tok, spec.n_layers)
     e2e_q80 = phase_e2e_q80(torch, model, tok, spec.n_layers)
     e2e_bf16 = phase_e2e_bf16(torch, model, tok, spec.n_layers, e2e_prefill)
+    e2e_batch = phase_e2e_batch(torch, model, tok, spec.n_layers, "batch")
+    e2e_batch_dq = phase_e2e_batch(
+        torch, model, tok, spec.n_layers, "batch dequant bf16-cache",
+        {"DLLAMA_MULTI_T_BODY": "dequant"}, ("--kv-cache-dtype", "bf16"))
+    saved = e2e_batch["peak_device_gb"] - e2e_batch_dq["peak_device_gb"]
+    same_rows = sum(a == b for a, b in zip(e2e_batch.pop("rows"),
+                                           e2e_batch_dq.pop("rows")))
+    log(f"batch peak device memory: {e2e_batch['peak_device_gb']:.3f} GB "
+        f"(f32 cache), {e2e_batch_dq['peak_device_gb']:.3f} GB (bf16): "
+        f"{saved:.3f} GB less; {same_rows} of {BATCH} rows equal under the "
+        f"dequant body")
+    if not 8.0 <= saved <= 9.2:
+        raise AssertionError(f"the bf16 batch cache saved {saved:.3f} GB, "
+                             f"not ~8.6")
+    e2e_fast = phase_e2e_fast(torch, model, tok, spec.n_layers,
+                              _pieces(out_a), e2e_prefill.pop("pieces"))
     gc.collect()
     torch.cuda.empty_cache()
-    logit_err, busy, prefill = phase_full_width(torch, model, tok, peaks)
+    logit_err, busy, prefill, fast, batch = phase_full_width(torch, model,
+                                                             tok, peaks)
     small_err = phase_small_reference(torch)
 
     def per_token(rows):
@@ -1277,6 +1736,44 @@ def main() -> int:
                       f"one 7B {CHUNK}-token chunk at pos 384, bf16 dots, "
                       f"bf16 cache: 32 layers; {sdpa}"),
     ]
+    k5_unit = [dict(r, per_token=32) for r in k5
+               if r["case"] == "7b" and r["batch"] == BATCH
+               and r["pos"] == "shared 63"]
+    k5b_unit = [dict(r, per_token=32) for r in k5_kvbf16
+                if r["case"] == "7b" and r["batch"] == BATCH
+                and r["pos"] == "shared 63"]
+    batch_sdpa = ("library = scaled_dot_product_attention over the padded "
+                  "prefix with a per-row mask")
+    kernels += [
+        dict(name="decode_attention_batch", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/decode_attention.cu",
+             replaces="distributed_llama_tpu/ops/pallas_attention.py:175",
+             launches=e2e_batch["launches"]["decode_attention_batch"],
+             max_abs_err=max(r["max_abs_err"] for r in k5),
+             **unit_row(k5_unit),
+             unit=f"one 7B step of {BATCH} rows at shared pos 63: 32 "
+                  f"layers; {batch_sdpa}", shapes=k5),
+        dict(name="decode_attention_batch_kvbf16", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/decode_attention.cu",
+             replaces="distributed_llama_tpu/ops/pallas_attention.py:175",
+             launches=e2e_batch_dq["launches"][
+                 "decode_attention_batch_kvbf16"],
+             max_abs_err=max(r["max_abs_err"] for r in k5_kvbf16),
+             **unit_row(k5b_unit),
+             unit=f"one 7B step of {BATCH} rows at shared pos 63 over a "
+                  f"bf16 cache: 32 layers; {batch_sdpa} (bf16)",
+             shapes=k5_kvbf16),
+        dict(name="q40_matvec_bf16", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/q40_matvec_bf16.cu",
+             replaces="distributed_llama_tpu/ops/pallas_q40.py:713",
+             launches=e2e_batch_dq["launches"]["q40_matvec_bf16"],
+             max_abs_err=max(r["max_abs_err"] for r in k1d),
+             **unit_row(k1d),
+             unit=f"one 7B {BATCH}-row step: 32 x (wqkv, wo, w13, w2) at "
+                  f"T = {BATCH}; library = {k1d[0]['library']} (cuBLAS) on "
+                  f"the weight dequantized to bf16 beforehand (dequant not "
+                  f"timed)", shapes=k1d),
+    ]
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -1287,8 +1784,11 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": kernels, "e2e": e2e, "step_profile": busy,
                       "e2e_prefill": e2e_prefill, "e2e_q80": e2e_q80,
-                      "e2e_bf16": e2e_bf16, "prefill": prefill,
-                      "build_s": build_s}))
+                      "e2e_bf16": e2e_bf16, "e2e_batch": e2e_batch,
+                      "e2e_batch_dequant": e2e_batch_dq,
+                      "e2e_fast": e2e_fast, "prefill": prefill,
+                      "fast": fast, "batch_step": batch,
+                      "batch_cache_saved_gb": saved, "build_s": build_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

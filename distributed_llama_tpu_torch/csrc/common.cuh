@@ -1,5 +1,6 @@
 // Shared by the port's CUDA sources: the error-string entry point that the
 // ctypes binding (ops/_build.py) reads when a launch returns non-zero, the
+// once-per-device opt-in to more than 48 KB of dynamic shared memory, the
 // Q40 code decode of the matmul kernels, and bf16 packing and the f32 /
 // bf16 KV-cache loads of the attention kernels.
 #pragma once
@@ -10,6 +11,29 @@
 
 extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+constexpr int kMaxDevices = 64;
+
+// Let `kernel` launch with `bytes` of dynamic shared memory. Above 48 KB
+// that takes cudaFuncSetAttribute, which holds per device; `granted` is
+// the calling launch path's own per-device high-water mark, so the call is
+// made on the first such launch on a device and never again for that size
+// or a smaller one. A launch captured into a CUDA graph after an eager
+// launch of the same size therefore makes no call during the capture.
+template <typename Kernel>
+static cudaError_t opt_in_smem(Kernel kernel, size_t bytes,
+                               size_t (&granted)[kMaxDevices]) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && granted[dev] >= bytes) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(bytes));
+  if (e == cudaSuccess && dev < kMaxDevices) granted[dev] = bytes;
+  return e;
 }
 
 // A Q40 code minus 8, exact, with no integer-to-float conversion: byte

@@ -208,13 +208,10 @@ int launch(const float* q, const KV* k, const KV* v, float* out,
   const size_t smem = static_cast<size_t>(kItems * hs4 +
                                           kKeys * key_stride4(hs4) +
                                           kKeys * hs4) * sizeof(float4);
-  // the opt-in above 48 KB is per device, so it is made on every such launch
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        prefill_attention_kernel<KV, KV_MUL, IPW>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  static size_t granted[kMaxDevices];
+  const cudaError_t e =
+      opt_in_smem(prefill_attention_kernel<KV, KV_MUL, IPW>, smem, granted);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(n_kv, (t_len + kRows - 1) / kRows);
   prefill_attention_kernel<KV, KV_MUL, IPW>
       <<<grid, kWarps * 32, smem, stream>>>(

@@ -258,13 +258,10 @@ int launch(const float* q, const KV* k, const KV* v, float* out, int layer,
            cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(kItems + 2 * kKeys) *
                       tile_ld(hs) * sizeof(__nv_bfloat16);
-  // the opt-in above 48 KB is per device, so it is made on every such launch
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        prefill_attention_bf16_kernel<KV, KV_MUL>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  static size_t granted[kMaxDevices];
+  const cudaError_t e =
+      opt_in_smem(prefill_attention_bf16_kernel<KV, KV_MUL>, smem, granted);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(n_kv, (t_len * KV_MUL + kItems - 1) / kItems);
   prefill_attention_bf16_kernel<KV, KV_MUL>
       <<<grid, kWarps * 32, smem, stream>>>(q, k, v, out, layer, pos, t_len,

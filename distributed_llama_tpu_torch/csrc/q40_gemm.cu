@@ -310,13 +310,9 @@ int launch(const void* qs, const void* d16, const void* x, void* out,
   const uintptr_t p = reinterpret_cast<uintptr_t>(d16);
   const int h0 = static_cast<int>((p >> 1) & 1);
   const size_t smem = smem_words<MI>() * sizeof(float);
-  // the opt-in above 48 KB is per device, so it is made on every such launch
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        q40_gemm_kernel<MI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  static size_t granted[kMaxDevices];
+  const cudaError_t e = opt_in_smem(q40_gemm_kernel<MI>, smem, granted);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((d + kBD - 1) / kBD, (t_len + 8 * MI - 1) / (8 * MI));
   q40_gemm_kernel<MI><<<grid, kThreads, smem, stream>>>(
       static_cast<const uint4*>(qs),

@@ -242,13 +242,9 @@ int launch_multi(const void* qs, const void* d16, const void* x, void* out,
                  int d, int nb, cudaStream_t stream) {
   const size_t smem =
       static_cast<size_t>(T) * kChunk * kBlockPad * sizeof(float);
-  // the opt-in above 48 KB is per device, so it is made on every such launch
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        q40_matvec_multi_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  static size_t granted[kMaxDevices];
+  const cudaError_t e = opt_in_smem(q40_matvec_multi_kernel<T>, smem, granted);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int rows_per_block = kWarps * kRowsM;
   const dim3 grid((d + rows_per_block - 1) / rows_per_block);
   q40_matvec_multi_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
@@ -282,13 +278,9 @@ extern "C" int q40_matvec_multi(const void* qs, const void* d16,
 extern "C" int q40_matvec(const void* qs, const void* d16, const void* x,
                           void* out, int d, int nb, void* stream) {
   const size_t smem = static_cast<size_t>(nb) * kBlockPad * sizeof(float);
-  // the opt-in above 48 KB is per device, so it is made on every such launch
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        q40_matvec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  static size_t granted[kMaxDevices];
+  const cudaError_t e = opt_in_smem(q40_matvec_kernel, smem, granted);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((d + kWarps - 1) / kWarps);
   q40_matvec_kernel<<<grid, kWarps * 32, smem,
                       static_cast<cudaStream_t>(stream)>>>(

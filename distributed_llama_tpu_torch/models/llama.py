@@ -18,12 +18,26 @@ prefill at positions pos..pos+T-1 (attention through K4 for every T > 1,
 where the JAX package sends T <= 8 to a dense XLA einsum — the same values,
 as no Pallas kernel is involved there).
 
+``Llama.forward_batch`` (the JAX package's ``forward_batch`` and
+``forward_batch_ragged``) decodes one token for each of B sequences over
+the (L, B, S, n_kv, hs) batch cache (``init_cache_batch``), every input a
+device tensor: tokens (B,) and positions (B,), one shared clock or
+per-row clocks. Each row rotates at its own position, writes its k/v at
+(layer, row, pos[b]) and attends through K5, which reads the positions on
+the device; the matmuls take the T = B path. Nothing in it reads a device
+value on the host, so runtime/decode.py captures it in a CUDA graph. At
+B = 1 over a single-sequence cache viewed as (L, 1, S, n_kv, hs) it is the
+T = 1 step with device inputs: K1 and K5, which at B = 1 computes K2's
+sums in K2's order, so its logits equal ``forward``'s bit for bit.
+
 The precision is an explicit ``Route`` per call, where the JAX package
 traces a second program under a context variable (ops/linear.py
 ``matmul_precision("bf16")``): ``FAST`` is the ``--fast-prefill`` route for
 T > 8 chunks, with the bf16 Q40 GEMM (K3b), bf16 dense products and bf16
-prefill attention (K4b); ``FAST_PLAIN`` is its plain twin. One module and
-one parameter tree serve every route.
+prefill attention (K4b); ``FAST_PLAIN`` is its plain twin. ``with_body``
+gives a route the small-T body the engine read from
+``DLLAMA_MULTI_T_BODY`` (K1d for 'dequant'). One module and one parameter
+tree serve every route.
 
 Departures, none of which changes a value: the KV write is in place at
 (layer, pos..pos+T-1) instead of a functional update; the RoPE frequencies
@@ -44,6 +58,8 @@ from torch import nn
 
 from ..io.loader import Q40Weight
 from ..ops.attention import (attention_core, decode_attention,
+                             decode_attention_batch,
+                             decode_attention_batch_plain,
                              decode_attention_plain, prefill_attention,
                              prefill_attention_bf16_plain,
                              prefill_attention_plain)
@@ -54,9 +70,10 @@ from ..ops.q40 import q40_matmul, q40_matmul_plain
 from ..ops.quants import FloatType
 from .spec import TransformerSpec
 
-__all__ = ["KVCache", "init_cache", "attention_core", "Route", "KERNELS",
-           "PLAIN", "FAST", "FAST_PLAIN", "LOGIT_RTOL", "FAST_RTOL", "Llama",
-           "params_to_device", "params_from_reference"]
+__all__ = ["KVCache", "init_cache", "init_cache_batch", "attention_core",
+           "Route", "KERNELS", "PLAIN", "FAST", "FAST_PLAIN", "with_body",
+           "LOGIT_RTOL", "FAST_RTOL", "Llama", "params_to_device",
+           "params_from_reference"]
 
 
 class KVCache(NamedTuple):
@@ -71,27 +88,51 @@ def init_cache(spec: TransformerSpec, device,
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
+def init_cache_batch(spec: TransformerSpec, batch: int, device,
+                     dtype: torch.dtype = torch.float32) -> KVCache:
+    """The batch cache (L, B, S, n_kv, hs): each (layer, row) has the
+    single-sequence (S, n_kv, hs) layout, and forward_batch reads it as the
+    rank-4 (L*B, S, n_kv, hs) view the JAX package carries."""
+    shape = (spec.n_layers, batch, spec.seq_len, spec.n_kv_heads,
+             spec.head_size)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
 class Route(NamedTuple):
-    """Which Q40 matmul, dense matmul, decode attention (T = 1) and prefill
-    attention (T > 1) the forward calls."""
+    """Which Q40 matmul, dense matmul, decode attention (T = 1), prefill
+    attention (T > 1) and batched decode attention (forward_batch) the
+    forward calls."""
 
     q40: Callable
     dense: Callable
     attention: Callable
     prefill: Callable
+    batch: Callable
 
 
 # the kernel wrappers (the plain versions on CPU tensors) — the main path
 KERNELS = Route(q40_matmul, dense_matmul, decode_attention,
-                prefill_attention)
+                prefill_attention, decode_attention_batch)
 # the plain versions on any device — to hold the kernels against on the card
 PLAIN = Route(q40_matmul_plain, dense_matmul, decode_attention_plain,
-              prefill_attention_plain)
+              prefill_attention_plain, decode_attention_batch_plain)
 # --fast-prefill's T > 8 chunks: bf16 products, f32 accumulation (K3b, K4b)
 FAST = Route(partial(q40_matmul, bf16=True), dense_matmul_bf16,
-             decode_attention, partial(prefill_attention, bf16=True))
+             decode_attention, partial(prefill_attention, bf16=True),
+             decode_attention_batch)
 FAST_PLAIN = Route(partial(q40_matmul_plain, bf16=True), dense_matmul_bf16,
-                   decode_attention_plain, prefill_attention_bf16_plain)
+                   decode_attention_plain, prefill_attention_bf16_plain,
+                   decode_attention_batch_plain)
+
+
+def with_body(route: Route, multi_body: str) -> Route:
+    """``route`` with its Q40 matmul taking ``multi_body`` ('vpu' or
+    'dequant', ops/q40.multi_t_body) for 2 <= T <= 8."""
+    if multi_body == "vpu":
+        return route
+    return route._replace(q40=partial(route.q40, multi_body=multi_body))
+
 
 # |kernel logits - plain logits| <= LOGIT_RTOL * max|plain logits|: the two
 # routes sum in different orders through every layer (f32 throughout)
@@ -120,20 +161,21 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor,
                        dim=-1).reshape(x.shape)
 
 
+def rope_rows(freq: torch.Tensor,
+              positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin (T, n/2) of the angles at device positions (T,), one row
+    each: the f32 position times the frequencies (the reference's
+    rope_rotate), computed once per call and shared by every layer."""
+    val = positions.to(torch.float32)[:, None] * freq[None, :]
+    return torch.cos(val), torch.sin(val)
+
+
 def rope_tables(freq: torch.Tensor, pos: int,
                 t_len: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin (T, n/2) of the angles at positions pos..pos+T-1 (the f32
-    positions times the frequencies, as the reference's rope_rotate) —
-    computed once per call and shared by every layer. Positions are made on
-    the frequencies' device (a Python int scales them at T = 1), so no
-    host-to-device copy is issued."""
-    if t_len == 1:
-        val = (freq * pos)[None, :]
-    else:
-        positions = torch.arange(pos, pos + t_len, dtype=torch.float32,
-                                 device=freq.device)
-        val = positions[:, None] * freq[None, :]
-    return torch.cos(val), torch.sin(val)
+    """rope_rows at positions pos..pos+T-1, made on the frequencies'
+    device (no host-to-device copy)."""
+    return rope_rows(freq, torch.arange(pos, pos + t_len,
+                                        device=freq.device))
 
 
 def _mm(w, x: torch.Tensor, route: Route) -> torch.Tensor:
@@ -234,6 +276,7 @@ class Llama(nn.Module):
         self.params = params
         self.route = route
         self.layers = [_layer_view(params, i) for i in range(spec.n_layers)]
+        self._rows: dict = {}
         device = params["tok_embedding"].device
         self.register_buffer("freq", rope_freq(spec.dim + spec.kv_dim,
                                                spec.head_size, device))
@@ -265,6 +308,70 @@ class Llama(nn.Module):
             return None
         x = rmsnorm(x, p["rms_final"])
         return _mm(p["wcls"], x, route)
+
+    def forward_batch(self, cache: KVCache, tokens: torch.Tensor,
+                      pos: int | torch.Tensor,
+                      route: Route | None = None) -> torch.Tensor:
+        """One token for each of B sequences: tokens (B,) on the device, pos
+        an int (one shared clock) or a (B,) int32 tensor (per-row clocks);
+        cache (L, B, S, n_kv, hs) from init_cache_batch. Writes row b's k/v
+        at (layer, b, pos[b]) and returns logits (B, vocab) f32. Reads no
+        device value on the host (so a CUDA graph can capture it); the
+        caller keeps every pos[b] inside the cache."""
+        spec, p = self.spec, self.params
+        route = self.route if route is None else route
+        batch = tokens.shape[0]
+        device = tokens.device
+        if isinstance(pos, (int, np.integer)):
+            if not 0 <= pos < spec.seq_len:
+                raise ValueError(f"position {pos} outside the cache "
+                                 f"(seq_len {spec.seq_len})")
+            pos = torch.full((batch,), int(pos), dtype=torch.int32,
+                             device=device)
+        if pos.dtype != torch.int32 or tuple(pos.shape) != (batch,):
+            raise ValueError(f"forward_batch: pos must be an int or an "
+                             f"int32 ({batch},) tensor, got {pos.dtype} "
+                             f"{tuple(pos.shape)}")
+        n_layers, seq_len = spec.n_layers, spec.seq_len
+        hs, n_kv = spec.head_size, spec.n_kv_heads
+        if tuple(cache.k.shape) != (n_layers, batch, seq_len, n_kv, hs):
+            raise ValueError(f"forward_batch: cache {tuple(cache.k.shape)} "
+                             f"does not hold {batch} rows of this model")
+        k4 = cache.k.view(n_layers * batch, seq_len, n_kv, hs)
+        v4 = cache.v.view(n_layers * batch, seq_len, n_kv, hs)
+        rows = self._batch_rows(batch, device)
+        cols = pos.long()
+        x = p["tok_embedding"][tokens].to(torch.float32)
+        rope = rope_rows(self.freq, pos)
+        for idx, lw in enumerate(self.layers):
+            q, k, v = _qkv_proj(spec, lw, x, rope, route)
+            k4.index_put_((rows[idx], cols),
+                          k.reshape(batch, n_kv, hs).to(k4.dtype))
+            v4.index_put_((rows[idx], cols),
+                          v.reshape(batch, n_kv, hs).to(v4.dtype))
+            ao = route.batch(q.reshape(batch, spec.n_heads, hs).contiguous(),
+                             k4, v4, idx, pos, spec.kv_mul)
+            x = _post_attention(spec, lw, x, ao, route)
+        x = rmsnorm(x, p["rms_final"])
+        return _mm(p["wcls"], x, route)
+
+    def forward_batch_ragged(self, cache: KVCache, tokens: torch.Tensor,
+                             pos: torch.Tensor,
+                             route: Route | None = None) -> torch.Tensor:
+        """forward_batch at per-row clocks pos (B,): each row attends only
+        its own 0..pos[b], so whatever lies past a row's clock is
+        invisible."""
+        return self.forward_batch(cache, tokens, pos, route)
+
+    def _batch_rows(self, batch: int, device) -> torch.Tensor:
+        """(L, B) int64 rows layer*B + b of the (L*B, S, n_kv, hs) view,
+        made once per batch size and device."""
+        key = (batch, str(device))
+        if key not in self._rows:
+            layers = torch.arange(self.spec.n_layers, device=device)
+            self._rows[key] = (layers[:, None] * batch
+                               + torch.arange(batch, device=device)[None, :])
+        return self._rows[key]
 
 
 def params_to_device(params: dict[str, Any], device) -> dict[str, Any]:

@@ -1,6 +1,6 @@
 """Tensor ops of the port: codecs, the hand-written CUDA kernels with their
-plain versions (q40: K1, K1m, K3, K3b; attention: K2, K4, K4b), and the
-dense glue around them."""
+plain versions (q40: K1, K1m, K1d, K3, K3b; attention: K2, K5, K4, K4b),
+and the dense glue around them."""
 
 import torch
 

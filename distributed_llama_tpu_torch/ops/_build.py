@@ -24,6 +24,7 @@ import subprocess
 import time
 from pathlib import Path
 
+ALL: list["CudaKernel"] = []  # every kernel, in the order it was defined
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -52,7 +53,10 @@ class CudaKernel:
     first use) and ``launches``, a plain count of successful launches.
 
     The C entry point launches on the given stream and returns the
-    ``cudaGetLastError()`` code; ``launch`` raises on any non-zero code.
+    ``cudaGetLastError()`` code; ``launch`` raises on any non-zero code. A
+    call made while a CUDA graph is being captured counts too, though the
+    kernel runs only when the graph is replayed: runtime/decode.py moves
+    such counts to the replays. Every kernel is listed in ``ALL``.
     """
 
     def __init__(self, source: str, symbol: str, argtypes: list):
@@ -62,6 +66,7 @@ class CudaKernel:
         self.launches = 0
         self._fn = None
         self._lib = None
+        ALL.append(self)
 
     def library_path(self) -> Path:
         h = hashlib.sha256()

@@ -1,5 +1,5 @@
-"""Attention: the hand-written CUDA kernels ``csrc/decode_attention.cu`` (K2),
-``csrc/prefill_attention.cu`` (K4) and ``csrc/prefill_attention_bf16.cu``
+"""Attention: the hand-written CUDA kernels ``csrc/decode_attention.cu`` (K2,
+K5), ``csrc/prefill_attention.cu`` (K4) and ``csrc/prefill_attention_bf16.cu``
 (K4b), their plain PyTorch versions, and the attention math they share.
 
 K2 replaces the JAX package's ops/pallas_attention.py ``decode_attention``:
@@ -7,6 +7,13 @@ one query token at position ``pos`` against keys and values 0..pos of layer
 ``layer`` of the stacked (L, S, n_kv, hs) cache, scale 1/sqrt(hs), query
 head h on kv head h // kv_mul. It is bound by the K and V bytes of the live
 prefix.
+
+K5 replaces ``decode_attention_batch`` there: B such tokens over the rank-4
+(L*B, S, n_kv, hs) batch cache, row b of layer ``layer`` at cache row
+layer*B + b, each at its own position read from a device (B,) int32 vector
+(one shared clock or per-row clocks alike), so a step captured in a CUDA
+graph takes each replay's positions. It is K2's body on a (kv head, row)
+grid: at B = 1 it computes K2's sums in K2's order.
 
 K4 replaces ``prefill_attention`` (``_prefill_kernel``) there in f32: T
 queries at pos..pos+T-1, row i seeing keys 0..pos+i, with the chunk's own
@@ -52,8 +59,15 @@ PREFILL_BF16_KERNEL = CudaKernel("prefill_attention_bf16.cu",
 PREFILL_BF16_KERNEL_KVBF16 = CudaKernel("prefill_attention_bf16.cu",
                                         "prefill_attention_bf16_kvbf16",
                                         _PREFILL_ARGS)
+_BATCH_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+               + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+BATCH_KERNEL = CudaKernel("decode_attention.cu", "decode_attention_batch",
+                          _BATCH_ARGS)
+BATCH_KERNEL_KVBF16 = CudaKernel("decode_attention.cu",
+                                 "decode_attention_batch_kvbf16", _BATCH_ARGS)
 KERNELS = (KERNEL, KERNEL_KVBF16, PREFILL_KERNEL, PREFILL_KERNEL_KVBF16,
-           PREFILL_BF16_KERNEL, PREFILL_BF16_KERNEL_KVBF16)
+           PREFILL_BF16_KERNEL, PREFILL_BF16_KERNEL_KVBF16, BATCH_KERNEL,
+           BATCH_KERNEL_KVBF16)
 # by (bf16 dots, cache dtype)
 _PREFILL = {(False, torch.float32): PREFILL_KERNEL,
             (False, torch.bfloat16): PREFILL_KERNEL_KVBF16,
@@ -162,6 +176,76 @@ def decode_attention(q: torch.Tensor, k_all: torch.Tensor,
     kernel = KERNEL if k_all.dtype == torch.float32 else KERNEL_KVBF16
     kernel.launch(q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
                   out.data_ptr(), layer, pos, seq_len, n_kv, kv_mul, hs,
+                  attention_scale(hs),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+    return out
+
+
+# --------------------------------------------------------------------------
+# batched decode attention (K5)
+# --------------------------------------------------------------------------
+
+def decode_attention_batch_plain(q: torch.Tensor, k4: torch.Tensor,
+                                 v4: torch.Tensor, layer: int,
+                                 pos: torch.Tensor,
+                                 kv_mul: int) -> torch.Tensor:
+    """decode_attention_plain for each row: row b's queries q[b] (n_q, hs)
+    against keys 0..pos[b] of cache row layer*B + b. q (B, n_q, hs) ->
+    (B, n_q*hs). Reads the positions on the host (a sync on the card),
+    which only the kernel avoids."""
+    batch = q.shape[0]
+    return torch.cat([
+        decode_attention_plain(q[b], k4, v4, layer * batch + b, p, kv_mul)
+        for b, p in enumerate(pos.tolist())])
+
+
+def _check_batch(q, k4, v4, layer, pos, kv_mul) -> None:
+    if q.dim() != 3:
+        raise ValueError(f"decode_attention_batch: q must be (B, n_q, hs), "
+                         f"got {tuple(q.shape)}")
+    batch = q.shape[0]
+    if k4.dim() != 4 or k4.shape[0] % batch:
+        raise ValueError(f"decode_attention_batch: the cache must be (L*B, "
+                         f"S, n_kv, hs) with B = {batch}, got "
+                         f"{tuple(k4.shape)}")
+    if not 0 <= layer < k4.shape[0] // batch:
+        raise ValueError(f"decode_attention_batch: layer {layer} out of "
+                         f"range for cache {tuple(k4.shape)} at B = {batch}")
+    if (pos.dtype != torch.int32 or tuple(pos.shape) != (batch,)
+            or pos.device != q.device or not pos.is_contiguous()):
+        raise ValueError(f"decode_attention_batch: pos must be a contiguous "
+                         f"int32 ({batch},) on {q.device}, got {pos.dtype} "
+                         f"{tuple(pos.shape)} on {pos.device}")
+    # the per-row checks of K2; pos 0 stands for the device positions,
+    # which the caller keeps in 0..S-1 (reading them would sync)
+    _check(q[0], k4, v4, 0, 0, kv_mul)
+    if not q.is_contiguous():
+        raise ValueError("decode_attention_batch: q must be contiguous")
+
+
+def decode_attention_batch(q: torch.Tensor, k4: torch.Tensor,
+                           v4: torch.Tensor, layer: int, pos: torch.Tensor,
+                           kv_mul: int) -> torch.Tensor:
+    """Attention of B tokens' queries q (B, n_q, hs), row b at position
+    pos[b] (a (B,) int32 tensor on q's device), against keys and values
+    0..pos[b] of cache row layer*B + b of the (L*B, S, n_kv, hs) cache.
+    Returns (B, n_q * hs) f32. CPU tensors take the plain version; CUDA
+    tensors launch K5, built for the cache's dtype, which reads pos on the
+    device."""
+    if q.device.type == "cpu" and k4.device.type == "cpu":
+        return decode_attention_batch_plain(q, k4, v4, layer, pos, kv_mul)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_batch: no kernel for device "
+                         f"{q.device}")
+    _check_batch(q, k4, v4, layer, pos, kv_mul)
+    batch = q.shape[0]
+    _, seq_len, n_kv, hs = k4.shape
+    out = torch.empty((batch, q[0].numel()), dtype=torch.float32,
+                      device=q.device)
+    kernel = (BATCH_KERNEL if k4.dtype == torch.float32
+              else BATCH_KERNEL_KVBF16)
+    kernel.launch(q.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
+                  layer, pos.data_ptr(), batch, seq_len, n_kv, kv_mul, hs,
                   attention_scale(hs),
                   torch.cuda.current_stream(q.device).cuda_stream)
     return out

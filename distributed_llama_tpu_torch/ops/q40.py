@@ -1,4 +1,4 @@
-"""Q40 matmul: four hand-written CUDA kernels and their plain PyTorch
+"""Q40 matmul: five hand-written CUDA kernels and their plain PyTorch
 versions.
 
 ``q40_matmul(w, x)`` computes ``out[t, r] = sum_b d16[r,b] * sum_j
@@ -20,7 +20,14 @@ on ``MULTI_T_MAX``:
   ``csrc/q40_gemm_bf16.cu``, the same sum over bf16-rounded x and
   bf16-rounded dequantized weights with f32 accumulation, on the tensor
   cores. At T <= 8 the flag changes nothing, as the JAX package's T=1 and
-  small-T bodies ignore it.
+  small-T bodies ignore it;
+* 2 <= T <= 8 with ``multi_body="dequant"`` (the JAX package's
+  ``DLLAMA_MULTI_T_BODY=dequant``, ``_kernel_multi_dequant``): K1d,
+  ``csrc/q40_matvec_bf16.cu``, K3b's function at small T on the tensor
+  cores, bound by the packed weight bytes as K1 is.
+
+The body is an argument: the caller reads ``DLLAMA_MULTI_T_BODY`` once
+(``multi_t_body``) and passes it down; the op never reads the environment.
 
 The sources say how each design meets its bound. ``q40_matmul`` takes the
 plain versions only for tensors on the CPU; on a CUDA tensor it launches
@@ -50,7 +57,12 @@ KERNEL_GEMM = CudaKernel("q40_gemm.cu", "q40_gemm",
 KERNEL_GEMM_BF16 = CudaKernel("q40_gemm_bf16.cu", "q40_gemm_bf16",
                               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                               + [ctypes.c_void_p])
-KERNELS = (KERNEL, KERNEL_MULTI, KERNEL_GEMM, KERNEL_GEMM_BF16)
+KERNEL_MULTI_BF16 = CudaKernel("q40_matvec_bf16.cu", "q40_matvec_bf16",
+                               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                               + [ctypes.c_void_p])
+KERNELS = (KERNEL, KERNEL_MULTI, KERNEL_GEMM, KERNEL_GEMM_BF16,
+           KERNEL_MULTI_BF16)
+MULTI_T_BODIES = ("vpu", "dequant")
 
 MULTI_T_MAX = 8  # T above this takes the GEMM (the JAX package's threshold)
 
@@ -60,10 +72,25 @@ _SMEM_PER_BLOCK = 144  # K1's staged bytes per 32-value block of x (36 floats)
 # |kernel - plain| <= KERNEL_RTOL * max|plain|: they differ in summation
 # order only (both f32)
 KERNEL_RTOL = 1e-4
-# the same for K3b against q40_matmul_bf16_plain: both sum the same exact
-# products of bf16 values in f32, but the tensor cores add in another order
-# and in wider steps than cuBLAS's f32 GEMM
+# the same for K3b and K1d against q40_matmul_bf16_plain: both sum the same
+# exact products of bf16 values in f32, but the tensor cores add in another
+# order and in wider steps than cuBLAS's f32 GEMM
 KERNEL_RTOL_BF16 = 1e-3
+
+
+def multi_t_body() -> str:
+    """The 2 <= T <= 8 body the JAX package picks: ``DLLAMA_MULTI_T_BODY``,
+    'vpu' (the default: the exact f32 K1m) or 'dequant' (bf16 products with
+    f32 accumulation: K1d). An unknown value raises, as a typo would
+    otherwise run the default. Read once by the engines, never by
+    ``q40_matmul``."""
+    import os
+
+    mode = os.environ.get("DLLAMA_MULTI_T_BODY") or "vpu"  # '' = unset
+    if mode not in MULTI_T_BODIES:
+        raise ValueError(f"DLLAMA_MULTI_T_BODY={mode!r}: expected "
+                         f"vpu|dequant")
+    return mode
 
 
 def random_q40(d: int, n: int, device, generator: torch.Generator
@@ -93,12 +120,24 @@ def q40_matmul_bf16_plain(w: Q40Weight, x: torch.Tensor) -> torch.Tensor:
     return F.linear(xb, wb.to(torch.float32))
 
 
-def q40_matmul_plain(w: Q40Weight, x: torch.Tensor,
-                     bf16: bool = False) -> torch.Tensor:
+def _bf16_body(t: int, bf16: bool, multi_body: str) -> bool:
+    """Whether T tokens take bf16 products: T > 8 under ``bf16`` (K3b),
+    2 <= T <= 8 under the 'dequant' body (K1d)."""
+    if multi_body not in MULTI_T_BODIES:
+        raise ValueError(f"q40_matmul: multi_body {multi_body!r}, expected "
+                         f"one of {MULTI_T_BODIES}")
+    if t > MULTI_T_MAX:
+        return bf16
+    return t >= 2 and multi_body == "dequant"
+
+
+def q40_matmul_plain(w: Q40Weight, x: torch.Tensor, bf16: bool = False,
+                     multi_body: str = "vpu") -> torch.Tensor:
     """Dequantize, then one f32 product: out[..., d] = W(d, n) @ x[..., n].
-    The plain version of K1, K1m and K3 alike; with ``bf16`` and T > 8,
-    that of K3b (q40_matmul_bf16_plain)."""
-    if bf16 and _tokens(w, x) > MULTI_T_MAX:
+    The plain version of K1, K1m and K3 alike; with ``bf16`` and T > 8, or
+    with ``multi_body="dequant"`` and 2 <= T <= 8, that of K3b and K1d
+    (q40_matmul_bf16_plain)."""
+    if _bf16_body(_tokens(w, x), bf16, multi_body):
         return q40_matmul_bf16_plain(w, x)
     return F.linear(x.to(torch.float32), dequantize_q40_torch(w.qs, w.d16))
 
@@ -127,15 +166,16 @@ def _check(w: Q40Weight, x: torch.Tensor) -> tuple[int, int]:
     return d, nb
 
 
-def q40_matmul(w: Q40Weight, x: torch.Tensor,
-               bf16: bool = False) -> torch.Tensor:
+def q40_matmul(w: Q40Weight, x: torch.Tensor, bf16: bool = False,
+               multi_body: str = "vpu") -> torch.Tensor:
     """out[..., d] = dequant(w)(d, n) @ x[..., n], f32.
 
-    CPU tensors take the plain version; CUDA tensors launch K1 (T = 1), K1m
-    (2 <= T <= 8) or, for T > 8, K3 (f32) or K3b (``bf16``).
+    CPU tensors take the plain version; CUDA tensors launch K1 (T = 1), for
+    2 <= T <= 8 K1m (``multi_body="vpu"``) or K1d ("dequant"), and for
+    T > 8 K3 (f32) or K3b (``bf16``).
     """
     if x.device.type == "cpu" and w.qs.device.type == "cpu":
-        return q40_matmul_plain(w, x, bf16)
+        return q40_matmul_plain(w, x, bf16, multi_body)
     if x.device.type != "cuda":
         raise ValueError(f"q40_matmul: no kernel for device {x.device}")
     d, nb = _check(w, x)
@@ -152,7 +192,9 @@ def q40_matmul(w: Q40Weight, x: torch.Tensor,
                              f"the T=1 kernel's shared-memory staging of x")
         KERNEL.launch(*ptrs, d, nb, stream)
     elif t <= MULTI_T_MAX:
-        KERNEL_MULTI.launch(*ptrs, t, d, nb, stream)
+        kernel = (KERNEL_MULTI_BF16 if _bf16_body(t, bf16, multi_body)
+                  else KERNEL_MULTI)
+        kernel.launch(*ptrs, t, d, nb, stream)
     else:
         (KERNEL_GEMM_BF16 if bf16 else KERNEL_GEMM).launch(*ptrs, t, d, nb,
                                                            stream)

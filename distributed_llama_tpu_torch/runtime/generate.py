@@ -1,13 +1,22 @@
-"""Generation loop + engine (the reference's generate()).
+"""Generation loops + engine (the reference's generate(), and the JAX
+package's generate_fast and generate_batch).
 
 ``Engine`` owns the device params, the KV cache (f32, or bf16 with
 ``cache_dtype``) and the forward behind the reference's ``infer(token, pos)
 -> logits`` shape, plus ``prefill`` (the prompt in T=chunk forward passes;
-with ``fast_prefill``, its T > 8 windows take the bf16 route). ``generate``
-reproduces the reference's observable behaviour: prompt tokens forced one
-at a time (or prefilled in chunks with ``prefill_chunk > 1``, the same
-token stream), sampling after the prompt, stop on BOS, the per-token 🔶
-stats line and the final averages.
+with ``fast_prefill``, its T > 8 windows take the bf16 route) and
+``decode_loop`` (the on-device loop over its cache, runtime/decode.py).
+``generate`` reproduces the reference's observable behaviour: prompt tokens
+forced one at a time (or prefilled in chunks with ``prefill_chunk > 1``,
+the same token stream), sampling after the prompt, stop on BOS, the
+per-token 🔶 stats line and the final averages. ``generate_fast``
+(``--fast``) produces the same stream from the on-device loop, one CUDA
+graph replay per step on the card; ``generate_batch`` (``--prompts-file``)
+decodes B prompts in lockstep through the same loop.
+
+The engines read ``DLLAMA_MULTI_T_BODY`` once (ops/q40.multi_t_body) and
+route every 2 <= T <= 8 product through the body it names (K1d for
+'dequant'), as the JAX package's T <= 8 dispatch does.
 
 Stats: I = device step time (the forward up to the host copy of the
 logits, which waits for the device), T = host time (sampling + loop). A
@@ -26,10 +35,13 @@ import numpy as np
 import torch
 
 from ..io.tokenizer import BOS, Tokenizer
-from ..models.llama import FAST, Llama, init_cache, params_to_device
+from ..models.llama import (FAST, KERNELS, KVCache, Llama, init_cache,
+                            init_cache_batch, params_to_device, with_body)
 from ..models.spec import TransformerSpec
 from ..ops import attention, q40
 from ..ops._build import build
+from ..utils.rng import Xorshift64
+from .decode import DecodeLoop
 from .sampling import Sampler
 
 
@@ -42,7 +54,8 @@ class Engine:
     ``fast_prefill`` sends prefill windows of more than 8 tokens through
     the bf16 route (models/llama.FAST); the T = 1 tail and every decode
     step keep the parity route, as the JAX Engine keeps its parity program
-    for them."""
+    for them. Every 2 <= T <= 8 product takes the small-T body that
+    ``DLLAMA_MULTI_T_BODY`` names, read here once."""
 
     def __init__(self, spec: TransformerSpec, params: dict[str, Any],
                  device="cuda", cache_dtype: torch.dtype = torch.float32,
@@ -50,12 +63,14 @@ class Engine:
         self.spec = spec
         self.device = torch.device(device)
         self.fast_prefill = fast_prefill
+        body = q40.multi_t_body()
         if self.device.type == "cuda":
             # build (or find) the kernels now, not inside the first token
             build([*q40.KERNELS, *attention.KERNELS])
         self.params = params_to_device(params, self.device)
-        self.model = Llama(spec, self.params)
+        self.model = Llama(spec, self.params, with_body(KERNELS, body))
         self.cache = init_cache(spec, self.device, cache_dtype)
+        self._loops: dict = {}
 
     @torch.inference_mode()
     def infer(self, token: int, pos: int) -> np.ndarray:
@@ -92,6 +107,25 @@ class Engine:
                 self.model(self.cache, part, start, logits=False)
 
         run_chunked_prefill(fwd, tokens, pos0, chunk, seq_len)
+
+    def decode_loop(self, temperature: float, topp: float,
+                    graph: bool | None = None) -> DecodeLoop:
+        """The on-device loop over this engine's cache (B = 1, seq_len-long
+        buffers, so every --steps value shares one captured step), made
+        once per sampling config. The step is Llama.forward_batch over the
+        cache viewed as (L, 1, S, n_kv, hs): K1 and K5."""
+        key = (float(temperature), float(topp), graph)
+        if key not in self._loops:
+            cache = KVCache(self.cache.k.unsqueeze(1),
+                            self.cache.v.unsqueeze(1))
+
+            def step(tokens, pos):
+                return self.model.forward_batch(cache, tokens, pos)
+
+            self._loops[key] = DecodeLoop(step, 1, self.spec.seq_len,
+                                          temperature, topp, self.device,
+                                          graph)
+        return self._loops[key]
 
     def reset(self) -> None:
         self.cache.k.zero_()
@@ -151,13 +185,16 @@ def summarize_values(values) -> dict:
 
 
 def _prefill_prefix(engine: Engine, prompt_tokens: list[int], steps: int,
-                    chunk: int, out_tokens: list[int]) -> int | None:
+                    chunk: int, out_tokens: list[int],
+                    emit: Callable[[str], None] | None = None,
+                    tokenizer: Tokenizer | None = None) -> int | None:
     """Prefill the cache for the prompt prefix in T=chunk passes and echo
     the prefilled prompt tokens into ``out_tokens`` (the loop appends forced
     prompt tokens to the output, so the prefilled ones must appear too).
 
-    Returns the decode loop's start position (len(prompt) - 1), or None
-    when prefill does not apply: chunk <= 1, fewer than 2 tokens to
+    ``emit`` receives each prefilled token's piece (generate_fast prints
+    them, as the JAX package does). Returns the decode loop's start
+    position (len(prompt) - 1), or None when prefill does not apply: chunk <= 1, fewer than 2 tokens to
     prefill, a prompt that does not fit in ``steps`` (the per-token path
     keeps the forced-token output exactly), or a BOS inside the prompt
     (only the per-token loop reproduces the stop it causes).
@@ -168,7 +205,13 @@ def _prefill_prefix(engine: Engine, prompt_tokens: list[int], steps: int,
     if BOS in prompt_tokens[1:]:
         return None
     engine.prefill(prompt_tokens[:n_pre], 0, chunk)
-    out_tokens.extend(prompt_tokens[1:n_pre + 1])
+    prev = prompt_tokens[0]
+    for t in prompt_tokens[1:n_pre + 1]:
+        out_tokens.append(t)
+        if emit is not None:  # generate_fast echoes the prefilled pieces
+            emit(tokenizer.decode_piece(prev, t).decode("utf-8",
+                                                        errors="replace"))
+        prev = t
     return n_pre
 
 
@@ -235,3 +278,154 @@ def generate(engine: Engine, tokenizer: Tokenizer, sampler: Sampler,
         print(f"Latency ms/token:    p50 {lat['p50']:.2f}  "
               f"p95 {lat['p95']:.2f}  p99 {lat['p99']:.2f}")
     return out_tokens, stats
+
+
+def _truncate(tokens) -> list[int]:
+    """A row of the loop's output up to its first BOS."""
+    row = []
+    for t in map(int, tokens):
+        if t == BOS:
+            break
+        row.append(t)
+    return row
+
+
+def generate_fast(engine: Engine, tokenizer: Tokenizer, sampler: Sampler,
+                  prompt: str, steps: int, quiet: bool = False,
+                  prefill_chunk: int = 0,
+                  graph: bool | None = None) -> tuple[list[int], GenStats]:
+    """The fused-loop generation path (``--fast``): the stream generate()
+    produces (forced prompt, the reference sampler, stop on BOS), from the
+    on-device loop (Engine.decode_loop: one CUDA graph replay per step on
+    the card). The pieces and one averaged stats line print after the loop
+    returns; there are no per-token 🔶 lines.
+
+    ``prefill_chunk > 1``: the prompt prefix fills the cache in chunked
+    T > 1 passes (Engine.prefill) and the chain starts at the last prompt
+    token. The coins for every possibly sampled step are drawn on a clone
+    of the sampler's stream, and the stream then advances by only the
+    coins the per-step loop would have drawn: after an early BOS, fewer.
+    ``graph=False`` runs the step eagerly on the card (tests)."""
+    spec = engine.spec
+    steps = min(steps, spec.seq_len)
+    prompt_tokens = tokenizer.encode(prompt or "", bos=True, eos=False)
+    if not prompt_tokens:
+        raise ValueError("something is wrong, expected at least 1 prompt token")
+    emit = None if quiet else (lambda s: print(s, end="", flush=True))
+    pre_out: list[int] = []
+    start_pos = 0
+    pre = _prefill_prefix(engine, prompt_tokens, steps, prefill_chunk,
+                          pre_out, emit, tokenizer)
+    if pre is not None:
+        # the chain takes over at the last prompt token, with no forced
+        # tokens left, at position pre
+        start_pos = pre
+        prompt_tokens = prompt_tokens[pre:]
+        steps -= pre
+    prompt_tokens = prompt_tokens[:steps + 1]
+
+    loop = engine.decode_loop(sampler.temperature, sampler.topp, graph)
+    max_steps = spec.seq_len
+    padded = np.full((1, max_steps + 1), -1, dtype=np.int64)
+    padded[0, :len(prompt_tokens)] = prompt_tokens
+    coins = np.zeros((1, max_steps), dtype=np.float32)
+    n_sampled = steps - (len(prompt_tokens) - 1)
+    if n_sampled > 0 and sampler.temperature != 0.0:
+        coins[0, len(prompt_tokens) - 1:steps] = \
+            sampler.rng.clone().f32_array(n_sampled)
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        toks, _ = loop.run(padded, [prompt_tokens[0]], coins, [start_pos],
+                           steps)
+    total_ms = (time.perf_counter() - t0) * 1000
+
+    chain = _truncate(toks[0][:steps])
+    if emit is not None:
+        prev = prompt_tokens[0]
+        for t in chain:
+            emit(tokenizer.decode_piece(prev, t).decode("utf-8",
+                                                        errors="replace"))
+            prev = t
+    out_tokens = pre_out + chain
+    # advance the real stream by the coins the per-step loop would have
+    # drawn: one per sampled step, the one that produced a stopping BOS too
+    early_bos = len(chain) < steps
+    if n_sampled > 0 and sampler.temperature != 0.0:
+        last_iter = len(chain) if early_bos else steps - 1
+        consumed = max(0, last_iter - (len(prompt_tokens) - 1) + 1)
+        if consumed:
+            sampler.rng.f32_array(min(consumed, n_sampled))
+    stats = GenStats(tokens=len(chain), total_ms=total_ms,
+                     infer_ms=total_ms)
+    # the JAX while_loop stops on a produced BOS: the steps it ran are the
+    # generated tokens and the stopping step
+    executed = len(chain) + 1 if early_bos else steps
+    if not quiet:
+        print(f"\nGenerated tokens:    {stats.tokens}")
+        print(f"Avg generation time: {total_ms / max(1, len(chain)):.2f} ms "
+              f"(fused loop, {executed} device steps)")
+    return out_tokens, stats
+
+
+def generate_batch(spec: TransformerSpec, params: dict[str, Any],
+                   tokenizer: Tokenizer, prompts: list[str], steps: int,
+                   temperature: float, topp: float, seed: int,
+                   cache_dtype: torch.dtype = torch.float32, device="cuda",
+                   quiet: bool = False, graph: bool | None = None
+                   ) -> tuple[list[list[int]], GenStats]:
+    """Generate for B prompts in one lockstep batch (``--prompts-file``).
+
+    All rows decode on one clock through Llama.forward_batch (the T = B
+    matmuls, K5 attention over the (L, B, S, n_kv, hs) cache) in the
+    on-device loop; ragged prompts right-pad and start sampling when their
+    own prompt runs out. Row b samples from its own xorshift stream seeded
+    ``seed + b``. Rows stop at BOS. The small-T body is read once here
+    (``DLLAMA_MULTI_T_BODY``): for 2 <= B <= 8 'dequant' takes K1d.
+    ``graph=False`` runs the step eagerly on the card (tests)."""
+    device = torch.device(device)
+    batch = len(prompts)
+    steps = min(steps, spec.seq_len)
+    body = q40.multi_t_body()
+    toks_per_row = [tokenizer.encode(p or "", bos=True, eos=False)
+                    for p in prompts]
+    padded = np.full((batch, steps + 1), -1, dtype=np.int64)
+    coins = np.zeros((batch, steps), dtype=np.float32)
+    for b, pt in enumerate(toks_per_row):
+        pt = pt[:steps + 1]
+        padded[b, :len(pt)] = pt
+        n_sampled = steps - (len(pt) - 1)
+        if n_sampled > 0 and temperature != 0.0:
+            coins[b, len(pt) - 1:] = Xorshift64(seed + b).f32_array(n_sampled)
+
+    if device.type == "cuda":
+        build([*q40.KERNELS, *attention.KERNELS])
+    model = Llama(spec, params_to_device(params, device),
+                  with_body(KERNELS, body))
+    cache = init_cache_batch(spec, batch, device, cache_dtype)
+
+    def step(tokens, pos):
+        return model.forward_batch(cache, tokens, pos)
+
+    loop = DecodeLoop(step, batch, steps, temperature, topp, device, graph)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        toks, _ = loop.run(padded, [p[0] for p in toks_per_row], coins,
+                           np.zeros(batch, np.int32), steps)
+    total_ms = (time.perf_counter() - t0) * 1000
+
+    outs = [_truncate(row) for row in toks]
+    if not quiet:
+        for b, row in enumerate(outs):
+            prev, text = toks_per_row[b][0], b""
+            for t in row:
+                text += tokenizer.decode_piece(prev, t)
+                prev = t
+            print(f"[{b}] {text.decode('utf-8', errors='replace')!r}")
+    n_tokens = sum(len(r) for r in outs)
+    stats = GenStats(tokens=n_tokens, total_ms=total_ms, infer_ms=total_ms)
+    if not quiet:
+        print(f"Generated tokens:    {n_tokens} across {batch} rows")
+        print(f"Avg generation time: {total_ms / max(1, batch * steps):.2f} "
+              f"ms/token ({batch} rows x {steps} lockstep steps)")
+    return outs, stats

@@ -34,6 +34,24 @@ class Xorshift64:
     def __init__(self, seed: int):
         self.state = seed & _MASK64
 
+    def clone(self) -> "Xorshift64":
+        """A copy at the current stream position: generate_fast pre-draws
+        its coins on a clone, then advances this stream by only the coins
+        the per-step loop would have consumed."""
+        c = Xorshift64(0)
+        c.state = self.state
+        return c
+
     def f32(self) -> float:
         self.state, f = random_f32(self.state)
         return f
+
+    def f32_array(self, n: int) -> np.ndarray:
+        """The next n coins (the same sequence as n f32() calls): the state
+        recurrence in Python ints, the float conversion vectorised."""
+        out = np.empty(n, dtype=np.uint32)
+        s = self.state
+        for i in range(n):
+            s, out[i] = random_u32(s)
+        self.state = s
+        return (out >> np.uint32(8)).astype(np.float32) / np.float32(16777216.0)

@@ -6,6 +6,9 @@ top-p 0.9, the numpy sampler on both sides), token by token and with
 Unported flags exit 2 before the model loads; the CUDA default fails
 without a GPU."""
 
+import ast
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -128,14 +131,25 @@ UNPORTED = [["--tp", "2"], ["--sp", "2"], ["--buffer-float-type", "f16"],
             ["--slots", "4"], ["--kv-pages", "64"], ["--dispatch-tokens", "8"],
             ["--block-steps", "4"], ["--kv-host-pages", "8"],
             ["--stream-slices"],
-            ["--fast"], ["--continuous"], ["--metrics"],
+            # --fast is ported: a checkpoint flag beside it still stops
+            ["--fast", "--save-state", "s.ckpt"], ["--continuous"],
+            ["--metrics"],
             ["--log-json"], ["--save-state", "s.ckpt"],
-            ["--resume-state", "s.ckpt"], ["--prompts-file", "p.txt"],
+            ["--resume-state", "s.ckpt"],
+            # --prompts-file is ported; --continuous is not, and stops the
+            # run before the (absent) prompts file is opened
+            ["--prompts-file", "p.txt", "--continuous"],
             ["--kv-page-size", "16"], ["--spec-k", "4"],
             ["--kv-quant", "q8"], ["--profile", "trace"],
             ["--tp-scheme", "fused"], ["--workers", "10.0.0.2:9998"],
             ["--nthreads", "4"], ["--coordinator", "h:1"],
             ["--model-from-root", "h:1"]]
+
+
+def _unported_flag(extra):
+    """The flag the error must name: the first one that is not ported."""
+    ported = ("--fast", "--prompts-file")
+    return next(a for a in extra if a.startswith("--") and a not in ported)
 
 
 @pytest.mark.parametrize("extra", UNPORTED, ids=lambda a: a[0])
@@ -149,7 +163,7 @@ def test_unported_flags_exit_2_before_loading(extra, capsys, tmp_path):
                "cpu", *extra])
     assert rc == 2
     err = capsys.readouterr().err
-    assert "not yet ported" in err and extra[0] in err
+    assert "not yet ported" in err and _unported_flag(extra) in err
 
 
 @pytest.mark.parametrize("chunk", [[], ["--prefill-chunk", "1"]],
@@ -305,3 +319,128 @@ def test_cli_bf16_streams_match_reference(model_files, capsys, mode, opts):
     got = _lines(capsys.readouterr().out)
     assert len(got) > 4
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# --fast and --prompts-file
+# ---------------------------------------------------------------------------
+
+def _fast_text(out):
+    """The pieces line --fast prints before its stats."""
+    lines = out.splitlines()
+    i = next(i for i, ln in enumerate(lines)
+             if ln.startswith("Generated tokens:"))
+    return lines[i - 1]
+
+
+FAST_OPTIONS = {"plain": [], "chunk": ["--prefill-chunk", "4"],
+                "fast-prefill": ["--prefill-chunk", "12", "--fast-prefill",
+                                 "--kv-cache-dtype", "bf16"],
+                "q80": ["--buffer-float-type", "q80"]}
+
+
+@pytest.mark.parametrize("mode", sorted(SAMPLING))
+@pytest.mark.parametrize("opts", sorted(FAST_OPTIONS))
+def test_cli_fast_matches_reference(model_files, capsys, mode, opts):
+    """``inference --fast`` on the CPU prints the JAX CLI's text and device
+    step count with the same flags, greedy and seeded, alone and with
+    --prefill-chunk, --fast-prefill over a bf16 cache, and q80 buffers; its
+    text is the per-step run's pieces."""
+    from distributed_llama_tpu.frontend.cli import main as ref_main
+    from distributed_llama_tpu_torch.frontend.cli import main
+
+    model, tokp = model_files
+    temperature, topp, seed = SAMPLING[mode]
+    base = ["inference", "--model", model, "--tokenizer", tokp, "--prompt",
+            FAST_PROMPT, "--steps", "24", "--temperature", str(temperature),
+            "--topp", str(topp), "--seed", str(seed), *FAST_OPTIONS[opts]]
+    assert ref_main(base + ["--tp", "1", "--fast"]) == 0
+    ref_out = capsys.readouterr().out
+    assert main(base + ["--device", "cpu", "--fast"]) == 0
+    out = capsys.readouterr().out
+    assert _fast_text(out) == _fast_text(ref_out)
+    steps = re.findall(r"\(fused loop, (\d+) device steps\)", out)
+    assert steps and steps == re.findall(
+        r"\(fused loop, (\d+) device steps\)", ref_out)
+    assert "🔶" not in out
+    assert main(base + ["--device", "cpu"]) == 0
+    stepwise = "".join(ast.literal_eval(p)
+                       for p in _lines(capsys.readouterr().out))
+    assert _fast_text(out).endswith(stepwise)
+
+
+@pytest.fixture
+def prompts_file(tmp_path):
+    path = tmp_path / "prompts.txt"
+    path.write_text("hi\nhi hi hi\n\n hi hi\nhi hi hi hi hi hi hi\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("mode", sorted(SAMPLING))
+@pytest.mark.parametrize("cache", ["f32", "bf16"])
+def test_cli_prompts_file_matches_reference(model_files, prompts_file,
+                                            capsys, mode, cache):
+    """``inference --prompts-file`` on the CPU: the [b] row lines and the
+    token count equal the JAX CLI's (blank lines skipped, 4 rows)."""
+    from distributed_llama_tpu.frontend.cli import main as ref_main
+    from distributed_llama_tpu_torch.frontend.cli import main
+
+    model, tokp = model_files
+    temperature, topp, seed = SAMPLING[mode]
+    base = ["inference", "--model", model, "--tokenizer", tokp,
+            "--prompts-file", prompts_file, "--steps", "16",
+            "--temperature", str(temperature), "--topp", str(topp),
+            "--seed", str(seed), "--kv-cache-dtype", cache]
+
+    def rows(out):
+        return [ln for ln in out.splitlines()
+                if re.match(r"\[\d\] ", ln) or "across" in ln]
+
+    assert ref_main(base + ["--tp", "1"]) == 0
+    want = rows(capsys.readouterr().out)
+    assert main(base + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert rows(out) == want and len(want) == 5
+    assert "(4 rows x 16 lockstep steps)" in out
+
+
+@pytest.mark.parametrize("flags,note", [
+    (["--metrics"], "--metrics has nothing to collect"),
+    (["--spec-k", "2", "--kv-page-size", "8"], "--spec-k only applies"),
+    (["--kv-page-size", "8"], "--kv-page-size/--kv-quant only apply")])
+def test_cli_prompts_file_notes_continuous_only_flags(model_files,
+                                                      prompts_file, capsys,
+                                                      flags, note):
+    """Flags of the continuous engine print the JAX CLI's note on the
+    lockstep path, and the batch runs."""
+    from distributed_llama_tpu_torch.frontend.cli import main
+
+    model, tokp = model_files
+    assert main(["inference", "--model", model, "--tokenizer", tokp,
+                 "--prompts-file", prompts_file, "--steps", "4",
+                 "--temperature", "0", "--device", "cpu", *flags]) == 0
+    res = capsys.readouterr()
+    assert note in res.err and "across 4 rows" in res.out
+
+
+def test_cli_prompts_file_exit_2_paths(capsys, tmp_path):
+    """Before any load (the model path does not exist): an empty prompts
+    file, --prefill-chunk on the lockstep path and --spec-k without
+    --kv-page-size exit 2 with the JAX CLI's messages."""
+    from distributed_llama_tpu_torch.frontend.cli import main
+
+    empty = tmp_path / "empty.txt"
+    empty.write_text("\n  \n")
+    base = ["inference", "--model", str(tmp_path / "absent.bin"),
+            "--tokenizer", str(tmp_path / "absent.tok"), "--device", "cpu",
+            "--prompts-file", str(empty)]
+    assert main(base) == 2
+    assert capsys.readouterr().err.strip() == "prompts file is empty"
+    assert main(base + ["--prefill-chunk", "4"]) == 2
+    assert capsys.readouterr().err.strip() == (
+        "--prefill-chunk with --prompts-file needs --continuous (lockstep "
+        "rows share the position clock)")
+    assert main(base + ["--spec-k", "2"]) == 2
+    assert capsys.readouterr().err.strip() == (
+        "--spec-k needs the paged KV cache: add --kv-page-size P (with "
+        "--continuous)")

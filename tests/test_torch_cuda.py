@@ -6,8 +6,12 @@ of shared memory (70B's w2), head sizes below 128, and every kv_mul the
 attention kernels are built for; then the forward and Engine.prefill
 through the kernels, with their launch counts; the same for the bf16
 kernels (K3b, K4b) and the bf16-cache builds of K2, K4 and K4b, and the
-``--fast-prefill`` Engine over a bf16 cache. Every test takes the ``gen``
-fixture, which skips it without a GPU; on one, run
+``--fast-prefill`` Engine over a bf16 cache; then the batched decode
+attention (K5, both caches; at B = 1 bit for bit K2) and the small-T
+bf16-product Q40 body (K1d), and the on-device loops: a step captured in
+a CUDA graph and replayed gives the tokens of the same step run eagerly,
+with exact launch counts. Every test takes the ``gen`` fixture, which
+skips it without a GPU; on one, run
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
@@ -15,6 +19,7 @@ fixture, which skips it without a GPU; on one, run
 the port do not need).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -60,7 +65,8 @@ def test_q40_small_t_kernel_matches_plain(gen, d, n, t):
     got = q40.q40_matmul(w, x)
     torch.cuda.synchronize()
     assert [k.launches for k in q40.KERNELS] == [counts[0], counts[1] + 1,
-                                                 counts[2], counts[3]]
+                                                 counts[2], counts[3],
+                                                 counts[4]]
     want = q40.q40_matmul_plain(w, x)
     assert got.shape == want.shape == (t, d)
     err = (got - want).abs().max().item()
@@ -77,7 +83,8 @@ def test_q40_gemm_kernel_matches_plain(gen, d, n, t):
     got = q40.q40_matmul(w, x)
     torch.cuda.synchronize()
     assert [k.launches for k in q40.KERNELS] == [counts[0], counts[1],
-                                                 counts[2] + 1, counts[3]]
+                                                 counts[2] + 1, counts[3],
+                                                 counts[4]]
     want = q40.q40_matmul_plain(w, x)
     assert got.shape == want.shape == (t, d)
     err = (got - want).abs().max().item()
@@ -197,8 +204,8 @@ def test_forward_kernels_match_plain_and_count_launches(gen):
             a = kern(ck, toks, pos)
             got = [k.launches for k in (*q40.KERNELS, *attention.KERNELS)]
             assert [g - c for g, c in zip(got, counts)] == [
-                0, 4 * spec.n_layers + 1, 0, 0, 0, 0, spec.n_layers, 0, 0,
-                0]
+                0, 4 * spec.n_layers + 1, 0, 0, 0,
+                0, 0, spec.n_layers, 0, 0, 0, 0, 0]
             b = plain(cp, toks, pos)
             err = (a - b).abs().max().item()
             assert err <= llama.LOGIT_RTOL * b.abs().max().item(), (pos, err)
@@ -221,7 +228,8 @@ def test_engine_prefill_through_the_gemm_counts_launches(gen):
     kern.prefill(tokens, 0, 16)
     got = [k.launches for k in (*q40.KERNELS, *attention.KERNELS)]
     assert [g - c for g, c in zip(got, counts)] == [
-        0, 0, 3 * 4 * spec.n_layers, 0, 0, 0, 3 * spec.n_layers, 0, 0, 0]
+        0, 0, 3 * 4 * spec.n_layers, 0, 0,
+        0, 0, 3 * spec.n_layers, 0, 0, 0, 0, 0]
     with torch.inference_mode():
         run_chunked_prefill(
             lambda part, start: plain(cp, part, start, logits=False),
@@ -246,7 +254,8 @@ def test_q40_gemm_bf16_kernel_matches_plain(gen, d, n, t):
     counts = [k.launches for k in q40.KERNELS]
     got = q40.q40_matmul(w, x, bf16=True)
     torch.cuda.synchronize()
-    assert [k.launches for k in q40.KERNELS] == [*counts[:3], counts[3] + 1]
+    assert [k.launches for k in q40.KERNELS] == [*counts[:3], counts[3] + 1,
+                                                 counts[4]]
     want = q40.q40_matmul_bf16_plain(w, x)
     assert got.shape == want.shape == (t, d)
     err = (got - want).abs().max().item()
@@ -275,6 +284,7 @@ def test_q40_bf16_flag_at_small_t_takes_the_f32_kernels(gen, t):
     counts = [k.launches for k in q40.KERNELS]
     got = q40.q40_matmul(w, x, bf16=True)
     assert q40.KERNEL_GEMM_BF16.launches == counts[3]
+    assert q40.KERNEL_MULTI_BF16.launches == counts[4]  # not K1d either
     assert torch.equal(got, q40.q40_matmul(w, x))
 
 
@@ -383,7 +393,7 @@ def test_engine_fast_prefill_counts_launches(gen):
     got = [k.launches for k in kernels]
     L = spec.n_layers
     assert [g - c for g, c in zip(got, counts)] == [
-        0, 0, 0, 3 * 4 * L, 0, 0, 0, 0, 0, 3 * L]
+        0, 0, 0, 3 * 4 * L, 0, 0, 0, 0, 0, 0, 3 * L, 0, 0]
     with torch.inference_mode():
         run_chunked_prefill(
             lambda part, start: plain(cp, part, start, logits=False),
@@ -396,6 +406,243 @@ def test_engine_fast_prefill_counts_launches(gen):
     a = kern.infer(7, 40)
     got = [k.launches for k in kernels]
     assert [g - c for g, c in zip(got, counts)] == [
-        4 * L + 1, 0, 0, 0, 0, L, 0, 0, 0, 0]
+        4 * L + 1, 0, 0, 0, 0, 0, L, 0, 0, 0, 0, 0, 0]
     b = b.cpu().numpy()
     assert abs(a - b).max() <= llama.FAST_RTOL * abs(b).max()
+
+
+# ---------------------------------------------------------------------------
+# the batch slice: K5, K1d and the captured loops
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_mul", [1, 2, 4, 8])
+@pytest.mark.parametrize("hs", [64, 128])
+@pytest.mark.parametrize("batch,pos", [(1, [0]), (3, [5, 5, 5]),
+                                       (3, [0, 39, 17]),
+                                       (8, [1, 2, 3, 4, 39, 38, 0, 20])])
+def test_batch_attention_kernel_matches_plain(gen, cache, kv_mul, hs, batch,
+                                              pos):
+    L, S = 2, 40
+    k4 = torch.randn((L * batch, S, 2, hs), device="cuda",
+                     generator=gen).to(cache)
+    v4 = torch.randn((L * batch, S, 2, hs), device="cuda",
+                     generator=gen).to(cache)
+    q = torch.randn((batch, 2 * kv_mul, hs), device="cuda", generator=gen)
+    pv = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    kernel = (attention.BATCH_KERNEL if cache == torch.float32
+              else attention.BATCH_KERNEL_KVBF16)
+    for layer in range(L):
+        before = kernel.launches
+        got = attention.decode_attention_batch(q, k4, v4, layer, pv, kv_mul)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        want = attention.decode_attention_batch_plain(q, k4, v4, layer, pv,
+                                                      kv_mul)
+        assert got.shape == want.shape == (batch, 2 * kv_mul * hs)
+        assert (got - want).abs().max().item() <= attention.KERNEL_ATOL
+
+
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_mul", [1, 8])
+@pytest.mark.parametrize("pos", [0, 17, 39])
+def test_batch_attention_kernel_at_b1_is_k2_bit_for_bit(gen, cache, kv_mul,
+                                                        pos):
+    """K5 at B = 1 over an (L, S, n_kv, hs) cache computes K2's sums in
+    K2's order: the --fast step's attention equals the host loop's."""
+    k_all = torch.randn((3, 40, 2, 128), device="cuda",
+                        generator=gen).to(cache)
+    v_all = torch.randn((3, 40, 2, 128), device="cuda",
+                        generator=gen).to(cache)
+    q = torch.randn((1, 2 * kv_mul, 128), device="cuda", generator=gen)
+    pv = torch.tensor([pos], dtype=torch.int32, device="cuda")
+    for layer in range(3):
+        a = attention.decode_attention_batch(q, k_all, v_all, layer, pv,
+                                             kv_mul)
+        b = attention.decode_attention(q[0], k_all, v_all, layer, pos,
+                                       kv_mul)
+        assert torch.equal(a, b)
+
+
+def test_batch_attention_kernel_raises_instead_of_falling_back(gen):
+    k4 = torch.randn((4, 16, 2, 64), device="cuda", generator=gen)
+    q = torch.randn((2, 2, 64), device="cuda", generator=gen)
+    pv = torch.tensor([3, 4], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="int32"):
+        attention.decode_attention_batch(q, k4, k4, 0, pv.long(), 1)
+    with pytest.raises(ValueError, match="int32"):
+        attention.decode_attention_batch(q, k4, k4, 0, pv.cpu(), 1)
+    with pytest.raises(ValueError, match="out of range"):
+        attention.decode_attention_batch(q, k4, k4, 2, pv, 1)
+    with pytest.raises(ValueError, match="with B = 3"):
+        attention.decode_attention_batch(
+            torch.randn((3, 2, 64), device="cuda"), k4, k4, 0,
+            torch.zeros(3, dtype=torch.int32, device="cuda"), 1)
+    with pytest.raises(ValueError, match="on cpu"):
+        attention.decode_attention_batch(q, k4.cpu(), k4.cpu(), 0, pv, 1)
+
+
+@pytest.mark.parametrize("d,n,t", [(1, 32, 2), (7, 64, 3), (9, 4096, 4),
+                                   (33, 32 * 129, 5), (100, 4096, 6),
+                                   (64, 11008, 8), (5, 28672, 7),
+                                   (40, 32 * 3, 8)])
+def test_q40_dequant_body_kernel_matches_plain(gen, d, n, t):
+    w = q40.random_q40(d, n, "cuda", gen)
+    x = torch.randn((t, n), device="cuda", generator=gen)
+    counts = [k.launches for k in q40.KERNELS]
+    got = q40.q40_matmul(w, x, multi_body="dequant")
+    torch.cuda.synchronize()
+    assert [k.launches for k in q40.KERNELS] == [*counts[:4], counts[4] + 1]
+    want = q40.q40_matmul_bf16_plain(w, x)
+    assert got.shape == want.shape == (t, d)
+    err = (got - want).abs().max().item()
+    assert err <= q40.KERNEL_RTOL_BF16 * want.abs().max().item(), err
+
+
+def test_q40_dequant_body_reads_scales_at_an_odd_offset(gen):
+    """The f16 scales of a layer view may start at any 2-byte offset."""
+    w = q40.random_q40(33, 32 * 129, "cuda", gen)
+    raw = torch.empty(w.d16.numel() + 1, dtype=torch.float16, device="cuda")
+    raw[1:] = w.d16.reshape(-1)
+    odd = Q40Weight(w.qs, raw[1:].view(w.d16.shape))
+    x = torch.randn((6, 32 * 129), device="cuda", generator=gen)
+    got = q40.q40_matmul(odd, x, multi_body="dequant")
+    want = q40.q40_matmul_bf16_plain(w, x)
+    err = (got - want).abs().max().item()
+    assert err <= q40.KERNEL_RTOL_BF16 * want.abs().max().item(), err
+
+
+def test_q40_dequant_body_raises_instead_of_falling_back(gen):
+    w = q40.random_q40(16, 64, "cuda", gen)
+    x = torch.randn((4 * 64 + 1,), device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="x must be 16-byte aligned"):
+        q40.q40_matmul(w, x[1:].view(4, 64), multi_body="dequant")
+    with pytest.raises(ValueError, match="multi_body"):
+        q40.q40_matmul(w, torch.randn((4, 64), device="cuda"),
+                       multi_body="mxu")
+    with pytest.raises(ValueError, match="on cpu"):
+        q40.q40_matmul(Q40Weight(w.qs.cpu(), w.d16),
+                       torch.randn((4, 64), device="cuda"),
+                       multi_body="dequant")
+
+
+def _small_spec(seq_len=48):
+    return TransformerSpec(dim=256, hidden_dim=704, n_layers=2, n_heads=4,
+                           n_kv_heads=2, vocab_size=300, seq_len=seq_len,
+                           weights_float_type=FloatType.Q40)
+
+
+def _deltas(before):
+    return {k.symbol: k.launches - n for k, n in before.items()
+            if k.launches != n}
+
+
+@pytest.mark.parametrize("body", ["vpu", "dequant"])
+def test_forward_batch_kernels_match_plain_and_count_launches(gen, body):
+    spec = _small_spec()
+    params = llama.params_to_device(synth_params(spec, q40=True, seed=5),
+                                    "cuda")
+    route = llama.with_body(llama.KERNELS, body)
+    kern = llama.Llama(spec, params, route)
+    plain = llama.Llama(spec, params, llama.with_body(llama.PLAIN, body))
+    B, L = 3, spec.n_layers
+    ck = llama.init_cache_batch(spec, B, "cuda")
+    cp = llama.init_cache_batch(spec, B, "cuda")
+    rtol = llama.LOGIT_RTOL if body == "vpu" else llama.FAST_RTOL
+    small = "q40_matvec_multi" if body == "vpu" else "q40_matvec_bf16"
+    with torch.inference_mode():
+        for step, pos in enumerate(([0, 0, 0], [1, 1, 1], [2, 9, 40])):
+            tokens = torch.tensor([1 + step, 40, 299], device="cuda")
+            pv = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            before = {k: k.launches for k in (*q40.KERNELS,
+                                              *attention.KERNELS)}
+            a = kern.forward_batch(ck, tokens, pv)
+            assert _deltas(before) == {small: 4 * L + 1,
+                                       "decode_attention_batch": L}
+            b = plain.forward_batch(cp, tokens, pv)
+            assert torch.isfinite(a).all()
+            err = (a - b).abs().max().item()
+            assert err <= rtol * b.abs().max().item(), (step, err)
+
+
+def _loop_streams(gen, batch, temperature, topp, body="vpu", steps=14):
+    """The batch loop's tokens with the step captured and replayed, and
+    eagerly, over the same model and prompts, with each run's launches."""
+    from distributed_llama_tpu_torch.runtime.decode import DecodeLoop
+
+    spec = _small_spec()
+    params = llama.params_to_device(synth_params(spec, q40=True, seed=5,
+                                                 scale=0.3), "cuda")
+    model = llama.Llama(spec, params, llama.with_body(llama.KERNELS, body))
+    rng = np.random.default_rng(batch)
+    prompts = np.full((batch, steps + 1), -1)
+    for b in range(batch):
+        n = 1 + b % 4
+        prompts[b, :n] = rng.integers(2, spec.vocab_size, n)
+    coins = rng.random((batch, steps)).astype(np.float32)
+    results = {}
+    for graph in (True, False):
+        cache = llama.init_cache_batch(spec, batch, "cuda")
+        loop = DecodeLoop(lambda t, p: model.forward_batch(cache, t, p),
+                          batch, steps, temperature, topp, "cuda", graph)
+        before = {k: k.launches for k in (*q40.KERNELS, *attention.KERNELS)}
+        with torch.inference_mode():
+            out, ran = loop.run(prompts, prompts[:, 0], coins,
+                                np.zeros(batch, np.int32), steps)
+        torch.cuda.synchronize()
+        results[graph] = (out, ran, _deltas(before), loop)
+    return spec, results
+
+
+@pytest.mark.parametrize("batch,body", [(1, "vpu"), (3, "vpu"),
+                                        (3, "dequant"), (9, "vpu")])
+@pytest.mark.parametrize("temperature,topp", [(0.0, 0.9), (0.8, 0.9),
+                                              (0.9, 0.0)])
+def test_captured_batch_loop_matches_eager_with_exact_launches(
+        gen, batch, body, temperature, topp):
+    spec, res = _loop_streams(gen, batch, temperature, topp, body)
+    (g_out, g_ran, g_counts, loop), (e_out, e_ran, e_counts, _) = \
+        res[True], res[False]
+    assert loop.replays == g_ran - 1  # the first step is the warm-up
+    assert g_ran == e_ran and np.array_equal(g_out, e_out)
+    L = spec.n_layers
+    small = {1: "q40_matvec", 9: "q40_gemm"}.get(
+        batch, "q40_matvec_multi" if body == "vpu" else "q40_matvec_bf16")
+    want = {small: (4 * L + 1) * g_ran, "decode_attention_batch": L * g_ran}
+    assert g_counts == e_counts == want
+
+
+def test_captured_fast_loop_matches_the_host_loop(gen):
+    """Greedy generate_fast with the step captured, and eagerly, against
+    generate on the same engine: equal streams. The captured run launches
+    K1 and K5 (never K2) once per step run and layer: the warm-up step and
+    every replay."""
+    from distributed_llama_tpu_torch.runtime.generate import (generate,
+                                                              generate_fast)
+    from distributed_llama_tpu_torch.runtime.sampling import Sampler
+
+    class Tok:  # ids as pieces: the prompt is 1, 9, 40
+        def encode(self, text, bos=True, eos=False):
+            return [1, 9, 40]
+
+        def decode_piece(self, prev, tok):
+            return b"."
+
+    spec = _small_spec()
+    engine = Engine(spec, synth_params(spec, q40=True, seed=5, scale=0.3),
+                    "cuda")
+    streams, launches = {}, {}
+    for label, run, kw in (("host", generate, {}),
+                           ("graph", generate_fast, {"graph": True}),
+                           ("eager", generate_fast, {"graph": False})):
+        engine.reset()
+        before = {k: k.launches for k in (*q40.KERNELS, *attention.KERNELS)}
+        streams[label], _ = run(engine, Tok(), Sampler(300, 0.0, 0.9, 3),
+                                "", 30, quiet=True, **kw)
+        launches[label] = _deltas(before)
+    assert streams["graph"] == streams["eager"] == streams["host"]
+    L = spec.n_layers
+    ran = engine.decode_loop(0.0, 0.9, True).replays + 1
+    assert launches["graph"] == {"q40_matvec": (4 * L + 1) * ran,
+                                 "decode_attention_batch": L * ran}
+    assert set(launches["host"]) == {"q40_matvec", "decode_attention"}
