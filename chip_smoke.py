@@ -24,12 +24,15 @@ no result line):
    8 on the four layer matrices, and the batched decode attention (K5) at
    7B and GQA shapes for B = 1 and 8 at a shared pos 63 and 2047 and at
    ragged positions, over an f32 and a bf16 cache (at B = 1 bit for bit
-   K2). Max error against the stated tolerance; kernel, plain and library
+   K2); the paged decode attention over f32 and bf16 pages (K6) and Q8
+   pages (K7) at the same shapes with pages of 16 in a permuted pool, t_len
+   1, 4 and 8 (at t_len 1 K6 gives K5's bits over the same values, and K7
+   gives K6's bits over the dequantized pool). Max error against the stated tolerance; kernel, plain and library
    times (CUDA events, median of 25 launches, L2 flushed before each); the
    bound (bf16 rate for K3b, K4b and K1d) and what bounds it.
 3. End to end: a 7B-shaped Q40 model with random codes (seeded) and a
    32000-piece tokenizer are written to build/smoke/, then the port's CLI
-   runs ``inference`` in-process ten times, every kernel's launch count
+   runs ``inference`` in-process fourteen times, every kernel's launch count
    reset just before and read just after each run:
    a. 64 steps token by token, greedy: K1 4*L+1 = 129 and K2 L = 32
       launches per step;
@@ -56,7 +59,19 @@ no result line):
       token for token, through K1 and K5 at B = 1 (K2 0);
    j. ``--fast --prefill-chunk 128`` on the 512-token prompt: K3 and K4
       for the prompt, then 65 chained steps (K1, K5) whose text ends with
-      run b's.
+      run b's;
+   k. ``--prompts-file --continuous --slots 8 --kv-page-size 16
+      --prefill-chunk 32 --steps 128`` with 12 prompts sharing a 64-token
+      prefix: every device step a graph replay of K6 32 and K1m 129
+      launches, K3 and K4 per admission chunk, K5 0; prefix hits > 0 and a
+      clean page audit;
+   l. run k without the page flags (contiguous, K5): its 12 streams equal
+      run k's;
+   m. run k with ``--kv-cache-dtype bf16 --block-steps 16``: the bf16-page
+      K6 through 16-step chains;
+   n. run k with ``--kv-quant q8 --block-steps 16 --temperature 0.8 --seed
+      7 --kv-pages 32``: K7, an oversubscribed pool that pauses or requeues
+      rows and fails none, ~3.76x fewer bytes per page than run k.
 4. Kernels against plain at full width: the first 4 positions of the same
    model through the forward with the kernels and with the plain versions;
    then 8 more kernel steps timed, and 8 under torch.profiler for the
@@ -81,7 +96,11 @@ no result line):
    card (8 decode steps; prefill at chunk 4 through K1m, chunk 16 through
    K3 and chunk 16 on the fast route over both caches; generate_batch of 3
    prompts and generate_fast, both captured) and is held against the
-   plain path on the CPU.
+   plain path on the CPU. Then continuous batching at full width: 16
+   requests through 8 slots on a contiguous cache and on f32, bf16 and Q8
+   pages, in turns (tokens/s, ms per device step, avg_active, device busy
+   share, cache bytes), the f32-page streams equal to the contiguous
+   ones.
 5. The ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -125,6 +144,17 @@ BATCH = 8            # runs g and h: 8 prompts in one lockstep batch
 # runs g and h: prompts of 4, 9, ..., 40 tokens (BOS + that many - 1 " hi")
 BATCH_PROMPTS = [" ".join(["hi"] * (n - 1)) for n in
                  (4, 9, 14, 19, 24, 29, 34, 40)]
+PAGE = 16            # runs k-n: the KV page size
+CONT_SLOTS = 8       # runs k-n: continuous-batching slots
+CONT_CHUNK = 32      # runs k-n: the admission-prefill chunk
+CONT_STEPS = 128     # runs k-n: positions per request
+# runs k-n: 12 prompts sharing a 64-token prefix (BOS + 63 " hi" pieces),
+# then " " and 3..39 copies of one letter (byte pieces), 4..40 tokens of
+# their own; the throughput phase cycles them to 16 requests
+_LETTERS = "abcdefgjklmnopqrstuvwxyz"
+CONT_PROMPTS = [" ".join(["hi"] * 63) + " " + _LETTERS[j] * (n - 1)
+                for j, n in enumerate((4, 7, 10, 14, 17, 20, 24, 27, 30,
+                                       34, 37, 40))]
 
 
 _T0 = time.perf_counter()
@@ -198,10 +228,10 @@ def phase_card(torch):
         f"{peaks[0] / 1e12:.2f} TB/s, {peaks[1] / 1e12:.0f} TFLOP/s f32, "
         f"{peaks[2] / 1e12:.0f} TFLOP/s bf16")
 
-    from distributed_llama_tpu_torch.ops import attention, q40
+    from distributed_llama_tpu_torch.ops import attention, paged_attention, q40
     from distributed_llama_tpu_torch.ops._build import build
 
-    kernels = [*q40.KERNELS, *attention.KERNELS]
+    kernels = [*q40.KERNELS, *attention.KERNELS, *paged_attention.KERNELS]
     secs = build(kernels)
     log(f"built {sorted({k.source for k in kernels})} "
         f"({[k.symbol for k in kernels]}) in {secs:.1f} s")
@@ -541,6 +571,200 @@ def phase_k5(torch, timer, peaks, cache=None):
     return rows
 
 
+K6_CASES = [  # (label, n_kv, kv_mul): two layers of the pool, layer 1 read
+    ("7b", 32, 1), ("gqa8", 8, 8)]
+K6_T_LENS = (1, 4, 8)
+K6_PAGES = ("f32", "bf16", "q8")
+
+
+def phase_k6(torch, timer, peaks):
+    """K6 (f32 and bf16 pages) and K7 (Q8 pages) against their plain
+    versions at 7B and GQA shapes, page size PAGE, B = 1 and 8, shared
+    clocks 63 and 2047 and ragged ones, t_len 1, 4 and 8 (up to the
+    budget-edge clamp). The pool holds a contiguous (2B, 2048, n_kv, hs)
+    batch cache's values in permuted physical pages; at t_len 1 K6 must
+    give K5's bits over the same values, with the identity table and with
+    the permuted one, and K7 must give K6's bits over the dequantized pool.
+    Times: the kernel, K5 at t_len 1 on the contiguous cache (f32 for Q8
+    pages), the plain version (t_len 1), and the
+    library yardstick, SDPA over the row's live pages gathered beforehand
+    (the gather, with the Q8 dequantize, timed apart)."""
+    import torch.nn.functional as F
+
+    from distributed_llama_tpu_torch.ops import attention as att
+    from distributed_llama_tpu_torch.ops import paged_attention as pa
+    from distributed_llama_tpu_torch.ops.quants import (QK,
+                                                        dequantize_q80_planes,
+                                                        quantize_q80_torch)
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    S, hs, layer, ps = K2_SEQ, K2_HS, 1, PAGE
+    mp = S // ps
+    kernels = {"f32": pa.PAGED_KERNEL, "bf16": pa.PAGED_KERNEL_KVBF16,
+               "q8": pa.PAGED_KERNEL_Q8}
+    rows = []
+    for label, n_kv, kv_mul in K6_CASES:
+        n_q = n_kv * kv_mul
+        for batch in K5_BATCHES:
+            P = batch * mp
+            shape = (2 * batch, S, n_kv, hs)
+            base_k = torch.randn(shape, device="cuda", generator=g)
+            base_v = torch.randn(shape, device="cuda", generator=g)
+            perm = torch.randperm(P, device="cuda", generator=g)
+            ident = torch.arange(P, dtype=torch.int32,
+                                 device="cuda").reshape(batch, mp)
+            table = perm.to(torch.int32)[ident.long()].contiguous()
+
+            def permuted(x):
+                x5 = x.reshape(2, P, ps, *x.shape[2:])
+                out = torch.empty_like(x5)
+                out[:, perm] = x5
+                return out.reshape(2 * P, ps, *x.shape[2:])
+
+            for pages in K6_PAGES:
+                dtype = torch.bfloat16 if pages == "bf16" else torch.float32
+                ck, cv = base_k.to(dtype), base_v.to(dtype)
+                if pages == "q8":
+                    planes = []
+                    for x in (ck, cv):
+                        qs, d = quantize_q80_torch(
+                            x.reshape(2 * batch, S, n_kv * hs))
+                        planes += [permuted(qs.reshape(shape)),
+                                   permuted(d)]
+                    kq4, kd4, vq4, vd4 = planes
+                    deq = (dequantize_q80_planes(kq4, kd4).contiguous(),
+                           dequantize_q80_planes(vq4, vd4).contiguous())
+                    run_k = pa.paged_decode_attention_q8
+                    plain_k = pa.paged_decode_attention_q8_plain
+                    bpv = 1 + 2 / QK
+                else:
+                    planes = [permuted(ck), permuted(cv)]
+                    run_k = pa.paged_decode_attention
+                    plain_k = pa.paged_decode_attention_plain
+                    bpv = ck.element_size()
+                kernel = kernels[pages]
+                for pos_label, pos in _k5_positions(batch):
+                    pv = torch.tensor(pos, dtype=torch.int32, device="cuda")
+                    for t_len in K6_T_LENS:
+                        q = torch.randn((batch, t_len, n_q * hs),
+                                        device="cuda", generator=g)
+
+                        def run():
+                            return run_k(q, *planes, layer, pv, table, P,
+                                         kv_mul)
+
+                        before = kernel.launches
+                        got = run()
+                        torch.cuda.synchronize()
+                        if kernel.launches != before + 1:
+                            raise AssertionError(f"{kernel.symbol}: not "
+                                                 f"launched")
+                        want = plain_k(q, *planes, layer, pv, table, P,
+                                       kv_mul)
+                        err = (got - want).abs().max().item()
+                        if not err <= att.KERNEL_ATOL:
+                            raise AssertionError(
+                                f"{kernel.symbol} {label} B={batch} "
+                                f"{pos_label} t={t_len}: error {err}")
+                        k5_ms = plain_ms = None
+                        if pages == "q8":
+                            k6 = pa.paged_decode_attention(
+                                q, *deq, layer, pv, table, P, kv_mul)
+                            if not torch.equal(k6, got):
+                                raise AssertionError(
+                                    f"K7 {label} B={batch} {pos_label} "
+                                    f"t={t_len}: not K6's bits over the "
+                                    f"dequantized pool")
+                        if t_len == 1:
+                            qk5 = q.reshape(batch, n_q, hs)
+                            src = (base_k, base_v) if pages == "q8" \
+                                else (ck, cv)
+                            k5 = att.decode_attention_batch(
+                                qk5, *src, layer, pv, kv_mul)
+                            if pages != "q8":
+                                flat = [x.reshape(-1, ps, n_kv, hs)
+                                        for x in (ck, cv)]
+                                same = run_k(q, *flat, layer, pv, ident, P,
+                                             kv_mul)
+                                if not (torch.equal(same.reshape(batch, -1),
+                                                    k5) and
+                                        torch.equal(got, same)):
+                                    raise AssertionError(
+                                        f"{kernel.symbol} {label} "
+                                        f"B={batch} {pos_label}: not K5's "
+                                        f"bits (identity or permuted "
+                                        f"pool)")
+                            k5_ms = timer(lambda: att.decode_attention_batch(
+                                qk5, *src, layer, pv, kv_mul))
+                            plain_ms = timer(lambda: plain_k(
+                                q, *planes, layer, pv, table, P, kv_mul))
+                        last = [min(p + t_len - 1, S - 1) for p in pos]
+                        n_live = max(last) // ps + 1
+                        idx = (layer * P + table[:, :n_live]).reshape(-1)
+
+                        def gather():
+                            if pages == "q8":
+                                kk = dequantize_q80_planes(kq4[idx],
+                                                           kd4[idx])
+                                vv = dequantize_q80_planes(vq4[idx],
+                                                           vd4[idx])
+                            else:
+                                kk, vv = planes[0][idx], planes[1][idx]
+                            return [x.reshape(batch, n_live * ps, n_kv, hs)
+                                    .permute(0, 2, 1, 3) for x in (kk, vv)]
+
+                        ks, vs = gather()
+                        sees = torch.clamp(
+                            pv[:, None].long() + torch.arange(
+                                t_len, device="cuda")[None, :], max=S - 1)
+                        mask = (torch.arange(n_live * ps, device="cuda")
+                                [None, None, :] <= sees[:, :, None])[:, None]
+                        qs = q.reshape(batch, t_len, n_q, hs) \
+                            .permute(0, 2, 1, 3).to(ks.dtype)
+
+                        def lib():
+                            return F.scaled_dot_product_attention(
+                                qs, ks, vs, attn_mask=mask,
+                                scale=att.attention_scale(hs),
+                                enable_gqa=kv_mul > 1)
+
+                        lib_err = (lib().permute(0, 2, 1, 3)
+                                   .reshape(batch, t_len, -1).float()
+                                   - want).abs().max().item()
+                        ms = timer(run)
+                        gather_ms = timer(gather)
+                        library_ms = timer(lib)
+                        keys = [sum(min(p + i, S - 1) + 1
+                                    for i in range(t_len)) for p in pos]
+                        nbytes = (2 * sum(x + 1 for x in last) * n_kv * hs
+                                  * bpv + 2 * batch * t_len * n_q * hs * 4)
+                        b_ms, b_by = bound(nbytes,
+                                           4.0 * sum(keys) * n_q * hs, peaks)
+                        log(f"{kernel.symbol} {label} B={batch} {pos_label}"
+                            f" t={t_len}: max_abs_err {err:.3e} (tol "
+                            f"{att.KERNEL_ATOL:.0e}) kernel {ms:.4f} ms "
+                            f"bound {b_ms:.5f} ms ({b_by}) K5 "
+                            f"{_f(k5_ms)} plain {_f(plain_ms)} sdpa "
+                            f"{library_ms:.4f} ms (err {lib_err:.1e}) + "
+                            f"gather {gather_ms:.4f} ms")
+                        rows.append(dict(
+                            case=label, n_kv=n_kv, kv_mul=kv_mul,
+                            batch=batch, pos=pos_label, t_len=t_len,
+                            max_abs_err=err, ms=ms, k5_ms=k5_ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=library_ms, gather_ms=gather_ms,
+                            pages=pages))
+                del planes
+                if pages == "q8":
+                    del kq4, kd4, vq4, vd4, deq
+            del base_k, base_v
+    return rows
+
+
+def _f(ms):
+    return "-" if ms is None else f"{ms:.4f} ms"
+
+
 K4_CASES = [  # (label, L, n_kv, kv_mul)
     ("7b", 32, 32, 1), ("gqa8", 4, 8, 8)]
 K4_POS = (0, 384, 1920)
@@ -687,9 +911,9 @@ class _Tee(io.TextIOBase):
 
 
 def _all_kernels():
-    from distributed_llama_tpu_torch.ops import attention, q40
+    from distributed_llama_tpu_torch.ops import attention, paged_attention, q40
 
-    return [*q40.KERNELS, *attention.KERNELS]
+    return [*q40.KERNELS, *attention.KERNELS, *paged_attention.KERNELS]
 
 
 @contextlib.contextmanager
@@ -965,6 +1189,143 @@ def phase_e2e_q80(torch, model, tok, n_layers):
     return res
 
 
+@contextlib.contextmanager
+def _engine_spy(seen: list):
+    """Record (engine, request) for every request a ContinuousEngine
+    takes while the CLI runs."""
+    from distributed_llama_tpu_torch.runtime import continuous
+
+    submit = continuous.ContinuousEngine.submit
+
+    def spy(self, req):
+        seen.append((self, req))
+        return submit(self, req)
+
+    continuous.ContinuousEngine.submit = spy
+    try:
+        yield
+    finally:
+        continuous.ContinuousEngine.submit = submit
+
+
+def _cont_rows(out):
+    """The [i] 'text' rows generate_continuous prints (not the done lines)."""
+    return re.findall(r"^\[(\d+)\] (?!done:)(.*)$", out, re.M)
+
+
+def phase_e2e_continuous(torch, model, tok, n_layers, label, flags):
+    """Runs k-n: the 12 shared-prefix prompts through ``--prompts-file
+    --continuous --slots 8 --prefill-chunk 32 --steps 128`` and ``flags``.
+    Exact launch counts from the engine's own step and chunk counts: the
+    attention build the flags select (K5 contiguous, K6 f32 or bf16 pages,
+    K7 Q8 pages) L per device step, K1m 4L+1 per step (8 rows), K3 4L and
+    K4 (its bf16-cache build over bf16 pages) L per admission chunk, every
+    other kernel 0. Every request completes without error, the page audit
+    is clean, and the steps are the graphs' warm-ups and replays."""
+    paged = "--kv-page-size" in flags
+    q8 = "q8" in flags
+    bf16 = "bf16" in flags
+    attn = ("decode_attention_batch" if not paged else "paged_attention_q8"
+            if q8 else "paged_attention_kvbf16" if bf16
+            else "paged_attention")
+    prefill = "prefill_attention" + ("_kvbf16" if bf16 else "")
+    path = SMOKE_DIR / "continuous.txt"
+    path.write_text("\n".join(CONT_PROMPTS) + "\n")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    seen = []
+    with _engine_spy(seen):
+        out, counts, wall, _ = _run_cli(torch, model, tok, [
+            "--prompts-file", str(path), "--continuous", "--slots",
+            str(CONT_SLOTS), "--prefill-chunk", str(CONT_CHUNK), "--steps",
+            str(CONT_STEPS), "--temperature", "0", "--seed", "1", *flags])
+    eng = seen[0][0]
+    reqs = [r for _, r in seen]
+    st = eng.stats
+    want = {"q40_matvec_multi": (4 * n_layers + 1) * st.steps,
+            attn: n_layers * st.steps}
+    if st.prefill_chunks:
+        want.update(q40_gemm=4 * n_layers * st.prefill_chunks,
+                    **{prefill: n_layers * st.prefill_chunks})
+    _expect(f"{label} run", counts, want)
+    rows = _cont_rows(out)
+    m = re.search(r"Generated tokens:\s+(\d+) across (\d+) requests "
+                  r"\((\d+) slots, (\d+) steps\)", out)
+    errors = [r.error for r in reqs if r.error or not r.done.is_set()]
+    audit = eng.audit_pages()
+    n_graphs = len(eng._chains) if eng.block_steps > 1 else 1
+    if (len(rows) != len(CONT_PROMPTS) or int(m.group(2)) != len(reqs)
+            or int(m.group(4)) != st.steps or errors or audit
+            or eng.graph_replays + n_graphs != st.steps):
+        raise AssertionError(
+            f"{label} run: {len(rows)} rows, {m.groups()}, errors {errors}, "
+            f"audit {audit}, {eng.graph_replays} replays of {n_graphs} "
+            f"graphs for {st.steps} steps")
+    res = dict(flags=list(flags), requests=len(reqs), steps=st.steps,
+               tokens=st.tokens, prefill_chunks=st.prefill_chunks,
+               pauses=st.pauses, requeues=st.requeues,
+               avg_active=st.avg_active, replays=eng.graph_replays,
+               graphs=n_graphs, wall_s=wall, launches=counts,
+               tokens_per_s=st.tokens_per_s,
+               sampled_tokens=sum(r.n_sampled for r in reqs),
+               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+               cache_bytes=sum(t.nbytes for t in eng.cache))
+    a = eng.allocator
+    if a is not None:
+        res.update(n_pages=a.n_pages, page_bytes=res["cache_bytes"]
+                   / (a.n_pages + 1), prefix_hits=a.prefix_hits,
+                   hit_rate=a.hit_rate, tokens_saved=a.tokens_saved,
+                   evictions=a.evictions)
+    log(f"e2e {label}: {json.dumps(res)}")
+    res["rows"] = [text for _, text in rows]
+    del eng, seen, reqs
+    return res
+
+
+def phase_e2e_continuous_runs(torch, model, tok, n_layers):
+    """Runs k-n. k: f32 pages of PAGE (K6), prefix hits > 0; l: run k
+    without the page flags (contiguous, K5), its 12 streams equal to run
+    k's; m: bf16 pages with 16-step chains (the bf16-page K6); n: Q8 pages
+    (K7) with 16-step chains, seeded sampling and a 32-page pool that
+    pauses or requeues rows, with ~3.76x fewer bytes per page than run
+    k's."""
+    page = ("--kv-page-size", str(PAGE))
+    res = {
+        "k": phase_e2e_continuous(torch, model, tok, n_layers, "k paged",
+                                  page),
+        "l": phase_e2e_continuous(torch, model, tok, n_layers,
+                                  "l contiguous", ()),
+        "m": phase_e2e_continuous(torch, model, tok, n_layers,
+                                  "m bf16 pages", (*page, "--kv-cache-dtype",
+                                                   "bf16", "--block-steps",
+                                                   "16")),
+        "n": phase_e2e_continuous(torch, model, tok, n_layers,
+                                  "n q8 pages", (*page, "--kv-quant", "q8",
+                                                 "--block-steps", "16",
+                                                 "--temperature", "0.8",
+                                                 "--seed", "7", "--kv-pages",
+                                                 "32")),
+    }
+    k, n = res["k"], res["n"]
+    same = sum(a == b for a, b in zip(k["rows"], res["l"]["rows"]))
+    ratio = k["page_bytes"] / n["page_bytes"]
+    log(f"continuous: run k's streams equal run l's in {same} of "
+        f"{len(CONT_PROMPTS)} rows; prefix hits {k['prefix_hits']} "
+        f"({k['tokens_saved']} prefill tokens saved); run n: "
+        f"{n['pauses']} pauses, {n['requeues']} requeues, "
+        f"{ratio:.3f}x fewer bytes per page than run k")
+    if same != len(CONT_PROMPTS) or k["prefix_hits"] <= 0:
+        raise AssertionError("run k: streams differ from run l's, or no "
+                             "prefix hit")
+    if n["pauses"] + n["requeues"] <= 0 or not 3.7 <= ratio <= 3.8:
+        raise AssertionError(f"run n: no pause or requeue, or page bytes "
+                             f"{ratio:.3f}x below run k's, not ~3.76x")
+    for r in res.values():
+        r.pop("rows")
+    return res
+
+
 # --------------------------------------------------------------------------
 # phase 4: kernels against plain at full width, end to end
 # --------------------------------------------------------------------------
@@ -1009,7 +1370,8 @@ def phase_full_width(torch, model, tok, peaks):
         torch, engine, tokenizer.encode(PROMPT_512), peaks)
     fast = fast_full_width(torch, engine, tokenizer)
     batch = batch_full_width(torch, engine)
-    return worst, busy, prefill, fast, batch
+    continuous = continuous_full_width(torch, engine, tokenizer, batch)
+    return worst, busy, prefill, fast, batch, continuous
 
 
 def fast_full_width(torch, engine, tokenizer):
@@ -1144,6 +1506,92 @@ def batch_full_width(torch, engine):
                          busy=dev_ms / ms if dev_ms else None,
                          replays=loop.replays)
         del snap, cache, loop
+    return res
+
+
+CONT_CASES = {  # label -> engine options over the full-width weights
+    "contiguous": {},
+    "f32 pages": {"page_size": PAGE},
+    "bf16 pages": {"page_size": PAGE, "cache_dtype": "bf16"},
+    "q8 pages": {"page_size": PAGE, "kv_quant": "q8"},
+}
+
+
+def continuous_full_width(torch, engine, tokenizer, batch):
+    """Continuous throughput at full width: 16 requests (the shared-prefix
+    prompts, cycled) through 8 slots, CONT_STEPS positions each, admission
+    prefill at CONT_CHUNK, fused chains of 16 captured steps, greedy, for
+    the contiguous cache and f32, bf16 and Q8 pages (one engine each over
+    the same device weights). After a warm-up run of each (the captures),
+    runs in turns (contiguous, f32, bf16, q8, q8, bf16, f32, contiguous;
+    medians); then one run of each under torch.profiler for the device
+    time, read against its unprofiled wall: the busy share. The lockstep
+    batch of the same call stands beside it."""
+    from distributed_llama_tpu_torch.runtime.continuous import \
+        ContinuousEngine
+
+    reqs = [tokenizer.encode(CONT_PROMPTS[i % len(CONT_PROMPTS)])
+            for i in range(16)]
+    n_prompt = sum(len(r) - 1 for r in reqs)
+    engines = {}
+    for label, opts in CONT_CASES.items():
+        opts = dict(opts)
+        if opts.get("cache_dtype"):
+            opts["cache_dtype"] = torch.bfloat16
+        engines[label] = ContinuousEngine(
+            engine.spec, engine.params, CONT_SLOTS, 0.0, 0.9, 1,
+            prefill_chunk=CONT_CHUNK, block_steps=16, **opts)
+
+    def run(label):
+        outs, st = engines[label].run(reqs, CONT_STEPS)
+        return outs, dict(ms=st.total_ms, steps=st.steps, tokens=st.tokens,
+                          decode_tokens=sum(len(o) for o in outs) - n_prompt,
+                          avg_active=st.avg_active, pauses=st.pauses,
+                          requeues=st.requeues)
+
+    streams = {label: run(label)[0] for label in engines}  # captures
+    if streams["f32 pages"] != streams["contiguous"]:
+        raise AssertionError("continuous full width: the f32-page streams "
+                             "differ from the contiguous engine's")
+    runs = {label: [] for label in engines}
+    order = list(engines)
+    for label in order + order[::-1]:
+        runs[label].append(run(label)[1])
+    res = {}
+    for label, eng in engines.items():
+        mid = sorted(runs[label], key=lambda r: r["ms"])[0]
+        ms = statistics.median(r["ms"] for r in runs[label])
+        dev, prof_ms = _profiled(torch, lambda: run(label), mid["steps"],
+                                 host=False)
+        dev_ms = sum(m for _, m, _ in dev)
+        paged = sum(m for k, m, _ in dev if "paged_attention" in k
+                    or "decode_attention" in k)
+        row = dict(ms=ms, runs_ms=[r["ms"] for r in runs[label]],
+                   steps=mid["steps"], ms_per_step=ms / mid["steps"],
+                   tokens=mid["tokens"], decode_tokens=mid["decode_tokens"],
+                   tokens_per_s=mid["tokens"] / ms * 1e3,
+                   decode_tokens_per_s=mid["decode_tokens"] / ms * 1e3,
+                   avg_active=mid["avg_active"],
+                   device_ms_per_step=dev_ms,
+                   attention_ms_per_step=paged,
+                   busy=dev_ms * mid["steps"] / ms if dev_ms else None,
+                   cache_bytes=sum(t.nbytes for t in eng.cache),
+                   replays=eng.graph_replays)
+        log(f"continuous {label}: 16 requests through {CONT_SLOTS} slots in "
+            f"{ms:.1f} ms (runs {', '.join(f'{r:.1f}' for r in row['runs_ms'])}"
+            f"), {row['steps']} device steps, {row['ms_per_step']:.3f} "
+            f"ms/step, {row['decode_tokens_per_s']:.0f} decode tokens/s "
+            f"({row['tokens_per_s']:.0f} with the prompt echoes), "
+            f"avg_active {row['avg_active']:.2f}; device "
+            f"{dev_ms:.3f} ms/step (attention {paged:.3f}), busy "
+            f"{row['busy'] or 0:.1%} ({prof_ms:.3f} ms/step under the "
+            f"profiler); cache {row['cache_bytes'] / 1e9:.3f} GB")
+        for key, m, count in dev[:8]:
+            log(f"  {m:8.4f} ms/step  x{count:5.0f}  {key[:90]}")
+        res[label] = row
+    res["lockstep_tokens_per_s"] = {body: r["tokens_per_s"]
+                                    for body, r in batch.items()}
+    engines.clear()
     return res
 
 
@@ -1364,24 +1812,34 @@ def profile_steps(torch, model, cache, token, pos0, n=8):
                      for k, ms, c in dev[:6]])
 
 
-def _profiled(torch, fn, n):
-    """Run ``fn`` (n units of work) once under torch.profiler. Returns
-    ([(kernel, device ms per unit, launches per unit)], slowest first, and
-    the profiled wall ms per unit). Kernel entries only: an aten op's entry
-    repeats its kernels' time."""
+def _profiled(torch, fn, n, host=True):
+    """Run ``fn`` (n units of work) once under torch.profiler, tracing the
+    host's ops too unless ``host`` is False. Returns ([(kernel, device ms
+    per unit, launches per unit)], slowest first, and the profiled wall ms
+    per unit). Device entries only (kernels, copies, fills), summed by name
+    straight from the trace's raw events: key_averages() first builds a
+    Python object per event, seconds for every 100k events, and a
+    continuous run traces ~150k kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     prof_ms = (time.perf_counter() - t0) * 1e3 / n
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev = sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count / n)
-                  for e in events if e.self_device_time_total > 0),
+    totals = {}  # name -> [device ns, launches]
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == torch.autograd.DeviceType.CUDA
+                and e.duration_ns() > 0):
+            t = totals.setdefault(e.name(), [0, 0])
+            t[0] += e.duration_ns()
+            t[1] += 1
+    dev = sorted(((key, ns / 1e6 / n, count / n)
+                  for key, (ns, count) in totals.items()),
                  key=lambda r: -r[1])
     return dev, prof_ms
 
@@ -1590,6 +2048,7 @@ def main() -> int:
     k1d = phase_k1d(torch, timer, peaks)
     k5 = phase_k5(torch, timer, peaks)
     k5_kvbf16 = phase_k5(torch, timer, peaks, cache=torch.bfloat16)
+    k6 = phase_k6(torch, timer, peaks)
     del timer
     gc.collect()
     torch.cuda.empty_cache()
@@ -1614,10 +2073,11 @@ def main() -> int:
                              f"not ~8.6")
     e2e_fast = phase_e2e_fast(torch, model, tok, spec.n_layers,
                               _pieces(out_a), e2e_prefill.pop("pieces"))
+    e2e_cont = phase_e2e_continuous_runs(torch, model, tok, spec.n_layers)
     gc.collect()
     torch.cuda.empty_cache()
-    logit_err, busy, prefill, fast, batch = phase_full_width(torch, model,
-                                                             tok, peaks)
+    logit_err, busy, prefill, fast, batch, continuous = phase_full_width(
+        torch, model, tok, peaks)
     small_err = phase_small_reference(torch)
 
     def per_token(rows):
@@ -1774,6 +2234,37 @@ def main() -> int:
                   f"the weight dequantized to bf16 beforehand (dequant not "
                   f"timed)", shapes=k1d),
     ]
+
+    def paged_row(name, pages, run, what):
+        rows = [r for r in k6 if r["pages"] == pages]
+        unit_rows = [dict(r, per_token=32) for r in rows
+                     if r["case"] == "7b" and r["batch"] == CONT_SLOTS
+                     and r["pos"] == "shared 63" and r["t_len"] == 1]
+        return dict(name=name, route="cuda",
+                    source="distributed_llama_tpu_torch/csrc/"
+                           "paged_attention.cu",
+                    replaces="distributed_llama_tpu/ops/"
+                             "pallas_paged_attention.py:"
+                             + ("332" if pages == "q8" else "285"),
+                    launches=e2e_cont[run]["launches"][name],
+                    max_abs_err=max(r["max_abs_err"] for r in rows),
+                    **unit_row(unit_rows),
+                    gather_ms=sum(r["gather_ms"] * 32 for r in unit_rows),
+                    k5_ms=sum(r["k5_ms"] * 32 for r in unit_rows),
+                    unit=f"one 7B step of {CONT_SLOTS} rows at shared pos "
+                         f"63, t_len 1, over {what} pages of {PAGE}: 32 "
+                         f"layers; library = scaled_dot_product_attention "
+                         f"over the live pages gathered beforehand (the "
+                         f"gather{', with the dequantize,' if pages == 'q8' else ''}"
+                         f" timed apart as gather_ms); k5_ms = K5 on the "
+                         f"same values in a contiguous cache",
+                    shapes=rows)
+
+    kernels += [
+        paged_row("paged_attention", "f32", "k", "f32"),
+        paged_row("paged_attention_kvbf16", "bf16", "m", "bf16"),
+        paged_row("paged_attention_q8", "q8", "n", "Q8"),
+    ]
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -1786,8 +2277,9 @@ def main() -> int:
                       "e2e_prefill": e2e_prefill, "e2e_q80": e2e_q80,
                       "e2e_bf16": e2e_bf16, "e2e_batch": e2e_batch,
                       "e2e_batch_dequant": e2e_batch_dq,
-                      "e2e_fast": e2e_fast, "prefill": prefill,
-                      "fast": fast, "batch_step": batch,
+                      "e2e_fast": e2e_fast, "e2e_continuous": e2e_cont,
+                      "prefill": prefill, "fast": fast, "batch_step": batch,
+                      "continuous": continuous,
                       "batch_cache_saved_gb": saved, "build_s": build_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -21,32 +21,40 @@
 //
 // Bound: the K and V bytes of each row's live prefix, 2 * (pos+1) * n_kv *
 // hs * 4 (2 per value for a bf16 cache), read once. Design, simple first:
-//   * one thread block per (kv head, row), covering its kv_mul query
-//     heads, so K and V are read once: n_kv blocks for K2 (32 at 7B on 132
-//     SMs), n_kv * B for K5 (256 at 7B and B = 8);
-//   * kWarps warps take keys t = warp, warp + kWarps, ...; lane i holds
-//     dims 4i..4i+3 of q, k, v and o as float4 (head size up to 128): a
-//     16-byte load per lane and key from an f32 cache, 8 from a bf16 one;
-//   * each warp keeps a running (m, l, o) per query head; the warps combine
-//     through shared memory at the end.
-// K2 and K5 are one template body: at B = 1 on an (L, S, n_kv, hs) cache
-// K5 computes exactly K2's sums in K2's order, so a step through either
-// gives the same bits. Splitting the keys across blocks (flash-decoding)
-// is left for later.
+// one thread block per (kv head, row), covering its kv_mul query heads, so
+// K and V are read once: n_kv blocks for K2 (32 at 7B on 132 SMs), n_kv * B
+// for K5 (256 at 7B and B = 8); each block runs the flash-decode body of
+// flash_decode.cuh (warps striding over keys, float4 lanes, a fixed-order
+// combine), which K6 and K7 (paged_attention.cu) share. K2 and K5 are one
+// template: at B = 1 on an (L, S, n_kv, hs) cache K5 computes exactly K2's
+// sums in K2's order, so a step through either gives the same bits.
+// Splitting the keys across blocks (flash-decoding) is left for later.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "flash_decode.cuh"
 
 namespace {
 
-constexpr int kWarps = 16;
-
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
+// Keys of one (cache row, kv head): key t at k + t * row.
+template <typename KV>
+struct ContigKeys {
+  const KV* k;
+  const KV* v;
+  size_t row;  // n_kv * hs: the stride between keys
+  __device__ __forceinline__ size_t at(int t) const {
+    return static_cast<size_t>(t) * row;
+  }
+  __device__ __forceinline__ float4 k4(size_t at, int lane) const {
+    return load_f4(k + at + 4 * lane);
+  }
+  __device__ __forceinline__ float4 v4(size_t at, int lane) const {
+    return load_f4(v + at + 4 * lane);
+  }
+};
 
 template <typename KV, int KV_MUL, bool BATCH>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -57,93 +65,23 @@ decode_attention_kernel(const float* __restrict__ q,
                         const int* __restrict__ pos_vec, int batch, int S,
                         int n_kv, int hs, float scale) {
   const int g = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   // K5: block row b reads cache row layer * batch + b at its own clock
   const int b = BATCH ? blockIdx.y : 0;
   const int pos = BATCH ? pos_vec[b] : pos_arg;
   const int cache_row = BATCH ? layer * batch + b : layer;
-  q += static_cast<size_t>(b) * n_kv * KV_MUL * hs;
-  out += static_cast<size_t>(b) * n_kv * KV_MUL * hs;
-
-  const bool live = 4 * lane < hs;  // lanes past the head size hold zeros
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 qv[KV_MUL], o[KV_MUL];
-  float m[KV_MUL], l[KV_MUL];
-#pragma unroll
-  for (int h = 0; h < KV_MUL; ++h) {
-    const float* qh = q + static_cast<size_t>(g * KV_MUL + h) * hs;
-    qv[h] = live ? *reinterpret_cast<const float4*>(qh + 4 * lane) : zero;
-    o[h] = zero;
-    m[h] = -INFINITY;
-    l[h] = 0.f;
-  }
-
-  const size_t row = static_cast<size_t>(n_kv) * hs;  // stride between keys
+  const size_t row = static_cast<size_t>(n_kv) * hs;
   const size_t base =
       (static_cast<size_t>(cache_row) * S * n_kv + g) * hs;
-  for (int t = warp; t <= pos; t += kWarps) {
-    const KV* kr = k_all + base + t * row;
-    const KV* vr = v_all + base + t * row;
-    const float4 kv = live ? load_f4(kr + 4 * lane) : zero;
-    const float4 vv = live ? load_f4(vr + 4 * lane) : zero;
-#pragma unroll
-    for (int h = 0; h < KV_MUL; ++h) {
-      float s = dot4(qv[h], kv);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      }
-      s *= scale;
-      const float m_new = fmaxf(m[h], s);
-      const float corr = expf(m[h] - m_new);
-      const float p = expf(s - m_new);
-      l[h] = l[h] * corr + p;
-      o[h].x = o[h].x * corr + p * vv.x;
-      o[h].y = o[h].y * corr + p * vv.y;
-      o[h].z = o[h].z * corr + p * vv.z;
-      o[h].w = o[h].w * corr + p * vv.w;
-      m[h] = m_new;
-    }
-  }
-
-  // combine the warps: sm_m, sm_l (kWarps, KV_MUL), sm_o (kWarps, KV_MUL, hs)
-  extern __shared__ float sm[];
-  float* sm_m = sm;
-  float* sm_l = sm_m + kWarps * KV_MUL;
-  float* sm_o = sm_l + kWarps * KV_MUL;
-#pragma unroll
-  for (int h = 0; h < KV_MUL; ++h) {
-    if (lane == 0) {
-      sm_m[warp * KV_MUL + h] = m[h];
-      sm_l[warp * KV_MUL + h] = l[h];
-    }
-    float* oh = sm_o + static_cast<size_t>(warp * KV_MUL + h) * hs;
-    if (live) *reinterpret_cast<float4*>(oh + 4 * lane) = o[h];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < KV_MUL * hs; i += blockDim.x) {
-    const int h = i / hs;
-    const int dd = i - h * hs;
-    float mx = -INFINITY;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w * KV_MUL + h]);
-    float lsum = 0.f, osum = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      // a warp that saw no key holds m = -inf, l = 0, o = 0: weight 0
-      const float f = expf(sm_m[w * KV_MUL + h] - mx);
-      lsum += sm_l[w * KV_MUL + h] * f;
-      osum += sm_o[static_cast<size_t>(w * KV_MUL + h) * hs + dd] * f;
-    }
-    out[static_cast<size_t>(g * KV_MUL + h) * hs + dd] = osum / lsum;
-  }
+  const ContigKeys<KV> keys{k_all + base, v_all + base, row};
+  const size_t qo = (static_cast<size_t>(b) * n_kv + g) * KV_MUL * hs;
+  flash_decode_block<KV_MUL>(q + qo, out + qo, pos, hs, scale, keys);
 }
 
 template <typename KV, int KV_MUL, bool BATCH>
 int launch(const float* q, const KV* k, const KV* v, float* out, int layer,
            int pos, const int* pos_vec, int batch, int S, int n_kv, int hs,
            float scale, cudaStream_t stream) {
-  const size_t smem =
-      static_cast<size_t>(kWarps) * KV_MUL * (hs + 2) * sizeof(float);
+  const size_t smem = flash_decode_smem<KV_MUL>(hs);
   static size_t granted[kMaxDevices];
   const cudaError_t e = opt_in_smem(
       decode_attention_kernel<KV, KV_MUL, BATCH>, smem, granted);

@@ -10,20 +10,32 @@ than 8 tokens take bf16 products with f32 accumulation; needs
 --prefill-chunk N > 1), --kv-cache-dtype {f32,bf16}, --fast (the
 on-device token loop: one CUDA graph replay per step, composing with the
 flags above), --prompts-file PATH (one prompt per line, decoded in one
-lockstep batch; it ignores --prompt and --fast, and --prefill-chunk N > 1
-needs --continuous, which is not ported, so it exits 2), and --device
-{cuda,cpu} (default cuda; without a GPU the default fails instead of
-running on the CPU). DLLAMA_MULTI_T_BODY=dequant selects the bf16-product
-body for 2..8-token products (a batch of up to 8 prompts, or a prefill
-chunk of up to 8 tokens), as in the JAX package.
+lockstep batch; it ignores --prompt and --fast), and --device {cuda,cpu}
+(default cuda; without a GPU the default fails instead of running on the
+CPU). DLLAMA_MULTI_T_BODY=dequant selects the bf16-product body for 2..8-
+token products (a batch of up to 8 prompts, or a prefill chunk of up to 8
+tokens), as in the JAX package.
+
+With --prompts-file, --continuous runs the continuous-batching engine:
+--slots N (0 = min(#prompts, 8)), --block-steps K (K fused steps per
+dispatch), --prefill-chunk N [--fast-prefill] (admission prefill),
+--kv-cache-dtype, and with --kv-page-size P the paged KV pool with radix
+prefix sharing, sized by --kv-pages N and stored as --kv-quant f32|q8
+(DLLAMA_KV_QUANT when the flag is absent, read once here). The JAX CLI's
+checks and messages come with them: q8 without a page size, --continuous or
+--slots without a prompts file and negative slots exit 2, and
+--prefill-chunk with --prompts-file needs --continuous.
 
 On the lockstep path --metrics, --spec-k K and --kv-page-size P print the
 JAX package's note that they only apply to the continuous engine, and the
-run goes on, as there. Elsewhere they, and every other flag of the JAX
-package's ``inference``, exit 2 with "not yet ported" before the model
-loads — no flag is accepted and then ignored; that includes the f16/q40
-buffer types. --tp 1, --sp 1, --spec-k 0 and --kv-page-size 0 name what
-the port runs and are accepted.
+run goes on, as there; --slots, --block-steps and --kv-pages there exit 2,
+as they only apply to --continuous. With --continuous, --spec-k and
+--metrics exit 2 "not yet ported"; without --prompts-file every flag of the
+continuous engine does. Every other flag of the JAX package's
+``inference`` exits 2 with "not yet ported" before the model loads — no
+flag is accepted and then ignored; that includes the f16/q40 buffer types,
+--dispatch-tokens and the KV tier flags. --tp 1, --sp 1, --spec-k 0 and
+--kv-page-size 0 name what the port runs and are accepted.
 """
 
 from __future__ import annotations
@@ -40,12 +52,10 @@ _FT = {"f32": FloatType.F32, "f16": FloatType.F16, "q40": FloatType.Q40,
        "q80": FloatType.Q80}
 
 # the JAX package's inference flags the port does not run yet
-_UNPORTED_SWITCHES = ("--continuous", "--log-json", "--stream-slices")
+_UNPORTED_SWITCHES = ("--log-json", "--stream-slices")
 _UNPORTED_VALUED = ("--tp-scheme", "--workers", "--save-state",
-                    "--resume-state", "--slots",
-                    "--block-steps", "--kv-pages",
-                    "--spec-ngram", "--dispatch-tokens",
-                    "--kv-quant", "--kv-host-pages", "--kv-disk-dir",
+                    "--resume-state", "--spec-ngram", "--dispatch-tokens",
+                    "--kv-host-pages", "--kv-disk-dir",
                     "--kv-disk-gb", "--profile", "--nthreads",
                     "--coordinator", "--num-hosts", "--host-id",
                     "--serve-weights", "--serve-weights-bind",
@@ -85,12 +95,37 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompts-file", default=None, metavar="PATH",
                     help="batch mode: one prompt per line, decoded in one "
                          "lockstep batch; ignores --prompt and --fast")
-    # only notes on the lockstep path; not ported elsewhere
+    ap.add_argument("--continuous", action="store_true",
+                    help="with --prompts-file: continuous batching — a pool "
+                         "of --slots cache slots with per-slot position "
+                         "clocks; finished rows are replaced mid-flight by "
+                         "queued prompts")
+    ap.add_argument("--slots", type=int, default=0,
+                    help="continuous-batching slot count (default: "
+                         "min(#prompts, 8))")
+    ap.add_argument("--block-steps", type=int, default=1, metavar="K",
+                    help="with --continuous: fuse K decode steps into one "
+                         "device dispatch (admission/retirement at chain "
+                         "boundaries)")
+    ap.add_argument("--kv-page-size", type=int, default=0, metavar="P",
+                    help="with --continuous: paged KV cache — slots map "
+                         "P-position pages from a shared pool through page "
+                         "tables, with radix-tree prefix sharing (0 = "
+                         "contiguous per-slot cache); with the lockstep "
+                         "batch, a note")
+    ap.add_argument("--kv-pages", type=int, default=0, metavar="N",
+                    help="paged-KV pool size in pages (default: slots * "
+                         "seq_len / page-size; fewer pages serve more "
+                         "slots at equal memory)")
+    ap.add_argument("--kv-quant", default=None, choices=("f32", "q8"),
+                    help="KV PAGE quantization (= DLLAMA_KV_QUANT; needs "
+                         "--kv-page-size): q8 stores pool pages as Q80 "
+                         "int8 codes and f16 deltas, ~1/3.8 of f32 page "
+                         "bytes")
+    # notes on the lockstep path; not ported elsewhere
     ap.add_argument("--metrics", action="store_true",
                     help="with --prompts-file: a note (nothing to collect)")
     ap.add_argument("--spec-k", type=int, default=0, metavar="K",
-                    help="with --prompts-file: a note (continuous only)")
-    ap.add_argument("--kv-page-size", type=int, default=0, metavar="P",
                     help="with --prompts-file: a note (continuous only)")
     for flag in _UNPORTED_SWITCHES:
         ap.add_argument(flag, action="store_true", default=argparse.SUPPRESS,
@@ -110,13 +145,21 @@ def _unported(args) -> list[str]:
         given.append(f"--sp {args.sp}")
     if args.buffer_float_type not in ("f32", "q80"):
         given.append(f"--buffer-float-type {args.buffer_float_type}")
-    if not args.prompts_file:  # the lockstep path's notes, ported there
+    if args.continuous:  # the continuous engine's unported options
         if args.metrics:
             given.append("--metrics")
         if args.spec_k:
             given.append(f"--spec-k {args.spec_k}")
-        if args.kv_page_size:
-            given.append(f"--kv-page-size {args.kv_page_size}")
+    elif not args.prompts_file:  # flags of the batch paths, ported there
+        for flag, value, neutral in (
+                ("--metrics", args.metrics, False),
+                ("--spec-k", args.spec_k, 0),
+                ("--kv-page-size", args.kv_page_size, 0),
+                ("--kv-pages", args.kv_pages, 0),
+                ("--block-steps", args.block_steps, 1),
+                ("--kv-quant", args.kv_quant, None)):
+            if value != neutral:
+                given.append(flag if value is True else f"{flag} {value}")
     return given
 
 
@@ -131,7 +174,7 @@ def _lockstep_notes(args) -> None:
         print("--spec-k only applies to the continuous engine; use "
               "--continuous (with --kv-page-size) for speculative "
               "decoding", file=sys.stderr)
-    if args.kv_page_size:
+    if args.kv_page_size or args.kv_quant != "f32":
         print("--kv-page-size/--kv-quant only apply to the "
               "continuous engine; add --continuous for the paged "
               "(and quantized) KV pool", file=sys.stderr)
@@ -143,26 +186,53 @@ def cmd_inference(argv: list[str]) -> int:
     if unported:
         print(f"not yet ported: {', '.join(unported)} (this port runs "
               f"single-device inference, token by token, with "
-              f"--prefill-chunk N [--fast-prefill] or --fast, or a lockstep "
-              f"batch with --prompts-file, with f32 or q80 buffers and an "
-              f"f32 or bf16 KV cache)", file=sys.stderr)
+              f"--prefill-chunk N [--fast-prefill] or --fast, a lockstep "
+              f"batch with --prompts-file, or continuous batching with "
+              f"--prompts-file --continuous [--kv-page-size P], with f32 or "
+              f"q80 buffers and an f32 or bf16 KV cache or q8 pages)",
+              file=sys.stderr)
         return 2
+    # DLLAMA_KV_QUANT is read once, here, when the flag is absent
+    from ..ops.paged_attention import kv_quant_mode
+
+    args.kv_quant = args.kv_quant or kv_quant_mode()
     if args.spec_k and args.kv_page_size <= 0:
         print("--spec-k needs the paged KV cache: add --kv-page-size P "
               "(with --continuous)", file=sys.stderr)
+        return 2
+    if args.kv_quant == "q8" and args.kv_page_size <= 0:
+        print("--kv-quant q8 quantizes paged KV pages: add "
+              "--kv-page-size P (with --continuous)", file=sys.stderr)
+        return 2
+    if (args.continuous or args.slots) and not args.prompts_file:
+        print("--continuous/--slots need --prompts-file (the request "
+              "queue)", file=sys.stderr)
+        return 2
+    if args.slots < 0:
+        print(f"--slots must be non-negative (0 = auto: min(#prompts, 8)), "
+              f"got {args.slots}", file=sys.stderr)
         return 2
     if args.fast_prefill and args.prefill_chunk <= 1:
         print("--fast-prefill only affects chunked prefill; pass "
               "--prefill-chunk N (N > 1)", file=sys.stderr)
         return 2
+    if args.kv_pages and args.kv_page_size <= 0:
+        print("--kv-pages sizes the paged KV pool: add --kv-page-size P",
+              file=sys.stderr)
+        return 2
     prompts = None
     if args.prompts_file:  # validate before the multi-GB model load
-        if args.prefill_chunk > 1:
+        if args.prefill_chunk > 1 and not args.continuous:
             # lockstep rows share one position clock: per-row prompt
             # prefill would desync them — only --continuous prefills
             print("--prefill-chunk with --prompts-file needs --continuous "
                   "(lockstep rows share the position clock)",
                   file=sys.stderr)
+            return 2
+        if not args.continuous and (args.slots or args.block_steps != 1
+                                    or args.kv_pages):
+            print("--slots/--block-steps/--kv-pages only apply to the "
+                  "continuous engine: add --continuous", file=sys.stderr)
             return 2
         with open(args.prompts_file) as fh:
             prompts = [ln.rstrip("\n") for ln in fh if ln.strip()]
@@ -197,6 +267,19 @@ def cmd_inference(argv: list[str]) -> int:
     if prompts is not None:  # batch mode: no Engine (its own device path)
         tokenizer = Tokenizer(args.tokenizer, spec.vocab_size)
         seed = args.seed if args.seed is not None else int(time.time())
+        if args.continuous:
+            from ..runtime.continuous import generate_continuous
+
+            generate_continuous(spec, params, tokenizer, prompts, args.steps,
+                                args.temperature, args.topp, seed,
+                                slots=args.slots, cache_dtype=cache_dtype,
+                                prefill_chunk=args.prefill_chunk,
+                                block_steps=args.block_steps,
+                                fast_prefill=args.fast_prefill,
+                                page_size=args.kv_page_size,
+                                kv_pages=args.kv_pages,
+                                kv_quant=args.kv_quant, device=device)
+            return 0
         _lockstep_notes(args)
         generate_batch(spec, params, tokenizer, prompts, args.steps,
                        args.temperature, args.topp, seed,

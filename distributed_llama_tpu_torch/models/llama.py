@@ -66,14 +66,24 @@ from ..ops.attention import (attention_core, decode_attention,
 from ..ops.linear import (dense_matmul, dense_matmul_bf16, fake_quant_q80,
                           fuse_q40_layer_matmuls, matmul, q40_to_device,
                           rmsnorm, silu)
+from ..ops.paged_attention import paged_decode_attention as paged_flash
+from ..ops.paged_attention import \
+    paged_decode_attention_plain as paged_flash_plain
+from ..ops.paged_attention import paged_decode_attention_q8 as paged_flash_q8
+from ..ops.paged_attention import \
+    paged_decode_attention_q8_plain as paged_flash_q8_plain
 from ..ops.q40 import q40_matmul, q40_matmul_plain
-from ..ops.quants import FloatType
+from ..ops.quants import QK, FloatType, dequantize_q80_planes, \
+    quantize_q80_torch
 from .spec import TransformerSpec
 
-__all__ = ["KVCache", "init_cache", "init_cache_batch", "attention_core",
-           "Route", "KERNELS", "PLAIN", "FAST", "FAST_PLAIN", "with_body",
-           "LOGIT_RTOL", "FAST_RTOL", "Llama", "params_to_device",
-           "params_from_reference"]
+__all__ = ["KVCache", "init_cache", "init_cache_batch", "init_cache_paged",
+           "PagedKVQ8", "init_cache_paged_q8", "paged_cache_planes",
+           "paged_decode_attention", "paged_attention_q8", "gather_pages",
+           "scatter_pages", "gather_pages_q8", "scatter_pages_q8",
+           "attention_core", "Route", "KERNELS", "PLAIN", "FAST",
+           "FAST_PLAIN", "with_body", "LOGIT_RTOL", "FAST_RTOL", "Llama",
+           "params_to_device", "params_from_reference"]
 
 
 class KVCache(NamedTuple):
@@ -99,9 +109,181 @@ def init_cache_batch(spec: TransformerSpec, batch: int, device,
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
+def _check_page_size(spec: TransformerSpec, page_size: int) -> None:
+    if page_size < 1 or spec.seq_len % page_size:
+        raise ValueError(f"page_size={page_size} must divide "
+                         f"seq_len={spec.seq_len}")
+
+
+def init_cache_paged(spec: TransformerSpec, n_pages: int, page_size: int,
+                     device, dtype: torch.dtype = torch.float32) -> KVCache:
+    """The paged pool (L, P, page_size, n_kv, hs): physical page p of layer
+    l is the (page_size, n_kv, hs) plane at [l, p]. ``n_pages`` counts the
+    reserved scrap page 0 (runtime/paging.SCRAP_PAGE); slots map logical
+    pages onto physical ones through int32 page-table rows."""
+    _check_page_size(spec, page_size)
+    shape = (spec.n_layers, n_pages, page_size, spec.n_kv_heads,
+             spec.head_size)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+class PagedKVQ8(NamedTuple):
+    """The Q8 page pool (``--kv-quant q8``): ``kq``/``vq`` int8 Q80 codes
+    with the f32 pool's (L, P, page_size, n_kv, hs) geometry, ``kd``/``vd``
+    f16 block deltas, one per 32 values of a position's flattened (n_kv*hs)
+    row: (L, P, page_size, n_kv*hs/32). kv_dim + 2*kv_dim/32 bytes per
+    position and plane against the f32 pool's 4*kv_dim."""
+
+    kq: torch.Tensor
+    kd: torch.Tensor
+    vq: torch.Tensor
+    vd: torch.Tensor
+
+
+def init_cache_paged_q8(spec: TransformerSpec, n_pages: int, page_size: int,
+                        device) -> PagedKVQ8:
+    """init_cache_paged's Q8 twin; kv_dim must divide into 32-value
+    blocks."""
+    _check_page_size(spec, page_size)
+    if spec.kv_dim % QK:
+        raise ValueError(f"q8 KV pages quantize the flattened (n_kv, hs) "
+                         f"position row in {QK}-value Q80 blocks: "
+                         f"kv_dim={spec.kv_dim} must divide by {QK}")
+    codes = (spec.n_layers, n_pages, page_size, spec.n_kv_heads,
+             spec.head_size)
+    deltas = (spec.n_layers, n_pages, page_size, spec.kv_dim // QK)
+    return PagedKVQ8(torch.zeros(codes, dtype=torch.int8, device=device),
+                     torch.zeros(deltas, dtype=torch.float16, device=device),
+                     torch.zeros(codes, dtype=torch.int8, device=device),
+                     torch.zeros(deltas, dtype=torch.float16, device=device))
+
+
+def paged_cache_planes(cache) -> tuple[tuple, int]:
+    """The rank-4 (L*P, page_size, ...) views of a paged pool, KVCache or
+    PagedKVQ8, the kernels read, and P."""
+    if isinstance(cache, PagedKVQ8):
+        L, P = cache.kq.shape[:2]
+        return tuple(plane.view(L * P, *plane.shape[2:])
+                     for plane in cache), P
+    L, P = cache.k.shape[:2]
+    return (cache.k.view(L * P, *cache.k.shape[2:]),
+            cache.v.view(L * P, *cache.v.shape[2:])), P
+
+
+def _page_coords(table: torch.Tensor, pos: torch.Tensor, idx: int,
+                 n_pages: int, page_size: int):
+    """(page row, offset) (B,) int64 of each row's position pos[b]: page
+    table[b, pos[b] // ps] of layer idx, computed on the device."""
+    page = table.gather(1, (pos // page_size).long()[:, None])[:, 0]
+    return idx * n_pages + page.long(), (pos % page_size).long()
+
+
+def paged_decode_attention(head_size: int, kv_mul: int, n_pages: int,
+                           q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           k4: torch.Tensor, v4: torch.Tensor, idx: int,
+                           pos: torch.Tensor, table: torch.Tensor,
+                           route: Route) -> torch.Tensor:
+    """Decode attention over the paged pool: row b's k/v (B, n_kv*hs) are
+    written in place at (page table[b, pos[b] // ps], offset pos[b] % ps)
+    of the (L*P, ps, n_kv, hs) planes (a row parked on the scrap page
+    writes there), then q (B, n_q*hs) attends through ``route.paged``
+    (K6). Nothing is read on the host. Returns (B, n_q*hs)."""
+    B, n_kv = q.shape[0], k4.shape[2]
+    rows, off = _page_coords(table, pos, idx, n_pages, k4.shape[1])
+    k4.index_put_((rows, off), k.reshape(B, n_kv, head_size).to(k4.dtype))
+    v4.index_put_((rows, off), v.reshape(B, n_kv, head_size).to(v4.dtype))
+    ao = route.paged(q.reshape(B, 1, -1).contiguous(), k4, v4, idx, pos,
+                     table, n_pages, kv_mul)
+    return ao.reshape(B, -1)
+
+
+def paged_attention_q8(head_size: int, kv_mul: int, n_pages: int,
+                       q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       kq4: torch.Tensor, kd4: torch.Tensor,
+                       vq4: torch.Tensor, vd4: torch.Tensor, idx: int,
+                       pos: torch.Tensor, table: torch.Tensor,
+                       route: Route) -> torch.Tensor:
+    """paged_decode_attention over Q8 pages: each row's flattened k/v is
+    quantized on write (quantize_q80_torch, the JAX package's
+    quantize_q80_jax), codes and deltas written at the same (page,
+    offset), then ``route.paged_q8`` (K7) attends. Returns (B, n_q*hs)."""
+    B, n_kv = q.shape[0], kq4.shape[2]
+    rows, off = _page_coords(table, pos, idx, n_pages, kq4.shape[1])
+    for x, codes, deltas in ((k, kq4, kd4), (v, vq4, vd4)):
+        qs, d = quantize_q80_torch(x)
+        codes.index_put_((rows, off), qs.reshape(B, n_kv, head_size))
+        deltas.index_put_((rows, off), d)
+    ao = route.paged_q8(q.reshape(B, 1, -1).contiguous(), kq4, kd4, vq4,
+                        vd4, idx, pos, table, n_pages, kv_mul)
+    return ao.reshape(B, -1)
+
+
+def gather_pages(cache: KVCache, table: torch.Tensor,
+                 page_size: int) -> KVCache:
+    """One slot's virtual (L, S, n_kv, hs) sequence cache copied out of its
+    pool pages, ``table`` its (max_pages,) logical -> physical row: the
+    admission-prefill seed (a suffix chunk attends over the shared prefix).
+    Entries past the live prefix gather scrap-page junk that prefill
+    overwrites before any chunk reads it."""
+    idx = table.long()
+
+    def g(plane):
+        got = plane[:, idx]              # (L, max_pages, ps, n_kv, hs)
+        return got.reshape(plane.shape[0], -1, *plane.shape[3:])
+
+    return KVCache(g(cache.k), g(cache.v))
+
+
+def scatter_pages(cache: KVCache, seq_cache: KVCache, table: torch.Tensor,
+                  page_size: int) -> KVCache:
+    """gather_pages' inverse, IN PLACE on the pool's own storage (a CUDA
+    graph captured over the pool keeps reading it): the prefilled sequence
+    cache goes back to the slot's physical pages. Shared prefix pages get
+    their own bytes back; entries parked on the scrap page take the junk.
+    Returns ``cache``."""
+    idx = table.long()
+    for plane, seq in ((cache.k, seq_cache.k), (cache.v, seq_cache.v)):
+        plane.index_copy_(1, idx, seq.reshape(plane.shape[0], -1,
+                                              *plane.shape[2:]))
+    return cache
+
+
+def gather_pages_q8(cache: PagedKVQ8, table: torch.Tensor,
+                    page_size: int) -> KVCache:
+    """gather_pages' Q8 twin: the slot's sequence cache dequantized to f32
+    (dequantize_q80_planes), the values decode reads."""
+    idx = table.long()
+    L, _, ps, n_kv, hs = cache.kq.shape
+
+    def g(codes, d):
+        c = codes[:, idx].reshape(L, -1, n_kv, hs)
+        return dequantize_q80_planes(c, d[:, idx].reshape(L, c.shape[1], -1))
+
+    return KVCache(g(cache.kq, cache.kd), g(cache.vq, cache.vd))
+
+
+def scatter_pages_q8(cache: PagedKVQ8, seq_cache: KVCache,
+                     table: torch.Tensor, page_size: int) -> PagedKVQ8:
+    """scatter_pages' Q8 twin, in place: each position of the prefilled
+    plane Q80-quantized, codes and deltas written to the slot's pages.
+    Re-quantizing is not byte-idempotent, so the engine parks a shared
+    page's entry on the scrap page: it keeps its first publisher's bytes.
+    Returns ``cache``."""
+    idx = table.long()
+    L, _, ps, n_kv, hs = cache.kq.shape
+    for codes, deltas, seq in ((cache.kq, cache.kd, seq_cache.k),
+                               (cache.vq, cache.vd, seq_cache.v)):
+        qs, d = quantize_q80_torch(seq.reshape(L, -1, n_kv * hs))
+        codes.index_copy_(1, idx, qs.reshape(L, -1, ps, n_kv, hs))
+        deltas.index_copy_(1, idx, d.reshape(L, -1, ps, d.shape[-1]))
+    return cache
+
+
 class Route(NamedTuple):
     """Which Q40 matmul, dense matmul, decode attention (T = 1), prefill
-    attention (T > 1) and batched decode attention (forward_batch) the
+    attention (T > 1), batched decode attention (forward_batch) and paged
+    decode attention over f32/bf16 and Q8 pages (forward_batch_paged) the
     forward calls."""
 
     q40: Callable
@@ -109,21 +291,25 @@ class Route(NamedTuple):
     attention: Callable
     prefill: Callable
     batch: Callable
+    paged: Callable
+    paged_q8: Callable
 
 
 # the kernel wrappers (the plain versions on CPU tensors) — the main path
 KERNELS = Route(q40_matmul, dense_matmul, decode_attention,
-                prefill_attention, decode_attention_batch)
+                prefill_attention, decode_attention_batch, paged_flash,
+                paged_flash_q8)
 # the plain versions on any device — to hold the kernels against on the card
 PLAIN = Route(q40_matmul_plain, dense_matmul, decode_attention_plain,
-              prefill_attention_plain, decode_attention_batch_plain)
+              prefill_attention_plain, decode_attention_batch_plain,
+              paged_flash_plain, paged_flash_q8_plain)
 # --fast-prefill's T > 8 chunks: bf16 products, f32 accumulation (K3b, K4b)
-FAST = Route(partial(q40_matmul, bf16=True), dense_matmul_bf16,
-             decode_attention, partial(prefill_attention, bf16=True),
-             decode_attention_batch)
-FAST_PLAIN = Route(partial(q40_matmul_plain, bf16=True), dense_matmul_bf16,
-                   decode_attention_plain, prefill_attention_bf16_plain,
-                   decode_attention_batch_plain)
+FAST = KERNELS._replace(q40=partial(q40_matmul, bf16=True),
+                        dense=dense_matmul_bf16,
+                        prefill=partial(prefill_attention, bf16=True))
+FAST_PLAIN = PLAIN._replace(q40=partial(q40_matmul_plain, bf16=True),
+                            dense=dense_matmul_bf16,
+                            prefill=prefill_attention_bf16_plain)
 
 
 def with_body(route: Route, multi_body: str) -> Route:
@@ -362,6 +548,52 @@ class Llama(nn.Module):
         its own 0..pos[b], so whatever lies past a row's clock is
         invisible."""
         return self.forward_batch(cache, tokens, pos, route)
+
+    def forward_batch_paged(self, cache, tokens: torch.Tensor,
+                            pos: torch.Tensor, table: torch.Tensor,
+                            route: Route | None = None) -> torch.Tensor:
+        """One token for each of B rows over the paged pool: cache from
+        init_cache_paged (KVCache, f32 or bf16) or init_cache_paged_q8
+        (PagedKVQ8), tokens (B,) and pos (B,) int32 and the page table
+        (B, seq_len // page_size) int32, all on the device. Row b's k/v
+        land at its page table's (page, offset) of pos[b]; attention runs
+        through K6 (K7 over Q8 pages). The rest is forward_batch's math,
+        so over the same history the logits equal forward_batch_ragged's.
+        Reads no device value on the host; the caller keeps each row's
+        positions inside its mapped pages (or parks the row on the scrap
+        page)."""
+        spec, p = self.spec, self.params
+        route = self.route if route is None else route
+        batch = tokens.shape[0]
+        planes, n_pages = paged_cache_planes(cache)
+        ps = planes[0].shape[1]
+        if pos.dtype != torch.int32 or tuple(pos.shape) != (batch,):
+            raise ValueError(f"forward_batch_paged: pos must be an int32 "
+                             f"({batch},) tensor, got {pos.dtype} "
+                             f"{tuple(pos.shape)}")
+        if (table.dtype != torch.int32
+                or tuple(table.shape) != (batch, spec.seq_len // ps)):
+            raise ValueError(f"forward_batch_paged: table must be int32 "
+                             f"({batch}, {spec.seq_len // ps}), got "
+                             f"{table.dtype} {tuple(table.shape)}")
+        if planes[0].shape[0] != spec.n_layers * n_pages:
+            raise ValueError("forward_batch_paged: the pool does not hold "
+                             "this model's layers")
+        q8 = isinstance(cache, PagedKVQ8)
+        hs, kv_mul = spec.head_size, spec.kv_mul
+        x = p["tok_embedding"][tokens].to(torch.float32)
+        rope = rope_rows(self.freq, pos)
+        for idx, lw in enumerate(self.layers):
+            q, k, v = _qkv_proj(spec, lw, x, rope, route)
+            if q8:
+                ao = paged_attention_q8(hs, kv_mul, n_pages, q, k, v,
+                                        *planes, idx, pos, table, route)
+            else:
+                ao = paged_decode_attention(hs, kv_mul, n_pages, q, k, v,
+                                            *planes, idx, pos, table, route)
+            x = _post_attention(spec, lw, x, ao, route)
+        x = rmsnorm(x, p["rms_final"])
+        return _mm(p["wcls"], x, route)
 
     def _batch_rows(self, batch: int, device) -> torch.Tensor:
         """(L, B) int64 rows layer*B + b of the (L*B, S, n_kv, hs) view,

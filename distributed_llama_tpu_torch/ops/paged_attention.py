@@ -1,0 +1,249 @@
+"""Paged decode attention: the hand-written CUDA kernels
+``csrc/paged_attention.cu`` (K6 over f32 or bf16 pages, K7 over Q8 pages),
+their plain PyTorch versions, and the ``--kv-quant`` setting.
+
+K6 replaces the JAX package's ops/pallas_paged_attention.py
+``paged_decode_attention_kernel`` and K7 its ``_q8`` twin. Both take the
+JAX interface: q (B, t_len, n_q*hs) f32; the rank-4 pool planes (L*P, ps,
+n_kv, hs) (plus the (L*P, ps, n_kv*hs/32) f16 delta planes of Q8 pages);
+``layer``; ``pos`` (B,) int32 and ``table`` (B, max_pages) int32, both on
+the device. Query i of row b sees keys 0..min(pos[b]+i, max_pages*ps-1)
+(the budget-edge clamp), key t living at page row layer*P + table[b, t //
+ps], offset t % ps. They return (B, t_len, n_q*hs) f32. The decode step
+launches t_len 1; t_len up to 8 (a verify window) is built and held against
+the plain version on the card.
+
+The plain versions are the JAX package's XLA gather route
+(models/llama.py paged_decode_attention): row b's pages gathered in logical
+order, keys masked past pos+i, then ``attention_core``; Q8 pages are
+dequantized after the gather with ``dequantize_q80_planes``. They gather a
+row's live keys only, so at t_len 1 they compute
+``decode_attention_batch_plain``'s function with its very calls: over a
+pool that holds a contiguous cache's values the two give the same bits.
+They read the positions on the host (a sync on the card), which only the
+kernels avoid.
+
+The wrappers take the plain versions only for tensors on the CPU. On a
+CUDA tensor they launch the kernel or raise: there is no fallback, not for
+a shape the kernels do not take either.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+from ._build import CudaKernel
+from .attention import (_KV_MULS, _MAX_HEAD, CACHE_DTYPES, attention_core,
+                        attention_scale)
+from .quants import QK, dequantize_q80_planes
+
+KV_QUANTS = ("f32", "q8")  # the --kv-quant vocabulary (f32 = cache dtype)
+MAX_T_LEN = 8  # the longest query window the kernels take
+
+_PAGED_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
+               + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+               + [ctypes.c_float, ctypes.c_void_p])
+_Q8_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+            + [ctypes.c_float, ctypes.c_void_p])
+PAGED_KERNEL = CudaKernel("paged_attention.cu", "paged_attention",
+                          _PAGED_ARGS)
+PAGED_KERNEL_KVBF16 = CudaKernel("paged_attention.cu",
+                                 "paged_attention_kvbf16", _PAGED_ARGS)
+PAGED_KERNEL_Q8 = CudaKernel("paged_attention.cu", "paged_attention_q8",
+                             _Q8_ARGS)
+KERNELS = (PAGED_KERNEL, PAGED_KERNEL_KVBF16, PAGED_KERNEL_Q8)
+
+
+def kv_quant_mode() -> str:
+    """The KV page quantization in effect: DLLAMA_KV_QUANT=f32|q8 (unset or
+    empty = f32). Unknown values raise: a typo would otherwise silently
+    serve f32 pages. The CLI and the engine read it once and pass it down."""
+    env = os.environ.get("DLLAMA_KV_QUANT") or "f32"
+    if env not in KV_QUANTS:
+        raise ValueError(f"DLLAMA_KV_QUANT={env!r}: expected "
+                         f"{'|'.join(KV_QUANTS)}")
+    return env
+
+
+def supports_paged(page_size: int, n_kv: int, head_size: int, t_len: int,
+                   kv_mul: int = 1, q8: bool = False) -> bool:
+    """The shapes K6 and K7 take: t_len 1..8 queries, kv_mul in {1, 2, 4,
+    8}, a head size that is a multiple of 4 up to 128, any page size; Q8
+    pages also need the flattened (n_kv, hs) row to divide into 32-value
+    blocks. (The JAX gate's VMEM budget has no counterpart: a block holds
+    no page.) A CUDA call outside them raises."""
+    if q8 and (n_kv * head_size) % QK:
+        return False
+    return (1 <= t_len <= MAX_T_LEN and kv_mul in _KV_MULS
+            and head_size % 4 == 0 and head_size <= _MAX_HEAD
+            and page_size >= 1)
+
+
+def _paged_plain(q: torch.Tensor, read, layer: int, pos: torch.Tensor,
+                 table: torch.Tensor, n_pages: int, page_size: int,
+                 kv_mul: int) -> torch.Tensor:
+    """The gather route over ``read(rows) -> (k, v)``, each (n, ps, n_kv,
+    hs) for the n page rows ``rows``: row b's live pages in logical order,
+    keys 0..min(pos[b]+i, S-1) for query i, attention_core per row."""
+    batch, t_len, _ = q.shape
+    s_virt = table.shape[1] * page_size
+    outs = []
+    for b, p in enumerate(pos.tolist()):
+        last = min(p + t_len - 1, s_virt - 1)
+        n_live = last // page_size + 1
+        rows = layer * n_pages + table[b, :n_live].long()
+        k, v = read(rows)
+        hs = k.shape[-1]
+        k = k.reshape(n_live * page_size, *k.shape[2:])[:last + 1]
+        v = v.reshape(n_live * page_size, *v.shape[2:])[:last + 1]
+        mask = None
+        if t_len > 1:
+            sees = torch.clamp(torch.arange(p, p + t_len, device=q.device),
+                               max=s_virt - 1)
+            mask = (torch.arange(last + 1, device=q.device)[None, :]
+                    <= sees[:, None])
+        outs.append(attention_core(hs, kv_mul, q[b].reshape(t_len, -1, hs),
+                                   k, v, mask))
+    return torch.stack(outs)
+
+
+def paged_decode_attention_plain(q: torch.Tensor, k4: torch.Tensor,
+                                 v4: torch.Tensor, layer: int,
+                                 pos: torch.Tensor, table: torch.Tensor,
+                                 n_pages: int, kv_mul: int) -> torch.Tensor:
+    """K6's function: q (B, t_len, n_q*hs) over f32/bf16 pages ->
+    (B, t_len, n_q*hs) f32."""
+    return _paged_plain(q, lambda rows: (k4[rows], v4[rows]), layer, pos,
+                        table, n_pages, k4.shape[1], kv_mul)
+
+
+def paged_decode_attention_q8_plain(q: torch.Tensor, kq4: torch.Tensor,
+                                    kd4: torch.Tensor, vq4: torch.Tensor,
+                                    vd4: torch.Tensor, layer: int,
+                                    pos: torch.Tensor, table: torch.Tensor,
+                                    n_pages: int,
+                                    kv_mul: int) -> torch.Tensor:
+    """K7's function: the gather route after ``dequantize_q80_planes`` of
+    the gathered code and delta rows."""
+    def read(rows):
+        return (dequantize_q80_planes(kq4[rows], kd4[rows]),
+                dequantize_q80_planes(vq4[rows], vd4[rows]))
+
+    return _paged_plain(q, read, layer, pos, table, n_pages, kq4.shape[1],
+                        kv_mul)
+
+
+def _check(name, q, planes, layer, pos, table, n_pages, kv_mul,
+           q8: bool) -> None:
+    if q.dim() != 3 or q.dtype != torch.float32 or not q.is_contiguous():
+        raise ValueError(f"{name}: q must be a contiguous float32 (B, t_len, "
+                         f"n_q*hs), got {q.dtype} {tuple(q.shape)}")
+    batch, t_len = q.shape[0], q.shape[1]
+    k4 = planes[0]
+    if k4.dim() != 4:
+        raise ValueError(f"{name}: pages must be (L*P, ps, n_kv, hs), got "
+                         f"{tuple(k4.shape)}")
+    rows, ps, n_kv, hs = k4.shape
+    if q8:
+        kq4, kd4, vq4, vd4 = planes
+        nb = n_kv * hs // QK
+        if (kq4.dtype != torch.int8 or vq4.dtype != torch.int8
+                or vq4.shape != kq4.shape
+                or kd4.dtype != torch.float16 or vd4.dtype != torch.float16
+                or tuple(kd4.shape) != (rows, ps, nb)
+                or vd4.shape != kd4.shape):
+            raise ValueError(f"{name}: Q8 pages must be int8 codes (L*P, ps, "
+                             f"n_kv, hs) and f16 deltas (L*P, ps, {nb})")
+    else:
+        v4 = planes[1]
+        if k4.dtype not in CACHE_DTYPES or v4.dtype != k4.dtype \
+                or v4.shape != k4.shape:
+            raise ValueError(f"{name}: pages must be equal float32 or "
+                             f"bfloat16 planes, got {k4.dtype} "
+                             f"{tuple(k4.shape)} and {v4.dtype} "
+                             f"{tuple(v4.shape)}")
+    for t in (q, *planes):
+        if t.device != q.device:
+            raise ValueError(f"{name}: every tensor must lie on {q.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be contiguous and "
+                             f"16-byte aligned")
+    if not supports_paged(ps, n_kv, hs, t_len, kv_mul, q8):
+        raise ValueError(f"{name}: the kernel takes t_len 1..{MAX_T_LEN}, "
+                         f"kv_mul in {_KV_MULS} and a head size that is a "
+                         f"multiple of 4 up to {_MAX_HEAD} (Q8: n_kv*hs a "
+                         f"multiple of {QK}), got t_len={t_len} "
+                         f"kv_mul={kv_mul} n_kv={n_kv} hs={hs}")
+    if q.shape[2] != n_kv * kv_mul * hs:
+        raise ValueError(f"{name}: q rows must hold {n_kv * kv_mul * hs} "
+                         f"values, got {q.shape[2]}")
+    if n_pages < 1 or rows % n_pages or not 0 <= layer < rows // n_pages:
+        raise ValueError(f"{name}: layer {layer} of {n_pages} pages out of "
+                         f"range for {rows} page rows")
+    if (pos.dtype != torch.int32 or tuple(pos.shape) != (batch,)
+            or pos.device != q.device or not pos.is_contiguous()):
+        raise ValueError(f"{name}: pos must be a contiguous int32 ({batch},) "
+                         f"on {q.device}")
+    if (table.dtype != torch.int32 or table.dim() != 2
+            or table.shape[0] != batch or table.device != q.device
+            or not table.is_contiguous()):
+        raise ValueError(f"{name}: table must be a contiguous int32 "
+                         f"({batch}, max_pages) on {q.device}")
+
+
+def _launch(kernel, q, planes, layer, pos, table, n_pages, kv_mul):
+    batch, t_len, _ = q.shape
+    _, ps, n_kv, hs = planes[0].shape
+    out = torch.empty_like(q)
+    kernel.launch(q.data_ptr(), *(p.data_ptr() for p in planes),
+                  out.data_ptr(), layer, pos.data_ptr(), table.data_ptr(),
+                  batch, t_len, n_pages, table.shape[1], ps, n_kv, kv_mul, hs,
+                  attention_scale(hs),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+    return out
+
+
+def paged_decode_attention(q: torch.Tensor, k4: torch.Tensor,
+                           v4: torch.Tensor, layer: int, pos: torch.Tensor,
+                           table: torch.Tensor, n_pages: int,
+                           kv_mul: int) -> torch.Tensor:
+    """Attention of t_len queries per row over f32/bf16 pages (see the
+    module docstring). CPU tensors take the plain version; CUDA tensors
+    launch K6, built for the page dtype, which reads pos and the table on
+    the device."""
+    if q.device.type == "cpu" and k4.device.type == "cpu":
+        return paged_decode_attention_plain(q, k4, v4, layer, pos, table,
+                                            n_pages, kv_mul)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention: no kernel for device "
+                         f"{q.device}")
+    _check("paged_decode_attention", q, (k4, v4), layer, pos, table,
+           n_pages, kv_mul, q8=False)
+    kernel = (PAGED_KERNEL if k4.dtype == torch.float32
+              else PAGED_KERNEL_KVBF16)
+    return _launch(kernel, q, (k4, v4), layer, pos, table, n_pages, kv_mul)
+
+
+def paged_decode_attention_q8(q: torch.Tensor, kq4: torch.Tensor,
+                              kd4: torch.Tensor, vq4: torch.Tensor,
+                              vd4: torch.Tensor, layer: int,
+                              pos: torch.Tensor, table: torch.Tensor,
+                              n_pages: int, kv_mul: int) -> torch.Tensor:
+    """paged_decode_attention over Q8 pages: CPU tensors take the plain
+    version; CUDA tensors launch K7, which widens the codes in its page
+    loop."""
+    if q.device.type == "cpu" and kq4.device.type == "cpu":
+        return paged_decode_attention_q8_plain(q, kq4, kd4, vq4, vd4, layer,
+                                               pos, table, n_pages, kv_mul)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention_q8: no kernel for device "
+                         f"{q.device}")
+    planes = (kq4, kd4, vq4, vd4)
+    _check("paged_decode_attention_q8", q, planes, layer, pos, table,
+           n_pages, kv_mul, q8=True)
+    return _launch(PAGED_KERNEL_Q8, q, planes, layer, pos, table, n_pages,
+                   kv_mul)

@@ -136,6 +136,18 @@ def dequantize_q80_torch(qs: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return y.reshape(*qs.shape[:-2], qs.shape[-2] * QK)
 
 
+def dequantize_q80_planes(codes: torch.Tensor,
+                          d: torch.Tensor) -> torch.Tensor:
+    """Q80 decode of PLANE-shaped codes (..., n_kv, hs) int8 with per-block
+    f16 deltas (..., n_kv*hs/32): the Q8 KV-page layout. Blocks run over
+    the flattened head-major (n_kv, hs) row; each value is exactly
+    ``codes.float() * d.float()``, the one value map every Q8 page read
+    shares (the plain versions, K7 and the admission-prefill gather)."""
+    *lead, n_kv, hs = codes.shape
+    y = dequantize_q80_torch(codes.reshape(*lead, n_kv * hs // QK, QK), d)
+    return y.reshape(*lead, n_kv, hs)
+
+
 def pack_q40_bytes(qs: np.ndarray, d: np.ndarray) -> bytes:
     """Planar -> reference wire bytes (f16 delta || 16 qs bytes per block)."""
     nb = int(np.prod(qs.shape[:-1]))

@@ -29,17 +29,21 @@ The coins are the one thing drawn on the host: the reference's xorshift
 stream is data-independent, so generate_fast pre-draws one per possibly
 sampled step on a clone of the sampler's stream and rewinds afterwards.
 
-A kernel wrapper counts a launch when Python calls it, so a call made
-during capture counts though nothing ran, and a replay counts nothing.
-``DecodeLoop`` moves the captured calls' counts onto the replays: after a
-run every kernel's count is exactly the number of times it ran.
+``GraphStep`` is the capture itself, shared with the continuous engine
+(runtime/continuous.py): a function of static buffers run once eagerly as
+the warm-up, captured, then replayed. A kernel wrapper counts a launch when
+Python calls it, so a call made during capture counts though nothing ran,
+and a replay counts nothing; ``GraphStep`` moves the captured calls' counts
+onto the replays: after a run every kernel's count is exactly the number
+of times it ran. ``sample_device_dynamic`` is ``sample_device`` with
+per-row temperature and top-p, for the continuous chain.
 
 There is no fallback: if capture or a launch fails, the run raises; it
 never drops to eager mode or to the plain versions. ``graph=False`` runs
 the step eagerly on the card, as the tests do to hold the graph against it.
 
-Left out: ``sample_device_dynamic`` and ``greedy_verify_tokens`` (the
-continuous-batching slice), and ``make_decode_loop_aot`` with its
+Left out: ``greedy_verify_tokens`` (speculative decoding, a later
+slice), and ``make_decode_loop_aot`` with its
 executable cache and upload touch, which are TPU-runtime machinery with no
 torch twin.
 """
@@ -68,20 +72,23 @@ def _mult_walk(probs: torch.Tensor, coin: torch.Tensor) -> torch.Tensor:
 
 
 def _nucleus_walk(probs: torch.Tensor, coin: torch.Tensor,
-                  topp: float) -> torch.Tensor:
+                  topp: float | torch.Tensor) -> torch.Tensor:
     """Nucleus pick (tokenizer.cpp:240-281) over the last dim: the cutoff
     pre-filter, a stable descending sort (ties keep index order), the cut
     at cum > topp, and the CDF walk over the kept prefix scaled by
     coin * cum. When the cutoff keeps nothing (possible for topp < 1/v) it
-    falls back to the argmax, as the host Sampler does."""
+    falls back to the argmax, as the host Sampler does. ``topp`` is one
+    number for every row, or a per-row f32 tensor (the cutoff then computed
+    in f32, as the JAX package's traced topp is)."""
     vocab = probs.shape[-1]
-    cutoff = (1.0 - topp) / (vocab - 1)
+    tp = topp[..., None] if isinstance(topp, torch.Tensor) else topp
+    cutoff = (1.0 - tp) / (vocab - 1)
     kept = torch.where(probs >= cutoff, probs, torch.zeros_like(probs))
     p_sorted, order = torch.sort(kept, dim=-1, descending=True, stable=True)
     cum = torch.cumsum(p_sorted, dim=-1)
     total = cum[..., -1]
     # the first index where the cumulative probability exceeds topp
-    last = torch.argmax((cum > topp).to(torch.uint8), dim=-1)
+    last = torch.argmax((cum > tp).to(torch.uint8), dim=-1)
     last = torch.where(total > topp, last, torch.full_like(last, vocab - 1))
     r = coin * torch.gather(cum, -1, last[..., None])[..., 0]
     idx = torch.searchsorted(cum, r[..., None], right=True)[..., 0]
@@ -104,6 +111,75 @@ def sample_device(logits: torch.Tensor, coin: torch.Tensor,
     if topp <= 0 or topp >= 1:
         return _mult_walk(probs, coin)
     return _nucleus_walk(probs, coin, topp)
+
+
+def sample_device_dynamic(logits: torch.Tensor, coin: torch.Tensor,
+                          temperature: torch.Tensor,
+                          topp: torch.Tensor) -> torch.Tensor:
+    """sample_device with per-row sampling parameters (the continuous
+    chain, where each slot carries its own request's): logits (B, V),
+    coin, temperature and topp (B,) f32 -> (B,) int64. The strategy cannot
+    be chosen once, so it computes the greedy, multinomial and nucleus
+    candidates and selects among them per row, as the JAX package's
+    sample_device_dynamic does (degenerate-nucleus argmax fallback
+    included)."""
+    greedy = torch.argmax(logits, dim=-1)
+    safe_t = torch.where(temperature == 0.0, torch.ones_like(temperature),
+                         temperature)
+    probs = torch.softmax(logits.to(torch.float32) / safe_t[:, None], dim=-1)
+    in01 = (topp > 0.0) & (topp < 1.0)
+    return torch.where(temperature == 0.0, greedy,
+                       torch.where(in01, _nucleus_walk(probs, coin, topp),
+                                   _mult_walk(probs, coin)))
+
+
+class GraphStep:
+    """``step()``, a function of static device buffers that reads nothing on
+    the host, captured once in a CUDA graph and replayed.
+
+    The first ``run`` executes the step once eagerly on a side stream (the
+    capture's warm-up, which also makes each kernel's one-time
+    shared-memory opt-in), then captures it; later steps are replays. A
+    kernel wrapper counts a launch when Python calls it, so the capture's
+    calls are taken off the counts and added back per replay: after a run
+    every kernel's count is exactly the number of times it ran."""
+
+    def __init__(self, step: Callable[[], None], device):
+        self.step = step
+        self.device = torch.device(device)
+        self._graph: torch.cuda.CUDAGraph | None = None
+        self._per_replay: dict = {}  # kernel -> launches per replay
+        self.replays = 0
+
+    def _capture(self) -> None:
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self.step()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = {k: k.launches for k in ALL_KERNELS}
+        with torch.cuda.graph(graph):
+            self.step()
+        self._per_replay = {k: k.launches - n for k, n in before.items()
+                            if k.launches != n}
+        for k, n in before.items():
+            k.launches = n
+        self._graph = graph
+
+    def run(self, n: int) -> None:
+        """Run the step n times: the first call's first step is the
+        warm-up, then the capture; every other step a replay."""
+        if n <= 0:
+            return
+        if self._graph is None:
+            self._capture()
+            n -= 1
+        for _ in range(n):
+            self._graph.replay()
+        self.replays += n
+        for k, per_step in self._per_replay.items():
+            k.launches += per_step * n
 
 
 class DecodeLoop:
@@ -145,9 +221,11 @@ class DecodeLoop:
         self.coins = buf((batch, max_steps), torch.float32)
         self.out = buf((batch, max_steps), torch.int64, BOS)
         self.logits: torch.Tensor | None = None
-        self._graph: torch.cuda.CUDAGraph | None = None
-        self._captured: dict = {}  # kernel -> launches per replay
-        self.replays = 0
+        self._graphed = GraphStep(self._step, self.device)
+
+    @property
+    def replays(self) -> int:
+        return self._graphed.replays
 
     def _step(self) -> None:
         """Forward, sample, force the prompt, record, freeze finished rows,
@@ -169,33 +247,6 @@ class DecodeLoop:
         self.index.add_(1)
         self.done.copy_(~self.active.any())
         self.logits = logits
-
-    def _capture(self) -> None:
-        """The first step eagerly on a side stream (the capture's warm-up,
-        which also makes each kernel's one-time shared-memory opt-in), then
-        the capture of the next one, whose calls' counts are taken off the
-        kernels and kept as the launches of one replay."""
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._step()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        before = {k: k.launches for k in ALL_KERNELS}
-        with torch.cuda.graph(graph):
-            self._step()
-        self._captured = {k: k.launches - n for k, n in before.items()
-                          if k.launches != n}
-        for k, n in before.items():
-            k.launches = n
-        self._graph = graph
-
-    def _replay(self, n: int) -> None:
-        for _ in range(n):
-            self._graph.replay()
-        self.replays += n
-        for k, per_step in self._captured.items():
-            k.launches += per_step * n
 
     def run(self, prompts: np.ndarray, first: np.ndarray, coins: np.ndarray,
             start_pos: np.ndarray, num_steps: int) -> tuple[np.ndarray, int]:
@@ -224,14 +275,11 @@ class DecodeLoop:
         ran = 0
         while ran < num_steps:
             n = min(self.block, num_steps - ran)
-            if not self.graph:
+            if self.graph:
+                self._graphed.run(n)
+            else:
                 for _ in range(n):
                     self._step()
-            else:
-                if self._graph is None:
-                    self._capture()  # its warm-up is this run's first step
-                    ran, n = ran + 1, n - 1
-                self._replay(n)
             ran += n
             if bool(self.done):  # one read of the device per block
                 break

@@ -128,27 +128,41 @@ def test_cli_pieces_match_reference(model_files, capsys, mode):
 
 
 UNPORTED = [["--tp", "2"], ["--sp", "2"], ["--buffer-float-type", "f16"],
-            ["--slots", "4"], ["--kv-pages", "64"], ["--dispatch-tokens", "8"],
+            # --slots and --continuous are ported with --prompts-file;
+            # --spec-k and --metrics are not ported there
+            ["--slots", "4", "--prompts-file", "p.txt", "--continuous",
+             "--spec-k", "4"],
+            ["--kv-pages", "64"], ["--dispatch-tokens", "8"],
             ["--block-steps", "4"], ["--kv-host-pages", "8"],
             ["--stream-slices"],
             # --fast is ported: a checkpoint flag beside it still stops
-            ["--fast", "--save-state", "s.ckpt"], ["--continuous"],
+            ["--fast", "--save-state", "s.ckpt"],
+            ["--continuous", "--prompts-file", "p.txt", "--metrics"],
             ["--metrics"],
             ["--log-json"], ["--save-state", "s.ckpt"],
             ["--resume-state", "s.ckpt"],
-            # --prompts-file is ported; --continuous is not, and stops the
-            # run before the (absent) prompts file is opened
-            ["--prompts-file", "p.txt", "--continuous"],
+            # --prompts-file --continuous is ported; --dispatch-tokens is
+            # not, and stops the run before the (absent) prompts file is
+            # opened
+            ["--prompts-file", "p.txt", "--continuous", "--dispatch-tokens",
+             "8"],
+            # the continuous engine's flags outside --prompts-file
             ["--kv-page-size", "16"], ["--spec-k", "4"],
             ["--kv-quant", "q8"], ["--profile", "trace"],
             ["--tp-scheme", "fused"], ["--workers", "10.0.0.2:9998"],
             ["--nthreads", "4"], ["--coordinator", "h:1"],
             ["--model-from-root", "h:1"]]
+CONTINUOUS_FLAGS = ("--continuous", "--slots", "--block-steps", "--kv-pages",
+                    "--kv-page-size", "--kv-quant")
 
 
 def _unported_flag(extra):
-    """The flag the error must name: the first one that is not ported."""
+    """The flag the error must name: the first one that is not ported in
+    this combination (the continuous engine's flags are ported with
+    --prompts-file --continuous)."""
     ported = ("--fast", "--prompts-file")
+    if "--continuous" in extra and "--prompts-file" in extra:
+        ported += CONTINUOUS_FLAGS
     return next(a for a in extra if a.startswith("--") and a not in ported)
 
 
@@ -444,3 +458,126 @@ def test_cli_prompts_file_exit_2_paths(capsys, tmp_path):
     assert capsys.readouterr().err.strip() == (
         "--spec-k needs the paged KV cache: add --kv-page-size P (with "
         "--continuous)")
+
+
+# ---------------------------------------------------------------------------
+# --continuous
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def continuous_prompts(tmp_path):
+    """Prompts of 2 to 14 tokens whose leading " hi" pieces fill shared
+    pages of 4 positions."""
+    path = tmp_path / "continuous.txt"
+    path.write_text("hi hi hi hi hi hi hi hi hi\nhi\n"
+                    "hi hi hi hi hi hi hi hi hi hi hi hi hi\nhi hi hi hi\n"
+                    "hi hi hi hi hi hi\n\nhi hi hi hi hi hi hi hi hi hi hi\n")
+    return str(path)
+
+
+CONTINUOUS_OPTIONS = {
+    "contiguous": [],
+    "contiguous-chunk-block": ["--prefill-chunk", "4", "--block-steps", "4",
+                               "--kv-cache-dtype", "bf16"],
+    "paged": ["--kv-page-size", "4"],
+    "paged-chunk-block": ["--kv-page-size", "4", "--prefill-chunk", "4",
+                          "--block-steps", "4"],
+    "paged-q8": ["--kv-page-size", "4", "--kv-quant", "q8",
+                 "--prefill-chunk", "4"],
+    "paged-oversubscribed": ["--kv-page-size", "4", "--kv-pages", "12",
+                             "--block-steps", "4"],
+}
+
+
+@pytest.mark.parametrize("mode", sorted(SAMPLING))
+@pytest.mark.parametrize("opts", sorted(CONTINUOUS_OPTIONS))
+def test_cli_continuous_matches_reference(model_files, continuous_prompts,
+                                          capsys, monkeypatch, mode, opts):
+    """``inference --prompts-file --continuous --slots 2`` on the CPU:
+    the [i] rows, the token and step count line and the ``Paged KV:`` line
+    equal the JAX CLI's with the same flags, greedy and seeded, contiguous
+    and paged (f32 and q8 pages, prefix sharing, chunked admission prefill,
+    fused block steps, an oversubscribed pool)."""
+    from distributed_llama_tpu.frontend.cli import main as ref_main
+    from distributed_llama_tpu_torch.frontend.cli import main
+
+    # the JAX CLI writes --kv-quant into DLLAMA_KV_QUANT: restore it after
+    monkeypatch.setenv("DLLAMA_KV_QUANT", "")
+    model, tokp = model_files
+    temperature, topp, seed = SAMPLING[mode]
+    base = ["inference", "--model", model, "--tokenizer", tokp,
+            "--prompts-file", continuous_prompts, "--steps", "24",
+            "--temperature", str(temperature), "--topp", str(topp),
+            "--seed", str(seed), "--continuous", "--slots", "2",
+            *CONTINUOUS_OPTIONS[opts]]
+
+    def lines(out):
+        return [ln for ln in out.splitlines()
+                if re.match(r"\[\d\] ", ln) or ln.startswith(
+                    ("Generated tokens:", "Paged KV:"))]
+
+    assert ref_main(base + ["--tp", "1"]) == 0
+    want = lines(capsys.readouterr().out)
+    assert main(base + ["--device", "cpu"]) == 0
+    got = lines(capsys.readouterr().out)
+    assert got == want
+    # a "[i] done" and a "[i] 'text'" line per request, then the stats
+    assert len(want) == 13 + ("--kv-page-size" in base)
+    assert "across 6 requests (2 slots," in want[12]
+    if "--kv-page-size" in base:
+        assert "prefix hit rate 0%" not in want[13]
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--kv-quant", "q8", "--continuous"],
+     "--kv-quant q8 quantizes paged KV pages: add --kv-page-size P (with "
+     "--continuous)"),
+    (["--kv-pages", "8", "--continuous"],
+     "--kv-pages sizes the paged KV pool: add --kv-page-size P"),
+    (["--slots", "-1", "--continuous"],
+     "--slots must be non-negative (0 = auto: min(#prompts, 8)), got -1"),
+    (["--slots", "3"], "--slots/--block-steps/--kv-pages only apply to the "
+                       "continuous engine: add --continuous")])
+def test_cli_continuous_exit_2_paths(flags, message, capsys, tmp_path):
+    """Before any load (the model path does not exist), with a prompts
+    file: the JAX CLI's checks and messages."""
+    from distributed_llama_tpu_torch.frontend.cli import main
+
+    prompts = tmp_path / "p.txt"
+    prompts.write_text("hi\n")
+    rc = main(["inference", "--model", str(tmp_path / "absent.bin"),
+               "--tokenizer", str(tmp_path / "absent.tok"), "--device",
+               "cpu", "--prompts-file", str(prompts), *flags])
+    assert rc == 2
+    assert capsys.readouterr().err.strip() == message
+
+
+@pytest.mark.parametrize("flags", [["--continuous"], ["--slots", "2"]])
+def test_cli_continuous_needs_a_prompts_file(flags, capsys, tmp_path):
+    from distributed_llama_tpu_torch.frontend.cli import main
+
+    rc = main(["inference", "--model", str(tmp_path / "absent.bin"),
+               "--tokenizer", str(tmp_path / "absent.tok"), "--device",
+               "cpu", *flags])
+    assert rc == 2
+    assert capsys.readouterr().err.strip() == (
+        "--continuous/--slots need --prompts-file (the request queue)")
+
+
+def test_cli_continuous_reads_kv_quant_from_the_environment(
+        model_files, continuous_prompts, capsys, monkeypatch):
+    """DLLAMA_KV_QUANT=q8 without the flag gives q8 pages; an unknown value
+    raises, as in the JAX package."""
+    from distributed_llama_tpu_torch.frontend.cli import main
+
+    model, tokp = model_files
+    base = ["inference", "--model", model, "--tokenizer", tokp,
+            "--prompts-file", continuous_prompts, "--steps", "12",
+            "--temperature", "0", "--continuous", "--kv-page-size", "4",
+            "--device", "cpu"]
+    monkeypatch.setenv("DLLAMA_KV_QUANT", "q8")
+    assert main(base) == 0
+    assert "positions (q8)" in capsys.readouterr().out
+    monkeypatch.setenv("DLLAMA_KV_QUANT", "q4")
+    with pytest.raises(ValueError, match="DLLAMA_KV_QUANT"):
+        main(base)

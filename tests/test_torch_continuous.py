@@ -1,0 +1,309 @@
+"""The port's continuous engine (runtime/continuous.py) against the JAX
+package's, on the CPU (the kernels' plain versions):
+
+* ``ContinuousEngine.run`` streams equal to the JAX ``ContinuousEngine``'s
+  (numpy sampler on both sides) for the contiguous batch cache, paged f32
+  and bf16 pages with prefix sharing and Q8 pages, greedy and seeded
+  (temperature 0.8, top-p 0.9), token by token, with admission prefill at
+  chunk 4, with fused chains of 4 steps, and over an oversubscribed pool
+  that pauses rows and requeues admissions; the step counts, the
+  pause/requeue counts and the allocator counters are equal and both
+  audits are clean;
+* per-request sampling overrides inside one fused chain (greedy and
+  sampled rows side by side: ``sample_device_dynamic`` with per-row
+  parameters) and the fast-prefill admission route against JAX;
+* ``sample_device_dynamic`` against the JAX function and the host
+  ``Sampler``;
+* the engine's own contracts: paged streams equal contiguous ones, a
+  re-used engine repeats its streams, ``cancel`` and ``fail_all`` free
+  slots and pages, and the unported arguments raise.
+"""
+
+import tempfile
+
+import numpy as np
+import pytest
+import torch
+
+from distributed_llama_tpu.models.spec import TransformerSpec
+from distributed_llama_tpu.models.synth import synth_params
+from distributed_llama_tpu.ops.quants import FloatType
+
+SPEC = TransformerSpec(dim=64, hidden_dim=160, n_layers=2, n_heads=4,
+                       n_kv_heads=2, vocab_size=128, seq_len=32,
+                       weights_float_type=FloatType.Q40)
+_FIELDS = ("dim", "hidden_dim", "n_layers", "n_heads", "n_kv_heads",
+           "vocab_size", "seq_len", "weights_float_type")
+
+
+def _port_spec(spec):
+    from distributed_llama_tpu_torch.models.spec import TransformerSpec as PS
+    from distributed_llama_tpu_torch.ops.quants import FloatType as PFT
+
+    kw = {f: getattr(spec, f) for f in _FIELDS}
+    kw["weights_float_type"] = PFT(int(spec.weights_float_type))
+    return PS(**kw)
+
+
+def _host(params):
+    from distributed_llama_tpu_torch.io.loader import Q40Weight
+
+    return {k: (Q40Weight(np.asarray(v.qs), np.asarray(v.d16))
+                if hasattr(v, "qs") else np.asarray(v))
+            for k, v in params.items()}
+
+
+@pytest.fixture(scope="module")
+def model():
+    params = synth_params(SPEC, q40=True, seed=4, scale=0.3)
+    return params, _host(params)
+
+
+def _requests(seed=0, n=7):
+    """Prompts that share an 8-token system prefix (two pages of 4), then
+    1..9 tokens of their own."""
+    rng = np.random.default_rng(seed)
+    prefix = [1, *rng.integers(3, SPEC.vocab_size, 7)]
+    return [prefix + list(rng.integers(3, SPEC.vocab_size, k))
+            for k in (1, 3, 5, 2, 9, 4, 7)[:n]]
+
+
+LAYOUTS = {"contiguous": {}, "paged": {"page_size": 4},
+           "paged-q8": {"page_size": 4, "kv_quant": "q8"}}
+SCHEDULES = {"step": {}, "chunk4": {"prefill_chunk": 4},
+             "block4": {"block_steps": 4},
+             "oversubscribed": {"kv_pages": 12, "prefill_chunk": 4,
+                                "block_steps": 4}}
+SAMPLING = {"greedy": 0.0, "seeded": 0.8}
+
+
+def _run_both(model, temperature, slots=3, steps=24, requests=None,
+              ref_kw=None, **kw):
+    """The same requests through the JAX engine (``kw`` updated by
+    ``ref_kw``) and the port's on the CPU."""
+    from distributed_llama_tpu.runtime.continuous import \
+        ContinuousEngine as Ref
+    from distributed_llama_tpu_torch.runtime.continuous import \
+        ContinuousEngine
+
+    params, host = model
+    reqs = requests or _requests()
+    ref = Ref(SPEC, params, slots, temperature, 0.9, 7,
+              use_native_sampler=False, **{**kw, **(ref_kw or {})})
+    want, wstats = ref.run(reqs, steps)
+    eng = ContinuousEngine(_port_spec(SPEC), host, slots, temperature, 0.9,
+                           7, device="cpu", **kw)
+    got, gstats = eng.run(reqs, steps)
+    return (want, wstats, ref), (got, gstats, eng)
+
+
+@pytest.mark.parametrize("mode", sorted(SAMPLING))
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_run_streams_match_reference(model, layout, schedule, mode):
+    kw = {**LAYOUTS[layout], **SCHEDULES[schedule]}
+    if "kv_pages" in kw and "page_size" not in kw:
+        kw = {k: v for k, v in kw.items() if k != "kv_pages"}
+    (want, ws, ref), (got, gs, eng) = _run_both(model, SAMPLING[mode], **kw)
+    assert got == want
+    assert sum(len(r) for r in got) > 7 * 12
+    assert (gs.tokens, gs.steps, gs.pauses, gs.requeues, gs.max_active,
+            gs.sum_active) == (ws.tokens, ws.steps, ws.pauses, ws.requeues,
+                               ws.max_active, ws.sum_active)
+    assert eng.audit_pages() == ref.audit_pages() == []
+    if eng.allocator is not None:
+        a, b = eng.allocator, ref.allocator
+        assert (a.prefix_hits, a.prefix_misses, a.tokens_saved, a.evictions,
+                a.n_free) == (b.prefix_hits, b.prefix_misses, b.tokens_saved,
+                              b.evictions, b.n_free)
+        assert a.prefix_hits > 0
+    if schedule == "oversubscribed" and "page_size" in kw:
+        assert gs.pauses + gs.requeues > 0
+
+
+@pytest.mark.parametrize("block", [1, 4])
+def test_bf16_pages_match_reference(model, block):
+    import jax.numpy as jnp
+
+    (want, _, _), (got, _, eng) = _run_both(
+        model, 0.0, page_size=4, cache_dtype=torch.bfloat16, prefill_chunk=4,
+        block_steps=block, ref_kw={"cache_dtype": jnp.bfloat16})
+    assert got == want and eng.cache.k.dtype == torch.bfloat16
+
+
+def test_fast_prefill_admission_matches_reference(model):
+    """fast_prefill: every admission chunk on the bf16 route, as the JAX
+    engine's one bf16 prefill program runs them (chunk 12 > 8 takes the
+    bf16 GEMM and prefill attention)."""
+    reqs = [r + r[1:] for r in _requests(3, 4)]  # 15..25 tokens
+    (want, _, _), (got, _, _) = _run_both(model, 0.0, requests=reqs,
+                                          steps=30, prefill_chunk=12,
+                                          fast_prefill=True, page_size=4)
+    assert got == want
+
+
+def test_per_request_overrides_in_one_chain_match_reference(model):
+    """Greedy and sampled rows in the same fused chain, each with its own
+    temperature, top-p and seed: sample_device_dynamic's per-row
+    selection."""
+    from distributed_llama_tpu.runtime.continuous import \
+        ContinuousEngine as Ref
+    from distributed_llama_tpu.runtime.continuous import Request as RefReq
+    from distributed_llama_tpu_torch.runtime.continuous import (
+        ContinuousEngine, Request)
+
+    params, host = model
+    overrides = [dict(temperature=0.0), dict(temperature=0.8, topp=0.9),
+                 dict(temperature=1.0, topp=0.0, seed=99),
+                 dict(temperature=0.7, topp=0.5, seed=5)]
+    outs = []
+    for make, req_cls, kw in (
+            (Ref, RefReq, {"use_native_sampler": False}),
+            (ContinuousEngine, Request, {"device": "cpu"})):
+        spec = SPEC if make is Ref else _port_spec(SPEC)
+        eng = make(spec, params if make is Ref else host, 3, 0.0, 0.9, 3,
+                   block_steps=4, page_size=4, **kw)
+        reqs = [eng.submit(req_cls(tokens=t, steps=20, **o))
+                for t, o in zip(_requests(5, 4), overrides)]
+        while eng.step_many(4):
+            pass
+        outs.append([r.out for r in reqs])
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("temperature,topp", [(0.8, 0.9), (1.0, 0.0),
+                                              (0.5, 1.0), (1.2, 0.3),
+                                              (0.7, 1e-4)])
+def test_sample_device_dynamic_matches_reference_and_host(temperature,
+                                                         topp):
+    """Rows of one batch under per-row parameters (the case's and a greedy
+    row): the same ids as the JAX function, row by row, and as the host
+    Sampler with the same coin."""
+    import jax.numpy as jnp
+
+    from distributed_llama_tpu.runtime.decode import \
+        sample_device_dynamic as ref
+    from distributed_llama_tpu_torch.runtime.decode import \
+        sample_device_dynamic
+    from distributed_llama_tpu_torch.runtime.sampling import (
+        sample_mult, sample_topp, softmax_f32)
+
+    rng = np.random.default_rng(int(temperature * 100 + topp * 10))
+    B, V = 6, 257
+    logits = (rng.normal(size=(B, V)) * 3).astype(np.float32)
+    coins = rng.random(B).astype(np.float32)
+    temps = np.asarray([temperature] * (B - 1) + [0.0], np.float32)
+    topps = np.full(B, topp, np.float32)
+    got = sample_device_dynamic(torch.from_numpy(logits),
+                                torch.from_numpy(coins),
+                                torch.from_numpy(temps),
+                                torch.from_numpy(topps)).tolist()
+    for b in range(B):
+        want = int(ref(jnp.asarray(logits[b]), jnp.float32(coins[b]),
+                       jnp.float32(temps[b]), jnp.float32(topps[b])))
+        if temps[b] == 0.0:
+            host = int(np.argmax(logits[b]))
+        else:
+            probs = softmax_f32(logits[b] / np.float32(temps[b]))
+            host = (sample_mult(probs, coins[b]) if topp <= 0 or topp >= 1
+                    else sample_topp(probs, topp, coins[b]))
+        assert got[b] == want == host, b
+
+
+def test_paged_streams_equal_contiguous(model):
+    """Paging is invisible in the streams (the port's form of the JAX
+    package's paged == contiguous gate), with and without sharing."""
+    from distributed_llama_tpu_torch.runtime.continuous import \
+        ContinuousEngine
+
+    _, host = model
+    spec = _port_spec(SPEC)
+    reqs = _requests(8)
+    streams = []
+    for kw in ({}, {"page_size": 4}, {"page_size": 4, "prefix_share": False},
+               {"page_size": 8, "prefill_chunk": 4}):
+        eng = ContinuousEngine(spec, host, 3, 0.0, 0.9, 1, device="cpu",
+                               **kw)
+        streams.append(eng.run(reqs, 24)[0])
+        again = eng.run(reqs, 24)[0]  # a warm tree: the same streams
+        assert again == streams[-1]
+        assert eng.audit_pages() == []
+    assert all(s == streams[0] for s in streams)
+
+
+def test_cancel_and_fail_all_free_slots_and_pages(model):
+    from distributed_llama_tpu_torch.runtime.continuous import (
+        ContinuousEngine, Request)
+
+    _, host = model
+    eng = ContinuousEngine(_port_spec(SPEC), host, 2, 0.0, 0.9, 1,
+                           page_size=4, device="cpu")
+    reqs = [eng.submit(Request(tokens=t, steps=20)) for t in _requests(2)]
+    eng.cancel(reqs[-1])  # still queued: done now, never admitted
+    assert reqs[-1].done.is_set() and not reqs[-1].out
+    eng.step_once()
+    eng.cancel(reqs[0])  # in flight: retired before the next dispatch
+    eng.step_once()
+    assert reqs[0].done.is_set() and eng.audit_pages() == []
+    eng.fail_all("stop")
+    assert all(r.done.is_set() for r in reqs)
+    assert all(r.error == "stop" for r in reqs[1:-1])
+    assert eng.allocator.n_free == eng.allocator.n_pages
+    assert len(eng.allocator.tree) == 0 and eng.audit_pages() == []
+    assert eng.step_once() == 0
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"mesh": object()}, "not yet ported: mesh"),
+    ({"spec_k": 2, "page_size": 4}, "not yet ported: spec_k"),
+    ({"dispatch_tokens": 8}, "not yet ported: dispatch_tokens"),
+    ({"journal": object()}, "not yet ported: journal"),
+    ({"kv_host_pages": 4, "page_size": 4}, "not yet ported: kv_host_pages"),
+    ({"kv_disk_dir": "d"}, "not yet ported: kv_disk_dir"),
+    ({"remote_pages": True}, "not yet ported: remote_pages"),
+    ({"kv_pages": 8}, "kv_pages requires page_size"),
+    ({"kv_quant": "q8"}, "quantizes PAGE planes"),
+    ({"kv_quant": "q4", "page_size": 4}, "expected f32|q8"),
+    ({"page_size": 5}, "must divide seq_len")])
+def test_engine_rejects_what_it_does_not_run(model, kw, match):
+    from distributed_llama_tpu_torch.runtime.continuous import \
+        ContinuousEngine
+
+    with pytest.raises(ValueError, match=match):
+        ContinuousEngine(_port_spec(SPEC), model[1], 2, 0.0, 0.9, 1,
+                         device="cpu", **kw)
+
+
+def test_generate_continuous_prints_the_reference_lines(model, capsys):
+    from distributed_llama_tpu.io.tokenizer import Tokenizer as RefTok
+    from distributed_llama_tpu.io.tokenizer import write_tokenizer
+    from distributed_llama_tpu.runtime.continuous import \
+        generate_continuous as ref_gen
+    from distributed_llama_tpu_torch.io.tokenizer import Tokenizer
+    from distributed_llama_tpu_torch.runtime.continuous import \
+        generate_continuous
+
+    pieces = [b"<unk>", b"<s>", b"</s>"]
+    pieces += [f"<0x{i:02X}>".encode() for i in range(256)]
+    pieces = pieces[:SPEC.vocab_size - 5] + [b" ", b"h", b"i", b"hi", b" hi"]
+    f = tempfile.NamedTemporaryFile(suffix=".bin", delete=False)
+    f.close()
+    write_tokenizer(f.name, pieces, [0.0] * (len(pieces) - 2) + [0.4, 0.5])
+    prompts = ["hi hi hi hi hi hi hi hi", "hi", "hi hi hi hi hi hi hi hi hi"]
+    params, host = model
+
+    def lines(out):
+        return [ln for ln in out.splitlines()
+                if ln.startswith(("[", "Generated", "Paged"))]
+
+    ref_gen(SPEC, params, RefTok(f.name, SPEC.vocab_size), prompts, 20, 0.0,
+            0.9, 1, slots=2, page_size=4, prefill_chunk=4,
+            use_native_sampler=False)
+    want = lines(capsys.readouterr().out)
+    generate_continuous(_port_spec(SPEC), host,
+                        Tokenizer(f.name, SPEC.vocab_size), prompts, 20, 0.0,
+                        0.9, 1, slots=2, page_size=4, prefill_chunk=4,
+                        device="cpu")
+    got = lines(capsys.readouterr().out)
+    assert got == want and len(got) == 8
+    assert got[-1].startswith("Paged KV:") and "(f32)" in got[-1]

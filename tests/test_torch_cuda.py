@@ -646,3 +646,261 @@ def test_captured_fast_loop_matches_the_host_loop(gen):
     assert launches["graph"] == {"q40_matvec": (4 * L + 1) * ran,
                                  "decode_attention_batch": L * ran}
     assert set(launches["host"]) == {"q40_matvec", "decode_attention"}
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention (K6 over f32 / bf16 pages, K7 over Q8 pages) and the
+# continuous engine
+# ---------------------------------------------------------------------------
+
+from distributed_llama_tpu_torch.ops import paged_attention  # noqa: E402
+
+
+def _paged_pool(gen, L, P, ps, n_kv, hs, dtype=torch.float32):
+    shape = (L * P, ps, n_kv, hs)
+    return (torch.randn(shape, device="cuda", generator=gen).to(dtype),
+            torch.randn(shape, device="cuda", generator=gen).to(dtype))
+
+
+def _scrambled(batch, max_pages, P, seed):
+    ids = 1 + np.random.default_rng(seed).permutation(P - 1)[:batch
+                                                            * max_pages]
+    return torch.tensor(ids.reshape(batch, max_pages), dtype=torch.int32,
+                        device="cuda")
+
+
+def _q8_pool(k4, v4):
+    from distributed_llama_tpu_torch.ops.quants import quantize_q80_torch
+
+    rows, ps, n_kv, hs = k4.shape
+    planes = []
+    for x in (k4, v4):
+        qs, d = quantize_q80_torch(x.reshape(rows, ps, n_kv * hs))
+        planes += [qs.reshape(rows, ps, n_kv, hs).contiguous(),
+                   d.contiguous()]
+    return planes  # kq4, kd4, vq4, vd4
+
+
+PAGED_POS = {1: [0, 13, 31], 4: [0, 9, 30], 8: [3, 17, 29]}
+
+
+@pytest.mark.parametrize("pages", ["f32", "bf16", "q8"])
+@pytest.mark.parametrize("kv_mul", [1, 2, 4, 8])
+@pytest.mark.parametrize("hs", [64, 128])
+@pytest.mark.parametrize("t_len", [1, 4, 8])
+@pytest.mark.parametrize("ps", [4, 16])
+def test_paged_kernels_match_plain(gen, pages, kv_mul, hs, t_len, ps):
+    """K6 (f32 and bf16 pages) and K7 against their plain versions over a
+    scrambled table, mid-page clocks, and a window running past the
+    virtual plane (the budget-edge clamp)."""
+    L, n_kv, max_pages = 2, 2, 32 // ps
+    P = 3 * max_pages + 2
+    dtype = torch.bfloat16 if pages == "bf16" else torch.float32
+    k4, v4 = _paged_pool(gen, L, P, ps, n_kv, hs, dtype)
+    table = _scrambled(3, max_pages, P, seed=ps + hs)
+    q = torch.randn((3, t_len, n_kv * kv_mul * hs), device="cuda",
+                    generator=gen)
+    pv = torch.tensor(PAGED_POS[t_len], dtype=torch.int32, device="cuda")
+    if pages == "q8":
+        planes = _q8_pool(k4, v4)
+        run = paged_attention.paged_decode_attention_q8
+        plain = paged_attention.paged_decode_attention_q8_plain
+        kernel = paged_attention.PAGED_KERNEL_Q8
+    else:
+        planes = [k4, v4]
+        run = paged_attention.paged_decode_attention
+        plain = paged_attention.paged_decode_attention_plain
+        kernel = (paged_attention.PAGED_KERNEL if pages == "f32"
+                  else paged_attention.PAGED_KERNEL_KVBF16)
+    for layer in range(L):
+        before = kernel.launches
+        got = run(q, *planes, layer, pv, table, P, kv_mul)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        want = plain(q, *planes, layer, pv, table, P, kv_mul)
+        assert got.shape == want.shape == q.shape
+        assert (got - want).abs().max().item() <= attention.KERNEL_ATOL
+
+
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_mul", [1, 8])
+@pytest.mark.parametrize("ps", [4, 16])
+def test_paged_kernel_at_t1_is_k5_bit_for_bit(gen, cache, kv_mul, ps):
+    """A (L*B, S, n_kv, hs) batch cache is also a pool of L*B*S/ps pages:
+    with the identity table K6 gives K5's bits, and under any permutation
+    of the physical pages it gives the same bits again."""
+    L, B, S, n_kv, hs = 2, 3, 48, 2, 128
+    k4 = torch.randn((L * B, S, n_kv, hs), device="cuda",
+                     generator=gen).to(cache)
+    v4 = torch.randn((L * B, S, n_kv, hs), device="cuda",
+                     generator=gen).to(cache)
+    q = torch.randn((B, n_kv * kv_mul, hs), device="cuda", generator=gen)
+    pv = torch.tensor([0, 29, 47], dtype=torch.int32, device="cuda")
+    mp = S // ps
+    P = B * mp
+    table = torch.arange(P, dtype=torch.int32,
+                         device="cuda").reshape(B, mp)
+    perm = torch.randperm(P, device="cuda", generator=gen)
+    for layer in range(L):
+        k5 = attention.decode_attention_batch(q, k4, v4, layer, pv, kv_mul)
+        pages = [t.reshape(L * P, ps, n_kv, hs) for t in (k4, v4)]
+        k6 = paged_attention.paged_decode_attention(
+            q.reshape(B, 1, -1), *pages, layer, pv, table, P, kv_mul)
+        assert torch.equal(k6.reshape(B, -1), k5)
+        moved = []
+        for t in pages:
+            m = torch.empty_like(t).reshape(L, P, ps, n_kv, hs)
+            m[:, perm] = t.reshape(L, P, ps, n_kv, hs)
+            moved.append(m.reshape(L * P, ps, n_kv, hs))
+        k6p = paged_attention.paged_decode_attention(
+            q.reshape(B, 1, -1), *moved, layer, pv,
+            perm.to(torch.int32)[table.long()], P, kv_mul)
+        assert torch.equal(k6p, k6)
+
+
+@pytest.mark.parametrize("kv_mul", [1, 2, 8])
+@pytest.mark.parametrize("t_len", [1, 4])
+def test_paged_q8_kernel_is_k6_over_the_dequantized_pool(gen, kv_mul,
+                                                         t_len):
+    from distributed_llama_tpu_torch.ops.quants import dequantize_q80_planes
+
+    L, ps, n_kv, hs, max_pages = 2, 8, 4, 64, 4
+    P = 2 * max_pages + 1
+    k4, v4 = _paged_pool(gen, L, P, ps, n_kv, hs)
+    kq4, kd4, vq4, vd4 = _q8_pool(k4, v4)
+    deq = [dequantize_q80_planes(kq4, kd4).contiguous(),
+           dequantize_q80_planes(vq4, vd4).contiguous()]
+    table = _scrambled(2, max_pages, P, seed=3)
+    q = torch.randn((2, t_len, n_kv * kv_mul * hs), device="cuda",
+                    generator=gen)
+    pv = torch.tensor([5, 31 - t_len + 1], dtype=torch.int32, device="cuda")
+    for layer in range(L):
+        a = paged_attention.paged_decode_attention_q8(
+            q, kq4, kd4, vq4, vd4, layer, pv, table, P, kv_mul)
+        b = paged_attention.paged_decode_attention(q, *deq, layer, pv, table,
+                                                   P, kv_mul)
+        assert torch.equal(a, b)
+
+
+def test_paged_kernels_raise_instead_of_falling_back(gen):
+    k4, v4 = _paged_pool(gen, 2, 5, 4, 2, 64)
+    table = torch.ones((2, 4), dtype=torch.int32, device="cuda")
+    q = torch.randn((2, 1, 128), device="cuda", generator=gen)
+    pv = torch.tensor([3, 4], dtype=torch.int32, device="cuda")
+    run = paged_attention.paged_decode_attention
+    with pytest.raises(ValueError, match="int32"):
+        run(q, k4, v4, 0, pv.long(), table, 5, 1)
+    with pytest.raises(ValueError, match="table"):
+        run(q, k4, v4, 0, pv, table.long(), 5, 1)
+    with pytest.raises(ValueError, match="out of range"):
+        run(q, k4, v4, 2, pv, table, 5, 1)
+    with pytest.raises(ValueError, match="t_len"):
+        run(torch.randn((2, 9, 128), device="cuda"), k4, v4, 0, pv, table,
+            5, 1)
+    with pytest.raises(ValueError, match="kv_mul"):
+        run(torch.randn((2, 1, 384), device="cuda"), k4, v4, 0, pv, table,
+            5, 3)
+    with pytest.raises(ValueError, match="on cuda"):
+        run(q, k4.cpu(), v4.cpu(), 0, pv, table, 5, 1)
+    kq4, kd4, vq4, vd4 = _q8_pool(k4, v4)
+    with pytest.raises(ValueError, match="Q8 pages"):
+        paged_attention.paged_decode_attention_q8(
+            q, kq4, kd4.float(), vq4, vd4, 0, pv, table, 5, 1)
+
+
+@pytest.mark.parametrize("pages", ["f32", "bf16", "q8"])
+def test_forward_batch_paged_kernels_match_plain_and_count_launches(gen,
+                                                                    pages):
+    spec = _small_spec()
+    params = llama.params_to_device(synth_params(spec, q40=True, seed=5),
+                                    "cuda")
+    kern = llama.Llama(spec, params)
+    plain = llama.Llama(spec, params, llama.PLAIN)
+    ps, B, L = 8, 3, spec.n_layers
+    n_pages = 1 + B * spec.seq_len // ps
+    dtype = torch.bfloat16 if pages == "bf16" else torch.float32
+
+    def pool():
+        if pages == "q8":
+            return llama.init_cache_paged_q8(spec, n_pages, ps, "cuda")
+        return llama.init_cache_paged(spec, n_pages, ps, "cuda", dtype)
+
+    ck, cp = pool(), pool()
+    table = _scrambled(B, spec.seq_len // ps, n_pages, seed=1)
+    symbol = {"f32": "paged_attention", "bf16": "paged_attention_kvbf16",
+              "q8": "paged_attention_q8"}[pages]
+    rtol = llama.LOGIT_RTOL if pages == "f32" else llama.FAST_RTOL
+    with torch.inference_mode():
+        for step, pos in enumerate(([0, 0, 0], [1, 1, 1], [2, 9, 40])):
+            tokens = torch.tensor([1 + step, 40, 299], device="cuda")
+            pv = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            before = {k: k.launches for k in (*q40.KERNELS,
+                                              *attention.KERNELS,
+                                              *paged_attention.KERNELS)}
+            a = kern.forward_batch_paged(ck, tokens, pv, table)
+            assert _deltas(before) == {"q40_matvec_multi": 4 * L + 1,
+                                       symbol: L}
+            b = plain.forward_batch_paged(cp, tokens, pv, table)
+            assert torch.isfinite(a).all()
+            err = (a - b).abs().max().item()
+            assert err <= rtol * b.abs().max().item(), (step, err)
+
+
+ENGINE_CASES = {  # label -> engine options
+    "contiguous": {},
+    "paged": {"page_size": 8},
+    "paged-bf16": {"page_size": 8, "cache_dtype": torch.bfloat16},
+    "paged-q8": {"page_size": 8, "kv_quant": "q8"},
+    "paged-q8-oversubscribed": {"page_size": 8, "kv_quant": "q8",
+                                "kv_pages": 10},
+}
+
+
+@pytest.mark.parametrize("case", sorted(ENGINE_CASES))
+@pytest.mark.parametrize("block", [1, 4])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_captured_continuous_engine_matches_eager(gen, case, block,
+                                                  temperature):
+    """The continuous engine with its steps captured and replayed, and
+    eagerly, on the same model and requests: equal streams (admission
+    prefill at chunk 4 runs between replays and writes the captured pool in
+    place), equal allocator counters, clean audits and exact launch counts:
+    K6/K7 (or K5) L per device step, the warm-ups and replays of every
+    graph together making all the steps."""
+    from distributed_llama_tpu_torch.runtime.continuous import \
+        ContinuousEngine
+
+    spec = _small_spec()
+    params = llama.params_to_device(synth_params(spec, q40=True, seed=5,
+                                                 scale=0.3), "cuda")
+    rng = np.random.default_rng(7)
+    prefix = [1, *rng.integers(3, spec.vocab_size, 15)]
+    reqs = [prefix + list(rng.integers(3, spec.vocab_size, n))
+            for n in (2, 9, 4, 12, 1, 6)]
+    opts = ENGINE_CASES[case]
+    kernels = (*q40.KERNELS, *attention.KERNELS, *paged_attention.KERNELS)
+    res = {}
+    for graph in (True, False):
+        eng = ContinuousEngine(spec, params, 3, temperature, 0.9, 11,
+                               prefill_chunk=4, block_steps=block,
+                               device="cuda", graph=graph, **opts)
+        before = {k: k.launches for k in kernels}
+        outs, stats = eng.run(reqs, 40)
+        torch.cuda.synchronize()
+        a = eng.allocator
+        res[graph] = (outs, _deltas(before), stats.steps, eng.audit_pages(),
+                      None if a is None else (a.prefix_hits, a.tokens_saved,
+                                              a.evictions),
+                      eng.graph_replays)
+    (g_out, g_counts, g_steps, g_audit, g_alloc, replays), \
+        (e_out, e_counts, e_steps, e_audit, e_alloc, _) = res[True], res[False]
+    assert g_out == e_out and sum(len(r) for r in g_out) > 40
+    assert g_steps == e_steps and g_alloc == e_alloc
+    assert g_audit == e_audit == []
+    assert g_counts == e_counts
+    symbol = ("decode_attention_batch" if "page_size" not in opts else
+              "paged_attention_q8" if "kv_quant" in opts else
+              "paged_attention_kvbf16" if "cache_dtype" in opts else
+              "paged_attention")
+    assert g_counts[symbol] == spec.n_layers * g_steps
+    assert replays + 1 == g_steps  # one graph: its warm-up, then replays
