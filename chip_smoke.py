@@ -27,13 +27,19 @@ no result line):
    K2); the paged decode attention over f32 and bf16 pages (K6) and Q8
    pages (K7) at the same shapes with pages of 16 in a permuted pool, t_len
    1, 4 and 8 (at t_len 1 K6 gives K5's bits over the same values, and K7
-   gives K6's bits over the dequantized pool). Max error against the stated tolerance; kernel, plain and library
+   gives K6's bits over the dequantized pool); the fused decode layer's
+   head (K8), tail (K9) and whole layer (K10, over an f32 and a bf16 cache,
+   part by part) at the 7B and GQA shapes at pos 0, 63 and 2047, timed
+   beside the unfused port path for the same work. Max error against the
+   stated tolerance; kernel, plain and library
    times (CUDA events, median of 25 launches, L2 flushed before each); the
    bound (bf16 rate for K3b, K4b and K1d) and what bounds it.
 3. End to end: a 7B-shaped Q40 model with random codes (seeded) and a
-   32000-piece tokenizer are written to build/smoke/, then the port's CLI
-   runs ``inference`` in-process fourteen times, every kernel's launch count
-   reset just before and read just after each run:
+   32000-piece tokenizer are written to build/smoke/ (by a process started
+   with phase 1, while the card runs phases 1 and 2), then the port's CLI
+   runs ``inference`` in-process fourteen times (runs e and f call the
+   CLI's ``generate`` in phase 4), every kernel's launch count reset just
+   before and read just after each run:
    a. 64 steps token by token, greedy: K1 4*L+1 = 129 and K2 L = 32
       launches per step;
    b. a 512-token prompt (BOS + 511 " hi") with ``--prefill-chunk 128
@@ -46,9 +52,10 @@ no result line):
       (bf16-cache build) 128 in the prefill, K3 and K4 0, then K1 and the
       bf16-cache K2 per decode step; its peak device memory must lie ~1.07
       GB (the halved cache) below run b's;
-   e. and f. run b with ``--fast-prefill`` alone (K3b, K4b over an f32
-      cache) and with ``--kv-cache-dtype bf16`` alone (K3, the bf16-cache
-      K4 and K2), 9 decode steps each;
+   e. and f. run b's prompt and chunk with --fast-prefill's setting alone
+      (K3b, K4b over an f32 cache) and with a bf16 cache alone (K3, the
+      bf16-cache K4 and K2), 9 decode steps each: ``generate`` on phase
+      4's weights, with no model load of their own;
    g. ``--prompts-file`` with 8 prompts of 4 to 40 tokens, 64 greedy
       lockstep steps, each a CUDA graph replay: K1m 129 and K5 32 launches
       per step, K1, K2 and K3 0; 8 rows of 64 tokens;
@@ -71,7 +78,13 @@ no result line):
       K6 through 16-step chains;
    n. run k with ``--kv-quant q8 --block-steps 16 --temperature 0.8 --seed
       7 --kv-pages 32``: K7, an oversubscribed pool that pauses or requeues
-      rows and fails none, ~3.76x fewer bytes per page than run k.
+      rows and fails none, ~3.76x fewer bytes per page than run k;
+   o. run a under ``DLLAMA_LAYER_FUSION=headtail``: per step 32 K8, 32 K2,
+      32 K9 and one K1 (wcls), nothing else;
+   p. run i (``--fast``) under ``DLLAMA_LAYER_FUSION=on``: per device step
+      32 K10 and one K1, no K2 or K5. The greedy streams of o and p equal
+      run a's, or part from it only at a step where run a's two largest
+      logits lie within the logit tolerance of each other.
 4. Kernels against plain at full width: the first 4 positions of the same
    model through the forward with the kernels and with the plain versions;
    then 8 more kernel steps timed, and 8 under torch.profiler for the
@@ -85,23 +98,25 @@ no result line):
    The same 512-token Engine.prefill with ``fast_prefill``, timed back to
    back with the parity prefill and profiled once, its cache rows and next
    logits held against the plain fast route on the card
-   (llama.FAST_RTOL). Then --fast against the host loop: 64 greedy steps
-   of each on one engine, in turns, and the captured step under
-   torch.profiler (ms/token, device busy share); and the captured 8-row
-   batch step's logits held against the plain route of forward_batch
-   (K1m over an f32 cache within LOGIT_RTOL; K1d over a bf16 cache within
-   FAST_RTOL), and its time with nothing but replays. The random codes
+   (llama.FAST_RTOL). Then --fast against the host loop under each
+   DLLAMA_LAYER_FUSION mode (off, headtail, on): 64 greedy steps of each
+   on one set of weights, in turns, and each captured step under
+   torch.profiler (ms/token, device busy share, launches per replay);
+   and the captured 8-row batch step's logits held against the plain
+   route of forward_batch (K1m over an f32 cache within LOGIT_RTOL; K1d
+   over a bf16 cache within FAST_RTOL), and its time with nothing but
+   replays. The random codes
    make that model's logits nearly position-independent, so a small model
    with quantized-Gaussian weights also runs through the kernels on the
    card (8 decode steps; prefill at chunk 4 through K1m, chunk 16 through
    K3 and chunk 16 on the fast route over both caches; generate_batch of 3
-   prompts and generate_fast, both captured) and is held against the
-   plain path on the CPU. Then continuous batching at full width: 16
-   requests through 8 slots on a contiguous cache and on f32, bf16 and Q8
-   pages, in turns (tokens/s, ms per device step, avg_active, device busy
-   share, cache bytes), the f32-page streams equal to the contiguous
-   ones.
-5. The ``kernels`` JSON line, then the result line
+   prompts and generate_fast, both captured; generate and generate_fast
+   under both fusion modes) and is held against the plain path on the
+   CPU. Then continuous batching at full width: 16 requests through 8
+   slots on a contiguous cache and on f32, bf16 and Q8 pages, in turns
+   (tokens/s, ms per device step, avg_active, device busy share, cache
+   bytes), the f32-page streams equal to the contiguous ones.
+5. The phase times, the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -228,10 +243,9 @@ def phase_card(torch):
         f"{peaks[0] / 1e12:.2f} TB/s, {peaks[1] / 1e12:.0f} TFLOP/s f32, "
         f"{peaks[2] / 1e12:.0f} TFLOP/s bf16")
 
-    from distributed_llama_tpu_torch.ops import attention, paged_attention, q40
     from distributed_llama_tpu_torch.ops._build import build
 
-    kernels = [*q40.KERNELS, *attention.KERNELS, *paged_attention.KERNELS]
+    kernels = _all_kernels()
     secs = build(kernels)
     log(f"built {sorted({k.source for k in kernels})} "
         f"({[k.symbol for k in kernels]}) in {secs:.1f} s")
@@ -860,13 +874,211 @@ def phase_k4(torch, timer, peaks, bf16=False, cache=None):
     return rows
 
 
+# (label, dim, hidden_dim, n_heads, n_kv_heads): Llama-2-7B, and the GQA
+# shape of the attention phases (n_kv 8, kv_mul 8) at 70B's widths
+FUSED_CASES = [("7b", 4096, 11008, 32, 32), ("gqa8", 8192, 28672, 64, 8)]
+FUSED_POS = (0, 63, 2047)
+
+
+def _spec_of(dim, hid, n_heads, n_kv, seq_len=K2_SEQ, n_layers=2):
+    from distributed_llama_tpu_torch.models.spec import TransformerSpec
+    from distributed_llama_tpu_torch.ops.quants import FloatType
+
+    return TransformerSpec(dim=dim, hidden_dim=hid, n_layers=n_layers,
+                           n_heads=n_heads, n_kv_heads=n_kv,
+                           vocab_size=32000, seq_len=seq_len,
+                           weights_float_type=FloatType.Q40)
+
+
+def phase_fused(torch, timer, peaks):
+    """K8, K9 and K10 against their plain versions at FUSED_CASES, layer 1
+    of a 2-layer cache of seq_len 2048: K8 at every FUSED_POS, K9 once,
+    K10 at every FUSED_POS over an f32 and a bf16 cache, part by part (the
+    head's q and cache rows; the attention over the cache it wrote against
+    the plain attention of its own q, 1e-5 abs; the tail from its own
+    attention output; the layer output, a bf16 cache within 1e-3 x
+    max|plain|, where a k/v value the two round across a bf16 boundary
+    moves the scores). Times (pos 63, f32 cache; K10 at 2047 too): kernel,
+    plain, and in place of a library time the unfused port path for the
+    same work (llama._qkv_proj, _post_attention and _layer through the
+    kernel route: K1, K2 and torch glue); no single PyTorch call computes
+    these functions."""
+    from distributed_llama_tpu_torch.models import llama
+    from distributed_llama_tpu_torch.ops import attention, layer, q40
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = {"head": [], "tail": [], "mega": []}
+    rtol = q40.KERNEL_RTOL
+
+    def err_of(got, want, scale=rtol):
+        err = (got - want).abs().max().item()
+        return err, scale * want.abs().max().item()
+
+    for label, dim, hid, n_heads, n_kv in FUSED_CASES:
+        spec = _spec_of(dim, hid, n_heads, n_kv)
+        lw = layer.random_layer(dim, hid, n_heads, n_kv, "cuda", g)
+        hs, kv_mul, kv_dim = spec.head_size, spec.kv_mul, spec.kv_dim
+        x = torch.randn((1, dim), device="cuda", generator=g)
+        ao = torch.randn((1, dim), device="cuda", generator=g)
+        wb = {k: lw[k].qs.numel() + 2 * lw[k].d16.numel()
+              for k in ("wqkv", "wo", "w13", "w2")}
+        mv_flops = {k: 2.0 * lw[k].qs.shape[0] * lw[k].qs.shape[1] * 32
+                    for k in wb}
+        n_rot = dim + kv_dim
+        head_args = (lw["wqkv"], lw["rms_att"], lw["freq"])
+        tail_args = (lw["wo"], lw["w13"], lw["w2"], lw["rms_ffn"])
+        s = layer._scratch(x.device, dim, hid)
+        for pos in FUSED_POS:
+            p = torch.tensor([pos], dtype=torch.int32, device="cuda")
+            got = layer.q40_head_fused(x, *head_args, p)
+            err, tol = err_of(got, layer.q40_head_fused_plain(x, *head_args,
+                                                              p))
+            row = dict(case=label, pos=pos, max_abs_err=err, tol=tol,
+                       per_token=0)
+            if pos == 63:
+                rope = llama.rope_tables(lw["freq"], pos)
+                nbytes = wb["wqkv"] + 4 * (2 * dim + n_rot // 2
+                                           + dim + 2 * kv_dim + 1)
+                b_ms, b_by = bound(nbytes, mv_flops["wqkv"], peaks)
+                row.update(
+                    per_token=32 if label == "7b" else 0,
+                    ms=timer(lambda: layer.q40_head_fused(x, *head_args, p)),
+                    plain_ms=timer(lambda: layer.q40_head_fused_plain(
+                        x, *head_args, p)),
+                    unfused_ms=timer(lambda: llama._qkv_proj(
+                        spec, lw, x, rope, llama.KERNELS)),
+                    bound_ms=b_ms, bound_by=b_by)
+            rows["head"].append(row)
+        got = layer.q40_tail_fused(ao, x, *tail_args)
+        err, tol = err_of(got, layer.q40_tail_fused_plain(ao, x, *tail_args))
+        nbytes = wb["wo"] + wb["w13"] + wb["w2"] + 4 * 4 * dim
+        b_ms, b_by = bound(nbytes, mv_flops["wo"] + mv_flops["w13"]
+                           + mv_flops["w2"], peaks)
+        rows["tail"].append(dict(
+            case=label, max_abs_err=err, tol=tol,
+            per_token=32 if label == "7b" else 0,
+            ms=timer(lambda: layer.q40_tail_fused(ao, x, *tail_args)),
+            plain_ms=timer(lambda: layer.q40_tail_fused_plain(ao, x,
+                                                              *tail_args)),
+            unfused_ms=timer(lambda: llama._post_attention(
+                spec, lw, x, ao, llama.KERNELS)),
+            bound_ms=b_ms, bound_by=b_by))
+        for dtype in (torch.float32, torch.bfloat16):
+            shape = (2, K2_SEQ, n_kv, hs)
+            k = torch.randn(shape, device="cuda", generator=g).to(dtype)
+            v = torch.randn(shape, device="cuda", generator=g).to(dtype)
+            isz = k.element_size()
+            for pos in FUSED_POS:
+                p = torch.tensor([pos], dtype=torch.int32, device="cuda")
+                kp, vp = k.clone(), v.clone()
+                args = (lw["wqkv"], *tail_args[:3], lw["rms_att"],
+                        lw["rms_ffn"], lw["freq"])
+                got = layer.q40_layer_mega(x, *args, k, v, 1, p, kv_mul)
+                want = layer.q40_layer_mega_plain(x, *args, kp, vp, 1, p,
+                                                  kv_mul)
+                head = layer.q40_head_fused_plain(x, *head_args, p)[0]
+                step = 2.0 ** -7 if dtype == torch.bfloat16 else rtol
+                parts = {
+                    "q": err_of(s.q, head[:dim]),
+                    "k": err_of(k[1, pos].float().reshape(-1),
+                                head[dim:n_rot], step),
+                    "v": err_of(v[1, pos].float().reshape(-1),
+                                head[n_rot:], step),
+                    "attention": ((s.ao[None] - attention.decode_attention_plain(
+                        s.q.reshape(-1, hs), k, v, 1, pos, kv_mul)).abs()
+                        .max().item(), attention.KERNEL_ATOL),
+                    "tail": err_of(got, layer.q40_tail_fused_plain(
+                        s.ao[None].clone(), x, *tail_args)),
+                    "layer": err_of(got, want, 1e-3 if dtype ==
+                                    torch.bfloat16 else rtol)}
+                bad = {n: e for n, e in parts.items() if not e[0] <= e[1]}
+                keep = torch.ones(k.shape[:2], dtype=torch.bool,
+                                  device="cuda")
+                keep[1, pos] = False
+                if bad or not (torch.equal(k[keep], kp[keep])
+                               and torch.equal(v[keep], vp[keep])):
+                    raise AssertionError(f"K10 {label} {dtype} pos {pos}: "
+                                         f"{bad or 'cache rows moved'}")
+                row = dict(case=label, pos=pos, cache=str(dtype)[6:],
+                           max_abs_err=parts["layer"][0],
+                           tol=parts["layer"][1],
+                           parts={n: e[0] for n, e in parts.items()},
+                           per_token=0)
+                if dtype == torch.float32 and pos in (63, 2047):
+                    rope = llama.rope_tables(lw["freq"], pos)
+                    cache = llama.KVCache(k, v)
+                    nbytes = (sum(wb.values()) + 4 * (4 * dim + n_rot // 2 + 1)
+                              + 2 * (pos + 1) * kv_dim * isz)
+                    flops = (sum(mv_flops.values())
+                             + 4.0 * (pos + 1) * n_heads * hs)
+                    b_ms, b_by = bound(nbytes, flops, peaks)
+                    row.update(
+                        per_token=32 if (label, pos) == ("7b", 63) else 0,
+                        ms=timer(lambda: layer.q40_layer_mega(
+                            x, *args, k, v, 1, p, kv_mul)),
+                        plain_ms=timer(lambda: layer.q40_layer_mega_plain(
+                            x, *args, kp, vp, 1, p, kv_mul)),
+                        unfused_ms=timer(lambda: llama._layer(
+                            spec, x, lw, cache, 1, pos, rope,
+                            llama.KERNELS)),
+                        bound_ms=b_ms, bound_by=b_by)
+                rows["mega"].append(row)
+            del k, v, kp, vp
+        for name, kernel_rows in rows.items():
+            for r in kernel_rows:
+                if r["case"] != label:
+                    continue
+                timing = (f" kernel {r['ms']:.4f} ms plain "
+                          f"{r['plain_ms']:.4f} unfused {r['unfused_ms']:.4f}"
+                          f" bound {r['bound_ms']:.4f} ({r['bound_by']})"
+                          if "ms" in r else "")
+                log(f"fused {name} {label} pos {r.get('pos', '-')} "
+                    f"{r.get('cache', '')}: max_abs_err "
+                    f"{r['max_abs_err']:.3e} (tol {r['tol']:.3e}){timing}")
+                if not r["max_abs_err"] <= r["tol"]:
+                    raise AssertionError(f"fused {name} {label}: error "
+                                         f"{r['max_abs_err']} above "
+                                         f"{r['tol']}")
+        del lw, x, ao
+    return rows
+
+
 # --------------------------------------------------------------------------
 # phase 3: the main path, end to end through the CLI
 # --------------------------------------------------------------------------
 
-def smoke_files():
+def start_smoke_writer() -> subprocess.Popen:
+    """smoke_files in a process of its own, started before the kernel
+    phases so that the 4.2 GB model is written while the card works (a
+    process, not a thread: the kernel timings keep the interpreter lock).
+    Stopped at exit if still running."""
+    import atexit
+
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.smoke_files()"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc
+
+
+def smoke_files(writer: subprocess.Popen | None = None):
     """A 7B-shaped Q40 .bin with random codes (seed 0) and a 32000-piece
-    tokenizer in build/smoke/, written once and reused while they fit."""
+    tokenizer in build/smoke/, written once and reused while they fit;
+    ``writer`` (start_smoke_writer) is waited for first."""
+    if writer is not None:
+        out, _ = writer.communicate()
+        for line in out.splitlines():
+            log(f"smoke writer: {line}")
+        if writer.returncode != 0:
+            raise RuntimeError(f"the smoke model writer exited "
+                               f"{writer.returncode}")
     import numpy as np
 
     from distributed_llama_tpu_torch.io.loader import write_model
@@ -911,38 +1123,62 @@ class _Tee(io.TextIOBase):
 
 
 def _all_kernels():
-    from distributed_llama_tpu_torch.ops import attention, paged_attention, q40
+    from distributed_llama_tpu_torch.ops import (attention, layer,
+                                                 paged_attention, q40)
 
-    return [*q40.KERNELS, *attention.KERNELS, *paged_attention.KERNELS]
+    return [*q40.KERNELS, *attention.KERNELS, *paged_attention.KERNELS,
+            *layer.KERNELS]
 
 
 @contextlib.contextmanager
-def _finite_logits(seen: list):
+def _finite_logits(seen: list, gaps: list | None = None,
+                   streams: list | None = None):
     """Record, for every decode step the engine runs, whether its logits
-    are all finite."""
+    are all finite (and in ``gaps`` the gap between its two largest logits
+    and its largest |logit|); in ``streams`` the tokens every generate and
+    generate_fast call returns."""
     import numpy as np
 
     from distributed_llama_tpu_torch.runtime import generate
 
     infer = generate.Engine.infer
+    loops = {name: getattr(generate, name)
+             for name in ("generate", "generate_fast")}
 
     def checked(self, token, pos):
         logits = infer(self, token, pos)
         seen.append(bool(np.isfinite(logits).all()))
+        if gaps is not None:
+            top = np.sort(logits)[-2:]
+            gaps.append((float(top[1] - top[0]),
+                         float(np.abs(logits).max())))
         return logits
 
+    def recorded(fn):
+        def run(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            streams.append(list(out[0]))
+            return out
+        return run
+
     generate.Engine.infer = checked
+    if streams is not None:
+        for name, fn in loops.items():
+            setattr(generate, name, recorded(fn))
     try:
         yield
     finally:
         generate.Engine.infer = infer
+        for name, fn in loops.items():
+            setattr(generate, name, fn)
 
 
-def _run_cli(torch, model, tok, args: list[str], env=None):
+def _run_cli(torch, model, tok, args: list[str], env=None, gaps=None,
+             streams=None):
     """The CLI in-process, with ``env`` set in the environment, and with
     every kernel's count set to 0 just before and read just after. Returns
     (stdout, launches by kernel symbol, wall s, per-step logits-finite
-    flags)."""
+    flags); ``gaps`` and ``streams`` as _finite_logits fills them."""
     from distributed_llama_tpu_torch.frontend import cli
 
     buf = io.StringIO()
@@ -954,7 +1190,7 @@ def _run_cli(torch, model, tok, args: list[str], env=None):
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(_Tee(sys.stdout, buf)), \
-                _finite_logits(finite):
+                _finite_logits(finite, gaps, streams):
             rc = cli.main(["inference", "--model", str(model), "--tokenizer",
                            str(tok), *args])
     finally:
@@ -971,10 +1207,13 @@ def _run_cli(torch, model, tok, args: list[str], env=None):
 
 
 def phase_e2e(torch, model, tok):
+    """Run a; also returns its token stream and its per-step top-2 logit
+    gaps (the reference of the fused runs o and p)."""
     torch.cuda.reset_peak_memory_stats()
+    gaps, streams = [], []
     out, counts, wall, _ = _run_cli(torch, model, tok, [
         "--prompt", PROMPT, "--steps", str(STEPS), "--temperature", "0",
-        "--seed", "1"])
+        "--seed", "1"], gaps=gaps, streams=streams)
     launches = {"q40_matvec": counts["q40_matvec"],
                 "decode_attention": counts["decode_attention"]}
     if any(n for sym, n in counts.items()
@@ -995,7 +1234,7 @@ def phase_e2e(torch, model, tok):
                tokens_per_s=1000.0 / avg, load_s=load_s,
                peak_device_gb=peak_gb, wall_s=wall, launches=launches)
     log(f"e2e: {json.dumps(e2e)}")
-    return e2e, out
+    return e2e, out, (streams[0], gaps)
 
 
 def _expect(label, counts, want):
@@ -1006,19 +1245,27 @@ def _expect(label, counts, want):
         raise AssertionError(f"{label}: launches {counts}, want {full}")
 
 
-def phase_e2e_prefill(torch, model, tok, n_layers, label="prefill",
-                      flags=(), steps=STEPS_512):
-    """The 512-token prompt through --prefill-chunk 128 and ``flags``: 4
-    chunks of T = 128, then decode from pos 511 to ``steps``. The launch
-    counts are exact, with the Q40 GEMM, prefill attention and decode
-    attention builds that the flags select (--fast-prefill: K3b and K4b;
-    --kv-cache-dtype bf16: the bf16-cache builds), every other kernel 0."""
-    fast = "--fast-prefill" in flags
-    kvbf16 = "bf16" in flags
+def _prefill_launches(n_layers, decode_steps, fast, kvbf16):
+    """The launches of the 512-token prompt at CHUNK, then decode_steps
+    token-by-token steps: the Q40 GEMM, prefill attention and decode
+    attention builds that --fast-prefill (K3b and K4b) and a bf16 cache
+    select, 4 chunks of T = 128."""
     gemm = "q40_gemm_bf16" if fast else "q40_gemm"
     prefill = ("prefill_attention_bf16" if fast else "prefill_attention") \
         + ("_kvbf16" if kvbf16 else "")
     decode = "decode_attention" + ("_kvbf16" if kvbf16 else "")
+    n_chunks = (511 + CHUNK - 1) // CHUNK
+    return {"q40_matvec": (4 * n_layers + 1) * decode_steps,
+            gemm: 4 * n_layers * n_chunks,
+            decode: n_layers * decode_steps,
+            prefill: n_layers * n_chunks}
+
+
+def phase_e2e_prefill(torch, model, tok, n_layers, label="prefill",
+                      flags=(), steps=STEPS_512):
+    """The 512-token prompt through --prefill-chunk 128 and ``flags``: 4
+    chunks of T = 128, then decode from pos 511 to ``steps``. The launch
+    counts are exact (_prefill_launches), every other kernel 0."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1026,12 +1273,8 @@ def phase_e2e_prefill(torch, model, tok, n_layers, label="prefill",
         "--prompt", PROMPT_512, "--steps", str(steps), "--temperature",
         "0", "--seed", "1", "--prefill-chunk", str(CHUNK), *flags])
     decode_steps = int(re.search(r"Generated tokens:\s+(\d+)", out).group(1))
-    n_chunks = (511 + CHUNK - 1) // CHUNK
-    _expect(f"{label} run", counts, {
-        "q40_matvec": (4 * n_layers + 1) * decode_steps,
-        gemm: 4 * n_layers * n_chunks,
-        decode: n_layers * decode_steps,
-        prefill: n_layers * n_chunks})
+    _expect(f"{label} run", counts, _prefill_launches(
+        n_layers, decode_steps, "--fast-prefill" in flags, "bf16" in flags))
     if (decode_steps != steps - 511 or not all(finite)
             or len(finite) != decode_steps):
         raise AssertionError(f"{label} run: {decode_steps} decode steps, "
@@ -1050,10 +1293,10 @@ def phase_e2e_prefill(torch, model, tok, n_layers, label="prefill",
 
 
 def phase_e2e_bf16(torch, model, tok, n_layers, f32_run):
-    """Runs d-f: the 512-token prompt with --fast-prefill and a bf16 cache
-    (d, the slice's main path; its peak device memory must lie about the
-    1.07 GB of the halved 7B cache below run b's), --fast-prefill alone
-    (e) and the bf16 cache alone (f), each with exact launch counts."""
+    """Run d: the 512-token prompt with --fast-prefill and a bf16 cache
+    (its peak device memory must lie about the 1.07 GB of the halved 7B
+    cache below run b's), with exact launch counts. Runs e and f, each flag
+    alone, run in process on phase 4's weights (flag_runs)."""
     both = phase_e2e_prefill(torch, model, tok, n_layers, "fast bf16-cache",
                              ("--fast-prefill", "--kv-cache-dtype", "bf16"))
     saved = f32_run["peak_device_gb"] - both["peak_device_gb"]
@@ -1063,13 +1306,54 @@ def phase_e2e_bf16(torch, model, tok, n_layers, f32_run):
     if not 0.9 <= saved <= 1.25:
         raise AssertionError(f"the bf16 cache saved {saved:.3f} GB of peak "
                              f"device memory, not ~1.07")
-    fast = phase_e2e_prefill(torch, model, tok, n_layers, "fast",
-                             ("--fast-prefill",), steps=STEPS_SHORT)
-    kvbf16 = phase_e2e_prefill(torch, model, tok, n_layers, "bf16-cache",
-                               ("--kv-cache-dtype", "bf16"),
-                               steps=STEPS_SHORT)
-    return dict(fast_bf16_cache=both, fast=fast, bf16_cache=kvbf16,
-                peak_saved_gb=saved)
+    return dict(fast_bf16_cache=both, peak_saved_gb=saved)
+
+
+def flag_runs(torch, engine, tokenizer):
+    """Runs e and f in process, on phase 4's weights: run b's prompt and
+    chunk through ``generate`` (what the CLI calls) with STEPS_SHORT (9
+    decode steps), with --fast-prefill alone (e: K3b and K4b over an f32
+    cache) and with a bf16 cache alone (f: K3, the bf16-cache K4 and K2).
+    Every kernel's count is set to 0 just before each and read just after:
+    exact launch counts, finite logits at every decode step."""
+    import copy
+
+    from distributed_llama_tpu_torch.models import llama
+    from distributed_llama_tpu_torch.runtime.generate import generate
+    from distributed_llama_tpu_torch.runtime.sampling import Sampler
+
+    n_layers = engine.spec.n_layers
+    res = {}
+    for label, fast, dtype in (("e fast", True, torch.float32),
+                               ("f bf16-cache", False, torch.bfloat16)):
+        run = copy.copy(engine)
+        run.fast_prefill = fast
+        run.cache = llama.init_cache(engine.spec, "cuda", dtype)
+        run._loops = {}
+        finite = []
+        for k in _all_kernels():
+            k.launches = 0
+        t0 = time.perf_counter()
+        with _finite_logits(finite):
+            _, stats = generate(run, tokenizer, Sampler(32000, 0.0, 0.9, 1),
+                                PROMPT_512, STEPS_SHORT, quiet=True,
+                                prefill_chunk=CHUNK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k.symbol: k.launches for k in _all_kernels()}
+        steps = stats.tokens
+        _expect(f"{label} run", counts, _prefill_launches(
+            n_layers, steps, fast, dtype == torch.bfloat16))
+        if steps != STEPS_SHORT - 511 or not all(finite) \
+                or len(finite) != steps:
+            raise AssertionError(f"{label} run: {steps} decode steps, "
+                                 f"finite logits {sum(finite)}/{len(finite)}")
+        res[label] = dict(prompt_tokens=512, chunk=CHUNK, decode_steps=steps,
+                          wall_s=wall, launches=counts,
+                          ms_per_token_avg=stats.total_ms / steps)
+        log(f"e2e {label} (in process): {json.dumps(res[label])}")
+        del run
+    return res
 
 
 def _pieces(out):
@@ -1163,6 +1447,71 @@ def phase_e2e_fast(torch, model, tok, n_layers, ref_a, ref_b):
                                  f"host loop's or {steps} != {chain} steps")
         res[label] = dict(device_steps=steps, ms_per_token_avg=avg,
                           wall_s=wall, launches=counts)
+    return res
+
+
+def _same_stream(label, got, want, gaps):
+    """Hold a fused run's greedy tokens against the unfused host loop's
+    (``want``, with its per-step top-2 logit gaps): equal, or parting at a
+    step where the unfused logits' two largest lie within LOGIT_RTOL x
+    max|logit| of each other (a tie the two routes' sums may break either
+    way). Returns (equal, the step they part at or None, its gap)."""
+    from distributed_llama_tpu_torch.models.llama import LOGIT_RTOL
+
+    if got == want:
+        return True, None, None
+    i = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    gap, top = gaps[i] if i < len(gaps) else (float("inf"), 0.0)
+    log(f"{label}: stream parts from the unfused one at step {i}, where "
+        f"the unfused top-2 logit gap is {gap:.3e} (tolerance "
+        f"{LOGIT_RTOL * top:.3e})")
+    if not gap <= LOGIT_RTOL * top:
+        raise AssertionError(f"{label}: stream differs from the unfused one "
+                             f"at step {i}, top-2 gap {gap} above the logit "
+                             f"tolerance")
+    return False, i, gap
+
+
+def phase_e2e_fused(torch, model, tok, n_layers, ref):
+    """Runs o and p: run a's prompt and steps under DLLAMA_LAYER_FUSION,
+    through the CLI. o: the host loop under 'headtail', per step n_layers
+    K8, K2 and K9 and one K1 (wcls), nothing else; p: ``--fast`` under
+    'on', per device step n_layers K10 and one K1, no K2 or K5. Their
+    greedy streams against run a's (``ref``: its tokens and top-2 gaps;
+    run i's equals it)."""
+    want, gaps = ref
+    res = {}
+    for label, mode, extra in (("o headtail", "headtail", []),
+                               ("p --fast on", "on", ["--fast"])):
+        streams = []
+        out, counts, wall, finite = _run_cli(torch, model, tok, [
+            "--prompt", PROMPT, "--steps", str(STEPS), "--temperature", "0",
+            "--seed", "1", *extra], {"DLLAMA_LAYER_FUSION": mode},
+            streams=streams)
+        if extra:
+            steps = int(re.search(r"fused loop, (\d+) device steps",
+                                  out).group(1))
+            per_step = {"q40_layer_mega": n_layers}
+        else:
+            steps = int(re.search(r"Generated tokens:\s+(\d+)",
+                                  out).group(1))
+            per_step = {"q40_head_fused": n_layers,
+                        "decode_attention": n_layers,
+                        "q40_tail_fused": n_layers}
+            if not all(finite) or len(finite) != steps:
+                raise AssertionError(f"{label}: finite logits "
+                                     f"{sum(finite)}/{len(finite)}")
+        _expect(f"{label} run", counts, {
+            "q40_matvec": steps, **{k: n * steps for k, n in per_step.items()}})
+        same, part, gap = _same_stream(label, streams[0], want, gaps)
+        avg = float(re.search(r"Avg generation time: ([\d.]+) ms",
+                              out).group(1))
+        res[label] = dict(mode=mode, steps=steps, ms_per_token_avg=avg,
+                          wall_s=wall, launches=counts,
+                          launches_per_step=sum(counts.values()) / steps,
+                          stream_equal=same, parts_at=part, gap=gap)
+        log(f"e2e {label}: {json.dumps(res[label])}")
     return res
 
 
@@ -1330,7 +1679,7 @@ def phase_e2e_continuous_runs(torch, model, tok, n_layers):
 # phase 4: kernels against plain at full width, end to end
 # --------------------------------------------------------------------------
 
-def phase_full_width(torch, model, tok, peaks):
+def phase_full_width(torch, model, tok, peaks, ref):
     from distributed_llama_tpu_torch.io.loader import load_model
     from distributed_llama_tpu_torch.io.tokenizer import Tokenizer
     from distributed_llama_tpu_torch.models import llama
@@ -1366,64 +1715,116 @@ def phase_full_width(torch, model, tok, peaks):
     del ck, cp
     prefill = prefill_full_width(torch, engine, plain,
                                  tokenizer.encode(PROMPT_512), peaks)
+    prefill["flag_runs"] = flag_runs(torch, engine, tokenizer)
     prefill["fast"] = prefill_fast_full_width(
         torch, engine, tokenizer.encode(PROMPT_512), peaks)
-    fast = fast_full_width(torch, engine, tokenizer)
+    fast = fast_full_width(torch, engine, tokenizer, ref)
     batch = batch_full_width(torch, engine)
     continuous = continuous_full_width(torch, engine, tokenizer, batch)
     return worst, busy, prefill, fast, batch, continuous
 
 
-def fast_full_width(torch, engine, tokenizer):
-    """--fast against the host loop at full width: generate and
-    generate_fast of run a's prompt and STEPS greedy steps on the same
-    engine, timed in turns after one warm-up run of each (which captures
-    the graph): host, fast, fast, host, host, fast (medians of the mean
-    ms/token). Then one generate_fast under torch.profiler for the device
-    time per step, read against the unprofiled ms/token: the busy share."""
+def _with_fusion(engine, mode):
+    """``engine`` as an Engine built under DLLAMA_LAYER_FUSION=``mode``
+    holds it: its model rebuilt with that mode over the same weights, the
+    same cache, its own decode loops ('off' is ``engine`` itself)."""
+    import copy
+
+    from distributed_llama_tpu_torch.models import llama
+
+    if mode == "off":
+        return engine
+    fused = copy.copy(engine)
+    fused.model = llama.Llama(engine.spec, engine.params, engine.model.route,
+                              mode)
+    fused._loops = {}
+    return fused
+
+
+TIMED_MODES = ("off", "headtail", "on")
+
+
+def fast_full_width(torch, engine, tokenizer, ref):
+    """--fast and the host loop at full width under each fusion mode:
+    generate and generate_fast of run a's prompt and STEPS greedy steps on
+    the same weights and cache, one first run of each pair (which captures
+    the graph; its stream held against run a's, ``ref``; a host loop's
+    first run is timed too), then timed in turns: --fast off / headtail /
+    on and back, the host loop off / headtail and back (medians of the
+    mean ms/token). Then one
+    generate_fast per mode under torch.profiler: device time and kernels
+    per step, read against the unprofiled ms/token (the busy share), and
+    the kernel launches each replay makes."""
     from distributed_llama_tpu_torch.runtime.generate import (generate,
                                                               generate_fast)
     from distributed_llama_tpu_torch.runtime.sampling import Sampler
 
-    def run(fast):
-        engine.reset()
+    engines = {mode: _with_fusion(engine, mode) for mode in TIMED_MODES}
+
+    def run(mode, fast):
+        e = engines[mode]
+        e.reset()
         fn = generate_fast if fast else generate
-        out, stats = fn(engine, tokenizer, Sampler(32000, 0.0, 0.9, 1),
-                        PROMPT, STEPS, quiet=True)
+        out, stats = fn(e, tokenizer, Sampler(32000, 0.0, 0.9, 1), PROMPT,
+                        STEPS, quiet=True)
         torch.cuda.synchronize()
         return out, stats.total_ms / stats.tokens
 
-    ms = {False: [], True: []}
-    streams = {fast: run(fast)[0] for fast in (False, True)}
-    if streams[True] != streams[False]:
-        raise AssertionError("full width: --fast stream differs from the "
-                             "host loop's")
-    for fast in (False, True, True, False, False, True):
-        ms[fast].append(run(fast)[1])
-    loop = engine.decode_loop(0.0, 0.9)
-    replays = loop.replays
-    dev, prof_ms = _profiled(torch, lambda: run(True), STEPS)
-    if loop.replays - replays != STEPS:
-        raise AssertionError(f"the fused loop replayed its graph "
-                             f"{loop.replays - replays} times, not {STEPS}")
-    dev_ms = sum(m for _, m, _ in dev)
-    host_ms, fast_ms = statistics.median(ms[False]), statistics.median(
-        ms[True])
-    log(f"--fast vs host loop, {STEPS} greedy 7B steps in turns: fused "
-        f"{fast_ms:.3f} ms/token (runs "
-        f"{', '.join(f'{t:.3f}' for t in ms[True])}), host {host_ms:.3f} "
-        f"ms/token (runs "
-        f"{', '.join(f'{t:.3f}' for t in ms[False])}); fused step device "
-        f"time {dev_ms:.4f} ms over {sum(c for *_, c in dev):.0f} kernels "
-        f"(busy {dev_ms / fast_ms:.1%} of the unprofiled step)")
-    for key, m, count in dev[:8]:
-        log(f"  {m:8.4f} ms/step  x{count:5.0f}  {key[:90]}")
-    return dict(steps=STEPS, fast_ms_per_token=fast_ms,
-                fast_runs_ms=ms[True], host_ms_per_token=host_ms,
-                host_runs_ms=ms[False], device_ms_per_step=dev_ms,
-                kernels_per_step=sum(c for *_, c in dev),
-                busy=dev_ms / fast_ms if dev_ms else None,
-                profiled_ms_per_token=prof_ms, replays=loop.replays)
+    pairs = [("off", False), ("off", True), ("headtail", False),
+             ("headtail", True), ("on", True)]
+    equal = {}
+    ms = {pair: [] for pair in pairs}
+    for mode, fast in pairs:
+        got, t = run(mode, fast)
+        equal[f"{mode} {'fast' if fast else 'host'}"] = _same_stream(
+            f"full width {mode} {'--fast' if fast else 'host loop'}", got,
+            *ref)[0]
+        if not fast:  # nothing to capture: the first host run is timed too
+            ms[mode, fast].append(t)
+    for pair in [("off", True), ("headtail", True), ("headtail", False),
+                 ("on", True), ("on", True), ("headtail", True),
+                 ("off", True), ("off", False)]:
+        ms[pair].append(run(*pair)[1])
+    med = {pair: statistics.median(t) for pair, t in ms.items()}
+    res = {"steps": STEPS, "streams_equal": equal}
+    for mode in TIMED_MODES:
+        loop = engines[mode].decode_loop(0.0, 0.9)
+        replays = loop.replays
+        dev, prof_ms = _profiled(torch, lambda: run(mode, True), STEPS)
+        if loop.replays - replays != STEPS:
+            raise AssertionError(f"{mode}: the fused loop replayed its graph "
+                                 f"{loop.replays - replays} times, not "
+                                 f"{STEPS}")
+        dev_ms = sum(m for _, m, _ in dev)
+        per_replay = {k.symbol: n for k, n in
+                      loop._graphed._per_replay.items()}
+        fast_ms = med[mode, True]
+        res[mode] = dict(
+            fast_ms_per_token=fast_ms, fast_runs_ms=ms[mode, True],
+            device_ms_per_step=dev_ms,
+            kernels_per_step=sum(c for *_, c in dev),
+            busy=dev_ms / fast_ms if dev_ms else None,
+            profiled_ms_per_token=prof_ms, launches_per_replay=per_replay,
+            top=[dict(kernel=k[:80], ms=m, count=c) for k, m, c in dev[:6]])
+        if (mode, False) in med:
+            res[mode].update(host_ms_per_token=med[mode, False],
+                             host_runs_ms=ms[mode, False])
+        log(f"--fast {mode}, {STEPS} greedy 7B steps in turns: "
+            f"{fast_ms:.3f} ms/token (runs "
+            f"{', '.join(f'{t:.3f}' for t in ms[mode, True])})"
+            + (f"; host loop {med[mode, False]:.3f} ms/token (runs "
+               f"{', '.join(f'{t:.3f}' for t in ms[mode, False])})"
+               if (mode, False) in med else "")
+            + f"; captured step device time {dev_ms:.4f} ms over "
+            f"{sum(c for *_, c in dev):.0f} kernels (busy "
+            f"{dev_ms / fast_ms:.1%} of the unprofiled step); launches per "
+            f"replay {per_replay}")
+        for key, m, count in dev[:6]:
+            log(f"  {m:8.4f} ms/step  x{count:5.0f}  {key[:90]}")
+    # the keys PR 4's readers know: the unfused pair
+    res.update(fast_ms_per_token=med["off", True],
+               host_ms_per_token=med["off", False])
+    return res
 
 
 def batch_full_width(torch, engine):
@@ -1916,8 +2317,11 @@ def small_loops(torch, spec, host):
     """The on-device loops on the small model: generate_batch of 3 ragged
     prompts (captured K1m / K5 on the card) and generate_fast (captured K1
     / K5) against the same calls on the CPU's plain versions: greedy token
-    streams equal."""
+    streams equal; then generate and generate_fast under
+    DLLAMA_LAYER_FUSION=headtail (K8, K2 / K5, K9) and on (K10), card and
+    CPU, each equal to the unfused stream."""
     from distributed_llama_tpu_torch.runtime.generate import (Engine,
+                                                              generate,
                                                               generate_batch,
                                                               generate_fast)
     from distributed_llama_tpu_torch.runtime.sampling import Sampler
@@ -1943,6 +2347,31 @@ def small_loops(torch, spec, host):
     if rows["cuda"] != rows["cpu"] or fast["cuda"] != fast["cpu"]:
         raise AssertionError("small model: a loop's card stream differs "
                              "from the CPU's")
+    # the fused decode layer (head size 128: 'on' takes K10), host loop and
+    # captured loop, against the same on the CPU and the unfused stream
+    fused = {}
+    saved = os.environ.get("DLLAMA_LAYER_FUSION")
+    try:
+        for mode in ("headtail", "on"):
+            os.environ["DLLAMA_LAYER_FUSION"] = mode
+            for dev in ("cuda", "cpu"):
+                engine = Engine(spec, host, dev)
+                for fn in (generate, generate_fast):
+                    engine.reset()
+                    fused[mode, dev, fn.__name__] = fn(
+                        engine, Tok(), Sampler(spec.vocab_size, 0.0, 0.9, 1),
+                        "5 6 7", 20, quiet=True)[0]
+    finally:
+        if saved is None:
+            os.environ.pop("DLLAMA_LAYER_FUSION", None)
+        else:
+            os.environ["DLLAMA_LAYER_FUSION"] = saved
+    same = sorted(k for k, v in fused.items() if v == fast["cpu"])
+    log(f"small model fused layer (headtail, on), card vs CPU, host loop and "
+        f"--fast: {len(same)} of {len(fused)} streams equal the unfused one")
+    if len(same) != len(fused):
+        raise AssertionError(f"small model: fused streams differ: "
+                             f"{sorted(set(fused) - set(same))}")
 
 
 def small_prefill(torch, spec, gpu, cpu):
@@ -2032,7 +2461,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     t_start = time.perf_counter()
+    marks = [("start", t_start)]
+
+    def mark(label):
+        marks.append((label, time.perf_counter()))
+
+    writer = start_smoke_writer()
     smi, name, peaks, build_s = phase_card(torch)
+    mark("card and build")
     timer = Timer(torch)
     k1 = phase_k1(torch, timer, peaks)
     k2 = phase_k2(torch, timer, peaks)
@@ -2049,11 +2485,15 @@ def main() -> int:
     k5 = phase_k5(torch, timer, peaks)
     k5_kvbf16 = phase_k5(torch, timer, peaks, cache=torch.bfloat16)
     k6 = phase_k6(torch, timer, peaks)
+    mark("kernels K1-K7 against plain")
+    fused_rows = phase_fused(torch, timer, peaks)
+    mark("fused kernels K8-K10 against plain")
     del timer
     gc.collect()
     torch.cuda.empty_cache()
-    spec, model, tok = smoke_files()
-    e2e, out_a = phase_e2e(torch, model, tok)
+    spec, model, tok = smoke_files(writer)
+    mark("smoke model")
+    e2e, out_a, ref_a = phase_e2e(torch, model, tok)
     e2e_prefill = phase_e2e_prefill(torch, model, tok, spec.n_layers)
     e2e_q80 = phase_e2e_q80(torch, model, tok, spec.n_layers)
     e2e_bf16 = phase_e2e_bf16(torch, model, tok, spec.n_layers, e2e_prefill)
@@ -2073,12 +2513,17 @@ def main() -> int:
                              f"not ~8.6")
     e2e_fast = phase_e2e_fast(torch, model, tok, spec.n_layers,
                               _pieces(out_a), e2e_prefill.pop("pieces"))
+    e2e_fused = phase_e2e_fused(torch, model, tok, spec.n_layers, ref_a)
+    mark("CLI runs a-j, o, p")
     e2e_cont = phase_e2e_continuous_runs(torch, model, tok, spec.n_layers)
+    mark("CLI runs k-n")
     gc.collect()
     torch.cuda.empty_cache()
     logit_err, busy, prefill, fast, batch, continuous = phase_full_width(
-        torch, model, tok, peaks)
+        torch, model, tok, peaks, ref_a)
+    mark("full width")
     small_err = phase_small_reference(torch)
+    mark("small model")
 
     def per_token(rows):
         return {key: sum(r[key] * r["per_token"] for r in rows)
@@ -2149,8 +2594,8 @@ def main() -> int:
                   f"offset mask over the live prefix", shapes=k4),
     ]
     runs = {"d": e2e_bf16["fast_bf16_cache"]["launches"],
-            "e": e2e_bf16["fast"]["launches"],
-            "f": e2e_bf16["bf16_cache"]["launches"]}
+            "e": prefill["flag_runs"]["e fast"]["launches"],
+            "f": prefill["flag_runs"]["f bf16-cache"]["launches"]}
 
     def at_pos(rows, pos):
         return [dict(r, per_token=32) for r in rows
@@ -2265,10 +2710,40 @@ def main() -> int:
         paged_row("paged_attention_kvbf16", "bf16", "m", "bf16"),
         paged_row("paged_attention_q8", "q8", "n", "Q8"),
     ]
+    def fused_row(name, kind, run, rows, unit):
+        unit_rows = [r for r in rows if r["per_token"]]
+        site = {"head": 451, "tail": 349, "mega": 782}[kind]
+        return dict(name=name, route="cuda",
+                    source="distributed_llama_tpu_torch/csrc/fused_layer.cu",
+                    replaces=f"distributed_llama_tpu/ops/pallas_layer.py:"
+                             f"{site}",
+                    launches=e2e_fused[run]["launches"][name],
+                    max_abs_err=max(r["max_abs_err"] for r in rows),
+                    **per_token(unit_rows), bound_by=_bound_by(unit_rows),
+                    library_ms=None,
+                    unfused_ms=sum(r["unfused_ms"] * r["per_token"]
+                                   for r in unit_rows),
+                    unit=unit, shapes=rows)
+
+    unfused_note = ("library_ms null: no single PyTorch call computes it; "
+                    "unfused_ms = the unfused port path for the same work "
+                    "(K1, K2 and torch glue)")
+    kernels += [
+        fused_row("q40_head_fused", "head", "o headtail", fused_rows["head"],
+                  f"one 7B token at pos 63: 32 layers; {unfused_note}"),
+        fused_row("q40_tail_fused", "tail", "o headtail", fused_rows["tail"],
+                  f"one 7B token: 32 layers; {unfused_note}"),
+        fused_row("q40_layer_mega", "mega", "p --fast on", fused_rows["mega"],
+                  f"one 7B token at pos 63 over an f32 cache: 32 layers; "
+                  f"{unfused_note}"),
+    ]
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{idle}")
+    log("phase seconds: " + ", ".join(
+        f"{label} {t - t0:.1f}" for (_, t0), (label, t) in zip(marks,
+                                                               marks[1:])))
     log(f"full-width logits max_abs_err {logit_err:.3e}; small-model "
         f"max_abs_err {small_err:.3e}; build {build_s:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
@@ -2277,7 +2752,8 @@ def main() -> int:
                       "e2e_prefill": e2e_prefill, "e2e_q80": e2e_q80,
                       "e2e_bf16": e2e_bf16, "e2e_batch": e2e_batch,
                       "e2e_batch_dequant": e2e_batch_dq,
-                      "e2e_fast": e2e_fast, "e2e_continuous": e2e_cont,
+                      "e2e_fast": e2e_fast, "e2e_fused": e2e_fused,
+                      "e2e_continuous": e2e_cont,
                       "prefill": prefill, "fast": fast, "batch_step": batch,
                       "continuous": continuous,
                       "batch_cache_saved_gb": saved, "build_s": build_s}))

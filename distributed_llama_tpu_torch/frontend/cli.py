@@ -28,14 +28,20 @@ checks and messages come with them: q8 without a page size, --continuous or
 
 On the lockstep path --metrics, --spec-k K and --kv-page-size P print the
 JAX package's note that they only apply to the continuous engine, and the
-run goes on, as there; --slots, --block-steps and --kv-pages there exit 2,
-as they only apply to --continuous. With --continuous, --spec-k and
---metrics exit 2 "not yet ported"; without --prompts-file every flag of the
-continuous engine does. Every other flag of the JAX package's
-``inference`` exits 2 with "not yet ported" before the model loads — no
-flag is accepted and then ignored; that includes the f16/q40 buffer types,
+run goes on, as there; --slots, --block-steps and --kv-pages are ignored
+there, as in the JAX CLI. --continuous --kv-pages N without --kv-page-size
+reaches the engine, which raises ValueError after the load, as the JAX
+package's ContinuousEngine does. --nthreads is accepted and ignored, as in
+the JAX CLI. With --continuous, --spec-k and --metrics exit 2 "not yet
+ported"; without --prompts-file every flag of the continuous engine does.
+Every other flag of the JAX package's ``inference`` exits 2 with "not yet
+ported" before the model loads; that includes the f16/q40 buffer types,
 --dispatch-tokens and the KV tier flags. --tp 1, --sp 1, --spec-k 0 and
 --kv-page-size 0 name what the port runs and are accepted.
+
+DLLAMA_LAYER_FUSION=headtail|on (read once by the Engine, as the JAX
+package reads it) runs each T=1 step of the token-by-token loop and of
+--fast through the fused decode-layer kernels (ops/layer.py).
 """
 
 from __future__ import annotations
@@ -56,8 +62,8 @@ _UNPORTED_SWITCHES = ("--log-json", "--stream-slices")
 _UNPORTED_VALUED = ("--tp-scheme", "--workers", "--save-state",
                     "--resume-state", "--spec-ngram", "--dispatch-tokens",
                     "--kv-host-pages", "--kv-disk-dir",
-                    "--kv-disk-gb", "--profile", "--nthreads",
-                    "--coordinator", "--num-hosts", "--host-id",
+                    "--kv-disk-gb", "--profile", "--coordinator",
+                    "--num-hosts", "--host-id",
                     "--serve-weights", "--serve-weights-bind",
                     "--model-from-root")
 
@@ -80,6 +86,9 @@ def _parser() -> argparse.ArgumentParser:
                          "the kernels' plain versions)")
     ap.add_argument("--tp", type=int, default=1, help="only 1 is ported")
     ap.add_argument("--sp", type=int, default=1, help="only 1 is ported")
+    ap.add_argument("--nthreads", type=int, default=4,
+                    help="accepted for reference-CLI compatibility; the "
+                         "device manages its own threads")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="N > 1: prefill the prompt in T=N chunks; 0/1: "
                          "token by token")
@@ -216,10 +225,6 @@ def cmd_inference(argv: list[str]) -> int:
         print("--fast-prefill only affects chunked prefill; pass "
               "--prefill-chunk N (N > 1)", file=sys.stderr)
         return 2
-    if args.kv_pages and args.kv_page_size <= 0:
-        print("--kv-pages sizes the paged KV pool: add --kv-page-size P",
-              file=sys.stderr)
-        return 2
     prompts = None
     if args.prompts_file:  # validate before the multi-GB model load
         if args.prefill_chunk > 1 and not args.continuous:
@@ -228,11 +233,6 @@ def cmd_inference(argv: list[str]) -> int:
             print("--prefill-chunk with --prompts-file needs --continuous "
                   "(lockstep rows share the position clock)",
                   file=sys.stderr)
-            return 2
-        if not args.continuous and (args.slots or args.block_steps != 1
-                                    or args.kv_pages):
-            print("--slots/--block-steps/--kv-pages only apply to the "
-                  "continuous engine: add --continuous", file=sys.stderr)
             return 2
         with open(args.prompts_file) as fh:
             prompts = [ln.rstrip("\n") for ln in fh if ln.strip()]

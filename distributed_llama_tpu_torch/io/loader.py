@@ -18,8 +18,7 @@ from typing import Any, NamedTuple
 import numpy as np
 
 from ..models.spec import HEADER_BYTES, TransformerSpec
-from ..ops.quants import (FloatType, pack_q40_bytes, quantize_q40,
-                          unpack_q40_bytes)
+from ..ops.quants import FloatType, pack_q40_bytes, quantize_q40
 
 
 class Q40Weight(NamedTuple):
@@ -63,15 +62,30 @@ class _Walker:
 
     def matmul(self, spec: TransformerSpec, shape: tuple[int, int]):
         ft = spec.weights_float_type
+        if ft == FloatType.Q40:
+            d, n = shape
+            w = Q40Weight(np.empty((d, n // 32, 16), np.uint8),
+                          np.empty((d, n // 32), np.float16))
+            self.q40_into(spec, shape, w)
+            return w
         raw = self.take(spec.matmul_bytes(shape))
         if ft == FloatType.F32:
             return raw.view(np.float32).reshape(shape).copy()
         if ft == FloatType.F16:
             return raw.view(np.float16).reshape(shape).copy()
-        if ft == FloatType.Q40:
-            qs, d16 = unpack_q40_bytes(raw, shape)  # unpack always copies
-            return Q40Weight(qs, d16)
         raise ValueError(f"unsupported weights float type {ft}")
+
+    def q40_into(self, spec: TransformerSpec, shape: tuple[int, int],
+                 out: Q40Weight) -> None:
+        """Decode one Q40 matmul weight of the wire layout (blocks of a
+        2-byte f16 scale and 16 code bytes) into ``out``'s planes in place.
+        A block is 9 16-bit words, so the copy moves words, not bytes:
+        half the elements of the byte copy, the same bits."""
+        raw = self.take(spec.matmul_bytes(shape))
+        words = raw.view(np.uint16).reshape(*out.d16.shape, 9)
+        np.copyto(out.d16.view(np.uint16), words[..., 0])
+        np.copyto(out.qs.view(np.uint16).reshape(*out.d16.shape, 8),
+                  words[..., 1:])
 
 
 def load_model(path: str, spec: TransformerSpec | None = None,
@@ -113,12 +127,12 @@ def load_model(path: str, spec: TransformerSpec | None = None,
         params["rms_att"][layer] = w.f32((spec.dim,))
         params["rms_ffn"][layer] = w.f32((spec.dim,))
         for name, shape in shapes:
-            val = w.matmul(spec, shape)
-            if isinstance(val, Q40Weight):
-                params[name].qs[layer] = val.qs
-                params[name].d16[layer] = val.d16
+            dst = params[name]
+            if isinstance(dst, Q40Weight):
+                w.q40_into(spec, shape, Q40Weight(dst.qs[layer],
+                                                  dst.d16[layer]))
             else:
-                params[name][layer] = val
+                dst[layer] = w.matmul(spec, shape)
 
     params["rms_final"] = w.f32((spec.dim,))
     w.take(spec.rope_gap_bytes)  # legacy freq_cis region, skipped

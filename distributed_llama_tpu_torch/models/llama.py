@@ -30,6 +30,13 @@ B = 1 over a single-sequence cache viewed as (L, 1, S, n_kv, hs) it is the
 T = 1 step with device inputs: K1 and K5, which at B = 1 computes K2's
 sums in K2's order, so its logits equal ``forward``'s bit for bit.
 
+``Llama.forward_fused`` (the JAX package's ``_forward_fused``, behind
+``DLLAMA_LAYER_FUSION=headtail|on``) is the T = 1 step through the fused
+decode-layer kernels of ops/layer.py: K8, the k/v write, the decode
+attention and K9 per layer, or one K10. ``forward`` takes it at T = 1 when
+the module was built with a fused mode that ops/layer.supports; prefill
+chunks of T > 1, ``forward_batch`` and the paged forward stay unfused.
+
 The precision is an explicit ``Route`` per call, where the JAX package
 traces a second program under a context variable (ops/linear.py
 ``matmul_precision("bf16")``): ``FAST`` is the ``--fast-prefill`` route for
@@ -63,6 +70,12 @@ from ..ops.attention import (attention_core, decode_attention,
                              decode_attention_plain, prefill_attention,
                              prefill_attention_bf16_plain,
                              prefill_attention_plain)
+from ..ops.layer import (fused, mega_supported, q40_head_fused,
+                         q40_head_fused_plain, q40_layer_mega,
+                         q40_layer_mega_plain, q40_tail_fused,
+                         q40_tail_fused_plain, rope_freq, rope_rows)
+from ..ops.layer import rotate as _rotate
+from ..ops.layer import supports as fusion_supports
 from ..ops.linear import (dense_matmul, dense_matmul_bf16, fake_quant_q80,
                           fuse_q40_layer_matmuls, matmul, q40_to_device,
                           rmsnorm, silu)
@@ -282,8 +295,9 @@ def scatter_pages_q8(cache: PagedKVQ8, seq_cache: KVCache,
 
 class Route(NamedTuple):
     """Which Q40 matmul, dense matmul, decode attention (T = 1), prefill
-    attention (T > 1), batched decode attention (forward_batch) and paged
-    decode attention over f32/bf16 and Q8 pages (forward_batch_paged) the
+    attention (T > 1), batched decode attention (forward_batch), paged
+    decode attention over f32/bf16 and Q8 pages (forward_batch_paged) and
+    fused decode-layer head, tail and whole layer (forward_fused) the
     forward calls."""
 
     q40: Callable
@@ -293,16 +307,21 @@ class Route(NamedTuple):
     batch: Callable
     paged: Callable
     paged_q8: Callable
+    head: Callable
+    tail: Callable
+    mega: Callable
 
 
 # the kernel wrappers (the plain versions on CPU tensors) — the main path
 KERNELS = Route(q40_matmul, dense_matmul, decode_attention,
                 prefill_attention, decode_attention_batch, paged_flash,
-                paged_flash_q8)
+                paged_flash_q8, q40_head_fused, q40_tail_fused,
+                q40_layer_mega)
 # the plain versions on any device — to hold the kernels against on the card
 PLAIN = Route(q40_matmul_plain, dense_matmul, decode_attention_plain,
               prefill_attention_plain, decode_attention_batch_plain,
-              paged_flash_plain, paged_flash_q8_plain)
+              paged_flash_plain, paged_flash_q8_plain, q40_head_fused_plain,
+              q40_tail_fused_plain, q40_layer_mega_plain)
 # --fast-prefill's T > 8 chunks: bf16 products, f32 accumulation (K3b, K4b)
 FAST = KERNELS._replace(q40=partial(q40_matmul, bf16=True),
                         dense=dense_matmul_bf16,
@@ -328,32 +347,6 @@ LOGIT_RTOL = 1e-3
 # moves a value across a bf16 rounding boundary the next product sees it
 # one bf16 step (2^-8 relative) apart
 FAST_RTOL = 1e-2
-
-
-def rope_freq(n: int, head_size: int, device) -> torch.Tensor:
-    """Per-pair frequencies (n/2,) f32: pair p uses head_dim = (2p) mod hs."""
-    i = torch.arange(0, n, 2, dtype=torch.float32, device=device)
-    head_dim = torch.remainder(i, head_size)
-    base = torch.tensor(10000.0, dtype=torch.float32, device=device)
-    return 1.0 / torch.pow(base, head_dim / head_size)
-
-
-def _rotate(x: torch.Tensor, cos: torch.Tensor,
-            sin: torch.Tensor) -> torch.Tensor:
-    """Rotate the interleaved pairs of x (..., n) by angles (..., n/2)."""
-    pairs = x.reshape(*x.shape[:-1], x.shape[-1] // 2, 2)
-    v0, v1 = pairs[..., 0], pairs[..., 1]
-    return torch.stack([v0 * cos - v1 * sin, v0 * sin + v1 * cos],
-                       dim=-1).reshape(x.shape)
-
-
-def rope_rows(freq: torch.Tensor,
-              positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin (T, n/2) of the angles at device positions (T,), one row
-    each: the f32 position times the frequencies (the reference's
-    rope_rotate), computed once per call and shared by every layer."""
-    val = positions.to(torch.float32)[:, None] * freq[None, :]
-    return torch.cos(val), torch.sin(val)
 
 
 def rope_tables(freq: torch.Tensor, pos: int,
@@ -453,19 +446,29 @@ class Llama(nn.Module):
     precomputes the per-layer views and the RoPE frequencies once.
     ``route`` picks the kernels (default) or their plain versions; a call
     may name another route (``FAST`` for a --fast-prefill chunk).
+    ``fusion`` is the ``DLLAMA_LAYER_FUSION`` mode the engine read
+    (ops/layer.fusion_mode): 'headtail' or 'on' send every T = 1 call of
+    ``forward`` through ``forward_fused`` where ops/layer.supports holds
+    (``self.fusion`` says which mode applies, None for the unfused path).
     """
 
     def __init__(self, spec: TransformerSpec, params: dict[str, Any],
-                 route: Route = KERNELS):
+                 route: Route = KERNELS, fusion: str = "off"):
         super().__init__()
         self.spec = spec
         self.params = params
         self.route = route
+        self.fusion = (fusion if fused(fusion)
+                       and fusion_supports(spec, params) else None)
         self.layers = [_layer_view(params, i) for i in range(spec.n_layers)]
         self._rows: dict = {}
         device = params["tok_embedding"].device
         self.register_buffer("freq", rope_freq(spec.dim + spec.kv_dim,
                                                spec.head_size, device))
+        if self.fusion is not None:
+            # forward's host token and position, for forward_fused's kernels
+            self._token = torch.zeros(1, dtype=torch.int64, device=device)
+            self._pos = torch.zeros(1, dtype=torch.int32, device=device)
 
     def forward(self, cache: KVCache, tokens: int | Sequence[int], pos: int,
                 logits: bool = True,
@@ -483,6 +486,11 @@ class Llama(nn.Module):
         if t_len < 1 or pos < 0 or pos + t_len > spec.seq_len:
             raise ValueError(f"positions {pos}..{pos + t_len - 1} outside "
                              f"the cache (seq_len {spec.seq_len})")
+        if t_len == 1 and self.fusion is not None:
+            self._token.fill_(tokens[0])
+            self._pos.fill_(pos)
+            return self.forward_fused(cache, self._token, self._pos,
+                                      self.fusion, route, logits, at=pos)
         emb = p["tok_embedding"]
         x = (emb[tokens[0]].reshape(1, spec.dim) if t_len == 1
              else emb[torch.tensor(tokens, device=emb.device)])
@@ -490,6 +498,58 @@ class Llama(nn.Module):
         rope = rope_tables(self.freq, pos, t_len)
         for idx, lw in enumerate(self.layers):
             x = _layer(spec, x, lw, cache, idx, pos, rope, route)
+        if not logits:
+            return None
+        x = rmsnorm(x, p["rms_final"])
+        return _mm(p["wcls"], x, route)
+
+    def forward_fused(self, cache: KVCache, token: torch.Tensor,
+                      pos: torch.Tensor, mode: str,
+                      route: Route | None = None, logits: bool = True,
+                      at: int | None = None) -> torch.Tensor | None:
+        """One decode step through the fused layer (the JAX package's
+        ``_forward_fused``): token (1,) int64 and pos (1,) int32 on the
+        device, cache (L, S, n_kv, hs). Under ``mode`` 'on', where
+        ops/layer.mega_supported holds, each layer is one K10 (route.mega);
+        otherwise ('headtail') K8, the k/v written at (layer, pos), the
+        decode attention and K9. ``at`` is the position on the host when
+        the caller has it: the attention is then K2 (route.attention),
+        else K5 at B = 1 (route.batch), which reads pos on the device and
+        gives K2's bits. Embedding, final norm and wcls stay outside the
+        fused kernels. Returns logits (1, vocab) f32, or None with
+        ``logits=False``; with ``at`` None reads nothing on the host, so a
+        CUDA graph can capture it."""
+        spec, p = self.spec, self.params
+        route = self.route if route is None else route
+        if not fused(mode):
+            raise ValueError(f"forward_fused: mode {mode!r}, expected on or "
+                             f"headtail")
+        mega = mode == "on" and mega_supported(spec)
+        dim, kv_dim, hs = spec.dim, spec.kv_dim, spec.head_size
+        kv_mul = spec.kv_mul
+        x = p["tok_embedding"][token].to(torch.float32)  # (1, dim)
+        rows = pos.long() if at is None else None
+        for idx, lw in enumerate(self.layers):
+            if mega:
+                x = route.mega(x, lw["wqkv"], lw["wo"], lw["w13"], lw["w2"],
+                               lw["rms_att"], lw["rms_ffn"], self.freq,
+                               cache.k, cache.v, idx, pos, kv_mul)
+                continue
+            qkv = route.head(x, lw["wqkv"], lw["rms_att"], self.freq, pos)
+            q = qkv[0, :dim].reshape(spec.n_heads, hs)
+            k = qkv[:, dim:dim + kv_dim].reshape(1, -1, hs)
+            v = qkv[:, dim + kv_dim:].reshape(1, -1, hs)
+            if at is not None:
+                cache.k[idx, at].copy_(k[0])
+                cache.v[idx, at].copy_(v[0])
+                ao = route.attention(q, cache.k, cache.v, idx, at, kv_mul)
+            else:
+                cache.k[idx].index_copy_(0, rows, k.to(cache.k.dtype))
+                cache.v[idx].index_copy_(0, rows, v.to(cache.v.dtype))
+                ao = route.batch(q.reshape(1, spec.n_heads, hs), cache.k,
+                                 cache.v, idx, pos, kv_mul)
+            x = route.tail(ao, x, lw["wo"], lw["w13"], lw["w2"],
+                           lw["rms_ffn"])
         if not logits:
             return None
         x = rmsnorm(x, p["rms_final"])

@@ -13,6 +13,12 @@ launches from Python. It is the one builder behind both JAX loops:
 * ``make_batch_decode_loop`` / ``generate_batch`` (``--prompts-file``): B
   rows in lockstep on one clock, ragged prompts right-padded with -1.
 
+Under ``DLLAMA_LAYER_FUSION=headtail|on`` the single-sequence step is
+``Llama.forward_fused`` over the engine's (L, S, n_kv, hs) cache instead
+(Engine.decode_loop): the fused kernels read the device position and keep
+their scratch vectors in static buffers (ops/layer.py), so it captures
+like the unfused step.
+
 Both are the same step: every row forces ``prompts[b, i+1]`` when it is
 >= 0, else samples with its coin ``coins[b, i]``; a row that produced BOS
 is frozen (its input token stays, it records BOS) and ``done`` is set

@@ -16,7 +16,11 @@ decodes B prompts in lockstep through the same loop.
 
 The engines read ``DLLAMA_MULTI_T_BODY`` once (ops/q40.multi_t_body) and
 route every 2 <= T <= 8 product through the body it names (K1d for
-'dequant'), as the JAX package's T <= 8 dispatch does.
+'dequant'), as the JAX package's T <= 8 dispatch does. ``Engine`` also
+reads ``DLLAMA_LAYER_FUSION`` once (ops/layer.fusion_mode): under
+'headtail' or 'on' every T = 1 step it runs, host loop, T = 1 prefill tail
+and --fast chain alike, goes through the fused decode layer
+(Llama.forward_fused), as the JAX package's forward does at T = 1.
 
 Stats: I = device step time (the forward up to the host copy of the
 logits, which waits for the device), T = host time (sampling + loop). A
@@ -38,7 +42,7 @@ from ..io.tokenizer import BOS, Tokenizer
 from ..models.llama import (FAST, KERNELS, KVCache, Llama, init_cache,
                             init_cache_batch, params_to_device, with_body)
 from ..models.spec import TransformerSpec
-from ..ops import attention, q40
+from ..ops import attention, layer, q40
 from ..ops._build import build
 from ..utils.rng import Xorshift64
 from .decode import DecodeLoop
@@ -55,7 +59,10 @@ class Engine:
     the bf16 route (models/llama.FAST); the T = 1 tail and every decode
     step keep the parity route, as the JAX Engine keeps its parity program
     for them. Every 2 <= T <= 8 product takes the small-T body that
-    ``DLLAMA_MULTI_T_BODY`` names, read here once."""
+    ``DLLAMA_MULTI_T_BODY`` names, read here once, and every T = 1 step
+    the fused layer that ``DLLAMA_LAYER_FUSION`` names (``self.model.fusion``
+    says which applies: None where the mode is off or ops/layer.supports
+    fails)."""
 
     def __init__(self, spec: TransformerSpec, params: dict[str, Any],
                  device="cuda", cache_dtype: torch.dtype = torch.float32,
@@ -64,11 +71,13 @@ class Engine:
         self.device = torch.device(device)
         self.fast_prefill = fast_prefill
         body = q40.multi_t_body()
+        fusion = layer.fusion_mode()
         if self.device.type == "cuda":
             # build (or find) the kernels now, not inside the first token
-            build([*q40.KERNELS, *attention.KERNELS])
+            build([*q40.KERNELS, *attention.KERNELS, *layer.KERNELS])
         self.params = params_to_device(params, self.device)
-        self.model = Llama(spec, self.params, with_body(KERNELS, body))
+        self.model = Llama(spec, self.params, with_body(KERNELS, body),
+                           fusion)
         self.cache = init_cache(spec, self.device, cache_dtype)
         self._loops: dict = {}
 
@@ -113,14 +122,22 @@ class Engine:
         """The on-device loop over this engine's cache (B = 1, seq_len-long
         buffers, so every --steps value shares one captured step), made
         once per sampling config. The step is Llama.forward_batch over the
-        cache viewed as (L, 1, S, n_kv, hs): K1 and K5."""
+        cache viewed as (L, 1, S, n_kv, hs): K1 and K5; under a fused mode,
+        Llama.forward_fused over the cache itself: K10, or K8, K5 and K9,
+        with K1 for wcls."""
         key = (float(temperature), float(topp), graph)
         if key not in self._loops:
-            cache = KVCache(self.cache.k.unsqueeze(1),
-                            self.cache.v.unsqueeze(1))
+            model = self.model
+            if model.fusion is not None:
+                def step(tokens, pos):
+                    return model.forward_fused(self.cache, tokens, pos,
+                                               model.fusion)
+            else:
+                cache = KVCache(self.cache.k.unsqueeze(1),
+                                self.cache.v.unsqueeze(1))
 
-            def step(tokens, pos):
-                return self.model.forward_batch(cache, tokens, pos)
+                def step(tokens, pos):
+                    return model.forward_batch(cache, tokens, pos)
 
             self._loops[key] = DecodeLoop(step, 1, self.spec.seq_len,
                                           temperature, topp, self.device,

@@ -150,7 +150,7 @@ UNPORTED = [["--tp", "2"], ["--sp", "2"], ["--buffer-float-type", "f16"],
             ["--kv-page-size", "16"], ["--spec-k", "4"],
             ["--kv-quant", "q8"], ["--profile", "trace"],
             ["--tp-scheme", "fused"], ["--workers", "10.0.0.2:9998"],
-            ["--nthreads", "4"], ["--coordinator", "h:1"],
+            ["--coordinator", "h:1"],
             ["--model-from-root", "h:1"]]
 CONTINUOUS_FLAGS = ("--continuous", "--slots", "--block-steps", "--kv-pages",
                     "--kv-page-size", "--kv-quant")
@@ -532,12 +532,8 @@ def test_cli_continuous_matches_reference(model_files, continuous_prompts,
     (["--kv-quant", "q8", "--continuous"],
      "--kv-quant q8 quantizes paged KV pages: add --kv-page-size P (with "
      "--continuous)"),
-    (["--kv-pages", "8", "--continuous"],
-     "--kv-pages sizes the paged KV pool: add --kv-page-size P"),
     (["--slots", "-1", "--continuous"],
-     "--slots must be non-negative (0 = auto: min(#prompts, 8)), got -1"),
-    (["--slots", "3"], "--slots/--block-steps/--kv-pages only apply to the "
-                       "continuous engine: add --continuous")])
+     "--slots must be non-negative (0 = auto: min(#prompts, 8)), got -1")])
 def test_cli_continuous_exit_2_paths(flags, message, capsys, tmp_path):
     """Before any load (the model path does not exist), with a prompts
     file: the JAX CLI's checks and messages."""
@@ -550,6 +546,67 @@ def test_cli_continuous_exit_2_paths(flags, message, capsys, tmp_path):
                "cpu", "--prompts-file", str(prompts), *flags])
     assert rc == 2
     assert capsys.readouterr().err.strip() == message
+
+
+# flags the JAX CLI accepts and ignores in these combinations: the port
+# gives its exit code and its token stream
+IGNORED = {"nthreads": ["--nthreads", "4"],
+           "lockstep-slots": ["--prompts-file", "{prompts}", "--slots", "3"],
+           "lockstep-block-steps": ["--prompts-file", "{prompts}",
+                                    "--block-steps", "4"],
+           "lockstep-kv-pages": ["--prompts-file", "{prompts}",
+                                 "--kv-pages", "8"]}
+
+
+@pytest.mark.parametrize("case", sorted(IGNORED))
+def test_cli_ignored_flags_match_jax_cli(model_files, prompts_file, capsys,
+                                         case):
+    """--nthreads on the token-by-token path, and --slots, --block-steps
+    and --kv-pages on the lockstep --prompts-file path without
+    --continuous: both CLIs exit 0 with the same pieces (or rows)."""
+    from distributed_llama_tpu.frontend.cli import main as ref_main
+    from distributed_llama_tpu_torch.frontend.cli import main
+
+    model, tokp = model_files
+    extra = [a.format(prompts=prompts_file) for a in IGNORED[case]]
+    base = ["inference", "--model", model, "--tokenizer", tokp, "--prompt",
+            PROMPT, "--steps", "12", "--temperature", "0", "--seed", "1",
+            *extra]
+
+    def stream(out):
+        return [ln for ln in out.splitlines()
+                if ln.startswith("🔶") or re.match(r"\[\d\] ", ln)
+                or "across" in ln]
+
+    assert ref_main(base + ["--tp", "1"]) == 0
+    want = [ln.rsplit(" kB ", 1)[-1] for ln in
+            stream(capsys.readouterr().out)]
+    assert main(base + ["--device", "cpu"]) == 0
+    got = [ln.rsplit(" kB ", 1)[-1] for ln in
+           stream(capsys.readouterr().out)]
+    assert len(want) > 4
+    assert got == want
+
+
+def test_cli_continuous_kv_pages_without_page_size_matches_jax_cli(
+        model_files, continuous_prompts, monkeypatch):
+    """--continuous --kv-pages N without --kv-page-size: the argument
+    checks pass in both CLIs and the engine raises the same ValueError
+    after the load."""
+    from distributed_llama_tpu.frontend.cli import main as ref_main
+    from distributed_llama_tpu_torch.frontend.cli import main
+
+    monkeypatch.setenv("DLLAMA_KV_QUANT", "")
+    model, tokp = model_files
+    base = ["inference", "--model", model, "--tokenizer", tokp,
+            "--prompts-file", continuous_prompts, "--steps", "12",
+            "--temperature", "0", "--continuous", "--kv-pages", "8"]
+    with pytest.raises(ValueError) as want:
+        ref_main(base + ["--tp", "1"])
+    with pytest.raises(ValueError) as got:
+        main(base + ["--device", "cpu"])
+    assert str(got.value) == str(want.value)
+    assert "kv_pages requires page_size > 0" in str(got.value)
 
 
 @pytest.mark.parametrize("flags", [["--continuous"], ["--slots", "2"]])

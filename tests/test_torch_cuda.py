@@ -904,3 +904,229 @@ def test_captured_continuous_engine_matches_eager(gen, case, block,
               "paged_attention")
     assert g_counts[symbol] == spec.n_layers * g_steps
     assert replays + 1 == g_steps  # one graph: its warm-up, then replays
+
+
+# ---------------------------------------------------------------------------
+# the fused decode layer: K8 (head), K9 (tail), K10 (whole layer)
+# ---------------------------------------------------------------------------
+
+from distributed_llama_tpu_torch.ops import layer  # noqa: E402
+
+# (dim, hidden_dim, n_heads, n_kv_heads): MHA at head size 128, GQA at
+# kv_mul 2, 4 and 8, and hidden widths whose staged hb needs more than 48
+# KB of shared memory (7B's) and fits one block per SM (70B's), run after
+# narrower ones: the co-resident grid is sized per shared-memory size
+FUSED_SHAPES = [(256, 704, 2, 2), (512, 1376, 8, 4), (512, 1376, 8, 2),
+                (1024, 2816, 8, 1), (256, 11008, 2, 2), (256, 28672, 2, 2)]
+FUSED_SEQ = 64
+
+
+def _fused_inputs(gen, dim, hid, n_heads, n_kv, cache=torch.float32):
+    lw = layer.random_layer(dim, hid, n_heads, n_kv, "cuda", gen)
+    x = torch.randn((1, dim), device="cuda", generator=gen)
+    hs = dim // n_heads
+    shape = (2, FUSED_SEQ, n_kv, hs)
+    k = torch.randn(shape, device="cuda", generator=gen).to(cache)
+    v = torch.randn(shape, device="cuda", generator=gen).to(cache)
+    return lw, x, k, v
+
+
+def _close(got, want, rtol=q40.KERNEL_RTOL):
+    err = (got - want).abs().max().item()
+    assert err <= rtol * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+@pytest.mark.parametrize("pos", [0, 5, 63])
+def test_fused_head_kernel_matches_plain(gen, shape, pos):
+    lw, x, _, _ = _fused_inputs(gen, *shape)
+    p = torch.tensor([pos], dtype=torch.int32, device="cuda")
+    before = layer.HEAD_KERNEL.launches
+    got = layer.q40_head_fused(x, lw["wqkv"], lw["rms_att"], lw["freq"], p)
+    assert layer.HEAD_KERNEL.launches == before + 1
+    want = layer.q40_head_fused_plain(x, lw["wqkv"], lw["rms_att"],
+                                      lw["freq"], p)
+    assert got.shape == want.shape
+    _close(got, want)
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+def test_fused_tail_kernel_matches_plain_and_k1_bits(gen, shape):
+    """K9 against plain; and its wo and w2 rows give K1's bits: the scratch
+    xnew is x + K1(wo, ao), the output xnew + K1(w2, hb), bit for bit."""
+    lw, x, _, _ = _fused_inputs(gen, *shape)
+    ao = torch.randn(x.shape, device="cuda", generator=gen)
+    before = layer.TAIL_KERNEL.launches
+    got = layer.q40_tail_fused(ao, x, lw["wo"], lw["w13"], lw["w2"],
+                               lw["rms_ffn"])
+    assert layer.TAIL_KERNEL.launches == before + 1
+    _close(got, layer.q40_tail_fused_plain(ao, x, lw["wo"], lw["w13"],
+                                           lw["w2"], lw["rms_ffn"]))
+    s = layer._scratch(x.device, shape[0], shape[1])
+    torch.testing.assert_close(s.xnew[None], x + q40.q40_matmul(lw["wo"], ao),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(got, s.xnew[None] + q40.q40_matmul(
+        lw["w2"], s.hb[None].clone()), rtol=0, atol=0)
+    assert s.bar[0].item() == 0  # the barrier leaves its count at 0
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES[:4])
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos", [0, 7, 63])
+def test_fused_mega_kernel_matches_plain(gen, shape, cache, pos):
+    """K10 against plain, part by part: the head (q in the scratch, k and v
+    written at (layer 1, pos)) within the Q40 tolerance (one bf16 step on
+    a bf16 cache), the attention over the cache it wrote against the plain
+    attention of its own q within the attention tolerance (1e-5 abs), the
+    tail from its own attention output within the Q40 tolerance, and the
+    layer output against the plain layer (a bf16 cache within 1e-3 of the
+    largest |value|: a k/v value the two round across a bf16 boundary
+    moves the scores). Rows of the cache other than (1, pos) stay."""
+    dim, hid, n_heads, n_kv = shape
+    hs = dim // n_heads
+    lw, x, k, v = _fused_inputs(gen, *shape, cache=cache)
+    kp, vp = k.clone(), v.clone()
+    p = torch.tensor([pos], dtype=torch.int32, device="cuda")
+    args = (lw["wqkv"], lw["wo"], lw["w13"], lw["w2"], lw["rms_att"],
+            lw["rms_ffn"], lw["freq"])
+    before = layer.MEGA_KERNEL.launches
+    got = layer.q40_layer_mega(x, *args, k, v, 1, p, n_heads // n_kv)
+    assert layer.MEGA_KERNEL.launches == before + 1
+    want = layer.q40_layer_mega_plain(x, *args, kp, vp, 1, p,
+                                      n_heads // n_kv)
+    s = layer._scratch(x.device, dim, hid)
+    head = layer.q40_head_fused_plain(x, lw["wqkv"], lw["rms_att"],
+                                      lw["freq"], p)[0]
+    _close(s.q, head[:dim])
+    kv_dim = n_kv * hs
+    step = 2.0 ** -7 if cache == torch.bfloat16 else q40.KERNEL_RTOL
+    _close(k[1, pos].float().reshape(-1), head[dim:dim + kv_dim], step)
+    _close(v[1, pos].float().reshape(-1), head[dim + kv_dim:], step)
+    ao = attention.decode_attention_plain(s.q.reshape(-1, hs), k, v, 1, pos,
+                                          n_heads // n_kv)
+    assert (s.ao[None] - ao).abs().max().item() <= attention.KERNEL_ATOL
+    _close(got, layer.q40_tail_fused_plain(s.ao[None].clone(), x, lw["wo"],
+                                           lw["w13"], lw["w2"],
+                                           lw["rms_ffn"]))
+    _close(got, want, 1e-3 if cache == torch.bfloat16 else q40.KERNEL_RTOL)
+    keep = torch.ones(k.shape[:2], dtype=torch.bool, device="cuda")
+    keep[1, pos] = False
+    assert torch.equal(k[keep], kp[keep]) and torch.equal(v[keep], vp[keep])
+
+
+def test_fused_kernels_raise_instead_of_falling_back(gen):
+    lw, x, k, v = _fused_inputs(gen, 256, 704, 2, 2)
+    p = torch.tensor([3], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="pos must be one int32"):
+        layer.q40_head_fused(x, lw["wqkv"], lw["rms_att"], lw["freq"],
+                             p.long())
+    with pytest.raises(ValueError, match="contiguous on cuda"):
+        layer.q40_head_fused(x, Q40Weight(lw["wqkv"].qs.cpu(),
+                                          lw["wqkv"].d16),
+                             lw["rms_att"], lw["freq"], p)
+    with pytest.raises(ValueError, match="do not fit a layer"):
+        layer.q40_tail_fused(x, x, lw["wo"], lw["w13"], lw["wo"],
+                             lw["rms_ffn"])
+    with pytest.raises(ValueError, match="kv_mul"):
+        layer.q40_layer_mega(x, lw["wqkv"], lw["wo"], lw["w13"], lw["w2"],
+                             lw["rms_att"], lw["rms_ffn"], lw["freq"], k, v,
+                             0, p, 3)
+    with pytest.raises(ValueError, match="caches must be equal"):
+        layer.q40_layer_mega(x, lw["wqkv"], lw["wo"], lw["w13"], lw["w2"],
+                             lw["rms_att"], lw["rms_ffn"], lw["freq"], k,
+                             v.to(torch.bfloat16), 0, p, 1)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        layer.q40_tail_fused(x.cpu(), x.cpu(), lw["wo"], lw["w13"],
+                             lw["w2"], lw["rms_ffn"].cpu())
+
+
+FUSED_KERNELS = (*q40.KERNELS, *attention.KERNELS, *layer.KERNELS)
+
+
+@pytest.mark.parametrize("mode", ["headtail", "on"])
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+def test_fused_forward_counts_launches_and_matches(gen, mode, cache):
+    """Llama.forward under a fused mode on the card: per step 'headtail'
+    launches L K8, L K2, L K9 and one K1 (wcls), 'on' L K10 and one K1,
+    nothing else; logits within LOGIT_RTOL of the plain fused route and of
+    the unfused kernels (FAST_RTOL over a bf16 cache, which rounds where
+    the two sum apart)."""
+    spec = _small_spec(seq_len=64) if mode == "headtail" else TransformerSpec(
+        dim=512, hidden_dim=1376, n_layers=2, n_heads=4, n_kv_heads=2,
+        vocab_size=300, seq_len=64, weights_float_type=FloatType.Q40)
+    params = llama.params_to_device(synth_params(spec, q40=True, seed=5,
+                                                 scale=0.3), "cuda")
+    kern = llama.Llama(spec, params, fusion=mode)
+    plain = llama.Llama(spec, params, llama.PLAIN, fusion=mode)
+    unfused = llama.Llama(spec, params)
+    assert kern.fusion == mode
+    caches = [llama.init_cache(spec, "cuda", cache) for _ in range(3)]
+    L = spec.n_layers
+    want_counts = ({"q40_head_fused": L, "decode_attention" + (
+        "_kvbf16" if cache == torch.bfloat16 else ""): L,
+        "q40_tail_fused": L, "q40_matvec": 1} if mode == "headtail" else
+        {"q40_layer_mega": L, "q40_matvec": 1})
+    rtol = llama.LOGIT_RTOL if cache == torch.float32 else llama.FAST_RTOL
+    with torch.inference_mode():
+        for pos, tok in enumerate([1, 40, 7, 299, 3]):
+            before = {k: k.launches for k in FUSED_KERNELS}
+            a = kern(caches[0], tok, pos)
+            assert _deltas(before) == want_counts
+            b = plain(caches[1], tok, pos)
+            c = unfused(caches[2], tok, pos)
+            assert torch.isfinite(a).all()
+            for ref in (b, c):
+                err = (a - ref).abs().max().item()
+                assert err <= rtol * ref.abs().max().item(), (pos, err)
+
+
+@pytest.mark.parametrize("mode", ["headtail", "on"])
+def test_captured_fused_loop_matches_eager_and_host(gen, mode):
+    """generate_fast under a fused mode, the step captured and eagerly,
+    against generate on the same engine: equal greedy streams. The
+    captured run launches, per step run, L K10 and one K1 ('on') or L K8,
+    L K5, L K9 and one K1 ('headtail'), never K2."""
+    import os
+
+    from distributed_llama_tpu_torch.runtime.generate import (generate,
+                                                              generate_fast)
+    from distributed_llama_tpu_torch.runtime.sampling import Sampler
+
+    class Tok:  # ids as pieces: the prompt is 1, 9, 40
+        def encode(self, text, bos=True, eos=False):
+            return [1, 9, 40]
+
+        def decode_piece(self, prev, tok):
+            return b"."
+
+    spec = TransformerSpec(dim=512, hidden_dim=1376, n_layers=2, n_heads=4,
+                           n_kv_heads=2, vocab_size=300, seq_len=48,
+                           weights_float_type=FloatType.Q40)
+    saved = os.environ.get("DLLAMA_LAYER_FUSION")
+    os.environ["DLLAMA_LAYER_FUSION"] = mode
+    try:
+        engine = Engine(spec, synth_params(spec, q40=True, seed=5,
+                                           scale=0.3), "cuda")
+    finally:
+        if saved is None:
+            os.environ.pop("DLLAMA_LAYER_FUSION")
+        else:
+            os.environ["DLLAMA_LAYER_FUSION"] = saved
+    assert engine.model.fusion == mode
+    streams, launches = {}, {}
+    for label, run, kw in (("host", generate, {}),
+                           ("graph", generate_fast, {"graph": True}),
+                           ("eager", generate_fast, {"graph": False})):
+        engine.reset()
+        before = {k: k.launches for k in FUSED_KERNELS}
+        streams[label], _ = run(engine, Tok(), Sampler(300, 0.0, 0.9, 3),
+                                "", 30, quiet=True, **kw)
+        launches[label] = _deltas(before)
+    assert streams["graph"] == streams["eager"] == streams["host"]
+    assert len(streams["host"]) > 20
+    L = spec.n_layers
+    ran = engine.decode_loop(0.0, 0.9, True).replays + 1
+    want = ({"q40_layer_mega": L * ran} if mode == "on" else
+            {"q40_head_fused": L * ran, "decode_attention_batch": L * ran,
+             "q40_tail_fused": L * ran})
+    assert launches["graph"] == {"q40_matvec": ran, **want}
