@@ -30,14 +30,19 @@ no result line):
    gives K6's bits over the dequantized pool); the fused decode layer's
    head (K8), tail (K9) and whole layer (K10, over an f32 and a bf16 cache,
    part by part) at the 7B and GQA shapes at pos 0, 63 and 2047, timed
-   beside the unfused port path for the same work. Max error against the
+   beside the unfused port path for the same work; the Q40 layout probe's
+   kernels (B10: P1 probe_stream, P2 probe_xglobal, P3 probe_nomask, P4
+   probe_signed) and K1 at the 13B w13 and wqkv shapes, then the probe's
+   own traced chain at w13 (tools/nb_probe.py, every variant, 8 layers x 4
+   reps, exactly 32 trace events of each variant's kernel, the trace time
+   beside the chain's CUDA-event time). Max error against the
    stated tolerance; kernel, plain and library
    times (CUDA events, median of 25 launches, L2 flushed before each); the
    bound (bf16 rate for K3b, K4b and K1d) and what bounds it.
 3. End to end: a 7B-shaped Q40 model with random codes (seeded) and a
    32000-piece tokenizer are written to build/smoke/ (by a process started
    with phase 1, while the card runs phases 1 and 2), then the port's CLI
-   runs ``inference`` in-process fourteen times (runs e and f call the
+   runs ``inference`` in-process seventeen times (runs e and f call the
    CLI's ``generate`` in phase 4), every kernel's launch count reset just
    before and read just after each run:
    a. 64 steps token by token, greedy: K1 4*L+1 = 129 and K2 L = 32
@@ -84,7 +89,14 @@ no result line):
    p. run i (``--fast``) under ``DLLAMA_LAYER_FUSION=on``: per device step
       32 K10 and one K1, no K2 or K5. The greedy streams of o and p equal
       run a's, or part from it only at a step where run a's two largest
-      logits lie within the logit tolerance of each other.
+      logits lie within the logit tolerance of each other;
+   q. run i with ``--profile DIR``: its stream equals run a's, the 🔶 I/T
+      line is printed, and its torch.profiler trace holds exactly the run's
+      K1 and K5 launches as kernel events (the kernels the CUDA graph
+      replays);
+   r. run a's prompt for 32 steps with ``--save-state``, then 32 more with
+      ``--resume-state``: K1 and K2 per step in each, and the joined stream
+      equals run a's.
 4. Kernels against plain at full width: the first 4 positions of the same
    model through the forward with the kernels and with the plain versions;
    then 8 more kernel steps timed, and 8 under torch.profiler for the
@@ -105,7 +117,9 @@ no result line):
    and the captured 8-row batch step's logits held against the plain
    route of forward_batch (K1m over an f32 cache within LOGIT_RTOL; K1d
    over a bf16 cache within FAST_RTOL), and its time with nothing but
-   replays. The random codes
+   replays; then a 1 s obs/profiler.start_capture, on its own thread,
+   while the main thread runs 4 --fast steps: the kernel events its trace
+   holds (a reading, not an assertion). The random codes
    make that model's logits nearly position-independent, so a small model
    with quantized-Gaussian weights also runs through the kernels on the
    card (8 decode steps; prefill at chunk 4 through K1m, chunk 16 through
@@ -1044,6 +1058,124 @@ def phase_fused(torch, timer, peaks):
 
 
 # --------------------------------------------------------------------------
+# phase 2c: the Q40 layout probe's kernels (B10) and its traced chain
+# --------------------------------------------------------------------------
+
+PROBE_SHAPES = [("w13", 27648, 5120), ("wqkv", 15360, 5120)]  # 13B leaves
+PROBE_LAYERS, PROBE_REPS = 8, 4
+# variant -> the kernels line's name for its kernel (v0 is K1)
+PROBE_KERNELS = {"dma": "probe_stream", "v0r": "probe_xglobal",
+                 "v1": "probe_nomask", "i4": "probe_signed"}
+
+
+def phase_probe(torch, timer, peaks):
+    """P1-P4 and K1 against their plain versions at the 13B w13 and wqkv
+    shapes, timed (the Timer's medians) beside the bound, the plain time
+    and cuBLAS's f32 GEMV on the weight dequantized beforehand (none for
+    P1: no library call computes its XOR fold); P2 and P3 are timed on x
+    prepared beforehand, as their wrappers prepare it once per call. Then
+    the probe's own run at w13 (tools/nb_probe.run_variant, every variant,
+    PROBE_LAYERS x PROBE_REPS chained calls each, traced): every count set
+    to 0 just before and read just after; its trace must hold exactly
+    PROBE_LAYERS x PROBE_REPS events of each variant's kernel."""
+    from distributed_llama_tpu_torch.io.loader import Q40Weight
+    from distributed_llama_tpu_torch.ops import q40
+    from distributed_llama_tpu_torch.ops.quants import dequantize_q40_torch
+    from distributed_llama_tpu_torch.tools import nb_probe as nbp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for shape, d, n in PROBE_SHAPES:
+        nb = n // 32
+        w = q40.random_q40(d, n, "cuda", g)
+        ws = Q40Weight(nbp.to_signed(w.qs), w.d16)
+        x = torch.randn((n,), device="cuda", generator=g)
+        xpad, xprep = nbp.pad_x(x), nbp.prep_nomask(x)
+        wf = dequantize_q40_torch(w.qs, w.d16)
+        library_ms = timer(lambda: torch.matmul(x[None], wf.T))
+        # (variant, kernel, run, plain, rtol, x bytes read, library ms)
+        cases = [
+            ("dma", "probe_stream", lambda: nbp.probe_stream(w),
+             lambda: nbp.probe_stream_plain(w), nbp.KERNEL_RTOL, 0, None),
+            ("v0", "q40_matvec", lambda: q40.q40_matmul(w, x[None])[0],
+             lambda: q40.q40_matmul_plain(w, x[None])[0], q40.KERNEL_RTOL,
+             n * 4, library_ms),
+            ("v0r", "probe_xglobal",
+             lambda: nbp._launch(nbp.XGLOBAL, w, [xpad], d, nb),
+             lambda: nbp.probe_xglobal_plain(w, x), nbp.KERNEL_RTOL,
+             nb * nbp.BLOCK_PAD * 4, library_ms),
+            ("v1", "probe_nomask",
+             lambda: nbp._launch(nbp.NOMASK, w, [xprep], d, nb),
+             lambda: nbp.probe_nomask_plain(w, xprep),
+             nbp.KERNEL_RTOL_NOMASK, nb * nbp.BLOCK_PAD * 4, library_ms),
+            ("i4", "probe_signed", lambda: nbp.probe_signed(ws, x),
+             lambda: nbp.probe_signed_plain(ws, x), nbp.KERNEL_RTOL, n * 4,
+             library_ms)]
+        for variant, kname, run, plain, rtol, x_bytes, lib_ms in cases:
+            got = run()
+            want = plain()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tol = rtol * want.abs().max().item()
+            ms = timer(run)
+            plain_ms = timer(plain)
+            nbytes = 18 * d * nb + x_bytes + 4 * d
+            # P1: a XOR fold (15 ops) and a multiply-add per block; the
+            # others: a multiply-add per weight
+            ops = 17.0 * d * nb if variant == "dma" else 2.0 * d * n
+            b_ms, b_by = bound(nbytes, ops, peaks)
+            log(f"B10 {variant:3s} {kname:13s} {shape:4s} ({d}x{n}): "
+                f"max_abs_err {err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms "
+                f"({nbytes / ms / 1e6:.0f} GB/s, {b_ms / ms:.1%} of the "
+                f"bound) plain {plain_ms:.4f} ms gemv "
+                + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none")
+                + f" bound {b_ms:.4f} ms ({b_by})")
+            if not err <= tol:
+                raise AssertionError(f"B10 {variant} {shape}: error {err} "
+                                     f"above {tol}")
+            rows.append(dict(variant=variant, kernel=kname, shape=shape,
+                             d=d, n=n, max_abs_err=err, tol=tol, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=lib_ms, share=b_ms / ms))
+        del w, ws, x, xpad, xprep, wf
+    return rows, probe_chain(torch)
+
+
+def probe_chain(torch):
+    """The probe's own measurement at w13 (PROBE_LAYERS x PROBE_REPS
+    dependent calls per variant, traced), in process, every kernel's count
+    set to 0 just before and read just after: per variant one parity call
+    and three chains (warm-up, traced, CUDA-event timed)."""
+    from distributed_llama_tpu_torch.ops import q40
+    from distributed_llama_tpu_torch.tools import nb_probe as nbp
+
+    d, n = nbp.SHAPES["w13"]
+    w = nbp.synth(PROBE_LAYERS, d, n, "cuda")
+    x = torch.randn((n,), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1))
+    calls = PROBE_LAYERS * PROBE_REPS
+    for k in _all_kernels():
+        k.launches = 0
+    results = [nbp.run_variant(v, "w13", w, x, PROBE_REPS,
+                               SMOKE_DIR / "nb_probe")
+               for v in nbp.VARIANTS]
+    launches = {k.symbol: k.launches for k in _all_kernels()}
+    per_call = 1 + 3 * calls
+    _expect("probe run", launches, {
+        **{name: per_call for name in PROBE_KERNELS.values()},
+        q40.KERNEL.symbol: 2 * per_call})  # v0 and v0_128
+    for r in results:
+        log(f"probe: {nbp.describe(r)}")
+        if r["events"] != calls:
+            raise AssertionError(f"probe {r['variant']}: {r['events']} "
+                                 f"trace events, want {calls}")
+    del w
+    return dict(shape="w13", layers=PROBE_LAYERS, reps=PROBE_REPS,
+                launches=launches, results=results)
+
+
+# --------------------------------------------------------------------------
 # phase 3: the main path, end to end through the CLI
 # --------------------------------------------------------------------------
 
@@ -1125,9 +1257,10 @@ class _Tee(io.TextIOBase):
 def _all_kernels():
     from distributed_llama_tpu_torch.ops import (attention, layer,
                                                  paged_attention, q40)
+    from distributed_llama_tpu_torch.tools import nb_probe
 
     return [*q40.KERNELS, *attention.KERNELS, *paged_attention.KERNELS,
-            *layer.KERNELS]
+            *layer.KERNELS, *nb_probe.KERNELS]
 
 
 @contextlib.contextmanager
@@ -1515,6 +1648,129 @@ def phase_e2e_fused(torch, model, tok, n_layers, ref):
     return res
 
 
+def phase_e2e_profile(torch, model, tok, n_layers, ref):
+    """Run q: run i (``--fast``, run a's prompt and steps) with ``--profile
+    DIR`` through the CLI. Its stream equals run a's (``ref``: the pieces);
+    the 🔶 I/T line is printed; its trace holds exactly the run's K1 and K5
+    launches, under their kernels' base names (q40_matvec_kernel, and
+    decode_attention_kernel, the template K5 shares with K2, which this run
+    never launches): the trace sees the kernels the CUDA graph replays."""
+    import shutil
+
+    from distributed_llama_tpu_torch.utils import it_split
+
+    where = SMOKE_DIR / "profile_q"
+    shutil.rmtree(where, ignore_errors=True)
+    out, counts, wall, _ = _run_cli(torch, model, tok, [
+        "--prompt", PROMPT, "--steps", str(STEPS), "--temperature", "0",
+        "--seed", "1", "--fast", "--profile", str(where)])
+    _expect("q run", counts, {"q40_matvec": (4 * n_layers + 1) * STEPS,
+                              "decode_attention_batch": n_layers * STEPS})
+    if _fast_text(out) != ref:
+        raise AssertionError("q run: the profiled --fast stream differs "
+                             "from run a's")
+    split_line = [ln for ln in out.splitlines() if ln.startswith("🔶 I ")]
+    if len(split_line) != 1 or f"Profiler trace written to {where}" \
+            not in out:
+        raise AssertionError("q run: no trace line or I/T line")
+    splits = it_split.parse_trace(str(where))
+    dev = {k: v for k, v in splits.items() if k.startswith("/device:")}
+    traced = {"q40_matvec": sum(v.counts["q40_matvec_kernel"]
+                                for v in dev.values()),
+              "decode_attention_batch": sum(
+                  v.counts["decode_attention_kernel"] for v in dev.values())}
+    want = {k: counts[k] for k in traced}
+    log(f"e2e q --fast --profile: {split_line[0]}; traced kernel events "
+        f"{traced} vs launches {want}; buckets per step "
+        f"{it_split.bucket_ops_from_splits(dev, STEPS)}")
+    if traced != want:
+        raise AssertionError(f"q run: the trace holds {traced} kernel "
+                             f"events, the run launched {want}")
+    return dict(wall_s=wall, launches=counts, traced=traced,
+                split_line=split_line[0],
+                trace_kernels=sum(sum(v.counts.values())
+                                  for v in dev.values()))
+
+
+def phase_e2e_resume(torch, model, tok, n_layers, ref):
+    """Run r: run a's prompt through the CLI for 32 steps with
+    ``--save-state``, then 32 more with ``--resume-state`` (``--steps``
+    counts the positions a resumed run adds, as in the JAX CLI): each run
+    launches K1 129 and K2 32 per step, and the joined pieces equal run
+    a's 64 (``ref``)."""
+    path = SMOKE_DIR / "state_r.npz"
+    path.unlink(missing_ok=True)
+    half = STEPS // 2
+    base = ["--prompt", PROMPT, "--steps", str(half), "--temperature", "0",
+            "--seed", "1"]
+    outs, res = [], {}
+    for label, flag in (("save", "--save-state"),
+                        ("resume", "--resume-state")):
+        out, counts, wall, finite = _run_cli(torch, model, tok,
+                                             [*base, flag, str(path)])
+        _expect(f"r {label} run", counts, {
+            "q40_matvec": (4 * n_layers + 1) * half,
+            "decode_attention": n_layers * half})
+        if not all(finite) or len(finite) != half:
+            raise AssertionError(f"r {label} run: finite logits "
+                                 f"{sum(finite)}/{len(finite)}")
+        outs.append(out)
+        res[label] = dict(wall_s=wall, launches=counts)
+    if f"⏩ Saved generation state to {path}" not in outs[0] or \
+            f"⏩ Resumed at pos {half} (" not in outs[1]:
+        raise AssertionError("r run: no save or resume line")
+    joined = _pieces(outs[0]) + _pieces(outs[1])
+    same = joined == ref
+    log(f"e2e r --save-state / --resume-state at {half}: checkpoint "
+        f"{path.stat().st_size} bytes; joined stream "
+        f"{'equals' if same else 'DIFFERS from'} run a's")
+    if not same:
+        raise AssertionError("r run: the joined stream differs from run a's")
+    return dict(split_at=half, checkpoint_bytes=path.stat().st_size, **res)
+
+
+def capture_reading(torch, engine, tokenizer):
+    """What a timed capture (obs/profiler.start_capture, started on its own
+    thread) sees of work on the main thread: a 1 s capture while 4 --fast
+    steps run, then the kernel events its trace holds. A reading for
+    PERF.md, not an assertion."""
+    import shutil
+
+    from distributed_llama_tpu_torch.obs import profiler
+    from distributed_llama_tpu_torch.runtime.generate import generate_fast
+    from distributed_llama_tpu_torch.runtime.sampling import Sampler
+    from distributed_llama_tpu_torch.utils import it_split
+
+    where = SMOKE_DIR / "capture"
+    shutil.rmtree(where, ignore_errors=True)
+    engine.reset()
+    for k in _all_kernels():
+        k.launches = 0
+    profiler.start_capture(str(where), 1.0)
+    generate_fast(engine, tokenizer, Sampler(32000, 0.0, 0.9, 1), PROMPT, 4,
+                  quiet=True)
+    torch.cuda.synchronize()
+    launched = {k.symbol: k.launches for k in _all_kernels() if k.launches}
+    if not profiler.wait_capture(60):
+        raise AssertionError("the timed capture did not end")
+    try:
+        splits = it_split.parse_trace(str(where))
+    except (FileNotFoundError, ValueError) as e:
+        splits, err = {}, f"{type(e).__name__}: {e}"
+    else:
+        err = None
+    dev = [v for k, v in splits.items() if k.startswith("/device:")]
+    res = dict(kernel_events=sum(sum(v.counts.values()) for v in dev),
+               q40_matvec_events=sum(v.counts["q40_matvec_kernel"]
+                                     for v in dev),
+               host_op_events=sum(sum(v.counts.values()) for k, v in
+                                  splits.items() if k.startswith("/host")),
+               launched=launched, parse_error=err)
+    log(f"capture reading (start_capture 1 s on its thread, 4 --fast steps "
+        f"on the main thread): {json.dumps(res)}")
+    return res
+
+
 def phase_e2e_q80(torch, model, tok, n_layers):
     """Run c: q80 buffers, the 20-token prompt through --prefill-chunk 8."""
     out, counts, wall, finite = _run_cli(torch, model, tok, [
@@ -1719,6 +1975,7 @@ def phase_full_width(torch, model, tok, peaks, ref):
     prefill["fast"] = prefill_fast_full_width(
         torch, engine, tokenizer.encode(PROMPT_512), peaks)
     fast = fast_full_width(torch, engine, tokenizer, ref)
+    fast["capture_reading"] = capture_reading(torch, engine, tokenizer)
     batch = batch_full_width(torch, engine)
     continuous = continuous_full_width(torch, engine, tokenizer, batch)
     return worst, busy, prefill, fast, batch, continuous
@@ -2488,6 +2745,8 @@ def main() -> int:
     mark("kernels K1-K7 against plain")
     fused_rows = phase_fused(torch, timer, peaks)
     mark("fused kernels K8-K10 against plain")
+    probe_rows, probe = phase_probe(torch, timer, peaks)
+    mark("probe kernels P1-P4 and the probe's chain")
     del timer
     gc.collect()
     torch.cuda.empty_cache()
@@ -2514,7 +2773,11 @@ def main() -> int:
     e2e_fast = phase_e2e_fast(torch, model, tok, spec.n_layers,
                               _pieces(out_a), e2e_prefill.pop("pieces"))
     e2e_fused = phase_e2e_fused(torch, model, tok, spec.n_layers, ref_a)
-    mark("CLI runs a-j, o, p")
+    e2e_profile = phase_e2e_profile(torch, model, tok, spec.n_layers,
+                                    _pieces(out_a))
+    e2e_resume = phase_e2e_resume(torch, model, tok, spec.n_layers,
+                                  _pieces(out_a))
+    mark("CLI runs a-j, o-r")
     e2e_cont = phase_e2e_continuous_runs(torch, model, tok, spec.n_layers)
     mark("CLI runs k-n")
     gc.collect()
@@ -2737,6 +3000,26 @@ def main() -> int:
                   f"one 7B token at pos 63 over an f32 cache: 32 layers; "
                   f"{unfused_note}"),
     ]
+    def probe_row(variant, name):
+        rows = [r for r in probe_rows if r["variant"] == variant]
+        w13 = next(r for r in rows if r["shape"] == "w13")
+        traced = next(r for r in probe["results"] if r["variant"] == variant)
+        return dict(name=name, route="cuda",
+                    source="distributed_llama_tpu_torch/csrc/nb_probe.cu",
+                    replaces="tools/nb_probe.py:"
+                             + ("181" if variant == "i4" else "162"),
+                    launches=probe["launches"][name],
+                    max_abs_err=max(r["max_abs_err"] for r in rows),
+                    **{k: w13[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")},
+                    trace_ms=traced["ms"], chain_event_ms=traced["event_ms"],
+                    unit="one call at the 13B w13 shape (27648 x 5120); "
+                         "library = cuBLAS f32 GEMV on the weight "
+                         "dequantized beforehand (dequant not timed; none "
+                         "for the XOR fold); trace_ms = the probe's traced "
+                         "chain per call", shapes=rows)
+
+    kernels += [probe_row(v, name) for v, name in PROBE_KERNELS.items()]
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -2754,6 +3037,8 @@ def main() -> int:
                       "e2e_batch_dequant": e2e_batch_dq,
                       "e2e_fast": e2e_fast, "e2e_fused": e2e_fused,
                       "e2e_continuous": e2e_cont,
+                      "e2e_profile": e2e_profile, "e2e_resume": e2e_resume,
+                      "probe": probe, "probe_kernels": probe_rows,
                       "prefill": prefill, "fast": fast, "batch_step": batch,
                       "continuous": continuous,
                       "batch_cache_saved_gb": saved, "build_s": build_s}))

@@ -42,11 +42,21 @@ ported" before the model loads; that includes the f16/q40 buffer types,
 DLLAMA_LAYER_FUSION=headtail|on (read once by the Engine, as the JAX
 package reads it) runs each T=1 step of the token-by-token loop and of
 --fast through the fused decode-layer kernels (ops/layer.py).
+
+On the single-prompt path (token by token or --fast), --profile DIR
+(DLLAMA_PROFILE_DIR when the flag is absent, read once here) traces the
+whole generation with torch.profiler into DIR (obs/profiler.trace), then
+prints the reference-shaped I/T split of that trace (utils/it_split.py);
+--save-state PATH writes a resumable checkpoint after the run
+(runtime/checkpoint.py) and --resume-state PATH continues one (--prompt
+is then ignored; --steps more positions run). With --prompts-file the
+three are ignored, as the JAX CLI's batch branches return before them.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
@@ -59,10 +69,9 @@ _FT = {"f32": FloatType.F32, "f16": FloatType.F16, "q40": FloatType.Q40,
 
 # the JAX package's inference flags the port does not run yet
 _UNPORTED_SWITCHES = ("--log-json", "--stream-slices")
-_UNPORTED_VALUED = ("--tp-scheme", "--workers", "--save-state",
-                    "--resume-state", "--spec-ngram", "--dispatch-tokens",
-                    "--kv-host-pages", "--kv-disk-dir",
-                    "--kv-disk-gb", "--profile", "--coordinator",
+_UNPORTED_VALUED = ("--tp-scheme", "--workers", "--spec-ngram",
+                    "--dispatch-tokens", "--kv-host-pages", "--kv-disk-dir",
+                    "--kv-disk-gb", "--coordinator",
                     "--num-hosts", "--host-id",
                     "--serve-weights", "--serve-weights-bind",
                     "--model-from-root")
@@ -101,6 +110,16 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--fast", action="store_true",
                     help="the on-device token loop: one CUDA graph replay "
                          "per step, no per-token stats lines")
+    ap.add_argument("--save-state", default=None, metavar="PATH",
+                    help="write a resumable generation checkpoint (cache + "
+                         "position + RNG) after the run")
+    ap.add_argument("--resume-state", default=None, metavar="PATH",
+                    help="resume a checkpointed generation (--prompt is "
+                         "ignored; --steps more positions run)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="trace the generation with torch.profiler into DIR "
+                         "and print its I/T split (DLLAMA_PROFILE_DIR sets "
+                         "the same thing without the flag)")
     ap.add_argument("--prompts-file", default=None, metavar="PATH",
                     help="batch mode: one prompt per line, decoded in one "
                          "lockstep batch; ignores --prompt and --fast")
@@ -225,6 +244,10 @@ def cmd_inference(argv: list[str]) -> int:
         print("--fast-prefill only affects chunked prefill; pass "
               "--prefill-chunk N (N > 1)", file=sys.stderr)
         return 2
+    if args.profile is None:  # one-shot env hook (obs/profiler.py)
+        from ..obs.profiler import env_profile_dir
+
+        args.profile = env_profile_dir()
     prompts = None
     if args.prompts_file:  # validate before the multi-GB model load
         if args.prefill_chunk > 1 and not args.continuous:
@@ -293,10 +316,62 @@ def cmd_inference(argv: list[str]) -> int:
     tokenizer = Tokenizer(args.tokenizer, spec.vocab_size)
     seed = args.seed if args.seed is not None else int(time.time())
     sampler = Sampler(spec.vocab_size, args.temperature, args.topp, seed)
+    resume, prev, rest = None, [], None
+    if args.resume_state:
+        from ..runtime.checkpoint import load_generation_state
+
+        pos0, tok0, prev, rest = load_generation_state(args.resume_state,
+                                                       engine, sampler)
+        resume = (pos0, tok0)
+        print(f"⏩ Resumed at pos {pos0} ({len(prev)} tokens so far)")
+    prof = contextlib.nullcontext()
+    if args.profile:
+        from ..obs.profiler import trace
+
+        prof = trace(args.profile, cuda=device.type == "cuda")
     run = generate_fast if args.fast else generate
-    run(engine, tokenizer, sampler, args.prompt or "", args.steps,
-        prefill_chunk=args.prefill_chunk)
+    with prof:
+        out, stats = run(engine, tokenizer, sampler, args.prompt or "",
+                         args.steps, prefill_chunk=args.prefill_chunk,
+                         resume=resume, resume_prompt=rest)
+    if args.profile:
+        _print_split(args, tokenizer, stats, rest if resume else None)
+    if args.save_state:
+        from ..io.tokenizer import BOS
+        from ..runtime.checkpoint import save_generation_state
+
+        if stats.final_pos > 0 and stats.final_token != BOS:
+            save_generation_state(args.save_state, engine, sampler,
+                                  stats.final_pos, stats.final_token,
+                                  prev + out, stats.prompt_rest)
+            print(f"⏩ Saved generation state to {args.save_state}")
+        else:
+            print("💡 Generation ended (BOS or zero steps); nothing "
+                  "resumable to save")
     return 0
+
+
+def _print_split(args, tokenizer, stats, rest: list[int] | None) -> None:
+    """After a --profile run: where the trace went and its I/T split per
+    generated token. The trace wraps the whole generate call, so a
+    prefilled prompt's chunks are inside it and the line says so (a resumed
+    run prefills only its unconsumed prompt tail, ``rest``). A trace that
+    does not parse prints a note and the run still succeeds."""
+    print(f"⏩ Profiler trace written to {args.profile}")
+    try:
+        from ..utils.it_split import parse_trace, summarize
+
+        n_prompt = (len(rest) if rest is not None
+                    else len(tokenizer.encode(args.prompt or "", bos=True,
+                                              eos=False)))
+        note = (f"; trace includes ~{n_prompt}-token prompt prefill"
+                if n_prompt > 1 else "")
+        summarize(parse_trace(args.profile), tokens=max(stats.tokens, 1),
+                  note=note)
+    except Exception as e:  # a malformed trace must not fail the run
+        print(f"💡 I/T split unavailable ({type(e).__name__}: {e}); run "
+              f"python3 -m distributed_llama_tpu_torch.utils.it_split on "
+              f"the trace dir", file=sys.stderr)
 
 
 def main(argv: list[str] | None = None) -> int:

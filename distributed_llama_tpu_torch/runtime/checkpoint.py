@@ -1,0 +1,105 @@
+"""Generation checkpoint/resume: the port's copy of the JAX package's
+runtime/checkpoint.py, in the same file format.
+
+The complete decode state is (KV-cache prefix, next token, position,
+sampler RNG state), and all of it is exact — the xorshift64* stream is a
+single uint64, the cache is plain f32 or bf16 — so a resumed run continues
+bit-identically to the run that was interrupted (tests/
+test_torch_checkpoint.py holds split == unsplit token streams).
+
+Format: one .npz, version 1, with the 28-byte spec header for
+compatibility checking; the live cache prefix [0, pos) is stored as f32
+(lossless for both cache types) beside the cache type as numpy names it
+('float32', 'bfloat16'). A checkpoint of either package resumes in the
+other.
+
+The restore writes into the engine's cache in place and never rebinds it:
+the ``--fast`` loop's captured CUDA graph and the fused layer's static
+buffers hold that storage, and a new tensor would leave them reading stale
+memory.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .generate import Engine
+from .sampling import Sampler
+
+FORMAT_VERSION = 1
+_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+
+def _dtype_name(engine: Engine) -> str:
+    return _DTYPE_NAMES[engine.cache.k.dtype]
+
+
+def save_generation_state(path: str, engine: Engine, sampler: Sampler,
+                          pos: int, token: int,
+                          tokens_out: list[int],
+                          prompt_rest: list[int] | None = None) -> None:
+    """Snapshot a generation: resume later with load + generate(resume=...).
+
+    ``pos``/``token``: the next inference step's inputs (GenStats.final_pos /
+    final_token from the interrupted run). ``tokens_out``: tokens emitted so
+    far (stored so the caller can reconstruct the full stream).
+    ``prompt_rest``: prompt tokens the interrupted run had NOT yet consumed
+    (GenStats.prompt_rest) — without them a resumed run would sample where
+    the unsplit run forces, silently diverging.
+    """
+
+    def prefix(t: torch.Tensor) -> np.ndarray:
+        return t[:, :pos].to(torch.float32).cpu().numpy()
+
+    # write through a file object: np.savez(str_path) would silently append
+    # '.npz', landing the file somewhere other than the path we report
+    with open(path, "wb") as f:
+        np.savez(
+            f,
+            version=np.int32(FORMAT_VERSION),
+            header=np.frombuffer(engine.spec.header(), dtype=np.uint8),
+            k=prefix(engine.cache.k),
+            v=prefix(engine.cache.v),
+            cache_dtype=np.array(_dtype_name(engine)),
+            pos=np.int32(pos),
+            token=np.int32(token),
+            rng_state=np.uint64(sampler.rng.state),
+            tokens_out=np.asarray(tokens_out, dtype=np.int32),
+            prompt_rest=np.asarray(prompt_rest or [], dtype=np.int32),
+        )
+
+
+def load_generation_state(
+        path: str, engine: Engine,
+        sampler: Sampler) -> tuple[int, int, list[int], list[int]]:
+    """Restore a snapshot into ``engine``/``sampler``.
+
+    Returns (pos, token, tokens_out, prompt_rest) — pass (pos, token) to
+    generate(resume=...) and prompt_rest to its ``resume_prompt``. Raises
+    ValueError on format/spec mismatch.
+    """
+    z = np.load(path)
+    version = int(z["version"])
+    if version != FORMAT_VERSION:
+        raise ValueError(f"checkpoint version {version}, expected "
+                         f"{FORMAT_VERSION}")
+    if z["header"].tobytes() != engine.spec.header():
+        raise ValueError("checkpoint spec header does not match the loaded "
+                         "model")
+    saved_dtype = str(z["cache_dtype"]) if "cache_dtype" in z else "float32"
+    want = _dtype_name(engine)
+    if saved_dtype != want:
+        # restoring into a different cache precision would silently break
+        # the bit-identical-resume contract (module docstring)
+        raise ValueError(
+            f"checkpoint cache dtype {saved_dtype!r} does not match the "
+            f"engine's {want!r} — resume with the same --kv-cache-dtype")
+    for dst, src in ((engine.cache.k, z["k"]), (engine.cache.v, z["v"])):
+        dst.zero_()  # the dead suffix, as a fresh cache has it
+        dst[:, :src.shape[1]].copy_(torch.from_numpy(src))
+    sampler.rng.state = int(z["rng_state"])
+    rest = (z["prompt_rest"].astype(int).tolist()
+            if "prompt_rest" in z else [])
+    return (int(z["pos"]), int(z["token"]),
+            z["tokens_out"].astype(int).tolist(), rest)

@@ -12,7 +12,10 @@ the same token stream), sampling after the prompt, stop on BOS, the
 per-token 🔶 stats line and the final averages. ``generate_fast``
 (``--fast``) produces the same stream from the on-device loop, one CUDA
 graph replay per step on the card; ``generate_batch`` (``--prompts-file``)
-decodes B prompts in lockstep through the same loop.
+decodes B prompts in lockstep through the same loop. ``generate`` and
+``generate_fast`` also continue a run saved by runtime/checkpoint.py
+(``resume=(pos, token)``, ``resume_prompt``), leaving the next step's
+inputs in GenStats.final_pos / final_token / prompt_rest.
 
 The engines read ``DLLAMA_MULTI_T_BODY`` once (ops/q40.multi_t_body) and
 route every 2 <= T <= 8 product through the body it names (K1d for
@@ -175,8 +178,13 @@ class GenStats:
     total_ms: float = 0.0
     infer_ms: float = 0.0
     host_ms: float = 0.0
+    final_pos: int = 0    # next step's pos — checkpoint/resume anchor
+    final_token: int = 0  # next step's input token
     token_ms: list = dataclasses.field(default_factory=list)
     # ^ per-token wall ms — feeds the final-line latency summary
+    prompt_rest: list = dataclasses.field(default_factory=list)
+    # ^ prompt tokens NOT yet consumed when the run ended (the forced tail
+    #   of a resumed continuation; empty once the prompt is exhausted)
 
     @property
     def avg(self) -> tuple[float, float, float]:
@@ -234,7 +242,9 @@ def _prefill_prefix(engine: Engine, prompt_tokens: list[int], steps: int,
 
 def generate(engine: Engine, tokenizer: Tokenizer, sampler: Sampler,
              prompt: str, steps: int, quiet: bool = False,
-             prefill_chunk: int = 0) -> tuple[list[int], GenStats]:
+             prefill_chunk: int = 0, resume: tuple[int, int] | None = None,
+             resume_prompt: list[int] | None = None
+             ) -> tuple[list[int], GenStats]:
     """The reference generation loop.
 
     Encodes the prompt with BOS (no EOS), forces prompt tokens, samples after,
@@ -242,19 +252,33 @@ def generate(engine: Engine, tokenizer: Tokenizer, sampler: Sampler,
     ``prefill_chunk > 1`` fills the cache for the prompt prefix in chunked
     T>1 passes (Engine.prefill) instead of forcing it through the T=1 path:
     the same token stream, minus the prompt positions' stats lines.
+
+    ``resume=(pos, token)`` continues an interrupted generation instead of
+    starting one: the engine's cache and the sampler's RNG must have been
+    restored first (runtime/checkpoint.py), the prompt argument is ignored
+    (``resume_prompt`` carries any prompt tail the interrupted run had not
+    yet consumed — GenStats.prompt_rest), and up to ``steps`` more positions
+    run.
     """
-    steps = min(steps, engine.spec.seq_len)
-    prompt_tokens = tokenizer.encode(prompt or "", bos=True, eos=False)
-    if not prompt_tokens:
-        raise ValueError("something is wrong, expected at least 1 prompt token")
-    token = prompt_tokens[0]
     out_tokens: list[int] = []
-    stats = GenStats()
-    pos = 0
-    pre = _prefill_prefix(engine, prompt_tokens, steps, prefill_chunk,
-                          out_tokens)
-    if pre is not None:
-        pos, token = pre, prompt_tokens[pre]
+    if resume is not None:
+        pos, token = resume
+        # re-anchor the unconsumed prompt tail at absolute positions: the
+        # loop forces prompt_tokens[pos + 1], so pad the consumed prefix
+        prompt_tokens = [-1] * (pos + 1) + list(resume_prompt or [])
+        steps = min(pos + steps, engine.spec.seq_len)
+    else:
+        steps = min(steps, engine.spec.seq_len)
+        prompt_tokens = tokenizer.encode(prompt or "", bos=True, eos=False)
+        if not prompt_tokens:
+            raise ValueError(
+                "something is wrong, expected at least 1 prompt token")
+        pos, token = 0, prompt_tokens[0]
+        pre = _prefill_prefix(engine, prompt_tokens, steps, prefill_chunk,
+                              out_tokens)
+        if pre is not None:
+            pos, token = pre, prompt_tokens[pre]
+    stats = GenStats(final_pos=pos, final_token=token)
     while pos < steps:
         t0 = time.perf_counter()
         logits = engine.infer(token, pos)
@@ -274,6 +298,8 @@ def generate(engine: Engine, tokenizer: Tokenizer, sampler: Sampler,
         stats.token_ms.append(gen_ms)
 
         pos += 1
+        stats.final_pos, stats.final_token = pos, int(next_token)
+        stats.prompt_rest = [t for t in prompt_tokens[pos + 1:] if t >= 0]
         if next_token == BOS:
             break  # the reference stops on BOS before decoding it
         out_tokens.append(next_token)
@@ -309,8 +335,10 @@ def _truncate(tokens) -> list[int]:
 
 def generate_fast(engine: Engine, tokenizer: Tokenizer, sampler: Sampler,
                   prompt: str, steps: int, quiet: bool = False,
-                  prefill_chunk: int = 0,
-                  graph: bool | None = None) -> tuple[list[int], GenStats]:
+                  prefill_chunk: int = 0, graph: bool | None = None,
+                  resume: tuple[int, int] | None = None,
+                  resume_prompt: list[int] | None = None
+                  ) -> tuple[list[int], GenStats]:
     """The fused-loop generation path (``--fast``): the stream generate()
     produces (forced prompt, the reference sampler, stop on BOS), from the
     on-device loop (Engine.decode_loop: one CUDA graph replay per step on
@@ -322,23 +350,37 @@ def generate_fast(engine: Engine, tokenizer: Tokenizer, sampler: Sampler,
     token. The coins for every possibly sampled step are drawn on a clone
     of the sampler's stream, and the stream then advances by only the
     coins the per-step loop would have drawn: after an early BOS, fewer.
-    ``graph=False`` runs the step eagerly on the card (tests)."""
+    ``graph=False`` runs the step eagerly on the card (tests).
+
+    ``resume=(pos, token)`` continues an interrupted generation (generate's
+    contract: cache and sampler RNG restored first, ``resume_prompt`` the
+    unconsumed prompt tail, up to ``steps`` more positions): the chain
+    starts its position clock at ``pos``. A run that ends without an early
+    BOS leaves its next step's inputs in GenStats.final_pos/final_token."""
     spec = engine.spec
-    steps = min(steps, spec.seq_len)
-    prompt_tokens = tokenizer.encode(prompt or "", bos=True, eos=False)
-    if not prompt_tokens:
-        raise ValueError("something is wrong, expected at least 1 prompt token")
     emit = None if quiet else (lambda s: print(s, end="", flush=True))
     pre_out: list[int] = []
-    start_pos = 0
-    pre = _prefill_prefix(engine, prompt_tokens, steps, prefill_chunk,
-                          pre_out, emit, tokenizer)
-    if pre is not None:
-        # the chain takes over at the last prompt token, with no forced
-        # tokens left, at position pre
-        start_pos = pre
-        prompt_tokens = prompt_tokens[pre:]
-        steps -= pre
+    if resume is not None:
+        start_pos, first = resume
+        # the loop's forced stream is relative to the chain: [first] + tail
+        prompt_tokens = [first] + list(resume_prompt or [])
+        steps = min(steps, spec.seq_len - start_pos)
+    else:
+        start_pos = 0
+        steps = min(steps, spec.seq_len)
+        prompt_tokens = tokenizer.encode(prompt or "", bos=True, eos=False)
+        if not prompt_tokens:
+            raise ValueError(
+                "something is wrong, expected at least 1 prompt token")
+        pre = _prefill_prefix(engine, prompt_tokens, steps, prefill_chunk,
+                              pre_out, emit, tokenizer)
+        if pre is not None:
+            # the chain takes over at the last prompt token, with no forced
+            # tokens left, at position pre
+            start_pos = pre
+            prompt_tokens = prompt_tokens[pre:]
+            steps -= pre
+    prompt_tail = prompt_tokens[steps + 1:]  # beyond this chain: resume tail
     prompt_tokens = prompt_tokens[:steps + 1]
 
     loop = engine.decode_loop(sampler.temperature, sampler.topp, graph)
@@ -375,6 +417,10 @@ def generate_fast(engine: Engine, tokenizer: Tokenizer, sampler: Sampler,
             sampler.rng.f32_array(min(consumed, n_sampled))
     stats = GenStats(tokens=len(chain), total_ms=total_ms,
                      infer_ms=total_ms)
+    if steps > 0 and not early_bos:  # no early BOS: resumable
+        stats.final_pos = start_pos + steps
+        stats.final_token = int(toks[0][steps - 1])
+        stats.prompt_rest = prompt_tail
     # the JAX while_loop stops on a produced BOS: the steps it ran are the
     # generated tokens and the stopping step
     executed = len(chain) + 1 if early_bos else steps

@@ -2,7 +2,8 @@
 the JAX package's ``generate`` on the tests/test_generate_cli.py fixture
 model: token streams must be equal, greedy and seeded (temperature 0.8,
 top-p 0.9, the numpy sampler on both sides), token by token and with
-``--prefill-chunk``, q80 buffers, ``--fast-prefill`` and a bf16 KV cache.
+``--prefill-chunk``, q80 buffers, ``--fast-prefill`` and a bf16 KV cache,
+``--profile`` / DLLAMA_PROFILE_DIR and ``--save-state`` / ``--resume-state``.
 Unported flags exit 2 before the model loads; the CUDA default fails
 without a GPU."""
 
@@ -135,12 +136,9 @@ UNPORTED = [["--tp", "2"], ["--sp", "2"], ["--buffer-float-type", "f16"],
             ["--kv-pages", "64"], ["--dispatch-tokens", "8"],
             ["--block-steps", "4"], ["--kv-host-pages", "8"],
             ["--stream-slices"],
-            # --fast is ported: a checkpoint flag beside it still stops
-            ["--fast", "--save-state", "s.ckpt"],
             ["--continuous", "--prompts-file", "p.txt", "--metrics"],
             ["--metrics"],
-            ["--log-json"], ["--save-state", "s.ckpt"],
-            ["--resume-state", "s.ckpt"],
+            ["--log-json"],
             # --prompts-file --continuous is ported; --dispatch-tokens is
             # not, and stops the run before the (absent) prompts file is
             # opened
@@ -148,7 +146,7 @@ UNPORTED = [["--tp", "2"], ["--sp", "2"], ["--buffer-float-type", "f16"],
              "8"],
             # the continuous engine's flags outside --prompts-file
             ["--kv-page-size", "16"], ["--spec-k", "4"],
-            ["--kv-quant", "q8"], ["--profile", "trace"],
+            ["--kv-quant", "q8"],
             ["--tp-scheme", "fused"], ["--workers", "10.0.0.2:9998"],
             ["--coordinator", "h:1"],
             ["--model-from-root", "h:1"]]
@@ -638,3 +636,196 @@ def test_cli_continuous_reads_kv_quant_from_the_environment(
     monkeypatch.setenv("DLLAMA_KV_QUANT", "q4")
     with pytest.raises(ValueError, match="DLLAMA_KV_QUANT"):
         main(base)
+
+
+# ---------------------------------------------------------------------------
+# --profile, DLLAMA_PROFILE_DIR, --save-state, --resume-state
+# ---------------------------------------------------------------------------
+
+def _stream(out, fast):
+    """The generated text: --fast's pieces line, or the pieces of the
+    per-token 🔶 lines (not the 🔶 I/T line of --profile)."""
+    if fast:
+        return _fast_text(out)
+    return "".join(ast.literal_eval(ln.rsplit(" kB ", 1)[1])
+                   for ln in out.splitlines()
+                   if ln.startswith("🔶") and " kB " in ln)
+
+
+@pytest.mark.parametrize("how", ["flag", "env"])
+@pytest.mark.parametrize("fast", [False, True], ids=["host-loop", "fast"])
+def test_cli_profile_matches_reference(model_files, capsys, monkeypatch,
+                                       tmp_path, how, fast):
+    """--profile DIR and DLLAMA_PROFILE_DIR=DIR on the host loop and under
+    --fast (seeded, with --prefill-chunk): the stream equals the run
+    without them and the JAX CLI's; the trace is written and its I/T split
+    printed with the prompt-prefill note."""
+    from distributed_llama_tpu.frontend.cli import main as ref_main
+    from distributed_llama_tpu_torch.frontend.cli import main
+
+    model, tokp = model_files
+    monkeypatch.delenv("DLLAMA_PROFILE_DIR", raising=False)
+    base = ["inference", "--model", model, "--tokenizer", tokp, "--prompt",
+            LONG_PROMPT, "--steps", "16", "--temperature", "0.8", "--topp",
+            "0.9", "--seed", "42", "--prefill-chunk", "4",
+            *(["--fast"] if fast else [])]
+    assert ref_main(base + ["--tp", "1"]) == 0
+    want = _stream(capsys.readouterr().out, fast)
+    assert main(base + ["--device", "cpu"]) == 0
+    plain = capsys.readouterr()
+    trace_dir = tmp_path / "trace"
+    if how == "flag":
+        extra = ["--profile", str(trace_dir)]
+    else:
+        extra = []
+        monkeypatch.setenv("DLLAMA_PROFILE_DIR", str(trace_dir))
+    assert main(base + ["--device", "cpu", *extra]) == 0
+    res = capsys.readouterr()
+    assert len(want) > 4
+    assert _stream(res.out, fast) == _stream(plain.out, fast) == want
+    assert f"⏩ Profiler trace written to {trace_dir}" in res.out
+    split = [ln for ln in res.out.splitlines() if ln.startswith("🔶 I ")]
+    assert len(split) == 1 and "ms/token" in split[0]
+    assert "trace includes ~8-token prompt prefill" in split[0]
+    assert "I/T split unavailable" not in res.err
+    assert list(trace_dir.glob("*.pt.trace.json"))
+    assert "Profiler trace" not in plain.out
+
+
+def test_cli_profile_of_an_unparsable_trace_still_succeeds(
+        model_files, capsys, monkeypatch, tmp_path):
+    """A trace the split cannot read prints the 💡 note on stderr and the
+    run exits 0, as in the JAX CLI."""
+    from distributed_llama_tpu_torch.frontend.cli import main
+    from distributed_llama_tpu_torch.utils import it_split
+
+    def broken(path):
+        raise ValueError("no op events")
+
+    monkeypatch.setattr(it_split, "parse_trace", broken)
+    model, tokp = model_files
+    assert main(["inference", "--model", model, "--tokenizer", tokp,
+                 "--prompt", PROMPT, "--steps", "4", "--temperature", "0",
+                 "--device", "cpu", "--profile", str(tmp_path / "t")]) == 0
+    res = capsys.readouterr()
+    assert "⏩ Profiler trace written to" in res.out
+    assert res.err.startswith("💡 I/T split unavailable (ValueError: no op "
+                              "events)")
+
+
+RESUME = {"after-prompt": (PROMPT, "6", "8"),
+          "mid-prompt": (LONG_PROMPT, "4", "12")}
+
+
+@pytest.mark.parametrize("mode", sorted(SAMPLING))
+@pytest.mark.parametrize("split", sorted(RESUME))
+@pytest.mark.parametrize("fast", [False, True], ids=["host-loop", "fast"])
+def test_cli_save_then_resume_matches_jax_cli(model_files, capsys, tmp_path,
+                                              mode, split, fast):
+    """--save-state after a first run, then --resume-state for more steps:
+    the exit codes, the ⏩ lines and the joined stream equal the JAX CLI's
+    with the same flags, and the joined stream is the unsplit run's."""
+    from distributed_llama_tpu.frontend.cli import main as ref_main
+    from distributed_llama_tpu_torch.frontend.cli import main
+
+    model, tokp = model_files
+    temperature, topp, seed = SAMPLING[mode]
+    prompt, first, second = RESUME[split]
+    base = ["inference", "--model", model, "--tokenizer", tokp, "--prompt",
+            prompt, "--temperature", str(temperature), "--topp", str(topp),
+            "--seed", str(seed), *(["--fast"] if fast else [])]
+
+    def joined(cli, extra, tag):
+        path = str(tmp_path / f"{tag}.npz")
+        outs = []
+        assert cli(base + ["--steps", first, "--save-state", path,
+                           *extra]) == 0
+        outs.append(capsys.readouterr().out)
+        assert cli(base + ["--steps", second, "--resume-state", path,
+                           *extra]) == 0
+        outs.append(capsys.readouterr().out)
+        notes = [ln.replace(path, "PATH") for out in outs
+                 for ln in out.splitlines()
+                 if ln.startswith(("⏩ Saved", "⏩ Resumed"))]
+        return "".join(_stream(o, fast) for o in outs), notes
+
+    want, want_notes = joined(ref_main, ["--tp", "1"], "jax")
+    got, notes = joined(main, ["--device", "cpu"], "port")
+    total = str(int(first) + int(second))
+    assert main(base + ["--steps", total, "--device", "cpu"]) == 0
+    unsplit = _stream(capsys.readouterr().out, fast)
+    assert notes == want_notes and len(notes) == 2
+    assert notes[1].startswith(f"⏩ Resumed at pos {first} (")
+    assert len(want) > 4
+    assert got == want == unsplit
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["host-loop", "fast"])
+def test_cli_nothing_resumable_after_zero_steps(model_files, capsys,
+                                                tmp_path, fast):
+    """--steps 0 --save-state: both CLIs exit 0 and print the same note,
+    and no file is written."""
+    from distributed_llama_tpu.frontend.cli import main as ref_main
+    from distributed_llama_tpu_torch.frontend.cli import main
+
+    model, tokp = model_files
+    base = ["inference", "--model", model, "--tokenizer", tokp, "--prompt",
+            PROMPT, "--steps", "0", "--temperature", "0",
+            *(["--fast"] if fast else [])]
+    notes = []
+    for cli, extra, tag in ((ref_main, ["--tp", "1"], "jax"),
+                            (main, ["--device", "cpu"], "port")):
+        path = tmp_path / f"{tag}.npz"
+        assert cli(base + ["--save-state", str(path), *extra]) == 0
+        notes.append([ln for ln in capsys.readouterr().out.splitlines()
+                      if ln.startswith("💡 Generation ended")])
+        assert not path.exists()
+    assert notes[0] == notes[1] == [
+        "💡 Generation ended (BOS or zero steps); nothing resumable to save"]
+
+
+def test_cli_resume_into_another_cache_type_raises_the_jax_message(
+        model_files, capsys, tmp_path):
+    """A checkpoint of an f32-cache run resumed with --kv-cache-dtype bf16:
+    the loader's ValueError, as the JAX CLI raises it."""
+    from distributed_llama_tpu.frontend.cli import main as ref_main
+    from distributed_llama_tpu_torch.frontend.cli import main
+
+    model, tokp = model_files
+    base = ["inference", "--model", model, "--tokenizer", tokp, "--prompt",
+            PROMPT, "--temperature", "0"]
+    path = str(tmp_path / "s.npz")
+    assert main(base + ["--steps", "4", "--save-state", path, "--device",
+                        "cpu"]) == 0
+    resume = base + ["--steps", "4", "--resume-state", path,
+                     "--kv-cache-dtype", "bf16"]
+    with pytest.raises(ValueError) as want:
+        ref_main(resume + ["--tp", "1"])
+    with pytest.raises(ValueError) as got:
+        main(resume + ["--device", "cpu"])
+    assert str(got.value) == str(want.value)
+    assert "resume with the same --kv-cache-dtype" in str(got.value)
+
+
+def test_cli_batch_path_ignores_profile_and_state_flags(
+        model_files, prompts_file, capsys, tmp_path):
+    """With --prompts-file the JAX CLI returns before its profile and
+    checkpoint blocks: the port runs the batch, writes no trace and no
+    checkpoint, and prints the same rows."""
+    from distributed_llama_tpu.frontend.cli import main as ref_main
+    from distributed_llama_tpu_torch.frontend.cli import main
+
+    model, tokp = model_files
+    base = ["inference", "--model", model, "--tokenizer", tokp,
+            "--prompts-file", prompts_file, "--steps", "8",
+            "--temperature", "0"]
+    assert ref_main(base + ["--tp", "1"]) == 0
+    want = [ln for ln in capsys.readouterr().out.splitlines()
+            if re.match(r"\[\d\] ", ln)]
+    extra = ["--profile", str(tmp_path / "t"), "--save-state",
+             str(tmp_path / "s.npz")]
+    assert main(base + ["--device", "cpu", *extra]) == 0
+    out = capsys.readouterr().out
+    assert [ln for ln in out.splitlines() if re.match(r"\[\d\] ", ln)] == want
+    assert len(want) == 4
+    assert not (tmp_path / "t").exists() and not (tmp_path / "s.npz").exists()

@@ -1130,3 +1130,82 @@ def test_captured_fused_loop_matches_eager_and_host(gen, mode):
             {"q40_head_fused": L * ran, "decode_attention_batch": L * ran,
              "q40_tail_fused": L * ran})
     assert launches["graph"] == {"q40_matvec": ran, **want}
+
+
+# ---------------------------------------------------------------------------
+# B10: the Q40 layout probe's kernels (P1-P4), the traced chain, and
+# --profile / --save-state / --resume-state on the card
+# ---------------------------------------------------------------------------
+
+from distributed_llama_tpu_torch.tools import nb_probe  # noqa: E402
+
+# tiny, ragged block counts (nb 2, 37: off the 32 lanes and the unroll),
+# rows off the 8-row blocks, and the 13B shapes the probe times
+PROBE_SHAPES = [(256, 256), (7, 64), (40, 32 * 37), (33, 32 * 129),
+                (27648, 5120), (15360, 5120), (5120, 5120)]
+
+
+def _probe_case(variant, w, x):
+    """(kernel call, plain call, kernel, tolerance factor)."""
+    if variant == "dma":
+        return (lambda: nb_probe.probe_stream(w),
+                lambda: nb_probe.probe_stream_plain(w), nb_probe.STREAM,
+                nb_probe.KERNEL_RTOL)
+    if variant == "v0r":
+        return (lambda: nb_probe.probe_xglobal(w, x),
+                lambda: nb_probe.probe_xglobal_plain(w, x), nb_probe.XGLOBAL,
+                nb_probe.KERNEL_RTOL)
+    if variant == "v1":
+        xp = nb_probe.prep_nomask(x)
+        return (lambda: nb_probe.probe_nomask(w, xp),
+                lambda: nb_probe.probe_nomask_plain(w, xp), nb_probe.NOMASK,
+                nb_probe.KERNEL_RTOL_NOMASK)
+    ws = Q40Weight(nb_probe.to_signed(w.qs), w.d16)
+    return (lambda: nb_probe.probe_signed(ws, x),
+            lambda: nb_probe.probe_signed_plain(ws, x), nb_probe.SIGNED,
+            nb_probe.KERNEL_RTOL)
+
+
+@pytest.mark.parametrize("variant", ["dma", "v0r", "v1", "i4"])
+@pytest.mark.parametrize("d,n", PROBE_SHAPES)
+def test_probe_kernels_match_plain(gen, variant, d, n):
+    w = q40.random_q40(d, n, "cuda", gen)
+    x = torch.randn((n,), device="cuda", generator=gen)
+    run, plain, kernel, rtol = _probe_case(variant, w, x)
+    before = kernel.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = plain()
+    assert got.shape == want.shape == (d,)
+    err = (got - want).abs().max().item()
+    assert err <= rtol * want.abs().max().item(), err
+
+
+def test_probe_kernels_raise_instead_of_falling_back(gen):
+    w = q40.random_q40(8, 32 * 2048, "cuda", gen)  # staged x: 295 KB
+    x = torch.randn((32 * 2048,), device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="staging"):
+        nb_probe.probe_signed(w, x)
+    with pytest.raises(ValueError, match="staging"):
+        nb_probe.probe_nomask(w, nb_probe.prep_nomask(x))
+    w = q40.random_q40(8, 64, "cuda", gen)
+    with pytest.raises(ValueError, match="float32"):
+        nb_probe.probe_signed(w, torch.zeros(64, device="cuda",
+                                             dtype=torch.float64))
+    with pytest.raises(ValueError, match="aligned"):
+        nb_probe.probe_signed(w, torch.zeros(65, device="cuda")[1:])
+
+
+def test_probe_main_traces_every_variant(capsys):
+    """The probe's own run at the tiny shape: parity, the traced chain with
+    exactly layers x reps events per variant, and a timed line each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert nb_probe.main(["--shape", "tiny", "--layers", "2", "--reps",
+                          "3"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("card: ")
+    assert len(lines) == 1 + len(nb_probe.VARIANTS)
+    for line in lines[1:]:
+        assert "(trace, 6 events)" in line and "GB/s" in line, line

@@ -34,15 +34,29 @@ _BLOCKED = textwrap.dedent("""
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "distributed_llama_tpu")]
     assert not bad, bad
-    print(len(names))
+    print(*names)
 """)
+# modules the walk must reach (an __init__.py missing would hide them)
+NEW_MODULES = ("utils.it_split", "utils.rng", "obs.profiler",
+               "runtime.checkpoint", "tools.nb_probe", "tools.k4_rows")
 
 
 def test_every_module_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15  # every module was walked
+    names = res.stdout.split()
+    assert len(names) >= 15  # every module was walked
+    for mod in NEW_MODULES:
+        assert f"distributed_llama_tpu_torch.{mod}" in names, mod
+
+
+def test_sources_include_every_kernel_source():
+    """The name check below covers the CUDA sources too, the probe's
+    included."""
+    for rel in ("csrc/nb_probe.cu", "csrc/q40_row.cuh", "tools/nb_probe.py",
+                "obs/profiler.py", "utils/it_split.py"):
+        assert f"distributed_llama_tpu_torch/{rel}" in SOURCES, rel
 
 
 _JAX = re.compile(r"^\s*(import|from)\s+jax(lib)?\b", re.M)
