@@ -10,18 +10,25 @@ no result line):
 
 1. Card: name and power limit (nvidia-smi), torch/CUDA versions, and the
    build of every kernel from ``distributed_llama_tpu_torch/csrc`` (one
-   nvcc per source, all started together), with the build seconds.
+   nvcc per source, all started together), with the build seconds; then
+   ``cuobjdump -sass`` of the built K3b and K4b libraries (the toolkit's or
+   Triton's; none found fails the phase): every K3b GEMM function must
+   hold HGMMA (wgmma) and UTMALDG or UBLKCP (TMA / bulk copy), every K4b
+   function the async copy.
 2. Kernels against their plain versions on the card at the Llama-2-7B
    shapes: the Q40 matvec (K1) on wqkv/wo/w13/w2/wcls, the decode
    attention (K2) at kv_mul 1 (7B) and 8 (70B-style GQA) over positions
    0..2047 on an f32 and a bf16 cache, the small-T Q40 matvec (K1m) at
    T = 2, 4, 8, the Q40 GEMM (K3) at T = 16, 100, 128 on wqkv/wo/w13/w2
-   (and wcls at T = 16), its bf16 tensor-core twin (K3b) at T = 16, 128,
-   the prefill attention at T = 128 and pos 0, 384, 1920 for 7B and the
-   GQA shape, with f32 dots (K4) and bf16 dots (K4b), each over an f32
-   and a bf16 cache, with a poisoned cache suffix past pos+T that must not
-   change its output; the small-T bf16-product Q40 body (K1d) at T = 2, 4,
-   8 on the four layer matrices, and the batched decode attention (K5) at
+   (and wcls at T = 16), its bf16 tensor-core twin (K3b, with its x
+   rounding pass and split-K sum) at T = 9, 16, 100, 128, 512 with its
+   split count and the same bits from two launches, the prefill attention
+   at T = 128 and pos 0, 384, 1920 for 7B and the GQA shape (K4b also at
+   T = 37, pos 1920, with its split count, its split combine and the same
+   bits from two launches), with f32 dots (K4) and bf16 dots (K4b), each
+   over an f32 and a bf16 cache, with a poisoned cache suffix past pos+T
+   that must not change its output; the small-T bf16-product Q40 body
+   (K1d) at T = 2, 4, 8 on the four layer matrices, and the batched decode attention (K5) at
    7B and GQA shapes for B = 1 and 8 at a shared pos 63 and 2047 and at
    ragged positions, over an f32 and a bf16 cache (at B = 1 bit for bit
    K2); the paged decode attention over f32 and bf16 pages (K6) and Q8
@@ -38,7 +45,10 @@ no result line):
    beside the chain's CUDA-event time). Max error against the
    stated tolerance; kernel, plain and library
    times (CUDA events, median of 25 launches, L2 flushed before each); the
-   bound (bf16 rate for K3b, K4b and K1d) and what bounds it.
+   bound (bf16 rate for K3b, K4b and K1d) and what bounds it. The library
+   call computes the kernel's own function: SDPA in f32 for K2 and K4
+   over a bf16 cache (on the prefix cast to f32 beforehand), with SDPA in
+   bf16 beside it as ``library_bf16_ms``.
 3. End to end: a 7B-shaped Q40 model with random codes (seeded) and a
    32000-piece tokenizer are written to build/smoke/ (by a process started
    with phase 1, while the card runs phases 1 and 2), then the port's CLI
@@ -54,7 +64,9 @@ no result line):
       20-token prompt: 3 chunks of T = 8 (K1m 4*L*3 = 384, K4 L*3 = 96),
       then 45 decode steps; every step's logits must be finite;
    d. run b with ``--fast-prefill --kv-cache-dtype bf16``: K3b 512 and K4b
-      (bf16-cache build) 128 in the prefill, K3 and K4 0, then K1 and the
+      (bf16-cache build) 128 in the prefill, with their parts (512 x
+      rounding passes, a split-K sum per layer matrix its plan splits, a
+      combine per split chunk and layer), K3 and K4 0, then K1 and the
       bf16-cache K2 per decode step; its peak device memory must lie ~1.07
       GB (the halved cache) below run b's;
    e. and f. run b's prompt and chunk with --fast-prefill's setting alone
@@ -266,6 +278,73 @@ def phase_card(torch):
     return smi, name, peaks, secs
 
 
+def _disassembler() -> str:
+    """cuobjdump from the CUDA toolkit ($CUDA_HOME/bin, PATH,
+    /usr/local/cuda/bin) or from Triton's package; raises if none is
+    found."""
+    import importlib.util
+    import shutil
+
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin",
+                                  "cuobjdump"))
+    cands += [shutil.which("cuobjdump") or "", "/usr/local/cuda/bin/cuobjdump"]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        cands.append(os.path.join(os.path.dirname(spec.origin), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(f"no cuobjdump found (looked at {cands}): the SASS "
+                       f"check of K3b and K4b cannot run")
+
+
+# (kernel, function name part, instruction groups: each group needs one of
+# its mnemonics in every function of that name)
+SASS_CHECKS = [
+    ("q40_gemm_bf16", "q40_gemm_bf16_kernel",
+     [("HGMMA",), ("UTMALDG", "UBLKCP")]),
+    ("prefill_attention_bf16", "prefill_attention_bf16_kernel",
+     [("UTMALDG", "UBLKCP")]),
+]
+
+
+def phase_sass():
+    """What the redesigned kernels compile to: ``cuobjdump -sass`` of the
+    built K3b and K4b libraries. Every K3b GEMM function (one per token
+    tile) must hold a warpgroup MMA (HGMMA) and a TMA or bulk copy
+    (UTMALDG / UBLKCP); every K4b function (one per cache type and kv_mul)
+    the async copy. Returns {kernel: {mnemonic: count}}."""
+    from distributed_llama_tpu_torch.ops import _build
+
+    tool = _disassembler()
+    by_symbol = {k.symbol: k for k in _build.ALL}
+    found = {}
+    for symbol, fn, groups in SASS_CHECKS:
+        sass = subprocess.run(
+            [tool, "-sass", str(by_symbol[symbol].library_path())],
+            capture_output=True, text=True, timeout=120, check=True).stdout
+        funcs = [sec for sec in sass.split("Function : ")[1:]
+                 if fn in sec.split("\n", 1)[0]]
+        if not funcs:
+            raise AssertionError(f"SASS of {symbol}: no function {fn}")
+        counts = {}
+        for sec in funcs:
+            name = sec.split("\n", 1)[0].strip()
+            for group in groups:
+                hits = {m: len(re.findall(rf"\b{m}\b", sec)) for m in group}
+                if not any(hits.values()):
+                    raise AssertionError(f"SASS of {name}: none of {group}")
+                for m, n in hits.items():
+                    counts[m] = counts.get(m, 0) + n
+        log(f"SASS of {symbol} ({len(funcs)} functions {fn}*, {tool}): "
+            + ", ".join(f"{m} x{n}" for m, n in counts.items()))
+        found[symbol] = counts
+    return found
+
+
 # --------------------------------------------------------------------------
 # phase 2: kernels against plain at the 7B shapes
 # --------------------------------------------------------------------------
@@ -323,8 +402,11 @@ def phase_k1(torch, timer, peaks):
 
 def phase_k2(torch, timer, peaks, cache=None):
     """K2 against plain over an f32 cache, or over a bf16 one (``cache`` =
-    torch.bfloat16, the kvbf16 build); SDPA (in the cache dtype) is the
-    library yardstick."""
+    torch.bfloat16, the kvbf16 build). The library yardstick is SDPA in
+    f32, K2's function (f32 q and dots): over a bf16 cache on q and the
+    live prefix cast to f32 beforehand (the cast not timed); SDPA in bf16,
+    which rounds q and so computes another function, is printed beside it
+    as ``library_bf16_ms``."""
     import torch.nn.functional as F
 
     from distributed_llama_tpu_torch.ops.attention import (
@@ -357,30 +439,37 @@ def phase_k2(torch, timer, peaks, cache=None):
                                                 kv_mul))
             plain_ms = timer(lambda: decode_attention_plain(
                 q, k_all, v_all, layer, pos, kv_mul))
-            # yardstick only: the port never calls SDPA
-            qs = q.reshape(1, n_q, 1, K2_HS).to(cache)
-            ks = k_all[layer, :pos + 1].permute(1, 0, 2).unsqueeze(0)
-            vs = v_all[layer, :pos + 1].permute(1, 0, 2).unsqueeze(0)
-            def lib():
-                return F.scaled_dot_product_attention(
+            # yardsticks only: the port never calls SDPA
+            def sdpa(dtype):
+                qs = q.reshape(1, n_q, 1, K2_HS).to(dtype)
+                ks = k_all[layer, :pos + 1].permute(1, 0, 2).unsqueeze(0) \
+                    .to(dtype)
+                vs = v_all[layer, :pos + 1].permute(1, 0, 2).unsqueeze(0) \
+                    .to(dtype)
+                return lambda: F.scaled_dot_product_attention(
                     qs, ks, vs, scale=scale, enable_gqa=kv_mul > 1)
 
+            lib = sdpa(torch.float32)
             lib_err = (lib().reshape(1, -1) - want).abs().max().item()
             library_ms = timer(lib)
+            library_bf16_ms = (timer(sdpa(torch.bfloat16))
+                               if cache == torch.bfloat16 else None)
             nbytes = (2 * (pos + 1) * n_kv * K2_HS * size
                       + 2 * n_q * K2_HS * 4)
             b_ms, b_by = bound(nbytes, 4.0 * (pos + 1) * n_q * K2_HS, peaks)
             log(f"{kernel.symbol} {label} pos {pos:4d}: max_abs_err "
                 f"{err:.3e} (tol {KERNEL_ATOL:.0e}) kernel {ms:.4f} ms "
-                f"plain {plain_ms:.4f} ms sdpa {library_ms:.4f} ms (err "
-                f"{lib_err:.1e}) bound {b_ms:.5f} ms ({b_by})")
+                f"plain {plain_ms:.4f} ms sdpa f32 {library_ms:.4f} ms (err "
+                f"{lib_err:.1e}) sdpa bf16 {_f(library_bf16_ms)} bound "
+                f"{b_ms:.5f} ms ({b_by})")
             if not err <= KERNEL_ATOL:
                 raise AssertionError(f"{kernel.symbol} {label} pos {pos}: "
                                      f"error {err}")
             rows.append(dict(case=label, n_kv=n_kv, kv_mul=kv_mul, pos=pos,
                              max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=b_ms, bound_by=b_by,
-                             library_ms=library_ms))
+                             library_ms=library_ms,
+                             library_bf16_ms=library_bf16_ms))
         del k_all, v_all
     return rows
 
@@ -406,9 +495,11 @@ def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False,
               body="vpu"):
     """K1m, K3, (``bf16``) K3b or (``body="dequant"``) K1d against the plain
     version on the 7B shapes; the library yardstick is _library_gemm's (the
-    bf16 one for K3b and K1d)."""
+    bf16 one for K3b and K1d). K3b prints its split count (gemm_bf16_plan)
+    and must give the same bits on a second launch."""
     from distributed_llama_tpu_torch.ops.q40 import (KERNEL_RTOL,
                                                      KERNEL_RTOL_BF16,
+                                                     gemm_bf16_plan,
                                                      q40_matmul,
                                                      q40_matmul_plain,
                                                      random_q40)
@@ -428,6 +519,13 @@ def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False,
         torch.cuda.synchronize()
         if kernel.launches != before + 1:
             raise AssertionError(f"{kernel.symbol} {name} T={t}: not launched")
+        splits = None
+        if bf16:
+            splits = gemm_bf16_plan(t, d, nb, torch.cuda.get_device_properties(
+                0).multi_processor_count)[0]
+            if not torch.equal(q40_matmul(w, x, bf16=True), got):
+                raise AssertionError(f"{kernel.symbol} {name} T={t}: two "
+                                     f"launches differ")
         want = q40_matmul_plain(w, x, bf16=bf16, multi_body=body)
         err = (got - want).abs().max().item()
         tol = rtol * want.abs().max().item()
@@ -440,7 +538,8 @@ def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False,
         library_ms = timer(lib)
         nbytes = d * nb * 18 + t * n * 4 + t * d * 4
         b_ms, b_by = bound(nbytes, 2.0 * t * d * n, peaks, tensor_cores)
-        log(f"{kernel.symbol} {name:5s} T={t:3d} ({d}x{n}): max_abs_err "
+        log(f"{kernel.symbol} {name:5s} T={t:3d} ({d}x{n})"
+            f"{'' if splits is None else f' splits {splits}'}: max_abs_err "
             f"{err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms plain "
             f"{plain_ms:.4f} ms {lib_name} {library_ms:.4f} ms (err "
             f"{lib_err:.1e}) bound {b_ms:.4f} ms ({b_by})")
@@ -448,7 +547,8 @@ def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False,
             raise AssertionError(f"{kernel.symbol} {name} T={t}: error {err}"
                                  f" above {tol}")
         rows.append(dict(shape=name, d=d, n=n, t=t, per_token=per_unit,
-                         max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                         splits=splits, max_abs_err=err, tol=tol, ms=ms,
+                         plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
                          library=lib_name))
         del w, x, got, want, wf, lib
@@ -480,7 +580,7 @@ def phase_k3b(torch, timer, peaks):
     from distributed_llama_tpu_torch.ops.q40 import KERNEL_GEMM_BF16
 
     cases = [(name, d, n, t, 32 if t == CHUNK else 0)
-             for t in (16, CHUNK) for name, d, n in LAYER_SHAPES]
+             for t in (9, 16, 100, CHUNK, 512) for name, d, n in LAYER_SHAPES]
     return _q40_rows(torch, timer, peaks, KERNEL_GEMM_BF16, cases, seed=5,
                      bf16=True)
 
@@ -796,13 +896,19 @@ def _f(ms):
 K4_CASES = [  # (label, L, n_kv, kv_mul)
     ("7b", 32, 32, 1), ("gqa8", 4, 8, 8)]
 K4_POS = (0, 384, 1920)
+K4B_RAGGED = (37, 1920)  # K4b's extra case: (T, pos), a ragged chunk
 
 
 def phase_k4(torch, timer, peaks, bf16=False, cache=None):
     """K4 (f32 dots) or K4b (``bf16`` dots) over an f32 cache or (``cache``
     = torch.bfloat16) a bf16 one, against the matching plain version at
-    T = CHUNK; SDPA is the library yardstick (in bf16 where the kernel
-    takes bf16 operands or a bf16 cache)."""
+    T = CHUNK (and for K4b T = 37 at pos 1920 too). The library yardstick
+    is SDPA computing the kernel's function: in bf16 for K4b (bf16 dots,
+    f32 accumulation), in f32 for K4 (over a bf16 cache on q and the live
+    prefix cast to f32 beforehand, the cast not timed); over a bf16 cache
+    SDPA in bf16, another function for K4, is printed beside it as
+    ``library_bf16_ms``. K4b prints its split count (prefill_bf16_plan)
+    and must give the same bits on a second launch."""
     import torch.nn.functional as F
 
     from distributed_llama_tpu_torch.ops import attention
@@ -812,16 +918,20 @@ def phase_k4(torch, timer, peaks, bf16=False, cache=None):
     plain = (attention.prefill_attention_bf16_plain if bf16
              else attention.prefill_attention_plain)
     atol = attention.KERNEL_ATOL_BF16 if bf16 else attention.KERNEL_ATOL
-    lib_dtype = torch.bfloat16 if bf16 else cache
+    lib_dtype = torch.bfloat16 if bf16 else torch.float32
     size = torch.tensor([], dtype=cache).element_size()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     g = torch.Generator(device="cuda").manual_seed(4)
     rows = []
-    t_len, hs = CHUNK, K2_HS
+    hs = K2_HS
+    cases = [(CHUNK, pos) for pos in K4_POS]
+    if bf16:
+        cases.append(K4B_RAGGED)
     for label, L, n_kv, kv_mul in K4_CASES:
         shape = (L, K2_SEQ, n_kv, hs)
         n_q = n_kv * kv_mul
         layer = L - 1
-        for pos in K4_POS:
+        for t_len, pos in cases:
             k_all = torch.randn(shape, device="cuda", generator=g).to(cache)
             v_all = torch.randn(shape, device="cuda", generator=g).to(cache)
             q = torch.randn((t_len, n_q, hs), device="cuda", generator=g)
@@ -836,29 +946,41 @@ def phase_k4(torch, timer, peaks, bf16=False, cache=None):
             if kernel.launches != before + 1:
                 raise AssertionError(f"{kernel.symbol} {label} pos {pos}: "
                                      f"not launched")
+            splits = None
+            if bf16:
+                splits = attention.prefill_bf16_plan(
+                    pos, t_len, kv_mul, n_kv,
+                    attention.PREFILL_BF16_KEYS[cache], sms)[0]
+                if not torch.equal(run(), got):
+                    raise AssertionError(f"{kernel.symbol} {label} pos {pos}"
+                                         f": two launches differ")
             want = plain(q, k_all, v_all, layer, pos, kv_mul)
             err = (got - want).abs().max().item()
             live = pos + t_len
-            # yardstick only: the port never calls SDPA
-            qs = q.permute(1, 0, 2).unsqueeze(0).to(lib_dtype)
-            ks = k_all[layer, :live].permute(1, 0, 2).unsqueeze(0) \
-                .to(lib_dtype)
-            vs = v_all[layer, :live].permute(1, 0, 2).unsqueeze(0) \
-                .to(lib_dtype)
             mask = (torch.arange(live, device="cuda")[None, :]
                     <= torch.arange(pos, live, device="cuda")[:, None])
 
-            def lib():
-                return F.scaled_dot_product_attention(
+            # yardsticks only: the port never calls SDPA
+            def sdpa(dtype):
+                qs = q.permute(1, 0, 2).unsqueeze(0).to(dtype)
+                ks = k_all[layer, :live].permute(1, 0, 2).unsqueeze(0) \
+                    .to(dtype)
+                vs = v_all[layer, :live].permute(1, 0, 2).unsqueeze(0) \
+                    .to(dtype)
+                return lambda: F.scaled_dot_product_attention(
                     qs, ks, vs, attn_mask=mask, scale=attention.
                     attention_scale(hs), enable_gqa=kv_mul > 1)
 
+            lib = sdpa(lib_dtype)
             lib_err = (lib()[0].permute(1, 0, 2).reshape(t_len, -1).float()
                        - want).abs().max().item()
             ms = timer(run)
             plain_ms = timer(lambda: plain(q, k_all, v_all, layer, pos,
                                            kv_mul))
             library_ms = timer(lib)
+            library_bf16_ms = (timer(sdpa(torch.bfloat16))
+                               if cache == torch.bfloat16 and not bf16
+                               else None)
             # a poisoned suffix past pos+T-1 must stay unread
             k_all[layer, live:] = 1e9
             v_all[layer, live:] = float("nan")
@@ -869,10 +991,14 @@ def phase_k4(torch, timer, peaks, bf16=False, cache=None):
             row_keys = t_len * pos + t_len * (t_len + 1) // 2
             b_ms, b_by = bound(nbytes, 4.0 * n_q * hs * row_keys, peaks,
                                bf16)
-            log(f"{kernel.symbol} {label} T={t_len} pos {pos:4d}: "
+            bf16_note = ("" if library_bf16_ms is None
+                         else f" sdpa bf16 {library_bf16_ms:.4f} ms")
+            log(f"{kernel.symbol} {label} T={t_len} pos {pos:4d}"
+                f"{'' if splits is None else f' splits {splits}'}: "
                 f"max_abs_err {err:.3e} (tol {atol:.0e}) kernel {ms:.4f} ms "
                 f"plain {plain_ms:.4f} ms sdpa {library_ms:.4f} ms (err "
-                f"{lib_err:.1e}) bound {b_ms:.5f} ms ({b_by}); poisoned "
+                f"{lib_err:.1e}){bf16_note}"
+                f" bound {b_ms:.5f} ms ({b_by}); poisoned "
                 f"suffix {'CHANGED the output' if poisoned else 'invisible'}")
             if not err <= atol:
                 raise AssertionError(f"{kernel.symbol} {label} pos {pos}: "
@@ -881,10 +1007,11 @@ def phase_k4(torch, timer, peaks, bf16=False, cache=None):
                 raise AssertionError(f"{kernel.symbol} {label} pos {pos}: "
                                      f"keys past pos+T changed the output")
             rows.append(dict(case=label, n_kv=n_kv, kv_mul=kv_mul, t=t_len,
-                             pos=pos, max_abs_err=err, ms=ms,
+                             pos=pos, splits=splits, max_abs_err=err, ms=ms,
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=library_ms))
-            del k_all, v_all, q, got, want, again, qs, ks, vs
+                             library_ms=library_ms,
+                             library_bf16_ms=library_bf16_ms))
+            del k_all, v_all, q, got, want, again
     return rows
 
 
@@ -1259,8 +1386,9 @@ def _all_kernels():
                                                  paged_attention, q40)
     from distributed_llama_tpu_torch.tools import nb_probe
 
-    return [*q40.KERNELS, *attention.KERNELS, *paged_attention.KERNELS,
-            *layer.KERNELS, *nb_probe.KERNELS]
+    return [*q40.KERNELS, *q40.HELPERS, *attention.KERNELS,
+            *attention.HELPERS, *paged_attention.KERNELS, *layer.KERNELS,
+            *nb_probe.KERNELS]
 
 
 @contextlib.contextmanager
@@ -1378,23 +1506,58 @@ def _expect(label, counts, want):
         raise AssertionError(f"{label}: launches {counts}, want {full}")
 
 
-def _prefill_launches(n_layers, decode_steps, fast, kvbf16):
+def _fast_parts(spec, chunk, starts, kvbf16):
+    """The launches of K3b's and K4b's parts over prefill windows of T =
+    ``chunk`` at positions ``starts``, by the plans the wrappers follow on
+    this card: one x rounding pass per K3b launch, one split-K sum per
+    layer matrix that gemm_bf16_plan splits, one combine per layer of a
+    window that prefill_bf16_plan splits. Kernels with no launch are
+    left out."""
+    import torch
+
+    from distributed_llama_tpu_torch.ops import attention, q40
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    L = spec.n_layers
+    shapes = [(spec.dim + 2 * spec.kv_dim, spec.dim), (spec.dim, spec.dim),
+              (2 * spec.hidden_dim, spec.dim), (spec.dim, spec.hidden_dim)]
+    keys = attention.PREFILL_BF16_KEYS[torch.bfloat16 if kvbf16
+                                       else torch.float32]
+    parts = {
+        "q40_round_bf16": 4 * L * len(starts),
+        "q40_gemm_bf16_reduce": L * len(starts) * sum(
+            q40.gemm_bf16_plan(chunk, d, n // 32, sms)[0] > 1
+            for d, n in shapes),
+        "prefill_attention_bf16_combine": L * sum(
+            attention.prefill_bf16_plan(p, chunk, spec.kv_mul,
+                                        spec.n_kv_heads, keys, sms)[0] > 1
+            for p in starts)}
+    return {k: v for k, v in parts.items() if v}
+
+
+def _prefill_launches(spec, decode_steps, fast, kvbf16):
     """The launches of the 512-token prompt at CHUNK, then decode_steps
     token-by-token steps: the Q40 GEMM, prefill attention and decode
-    attention builds that --fast-prefill (K3b and K4b) and a bf16 cache
-    select, 4 chunks of T = 128."""
+    attention builds that --fast-prefill (K3b and K4b, with their parts)
+    and a bf16 cache select, 4 chunks of T = 128."""
+    n_layers = spec.n_layers
     gemm = "q40_gemm_bf16" if fast else "q40_gemm"
     prefill = ("prefill_attention_bf16" if fast else "prefill_attention") \
         + ("_kvbf16" if kvbf16 else "")
     decode = "decode_attention" + ("_kvbf16" if kvbf16 else "")
     n_chunks = (511 + CHUNK - 1) // CHUNK
-    return {"q40_matvec": (4 * n_layers + 1) * decode_steps,
+    want = {"q40_matvec": (4 * n_layers + 1) * decode_steps,
             gemm: 4 * n_layers * n_chunks,
             decode: n_layers * decode_steps,
             prefill: n_layers * n_chunks}
+    if fast:
+        want.update(_fast_parts(spec, CHUNK,
+                                [CHUNK * i for i in range(n_chunks)],
+                                kvbf16))
+    return want
 
 
-def phase_e2e_prefill(torch, model, tok, n_layers, label="prefill",
+def phase_e2e_prefill(torch, model, tok, spec, label="prefill",
                       flags=(), steps=STEPS_512):
     """The 512-token prompt through --prefill-chunk 128 and ``flags``: 4
     chunks of T = 128, then decode from pos 511 to ``steps``. The launch
@@ -1407,7 +1570,7 @@ def phase_e2e_prefill(torch, model, tok, n_layers, label="prefill",
         "0", "--seed", "1", "--prefill-chunk", str(CHUNK), *flags])
     decode_steps = int(re.search(r"Generated tokens:\s+(\d+)", out).group(1))
     _expect(f"{label} run", counts, _prefill_launches(
-        n_layers, decode_steps, "--fast-prefill" in flags, "bf16" in flags))
+        spec, decode_steps, "--fast-prefill" in flags, "bf16" in flags))
     if (decode_steps != steps - 511 or not all(finite)
             or len(finite) != decode_steps):
         raise AssertionError(f"{label} run: {decode_steps} decode steps, "
@@ -1425,12 +1588,12 @@ def phase_e2e_prefill(torch, model, tok, n_layers, label="prefill",
     return res
 
 
-def phase_e2e_bf16(torch, model, tok, n_layers, f32_run):
+def phase_e2e_bf16(torch, model, tok, spec, f32_run):
     """Run d: the 512-token prompt with --fast-prefill and a bf16 cache
     (its peak device memory must lie about the 1.07 GB of the halved 7B
     cache below run b's), with exact launch counts. Runs e and f, each flag
     alone, run in process on phase 4's weights (flag_runs)."""
-    both = phase_e2e_prefill(torch, model, tok, n_layers, "fast bf16-cache",
+    both = phase_e2e_prefill(torch, model, tok, spec, "fast bf16-cache",
                              ("--fast-prefill", "--kv-cache-dtype", "bf16"))
     saved = f32_run["peak_device_gb"] - both["peak_device_gb"]
     log(f"peak device memory: {both['peak_device_gb']:.3f} GB with a bf16 "
@@ -1455,7 +1618,6 @@ def flag_runs(torch, engine, tokenizer):
     from distributed_llama_tpu_torch.runtime.generate import generate
     from distributed_llama_tpu_torch.runtime.sampling import Sampler
 
-    n_layers = engine.spec.n_layers
     res = {}
     for label, fast, dtype in (("e fast", True, torch.float32),
                                ("f bf16-cache", False, torch.bfloat16)):
@@ -1476,7 +1638,7 @@ def flag_runs(torch, engine, tokenizer):
         counts = {k.symbol: k.launches for k in _all_kernels()}
         steps = stats.tokens
         _expect(f"{label} run", counts, _prefill_launches(
-            n_layers, steps, fast, dtype == torch.bfloat16))
+            engine.spec, steps, fast, dtype == torch.bfloat16))
         if steps != STEPS_SHORT - 511 or not all(finite) \
                 or len(finite) != steps:
             raise AssertionError(f"{label} run: {steps} decode steps, "
@@ -2505,9 +2667,10 @@ def _profiled(torch, fn, n, host=True):
 def profile_prefill(torch, engine, tokens, wall_ms):
     """Where a prefill's time goes in situ: one Engine.prefill of ``tokens``
     at CHUNK under torch.profiler, its device time split into the Q40 GEMM
-    (K3 or K3b), the prefill attention (K4 or K4b) and the rest (the torch
-    glue), each read against ``wall_ms``, the unprofiled wall time of the
-    same call. Returns None when the trace holds no device time."""
+    (K3, or K3b with its x rounding and split-K sum), the prefill attention
+    (K4, or K4b with its split combine) and the rest (the torch glue), each
+    read against ``wall_ms``, the unprofiled wall time of the same call.
+    Returns None when the trace holds no device time."""
     dev, prof_ms = _profiled(torch, lambda: engine.prefill(tokens, 0, CHUNK),
                              1)
     dev_ms = sum(ms for _, ms, _ in dev)
@@ -2517,9 +2680,11 @@ def profile_prefill(torch, engine, tokens, wall_ms):
     split = {"q40_gemm": [0.0, 0.0], "prefill_attention": [0.0, 0.0],
              "other": [0.0, 0.0]}
     for key, ms, count in dev:
+        # K3's and K3b's kernels and K3b's parts (x rounding, split-K sum)
+        # all carry q40_gemm in their names; K4's and K4b's (and K4b's
+        # combine) prefill_attention
         part = next((p for p in ("q40_gemm", "prefill_attention")
-                     if f"{p}_kernel" in key or f"{p}_bf16_kernel" in key),
-                    "other")
+                     if p in key), "other")
         split[part][0] += ms
         split[part][1] += count
     log(f"prefill in situ: {wall_ms:.2f} ms wall ({prof_ms:.2f} under the "
@@ -2654,11 +2819,13 @@ def small_prefill(torch, spec, gpu, cpu):
                                      "prefill_attention": L * 3},
          llama.LOGIT_RTOL),
         ("fast chunk 16", 16, llama.FAST, f32,
-         {"q40_gemm_bf16": 4 * L * 3, "prefill_attention_bf16": L * 3},
+         {"q40_gemm_bf16": 4 * L * 3, "prefill_attention_bf16": L * 3,
+          **_fast_parts(spec, 16, [0, 16, 32], False)},
          llama.FAST_RTOL),
         ("fast chunk 16 bf16 cache", 16, llama.FAST, bf16,
          {"q40_gemm_bf16": 4 * L * 3,
-          "prefill_attention_bf16_kvbf16": L * 3}, llama.FAST_RTOL)]
+          "prefill_attention_bf16_kvbf16": L * 3,
+          **_fast_parts(spec, 16, [0, 16, 32], True)}, llama.FAST_RTOL)]
     worst = 0.0
     with torch.inference_mode():
         for label, chunk, route, dtype, want, rtol in cases:
@@ -2725,6 +2892,7 @@ def main() -> int:
 
     writer = start_smoke_writer()
     smi, name, peaks, build_s = phase_card(torch)
+    sass = phase_sass()
     mark("card and build")
     timer = Timer(torch)
     k1 = phase_k1(torch, timer, peaks)
@@ -2753,9 +2921,9 @@ def main() -> int:
     spec, model, tok = smoke_files(writer)
     mark("smoke model")
     e2e, out_a, ref_a = phase_e2e(torch, model, tok)
-    e2e_prefill = phase_e2e_prefill(torch, model, tok, spec.n_layers)
+    e2e_prefill = phase_e2e_prefill(torch, model, tok, spec)
     e2e_q80 = phase_e2e_q80(torch, model, tok, spec.n_layers)
-    e2e_bf16 = phase_e2e_bf16(torch, model, tok, spec.n_layers, e2e_prefill)
+    e2e_bf16 = phase_e2e_bf16(torch, model, tok, spec, e2e_prefill)
     e2e_batch = phase_e2e_batch(torch, model, tok, spec.n_layers, "batch")
     e2e_batch_dq = phase_e2e_batch(
         torch, model, tok, spec.n_layers, "batch dequant bf16-cache",
@@ -2864,45 +3032,67 @@ def main() -> int:
         return [dict(r, per_token=32) for r in rows
                 if r["case"] == "7b" and r["pos"] == pos]
 
-    def attention_row(name, source, replaces, run, rows, pos, unit):
+    def attention_row(name, source, replaces, run, rows, pos, unit,
+                      parts=()):
         unit_rows = at_pos(rows, pos)
-        return dict(name=name, route="cuda",
-                    source=f"distributed_llama_tpu_torch/csrc/{source}",
-                    replaces=f"distributed_llama_tpu/ops/{replaces}",
-                    launches=runs[run][name],
-                    max_abs_err=max(r["max_abs_err"] for r in rows),
-                    **unit_row(unit_rows), unit=unit, shapes=rows)
+        row = dict(name=name, route="cuda",
+                   source=f"distributed_llama_tpu_torch/csrc/{source}",
+                   replaces=f"distributed_llama_tpu/ops/{replaces}",
+                   launches=runs[run][name],
+                   max_abs_err=max(r["max_abs_err"] for r in rows),
+                   **unit_row(unit_rows), unit=unit, shapes=rows)
+        if any(r["library_bf16_ms"] is not None for r in unit_rows):
+            row["library_bf16_ms"] = sum(r["library_bf16_ms"] * 32
+                                         for r in unit_rows)
+        if parts:  # helper kernels launched inside the wrapper's time
+            row["parts"] = [dict(name=p, launches=runs[run][p])
+                            for p in parts]
+        return row
 
     sdpa = ("library = scaled_dot_product_attention in bf16 with the "
             "causal offset mask over the live prefix")
+    sdpa_f32 = ("library = scaled_dot_product_attention in f32 (K4's "
+                "function) with the causal offset mask over the live "
+                "prefix cast to f32 beforehand (cast not timed); "
+                "library_bf16_ms = the same SDPA in bf16, another function")
     kernels += [
         attention_row("decode_attention_kvbf16", "decode_attention.cu",
                       "pallas_attention.py:304", "d", k2_kvbf16, 63,
                       "one 7B token at pos 63 over a bf16 cache: 32 layers;"
-                      " library = scaled_dot_product_attention in bf16"),
+                      " library = scaled_dot_product_attention in f32 (K2's"
+                      " function) over the live prefix cast to f32 "
+                      "beforehand (cast not timed); library_bf16_ms = the "
+                      "same SDPA in bf16, another function"),
         dict(name="q40_gemm_bf16", route="cuda",
              source="distributed_llama_tpu_torch/csrc/q40_gemm_bf16.cu",
              replaces="distributed_llama_tpu/ops/pallas_q40.py:749",
              launches=runs["d"]["q40_gemm_bf16"],
              max_abs_err=max(r["max_abs_err"] for r in k3b),
              **unit_row(k3b),
+             parts=[dict(name=p, launches=runs["d"][p])
+                    for p in ("q40_round_bf16", "q40_gemm_bf16_reduce")],
              unit=f"one 7B {CHUNK}-token chunk: 32 x (wqkv, wo, w13, w2) "
-                  f"at T = {CHUNK}; library = "
+                  f"at T = {CHUNK}, with the x rounding pass and the "
+                  f"split-K sum (parts); library = "
                   f"{k3b[0]['library']} (cuBLAS) on the weight dequantized "
                   f"to bf16 beforehand (dequant not timed)", shapes=k3b),
         attention_row("prefill_attention_kvbf16", "prefill_attention.cu",
                       "pallas_attention.py:492", "f", k4_kvbf16, 384,
                       f"one 7B {CHUNK}-token chunk at pos 384 over a bf16 "
-                      f"cache, f32 dots: 32 layers; {sdpa}"),
+                      f"cache, f32 dots: 32 layers; {sdpa_f32}"),
         attention_row("prefill_attention_bf16", "prefill_attention_bf16.cu",
                       "pallas_attention.py:492", "e", k4b, 384,
                       f"one 7B {CHUNK}-token chunk at pos 384, bf16 dots, "
-                      f"f32 cache: 32 layers; {sdpa}"),
+                      f"f32 cache, with the split combine (parts): 32 "
+                      f"layers; {sdpa}",
+                      parts=("prefill_attention_bf16_combine",)),
         attention_row("prefill_attention_bf16_kvbf16",
                       "prefill_attention_bf16.cu", "pallas_attention.py:492",
                       "d", k4b_kvbf16, 384,
                       f"one 7B {CHUNK}-token chunk at pos 384, bf16 dots, "
-                      f"bf16 cache: 32 layers; {sdpa}"),
+                      f"bf16 cache, with the split combine (parts): 32 "
+                      f"layers; {sdpa}",
+                      parts=("prefill_attention_bf16_combine",)),
     ]
     k5_unit = [dict(r, per_token=32) for r in k5
                if r["case"] == "7b" and r["batch"] == BATCH
@@ -3020,7 +3210,9 @@ def main() -> int:
                          "chain per call", shapes=rows)
 
     kernels += [probe_row(v, name) for v, name in PROBE_KERNELS.items()]
-    idle = [k["name"] for k in kernels if not k["launches"]]
+    idle = [k["name"] for k in kernels if not k["launches"]] + [
+        p["name"] for k in kernels for p in k.get("parts", ())
+        if not p["launches"]]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{idle}")
@@ -3041,7 +3233,8 @@ def main() -> int:
                       "probe": probe, "probe_kernels": probe_rows,
                       "prefill": prefill, "fast": fast, "batch_step": batch,
                       "continuous": continuous,
-                      "batch_cache_saved_gb": saved, "build_s": build_s}))
+                      "batch_cache_saved_gb": saved, "build_s": build_s,
+                      "sass": sass}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -22,7 +22,10 @@ operations once the prefix is a few hundred keys long. K4b is the same
 function with ``bf16=True`` (``--fast-prefill``): both products take
 bf16-rounded operands on the tensor cores with f32 accumulation, the scale
 applies after the q.k dot, the softmax statistics stay f32 (l sums the
-unrounded p) and p is rounded to bf16 for the p.v product.
+unrounded p) and p is rounded to bf16 for the p.v product. K4b splits the
+key range across blocks where the (kv head x item tile) grid would leave
+SMs idle (``prefill_bf16_plan``); its helper kernel
+``prefill_attention_bf16_combine`` merges the splits in fixed order.
 
 The cache is f32 or bf16 (``--kv-cache-dtype bf16``, where the JAX kernels
 keep their scratch in the cache dtype); each kernel has a build for either,
@@ -37,11 +40,13 @@ tensor they launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from ._build import CudaKernel
+from .q40 import sm_count
 
 _DECODE_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                 + [ctypes.c_float, ctypes.c_void_p])
@@ -54,11 +59,18 @@ PREFILL_KERNEL = CudaKernel("prefill_attention.cu", "prefill_attention",
                             _PREFILL_ARGS)
 PREFILL_KERNEL_KVBF16 = CudaKernel("prefill_attention.cu",
                                    "prefill_attention_kvbf16", _PREFILL_ARGS)
+_PREFILL_BF16_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                      + [ctypes.c_float, ctypes.c_void_p])
 PREFILL_BF16_KERNEL = CudaKernel("prefill_attention_bf16.cu",
-                                 "prefill_attention_bf16", _PREFILL_ARGS)
+                                 "prefill_attention_bf16", _PREFILL_BF16_ARGS)
 PREFILL_BF16_KERNEL_KVBF16 = CudaKernel("prefill_attention_bf16.cu",
                                         "prefill_attention_bf16_kvbf16",
-                                        _PREFILL_ARGS)
+                                        _PREFILL_BF16_ARGS)
+# K4b's part: the merge of its key splits
+PREFILL_BF16_COMBINE = CudaKernel("prefill_attention_bf16.cu",
+                                  "prefill_attention_bf16_combine",
+                                  [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                                  + [ctypes.c_void_p])
 _BATCH_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
                + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
 BATCH_KERNEL = CudaKernel("decode_attention.cu", "decode_attention_batch",
@@ -68,6 +80,7 @@ BATCH_KERNEL_KVBF16 = CudaKernel("decode_attention.cu",
 KERNELS = (KERNEL, KERNEL_KVBF16, PREFILL_KERNEL, PREFILL_KERNEL_KVBF16,
            PREFILL_BF16_KERNEL, PREFILL_BF16_KERNEL_KVBF16, BATCH_KERNEL,
            BATCH_KERNEL_KVBF16)
+HELPERS = (PREFILL_BF16_COMBINE,)
 # by (bf16 dots, cache dtype)
 _PREFILL = {(False, torch.float32): PREFILL_KERNEL,
             (False, torch.bfloat16): PREFILL_KERNEL_KVBF16,
@@ -83,10 +96,23 @@ CACHE_DTYPES = (torch.float32, torch.bfloat16)
 # math on either cache dtype)
 KERNEL_ATOL = 1e-5
 # the same for K4b against prefill_attention_bf16_plain: the kernel rounds
-# p to bf16 against the running max of the keys walked so far (tiles of 64)
-# and the plain version against the row's final max, so a p may land one
-# bf16 step (2^-8 relative) apart; the outputs mix such p over many keys
+# p to bf16 against the running max of the keys its split has walked so far
+# (prefill_attention_bf16_splits models it) and the plain version against
+# the row's final max, so a p may land one bf16 step (2^-8 relative) apart;
+# the outputs mix such p over many keys
 KERNEL_ATOL_BF16 = 2e-3
+
+# K4b's tiling (csrc/prefill_attention_bf16.cu): keys per staged tile by
+# cache dtype, (row, head) items per block, and the split limits: a split
+# walks at least PREFILL_BF16_MIN_TILES tiles, and the plan aims at
+# PREFILL_BF16_BLOCKS_PER_SM blocks on every SM (on the H100 at 7B and T =
+# 128, one a SM beat two, three and four: more splits cost more in the
+# combine's traffic than they gained in overlap)
+PREFILL_BF16_KEYS = {torch.float32: 32, torch.bfloat16: 64}
+PREFILL_BF16_ITEMS = 64
+PREFILL_BF16_MIN_TILES = 2
+PREFILL_BF16_MAX_SPLITS = 16
+PREFILL_BF16_BLOCKS_PER_SM = 1
 
 
 def attention_scale(head_size: int) -> float:
@@ -308,6 +334,76 @@ def prefill_attention_bf16_plain(q: torch.Tensor, k_all: torch.Tensor,
     return (o / l).permute(2, 0, 1, 3).reshape(t_len, n_q * hs)
 
 
+@functools.lru_cache(maxsize=None)
+def prefill_bf16_plan(pos: int, t_len: int, kv_mul: int, n_kv: int,
+                      keys: int, sms: int) -> tuple[int, int]:
+    """(splits, tiles per split) of K4b: the live prefix 0..pos+T-1 in
+    tiles of ``keys`` keys, cut into ``splits`` contiguous runs of ``per``
+    tiles (the last possibly shorter, none empty). One split where the
+    (n_kv x item tiles) grid already puts PREFILL_BF16_BLOCKS_PER_SM blocks
+    on each of the ``sms`` SMs; else enough splits for that, as long as each
+    walks PREFILL_BF16_MIN_TILES tiles."""
+    tiles = -(-(pos + t_len) // keys)
+    blocks = n_kv * -(-(t_len * kv_mul) // PREFILL_BF16_ITEMS)
+    want = PREFILL_BF16_BLOCKS_PER_SM * sms
+    if blocks >= want or tiles < 2 * PREFILL_BF16_MIN_TILES:
+        return 1, tiles
+    splits = min(-(-want // blocks), PREFILL_BF16_MAX_SPLITS)
+    # runs rounded down, so rounding never leaves fewer splits than wanted
+    per = max(PREFILL_BF16_MIN_TILES, tiles // splits,
+              -(-tiles // PREFILL_BF16_MAX_SPLITS))
+    return -(-tiles // per), per
+
+
+def prefill_attention_bf16_splits(q: torch.Tensor, k_all: torch.Tensor,
+                                  v_all: torch.Tensor, layer: int, pos: int,
+                                  kv_mul: int, keys: int,
+                                  splits: int) -> torch.Tensor:
+    """K4b's split arithmetic, step by step in plain torch (a model for the
+    tests; no route calls it): the live prefix in tiles of ``keys`` keys,
+    cut into ``splits`` runs as the kernel cuts it, each run walked with an
+    online softmax whose p is rounded to bf16 against the running max of
+    the tiles that run has seen, then the runs merged in f32 in split
+    order. q (T, n_q, hs) -> (T, n_q*hs)."""
+    t_len, n_q, hs = q.shape
+    n_kv = k_all.shape[-2]
+    live = pos + t_len
+    tiles = -(-live // keys)
+    per = -(-tiles // splits)
+    qg = _bf16(q).reshape(t_len, n_kv, kv_mul, hs)
+    kb, vb = _bf16(k_all[layer, :live]), _bf16(v_all[layer, :live])
+    mask = _causal_mask(pos, t_len, q.device)
+    shape = (n_kv, kv_mul, t_len)
+    parts = []
+    for z in range(splits):
+        m = torch.full(shape, float("-inf"), device=q.device)
+        l = torch.zeros(shape, device=q.device)
+        o = torch.zeros((*shape, hs), device=q.device)
+        for tile in range(z * per, min(tiles, (z + 1) * per)):
+            lo, hi = tile * keys, min(live, (tile + 1) * keys)
+            s = torch.einsum("tgmd,sgd->gmts", qg, kb[lo:hi])
+            s = (s * attention_scale(hs)).masked_fill(~mask[:, lo:hi],
+                                                      float("-inf"))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            base = torch.where(m_new == float("-inf"), 0.0, m_new)
+            p = torch.exp(s - base[..., None])
+            corr = torch.exp(m - base)
+            l = l * corr + p.sum(dim=-1)
+            o = o * corr[..., None] + torch.einsum("gmts,sgd->gmtd",
+                                                   _bf16(p), vb[lo:hi])
+            m = m_new
+        parts.append((m, l, o))
+    mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l_all = torch.zeros(shape, device=q.device)
+    o_all = torch.zeros((*shape, hs), device=q.device)
+    for m, l, o in parts:
+        w = torch.exp(m - mx)
+        l_all = l_all + w * l
+        o_all = o_all + w[..., None] * o
+    return (o_all / l_all[..., None]).permute(2, 0, 1, 3).reshape(
+        t_len, n_q * hs)
+
+
 def _check_prefill(q, k_all, v_all, layer, pos, kv_mul) -> None:
     if q.dim() != 3:
         raise ValueError(f"prefill_attention: q must be (T, n_q, hs), got "
@@ -347,8 +443,29 @@ def prefill_attention(q: torch.Tensor, k_all: torch.Tensor,
                          f"size that is a multiple of 16, got {hs}")
     out = torch.empty((t_len, q[0].numel()), dtype=torch.float32,
                       device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), out.data_ptr())
+    if not bf16:
+        _PREFILL[bf16, k_all.dtype].launch(
+            *ptrs, layer, pos, t_len, seq_len, n_kv, kv_mul, hs,
+            attention_scale(hs), stream)
+        return out
+    splits, per = prefill_bf16_plan(
+        pos, t_len, kv_mul, n_kv, PREFILL_BF16_KEYS[k_all.dtype],
+        sm_count(q.device))
+    o_part = ml_part = None
+    if splits > 1:
+        n_all = t_len * n_kv * kv_mul
+        o_part = torch.empty((splits, n_all, hs), dtype=torch.float32,
+                             device=q.device)
+        ml_part = torch.empty((2, splits, n_all), dtype=torch.float32,
+                              device=q.device)
     _PREFILL[bf16, k_all.dtype].launch(
-        q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), out.data_ptr(),
-        layer, pos, t_len, seq_len, n_kv, kv_mul, hs, attention_scale(hs),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *ptrs, 0 if o_part is None else o_part.data_ptr(),
+        0 if ml_part is None else ml_part.data_ptr(), layer, pos, t_len,
+        seq_len, n_kv, kv_mul, hs, splits, per, attention_scale(hs), stream)
+    if splits > 1:
+        PREFILL_BF16_COMBINE.launch(o_part.data_ptr(), ml_part.data_ptr(),
+                                    out.data_ptr(), n_all, hs, splits,
+                                    stream)
     return out

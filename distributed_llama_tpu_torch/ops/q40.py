@@ -19,8 +19,11 @@ on ``MULTI_T_MAX``:
   ``q40_matmul`` under ``matmul_precision("bf16")``): K3b,
   ``csrc/q40_gemm_bf16.cu``, the same sum over bf16-rounded x and
   bf16-rounded dequantized weights with f32 accumulation, on the tensor
-  cores. At T <= 8 the flag changes nothing, as the JAX package's T=1 and
-  small-T bodies ignore it;
+  cores (wgmma fed by a TMA ring). Two helper kernels of the same source
+  belong to it: ``q40_round_bf16`` rounds x once per call, and
+  ``q40_gemm_bf16_reduce`` sums the split-K partials where
+  ``gemm_bf16_plan`` splits K to fill the card. At T <= 8 the flag changes
+  nothing, as the JAX package's T=1 and small-T bodies ignore it;
 * 2 <= T <= 8 with ``multi_body="dequant"`` (the JAX package's
   ``DLLAMA_MULTI_T_BODY=dequant``, ``_kernel_multi_dequant``): K1d,
   ``csrc/q40_matvec_bf16.cu``, K3b's function at small T on the tensor
@@ -37,6 +40,7 @@ one of the kernels or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -55,13 +59,23 @@ KERNEL_GEMM = CudaKernel("q40_gemm.cu", "q40_gemm",
                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                          + [ctypes.c_void_p])
 KERNEL_GEMM_BF16 = CudaKernel("q40_gemm_bf16.cu", "q40_gemm_bf16",
-                              [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                              [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                               + [ctypes.c_void_p])
+# K3b's parts: x rounded to bf16 once per call, and the split-K sum
+KERNEL_ROUND_BF16 = CudaKernel("q40_gemm_bf16.cu", "q40_round_bf16",
+                               [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                               + [ctypes.c_void_p])
+KERNEL_GEMM_BF16_REDUCE = CudaKernel("q40_gemm_bf16.cu",
+                                     "q40_gemm_bf16_reduce",
+                                     [ctypes.c_void_p] * 2
+                                     + [ctypes.c_int] * 2
+                                     + [ctypes.c_void_p])
 KERNEL_MULTI_BF16 = CudaKernel("q40_matvec_bf16.cu", "q40_matvec_bf16",
                                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                                + [ctypes.c_void_p])
 KERNELS = (KERNEL, KERNEL_MULTI, KERNEL_GEMM, KERNEL_GEMM_BF16,
            KERNEL_MULTI_BF16)
+HELPERS = (KERNEL_ROUND_BF16, KERNEL_GEMM_BF16_REDUCE)
 MULTI_T_BODIES = ("vpu", "dequant")
 
 MULTI_T_MAX = 8  # T above this takes the GEMM (the JAX package's threshold)
@@ -76,6 +90,90 @@ KERNEL_RTOL = 1e-4
 # exact products of bf16 values in f32, but the tensor cores add in another
 # order and in wider steps than cuBLAS's f32 GEMM
 KERNEL_RTOL_BF16 = 1e-3
+
+
+# K3b's tiling (csrc/q40_gemm_bf16.cu): weight rows per consumer warpgroup
+# and the warpgroup counts a block may have, and the split-K limits: a split
+# walks at least GEMM_BF16_MIN_BLOCKS Q40 blocks, and at most
+# GEMM_BF16_MAX_SPLITS partials are written
+GEMM_BF16_WG_ROWS = 64
+GEMM_BF16_WARPGROUPS = (2, 3)
+GEMM_BF16_MIN_BLOCKS = 16
+GEMM_BF16_MAX_SPLITS = 8
+# a wave's fixed cost in Q40 blocks of its blocks' walk (the ring filling,
+# the epilogue, the partials' sum), fitted to the H100's times at 7B's
+# widths
+GEMM_BF16_WAVE_BLOCKS = 32
+
+
+def gemm_bf16_tile(t: int) -> int:
+    """K3b's token tile (the wgmma N) for T tokens: 16, 32, 64 or 128;
+    T > 128 takes ceil(T / 128) tiles."""
+    return 16 if t <= 16 else 32 if t <= 32 else 64 if t <= 64 else 128
+
+
+def gemm_bf16_stage_blocks(t: int) -> int:
+    """Q40 blocks in one of K3b's k stages: 2 for token tiles up to 32, 4
+    above (each measured the faster on the H100 at 7B's widths)."""
+    return 2 if gemm_bf16_tile(t) <= 32 else 4
+
+
+def gemm_bf16_blocks(t: int, d: int, warpgroups: int) -> int:
+    """K3b's (token tiles x row tiles) grid with ``warpgroups`` x 64 rows a
+    block."""
+    return -(-t // gemm_bf16_tile(t)) * -(-d // (GEMM_BF16_WG_ROWS
+                                                 * warpgroups))
+
+
+def _gemm_bf16_cost(blocks: int, stages: int, splits: int,
+                    warpgroups: int, sms: int, wave_stages: int) -> int:
+    """K3b's modelled time under a plan, in one warpgroup's stages: waves of
+    one block per SM (its ring takes most of the shared memory) times one
+    block's walk (its longest split's stages plus the wave's fixed cost,
+    each ``warpgroups`` wgmma groups deep on the SM's tensor cores)."""
+    return (-(-blocks * splits // sms)
+            * (-(-stages // splits) + wave_stages) * warpgroups)
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_bf16_plan(t: int, d: int, nb: int,
+                   sms: int) -> tuple[int, int, int]:
+    """(splits, stages per split, warpgroups) of K3b for T tokens, d rows
+    and nb Q40 blocks on a card of ``sms`` SMs. The k stages
+    (gemm_bf16_stage_blocks blocks each) are cut into ``splits``
+    contiguous runs of ``per`` stages, the
+    last possibly shorter, none empty. One split where a (token tiles x
+    row tiles) grid already fills the card; else up to
+    GEMM_BF16_MAX_SPLITS splits of at least GEMM_BF16_MIN_BLOCKS blocks.
+    The plan minimises _gemm_bf16_cost over GEMM_BF16_WARPGROUPS and those
+    splits; on a tie the fewest splits (each adds its partials' traffic),
+    then the fewest warpgroups. Measured on the H100 at 7B's widths, the
+    time follows one block's walk once the blocks fit in one wave, which
+    the cost says."""
+    qb = gemm_bf16_stage_blocks(t)
+    stages = -(-nb // qb)
+    fills = any(gemm_bf16_blocks(t, d, wg) >= sms
+                for wg in GEMM_BF16_WARPGROUPS)
+    most = 1 if fills else max(1, min(GEMM_BF16_MAX_SPLITS,
+                                      nb // GEMM_BF16_MIN_BLOCKS))
+
+    def cost(plan):
+        splits, wg = plan
+        return (_gemm_bf16_cost(gemm_bf16_blocks(t, d, wg), stages, splits,
+                                wg, sms, GEMM_BF16_WAVE_BLOCKS // qb),
+                splits, wg)
+
+    splits, wg = min(((s, wg) for s in range(1, most + 1)
+                      for wg in GEMM_BF16_WARPGROUPS), key=cost)
+    per = -(-stages // splits)
+    return -(-stages // per), per, wg
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (the split plans' card width); cached, as
+    the plans are: both sit on every prefill matmul's host path."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def multi_t_body() -> str:
@@ -195,7 +293,25 @@ def q40_matmul(w: Q40Weight, x: torch.Tensor, bf16: bool = False,
         kernel = (KERNEL_MULTI_BF16 if _bf16_body(t, bf16, multi_body)
                   else KERNEL_MULTI)
         kernel.launch(*ptrs, t, d, nb, stream)
+    elif not bf16:
+        KERNEL_GEMM.launch(*ptrs, t, d, nb, stream)
     else:
-        (KERNEL_GEMM_BF16 if bf16 else KERNEL_GEMM).launch(*ptrs, t, d, nb,
-                                                           stream)
+        _gemm_bf16(w, x, out, t, d, nb, stream)
     return out
+
+
+def _gemm_bf16(w: Q40Weight, x: torch.Tensor, out: torch.Tensor, t: int,
+               d: int, nb: int, stream: int) -> None:
+    """K3b: x rounded to bf16 once (q40_round_bf16), the GEMM over
+    gemm_bf16_plan's splits, and with more than one split the sum of the
+    partials in split order (q40_gemm_bf16_reduce)."""
+    xb = torch.empty((t, nb * QK), dtype=torch.bfloat16, device=x.device)
+    KERNEL_ROUND_BF16.launch(x.data_ptr(), xb.data_ptr(), x.numel(), stream)
+    splits, _, wg = gemm_bf16_plan(t, d, nb, sm_count(x.device))
+    part = out if splits == 1 else torch.empty(
+        (splits, t, d), dtype=torch.float32, device=x.device)
+    KERNEL_GEMM_BF16.launch(w.qs.data_ptr(), w.d16.data_ptr(), xb.data_ptr(),
+                            part.data_ptr(), t, d, nb, splits, wg, stream)
+    if splits > 1:
+        KERNEL_GEMM_BF16_REDUCE.launch(part.data_ptr(), out.data_ptr(),
+                                       t * d, splits, stream)

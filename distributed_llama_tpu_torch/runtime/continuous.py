@@ -222,8 +222,8 @@ class ContinuousEngine:
         if self.graph and self.device.type != "cuda":
             raise ValueError("a CUDA graph needs a CUDA device")
         if self.device.type == "cuda":
-            build([*q40.KERNELS, *attention.KERNELS,
-                   *paged_attention.KERNELS])
+            build([*q40.KERNELS, *q40.HELPERS, *attention.KERNELS,
+                   *attention.HELPERS, *paged_attention.KERNELS])
         self.params = (params if _on_device(params)
                        else params_to_device(params, self.device))
         # the small-T body is read once, as generate_batch reads it

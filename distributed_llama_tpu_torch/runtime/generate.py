@@ -77,7 +77,8 @@ class Engine:
         fusion = layer.fusion_mode()
         if self.device.type == "cuda":
             # build (or find) the kernels now, not inside the first token
-            build([*q40.KERNELS, *attention.KERNELS, *layer.KERNELS])
+            build([*q40.KERNELS, *q40.HELPERS, *attention.KERNELS,
+                   *attention.HELPERS, *layer.KERNELS])
         self.params = params_to_device(params, self.device)
         self.model = Llama(spec, self.params, with_body(KERNELS, body),
                            fusion)

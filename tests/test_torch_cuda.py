@@ -5,8 +5,10 @@ and x slices, odd T, an input width whose staged x needs more than 48 KB
 of shared memory (70B's w2), head sizes below 128, and every kv_mul the
 attention kernels are built for; then the forward and Engine.prefill
 through the kernels, with their launch counts; the same for the bf16
-kernels (K3b, K4b) and the bf16-cache builds of K2, K4 and K4b, and the
-``--fast-prefill`` Engine over a bf16 cache; then the batched decode
+kernels (K3b, K4b: their split-K and split-key plans, the launches of their
+parts, the same bits from two launches, a long prefix) and the bf16-cache
+builds of K2, K4 and K4b, and the ``--fast-prefill`` Engine over a bf16
+cache; then the batched decode
 attention (K5, both caches; at B = 1 bit for bit K2) and the small-T
 bf16-product Q40 body (K1d), and the on-device loops: a step captured in
 a CUDA graph and replayed gives the tokens of the same step run eagerly,
@@ -245,21 +247,43 @@ def test_engine_prefill_through_the_gemm_counts_launches(gen):
 # bf16: K3b, K4b and the bf16-cache builds
 # ---------------------------------------------------------------------------
 
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+# (130, 11008, 17) and (65, 32 * 129, 300) split K (the second over an odd
+# block count, T > 256, a last split shorter than the rest)
 @pytest.mark.parametrize("d,n,t", [(1, 32, 9), (7, 64, 16), (65, 4096, 17),
                                    (64, 96, 33), (33, 32 * 129, 100),
-                                   (130, 11008, 128), (3, 64, 300)])
+                                   (130, 11008, 128), (3, 64, 300),
+                                   (130, 11008, 17), (65, 32 * 129, 300)])
 def test_q40_gemm_bf16_kernel_matches_plain(gen, d, n, t):
+    """K3b and its parts: one x rounding pass, one GEMM, and the split-K
+    sum exactly when gemm_bf16_plan splits."""
     w = q40.random_q40(d, n, "cuda", gen)
     x = torch.randn((t, n), device="cuda", generator=gen)
-    counts = [k.launches for k in q40.KERNELS]
+    counts = [k.launches for k in (*q40.KERNELS, *q40.HELPERS)]
     got = q40.q40_matmul(w, x, bf16=True)
     torch.cuda.synchronize()
-    assert [k.launches for k in q40.KERNELS] == [*counts[:3], counts[3] + 1,
-                                                 counts[4]]
+    splits = q40.gemm_bf16_plan(t, d, n // 32, _sms())[0]
+    assert [k.launches for k in (*q40.KERNELS, *q40.HELPERS)] == [
+        *counts[:3], counts[3] + 1, counts[4], counts[5] + 1,
+        counts[6] + (splits > 1)]
     want = q40.q40_matmul_bf16_plain(w, x)
     assert got.shape == want.shape == (t, d)
     err = (got - want).abs().max().item()
     assert err <= q40.KERNEL_RTOL_BF16 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("d,n,t", [(130, 11008, 17), (65, 32 * 129, 300),
+                                   (4096, 4096, 128)])
+def test_q40_gemm_bf16_kernel_gives_the_same_bits_twice(gen, d, n, t):
+    """No float atomics: the split-K partials are summed in split order."""
+    w = q40.random_q40(d, n, "cuda", gen)
+    x = torch.randn((t, n), device="cuda", generator=gen)
+    assert q40.gemm_bf16_plan(t, d, n // 32, _sms())[0] > 1
+    assert torch.equal(q40.q40_matmul(w, x, bf16=True),
+                       q40.q40_matmul(w, x, bf16=True))
 
 
 def test_q40_gemm_bf16_reads_scales_at_an_odd_offset(gen):
@@ -270,6 +294,22 @@ def test_q40_gemm_bf16_reads_scales_at_an_odd_offset(gen):
     odd = Q40Weight(w.qs, raw[1:].view(w.d16.shape))
     x = torch.randn((40, 32 * 129), device="cuda", generator=gen)
     got = q40.q40_matmul(odd, x, bf16=True)
+    want = q40.q40_matmul_bf16_plain(w, x)
+    err = (got - want).abs().max().item()
+    assert err <= q40.KERNEL_RTOL_BF16 * want.abs().max().item(), err
+
+
+def test_q40_gemm_bf16_reads_no_scale_past_the_last(gen):
+    """Scales that fill their own allocation, ending on a 2 MiB boundary
+    (as 7B's stacked wqkv scales do): K3b copies no word past the last
+    pair (a window past it faulted at full width)."""
+    d, n = 8192, 4096  # d * nb * 2 bytes = 2 MiB
+    w = q40.random_q40(d, n, "cuda", gen)
+    d16 = torch.empty((d, n // 32), dtype=torch.float16, device="cuda")
+    d16.copy_(w.d16)
+    x = torch.randn((128, n), device="cuda", generator=gen)
+    got = q40.q40_matmul(Q40Weight(w.qs, d16), x, bf16=True)
+    torch.cuda.synchronize()
     want = q40.q40_matmul_bf16_plain(w, x)
     err = (got - want).abs().max().item()
     assert err <= q40.KERNEL_RTOL_BF16 * want.abs().max().item(), err
@@ -352,6 +392,43 @@ def test_prefill_attention_bf16_kernel_matches_plain(gen, cache, kv_mul, hs,
     torch.testing.assert_close(again, got, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_kv,kv_mul,pos,t_len", [(2, 1, 1900, 37),
+                                                   (2, 8, 1500, 100),
+                                                   (64, 1, 1700, 300)])
+def test_prefill_attention_bf16_kernel_at_a_long_prefix(gen, cache, n_kv,
+                                                        kv_mul, pos, t_len):
+    """K4b over a long prefix, split across blocks (the first two cases) or
+    not (64 kv heads fill the card): the plain version within
+    KERNEL_ATOL_BF16, the combine launched exactly when the plan splits,
+    the same bits from a second launch, and a poisoned suffix unread."""
+    shape = (2, 2048, n_kv, 128)
+    k_all = torch.randn(shape, device="cuda", generator=gen).to(cache)
+    v_all = torch.randn(shape, device="cuda", generator=gen).to(cache)
+    q = torch.randn((t_len, n_kv * kv_mul, 128), device="cuda",
+                    generator=gen)
+    splits, _ = attention.prefill_bf16_plan(
+        pos, t_len, kv_mul, n_kv, attention.PREFILL_BF16_KEYS[cache], _sms())
+    assert (splits > 1) == (n_kv == 2)
+    kernel = attention._PREFILL[True, cache]
+    before = (kernel.launches, attention.PREFILL_BF16_COMBINE.launches)
+    got = attention.prefill_attention(q, k_all, v_all, 1, pos, kv_mul,
+                                      bf16=True)
+    torch.cuda.synchronize()
+    assert (kernel.launches, attention.PREFILL_BF16_COMBINE.launches) == (
+        before[0] + 1, before[1] + (splits > 1))
+    want = attention.prefill_attention_bf16_plain(q, k_all, v_all, 1, pos,
+                                                  kv_mul)
+    assert (got - want).abs().max().item() <= attention.KERNEL_ATOL_BF16
+    assert torch.equal(attention.prefill_attention(q, k_all, v_all, 1, pos,
+                                                   kv_mul, bf16=True), got)
+    k_all[1, pos + t_len:] = 1e4
+    v_all[1, pos + t_len:] = float("nan")
+    again = attention.prefill_attention(q, k_all, v_all, 1, pos, kv_mul,
+                                        bf16=True)
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
 def test_bf16_kernels_raise_instead_of_falling_back(gen):
     k_all = torch.randn((1, 16, 2, 40), device="cuda", generator=gen)
     q = torch.randn((4, 2, 40), device="cuda", generator=gen)
@@ -388,12 +465,24 @@ def test_engine_fast_prefill_counts_launches(gen):
     tokens = [int(t) for t in torch.randint(2, 300, (40,), generator=torch
                                             .Generator().manual_seed(1))]
     kernels = (*q40.KERNELS, *attention.KERNELS)
+    parts = (*q40.HELPERS, *attention.HELPERS)
     counts = [k.launches for k in kernels]
+    part_counts = [k.launches for k in parts]
     kern.prefill(tokens, 0, 16)
     got = [k.launches for k in kernels]
     L = spec.n_layers
     assert [g - c for g, c in zip(got, counts)] == [
         0, 0, 0, 3 * 4 * L, 0, 0, 0, 0, 0, 0, 3 * L, 0, 0]
+    # K3b's x rounding per launch; its split-K sum and K4b's combine where
+    # their plans split (at these widths neither does)
+    shapes = [(512, 256), (256, 256), (1408, 256), (256, 704)]
+    reduces = sum(q40.gemm_bf16_plan(16, d, n // 32, _sms())[0] > 1
+                  for d, n in shapes)
+    combines = sum(attention.prefill_bf16_plan(
+        p, 16, 2, 2, attention.PREFILL_BF16_KEYS[torch.bfloat16],
+        _sms())[0] > 1 for p in (0, 16, 32))
+    assert [k.launches - c for k, c in zip(parts, part_counts)] == [
+        3 * 4 * L, 3 * L * reduces, L * combines]
     with torch.inference_mode():
         run_chunked_prefill(
             lambda part, start: plain(cp, part, start, logits=False),
