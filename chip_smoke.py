@@ -11,23 +11,28 @@ no result line):
 1. Card: name and power limit (nvidia-smi), torch/CUDA versions, and the
    build of every kernel from ``distributed_llama_tpu_torch/csrc`` (one
    nvcc per source, all started together), with the build seconds; then
-   ``cuobjdump -sass`` of the built K3b and K4b libraries (the toolkit's or
-   Triton's; none found fails the phase): every K3b GEMM function must
-   hold HGMMA (wgmma) and UTMALDG or UBLKCP (TMA / bulk copy), every K4b
-   function the async copy.
+   ``cuobjdump -sass`` of the built K3, K3b, K4 and K4b libraries (the
+   toolkit's or Triton's; none found fails the phase): every K3 GEMM
+   function must hold a tf32 HGMMA (wgmma) and UTMALDG (TMA), every K3b
+   GEMM function HGMMA and UTMALDG or UBLKCP (bulk copy), every K4
+   function a tf32 HMMA (mma.sync) and UTMALDG, every K4b function the
+   async copy; ``cuobjdump -res-usage``: no K3 or K4 function spills
+   (stack or local memory), registers logged.
 2. Kernels against their plain versions on the card at the Llama-2-7B
    shapes: the Q40 matvec (K1) on wqkv/wo/w13/w2/wcls, the decode
    attention (K2) at kv_mul 1 (7B) and 8 (70B-style GQA) over positions
    0..2047 on an f32 and a bf16 cache, the small-T Q40 matvec (K1m) at
-   T = 2, 4, 8, the Q40 GEMM (K3) at T = 16, 100, 128 on wqkv/wo/w13/w2
-   (and wcls at T = 16), its bf16 tensor-core twin (K3b, with its x
-   rounding pass and split-K sum) at T = 9, 16, 100, 128, 512 with its
-   split count and the same bits from two launches, the prefill attention
-   at T = 128 and pos 0, 384, 1920 for 7B and the GQA shape (K4b also at
-   T = 37, pos 1920, with its split count, its split combine and the same
-   bits from two launches), with f32 dots (K4) and bf16 dots (K4b), each
-   over an f32 and a bf16 cache, with a poisoned cache suffix past pos+T
-   that must not change its output; the small-T bf16-product Q40 body
+   T = 2, 4, 8, the 3xTF32 Q40 GEMM (K3, with its x split pass and
+   K3b's split-K sum) at T = 9, 16, 32, 100, 128 on wqkv/wo/w13/w2 (and
+   wcls at T = 16, 13B's and 70B's w2 at T = 512), its bf16 tensor-core
+   twin (K3b, with its x rounding pass and split-K sum) at T = 9, 16,
+   100, 128, 512, each with its plan and the
+   same bits from two launches, the prefill attention at T = 128 and pos
+   0, 384, 1920 and at T = 37, pos 1920 for 7B and the GQA shape, with
+   3xTF32 dots (K4) and bf16 dots (K4b), each over an f32 and a bf16
+   cache, with its split plan, its split combine, the same bits from two
+   launches and a poisoned cache suffix past pos+T that must not change
+   its output; the small-T bf16-product Q40 body
    (K1d) at T = 2, 4, 8 on the four layer matrices, and the batched decode attention (K5) at
    7B and GQA shapes for B = 1 and 8 at a shared pos 63 and 2047 and at
    ragged positions, over an f32 and a bf16 cache (at B = 1 bit for bit
@@ -45,7 +50,8 @@ no result line):
    beside the chain's CUDA-event time). Max error against the
    stated tolerance; kernel, plain and library
    times (CUDA events, median of 25 launches, L2 flushed before each); the
-   bound (bf16 rate for K3b, K4b and K1d) and what bounds it. The library
+   bound (bf16 rate for K3b, K4b and K1d; TF32 rate times the passes for
+   K3 and K4, the f32 SIMT bound beside it) and what bounds it. The library
    call computes the kernel's own function: SDPA in f32 for K2 and K4
    over a bf16 cache (on the prefix cast to f32 beforehand), with SDPA in
    bf16 beside it as ``library_bf16_ms``.
@@ -59,10 +65,14 @@ no result line):
       launches per step;
    b. a 512-token prompt (BOS + 511 " hi") with ``--prefill-chunk 128
       --steps 576``: 4 chunks of T = 128 (K3 4*L*4 = 512, K4 L*4 = 128,
-      K1m 0), then 65 decode steps from pos 511 (K1 129*65, K2 32*65);
+      K1m 0, with their parts: 512 x split passes, a split-K sum per
+      layer matrix gemm_tf32_plan splits, a combine per chunk and layer
+      prefill_plan splits), then 65 decode steps from pos 511 (K1 129*65,
+      K2 32*65);
    c. ``--buffer-float-type q80 --prefill-chunk 8``, 64 steps over the
-      20-token prompt: 3 chunks of T = 8 (K1m 4*L*3 = 384, K4 L*3 = 96),
-      then 45 decode steps; every step's logits must be finite;
+      20-token prompt: 3 chunks of T = 8 (K1m 4*L*3 = 384, K4 L*3 = 96,
+      with its combines by plan), then 45 decode steps; every step's
+      logits must be finite;
    d. run b with ``--fast-prefill --kv-cache-dtype bf16``: K3b 512 and K4b
       (bf16-cache build) 128 in the prefill, with their parts (512 x
       rounding passes, a split-K sum per layer matrix its plan splits, a
@@ -166,10 +176,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SMOKE_DIR = ROOT / "build" / "smoke"
 
-# peak rates (bytes/s, f32 FLOP/s outside the tensor cores, dense bf16
-# tensor-core FLOP/s) for the bound: the H100 SXM data-sheet numbers; a
-# PCIe part reads ~2.0 TB/s, 51 TFLOP/s f32, 756 TFLOP/s bf16
-PEAKS = {"sxm": (3.35e12, 67e12, 989e12), "pcie": (2.0e12, 51e12, 756e12)}
+# peak rates (bytes/s, f32 FLOP/s outside the tensor cores, dense bf16 and
+# TF32 tensor-core FLOP/s) for the bound: the H100 SXM data-sheet numbers;
+# a PCIe part reads ~2.0 TB/s, 51 TFLOP/s f32, 756 TFLOP/s bf16, 378
+# TFLOP/s TF32
+PEAKS = {"sxm": (3.35e12, 67e12, 989e12, 494.7e12),
+         "pcie": (2.0e12, 51e12, 756e12, 378e12)}
 
 # the tolerances are the port's own (ops/q40.KERNEL_RTOL,
 # ops/attention.KERNEL_ATOL, models/llama.LOGIT_RTOL), shared with the tests
@@ -243,12 +255,13 @@ class Timer:
         return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float, peaks,
-          bf16: bool = False) -> tuple[float, str]:
-    """(least ms, 'bytes' | 'operations') on this card; ``bf16`` counts the
-    flops at the bf16 tensor-core rate instead of the f32 one."""
+def bound(nbytes: float, flops: float, peaks, bf16: bool = False,
+          tf32: bool = False) -> tuple[float, str]:
+    """(least ms, 'bytes' | 'operations') on this card; ``bf16`` or
+    ``tf32`` counts the flops at that tensor-core rate instead of the f32
+    one (the 3xTF32 kernels pass the flops of all their passes)."""
     t_bytes = nbytes / peaks[0] * 1e3
-    t_ops = flops / peaks[2 if bf16 else 1] * 1e3
+    t_ops = flops / peaks[3 if tf32 else 2 if bf16 else 1] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -267,7 +280,8 @@ def phase_card(torch):
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}; bound uses "
         f"{peaks[0] / 1e12:.2f} TB/s, {peaks[1] / 1e12:.0f} TFLOP/s f32, "
-        f"{peaks[2] / 1e12:.0f} TFLOP/s bf16")
+        f"{peaks[2] / 1e12:.0f} TFLOP/s bf16, {peaks[3] / 1e12:.1f} TFLOP/s "
+        f"TF32")
 
     from distributed_llama_tpu_torch.ops._build import build
 
@@ -298,25 +312,39 @@ def _disassembler() -> str:
         if c and os.path.isfile(c) and os.access(c, os.X_OK):
             return c
     raise RuntimeError(f"no cuobjdump found (looked at {cands}): the SASS "
-                       f"check of K3b and K4b cannot run")
+                       f"check of K3, K3b, K4 and K4b cannot run")
 
 
+# SASS instructions by the name the check reports: the warpgroup MMA, its
+# tf32 form, the warp-level tf32 MMA, the TMA and bulk copies
+SASS_OPS = {"HGMMA": r"\bHGMMA\b", "HGMMA.TF32": r"\bHGMMA\.[\w.]*TF32\b",
+            "HMMA.TF32": r"\bHMMA\.[\w.]*TF32\b", "UTMALDG": r"\bUTMALDG\b",
+            "UBLKCP": r"\bUBLKCP\b"}
 # (kernel, function name part, instruction groups: each group needs one of
-# its mnemonics in every function of that name)
+# its instructions in every function of that name)
 SASS_CHECKS = [
+    ("q40_gemm", "q40_gemm_kernel", [("HGMMA.TF32",), ("UTMALDG",)]),
     ("q40_gemm_bf16", "q40_gemm_bf16_kernel",
      [("HGMMA",), ("UTMALDG", "UBLKCP")]),
+    ("prefill_attention", "prefill_attention_kernel",
+     [("HMMA.TF32",), ("UTMALDG",)]),
     ("prefill_attention_bf16", "prefill_attention_bf16_kernel",
      [("UTMALDG", "UBLKCP")]),
 ]
+SPILL_FREE = ("q40_gemm", "prefill_attention")  # K3 and K4
 
 
 def phase_sass():
     """What the redesigned kernels compile to: ``cuobjdump -sass`` of the
-    built K3b and K4b libraries. Every K3b GEMM function (one per token
-    tile) must hold a warpgroup MMA (HGMMA) and a TMA or bulk copy
-    (UTMALDG / UBLKCP); every K4b function (one per cache type and kv_mul)
-    the async copy. Returns {kernel: {mnemonic: count}}."""
+    built K3, K3b, K4 and K4b libraries. Every K3 GEMM function (one per
+    token tile and warpgroup count) must hold a tf32 warpgroup MMA
+    (HGMMA...TF32) and a TMA copy (UTMALDG), every K3b GEMM function a
+    warpgroup MMA and a TMA or bulk copy (UBLKCP), every K4 function (one
+    per cache type and kv_mul) a tf32 warp MMA (HMMA...TF32) and a TMA
+    copy, every K4b function the async copy. ``cuobjdump -res-usage`` gives
+    each function's registers (at launch) and its stack and local memory:
+    K3's and K4's functions must spill nothing. Returns {kernel:
+    {instruction: count, "max_regs": n, "spill_bytes": n}}."""
     from distributed_llama_tpu_torch.ops import _build
 
     tool = _disassembler()
@@ -334,13 +362,27 @@ def phase_sass():
         for sec in funcs:
             name = sec.split("\n", 1)[0].strip()
             for group in groups:
-                hits = {m: len(re.findall(rf"\b{m}\b", sec)) for m in group}
+                hits = {m: len(re.findall(SASS_OPS[m], sec)) for m in group}
                 if not any(hits.values()):
                     raise AssertionError(f"SASS of {name}: none of {group}")
                 for m, n in hits.items():
                     counts[m] = counts.get(m, 0) + n
+        usage = subprocess.run(
+            [tool, "-res-usage", str(by_symbol[symbol].library_path())],
+            capture_output=True, text=True, timeout=120, check=True).stdout
+        res = [tuple(map(int, m.groups()[1:])) for m in re.finditer(
+            r"Function (\S+):\s+REG:(\d+) STACK:(\d+) SHARED:\d+ "
+            r"LOCAL:(\d+)", usage) if fn in m.group(1)]
+        if len(res) != len(funcs):
+            raise AssertionError(f"-res-usage of {symbol}: {len(res)} of "
+                                 f"{len(funcs)} functions {fn}")
+        counts["max_regs"] = max(r for r, _, _ in res)
+        counts["spill_bytes"] = sum(st + lo for _, st, lo in res)
         log(f"SASS of {symbol} ({len(funcs)} functions {fn}*, {tool}): "
             + ", ".join(f"{m} x{n}" for m, n in counts.items()))
+        if symbol in SPILL_FREE and counts["spill_bytes"]:
+            raise AssertionError(f"{symbol}: {counts['spill_bytes']} bytes "
+                                 f"of stack or local memory (a spill)")
         found[symbol] = counts
     return found
 
@@ -495,11 +537,16 @@ def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False,
               body="vpu"):
     """K1m, K3, (``bf16``) K3b or (``body="dequant"``) K1d against the plain
     version on the 7B shapes; the library yardstick is _library_gemm's (the
-    bf16 one for K3b and K1d). K3b prints its split count (gemm_bf16_plan)
-    and must give the same bits on a second launch."""
-    from distributed_llama_tpu_torch.ops.q40 import (KERNEL_RTOL,
+    bf16 one for K3b and K1d). K3 and K3b print their plan (gemm_tf32_plan,
+    gemm_bf16_plan: splits, blocks or stages a split, warpgroups) and must
+    give the same bits on a second launch. K3's bound counts its three
+    TF32 passes, with the f32 SIMT bound of the same product beside it
+    (``simt_bound_ms``)."""
+    from distributed_llama_tpu_torch.ops.q40 import (KERNEL_GEMM,
+                                                     KERNEL_RTOL,
                                                      KERNEL_RTOL_BF16,
                                                      gemm_bf16_plan,
+                                                     gemm_tf32_plan,
                                                      q40_matmul,
                                                      q40_matmul_plain,
                                                      random_q40)
@@ -508,6 +555,9 @@ def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False,
     torch.backends.cuda.matmul.allow_tf32 = False
     tensor_cores = bf16 or body == "dequant"
     rtol = KERNEL_RTOL_BF16 if tensor_cores else KERNEL_RTOL
+    tf32 = kernel is KERNEL_GEMM
+    plan_of = gemm_bf16_plan if bf16 else gemm_tf32_plan if tf32 else None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
     for name, d, n, t, per_unit in cases:
@@ -519,16 +569,16 @@ def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False,
         torch.cuda.synchronize()
         if kernel.launches != before + 1:
             raise AssertionError(f"{kernel.symbol} {name} T={t}: not launched")
-        splits = None
-        if bf16:
-            splits = gemm_bf16_plan(t, d, nb, torch.cuda.get_device_properties(
-                0).multi_processor_count)[0]
-            if not torch.equal(q40_matmul(w, x, bf16=True), got):
+        plan = None
+        if plan_of is not None:
+            plan = plan_of(t, d, nb, sms)
+            if not torch.equal(q40_matmul(w, x, bf16=bf16), got):
                 raise AssertionError(f"{kernel.symbol} {name} T={t}: two "
                                      f"launches differ")
         want = q40_matmul_plain(w, x, bf16=bf16, multi_body=body)
         err = (got - want).abs().max().item()
-        tol = rtol * want.abs().max().item()
+        peak = want.abs().max().item()
+        tol = rtol * peak
         wf = dequantize_q40_torch(w.qs, w.d16)
         lib, lib_name = _library_gemm(torch, x, wf, tensor_cores)
         lib_err = (lib().float() - want).abs().max().item()
@@ -537,20 +587,28 @@ def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False,
                                                   multi_body=body))
         library_ms = timer(lib)
         nbytes = d * nb * 18 + t * n * 4 + t * d * 4
-        b_ms, b_by = bound(nbytes, 2.0 * t * d * n, peaks, tensor_cores)
-        log(f"{kernel.symbol} {name:5s} T={t:3d} ({d}x{n})"
-            f"{'' if splits is None else f' splits {splits}'}: max_abs_err "
-            f"{err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms {lib_name} {library_ms:.4f} ms (err "
-            f"{lib_err:.1e}) bound {b_ms:.4f} ms ({b_by})")
+        flops = 2.0 * t * d * n
+        b_ms, b_by = bound(nbytes, 3 * flops if tf32 else flops, peaks,
+                           tensor_cores, tf32)
+        simt_ms = bound(nbytes, flops, peaks)[0] if tf32 else None
+        plan_note = ("" if plan is None else
+                     f" plan {plan[0]} splits x {plan[1]}, {plan[2]} WG")
+        simt_note = "" if simt_ms is None else f", SIMT {simt_ms:.4f} ms"
+        log(f"{kernel.symbol} {name:5s} T={t:3d} ({d}x{n}){plan_note}: "
+            f"max_abs_err {err:.3e} ({err / peak:.2e} of max, tol "
+            f"{tol:.3e}) kernel {ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms {lib_name} {library_ms:.4f} ms (err "
+            f"{lib_err:.1e}) bound {b_ms:.4f} ms ({b_by}{simt_note})")
         if not err <= tol:
             raise AssertionError(f"{kernel.symbol} {name} T={t}: error {err}"
                                  f" above {tol}")
         rows.append(dict(shape=name, d=d, n=n, t=t, per_token=per_unit,
-                         splits=splits, max_abs_err=err, tol=tol, ms=ms,
+                         splits=None if plan is None else plan[0],
+                         warpgroups=None if plan is None else plan[2],
+                         max_abs_err=err, rel_err=err / peak, tol=tol, ms=ms,
                          plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                         library=lib_name))
+                         bound_ms=b_ms, bound_by=b_by, simt_bound_ms=simt_ms,
+                         library_ms=library_ms, library=lib_name))
         del w, x, got, want, wf, lib
     return rows
 
@@ -568,11 +626,17 @@ def phase_k1m(torch, timer, peaks):
 
 
 def phase_k3(torch, timer, peaks):
+    """K3 at T = 9 (a chunk's ragged tail), 16, 32 (continuous admission,
+    CONT_CHUNK), 100 and 128 on the four 7B layer matrices, wcls at T = 16,
+    and the deep sums of larger models: 13B's and 70B's w2 (432 and 896
+    Q40 blocks) at T = 512, the latter in one split by its plan."""
     from distributed_llama_tpu_torch.ops.q40 import KERNEL_GEMM
 
     cases = [(name, d, n, t, 32 if t == CHUNK else 0)
-             for t in (16, 100, CHUNK) for name, d, n in LAYER_SHAPES]
-    cases.append(("wcls", 32000, 4096, 16, 0))
+             for t in (9, 16, CONT_CHUNK, 100, CHUNK)
+             for name, d, n in LAYER_SHAPES]
+    cases += [("wcls", 32000, 4096, 16, 0), ("w2-13b", 5120, 13824, 512, 0),
+              ("w2-70b", 8192, 28672, 512, 0)]
     return _q40_rows(torch, timer, peaks, KERNEL_GEMM, cases, seed=3)
 
 
@@ -896,19 +960,22 @@ def _f(ms):
 K4_CASES = [  # (label, L, n_kv, kv_mul)
     ("7b", 32, 32, 1), ("gqa8", 4, 8, 8)]
 K4_POS = (0, 384, 1920)
-K4B_RAGGED = (37, 1920)  # K4b's extra case: (T, pos), a ragged chunk
+K4_RAGGED = (37, 1920)  # the extra case: (T, pos), a ragged chunk
 
 
 def phase_k4(torch, timer, peaks, bf16=False, cache=None):
     """K4 (f32 dots) or K4b (``bf16`` dots) over an f32 cache or (``cache``
     = torch.bfloat16) a bf16 one, against the matching plain version at
-    T = CHUNK (and for K4b T = 37 at pos 1920 too). The library yardstick
+    T = CHUNK and at T = 37 at pos 1920. The library yardstick
     is SDPA computing the kernel's function: in bf16 for K4b (bf16 dots,
     f32 accumulation), in f32 for K4 (over a bf16 cache on q and the live
     prefix cast to f32 beforehand, the cast not timed); over a bf16 cache
     SDPA in bf16, another function for K4, is printed beside it as
-    ``library_bf16_ms``. K4b prints its split count (prefill_bf16_plan)
-    and must give the same bits on a second launch."""
+    ``library_bf16_ms``. Both print their plan (prefill_plan,
+    prefill_bf16_plan: splits, key tiles a split) and must give the same
+    bits on a second launch. K4's bound counts its TF32 passes (3 over an
+    f32 cache, 2 over a bf16 one, whose values are exact in TF32), with the
+    f32 SIMT bound of the same dots beside it (``simt_bound_ms``)."""
     import torch.nn.functional as F
 
     from distributed_llama_tpu_torch.ops import attention
@@ -924,9 +991,7 @@ def phase_k4(torch, timer, peaks, bf16=False, cache=None):
     g = torch.Generator(device="cuda").manual_seed(4)
     rows = []
     hs = K2_HS
-    cases = [(CHUNK, pos) for pos in K4_POS]
-    if bf16:
-        cases.append(K4B_RAGGED)
+    cases = [(CHUNK, pos) for pos in K4_POS] + [K4_RAGGED]
     for label, L, n_kv, kv_mul in K4_CASES:
         shape = (L, K2_SEQ, n_kv, hs)
         n_q = n_kv * kv_mul
@@ -946,14 +1011,13 @@ def phase_k4(torch, timer, peaks, bf16=False, cache=None):
             if kernel.launches != before + 1:
                 raise AssertionError(f"{kernel.symbol} {label} pos {pos}: "
                                      f"not launched")
-            splits = None
-            if bf16:
-                splits = attention.prefill_bf16_plan(
-                    pos, t_len, kv_mul, n_kv,
-                    attention.PREFILL_BF16_KEYS[cache], sms)[0]
-                if not torch.equal(run(), got):
-                    raise AssertionError(f"{kernel.symbol} {label} pos {pos}"
-                                         f": two launches differ")
+            plan = (attention.prefill_bf16_plan(
+                pos, t_len, kv_mul, n_kv, attention.PREFILL_BF16_KEYS[cache],
+                sms) if bf16 else attention.prefill_plan(pos, t_len, kv_mul,
+                                                         n_kv, sms))
+            if not torch.equal(run(), got):
+                raise AssertionError(f"{kernel.symbol} {label} pos {pos}: "
+                                     f"two launches differ")
             want = plain(q, k_all, v_all, layer, pos, kv_mul)
             err = (got - want).abs().max().item()
             live = pos + t_len
@@ -989,16 +1053,21 @@ def phase_k4(torch, timer, peaks, bf16=False, cache=None):
             poisoned = not torch.equal(again, got)
             nbytes = 2 * live * n_kv * hs * size + 2 * t_len * n_q * hs * 4
             row_keys = t_len * pos + t_len * (t_len + 1) // 2
-            b_ms, b_by = bound(nbytes, 4.0 * n_q * hs * row_keys, peaks,
-                               bf16)
+            flops = 4.0 * n_q * hs * row_keys
+            passes = 1 if bf16 else 3 if cache == torch.float32 else 2
+            b_ms, b_by = bound(nbytes, passes * flops, peaks, bf16,
+                               tf32=not bf16)
+            simt_ms = None if bf16 else bound(nbytes, flops, peaks)[0]
             bf16_note = ("" if library_bf16_ms is None
                          else f" sdpa bf16 {library_bf16_ms:.4f} ms")
-            log(f"{kernel.symbol} {label} T={t_len} pos {pos:4d}"
-                f"{'' if splits is None else f' splits {splits}'}: "
+            simt_note = ("" if simt_ms is None else
+                         f", {passes} TF32 passes; SIMT {simt_ms:.5f} ms")
+            log(f"{kernel.symbol} {label} T={t_len} pos {pos:4d} plan "
+                f"{plan[0]} splits x {plan[1]}: "
                 f"max_abs_err {err:.3e} (tol {atol:.0e}) kernel {ms:.4f} ms "
-                f"plain {plain_ms:.4f} ms sdpa {library_ms:.4f} ms (err "
+                f"plain {plain_ms:.4f} ms sdpa {library_ms:.4f} ms (its err "
                 f"{lib_err:.1e}){bf16_note}"
-                f" bound {b_ms:.5f} ms ({b_by}); poisoned "
+                f" bound {b_ms:.5f} ms ({b_by}{simt_note}); poisoned "
                 f"suffix {'CHANGED the output' if poisoned else 'invisible'}")
             if not err <= atol:
                 raise AssertionError(f"{kernel.symbol} {label} pos {pos}: "
@@ -1007,9 +1076,10 @@ def phase_k4(torch, timer, peaks, bf16=False, cache=None):
                 raise AssertionError(f"{kernel.symbol} {label} pos {pos}: "
                                      f"keys past pos+T changed the output")
             rows.append(dict(case=label, n_kv=n_kv, kv_mul=kv_mul, t=t_len,
-                             pos=pos, splits=splits, max_abs_err=err, ms=ms,
-                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=library_ms,
+                             pos=pos, splits=plan[0], max_abs_err=err,
+                             library_err=lib_err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by,
+                             simt_bound_ms=simt_ms, library_ms=library_ms,
                              library_bf16_ms=library_bf16_ms))
             del k_all, v_all, q, got, want, again
     return rows
@@ -1506,40 +1576,47 @@ def _expect(label, counts, want):
         raise AssertionError(f"{label}: launches {counts}, want {full}")
 
 
-def _fast_parts(spec, chunk, starts, kvbf16):
-    """The launches of K3b's and K4b's parts over prefill windows of T =
+def _prefill_parts(spec, chunk, starts, fast, kvbf16):
+    """The launches of the prefill kernels' parts over windows of T =
     ``chunk`` at positions ``starts``, by the plans the wrappers follow on
-    this card: one x rounding pass per K3b launch, one split-K sum per
-    layer matrix that gemm_bf16_plan splits, one combine per layer of a
-    window that prefill_bf16_plan splits. Kernels with no launch are
-    left out."""
+    this card: for T > 8 one x pass per GEMM launch (K3's TF32 split, or
+    under ``fast`` K3b's bf16 rounding) and one split-K sum per layer matrix
+    that gemm_tf32_plan (gemm_bf16_plan) splits; one combine per layer of a
+    window that prefill_plan (prefill_bf16_plan) splits. Kernels with no
+    launch are left out."""
     import torch
 
     from distributed_llama_tpu_torch.ops import attention, q40
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    L = spec.n_layers
+    L, kv_mul, n_kv = spec.n_layers, spec.kv_mul, spec.n_kv_heads
     shapes = [(spec.dim + 2 * spec.kv_dim, spec.dim), (spec.dim, spec.dim),
               (2 * spec.hidden_dim, spec.dim), (spec.dim, spec.hidden_dim)]
-    keys = attention.PREFILL_BF16_KEYS[torch.bfloat16 if kvbf16
-                                       else torch.float32]
-    parts = {
-        "q40_round_bf16": 4 * L * len(starts),
-        "q40_gemm_bf16_reduce": L * len(starts) * sum(
-            q40.gemm_bf16_plan(chunk, d, n // 32, sms)[0] > 1
-            for d, n in shapes),
-        "prefill_attention_bf16_combine": L * sum(
-            attention.prefill_bf16_plan(p, chunk, spec.kv_mul,
-                                        spec.n_kv_heads, keys, sms)[0] > 1
-            for p in starts)}
+    if fast:
+        keys = attention.PREFILL_BF16_KEYS[torch.bfloat16 if kvbf16
+                                           else torch.float32]
+        x_pass, gemm_plan = "q40_round_bf16", q40.gemm_bf16_plan
+        splits = [attention.prefill_bf16_plan(p, chunk, kv_mul, n_kv, keys,
+                                              sms)[0] for p in starts]
+    else:
+        x_pass, gemm_plan = "q40_split_tf32", q40.gemm_tf32_plan
+        splits = [attention.prefill_plan(p, chunk, kv_mul, n_kv, sms)[0]
+                  for p in starts]
+    # both routes merge their splits with K3b's sum and K4b's combine
+    parts = {"prefill_attention_bf16_combine": L * sum(z > 1
+                                                       for z in splits)}
+    if chunk > q40.MULTI_T_MAX:
+        parts[x_pass] = 4 * L * len(starts)
+        parts["q40_gemm_bf16_reduce"] = L * len(starts) * sum(
+            gemm_plan(chunk, d, n // 32, sms)[0] > 1 for d, n in shapes)
     return {k: v for k, v in parts.items() if v}
 
 
 def _prefill_launches(spec, decode_steps, fast, kvbf16):
     """The launches of the 512-token prompt at CHUNK, then decode_steps
     token-by-token steps: the Q40 GEMM, prefill attention and decode
-    attention builds that --fast-prefill (K3b and K4b, with their parts)
-    and a bf16 cache select, 4 chunks of T = 128."""
+    attention builds that --fast-prefill (K3b and K4b rather than K3 and K4)
+    and a bf16 cache select, with their parts, 4 chunks of T = 128."""
     n_layers = spec.n_layers
     gemm = "q40_gemm_bf16" if fast else "q40_gemm"
     prefill = ("prefill_attention_bf16" if fast else "prefill_attention") \
@@ -1550,10 +1627,9 @@ def _prefill_launches(spec, decode_steps, fast, kvbf16):
             gemm: 4 * n_layers * n_chunks,
             decode: n_layers * decode_steps,
             prefill: n_layers * n_chunks}
-    if fast:
-        want.update(_fast_parts(spec, CHUNK,
-                                [CHUNK * i for i in range(n_chunks)],
-                                kvbf16))
+    want.update(_prefill_parts(spec, CHUNK,
+                               [CHUNK * i for i in range(n_chunks)], fast,
+                               kvbf16))
     return want
 
 
@@ -1707,12 +1783,13 @@ def phase_e2e_batch(torch, model, tok, n_layers, label, env=None,
     return res
 
 
-def phase_e2e_fast(torch, model, tok, n_layers, ref_a, ref_b):
+def phase_e2e_fast(torch, model, tok, spec, ref_a, ref_b):
     """Runs i and j: --fast with run a's prompt and steps (its stream must
     equal run a's token for token, through K1 and K5 at B = 1, K2 never
     launched), and --fast --prefill-chunk 128 on the 512-token prompt (K3
     and K4 for the 4 chunks, then the chain from pos 511; its text must
     end with run b's decode pieces)."""
+    n_layers = spec.n_layers
     res = {}
     for label, args, ref, chain, chunks in (
             ("fast", ["--prompt", PROMPT, "--steps", str(STEPS)],
@@ -1726,7 +1803,10 @@ def phase_e2e_fast(torch, model, tok, n_layers, ref_a, ref_b):
                 "decode_attention_batch": n_layers * chain}
         if chunks:
             want.update(q40_gemm=4 * n_layers * chunks,
-                        prefill_attention=n_layers * chunks)
+                        prefill_attention=n_layers * chunks,
+                        **_prefill_parts(spec, CHUNK,
+                                         [CHUNK * i for i in range(chunks)],
+                                         False, False))
         _expect(f"{label} run", counts, want)
         text = _fast_text(out)
         same = text == ref if not chunks else text.endswith(ref)
@@ -1933,8 +2013,9 @@ def capture_reading(torch, engine, tokenizer):
     return res
 
 
-def phase_e2e_q80(torch, model, tok, n_layers):
+def phase_e2e_q80(torch, model, tok, spec):
     """Run c: q80 buffers, the 20-token prompt through --prefill-chunk 8."""
+    n_layers = spec.n_layers
     out, counts, wall, finite = _run_cli(torch, model, tok, [
         "--prompt", PROMPT, "--steps", str(STEPS), "--temperature", "0",
         "--seed", "1", "--buffer-float-type", "q80", "--prefill-chunk",
@@ -1946,7 +2027,10 @@ def phase_e2e_q80(torch, model, tok, n_layers):
         "q40_matvec_multi": 4 * n_layers * n_chunks,
         "q40_gemm": 0,
         "decode_attention": n_layers * steps,
-        "prefill_attention": n_layers * n_chunks})
+        "prefill_attention": n_layers * n_chunks,
+        **_prefill_parts(spec, Q80_CHUNK,
+                         [Q80_CHUNK * i for i in range(n_chunks)], False,
+                         False)})
     if steps != STEPS - 19 or not all(finite) or len(finite) != steps:
         raise AssertionError(f"q80 run: {steps} decode steps, finite "
                              f"logits {sum(finite)}/{len(finite)}")
@@ -1975,6 +2059,29 @@ def _engine_spy(seen: list):
         continuous.ContinuousEngine.submit = submit
 
 
+@contextlib.contextmanager
+def _window_spy(windows: list):
+    """Record (T, start) of every admission-prefill window a
+    ContinuousEngine runs (its run_chunked_prefill schedule) while the CLI
+    runs."""
+    from distributed_llama_tpu_torch.runtime import continuous
+
+    schedule = continuous.run_chunked_prefill
+
+    def spy(fwd, tokens, pos0, chunk, seq_len):
+        def record(part, start):
+            windows.append((len(part), start))
+            return fwd(part, start)
+
+        return schedule(record, tokens, pos0, chunk, seq_len)
+
+    continuous.run_chunked_prefill = spy
+    try:
+        yield
+    finally:
+        continuous.run_chunked_prefill = schedule
+
+
 def _cont_rows(out):
     """The [i] 'text' rows generate_continuous prints (not the done lines)."""
     return re.findall(r"^\[(\d+)\] (?!done:)(.*)$", out, re.M)
@@ -1986,8 +2093,9 @@ def phase_e2e_continuous(torch, model, tok, n_layers, label, flags):
     Exact launch counts from the engine's own step and chunk counts: the
     attention build the flags select (K5 contiguous, K6 f32 or bf16 pages,
     K7 Q8 pages) L per device step, K1m 4L+1 per step (8 rows), K3 4L and
-    K4 (its bf16-cache build over bf16 pages) L per admission chunk, every
-    other kernel 0. Every request completes without error, the page audit
+    K4 (its bf16-cache build over bf16 pages) L per admission chunk with
+    their parts by the plans of each chunk's (T, start), every other
+    kernel 0. Every request completes without error, the page audit
     is clean, and the steps are the graphs' warm-ups and replays."""
     paged = "--kv-page-size" in flags
     q8 = "q8" in flags
@@ -2001,8 +2109,8 @@ def phase_e2e_continuous(torch, model, tok, n_layers, label, flags):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    seen = []
-    with _engine_spy(seen):
+    seen, windows = [], []
+    with _engine_spy(seen), _window_spy(windows):
         out, counts, wall, _ = _run_cli(torch, model, tok, [
             "--prompts-file", str(path), "--continuous", "--slots",
             str(CONT_SLOTS), "--prefill-chunk", str(CONT_CHUNK), "--steps",
@@ -2013,8 +2121,14 @@ def phase_e2e_continuous(torch, model, tok, n_layers, label, flags):
     want = {"q40_matvec_multi": (4 * n_layers + 1) * st.steps,
             attn: n_layers * st.steps}
     if st.prefill_chunks:
+        if len(windows) != st.prefill_chunks or any(
+                t != CONT_CHUNK for t, _ in windows):
+            raise AssertionError(f"{label} run: admission windows {windows}"
+                                 f" for {st.prefill_chunks} chunks")
         want.update(q40_gemm=4 * n_layers * st.prefill_chunks,
-                    **{prefill: n_layers * st.prefill_chunks})
+                    **{prefill: n_layers * st.prefill_chunks},
+                    **_prefill_parts(eng.spec, CONT_CHUNK,
+                                     [p for _, p in windows], False, bf16))
     _expect(f"{label} run", counts, want)
     rows = _cont_rows(out)
     m = re.search(r"Generated tokens:\s+(\d+) across (\d+) requests "
@@ -2131,8 +2245,10 @@ def phase_full_width(torch, model, tok, peaks, ref):
             worst = max(worst, err)
         busy = profile_steps(torch, kern, ck, tokens[-1], len(tokens))
     del ck, cp
+    host_now = host_reading(torch)
     prefill = prefill_full_width(torch, engine, plain,
                                  tokenizer.encode(PROMPT_512), peaks)
+    prefill["host"] = host_now
     prefill["flag_runs"] = flag_runs(torch, engine, tokenizer)
     prefill["fast"] = prefill_fast_full_width(
         torch, engine, tokenizer.encode(PROMPT_512), peaks)
@@ -2141,6 +2257,27 @@ def phase_full_width(torch, model, tok, peaks, ref):
     batch = batch_full_width(torch, engine)
     continuous = continuous_full_width(torch, engine, tokenizer, batch)
     return worst, busy, prefill, fast, batch, continuous
+
+
+def host_reading(torch):
+    """What the host-bound walls depend on, read just before the prefill
+    timings: the cores this process may use, the load average, and the
+    host's side of a launch: the median over 5 rounds of 2000 back-to-back
+    launches of a one-element add, in µs a launch (the card runs them far
+    faster than they are issued)."""
+    x = torch.zeros(1, device="cuda")
+    rounds = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            x.add_(1.0)
+        rounds.append((time.perf_counter() - t0) / 2000 * 1e6)
+    torch.cuda.synchronize()
+    res = dict(cores=len(os.sched_getaffinity(0)),
+               load_avg=os.getloadavg(), launch_us=statistics.median(rounds))
+    log(f"host: {json.dumps(res)}")
+    return res
 
 
 def _with_fusion(engine, mode):
@@ -2418,20 +2555,22 @@ def continuous_full_width(torch, engine, tokenizer, batch):
 def _prefill_bounds(spec, n_tokens, peaks, bf16=False):
     """(matmul bound ms, attention bound ms) of prefilling n_tokens at
     CHUNK: the 4 layer matrices of every layer at T = CHUNK per chunk, and
-    K4's bound per layer and chunk (as phase_k4 counts it); ``bf16`` counts
-    the operations at the bf16 rate (K3b, K4b)."""
+    the prefill attention's bound per layer and chunk (as phase_k4 counts
+    it); the operations at the bf16 rate under ``bf16`` (K3b, K4b), else as
+    3 TF32 passes (K3, K4 over an f32 cache)."""
     hs, n_q, n_kv = spec.head_size, spec.n_heads, spec.n_kv_heads
+    passes = 1 if bf16 else 3
     mm = att = 0.0
     for pos in range(0, n_tokens, CHUNK):
         for _, d, n in LAYER_SHAPES:
             nbytes = d * (n // 32) * 18 + CHUNK * (n + d) * 4
-            mm += bound(nbytes, 2.0 * CHUNK * d * n, peaks,
-                        bf16)[0] * spec.n_layers
+            mm += bound(nbytes, passes * 2.0 * CHUNK * d * n, peaks, bf16,
+                        not bf16)[0] * spec.n_layers
         live = pos + CHUNK
         nbytes = 2 * live * n_kv * hs * 4 + 2 * CHUNK * n_q * hs * 4
         row_keys = CHUNK * pos + CHUNK * (CHUNK + 1) // 2
-        att += bound(nbytes, 4.0 * n_q * hs * row_keys, peaks,
-                     bf16)[0] * spec.n_layers
+        att += bound(nbytes, passes * 4.0 * n_q * hs * row_keys, peaks,
+                     bf16, not bf16)[0] * spec.n_layers
     return mm, att
 
 
@@ -2467,8 +2606,8 @@ def prefill_full_width(torch, engine, plain, tokens, peaks):
         mm_bound, att_bound = _prefill_bounds(spec, n, peaks)
         log(f"prefill {n} tokens at chunk {CHUNK}: {ms:.2f} ms (runs "
             f"{', '.join(f'{t:.2f}' for t in times)}), {n / ms * 1e3:.0f} "
-            f"tokens/s; bound {mm_bound:.2f} ms of matmuls (operations) + "
-            f"{att_bound:.3f} ms of attention")
+            f"tokens/s; bound {mm_bound:.2f} ms of matmuls (3 TF32 passes) "
+            f"+ {att_bound:.3f} ms of attention")
         in_situ = profile_prefill(torch, engine, tokens, ms)
         nxt = tokens[-1]
         got = kern(engine.cache, nxt, n)
@@ -2667,10 +2806,11 @@ def _profiled(torch, fn, n, host=True):
 def profile_prefill(torch, engine, tokens, wall_ms):
     """Where a prefill's time goes in situ: one Engine.prefill of ``tokens``
     at CHUNK under torch.profiler, its device time split into the Q40 GEMM
-    (K3, or K3b with its x rounding and split-K sum), the prefill attention
-    (K4, or K4b with its split combine) and the rest (the torch glue), each
-    read against ``wall_ms``, the unprofiled wall time of the same call.
-    Returns None when the trace holds no device time."""
+    (K3 with its x split and split-K sum, or K3b with its x rounding and
+    split-K sum), the prefill attention (K4 or K4b with its split combine)
+    and the rest (the torch glue), each read against ``wall_ms``, the
+    unprofiled wall time of the same call. Returns None when the trace
+    holds no device time."""
     dev, prof_ms = _profiled(torch, lambda: engine.prefill(tokens, 0, CHUNK),
                              1)
     dev_ms = sum(ms for _, ms, _ in dev)
@@ -2680,9 +2820,9 @@ def profile_prefill(torch, engine, tokens, wall_ms):
     split = {"q40_gemm": [0.0, 0.0], "prefill_attention": [0.0, 0.0],
              "other": [0.0, 0.0]}
     for key, ms, count in dev:
-        # K3's and K3b's kernels and K3b's parts (x rounding, split-K sum)
-        # all carry q40_gemm in their names; K4's and K4b's (and K4b's
-        # combine) prefill_attention
+        # K3's and K3b's kernels and their parts (the x pass, the split-K
+        # sum) all carry q40_gemm in their names; K4's and K4b's (and their
+        # combines) prefill_attention
         part = next((p for p in ("q40_gemm", "prefill_attention")
                      if p in key), "other")
         split[part][0] += ms
@@ -2813,19 +2953,24 @@ def small_prefill(torch, spec, gpu, cpu):
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # (label, chunk, route, cache dtype, launches, rtol)
         ("chunk 4", 4, None, f32, {"q40_matvec_multi": 4 * L * 10,
-                                   "prefill_attention": L * 10},
+                                   "prefill_attention": L * 10,
+                                   **_prefill_parts(spec, 4, range(0, 40, 4),
+                                                    False, False)},
          llama.LOGIT_RTOL),
         ("chunk 16", 16, None, f32, {"q40_gemm": 4 * L * 3,
-                                     "prefill_attention": L * 3},
+                                     "prefill_attention": L * 3,
+                                     **_prefill_parts(spec, 16, [0, 16, 32],
+                                                      False, False)},
          llama.LOGIT_RTOL),
         ("fast chunk 16", 16, llama.FAST, f32,
          {"q40_gemm_bf16": 4 * L * 3, "prefill_attention_bf16": L * 3,
-          **_fast_parts(spec, 16, [0, 16, 32], False)},
+          **_prefill_parts(spec, 16, [0, 16, 32], True, False)},
          llama.FAST_RTOL),
         ("fast chunk 16 bf16 cache", 16, llama.FAST, bf16,
          {"q40_gemm_bf16": 4 * L * 3,
           "prefill_attention_bf16_kvbf16": L * 3,
-          **_fast_parts(spec, 16, [0, 16, 32], True)}, llama.FAST_RTOL)]
+          **_prefill_parts(spec, 16, [0, 16, 32], True, True)},
+         llama.FAST_RTOL)]
     worst = 0.0
     with torch.inference_mode():
         for label, chunk, route, dtype, want, rtol in cases:
@@ -2922,7 +3067,7 @@ def main() -> int:
     mark("smoke model")
     e2e, out_a, ref_a = phase_e2e(torch, model, tok)
     e2e_prefill = phase_e2e_prefill(torch, model, tok, spec)
-    e2e_q80 = phase_e2e_q80(torch, model, tok, spec.n_layers)
+    e2e_q80 = phase_e2e_q80(torch, model, tok, spec)
     e2e_bf16 = phase_e2e_bf16(torch, model, tok, spec, e2e_prefill)
     e2e_batch = phase_e2e_batch(torch, model, tok, spec.n_layers, "batch")
     e2e_batch_dq = phase_e2e_batch(
@@ -2938,8 +3083,8 @@ def main() -> int:
     if not 8.0 <= saved <= 9.2:
         raise AssertionError(f"the bf16 batch cache saved {saved:.3f} GB, "
                              f"not ~8.6")
-    e2e_fast = phase_e2e_fast(torch, model, tok, spec.n_layers,
-                              _pieces(out_a), e2e_prefill.pop("pieces"))
+    e2e_fast = phase_e2e_fast(torch, model, tok, spec, _pieces(out_a),
+                              e2e_prefill.pop("pieces"))
     e2e_fused = phase_e2e_fused(torch, model, tok, spec.n_layers, ref_a)
     e2e_profile = phase_e2e_profile(torch, model, tok, spec.n_layers,
                                     _pieces(out_a))
@@ -2989,9 +3134,14 @@ def main() -> int:
 
     def unit_row(rows):
         unit = [r for r in rows if r["per_token"]]
-        return dict(per_token(unit), bound_by=_bound_by(unit),
-                    library_ms=sum(r["library_ms"] * r["per_token"]
-                                   for r in unit))
+        row = dict(per_token(unit), bound_by=_bound_by(unit),
+                   library_ms=sum(r["library_ms"] * r["per_token"]
+                                  for r in unit))
+        if unit and unit[0].get("simt_bound_ms") is not None:
+            # the 3xTF32 kernels: the f32 SIMT bound of the same product
+            row["simt_bound_ms"] = sum(r["simt_bound_ms"] * r["per_token"]
+                                       for r in unit)
+        return row
 
     k4_unit = [dict(r, per_token=32) for r in k4
                if r["case"] == "7b" and r["pos"] == 384]
@@ -3010,9 +3160,14 @@ def main() -> int:
              replaces="distributed_llama_tpu/ops/pallas_q40.py:749",
              launches=e2e_prefill["launches"]["q40_gemm"],
              max_abs_err=max(r["max_abs_err"] for r in k3), **unit_row(k3),
+             parts=[dict(name=p, launches=e2e_prefill["launches"][p])
+                    for p in ("q40_split_tf32", "q40_gemm_bf16_reduce")],
              unit=f"one 7B {CHUNK}-token chunk: 32 x (wqkv, wo, w13, w2) "
-                  f"at T = {CHUNK}; library = cuBLAS SGEMM on the weight "
-                  f"dequantized beforehand (dequant not timed)",
+                  f"at T = {CHUNK}, with the x split pass and the split-K "
+                  f"sum (parts); bound = 3 TF32 passes, simt_bound_ms = "
+                  f"the same product on the f32 cores; library = cuBLAS "
+                  f"SGEMM (TF32 off) on the weight dequantized beforehand "
+                  f"(dequant not timed)",
              shapes=k3),
         dict(name="prefill_attention", route="cuda",
              source="distributed_llama_tpu_torch/csrc/prefill_attention.cu",
@@ -3020,8 +3175,13 @@ def main() -> int:
              launches=e2e_prefill["launches"]["prefill_attention"],
              max_abs_err=max(r["max_abs_err"] for r in k4),
              **unit_row(k4_unit),
-             unit=f"one 7B {CHUNK}-token chunk at pos 384: 32 layers; "
-                  f"library = scaled_dot_product_attention with the causal "
+             parts=[dict(name="prefill_attention_bf16_combine",
+                         launches=e2e_prefill["launches"][
+                             "prefill_attention_bf16_combine"])],
+             unit=f"one 7B {CHUNK}-token chunk at pos 384, with the split "
+                  f"combine (parts): 32 layers; bound = 3 TF32 passes, "
+                  f"simt_bound_ms = the same dots on the f32 cores; library "
+                  f"= scaled_dot_product_attention in f32 with the causal "
                   f"offset mask over the live prefix", shapes=k4),
     ]
     runs = {"d": e2e_bf16["fast_bf16_cache"]["launches"],
@@ -3079,7 +3239,9 @@ def main() -> int:
         attention_row("prefill_attention_kvbf16", "prefill_attention.cu",
                       "pallas_attention.py:492", "f", k4_kvbf16, 384,
                       f"one 7B {CHUNK}-token chunk at pos 384 over a bf16 "
-                      f"cache, f32 dots: 32 layers; {sdpa_f32}"),
+                      f"cache, f32-accurate dots (2 TF32 passes), with the "
+                      f"split combine (parts): 32 layers; {sdpa_f32}",
+                      parts=("prefill_attention_bf16_combine",)),
         attention_row("prefill_attention_bf16", "prefill_attention_bf16.cu",
                       "pallas_attention.py:492", "e", k4b, 384,
                       f"one 7B {CHUNK}-token chunk at pos 384, bf16 dots, "

@@ -1,8 +1,9 @@
 // Shared by the port's CUDA sources: the error-string entry point that the
 // ctypes binding (ops/_build.py) reads when a launch returns non-zero, the
 // once-per-device opt-in to more than 48 KB of dynamic shared memory, the
-// Q40 code decode of the matmul kernels, and bf16 packing and the f32 /
-// bf16 KV-cache loads of the attention kernels.
+// Q40 code decode of the matmul kernels, the TF32 rounding of the 3xTF32
+// kernels, and bf16 packing and the f32 / bf16 KV-cache loads of the
+// attention kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -42,6 +43,18 @@ static cudaError_t opt_in_smem(Kernel kernel, size_t bytes,
 static __device__ __forceinline__ float code_minus8(uint32_t bytes,
                                                     uint32_t sel) {
   return __int_as_float(__byte_perm(bytes, 0x4B000000u, sel)) - 8388616.0f;
+}
+
+// x rounded to TF32 (10 mantissa bits, the low 13 of the f32 zero), to
+// nearest with ties away from zero: the operand the tensor cores read
+// exactly. The 3xTF32 products split an f32 value as hi = tf32_rna(x),
+// lo = tf32_rna(x - hi) (x - hi is exact in f32). Half a TF32 unit added
+// to the magnitude's bits, then the low 13 cleared: cvt.rna.tf32.f32's
+// result for every finite x, on the integer units, where the conversion
+// instruction runs on the slower conversion path (K4 splits every K and V
+// fragment it reads).
+static __device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
 // Two f32 -> one register of two bf16, round to nearest even; `lo` lands

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the redesigned bf16 prefill kernels
-// (K3b, K4b): mbarriers, the tensor (TMA) and per-thread async copies that
-// complete on them, warpgroup MMA (wgmma) with its fences and shared-memory
+// Hopper (sm_90a) building blocks of the redesigned prefill kernels (K3,
+// K3b, K4, K4b): mbarriers, the tensor (TMA) and per-thread async copies
+// that complete on them, register moves between warpgroups (setmaxnreg),
+// warpgroup MMA (wgmma, bf16 and tf32) with its fences and shared-memory
 // matrix descriptors, and the host-side encoding of a TMA tensor map.
 //
 // The tensor map is encoded by the driver's cuTensorMapEncodeTiled, reached
@@ -118,6 +119,20 @@ static __device__ __forceinline__ void tma_load_3d(void* dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(cta_addr(bar))
       : "memory");
+}
+
+// Move registers between the warpgroups of a block (every thread of a
+// warpgroup executes the same one): a producer warpgroup gives up what it
+// does not need, the consumer warpgroups take it. R is a multiple of 8 in
+// 24..256; an increase waits until the block's registers allow it.
+template <int R>
+static __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+static __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
 // --------------------------------------------------------------------------
@@ -242,6 +257,107 @@ static __device__ __forceinline__ void wgmma_rs_n128(
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(1));
+}
+
+// The tf32 twins (the 3xTF32 K3): one k8 step, 32 bytes of a B row, so
+// the descriptor of step kk is desc_sw128 + 2 * kk as for a bf16 k16
+// step; tf32 operands are K-major only (no transpose argument). With
+// scale_d = 0 a call overwrites acc with A . B instead of adding to it.
+
+// acc (64 x 16 f32, 8 a thread) += A (64 x 8 tf32, registers) . B
+// (16 x 8 tf32, K-major in shared memory, 128-byte swizzle).
+static __device__ __forceinline__ void wgmma_rs_tf32_n16(
+    float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b,
+    int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// acc (64 x 32 f32, 16 a thread) += A (64 x 8 tf32, registers) . B
+// (32 x 8 tf32, K-major in shared memory, 128-byte swizzle).
+static __device__ __forceinline__ void wgmma_rs_tf32_n32(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b,
+    int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// acc (64 x 64 f32, 32 a thread) += A (64 x 8 tf32, registers) . B
+// (64 x 8 tf32, K-major in shared memory, 128-byte swizzle).
+static __device__ __forceinline__ void wgmma_rs_tf32_n64(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+    int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// acc (64 x 128 f32, 64 a thread) += A (64 x 8 tf32, registers) . B
+// (128 x 8 tf32, K-major in shared memory, 128-byte swizzle).
+static __device__ __forceinline__ void wgmma_rs_tf32_n128(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+    int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
 }
 
 // --------------------------------------------------------------------------

@@ -17,15 +17,19 @@ grid: at B = 1 it computes K2's sums in K2's order.
 
 K4 replaces ``prefill_attention`` (``_prefill_kernel``) there in f32: T
 queries at pos..pos+T-1, row i seeing keys 0..pos+i, with the chunk's own
-keys already in the cache. It is bound by bytes for an early chunk and by
-operations once the prefix is a few hundred keys long. K4b is the same
+keys already in the cache. Its dots are f32-accurate on the tensor cores
+by the 3xTF32 split, as the JAX kernel's Precision.HIGHEST takes several
+passes on the matrix unit (``prefill_attention_tf32_splits`` models the
+arithmetic). It is bound by bytes for an early chunk and by operations
+once the prefix is a few hundred keys long. K4b is the same
 function with ``bf16=True`` (``--fast-prefill``): both products take
 bf16-rounded operands on the tensor cores with f32 accumulation, the scale
 applies after the q.k dot, the softmax statistics stay f32 (l sums the
-unrounded p) and p is rounded to bf16 for the p.v product. K4b splits the
+unrounded p) and p is rounded to bf16 for the p.v product. Both split the
 key range across blocks where the (kv head x item tile) grid would leave
-SMs idle (``prefill_bf16_plan``); its helper kernel
-``prefill_attention_bf16_combine`` merges the splits in fixed order.
+SMs idle (``prefill_plan``, ``prefill_bf16_plan``); one helper kernel,
+``prefill_attention_bf16_combine`` (an f32 merge), merges either's splits
+in fixed order.
 
 The cache is f32 or bf16 (``--kv-cache-dtype bf16``, where the JAX kernels
 keep their scratch in the cache dtype); each kernel has a build for either,
@@ -46,31 +50,31 @@ import numpy as np
 import torch
 
 from ._build import CudaKernel
-from .q40 import sm_count
+from .q40 import sm_count, tf32_split
 
 _DECODE_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                 + [ctypes.c_float, ctypes.c_void_p])
-_PREFILL_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                 + [ctypes.c_float, ctypes.c_void_p])
 KERNEL = CudaKernel("decode_attention.cu", "decode_attention", _DECODE_ARGS)
 KERNEL_KVBF16 = CudaKernel("decode_attention.cu", "decode_attention_kvbf16",
                            _DECODE_ARGS)
+# (q, k_all, v_all, out, o_part, ml_part, layer, pos, T, S, n_kv, kv_mul,
+# hs, splits, per, scale, stream)
+_PREFILL_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                 + [ctypes.c_float, ctypes.c_void_p])
+_COMBINE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 PREFILL_KERNEL = CudaKernel("prefill_attention.cu", "prefill_attention",
                             _PREFILL_ARGS)
 PREFILL_KERNEL_KVBF16 = CudaKernel("prefill_attention.cu",
                                    "prefill_attention_kvbf16", _PREFILL_ARGS)
-_PREFILL_BF16_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                      + [ctypes.c_float, ctypes.c_void_p])
 PREFILL_BF16_KERNEL = CudaKernel("prefill_attention_bf16.cu",
-                                 "prefill_attention_bf16", _PREFILL_BF16_ARGS)
+                                 "prefill_attention_bf16", _PREFILL_ARGS)
 PREFILL_BF16_KERNEL_KVBF16 = CudaKernel("prefill_attention_bf16.cu",
                                         "prefill_attention_bf16_kvbf16",
-                                        _PREFILL_BF16_ARGS)
-# K4b's part: the merge of its key splits
+                                        _PREFILL_ARGS)
+# K4b's part, K4's too: the merge of their key splits
 PREFILL_BF16_COMBINE = CudaKernel("prefill_attention_bf16.cu",
                                   "prefill_attention_bf16_combine",
-                                  [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                                  + [ctypes.c_void_p])
+                                  _COMBINE_ARGS)
 _BATCH_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
                + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
 BATCH_KERNEL = CudaKernel("decode_attention.cu", "decode_attention_batch",
@@ -92,8 +96,9 @@ _MAX_HEAD = 128
 CACHE_DTYPES = (torch.float32, torch.bfloat16)
 
 # |kernel - plain| <= KERNEL_ATOL on N(0, 1) queries, keys and values: the
-# outputs are convex mixes of the values, summed in a different order (f32
-# math on either cache dtype)
+# outputs are convex mixes of the values, summed in a different order, and
+# K4's 3xTF32 dots drop ~2^-22 relative per product
+# (prefill_attention_tf32_splits)
 KERNEL_ATOL = 1e-5
 # the same for K4b against prefill_attention_bf16_plain: the kernel rounds
 # p to bf16 against the running max of the keys its split has walked so far
@@ -113,6 +118,9 @@ PREFILL_BF16_ITEMS = 64
 PREFILL_BF16_MIN_TILES = 2
 PREFILL_BF16_MAX_SPLITS = 16
 PREFILL_BF16_BLOCKS_PER_SM = 1
+# K4's tiling (csrc/prefill_attention.cu): K4b's 64-item blocks over tiles
+# of 32 keys, either cache, at most PREFILL_BF16_MAX_SPLITS splits
+PREFILL_KEYS = 32
 
 
 def attention_scale(head_size: int) -> float:
@@ -355,23 +363,54 @@ def prefill_bf16_plan(pos: int, t_len: int, kv_mul: int, n_kv: int,
     return -(-tiles // per), per
 
 
-def prefill_attention_bf16_splits(q: torch.Tensor, k_all: torch.Tensor,
-                                  v_all: torch.Tensor, layer: int, pos: int,
-                                  kv_mul: int, keys: int,
-                                  splits: int) -> torch.Tensor:
-    """K4b's split arithmetic, step by step in plain torch (a model for the
-    tests; no route calls it): the live prefix in tiles of ``keys`` keys,
-    cut into ``splits`` runs as the kernel cuts it, each run walked with an
-    online softmax whose p is rounded to bf16 against the running max of
-    the tiles that run has seen, then the runs merged in f32 in split
-    order. q (T, n_q, hs) -> (T, n_q*hs)."""
+def prefill_plan(pos: int, t_len: int, kv_mul: int, n_kv: int,
+                 sms: int) -> tuple[int, int]:
+    """(splits, tiles per split) of K4: the live prefix 0..pos+T-1 in tiles
+    of PREFILL_KEYS keys, cut into as many balanced runs as keep the (n_kv x
+    item tiles x splits) grid within one wave of one block an SM (a K4
+    block's shared memory fills an SM), at most one a tile. On the H100 at
+    7B and the GQA shape this count was the fastest of a sweep of 1..8
+    splits, or within 3% of it, at every (T, pos) tried; K4b's rule
+    (prefill_bf16_plan) gave a second, uneven wave."""
+    tiles = -(-(pos + t_len) // PREFILL_KEYS)
+    blocks = n_kv * -(-(t_len * kv_mul) // PREFILL_BF16_ITEMS)
+    splits = max(1, min(sms // blocks, tiles, PREFILL_BF16_MAX_SPLITS))
+    per = -(-tiles // splits)
+    return -(-tiles // per), per
+
+
+def _dot_bf16(a: torch.Tensor, b: torch.Tensor, spec: str) -> torch.Tensor:
+    """einsum of a and b rounded to bf16 (their products exact in f32)."""
+    return torch.einsum(spec, _bf16(a), _bf16(b))
+
+
+def _dot_3xtf32(a: torch.Tensor, b: torch.Tensor,
+                spec: str) -> torch.Tensor:
+    """einsum of a and b in 3xTF32: a_hi.b_hi + a_hi.b_lo + a_lo.b_hi (over
+    a bf16 cache b_lo is 0: b is exact in TF32)."""
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    return (torch.einsum(spec, a_hi, b_hi) + torch.einsum(spec, a_hi, b_lo)
+            + torch.einsum(spec, a_lo, b_hi))
+
+
+def _split_walk(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
+                layer: int, pos: int, kv_mul: int, keys: int, splits: int,
+                dot) -> torch.Tensor:
+    """A split kernel's arithmetic, step by step in plain torch: the live
+    prefix in tiles of ``keys`` keys, cut into ``splits`` runs as the
+    kernel cuts it, each run walked with an online softmax (s = dot(q, k)
+    * scale, p against the running max of the tiles that run has seen, o +=
+    dot(p, v)), then the runs merged in f32 in split order. q (T, n_q, hs)
+    -> (T, n_q*hs)."""
     t_len, n_q, hs = q.shape
     n_kv = k_all.shape[-2]
     live = pos + t_len
     tiles = -(-live // keys)
     per = -(-tiles // splits)
-    qg = _bf16(q).reshape(t_len, n_kv, kv_mul, hs)
-    kb, vb = _bf16(k_all[layer, :live]), _bf16(v_all[layer, :live])
+    qg = q.to(torch.float32).reshape(t_len, n_kv, kv_mul, hs)
+    kb = k_all[layer, :live].to(torch.float32)
+    vb = v_all[layer, :live].to(torch.float32)
     mask = _causal_mask(pos, t_len, q.device)
     shape = (n_kv, kv_mul, t_len)
     parts = []
@@ -381,7 +420,7 @@ def prefill_attention_bf16_splits(q: torch.Tensor, k_all: torch.Tensor,
         o = torch.zeros((*shape, hs), device=q.device)
         for tile in range(z * per, min(tiles, (z + 1) * per)):
             lo, hi = tile * keys, min(live, (tile + 1) * keys)
-            s = torch.einsum("tgmd,sgd->gmts", qg, kb[lo:hi])
+            s = dot(qg, kb[lo:hi], "tgmd,sgd->gmts")
             s = (s * attention_scale(hs)).masked_fill(~mask[:, lo:hi],
                                                       float("-inf"))
             m_new = torch.maximum(m, s.amax(dim=-1))
@@ -389,8 +428,7 @@ def prefill_attention_bf16_splits(q: torch.Tensor, k_all: torch.Tensor,
             p = torch.exp(s - base[..., None])
             corr = torch.exp(m - base)
             l = l * corr + p.sum(dim=-1)
-            o = o * corr[..., None] + torch.einsum("gmts,sgd->gmtd",
-                                                   _bf16(p), vb[lo:hi])
+            o = o * corr[..., None] + dot(p, vb[lo:hi], "gmts,sgd->gmtd")
             m = m_new
         parts.append((m, l, o))
     mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
@@ -402,6 +440,29 @@ def prefill_attention_bf16_splits(q: torch.Tensor, k_all: torch.Tensor,
         o_all = o_all + w[..., None] * o
     return (o_all / l_all[..., None]).permute(2, 0, 1, 3).reshape(
         t_len, n_q * hs)
+
+
+def prefill_attention_bf16_splits(q: torch.Tensor, k_all: torch.Tensor,
+                                  v_all: torch.Tensor, layer: int, pos: int,
+                                  kv_mul: int, keys: int,
+                                  splits: int) -> torch.Tensor:
+    """K4b's split arithmetic (a model for the tests; no route calls it):
+    _split_walk with q, k, p and v rounded to bf16, so p is rounded against
+    the running max of the tiles its split has seen."""
+    return _split_walk(q, k_all, v_all, layer, pos, kv_mul, keys, splits,
+                       _dot_bf16)
+
+
+def prefill_attention_tf32_splits(q: torch.Tensor, k_all: torch.Tensor,
+                                  v_all: torch.Tensor, layer: int, pos: int,
+                                  kv_mul: int,
+                                  splits: int) -> torch.Tensor:
+    """K4's split arithmetic (a model for the tests; no route calls it):
+    _split_walk over tiles of PREFILL_KEYS keys with both dots in 3xTF32,
+    q and p split into TF32 hi and lo as the kernel splits them, k and v
+    too over an f32 cache (a bf16 cache's values are exact in TF32)."""
+    return _split_walk(q, k_all, v_all, layer, pos, kv_mul, PREFILL_KEYS,
+                       splits, _dot_3xtf32)
 
 
 def _check_prefill(q, k_all, v_all, layer, pos, kv_mul) -> None:
@@ -417,6 +478,9 @@ def _check_prefill(q, k_all, v_all, layer, pos, kv_mul) -> None:
     if not q.is_contiguous() or q.data_ptr() % 16:
         raise ValueError("prefill_attention: q must be contiguous and "
                          "16-byte aligned")
+    if k_all.shape[-1] % 8:
+        raise ValueError(f"prefill_attention: the kernels take a head size "
+                         f"that is a multiple of 8, got {k_all.shape[-1]}")
 
 
 def prefill_attention(q: torch.Tensor, k_all: torch.Tensor,
@@ -445,14 +509,10 @@ def prefill_attention(q: torch.Tensor, k_all: torch.Tensor,
                       device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), out.data_ptr())
-    if not bf16:
-        _PREFILL[bf16, k_all.dtype].launch(
-            *ptrs, layer, pos, t_len, seq_len, n_kv, kv_mul, hs,
-            attention_scale(hs), stream)
-        return out
-    splits, per = prefill_bf16_plan(
-        pos, t_len, kv_mul, n_kv, PREFILL_BF16_KEYS[k_all.dtype],
-        sm_count(q.device))
+    sms = sm_count(q.device)
+    splits, per = (prefill_bf16_plan(pos, t_len, kv_mul, n_kv,
+                                     PREFILL_BF16_KEYS[k_all.dtype], sms)
+                   if bf16 else prefill_plan(pos, t_len, kv_mul, n_kv, sms))
     o_part = ml_part = None
     if splits > 1:
         n_all = t_len * n_kv * kv_mul

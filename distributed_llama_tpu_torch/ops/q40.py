@@ -13,8 +13,15 @@ on ``MULTI_T_MAX``:
   (``_kernel_multi`` -> ``_matvec_body_multi``), one unpack of each weight
   block for all T rows;
 * T > 8: K3, ``csrc/q40_gemm.cu`` (``_kernel`` -> ``_matmul_body`` in f32
-  parity mode, and its scratch / nb-major tilings), a tiled SIMT GEMM bound
-  by its f32 operations;
+  parity mode, and its scratch / nb-major tilings), products on the tensor
+  cores by the 3xTF32 split (wgmma fed by a TMA ring), as the JAX body's
+  Precision.HIGHEST takes several passes on the matrix unit, each stage's
+  product added into f32 registers (on an H100 within 7.0e-6 x max|out|
+  up to 70B's w2, 896 Q40 blocks in one sum). A helper kernel of the
+  same source belongs to it: ``q40_split_tf32`` splits x into its TF32
+  hi and lo parts once per call; K3b's
+  ``q40_gemm_bf16_reduce`` (an f32 sum) adds the split-K partials where
+  ``gemm_tf32_plan`` splits K to fill the card;
 * T > 8 with ``bf16=True`` (``--fast-prefill``, the JAX package's
   ``q40_matmul`` under ``matmul_precision("bf16")``): K3b,
   ``csrc/q40_gemm_bf16.cu``, the same sum over bf16-rounded x and
@@ -56,12 +63,18 @@ KERNEL_MULTI = CudaKernel("q40_matvec.cu", "q40_matvec_multi",
                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                           + [ctypes.c_void_p])
 KERNEL_GEMM = CudaKernel("q40_gemm.cu", "q40_gemm",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                          + [ctypes.c_void_p])
+# K3's part: x split into its TF32 hi and lo once per call (its split-K
+# sum is K3b's, KERNEL_GEMM_BF16_REDUCE, an f32 sum)
+KERNEL_SPLIT_TF32 = CudaKernel("q40_gemm.cu", "q40_split_tf32",
+                               [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                               + [ctypes.c_void_p])
 KERNEL_GEMM_BF16 = CudaKernel("q40_gemm_bf16.cu", "q40_gemm_bf16",
                               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                               + [ctypes.c_void_p])
-# K3b's parts: x rounded to bf16 once per call, and the split-K sum
+# K3b's parts: x rounded to bf16 once per call, and the split-K sum (K3's
+# too)
 KERNEL_ROUND_BF16 = CudaKernel("q40_gemm_bf16.cu", "q40_round_bf16",
                                [ctypes.c_void_p] * 2 + [ctypes.c_int]
                                + [ctypes.c_void_p])
@@ -75,7 +88,7 @@ KERNEL_MULTI_BF16 = CudaKernel("q40_matvec_bf16.cu", "q40_matvec_bf16",
                                + [ctypes.c_void_p])
 KERNELS = (KERNEL, KERNEL_MULTI, KERNEL_GEMM, KERNEL_GEMM_BF16,
            KERNEL_MULTI_BF16)
-HELPERS = (KERNEL_ROUND_BF16, KERNEL_GEMM_BF16_REDUCE)
+HELPERS = (KERNEL_ROUND_BF16, KERNEL_GEMM_BF16_REDUCE, KERNEL_SPLIT_TF32)
 MULTI_T_BODIES = ("vpu", "dequant")
 
 MULTI_T_MAX = 8  # T above this takes the GEMM (the JAX package's threshold)
@@ -84,7 +97,8 @@ _SMEM_LIMIT = 232448   # bytes of shared memory a block may use on sm_90
 _SMEM_PER_BLOCK = 144  # K1's staged bytes per 32-value block of x (36 floats)
 
 # |kernel - plain| <= KERNEL_RTOL * max|plain|: they differ in summation
-# order only (both f32)
+# order (and K3 by its 3xTF32 products, q40_matmul_tf32_model: ~2^-22
+# relative per product)
 KERNEL_RTOL = 1e-4
 # the same for K3b and K1d against q40_matmul_bf16_plain: both sum the same
 # exact products of bf16 values in f32, but the tensor cores add in another
@@ -106,6 +120,21 @@ GEMM_BF16_MAX_SPLITS = 8
 GEMM_BF16_WAVE_BLOCKS = 32
 
 
+# K3's tiling (csrc/q40_gemm.cu): K3b's blocks and split limits, over
+# stages of one Q40 block. Its plan's cost, fitted to a sweep of every
+# (splits, warpgroups) on the H100 at 7B's widths and T = 9..512: a wave's
+# fixed cost of 2 stages, and a stage of a 3-warpgroup block 2.9 times one
+# warpgroup's (its x tile serves 1.5x the rows of a 2-warpgroup block's).
+# A 128-token tile takes 2 warpgroups only (gemm_tf32_warpgroups), and its
+# grid splits even where it fills the card: 2-warpgroup blocks fill waves
+# unevenly (w13 at T = 128 ran 1.30x faster in 3 splits than unsplit,
+# tools/plan_sweep.py).
+GEMM_TF32_STAGE_BLOCKS = 1
+GEMM_TF32_WAVE_STAGES = 2
+GEMM_TF32_WG_COST = {2: 2.0, 3: 2.9}
+GEMM_TF32_SPLIT_FULL_TILE = 128
+
+
 def gemm_bf16_tile(t: int) -> int:
     """K3b's token tile (the wgmma N) for T tokens: 16, 32, 64 or 128;
     T > 128 takes ceil(T / 128) tiles."""
@@ -118,21 +147,56 @@ def gemm_bf16_stage_blocks(t: int) -> int:
     return 2 if gemm_bf16_tile(t) <= 32 else 4
 
 
+def gemm_tf32_warpgroups(t: int) -> tuple[int, ...]:
+    """K3's warpgroup counts for T tokens: K3b's, but only 2 for a
+    128-token tile (its accumulator and register sum need more registers
+    than a thread of a 3-warpgroup block has)."""
+    return (2,) if gemm_bf16_tile(t) == 128 else GEMM_BF16_WARPGROUPS
+
+
 def gemm_bf16_blocks(t: int, d: int, warpgroups: int) -> int:
-    """K3b's (token tiles x row tiles) grid with ``warpgroups`` x 64 rows a
-    block."""
+    """K3b's (and K3's) (token tiles x row tiles) grid with
+    ``warpgroups`` x 64 rows a block."""
     return -(-t // gemm_bf16_tile(t)) * -(-d // (GEMM_BF16_WG_ROWS
                                                  * warpgroups))
 
 
 def _gemm_bf16_cost(blocks: int, stages: int, splits: int,
-                    warpgroups: int, sms: int, wave_stages: int) -> int:
-    """K3b's modelled time under a plan, in one warpgroup's stages: waves of
-    one block per SM (its ring takes most of the shared memory) times one
-    block's walk (its longest split's stages plus the wave's fixed cost,
-    each ``warpgroups`` wgmma groups deep on the SM's tensor cores)."""
+                    warpgroups: float, sms: int, wave_stages: int) -> float:
+    """K3b's (and K3's) modelled time under a plan, in one warpgroup's
+    stages: waves of one block per SM (its ring takes most of the shared
+    memory) times one block's walk (its longest split's stages plus the
+    wave's fixed cost, each ``warpgroups`` wgmma groups deep on the SM's
+    tensor cores)."""
     return (-(-blocks * splits // sms)
             * (-(-stages // splits) + wave_stages) * warpgroups)
+
+
+def _gemm_plan(t: int, d: int, nb: int, sms: int, qb: int,
+               wave_stages: int, wg_cost=None, split_full: bool = False,
+               warpgroups=GEMM_BF16_WARPGROUPS) -> tuple[int, int, int]:
+    """(splits, stages per split, warpgroups) of a split-K Q40 GEMM with
+    K3b's blocks over k stages of ``qb`` Q40 blocks, minimising
+    _gemm_bf16_cost over ``warpgroups`` (a count weighed by ``wg_cost``,
+    itself where None); a grid that fills the card stays unsplit unless
+    ``split_full`` (gemm_bf16_plan)."""
+    stages = -(-nb // qb)
+    fills = not split_full and any(
+        gemm_bf16_blocks(t, d, wg) >= sms for wg in warpgroups)
+    most = 1 if fills else max(1, min(GEMM_BF16_MAX_SPLITS,
+                                      nb // GEMM_BF16_MIN_BLOCKS))
+
+    def cost(plan):
+        splits, wg = plan
+        return (_gemm_bf16_cost(gemm_bf16_blocks(t, d, wg), stages, splits,
+                                wg if wg_cost is None else wg_cost[wg], sms,
+                                wave_stages),
+                splits, wg)
+
+    splits, wg = min(((s, wg) for s in range(1, most + 1)
+                      for wg in warpgroups), key=cost)
+    per = -(-stages // splits)
+    return -(-stages // per), per, wg
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,22 +215,22 @@ def gemm_bf16_plan(t: int, d: int, nb: int,
     time follows one block's walk once the blocks fit in one wave, which
     the cost says."""
     qb = gemm_bf16_stage_blocks(t)
-    stages = -(-nb // qb)
-    fills = any(gemm_bf16_blocks(t, d, wg) >= sms
-                for wg in GEMM_BF16_WARPGROUPS)
-    most = 1 if fills else max(1, min(GEMM_BF16_MAX_SPLITS,
-                                      nb // GEMM_BF16_MIN_BLOCKS))
+    return _gemm_plan(t, d, nb, sms, qb, GEMM_BF16_WAVE_BLOCKS // qb)
 
-    def cost(plan):
-        splits, wg = plan
-        return (_gemm_bf16_cost(gemm_bf16_blocks(t, d, wg), stages, splits,
-                                wg, sms, GEMM_BF16_WAVE_BLOCKS // qb),
-                splits, wg)
 
-    splits, wg = min(((s, wg) for s in range(1, most + 1)
-                      for wg in GEMM_BF16_WARPGROUPS), key=cost)
-    per = -(-stages // splits)
-    return -(-stages // per), per, wg
+@functools.lru_cache(maxsize=None)
+def gemm_tf32_plan(t: int, d: int, nb: int,
+                   sms: int) -> tuple[int, int, int]:
+    """(splits, Q40 blocks per split, warpgroups) of K3: K3b's rule
+    (gemm_bf16_plan) over stages of GEMM_TF32_STAGE_BLOCKS block, with
+    K3b's token tiles (gemm_bf16_tile) and 64-row warpgroups, and K3's own
+    wave cost, warpgroup weights, rule for full grids
+    (GEMM_TF32_SPLIT_FULL_TILE) and warpgroup counts
+    (gemm_tf32_warpgroups)."""
+    return _gemm_plan(t, d, nb, sms, GEMM_TF32_STAGE_BLOCKS,
+                      GEMM_TF32_WAVE_STAGES, GEMM_TF32_WG_COST,
+                      gemm_bf16_tile(t) == GEMM_TF32_SPLIT_FULL_TILE,
+                      gemm_tf32_warpgroups(t))
 
 
 @functools.lru_cache(maxsize=None)
@@ -216,6 +280,32 @@ def q40_matmul_bf16_plain(w: Q40Weight, x: torch.Tensor) -> torch.Tensor:
     xb = x.to(torch.float32).to(torch.bfloat16).to(torch.float32)
     wb = dequantize_q40_torch(w.qs, w.d16).to(torch.bfloat16)
     return F.linear(xb, wb.to(torch.float32))
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """x (f32) rounded to TF32 as ``cvt.rna.tf32.f32`` does: to the nearest
+    value with the low 13 mantissa bits zero, ties away from zero (adding
+    half a unit to the magnitude's bits, then clearing them)."""
+    u = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((u + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 3xTF32 split of f32 x: hi = tf32(x), lo = tf32(x - hi) (x - hi
+    is exact in f32)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.to(torch.float32) - hi)
+
+
+def q40_matmul_tf32_model(w: Q40Weight, x: torch.Tensor) -> torch.Tensor:
+    """K3's rounding in plain torch (a model for the tests; no route calls
+    it): the dequantized weight split exactly into w_hi + w_lo, x into
+    x_hi + x_lo, and the three products W_hi.x_hi + W_hi.x_lo + W_lo.x_hi
+    in f32 (each product of two TF32 values is exact in f32)."""
+    w_hi, w_lo = tf32_split(dequantize_q40_torch(w.qs, w.d16))
+    x_hi, x_lo = tf32_split(x)
+    return (F.linear(x_hi, w_hi) + F.linear(x_lo, w_hi)
+            + F.linear(x_hi, w_lo))
 
 
 def _bf16_body(t: int, bf16: bool, multi_body: str) -> bool:
@@ -293,25 +383,35 @@ def q40_matmul(w: Q40Weight, x: torch.Tensor, bf16: bool = False,
         kernel = (KERNEL_MULTI_BF16 if _bf16_body(t, bf16, multi_body)
                   else KERNEL_MULTI)
         kernel.launch(*ptrs, t, d, nb, stream)
-    elif not bf16:
-        KERNEL_GEMM.launch(*ptrs, t, d, nb, stream)
     else:
-        _gemm_bf16(w, x, out, t, d, nb, stream)
+        _gemm(w, x, out, t, d, nb, stream, bf16)
     return out
 
 
-def _gemm_bf16(w: Q40Weight, x: torch.Tensor, out: torch.Tensor, t: int,
-               d: int, nb: int, stream: int) -> None:
-    """K3b: x rounded to bf16 once (q40_round_bf16), the GEMM over
-    gemm_bf16_plan's splits, and with more than one split the sum of the
-    partials in split order (q40_gemm_bf16_reduce)."""
-    xb = torch.empty((t, nb * QK), dtype=torch.bfloat16, device=x.device)
-    KERNEL_ROUND_BF16.launch(x.data_ptr(), xb.data_ptr(), x.numel(), stream)
-    splits, _, wg = gemm_bf16_plan(t, d, nb, sm_count(x.device))
+def _gemm(w: Q40Weight, x: torch.Tensor, out: torch.Tensor, t: int,
+          d: int, nb: int, stream: int, bf16: bool) -> None:
+    """K3, or with ``bf16`` K3b: x prepared once (K3: split into TF32 hi
+    and lo by q40_split_tf32; K3b: rounded to bf16 by q40_round_bf16), the
+    GEMM over its plan's splits (gemm_tf32_plan, gemm_bf16_plan), and with
+    more than one split the sum of the partials in split order
+    (q40_gemm_bf16_reduce for both)."""
+    n = nb * QK
+    if bf16:
+        xs = [torch.empty((t, n), dtype=torch.bfloat16, device=x.device)]
+        x_pass, gemm, plan = (KERNEL_ROUND_BF16, KERNEL_GEMM_BF16,
+                              gemm_bf16_plan)
+    else:
+        xs = list(torch.empty((2, t, n), dtype=torch.float32,
+                              device=x.device))
+        x_pass, gemm, plan = (KERNEL_SPLIT_TF32, KERNEL_GEMM,
+                              gemm_tf32_plan)
+    ptrs = [p.data_ptr() for p in xs]
+    x_pass.launch(x.data_ptr(), *ptrs, x.numel(), stream)
+    splits, _, wg = plan(t, d, nb, sm_count(x.device))
     part = out if splits == 1 else torch.empty(
         (splits, t, d), dtype=torch.float32, device=x.device)
-    KERNEL_GEMM_BF16.launch(w.qs.data_ptr(), w.d16.data_ptr(), xb.data_ptr(),
-                            part.data_ptr(), t, d, nb, splits, wg, stream)
+    gemm.launch(w.qs.data_ptr(), w.d16.data_ptr(), *ptrs, part.data_ptr(),
+                t, d, nb, splits, wg, stream)
     if splits > 1:
         KERNEL_GEMM_BF16_REDUCE.launch(part.data_ptr(), out.data_ptr(),
                                        t * d, splits, stream)

@@ -56,6 +56,7 @@ torch twin.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable
 
 import numpy as np
@@ -165,8 +166,17 @@ class GraphStep:
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = {k: k.launches for k in ALL_KERNELS}
-        with torch.cuda.graph(graph):
-            self.step()
+        # no garbage collection inside the capture: a dead cycle still
+        # holding an earlier graph or stream would be freed mid-capture by
+        # a CUDA call that invalidates it
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self.step()
+        finally:
+            if collecting:
+                gc.enable()
         self._per_replay = {k: k.launches - n for k, n in before.items()
                             if k.launches != n}
         for k, n in before.items():

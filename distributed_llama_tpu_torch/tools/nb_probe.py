@@ -355,6 +355,7 @@ def run_variant(name: str, shape: str, w: Q40Weight, x: torch.Tensor,
         return res
     where = trace_dir / name
     shutil.rmtree(where, ignore_errors=True)
+    torch.cuda.synchronize()  # the warm-up ends before the profiler starts
     with profiler.trace(str(where), cuda=True):
         chain(call, x, layers, reps)
     splits = it_split.parse_trace(str(where))

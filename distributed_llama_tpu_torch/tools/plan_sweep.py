@@ -1,0 +1,157 @@
+"""Time every split plan of K3 (``q40_gemm``: splits x warpgroups) and K4
+(``prefill_attention``: splits of the key range) at Llama-2-7B's shapes on
+the card, beside the plan the wrappers pick (``ops/q40.gemm_tf32_plan``,
+``ops/attention.prefill_plan``). Run on a machine with an NVIDIA GPU:
+
+    python3 -m distributed_llama_tpu_torch.tools.plan_sweep
+
+Each line gives the shape, the picked plan and its time, and the fastest
+plans of the sweep. A time covers the plan's whole call with its parts (K3's
+x split and split-K sum, K4's combine): the median of 25 CUDA-event timed
+launches, each after a 128 MB read that evicts the L2 and a ~0.5 ms spin
+of the card, as chip_smoke.py times the kernels.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+
+import torch
+
+from ..ops import attention, q40
+from ..ops._build import build
+
+REPS = 25
+LAYER_SHAPES = [("wqkv", 12288, 4096), ("wo", 4096, 4096),
+                ("w13", 22016, 4096), ("w2", 4096, 11008)]
+HS, N_KV = 128, 32  # 7B's attention: 32 kv heads of 128
+
+
+def _timer():
+    flush = torch.ones(32 << 20, dtype=torch.float32, device="cuda")
+
+    def time(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        times = []
+        for _ in range(REPS):
+            flush.sum()
+            torch.cuda._sleep(1_000_000)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    return time
+
+
+def sweep_k3(time, t: int, sms: int) -> None:
+    g = torch.Generator(device="cuda").manual_seed(t)
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, d, n in LAYER_SHAPES:
+        nb = n // 32
+        w = q40.random_q40(d, n, "cuda", g)
+        x = torch.randn((t, n), device="cuda", generator=g)
+        xs = torch.empty((2, t, n), device="cuda")
+        out = torch.empty((t, d), device="cuda")
+        ms = {}
+        for wg in q40.gemm_tf32_warpgroups(t):
+            for splits in range(1, q40.GEMM_BF16_MAX_SPLITS + 1):
+                if (splits - 1) * -(-nb // splits) >= nb:
+                    continue
+                part = torch.empty((splits, t, d), device="cuda")
+
+                def run(splits=splits, wg=wg, part=part):
+                    q40.KERNEL_SPLIT_TF32.launch(
+                        x.data_ptr(), xs[0].data_ptr(), xs[1].data_ptr(),
+                        x.numel(), stream)
+                    q40.KERNEL_GEMM.launch(
+                        w.qs.data_ptr(), w.d16.data_ptr(), xs[0].data_ptr(),
+                        xs[1].data_ptr(),
+                        (out if splits == 1 else part).data_ptr(), t, d, nb,
+                        splits, wg, stream)
+                    if splits > 1:
+                        q40.KERNEL_GEMM_BF16_REDUCE.launch(
+                            part.data_ptr(), out.data_ptr(), t * d, splits,
+                            stream)
+
+                ms[splits, wg] = time(run)
+        pick = q40.gemm_tf32_plan(t, d, nb, sms)
+        _report(f"K3 {name} T={t}", (pick[0], pick[2]), ms,
+                "(splits, warpgroups)")
+
+
+def sweep_k4(time, pos: int, t_len: int, cache: torch.dtype,
+             sms: int) -> None:
+    g = torch.Generator(device="cuda").manual_seed(pos)
+    k_all = torch.randn((1, pos + t_len, N_KV, HS), device="cuda",
+                        generator=g).to(cache)
+    v_all = torch.randn(k_all.shape, device="cuda", generator=g).to(cache)
+    q = torch.randn((t_len, N_KV, HS), device="cuda", generator=g)
+    out = torch.empty((t_len, N_KV * HS), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    tiles = -(-(pos + t_len) // attention.PREFILL_KEYS)
+    n_all = t_len * N_KV
+    kernel = attention._PREFILL[False, cache]
+    ms = {}
+    for splits in range(1, 9):
+        per = -(-tiles // splits)
+        if -(-tiles // per) != splits:
+            continue
+        o_part = torch.empty((splits, n_all, HS), device="cuda")
+        ml_part = torch.empty((2, splits, n_all), device="cuda")
+
+        def run(splits=splits, per=per, o_part=o_part, ml_part=ml_part):
+            kernel.launch(q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
+                          out.data_ptr(), o_part.data_ptr(),
+                          ml_part.data_ptr(), 0, pos, t_len, pos + t_len,
+                          N_KV, 1, HS, splits, per,
+                          attention.attention_scale(HS), stream)
+            if splits > 1:
+                attention.PREFILL_BF16_COMBINE.launch(
+                    o_part.data_ptr(), ml_part.data_ptr(), out.data_ptr(),
+                    n_all, HS, splits, stream)
+
+        ms[splits] = time(run)
+    pick = attention.prefill_plan(pos, t_len, 1, N_KV, sms)[0]
+    _report(f"K4 {str(cache).split('.')[-1]} cache T={t_len} pos {pos}",
+            pick, ms, "splits")
+
+
+def _report(label, pick, ms, what) -> None:
+    best = sorted(ms, key=ms.get)
+    print(f"{label}: picked {what} {pick} {ms[pick]:.4f} ms; fastest "
+          + ", ".join(f"{p} {ms[p]:.4f}" for p in best[:3])
+          + f" ({ms[pick] / ms[best[0]]:.3f}x the fastest)", flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--t", default="16,32,128",
+                    help="K3's token counts (comma-separated)")
+    ap.add_argument("--pos", default="384,1920",
+                    help="K4's chunk positions at T = 128 (comma-separated)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("plan_sweep: no CUDA device")
+        return 1
+    build([q40.KERNEL_GEMM, q40.KERNEL_SPLIT_TF32, q40.KERNEL_GEMM_BF16_REDUCE,
+           attention.PREFILL_KERNEL, attention.PREFILL_KERNEL_KVBF16,
+           attention.PREFILL_BF16_COMBINE])
+    time = _timer()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for t in map(int, args.t.split(",")):
+        sweep_k3(time, t, sms)
+    for cache in (torch.float32, torch.bfloat16):
+        for pos in map(int, args.pos.split(",")):
+            sweep_k4(time, pos, 128, cache, sms)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -93,6 +93,46 @@ def test_q40_gemm_kernel_matches_plain(gen, d, n, t):
     assert err <= q40.KERNEL_RTOL * want.abs().max().item(), err
 
 
+# K3's token tiles (16, 32, 64, 128) at T = 9, 16, 32 and 100, split K
+# (130 rows over 344 blocks) and unsplit (one block)
+@pytest.mark.parametrize("d,n", [(130, 11008), (7, 32)])
+@pytest.mark.parametrize("t", [9, 16, 32, 100])
+def test_q40_gemm_kernel_gives_the_same_bits_twice(gen, d, n, t):
+    w = q40.random_q40(d, n, "cuda", gen)
+    x = torch.randn((t, n), device="cuda", generator=gen)
+    parts = [k.launches for k in q40.HELPERS]
+    got = q40.q40_matmul(w, x)
+    splits = q40.gemm_tf32_plan(t, d, n // 32, _sms())[0]
+    # the x split pass once, K3b's split-K sum where the plan splits
+    assert [k.launches - c for k, c in zip(q40.HELPERS, parts)] == [
+        0, int(splits > 1), 1]
+    assert torch.equal(q40.q40_matmul(w, x), got)
+    want = q40.q40_matmul_plain(w, x)
+    err = (got - want).abs().max().item()
+    assert err <= q40.KERNEL_RTOL * want.abs().max().item(), err
+
+
+# 13B's and 70B's w2 at T = 512: the whole sum (432 and 896 Q40 blocks)
+# in one split, and as the wrapper's plan splits it
+@pytest.mark.parametrize("d,n", [(5120, 13824), (8192, 28672)])
+def test_q40_gemm_kernel_holds_its_tolerance_at_13b_and_70b_depth(gen, d, n):
+    t, nb = 512, n // 32
+    w = q40.random_q40(d, n, "cuda", gen)
+    x = torch.randn((t, n), device="cuda", generator=gen)
+    want = q40.q40_matmul_plain(w, x)
+    xs = torch.empty((2, t, n), device="cuda")
+    one = torch.empty((t, d), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    q40.KERNEL_SPLIT_TF32.launch(x.data_ptr(), xs[0].data_ptr(),
+                                 xs[1].data_ptr(), x.numel(), stream)
+    q40.KERNEL_GEMM.launch(w.qs.data_ptr(), w.d16.data_ptr(),
+                           xs[0].data_ptr(), xs[1].data_ptr(), one.data_ptr(),
+                           t, d, nb, 1, 2, stream)
+    for got in (one, q40.q40_matmul(w, x)):
+        err = (got - want).abs().max().item()
+        assert err <= q40.KERNEL_RTOL * want.abs().max().item(), err
+
+
 @pytest.mark.parametrize("d,n", [(33, 32 * 129), (8, 64)])
 def test_q40_gemm_reads_scales_at_an_odd_offset(gen, d, n):
     """K3 copies the f16 scales as aligned 32-bit words: scales that start
@@ -168,6 +208,29 @@ def test_prefill_attention_kernel_matches_plain(gen, kv_mul, hs, pos, t_len):
     torch.testing.assert_close(again, got, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_kv,kv_mul,pos,t_len", [(2, 1, 1900, 37),
+                                                    (32, 1, 384, 128),
+                                                    (2, 8, 200, 16)])
+def test_prefill_attention_kernel_splits_and_gives_the_same_bits_twice(
+        gen, cache, n_kv, kv_mul, pos, t_len):
+    """K4 over a long prefix, split over keys where prefill_plan splits
+    (K4b's combine launched once), against plain within KERNEL_ATOL, the
+    same bits from a second launch."""
+    shape = (1, 2048, n_kv, 128)
+    k_all = torch.randn(shape, device="cuda", generator=gen).to(cache)
+    v_all = torch.randn(shape, device="cuda", generator=gen).to(cache)
+    q = torch.randn((t_len, n_kv * kv_mul, 128), device="cuda", generator=gen)
+    splits, _ = attention.prefill_plan(pos, t_len, kv_mul, n_kv, _sms())
+    before = attention.PREFILL_BF16_COMBINE.launches
+    got = attention.prefill_attention(q, k_all, v_all, 0, pos, kv_mul)
+    assert attention.PREFILL_BF16_COMBINE.launches - before == int(splits > 1)
+    assert torch.equal(
+        attention.prefill_attention(q, k_all, v_all, 0, pos, kv_mul), got)
+    want = attention.prefill_attention_plain(q, k_all, v_all, 0, pos, kv_mul)
+    assert (got - want).abs().max().item() <= attention.KERNEL_ATOL
+
+
 def test_prefill_attention_kernel_raises_instead_of_falling_back(gen):
     k_all = torch.randn((1, 16, 2, 64), device="cuda", generator=gen)
     q = torch.randn((4, 2, 64), device="cuda", generator=gen)
@@ -178,6 +241,10 @@ def test_prefill_attention_kernel_raises_instead_of_falling_back(gen):
         attention.prefill_attention(q, k_all.cpu(), k_all.cpu(), 0, 0, 1)
     with pytest.raises(ValueError, match="outside the cache"):
         attention.prefill_attention(q, k_all, k_all, 0, 13, 1)
+    k12 = torch.randn((1, 16, 2, 12), device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        attention.prefill_attention(torch.randn((4, 2, 12), device="cuda"),
+                                    k12, k12, 0, 0, 1)
 
 
 def test_forward_kernels_match_plain_and_count_launches(gen):
@@ -268,7 +335,7 @@ def test_q40_gemm_bf16_kernel_matches_plain(gen, d, n, t):
     splits = q40.gemm_bf16_plan(t, d, n // 32, _sms())[0]
     assert [k.launches for k in (*q40.KERNELS, *q40.HELPERS)] == [
         *counts[:3], counts[3] + 1, counts[4], counts[5] + 1,
-        counts[6] + (splits > 1)]
+        counts[6] + (splits > 1), *counts[7:]]
     want = q40.q40_matmul_bf16_plain(w, x)
     assert got.shape == want.shape == (t, d)
     err = (got - want).abs().max().item()
@@ -482,7 +549,7 @@ def test_engine_fast_prefill_counts_launches(gen):
         p, 16, 2, 2, attention.PREFILL_BF16_KEYS[torch.bfloat16],
         _sms())[0] > 1 for p in (0, 16, 32))
     assert [k.launches - c for k, c in zip(parts, part_counts)] == [
-        3 * 4 * L, 3 * L * reduces, L * combines]
+        3 * 4 * L, 3 * L * reduces, 0, L * combines]
     with torch.inference_mode():
         run_chunked_prefill(
             lambda part, start: plain(cp, part, start, logits=False),
