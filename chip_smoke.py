@@ -11,18 +11,23 @@ no result line):
 1. Card: name and power limit (nvidia-smi), torch/CUDA versions, and the
    build of every kernel from ``distributed_llama_tpu_torch/csrc`` (one
    nvcc per source, all started together), with the build seconds; then
-   ``cuobjdump -sass`` of the built K3, K3b, K4 and K4b libraries (the
-   toolkit's or Triton's; none found fails the phase): every K3 GEMM
-   function must hold a tf32 HGMMA (wgmma) and UTMALDG (TMA), every K3b
-   GEMM function HGMMA and UTMALDG or UBLKCP (bulk copy), every K4
-   function a tf32 HMMA (mma.sync) and UTMALDG, every K4b function the
-   async copy; ``cuobjdump -res-usage``: no K3 or K4 function spills
-   (stack or local memory), registers logged.
+   ``cuobjdump -sass`` of the built K1/K1m, K3, K3b, K4 and K4b libraries
+   (the toolkit's or Triton's; none found fails the phase): every K1 and
+   K1m function (one per T) must hold a bf16 tensor-core MMA (HMMA or
+   HGMMA), every K3 GEMM function a tf32 HGMMA (wgmma) and UTMALDG (TMA),
+   every K3b GEMM function HGMMA and UTMALDG or UBLKCP (bulk copy), every
+   K4 function a tf32 HMMA (mma.sync) and UTMALDG, every K4b function the
+   async copy; ``cuobjdump -res-usage``: no K1, K1m, K3 or K4 function
+   spills (stack or local memory), registers logged.
 2. Kernels against their plain versions on the card at the Llama-2-7B
-   shapes: the Q40 matvec (K1) on wqkv/wo/w13/w2/wcls, the decode
+   shapes: the Q40 matvec (K1, tensor-core products) on
+   wqkv/wo/w13/w2/wcls and 13B's and 70B's w2, the decode
    attention (K2) at kv_mul 1 (7B) and 8 (70B-style GQA) over positions
-   0..2047 on an f32 and a bf16 cache, the small-T Q40 matvec (K1m) at
-   T = 2, 4, 8, the 3xTF32 Q40 GEMM (K3, with its x split pass and
+   0..2047 on an f32 and a bf16 cache, the small-T Q40 matvec (K1m, K1's
+   skeleton) at T = 2..8 on the same shapes and at 13B's and 70B's w2 at
+   T = 2 and 8 (K1 and K1m each with its plan, the same bits from two
+   launches, the bytes bound and the tensor-core and SIMT bounds beside
+   it), the 3xTF32 Q40 GEMM (K3, with its x split pass and
    K3b's split-K sum) at T = 9, 16, 32, 100, 128 on wqkv/wo/w13/w2 (and
    wcls at T = 16, 13B's and 70B's w2 at T = 512), its bf16 tensor-core
    twin (K3b, with its x rounding pass and split-K sum) at T = 9, 16,
@@ -44,8 +49,10 @@ no result line):
    part by part) at the 7B and GQA shapes at pos 0, 63 and 2047, timed
    beside the unfused port path for the same work; the Q40 layout probe's
    kernels (B10: P1 probe_stream, P2 probe_xglobal, P3 probe_nomask, P4
-   probe_signed) and K1 at the 13B w13 and wqkv shapes, then the probe's
-   own traced chain at w13 (tools/nb_probe.py, every variant, 8 layers x 4
+   probe_signed, and P0 probe_classic, the classic T = 1 row body that
+   the fused tail gives the bits of) and K1 at the 13B w13 and wqkv
+   shapes, then the probe's own traced chain at w13 (tools/nb_probe.py,
+   every variant, K1 its own row, 8 layers x 4
    reps, exactly 32 trace events of each variant's kernel, the trace time
    beside the chain's CUDA-event time). Max error against the
    stated tolerance; kernel, plain and library
@@ -152,8 +159,10 @@ no result line):
    slots on a contiguous cache and on f32, bf16 and Q8 pages, in turns
    (tokens/s, ms per device step, avg_active, device busy share, cache
    bytes), the f32-page streams equal to the contiguous ones.
-5. The phase times, the ``kernels`` JSON line, then the result line
-   ``{"ok": true, "device": {...}}`` as the last line.
+5. The phase times, the ``kernels`` JSON line (each kernel's launches
+   summed over every CLI run, a-r; the probe's kernels over its chain),
+   then the result line ``{"ok": true, "device": {...}}`` as the last
+   line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -161,6 +170,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import ast
+import collections
 import contextlib
 import gc
 import io
@@ -312,17 +322,22 @@ def _disassembler() -> str:
         if c and os.path.isfile(c) and os.access(c, os.X_OK):
             return c
     raise RuntimeError(f"no cuobjdump found (looked at {cands}): the SASS "
-                       f"check of K3, K3b, K4 and K4b cannot run")
+                       f"check of K1, K1m, K3, K3b, K4 and K4b cannot run")
 
 
 # SASS instructions by the name the check reports: the warpgroup MMA, its
 # tf32 form, the warp-level tf32 MMA, the TMA and bulk copies
 SASS_OPS = {"HGMMA": r"\bHGMMA\b", "HGMMA.TF32": r"\bHGMMA\.[\w.]*TF32\b",
-            "HMMA.TF32": r"\bHMMA\.[\w.]*TF32\b", "UTMALDG": r"\bUTMALDG\b",
+            "HMMA.TF32": r"\bHMMA\.[\w.]*TF32\b",
+            "HMMA.BF16": r"\bHMMA\.[\w.]*BF16\b",
+            "HGMMA.BF16": r"\bHGMMA\.[\w.]*BF16\b", "UTMALDG": r"\bUTMALDG\b",
             "UBLKCP": r"\bUBLKCP\b"}
 # (kernel, function name part, instruction groups: each group needs one of
 # its instructions in every function of that name)
 SASS_CHECKS = [
+    ("q40_matvec", "q40_matvec_kernel", [("HMMA.BF16", "HGMMA.BF16")]),
+    ("q40_matvec_multi", "q40_matvec_multi_kernel",
+     [("HMMA.BF16", "HGMMA.BF16")]),
     ("q40_gemm", "q40_gemm_kernel", [("HGMMA.TF32",), ("UTMALDG",)]),
     ("q40_gemm_bf16", "q40_gemm_bf16_kernel",
      [("HGMMA",), ("UTMALDG", "UBLKCP")]),
@@ -331,19 +346,22 @@ SASS_CHECKS = [
     ("prefill_attention_bf16", "prefill_attention_bf16_kernel",
      [("UTMALDG", "UBLKCP")]),
 ]
-SPILL_FREE = ("q40_gemm", "prefill_attention")  # K3 and K4
+SPILL_FREE = ("q40_matvec", "q40_matvec_multi", "q40_gemm",
+              "prefill_attention")  # K1, K1m, K3 and K4
 
 
 def phase_sass():
     """What the redesigned kernels compile to: ``cuobjdump -sass`` of the
-    built K3, K3b, K4 and K4b libraries. Every K3 GEMM function (one per
+    built K1/K1m, K3, K3b, K4 and K4b libraries. Every K1 and K1m function
+    (one per T) must hold a bf16 tensor-core MMA (HMMA or HGMMA), every K3
+    GEMM function (one per
     token tile and warpgroup count) must hold a tf32 warpgroup MMA
     (HGMMA...TF32) and a TMA copy (UTMALDG), every K3b GEMM function a
     warpgroup MMA and a TMA or bulk copy (UBLKCP), every K4 function (one
     per cache type and kv_mul) a tf32 warp MMA (HMMA...TF32) and a TMA
     copy, every K4b function the async copy. ``cuobjdump -res-usage`` gives
     each function's registers (at launch) and its stack and local memory:
-    K3's and K4's functions must spill nothing. Returns {kernel:
+    K1's, K1m's, K3's and K4's functions must spill nothing. Returns {kernel:
     {instruction: count, "max_regs": n, "spill_bytes": n}}."""
     from distributed_llama_tpu_torch.ops import _build
 
@@ -401,45 +419,92 @@ K2_POS = (0, 1, 63, 1000, 2047)
 K2_SEQ, K2_HS = 2048, 128
 
 
-def phase_k1(torch, timer, peaks):
-    """K1 against plain; the library yardstick is cuBLAS's f32 GEMV
-    (torch.matmul, TF32 off) on the weight dequantized beforehand (the
-    dequant is not timed)."""
-    from distributed_llama_tpu_torch.ops.q40 import (KERNEL_RTOL, q40_matmul,
+# 13B's and 70B's w2 (432 and 896 Q40 blocks in one sum): K1 at T = 1,
+# K1m at T = 2 and 8
+DEEP_W2 = [("w2-13b", 5120, 13824), ("w2-70b", 8192, 28672)]
+
+
+def _matvec_rows(torch, timer, peaks, cases, seed):
+    """K1 (T = 1) or K1m against the plain version, each case (name, d, n,
+    t, per_unit): its plan (ops/q40.matvec_plan), its error, the same bits
+    from a second launch, kernel, plain and library times, and its bounds:
+    the packed weight bytes, the tensor-core work it issues (2 x 8 columns
+    a column set x d x n at the bf16 rate; bound_ms is the larger), and
+    the f32 SIMT bound of the same product beside them. The library
+    yardstick is cuBLAS's f32 GEMV / SGEMM (torch.matmul, TF32 off) on the
+    weight dequantized beforehand (the dequant is not timed)."""
+    from distributed_llama_tpu_torch.ops.q40 import (KERNEL, KERNEL_MULTI,
+                                                     KERNEL_RTOL,
+                                                     matvec_plan, q40_matmul,
                                                      q40_matmul_plain,
-                                                     random_q40)
+                                                     random_q40, sm_count)
     from distributed_llama_tpu_torch.ops.quants import dequantize_q40_torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    g = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sms = sm_count(torch.device("cuda", 0))
     rows = []
-    for name, d, n, per_token in K1_SHAPES:
+    weights = {}
+    for name, d, n, t, per_unit in cases:
         nb = n // 32
-        w = random_q40(d, n, "cuda", g)
-        x = torch.randn((1, n), device="cuda", generator=g)
+        if (name, d, n) not in weights:
+            weights.clear()
+            w = random_q40(d, n, "cuda", g)
+            weights[name, d, n] = (w, dequantize_q40_torch(w.qs, w.d16))
+        w, wf = weights[name, d, n]
+        kernel = KERNEL if t == 1 else KERNEL_MULTI
+        x = torch.randn((t, n), device="cuda", generator=g)
+        before = kernel.launches
         got = q40_matmul(w, x)
-        want = q40_matmul_plain(w, x)
+        again = q40_matmul(w, x)
         torch.cuda.synchronize()
+        if kernel.launches != before + 2:
+            raise AssertionError(f"{kernel.symbol} {name} T={t}: not "
+                                 f"launched once a call")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{kernel.symbol} {name} T={t}: two "
+                                 f"launches differ")
+        want = q40_matmul_plain(w, x)
         err = (got - want).abs().max().item()
-        tol = KERNEL_RTOL * want.abs().max().item()
+        peak = want.abs().max().item()
+        tol = KERNEL_RTOL * peak
+        lib_err = (torch.matmul(x, wf.T) - want).abs().max().item()
         ms = timer(lambda: q40_matmul(w, x))
         plain_ms = timer(lambda: q40_matmul_plain(w, x))
-        wf = dequantize_q40_torch(w.qs, w.d16)
         library_ms = timer(lambda: torch.matmul(x, wf.T))
-        nbytes = d * nb * 18 + n * 4 + d * 4
-        b_ms, b_by = bound(nbytes, 2.0 * d * n, peaks)
-        log(f"K1 {name:5s} ({d}x{n}): max_abs_err {err:.3e} (tol {tol:.3e}) "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms gemv "
-            f"{library_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
-            f"{nbytes / ms / 1e6:.0f} GB/s)")
+        nbytes = d * nb * 18 + t * n * 4 + t * d * 4
+        cols = 8 * -(-3 * t // 8)  # the (token, piece) columns issued
+        bytes_ms = nbytes / peaks[0] * 1e3
+        tc_ms = 2.0 * d * n * cols / peaks[2] * 1e3
+        simt_ms = 2.0 * t * d * n / peaks[1] * 1e3
+        b_ms, b_by = max((bytes_ms, "bytes"), (tc_ms, "operations"))
+        plan = matvec_plan(t, d, nb, sms)
+        log(f"{kernel.symbol} {name:6s} T={t} ({d}x{n}) plan {plan}: "
+            f"max_abs_err {err:.3e} ({err / peak:.2e} of max, tol "
+            f"{tol:.3e}, cuBLAS {lib_err:.1e}) kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms cuBLAS {library_ms:.4f} ms bound {b_ms:.4f}"
+            f" ms ({b_by}; tensor cores {tc_ms:.4f}, SIMT {simt_ms:.4f}; "
+            f"{b_ms / ms:.1%} of it)")
         if not err <= tol:
-            raise AssertionError(f"K1 {name}: error {err} above {tol}")
-        rows.append(dict(shape=name, d=d, n=n, per_token=per_token,
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by,
+            raise AssertionError(f"{kernel.symbol} {name} T={t}: error "
+                                 f"{err} above {tol}")
+        rows.append(dict(shape=name, d=d, n=n, t=t, per_token=per_unit,
+                         plan=list(plan), max_abs_err=err,
+                         rel_err=err / peak, tol=tol, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         tc_bound_ms=tc_ms, simt_bound_ms=simt_ms,
                          library_ms=library_ms))
-        del w, x, got, want, wf
+        del x, got, again, want
+    weights.clear()
     return rows
+
+
+def phase_k1(torch, timer, peaks):
+    """K1 at 7B's shapes (a token: 32 x each layer matrix and wcls) and at
+    13B's and 70B's w2."""
+    cases = [(name, d, n, 1, per_token) for name, d, n, per_token in K1_SHAPES]
+    cases += [(name, d, n, 1, 0) for name, d, n in DEEP_W2]
+    return _matvec_rows(torch, timer, peaks, cases, seed=0)
 
 
 def phase_k2(torch, timer, peaks, cache=None):
@@ -535,7 +600,7 @@ def _library_gemm(torch, x, wf, bf16):
 
 def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False,
               body="vpu"):
-    """K1m, K3, (``bf16``) K3b or (``body="dequant"``) K1d against the plain
+    """K3, (``bf16``) K3b or (``body="dequant"``) K1d against the plain
     version on the 7B shapes; the library yardstick is _library_gemm's (the
     bf16 one for K3b and K1d). K3 and K3b print their plan (gemm_tf32_plan,
     gemm_bf16_plan: splits, blocks or stages a split, warpgroups) and must
@@ -618,11 +683,12 @@ LAYER_SHAPES = [(name, d, n) for name, d, n, _ in K1_SHAPES[:4]]
 
 
 def phase_k1m(torch, timer, peaks):
-    from distributed_llama_tpu_torch.ops.q40 import KERNEL_MULTI
-
-    cases = [(name, d, n, t, 32 if t == Q80_CHUNK else 0)
-             for t in (2, 4, 8) for name, d, n in LAYER_SHAPES]
-    return _q40_rows(torch, timer, peaks, KERNEL_MULTI, cases, seed=2)
+    """K1m at T = 2..8 on 7B's shapes (its unit: an 8-token step, 32 x the
+    four layer matrices at T = 8) and at 13B's and 70B's w2 at T = 2, 8."""
+    cases = [(name, d, n, t, 32 if t == Q80_CHUNK and name != "wcls" else 0)
+             for name, d, n, _ in K1_SHAPES for t in range(2, 9)]
+    cases += [(name, d, n, t, 0) for name, d, n in DEEP_W2 for t in (2, 8)]
+    return _matvec_rows(torch, timer, peaks, cases, seed=2)
 
 
 def phase_k3(torch, timer, peaks):
@@ -1260,13 +1326,14 @@ def phase_fused(torch, timer, peaks):
 
 PROBE_SHAPES = [("w13", 27648, 5120), ("wqkv", 15360, 5120)]  # 13B leaves
 PROBE_LAYERS, PROBE_REPS = 8, 4
-# variant -> the kernels line's name for its kernel (v0 is K1)
-PROBE_KERNELS = {"dma": "probe_stream", "v0r": "probe_xglobal",
-                 "v1": "probe_nomask", "i4": "probe_signed"}
+# variant -> the kernels line's name for its kernel (k1 is K1)
+PROBE_KERNELS = {"v0": "probe_classic", "dma": "probe_stream",
+                 "v0r": "probe_xglobal", "v1": "probe_nomask",
+                 "i4": "probe_signed"}
 
 
 def phase_probe(torch, timer, peaks):
-    """P1-P4 and K1 against their plain versions at the 13B w13 and wqkv
+    """P0-P4 and K1 against their plain versions at the 13B w13 and wqkv
     shapes, timed (the Timer's medians) beside the bound, the plain time
     and cuBLAS's f32 GEMV on the weight dequantized beforehand (none for
     P1: no library call computes its XOR fold); P2 and P3 are timed on x
@@ -1295,7 +1362,10 @@ def phase_probe(torch, timer, peaks):
         cases = [
             ("dma", "probe_stream", lambda: nbp.probe_stream(w),
              lambda: nbp.probe_stream_plain(w), nbp.KERNEL_RTOL, 0, None),
-            ("v0", "q40_matvec", lambda: q40.q40_matmul(w, x[None])[0],
+            ("v0", "probe_classic", lambda: nbp.probe_classic(w, x),
+             lambda: q40.q40_matmul_plain(w, x[None])[0], q40.KERNEL_RTOL,
+             n * 4, library_ms),
+            ("k1", "q40_matvec", lambda: q40.q40_matmul(w, x[None])[0],
              lambda: q40.q40_matmul_plain(w, x[None])[0], q40.KERNEL_RTOL,
              n * 4, library_ms),
             ("v0r", "probe_xglobal",
@@ -1343,8 +1413,9 @@ def probe_chain(torch):
     """The probe's own measurement at w13 (PROBE_LAYERS x PROBE_REPS
     dependent calls per variant, traced), in process, every kernel's count
     set to 0 just before and read just after: per variant one parity call
-    and three chains (warm-up, traced, CUDA-event timed)."""
-    from distributed_llama_tpu_torch.ops import q40
+    and three chains (warm-up, traced, CUDA-event timed), and one more
+    traced chain for each trace whose count of its kernel's events was
+    not the chain's (nb_probe.TRACE_TRIES)."""
     from distributed_llama_tpu_torch.tools import nb_probe as nbp
 
     d, n = nbp.SHAPES["w13"]
@@ -1358,10 +1429,11 @@ def probe_chain(torch):
                                SMOKE_DIR / "nb_probe")
                for v in nbp.VARIANTS]
     launches = {k.symbol: k.launches for k in _all_kernels()}
-    per_call = 1 + 3 * calls
-    _expect("probe run", launches, {
-        **{name: per_call for name in PROBE_KERNELS.values()},
-        q40.KERNEL.symbol: 2 * per_call})  # v0 and v0_128
+    want = collections.Counter()
+    for r in results:  # a parity call, a warm-up chain, traced chains, and
+        # the timed chain (v0 and v0_128 both launch probe_classic)
+        want[nbp.RUNS[r["variant"]].symbol] += 1 + (2 + r["traces"]) * calls
+    _expect("probe run", launches, want)
     for r in results:
         log(f"probe: {nbp.describe(r)}")
         if r["events"] != calls:
@@ -1504,6 +1576,16 @@ def _finite_logits(seen: list, gaps: list | None = None,
             setattr(generate, name, fn)
 
 
+# every kernel's launches summed over all CLI runs (a-r, runs e and f in
+# process): the counts of the kernels line
+CLI_LAUNCHES: dict[str, int] = {}
+
+
+def _add_cli_launches(counts: dict[str, int]) -> None:
+    for symbol, n in counts.items():
+        CLI_LAUNCHES[symbol] = CLI_LAUNCHES.get(symbol, 0) + n
+
+
 def _run_cli(torch, model, tok, args: list[str], env=None, gaps=None,
              streams=None):
     """The CLI in-process, with ``env`` set in the environment, and with
@@ -1534,6 +1616,7 @@ def _run_cli(torch, model, tok, args: list[str], env=None, gaps=None,
     launches = {k.symbol: k.launches for k in _all_kernels()}
     if rc != 0:
         raise RuntimeError(f"CLI {args} exited {rc}")
+    _add_cli_launches(launches)
     return buf.getvalue(), launches, wall, finite
 
 
@@ -1712,6 +1795,7 @@ def flag_runs(torch, engine, tokenizer):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {k.symbol: k.launches for k in _all_kernels()}
+        _add_cli_launches(counts)
         steps = stats.tokens
         _expect(f"{label} run", counts, _prefill_launches(
             engine.spec, steps, fast, dtype == torch.bfloat16))
@@ -3105,27 +3189,37 @@ def main() -> int:
         return {key: sum(r[key] * r["per_token"] for r in rows)
                 for key in ("ms", "plain_ms", "bound_ms")}
 
-    k1_tok = per_token(k1)
+    def matvec_row(name, rows, replaces, unit):
+        """K1's or K1m's row: the unit's sums, with the tensor-core and f32
+        SIMT bounds of the same work beside the bound."""
+        unit_rows = [r for r in rows if r["per_token"]]
+        return dict(name=name, route="cuda",
+                    source="distributed_llama_tpu_torch/csrc/q40_matvec.cu",
+                    replaces=f"distributed_llama_tpu/ops/{replaces}",
+                    launches=CLI_LAUNCHES[name],
+                    max_abs_err=max(r["max_abs_err"] for r in rows),
+                    **per_token(unit_rows), bound_by=_bound_by(unit_rows),
+                    library_ms=sum(r["library_ms"] * r["per_token"]
+                                   for r in unit_rows),
+                    **{key: sum(r[key] * r["per_token"] for r in unit_rows)
+                       for key in ("tc_bound_ms", "simt_bound_ms")},
+                    unit=unit, shapes=rows)
+
     # K2 per token: 32 layers at the deepest position of the smoke run
     k2_63 = [dict(r, per_token=32) for r in k2
              if r["case"] == "7b" and r["pos"] == 63]
     k2_tok = per_token(k2_63)
     kernels = [
-        dict(name="q40_matvec", route="cuda",
-             source="distributed_llama_tpu_torch/csrc/q40_matvec.cu",
-             replaces="distributed_llama_tpu/ops/pallas_q40.py:696",
-             launches=e2e["launches"]["q40_matvec"],
-             max_abs_err=max(r["max_abs_err"] for r in k1), **k1_tok,
-             bound_by=_bound_by(k1),
-             library_ms=sum(r["library_ms"] * r["per_token"] for r in k1),
-             unit="one 7B token: 32 x (wqkv, wo, w13, w2) + wcls; library "
-                  "= cuBLAS f32 GEMV on the weight dequantized beforehand "
-                  "(dequant not timed)",
-             shapes=k1),
+        matvec_row("q40_matvec", k1, "pallas_q40.py:696",
+                   "one 7B token: 32 x (wqkv, wo, w13, w2) + wcls at T = 1; "
+                   "tc_bound_ms = the tensor-core work issued (8 columns a "
+                   "column set, bf16 rate), simt_bound_ms = the same "
+                   "product on the f32 cores; library = cuBLAS f32 GEMV on "
+                   "the weight dequantized beforehand (dequant not timed)"),
         dict(name="decode_attention", route="cuda",
              source="distributed_llama_tpu_torch/csrc/decode_attention.cu",
              replaces="distributed_llama_tpu/ops/pallas_attention.py:304",
-             launches=e2e["launches"]["decode_attention"],
+             launches=CLI_LAUNCHES["decode_attention"],
              max_abs_err=max(r["max_abs_err"] for r in k2), **k2_tok,
              bound_by=_bound_by(k2_63),
              library_ms=sum(r["library_ms"] * 32 for r in k2_63),
@@ -3146,21 +3240,17 @@ def main() -> int:
     k4_unit = [dict(r, per_token=32) for r in k4
                if r["case"] == "7b" and r["pos"] == 384]
     kernels += [
-        dict(name="q40_matvec_multi", route="cuda",
-             source="distributed_llama_tpu_torch/csrc/q40_matvec.cu",
-             replaces="distributed_llama_tpu/ops/pallas_q40.py:730",
-             launches=e2e_q80["launches"]["q40_matvec_multi"],
-             max_abs_err=max(r["max_abs_err"] for r in k1m), **unit_row(k1m),
-             unit=f"one 7B {Q80_CHUNK}-token chunk: 32 x (wqkv, wo, w13, "
-                  f"w2) at T = {Q80_CHUNK}; library = cuBLAS SGEMM on the "
-                  f"weight dequantized beforehand (dequant not timed)",
-             shapes=k1m),
+        matvec_row("q40_matvec_multi", k1m, "pallas_q40.py:730",
+                   f"one 7B {Q80_CHUNK}-token step: 32 x (wqkv, wo, w13, "
+                   f"w2) at T = {Q80_CHUNK}; tc_bound_ms and simt_bound_ms "
+                   f"as K1's; library = cuBLAS SGEMM on the weight "
+                   f"dequantized beforehand (dequant not timed)"),
         dict(name="q40_gemm", route="cuda",
              source="distributed_llama_tpu_torch/csrc/q40_gemm.cu",
              replaces="distributed_llama_tpu/ops/pallas_q40.py:749",
-             launches=e2e_prefill["launches"]["q40_gemm"],
+             launches=CLI_LAUNCHES["q40_gemm"],
              max_abs_err=max(r["max_abs_err"] for r in k3), **unit_row(k3),
-             parts=[dict(name=p, launches=e2e_prefill["launches"][p])
+             parts=[dict(name=p, launches=CLI_LAUNCHES[p])
                     for p in ("q40_split_tf32", "q40_gemm_bf16_reduce")],
              unit=f"one 7B {CHUNK}-token chunk: 32 x (wqkv, wo, w13, w2) "
                   f"at T = {CHUNK}, with the x split pass and the split-K "
@@ -3172,11 +3262,11 @@ def main() -> int:
         dict(name="prefill_attention", route="cuda",
              source="distributed_llama_tpu_torch/csrc/prefill_attention.cu",
              replaces="distributed_llama_tpu/ops/pallas_attention.py:492",
-             launches=e2e_prefill["launches"]["prefill_attention"],
+             launches=CLI_LAUNCHES["prefill_attention"],
              max_abs_err=max(r["max_abs_err"] for r in k4),
              **unit_row(k4_unit),
              parts=[dict(name="prefill_attention_bf16_combine",
-                         launches=e2e_prefill["launches"][
+                         launches=CLI_LAUNCHES[
                              "prefill_attention_bf16_combine"])],
              unit=f"one 7B {CHUNK}-token chunk at pos 384, with the split "
                   f"combine (parts): 32 layers; bound = 3 TF32 passes, "
@@ -3184,28 +3274,23 @@ def main() -> int:
                   f"= scaled_dot_product_attention in f32 with the causal "
                   f"offset mask over the live prefix", shapes=k4),
     ]
-    runs = {"d": e2e_bf16["fast_bf16_cache"]["launches"],
-            "e": prefill["flag_runs"]["e fast"]["launches"],
-            "f": prefill["flag_runs"]["f bf16-cache"]["launches"]}
-
     def at_pos(rows, pos):
         return [dict(r, per_token=32) for r in rows
                 if r["case"] == "7b" and r["pos"] == pos]
 
-    def attention_row(name, source, replaces, run, rows, pos, unit,
-                      parts=()):
+    def attention_row(name, source, replaces, rows, pos, unit, parts=()):
         unit_rows = at_pos(rows, pos)
         row = dict(name=name, route="cuda",
                    source=f"distributed_llama_tpu_torch/csrc/{source}",
                    replaces=f"distributed_llama_tpu/ops/{replaces}",
-                   launches=runs[run][name],
+                   launches=CLI_LAUNCHES[name],
                    max_abs_err=max(r["max_abs_err"] for r in rows),
                    **unit_row(unit_rows), unit=unit, shapes=rows)
         if any(r["library_bf16_ms"] is not None for r in unit_rows):
             row["library_bf16_ms"] = sum(r["library_bf16_ms"] * 32
                                          for r in unit_rows)
         if parts:  # helper kernels launched inside the wrapper's time
-            row["parts"] = [dict(name=p, launches=runs[run][p])
+            row["parts"] = [dict(name=p, launches=CLI_LAUNCHES[p])
                             for p in parts]
         return row
 
@@ -3217,7 +3302,7 @@ def main() -> int:
                 "library_bf16_ms = the same SDPA in bf16, another function")
     kernels += [
         attention_row("decode_attention_kvbf16", "decode_attention.cu",
-                      "pallas_attention.py:304", "d", k2_kvbf16, 63,
+                      "pallas_attention.py:304", k2_kvbf16, 63,
                       "one 7B token at pos 63 over a bf16 cache: 32 layers;"
                       " library = scaled_dot_product_attention in f32 (K2's"
                       " function) over the live prefix cast to f32 "
@@ -3226,10 +3311,10 @@ def main() -> int:
         dict(name="q40_gemm_bf16", route="cuda",
              source="distributed_llama_tpu_torch/csrc/q40_gemm_bf16.cu",
              replaces="distributed_llama_tpu/ops/pallas_q40.py:749",
-             launches=runs["d"]["q40_gemm_bf16"],
+             launches=CLI_LAUNCHES["q40_gemm_bf16"],
              max_abs_err=max(r["max_abs_err"] for r in k3b),
              **unit_row(k3b),
-             parts=[dict(name=p, launches=runs["d"][p])
+             parts=[dict(name=p, launches=CLI_LAUNCHES[p])
                     for p in ("q40_round_bf16", "q40_gemm_bf16_reduce")],
              unit=f"one 7B {CHUNK}-token chunk: 32 x (wqkv, wo, w13, w2) "
                   f"at T = {CHUNK}, with the x rounding pass and the "
@@ -3237,20 +3322,20 @@ def main() -> int:
                   f"{k3b[0]['library']} (cuBLAS) on the weight dequantized "
                   f"to bf16 beforehand (dequant not timed)", shapes=k3b),
         attention_row("prefill_attention_kvbf16", "prefill_attention.cu",
-                      "pallas_attention.py:492", "f", k4_kvbf16, 384,
+                      "pallas_attention.py:492", k4_kvbf16, 384,
                       f"one 7B {CHUNK}-token chunk at pos 384 over a bf16 "
                       f"cache, f32-accurate dots (2 TF32 passes), with the "
                       f"split combine (parts): 32 layers; {sdpa_f32}",
                       parts=("prefill_attention_bf16_combine",)),
         attention_row("prefill_attention_bf16", "prefill_attention_bf16.cu",
-                      "pallas_attention.py:492", "e", k4b, 384,
+                      "pallas_attention.py:492", k4b, 384,
                       f"one 7B {CHUNK}-token chunk at pos 384, bf16 dots, "
                       f"f32 cache, with the split combine (parts): 32 "
                       f"layers; {sdpa}",
                       parts=("prefill_attention_bf16_combine",)),
         attention_row("prefill_attention_bf16_kvbf16",
                       "prefill_attention_bf16.cu", "pallas_attention.py:492",
-                      "d", k4b_kvbf16, 384,
+                      k4b_kvbf16, 384,
                       f"one 7B {CHUNK}-token chunk at pos 384, bf16 dots, "
                       f"bf16 cache, with the split combine (parts): 32 "
                       f"layers; {sdpa}",
@@ -3268,7 +3353,7 @@ def main() -> int:
         dict(name="decode_attention_batch", route="cuda",
              source="distributed_llama_tpu_torch/csrc/decode_attention.cu",
              replaces="distributed_llama_tpu/ops/pallas_attention.py:175",
-             launches=e2e_batch["launches"]["decode_attention_batch"],
+             launches=CLI_LAUNCHES["decode_attention_batch"],
              max_abs_err=max(r["max_abs_err"] for r in k5),
              **unit_row(k5_unit),
              unit=f"one 7B step of {BATCH} rows at shared pos 63: 32 "
@@ -3276,8 +3361,7 @@ def main() -> int:
         dict(name="decode_attention_batch_kvbf16", route="cuda",
              source="distributed_llama_tpu_torch/csrc/decode_attention.cu",
              replaces="distributed_llama_tpu/ops/pallas_attention.py:175",
-             launches=e2e_batch_dq["launches"][
-                 "decode_attention_batch_kvbf16"],
+             launches=CLI_LAUNCHES["decode_attention_batch_kvbf16"],
              max_abs_err=max(r["max_abs_err"] for r in k5_kvbf16),
              **unit_row(k5b_unit),
              unit=f"one 7B step of {BATCH} rows at shared pos 63 over a "
@@ -3286,7 +3370,7 @@ def main() -> int:
         dict(name="q40_matvec_bf16", route="cuda",
              source="distributed_llama_tpu_torch/csrc/q40_matvec_bf16.cu",
              replaces="distributed_llama_tpu/ops/pallas_q40.py:713",
-             launches=e2e_batch_dq["launches"]["q40_matvec_bf16"],
+             launches=CLI_LAUNCHES["q40_matvec_bf16"],
              max_abs_err=max(r["max_abs_err"] for r in k1d),
              **unit_row(k1d),
              unit=f"one 7B {BATCH}-row step: 32 x (wqkv, wo, w13, w2) at "
@@ -3295,7 +3379,7 @@ def main() -> int:
                   f"timed)", shapes=k1d),
     ]
 
-    def paged_row(name, pages, run, what):
+    def paged_row(name, pages, what):
         rows = [r for r in k6 if r["pages"] == pages]
         unit_rows = [dict(r, per_token=32) for r in rows
                      if r["case"] == "7b" and r["batch"] == CONT_SLOTS
@@ -3306,7 +3390,7 @@ def main() -> int:
                     replaces="distributed_llama_tpu/ops/"
                              "pallas_paged_attention.py:"
                              + ("332" if pages == "q8" else "285"),
-                    launches=e2e_cont[run]["launches"][name],
+                    launches=CLI_LAUNCHES[name],
                     max_abs_err=max(r["max_abs_err"] for r in rows),
                     **unit_row(unit_rows),
                     gather_ms=sum(r["gather_ms"] * 32 for r in unit_rows),
@@ -3321,18 +3405,18 @@ def main() -> int:
                     shapes=rows)
 
     kernels += [
-        paged_row("paged_attention", "f32", "k", "f32"),
-        paged_row("paged_attention_kvbf16", "bf16", "m", "bf16"),
-        paged_row("paged_attention_q8", "q8", "n", "Q8"),
+        paged_row("paged_attention", "f32", "f32"),
+        paged_row("paged_attention_kvbf16", "bf16", "bf16"),
+        paged_row("paged_attention_q8", "q8", "Q8"),
     ]
-    def fused_row(name, kind, run, rows, unit):
+    def fused_row(name, kind, rows, unit):
         unit_rows = [r for r in rows if r["per_token"]]
         site = {"head": 451, "tail": 349, "mega": 782}[kind]
         return dict(name=name, route="cuda",
                     source="distributed_llama_tpu_torch/csrc/fused_layer.cu",
                     replaces=f"distributed_llama_tpu/ops/pallas_layer.py:"
                              f"{site}",
-                    launches=e2e_fused[run]["launches"][name],
+                    launches=CLI_LAUNCHES[name],
                     max_abs_err=max(r["max_abs_err"] for r in rows),
                     **per_token(unit_rows), bound_by=_bound_by(unit_rows),
                     library_ms=None,
@@ -3344,11 +3428,11 @@ def main() -> int:
                     "unfused_ms = the unfused port path for the same work "
                     "(K1, K2 and torch glue)")
     kernels += [
-        fused_row("q40_head_fused", "head", "o headtail", fused_rows["head"],
+        fused_row("q40_head_fused", "head", fused_rows["head"],
                   f"one 7B token at pos 63: 32 layers; {unfused_note}"),
-        fused_row("q40_tail_fused", "tail", "o headtail", fused_rows["tail"],
+        fused_row("q40_tail_fused", "tail", fused_rows["tail"],
                   f"one 7B token: 32 layers; {unfused_note}"),
-        fused_row("q40_layer_mega", "mega", "p --fast on", fused_rows["mega"],
+        fused_row("q40_layer_mega", "mega", fused_rows["mega"],
                   f"one 7B token at pos 63 over an f32 cache: 32 layers; "
                   f"{unfused_note}"),
     ]

@@ -26,8 +26,9 @@
 // Bound: the weight bytes, read once: 28.31 MB of wqkv for K8, 85.52 MB of
 // wo, w13 and w2 for K9, both and the live cache prefix for K10 (Llama-2-
 // 7B). Design, right and simple first:
-//   * every matvec row is K1's row body (q40_row.cuh), one warp per row, so
-//     a fused row gives K1's bits on the same staged vector;
+//   * every matvec row is the classic row body (q40_row.cuh, the Q40
+//     layout probe's P0), one warp per row, so a fused row gives P0's bits
+//     on the same staged vector;
 //   * every block stages the vector it multiplies by itself (rmsnorm
 //     included: each block reduces the 4096 floats of x, 16 KB from L2),
 //     so K8 needs no grid-wide dependency;

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the redesigned prefill kernels (K3,
-// K3b, K4, K4b): mbarriers, the tensor (TMA) and per-thread async copies
-// that complete on them, register moves between warpgroups (setmaxnreg),
+// K3b, K4, K4b) and decode matvecs (K1, K1m): mbarriers, the tensor (TMA)
+// and per-thread async copies that complete on them or in commit groups,
+// register moves between warpgroups (setmaxnreg),
 // warpgroup MMA (wgmma, bf16 and tf32) with its fences and shared-memory
 // matrix descriptors, and the host-side encoding of a TMA tensor map.
 //
@@ -83,6 +84,26 @@ static __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                    cta_addr(dst)),
                "l"(src)
                : "memory");
+}
+
+// 16 bytes (both addresses 16-byte aligned) by the per-thread async copy,
+// L1 bypassed.
+static __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   cta_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Close this thread's group of cp.async copies; wait until at most N of
+// its groups are in flight (K1's ring completes its stages this way).
+static __device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+static __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // One arrival on `bar` once every cp.async this thread issued before has

@@ -1,12 +1,13 @@
 // B10, the Q40 layout probe's bodies for Hopper (sm_90a): T = 1 matvec
-// variants over K1's weight layout, each asking what bounds K1
-// (q40_matvec.cu), whose row body the fused decode-layer kernels share.
+// variants over K1's weight layout, each asking what bounds the classic
+// row body (q40_row.cuh), which the fused decode-layer kernels share.
 //
 // Replaces the bodies of the JAX package's tools/nb_probe.py:
-// _call_classic with _k_dma (P1), _k_v0r (P2) and _k_v1 (P3), and _call_i4
-// with _k_i4 (P4). Its v0 body, the production one, is K1 itself and has no
-// kernel here; its v0_128 names a 128-lane row tile, a constraint of the
-// TPU's compiler with no meaning on this card, and runs K1 too.
+// _call_classic with _k_v0 (P0), _k_dma (P1), _k_v0r (P2) and _k_v1 (P3),
+// and _call_i4 with _k_i4 (P4). Its v0_128 names a 128-lane row tile, a
+// constraint of the TPU's compiler with no meaning on this card, and runs
+// P0 too. The production K1 (q40_matvec.cu, tensor cores) is timed beside
+// them by tools/nb_probe.py.
 //
 // Layout: K1's, qs uint8 (d, nb, 16) (byte j of a block: value j in the
 // low nibble, value j + 16 in the high one), d16 f16 (d, nb). A layer of a
@@ -14,22 +15,26 @@
 //
 // Bound: the packed weight bytes, 18 * d * nb, read once from device memory
 // (the x inputs are at most 144 bytes per block row and stay in L2). Every
-// body keeps K1's access pattern, so each differs from K1 in one thing only:
+// body keeps P0's access pattern, so each differs from P0 in one thing only:
 // one warp per output row, kWarps rows per block, lanes striding over the
 // row's blocks with one 16-byte code load and one f16 scale per block,
 // kUnroll blocks in flight per lane, f32 accumulation, a butterfly shuffle
 // reduction.
 //
+//   P0 probe_classic: the classic T = 1 body (K1 before its tensor-core
+//      redesign), x staged once per 8-row block in shared memory, padded
+//      to kBlockPad floats a block, and q40_row_dot; the fused tail (K9)
+//      gives its bits on the same wo and w2 rows.
 //   P1 probe_stream: out[r] = sum_b f32(d16[r,b]) * f32(XOR_{j<16}
 //      qs[r,b,j]). It reads no x and unpacks nothing: the rate at which
-//      K1's pattern streams the layout, the ceiling for any body over it.
-//   P2 probe_xglobal: K1's row body with x read from a global copy padded
+//      P0's pattern streams the layout, the ceiling for any body over it.
+//   P2 probe_xglobal: P0's row body with x read from a global copy padded
 //      to kBlockPad floats per block (made once per call by the wrapper):
-//      no staging of x in shared memory and no __syncthreads, so P2 - K1 is
-//      what K1's per-block restaging of x costs.
+//      no staging of x in shared memory and no __syncthreads, so P2 - P0 is
+//      what P0's per-block restaging of x costs.
 //   P3 probe_nomask: lo = q - 16 * hi, so (lo - 8) * xlo + (hi - 8) * xhi =
 //      q * xlo + hi * (xhi - 16 * xlo) - 8 * (xlo + xhi): the whole byte is
-//      widened (K1's byte permute without the - 8) with no low-nibble mask;
+//      widened (P0's byte permute without the - 8) with no low-nibble mask;
 //      xhi16 = xhi - 16 * xlo and xsum = the block's sum of x come staged
 //      with xlo in the 36 floats of each block (wrapper, once per call).
 //   P4 probe_signed: the codes stored as signed nibbles, code - 8 in 4-bit
@@ -47,7 +52,7 @@ namespace {
 
 constexpr int kWarps = 8;  // output rows per thread block
 
-// sum_b d16[b] * dot(q_b, b) over the row's blocks, K1's loop
+// sum_b d16[b] * dot(q_b, b) over the row's blocks, P0's loop
 // (q40_row.cuh) with the block body as a functor; every lane gets the sum.
 template <typename Dot>
 __device__ __forceinline__ float row_sum(const uint4* __restrict__ qrow,
@@ -123,7 +128,7 @@ struct NoMaskDot {  // P3; xs: per block xlo[16], xhi16[16], xsum, 3 pad
   }
 };
 
-struct SignedDot {  // P4; xs: K1's staged x (36 floats per block)
+struct SignedDot {  // P4; xs: P0's staged x (36 floats per block)
   const float* xs;
   __device__ float operator()(uint4 q, int b) const {
     const float4* x4 = reinterpret_cast<const float4*>(xs + b * kBlockPad);
@@ -146,6 +151,25 @@ struct SignedDot {  // P4; xs: K1's staged x (36 floats per block)
     return s;
   }
 };
+
+__global__ void __launch_bounds__(kWarps * 32)
+probe_classic_kernel(const uint4* __restrict__ qs,
+                     const __half* __restrict__ d16,
+                     const float* __restrict__ x, float* __restrict__ out,
+                     int d, int nb) {
+  extern __shared__ float xs[];  // nb * kBlockPad floats
+  for (int i = threadIdx.x; i < nb * 32; i += blockDim.x) {
+    xs[(i >> 5) * kBlockPad + (i & 31)] = x[i];
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= d) return;
+  const float acc = q40_row_dot(qs + static_cast<size_t>(row) * nb,
+                                d16 + static_cast<size_t>(row) * nb, xs, nb,
+                                lane);
+  if (lane == 0) out[row] = acc;
+}
 
 __global__ void __launch_bounds__(kWarps * 32)
 probe_stream_kernel(const uint4* __restrict__ qs,
@@ -198,7 +222,7 @@ probe_signed_kernel(const uint4* __restrict__ qs,
                     const __half* __restrict__ d16,
                     const float* __restrict__ x, float* __restrict__ out,
                     int d, int nb) {
-  extern __shared__ float xs[];  // nb * kBlockPad floats, K1's staging
+  extern __shared__ float xs[];  // nb * kBlockPad floats, P0's staging
   for (int i = threadIdx.x; i < nb * 32; i += blockDim.x) {
     xs[(i >> 5) * kBlockPad + (i & 31)] = x[i];
   }
@@ -222,6 +246,20 @@ size_t staged_bytes(int nb) {
 
 // Each entry point launches on `stream` and returns the cudaGetLastError()
 // code (0 = launched).
+
+// P0: x (nb * 32) f32 -> out (d) f32.
+extern "C" int probe_classic(const void* qs, const void* d16, const void* x,
+                             void* out, int d, int nb, void* stream) {
+  static size_t granted[kMaxDevices];
+  const size_t smem = staged_bytes(nb);
+  const cudaError_t e = opt_in_smem(probe_classic_kernel, smem, granted);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  probe_classic_kernel<<<grid_of(d), kWarps * 32, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(qs), static_cast<const __half*>(d16),
+      static_cast<const float*>(x), static_cast<float*>(out), d, nb);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // P1: qs, d16 -> out (d) f32.
 extern "C" int probe_stream(const void* qs, const void* d16, void* out,

@@ -1,239 +1,464 @@
-// Q40 matrix-vector products for Hopper (sm_90a): K1 for T = 1 (below) and
-// K1m for T = 2..8 (further down, with its own note).
+// Q40 matrix-vector products for Hopper (sm_90a), one skeleton for T = 1
+// (K1, q40_matvec) and T = 2..8 tokens (K1m, q40_matvec_multi):
 //
-//   out[r] = sum_b d16[r,b] * sum_{j<32} (code[r,b,j] - 8) * x[32b + j]   (f32)
+//   out[t, r] = sum_b d16[r,b] * sum_{j<32} (code[r,b,j] - 8) * x[t, 32b+j]
 //
-// Replaces the T=1 matvec of the JAX package's ops/pallas_q40.py
-// (q40_matmul -> _q40_matmul_2d / _q40_matmul_stacked with _kernel_matvec,
-// and the nb-major and int4-plane tilings of the same computation).
+// in f32. Replaces the JAX package's ops/pallas_q40.py T = 1 matvec
+// (q40_matmul -> _q40_matmul_2d / _q40_matmul_stacked with _kernel_matvec ->
+// _matvec_body, and the nb-major and int4-plane tilings of the same
+// computation) and its 2 <= T <= 8 f32 body (_kernel_multi ->
+// _matvec_body_multi, and _q40_multi_nb_*). Like those bodies it takes each
+// Q40 block's sum of code products with x first and applies the f16 scale
+// once per block and row.
 //
 // Layout (the codec layout, chosen at load time): qs uint8 (d, nb, 16),
 // byte j of a block holds value j in its low nibble and value j+16 in its
-// high nibble; d16 f16 (d, nb); x f32 (nb*32); out f32 (d). A layer of a
-// stacked weight is a pointer offset, so no per-layer copy exists.
+// high nibble; d16 f16 (d, nb), at any 2-byte offset; x f32 (T, nb*32);
+// out f32 (T, d). A layer of a stacked weight is a pointer offset.
 //
 // Bound: the packed weight bytes (18 per 32 values) read once from device
-// memory. Design, simple first: one warp per output row, kWarps rows per
-// block, x staged once per block in shared memory, and the row body of
-// q40_row.cuh (lanes striding over the row's blocks, one 16-byte code load
-// and one f16 scale per block, codes widened with a byte permute, f32
-// accumulation, warp-shuffle reduction), which the fused decode-layer
-// kernels (fused_layer.cu) share.
+// memory, at every T <= 8 (1.108 ms for a 7B token or 8-token step at 3.35
+// TB/s). The products run on the tensor cores, exactly (q40_tc.cuh): x is
+// split into three bf16 pieces and each code - 8 is an exact bf16, so
+// code x piece is exact and only the f32 adds round. The earlier bodies
+// spent ~3 f32 SIMT instructions a weight value and T FMAs more (bound by
+// operations from T = 6), restaged x in every 8- or 32-row block, and let
+// no weight load start before x had arrived. Design:
+//   * mma.sync m16n8k16: 16 weight rows are the MMA's M; its N = 8 columns
+//     are (token, piece) pairs, column 3t + p for piece p of token t, so
+//     T = 1 and 2 need one n8 column set and T = 8 three. Each MMA's k16
+//     stays inside one Q40 block: lane (g, c) of a quad feeds word c of the
+//     block's 16 code bytes of rows g and g + 8 (low nibbles in k-step 0,
+//     high ones in k-step 1), and x is staged in the same order. A fresh
+//     accumulator per block (two k-steps) is scaled by the row's d16 into
+//     f32 registers, so no tensor-core sum runs longer than 32 products;
+//     the pieces' sums meet at the end, p0 + (p1 + p2 / 2^8) / 2^8. The
+//     A operand is code - 8 (rather than the raw code and - 8 x the block
+//     sum of x): one instruction more per pair of values, but no x sum to
+//     stage and no cancellation against 136 * sum(x);
+//   * x is staged once per thread block, already split and permuted to the
+//     B fragment: for block b, column (t, p) and lane c, the 16 bytes of
+//     values 4c..4c+3 and 16+4c..16+4c+3 of piece p, so a lane reads both
+//     k-steps of a column set with one 16-byte load, and the 8 lanes of a
+//     quarter warp read 128 contiguous bytes;
+//   * a thread block of wr x wk warps walks row tiles of 32 wr rows (the
+//     tiles blockIdx.x, + gridDim.x, ... of split blockIdx.y), so x is
+//     staged once per block for all its tiles. Its threads fill a ring of
+//     kStages stages by cp.async together: a stage holds 4 wk blocks of the
+//     tile's rows, a warp-instruction reading 64 wk contiguous bytes of a
+//     row (the access that streams the layout best), stored at block ^
+//     (row % 8) so that ldmatrix.x4 reads each lane's code words of four
+//     8-row sets without bank conflicts; then each warp takes 32 rows (two
+//     m16 row groups, which share each B load) x 4 blocks of the stage.
+//     The ring's first stages are issued before x is staged, so weights
+//     are in flight while x arrives; one barrier a stage. The f16 scales
+//     may start at any 2-byte offset: each row's stage copies the aligned
+//     words holding its scales, and an aligned word that holds a scale
+//     lies inside their allocation; rows past d are not copied and their
+//     sums not stored. A tile's warps add their sums through shared memory
+//     in warp order;
+//   * split K (gridDim.y = splits): each split writes its f32 sums of a
+//     tile to part[split]; the last block to finish a tile (an atomic
+//     ticket after a fence) adds the splits in split order and resets the
+//     ticket to 0, so two launches give the same bits, a captured graph
+//     replays correctly, and no launch is added. ops/q40.py matvec_plan
+//     picks wr, wk, the grid and the split from (T, d, nb, SMs).
+// What holds it back on the H100 (PERF.md): at T = 1 the fixed latency of
+// each launch and the code unpack's issue cost (as the classic SIMT body
+// it replaces, ~57% of the stream in a chain of calls), at T = 8 the
+// unpack and the scaling of three column sets.
+// Shared memory: kb * 3T * 64 bytes of x (kb blocks a split), the ring
+// (smem_bytes) and each warp's 32 x 3T f32 sums.
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
-#include "q40_row.cuh"
+#include "hopper.cuh"
+#include "mma.cuh"
+#include "q40_tc.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;  // output rows per thread block
+constexpr int kMaxWarps = 8;
+constexpr int kStages = 4;  // ring stages a block
 
-__global__ void __launch_bounds__(kWarps * 32)
-q40_matvec_kernel(const uint4* __restrict__ qs, const __half* __restrict__ d16,
-                  const float* __restrict__ x, float* __restrict__ out,
-                  int d, int nb) {
-  extern __shared__ float xs[];  // nb * kBlockPad floats
-  const int n = nb * 32;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    xs[(i >> 5) * kBlockPad + (i & 31)] = x[i];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + warp;
-  if (row >= d) return;
-  const float acc = q40_row_dot(qs + static_cast<size_t>(row) * nb,
-                                d16 + static_cast<size_t>(row) * nb, xs, nb,
-                                lane);
-  if (lane == 0) out[row] = acc;
-}
-
-// ---------------------------------------------------------------------------
-// K1m: the same product for T = 2..8 tokens (small-T matvec).
-//
-//   out[t, r] = sum_b d16[r,b] * sum_j (code[r,b,j] - 8) * x[t, 32b + j]
-//
-// Replaces the 2 <= T <= 8 branch of the JAX package's ops/pallas_q40.py
-// (_q40_matmul_2d / _q40_matmul_stacked with _kernel_multi ->
-// _matvec_body_multi, and the nb-major _q40_multi_nb_* tiling): each weight
-// block is unpacked once and used for all T rows.
-//
-// Bound: the packed weight bytes at T = 2; from about T = 6 the 2*T flops
-// per weight value on the f32 SIMT cores (67 TFLOP/s) take longer than the
-// 0.5625 bytes per value (3.35 TB/s). Design, simple first:
-//   * one warp per kRowsM = 4 output rows, kWarps rows-groups per block, so
-//     a staged x slice serves 32 rows;
-//   * x (T, n) is staged in slices of kChunk blocks (all T rows of a slice
-//     in shared memory, each 32-value block padded to 36 floats as in K1):
-//     8 x 344 blocks of 7B's w2 at T = 8 would be 396 KB, over the 227 KB a
-//     block may hold;
-//   * each lane takes one Q40 block of its 4 rows at a time: 4 16-byte code
-//     loads, the nibbles widened once to (code - 8) * d16 (exact in f32),
-//     then 8 values x T rows of FMAs per 32-bit word, with the x float4s
-//     read once from shared memory for all 4 rows;
-//   * T accumulators per row and lane in registers, warp-shuffle reduction.
-constexpr int kRowsM = 4;   // output rows per warp
-constexpr int kChunk = 64;  // 32-value blocks of x staged per slice
-
-__device__ __forceinline__ uint32_t word_of(uint4 q, int w) {
-  return w == 0 ? q.x : w == 1 ? q.y : w == 2 ? q.z : q.w;
+// Shared memory of a block of wr x wk warps: x's kb blocks in three bf16
+// pieces, the ring (a stage: 32 wr rows x 4 wk blocks of codes, 2048
+// bytes a warp, and each row's window of scale words, 8 wk + 8 bytes),
+// the warps' 32 x 3T f32 sums and a flag.
+__host__ __device__ constexpr size_t smem_bytes(int t, int kb, int wr,
+                                                int wk) {
+  return static_cast<size_t>(kb) * 3 * t * 64 +
+         static_cast<size_t>(kStages) *
+             (2048 * wr * wk + 32 * wr * (8 * wk + 8)) +
+         static_cast<size_t>(wr) * wk * 32 * 3 * t * 4 + 16;
 }
 
 template <int T>
-__global__ void __launch_bounds__(kWarps * 32)
-q40_matvec_multi_kernel(const uint4* __restrict__ qs,
-                        const __half* __restrict__ d16,
-                        const float* __restrict__ x, float* __restrict__ out,
-                        int d, int nb) {
-  extern __shared__ float xs[];  // T * kChunk * kBlockPad floats
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row0 = (blockIdx.x * kWarps + warp) * kRowsM;
-  const size_t n = static_cast<size_t>(nb) * 32;
-  // rows past d read row d-1 (in bounds) and store nothing
-  size_t rbase[kRowsM];
+__device__ __forceinline__ void matvec_body(
+    const uint8_t* __restrict__ qs, const uint8_t* __restrict__ d16,
+    const float* __restrict__ x, float* __restrict__ out,
+    float* __restrict__ part, int* __restrict__ tickets, int d, int nb,
+    int wr, int wk, int kb) {
+  constexpr int C = 3 * T;          // (token, piece) columns
+  constexpr int M = (C + 7) / 8;    // n8 column sets
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int warps = wr * wk;
+  const int threads = 32 * warps;
+  const int sbc = 4 * wk;           // blocks a stage, 4 a warp
+  const int rows = 32 * wr;         // rows a tile
+  const int sw = 8 * wk + 8;        // scale bytes a row in a stage
+  const int code_bytes = rows * sbc * 16;
+  const int slot_bytes = code_bytes + rows * sw;
+  uint8_t* xs = smem;
+  uint8_t* ring = smem + static_cast<size_t>(kb) * C * 64;
+  float* red = reinterpret_cast<float*>(ring + kStages * slot_bytes);
+  int* last = reinterpret_cast<int*>(red + warps * 32 * C);
+
+  const int splits = gridDim.y;
+  const int split = blockIdx.y;
+  const int k0 = split * kb;
+  const int kn = min(kb, nb - k0);  // this split's blocks
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int wri = warp % wr;
+  const int wki = warp / wr;
+  const int stages = (kn + sbc - 1) / sbc;  // a tile's stages
+  const int tiles = (d + rows - 1) / rows;
+  const int my_tiles =
+      static_cast<int>(blockIdx.x) < tiles
+          ? (tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1
+          : 0;
+  const int total = my_tiles * stages;
+  const uintptr_t d16_addr = reinterpret_cast<uintptr_t>(d16);
+
+  // The copier, all threads together, a stage a call. Codes: chunk i =
+  // tid + threads k (k < 4) is block i % sbc of row i / sbc, so a warp
+  // reads sbc * 16 contiguous bytes of each row it touches; its block is
+  // the same for every k (threads is a multiple of sbc) and its rows are
+  // 8 wr apart, stored at block ^ (row % 8) of the row, so ldmatrix's 8
+  // rows of one block fall on distinct bank groups. Rows past d are not
+  // copied (their sums are not stored). Scales: word u % sw4 of row u /
+  // sw4 (u = tid + threads k, k < 3, sw4 = 2 wk + 1), the aligned words
+  // holding the row's scales of the stage.
+  const int sw4 = 2 * wk + 1;
+  const int c_blk = tid % sbc;
+  const int c_row = tid / sbc;  // + 8 wr k
+  const int c_dst = (c_row * sbc + (c_blk ^ (c_row & 7))) * 16;  // + 512 warps k
+  int s_row[3], s_word[3];
 #pragma unroll
-  for (int r = 0; r < kRowsM; ++r) {
-    rbase[r] = static_cast<size_t>(min(row0 + r, d - 1)) * nb;
+  for (int k = 0; k < 3; ++k) {
+    const int u = tid + threads * k;
+    s_row[k] = u < rows * sw4 ? u / sw4 : -1;
+    s_word[k] = u % sw4;
+  }
+  int i_row0 = 0, i_st = 0, i_ti = 0, issued = 0;
+  if (total > 0) i_row0 = static_cast<int>(blockIdx.x) * rows;
+  auto issue = [&]() {  // the next stage into slot issued % kStages
+    if (issued < total) {
+      uint8_t* slot = ring + (issued % kStages) * slot_bytes;
+      const int nv = min(sbc, kn - sbc * i_st);
+      const size_t b0 = static_cast<size_t>(k0) + sbc * i_st;
+      if (c_blk < nv) {
+        const uint8_t* src =
+            qs + ((static_cast<size_t>(i_row0 + c_row)) * nb + b0 + c_blk) * 16;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (i_row0 + c_row + 8 * wr * k < d) {
+            cp_async16(slot + c_dst + 512 * warps * k,
+                       src + static_cast<size_t>(8 * wr * k) * nb * 16);
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int row = i_row0 + s_row[k];
+        if (s_row[k] >= 0 && row < d) {
+          const uintptr_t a = d16_addr + 2 * (static_cast<size_t>(row) * nb + b0);
+          if (s_word[k] < ((static_cast<int>(a & 2) + 2 * nv + 3) >> 2)) {
+            cp_async4(slot + code_bytes + s_row[k] * sw + 4 * s_word[k],
+                      reinterpret_cast<const void*>((a & ~uintptr_t(3)) +
+                                                    4 * s_word[k]));
+          }
+        }
+      }
+      if (++i_st == stages) {
+        i_st = 0;
+        i_row0 = (static_cast<int>(blockIdx.x) + ++i_ti * gridDim.x) * rows;
+      }
+    }
+    cp_async_commit();
+    ++issued;
+  };
+
+#pragma unroll
+  for (int n = 0; n < kStages - 1; ++n) issue();
+
+  // x[:, k0 .. k0 + kn) in three bf16 pieces, permuted to the B fragment:
+  // 16-byte chunk ((b * C + 3t + p) * 4 + c) holds piece p of values
+  // 4c..4c+3 and 16+4c..16+4c+3 of block b of token t (read after the
+  // first stage's barrier)
+  for (int i = tid; i < kn * T * 4; i += threads) {
+    const int cc = i & 3;
+    const int bt = i >> 2;
+    const int t = bt % T;
+    const int b = bt / T;
+    const float* src = x + static_cast<size_t>(t) * nb * 32 +
+                       static_cast<size_t>(k0 + b) * 32 + 4 * cc;
+    const float4 lo = __ldg(reinterpret_cast<const float4*>(src));
+    const float4 hi = __ldg(reinterpret_cast<const float4*>(src + 16));
+    const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    uint32_t p[8][3];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) split3(v[e], p[e]);
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      *reinterpret_cast<uint4*>(xs + ((b * C + 3 * t + q) * 4 + cc) * 16) =
+          make_uint4(pack_hi16(p[0][q], p[1][q]), pack_hi16(p[2][q], p[3][q]),
+                     pack_hi16(p[4][q], p[5][q]), pack_hi16(p[6][q], p[7][q]));
+    }
   }
 
-  float acc[kRowsM][T];
+  const int my_row = 32 * wri + lane;  // this lane's ldmatrix row
+  int n = 0;
+  for (int ti = 0; ti < my_tiles; ++ti) {
+    const int tile = static_cast<int>(blockIdx.x) + ti * gridDim.x;
+    // the byte selector of each of rows 32 wri + 8i + g's scale pairs: its
+    // window's bytes 0..7 or 2..9 (from the warp's first) hold its blocks
+    uint32_t sel[4];
 #pragma unroll
-  for (int r = 0; r < kRowsM; ++r) {
+    for (int i = 0; i < 4; ++i) {
+      const size_t row = min(tile * rows + 32 * wri + 8 * i + g, d - 1);
+      sel[i] = 0x3210u + 0x1111u * static_cast<uint32_t>(
+                                       (d16_addr + 2 * (row * nb + k0)) & 2);
+    }
+    float acc[2][M][4];
 #pragma unroll
-    for (int t = 0; t < T; ++t) acc[r][t] = 0.f;
-  }
+    for (int q = 0; q < 2; ++q) {
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[q][m][e] = 0.f;
+      }
+    }
+    for (int st = 0; st < stages; ++st, ++n) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // stage n has landed; stage n - 1 is read
+      issue();          // into stage n - 1's slot
+      const uint8_t* slot = ring + (n % kStages) * slot_bytes;
+      const int live = min(4, kn - sbc * st - 4 * wki);  // my blocks
+      if (live <= 0) continue;  // warp-uniform
+      // my blocks' code words (word c of rows g, 8 + g, 16 + g, 24 + g of
+      // the warp's 32) and scales (rows 8i + g) first
+      uint32_t q4[4][4];
+#pragma unroll
+      for (int jb = 0; jb < 4; ++jb) {
+        ldmatrix_x4(q4[jb], slot + (my_row * sbc +
+                                    ((4 * wki + jb) ^ (my_row & 7))) * 16);
+      }
+      float sc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint8_t* w = slot + code_bytes + (32 * wri + 8 * i + g) * sw +
+                           8 * wki;
+        const uint2 w01 = *reinterpret_cast<const uint2*>(w);
+        const uint32_t w2 = *reinterpret_cast<const uint32_t*>(w + 8);
+        const uint32_t s01 = __byte_perm(w01.x, w01.y, sel[i]);
+        const uint32_t s23 = __byte_perm(w01.y, w2, sel[i]);
+        const float2 f01 =
+            __half22float2(*reinterpret_cast<const __half2*>(&s01));
+        const float2 f23 =
+            __half22float2(*reinterpret_cast<const __half2*>(&s23));
+        sc[0][i] = f01.x;
+        sc[1][i] = f01.y;
+        sc[2][i] = f23.x;
+        sc[3][i] = f23.y;
+      }
+      const uint8_t* xb =
+          xs + (static_cast<size_t>(sbc * st + 4 * wki) * C * 4 + c) * 16;
+      auto block = [&](int jb) {
+        uint4 bx[M];
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          const int col = min(8 * m + g, C - 1);  // columns >= C: unused
+          bx[m] = *reinterpret_cast<const uint4*>(xb + (jb * C + col) * 64);
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          uint32_t la[2], ha[2], lb[2], hb[2];
+          codes_bf16(q4[jb][2 * q], la, ha);
+          codes_bf16(q4[jb][2 * q + 1], lb, hb);
+          const uint32_t a0[4] = {la[0], lb[0], la[1], lb[1]};
+          const uint32_t a1[4] = {ha[0], hb[0], ha[1], hb[1]};
+          const float s0 = sc[jb][2 * q];
+          const float s1 = sc[jb][2 * q + 1];
+#pragma unroll
+          for (int m = 0; m < M; ++m) {
+            float f[4];
+            mma_bf16_zero(f, a0, bx[m].x, bx[m].y);
+            mma_bf16_add(f, a1, bx[m].z, bx[m].w);
+            acc[q][m][0] = fmaf(s0, f[0], acc[q][m][0]);
+            acc[q][m][1] = fmaf(s0, f[1], acc[q][m][1]);
+            acc[q][m][2] = fmaf(s1, f[2], acc[q][m][2]);
+            acc[q][m][3] = fmaf(s1, f[3], acc[q][m][3]);
+          }
+        }
+      };
+      if (live == 4) {  // warp-uniform: full stages run without branches
+#pragma unroll
+        for (int jb = 0; jb < 4; ++jb) block(jb);
+      } else {
+        for (int jb = 0; jb < live; ++jb) block(jb);
+      }
+    }
 
-  for (int c0 = 0; c0 < nb; c0 += kChunk) {
-    const int cb = min(kChunk, nb - c0);
-    __syncthreads();  // the previous slice's readers are done
-    const int per_t = cb * 8;  // float4s of one row of the slice
-    for (int i = threadIdx.x; i < T * per_t; i += blockDim.x) {
-      const int t = i / per_t;
-      const int rem = i - t * per_t;
-      const int b = rem >> 3;
-      const int j4 = rem & 7;
-      const float4 v = __ldg(reinterpret_cast<const float4*>(
-          x + t * n + static_cast<size_t>(c0 + b) * 32) + j4);
-      *reinterpret_cast<float4*>(xs + (t * kChunk + b) * kBlockPad +
-                                 4 * j4) = v;
+    // the tile: each warp's sums (C fragment: rows g, g + 8 of each group,
+    // columns 8m + 2c, + 1) to shared memory, then warp by warp per row
+    float* rw = red + warp * 32 * C;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * m + 2 * c + (e & 1);
+          if (col < C) rw[(16 * q + g + 8 * (e >> 1)) * C + col] = acc[q][m][e];
+        }
+      }
     }
     __syncthreads();
-
-    for (int b = lane; b < cb; b += 32) {
-      uint4 q[kRowsM];
-      float s[kRowsM];
-#pragma unroll
-      for (int r = 0; r < kRowsM; ++r) {
-        q[r] = __ldg(qs + rbase[r] + c0 + b);
-        s[r] = __half2float(d16[rbase[r] + c0 + b]);
+    for (int i = tid; i < rows * T; i += threads) {
+      const int t = i / rows;
+      const int r = i - t * rows;
+      const int row = tile * rows + r;
+      float v0 = 0.f, v1 = 0.f, v2 = 0.f;
+      for (int k = 0; k < wk; ++k) {
+        const float* src = red + ((k * wr + (r >> 5)) * 32 + (r & 31)) * C +
+                           3 * t;
+        v0 += src[0];
+        v1 += src[1];
+        v2 += src[2];
       }
-      const float* xb = xs + b * kBlockPad;
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        float wl[kRowsM][4], wh[kRowsM][4];  // values 4w.., 16+4w..
-#pragma unroll
-        for (int r = 0; r < kRowsM; ++r) {
-          const uint32_t word = word_of(q[r], w);
-          const uint32_t lo = word & 0x0F0F0F0Fu;
-          const uint32_t hi = (word >> 4) & 0x0F0F0F0Fu;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            wl[r][k] = code_minus8(lo, 0x7440u + k) * s[r];
-            wh[r][k] = code_minus8(hi, 0x7440u + k) * s[r];
-          }
-        }
-#pragma unroll
-        for (int t = 0; t < T; ++t) {
-          const float4* x4 =
-              reinterpret_cast<const float4*>(xb + t * kChunk * kBlockPad);
-          const float4 xl = x4[w];
-          const float4 xh = x4[4 + w];
-#pragma unroll
-          for (int r = 0; r < kRowsM; ++r) {
-            float a = acc[r][t];
-            a = fmaf(wl[r][0], xl.x, a);
-            a = fmaf(wl[r][1], xl.y, a);
-            a = fmaf(wl[r][2], xl.z, a);
-            a = fmaf(wl[r][3], xl.w, a);
-            a = fmaf(wh[r][0], xh.x, a);
-            a = fmaf(wh[r][1], xh.y, a);
-            a = fmaf(wh[r][2], xh.z, a);
-            a = fmaf(wh[r][3], xh.w, a);
-            acc[r][t] = a;
-          }
+      const float y = v0 + (v1 + v2 * (1.f / 256.f)) * (1.f / 256.f);
+      if (row < d) {
+        if (splits == 1) {
+          out[static_cast<size_t>(t) * d + row] = y;
+        } else {
+          part[(static_cast<size_t>(split) * T + t) * d + row] = y;
         }
       }
     }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRowsM; ++r) {
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      float v = acc[r][t];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      }
-      if (lane == 0 && row0 + r < d) {
-        out[static_cast<size_t>(t) * d + row0 + r] = v;
+    if (splits > 1) {
+      __threadfence();  // this split's sums, before its ticket
+      __syncthreads();
+      if (tid == 0) *last = atomicAdd(tickets + tile, 1) == splits - 1;
+      __syncthreads();
+      if (*last) {
+        __threadfence();
+        for (int i = tid; i < rows * T; i += threads) {
+          const int t = i / rows;
+          const int row = tile * rows + (i - t * rows);
+          if (row >= d) continue;
+          float y = 0.f;
+          for (int s = 0; s < splits; ++s) {
+            y += __ldcg(part + (static_cast<size_t>(s) * T + t) * d + row);
+          }
+          out[static_cast<size_t>(t) * d + row] = y;
+        }
+        if (tid == 0) tickets[tile] = 0;  // ready for the next launch
       }
     }
+    __syncthreads();  // the sums and the flag are reused by the next tile
   }
+  cp_async_wait<0>();  // no copy outlives the block
+}
+
+// K1 and K1m: one kernel name each (the profiler's trace tells them apart);
+// two blocks an SM up to T = 2 (128 registers a thread), one above
+__global__ void __launch_bounds__(kMaxWarps * 32, 2)
+q40_matvec_kernel(const uint8_t* __restrict__ qs,
+                  const uint8_t* __restrict__ d16,
+                  const float* __restrict__ x, float* __restrict__ out,
+                  float* __restrict__ part, int* __restrict__ tickets, int d,
+                  int nb, int wr, int wk, int kb) {
+  matvec_body<1>(qs, d16, x, out, part, tickets, d, nb, wr, wk, kb);
 }
 
 template <int T>
-int launch_multi(const void* qs, const void* d16, const void* x, void* out,
-                 int d, int nb, cudaStream_t stream) {
-  const size_t smem =
-      static_cast<size_t>(T) * kChunk * kBlockPad * sizeof(float);
+__global__ void __launch_bounds__(kMaxWarps * 32, T <= 2 ? 2 : 1)
+q40_matvec_multi_kernel(const uint8_t* __restrict__ qs,
+                        const uint8_t* __restrict__ d16,
+                        const float* __restrict__ x, float* __restrict__ out,
+                        float* __restrict__ part, int* __restrict__ tickets,
+                        int d, int nb, int wr, int wk, int kb) {
+  matvec_body<T>(qs, d16, x, out, part, tickets, d, nb, wr, wk, kb);
+}
+
+template <int T>
+int launch(const void* qs, const void* d16, const void* x, void* out,
+           void* part, void* tickets, int d, int nb, int wr, int wk,
+           int grid_x, int splits, int kb, cudaStream_t stream) {
+  if (d < 1 || nb < 1 || wr < 1 || wk < 2 || wr * wk > kMaxWarps ||
+      grid_x < 1 || splits < 1 || kb < 1 || (splits - 1) * kb >= nb ||
+      splits * kb < nb) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = smem_bytes(T, kb, wr, wk);
+  auto kernel = q40_matvec_kernel;
+  if constexpr (T > 1) kernel = q40_matvec_multi_kernel<T>;
   static size_t granted[kMaxDevices];
-  const cudaError_t e = opt_in_smem(q40_matvec_multi_kernel<T>, smem, granted);
+  const cudaError_t e = opt_in_smem(kernel, smem, granted);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int rows_per_block = kWarps * kRowsM;
-  const dim3 grid((d + rows_per_block - 1) / rows_per_block);
-  q40_matvec_multi_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const uint4*>(qs), static_cast<const __half*>(d16),
-      static_cast<const float*>(x), static_cast<float*>(out), d, nb);
+  kernel<<<dim3(grid_x, splits), wr * wk * 32, smem, stream>>>(
+      static_cast<const uint8_t*>(qs), static_cast<const uint8_t*>(d16),
+      static_cast<const float*>(x), static_cast<float*>(out),
+      static_cast<float*>(part), static_cast<int*>(tickets), d, nb, wr, wk,
+      kb);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K1m: x (t, nb*32) f32 -> out (t, d) f32 for t in 2..8. Launch on
-// `stream`; returns the cudaGetLastError() code (0 = launched).
-extern "C" int q40_matvec_multi(const void* qs, const void* d16,
-                                const void* x, void* out, int t, int d,
-                                int nb, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (t) {
-    case 2: return launch_multi<2>(qs, d16, x, out, d, nb, s);
-    case 3: return launch_multi<3>(qs, d16, x, out, d, nb, s);
-    case 4: return launch_multi<4>(qs, d16, x, out, d, nb, s);
-    case 5: return launch_multi<5>(qs, d16, x, out, d, nb, s);
-    case 6: return launch_multi<6>(qs, d16, x, out, d, nb, s);
-    case 7: return launch_multi<7>(qs, d16, x, out, d, nb, s);
-    case 8: return launch_multi<8>(qs, d16, x, out, d, nb, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// K1, T = 1. Launch on `stream`; returns the cudaGetLastError() code
+// K1: x (nb*32) f32 -> out (d) f32. The plan (wr row warps x wk split warps
+// a block, grid_x blocks per split, `splits` splits of kb blocks) comes from
+// ops/q40.py matvec_plan; part is (splits, 1, d) f32 scratch when splits >
+// 1, tickets a zeroed int32 array of at least ceil(d / (32 wr)) entries,
+// left zeroed. Launch on `stream`; returns the cudaGetLastError() code
 // (0 = launched).
 extern "C" int q40_matvec(const void* qs, const void* d16, const void* x,
-                          void* out, int d, int nb, void* stream) {
-  const size_t smem = static_cast<size_t>(nb) * kBlockPad * sizeof(float);
-  static size_t granted[kMaxDevices];
-  const cudaError_t e = opt_in_smem(q40_matvec_kernel, smem, granted);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((d + kWarps - 1) / kWarps);
-  q40_matvec_kernel<<<grid, kWarps * 32, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(qs), static_cast<const __half*>(d16),
-      static_cast<const float*>(x), static_cast<float*>(out), d, nb);
-  return static_cast<int>(cudaGetLastError());
+                          void* out, void* part, void* tickets, int d,
+                          int nb, int wr, int wk, int grid_x, int splits,
+                          int kb, void* stream) {
+  return launch<1>(qs, d16, x, out, part, tickets, d, nb, wr, wk, grid_x,
+                   splits, kb, static_cast<cudaStream_t>(stream));
+}
+
+// K1m: x (t, nb*32) f32 -> out (t, d) f32 for t in 2..8, as K1 (part is
+// (splits, t, d)).
+extern "C" int q40_matvec_multi(const void* qs, const void* d16,
+                                const void* x, void* out, void* part,
+                                void* tickets, int t, int d, int nb, int wr,
+                                int wk, int grid_x, int splits, int kb,
+                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define Q40_MULTI_CASE(T)                                                  \
+  case T:                                                                  \
+    return launch<T>(qs, d16, x, out, part, tickets, d, nb, wr, wk, grid_x, \
+                     splits, kb, s);
+  switch (t) {
+    Q40_MULTI_CASE(2)
+    Q40_MULTI_CASE(3)
+    Q40_MULTI_CASE(4)
+    Q40_MULTI_CASE(5)
+    Q40_MULTI_CASE(6)
+    Q40_MULTI_CASE(7)
+    Q40_MULTI_CASE(8)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef Q40_MULTI_CASE
 }

@@ -1,7 +1,8 @@
-// K1's row body (q40_matvec.cu), shared with the fused decode-layer kernels
-// (fused_layer.cu): the dot of one Q40 weight row with a vector staged in
-// shared memory, one warp per row, so a fused matvec row gives K1's bits on
-// the same input.
+// The classic T = 1 row body (K1's before its tensor-core redesign, kept
+// as the Q40 layout probe's P0, nb_probe.cu), shared with the fused
+// decode-layer kernels (fused_layer.cu): the dot of one Q40 weight row with
+// a vector staged in shared memory, one warp per row, so a fused matvec row
+// gives P0's bits on the same input.
 //
 // The staged vector pads each 32-value block to kBlockPad = 36 floats, so
 // that the lanes' float4 reads of 8 different blocks fall on distinct

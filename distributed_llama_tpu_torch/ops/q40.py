@@ -10,8 +10,12 @@ on ``MULTI_T_MAX``:
 * T = 1: K1, ``csrc/q40_matvec.cu`` ``q40_matvec`` (the T=1 matvec
   bodies, every TPU tiling), bound by the packed weight bytes;
 * 2 <= T <= 8: K1m, ``csrc/q40_matvec.cu`` ``q40_matvec_multi``
-  (``_kernel_multi`` -> ``_matvec_body_multi``), one unpack of each weight
-  block for all T rows;
+  (``_kernel_multi`` -> ``_matvec_body_multi``), the same skeleton, one
+  unpack of each weight block for all T rows. Both run their products on
+  the tensor cores, exactly: x in three bf16 pieces (``bf16_split3``),
+  code - 8 in bf16, a per-Q40-block sum scaled in f32
+  (``q40_matmul_split_model`` is their arithmetic in plain torch), with
+  the rows, blocks and K splits of ``matvec_plan``;
 * T > 8: K3, ``csrc/q40_gemm.cu`` (``_kernel`` -> ``_matmul_body`` in f32
   parity mode, and its scratch / nb-major tilings), products on the tensor
   cores by the 3xTF32 split (wgmma fed by a TMA ring), as the JAX body's
@@ -57,10 +61,10 @@ from ._build import CudaKernel
 from .quants import QK, dequantize_q40_torch
 
 KERNEL = CudaKernel("q40_matvec.cu", "q40_matvec",
-                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                     + [ctypes.c_void_p])
 KERNEL_MULTI = CudaKernel("q40_matvec.cu", "q40_matvec_multi",
-                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                          [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                           + [ctypes.c_void_p])
 KERNEL_GEMM = CudaKernel("q40_gemm.cu", "q40_gemm",
                          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -94,7 +98,7 @@ MULTI_T_BODIES = ("vpu", "dequant")
 MULTI_T_MAX = 8  # T above this takes the GEMM (the JAX package's threshold)
 
 _SMEM_LIMIT = 232448   # bytes of shared memory a block may use on sm_90
-_SMEM_PER_BLOCK = 144  # K1's staged bytes per 32-value block of x (36 floats)
+_SMEM_PER_SM = 233472  # bytes of shared memory an SM holds for its blocks
 
 # |kernel - plain| <= KERNEL_RTOL * max|plain|: they differ in summation
 # order (and K3 by its 3xTF32 products, q40_matmul_tf32_model: ~2^-22
@@ -133,6 +137,107 @@ GEMM_TF32_STAGE_BLOCKS = 1
 GEMM_TF32_WAVE_STAGES = 2
 GEMM_TF32_WG_COST = {2: 2.0, 3: 2.9}
 GEMM_TF32_SPLIT_FULL_TILE = 128
+
+
+# K1's and K1m's tiling (csrc/q40_matvec.cu): a block of wr x wk warps (4
+# or 8; wk >= 2) walks row tiles of 32 wr rows over one K split, through a
+# ring of MATVEC_STAGES stages of 4 wk Q40 blocks that all its threads copy
+# (each row's codes, and the aligned words holding its scales) and each
+# warp takes 4 blocks of; x staged as three bf16 pieces (192 bytes a Q40
+# block and token), a warp's sums 3T f32 a row. Up to T = 2 the kernel is
+# built for 128 registers a thread (16 warps an SM), above for 255 (8). A
+# split gives every warp a block of its first stage, and a split-K tile
+# needs a ticket (MATVEC_TICKETS a device).
+MATVEC_WARPS = (4, 8)
+MATVEC_STAGES = 4
+MATVEC_MAX_SPLITS = 64
+MATVEC_TICKETS = 1 << 16
+# the plan's cost, in bytes of weights streamed by the busiest SM: a block's
+# fixed cost (its start, x staged once), a tile's (its warps' sums met in
+# shared memory) and a split tile's (partials written, a ticket, the last
+# block's sum)
+MATVEC_BLOCK_BYTES = 16384
+MATVEC_TILE_BYTES = 4096
+MATVEC_SPLIT_BYTES = 16384
+
+
+def matvec_smem(t: int, kb: int, wr: int, wk: int) -> int:
+    """Shared memory of a K1/K1m block (csrc/q40_matvec.cu smem_bytes): kb
+    Q40 blocks of x in three bf16 pieces for t tokens, the ring (a stage:
+    32 wr rows x 4 wk blocks of codes and each row's 8 wk + 8 bytes of
+    scale words), each warp's 32 x 3t f32 sums, and a flag."""
+    return (kb * 3 * t * 64
+            + MATVEC_STAGES * (2048 * wr * wk + 32 * wr * (8 * wk + 8))
+            + wr * wk * 32 * 3 * t * 4 + 16)
+
+
+def matvec_blocks_per_sm(t: int, warps: int, smem: int) -> int:
+    """K1/K1m blocks an SM holds: by its shared memory and by its
+    registers (up to T = 2 built for 128 a thread, 16 warps an SM; above,
+    for 255, 8 warps)."""
+    return min(_SMEM_PER_SM // (smem + 1024), (16 if t <= 2 else 8) // warps)
+
+
+def _matvec_cost(t: int, d: int, kb: int, wr: int, grid_x: int,
+                 splits: int, sms: int) -> float:
+    """The modelled time of a K1/K1m plan, in bytes of the busiest SM: its
+    blocks (as many as the grid puts on one SM) each walk their row tiles
+    (32 wr rows x kb Q40 blocks of 18 bytes, plus a tile's fixed cost)
+    after their own fixed cost and x's staging (t * kb * 128 bytes from
+    L2, at half the weight's cost)."""
+    rows = 32 * wr
+    tiles = -(-d // rows)
+    tile_bytes = (rows * kb * 18 + MATVEC_TILE_BYTES
+                  + (MATVEC_SPLIT_BYTES if splits > 1 else 0))
+    block = (-(-tiles // grid_x) * tile_bytes + MATVEC_BLOCK_BYTES
+             + t * kb * 64)
+    return -(-grid_x * splits // sms) * block
+
+
+def matvec_plans(t: int, d: int, nb: int, sms: int):
+    """Every K1/K1m plan (wr, wk, grid_x, splits, kb) for T = t, d rows and
+    nb Q40 blocks on ``sms`` SMs, with its modelled cost: blocks of wr x wk
+    warps (MATVEC_WARPS, wk >= 2), ``splits`` K splits of kb blocks (the
+    last possibly shorter, none empty) whose x and ring fit a block's
+    shared memory, each split giving every warp a block of its first stage
+    (4 wk blocks, or all nb), and grid_x blocks a split: one wave, as many
+    as the SMs hold (matvec_blocks_per_sm), at most one a tile. Yields
+    (cost, plan)."""
+    for splits in range(1, min(MATVEC_MAX_SPLITS, nb) + 1):
+        kb = -(-nb // splits)
+        if -(-nb // kb) != splits:
+            continue
+        last = nb - (splits - 1) * kb  # the shortest split
+        for wr in (4, 2, 1):
+            for wk in (2, 4, 8):
+                warps = wr * wk
+                if warps not in MATVEC_WARPS or last < min(nb, 4 * wk):
+                    continue
+                smem = matvec_smem(t, kb, wr, wk)
+                if smem > _SMEM_LIMIT:
+                    continue
+                per_sm = matvec_blocks_per_sm(t, warps, smem)
+                tiles = -(-d // (32 * wr))
+                grid_x = max(1, min(tiles, sms * per_sm // splits))
+                yield (_matvec_cost(t, d, kb, wr, grid_x, splits, sms),
+                       (wr, wk, grid_x, splits, kb))
+
+
+@functools.lru_cache(maxsize=None)
+def matvec_plan(t: int, d: int, nb: int,
+                sms: int) -> tuple[int, int, int, int, int]:
+    """(wr, wk, grid_x, splits, kb) of K1 (t = 1) or K1m (t = 2..8): of
+    the plans of matvec_plans whose blocks keep at least 96% of the SMs
+    busy (all plans where none does), the one with the least modelled
+    cost; on a tie the fewest splits, then the most rows a tile, then the
+    most warps (the model does not see a block's warps: on the H100 8
+    warps beat 4 at equal rows, by up to 1.35x at T = 3..5,
+    tools/plan_sweep.py)."""
+    plans = list(matvec_plans(t, d, nb, sms))
+    fill = [cp for cp in plans if cp[1][2] * cp[1][3] >= 0.96 * sms]
+    best = min(((cost, plan[3], -plan[0], -plan[0] * plan[1]), plan)
+               for cost, plan in fill or plans)
+    return best[1]
 
 
 def gemm_bf16_tile(t: int) -> int:
@@ -297,6 +402,34 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32_round(x.to(torch.float32) - hi)
 
 
+def bf16_split3(x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The three bf16 pieces of f32 x that K1 and K1m stage (csrc/q40_tc.cuh
+    split3), as f32 tensors of bf16 values: p0 = x with its low 16 bits
+    cleared, p1 = the same cut of r1 = (x - p0) * 2^8, p2 = (r1 - p1) * 2^8,
+    so x = p0 + p1 * 2^-8 + p2 * 2^-16 exactly for every finite x."""
+    x = x.to(torch.float32).contiguous()
+    p0 = (x.view(torch.int32) & -0x10000).view(torch.float32)
+    r1 = (x - p0) * 256.0
+    p1 = (r1.view(torch.int32) & -0x10000).view(torch.float32)
+    return p0, p1, (r1 - p1) * 256.0
+
+
+def q40_matmul_split_model(w: Q40Weight, x: torch.Tensor) -> torch.Tensor:
+    """K1's and K1m's arithmetic in plain torch (a model for the tests; no
+    route calls it): x in its three bf16 pieces (bf16_split3), each piece's
+    exact products with code - 8 summed per Q40 block in f32, scaled by the
+    block's f16 scale and summed over the blocks in f32, then the pieces
+    joined as p0 + (p1 + p2 / 2^8) / 2^8."""
+    d, nb = w.qs.shape[-3], w.qs.shape[-2]
+    codes = torch.cat([w.qs & 0xF, w.qs >> 4], -1).to(torch.float32) - 8.0
+    scale = w.d16.to(torch.float32)
+    xt = x.to(torch.float32).reshape(-1, nb, QK)
+    sums = [(torch.einsum("tbj,rbj->trb", p, codes) * scale).sum(-1)
+            for p in bf16_split3(xt)]
+    out = sums[0] + (sums[1] + sums[2] / 256.0) / 256.0
+    return out.reshape(*x.shape[:-1], d)
+
+
 def q40_matmul_tf32_model(w: Q40Weight, x: torch.Tensor) -> torch.Tensor:
     """K3's rounding in plain torch (a model for the tests; no route calls
     it): the dequantized weight split exactly into w_hi + w_lo, x into
@@ -354,13 +487,32 @@ def _check(w: Q40Weight, x: torch.Tensor) -> tuple[int, int]:
     return d, nb
 
 
+_TICKETS: dict[int, torch.Tensor] = {}
+
+
+def _tickets(device: torch.device) -> torch.Tensor:
+    """K1's and K1m's split-K tickets on ``device``: MATVEC_TICKETS int32
+    zeros, made on the first call there (an eager one: every captured path
+    runs its first step eagerly) and left zeroed by every launch. Every
+    launch on the device shares them, so the port launches K1 and K1m on
+    one stream at a time."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    tickets = _TICKETS.get(index)
+    if tickets is None:
+        tickets = _TICKETS[index] = torch.zeros(
+            MATVEC_TICKETS, dtype=torch.int32, device=device)
+    return tickets
+
+
 def q40_matmul(w: Q40Weight, x: torch.Tensor, bf16: bool = False,
                multi_body: str = "vpu") -> torch.Tensor:
     """out[..., d] = dequant(w)(d, n) @ x[..., n], f32.
 
     CPU tensors take the plain version; CUDA tensors launch K1 (T = 1), for
     2 <= T <= 8 K1m (``multi_body="vpu"``) or K1d ("dequant"), and for
-    T > 8 K3 (f32) or K3b (``bf16``).
+    T > 8 K3 (f32) or K3b (``bf16``). K1 and K1m are one launch each at
+    any width, their split-K sums included.
     """
     if x.device.type == "cpu" and w.qs.device.type == "cpu":
         return q40_matmul_plain(w, x, bf16, multi_body)
@@ -374,18 +526,33 @@ def q40_matmul(w: Q40Weight, x: torch.Tensor, bf16: bool = False,
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = (w.qs.data_ptr(), w.d16.data_ptr(), x.data_ptr(), out.data_ptr())
-    if t == 1:
-        if nb * _SMEM_PER_BLOCK > _SMEM_LIMIT:
-            raise ValueError(f"q40_matmul: input width {nb * QK} exceeds "
-                             f"the T=1 kernel's shared-memory staging of x")
-        KERNEL.launch(*ptrs, d, nb, stream)
-    elif t <= MULTI_T_MAX:
-        kernel = (KERNEL_MULTI_BF16 if _bf16_body(t, bf16, multi_body)
-                  else KERNEL_MULTI)
-        kernel.launch(*ptrs, t, d, nb, stream)
-    else:
+    if t > MULTI_T_MAX:
         _gemm(w, x, out, t, d, nb, stream, bf16)
+    elif _bf16_body(t, bf16, multi_body):
+        KERNEL_MULTI_BF16.launch(*ptrs, t, d, nb, stream)
+    else:
+        _matvec(w, x, out, t, d, nb, stream)
     return out
+
+
+def _matvec(w: Q40Weight, x: torch.Tensor, out: torch.Tensor, t: int,
+            d: int, nb: int, stream: int) -> None:
+    """K1 (t = 1) or K1m over matvec_plan's blocks and K splits; with
+    more than one split the kernel's last block per tile adds the partials
+    (scratch (splits, t, d)) behind a ticket."""
+    plan = matvec_plan(t, d, nb, sm_count(x.device))
+    wr, splits = plan[0], plan[3]
+    if splits > 1 and -(-d // (32 * wr)) > MATVEC_TICKETS:
+        raise ValueError(f"q40_matmul: {d} rows need more split-K tickets "
+                         f"than the {MATVEC_TICKETS} kept")
+    part = out if splits == 1 else torch.empty(
+        (splits, t, d), dtype=torch.float32, device=x.device)
+    ptrs = (w.qs.data_ptr(), w.d16.data_ptr(), x.data_ptr(), out.data_ptr(),
+            part.data_ptr(), _tickets(x.device).data_ptr())
+    if t == 1:
+        KERNEL.launch(*ptrs, d, nb, *plan, stream)
+    else:
+        KERNEL_MULTI.launch(*ptrs, t, d, nb, *plan, stream)
 
 
 def _gemm(w: Q40Weight, x: torch.Tensor, out: torch.Tensor, t: int,

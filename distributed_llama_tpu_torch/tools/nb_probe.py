@@ -7,19 +7,23 @@ K1's layout (qs uint8 (L, d, nb, 16), d16 f16 (L, d, nb): 18 bytes per 32
 values), with the kernels of csrc/nb_probe.cu:
 
   dma    — P1 probe_stream: every code and scale byte read once, XOR-folded,
-           nothing unpacked, x unread: the stream ceiling of K1's pattern.
-  v0     — K1 itself (ops/q40.KERNEL), the production body.
+           nothing unpacked, x unread: the stream ceiling of P0's pattern.
+  v0     — P0 probe_classic: the classic T = 1 body (K1's before its
+           tensor-core redesign; the row body the fused decode-layer
+           kernels share), the JAX probe's production body.
   v1     — P3 probe_nomask: the whole byte widened, no low-nibble mask;
            xhi16 = xhi - 16 * xlo and the block sums of x made by torch once
            per call.
-  v0_128 — K1 again: the JAX probe's 128-row tile is a constraint of the
+  v0_128 — P0 again: the JAX probe's 128-row tile is a constraint of the
            TPU's compiler with no counterpart here (its line says so).
-  v0r    — P2 probe_xglobal: K1's row body reading x from a padded global
+  v0r    — P2 probe_xglobal: P0's row body reading x from a padded global
            copy (torch pads it once per call) instead of restaging it in
            shared memory in every block.
   i4     — P4 probe_signed: codes stored as signed nibbles (byte ^ 0x88,
            made once per chain outside the timed window), sign-extended,
            with no - 8 term.
+  k1     — K1 itself (ops/q40.KERNEL), the port's production T = 1 body
+           (tensor-core products, split K), read beside the others.
 
 Method, as the JAX probe's: weights are made on the device from a seeded
 torch.Generator; layer 0 of each variant is held against a float64 numpy
@@ -29,16 +33,20 @@ against its exact integer reference) before any timing; then ``--layers x
 once to warm up and once under obs.profiler.trace. The per-call time is
 the traced device time of the variant's kernel, found by base name through
 utils.it_split.parse_trace, over its event count, which must equal the
-call count. Printed beside it: GB/s, the bound (18 * d * nb bytes at the
-published 3.35 TB/s of the H100 SXM) and the share of it reached, and the
-chain's CUDA-event time per call (kernel and torch glue). A header gives
-the card's name and power limit.
+call count. A trace that holds another count of them is taken again, up
+to TRACE_TRIES chains in all, and ``traces`` in the result counts them:
+the profiler, started anew in the same process, now and then records
+none or only some of a chain's kernels (the launch counts show every call
+launched). Printed beside it: GB/s, the bound
+(18 * d * nb bytes at the published 3.35 TB/s of the H100 SXM) and the
+share of it reached, and the chain's CUDA-event time per call (kernel and
+torch glue). A header gives the card's name and power limit.
 
 On the card (from the repository root):
 
     python3 -m distributed_llama_tpu_torch.tools.nb_probe [--shape
         w13|wqkv|wo|tiny] [--layers 8] [--reps 4]
-        [--variants dma,v0,v1,v0_128,v0r,i4] [--device cuda|cpu]
+        [--variants dma,v0,v1,v0_128,v0r,i4,k1] [--device cuda|cpu]
 
 ``--device cpu`` runs the plain versions through the parity gate and the
 chain and prints no time, rate or share ("not measured (cpu)"). Without a
@@ -68,23 +76,27 @@ from ..utils import it_split
 # 13B leaf shapes (d = output rows, n = input width)
 SHAPES = {"w13": (27648, 5120), "wqkv": (15360, 5120), "wo": (5120, 5120),
           "tiny": (256, 256)}  # CPU smoke
-VARIANTS = ("dma", "v0", "v1", "v0_128", "v0r", "i4")
+VARIANTS = ("dma", "v0", "v1", "v0_128", "v0r", "i4", "k1")
 NJ = 16           # code bytes per 32-value block
 BLOCK_PAD = 36    # floats per staged block of x (csrc/q40_row.cuh kBlockPad)
 BYTES_PER_S = 3.35e12  # published HBM rate of the H100 SXM
+TRACE_TRIES = 5  # traced chains before a variant's trace count fails
 TRACE_DIR = BUILD_DIR.parent / "nb_probe"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+CLASSIC = CudaKernel("nb_probe.cu", "probe_classic",
+                     [_P] * 4 + [_I] * 2 + [_P])
 STREAM = CudaKernel("nb_probe.cu", "probe_stream", [_P] * 3 + [_I] * 2 + [_P])
 XGLOBAL = CudaKernel("nb_probe.cu", "probe_xglobal",
                      [_P] * 4 + [_I] * 2 + [_P])
 NOMASK = CudaKernel("nb_probe.cu", "probe_nomask", [_P] * 4 + [_I] * 2 + [_P])
 SIGNED = CudaKernel("nb_probe.cu", "probe_signed", [_P] * 4 + [_I] * 2 + [_P])
-KERNELS = (STREAM, XGLOBAL, NOMASK, SIGNED)
+KERNELS = (CLASSIC, STREAM, XGLOBAL, NOMASK, SIGNED)
 # the kernel each variant launches, and the name its trace events carry
-RUNS = {"dma": STREAM, "v0": q40.KERNEL, "v1": NOMASK, "v0_128": q40.KERNEL,
-        "v0r": XGLOBAL, "i4": SIGNED}
-TRACE_NAMES = {STREAM: "probe_stream_kernel", XGLOBAL: "probe_xglobal_kernel",
+RUNS = {"dma": STREAM, "v0": CLASSIC, "v1": NOMASK, "v0_128": CLASSIC,
+        "v0r": XGLOBAL, "i4": SIGNED, "k1": q40.KERNEL}
+TRACE_NAMES = {CLASSIC: "probe_classic_kernel",
+               STREAM: "probe_stream_kernel", XGLOBAL: "probe_xglobal_kernel",
                NOMASK: "probe_nomask_kernel", SIGNED: "probe_signed_kernel",
                q40.KERNEL: "q40_matvec_kernel"}
 
@@ -136,7 +148,7 @@ def probe_stream_plain(w: Q40Weight) -> torch.Tensor:
 
 
 def probe_xglobal_plain(w: Q40Weight, x: torch.Tensor) -> torch.Tensor:
-    """P2's function: K1's."""
+    """P2's function: K1's (and P0's)."""
     return q40.q40_matmul_plain(w, x.reshape(1, -1)).reshape(-1)
 
 
@@ -228,6 +240,17 @@ def _launch(kernel: CudaKernel, w: Q40Weight, xs: list[torch.Tensor],
     return out
 
 
+def probe_classic(w: Q40Weight, x: torch.Tensor) -> torch.Tensor:
+    """P0 on a CUDA weight (K1's function, the plain version on a CPU
+    one): x (n,) -> (d,) f32; the fused tail (K9) gives its bits on the
+    same rows."""
+    if _on_cpu(w):
+        return probe_xglobal_plain(w, x)
+    nb = w.qs.shape[-2]
+    d, nb = _check("probe_classic", w, (x, nb * QK), staged=True)
+    return _launch(CLASSIC, w, [x], d, nb)
+
+
 def probe_stream(w: Q40Weight) -> torch.Tensor:
     """P1 on a CUDA weight (the plain version on a CPU one): (d,) f32."""
     if _on_cpu(w):
@@ -301,6 +324,8 @@ def _caller(name: str, w: Q40Weight):
     if name == "dma":
         return lambda i, x: probe_stream(layer(w, i))
     if name in ("v0", "v0_128"):
+        return lambda i, x: probe_classic(layer(w, i), x)
+    if name == "k1":
         return lambda i, x: q40.q40_matmul(layer(w, i),
                                            x.reshape(1, -1)).reshape(-1)
     if name == "v0r":
@@ -350,17 +375,23 @@ def run_variant(name: str, shape: str, w: Q40Weight, x: torch.Tensor,
                parity_err=err, kernel=RUNS[name].symbol,
                bytes_per_call=18 * d * nb,
                bound_ms=18 * d * nb / BYTES_PER_S * 1e3,
-               events=None, ms=None, gbps=None, share=None, event_ms=None)
+               events=None, traces=0, ms=None, gbps=None, share=None,
+               event_ms=None)
     if w.qs.device.type != "cuda":
         return res
-    where = trace_dir / name
-    shutil.rmtree(where, ignore_errors=True)
-    torch.cuda.synchronize()  # the warm-up ends before the profiler starts
-    with profiler.trace(str(where), cuda=True):
-        chain(call, x, layers, reps)
-    splits = it_split.parse_trace(str(where))
     base = TRACE_NAMES[RUNS[name]]
-    events = sum(s.counts[base] for s in splits.values())
+    where = trace_dir / name
+    for traces in range(1, TRACE_TRIES + 1):
+        shutil.rmtree(where, ignore_errors=True)
+        torch.cuda.synchronize()  # the warm-up ends before the trace starts
+        with profiler.trace(str(where), cuda=True):
+            chain(call, x, layers, reps)
+        splits = it_split.parse_trace(str(where))
+        events = sum(s.counts[base] for s in splits.values())
+        if events == calls:
+            break
+        print(f"{name}: trace {traces} of {TRACE_TRIES} holds {events} "
+              f"{base} events, want {calls}", file=sys.stderr, flush=True)
     ns = sum(s.ops[base] for s in splits.values())
     if events != calls:
         raise AssertionError(f"{name}: the trace holds {events} "
@@ -373,7 +404,7 @@ def run_variant(name: str, shape: str, w: Q40Weight, x: torch.Tensor,
     end.record()
     end.synchronize()
     ms = ns / 1e6 / events
-    res.update(events=events, ms=ms,
+    res.update(events=events, traces=traces, ms=ms,
                gbps=res["bytes_per_call"] / (ms * 1e6),
                share=res["bound_ms"] / ms,
                event_ms=start.elapsed_time(end) / calls)
@@ -384,10 +415,13 @@ def describe(r: dict) -> str:
     """One variant's line."""
     head = (f"{r['shape']:5s} {r['variant']:6s} {r['kernel']:14s} parity "
             f"{r['parity_err']:.2e}, {r['calls']} chained calls")
-    note = (" (K1: the 128-row tile has no GPU meaning)"
-            if r["variant"] == "v0_128" else "")
+    note = {"v0_128": " (P0: the 128-row tile has no GPU meaning)",
+            "k1": " (K1, the production body)"}.get(r["variant"], "")
     if r["ms"] is None:
         return f"{head}: time, rate and share not measured (cpu){note}"
+    if r["traces"] > 1:
+        note += (f" ({r['traces']} traced chains: the earlier ones held "
+                 f"another count)")
     return (f"{head}: {r['ms']:.4f} ms/call (trace, {r['events']} events) "
             f"{r['gbps']:.1f} GB/s, bound {r['bound_ms']:.4f} ms, "
             f"{r['share']:.1%} of it; CUDA events {r['event_ms']:.4f} "

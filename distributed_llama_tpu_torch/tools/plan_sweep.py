@@ -1,9 +1,14 @@
-"""Time every split plan of K3 (``q40_gemm``: splits x warpgroups) and K4
-(``prefill_attention``: splits of the key range) at Llama-2-7B's shapes on
-the card, beside the plan the wrappers pick (``ops/q40.gemm_tf32_plan``,
+"""Time every plan of K1 and K1m (``q40_matvec``, ``q40_matvec_multi``:
+row and split warps a block, blocks a split, K splits), K3 (``q40_gemm``:
+splits x warpgroups) and K4 (``prefill_attention``: splits of the key
+range) at Llama-2-7B's shapes on the card, beside the plan the wrappers
+pick (``ops/q40.matvec_plan``, ``gemm_tf32_plan``,
 ``ops/attention.prefill_plan``). Run on a machine with an NVIDIA GPU:
 
-    python3 -m distributed_llama_tpu_torch.tools.plan_sweep
+    python3 -m distributed_llama_tpu_torch.tools.plan_sweep [--k1-t 1,2,8]
+        [--t 16,32,128] [--pos 384,1920]
+
+(an empty list skips that kernel).
 
 Each line gives the shape, the picked plan and its time, and the fastest
 plans of the sweep. A time covers the plan's whole call with its parts (K3's
@@ -25,6 +30,7 @@ from ..ops._build import build
 REPS = 25
 LAYER_SHAPES = [("wqkv", 12288, 4096), ("wo", 4096, 4096),
                 ("w13", 22016, 4096), ("w2", 4096, 11008)]
+WCLS = ("wcls", 32000, 4096)
 HS, N_KV = 128, 32  # 7B's attention: 32 kv heads of 128
 
 
@@ -48,6 +54,34 @@ def _timer():
         return statistics.median(times)
 
     return time
+
+
+def sweep_k1(time, t: int, sms: int) -> None:
+    """K1 (t = 1) or K1m over every plan of ops/q40.matvec_plans at 7B's
+    layer shapes and the classifier."""
+    g = torch.Generator(device="cuda").manual_seed(100 + t)
+    stream = torch.cuda.current_stream().cuda_stream
+    tickets = q40._tickets(torch.device("cuda", torch.cuda.current_device()))
+    kernel = q40.KERNEL if t == 1 else q40.KERNEL_MULTI
+    for name, d, n in [*LAYER_SHAPES, WCLS]:
+        nb = n // 32
+        w = q40.random_q40(d, n, "cuda", g)
+        x = torch.randn((t, n), device="cuda", generator=g)
+        out = torch.empty((t, d), device="cuda")
+        ms = {}
+        for _, plan in q40.matvec_plans(t, d, nb, sms):
+            part = torch.empty((plan[3], t, d), device="cuda")
+            head = (w.qs.data_ptr(), w.d16.data_ptr(), x.data_ptr(),
+                    out.data_ptr(), part.data_ptr(), tickets.data_ptr())
+            dims = (d, nb) if t == 1 else (t, d, nb)
+
+            def run(plan=plan, head=head, dims=dims):
+                kernel.launch(*head, *dims, *plan, stream)
+
+            ms[plan] = time(run)
+        pick = q40.matvec_plan(t, d, nb, sms)
+        _report(f"K1{'m' if t > 1 else ''} {name} T={t}", pick, ms,
+                "(wr, wk, grid_x, splits, kb)")
 
 
 def sweep_k3(time, t: int, sms: int) -> None:
@@ -132,6 +166,8 @@ def _report(label, pick, ms, what) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--k1-t", default="1,2,3,4,5,6,7,8",
+                    help="K1's and K1m's token counts (comma-separated)")
     ap.add_argument("--t", default="16,32,128",
                     help="K3's token counts (comma-separated)")
     ap.add_argument("--pos", default="384,1920",
@@ -140,15 +176,22 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("plan_sweep: no CUDA device")
         return 1
-    build([q40.KERNEL_GEMM, q40.KERNEL_SPLIT_TF32, q40.KERNEL_GEMM_BF16_REDUCE,
+    build([q40.KERNEL, q40.KERNEL_MULTI, q40.KERNEL_GEMM,
+           q40.KERNEL_SPLIT_TF32, q40.KERNEL_GEMM_BF16_REDUCE,
            attention.PREFILL_KERNEL, attention.PREFILL_KERNEL_KVBF16,
            attention.PREFILL_BF16_COMBINE])
     time = _timer()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for t in map(int, args.t.split(",")):
+
+    def ints(text):
+        return [int(v) for v in text.split(",") if v]
+
+    for t in ints(args.k1_t):
+        sweep_k1(time, t, sms)
+    for t in ints(args.t):
         sweep_k3(time, t, sms)
     for cache in (torch.float32, torch.bfloat16):
-        for pos in map(int, args.pos.split(",")):
+        for pos in ints(args.pos):
             sweep_k4(time, pos, 128, cache, sms)
     return 0
 

@@ -1,5 +1,7 @@
-"""The port's CUDA kernels against their plain versions on the card, at the
-small and ragged shapes that chip_smoke.py's 7B shapes do not reach: row
+"""The port's CUDA kernels against their plain versions on the card: the
+tensor-core f32 decode matvecs (K1, K1m) at every T on 7B's shapes and
+13B's and 70B's w2, with their bits, split-K tickets and graph replays;
+then the small and ragged shapes that chip_smoke.py's 7B shapes do not reach: row
 counts off the kernels' row blocks, block counts off their unrolls, stages
 and x slices, odd T, an input width whose staged x needs more than 48 KB
 of shared memory (70B's w2), head sizes below 128, and every kv_mul the
@@ -146,6 +148,94 @@ def test_q40_gemm_reads_scales_at_an_odd_offset(gen, d, n):
     got = q40.q40_matmul(odd, x)
     want = q40.q40_matmul_plain(w, x)
     err = (got - want).abs().max().item()
+    assert err <= q40.KERNEL_RTOL * want.abs().max().item(), err
+
+
+# K1 (T = 1) and K1m (T = 2..8) on tensor cores: 7B's shapes at every T,
+# 13B's and 70B's w2 (432 and 896 Q40 blocks) at T = 1, 2 and 8, each
+# against plain within KERNEL_RTOL and the same bits from two launches
+K1_SHAPES = [(12288, 4096), (4096, 4096), (22016, 4096), (4096, 11008),
+             (32000, 4096)]
+
+
+@pytest.mark.parametrize("t", range(1, 9))
+@pytest.mark.parametrize("d,n", K1_SHAPES)
+def test_q40_matvec_kernels_match_plain_at_7b_shapes(gen, d, n, t):
+    _matvec_case(gen, d, n, t)
+
+
+@pytest.mark.parametrize("t", [1, 2, 8])
+@pytest.mark.parametrize("d,n", [(5120, 13824), (8192, 28672)])
+def test_q40_matvec_kernels_hold_their_tolerance_at_13b_and_70b_depth(
+        gen, d, n, t):
+    _matvec_case(gen, d, n, t)
+
+
+# ragged rows and block counts: rows past the last tile, splits of unequal
+# length, fewer blocks than a stage
+@pytest.mark.parametrize("t", [1, 3, 8])
+@pytest.mark.parametrize("d,n", [(1, 32), (7, 64), (37, 96), (33, 32 * 129),
+                                 (100, 32 * 7), (5, 28672), (300, 32 * 345),
+                                 (3, 32 * 2048)])
+def test_q40_matvec_kernels_at_ragged_shapes(gen, d, n, t):
+    _matvec_case(gen, d, n, t)
+
+
+def _matvec_case(gen, d, n, t):
+    w = q40.random_q40(d, n, "cuda", gen)
+    x = torch.randn((t, n), device="cuda", generator=gen)
+    kernel = q40.KERNEL if t == 1 else q40.KERNEL_MULTI
+    before = kernel.launches
+    got = q40.q40_matmul(w, x)
+    again = q40.q40_matmul(w, x)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2  # one launch a call, splits too
+    assert torch.equal(got, again)
+    want = q40.q40_matmul_plain(w, x)
+    assert got.shape == want.shape == (t, d)
+    err = (got - want).abs().max().item()
+    assert err <= q40.KERNEL_RTOL * want.abs().max().item(), err
+    assert not q40._tickets(x.device).any()  # every ticket back at 0
+
+
+@pytest.mark.parametrize("t", [1, 5])
+@pytest.mark.parametrize("d,n", [(33, 32 * 129), (8, 64)])
+def test_q40_matvec_reads_scales_at_an_odd_offset(gen, d, n, t):
+    """K1 and K1m copy the f16 scales as aligned 32-bit words: scales that
+    start in the second half of one, with an odd count."""
+    w = q40.random_q40(d, n, "cuda", gen)
+    raw = torch.empty(w.d16.numel() + 1, dtype=torch.float16, device="cuda")
+    raw[1:] = w.d16.reshape(-1)
+    odd = Q40Weight(w.qs, raw[1:].view(w.d16.shape))
+    x = torch.randn((t, n), device="cuda", generator=gen)
+    got = q40.q40_matmul(odd, x)
+    want = q40.q40_matmul_plain(w, x)
+    err = (got - want).abs().max().item()
+    assert err <= q40.KERNEL_RTOL * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("t", [1, 8])
+def test_q40_matvec_split_k_replays_from_a_graph(gen, t):
+    """70B's w2 splits K (several blocks add each tile behind a ticket):
+    captured in a CUDA graph and replayed on new inputs, every replay
+    gives the eager bits and leaves every ticket at 0."""
+    d, n = 8192, 28672
+    assert q40.matvec_plan(t, d, n // 32, _sms())[3] > 1
+    w = q40.random_q40(d, n, "cuda", gen)
+    x = torch.randn((t, n), device="cuda", generator=gen)
+    q40.q40_matmul(w, x)  # the eager first call (tickets, opt-in)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = q40.q40_matmul(w, x)
+    for seed in range(3):
+        x.copy_(torch.randn((t, n), device="cuda", generator=gen))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, q40.q40_matmul(w, x)), seed
+        assert not q40._tickets(x.device).any()
+    want = q40.q40_matmul_plain(w, x)
+    err = (out - want).abs().max().item()
     assert err <= q40.KERNEL_RTOL * want.abs().max().item(), err
 
 
@@ -1108,8 +1198,12 @@ def test_fused_head_kernel_matches_plain(gen, shape, pos):
 
 @pytest.mark.parametrize("shape", FUSED_SHAPES)
 def test_fused_tail_kernel_matches_plain_and_k1_bits(gen, shape):
-    """K9 against plain; and its wo and w2 rows give K1's bits: the scratch
-    xnew is x + K1(wo, ao), the output xnew + K1(w2, hb), bit for bit."""
+    """K9 against plain; and its wo and w2 rows give the classic row body's
+    bits (the Q40 layout probe's P0, K1's body before its tensor-core
+    redesign): the scratch xnew is x + P0(wo, ao), the output
+    xnew + P0(w2, hb), bit for bit."""
+    from distributed_llama_tpu_torch.tools import nb_probe
+
     lw, x, _, _ = _fused_inputs(gen, *shape)
     ao = torch.randn(x.shape, device="cuda", generator=gen)
     before = layer.TAIL_KERNEL.launches
@@ -1119,10 +1213,11 @@ def test_fused_tail_kernel_matches_plain_and_k1_bits(gen, shape):
     _close(got, layer.q40_tail_fused_plain(ao, x, lw["wo"], lw["w13"],
                                            lw["w2"], lw["rms_ffn"]))
     s = layer._scratch(x.device, shape[0], shape[1])
-    torch.testing.assert_close(s.xnew[None], x + q40.q40_matmul(lw["wo"], ao),
-                               rtol=0, atol=0)
-    torch.testing.assert_close(got, s.xnew[None] + q40.q40_matmul(
-        lw["w2"], s.hb[None].clone()), rtol=0, atol=0)
+    torch.testing.assert_close(
+        s.xnew[None], x + nb_probe.probe_classic(lw["wo"], ao[0])[None],
+        rtol=0, atol=0)
+    torch.testing.assert_close(got, s.xnew[None] + nb_probe.probe_classic(
+        lw["w2"], s.hb.clone())[None], rtol=0, atol=0)
     assert s.bar[0].item() == 0  # the barrier leaves its count at 0
 
 
@@ -1303,6 +1398,10 @@ PROBE_SHAPES = [(256, 256), (7, 64), (40, 32 * 37), (33, 32 * 129),
 
 def _probe_case(variant, w, x):
     """(kernel call, plain call, kernel, tolerance factor)."""
+    if variant == "v0":
+        return (lambda: nb_probe.probe_classic(w, x),
+                lambda: nb_probe.probe_xglobal_plain(w, x), nb_probe.CLASSIC,
+                nb_probe.KERNEL_RTOL)
     if variant == "dma":
         return (lambda: nb_probe.probe_stream(w),
                 lambda: nb_probe.probe_stream_plain(w), nb_probe.STREAM,
@@ -1322,7 +1421,7 @@ def _probe_case(variant, w, x):
             nb_probe.KERNEL_RTOL)
 
 
-@pytest.mark.parametrize("variant", ["dma", "v0r", "v1", "i4"])
+@pytest.mark.parametrize("variant", ["v0", "dma", "v0r", "v1", "i4"])
 @pytest.mark.parametrize("d,n", PROBE_SHAPES)
 def test_probe_kernels_match_plain(gen, variant, d, n):
     w = q40.random_q40(d, n, "cuda", gen)
