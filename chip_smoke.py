@@ -38,7 +38,10 @@ no result line):
    cache, with its split plan, its split combine, the same bits from two
    launches and a poisoned cache suffix past pos+T that must not change
    its output; the small-T bf16-product Q40 body
-   (K1d) at T = 2, 4, 8 on the four layer matrices, and the batched decode attention (K5) at
+   (K1d) at T = 2..8 on the four layer matrices and at T = 2, 8 on 13B's
+   and 70B's w2, with its plan and the same bits from two launches, and its
+   bf16-rounded weights read back bit for bit through one-hot x over every
+   finite f16 scale (q40.sweep_q40), and the batched decode attention (K5) at
    7B and GQA shapes for B = 1 and 8 at a shared pos 63 and 2047 and at
    ragged positions, over an f32 and a bf16 cache (at B = 1 bit for bit
    K2); the paged decode attention over f32 and bf16 pages (K6) and Q8
@@ -602,9 +605,10 @@ def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False,
               body="vpu"):
     """K3, (``bf16``) K3b or (``body="dequant"``) K1d against the plain
     version on the 7B shapes; the library yardstick is _library_gemm's (the
-    bf16 one for K3b and K1d). K3 and K3b print their plan (gemm_tf32_plan,
-    gemm_bf16_plan: splits, blocks or stages a split, warpgroups) and must
-    give the same bits on a second launch. K3's bound counts its three
+    bf16 one for K3b and K1d). Each prints its plan (gemm_tf32_plan,
+    gemm_bf16_plan: splits, blocks or stages a split, warpgroups; K1d
+    matvec_plan with one piece: wr, wk, grid_x, splits, kb) and must give
+    the same bits on a second launch. K3's bound counts its three
     TF32 passes, with the f32 SIMT bound of the same product beside it
     (``simt_bound_ms``)."""
     from distributed_llama_tpu_torch.ops.q40 import (KERNEL_GEMM,
@@ -612,6 +616,7 @@ def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False,
                                                      KERNEL_RTOL_BF16,
                                                      gemm_bf16_plan,
                                                      gemm_tf32_plan,
+                                                     matvec_plan,
                                                      q40_matmul,
                                                      q40_matmul_plain,
                                                      random_q40)
@@ -621,8 +626,13 @@ def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False,
     tensor_cores = bf16 or body == "dequant"
     rtol = KERNEL_RTOL_BF16 if tensor_cores else KERNEL_RTOL
     tf32 = kernel is KERNEL_GEMM
-    plan_of = gemm_bf16_plan if bf16 else gemm_tf32_plan if tf32 else None
+    dequant = body == "dequant"
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def plan_of(t, d, nb):
+        if dequant:
+            return matvec_plan(t, d, nb, sms, 1)
+        return (gemm_bf16_plan if bf16 else gemm_tf32_plan)(t, d, nb, sms)
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
     for name, d, n, t, per_unit in cases:
@@ -634,12 +644,11 @@ def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False,
         torch.cuda.synchronize()
         if kernel.launches != before + 1:
             raise AssertionError(f"{kernel.symbol} {name} T={t}: not launched")
-        plan = None
-        if plan_of is not None:
-            plan = plan_of(t, d, nb, sms)
-            if not torch.equal(q40_matmul(w, x, bf16=bf16), got):
-                raise AssertionError(f"{kernel.symbol} {name} T={t}: two "
-                                     f"launches differ")
+        plan = plan_of(t, d, nb)
+        if not torch.equal(q40_matmul(w, x, bf16=bf16, multi_body=body),
+                           got):
+            raise AssertionError(f"{kernel.symbol} {name} T={t}: two "
+                                 f"launches differ")
         want = q40_matmul_plain(w, x, bf16=bf16, multi_body=body)
         err = (got - want).abs().max().item()
         peak = want.abs().max().item()
@@ -656,7 +665,7 @@ def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False,
         b_ms, b_by = bound(nbytes, 3 * flops if tf32 else flops, peaks,
                            tensor_cores, tf32)
         simt_ms = bound(nbytes, flops, peaks)[0] if tf32 else None
-        plan_note = ("" if plan is None else
+        plan_note = (f" plan {plan}" if dequant else
                      f" plan {plan[0]} splits x {plan[1]}, {plan[2]} WG")
         simt_note = "" if simt_ms is None else f", SIMT {simt_ms:.4f} ms"
         log(f"{kernel.symbol} {name:5s} T={t:3d} ({d}x{n}){plan_note}: "
@@ -668,8 +677,9 @@ def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False,
             raise AssertionError(f"{kernel.symbol} {name} T={t}: error {err}"
                                  f" above {tol}")
         rows.append(dict(shape=name, d=d, n=n, t=t, per_token=per_unit,
-                         splits=None if plan is None else plan[0],
-                         warpgroups=None if plan is None else plan[2],
+                         plan=list(plan),
+                         splits=plan[3] if dequant else plan[0],
+                         warpgroups=None if dequant else plan[2],
                          max_abs_err=err, rel_err=err / peak, tol=tol, ms=ms,
                          plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, simt_bound_ms=simt_ms,
@@ -716,15 +726,35 @@ def phase_k3b(torch, timer, peaks):
 
 
 def phase_k1d(torch, timer, peaks):
-    """K1d on the 7B layer shapes at T = 2, 4, 8 (the batched decode step of
-    2..8 rows under DLLAMA_MULTI_T_BODY=dequant); K1m's rows at the same
-    shapes come from phase_k1m in the same call."""
-    from distributed_llama_tpu_torch.ops.q40 import KERNEL_MULTI_BF16
+    """K1d on the 7B layer shapes at T = 2..8 (the batched decode step of
+    2..8 rows under DLLAMA_MULTI_T_BODY=dequant) and on 13B's and 70B's w2
+    at T = 2 and 8 (432 and 896 Q40 blocks in one sum, split K); K1m's rows
+    at the same shapes come from phase_k1m in the same call. First its
+    rounding, bit for bit: one-hot x (8 tokens, each an e_j) over
+    q40.sweep_q40, whose blocks hold every code and whose scales every
+    finite f16 pattern, must read back dequantize_q40_torch's weights
+    rounded to bf16."""
+    from distributed_llama_tpu_torch.ops import q40
+    from distributed_llama_tpu_torch.ops.quants import dequantize_q40_torch
 
+    w = q40.sweep_q40("cuda")
+    d, nb = w.d16.shape
+    want = dequantize_q40_torch(w.qs, w.d16).to(torch.bfloat16).float()
+    eye = torch.eye(nb * 32, device="cuda")
+    got = torch.cat([q40.q40_matmul(w, eye[j:j + 8], multi_body="dequant")
+                     for j in range(0, nb * 32, 8)]).T
+    if not torch.equal(got, want):
+        bad = (got != want).sum().item()
+        raise AssertionError(f"K1d one-hot: {bad} of {want.numel()} "
+                             f"weights differ from their bf16 rounding")
+    log(f"K1d one-hot: {want.numel()} bf16 weights over "
+        f"{d * nb} scales read back bit for bit")
+    del w, want, eye, got
     cases = [(name, d, n, t, 32 if t == BATCH else 0)
-             for t in (2, 4, 8) for name, d, n in LAYER_SHAPES]
-    return _q40_rows(torch, timer, peaks, KERNEL_MULTI_BF16, cases, seed=6,
-                     body="dequant")
+             for t in range(2, 9) for name, d, n in LAYER_SHAPES]
+    cases += [(name, d, n, t, 0) for name, d, n in DEEP_W2 for t in (2, 8)]
+    return _q40_rows(torch, timer, peaks, q40.KERNEL_MULTI_BF16, cases,
+                     seed=6, body="dequant")
 
 
 K5_CASES = [  # (label, n_kv, kv_mul): two layers of the cache, layer 1 read
@@ -1171,8 +1201,9 @@ def phase_fused(torch, timer, peaks):
     """K8, K9 and K10 against their plain versions at FUSED_CASES, layer 1
     of a 2-layer cache of seq_len 2048: K8 at every FUSED_POS, K9 once,
     K10 at every FUSED_POS over an f32 and a bf16 cache, part by part (the
-    head's q and cache rows; the attention over the cache it wrote against
-    the plain attention of its own q, 1e-5 abs; the tail from its own
+    head's q and cache rows; the attention over the cache it wrote, split
+    across the grid, against the plain attention of its own q, 1e-5 abs,
+    its barrier count and split tickets back at 0; the tail from its own
     attention output; the layer output, a bf16 cache within 1e-3 x
     max|plain|, where a k/v value the two round across a bf16 boundary
     moves the scores). Times (pos 63, f32 cache; K10 at 2047 too): kernel,
@@ -1276,6 +1307,10 @@ def phase_fused(torch, timer, peaks):
                                and torch.equal(v[keep], vp[keep])):
                     raise AssertionError(f"K10 {label} {dtype} pos {pos}: "
                                          f"{bad or 'cache rows moved'}")
+                if s.bar[0].item() or s.tickets.any():
+                    raise AssertionError(f"K10 {label} {dtype} pos {pos}: "
+                                         f"barrier count {s.bar[0].item()}"
+                                         f" or split tickets left set")
                 row = dict(case=label, pos=pos, cache=str(dtype)[6:],
                            max_abs_err=parts["layer"][0],
                            tol=parts["layer"][1],
@@ -1413,9 +1448,8 @@ def probe_chain(torch):
     """The probe's own measurement at w13 (PROBE_LAYERS x PROBE_REPS
     dependent calls per variant, traced), in process, every kernel's count
     set to 0 just before and read just after: per variant one parity call
-    and three chains (warm-up, traced, CUDA-event timed), and one more
-    traced chain for each trace whose count of its kernel's events was
-    not the chain's (nb_probe.TRACE_TRIES)."""
+    and three chains (warm-up, traced, CUDA-event timed); each trace must
+    hold exactly the chain's events of its kernel."""
     from distributed_llama_tpu_torch.tools import nb_probe as nbp
 
     d, n = nbp.SHAPES["w13"]
@@ -1432,7 +1466,7 @@ def probe_chain(torch):
     want = collections.Counter()
     for r in results:  # a parity call, a warm-up chain, traced chains, and
         # the timed chain (v0 and v0_128 both launch probe_classic)
-        want[nbp.RUNS[r["variant"]].symbol] += 1 + (2 + r["traces"]) * calls
+        want[nbp.RUNS[r["variant"]].symbol] += 1 + 3 * calls
     _expect("probe run", launches, want)
     for r in results:
         log(f"probe: {nbp.describe(r)}")

@@ -3,8 +3,9 @@ device.
 
 Flags ported so far: --model, --tokenizer, --prompt, --steps,
 --temperature, --topp, --seed, --weights-float-type, --buffer-float-type
-(f32 or q80: q80 passes every matmul input of a layer through the Q80 round
-trip), --prefill-chunk N (N > 1: the prompt fills the cache in T=N forward
+(q80 passes every matmul input of a layer through the Q80 round trip; f32,
+f16 and q40 run the f32 program, as the JAX package acts on the buffer
+type only at Q80), --prefill-chunk N (N > 1: the prompt fills the cache in T=N forward
 passes; 0/1: token by token), --fast-prefill (the prompt's chunks of more
 than 8 tokens take bf16 products with f32 accumulation; needs
 --prefill-chunk N > 1), --kv-cache-dtype {f32,bf16}, --fast (the
@@ -35,9 +36,11 @@ package's ContinuousEngine does. --nthreads is accepted and ignored, as in
 the JAX CLI. With --continuous, --spec-k and --metrics exit 2 "not yet
 ported"; without --prompts-file every flag of the continuous engine does.
 Every other flag of the JAX package's ``inference`` exits 2 with "not yet
-ported" before the model loads; that includes the f16/q40 buffer types,
---dispatch-tokens and the KV tier flags. --tp 1, --sp 1, --spec-k 0 and
---kv-page-size 0 name what the port runs and are accepted.
+ported" before the model loads; that includes --dispatch-tokens and the KV
+tier flags. --tp 1, --sp 1, --spec-k 0, --kv-page-size 0, --dispatch-tokens
+0, --num-hosts 1, --kv-host-pages 0 and --spec-ngram N without --spec-k
+name what the port runs and are accepted, as the JAX CLI runs its plain
+path at those values.
 
 DLLAMA_LAYER_FUSION=headtail|on (read once by the Engine, as the JAX
 package reads it) runs each T=1 step of the token-by-token loop and of
@@ -69,12 +72,16 @@ _FT = {"f32": FloatType.F32, "f16": FloatType.F16, "q40": FloatType.Q40,
 
 # the JAX package's inference flags the port does not run yet
 _UNPORTED_SWITCHES = ("--log-json", "--stream-slices")
-_UNPORTED_VALUED = ("--tp-scheme", "--workers", "--spec-ngram",
-                    "--dispatch-tokens", "--kv-host-pages", "--kv-disk-dir",
-                    "--kv-disk-gb", "--coordinator",
-                    "--num-hosts", "--host-id",
+_UNPORTED_VALUED = ("--tp-scheme", "--workers", "--kv-disk-dir",
+                    "--kv-disk-gb", "--coordinator", "--host-id",
                     "--serve-weights", "--serve-weights-bind",
                     "--model-from-root")
+# unported flags that take the JAX CLI's type, and the value at which the
+# JAX CLI runs the path the port has (None: any value, while --spec-k is
+# off, as the n-gram drafter runs only under --spec-k); other values are
+# not yet ported
+_NEUTRAL_VALUED = {"--dispatch-tokens": (int, 0), "--num-hosts": (int, 1),
+                   "--kv-host-pages": (int, 0), "--spec-ngram": (int, None)}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -85,7 +92,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt", default=None)
     ap.add_argument("--weights-float-type", default="q40", choices=sorted(_FT))
     ap.add_argument("--buffer-float-type", default="f32", choices=sorted(_FT),
-                    help="f32 or q80 (f16/q40 are not ported)")
+                    help="q80 passes every matmul input of a layer through "
+                         "the Q80 round trip; f32, f16 and q40 run the f32 "
+                         "program, as in the JAX CLI")
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--topp", type=float, default=0.9)
@@ -161,18 +170,27 @@ def _parser() -> argparse.ArgumentParser:
     for flag in _UNPORTED_VALUED:
         ap.add_argument(flag, nargs="*", default=argparse.SUPPRESS,
                         help="not yet ported")
+    for flag, (kind, neutral) in _NEUTRAL_VALUED.items():
+        ap.add_argument(flag, type=kind, default=argparse.SUPPRESS,
+                        help="not yet ported; the JAX CLI's plain path" + (
+                            f" at {neutral}" if neutral is not None else
+                            " without --spec-k") + " runs")
     return ap
 
 
 def _unported(args) -> list[str]:
     given = [f for f in _UNPORTED_SWITCHES + _UNPORTED_VALUED
              if f[2:].replace("-", "_") in vars(args)]
+    for flag, (_, neutral) in _NEUTRAL_VALUED.items():
+        value = vars(args).get(flag[2:].replace("-", "_"))
+        if value is None:
+            continue
+        if value != neutral and (neutral is not None or args.spec_k):
+            given.append(f"{flag} {value}")
     if args.tp != 1:
         given.append(f"--tp {args.tp}")
     if args.sp != 1:
         given.append(f"--sp {args.sp}")
-    if args.buffer_float_type not in ("f32", "q80"):
-        given.append(f"--buffer-float-type {args.buffer_float_type}")
     if args.continuous:  # the continuous engine's unported options
         if args.metrics:
             given.append("--metrics")
@@ -217,7 +235,8 @@ def cmd_inference(argv: list[str]) -> int:
               f"--prefill-chunk N [--fast-prefill] or --fast, a lockstep "
               f"batch with --prompts-file, or continuous batching with "
               f"--prompts-file --continuous [--kv-page-size P], with f32 or "
-              f"q80 buffers and an f32 or bf16 KV cache or q8 pages)",
+              f"q80 buffers (f16 and q40 run f32) and an f32 or bf16 KV "
+              f"cache or q8 pages)",
               file=sys.stderr)
         return 2
     # DLLAMA_KV_QUANT is read once, here, when the flag is absent

@@ -17,6 +17,15 @@ package does. A profile started off the main thread records no host op of
 the main thread ("External init callback must run in same thread as
 registerClient"): such a capture holds the card's kernels at most.
 
+On the card, ``trace`` opens the window TRACE_LEAD_S before its block's
+first launch and closes it TRACE_LEAD_S after the block's last kernel
+ends. In a session the profiler can place every kernel a constant few
+milliseconds earlier than the host events around it (measured on an H100
+host with busy CPUs: −2.3, −2.7 and −4.1 ms, where a kernel normally
+starts ~5 µs after its launch), and it drops a kernel that then seems to
+start before the window opened: without the lead such sessions lost the
+first 11 or 18 of a chain's kernels.
+
 Only one capture can be active per process; a second one gets a clean
 RuntimeError.
 """
@@ -32,6 +41,9 @@ import time
 
 _lock = threading.Lock()
 _active_dir: str | None = None
+# seconds between the window's edges and the traced block's first launch
+# and last kernel on the card (module docstring)
+TRACE_LEAD_S = 0.05
 
 
 def env_profile_dir() -> str | None:
@@ -85,8 +97,10 @@ def _profile(cuda: bool):
 def trace(trace_dir: str, cuda: bool | None = None):
     """Profile the block; on exit write its Chrome trace to
     ``trace_file(trace_dir)``. ``cuda`` adds the card's kernels (default:
-    whether torch sees a card); the block's work is synchronised before
-    the profiler stops, so every kernel it launched is in the trace."""
+    whether torch sees a card): the card is synchronised, and TRACE_LEAD_S
+    waited out, after the profiler starts and again before it stops, so
+    every kernel the block launched is in the trace, also where the
+    profiler shifts the card's timestamps (module docstring)."""
     import torch
 
     if cuda is None:
@@ -94,9 +108,13 @@ def trace(trace_dir: str, cuda: bool | None = None):
     _claim(trace_dir)
     try:
         with _profile(cuda) as prof:
+            if cuda:
+                torch.cuda.synchronize()
+                time.sleep(TRACE_LEAD_S)
             yield prof
             if cuda:
                 torch.cuda.synchronize()
+                time.sleep(TRACE_LEAD_S)
         prof.export_chrome_trace(trace_file(trace_dir))
     finally:
         _release()

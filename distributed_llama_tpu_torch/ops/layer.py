@@ -59,12 +59,18 @@ TAIL_KERNEL = CudaKernel("fused_layer.cu", "q40_tail_fused",
                          [ctypes.c_void_p] * 13 + [ctypes.c_int] * 2
                          + [ctypes.c_void_p])
 MEGA_KERNEL = CudaKernel("fused_layer.cu", "q40_layer_mega",
-                         [ctypes.c_void_p] * 21 + [ctypes.c_int] * 7
+                         [ctypes.c_void_p] * 23 + [ctypes.c_int] * 7
                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 KERNELS = (HEAD_KERNEL, TAIL_KERNEL, MEGA_KERNEL)
 
 _KV_MULS = (1, 2, 4, 8)  # K10's instantiations
 _MAX_HEAD = 128
+_MEGA_MAX_DIM = 8192  # K10 keeps a thread's share of x in registers
+# K10's attention splits the keys of each kv head across the grid
+# (csrc/fused_layer.cu key_splits): at most MEGA_MAX_SPLITS a head, each of
+# at least MEGA_SPLIT_KEYS keys
+MEGA_MAX_SPLITS = 32
+MEGA_SPLIT_KEYS = 128
 
 
 def fusion_mode() -> str:
@@ -112,8 +118,9 @@ def att_chunk(seq_len: int, n_kv: int, head_size: int,
 def mega_supported(spec) -> bool:
     """Where ``on`` takes the megakernel (else head/tail), on top of
     ``supports``: head size 128 and an attention chunk, the JAX package's
-    conditions (checked at an f32 cache's itemsize, as there)."""
-    return (spec.head_size == 128
+    conditions (checked at an f32 cache's itemsize, as there), and a width
+    the kernel takes (up to 8192, Llama-2 70B's)."""
+    return (spec.head_size == 128 and spec.dim <= _MEGA_MAX_DIM
             and att_chunk(spec.seq_len, spec.n_kv_heads, spec.head_size,
                           4) is not None)
 
@@ -199,6 +206,51 @@ def q40_tail_fused_plain(ao: torch.Tensor, x: torch.Tensor, wo: Q40Weight,
     return xn + q40_matmul_plain(w2, silu(h13[:, :hid]) * h13[:, hid:])
 
 
+def mega_attention_splits(keys: int, n_kv: int,
+                          grid: int) -> tuple[int, int]:
+    """(splits, keys a split) of K10's attention over ``keys`` keys of each
+    of n_kv heads on a co-resident grid of ``grid`` blocks: at most
+    MEGA_MAX_SPLITS and grid // n_kv splits, each of at least
+    MEGA_SPLIT_KEYS keys (one split for a short prefix), all of ``per``
+    keys but the last, none empty."""
+    most = max(1, min(grid // n_kv, MEGA_MAX_SPLITS,
+                      -(-keys // MEGA_SPLIT_KEYS)))
+    per = -(-keys // most)
+    return -(-keys // per), per
+
+
+def mega_attention_split_model(q: torch.Tensor, k_all: torch.Tensor,
+                               v_all: torch.Tensor, layer: int, pos: int,
+                               kv_mul: int, grid: int) -> torch.Tensor:
+    """K10's split attention in plain torch (a model for the tests; no
+    route calls it): the keys 0..pos of each kv head cut as
+    mega_attention_splits says, each split's online-softmax state (m, l,
+    unnormalised o) in f32, then the splits merged in split order, m =
+    max m_j, l = sum l_j e^(m_j - m), o = sum o_j e^(m_j - m), out = o /
+    l. q (n_heads, hs) -> (1, n_heads * hs)."""
+    n_kv, hs = k_all.shape[2], k_all.shape[3]
+    keys = pos + 1
+    splits, per = mega_attention_splits(keys, n_kv, grid)
+    k = k_all[layer, :keys].to(torch.float32)  # (keys, n_kv, hs)
+    v = v_all[layer, :keys].to(torch.float32)
+    qg = q.to(torch.float32).reshape(n_kv, kv_mul, hs)
+    scores = torch.einsum("gmd,tgd->gmt", qg, k) * attention_scale(hs)
+    m = l = o = None
+    for j in range(splits):
+        sj = scores[..., j * per:(j + 1) * per]
+        mj = sj.max(-1).values
+        pj = torch.exp(sj - mj[..., None])
+        lj = pj.sum(-1)
+        oj = torch.einsum("gmt,tgd->gmd", pj, v[j * per:(j + 1) * per])
+        if m is None:
+            m, l, o = mj, lj, oj
+            continue
+        mx = torch.maximum(m, mj)
+        a, b = torch.exp(m - mx), torch.exp(mj - mx)
+        m, l, o = mx, l * a + lj * b, o * a[..., None] + oj * b[..., None]
+    return (o / l[..., None]).reshape(1, -1)
+
+
 def q40_layer_mega_plain(x: torch.Tensor, wqkv: Q40Weight, wo: Q40Weight,
                          w13: Q40Weight, w2: Q40Weight,
                          rms_att: torch.Tensor, rms_ffn: torch.Tensor,
@@ -226,8 +278,11 @@ def q40_layer_mega_plain(x: torch.Tensor, wqkv: Q40Weight, wo: Q40Weight,
 
 class _Scratch(NamedTuple):
     """Static per-device buffers of K9 and K10: q and ao (dim), xnew
-    (dim), hb (hid), and the grid barrier's two counters, zero between
-    launches. Made once per (device, widths), eagerly before any capture,
+    (dim), hb (hid), the grid barrier's two counters, K10's attention
+    partials (MEGA_MAX_SPLITS x (dim + 2 n_heads) f32, n_heads <= dim / 4)
+    and its per-kv-head tickets (dim / 4 int32), the counters and tickets
+    zero between launches. Made once per (device, widths), eagerly before
+    any capture,
     and shared by every layer and model of those widths in the process:
     a captured step keeps their addresses, and the launches on one device
     run one after another on its stream, each leaving the counters at
@@ -238,6 +293,8 @@ class _Scratch(NamedTuple):
     xnew: torch.Tensor
     hb: torch.Tensor
     bar: torch.Tensor
+    att: torch.Tensor
+    tickets: torch.Tensor
 
 
 _SCRATCH: dict = {}
@@ -249,9 +306,13 @@ def _scratch(device: torch.device, dim: int, hid: int) -> _Scratch:
         def f32(n):
             return torch.zeros(n, dtype=torch.float32, device=device)
 
+        def i32(n):
+            return torch.zeros(n, dtype=torch.int32, device=device)
+
         _SCRATCH[key] = _Scratch(f32(dim), f32(dim), f32(dim), f32(hid),
-                                 torch.zeros(2, dtype=torch.int32,
-                                             device=device))
+                                 i32(2), f32(MEGA_MAX_SPLITS
+                                             * (dim + dim // 2)),
+                                 i32(max(1, dim // 4)))
     return _SCRATCH[key]
 
 
@@ -377,6 +438,7 @@ def q40_layer_mega(x: torch.Tensor, wqkv: Q40Weight, wo: Q40Weight,
     n_layers, seq_len, n_kv, hs = k_all.shape
     kv_dim = n_kv * hs
     if (kv_mul not in _KV_MULS or hs % 4 or hs > _MAX_HEAD
+            or dim > _MEGA_MAX_DIM
             or n_kv * kv_mul * hs != dim or not 0 <= layer < n_layers
             or tuple(wqkv.qs.shape[:2]) != (dim + 2 * kv_dim, dim // QK)
             or 2 * freq.numel() != dim + kv_dim):
@@ -384,8 +446,12 @@ def q40_layer_mega(x: torch.Tensor, wqkv: Q40Weight, wo: Q40Weight,
                          f"{tuple(k_all.shape)}, layer {layer}, wqkv "
                          f"{tuple(wqkv.qs.shape)} and freq {freq.numel()} do "
                          f"not fit a layer of width {dim} (the kernel takes "
-                         f"kv_mul in {_KV_MULS} and head size a multiple of "
-                         f"4 up to {_MAX_HEAD})")
+                         f"kv_mul in {_KV_MULS}, head size a multiple of "
+                         f"4 up to {_MAX_HEAD} and width up to "
+                         f"{_MEGA_MAX_DIM})")
+    if any(t.data_ptr() % 16 for t in (x, rms_att, rms_ffn)):
+        raise ValueError("q40_layer_mega: x, rms_att and rms_ffn must be "
+                         "16-byte aligned")
     s = _scratch(x.device, dim, hid)
     out = torch.empty((1, dim), dtype=torch.float32, device=x.device)
     MEGA_KERNEL.launch(
@@ -395,6 +461,7 @@ def q40_layer_mega(x: torch.Tensor, wqkv: Q40Weight, wo: Q40Weight,
         rms_att.data_ptr(), rms_ffn.data_ptr(), freq.data_ptr(),
         pos.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), out.data_ptr(),
         s.q.data_ptr(), s.ao.data_ptr(), s.xnew.data_ptr(), s.hb.data_ptr(),
-        s.bar.data_ptr(), layer, dim, hid, seq_len, n_kv, kv_mul, hs,
+        s.bar.data_ptr(), s.att.data_ptr(), s.tickets.data_ptr(), layer,
+        dim, hid, seq_len, n_kv, kv_mul, hs,
         attention_scale(hs), int(k_all.dtype == torch.bfloat16), _stream(x))
     return out

@@ -38,7 +38,10 @@ on ``MULTI_T_MAX``:
 * 2 <= T <= 8 with ``multi_body="dequant"`` (the JAX package's
   ``DLLAMA_MULTI_T_BODY=dequant``, ``_kernel_multi_dequant``): K1d,
   ``csrc/q40_matvec_bf16.cu``, K3b's function at small T on the tensor
-  cores, bound by the packed weight bytes as K1 is.
+  cores, bound by the packed weight bytes as K1 is: K1m's skeleton
+  (``csrc/q40_matvec.cuh``) with x in one bf16 piece and the rounded
+  weight bf16((code - 8) * scale) as the MMA's A operand, with the rows,
+  blocks and K splits of ``matvec_plan(..., pieces=1)``.
 
 The body is an argument: the caller reads ``DLLAMA_MULTI_T_BODY`` once
 (``multi_t_body``) and passes it down; the op never reads the environment.
@@ -88,7 +91,7 @@ KERNEL_GEMM_BF16_REDUCE = CudaKernel("q40_gemm_bf16.cu",
                                      + [ctypes.c_int] * 2
                                      + [ctypes.c_void_p])
 KERNEL_MULTI_BF16 = CudaKernel("q40_matvec_bf16.cu", "q40_matvec_bf16",
-                               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                                + [ctypes.c_void_p])
 KERNELS = (KERNEL, KERNEL_MULTI, KERNEL_GEMM, KERNEL_GEMM_BF16,
            KERNEL_MULTI_BF16)
@@ -139,15 +142,16 @@ GEMM_TF32_WG_COST = {2: 2.0, 3: 2.9}
 GEMM_TF32_SPLIT_FULL_TILE = 128
 
 
-# K1's and K1m's tiling (csrc/q40_matvec.cu): a block of wr x wk warps (4
-# or 8; wk >= 2) walks row tiles of 32 wr rows over one K split, through a
-# ring of MATVEC_STAGES stages of 4 wk Q40 blocks that all its threads copy
-# (each row's codes, and the aligned words holding its scales) and each
-# warp takes 4 blocks of; x staged as three bf16 pieces (192 bytes a Q40
-# block and token), a warp's sums 3T f32 a row. Up to T = 2 the kernel is
-# built for 128 registers a thread (16 warps an SM), above for 255 (8). A
-# split gives every warp a block of its first stage, and a split-K tile
-# needs a ticket (MATVEC_TICKETS a device).
+# K1's, K1m's and K1d's tiling (csrc/q40_matvec.cuh): a block of wr x wk
+# warps (4 or 8; wk >= 2) walks row tiles of 32 wr rows over one K split,
+# through a ring of MATVEC_STAGES stages of 4 wk Q40 blocks that all its
+# threads copy (each row's codes, and the aligned words holding its scales)
+# and each warp takes 4 blocks of; x staged in ``pieces`` bf16 pieces (64
+# bytes each a Q40 block and token: three for K1 and K1m, one for K1d), a
+# warp's sums pieces x T f32 a row. K1 and K1m up to T = 2, and K1d at
+# every T, are built for 128 registers a thread (16 warps an SM); K1m
+# above T = 2 for 255 (8). A split gives every warp a block of its first
+# stage, and a split-K tile needs a ticket (MATVEC_TICKETS a device).
 MATVEC_WARPS = (4, 8)
 MATVEC_STAGES = 4
 MATVEC_MAX_SPLITS = 64
@@ -161,21 +165,24 @@ MATVEC_TILE_BYTES = 4096
 MATVEC_SPLIT_BYTES = 16384
 
 
-def matvec_smem(t: int, kb: int, wr: int, wk: int) -> int:
-    """Shared memory of a K1/K1m block (csrc/q40_matvec.cu smem_bytes): kb
-    Q40 blocks of x in three bf16 pieces for t tokens, the ring (a stage:
-    32 wr rows x 4 wk blocks of codes and each row's 8 wk + 8 bytes of
-    scale words), each warp's 32 x 3t f32 sums, and a flag."""
-    return (kb * 3 * t * 64
+def matvec_smem(t: int, kb: int, wr: int, wk: int, pieces: int = 3) -> int:
+    """Shared memory of a K1/K1m (``pieces`` 3) or K1d (1) block
+    (csrc/q40_matvec.cuh smem_bytes): kb Q40 blocks of x in ``pieces``
+    bf16 pieces for t tokens, the ring (a stage: 32 wr rows x 4 wk blocks
+    of codes and each row's 8 wk + 8 bytes of scale words), each warp's 32
+    x pieces x t f32 sums, and a flag."""
+    return (kb * pieces * t * 64
             + MATVEC_STAGES * (2048 * wr * wk + 32 * wr * (8 * wk + 8))
-            + wr * wk * 32 * 3 * t * 4 + 16)
+            + wr * wk * 32 * pieces * t * 4 + 16)
 
 
-def matvec_blocks_per_sm(t: int, warps: int, smem: int) -> int:
-    """K1/K1m blocks an SM holds: by its shared memory and by its
-    registers (up to T = 2 built for 128 a thread, 16 warps an SM; above,
-    for 255, 8 warps)."""
-    return min(_SMEM_PER_SM // (smem + 1024), (16 if t <= 2 else 8) // warps)
+def matvec_blocks_per_sm(t: int, warps: int, smem: int,
+                         pieces: int = 3) -> int:
+    """K1/K1m/K1d blocks an SM holds: by its shared memory and by its
+    registers (K1d, and K1/K1m up to T = 2, built for 128 a thread, 16
+    warps an SM; K1m above, for 255, 8 warps)."""
+    regs_warps = 16 if t <= 2 or pieces == 1 else 8
+    return min(_SMEM_PER_SM // (smem + 1024), regs_warps // warps)
 
 
 def _matvec_cost(t: int, d: int, kb: int, wr: int, grid_x: int,
@@ -194,9 +201,10 @@ def _matvec_cost(t: int, d: int, kb: int, wr: int, grid_x: int,
     return -(-grid_x * splits // sms) * block
 
 
-def matvec_plans(t: int, d: int, nb: int, sms: int):
-    """Every K1/K1m plan (wr, wk, grid_x, splits, kb) for T = t, d rows and
-    nb Q40 blocks on ``sms`` SMs, with its modelled cost: blocks of wr x wk
+def matvec_plans(t: int, d: int, nb: int, sms: int, pieces: int = 3):
+    """Every K1/K1m (``pieces`` 3) or K1d (1) plan (wr, wk, grid_x, splits,
+    kb) for T = t, d rows and nb Q40 blocks on ``sms`` SMs, with its
+    modelled cost: blocks of wr x wk
     warps (MATVEC_WARPS, wk >= 2), ``splits`` K splits of kb blocks (the
     last possibly shorter, none empty) whose x and ring fit a block's
     shared memory, each split giving every warp a block of its first stage
@@ -213,10 +221,10 @@ def matvec_plans(t: int, d: int, nb: int, sms: int):
                 warps = wr * wk
                 if warps not in MATVEC_WARPS or last < min(nb, 4 * wk):
                     continue
-                smem = matvec_smem(t, kb, wr, wk)
+                smem = matvec_smem(t, kb, wr, wk, pieces)
                 if smem > _SMEM_LIMIT:
                     continue
-                per_sm = matvec_blocks_per_sm(t, warps, smem)
+                per_sm = matvec_blocks_per_sm(t, warps, smem, pieces)
                 tiles = -(-d // (32 * wr))
                 grid_x = max(1, min(tiles, sms * per_sm // splits))
                 yield (_matvec_cost(t, d, kb, wr, grid_x, splits, sms),
@@ -224,16 +232,17 @@ def matvec_plans(t: int, d: int, nb: int, sms: int):
 
 
 @functools.lru_cache(maxsize=None)
-def matvec_plan(t: int, d: int, nb: int,
-                sms: int) -> tuple[int, int, int, int, int]:
-    """(wr, wk, grid_x, splits, kb) of K1 (t = 1) or K1m (t = 2..8): of
-    the plans of matvec_plans whose blocks keep at least 96% of the SMs
+def matvec_plan(t: int, d: int, nb: int, sms: int,
+                pieces: int = 3) -> tuple[int, int, int, int, int]:
+    """(wr, wk, grid_x, splits, kb) of K1 (t = 1), K1m (t = 2..8) or, with
+    one piece, K1d (t = 2..8): of the plans of matvec_plans whose blocks
+    keep at least 96% of the SMs
     busy (all plans where none does), the one with the least modelled
     cost; on a tie the fewest splits, then the most rows a tile, then the
     most warps (the model does not see a block's warps: on the H100 8
     warps beat 4 at equal rows, by up to 1.35x at T = 3..5,
     tools/plan_sweep.py)."""
-    plans = list(matvec_plans(t, d, nb, sms))
+    plans = list(matvec_plans(t, d, nb, sms, pieces))
     fill = [cp for cp in plans if cp[1][2] * cp[1][3] >= 0.96 * sms]
     best = min(((cost, plan[3], -plan[0], -plan[0] * plan[1]), plan)
                for cost, plan in fill or plans)
@@ -373,6 +382,25 @@ def random_q40(d: int, n: int, device, generator: torch.Generator
     return Q40Weight(qs, d16)
 
 
+def sweep_q40(device, d: int = 16384, nb: int = 4) -> Q40Weight:
+    """A (d, 32 nb) Q40 weight whose scales take every finite f16 bit
+    pattern (63488, subnormals, zeros and the largest included; the rest of
+    the d x nb blocks repeat the largest magnitudes) and whose blocks hold
+    every code 0..15, rotated block by block: the input on which K1d must
+    read back its bf16-rounded weights bit for bit."""
+    import numpy as np
+
+    bits = np.arange(1 << 16, dtype=np.uint16).view(np.float16)
+    s = torch.from_numpy(bits[np.isfinite(bits)].copy())
+    order = torch.argsort(s.to(torch.float32).abs(), descending=True)
+    scales = torch.cat([s, s[order][:max(0, d * nb - s.numel())]])
+    codes = (torch.arange(QK)[None, :]
+             + torch.arange(d * nb)[:, None]) % 16
+    qs = (codes[:, :16] | (codes[:, 16:] << 4)).to(torch.uint8)
+    return Q40Weight(qs.reshape(d, nb, 16).to(device),
+                     scales[:d * nb].reshape(d, nb).to(device))
+
+
 def _tokens(w: Q40Weight, x: torch.Tensor) -> int:
     return x.numel() // (w.qs.shape[-2] * QK)
 
@@ -491,11 +519,11 @@ _TICKETS: dict[int, torch.Tensor] = {}
 
 
 def _tickets(device: torch.device) -> torch.Tensor:
-    """K1's and K1m's split-K tickets on ``device``: MATVEC_TICKETS int32
+    """K1's, K1m's and K1d's split-K tickets on ``device``: MATVEC_TICKETS int32
     zeros, made on the first call there (an eager one: every captured path
     runs its first step eagerly) and left zeroed by every launch. Every
-    launch on the device shares them, so the port launches K1 and K1m on
-    one stream at a time."""
+    launch on the device shares them, so the port launches K1, K1m and K1d
+    on one stream at a time."""
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
     tickets = _TICKETS.get(index)
@@ -511,8 +539,8 @@ def q40_matmul(w: Q40Weight, x: torch.Tensor, bf16: bool = False,
 
     CPU tensors take the plain version; CUDA tensors launch K1 (T = 1), for
     2 <= T <= 8 K1m (``multi_body="vpu"``) or K1d ("dequant"), and for
-    T > 8 K3 (f32) or K3b (``bf16``). K1 and K1m are one launch each at
-    any width, their split-K sums included.
+    T > 8 K3 (f32) or K3b (``bf16``). K1, K1m and K1d are one launch each
+    at any width, their split-K sums included.
     """
     if x.device.type == "cpu" and w.qs.device.type == "cpu":
         return q40_matmul_plain(w, x, bf16, multi_body)
@@ -525,22 +553,20 @@ def q40_matmul(w: Q40Weight, x: torch.Tensor, bf16: bool = False,
     if t == 0:
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    ptrs = (w.qs.data_ptr(), w.d16.data_ptr(), x.data_ptr(), out.data_ptr())
     if t > MULTI_T_MAX:
         _gemm(w, x, out, t, d, nb, stream, bf16)
-    elif _bf16_body(t, bf16, multi_body):
-        KERNEL_MULTI_BF16.launch(*ptrs, t, d, nb, stream)
     else:
-        _matvec(w, x, out, t, d, nb, stream)
+        _matvec(w, x, out, t, d, nb, stream,
+                1 if _bf16_body(t, bf16, multi_body) else 3)
     return out
 
 
 def _matvec(w: Q40Weight, x: torch.Tensor, out: torch.Tensor, t: int,
-            d: int, nb: int, stream: int) -> None:
-    """K1 (t = 1) or K1m over matvec_plan's blocks and K splits; with
-    more than one split the kernel's last block per tile adds the partials
-    (scratch (splits, t, d)) behind a ticket."""
-    plan = matvec_plan(t, d, nb, sm_count(x.device))
+            d: int, nb: int, stream: int, pieces: int) -> None:
+    """K1 (t = 1), K1m (``pieces`` 3) or K1d (1) over matvec_plan's blocks
+    and K splits; with more than one split the kernel's last block per
+    tile adds the partials (scratch (splits, t, d)) behind a ticket."""
+    plan = matvec_plan(t, d, nb, sm_count(x.device), pieces)
     wr, splits = plan[0], plan[3]
     if splits > 1 and -(-d // (32 * wr)) > MATVEC_TICKETS:
         raise ValueError(f"q40_matmul: {d} rows need more split-K tickets "
@@ -552,7 +578,8 @@ def _matvec(w: Q40Weight, x: torch.Tensor, out: torch.Tensor, t: int,
     if t == 1:
         KERNEL.launch(*ptrs, d, nb, *plan, stream)
     else:
-        KERNEL_MULTI.launch(*ptrs, t, d, nb, *plan, stream)
+        kernel = KERNEL_MULTI if pieces == 3 else KERNEL_MULTI_BF16
+        kernel.launch(*ptrs, t, d, nb, *plan, stream)
 
 
 def _gemm(w: Q40Weight, x: torch.Tensor, out: torch.Tensor, t: int,

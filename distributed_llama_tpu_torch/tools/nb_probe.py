@@ -33,11 +33,9 @@ against its exact integer reference) before any timing; then ``--layers x
 once to warm up and once under obs.profiler.trace. The per-call time is
 the traced device time of the variant's kernel, found by base name through
 utils.it_split.parse_trace, over its event count, which must equal the
-call count. A trace that holds another count of them is taken again, up
-to TRACE_TRIES chains in all, and ``traces`` in the result counts them:
-the profiler, started anew in the same process, now and then records
-none or only some of a chain's kernels (the launch counts show every call
-launched). Printed beside it: GB/s, the bound
+call count, or the variant fails (obs/profiler.trace opens its window
+ahead of the chain, so a session whose kernel timestamps the profiler
+shifts still holds every kernel). Printed beside it: GB/s, the bound
 (18 * d * nb bytes at the published 3.35 TB/s of the H100 SXM) and the
 share of it reached, and the chain's CUDA-event time per call (kernel and
 torch glue). A header gives the card's name and power limit.
@@ -80,7 +78,6 @@ VARIANTS = ("dma", "v0", "v1", "v0_128", "v0r", "i4", "k1")
 NJ = 16           # code bytes per 32-value block
 BLOCK_PAD = 36    # floats per staged block of x (csrc/q40_row.cuh kBlockPad)
 BYTES_PER_S = 3.35e12  # published HBM rate of the H100 SXM
-TRACE_TRIES = 5  # traced chains before a variant's trace count fails
 TRACE_DIR = BUILD_DIR.parent / "nb_probe"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -375,23 +372,18 @@ def run_variant(name: str, shape: str, w: Q40Weight, x: torch.Tensor,
                parity_err=err, kernel=RUNS[name].symbol,
                bytes_per_call=18 * d * nb,
                bound_ms=18 * d * nb / BYTES_PER_S * 1e3,
-               events=None, traces=0, ms=None, gbps=None, share=None,
+               events=None, ms=None, gbps=None, share=None,
                event_ms=None)
     if w.qs.device.type != "cuda":
         return res
     base = TRACE_NAMES[RUNS[name]]
     where = trace_dir / name
-    for traces in range(1, TRACE_TRIES + 1):
-        shutil.rmtree(where, ignore_errors=True)
-        torch.cuda.synchronize()  # the warm-up ends before the trace starts
-        with profiler.trace(str(where), cuda=True):
-            chain(call, x, layers, reps)
-        splits = it_split.parse_trace(str(where))
-        events = sum(s.counts[base] for s in splits.values())
-        if events == calls:
-            break
-        print(f"{name}: trace {traces} of {TRACE_TRIES} holds {events} "
-              f"{base} events, want {calls}", file=sys.stderr, flush=True)
+    shutil.rmtree(where, ignore_errors=True)
+    torch.cuda.synchronize()  # the warm-up ends before the trace starts
+    with profiler.trace(str(where), cuda=True):
+        chain(call, x, layers, reps)
+    splits = it_split.parse_trace(str(where))
+    events = sum(s.counts[base] for s in splits.values())
     ns = sum(s.ops[base] for s in splits.values())
     if events != calls:
         raise AssertionError(f"{name}: the trace holds {events} "
@@ -404,7 +396,7 @@ def run_variant(name: str, shape: str, w: Q40Weight, x: torch.Tensor,
     end.record()
     end.synchronize()
     ms = ns / 1e6 / events
-    res.update(events=events, traces=traces, ms=ms,
+    res.update(events=events, ms=ms,
                gbps=res["bytes_per_call"] / (ms * 1e6),
                share=res["bound_ms"] / ms,
                event_ms=start.elapsed_time(end) / calls)
@@ -419,9 +411,6 @@ def describe(r: dict) -> str:
             "k1": " (K1, the production body)"}.get(r["variant"], "")
     if r["ms"] is None:
         return f"{head}: time, rate and share not measured (cpu){note}"
-    if r["traces"] > 1:
-        note += (f" ({r['traces']} traced chains: the earlier ones held "
-                 f"another count)")
     return (f"{head}: {r['ms']:.4f} ms/call (trace, {r['events']} events) "
             f"{r['gbps']:.1f} GB/s, bound {r['bound_ms']:.4f} ms, "
             f"{r['share']:.1%} of it; CUDA events {r['event_ms']:.4f} "

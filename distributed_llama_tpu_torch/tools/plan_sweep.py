@@ -1,12 +1,13 @@
-"""Time every plan of K1 and K1m (``q40_matvec``, ``q40_matvec_multi``:
-row and split warps a block, blocks a split, K splits), K3 (``q40_gemm``:
+"""Time every plan of K1, K1m and K1d (``q40_matvec``,
+``q40_matvec_multi``, ``q40_matvec_bf16``: row and split warps a block,
+blocks a split, K splits), K3 (``q40_gemm``:
 splits x warpgroups) and K4 (``prefill_attention``: splits of the key
 range) at Llama-2-7B's shapes on the card, beside the plan the wrappers
 pick (``ops/q40.matvec_plan``, ``gemm_tf32_plan``,
 ``ops/attention.prefill_plan``). Run on a machine with an NVIDIA GPU:
 
     python3 -m distributed_llama_tpu_torch.tools.plan_sweep [--k1-t 1,2,8]
-        [--t 16,32,128] [--pos 384,1920]
+        [--k1d-t 2,8] [--t 16,32,128] [--pos 384,1920]
 
 (an empty list skips that kernel).
 
@@ -56,20 +57,23 @@ def _timer():
     return time
 
 
-def sweep_k1(time, t: int, sms: int) -> None:
-    """K1 (t = 1) or K1m over every plan of ops/q40.matvec_plans at 7B's
-    layer shapes and the classifier."""
+def sweep_k1(time, t: int, sms: int, pieces: int = 3) -> None:
+    """K1 (t = 1), K1m or, with one piece, K1d over every plan of
+    ops/q40.matvec_plans at 7B's layer shapes (and the classifier, which
+    K1d never multiplies)."""
     g = torch.Generator(device="cuda").manual_seed(100 + t)
     stream = torch.cuda.current_stream().cuda_stream
     tickets = q40._tickets(torch.device("cuda", torch.cuda.current_device()))
-    kernel = q40.KERNEL if t == 1 else q40.KERNEL_MULTI
-    for name, d, n in [*LAYER_SHAPES, WCLS]:
+    kernel = (q40.KERNEL if t == 1 else q40.KERNEL_MULTI if pieces == 3
+              else q40.KERNEL_MULTI_BF16)
+    label = "K1d" if pieces == 1 else f"K1{'m' if t > 1 else ''}"
+    for name, d, n in LAYER_SHAPES + ([WCLS] if pieces == 3 else []):
         nb = n // 32
         w = q40.random_q40(d, n, "cuda", g)
         x = torch.randn((t, n), device="cuda", generator=g)
         out = torch.empty((t, d), device="cuda")
         ms = {}
-        for _, plan in q40.matvec_plans(t, d, nb, sms):
+        for _, plan in q40.matvec_plans(t, d, nb, sms, pieces):
             part = torch.empty((plan[3], t, d), device="cuda")
             head = (w.qs.data_ptr(), w.d16.data_ptr(), x.data_ptr(),
                     out.data_ptr(), part.data_ptr(), tickets.data_ptr())
@@ -79,8 +83,8 @@ def sweep_k1(time, t: int, sms: int) -> None:
                 kernel.launch(*head, *dims, *plan, stream)
 
             ms[plan] = time(run)
-        pick = q40.matvec_plan(t, d, nb, sms)
-        _report(f"K1{'m' if t > 1 else ''} {name} T={t}", pick, ms,
+        pick = q40.matvec_plan(t, d, nb, sms, pieces)
+        _report(f"{label} {name} T={t}", pick, ms,
                 "(wr, wk, grid_x, splits, kb)")
 
 
@@ -168,6 +172,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k1-t", default="1,2,3,4,5,6,7,8",
                     help="K1's and K1m's token counts (comma-separated)")
+    ap.add_argument("--k1d-t", default="2,4,8",
+                    help="K1d's token counts (comma-separated)")
     ap.add_argument("--t", default="16,32,128",
                     help="K3's token counts (comma-separated)")
     ap.add_argument("--pos", default="384,1920",
@@ -176,7 +182,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("plan_sweep: no CUDA device")
         return 1
-    build([q40.KERNEL, q40.KERNEL_MULTI, q40.KERNEL_GEMM,
+    build([q40.KERNEL, q40.KERNEL_MULTI, q40.KERNEL_MULTI_BF16,
+           q40.KERNEL_GEMM,
            q40.KERNEL_SPLIT_TF32, q40.KERNEL_GEMM_BF16_REDUCE,
            attention.PREFILL_KERNEL, attention.PREFILL_KERNEL_KVBF16,
            attention.PREFILL_BF16_COMBINE])
@@ -188,6 +195,8 @@ def main(argv=None) -> int:
 
     for t in ints(args.k1_t):
         sweep_k1(time, t, sms)
+    for t in ints(args.k1d_t):
+        sweep_k1(time, t, sms, pieces=1)
     for t in ints(args.t):
         sweep_k3(time, t, sms)
     for cache in (torch.float32, torch.bfloat16):

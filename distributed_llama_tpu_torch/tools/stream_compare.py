@@ -1,10 +1,10 @@
-"""Run chip_smoke.py's CLI runs a, b, g, i and k-n from two checkouts on
-one model and compare their token streams. Run from the root of a
+"""Run chip_smoke.py's CLI runs a, b, g, h, i, p and k-n from two
+checkouts on one model and compare their token streams. Run from the root of a
 checkout, on a machine with an NVIDIA GPU, after chip_smoke.py has written
 its model (``python3 -c "import chip_smoke; chip_smoke.smoke_files()"``):
 
     python3 -m distributed_llama_tpu_torch.tools.stream_compare --other DIR
-        [--runs a,b,g,i,k,l,m,n]
+        [--runs a,b,g,h,i,p,k,l,m,n]
 
 DIR holds the reference: another commit of the repository (``git
 archive``). Each run is the ``inference`` CLI in a process of its own, with
@@ -13,8 +13,11 @@ its own kernels. Runs a (64 greedy steps token by token) and b (the
 512-token prompt at chunk 128) are compared piece by piece, and the
 reference records, for every sampled token, the gap between its two
 largest logits and its largest |logit| (its host sampler's input); run i
-(``--fast``, run a's prompt) is compared as text, against the reference's
-run a pieces and gaps; runs g (8 prompts in one batch) and k-n (12
+(``--fast``, run a's prompt) and run p (run i under
+DLLAMA_LAYER_FUSION=on, a K10 per layer) are compared as text, against
+the reference's run a pieces and gaps; runs g (8 prompts in one batch),
+h (run g under DLLAMA_MULTI_T_BODY=dequant over a bf16 cache: K1d) and
+k-n (12
 prompts through ``--continuous``: f32 pages, contiguous, bf16 pages, Q8
 pages sampled at 0.8 in an oversubscribed pool) row by row. ``--runs
 n-f32`` adds run n over f32 pages (the same pool, no Q8), and ``--other``
@@ -101,20 +104,28 @@ sys.exit(rc)
 """
 
 
+# the environment a run adds to the CLI's, as chip_smoke.py sets it
+RUN_ENV = {"h": {"DLLAMA_MULTI_T_BODY": "dequant"},
+           "p": {"DLLAMA_LAYER_FUSION": "on"}}
+
+
 def _runs(smoke) -> dict[str, list[str]]:
-    """The CLI flags of runs a, b, g, i and k-n, as chip_smoke.py gives them
-    (the prompts file is added where a run takes one)."""
+    """The CLI flags of runs a, b, g, h, i, p and k-n, as chip_smoke.py
+    gives them (the prompts file is added where a run takes one; RUN_ENV
+    holds a run's environment)."""
     cont = ["--continuous", "--slots", str(smoke.CONT_SLOTS),
             "--prefill-chunk", str(smoke.CONT_CHUNK), "--steps",
             str(smoke.CONT_STEPS), "--temperature", "0", "--seed", "1"]
     page = ["--kv-page-size", str(smoke.PAGE)]
     a = ["--prompt", smoke.PROMPT, "--steps", str(smoke.STEPS),
          "--temperature", "0", "--seed", "1"]
+    g = ["--steps", str(smoke.STEPS), "--temperature", "0", "--seed", "1"]
     return {
         "a": a,
-        "g": ["--steps", str(smoke.STEPS), "--temperature", "0", "--seed",
-              "1"],
+        "g": g,
+        "h": [*g, "--kv-cache-dtype", "bf16"],
         "i": [*a, "--fast"],
+        "p": [*a, "--fast"],
         "b": ["--prompt", smoke.PROMPT_512, "--steps", str(smoke.STEPS_512),
               "--temperature", "0", "--seed", "1", "--prefill-chunk",
               str(smoke.CHUNK)],
@@ -131,11 +142,13 @@ def _runs(smoke) -> dict[str, list[str]]:
 
 
 def _cli(tree: Path, model: Path, tok: Path, flags: list[str],
-         gaps: Path | None = None, chain: Path | None = None) -> str:
-    """The CLI's stdout from ``tree``; with ``gaps``, through the script
-    that writes each sampled token's top-2 gap there; with ``chain``,
-    through the one that writes a --continuous run's chain steps there."""
-    env = dict(os.environ, PYTHONPATH=str(tree))
+         gaps: Path | None = None, chain: Path | None = None,
+         env: dict | None = None) -> str:
+    """The CLI's stdout from ``tree`` under ``env`` added to this
+    process's; with ``gaps``, through the script that writes each sampled
+    token's top-2 gap there; with ``chain``, through the one that writes a
+    --continuous run's chain steps there."""
+    env = dict(os.environ, **(env or {}), PYTHONPATH=str(tree))
     if gaps is not None:
         head = ["-c", _GAPS_SCRIPT, str(gaps)]
     elif chain is not None:
@@ -258,7 +271,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True,
                     help="the root of the other checkout (the reference)")
-    ap.add_argument("--runs", default="a,b,g,i,k,l,m,n")
+    ap.add_argument("--runs", default="a,b,g,h,i,p,k,l,m,n")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import chip_smoke as smoke
@@ -282,18 +295,21 @@ def main(argv=None) -> int:
         for label in args.runs.split(","):
             flags = runs[label]
             cont = "--continuous" in flags
-            if cont or label == "g":
+            batch = label in ("g", "h")
+            if cont or batch:
                 flags = ["--prompts-file",
                          str(files["cont" if cont else "g"]), *flags]
             gaps_file = Path(tmp) / f"gaps_{label}.json"
             hosted = label in ("a", "b")
-            ours_out = _cli(ROOT, model, tok, flags)
+            env = RUN_ENV.get(label)
+            ours_out = _cli(ROOT, model, tok, flags, env=env)
             theirs_out = _cli(other, model, tok, flags,
-                              gaps_file if hosted else None)
-            if label == "i":
+                              gaps_file if hosted else None, env=env)
+            fast = label in ("i", "p")
+            if fast:
                 ours, theirs = [[fast_text(ours_out)]], [[fast_text(theirs_out)]]
             else:
-                rows = cont or label == "g"
+                rows = cont or batch
                 ours = streams(ours_out, rows)
                 theirs = streams(theirs_out, rows)
             if hosted:
@@ -312,9 +328,9 @@ def main(argv=None) -> int:
                 else:
                     where = f"piece {at} of {len(b)}"
                 note, tie = "", False
-                if label in ("a", "b", "i") and (label != "i" or "a" in ref):
-                    pieces, gaps = ref["a" if label == "i" else label]
-                    step = piece_at(pieces, at) if label == "i" else at
+                if label in ("a", "b") or (fast and "a" in ref):
+                    pieces, gaps = ref["a" if fast else label]
+                    step = piece_at(pieces, at) if fast else at
                     tie, gap, tol = near_tie(step, gaps, LOGIT_RTOL)
                     note = (f" (reference top-2 gap {gap:.3e} at token "
                             f"{step}, tolerance {tol:.3e}: "

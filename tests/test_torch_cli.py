@@ -128,7 +128,7 @@ def test_cli_pieces_match_reference(model_files, capsys, mode):
     assert pieces(out) == want
 
 
-UNPORTED = [["--tp", "2"], ["--sp", "2"], ["--buffer-float-type", "f16"],
+UNPORTED = [["--tp", "2"], ["--sp", "2"],
             # --slots and --continuous are ported with --prompts-file;
             # --spec-k and --metrics are not ported there
             ["--slots", "4", "--prompts-file", "p.txt", "--continuous",

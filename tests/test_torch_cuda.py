@@ -745,6 +745,66 @@ def test_q40_dequant_body_kernel_matches_plain(gen, d, n, t):
     assert err <= q40.KERNEL_RTOL_BF16 * want.abs().max().item(), err
 
 
+# K1d on K1m's skeleton: 7B's layer shapes and 70B's w2 (896 Q40 blocks,
+# split K) at every T, each within KERNEL_RTOL_BF16 of plain, the same bits
+# from two launches, every ticket back at 0
+@pytest.mark.parametrize("t", range(2, 9))
+@pytest.mark.parametrize("d,n", [*K1_SHAPES[:4], (8192, 28672)])
+def test_q40_dequant_body_at_7b_and_70b_shapes(gen, d, n, t):
+    w = q40.random_q40(d, n, "cuda", gen)
+    x = torch.randn((t, n), device="cuda", generator=gen)
+    before = q40.KERNEL_MULTI_BF16.launches
+    got = q40.q40_matmul(w, x, multi_body="dequant")
+    again = q40.q40_matmul(w, x, multi_body="dequant")
+    torch.cuda.synchronize()
+    assert q40.KERNEL_MULTI_BF16.launches == before + 2
+    assert torch.equal(got, again)
+    want = q40.q40_matmul_bf16_plain(w, x)
+    err = (got - want).abs().max().item()
+    assert err <= q40.KERNEL_RTOL_BF16 * want.abs().max().item(), err
+    assert not q40._tickets(x.device).any()
+
+
+def test_q40_dequant_body_reads_back_its_bf16_weights_bit_for_bit(gen):
+    """One-hot x, T = 8 tokens each e_j, over q40.sweep_q40 (codes 0..15 in
+    every block, every finite f16 scale): each output is one weight times
+    1, so K1d returns dequantize_q40_torch's weights rounded to bf16, bit
+    for bit (the two-FMA rounding of csrc/q40_matvec.cuh scaled_bf16)."""
+    from distributed_llama_tpu_torch.ops.quants import dequantize_q40_torch
+
+    w = q40.sweep_q40("cuda")
+    d, nb = w.d16.shape
+    n = nb * 32
+    want = dequantize_q40_torch(w.qs, w.d16).to(torch.bfloat16).float()
+    got = torch.empty((d, n), device="cuda")
+    eye = torch.eye(n, device="cuda")
+    for j in range(0, n, 8):
+        got[:, j:j + 8] = q40.q40_matmul(w, eye[j:j + 8],
+                                         multi_body="dequant").T
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("t", [2, 8])
+def test_q40_dequant_body_split_k_replays_from_a_graph(gen, t):
+    """70B's w2 splits K for K1d too: captured and replayed on new inputs,
+    every replay gives the eager bits and leaves every ticket at 0."""
+    d, n = 8192, 28672
+    assert q40.matvec_plan(t, d, n // 32, _sms(), 1)[3] > 1
+    w = q40.random_q40(d, n, "cuda", gen)
+    x = torch.randn((t, n), device="cuda", generator=gen)
+    q40.q40_matmul(w, x, multi_body="dequant")  # the eager first call
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = q40.q40_matmul(w, x, multi_body="dequant")
+    for seed in range(3):
+        x.copy_(torch.randn((t, n), device="cuda", generator=gen))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, q40.q40_matmul(w, x, multi_body="dequant"))
+        assert not q40._tickets(x.device).any()
+
+
 def test_q40_dequant_body_reads_scales_at_an_odd_offset(gen):
     """The f16 scales of a layer view may start at any 2-byte offset."""
     w = q40.random_q40(33, 32 * 129, "cuda", gen)
@@ -1263,6 +1323,114 @@ def test_fused_mega_kernel_matches_plain(gen, shape, cache, pos):
     keep = torch.ones(k.shape[:2], dtype=torch.bool, device="cuda")
     keep[1, pos] = False
     assert torch.equal(k[keep], kp[keep]) and torch.equal(v[keep], vp[keep])
+
+
+# K10 at full width: Llama-2-7B's layer and the GQA case at 70B's widths
+# (n_kv 8, kv_mul 8), a seq_len 2048 cache, pos 0, 1, 63 and 2047 (the
+# attention in 1, 2 and up to MEGA_MAX_SPLITS key splits per kv head)
+MEGA_CASES = {"7b": (4096, 11008, 32, 32), "gqa8": (8192, 28672, 64, 8)}
+
+
+@pytest.mark.parametrize("case", sorted(MEGA_CASES))
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+def test_fused_mega_kernel_at_full_width(gen, case, cache):
+    """K10 against plain part by part at every pos (the tolerances of
+    test_fused_mega_kernel_matches_plain), its wo and w2 rows with the
+    classic row body's bits (P0: xnew = x + P0(wo, ao), out = xnew +
+    P0(w2, hb), bit for bit, the first blocks of each row loaded ahead of
+    the barrier), and the barrier's arrival count and the split tickets
+    back at 0."""
+    from distributed_llama_tpu_torch.tools import nb_probe
+
+    dim, hid, n_heads, n_kv = MEGA_CASES[case]
+    hs, kv_mul = dim // n_heads, n_heads // n_kv
+    lw = layer.random_layer(dim, hid, n_heads, n_kv, "cuda", gen)
+    x = torch.randn((1, dim), device="cuda", generator=gen)
+    shape = (2, 2048, n_kv, hs)
+    k = torch.randn(shape, device="cuda", generator=gen).to(cache)
+    v = torch.randn(shape, device="cuda", generator=gen).to(cache)
+    args = (lw["wqkv"], lw["wo"], lw["w13"], lw["w2"], lw["rms_att"],
+            lw["rms_ffn"], lw["freq"])
+    s = layer._scratch(x.device, dim, hid)
+    for pos in (0, 1, 63, 2047):
+        p = torch.tensor([pos], dtype=torch.int32, device="cuda")
+        kp, vp = k.clone(), v.clone()
+        got = layer.q40_layer_mega(x, *args, k, v, 1, p, kv_mul)
+        want = layer.q40_layer_mega_plain(x, *args, kp, vp, 1, p, kv_mul)
+        ao = attention.decode_attention_plain(s.q.reshape(-1, hs), k, v, 1,
+                                              pos, kv_mul)
+        assert (s.ao[None] - ao).abs().max().item() <= attention.KERNEL_ATOL
+        _close(got, layer.q40_tail_fused_plain(
+            s.ao[None].clone(), x, lw["wo"], lw["w13"], lw["w2"],
+            lw["rms_ffn"]))
+        _close(got, want, 1e-3 if cache == torch.bfloat16
+               else q40.KERNEL_RTOL)
+        torch.testing.assert_close(
+            s.xnew[None], x + nb_probe.probe_classic(lw["wo"],
+                                                     s.ao.clone())[None],
+            rtol=0, atol=0)
+        torch.testing.assert_close(got, s.xnew[None] + nb_probe.probe_classic(
+            lw["w2"], s.hb.clone())[None], rtol=0, atol=0)
+        # the barrier's arrival count and every split ticket back at 0
+        assert s.bar[0].item() == 0 and not s.tickets.any(), pos
+        k.copy_(kp)  # the plain write, bf16 rounding and all
+        v.copy_(vp)
+
+
+def test_fused_mega_kernel_replays_from_a_graph(gen):
+    """K10 captured in a CUDA graph (device pos, static scratch) and
+    replayed at positions whose attention takes 1, 2, 8 and 3 key splits:
+    every replay gives the eager bits and leaves the barrier's arrival
+    count and the split tickets at 0."""
+    dim, hid, n_heads, n_kv = MEGA_CASES["7b"]
+    lw = layer.random_layer(dim, hid, n_heads, n_kv, "cuda", gen)
+    x = torch.randn((1, dim), device="cuda", generator=gen)
+    shape = (2, 2048, n_kv, dim // n_heads)
+    k = torch.randn(shape, device="cuda", generator=gen)
+    v = torch.randn(shape, device="cuda", generator=gen)
+    args = (lw["wqkv"], lw["wo"], lw["w13"], lw["w2"], lw["rms_att"],
+            lw["rms_ffn"], lw["freq"])
+    p = torch.tensor([5], dtype=torch.int32, device="cuda")
+    layer.q40_layer_mega(x, *args, k, v, 1, p, 1)  # eager: scratch, grid
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = layer.q40_layer_mega(x, *args, k, v, 1, p, 1)
+    s = layer._scratch(x.device, dim, hid)
+    for pos in (0, 200, 2047, 300):
+        p.fill_(pos)
+        x.copy_(torch.randn((1, dim), device="cuda", generator=gen))
+        graph.replay()
+        torch.cuda.synchronize()
+        replayed = out.clone()
+        assert s.bar[0].item() == 0 and not s.tickets.any(), pos
+        assert torch.equal(replayed,
+                           layer.q40_layer_mega(x, *args, k, v, 1, p, 1))
+
+
+def test_profiler_sessions_each_hold_exactly_their_launches(gen, tmp_path):
+    """Six obs/profiler.trace sessions in one process, each around a known
+    number of K1 launches at a small shape (the count varied from session
+    to session): each trace holds exactly its session's launches, counted
+    as tools/nb_probe counts them (utils/it_split.parse_trace,
+    DeviceSplit.counts by base name)."""
+    from distributed_llama_tpu_torch.obs import profiler
+    from distributed_llama_tpu_torch.utils import it_split
+
+    w = q40.random_q40(256, 1024, "cuda", gen)
+    x = torch.randn((1, 1024), device="cuda", generator=gen)
+    q40.q40_matmul(w, x)
+    torch.cuda.synchronize()
+    for i, n in enumerate((32, 7, 1, 64, 16, 3)):
+        where = str(tmp_path / f"s{i}")
+        before = q40.KERNEL.launches
+        with profiler.trace(where, cuda=True):
+            for _ in range(n):
+                q40.q40_matmul(w, x)
+        assert q40.KERNEL.launches == before + n
+        splits = it_split.parse_trace(where)
+        events = sum(s.counts["q40_matvec_kernel"] for s in splits.values())
+        assert events == n, (i, events, n)
 
 
 def test_fused_kernels_raise_instead_of_falling_back(gen):

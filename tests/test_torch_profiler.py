@@ -92,3 +92,20 @@ def test_env_profile_dir(monkeypatch, value, want):
     else:
         monkeypatch.setenv("DLLAMA_PROFILE_DIR", value)
     assert profiler.env_profile_dir() == want
+
+
+def test_trace_sessions_in_one_process_each_hold_their_own_ops(tmp_path):
+    """Three trace() sessions in one process, each around a known number of
+    host ops (aten::mm calls, varied per session): each trace holds its
+    session's count, counted as the probe counts kernels
+    (utils/it_split.parse_trace, DeviceSplit.counts by base name)."""
+    from distributed_llama_tpu_torch.utils import it_split
+
+    a = torch.ones(8, 8)
+    for i, n in enumerate((5, 1, 12)):
+        where = str(tmp_path / f"s{i}")
+        with profiler.trace(where, cuda=False):
+            for _ in range(n):
+                torch.mm(a, a)
+        splits = it_split.parse_trace(where)
+        assert sum(s.counts["mm"] for s in splits.values()) == n, i

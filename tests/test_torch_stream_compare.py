@@ -164,3 +164,21 @@ def test_chain_script_records_the_streams_it_prints(tmp_path):
     assert rec["logits"].shape == (steps, 2, spec.vocab_size)
     assert np.isfinite(rec["logits"]).all()
     assert stream_compare.chain_parting(rec, rec, 1e-3) is None
+
+
+def test_runs_h_and_p_are_runs_g_and_i_under_their_environment():
+    """Run h is run g over a bf16 cache under DLLAMA_MULTI_T_BODY=dequant
+    (K1d), run p run i under DLLAMA_LAYER_FUSION=on (K10), as chip_smoke.py
+    drives them."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_flags", stream_compare.ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    runs = stream_compare._runs(smoke)
+    assert runs["h"] == [*runs["g"], "--kv-cache-dtype", "bf16"]
+    assert runs["p"] == runs["i"]
+    assert stream_compare.RUN_ENV == {
+        "h": {"DLLAMA_MULTI_T_BODY": "dequant"},
+        "p": {"DLLAMA_LAYER_FUSION": "on"}}
