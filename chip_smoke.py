@@ -22,8 +22,10 @@ no result line):
 2. Kernels against their plain versions on the card at the Llama-2-7B
    shapes: the Q40 matvec (K1, tensor-core products) on
    wqkv/wo/w13/w2/wcls and 13B's and 70B's w2, the decode
-   attention (K2) at kv_mul 1 (7B) and 8 (70B-style GQA) over positions
-   0..2047 on an f32 and a bf16 cache, the small-T Q40 matvec (K1m, K1's
+   attention (K2, its keys split across the grid) at kv_mul 1 (7B) and 8
+   (70B-style GQA) over positions 0..2047 on an f32 and a bf16 cache, with
+   the same bits from two launches and an empty kernel's time beside it,
+   the small-T Q40 matvec (K1m, K1's
    skeleton) at T = 2..8 on the same shapes and at 13B's and 70B's w2 at
    T = 2 and 8 (K1 and K1m each with its plan, the same bits from two
    launches, the bytes bound and the tensor-core and SIMT bounds beside
@@ -44,10 +46,12 @@ no result line):
    finite f16 scale (q40.sweep_q40), and the batched decode attention (K5) at
    7B and GQA shapes for B = 1 and 8 at a shared pos 63 and 2047 and at
    ragged positions, over an f32 and a bf16 cache (at B = 1 bit for bit
-   K2); the paged decode attention over f32 and bf16 pages (K6) and Q8
+   K2; the same bits from two launches; graph replays at clocks that cross
+   its key splits give the eager bits and leave every ticket at 0); the
+   paged decode attention over f32 and bf16 pages (K6) and Q8
    pages (K7) at the same shapes with pages of 16 in a permuted pool, t_len
-   1, 4 and 8 (at t_len 1 K6 gives K5's bits over the same values, and K7
-   gives K6's bits over the dequantized pool); the fused decode layer's
+   1, 4 and 8 (at t_len 1 K6 gives the bits of K5 in one split over the
+   same values, and K7 gives K6's bits over the dequantized pool); the fused decode layer's
    head (K8), tail (K9) and whole layer (K10, over an f32 and a bf16 cache,
    part by part) at the 7B and GQA shapes at pos 0, 63 and 2047, timed
    beside the unfused port path for the same work; the Q40 layout probe's
@@ -512,7 +516,9 @@ def phase_k1(torch, timer, peaks):
 
 def phase_k2(torch, timer, peaks, cache=None):
     """K2 against plain over an f32 cache, or over a bf16 one (``cache`` =
-    torch.bfloat16, the kvbf16 build). The library yardstick is SDPA in
+    torch.bfloat16, the kvbf16 build), at positions up to 2047 where its
+    plan splits the keys, with the same bits from a second launch; an
+    empty kernel's time beside the rows. The library yardstick is SDPA in
     f32, K2's function (f32 q and dots): over a bf16 cache on q and the
     live prefix cast to f32 beforehand (the cast not timed); SDPA in bf16,
     which rounds q and so computes another function, is printed beside it
@@ -527,6 +533,9 @@ def phase_k2(torch, timer, peaks, cache=None):
     kernel = KERNEL if cache == torch.float32 else KERNEL_KVBF16
     size = torch.tensor([], dtype=cache).element_size()
     g = torch.Generator(device="cuda").manual_seed(1)
+    # the timer's floor: one empty kernel (a spin of 0 cycles)
+    empty_ms = timer(lambda: torch.cuda._sleep(0))
+    log(f"an empty kernel (torch.cuda._sleep(0)): {empty_ms:.4f} ms")
     rows = []
     for label, L, n_kv, kv_mul in K2_CASES:
         shape = (L, K2_SEQ, n_kv, K2_HS)
@@ -545,6 +554,10 @@ def phase_k2(torch, timer, peaks, cache=None):
                                      f"not launched")
             want = decode_attention_plain(q, k_all, v_all, layer, pos, kv_mul)
             err = (got - want).abs().max().item()
+            if not torch.equal(got, decode_attention(q, k_all, v_all, layer,
+                                                     pos, kv_mul)):
+                raise AssertionError(f"{kernel.symbol} {label} pos {pos}: "
+                                     f"other bits on a second launch")
             ms = timer(lambda: decode_attention(q, k_all, v_all, layer, pos,
                                                 kv_mul))
             plain_ms = timer(lambda: decode_attention_plain(
@@ -579,7 +592,8 @@ def phase_k2(torch, timer, peaks, cache=None):
                              max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=b_ms, bound_by=b_by,
                              library_ms=library_ms,
-                             library_bf16_ms=library_bf16_ms))
+                             library_bf16_ms=library_bf16_ms,
+                             empty_kernel_ms=empty_ms))
         del k_all, v_all
     return rows
 
@@ -772,10 +786,58 @@ def _k5_positions(batch):
             ("ragged", ragged)]
 
 
+# the replayed clocks of _k5_replays: one split, several, a shared long
+# clock, then others (a B = 1 row takes the first of each)
+K5_REPLAYS = ([0, 127, 2047, 5, 300, 1000, 129, 64],
+              [128, 2047, 2047, 1000, 2047, 2047, 2047, 2047],
+              [1000, 0, 129, 2047, 63, 900, 1500, 7],
+              [2047, 256, 5, 129, 1000, 2047, 0, 300])
+
+
+def _k5_replays(torch, k4, v4, q, layer, kv_mul, symbol, label):
+    """K5 captured in a CUDA graph over device positions, replayed at
+    clocks that cross its plan's split boundaries, and at B = 1 through
+    K2 at pos 1000 and 2047 too: every replay gives the eager bits (B = 1:
+    K2's), and every split ticket is back at 0 after it."""
+    from distributed_llama_tpu_torch.ops import attention as att
+
+    batch = q.shape[0]
+    pv = torch.tensor(K5_REPLAYS[0][:batch], dtype=torch.int32,
+                      device="cuda")
+    att.decode_attention_batch(q, k4, v4, layer, pv, kv_mul)  # eager first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = att.decode_attention_batch(q, k4, v4, layer, pv, kv_mul)
+    plan = att.decode_plan(k4.shape[2], batch, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    splits = set()
+    for pos in [*K5_REPLAYS, *([[1000], [2047]] if batch == 1 else [])]:
+        pv.copy_(torch.tensor(pos[:batch], dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        if any(s.tickets.any() for s in att._DECODE_SCRATCH.values()):
+            raise AssertionError(f"{symbol} {label}: a ticket left set "
+                                 f"after a replay at {pos[:batch]}")
+        eager = (att.decode_attention(q[0], k4, v4, layer, pos[0], kv_mul)
+                 if batch == 1 else
+                 att.decode_attention_batch(q, k4, v4, layer, pv, kv_mul))
+        if not torch.equal(out, eager):
+            raise AssertionError(f"{symbol} {label}: replay at "
+                                 f"{pos[:batch]} not the eager bits")
+        splits |= {att.decode_splits(p + 1, plan)[0] for p in pos[:batch]}
+    del graph
+    log(f"{symbol} {label}: {len(K5_REPLAYS) + 2 * (batch == 1)} graph "
+        f"replays give the eager bits{' (K2s)' if batch == 1 else ''}, "
+        f"tickets back at 0; split counts {sorted(splits)} under plan "
+        f"{plan}")
+
+
 def phase_k5(torch, timer, peaks, cache=None):
     """K5 against plain over an f32 cache, or a bf16 one (``cache`` =
-    torch.bfloat16), at 7B and GQA shapes for B = 1, 4, 8, shared and
-    ragged clocks; at B = 1 it must equal K2 bit for bit. SDPA over the
+    torch.bfloat16), at 7B and GQA shapes for B = 1 and 8, shared and
+    ragged clocks, the same bits from a second launch; at B = 1 it must
+    equal K2 bit for bit; then its graph replays (_k5_replays). SDPA over the
     padded prefix with a per-row mask (in the cache dtype) is the library
     yardstick."""
     import torch.nn.functional as F
@@ -813,6 +875,10 @@ def phase_k5(torch, timer, peaks, cache=None):
                 want = decode_attention_batch_plain(q, k4, v4, layer, pv,
                                                     kv_mul)
                 err = (got - want).abs().max().item()
+                if not torch.equal(got, run()):
+                    raise AssertionError(f"{kernel.symbol} {label} B={batch}"
+                                         f" {pos_label}: other bits on a "
+                                         f"second launch")
                 if batch == 1:
                     k2 = decode_attention(q[0], k4, v4, layer, pos[0],
                                           kv_mul)
@@ -855,6 +921,8 @@ def phase_k5(torch, timer, peaks, cache=None):
                                  max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                  bound_ms=b_ms, bound_by=b_by,
                                  library_ms=library_ms))
+            _k5_replays(torch, k4, v4, q, layer, kv_mul, kernel.symbol,
+                        f"{label} B={batch}")
             del k4, v4, q
     return rows
 
@@ -871,8 +939,9 @@ def phase_k6(torch, timer, peaks):
     clocks 63 and 2047 and ragged ones, t_len 1, 4 and 8 (up to the
     budget-edge clamp). The pool holds a contiguous (2B, 2048, n_kv, hs)
     batch cache's values in permuted physical pages; at t_len 1 K6 must
-    give K5's bits over the same values, with the identity table and with
-    the permuted one, and K7 must give K6's bits over the dequantized pool.
+    give the bits of K5 at a one-split plan (attention.ONE_SPLIT) over the
+    same values, with the identity table and with the permuted one, and K7
+    must give K6's bits over the dequantized pool.
     Times: the kernel, K5 at t_len 1 on the contiguous cache (f32 for Q8
     pages), the plain version (t_len 1), and the
     library yardstick, SDPA over the row's live pages gathered beforehand
@@ -967,8 +1036,11 @@ def phase_k6(torch, timer, peaks):
                             qk5 = q.reshape(batch, n_q, hs)
                             src = (base_k, base_v) if pages == "q8" \
                                 else (ck, cv)
+                            # K5 at a one-split plan: the first design's
+                            # sums in its order, which K6 keeps
                             k5 = att.decode_attention_batch(
-                                qk5, *src, layer, pv, kv_mul)
+                                qk5, *src, layer, pv, kv_mul,
+                                plan=att.ONE_SPLIT)
                             if pages != "q8":
                                 flat = [x.reshape(-1, ps, n_kv, hs)
                                         for x in (ck, cv)]
@@ -979,9 +1051,9 @@ def phase_k6(torch, timer, peaks):
                                         torch.equal(got, same)):
                                     raise AssertionError(
                                         f"{kernel.symbol} {label} "
-                                        f"B={batch} {pos_label}: not K5's "
-                                        f"bits (identity or permuted "
-                                        f"pool)")
+                                        f"B={batch} {pos_label}: not the "
+                                        f"bits of K5 in one split (identity "
+                                        f"or permuted pool)")
                             k5_ms = timer(lambda: att.decode_attention_batch(
                                 qk5, *src, layer, pv, kv_mul))
                             plain_ms = timer(lambda: plain_k(

@@ -20,15 +20,42 @@
 // bf16) is widened to f32 exactly as it is loaded, and all math stays f32.
 //
 // Bound: the K and V bytes of each row's live prefix, 2 * (pos+1) * n_kv *
-// hs * 4 (2 per value for a bf16 cache), read once. Design, simple first:
-// one thread block per (kv head, row), covering its kv_mul query heads, so
-// K and V are read once: n_kv blocks for K2 (32 at 7B on 132 SMs), n_kv * B
-// for K5 (256 at 7B and B = 8); each block runs the flash-decode body of
-// flash_decode.cuh (warps striding over keys, float4 lanes, a fixed-order
-// combine), which K6 and K7 (paged_attention.cu) share. K2 and K5 are one
-// template: at B = 1 on an (L, S, n_kv, hs) cache K5 computes exactly K2's
-// sums in K2's order, so a step through either gives the same bits.
-// Splitting the keys across blocks (flash-decoding) is left for later.
+// hs * 4 (2 per value for a bf16 cache), read once. One block of one
+// (kv head, row) walking all of a long prefix (the first design: 32 blocks
+// at 7B on 132 SMs, one key of K and V in flight a warp) kept ~0.5 MB in
+// flight and reached a fifth of the card's rate at 2048 keys. So:
+//
+// - the keys of each (kv head, row) are cut into splits (decode_splits,
+//   twin of ops/attention.decode_splits): at most `most` a head, each of
+//   at least `least` keys, so a short prefix takes one; the wrapper picks
+//   `most` to put about DECODE_BLOCKS_PER_SM blocks on every SM. Block
+//   (g, b, j) takes split j of kv head g for row b; the grid covers the
+//   largest plan the row could need (K5: S keys; K2 knows pos), and a block
+//   past its row's plan exits at once, so ragged rows each get their own;
+// - each warp loads the K and V rows of a batch of kAhead keys (t, t +
+//   kWarps, ...) before it takes them in order through flash_step, so
+//   kAhead keys a warp are in flight;
+// - over 8 GQA heads a kv head the online softmax, not the bytes, held
+//   the walk (every lane computed every head's 5-shuffle sum and two
+//   expf): flash_step (flash_decode.cuh) sums the KV_MUL dots in one
+//   butterfly that halves the heads a lane holds at each step, and each
+//   lane group computes one head's softmax scalars, the same values with
+//   about half the instructions a key;
+// - a split's warps combine in warp order (flash_decode.cuh, each warp's
+//   weight computed once); with one split that is the output, else the
+//   split writes its (m, l, unnormalised o) to `part`, fences and takes a
+//   ticket of its (row, kv head); the last to arrive merges the splits in
+//   split order (m = max m_j, l = sum l_j e^(m_j - m), o = sum o_j
+//   e^(m_j - m), out = o / l), every split's partials loaded at once, and
+//   resets the ticket to 0 for the next launch. One launch a call; the
+//   bits do not depend on which block finishes last.
+//
+// K2 and K5 are one kernel: at B = 1 on an (L, S, n_kv, hs) cache they
+// compute the same sums in the same order under the same plan, so a step
+// through either gives the same bits. In one split the kernel sums keys
+// 0..pos as flash_decode_block does, which K6 and K7 (paged_attention.cu)
+// run: K6 over a pool holding a contiguous cache's values gives K5's bits
+// at a one-split plan.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,133 +66,303 @@
 
 namespace {
 
-// Keys of one (cache row, kv head): key t at k + t * row.
-template <typename KV>
-struct ContigKeys {
-  const KV* k;
-  const KV* v;
-  size_t row;  // n_kv * hs: the stride between keys
-  __device__ __forceinline__ size_t at(int t) const {
-    return static_cast<size_t>(t) * row;
-  }
-  __device__ __forceinline__ float4 k4(size_t at, int lane) const {
-    return load_f4(k + at + 4 * lane);
-  }
-  __device__ __forceinline__ float4 v4(size_t at, int lane) const {
-    return load_f4(v + at + 4 * lane);
-  }
-};
+// the most splits a kv head (ops/attention.DECODE_MAX_SPLITS)
+constexpr int kMaxSplits = 32;
 
-template <typename KV, int KV_MUL, bool BATCH>
-__global__ void __launch_bounds__(kWarps * 32)
-decode_attention_kernel(const float* __restrict__ q,
-                        const KV* __restrict__ k_all,
-                        const KV* __restrict__ v_all,
-                        float* __restrict__ out, int layer, int pos_arg,
-                        const int* __restrict__ pos_vec, int batch, int S,
-                        int n_kv, int hs, float scale) {
-  const int g = blockIdx.x;
-  // K5: block row b reads cache row layer * batch + b at its own clock
-  const int b = BATCH ? blockIdx.y : 0;
-  const int pos = BATCH ? pos_vec[b] : pos_arg;
-  const int cache_row = BATCH ? layer * batch + b : layer;
-  const size_t row = static_cast<size_t>(n_kv) * hs;
-  const size_t base =
-      (static_cast<size_t>(cache_row) * S * n_kv + g) * hs;
-  const ContigKeys<KV> keys{k_all + base, v_all + base, row};
-  const size_t qo = (static_cast<size_t>(b) * n_kv + g) * KV_MUL * hs;
-  flash_decode_block<KV_MUL>(q + qo, out + qo, pos, hs, scale, keys);
+// Keys in flight a warp, from tools/plan_sweep.py on the H100: 4 up to
+// KV_MUL = 2, else 2 (KV_MUL = 8 keeps 8 heads' q and o in registers; at 2
+// keys it reaches 128 registers, and at 1 it ran up to 9% slower).
+// DECODE_KEYS_AHEAD overrides the table (the sweep builds such variants).
+template <int KV_MUL>
+__host__ __device__ constexpr int keys_ahead() {
+#ifdef DECODE_KEYS_AHEAD
+  return DECODE_KEYS_AHEAD;
+#else
+  return KV_MUL >= 4 ? 2 : 4;
+#endif
 }
 
-template <typename KV, int KV_MUL, bool BATCH>
-int launch(const float* q, const KV* k, const KV* v, float* out, int layer,
-           int pos, const int* pos_vec, int batch, int S, int n_kv, int hs,
-           float scale, cudaStream_t stream) {
-  const size_t smem = flash_decode_smem<KV_MUL>(hs);
+// The most splits `keys` keys may take: `most`, or fewer so that each has
+// at least `least` keys, and at least one. It grows with `keys`, so K5's
+// grid, sized by it for S keys, covers every row's plan.
+__host__ __device__ __forceinline__ int decode_want(int keys, int most,
+                                                    int least) {
+  const int need = (keys + least - 1) / least;
+  const int want = need < most ? need : most;
+  return want > 1 ? want : 1;
+}
+
+// The splits of `keys` keys: decode_want's count of runs, all of `per`
+// keys but the last, none empty.
+__host__ __device__ __forceinline__ void decode_splits(int keys, int most,
+                                                       int least,
+                                                       int& splits,
+                                                       int& per) {
+  const int want = decode_want(keys, most, least);
+  per = (keys + want - 1) / want;
+  splits = (keys + per - 1) / per;
+}
+
+struct DecodeArgs {
+  const float* q;
+  float* out;
+  float* part;        // the splits' o, then their (m, l): see below
+  int* tickets;       // (batch, n_kv) zeros between launches
+  const int* pos_vec; // K5's device positions, or null for K2's `pos`
+  int pos;
+  int layer;
+  int batch;
+  int S;
+  int n_kv;
+  int hs;
+  int most;
+  int least;
+  float scale;
+};
+
+template <typename KV, int KV_MUL>
+__global__ void __launch_bounds__(kWarps * 32)
+decode_attention_kernel(DecodeArgs a, const KV* __restrict__ k_all,
+                        const KV* __restrict__ v_all) {
+  const int g = blockIdx.x;
+  const int b = blockIdx.y;
+  const int j = blockIdx.z;
+  const int keys = (a.pos_vec ? __ldg(a.pos_vec + b) : a.pos) + 1;
+  int splits, per;
+  decode_splits(keys, a.most, a.least, splits, per);
+  if (j >= splits) return;
+  const int t0 = j * per;
+  const int t1 = min(keys, t0 + per);
+
+  const int hs = a.hs;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const bool live = 4 * lane < hs;  // lanes past the head size hold zeros
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const size_t row = static_cast<size_t>(a.n_kv) * hs;  // between keys
+  // K5: block row b reads cache row layer * batch + b (K2: batch 1)
+  const size_t base =
+      ((static_cast<size_t>(a.layer) * a.batch + b) * a.S * a.n_kv + g) * hs +
+      4 * lane;
+  const KV* k = k_all + base;
+  const KV* v = v_all + base;
+  const size_t item = static_cast<size_t>(b) * a.n_kv + g;  // (row, head)
+  const size_t qo = item * KV_MUL * hs;
+
+  FlashState<KV_MUL> st;
+  st.begin(a.q + qo, hs, lane, live);
+  // whole batches of kAhead keys, each batch's loads issued before any of
+  // its keys is taken, then the rest a key at a time: every warp takes its
+  // keys t0 + warp, + kWarps, ... in order
+  constexpr int kAhead = keys_ahead<KV_MUL>();
+  int t = t0 + warp;
+  for (; t + (kAhead - 1) * kWarps < t1; t += kAhead * kWarps) {
+    float4 kv[kAhead], vv[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const size_t at = static_cast<size_t>(t + u * kWarps) * row;
+      kv[u] = live ? load_f4(k + at) : zero;
+      vv[u] = live ? load_f4(v + at) : zero;
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) flash_step(st, kv[u], vv[u], a.scale);
+  }
+  for (; t < t1; t += kWarps) {
+    const size_t at = static_cast<size_t>(t) * row;
+    const float4 kv = live ? load_f4(k + at) : zero;
+    const float4 vv = live ? load_f4(v + at) : zero;
+    flash_step(st, kv, vv, a.scale);
+  }
+  extern __shared__ float sm[];
+  float* wts = sm + kWarps * KV_MUL * (hs + 2);  // past flash_stage's
+  flash_stage(sm, st, hs, live);
+  __syncthreads();
+  flash_weights<KV_MUL>(sm, wts);
+
+  const int n = KV_MUL * hs;
+  float* out = a.out + qo;
+  if (splits == 1) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int h = i / hs;
+      float lsum;
+      const float osum = flash_combine<KV_MUL>(sm, wts, hs, h, i - h * hs,
+                                               lsum);
+      out[i] = osum / lsum;
+    }
+    return;
+  }
+  // part: o (batch * n_kv * most, n), then (m, l) (batch * n_kv * most,
+  // KV_MUL, 2); split s of item at item * most + s
+  float* part_o = a.part + item * a.most * n;
+  float* part_ml = a.part + static_cast<size_t>(a.batch) * a.n_kv * a.most * n +
+                   item * a.most * 2 * KV_MUL;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int h = i / hs;
+    float lsum;
+    const float osum = flash_combine<KV_MUL>(sm, wts, hs, h, i - h * hs,
+                                             lsum);
+    part_o[static_cast<size_t>(j) * n + i] = osum;
+    if (i == h * hs) {
+      float mx = -INFINITY;
+      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm[w * KV_MUL + h]);
+      part_ml[(j * KV_MUL + h) * 2] = mx;
+      part_ml[(j * KV_MUL + h) * 2 + 1] = lsum;
+    }
+  }
+  __shared__ int last;
+  __threadfence();  // this split's partials, before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(a.tickets + item, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the merge: every split's (m, l) into shared memory at once, then each
+  // head's max (warp h, lane s) and the weights e^(m_s - m), then each
+  // value's sums over the splits in split order, its loads all in flight
+  float* sm_m = sm;                          // (splits, KV_MUL)
+  float* sm_l = sm_m + kMaxSplits * KV_MUL;  // (splits, KV_MUL)
+  float* w = sm_l + kMaxSplits * KV_MUL;     // (splits, KV_MUL)
+  for (int i = threadIdx.x; i < splits * KV_MUL; i += blockDim.x) {
+    sm_m[i] = __ldcg(part_ml + 2 * i);
+    sm_l[i] = __ldcg(part_ml + 2 * i + 1);
+  }
+  __syncthreads();
+  if (warp < KV_MUL) {
+    const float ms = lane < splits ? sm_m[lane * KV_MUL + warp] : -INFINITY;
+    float mx = ms;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    }
+    if (lane < splits) w[lane * KV_MUL + warp] = expf(ms - mx);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int h = i / hs;
+    float o[kMaxSplits];
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s) {
+      o[s] = s < splits ? __ldcg(part_o + static_cast<size_t>(s) * n + i)
+                        : 0.f;
+    }
+    float osum = 0.f, lsum = 0.f;
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s) {
+      if (s < splits) {
+        const float f = w[s * KV_MUL + h];
+        lsum += sm_l[s * KV_MUL + h] * f;
+        osum += o[s] * f;
+      }
+    }
+    out[i] = osum / lsum;
+  }
+  if (threadIdx.x == 0) a.tickets[item] = 0;  // ready for the next launch
+}
+
+template <typename KV, int KV_MUL>
+int launch(const DecodeArgs& a, const KV* k, const KV* v, int grid_splits,
+           cudaStream_t stream) {
+  // the warps' state, then their weights (flash_weights)
+  const size_t smem =
+      flash_decode_smem<KV_MUL>(a.hs) + kWarps * KV_MUL * sizeof(float);
   static size_t granted[kMaxDevices];
-  const cudaError_t e = opt_in_smem(
-      decode_attention_kernel<KV, KV_MUL, BATCH>, smem, granted);
+  const cudaError_t e =
+      opt_in_smem(decode_attention_kernel<KV, KV_MUL>, smem, granted);
   if (e != cudaSuccess) return static_cast<int>(e);
-  decode_attention_kernel<KV, KV_MUL, BATCH>
-      <<<dim3(n_kv, batch), kWarps * 32, smem, stream>>>(
-          q, k, v, out, layer, pos, pos_vec, batch, S, n_kv, hs, scale);
+  decode_attention_kernel<KV, KV_MUL>
+      <<<dim3(a.n_kv, a.batch, grid_splits), kWarps * 32, smem, stream>>>(
+          a, k, v);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename KV, bool BATCH>
-int dispatch(const void* q, const void* k_all, const void* v_all, void* out,
-             int layer, int pos, const void* pos_vec, int batch, int S,
-             int n_kv, int kv_mul, int hs, float scale, void* stream) {
-  const float* qf = static_cast<const float*>(q);
+template <typename KV>
+int dispatch(DecodeArgs a, const void* k_all, const void* v_all, int kv_mul,
+             void* stream) {
   const KV* kc = static_cast<const KV*>(k_all);
   const KV* vc = static_cast<const KV*>(v_all);
-  const int* pv = static_cast<const int*>(pos_vec);
-  float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hs % 4 != 0 || hs > 128 || batch < 1 || batch > 65535) {
+  if (a.hs % 4 != 0 || a.hs > 128 || a.batch < 1 || a.batch > 65535 ||
+      a.most < 1 || a.most > kMaxSplits || a.least < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the grid: K2 its position's plan, K5 the widest plan of a full cache
+  int splits = decode_want(a.S, a.most, a.least);
+  if (!a.pos_vec) {
+    int per;
+    decode_splits(a.pos + 1, a.most, a.least, splits, per);
   }
   switch (kv_mul) {
     case 1:
-      return launch<KV, 1, BATCH>(qf, kc, vc, of, layer, pos, pv, batch, S,
-                                  n_kv, hs, scale, s);
+      return launch<KV, 1>(a, kc, vc, splits, s);
     case 2:
-      return launch<KV, 2, BATCH>(qf, kc, vc, of, layer, pos, pv, batch, S,
-                                  n_kv, hs, scale, s);
+      return launch<KV, 2>(a, kc, vc, splits, s);
     case 4:
-      return launch<KV, 4, BATCH>(qf, kc, vc, of, layer, pos, pv, batch, S,
-                                  n_kv, hs, scale, s);
+      return launch<KV, 4>(a, kc, vc, splits, s);
     case 8:
-      return launch<KV, 8, BATCH>(qf, kc, vc, of, layer, pos, pv, batch, S,
-                                  n_kv, hs, scale, s);
+      return launch<KV, 8>(a, kc, vc, splits, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+DecodeArgs args(const void* q, void* out, void* part, void* tickets,
+                const void* pos_vec, int pos, int layer, int batch, int S,
+                int n_kv, int hs, int most, int least, float scale) {
+  return DecodeArgs{static_cast<const float*>(q), static_cast<float*>(out),
+                    static_cast<float*>(part), static_cast<int*>(tickets),
+                    static_cast<const int*>(pos_vec), pos, layer, batch, S,
+                    n_kv, hs, most, least, scale};
+}
+
 }  // namespace
 
 // Launch on `stream`; returns the cudaGetLastError() code (0 = launched).
-// Takes kv_mul in {1, 2, 4, 8} and hs a multiple of 4 up to 128.
-// K2 over an f32 cache:
+// Takes kv_mul in {1, 2, 4, 8}, hs a multiple of 4 up to 128 and the plan
+// (most, least) with 1 <= most <= 32; `part` holds batch * n_kv * most *
+// kv_mul * (hs + 2) floats and `tickets` batch * n_kv zeroed int32 (both
+// untouched under a one-split plan). K2 over an f32 cache:
 extern "C" int decode_attention(const void* q, const void* k_all,
-                                const void* v_all, void* out, int layer,
-                                int pos, int S, int n_kv, int kv_mul, int hs,
-                                float scale, void* stream) {
-  return dispatch<float, false>(q, k_all, v_all, out, layer, pos, nullptr, 1,
-                                S, n_kv, kv_mul, hs, scale, stream);
+                                const void* v_all, void* out, void* part,
+                                void* tickets, int layer, int pos, int S,
+                                int n_kv, int kv_mul, int hs, int most,
+                                int least, float scale, void* stream) {
+  return dispatch<float>(args(q, out, part, tickets, nullptr, pos, layer, 1,
+                              S, n_kv, hs, most, least, scale),
+                         k_all, v_all, kv_mul, stream);
 }
 
 // K2 over a bf16 cache:
 extern "C" int decode_attention_kvbf16(const void* q, const void* k_all,
                                        const void* v_all, void* out,
-                                       int layer, int pos, int S, int n_kv,
-                                       int kv_mul, int hs, float scale,
-                                       void* stream) {
-  return dispatch<__nv_bfloat16, false>(q, k_all, v_all, out, layer, pos,
-                                        nullptr, 1, S, n_kv, kv_mul, hs,
-                                        scale, stream);
+                                       void* part, void* tickets, int layer,
+                                       int pos, int S, int n_kv, int kv_mul,
+                                       int hs, int most, int least,
+                                       float scale, void* stream) {
+  return dispatch<__nv_bfloat16>(args(q, out, part, tickets, nullptr, pos,
+                                      layer, 1, S, n_kv, hs, most, least,
+                                      scale),
+                                 k_all, v_all, kv_mul, stream);
 }
 
 // K5 over an f32 cache: `pos` is a device (batch,) int32 vector.
 extern "C" int decode_attention_batch(const void* q, const void* k_all,
                                       const void* v_all, void* out,
-                                      int layer, const void* pos, int batch,
-                                      int S, int n_kv, int kv_mul, int hs,
-                                      float scale, void* stream) {
-  return dispatch<float, true>(q, k_all, v_all, out, layer, 0, pos, batch,
-                               S, n_kv, kv_mul, hs, scale, stream);
+                                      void* part, void* tickets, int layer,
+                                      const void* pos, int batch, int S,
+                                      int n_kv, int kv_mul, int hs, int most,
+                                      int least, float scale, void* stream) {
+  return dispatch<float>(args(q, out, part, tickets, pos, 0, layer, batch, S,
+                              n_kv, hs, most, least, scale),
+                         k_all, v_all, kv_mul, stream);
 }
 
 // K5 over a bf16 cache:
-extern "C" int decode_attention_batch_kvbf16(const void* q,
-                                             const void* k_all,
-                                             const void* v_all, void* out,
-                                             int layer, const void* pos,
-                                             int batch, int S, int n_kv,
-                                             int kv_mul, int hs, float scale,
-                                             void* stream) {
-  return dispatch<__nv_bfloat16, true>(q, k_all, v_all, out, layer, 0, pos,
-                                       batch, S, n_kv, kv_mul, hs, scale,
-                                       stream);
+extern "C" int decode_attention_batch_kvbf16(
+    const void* q, const void* k_all, const void* v_all, void* out,
+    void* part, void* tickets, int layer, const void* pos, int batch, int S,
+    int n_kv, int kv_mul, int hs, int most, int least, float scale,
+    void* stream) {
+  return dispatch<__nv_bfloat16>(args(q, out, part, tickets, pos, 0, layer,
+                                      batch, S, n_kv, hs, most, least, scale),
+                                 k_all, v_all, kv_mul, stream);
 }

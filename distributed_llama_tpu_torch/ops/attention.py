@@ -12,8 +12,13 @@ K5 replaces ``decode_attention_batch`` there: B such tokens over the rank-4
 (L*B, S, n_kv, hs) batch cache, row b of layer ``layer`` at cache row
 layer*B + b, each at its own position read from a device (B,) int32 vector
 (one shared clock or per-row clocks alike), so a step captured in a CUDA
-graph takes each replay's positions. It is K2's body on a (kv head, row)
-grid: at B = 1 it computes K2's sums in K2's order.
+graph takes each replay's positions. K2 and K5 are one kernel: each (kv
+head, row)'s keys are cut into splits across the grid (``decode_plan``,
+``decode_splits``), each split's online-softmax state is kept in f32 in a
+static per-device scratch, and the last split to finish merges them in
+split order behind a ticket, all in one launch
+(``decode_attention_split_model`` models the arithmetic). At B = 1 K5
+computes K2's sums in K2's order.
 
 K4 replaces ``prefill_attention`` (``_prefill_kernel``) there in f32: T
 queries at pos..pos+T-1, row i seeing keys 0..pos+i, with the chunk's own
@@ -45,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -52,7 +58,9 @@ import torch
 from ._build import CudaKernel
 from .q40 import sm_count, tf32_split
 
-_DECODE_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+# (q, k_all, v_all, out, part, tickets, layer, pos, S, n_kv, kv_mul, hs,
+# most, least, scale, stream)
+_DECODE_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                 + [ctypes.c_float, ctypes.c_void_p])
 KERNEL = CudaKernel("decode_attention.cu", "decode_attention", _DECODE_ARGS)
 KERNEL_KVBF16 = CudaKernel("decode_attention.cu", "decode_attention_kvbf16",
@@ -75,8 +83,10 @@ PREFILL_BF16_KERNEL_KVBF16 = CudaKernel("prefill_attention_bf16.cu",
 PREFILL_BF16_COMBINE = CudaKernel("prefill_attention_bf16.cu",
                                   "prefill_attention_bf16_combine",
                                   _COMBINE_ARGS)
-_BATCH_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
-               + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+# (q, k_all, v_all, out, part, tickets, layer, pos, batch, S, n_kv, kv_mul,
+# hs, most, least, scale, stream)
+_BATCH_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+               + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
 BATCH_KERNEL = CudaKernel("decode_attention.cu", "decode_attention_batch",
                           _BATCH_ARGS)
 BATCH_KERNEL_KVBF16 = CudaKernel("decode_attention.cu",
@@ -106,6 +116,20 @@ KERNEL_ATOL = 1e-5
 # the row's final max, so a p may land one bf16 step (2^-8 relative) apart;
 # the outputs mix such p over many keys
 KERNEL_ATOL_BF16 = 2e-3
+
+# K2's and K5's key splits (csrc/decode_attention.cu): at most
+# DECODE_MAX_SPLITS a kv head, each of at least DECODE_SPLIT_KEYS keys, as
+# many as put DECODE_BLOCKS_PER_SM blocks on every SM over the (kv head x
+# row) grid. tools/plan_sweep.py on the H100 (7B and 8 GQA kv heads, B = 1
+# and 8, pos 63..2047): one block an SM beat two (a KV_MUL >= 2 block holds
+# more than half an SM's registers, so a second one waits for a second
+# wave), and 64 keys kept pos 63 in one split
+DECODE_MAX_SPLITS = 32
+DECODE_SPLIT_KEYS = 64
+DECODE_BLOCKS_PER_SM = 1
+# a plan of one split: the first design's sums in its order, which K6 and K7
+# (paged_attention.cu) keep
+ONE_SPLIT = (1, 1)
 
 # K4b's tiling (csrc/prefill_attention_bf16.cu): keys per staged tile by
 # cache dtype, (row, head) items per block, and the split limits: a split
@@ -193,23 +217,143 @@ def _check(q, k_all, v_all, layer, pos, kv_mul) -> None:
                          f"of range for cache {tuple(k_all.shape)}")
 
 
+@functools.lru_cache(maxsize=None)
+def decode_plan(n_kv: int, batch: int, sms: int) -> tuple[int, int]:
+    """(most, least) of K2's and K5's key splits for B = ``batch`` rows of
+    n_kv kv heads on ``sms`` SMs: at most ``most`` splits a kv head, as many
+    as put DECODE_BLOCKS_PER_SM blocks on every SM (at most
+    DECODE_MAX_SPLITS; one where the (kv head x row) grid fills the card
+    already), each of at least ``least`` = DECODE_SPLIT_KEYS keys. K2 takes
+    B = 1's plan, so K5 at B = 1 gives K2's bits."""
+    most = DECODE_BLOCKS_PER_SM * sms // (n_kv * batch)
+    return max(1, min(DECODE_MAX_SPLITS, most)), DECODE_SPLIT_KEYS
+
+
+def decode_splits(keys: int, plan: tuple[int, int]) -> tuple[int, int]:
+    """(splits, keys a split) of ``keys`` live keys under ``plan`` = (most,
+    least): at most ``most`` splits of at least ``least`` keys (one for a
+    short prefix), all of ``per`` keys but the last, none empty. The
+    kernel computes the same on the card from each row's position
+    (csrc/decode_attention.cu decode_splits)."""
+    most, least = plan
+    want = max(1, min(most, -(-keys // least)))
+    per = -(-keys // want)
+    return -(-keys // per), per
+
+
+def decode_attention_split_model(q: torch.Tensor, k_all: torch.Tensor,
+                                 v_all: torch.Tensor, layer: int, pos,
+                                 kv_mul: int,
+                                 plan: tuple[int, int]) -> torch.Tensor:
+    """K2's and K5's split arithmetic in plain torch (a model for the
+    tests; no route calls it): the keys 0..pos of each kv head cut as
+    decode_splits says, each split's online-softmax state (m, l,
+    unnormalised o) in f32, then the splits merged in split order, m = max
+    m_j, l = sum l_j e^(m_j - m), o = sum o_j e^(m_j - m), out = o / l.
+    q (n_q, hs) at int ``pos`` -> (1, n_q * hs) over cache row ``layer``;
+    or q (B, n_q, hs) at B positions -> (B, n_q * hs), row b over cache
+    row layer * B + b, as K5 reads them."""
+    if q.dim() == 3:
+        batch = q.shape[0]
+        return torch.cat([
+            decode_attention_split_model(q[b], k_all, v_all,
+                                         layer * batch + b, int(p), kv_mul,
+                                         plan)
+            for b, p in enumerate(pos)])
+    n_kv, hs = k_all.shape[2], k_all.shape[3]
+    keys = pos + 1
+    splits, per = decode_splits(keys, plan)
+    k = k_all[layer, :keys].to(torch.float32)  # (keys, n_kv, hs)
+    v = v_all[layer, :keys].to(torch.float32)
+    qg = q.to(torch.float32).reshape(n_kv, kv_mul, hs)
+    scores = torch.einsum("gmd,tgd->gmt", qg, k) * attention_scale(hs)
+    parts = []
+    for j in range(splits):
+        sj = scores[..., j * per:(j + 1) * per]
+        mj = sj.amax(-1)
+        pj = torch.exp(sj - mj[..., None])
+        parts.append((mj, pj.sum(-1), torch.einsum(
+            "gmt,tgd->gmd", pj, v[j * per:(j + 1) * per])))
+    m = torch.stack([mj for mj, _, _ in parts]).amax(0)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(qg)
+    for mj, lj, oj in parts:
+        f = torch.exp(mj - m)
+        l = l + lj * f
+        o = o + oj * f[..., None]
+    return (o / l[..., None]).reshape(1, -1)
+
+
+class _DecodeScratch(NamedTuple):
+    """K2's and K5's split partials, (rows x n_kv x most) x kv_mul x (hs +
+    2) f32, and their per-(row, kv head) tickets, int32 zeros that every
+    launch leaves zero."""
+
+    part: torch.Tensor
+    tickets: torch.Tensor
+
+
+_DECODE_SCRATCH: dict = {}
+
+
+def _decode_scratch(device: torch.device, batch: int, n_kv: int,
+                    kv_mul: int, hs: int, most: int) -> tuple[int, int]:
+    """(part, tickets) pointers for a launch: static buffers made once per
+    (device, shape, plan width) on the first call there — an eager one:
+    every captured path runs its first step eagerly, so a captured step
+    keeps their addresses — and shared by every launch of that shape, as
+    the launches on a device run one after another on its stream. A
+    one-split plan touches neither (null pointers)."""
+    if most == 1:
+        return 0, 0
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    key = (index, batch, n_kv, kv_mul, hs, most)
+    scratch = _DECODE_SCRATCH.get(key)
+    if scratch is None:
+        scratch = _DECODE_SCRATCH[key] = _DecodeScratch(
+            torch.empty(batch * n_kv * most * kv_mul * (hs + 2),
+                        dtype=torch.float32, device=device),
+            torch.zeros(batch * n_kv, dtype=torch.int32, device=device))
+    return scratch.part.data_ptr(), scratch.tickets.data_ptr()
+
+
+def _plan_for(plan, n_kv: int, batch: int, device) -> tuple[int, int]:
+    """The wrapper's plan: ``plan`` when given (tests and
+    tools/plan_sweep.py; ONE_SPLIT for the first design's sums), else
+    decode_plan on this card."""
+    if plan is None:
+        return decode_plan(n_kv, batch, sm_count(device))
+    most, least = plan
+    if not (1 <= most <= DECODE_MAX_SPLITS and least >= 1):
+        raise ValueError(f"decode_attention: a plan is (most, least) with "
+                         f"1 <= most <= {DECODE_MAX_SPLITS} and least >= 1, "
+                         f"got {plan}")
+    return int(most), int(least)
+
+
 def decode_attention(q: torch.Tensor, k_all: torch.Tensor,
                      v_all: torch.Tensor, layer: int, pos: int,
-                     kv_mul: int) -> torch.Tensor:
+                     kv_mul: int,
+                     plan: tuple[int, int] | None = None) -> torch.Tensor:
     """Attention of one token's queries q (n_q, hs) at position ``pos``
     against keys/values 0..pos of cache layer ``layer``. Returns
     (1, n_q * hs) f32. CPU tensors take the plain version; CUDA tensors
-    launch K2, built for the cache's dtype (f32 or bf16)."""
+    launch K2, built for the cache's dtype (f32 or bf16), its keys split
+    as ``plan`` (default decode_plan at B = 1) says."""
     if q.device.type == "cpu" and k_all.device.type == "cpu":
         return decode_attention_plain(q, k_all, v_all, layer, pos, kv_mul)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     _check(q, k_all, v_all, layer, pos, kv_mul)
     _, seq_len, n_kv, hs = k_all.shape
+    most, least = _plan_for(plan, n_kv, 1, q.device)
     out = torch.empty((1, q.numel()), dtype=torch.float32, device=q.device)
     kernel = KERNEL if k_all.dtype == torch.float32 else KERNEL_KVBF16
     kernel.launch(q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
-                  out.data_ptr(), layer, pos, seq_len, n_kv, kv_mul, hs,
+                  out.data_ptr(),
+                  *_decode_scratch(q.device, 1, n_kv, kv_mul, hs, most),
+                  layer, pos, seq_len, n_kv, kv_mul, hs, most, least,
                   attention_scale(hs),
                   torch.cuda.current_stream(q.device).cuda_stream)
     return out
@@ -259,13 +403,16 @@ def _check_batch(q, k4, v4, layer, pos, kv_mul) -> None:
 
 def decode_attention_batch(q: torch.Tensor, k4: torch.Tensor,
                            v4: torch.Tensor, layer: int, pos: torch.Tensor,
-                           kv_mul: int) -> torch.Tensor:
+                           kv_mul: int,
+                           plan: tuple[int, int] | None = None
+                           ) -> torch.Tensor:
     """Attention of B tokens' queries q (B, n_q, hs), row b at position
     pos[b] (a (B,) int32 tensor on q's device), against keys and values
     0..pos[b] of cache row layer*B + b of the (L*B, S, n_kv, hs) cache.
     Returns (B, n_q * hs) f32. CPU tensors take the plain version; CUDA
     tensors launch K5, built for the cache's dtype, which reads pos on the
-    device."""
+    device and splits each row's keys as ``plan`` (default decode_plan at
+    this B) says."""
     if q.device.type == "cpu" and k4.device.type == "cpu":
         return decode_attention_batch_plain(q, k4, v4, layer, pos, kv_mul)
     if q.device.type != "cuda":
@@ -274,13 +421,15 @@ def decode_attention_batch(q: torch.Tensor, k4: torch.Tensor,
     _check_batch(q, k4, v4, layer, pos, kv_mul)
     batch = q.shape[0]
     _, seq_len, n_kv, hs = k4.shape
+    most, least = _plan_for(plan, n_kv, batch, q.device)
     out = torch.empty((batch, q[0].numel()), dtype=torch.float32,
                       device=q.device)
     kernel = (BATCH_KERNEL if k4.dtype == torch.float32
               else BATCH_KERNEL_KVBF16)
     kernel.launch(q.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
+                  *_decode_scratch(q.device, batch, n_kv, kv_mul, hs, most),
                   layer, pos.data_ptr(), batch, seq_len, n_kv, kv_mul, hs,
-                  attention_scale(hs),
+                  most, least, attention_scale(hs),
                   torch.cuda.current_stream(q.device).cuda_stream)
     return out
 

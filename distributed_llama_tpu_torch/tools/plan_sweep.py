@@ -1,15 +1,22 @@
 """Time every plan of K1, K1m and K1d (``q40_matvec``,
 ``q40_matvec_multi``, ``q40_matvec_bf16``: row and split warps a block,
 blocks a split, K splits), K3 (``q40_gemm``:
-splits x warpgroups) and K4 (``prefill_attention``: splits of the key
-range) at Llama-2-7B's shapes on the card, beside the plan the wrappers
-pick (``ops/q40.matvec_plan``, ``gemm_tf32_plan``,
-``ops/attention.prefill_plan``). Run on a machine with an NVIDIA GPU:
+splits x warpgroups), K4 (``prefill_attention``: splits of the key
+range) and K2 and K5 (``decode_attention``, ``decode_attention_batch``:
+blocks an SM, least keys a split, keys in flight a warp) at Llama-2-7B's
+shapes (and a GQA shape for K2/K5) on the card, beside the plan the
+wrappers pick (``ops/q40.matvec_plan``, ``gemm_tf32_plan``,
+``ops/attention.prefill_plan``, ``decode_plan``). Run on a machine with an
+NVIDIA GPU:
 
     python3 -m distributed_llama_tpu_torch.tools.plan_sweep [--k1-t 1,2,8]
         [--k1d-t 2,8] [--t 16,32,128] [--pos 384,1920]
+        [--decode-pos 63,512,1000,2047] [--decode-cache f32,bf16]
 
-(an empty list skips that kernel).
+(an empty list skips that kernel). K2's and K5's keys in flight a warp
+are a compile-time constant: the sweep builds decode_attention.cu once
+more for each (``-DDECODE_KEYS_AHEAD=n``) and swaps the build the wrappers
+launch; "built" is the source's own table.
 
 Each line gives the shape, the picked plan and its time, and the fastest
 plans of the sweep. A time covers the plan's whole call with its parts (K3's
@@ -21,12 +28,14 @@ of the card, as chip_smoke.py times the kernels.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import statistics
+import subprocess
 
 import torch
 
 from ..ops import attention, q40
-from ..ops._build import build
+from ..ops._build import BUILD_DIR, CSRC, NVCC_FLAGS, build, nvcc
 
 REPS = 25
 LAYER_SHAPES = [("wqkv", 12288, 4096), ("wo", 4096, 4096),
@@ -161,6 +170,92 @@ def sweep_k4(time, pos: int, t_len: int, cache: torch.dtype,
             pick, ms, "splits")
 
 
+DECODE_CASES = [("7b", 32, 1), ("gqa8", 8, 8)]  # (label, n_kv, kv_mul)
+DECODE_BATCHES = (1, 8)
+DECODE_AHEAD = (1, 2, 4, 8)
+DECODE_PER_SM = (1, 2, 3, 4)
+DECODE_LEAST = (32, 64, 128, 256)
+
+
+def _decode_variants() -> dict:
+    """{keys in flight: (lib, {symbol: fn})}: decode_attention.cu built
+    with -DDECODE_KEYS_AHEAD=n for each n, bound as the wrappers bind it."""
+    out = {}
+    kernels = (attention.KERNEL, attention.KERNEL_KVBF16,
+               attention.BATCH_KERNEL, attention.BATCH_KERNEL_KVBF16)
+    procs = {}
+    (BUILD_DIR / "plan_sweep").mkdir(parents=True, exist_ok=True)
+    for n in DECODE_AHEAD:
+        so = BUILD_DIR / "plan_sweep" / f"decode_attention-ahead{n}.so"
+        procs[n] = (so, subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, f"-DDECODE_KEYS_AHEAD={n}", "-I",
+             str(CSRC), "-o", str(so), str(CSRC / "decode_attention.cu")]))
+    for n, (so, proc) in procs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"plan_sweep: the keys-ahead {n} build "
+                               f"failed")
+        lib = ctypes.CDLL(str(so))
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        fns = {}
+        for k in kernels:
+            fn = getattr(lib, k.symbol)
+            fn.argtypes, fn.restype = k.argtypes, ctypes.c_int
+            fns[k.symbol] = fn
+        out[n] = (lib, fns)
+    return out
+
+
+def sweep_decode(time, variants, pos: int, cache: torch.dtype,
+                 sms: int) -> None:
+    """K2 (B = 1) and K5 (B = 8, one shared clock) over every (blocks an
+    SM, least keys a split, keys in flight a warp) at ``pos``; a plan's
+    blocks an SM give its ``most`` as decode_plan does."""
+    g = torch.Generator(device="cuda").manual_seed(pos)
+    for label, n_kv, kv_mul in DECODE_CASES:
+        for batch in DECODE_BATCHES:
+            k4 = torch.randn((batch, 2048, n_kv, HS), device="cuda",
+                             generator=g).to(cache)
+            v4 = torch.randn(k4.shape, device="cuda", generator=g).to(cache)
+            q = torch.randn((batch, n_kv * kv_mul, HS), device="cuda",
+                            generator=g)
+            pv = torch.full((batch,), pos, dtype=torch.int32, device="cuda")
+            if batch == 1:
+                kernel = (attention.KERNEL if cache == torch.float32
+                          else attention.KERNEL_KVBF16)
+
+                def call(plan):
+                    attention.decode_attention(q[0], k4, v4, 0, pos, kv_mul,
+                                               plan=plan)
+            else:
+                kernel = (attention.BATCH_KERNEL if cache == torch.float32
+                          else attention.BATCH_KERNEL_KVBF16)
+
+                def call(plan):
+                    attention.decode_attention_batch(q, k4, v4, 0, pv,
+                                                     kv_mul, plan=plan)
+            built = kernel._lib, kernel._fn
+            ms = {}
+            for ahead in ("built", *DECODE_AHEAD):
+                if ahead != "built":
+                    lib, fns = variants[ahead]
+                    kernel._lib, kernel._fn = lib, fns[kernel.symbol]
+                for per_sm in DECODE_PER_SM:
+                    most = max(1, min(attention.DECODE_MAX_SPLITS,
+                                      per_sm * sms // (n_kv * batch)))
+                    for least in DECODE_LEAST:
+                        ms[per_sm, least, ahead] = time(
+                            lambda: call((most, least)))
+                kernel._lib, kernel._fn = built
+            pick = (attention.DECODE_BLOCKS_PER_SM,
+                    attention.DECODE_SPLIT_KEYS, "built")
+            _report(f"{'K2' if batch == 1 else 'K5'} "
+                    f"{str(cache).split('.')[-1]} cache {label} B={batch} "
+                    f"pos {pos}", pick, ms,
+                    "(blocks an SM, least keys, keys in flight)")
+            del k4, v4
+
+
 def _report(label, pick, ms, what) -> None:
     best = sorted(ms, key=ms.get)
     print(f"{label}: picked {what} {pick} {ms[pick]:.4f} ms; fastest "
@@ -178,6 +273,11 @@ def main(argv=None) -> int:
                     help="K3's token counts (comma-separated)")
     ap.add_argument("--pos", default="384,1920",
                     help="K4's chunk positions at T = 128 (comma-separated)")
+    ap.add_argument("--decode-pos", default="63,512,1000,2047",
+                    help="K2's and K5's positions (comma-separated)")
+    ap.add_argument("--decode-cache", default="f32",
+                    help="K2's and K5's cache dtypes, f32 and/or bf16 "
+                         "(comma-separated)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("plan_sweep: no CUDA device")
@@ -186,7 +286,9 @@ def main(argv=None) -> int:
            q40.KERNEL_GEMM,
            q40.KERNEL_SPLIT_TF32, q40.KERNEL_GEMM_BF16_REDUCE,
            attention.PREFILL_KERNEL, attention.PREFILL_KERNEL_KVBF16,
-           attention.PREFILL_BF16_COMBINE])
+           attention.PREFILL_BF16_COMBINE, attention.KERNEL,
+           attention.KERNEL_KVBF16, attention.BATCH_KERNEL,
+           attention.BATCH_KERNEL_KVBF16])
     time = _timer()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -202,6 +304,13 @@ def main(argv=None) -> int:
     for cache in (torch.float32, torch.bfloat16):
         for pos in ints(args.pos):
             sweep_k4(time, pos, 128, cache, sms)
+    decode_pos = ints(args.decode_pos)
+    if decode_pos:
+        variants = _decode_variants()
+        dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+        for name in [c for c in args.decode_cache.split(",") if c]:
+            for pos in decode_pos:
+                sweep_decode(time, variants, pos, dtypes[name], sms)
     return 0
 
 

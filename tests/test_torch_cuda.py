@@ -11,7 +11,10 @@ kernels (K3b, K4b: their split-K and split-key plans, the launches of their
 parts, the same bits from two launches, a long prefix) and the bf16-cache
 builds of K2, K4 and K4b, and the ``--fast-prefill`` Engine over a bf16
 cache; then the batched decode
-attention (K5, both caches; at B = 1 bit for bit K2) and the small-T
+attention (K5, both caches; at B = 1 bit for bit K2), K2's and K5's keys
+split across the grid at S = 2048 (plain, the same bits twice, graph
+replays across split boundaries with every ticket back at 0, K6 at K5's
+one-split plan) and the small-T
 bf16-product Q40 body (K1d), and the on-device loops: a step captured in
 a CUDA graph and replayed gives the tokens of the same step run eagerly,
 with exact launch counts. Every test takes the ``gen`` fixture, which
@@ -710,6 +713,114 @@ def test_batch_attention_kernel_at_b1_is_k2_bit_for_bit(gen, cache, kv_mul,
         assert torch.equal(a, b)
 
 
+def _split_caches(gen, cache, rows, n_kv, hs=128, S=2048):
+    k4 = torch.randn((rows, S, n_kv, hs), device="cuda",
+                     generator=gen).to(cache)
+    v4 = torch.randn((rows, S, n_kv, hs), device="cuda",
+                     generator=gen).to(cache)
+    return k4, v4
+
+
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_kv,kv_mul", [(32, 1), (8, 8), (4, 2)])
+def test_split_attention_kernels_at_a_long_prefix(gen, cache, n_kv, kv_mul):
+    """K2 and K5 at S = 2048 split each kv head's keys across the grid
+    (decode_plan): against plain at pos 2047 and ragged clocks, the same
+    bits on a second launch, every ticket back at 0."""
+    q = torch.randn((3, n_kv * kv_mul, 128), device="cuda", generator=gen)
+    k_all, v_all = _split_caches(gen, cache, 2, n_kv)
+    splits = attention.decode_splits(2048, attention.decode_plan(
+        n_kv, 1, _sms()))[0]
+    assert splits > 1
+    got = attention.decode_attention(q[0], k_all, v_all, 1, 2047, kv_mul)
+    want = attention.decode_attention_plain(q[0], k_all, v_all, 1, 2047,
+                                            kv_mul)
+    assert (got - want).abs().max().item() <= attention.KERNEL_ATOL
+    assert torch.equal(got, attention.decode_attention(
+        q[0], k_all, v_all, 1, 2047, kv_mul))
+    k4, v4 = _split_caches(gen, cache, 6, n_kv)
+    pv = torch.tensor([2047, 300, 5], dtype=torch.int32, device="cuda")
+    got = attention.decode_attention_batch(q, k4, v4, 1, pv, kv_mul)
+    want = attention.decode_attention_batch_plain(q, k4, v4, 1, pv, kv_mul)
+    assert (got - want).abs().max().item() <= attention.KERNEL_ATOL
+    assert torch.equal(got, attention.decode_attention_batch(
+        q, k4, v4, 1, pv, kv_mul))
+    for key, s in attention._DECODE_SCRATCH.items():
+        assert not s.tickets.any(), key
+
+
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_mul", [1, 8])
+@pytest.mark.parametrize("pos", [1000, 2047])
+def test_split_attention_k5_at_b1_is_k2_bit_for_bit(gen, cache, kv_mul,
+                                                    pos):
+    """K5 at B = 1 takes K2's plan at every position: the --fast step's
+    attention equals the host loop's past the first split too."""
+    n_kv = 8
+    k_all, v_all = _split_caches(gen, cache, 2, n_kv)
+    q = torch.randn((1, n_kv * kv_mul, 128), device="cuda", generator=gen)
+    pv = torch.tensor([pos], dtype=torch.int32, device="cuda")
+    assert attention.decode_splits(pos + 1, attention.decode_plan(
+        n_kv, 1, _sms()))[0] > 1
+    for layer in range(2):
+        assert torch.equal(
+            attention.decode_attention_batch(q, k_all, v_all, layer, pv,
+                                             kv_mul),
+            attention.decode_attention(q[0], k_all, v_all, layer, pos,
+                                       kv_mul))
+
+
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+def test_split_attention_replays_from_a_graph(gen, cache):
+    """K5 captured in a CUDA graph (device positions, static scratch) and
+    replayed at clocks that cross split boundaries (1, then several
+    splits, then others): every replay gives the eager bits and leaves
+    every ticket at 0."""
+    n_kv, kv_mul, batch = 8, 4, 2
+    k4, v4 = _split_caches(gen, cache, 2 * batch, n_kv)
+    q = torch.randn((batch, n_kv * kv_mul, 128), device="cuda",
+                    generator=gen)
+    pv = torch.tensor([5, 40], dtype=torch.int32, device="cuda")
+    attention.decode_attention_batch(q, k4, v4, 1, pv, kv_mul)  # eager
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = attention.decode_attention_batch(q, k4, v4, 1, pv, kv_mul)
+    plan = attention.decode_plan(n_kv, batch, _sms())
+    seen = set()
+    for pos in ([0, 127], [128, 2047], [1000, 129], [2047, 256], [3, 900]):
+        pv.copy_(torch.tensor(pos, dtype=torch.int32))
+        q.copy_(torch.randn(q.shape, device="cuda", generator=gen))
+        graph.replay()
+        torch.cuda.synchronize()
+        replayed = out.clone()
+        for key, s in attention._DECODE_SCRATCH.items():
+            assert not s.tickets.any(), (key, pos)
+        assert torch.equal(replayed, attention.decode_attention_batch(
+            q, k4, v4, 1, pv, kv_mul)), pos
+        want = attention.decode_attention_batch_plain(q, k4, v4, 1, pv,
+                                                      kv_mul)
+        assert (replayed - want).abs().max().item() <= attention.KERNEL_ATOL
+        seen |= {attention.decode_splits(p + 1, plan)[0] for p in pos}
+    assert 1 in seen and len(seen) > 2
+
+
+def test_split_attention_plan_override(gen):
+    """A plan override reaches the kernel: ONE_SPLIT gives the same
+    values within KERNEL_ATOL, a plan out of range raises."""
+    k_all, v_all = _split_caches(gen, torch.float32, 2, 8)
+    q = torch.randn((8, 128), device="cuda", generator=gen)
+    a = attention.decode_attention(q, k_all, v_all, 1, 2047, 1)
+    b = attention.decode_attention(q, k_all, v_all, 1, 2047, 1,
+                                   plan=attention.ONE_SPLIT)
+    assert (a - b).abs().max().item() <= attention.KERNEL_ATOL
+    with pytest.raises(ValueError, match="plan"):
+        attention.decode_attention(q, k_all, v_all, 1, 2047, 1,
+                                   plan=(attention.DECODE_MAX_SPLITS + 1, 1))
+    with pytest.raises(ValueError, match="plan"):
+        attention.decode_attention(q, k_all, v_all, 1, 2047, 1, plan=(2, 0))
+
+
 def test_batch_attention_kernel_raises_instead_of_falling_back(gen):
     k4 = torch.randn((4, 16, 2, 64), device="cuda", generator=gen)
     q = torch.randn((2, 2, 64), device="cuda", generator=gen)
@@ -1033,8 +1144,9 @@ def test_paged_kernels_match_plain(gen, pages, kv_mul, hs, t_len, ps):
 @pytest.mark.parametrize("ps", [4, 16])
 def test_paged_kernel_at_t1_is_k5_bit_for_bit(gen, cache, kv_mul, ps):
     """A (L*B, S, n_kv, hs) batch cache is also a pool of L*B*S/ps pages:
-    with the identity table K6 gives K5's bits, and under any permutation
-    of the physical pages it gives the same bits again."""
+    with the identity table K6 gives the bits of K5 at a one-split plan
+    (the first design's sums in its order), and under any permutation of
+    the physical pages it gives the same bits again."""
     L, B, S, n_kv, hs = 2, 3, 48, 2, 128
     k4 = torch.randn((L * B, S, n_kv, hs), device="cuda",
                      generator=gen).to(cache)
@@ -1048,7 +1160,8 @@ def test_paged_kernel_at_t1_is_k5_bit_for_bit(gen, cache, kv_mul, ps):
                          device="cuda").reshape(B, mp)
     perm = torch.randperm(P, device="cuda", generator=gen)
     for layer in range(L):
-        k5 = attention.decode_attention_batch(q, k4, v4, layer, pv, kv_mul)
+        k5 = attention.decode_attention_batch(q, k4, v4, layer, pv, kv_mul,
+                                              plan=attention.ONE_SPLIT)
         pages = [t.reshape(L * P, ps, n_kv, hs) for t in (k4, v4)]
         k6 = paged_attention.paged_decode_attention(
             q.reshape(B, 1, -1), *pages, layer, pv, table, P, kv_mul)
@@ -1062,6 +1175,30 @@ def test_paged_kernel_at_t1_is_k5_bit_for_bit(gen, cache, kv_mul, ps):
             q.reshape(B, 1, -1), *moved, layer, pv,
             perm.to(torch.int32)[table.long()], P, kv_mul)
         assert torch.equal(k6p, k6)
+
+
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_mul", [1, 8])
+def test_paged_kernel_at_a_long_prefix_is_k5_at_one_split(gen, cache,
+                                                          kv_mul):
+    """Past the first split of K5's default plan, K6 over the same values
+    still gives K5's bits at the one-split plan, and K5's default plan
+    stays within KERNEL_ATOL of them."""
+    L, B, S, n_kv, hs, ps = 2, 2, 2048, 8, 128, 16
+    k4, v4 = _split_caches(gen, cache, L * B, n_kv, hs, S)
+    q = torch.randn((B, n_kv * kv_mul, hs), device="cuda", generator=gen)
+    pv = torch.tensor([2047, 1000], dtype=torch.int32, device="cuda")
+    P = B * S // ps
+    table = torch.arange(P, dtype=torch.int32,
+                         device="cuda").reshape(B, S // ps)
+    pages = [t.reshape(L * P, ps, n_kv, hs) for t in (k4, v4)]
+    k5 = attention.decode_attention_batch(q, k4, v4, 1, pv, kv_mul,
+                                          plan=attention.ONE_SPLIT)
+    k6 = paged_attention.paged_decode_attention(
+        q.reshape(B, 1, -1), *pages, 1, pv, table, P, kv_mul)
+    assert torch.equal(k6.reshape(B, -1), k5)
+    split = attention.decode_attention_batch(q, k4, v4, 1, pv, kv_mul)
+    assert (split - k5).abs().max().item() <= attention.KERNEL_ATOL
 
 
 @pytest.mark.parametrize("kv_mul", [1, 2, 8])
