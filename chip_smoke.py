@@ -17,8 +17,9 @@ no result line):
    HGMMA), every K3 GEMM function a tf32 HGMMA (wgmma) and UTMALDG (TMA),
    every K3b GEMM function HGMMA and UTMALDG or UBLKCP (bulk copy), every
    K4 function a tf32 HMMA (mma.sync) and UTMALDG, every K4b function the
-   async copy; ``cuobjdump -res-usage``: no K1, K1m, K3 or K4 function
-   spills (stack or local memory), registers logged.
+   async copy, K8 and K9 their rings' per-thread async copy (LDGSTS);
+   ``cuobjdump -res-usage``: no K1, K1m, K3, K4 or K9 function spills
+   (stack or local memory), registers logged.
 2. Kernels against their plain versions on the card at the Llama-2-7B
    shapes: the Q40 matvec (K1, tensor-core products) on
    wqkv/wo/w13/w2/wcls and 13B's and 70B's w2, the decode
@@ -54,7 +55,9 @@ no result line):
    same values, and K7 gives K6's bits over the dequantized pool); the fused decode layer's
    head (K8), tail (K9) and whole layer (K10, over an f32 and a bf16 cache,
    part by part) at the 7B and GQA shapes at pos 0, 63 and 2047, timed
-   beside the unfused port path for the same work; the Q40 layout probe's
+   beside the unfused port path for the same work, K8's and K9's rows with
+   P0's bits (K8's on the vector it staged, read back through one-hot
+   rows), K8's q, k and v with K10's bits, both the same bits twice; the Q40 layout probe's
    kernels (B10: P1 probe_stream, P2 probe_xglobal, P3 probe_nomask, P4
    probe_signed, and P0 probe_classic, the classic T = 1 row body that
    the fused tail gives the bits of) and K1 at the 13B w13 and wqkv
@@ -338,7 +341,7 @@ SASS_OPS = {"HGMMA": r"\bHGMMA\b", "HGMMA.TF32": r"\bHGMMA\.[\w.]*TF32\b",
             "HMMA.TF32": r"\bHMMA\.[\w.]*TF32\b",
             "HMMA.BF16": r"\bHMMA\.[\w.]*BF16\b",
             "HGMMA.BF16": r"\bHGMMA\.[\w.]*BF16\b", "UTMALDG": r"\bUTMALDG\b",
-            "UBLKCP": r"\bUBLKCP\b"}
+            "UBLKCP": r"\bUBLKCP\b", "LDGSTS": r"\bLDGSTS\b"}
 # (kernel, function name part, instruction groups: each group needs one of
 # its instructions in every function of that name)
 SASS_CHECKS = [
@@ -352,24 +355,29 @@ SASS_CHECKS = [
      [("HMMA.TF32",), ("UTMALDG",)]),
     ("prefill_attention_bf16", "prefill_attention_bf16_kernel",
      [("UTMALDG", "UBLKCP")]),
+    ("q40_head_fused", "q40_head_kernel", [("LDGSTS",)]),
+    ("q40_tail_fused", "q40_tail_kernel", [("LDGSTS",)]),
 ]
+# K1, K1m, K3, K4 and K9 (K8's stack is RoPE's precise sinf / cosf, whose
+# slow path keeps its reduction in local memory)
 SPILL_FREE = ("q40_matvec", "q40_matvec_multi", "q40_gemm",
-              "prefill_attention")  # K1, K1m, K3 and K4
+              "prefill_attention", "q40_tail_fused")
 
 
 def phase_sass():
     """What the redesigned kernels compile to: ``cuobjdump -sass`` of the
-    built K1/K1m, K3, K3b, K4 and K4b libraries. Every K1 and K1m function
-    (one per T) must hold a bf16 tensor-core MMA (HMMA or HGMMA), every K3
-    GEMM function (one per
+    built K1/K1m, K3, K3b, K4, K4b and K8-K9 libraries. Every K1 and K1m
+    function (one per T) must hold a bf16 tensor-core MMA (HMMA or HGMMA),
+    every K3 GEMM function (one per
     token tile and warpgroup count) must hold a tf32 warpgroup MMA
     (HGMMA...TF32) and a TMA copy (UTMALDG), every K3b GEMM function a
     warpgroup MMA and a TMA or bulk copy (UBLKCP), every K4 function (one
     per cache type and kv_mul) a tf32 warp MMA (HMMA...TF32) and a TMA
-    copy, every K4b function the async copy. ``cuobjdump -res-usage`` gives
+    copy, every K4b function the async copy, K8 and K9 the per-thread
+    async copy of their rings (LDGSTS). ``cuobjdump -res-usage`` gives
     each function's registers (at launch) and its stack and local memory:
-    K1's, K1m's, K3's and K4's functions must spill nothing. Returns {kernel:
-    {instruction: count, "max_regs": n, "spill_bytes": n}}."""
+    K1's, K1m's, K3's, K4's and K9's functions must spill nothing. Returns
+    {kernel: {instruction: count, "max_regs": n, "spill_bytes": n}}."""
     from distributed_llama_tpu_torch.ops import _build
 
     tool = _disassembler()
@@ -1282,9 +1290,16 @@ def phase_fused(torch, timer, peaks):
     plain, and in place of a library time the unfused port path for the
     same work (llama._qkv_proj, _post_attention and _layer through the
     kernel route: K1, K2 and torch glue); no single PyTorch call computes
-    these functions."""
+    these functions. K8's and K9's rows hold P0's bits (nb_probe's
+    probe_classic, the classic row body): K8's v rows at every pos, all its
+    rows at pos 0, on the vector it staged (read back bit for bit through
+    one-hot rows, layer.readback_q40); K9's xnew = x + P0(wo, ao) and out =
+    xnew + P0(w2, hb); K8's q, k and v equal K10's q scratch and f32 cache
+    row at every pos; K8 and K9 give the same bits on a second launch."""
+    from distributed_llama_tpu_torch.io.loader import Q40Weight
     from distributed_llama_tpu_torch.models import llama
     from distributed_llama_tpu_torch.ops import attention, layer, q40
+    from distributed_llama_tpu_torch.tools import nb_probe
 
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = {"head": [], "tail": [], "mega": []}
@@ -1308,9 +1323,22 @@ def phase_fused(torch, timer, peaks):
         head_args = (lw["wqkv"], lw["rms_att"], lw["freq"])
         tail_args = (lw["wo"], lw["w13"], lw["w2"], lw["rms_ffn"])
         s = layer._scratch(x.device, dim, hid)
+        readback = layer.readback_q40(lw["wqkv"].qs.shape[0], dim, "cuda")
+        zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+        xs = layer.q40_head_fused(x, readback, lw["rms_att"], lw["freq"],
+                                  zero)[0, :dim]  # K8's staged vector
+        wv = Q40Weight(lw["wqkv"].qs[n_rot:], lw["wqkv"].d16[n_rot:])
         for pos in FUSED_POS:
             p = torch.tensor([pos], dtype=torch.int32, device="cuda")
             got = layer.q40_head_fused(x, *head_args, p)
+            if not (torch.equal(got, layer.q40_head_fused(x, *head_args, p))
+                    and torch.equal(got[0, n_rot:],
+                                    nb_probe.probe_classic(wv, xs))
+                    and (pos or torch.equal(got[0], nb_probe.probe_classic(
+                        lw["wqkv"], xs)))):
+                raise AssertionError(f"K8 {label} pos {pos}: not the same "
+                                     f"bits twice, or rows without P0's "
+                                     f"bits on its staged vector")
             err, tol = err_of(got, layer.q40_head_fused_plain(x, *head_args,
                                                               p))
             row = dict(case=label, pos=pos, max_abs_err=err, tol=tol,
@@ -1330,6 +1358,15 @@ def phase_fused(torch, timer, peaks):
                     bound_ms=b_ms, bound_by=b_by)
             rows["head"].append(row)
         got = layer.q40_tail_fused(ao, x, *tail_args)
+        if not (torch.equal(s.xnew[None], x + nb_probe.probe_classic(
+                    lw["wo"], ao[0])[None])
+                and torch.equal(got, s.xnew[None] + nb_probe.probe_classic(
+                    lw["w2"], s.hb.clone())[None])
+                and torch.equal(got, layer.q40_tail_fused(ao, x, *tail_args))
+                and s.bar[0].item() == 0):
+            raise AssertionError(f"K9 {label}: rows without P0's bits, not "
+                                 f"the same bits twice, or the barrier's "
+                                 f"count left set")
         err, tol = err_of(got, layer.q40_tail_fused_plain(ao, x, *tail_args))
         nbytes = wb["wo"] + wb["w13"] + wb["w2"] + 4 * 4 * dim
         b_ms, b_by = bound(nbytes, mv_flops["wo"] + mv_flops["w13"]
@@ -1383,6 +1420,14 @@ def phase_fused(torch, timer, peaks):
                     raise AssertionError(f"K10 {label} {dtype} pos {pos}: "
                                          f"barrier count {s.bar[0].item()}"
                                          f" or split tickets left set")
+                if dtype == torch.float32:
+                    k8 = layer.q40_head_fused(x, *head_args, p)[0]
+                    if not (torch.equal(k8[:dim], s.q) and torch.equal(
+                            k8[dim:n_rot], k[1, pos].reshape(-1))
+                            and torch.equal(k8[n_rot:],
+                                            v[1, pos].reshape(-1))):
+                        raise AssertionError(f"K8 {label} pos {pos}: q, k "
+                                             f"and v not K10's bits")
                 row = dict(case=label, pos=pos, cache=str(dtype)[6:],
                            max_abs_err=parts["layer"][0],
                            tol=parts["layer"][1],

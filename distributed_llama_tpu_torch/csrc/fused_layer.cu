@@ -25,44 +25,75 @@
 //
 // Bound: the weight bytes, read once: 28.31 MB of wqkv for K8, 85.52 MB of
 // wo, w13 and w2 for K9, both and the live cache prefix for K10 (Llama-2-
-// 7B). Design, right and simple first:
-//   * every matvec row is the classic row body (q40_row.cuh, the Q40
-//     layout probe's P0), one warp per row, so a fused row gives P0's bits
-//     on the same staged vector;
-//   * every block stages the vector it multiplies by itself (rmsnorm
-//     included: each block reduces the 4096 floats of x, 16 KB from L2),
-//     so K8 needs no grid-wide dependency;
-//   * K8 gives a warp a pair of rows (2p, 2p+1): it rotates the pair below
-//     dim + kv_dim by float(pos) * freq[p] with precise cosf / sinf (the
-//     angle reaches ~2047 rad, where the fast intrinsics lose accuracy)
-//     and products rounded apart (no FMA contraction), as the plain version
-//     computes it;
-//   * K9 and K10 run as one grid of co-resident blocks (a cooperative
-//     launch, sized from the occupancy calculator) with a generation-counter
-//     barrier in global memory between phases: K9 has two (after x + wo.ao,
-//     after silu(w1.h) * w3.h), K10 four (after qkv and the cache write,
-//     after attention, after wo, after w13). Vectors a phase produces live
-//     in global scratch and are read after the barrier with __ldcg (L2),
-//     never through the non-coherent caches;
-//   * K10, redesigned from per-phase %globaltimer stamps of its first
-//     design at Llama-2-7B on an H100: of 88.8 us a layer at pos 63, 17 went to
-//     staging vectors with one dependent 4-byte load a thread at a time,
-//     8 to the four barriers, the first weight loads of each phase waited
-//     behind both; at pos 2047 the attention took 101 us on its n_kv
-//     blocks while the rest of the grid waited:
-//       - stage4 / stage4_rmsnorm stage a vector with float4 loads, several
-//         in flight a thread, the rmsnorm's x kept in registers between its
-//         sum of squares and the write;
-//       - before each barrier a warp asks L2 for the rows it takes first
-//         after it (prefetch_row), so they stream while the grid meets
-//         and stages; rows are q40_row_dot's (P0's bits);
-//       - the attention splits keys 0..pos of each kv head across the
-//         whole grid (key_splits): a block takes split j of head g with
-//         K2's online softmax over its keys, writes its (m, l, o), and the
-//         last block of the head to finish (a ticket after a fence) merges
-//         the splits in split order and resets the ticket, so the bits do
-//         not depend on which block finishes last; within 1e-5 of the
-//         plain attention, no longer K2's bits.
+// 7B). Every matvec row is the classic row body's arithmetic (q40_row.cuh,
+// the Q40 layout probe's P0): a warp a row, lane l taking the row's blocks
+// l, l + 32, ... in order into one f32 sum, then the xor butterfly, so a
+// fused row gives P0's bits on the same staged vector. The first design of
+// all three, right and simple first: every block staged its vector with one
+// dependent 4-byte load a thread at a time, K8 as 384 blocks that each
+// restaged rmsnorm(x), K9 and K10 as one grid of co-resident blocks (a
+// cooperative launch, sized from the occupancy calculator) with a
+// generation-counter barrier in global memory between phases (K9 two:
+// after x + wo.ao, after silu(w1.h) * w3.h; K10 four: after qkv and the
+// cache write, after attention, after wo, after w13); vectors a phase
+// produces live in global scratch and are read after the barrier with
+// __ldcg (L2), never through the non-coherent caches. K8 rotates each row
+// pair (2p, 2p+1) below dim + kv_dim by float(pos) * freq[p] with precise
+// cosf / sinf (the angle reaches ~2047 rad, where the fast intrinsics lose
+// accuracy) and products rounded apart (no FMA contraction), as the plain
+// version computes it.
+//
+// K10, redesigned from per-phase %globaltimer stamps of its first design
+// at Llama-2-7B on an H100: of 88.8 us a layer at pos 63, 17 went to
+// staging vectors with one dependent 4-byte load a thread at a time, 8 to
+// the four barriers, the first weight loads of each phase waited behind
+// both; at pos 2047 the attention took 101 us on its n_kv blocks while the
+// rest of the grid waited:
+//   - stage4 / stage4_rmsnorm stage a vector with float4 loads, several in
+//     flight a thread, the rmsnorm's x kept in registers between its sum
+//     of squares and the write;
+//   - before each barrier a warp asks L2 for the rows it takes first after
+//     it (prefetch_row), so they stream while the grid meets and stages;
+//     rows are q40_row_dot's (P0's bits);
+//   - the attention splits keys 0..pos of each kv head across the whole
+//     grid (key_splits): a block takes split j of head g with K2's online
+//     softmax over its keys, writes its (m, l, o), and the last block of
+//     the head to finish (a ticket after a fence) merges the splits in
+//     split order and resets the ticket, so the bits do not depend on which
+//     block finishes last; within 1e-5 of the plain attention, no longer
+//     K2's bits.
+//
+// K8 and K9, redesigned from %globaltimer stamps of their first design
+// (Llama-2-7B, K8 at pos 63, H100): K8 ran 384 blocks in waves, each
+// restaging rmsnorm(x) with dependent scalar loads (6.4 us) before its 16
+// row pairs; K9 spent 12.4 of its 63.9 stamped us staging and 4.2 at its
+// two barriers with no weight byte in flight, and its rows streamed near
+// 60% of the bound (the classic body's arithmetic: a byte permute, a
+// subtract and an FMA a value, x read from shared memory for every row).
+// Now:
+//   - one grid of co-resident blocks (K9's a cooperative launch, K8's a
+//     plain one), each staging each vector once with float4 loads and
+//     K10's arithmetic (K8's q, k and v are K10's bits), its loads issued
+//     before the ring's first copies so they do not queue behind them;
+//   - each block takes a contiguous band of each phase's jobs (bands differ
+//     by one job at most), a job being two rows on one warp: K8's RoPE
+//     pair, K9's wo and w2 rows 2j and 2j + 1, its w1 row j with its w3
+//     row j; block_dot2 reads each staged x value once for both rows;
+//   - every weight byte reaches shared memory by cp.async into a per-warp
+//     ring of kRingSlots chunks (CH = 64 Q40 blocks of both rows' codes
+//     and scales), issued a chunk ahead of the rows and across the phase
+//     ends, so bytes are in flight while the block stages and meets; a
+//     warp waits for its own copies (cp.async.wait_group, __syncwarp), so
+//     neither a producer warp nor a named barrier is needed; two slots
+//     measured faster than three or four (more copies queued at the start
+//     delay the staging and the first rows);
+//   - a row's sum reads its codes and scales from the ring with P0's
+//     arithmetic, each row's FMAs and butterfly in P0's order;
+//   - K9 meets at its own barrier (ring_barrier: the generation read once
+//     a launch, acquire / release atomics).
+// What bounds them now is the row body's issue rate: K9's w13 phase
+// streams ~2 TB/s of the card's 3.35.
+
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -71,6 +102,7 @@
 
 #include "common.cuh"
 #include "flash_decode.cuh"
+#include "hopper.cuh"
 #include "q40_row.cuh"
 
 namespace {
@@ -82,50 +114,6 @@ constexpr float kRmsEps = 1e-5f;
 // ---------------------------------------------------------------------------
 // shared pieces
 // ---------------------------------------------------------------------------
-
-// x[i] as f32: inputs of the launch through the read-only path, vectors
-// written earlier in the same launch through L2.
-template <bool kCoherent>
-static __device__ __forceinline__ float load_vec(const float* p) {
-  return kCoherent ? __ldcg(p) : __ldg(p);
-}
-
-// Stage x (n values) into xs, each 32-value block padded to kBlockPad.
-template <bool kCoherent>
-static __device__ void stage(float* xs, const float* x, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    xs[(i >> 5) * kBlockPad + (i & 31)] = load_vec<kCoherent>(x + i);
-  }
-  __syncthreads();
-}
-
-// Stage rmsnorm(x, w) = (x * rsqrt(sum(x^2) / n + eps)) * w; `red` holds
-// kWarps floats of shared memory for the block's reduction.
-template <bool kCoherent>
-static __device__ void stage_rmsnorm(float* xs, float* red, const float* x,
-                                     const float* w, int n) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float v = load_vec<kCoherent>(x + i);
-    ss = fmaf(v, v, ss);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  }
-  if (lane == 0) red[warp] = ss;
-  __syncthreads();
-  float total = 0.f;
-  for (int i = 0; i < kWarps; ++i) total += red[i];
-  const float inv = rsqrtf(total / static_cast<float>(n) + kRmsEps);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    xs[(i >> 5) * kBlockPad + (i & 31)] =
-        (load_vec<kCoherent>(x + i) * inv) * __ldg(w + i);
-  }
-  __syncthreads();
-}
 
 // All blocks of the grid meet here; bar[0] counts the arrivals of the
 // current round (back to 0 when it completes), bar[1] is the generation.
@@ -162,28 +150,6 @@ static __device__ __forceinline__ void rope_pair(float& v0, float& v1,
   v1 = b;
 }
 
-// The head's matvec over row pairs: pair p = rows 2p, 2p+1 of wqkv (d
-// rows) on one warp, rotated when 2p < n_rot; `emit(row, v0, v1)` stores
-// the pair. Grid-stride over pairs.
-template <typename Emit>
-static __device__ __forceinline__ void head_pairs(
-    const uint4* __restrict__ qs, const __half* __restrict__ d16,
-    const float* xs, const float* __restrict__ freq, int pos, int d, int nb,
-    int n_rot, Emit emit) {
-  const int lane = threadIdx.x & 31;
-  const int first = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  for (int p = first; 2 * p < d; p += gridDim.x * kWarps) {
-    const size_t r = 2 * static_cast<size_t>(p);
-    float v0 = q40_row_dot(qs + r * nb, d16 + r * nb, xs, nb, lane);
-    float v1 = q40_row_dot(qs + (r + 1) * nb, d16 + (r + 1) * nb, xs, nb,
-                           lane);
-    if (lane == 0) {
-      if (static_cast<int>(r) < n_rot) rope_pair(v0, v1, pos, __ldg(freq + p));
-      emit(static_cast<int>(r), v0, v1);
-    }
-  }
-}
-
 struct TailArgs {
   const uint4* wo_qs;
   const __half* wo_d;
@@ -200,44 +166,6 @@ struct TailArgs {
   int dim;
   int hid;
 };
-
-// The tail from the attention output `ao` (staged by the caller, read
-// coherently when kAoCoherent) to `out`: wo + residual, barrier, rmsnorm,
-// w13 + silu * mul, barrier, w2 + residual. Every block calls it.
-template <bool kAoCoherent>
-static __device__ void tail(const TailArgs& a, const float* ao, float* sm) {
-  const int lane = threadIdx.x & 31;
-  const int first = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int stride = gridDim.x * kWarps;
-  const int nb_d = a.dim / 32;
-  const int nb_h = a.hid / 32;
-  float* red = sm + max(nb_d, nb_h) * kBlockPad;
-
-  stage<kAoCoherent>(sm, ao, a.dim);
-  for (int r = first; r < a.dim; r += stride) {
-    const size_t o = static_cast<size_t>(r) * nb_d;
-    const float s = q40_row_dot(a.wo_qs + o, a.wo_d + o, sm, nb_d, lane);
-    if (lane == 0) a.xnew[r] = __ldg(a.x + r) + s;
-  }
-  grid_barrier(a.bar);
-
-  stage_rmsnorm<true>(sm, red, a.xnew, a.w_ffn, a.dim);
-  for (int r = first; r < a.hid; r += stride) {
-    const size_t o1 = static_cast<size_t>(r) * nb_d;
-    const size_t o3 = static_cast<size_t>(a.hid + r) * nb_d;
-    const float g = q40_row_dot(a.w13_qs + o1, a.w13_d + o1, sm, nb_d, lane);
-    const float u = q40_row_dot(a.w13_qs + o3, a.w13_d + o3, sm, nb_d, lane);
-    if (lane == 0) a.hb[r] = g / (1.f + expf(-g)) * u;
-  }
-  grid_barrier(a.bar);
-
-  stage<true>(sm, a.hb, a.hid);
-  for (int r = first; r < a.dim; r += stride) {
-    const size_t o = static_cast<size_t>(r) * nb_h;
-    const float s = q40_row_dot(a.w2_qs + o, a.w2_d + o, sm, nb_h, lane);
-    if (lane == 0) a.out[r] = __ldcg(a.xnew + r) + s;
-  }
-}
 
 // Shared-memory floats of the matvec phases: the staged vector of the
 // widest input plus the reduction slots.
@@ -299,34 +227,6 @@ static cudaError_t launch_cooperative(void (*kernel)(Params...), int grid,
 }
 
 // ---------------------------------------------------------------------------
-// K8: the head
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-q40_head_kernel(const uint4* __restrict__ qs, const __half* __restrict__ d16,
-                const float* __restrict__ x, const float* __restrict__ w_att,
-                const float* __restrict__ freq, const int* __restrict__ pos,
-                float* __restrict__ out, int d, int nb, int n_rot) {
-  extern __shared__ float sm[];
-  stage_rmsnorm<false>(sm, sm + nb * kBlockPad, x, w_att, nb * 32);
-  head_pairs(qs, d16, sm, freq, __ldg(pos), d, nb, n_rot,
-             [&](int r, float v0, float v1) {
-               out[r] = v0;
-               out[r + 1] = v1;
-             });
-}
-
-// ---------------------------------------------------------------------------
-// K9: the tail
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-q40_tail_kernel(TailArgs a, const float* __restrict__ ao) {
-  extern __shared__ float sm[];
-  tail<false>(a, ao, sm);
-}
-
-// ---------------------------------------------------------------------------
 // K10: the whole layer
 // ---------------------------------------------------------------------------
 
@@ -369,8 +269,8 @@ struct FreshKeys {
 
 // K10's staging: the vector a phase multiplies, into shared memory padded
 // to kBlockPad floats a 32-value block, with float4 loads, kStageVecs of
-// them in flight a thread (stage and stage_rmsnorm, K8's and K9's, load one
-// float at a time and wait on each). n is a multiple of 4, at most
+// them in flight a thread (the first design loaded one float at a time and
+// waited on each). n is a multiple of 4, at most
 // 4 kStageVecs x blockDim.x values for the rmsnorm, which keeps its loads
 // in registers between the sum of squares and the write.
 constexpr int kStageVecs = 4;
@@ -778,13 +678,542 @@ int dispatch_mega(int kv_mul, const MegaArgs& m, const TailArgs& a,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K8 and K9: the weights through per-warp shared-memory rings
+// ---------------------------------------------------------------------------
+
+// A matvec phase of K8 or K9: the rows of one Q40 weight, two to a job: job
+// j multiplies rows step * j and step * j + off by the vector the block
+// staged for the phase (K8's RoPE pair 2j, 2j + 1; K9's wo and w2 rows 2j,
+// 2j + 1; its w1 row j with its w3 row hid + j).
+struct RingPhase {
+  const uint4* qs;    // (rows, nb, 16) codes
+  const __half* d16;  // (rows, nb) scales
+  int rows;
+  int nb;
+  int jobs;
+  int step;
+  int off;
+};
+
+struct RingArgs {
+  RingPhase ph[3];
+  int phases;
+  int stage;  // floats before the rings: the staged vector, kWarps slots
+};
+
+constexpr int kRingSlots = 2;  // a warp's chunks: 1 in flight, 1 taken
+
+// Bytes of a slot: both rows' codes of a chunk, then each row's scales and
+// the up to 16 bytes before them that its 16-byte copies start with.
+__host__ __device__ constexpr int slot_bytes(int ch) {
+  return 2 * (18 * ch + 16);
+}
+
+// The jobs of phase ph this warp takes: its block's band [jobs * b / grid,
+// jobs * (b + 1) / grid), the block's warps in turn: first, first + kWarps,
+// ..., count of them.
+static __device__ __forceinline__ void warp_jobs(const RingPhase& ph,
+                                                 int& first, int& count) {
+  const long long jobs = ph.jobs;
+  const int lo = static_cast<int>(jobs * blockIdx.x / gridDim.x);
+  const int hi = static_cast<int>(jobs * (blockIdx.x + 1) / gridDim.x);
+  first = lo + static_cast<int>(threadIdx.x >> 5);
+  count = first < hi ? (hi - first + kWarps - 1) / kWarps : 0;
+}
+
+// A warp's ring of CH-block chunks: the slots it copies chunks into, how
+// many it has taken and issued, and the next chunk to issue: chunk c of
+// the warp's job t of phase p (first, count: the warp's jobs there; nb: a
+// row's blocks; end: the end of the weight's scales), whose rows' codes
+// and scales start at qa, qb, da, db.
+struct Ring {
+  char* slots;
+  int taken;
+  int issued;
+  int p, t, c;
+  int first, count, nb;
+  const char* end;
+  const uint4* qa;
+  const uint4* qb;
+  const __half* da;
+  const __half* db;
+};
+
+// Point the issue cursor at the rows of job t of phase p.
+static __device__ __forceinline__ void ring_job(Ring& g, const RingArgs& r) {
+  const RingPhase& ph = r.ph[g.p];
+  const size_t ra =
+      static_cast<size_t>(ph.step) * (g.first + kWarps * g.t) * ph.nb;
+  const size_t rb = ra + static_cast<size_t>(ph.off) * ph.nb;
+  g.qa = ph.qs + ra;
+  g.qb = ph.qs + rb;
+  g.da = ph.d16 + ra;
+  g.db = ph.d16 + rb;
+}
+
+// Move the issue cursor to job 0 of the first phase from g.p on where this
+// warp has a job.
+static __device__ __forceinline__ void ring_seek(Ring& g, const RingArgs& r) {
+  for (; g.p < r.phases; ++g.p) {
+    const RingPhase& ph = r.ph[g.p];
+    warp_jobs(ph, g.first, g.count);
+    if (g.count > 0) {
+      g.nb = ph.nb;
+      g.end = reinterpret_cast<const char*>(
+          ph.d16 + static_cast<size_t>(ph.rows) * ph.nb);
+      ring_job(g, r);
+      return;
+    }
+  }
+}
+
+// Chunk c0 .. c0 + n - 1 (n <= CH) of the cursor's two rows into slot s:
+// each row's codes as 16-byte pieces, a block each; its scales as the
+// 16-byte pieces that hold them (lanes 0-15 row a, 16-31 row b), the last
+// piece of the weight cut at its end (the rest zero-filled): no copy reads
+// past the weight.
+template <int CH>
+static __device__ __forceinline__ void copy_chunk(char* s, const Ring& g,
+                                                  int c0, int n, int lane) {
+#pragma unroll
+  for (int k = 0; k < CH / 32; ++k) {
+    const int i = lane + 32 * k;
+    if (i < n) {
+      cp_async16(s + 16 * i, g.qa + c0 + i);
+      cp_async16(s + 16 * (CH + i), g.qb + c0 + i);
+    }
+  }
+  const int k = lane & 15;
+  const char* lo = reinterpret_cast<const char*>((lane < 16 ? g.da : g.db) +
+                                                 c0);
+  const char* at = reinterpret_cast<const char*>(
+                       reinterpret_cast<uintptr_t>(lo) & ~uintptr_t{15}) +
+                   16 * k;
+  if (at < lo + 2 * n) {
+    const long long left = g.end - at;
+    cp_async16_zfill(s + 32 * CH + (lane < 16 ? 0 : 2 * CH + 16) + 16 * k,
+                     at, left < 16 ? static_cast<int>(left) : 16);
+  }
+}
+
+// Issue the next chunk (none past the last phase) and close this lane's
+// group of copies: one group a chunk, empty or not, so a wait for all but
+// the newest kRingSlots - 1 groups is a wait for the chunk taken next.
+template <int CH>
+static __device__ __forceinline__ void ring_issue(Ring& g, const RingArgs& r,
+                                                  int lane) {
+  if (g.p < r.phases) {
+    const int c0 = g.c * CH;
+    copy_chunk<CH>(g.slots + (static_cast<unsigned>(g.issued) % kRingSlots) *
+                                 slot_bytes(CH),
+                   g, c0, min(CH, g.nb - c0), lane);
+    ++g.issued;
+    if (c0 + CH < g.nb) {
+      ++g.c;
+    } else {
+      g.c = 0;
+      if (++g.t == g.count) {
+        g.t = 0;
+        ++g.p;
+        ring_seek(g, r);
+      } else {
+        ring_job(g, r);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// This warp's ring, its cursor at its first chunk; nothing issued yet.
+template <int CH>
+static __device__ __forceinline__ Ring ring_init(const RingArgs& r,
+                                                 float* sm) {
+  Ring g;
+  g.slots = reinterpret_cast<char*>(sm + r.stage) +
+            (threadIdx.x >> 5) * kRingSlots * slot_bytes(CH);
+  g.taken = g.issued = 0;
+  g.p = g.t = g.c = 0;
+  ring_seek(g, r);
+  return g;
+}
+
+// Issue the ring's first kRingSlots - 1 chunks.
+template <int CH>
+static __device__ __forceinline__ void ring_fill(Ring& g, const RingArgs& r) {
+  for (int i = 0; i < kRingSlots - 1; ++i) {
+    ring_issue<CH>(g, r, threadIdx.x & 31);
+  }
+}
+
+// The next chunk's slot, once every lane's copies of it have landed; the
+// chunk kRingSlots - 1 ahead goes into the slot the warp freed last.
+template <int CH>
+static __device__ __forceinline__ const char* ring_take(Ring& g,
+                                                        const RingArgs& r,
+                                                        int lane) {
+  ring_issue<CH>(g, r, lane);
+  cp_async_wait<kRingSlots - 1>();
+  __syncwarp();
+  return g.slots +
+         (static_cast<unsigned>(g.taken++) % kRingSlots) * slot_bytes(CH);
+}
+
+// block_dot of two rows' blocks over the same staged x block, each row's
+// FMAs in block_dot's order (the x loads shared).
+static __device__ __forceinline__ void block_dot2(uint4 qa, uint4 qb,
+                                                  const float* xb, float& sa,
+                                                  float& sb) {
+  const float4* x4 = reinterpret_cast<const float4*>(xb);
+  const uint32_t wa[4] = {qa.x, qa.y, qa.z, qa.w};
+  const uint32_t wb[4] = {qb.x, qb.y, qb.z, qb.w};
+  float a = 0.f, b = 0.f;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const float4 xl = x4[w];
+    const float4 xh = x4[4 + w];
+    const uint32_t la = wa[w] & 0x0F0F0F0Fu;
+    const uint32_t ha = (wa[w] >> 4) & 0x0F0F0F0Fu;
+    const uint32_t lb = wb[w] & 0x0F0F0F0Fu;
+    const uint32_t hb = (wb[w] >> 4) & 0x0F0F0F0Fu;
+    a = fmaf(code_minus8(la, 0x7440u), xl.x, a);
+    b = fmaf(code_minus8(lb, 0x7440u), xl.x, b);
+    a = fmaf(code_minus8(la, 0x7441u), xl.y, a);
+    b = fmaf(code_minus8(lb, 0x7441u), xl.y, b);
+    a = fmaf(code_minus8(la, 0x7442u), xl.z, a);
+    b = fmaf(code_minus8(lb, 0x7442u), xl.z, b);
+    a = fmaf(code_minus8(la, 0x7443u), xl.w, a);
+    b = fmaf(code_minus8(lb, 0x7443u), xl.w, b);
+    a = fmaf(code_minus8(ha, 0x7440u), xh.x, a);
+    b = fmaf(code_minus8(hb, 0x7440u), xh.x, b);
+    a = fmaf(code_minus8(ha, 0x7441u), xh.y, a);
+    b = fmaf(code_minus8(hb, 0x7441u), xh.y, b);
+    a = fmaf(code_minus8(ha, 0x7442u), xh.z, a);
+    b = fmaf(code_minus8(hb, 0x7442u), xh.z, b);
+    a = fmaf(code_minus8(ha, 0x7443u), xh.w, a);
+    b = fmaf(code_minus8(hb, 0x7443u), xh.w, b);
+  }
+  sa = a;
+  sb = b;
+}
+
+// Both rows' sums over blocks c0 .. c0 + n - 1 (n <= CH) from slot s, lane
+// l taking blocks c0 + l, c0 + l + 32, ...: q40_row_dot's FMAs for each row
+// (sa, sb: the row's first scale in the slot, past the bytes its copy
+// started with). The CH / 32 steps are unrolled and read the slot whole (a
+// ragged last chunk's extra steps read stale bytes and add nothing), so
+// one step's shared-memory loads can issue while the other computes.
+template <int CH>
+static __device__ __forceinline__ void pair_chunk(const char* s, int sa,
+                                                  int sb, const float* xs,
+                                                  int c0, int n, int lane,
+                                                  float& acc_a,
+                                                  float& acc_b) {
+  const uint4* qa = reinterpret_cast<const uint4*>(s);
+  const uint4* qb = qa + CH;
+  const __half* da = reinterpret_cast<const __half*>(s + 32 * CH) + sa;
+  const __half* db = reinterpret_cast<const __half*>(s + 34 * CH + 16) + sb;
+#pragma unroll
+  for (int k = 0; k < CH / 32; ++k) {
+    const int i = lane + 32 * k;
+    float ya, yb;
+    block_dot2(qa[i], qb[i], xs + (c0 + i) * kBlockPad, ya, yb);
+    if (i < n) {
+      acc_a = fmaf(__half2float(da[i]), ya, acc_a);
+      acc_b = fmaf(__half2float(db[i]), yb, acc_b);
+    }
+  }
+}
+
+// Phase p of this warp: each of its jobs' two rows by xs, chunk after chunk
+// from the ring, then `emit(j, ra, sum_a, sum_b)` on lane 0 (ra = row a).
+template <int CH, typename Emit>
+static __device__ __forceinline__ void ring_phase(Ring& g, const RingArgs& r,
+                                                  int p, const float* xs,
+                                                  Emit emit) {
+  const int lane = threadIdx.x & 31;
+  const RingPhase& ph = r.ph[p];
+  int first, count;
+  warp_jobs(ph, first, count);
+  for (int t = 0; t < count; ++t) {
+    const int j = first + kWarps * t;
+    const int ra = ph.step * j;
+    const int rb = ra + ph.off;
+    // a chunk starts 64 or more bytes of scales into its row: each row's
+    // first scale sits as far into its copy in every chunk
+    const int sa = static_cast<int>(reinterpret_cast<uintptr_t>(
+                       ph.d16 + static_cast<size_t>(ra) * ph.nb) & 15) >> 1;
+    const int sb = static_cast<int>(reinterpret_cast<uintptr_t>(
+                       ph.d16 + static_cast<size_t>(rb) * ph.nb) & 15) >> 1;
+    float acc_a = 0.f, acc_b = 0.f;
+    for (int c0 = 0; c0 < ph.nb; c0 += CH) {
+      pair_chunk<CH>(ring_take<CH>(g, r, lane), sa, sb, xs, c0,
+                     min(CH, ph.nb - c0), lane, acc_a, acc_b);
+      __syncwarp();  // every lane is done with the slot
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      acc_a += __shfl_xor_sync(0xffffffffu, acc_a, off);
+      acc_b += __shfl_xor_sync(0xffffffffu, acc_b, off);
+    }
+    if (lane == 0) emit(j, ra, acc_a, acc_b);
+  }
+}
+
+// rmsnorm(x, w) staged as stage4_rmsnorm stages it (its arithmetic, its
+// bits), x's and w's loads issued before `first()` (the ring's first
+// copies), so they queue ahead of the weight stream. Wider than a thread's
+// registers hold (n above 4 kStageVecs blockDim.x), first() runs at once
+// and x is read twice.
+template <bool kCoherent, typename First>
+static __device__ void stage_rmsnorm_first(float* xs, float* red,
+                                           const float* x, const float* w,
+                                           int n, First first) {
+  const int n4 = n / 4;
+  const bool wide = n4 > kStageVecs * static_cast<int>(blockDim.x);
+  if (wide) first();
+  float4 v[kStageVecs], g[kStageVecs];
+  float ss = 0.f;
+  // one pass (k = 0 only) unless wide; every thread takes the first
+  for (int i0 = threadIdx.x, k = 0; k == 0 || i0 < n4;
+       i0 += kStageVecs * blockDim.x, ++k) {
+#pragma unroll
+    for (int u = 0; u < kStageVecs; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < n4) {
+        v[u] = load_vec4<kCoherent>(x + 4 * i);
+        if (!wide) g[u] = __ldg(reinterpret_cast<const float4*>(w) + i);
+      }
+    }
+    if (!wide) first();
+#pragma unroll
+    for (int u = 0; u < kStageVecs; ++u) {
+      if (i0 + u * static_cast<int>(blockDim.x) < n4) {
+        ss = fmaf(v[u].x, v[u].x, ss);
+        ss = fmaf(v[u].y, v[u].y, ss);
+        ss = fmaf(v[u].z, v[u].z, ss);
+        ss = fmaf(v[u].w, v[u].w, ss);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  }
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = ss;
+  __syncthreads();
+  float total = 0.f;
+  for (int i = 0; i < kWarps; ++i) total += red[i];
+  const float inv = rsqrtf(total / static_cast<float>(n) + kRmsEps);
+  for (int i0 = threadIdx.x; i0 < n4; i0 += kStageVecs * blockDim.x) {
+#pragma unroll
+    for (int u = 0; u < kStageVecs; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < n4) {
+        if (wide) {
+          v[u] = load_vec4<kCoherent>(x + 4 * i);
+          g[u] = __ldg(reinterpret_cast<const float4*>(w) + i);
+        }
+        put4(xs, i, make_float4((v[u].x * inv) * g[u].x,
+                                (v[u].y * inv) * g[u].y,
+                                (v[u].z * inv) * g[u].z,
+                                (v[u].w * inv) * g[u].w));
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// x staged as stage4 stages it, the first kStageVecs float4 loads of each
+// thread issued before `first()`.
+template <bool kCoherent, typename First>
+static __device__ void stage4_first(float* xs, const float* x, int n,
+                                    First first) {
+  const int n4 = n / 4;
+  for (int i0 = threadIdx.x, k = 0; k == 0 || i0 < n4;
+       i0 += kStageVecs * blockDim.x, ++k) {
+    float4 v[kStageVecs];
+#pragma unroll
+    for (int u = 0; u < kStageVecs; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < n4) v[u] = load_vec4<kCoherent>(x + 4 * i);
+    }
+    if (k == 0) first();
+#pragma unroll
+    for (int u = 0; u < kStageVecs; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < n4) put4(xs, i, v[u]);
+    }
+  }
+  __syncthreads();
+}
+
+// K8: the head, one phase of d / 2 jobs (the RoPE pairs) over
+// rmsnorm(x, w_att), staged while the ring's first chunks stream in; CH
+// (Q40 blocks a chunk) from the host's ring_chunk.
+template <int CH>
+__global__ void __launch_bounds__(kThreads)
+q40_head_kernel(const __grid_constant__ RingArgs r,
+                const float* __restrict__ x, const float* __restrict__ w_att,
+                const float* __restrict__ freq, const int* __restrict__ pos,
+                float* __restrict__ out, int n_rot) {
+  extern __shared__ float sm[];
+  Ring g = ring_init<CH>(r, sm);
+  stage_rmsnorm_first<false>(sm, sm + r.stage - kWarps, x, w_att,
+                             r.ph[0].nb * 32,
+                             [&] { ring_fill<CH>(g, r); });
+  const int at = __ldg(pos);
+  ring_phase<CH>(g, r, 0, sm, [&](int j, int ra, float v0, float v1) {
+    if (ra < n_rot) rope_pair(v0, v1, at, __ldg(freq + j));
+    out[ra] = v0;
+    out[ra + 1] = v1;
+  });
+}
+
+// K9's grid barrier: grid_barrier's counters (bar[0] the round's
+// arrivals, back to 0 when it completes; bar[1] the generation, counting
+// on), with each block's thread 0 holding the generation it waits for in
+// `gen` (read once at the start of the launch): an arrival is one atomic,
+// a wait polls the generation, and the last block's release of the new
+// generation carries every block's writes to the blocks that acquire it.
+static __device__ __forceinline__ unsigned int load_acquire(
+    const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+static __device__ __forceinline__ void ring_barrier(unsigned int* bar,
+                                                    unsigned int& gen) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned int old;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+                 : "=r"(old)
+                 : "l"(bar)
+                 : "memory");
+    ++gen;
+    if (old == gridDim.x - 1) {
+      asm volatile("st.relaxed.gpu.global.u32 [%0], %1;\n" ::"l"(bar),
+                   "r"(0u)
+                   : "memory");
+      asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(bar + 1)
+                   : "memory");
+    } else {
+      while (load_acquire(bar + 1) != gen) {
+      }
+    }
+  }
+  __syncthreads();
+}
+
+struct TailVecs {
+  const float* ao;     // (dim) the attention output
+  const float* x;      // (dim) the layer's input residual
+  const float* w_ffn;  // (dim)
+  float* out;          // (dim)
+  float* xnew;         // (dim) scratch: x + wo . ao
+  float* hb;           // (hid) scratch: silu(w1 . h) * (w3 . h)
+  unsigned int* bar;
+  int dim;
+  int hid;
+};
+
+// K9: the tail, phases wo (dim / 2 jobs), w13 (hid) and w2 (dim / 2)
+// between two grid barriers; the rings run on across both; CH as K8's.
+template <int CH>
+__global__ void __launch_bounds__(kThreads)
+q40_tail_kernel(const __grid_constant__ RingArgs r, TailVecs v) {
+  extern __shared__ float sm[];
+  float* red = sm + r.stage - kWarps;
+  unsigned int gen = threadIdx.x == 0 ? load_acquire(v.bar + 1) : 0u;
+  Ring g = ring_init<CH>(r, sm);
+  stage4_first<false>(sm, v.ao, v.dim, [&] { ring_fill<CH>(g, r); });
+  ring_phase<CH>(g, r, 0, sm, [&](int, int ra, float a, float b) {
+    v.xnew[ra] = __ldg(v.x + ra) + a;
+    v.xnew[ra + 1] = __ldg(v.x + ra + 1) + b;
+  });
+  ring_barrier(v.bar, gen);
+  stage_rmsnorm_first<true>(sm, red, v.xnew, v.w_ffn, v.dim, [] {});
+  ring_phase<CH>(g, r, 1, sm, [&](int j, int, float gate, float up) {
+    v.hb[j] = gate / (1.f + expf(-gate)) * up;
+  });
+  ring_barrier(v.bar, gen);
+  stage4_first<true>(sm, v.hb, v.hid, [] {});
+  ring_phase<CH>(g, r, 2, sm, [&](int, int ra, float a, float b) {
+    v.out[ra] = __ldcg(v.xnew + ra) + a;
+    v.out[ra + 1] = __ldcg(v.xnew + ra + 1) + b;
+  });
+}
+
+// The rings' chunk (ops/layer.ring_chunk): 64 Q40 blocks where the 16
+// warps' kRingSlots slots of two rows fit in the card's shared memory
+// beside `stage` bytes of staged vector, else 32; the block's bytes in
+// *smem.
+static cudaError_t ring_chunk(size_t stage, int* ch, size_t* smem) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return e;
+  for (int c = 64; c >= 32; c -= 32) {
+    const size_t bytes =
+        stage + static_cast<size_t>(kWarps) * kRingSlots * slot_bytes(c);
+    if (bytes <= static_cast<size_t>(optin)) {
+      *ch = c;
+      *smem = bytes;
+      return cudaSuccess;
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int CH>
+static cudaError_t launch_head(const RingArgs& r, size_t smem,
+                              cudaStream_t stream, const float* x,
+                              const float* w_att, const float* freq,
+                              const int* pos, float* out, int n_rot) {
+  auto kernel = q40_head_kernel<CH>;
+  static size_t granted[kMaxDevices];
+  cudaError_t e = opt_in_smem(kernel, smem, granted);
+  if (e != cudaSuccess) return e;
+  static GridCache grids;
+  int grid = 0;
+  e = coresident_grid(kernel, smem, grids, &grid);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kThreads, smem, stream>>>(r, x, w_att, freq, pos, out,
+                                           n_rot);
+  return cudaGetLastError();
+}
+
+template <int CH>
+static cudaError_t launch_tail(const RingArgs& r, const TailVecs& v,
+                              size_t smem, cudaStream_t stream) {
+  auto kernel = q40_tail_kernel<CH>;
+  static size_t granted[kMaxDevices];
+  cudaError_t e = opt_in_smem(kernel, smem, granted);
+  if (e != cudaSuccess) return e;
+  static GridCache grids;
+  int grid = 0;
+  e = coresident_grid(kernel, smem, grids, &grid);
+  if (e != cudaSuccess) return e;
+  e = launch_cooperative(kernel, grid, smem, stream, r, v);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry point launches on `stream` and returns the cudaGetLastError()
 // code (0 = launched).
 
 // K8: out (d) = the head of one layer, d = dim + 2 * kv_dim rows of wqkv
-// (nb blocks each), the first n_rot = dim + kv_dim of them rotated.
+// (nb blocks each), the first n_rot = dim + kv_dim of them rotated; x and
+// w_att 16-byte aligned.
 extern "C" int q40_head_fused(const void* qs, const void* d16, const void* x,
                               const void* w_att, const void* freq,
                               const void* pos, void* out, int d, int nb,
@@ -792,23 +1221,31 @@ extern "C" int q40_head_fused(const void* qs, const void* d16, const void* x,
   if (d % 2 || n_rot % 2 || n_rot > d) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = stage_floats(nb * 32, 0) * sizeof(float);
-  static size_t granted[kMaxDevices];
-  const cudaError_t e = opt_in_smem(q40_head_kernel, smem, granted);
+  RingArgs r = {};
+  r.ph[0] = RingPhase{static_cast<const uint4*>(qs),
+                      static_cast<const __half*>(d16), d, nb, d / 2, 2, 1};
+  r.phases = 1;
+  r.stage = static_cast<int>(stage_floats(nb * 32, 0));
+  int ch = 0;
+  size_t smem = 0;
+  cudaError_t e = ring_chunk(r.stage * sizeof(float), &ch, &smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int pairs = d / 2;
-  q40_head_kernel<<<(pairs + kWarps - 1) / kWarps, kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(qs), static_cast<const __half*>(d16),
-      static_cast<const float*>(x), static_cast<const float*>(w_att),
-      static_cast<const float*>(freq), static_cast<const int*>(pos),
-      static_cast<float*>(out), d, nb, n_rot);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w_att);
+  const float* ff = static_cast<const float*>(freq);
+  const int* pi = static_cast<const int*>(pos);
+  float* of = static_cast<float*>(out);
+  e = ch == 64
+          ? launch_head<64>(r, smem, s, xf, wf, ff, pi, of, n_rot)
+          : launch_head<32>(r, smem, s, xf, wf, ff, pi, of, n_rot);
+  return static_cast<int>(e);
 }
 
 // K9: out (dim) = the tail of one layer from the attention output ao (dim)
 // and the layer input x (dim); xnew (dim), hb (hid) and bar (2 zeroed
-// uint32, left zeroed) are the caller's static scratch.
+// uint32, left zeroed) are the caller's static scratch; ao and w_ffn
+// 16-byte aligned.
 extern "C" int q40_tail_fused(const void* wo_qs, const void* wo_d,
                               const void* w13_qs, const void* w13_d,
                               const void* w2_qs, const void* w2_d,
@@ -817,12 +1254,20 @@ extern "C" int q40_tail_fused(const void* wo_qs, const void* wo_d,
                               void* hb, void* bar, int dim, int hid,
                               void* stream) {
   if (dim % 32 || hid % 32) return static_cast<int>(cudaErrorInvalidValue);
-  const TailArgs a{static_cast<const uint4*>(wo_qs),
-                   static_cast<const __half*>(wo_d),
-                   static_cast<const uint4*>(w13_qs),
-                   static_cast<const __half*>(w13_d),
-                   static_cast<const uint4*>(w2_qs),
-                   static_cast<const __half*>(w2_d),
+  const int nb_d = dim / 32;
+  RingArgs r = {};
+  r.ph[0] = RingPhase{static_cast<const uint4*>(wo_qs),
+                      static_cast<const __half*>(wo_d), dim, nb_d, dim / 2,
+                      2, 1};
+  r.ph[1] = RingPhase{static_cast<const uint4*>(w13_qs),
+                      static_cast<const __half*>(w13_d), 2 * hid, nb_d, hid,
+                      1, hid};
+  r.ph[2] = RingPhase{static_cast<const uint4*>(w2_qs),
+                      static_cast<const __half*>(w2_d), dim, hid / 32,
+                      dim / 2, 2, 1};
+  r.phases = 3;
+  r.stage = static_cast<int>(stage_floats(dim, hid));
+  const TailVecs v{static_cast<const float*>(ao),
                    static_cast<const float*>(x),
                    static_cast<const float*>(w_ffn),
                    static_cast<float*>(out),
@@ -831,19 +1276,14 @@ extern "C" int q40_tail_fused(const void* wo_qs, const void* wo_d,
                    static_cast<unsigned int*>(bar),
                    dim,
                    hid};
-  const size_t smem = stage_floats(dim, hid) * sizeof(float);
-  static size_t granted[kMaxDevices];
-  cudaError_t e = opt_in_smem(q40_tail_kernel, smem, granted);
+  int ch = 0;
+  size_t smem = 0;
+  cudaError_t e = ring_chunk(r.stage * sizeof(float), &ch, &smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  static GridCache grids;
-  int grid = 0;
-  e = coresident_grid(q40_tail_kernel, smem, grids, &grid);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = launch_cooperative(q40_tail_kernel, grid, smem,
-                         static_cast<cudaStream_t>(stream), a,
-                         static_cast<const float*>(ao));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  e = ch == 64 ? launch_tail<64>(r, v, smem, s)
+                 : launch_tail<32>(r, v, smem, s);
+  return static_cast<int>(e);
 }
 
 // K10: out (dim) = the whole layer `layer` at position *pos, writing its k

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the redesigned prefill kernels (K3,
-// K3b, K4, K4b) and decode matvecs (K1, K1m): mbarriers, the tensor (TMA)
+// K3b, K4, K4b), decode matvecs (K1, K1m) and fused layer head and tail
+// (K8, K9's per-warp rings): mbarriers, the tensor (TMA)
 // and per-thread async copies that complete on them or in commit groups,
 // register moves between warpgroups (setmaxnreg),
 // warpgroup MMA (wgmma, bf16 and tf32) with its fences and shared-memory
@@ -92,6 +93,18 @@ static __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    cta_addr(dst)),
                "l"(src)
+               : "memory");
+}
+
+// The 16-byte copy's first `bytes` (0..16) from src, the rest of the 16
+// zero-filled: no byte past src + bytes is read (both addresses 16-byte
+// aligned).
+static __device__ __forceinline__ void cp_async16_zfill(void* dst,
+                                                        const void* src,
+                                                        int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   cta_addr(dst)),
+               "l"(src), "r"(bytes)
                : "memory");
 }
 

@@ -31,7 +31,10 @@ a step captured in a CUDA graph reads each replay's position.
 
 The wrappers take the plain versions only for tensors on the CPU; on a
 CUDA tensor they launch their kernel or raise. The kernel source says how
-each design meets its bound.
+each design meets its bound. K8 and K9 stream their weights through
+per-warp shared-memory rings whose plan (chunk size, each block's band of
+jobs, the 16-byte copies) ``ring_chunk``, ``ring_phases``, ``ring_jobs``
+and ``ring_scale_copies`` model on the host for the tests.
 """
 
 from __future__ import annotations
@@ -71,6 +74,14 @@ _MEGA_MAX_DIM = 8192  # K10 keeps a thread's share of x in registers
 # at least MEGA_SPLIT_KEYS keys
 MEGA_MAX_SPLITS = 32
 MEGA_SPLIT_KEYS = 128
+# K8's and K9's rings (csrc/fused_layer.cu): a ring of RING_SLOTS chunks on
+# each of a block's RING_WARPS warps, a chunk RING_CHUNKS[0] Q40 blocks of
+# a job's two rows where that fits in shared memory beside the staged
+# vector, else RING_CHUNKS[1]
+RING_WARPS = 16
+RING_SLOTS = 2
+RING_CHUNKS = (64, 32)
+_BLOCK_PAD = 36  # floats a staged 32-value block takes (q40_row.cuh)
 
 
 def fusion_mode() -> str:
@@ -178,6 +189,21 @@ def random_layer(dim: int, hidden_dim: int, n_heads: int, n_kv_heads: int,
             "freq": rope_freq(dim + kv_dim, hs, device)}
 
 
+def readback_q40(d: int, n: int, device) -> Q40Weight:
+    """A (d, n) Q40 weight whose row i < n reads x[i] back exactly: code 9
+    (+1) at column i, 8 (0) elsewhere, every scale 1. Through a row body
+    with P0's arithmetic (K8's and K9's) each product and sum but one is an
+    exact zero, so such a row returns the staged vector's value bit for
+    bit: the tests read a kernel's staged vector back this way."""
+    qs = torch.full((d, n // QK, 16), 0x88, dtype=torch.uint8, device=device)
+    i = torch.arange(min(d, n), device=device)
+    j = i % QK
+    qs[i, i // QK, j % 16] = torch.where(
+        j < 16, 0x89, 0x98).to(device=device, dtype=torch.uint8)
+    return Q40Weight(qs, torch.ones((d, n // QK), dtype=torch.float16,
+                                    device=device))
+
+
 # --------------------------------------------------------------------------
 # plain versions
 # --------------------------------------------------------------------------
@@ -217,6 +243,70 @@ def mega_attention_splits(keys: int, n_kv: int,
                       -(-keys // MEGA_SPLIT_KEYS)))
     per = -(-keys // most)
     return -(-keys // per), per
+
+
+def ring_slot_bytes(ch: int) -> int:
+    """Bytes of one ring slot: a chunk of ``ch`` Q40 blocks of two rows,
+    their codes and each row's scales with up to 16 bytes before them."""
+    return 2 * (18 * ch + 16)
+
+
+def ring_stage_bytes(dim: int, hid: int = 0) -> int:
+    """Shared-memory bytes before the rings: the staged vector of the widest
+    input (each 32-value block padded to 36 floats) and the reduction
+    slots."""
+    return 4 * (max(dim, hid) // QK * _BLOCK_PAD + RING_WARPS)
+
+
+def ring_chunk(stage_bytes: int, smem_optin: int) -> tuple[int, int] | None:
+    """(Q40 blocks a chunk, the block's shared-memory bytes) of K8's and
+    K9's rings beside ``stage_bytes`` of staged vector on a card that lets a
+    block opt in to ``smem_optin`` bytes: the first of RING_CHUNKS whose
+    RING_WARPS x RING_SLOTS slots fit, None where none does (the launch
+    then fails)."""
+    for ch in RING_CHUNKS:
+        smem = stage_bytes + RING_WARPS * RING_SLOTS * ring_slot_bytes(ch)
+        if smem <= smem_optin:
+            return ch, smem
+    return None
+
+
+def ring_phases(dim: int, hid: int | None = None, rows: int | None = None
+                ) -> list[tuple[int, int, int, int, int]]:
+    """The matvec phases of K8 (``rows`` of wqkv over dim, hid None) or K9
+    (wo, w13, w2 of a layer of width dim and hidden width hid), each
+    (rows, nb, jobs, step, off): job j takes rows step * j and step * j +
+    off."""
+    nb = dim // QK
+    if hid is None:
+        return [(rows, nb, rows // 2, 2, 1)]
+    return [(dim, nb, dim // 2, 2, 1), (2 * hid, nb, hid, 1, hid),
+            (dim, hid // QK, dim // 2, 2, 1)]
+
+
+def ring_jobs(jobs: int, grid: int, block: int, warp: int) -> range:
+    """The jobs warp ``warp`` of block ``block`` takes in a phase of
+    ``jobs`` on a grid of ``grid`` blocks: the block's band [jobs * block
+    // grid, jobs * (block + 1) // grid), its warps in turn."""
+    lo, hi = jobs * block // grid, jobs * (block + 1) // grid
+    return range(lo + warp, hi, RING_WARPS)
+
+
+def ring_scale_copies(d16_addr: int, row: int, nb: int, c0: int, n: int,
+                      total: int) -> list[tuple[int, int]]:
+    """The 16-byte copies (address, bytes read) that bring scales c0 ..
+    c0 + n - 1 of ``row`` of a (rows, nb) f16 scale tensor at byte address
+    ``d16_addr`` holding ``total`` scales into a slot: from the first's
+    address rounded down to 16 bytes, the last copy cut at the tensor's
+    end (its rest zero-filled)."""
+    lo = d16_addr + 2 * (row * nb + c0)
+    end = d16_addr + 2 * total
+    out = []
+    at = lo & ~15
+    while at < lo + 2 * n:
+        out.append((at, min(16, end - at)))
+        at += 16
+    return out
 
 
 def mega_attention_split_model(q: torch.Tensor, k_all: torch.Tensor,
@@ -365,6 +455,9 @@ def q40_head_fused(x: torch.Tensor, wqkv: Q40Weight, rms_att: torch.Tensor,
         raise ValueError(f"q40_head_fused: x {tuple(x.shape)}, rms_att "
                          f"{tuple(rms_att.shape)}, freq {freq.numel()} do "
                          f"not fit wqkv ({d} x {nb * QK})")
+    if any(t.data_ptr() % 16 for t in (x, rms_att)):
+        raise ValueError("q40_head_fused: x and rms_att must be 16-byte "
+                         "aligned")
     out = torch.empty((1, d), dtype=torch.float32, device=x.device)
     HEAD_KERNEL.launch(wqkv.qs.data_ptr(), wqkv.d16.data_ptr(), x.data_ptr(),
                        rms_att.data_ptr(), freq.data_ptr(), pos.data_ptr(),
@@ -398,6 +491,9 @@ def q40_tail_fused(ao: torch.Tensor, x: torch.Tensor, wo: Q40Weight,
            {"ao": ao, "x": x, "rms_ffn": rms_ffn})
     dim, hid = _tail_shapes("q40_tail_fused", x, wo, w13, w2,
                             (ao, rms_ffn))
+    if any(t.data_ptr() % 16 for t in (ao, rms_ffn)):
+        raise ValueError("q40_tail_fused: ao and rms_ffn must be 16-byte "
+                         "aligned")
     s = _scratch(x.device, dim, hid)
     out = torch.empty((1, dim), dtype=torch.float32, device=x.device)
     TAIL_KERNEL.launch(wo.qs.data_ptr(), wo.d16.data_ptr(),

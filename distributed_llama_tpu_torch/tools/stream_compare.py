@@ -1,10 +1,10 @@
-"""Run chip_smoke.py's CLI runs a, b, g, h, i, p and k-n from two
+"""Run chip_smoke.py's CLI runs a, b, g, h, i, o, p and k-n from two
 checkouts on one model and compare their token streams. Run from the root of a
 checkout, on a machine with an NVIDIA GPU, after chip_smoke.py has written
 its model (``python3 -c "import chip_smoke; chip_smoke.smoke_files()"``):
 
     python3 -m distributed_llama_tpu_torch.tools.stream_compare --other DIR
-        [--runs a,b,g,h,i,p,k,l,m,n]
+        [--runs a,b,g,h,i,o,p,p-headtail,k,l,m,n]
 
 DIR holds the reference: another commit of the repository (``git
 archive``). Each run is the ``inference`` CLI in a process of its own, with
@@ -15,7 +15,11 @@ reference records, for every sampled token, the gap between its two
 largest logits and its largest |logit| (its host sampler's input); run i
 (``--fast``, run a's prompt) and run p (run i under
 DLLAMA_LAYER_FUSION=on, a K10 per layer) are compared as text, against
-the reference's run a pieces and gaps; runs g (8 prompts in one batch),
+the reference's run a pieces and gaps; run o (run a under
+DLLAMA_LAYER_FUSION=headtail: K8, K2 and K9 a layer) piece by piece and
+run p-headtail (run i under headtail: K8, K5 and K9) as text, both
+exactly: K8's and K9's rows keep P0's bits from design to design, so
+their streams may not part even at a near-tie; runs g (8 prompts in one batch),
 h (run g under DLLAMA_MULTI_T_BODY=dequant over a bf16 cache: K1d) and
 k-n (12
 prompts through ``--continuous``: f32 pages, contiguous, bf16 pages, Q8
@@ -106,11 +110,16 @@ sys.exit(rc)
 
 # the environment a run adds to the CLI's, as chip_smoke.py sets it
 RUN_ENV = {"h": {"DLLAMA_MULTI_T_BODY": "dequant"},
-           "p": {"DLLAMA_LAYER_FUSION": "on"}}
+           "o": {"DLLAMA_LAYER_FUSION": "headtail"},
+           "p": {"DLLAMA_LAYER_FUSION": "on"},
+           "p-headtail": {"DLLAMA_LAYER_FUSION": "headtail"}}
+# runs compared exactly: a parting is a fault even at a near-tie
+EXACT = ("o", "p-headtail")
 
 
 def _runs(smoke) -> dict[str, list[str]]:
-    """The CLI flags of runs a, b, g, h, i, p and k-n, as chip_smoke.py
+    """The CLI flags of runs a, b, g, h, i, o, p, p-headtail and k-n, as
+    chip_smoke.py
     gives them (the prompts file is added where a run takes one; RUN_ENV
     holds a run's environment)."""
     cont = ["--continuous", "--slots", str(smoke.CONT_SLOTS),
@@ -125,7 +134,9 @@ def _runs(smoke) -> dict[str, list[str]]:
         "g": g,
         "h": [*g, "--kv-cache-dtype", "bf16"],
         "i": [*a, "--fast"],
+        "o": a,
         "p": [*a, "--fast"],
+        "p-headtail": [*a, "--fast"],
         "b": ["--prompt", smoke.PROMPT_512, "--steps", str(smoke.STEPS_512),
               "--temperature", "0", "--seed", "1", "--prefill-chunk",
               str(smoke.CHUNK)],
@@ -271,7 +282,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True,
                     help="the root of the other checkout (the reference)")
-    ap.add_argument("--runs", default="a,b,g,h,i,p,k,l,m,n")
+    ap.add_argument("--runs", default="a,b,g,h,i,o,p,p-headtail,k,l,m,n")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import chip_smoke as smoke
@@ -305,7 +316,7 @@ def main(argv=None) -> int:
             ours_out = _cli(ROOT, model, tok, flags, env=env)
             theirs_out = _cli(other, model, tok, flags,
                               gaps_file if hosted else None, env=env)
-            fast = label in ("i", "p")
+            fast = label in ("i", "p", "p-headtail")
             if fast:
                 ours, theirs = [[fast_text(ours_out)]], [[fast_text(theirs_out)]]
             else:
@@ -335,6 +346,9 @@ def main(argv=None) -> int:
                     note = (f" (reference top-2 gap {gap:.3e} at token "
                             f"{step}, tolerance {tol:.3e}: "
                             f"{'a near-tie' if tie else 'above it'})")
+                if label in EXACT:
+                    tie = False
+                    note += " (compared exactly)"
                 if not cont:
                     ok &= tie
                 parts.append(f"{where}: {a[at:at + 24]!r} here, "

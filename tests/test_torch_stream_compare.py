@@ -169,7 +169,8 @@ def test_chain_script_records_the_streams_it_prints(tmp_path):
 def test_runs_h_and_p_are_runs_g_and_i_under_their_environment():
     """Run h is run g over a bf16 cache under DLLAMA_MULTI_T_BODY=dequant
     (K1d), run p run i under DLLAMA_LAYER_FUSION=on (K10), as chip_smoke.py
-    drives them."""
+    drives them; run o is run a and run p-headtail run i under
+    DLLAMA_LAYER_FUSION=headtail (K8, K9), both compared exactly."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -179,6 +180,10 @@ def test_runs_h_and_p_are_runs_g_and_i_under_their_environment():
     runs = stream_compare._runs(smoke)
     assert runs["h"] == [*runs["g"], "--kv-cache-dtype", "bf16"]
     assert runs["p"] == runs["i"]
+    assert runs["o"] == runs["a"] and runs["p-headtail"] == runs["i"]
     assert stream_compare.RUN_ENV == {
         "h": {"DLLAMA_MULTI_T_BODY": "dequant"},
-        "p": {"DLLAMA_LAYER_FUSION": "on"}}
+        "o": {"DLLAMA_LAYER_FUSION": "headtail"},
+        "p": {"DLLAMA_LAYER_FUSION": "on"},
+        "p-headtail": {"DLLAMA_LAYER_FUSION": "headtail"}}
+    assert stream_compare.EXACT == ("o", "p-headtail")
