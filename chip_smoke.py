@@ -51,8 +51,9 @@ no result line):
    its key splits give the eager bits and leave every ticket at 0); the
    paged decode attention over f32 and bf16 pages (K6) and Q8
    pages (K7) at the same shapes with pages of 16 in a permuted pool, t_len
-   1, 4 and 8 (at t_len 1 K6 gives the bits of K5 in one split over the
-   same values, and K7 gives K6's bits over the dequantized pool); the fused decode layer's
+   1, 4 and 8 (at t_len 1 K6 gives the bits of K5 under the same plan
+   over the same values, and K7 gives K6's bits over the dequantized
+   pool; graph replays across split counts); the fused decode layer's
    head (K8), tail (K9) and whole layer (K10, over an f32 and a bf16 cache,
    part by part) at the 7B and GQA shapes at pos 0, 63 and 2047, timed
    beside the unfused port path for the same work, K8's and K9's rows with
@@ -941,19 +942,64 @@ K6_T_LENS = (1, 4, 8)
 K6_PAGES = ("f32", "bf16", "q8")
 
 
+# K6's and K7's plans held to K5's and K6's bits: the default (decode_plan
+# over B * t_len rows), one split, and the most splits at K5's least keys
+K6_PLANS = (None, (1, 1), (32, 64))
+
+
+def _k6_replays(torch, run_k, planes, table, P, layer, n_q, hs, kv_mul,
+                batch, symbol, label):
+    """K6 or K7 at t_len 1 captured in a CUDA graph over device positions
+    and replayed at K5_REPLAYS' clocks, which cross its plan's split
+    counts: every replay gives an eager launch's bits, and every split
+    ticket is back at 0 after it."""
+    from distributed_llama_tpu_torch.ops import attention as att
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q = torch.randn((batch, 1, n_q * hs), device="cuda", generator=g)
+    pv = torch.tensor(K5_REPLAYS[0][:batch], dtype=torch.int32,
+                      device="cuda")
+    run_k(q, *planes, layer, pv, table, P, kv_mul)  # eager first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run_k(q, *planes, layer, pv, table, P, kv_mul)
+    plan = att.decode_plan(planes[0].shape[2], batch,
+                           torch.cuda.get_device_properties(
+                               0).multi_processor_count)
+    splits = set()
+    for pos in K5_REPLAYS:
+        pv.copy_(torch.tensor(pos[:batch], dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        if any(s.tickets.any() for s in att._DECODE_SCRATCH.values()):
+            raise AssertionError(f"{symbol} {label}: a ticket left set "
+                                 f"after a replay at {pos[:batch]}")
+        if not torch.equal(out, run_k(q, *planes, layer, pv, table, P,
+                                      kv_mul)):
+            raise AssertionError(f"{symbol} {label}: replay at "
+                                 f"{pos[:batch]} not the eager bits")
+        splits |= {att.decode_splits(p + 1, plan)[0] for p in pos[:batch]}
+    del graph
+    log(f"{symbol} {label}: {len(K5_REPLAYS)} graph replays give the eager "
+        f"bits, tickets back at 0; split counts {sorted(splits)} under "
+        f"plan {plan}")
+
+
 def phase_k6(torch, timer, peaks):
     """K6 (f32 and bf16 pages) and K7 (Q8 pages) against their plain
     versions at 7B and GQA shapes, page size PAGE, B = 1 and 8, shared
     clocks 63 and 2047 and ragged ones, t_len 1, 4 and 8 (up to the
-    budget-edge clamp). The pool holds a contiguous (2B, 2048, n_kv, hs)
-    batch cache's values in permuted physical pages; at t_len 1 K6 must
-    give the bits of K5 at a one-split plan (attention.ONE_SPLIT) over the
-    same values, with the identity table and with the permuted one, and K7
-    must give K6's bits over the dequantized pool.
-    Times: the kernel, K5 at t_len 1 on the contiguous cache (f32 for Q8
-    pages), the plain version (t_len 1), and the
-    library yardstick, SDPA over the row's live pages gathered beforehand
-    (the gather, with the Q8 dequantize, timed apart)."""
+    budget-edge clamp), the same bits on a second launch. The pool holds a
+    contiguous (2B, 2048, n_kv, hs) batch cache's values in permuted
+    physical pages; at t_len 1 K6 must give the bits of K5 under the same
+    plan (each of K6_PLANS) over the same values, with the identity table
+    and with the permuted one, and K7 must give K6's bits over the
+    dequantized pool (at the default plan and at (32, 64)); then K6's and
+    K7's graph replays (_k6_replays). Times: the kernel, K5 at t_len 1 on
+    the contiguous cache (f32 for Q8 pages), the plain version (t_len 1),
+    and the library yardstick, SDPA over the row's live pages gathered
+    beforehand (the gather, with the Q8 dequantize, timed apart)."""
     import torch.nn.functional as F
 
     from distributed_llama_tpu_torch.ops import attention as att
@@ -1031,37 +1077,52 @@ def phase_k6(torch, timer, peaks):
                             raise AssertionError(
                                 f"{kernel.symbol} {label} B={batch} "
                                 f"{pos_label} t={t_len}: error {err}")
+                        if not torch.equal(got, run()):
+                            raise AssertionError(
+                                f"{kernel.symbol} {label} B={batch} "
+                                f"{pos_label} t={t_len}: other bits on a "
+                                f"second launch")
                         k5_ms = plain_ms = None
                         if pages == "q8":
-                            k6 = pa.paged_decode_attention(
-                                q, *deq, layer, pv, table, P, kv_mul)
-                            if not torch.equal(k6, got):
-                                raise AssertionError(
-                                    f"K7 {label} B={batch} {pos_label} "
-                                    f"t={t_len}: not K6's bits over the "
-                                    f"dequantized pool")
+                            for plan in (None, (32, 64)):
+                                k6 = pa.paged_decode_attention(
+                                    q, *deq, layer, pv, table, P, kv_mul,
+                                    plan=plan)
+                                k7 = got if plan is None else run_k(
+                                    q, *planes, layer, pv, table, P, kv_mul,
+                                    plan=plan)
+                                if not torch.equal(k6, k7):
+                                    raise AssertionError(
+                                        f"K7 {label} B={batch} {pos_label} "
+                                        f"t={t_len} plan {plan}: not K6's "
+                                        f"bits over the dequantized pool")
                         if t_len == 1:
                             qk5 = q.reshape(batch, n_q, hs)
                             src = (base_k, base_v) if pages == "q8" \
                                 else (ck, cv)
-                            # K5 at a one-split plan: the first design's
-                            # sums in its order, which K6 keeps
-                            k5 = att.decode_attention_batch(
-                                qk5, *src, layer, pv, kv_mul,
-                                plan=att.ONE_SPLIT)
                             if pages != "q8":
+                                # K6 at t_len 1 is K5's walk through the
+                                # table: K5's bits under each plan, over
+                                # the identity pool and the permuted one
                                 flat = [x.reshape(-1, ps, n_kv, hs)
                                         for x in (ck, cv)]
-                                same = run_k(q, *flat, layer, pv, ident, P,
-                                             kv_mul)
-                                if not (torch.equal(same.reshape(batch, -1),
-                                                    k5) and
-                                        torch.equal(got, same)):
-                                    raise AssertionError(
-                                        f"{kernel.symbol} {label} "
-                                        f"B={batch} {pos_label}: not the "
-                                        f"bits of K5 in one split (identity "
-                                        f"or permuted pool)")
+                                for plan in K6_PLANS:
+                                    k5 = att.decode_attention_batch(
+                                        qk5, *src, layer, pv, kv_mul,
+                                        plan=plan)
+                                    same = run_k(q, *flat, layer, pv, ident,
+                                                 P, kv_mul, plan=plan)
+                                    moved = got if plan is None else run_k(
+                                        q, *planes, layer, pv, table, P,
+                                        kv_mul, plan=plan)
+                                    if not (torch.equal(
+                                            same.reshape(batch, -1), k5)
+                                            and torch.equal(moved, same)):
+                                        raise AssertionError(
+                                            f"{kernel.symbol} {label} "
+                                            f"B={batch} {pos_label} plan "
+                                            f"{plan}: not the bits of K5 "
+                                            f"(identity or permuted pool)")
                             k5_ms = timer(lambda: att.decode_attention_batch(
                                 qk5, *src, layer, pv, kv_mul))
                             plain_ms = timer(lambda: plain_k(
@@ -1122,6 +1183,9 @@ def phase_k6(torch, timer, peaks):
                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                             library_ms=library_ms, gather_ms=gather_ms,
                             pages=pages))
+                _k6_replays(torch, run_k, planes, table, P, layer, n_q, hs,
+                            kv_mul, batch, kernel.symbol,
+                            f"{label} B={batch}")
                 del planes
                 if pages == "q8":
                     del kq4, kd4, vq4, vd4, deq
@@ -3546,13 +3610,18 @@ def main() -> int:
                     **unit_row(unit_rows),
                     gather_ms=sum(r["gather_ms"] * 32 for r in unit_rows),
                     k5_ms=sum(r["k5_ms"] * 32 for r in unit_rows),
+                    per_shape=[{k: r[k] for k in (
+                        "case", "batch", "pos", "ms", "bound_ms", "k5_ms",
+                        "library_ms", "gather_ms")}
+                        for r in rows if r["t_len"] == 1],
                     unit=f"one 7B step of {CONT_SLOTS} rows at shared pos "
                          f"63, t_len 1, over {what} pages of {PAGE}: 32 "
                          f"layers; library = scaled_dot_product_attention "
                          f"over the live pages gathered beforehand (the "
                          f"gather{', with the dequantize,' if pages == 'q8' else ''}"
                          f" timed apart as gather_ms); k5_ms = K5 on the "
-                         f"same values in a contiguous cache",
+                         f"same values in a contiguous cache; per_shape = "
+                         f"each t_len 1 shape a layer",
                     shapes=rows)
 
     kernels += [

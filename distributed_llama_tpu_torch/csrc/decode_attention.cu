@@ -45,17 +45,14 @@
 //   weight computed once); with one split that is the output, else the
 //   split writes its (m, l, unnormalised o) to `part`, fences and takes a
 //   ticket of its (row, kv head); the last to arrive merges the splits in
-//   split order (m = max m_j, l = sum l_j e^(m_j - m), o = sum o_j
-//   e^(m_j - m), out = o / l), every split's partials loaded at once, and
-//   resets the ticket to 0 for the next launch. One launch a call; the
-//   bits do not depend on which block finishes last.
+//   split order and resets the ticket to 0 for the next launch. One launch
+//   a call; the bits do not depend on which block finishes last.
 //
-// K2 and K5 are one kernel: at B = 1 on an (L, S, n_kv, hs) cache they
-// compute the same sums in the same order under the same plan, so a step
-// through either gives the same bits. In one split the kernel sums keys
-// 0..pos as flash_decode_block does, which K6 and K7 (paged_attention.cu)
-// run: K6 over a pool holding a contiguous cache's values gives K5's bits
-// at a one-split plan.
+// The walk, the step and the merge live in flash_decode.cuh, shared with K6
+// and K7 (paged_attention.cu), which reach key t through a page table. K2
+// and K5 are one kernel: at B = 1 on an (L, S, n_kv, hs) cache they compute
+// the same sums in the same order under the same plan, so a step through
+// either gives the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -65,9 +62,6 @@
 #include "flash_decode.cuh"
 
 namespace {
-
-// the most splits a kv head (ops/attention.DECODE_MAX_SPLITS)
-constexpr int kMaxSplits = 32;
 
 // Keys in flight a warp, from tools/plan_sweep.py on the H100: 4 up to
 // KV_MUL = 2, else 2 (KV_MUL = 8 keeps 8 heads' q and o in registers; at 2
@@ -82,31 +76,10 @@ __host__ __device__ constexpr int keys_ahead() {
 #endif
 }
 
-// The most splits `keys` keys may take: `most`, or fewer so that each has
-// at least `least` keys, and at least one. It grows with `keys`, so K5's
-// grid, sized by it for S keys, covers every row's plan.
-__host__ __device__ __forceinline__ int decode_want(int keys, int most,
-                                                    int least) {
-  const int need = (keys + least - 1) / least;
-  const int want = need < most ? need : most;
-  return want > 1 ? want : 1;
-}
-
-// The splits of `keys` keys: decode_want's count of runs, all of `per`
-// keys but the last, none empty.
-__host__ __device__ __forceinline__ void decode_splits(int keys, int most,
-                                                       int least,
-                                                       int& splits,
-                                                       int& per) {
-  const int want = decode_want(keys, most, least);
-  per = (keys + want - 1) / want;
-  splits = (keys + per - 1) / per;
-}
-
 struct DecodeArgs {
   const float* q;
   float* out;
-  float* part;        // the splits' o, then their (m, l): see below
+  float* part;        // the splits' o, then their (m, l) (SplitOut)
   int* tickets;       // (batch, n_kv) zeros between launches
   const int* pos_vec; // K5's device positions, or null for K2's `pos`
   int pos;
@@ -118,6 +91,28 @@ struct DecodeArgs {
   int most;
   int least;
   float scale;
+};
+
+// Keys of one (row, kv head) in a contiguous cache: key t at row t of the
+// (S, n_kv, hs) plane, `row` values apart; k and v point at this lane's
+// values of key 0. Loads widen at once (a bf16 cache too).
+template <typename KV>
+struct CacheKeys {
+  using Raw = float4;
+  const KV* k;
+  const KV* v;
+  size_t row;  // n_kv * hs values between keys
+  __device__ __forceinline__ void start(int) {}
+  __device__ __forceinline__ size_t at(int t) const {
+    return static_cast<size_t>(t) * row;
+  }
+  __device__ __forceinline__ float4 load_k(size_t at) const {
+    return load_f4(k + at);
+  }
+  __device__ __forceinline__ float4 load_v(size_t at) const {
+    return load_f4(v + at);
+  }
+  static __device__ __forceinline__ float4 widen(float4 r) { return r; }
 };
 
 template <typename KV, int KV_MUL>
@@ -135,136 +130,37 @@ decode_attention_kernel(DecodeArgs a, const KV* __restrict__ k_all,
   const int t1 = min(keys, t0 + per);
 
   const int hs = a.hs;
-  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const bool live = 4 * lane < hs;  // lanes past the head size hold zeros
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  const size_t row = static_cast<size_t>(a.n_kv) * hs;  // between keys
   // K5: block row b reads cache row layer * batch + b (K2: batch 1)
   const size_t base =
       ((static_cast<size_t>(a.layer) * a.batch + b) * a.S * a.n_kv + g) * hs +
       4 * lane;
-  const KV* k = k_all + base;
-  const KV* v = v_all + base;
+  const CacheKeys<KV> cache{k_all + base, v_all + base,
+                            static_cast<size_t>(a.n_kv) * hs};
   const size_t item = static_cast<size_t>(b) * a.n_kv + g;  // (row, head)
-  const size_t qo = item * KV_MUL * hs;
 
   FlashState<KV_MUL> st;
-  st.begin(a.q + qo, hs, lane, live);
-  // whole batches of kAhead keys, each batch's loads issued before any of
-  // its keys is taken, then the rest a key at a time: every warp takes its
-  // keys t0 + warp, + kWarps, ... in order
-  constexpr int kAhead = keys_ahead<KV_MUL>();
-  int t = t0 + warp;
-  for (; t + (kAhead - 1) * kWarps < t1; t += kAhead * kWarps) {
-    float4 kv[kAhead], vv[kAhead];
-#pragma unroll
-    for (int u = 0; u < kAhead; ++u) {
-      const size_t at = static_cast<size_t>(t + u * kWarps) * row;
-      kv[u] = live ? load_f4(k + at) : zero;
-      vv[u] = live ? load_f4(v + at) : zero;
-    }
-#pragma unroll
-    for (int u = 0; u < kAhead; ++u) flash_step(st, kv[u], vv[u], a.scale);
-  }
-  for (; t < t1; t += kWarps) {
-    const size_t at = static_cast<size_t>(t) * row;
-    const float4 kv = live ? load_f4(k + at) : zero;
-    const float4 vv = live ? load_f4(v + at) : zero;
-    flash_step(st, kv, vv, a.scale);
-  }
+  st.begin(a.q + item * KV_MUL * hs, hs, lane, live);
+  // the plain batches: on the H100 (tools/decode_bits.py against this file
+  // with the switch true, at chip_smoke.py's K5 shapes) K6's walk, the
+  // early ask with halving batches, took as long over 8 GQA kv heads
+  // (median 1.000x) and up to 1.79x as long at 7B's KV_MUL 1 (K5's median
+  // 1.13x); the halving batches alone spilled (K5 over bf16 at KV_MUL 2,
+  // K6 over bf16 and Q8 pages at 1) and took K5 up to 1.56x as long at 7B
+  flash_walk<KV_MUL, keys_ahead<KV_MUL>(), false>(st, cache, t0, t1, a.scale,
+                                                  live);
   extern __shared__ float sm[];
-  float* wts = sm + kWarps * KV_MUL * (hs + 2);  // past flash_stage's
-  flash_stage(sm, st, hs, live);
-  __syncthreads();
-  flash_weights<KV_MUL>(sm, wts);
-
-  const int n = KV_MUL * hs;
-  float* out = a.out + qo;
-  if (splits == 1) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const int h = i / hs;
-      float lsum;
-      const float osum = flash_combine<KV_MUL>(sm, wts, hs, h, i - h * hs,
-                                               lsum);
-      out[i] = osum / lsum;
-    }
-    return;
-  }
-  // part: o (batch * n_kv * most, n), then (m, l) (batch * n_kv * most,
-  // KV_MUL, 2); split s of item at item * most + s
-  float* part_o = a.part + item * a.most * n;
-  float* part_ml = a.part + static_cast<size_t>(a.batch) * a.n_kv * a.most * n +
-                   item * a.most * 2 * KV_MUL;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int h = i / hs;
-    float lsum;
-    const float osum = flash_combine<KV_MUL>(sm, wts, hs, h, i - h * hs,
-                                             lsum);
-    part_o[static_cast<size_t>(j) * n + i] = osum;
-    if (i == h * hs) {
-      float mx = -INFINITY;
-      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm[w * KV_MUL + h]);
-      part_ml[(j * KV_MUL + h) * 2] = mx;
-      part_ml[(j * KV_MUL + h) * 2 + 1] = lsum;
-    }
-  }
-  __shared__ int last;
-  __threadfence();  // this split's partials, before its ticket
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(a.tickets + item, 1) == splits - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  // the merge: every split's (m, l) into shared memory at once, then each
-  // head's max (warp h, lane s) and the weights e^(m_s - m), then each
-  // value's sums over the splits in split order, its loads all in flight
-  float* sm_m = sm;                          // (splits, KV_MUL)
-  float* sm_l = sm_m + kMaxSplits * KV_MUL;  // (splits, KV_MUL)
-  float* w = sm_l + kMaxSplits * KV_MUL;     // (splits, KV_MUL)
-  for (int i = threadIdx.x; i < splits * KV_MUL; i += blockDim.x) {
-    sm_m[i] = __ldcg(part_ml + 2 * i);
-    sm_l[i] = __ldcg(part_ml + 2 * i + 1);
-  }
-  __syncthreads();
-  if (warp < KV_MUL) {
-    const float ms = lane < splits ? sm_m[lane * KV_MUL + warp] : -INFINITY;
-    float mx = ms;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    }
-    if (lane < splits) w[lane * KV_MUL + warp] = expf(ms - mx);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int h = i / hs;
-    float o[kMaxSplits];
-#pragma unroll
-    for (int s = 0; s < kMaxSplits; ++s) {
-      o[s] = s < splits ? __ldcg(part_o + static_cast<size_t>(s) * n + i)
-                        : 0.f;
-    }
-    float osum = 0.f, lsum = 0.f;
-#pragma unroll
-    for (int s = 0; s < kMaxSplits; ++s) {
-      if (s < splits) {
-        const float f = w[s * KV_MUL + h];
-        lsum += sm_l[s * KV_MUL + h] * f;
-        osum += o[s] * f;
-      }
-    }
-    out[i] = osum / lsum;
-  }
-  if (threadIdx.x == 0) a.tickets[item] = 0;  // ready for the next launch
+  flash_finish(st, sm, SplitOut{a.out, a.part, a.tickets,
+                                static_cast<size_t>(a.batch) * a.n_kv,
+                                a.most},
+               item, j, splits, hs, live);
 }
 
 template <typename KV, int KV_MUL>
 int launch(const DecodeArgs& a, const KV* k, const KV* v, int grid_splits,
            cudaStream_t stream) {
-  // the warps' state, then their weights (flash_weights)
-  const size_t smem =
-      flash_decode_smem<KV_MUL>(a.hs) + kWarps * KV_MUL * sizeof(float);
+  const size_t smem = flash_decode_smem<KV_MUL>(a.hs);
   static size_t granted[kMaxDevices];
   const cudaError_t e =
       opt_in_smem(decode_attention_kernel<KV, KV_MUL>, smem, granted);

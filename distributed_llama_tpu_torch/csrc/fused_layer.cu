@@ -107,7 +107,7 @@
 
 namespace {
 
-// 16 warps a block: flash_decode_block's kWarps, for K10's attention phase
+// 16 warps a block: flash_decode.cuh's kWarps, for K10's attention phase
 constexpr int kThreads = kWarps * 32;
 constexpr float kRmsEps = 1e-5f;
 
@@ -401,7 +401,7 @@ struct MegaArgs {
 };
 
 // One key split of kv head g (its KV_MUL query heads, staged in q) over
-// keys t0 .. t1 - 1: K2's online softmax (flash_decode_block), the block's
+// keys t0 .. t1 - 1: the first design's online softmax of K2, the block's
 // warps over keys t0 + warp, + kWarps, ..., then combined in warp order.
 // With one split the normalised output goes to ao; else the split's
 // unnormalised o and its (m, l) go to the scratch, and the last block of

@@ -127,8 +127,7 @@ KERNEL_ATOL_BF16 = 2e-3
 DECODE_MAX_SPLITS = 32
 DECODE_SPLIT_KEYS = 64
 DECODE_BLOCKS_PER_SM = 1
-# a plan of one split: the first design's sums in its order, which K6 and K7
-# (paged_attention.cu) keep
+# a plan of one split: the first design's sums in its order
 ONE_SPLIT = (1, 1)
 
 # K4b's tiling (csrc/prefill_attention_bf16.cu): keys per staged tile by
@@ -229,14 +228,22 @@ def decode_plan(n_kv: int, batch: int, sms: int) -> tuple[int, int]:
     return max(1, min(DECODE_MAX_SPLITS, most)), DECODE_SPLIT_KEYS
 
 
+def decode_want(keys: int, plan: tuple[int, int]) -> int:
+    """The most splits ``keys`` keys may take under ``plan`` = (most,
+    least); it grows with ``keys``, so the grid of K5 (S keys) and of K6
+    and K7 (the clamped virtual plane's keys), sized by it, covers every
+    row's plan (csrc/flash_decode.cuh decode_want)."""
+    most, least = plan
+    return max(1, min(most, -(-keys // least)))
+
+
 def decode_splits(keys: int, plan: tuple[int, int]) -> tuple[int, int]:
     """(splits, keys a split) of ``keys`` live keys under ``plan`` = (most,
     least): at most ``most`` splits of at least ``least`` keys (one for a
     short prefix), all of ``per`` keys but the last, none empty. The
-    kernel computes the same on the card from each row's position
-    (csrc/decode_attention.cu decode_splits)."""
-    most, least = plan
-    want = max(1, min(most, -(-keys // least)))
+    kernels compute the same on the card from each row's position
+    (csrc/flash_decode.cuh decode_splits)."""
+    want = decode_want(keys, plan)
     per = -(-keys // want)
     return -(-keys // per), per
 
@@ -285,9 +292,10 @@ def decode_attention_split_model(q: torch.Tensor, k_all: torch.Tensor,
 
 
 class _DecodeScratch(NamedTuple):
-    """K2's and K5's split partials, (rows x n_kv x most) x kv_mul x (hs +
-    2) f32, and their per-(row, kv head) tickets, int32 zeros that every
-    launch leaves zero."""
+    """K2's, K5's, K6's and K7's split partials, (rows x n_kv x most) x
+    kv_mul x (hs + 2) f32, and their per-(row, kv head) tickets, int32
+    zeros that every launch leaves zero (K6's and K7's rows: B * t_len
+    queries)."""
 
     part: torch.Tensor
     tickets: torch.Tensor
@@ -301,9 +309,10 @@ def _decode_scratch(device: torch.device, batch: int, n_kv: int,
     """(part, tickets) pointers for a launch: static buffers made once per
     (device, shape, plan width) on the first call there — an eager one:
     every captured path runs its first step eagerly, so a captured step
-    keeps their addresses — and shared by every launch of that shape, as
-    the launches on a device run one after another on its stream. A
-    one-split plan touches neither (null pointers)."""
+    keeps their addresses — and shared by every launch of that shape (K5
+    and K6 of as many rows alike), as the launches on a device run one
+    after another on its stream. A one-split plan touches neither (null
+    pointers)."""
     if most == 1:
         return 0, 0
     index = device.index if device.index is not None else \
@@ -319,7 +328,7 @@ def _decode_scratch(device: torch.device, batch: int, n_kv: int,
 
 
 def _plan_for(plan, n_kv: int, batch: int, device) -> tuple[int, int]:
-    """The wrapper's plan: ``plan`` when given (tests and
+    """The wrapper's plan (K2, K5, K6, K7): ``plan`` when given (tests and
     tools/plan_sweep.py; ONE_SPLIT for the first design's sums), else
     decode_plan on this card."""
     if plan is None:

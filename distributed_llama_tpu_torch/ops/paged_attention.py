@@ -13,6 +13,16 @@ ps], offset t % ps. They return (B, t_len, n_q*hs) f32. The decode step
 launches t_len 1; t_len up to 8 (a verify window) is built and held against
 the plain version on the card.
 
+The kernels run K5's walk (``attention.decode_attention_batch``) with the
+paged key address: each (row, query)'s keys are cut into splits across the
+grid by the plan (``attention.decode_plan`` over B*t_len rows unless
+``plan`` says otherwise), computed on the card from the device position,
+and merged in split order behind a ticket in the static scratch K5 uses
+(``attention._decode_scratch``). ``paged_attention_split_model`` models the
+arithmetic. At t_len 1, over a pool that holds a contiguous cache's values,
+K6 gives K5's bits under the same plan, and K7 gives K6's over the
+dequantized pool.
+
 The plain versions are the JAX package's XLA gather route
 (models/llama.py paged_decode_attention): row b's pages gathered in logical
 order, keys masked past pos+i, then ``attention_core``; Q8 pages are
@@ -36,18 +46,23 @@ import os
 import torch
 
 from ._build import CudaKernel
-from .attention import (_KV_MULS, _MAX_HEAD, CACHE_DTYPES, attention_core,
-                        attention_scale)
+from .attention import (_KV_MULS, _MAX_HEAD, CACHE_DTYPES, _decode_scratch,
+                        _plan_for, attention_core, attention_scale,
+                        decode_attention_split_model, decode_plan)
+from .q40 import sm_count
 from .quants import QK, dequantize_q80_planes
 
 KV_QUANTS = ("f32", "q8")  # the --kv-quant vocabulary (f32 = cache dtype)
 MAX_T_LEN = 8  # the longest query window the kernels take
 
-_PAGED_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
-               + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+# (q, k4, v4, out, part, tickets, layer, pos, table, batch, t_len, n_pages,
+# max_pages, ps, n_kv, kv_mul, hs, most, least, scale, stream); Q8: kq4,
+# kd4, vq4, vd4 in place of k4, v4
+_PAGED_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
+               + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10
                + [ctypes.c_float, ctypes.c_void_p])
-_Q8_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
-            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+_Q8_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int]
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10
             + [ctypes.c_float, ctypes.c_void_p])
 PAGED_KERNEL = CudaKernel("paged_attention.cu", "paged_attention",
                           _PAGED_ARGS)
@@ -137,6 +152,51 @@ def paged_decode_attention_q8_plain(q: torch.Tensor, kq4: torch.Tensor,
                         kv_mul)
 
 
+def paged_plan(n_kv: int, batch: int, t_len: int,
+               sms: int) -> tuple[int, int]:
+    """K6's and K7's default plan: decode_plan over the launch's B*t_len
+    (row, query) items, so at t_len 1 K5's plan for the same rows."""
+    return decode_plan(n_kv, batch * t_len, sms)
+
+
+def paged_attention_split_model(q: torch.Tensor, planes, layer: int,
+                                pos, table: torch.Tensor, n_pages: int,
+                                kv_mul: int,
+                                plan: tuple[int, int]) -> torch.Tensor:
+    """K6's and K7's split arithmetic in plain torch (a model for the
+    tests; no route calls it): for each (row b, query i), row b's live
+    pages gathered in logical order up to the clamp min(pos[b]+i,
+    max_pages*ps-1) (Q8 pages dequantized after the gather), then
+    ``attention.decode_attention_split_model`` under ``plan`` over them as
+    a one-row contiguous cache. ``planes`` is (k4, v4) or (kq4, kd4, vq4,
+    vd4); q (B, t_len, n_q*hs) -> (B, t_len, n_q*hs)."""
+    batch, t_len, _ = q.shape
+    ps, n_kv, hs = planes[0].shape[1:]
+    plan = _plan_for(plan, n_kv, batch * t_len, q.device)
+    s_virt = table.shape[1] * ps
+    if len(planes) == 4:
+        kq4, kd4, vq4, vd4 = planes
+
+        def read(rows):
+            return (dequantize_q80_planes(kq4[rows], kd4[rows]),
+                    dequantize_q80_planes(vq4[rows], vd4[rows]))
+    else:
+        def read(rows):
+            return planes[0][rows], planes[1][rows]
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for b, p in enumerate(int(x) for x in pos):
+        for i in range(t_len):
+            last = min(p + i, s_virt - 1)
+            n_live = last // ps + 1
+            k, v = read(layer * n_pages + table[b, :n_live].long())
+            k = k.reshape(1, n_live * ps, n_kv, hs)
+            v = v.reshape(1, n_live * ps, n_kv, hs)
+            out[b, i] = decode_attention_split_model(
+                q[b, i].reshape(n_kv * kv_mul, hs), k, v, 0, last, kv_mul,
+                plan)[0]
+    return out
+
+
 def _check(name, q, planes, layer, pos, table, n_pages, kv_mul,
            q8: bool) -> None:
     if q.dim() != 3 or q.dtype != torch.float32 or not q.is_contiguous():
@@ -195,13 +255,19 @@ def _check(name, q, planes, layer, pos, table, n_pages, kv_mul,
                          f"({batch}, max_pages) on {q.device}")
 
 
-def _launch(kernel, q, planes, layer, pos, table, n_pages, kv_mul):
+def _launch(kernel, q, planes, layer, pos, table, n_pages, kv_mul, plan):
+    """One launch over B*t_len rows of queries, split as ``plan`` (default
+    paged_plan) says, with K5's scratch for as many rows."""
     batch, t_len, _ = q.shape
     _, ps, n_kv, hs = planes[0].shape
+    rows = batch * t_len
+    most, least = plan or paged_plan(n_kv, batch, t_len, sm_count(q.device))
     out = torch.empty_like(q)
     kernel.launch(q.data_ptr(), *(p.data_ptr() for p in planes),
-                  out.data_ptr(), layer, pos.data_ptr(), table.data_ptr(),
-                  batch, t_len, n_pages, table.shape[1], ps, n_kv, kv_mul, hs,
+                  out.data_ptr(),
+                  *_decode_scratch(q.device, rows, n_kv, kv_mul, hs, most),
+                  layer, pos.data_ptr(), table.data_ptr(), batch, t_len,
+                  n_pages, table.shape[1], ps, n_kv, kv_mul, hs, most, least,
                   attention_scale(hs),
                   torch.cuda.current_stream(q.device).cuda_stream)
     return out
@@ -209,12 +275,17 @@ def _launch(kernel, q, planes, layer, pos, table, n_pages, kv_mul):
 
 def paged_decode_attention(q: torch.Tensor, k4: torch.Tensor,
                            v4: torch.Tensor, layer: int, pos: torch.Tensor,
-                           table: torch.Tensor, n_pages: int,
-                           kv_mul: int) -> torch.Tensor:
+                           table: torch.Tensor, n_pages: int, kv_mul: int,
+                           plan: tuple[int, int] | None = None
+                           ) -> torch.Tensor:
     """Attention of t_len queries per row over f32/bf16 pages (see the
     module docstring). CPU tensors take the plain version; CUDA tensors
     launch K6, built for the page dtype, which reads pos and the table on
-    the device."""
+    the device and splits each (row, query)'s keys as ``plan`` (default
+    decode_plan over B*t_len rows) says. A bad plan raises on either."""
+    if plan is not None:
+        plan = _plan_for(plan, k4.shape[2], q.shape[0] * q.shape[1],
+                         q.device)
     if q.device.type == "cpu" and k4.device.type == "cpu":
         return paged_decode_attention_plain(q, k4, v4, layer, pos, table,
                                             n_pages, kv_mul)
@@ -225,17 +296,23 @@ def paged_decode_attention(q: torch.Tensor, k4: torch.Tensor,
            n_pages, kv_mul, q8=False)
     kernel = (PAGED_KERNEL if k4.dtype == torch.float32
               else PAGED_KERNEL_KVBF16)
-    return _launch(kernel, q, (k4, v4), layer, pos, table, n_pages, kv_mul)
+    return _launch(kernel, q, (k4, v4), layer, pos, table, n_pages, kv_mul,
+                   plan)
 
 
 def paged_decode_attention_q8(q: torch.Tensor, kq4: torch.Tensor,
                               kd4: torch.Tensor, vq4: torch.Tensor,
                               vd4: torch.Tensor, layer: int,
                               pos: torch.Tensor, table: torch.Tensor,
-                              n_pages: int, kv_mul: int) -> torch.Tensor:
+                              n_pages: int, kv_mul: int,
+                              plan: tuple[int, int] | None = None
+                              ) -> torch.Tensor:
     """paged_decode_attention over Q8 pages: CPU tensors take the plain
     version; CUDA tensors launch K7, which widens the codes in its page
-    loop."""
+    loop, its keys split as ``plan`` says."""
+    if plan is not None:
+        plan = _plan_for(plan, kq4.shape[2], q.shape[0] * q.shape[1],
+                         q.device)
     if q.device.type == "cpu" and kq4.device.type == "cpu":
         return paged_decode_attention_q8_plain(q, kq4, kd4, vq4, vd4, layer,
                                                pos, table, n_pages, kv_mul)
@@ -246,4 +323,4 @@ def paged_decode_attention_q8(q: torch.Tensor, kq4: torch.Tensor,
     _check("paged_decode_attention_q8", q, planes, layer, pos, table,
            n_pages, kv_mul, q8=True)
     return _launch(PAGED_KERNEL_Q8, q, planes, layer, pos, table, n_pages,
-                   kv_mul)
+                   kv_mul, plan)

@@ -2,21 +2,24 @@
 ``q40_matvec_multi``, ``q40_matvec_bf16``: row and split warps a block,
 blocks a split, K splits), K3 (``q40_gemm``:
 splits x warpgroups), K4 (``prefill_attention``: splits of the key
-range) and K2 and K5 (``decode_attention``, ``decode_attention_batch``:
-blocks an SM, least keys a split, keys in flight a warp) at Llama-2-7B's
-shapes (and a GQA shape for K2/K5) on the card, beside the plan the
-wrappers pick (``ops/q40.matvec_plan``, ``gemm_tf32_plan``,
-``ops/attention.prefill_plan``, ``decode_plan``). Run on a machine with an
-NVIDIA GPU:
+range), K2 and K5 (``decode_attention``, ``decode_attention_batch``:
+blocks an SM, least keys a split, keys in flight a warp) and K6 and K7
+(``paged_attention``, ``_kvbf16``, ``_q8``: the same) at Llama-2-7B's
+shapes (and GQA shapes for K2/K5/K6/K7) on the card,
+beside the plan the wrappers pick (``ops/q40.matvec_plan``,
+``gemm_tf32_plan``, ``ops/attention.prefill_plan``, ``decode_plan``,
+``ops/paged_attention.paged_plan``). Run on a machine with an NVIDIA GPU:
 
     python3 -m distributed_llama_tpu_torch.tools.plan_sweep [--k1-t 1,2,8]
         [--k1d-t 2,8] [--t 16,32,128] [--pos 384,1920]
         [--decode-pos 63,512,1000,2047] [--decode-cache f32,bf16]
+        [--paged-pos 63,2047] [--paged-pages f32,bf16,q8]
 
-(an empty list skips that kernel). K2's and K5's keys in flight a warp
-are a compile-time constant: the sweep builds decode_attention.cu once
-more for each (``-DDECODE_KEYS_AHEAD=n``) and swaps the build the wrappers
-launch; "built" is the source's own table.
+(an empty list skips that kernel). The keys in flight a warp are a
+compile-time constant: the sweep builds decode_attention.cu once more for
+each (``-DDECODE_KEYS_AHEAD=n``), and paged_attention.cu for each
+(``-DPAGED_KEYS_AHEAD=n``), and swaps the build the wrappers launch;
+"built" is the source's own table.
 
 Each line gives the shape, the picked plan and its time, and the fastest
 plans of the sweep. A time covers the plan's whole call with its parts (K3's
@@ -34,8 +37,9 @@ import subprocess
 
 import torch
 
-from ..ops import attention, q40
+from ..ops import attention, paged_attention, q40
 from ..ops._build import BUILD_DIR, CSRC, NVCC_FLAGS, build, nvcc
+from ..ops.quants import quantize_q80_torch
 
 REPS = 25
 LAYER_SHAPES = [("wqkv", 12288, 4096), ("wo", 4096, 4096),
@@ -44,7 +48,7 @@ WCLS = ("wcls", 32000, 4096)
 HS, N_KV = 128, 32  # 7B's attention: 32 kv heads of 128
 
 
-def _timer():
+def make_timer():
     flush = torch.ones(32 << 20, dtype=torch.float32, device="cuda")
 
     def time(fn) -> float:
@@ -177,22 +181,23 @@ DECODE_PER_SM = (1, 2, 3, 4)
 DECODE_LEAST = (32, 64, 128, 256)
 
 
-def _decode_variants() -> dict:
-    """{keys in flight: (lib, {symbol: fn})}: decode_attention.cu built
-    with -DDECODE_KEYS_AHEAD=n for each n, bound as the wrappers bind it."""
-    out = {}
-    kernels = (attention.KERNEL, attention.KERNEL_KVBF16,
-               attention.BATCH_KERNEL, attention.BATCH_KERNEL_KVBF16)
-    procs = {}
+def _variants(source: str, kernels, flags: dict) -> dict:
+    """{label: (lib, {symbol: fn})}: ``source`` built once more for each
+    label with its -D flags, all nvcc's started together, the kernels'
+    symbols bound as the wrappers bind them."""
+    out, procs = {}, {}
     (BUILD_DIR / "plan_sweep").mkdir(parents=True, exist_ok=True)
-    for n in DECODE_AHEAD:
-        so = BUILD_DIR / "plan_sweep" / f"decode_attention-ahead{n}.so"
-        procs[n] = (so, subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, f"-DDECODE_KEYS_AHEAD={n}", "-I",
-             str(CSRC), "-o", str(so), str(CSRC / "decode_attention.cu")]))
-    for n, (so, proc) in procs.items():
+    stem = source.split(".")[0]
+    for label, defines in flags.items():
+        name = "-".join(str(x) for x in (label if isinstance(label, tuple)
+                                         else (label,)))
+        so = BUILD_DIR / "plan_sweep" / f"{stem}-{name}.so"
+        procs[label] = (so, subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, *defines, "-I", str(CSRC), "-o", str(so),
+             str(CSRC / source)]))
+    for label, (so, proc) in procs.items():
         if proc.wait() != 0:
-            raise RuntimeError(f"plan_sweep: the keys-ahead {n} build "
+            raise RuntimeError(f"plan_sweep: the {stem} {label} build "
                                f"failed")
         lib = ctypes.CDLL(str(so))
         lib.kernel_error_string.argtypes = [ctypes.c_int]
@@ -202,8 +207,17 @@ def _decode_variants() -> dict:
             fn = getattr(lib, k.symbol)
             fn.argtypes, fn.restype = k.argtypes, ctypes.c_int
             fns[k.symbol] = fn
-        out[n] = (lib, fns)
+        out[label] = (lib, fns)
     return out
+
+
+def _decode_variants() -> dict:
+    """{keys in flight: (lib, {symbol: fn})}: decode_attention.cu built
+    with -DDECODE_KEYS_AHEAD=n for each n."""
+    return _variants("decode_attention.cu",
+                     (attention.KERNEL, attention.KERNEL_KVBF16,
+                      attention.BATCH_KERNEL, attention.BATCH_KERNEL_KVBF16),
+                     {n: [f"-DDECODE_KEYS_AHEAD={n}"] for n in DECODE_AHEAD})
 
 
 def sweep_decode(time, variants, pos: int, cache: torch.dtype,
@@ -256,6 +270,74 @@ def sweep_decode(time, variants, pos: int, cache: torch.dtype,
             del k4, v4
 
 
+PAGED_CASES = [("7b", 32, 1), ("gqa2", 16, 2), ("gqa4", 8, 4),
+               ("gqa8", 8, 8)]
+PAGED_PER_SM = (1, 2, 4)
+PAGED_LEAST = (32, 64, 128, 256)
+PAGE = 16
+
+
+def _paged_variants() -> dict:
+    """{keys in flight: (lib, {symbol: fn})}: paged_attention.cu built
+    with -DPAGED_KEYS_AHEAD=n for each n."""
+    return _variants("paged_attention.cu", paged_attention.KERNELS,
+                     {n: [f"-DPAGED_KEYS_AHEAD={n}"] for n in DECODE_AHEAD})
+
+
+def sweep_paged(time, variants, pos: int, pages: str, sms: int) -> None:
+    """K6 (f32, bf16 pages) or K7 (Q8 pages) at t_len 1 over a permuted
+    pool of PAGE-position pages, every (blocks an SM, least keys a split,
+    keys in flight) at ``pos``, B = 1 and 8; the picked plan is
+    paged_plan, the picked keys in flight the source's."""
+    g = torch.Generator(device="cuda").manual_seed(pos + len(pages))
+    dtype = torch.bfloat16 if pages == "bf16" else torch.float32
+    kernel = {"f32": paged_attention.PAGED_KERNEL,
+              "bf16": paged_attention.PAGED_KERNEL_KVBF16,
+              "q8": paged_attention.PAGED_KERNEL_Q8}[pages]
+    run = (paged_attention.paged_decode_attention_q8 if pages == "q8"
+           else paged_attention.paged_decode_attention)
+    for label, n_kv, kv_mul in PAGED_CASES:
+        for batch in DECODE_BATCHES:
+            P = batch * 2048 // PAGE
+            shape = (P, PAGE, n_kv, HS)
+            k4 = torch.randn(shape, device="cuda", generator=g).to(dtype)
+            v4 = torch.randn(shape, device="cuda", generator=g).to(dtype)
+            if pages == "q8":
+                planes = []
+                for x in (k4, v4):
+                    qs, d = quantize_q80_torch(x.reshape(P, PAGE,
+                                                         n_kv * HS))
+                    planes += [qs.reshape(shape).contiguous(),
+                               d.contiguous()]
+            else:
+                planes = [k4, v4]
+            table = torch.randperm(P, device="cuda", generator=g).to(
+                torch.int32).reshape(batch, 2048 // PAGE).contiguous()
+            q = torch.randn((batch, 1, n_kv * kv_mul * HS), device="cuda",
+                            generator=g)
+            pv = torch.full((batch,), pos, dtype=torch.int32, device="cuda")
+            built = kernel._lib, kernel._fn
+            ms = {}
+            for ahead in ("built", *DECODE_AHEAD):
+                if ahead != "built":
+                    lib, fns = variants[ahead]
+                    kernel._lib, kernel._fn = lib, fns[kernel.symbol]
+                for per_sm in PAGED_PER_SM:
+                    most = max(1, min(attention.DECODE_MAX_SPLITS,
+                                      per_sm * sms // (n_kv * batch)))
+                    for least in PAGED_LEAST:
+                        ms[per_sm, least, ahead] = time(
+                            lambda: run(q, *planes, 0, pv, table, P, kv_mul,
+                                        plan=(most, least)))
+                kernel._lib, kernel._fn = built
+            pick = (attention.DECODE_BLOCKS_PER_SM,
+                    attention.DECODE_SPLIT_KEYS, "built")
+            _report(f"{'K7' if pages == 'q8' else 'K6'} {pages} pages "
+                    f"{label} B={batch} pos {pos}", pick, ms,
+                    "(blocks an SM, least keys, keys in flight)")
+            del k4, v4, planes
+
+
 def _report(label, pick, ms, what) -> None:
     best = sorted(ms, key=ms.get)
     print(f"{label}: picked {what} {pick} {ms[pick]:.4f} ms; fastest "
@@ -278,6 +360,11 @@ def main(argv=None) -> int:
     ap.add_argument("--decode-cache", default="f32",
                     help="K2's and K5's cache dtypes, f32 and/or bf16 "
                          "(comma-separated)")
+    ap.add_argument("--paged-pos", default="63,2047",
+                    help="K6's and K7's positions (comma-separated)")
+    ap.add_argument("--paged-pages", default="f32,bf16,q8",
+                    help="K6's and K7's page kinds, f32, bf16 and/or q8 "
+                         "(comma-separated)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("plan_sweep: no CUDA device")
@@ -288,8 +375,8 @@ def main(argv=None) -> int:
            attention.PREFILL_KERNEL, attention.PREFILL_KERNEL_KVBF16,
            attention.PREFILL_BF16_COMBINE, attention.KERNEL,
            attention.KERNEL_KVBF16, attention.BATCH_KERNEL,
-           attention.BATCH_KERNEL_KVBF16])
-    time = _timer()
+           attention.BATCH_KERNEL_KVBF16, *paged_attention.KERNELS])
+    time = make_timer()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def ints(text):
@@ -311,6 +398,12 @@ def main(argv=None) -> int:
         for name in [c for c in args.decode_cache.split(",") if c]:
             for pos in decode_pos:
                 sweep_decode(time, variants, pos, dtypes[name], sms)
+    paged_pos = ints(args.paged_pos)
+    if paged_pos:
+        variants = _paged_variants()
+        for pages in [c for c in args.paged_pages.split(",") if c]:
+            for pos in paged_pos:
+                sweep_paged(time, variants, pos, pages, sms)
     return 0
 
 

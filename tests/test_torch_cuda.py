@@ -13,12 +13,15 @@ builds of K2, K4 and K4b, and the ``--fast-prefill`` Engine over a bf16
 cache; then the batched decode
 attention (K5, both caches; at B = 1 bit for bit K2), K2's and K5's keys
 split across the grid at S = 2048 (plain, the same bits twice, graph
-replays across split boundaries with every ticket back at 0, K6 at K5's
-one-split plan) and the small-T
-bf16-product Q40 body (K1d), and the on-device loops: a step captured in
-a CUDA graph and replayed gives the tokens of the same step run eagerly,
-with exact launch counts. Every test takes the ``gen`` fixture, which
-skips it without a GPU; on one, run
+replays across split boundaries with every ticket back at 0), K6's and
+K7's split walk (K6 at t_len 1 K5's bits under the default plan, one split
+and (32, 64) over the identity and a permuted pool, K7 K6's bits over the
+dequantized pool under every plan, windows against plain at the
+budget-edge clamp, graph replays with every ticket back at 0) and the
+small-T bf16-product Q40 body (K1d), and the on-device loops: a step
+captured in a CUDA graph and replayed gives the tokens of the same step
+run eagerly, with exact launch counts. Every test takes the ``gen``
+fixture, which skips it without a GPU; on one, run
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
@@ -1182,8 +1185,8 @@ def test_paged_kernel_at_t1_is_k5_bit_for_bit(gen, cache, kv_mul, ps):
 def test_paged_kernel_at_a_long_prefix_is_k5_at_one_split(gen, cache,
                                                           kv_mul):
     """Past the first split of K5's default plan, K6 over the same values
-    still gives K5's bits at the one-split plan, and K5's default plan
-    stays within KERNEL_ATOL of them."""
+    gives K5's bits at the one-split plan, and at the default plan K5's
+    bits at its default plan, within KERNEL_ATOL of the one-split ones."""
     L, B, S, n_kv, hs, ps = 2, 2, 2048, 8, 128, 16
     k4, v4 = _split_caches(gen, cache, L * B, n_kv, hs, S)
     q = torch.randn((B, n_kv * kv_mul, hs), device="cuda", generator=gen)
@@ -1195,9 +1198,15 @@ def test_paged_kernel_at_a_long_prefix_is_k5_at_one_split(gen, cache,
     k5 = attention.decode_attention_batch(q, k4, v4, 1, pv, kv_mul,
                                           plan=attention.ONE_SPLIT)
     k6 = paged_attention.paged_decode_attention(
-        q.reshape(B, 1, -1), *pages, 1, pv, table, P, kv_mul)
+        q.reshape(B, 1, -1), *pages, 1, pv, table, P, kv_mul,
+        plan=attention.ONE_SPLIT)
     assert torch.equal(k6.reshape(B, -1), k5)
     split = attention.decode_attention_batch(q, k4, v4, 1, pv, kv_mul)
+    assert attention.decode_splits(2048, attention.decode_plan(
+        n_kv, B, _sms()))[0] > 1
+    assert torch.equal(paged_attention.paged_decode_attention(
+        q.reshape(B, 1, -1), *pages, 1, pv, table, P, kv_mul).reshape(B, -1),
+        split)
     assert (split - k5).abs().max().item() <= attention.KERNEL_ATOL
 
 
@@ -1223,6 +1232,161 @@ def test_paged_q8_kernel_is_k6_over_the_dequantized_pool(gen, kv_mul,
         b = paged_attention.paged_decode_attention(q, *deq, layer, pv, table,
                                                    P, kv_mul)
         assert torch.equal(a, b)
+
+
+# K6's and K7's split walk (K5's, through the page table): the plans
+# chip_smoke.py and the acceptance hold it to
+PAGED_PLANS = [None, attention.ONE_SPLIT, (32, 64)]
+# (n_kv, kv_mul): 7B's widths and 8 GQA kv heads, two layers, S 2048
+PAGED_WIDTHS = [(32, 1), (8, 8)]
+
+
+def _long_pool(gen, cache, n_kv, B=3, L=2, S=2048, ps=16, hs=128):
+    """A (L*B, S, n_kv, hs) batch cache (its values as K5 reads them), the
+    same values as an identity-mapped pool and as a permuted one: (k4, v4,
+    identity pages, identity table, permuted pages, permuted table, P)."""
+    k4, v4 = _split_caches(gen, cache, L * B, n_kv, hs, S)
+    P = B * S // ps
+    ident = torch.arange(P, dtype=torch.int32,
+                         device="cuda").reshape(B, S // ps)
+    pages = [t.reshape(L * P, ps, n_kv, hs) for t in (k4, v4)]
+    perm = torch.randperm(P, device="cuda", generator=gen)
+    moved = []
+    for t in pages:
+        m = torch.empty_like(t).reshape(L, P, ps, n_kv, hs)
+        m[:, perm] = t.reshape(L, P, ps, n_kv, hs)
+        moved.append(m.reshape(L * P, ps, n_kv, hs))
+    return (k4, v4, pages, ident, moved,
+            perm.to(torch.int32)[ident.long()].contiguous(), P)
+
+
+def _no_tickets():
+    for key, s in attention._DECODE_SCRATCH.items():
+        assert not s.tickets.any(), key
+
+
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", PAGED_WIDTHS)
+@pytest.mark.parametrize("plan", PAGED_PLANS)
+def test_paged_split_kernel_at_t1_is_k5_bit_for_bit(gen, cache, width, plan):
+    """K6 at t_len 1 under the default plan, ONE_SPLIT and (32, 64), over
+    the identity and a permuted pool holding a contiguous cache's values:
+    K5's bits under the same plan at pos 63, 2047 and ragged clocks, the
+    same bits on a second launch, every ticket back at 0."""
+    n_kv, kv_mul = width
+    k4, v4, pages, ident, moved, table, P = _long_pool(gen, cache, n_kv)
+    B = ident.shape[0]
+    q = torch.randn((B, n_kv * kv_mul, 128), device="cuda", generator=gen)
+    run = paged_attention.paged_decode_attention
+    for pos in ([63] * B, [2047] * B, [5, 900, 2047]):
+        pv = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        k5 = attention.decode_attention_batch(q, k4, v4, 1, pv, kv_mul,
+                                              plan=plan)
+        k6 = run(q.reshape(B, 1, -1), *pages, 1, pv, ident, P, kv_mul,
+                 plan=plan)
+        assert torch.equal(k6.reshape(B, -1), k5), pos
+        k6p = run(q.reshape(B, 1, -1), *moved, 1, pv, table, P, kv_mul,
+                  plan=plan)
+        assert torch.equal(k6p, k6), pos
+        assert torch.equal(run(q.reshape(B, 1, -1), *moved, 1, pv, table, P,
+                               kv_mul, plan=plan), k6p), pos
+        _no_tickets()
+
+
+@pytest.mark.parametrize("width", PAGED_WIDTHS)
+@pytest.mark.parametrize("plan", [*PAGED_PLANS, (4, 16)])
+@pytest.mark.parametrize("t_len", [1, 4])
+def test_paged_split_q8_kernel_is_k6_over_the_dequantized_pool(gen, width,
+                                                               plan, t_len):
+    """K7 under every plan at a long prefix: K6's bits over the pool of
+    its dequantized values, the same bits twice, tickets back at 0."""
+    from distributed_llama_tpu_torch.ops.quants import dequantize_q80_planes
+
+    n_kv, kv_mul = width
+    _, _, _, _, moved, table, P = _long_pool(gen, torch.float32, n_kv)
+    B = table.shape[0]
+    planes = _q8_pool(*moved)
+    deq = [dequantize_q80_planes(planes[0], planes[1]).contiguous(),
+           dequantize_q80_planes(planes[2], planes[3]).contiguous()]
+    q = torch.randn((B, t_len, n_kv * kv_mul * 128), device="cuda",
+                    generator=gen)
+    for pos in ([63] * B, [2047 - t_len + 1] * B, [5, 900, 2045]):
+        pv = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        a = paged_attention.paged_decode_attention_q8(
+            q, *planes, 1, pv, table, P, kv_mul, plan=plan)
+        b = paged_attention.paged_decode_attention(q, *deq, 1, pv, table, P,
+                                                   kv_mul, plan=plan)
+        assert torch.equal(a, b), pos
+        assert torch.equal(a, paged_attention.paged_decode_attention_q8(
+            q, *planes, 1, pv, table, P, kv_mul, plan=plan)), pos
+        _no_tickets()
+
+
+@pytest.mark.parametrize("pages", ["f32", "bf16", "q8"])
+@pytest.mark.parametrize("width", PAGED_WIDTHS)
+@pytest.mark.parametrize("t_len", [4, 8])
+@pytest.mark.parametrize("plan", [None, (32, 64)])
+def test_paged_split_windows_match_plain(gen, pages, width, t_len, plan):
+    """t_len 4 and 8 at a long prefix, split across the grid: within
+    KERNEL_ATOL of plain, with windows running past the virtual plane (the
+    budget-edge clamp: the last queries see the same keys)."""
+    n_kv, kv_mul = width
+    cache = torch.bfloat16 if pages == "bf16" else torch.float32
+    _, _, _, _, moved, table, P = _long_pool(gen, cache, n_kv)
+    B = table.shape[0]
+    if pages == "q8":
+        planes = _q8_pool(*moved)
+        run = paged_attention.paged_decode_attention_q8
+        plain = paged_attention.paged_decode_attention_q8_plain
+    else:
+        planes = moved
+        run = paged_attention.paged_decode_attention
+        plain = paged_attention.paged_decode_attention_plain
+    q = torch.randn((B, t_len, n_kv * kv_mul * 128), device="cuda",
+                    generator=gen)
+    pv = torch.tensor([2047 - t_len // 2, 1000, 2047], dtype=torch.int32,
+                      device="cuda")
+    got = run(q, *planes, 1, pv, table, P, kv_mul, plan=plan)
+    want = plain(q, *planes, 1, pv, table, P, kv_mul)
+    assert (got - want).abs().max().item() <= attention.KERNEL_ATOL
+    assert torch.equal(got, run(q, *planes, 1, pv, table, P, kv_mul,
+                                plan=plan))
+    _no_tickets()
+
+
+@pytest.mark.parametrize("pages", ["f32", "bf16", "q8"])
+def test_paged_split_kernels_replay_from_a_graph(gen, pages):
+    """K6 (f32, bf16 pages) and K7 captured in a CUDA graph over device
+    positions and replayed at clocks that cross split counts: every
+    replay gives the eager bits and leaves every ticket at 0."""
+    n_kv, kv_mul, B = 8, 4, 3
+    cache = torch.bfloat16 if pages == "bf16" else torch.float32
+    _, _, _, _, moved, table, P = _long_pool(gen, cache, n_kv)
+    planes = _q8_pool(*moved) if pages == "q8" else moved
+    run = (paged_attention.paged_decode_attention_q8 if pages == "q8"
+           else paged_attention.paged_decode_attention)
+    q = torch.randn((B, 1, n_kv * kv_mul * 128), device="cuda",
+                    generator=gen)
+    pv = torch.tensor([5, 40, 70], dtype=torch.int32, device="cuda")
+    run(q, *planes, 1, pv, table, P, kv_mul)  # eager first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run(q, *planes, 1, pv, table, P, kv_mul)
+    plan = attention.decode_plan(n_kv, B, _sms())
+    seen = set()
+    for pos in ([0, 127, 2047], [128, 2047, 5], [1000, 129, 64],
+                [2047, 256, 0], [3, 900, 1500]):
+        pv.copy_(torch.tensor(pos, dtype=torch.int32))
+        q.copy_(torch.randn(q.shape, device="cuda", generator=gen))
+        graph.replay()
+        torch.cuda.synchronize()
+        replayed = out.clone()
+        _no_tickets()
+        assert torch.equal(replayed, run(q, *planes, 1, pv, table, P,
+                                         kv_mul)), pos
+        seen |= {attention.decode_splits(p + 1, plan)[0] for p in pos}
+    assert 1 in seen and len(seen) > 2
 
 
 def test_paged_kernels_raise_instead_of_falling_back(gen):

@@ -1,4 +1,4 @@
-"""K2's and K5's keys split across the grid (csrc/decode_attention.cu
+"""K2's and K5's keys split across the grid (csrc/flash_decode.cuh
 decode_splits, merged in split order behind a ticket) on the CPU: the split
 rule (``ops/attention.decode_plan`` / ``decode_splits``) and a plain-torch
 model of the kernels' split-and-merge arithmetic
@@ -86,9 +86,10 @@ def test_k2_and_k5_at_b1_take_one_plan(n_kv):
 
 
 def test_the_kernel_source_holds_the_rule_constants():
-    """decode_attention.cu's twin of the rule: its split cap and formula."""
+    """The kernels' twin of the rule: its split cap and formula, in the
+    walk that decode_attention.cu and paged_attention.cu share."""
     src = (Path(attention.__file__).resolve().parent.parent / "csrc"
-           / "decode_attention.cu").read_text()
+           / "flash_decode.cuh").read_text()
     cap = re.search(r"constexpr int kMaxSplits = (\d+);", src)
     assert cap and int(cap.group(1)) == attention.DECODE_MAX_SPLITS
     want = src[src.index("int decode_want("):]
