@@ -63,8 +63,8 @@ no result line):
    probe_signed, and P0 probe_classic, the classic T = 1 row body that
    the fused tail gives the bits of) and K1 at the 13B w13 and wqkv
    shapes, then the probe's own traced chain at w13 (tools/nb_probe.py,
-   every variant, K1 its own row, 8 layers x 4
-   reps, exactly 32 trace events of each variant's kernel, the trace time
+   every variant, K1 its own row, 4 layers x 4
+   reps, exactly 16 trace events of each variant's kernel, the trace time
    beside the chain's CUDA-event time). Max error against the
    stated tolerance; kernel, plain and library
    times (CUDA events, median of 25 launches, L2 flushed before each); the
@@ -72,7 +72,10 @@ no result line):
    K3 and K4, the f32 SIMT bound beside it) and what bounds it. The library
    call computes the kernel's own function: SDPA in f32 for K2 and K4
    over a bf16 cache (on the prefix cast to f32 beforehand), with SDPA in
-   bf16 beside it as ``library_bf16_ms``.
+   bf16 beside it as ``library_bf16_ms``. Then K1 (T = 1), K1m (T = 8)
+   and K3 (T = 128) at a 7B rank's band shapes for tp 2 and 4 (the fused
+   scheme's wqkv, w13 and wcls row bands and wo and w2 block bands, the
+   ref scheme's wo and w2 row bands for K1), the same checks and times.
 3. End to end: a 7B-shaped Q40 model with random codes (seeded) and a
    32000-piece tokenizer are written to build/smoke/ (by a process started
    with phase 1, while the card runs phases 1 and 2), then the port's CLI
@@ -169,8 +172,28 @@ no result line):
    CPU. Then continuous batching at full width: 16 requests through 8
    slots on a contiguous cache and on f32, bf16 and Q8 pages, in turns
    (tokens/s, ms per device step, avg_active, device busy share, cache
-   bytes), the f32-page streams equal to the contiguous ones.
-5. The phase times, the ``kernels`` JSON line (each kernel's launches
+   bytes), the f32-page streams equal to the contiguous ones. A small
+   F16-weight model (``--weights-float-type f16``, the dense f32 product)
+   on the card against the CPU: logits within LOGIT_RTOL x max at 8
+   positions, and the CLI's greedy stream, card and CPU, equal.
+5. tp_full_width, after runs k-n: the smoke model at full width, all 32
+   layers, through the CLI's inference entry with the ranks of a gloo
+   group this script builds sharing the card (NCCL refuses two ranks on
+   one device): 36 steps over run a's prompt (19 positions prefilled at
+   chunk 16: K3 and K4 over the bands; then K1 and K2) under fused at tp 2
+   and 4 and under ref at tp 2, and with q80 buffers at tp 2 (chunk 8:
+   K1m); each stream equals run a's (run c's for q80), or parts only at a
+   near-tie of its top-2 logits; each run's ms per token and its counted
+   collectives a token against the budget are logged beside the card's
+   name and power limit. At tp 2 the lockstep batch (4 rows, K1m and K5)
+   and the continuous engine over f32 pages (K6, admission prefill
+   through K3 and K4) run eagerly at 2 layers of 7B width and equal one
+   device's. What waits for a machine with more than one card is logged
+   (TP_WAITS); where two GPUs are visible, ``inference --tp 2`` runs over
+   NCCL, token by token under fused and overlap (with four GPUs also tp 4
+   under fused, overlap and ref with q80 buffers), and the lockstep batch
+   at tp 2 against tp 1 (tp_nccl).
+6. The phase times, the ``kernels`` JSON line (each kernel's launches
    summed over every CLI run, a-r; the probe's kernels over its chain),
    then the result line ``{"ok": true, "device": {...}}`` as the last
    line.
@@ -508,6 +531,7 @@ def _matvec_rows(torch, timer, peaks, cases, seed):
                          plan=list(plan), max_abs_err=err,
                          rel_err=err / peak, tol=tol, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         bytes_bound_ms=bytes_ms,
                          tc_bound_ms=tc_ms, simt_bound_ms=simt_ms,
                          library_ms=library_ms))
         del x, got, again, want
@@ -706,6 +730,7 @@ def _q40_rows(torch, timer, peaks, kernel, cases, seed, bf16=False,
                          max_abs_err=err, rel_err=err / peak, tol=tol, ms=ms,
                          plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, simt_bound_ms=simt_ms,
+                         bytes_bound_ms=nbytes / peaks[0] * 1e3,
                          library_ms=library_ms, library=lib_name))
         del w, x, got, want, wf, lib
     return rows
@@ -1541,7 +1566,7 @@ def phase_fused(torch, timer, peaks):
 # --------------------------------------------------------------------------
 
 PROBE_SHAPES = [("w13", 27648, 5120), ("wqkv", 15360, 5120)]  # 13B leaves
-PROBE_LAYERS, PROBE_REPS = 8, 4
+PROBE_LAYERS, PROBE_REPS = 4, 4
 # variant -> the kernels line's name for its kernel (k1 is K1)
 PROBE_KERNELS = {"v0": "probe_classic", "dma": "probe_stream",
                  "v0r": "probe_xglobal", "v1": "probe_nomask",
@@ -1657,6 +1682,51 @@ def probe_chain(torch):
     del w
     return dict(shape="w13", layers=PROBE_LAYERS, reps=PROBE_REPS,
                 launches=launches, results=results)
+
+
+# --------------------------------------------------------------------------
+# tensor parallelism: the kernels at band shapes
+# --------------------------------------------------------------------------
+
+TP_SIZES = (2, 4)
+
+
+def tp_band_shapes(tp: int) -> list[tuple[str, int, int]]:
+    """A 7B rank's Q40 matrices at ``tp`` (parallel/tp.py): the fused
+    scheme's column-parallel bands (wqkv, w13, wcls: rows / tp) and its
+    row-parallel wo and w2 (Q40 blocks / tp), then the ref scheme's wo and
+    w2 row bands."""
+    return [("wqkv", 12288 // tp, 4096), ("wo", 4096, 4096 // tp),
+            ("w13", 22016 // tp, 4096), ("w2", 4096, 11008 // tp),
+            ("wcls", 32000 // tp, 4096), ("wo-ref", 4096 // tp, 4096),
+            ("w2-ref", 4096 // tp, 11008)]
+
+
+def phase_tp_bands(torch, timer, peaks):
+    """K1 (T = 1), K1m (T = 8) and K3 (T = 128) against plain at a 7B rank's
+    band shapes for tp 2 and 4, each beside its bytes bound. The units are
+    the kernels line's for one rank of the fused scheme: K1 a token (32 x
+    wqkv, wo, w13, w2 and wcls), K1m an 8-token step and K3 a 128-token
+    chunk (32 x the four layer bands); the ref scheme's wo and w2 bands
+    are timed for K1 beside the unit."""
+    from distributed_llama_tpu_torch.ops.q40 import KERNEL_GEMM
+
+    out = {}
+    for tp in TP_SIZES:
+        shapes = tp_band_shapes(tp)
+        layer = [s for s in shapes if s[0] in ("wqkv", "wo", "w13", "w2")]
+        unit = {"wcls": 1, "wo-ref": 0, "w2-ref": 0}
+        out[tp] = {
+            "q40_matvec": _matvec_rows(
+                torch, timer, peaks, [(n, d, k, 1, unit.get(n, 32))
+                                      for n, d, k in shapes], 20 + tp),
+            "q40_matvec_multi": _matvec_rows(
+                torch, timer, peaks, [(n, d, k, Q80_CHUNK, 32)
+                                      for n, d, k in layer], 30 + tp),
+            "q40_gemm": _q40_rows(
+                torch, timer, peaks, KERNEL_GEMM,
+                [(n, d, k, CHUNK, 32) for n, d, k in layer], 40 + tp)}
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2313,12 +2383,16 @@ def capture_reading(torch, engine, tokenizer):
 
 
 def phase_e2e_q80(torch, model, tok, spec):
-    """Run c: q80 buffers, the 20-token prompt through --prefill-chunk 8."""
+    """Run c: q80 buffers, the 20-token prompt through --prefill-chunk 8.
+    Also returns its tokens and, aligned with them, its decode steps'
+    top-2 logit gaps (the prefilled positions have none): the reference of
+    the tp q80 run."""
     n_layers = spec.n_layers
+    gaps, streams = [], []
     out, counts, wall, finite = _run_cli(torch, model, tok, [
         "--prompt", PROMPT, "--steps", str(STEPS), "--temperature", "0",
         "--seed", "1", "--buffer-float-type", "q80", "--prefill-chunk",
-        str(Q80_CHUNK)])
+        str(Q80_CHUNK)], gaps=gaps, streams=streams)
     steps = int(re.search(r"Generated tokens:\s+(\d+)", out).group(1))
     n_chunks = (19 + Q80_CHUNK - 1) // Q80_CHUNK
     _expect("q80 run", counts, {
@@ -2336,7 +2410,7 @@ def phase_e2e_q80(torch, model, tok, spec):
     res = dict(buffer="q80", chunk=Q80_CHUNK, decode_steps=steps,
                wall_s=wall, launches=counts, finite_steps=sum(finite))
     log(f"e2e q80: {json.dumps(res)}")
-    return res
+    return res, (streams[0], [(float("inf"), 0.0)] * 19 + gaps)
 
 
 @contextlib.contextmanager
@@ -3139,6 +3213,379 @@ def profile_prefill(torch, engine, tokens, wall_ms):
                 **{f"{p}_launches": c for p, (_, c) in split.items()})
 
 
+# --------------------------------------------------------------------------
+# tensor parallelism end to end: tp_full_width
+# --------------------------------------------------------------------------
+
+TP_PREFILL = 16  # the tp runs' prefill chunk: K3 and K4 over the bands
+TP_STEPS = 36    # run a's prompt: 19 prefilled positions, 17 decode steps
+TP_RUNS = {  # label -> (tp, scheme, extra flags); all 32 layers at 7B
+    "t2 fused": (2, "fused", ["--prefill-chunk", str(TP_PREFILL)]),
+    "t2 ref": (2, "ref", ["--prefill-chunk", str(TP_PREFILL)]),
+    "t2 q80": (2, "fused", ["--buffer-float-type", "q80", "--prefill-chunk",
+                            str(Q80_CHUNK)]),
+    "t4 fused": (4, "fused", ["--prefill-chunk", str(TP_PREFILL)]),
+}
+TP_DEPTH = 2   # layers of the 7B-wide model of the tp batch/continuous steps
+TP_ROWS = 4    # its lockstep rows, and the continuous engine's slots
+TP_REQS = 6    # the continuous engine's requests (CONT_PROMPTS[:6])
+# what the single card cannot run: gloo refuses send/recv of CUDA tensors
+# (the overlap scheme's ring hops), and a CUDA graph cannot capture gloo's
+# host-side collectives (over NCCL one hung: not yet ported)
+TP_WAITS = ("--tp-scheme overlap (its ring hops are send/recv pairs, which "
+            "gloo refuses for CUDA tensors)",
+            "NCCL, one GPU a rank",
+            "--fast and the captured batch and continuous steps under tp "
+            "(a CUDA graph cannot capture gloo, and a capture over NCCL "
+            "hung in a 4-card run: not yet ported)")
+
+
+def _tp_depth_model(spec, model):
+    """The smoke model's first TP_DEPTH layers as a .bin of their own: its
+    header with the depth, its embedding and layers 0..TP_DEPTH-1, then
+    its tail (final norm, the legacy RoPE gap, wcls), copied byte for
+    byte."""
+    import dataclasses
+
+    from distributed_llama_tpu_torch.models.spec import HEADER_BYTES
+
+    cut = dataclasses.replace(spec, n_layers=TP_DEPTH)
+    path = SMOKE_DIR / f"{Path(model).stem}_L{TP_DEPTH}.bin"
+    head = spec.vocab_size * spec.dim * 4 + TP_DEPTH * spec.block_bytes()
+    tail = spec.file_size() - (HEADER_BYTES + spec.vocab_size * spec.dim * 4
+                               + spec.n_layers * spec.block_bytes())
+    tmp = path.with_suffix(".tmp")
+    with open(model, "rb") as src, open(tmp, "wb") as dst:
+        dst.write(cut.header())
+        src.seek(HEADER_BYTES)
+        dst.write(src.read(head))
+        src.seek(spec.file_size() - tail)
+        dst.write(src.read(tail))
+    if tmp.stat().st_size != cut.file_size():
+        raise AssertionError(f"{tmp}: {tmp.stat().st_size} bytes, want "
+                             f"{cut.file_size()}")
+    tmp.replace(path)
+    return path
+
+
+def _tp_steps(torch, group, path, tok):
+    """The lockstep batch (generate_batch: K1m and K5 over the rank's kv
+    heads) and the continuous engine over f32 pages (K6; admission
+    prefill through K3 and K4) at TP_DEPTH layers of 7B width, eager
+    (graph=False: gloo cannot be captured); ``group`` None: one device.
+    Returns the rows, the requests' outputs and each part's launches."""
+    from distributed_llama_tpu_torch.io.loader import load_model
+    from distributed_llama_tpu_torch.io.tokenizer import Tokenizer
+    from distributed_llama_tpu_torch.ops.quants import FloatType
+    from distributed_llama_tpu_torch.parallel.tp import load_model_bands
+    from distributed_llama_tpu_torch.runtime.continuous import \
+        ContinuousEngine
+    from distributed_llama_tpu_torch.runtime.generate import generate_batch
+
+    if group is None:
+        spec, params = load_model(str(path),
+                                  weights_float_type=FloatType.Q40)
+        batch_kw, cont_kw = {}, {}
+    else:
+        spec, params = load_model_bands(str(path), group.rank, group.size,
+                                        "fused", FloatType.Q40)
+        batch_kw = dict(group=group, scheme="fused")
+        cont_kw = dict(mesh=group, scheme="fused")
+    tokenizer = Tokenizer(str(tok), spec.vocab_size)
+    res = {}
+    for k in _all_kernels():
+        k.launches = 0
+    res["rows"], _ = generate_batch(
+        spec, params, tokenizer, BATCH_PROMPTS[:TP_ROWS], 48, 0.0, 0.9, 1,
+        device="cuda", quiet=True, graph=False, **batch_kw)
+    res["batch_launches"] = {k.symbol: k.launches for k in _all_kernels()
+                             if k.launches}
+    for k in _all_kernels():
+        k.launches = 0
+    eng = ContinuousEngine(spec, params, TP_ROWS, 0.0, 0.9, 1,
+                           prefill_chunk=CONT_CHUNK, page_size=PAGE,
+                           device="cuda", graph=False, **cont_kw)
+    reqs = [tokenizer.encode(p, bos=True, eos=False)
+            for p in CONT_PROMPTS[:TP_REQS]]
+    res["outs"], stats = eng.run(reqs, 96)
+    res["cont_steps"] = stats.steps
+    res["cont_launches"] = {k.symbol: k.launches for k in _all_kernels()
+                            if k.launches}
+    return res
+
+
+def _tp_rank(rank, world, port, out, model, tok, depth_model):
+    """One rank of a gloo group whose ranks share cuda:0 (NCCL refuses two
+    ranks on one device), with a subgroup of the first tp ranks for each
+    smaller tp of TP_SIZES: each of TP_RUNS at its tp, on the ranks that
+    hold it, through the CLI's inference entry with that group
+    (``cmd_inference(argv, group=...)``), every kernel's count set to 0
+    just before and read just after, the generated tokens recorded; after
+    the tp 2 runs, _tp_steps over that group. Rank 0 pickles what it saw
+    to ``out``."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from distributed_llama_tpu_torch.frontend import cli
+    from distributed_llama_tpu_torch.parallel.mesh import TPGroup
+    from distributed_llama_tpu_torch.runtime import generate
+
+    torch.set_num_threads(1)  # the ranks share the host's cores
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    groups = {tp: dist.group.WORLD if tp == world
+              else dist.new_group(list(range(tp))) for tp in TP_SIZES}
+    res = {"backend": dist.get_backend()}
+    loop = generate.generate
+    streams = []
+
+    def recorded(*args, **kwargs):
+        got = loop(*args, **kwargs)
+        streams.append(list(got[0]))
+        return got
+
+    generate.generate = recorded
+    waited = False
+    try:
+        for label, (tp, scheme, extra) in TP_RUNS.items():
+            if tp == world and not waited:
+                # the ranks outside the smaller groups wait here, before
+                # they touch the card, until those groups' runs are done
+                dist.barrier()
+                waited = True
+            if rank >= tp:
+                continue
+            group = TPGroup(rank, tp, groups[tp], torch.device("cuda", 0))
+            streams.clear()
+            for k in _all_kernels():
+                k.launches = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.cmd_inference([
+                    "--model", model, "--tokenizer", tok, "--prompt",
+                    PROMPT, "--steps", str(TP_STEPS), "--temperature", "0",
+                    "--seed", "1", "--tp", str(tp), "--tp-scheme",
+                    scheme, *extra], group=group)
+            torch.cuda.synchronize()
+            res[label] = dict(
+                rc=rc, out=buf.getvalue(), wall_s=time.perf_counter() - t0,
+                stream=streams[0] if streams else None,
+                launches={k.symbol: k.launches for k in _all_kernels()
+                          if k.launches})
+            if tp == 2 and label == "t2 q80":  # the last tp 2 run
+                generate.generate = loop
+                res["steps"] = _tp_steps(torch, group, depth_model, tok)
+                generate.generate = recorded
+    finally:
+        generate.generate = loop
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(out, "wb") as fh:
+            pickle.dump(res, fh)
+
+
+def _tp_check(label, got, tp, n_layers, want, gaps, smi):
+    """One tp run against the single-device stream and the counts: K1 4L+1
+    and K2 L per decode step, the prefill's K3 (or K1m) 4L and K4 L per
+    chunk over the bands, and the counted collectives a token equal to the
+    budget. Logs ms per token beside the card."""
+    out = got["out"]
+    if got["rc"] != 0:
+        raise AssertionError(f"{label}: the CLI exited {got['rc']}")
+    steps = int(re.search(r"Generated tokens:\s+(\d+)", out).group(1))
+    avg = float(re.search(r"Avg generation time: ([\d.]+) ms",
+                          out).group(1))
+    p50 = float(re.search(r"p50 ([\d.]+)", out).group(1))
+    m = re.search(r"Collectives/token: +([\d.]+) \((.*)\), budget (\d+) "
+                  r"\((\w+), tp (\d+), (\w+)\)", out)
+    if not m or float(m.group(1)) != int(m.group(3)) or int(m.group(5)) != tp:
+        raise AssertionError(f"{label}: collectives a token "
+                             f"{m.groups() if m else None} against the "
+                             f"budget")
+    from distributed_llama_tpu_torch.ops import attention, q40
+
+    q80 = "q80" in label
+    chunk = Q80_CHUNK if q80 else TP_PREFILL
+    chunks = -(-19 // chunk)
+    parts = {k.symbol for k in (*q40.HELPERS, *attention.HELPERS)}
+    _expect(f"{label} run", {k: v for k, v in got["launches"].items()
+                             if k not in parts}, {
+        "q40_matvec": (4 * n_layers + 1) * steps,
+        "decode_attention": n_layers * steps,
+        "q40_matvec_multi" if q80 else "q40_gemm": 4 * n_layers * chunks,
+        "prefill_attention": n_layers * chunks})
+    same, part, gap = _same_stream(label, got["stream"],
+                                   want[:len(got["stream"])], gaps)
+    res = dict(tp=tp, scheme=m.group(4), backend=m.group(6),
+               decode_steps=steps, ms_per_token_avg=avg,
+               ms_per_token_p50=p50, collectives_per_token=float(m.group(1)),
+               collectives_by_kind=m.group(2), budget=int(m.group(3)),
+               wall_s=got["wall_s"], launches=got["launches"],
+               stream_equal=same, parts_at=part, gap=gap)
+    log(f"tp {label}: {avg:.2f} ms/token (p50 {p50:.2f}) over {steps} "
+        f"decode steps, {m.group(1)} collectives/token ({m.group(2)}) = "
+        f"budget {m.group(3)}, {tp} gloo ranks sharing one card: {smi}; "
+        f"stream {'equals' if same else 'parts at a near-tie from'} the "
+        f"one-device stream")
+    return res
+
+
+def tp_full_width(torch, spec, model, tok, ref_a, ref_c, smi):
+    """Llama-2-7B Q40 at full width (the smoke file, all 32 layers) through
+    the CLI's inference entry at tp 2 and 4, the ranks sharing the card
+    over a gloo group this phase builds (one spawn a size): TP_RUNS, each
+    stream held against the one-device run's (run a, or run c for q80
+    buffers), then at tp 2 the lockstep and continuous steps at TP_DEPTH
+    layers against the same on one device. Returns the runs and each
+    kernel's launches at each tp (rank 0)."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    from distributed_llama_tpu_torch.parallel.mesh import free_port
+
+    depth = _tp_depth_model(spec, model)
+    with torch.inference_mode():
+        one = _tp_steps(torch, None, depth, tok)
+    world = max(TP_SIZES)
+    out = SMOKE_DIR / "tp.pkl"
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    mp.start_processes(_tp_rank, args=(
+        world, free_port(), str(out), str(model), str(tok), str(depth)),
+        nprocs=world, start_method="spawn")
+    with open(out, "rb") as fh:
+        got = pickle.load(fh)
+    log(f"tp: {world} ranks over {got['backend']} sharing cuda:0 (a group "
+        f"this script built, the first 2 ranks a subgroup for tp 2), "
+        f"{time.perf_counter() - t0:.1f} s with the spawn")
+    res, launches = {}, {}
+    for world in TP_SIZES:
+        runs = [label for label, (tp, _, _) in TP_RUNS.items()
+                if tp == world]
+        counts = collections.Counter()
+        for label in runs:
+            want, gaps = ref_c if "q80" in label else ref_a
+            res[label] = _tp_check(label, got[label], world, spec.n_layers,
+                                   want, gaps, smi)
+            counts.update(got[label]["launches"])
+        if world == 2:
+            steps = got["steps"]
+            same = (steps["rows"] == one["rows"],
+                    steps["outs"] == one["outs"])
+            log(f"tp {world} steps at {TP_DEPTH} layers of 7B width "
+                f"(graph=False): lockstep {TP_ROWS} rows "
+                f"{'equal' if same[0] else 'DIFFER from'} one device's, "
+                f"continuous ({TP_REQS} requests, {TP_ROWS} slots, pages of "
+                f"{PAGE}, {steps['cont_steps']} steps) "
+                f"{'equal' if same[1] else 'DIFFER from'} one device's; "
+                f"launches {steps['batch_launches']}, "
+                f"{steps['cont_launches']}")
+            if not all(same):
+                raise AssertionError(f"tp {world} steps differ from one "
+                                     f"device's")
+            b, c = steps["batch_launches"], steps["cont_launches"]
+            n = b.get("decode_attention_batch", 0) // TP_DEPTH
+            if not n or b.get("q40_matvec_multi") != (4 * TP_DEPTH + 1) * n \
+                    or not all(c.get(k) for k in ("paged_attention",
+                                                  "q40_gemm",
+                                                  "prefill_attention")):
+                raise AssertionError(f"tp {world} steps' launches: {b}, {c}")
+            counts.update(b)
+            counts.update(c)
+            res[f"t{world} steps"] = dict(
+                depth=TP_DEPTH, rows=TP_ROWS, requests=TP_REQS,
+                cont_steps=steps["cont_steps"], batch_launches=b,
+                cont_launches=c)
+        launches[world] = dict(counts)
+    if torch.cuda.device_count() < 2:
+        log(f"tp over NCCL: not run ({torch.cuda.device_count()} GPU "
+            f"visible); waiting for a machine with more than one card: "
+            f"{'; '.join(TP_WAITS)}")
+    else:
+        res["nccl"] = tp_nccl(torch, model, tok, ref_a, ref_c)
+    return res, launches
+
+
+def tp_nccl(torch, model, tok, ref_a, ref_c):
+    """Where two GPUs are visible: ``inference --tp N`` as a user runs it
+    (the CLI spawns N NCCL ranks, one GPU each), token by token: tp 2
+    under fused and overlap, and with four GPUs tp 4 under fused, overlap
+    and ref with q80 buffers, each stream's text against run a's (run c's
+    for q80 buffers); then the lockstep batch (TP_ROWS prompts, its steps
+    eager under tp) at tp 2 against tp 1. Every CLI call has a timeout."""
+    from distributed_llama_tpu_torch.io.tokenizer import Tokenizer
+
+    tokenizer = Tokenizer(str(tok), 32000)
+
+    def text(tokens):
+        prev, pieces = 1, []
+        for t in tokens[:TP_STEPS]:
+            pieces.append(tokenizer.decode_piece(prev, t).decode(
+                "utf-8", errors="replace"))
+            prev = t
+        return "".join(pieces)
+
+    def cli(label, *args):
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "distributed_llama_tpu_torch", "inference",
+             "--model", str(model), "--tokenizer", str(tok), "--temperature",
+             "0", "--seed", "1", *args], cwd=ROOT, capture_output=True,
+            text=True, timeout=300)
+        if run.returncode != 0:
+            raise AssertionError(f"{label}: exit {run.returncode}: "
+                                 f"{run.stderr[-3000:]}")
+        return run.stdout, time.perf_counter() - t0
+
+    runs = [("nccl t2 fused", 2, ["--tp-scheme", "fused"]),
+            ("nccl t2 overlap", 2, ["--tp-scheme", "overlap"])]
+    if torch.cuda.device_count() >= 4:
+        runs += [("nccl t4 fused", 4, ["--tp-scheme", "fused"]),
+                 ("nccl t4 overlap", 4, ["--tp-scheme", "overlap"]),
+                 ("nccl t4 ref q80", 4, ["--tp-scheme", "ref",
+                                         "--buffer-float-type", "q80",
+                                         "--prefill-chunk",
+                                         str(Q80_CHUNK)])]
+    res = {}
+    for label, tp, extra in runs:
+        want = text((ref_c if "q80" in label else ref_a)[0])
+        out, wall = cli(label, "--prompt", PROMPT, "--steps", str(TP_STEPS),
+                        "--tp", str(tp), *extra)
+        avg = float(re.search(r"Avg generation time: ([\d.]+) ms",
+                              out).group(1))
+        same = _pieces(out) == want
+        log(f"tp {label}: {avg:.2f} ms/token, stream "
+            f"{'equals' if same else 'DIFFERS from'} the one-device "
+            f"stream, {wall:.1f} s with the spawn")
+        if not same:
+            raise AssertionError(f"{label}: stream differs from one "
+                                 f"device's")
+        res[label] = dict(tp=tp, ms_per_token_avg=avg, stream_equal=same)
+    prompts = SMOKE_DIR / "tp_prompts.txt"
+    prompts.write_text("\n".join(BATCH_PROMPTS[:TP_ROWS]) + "\n")
+    rows = {}
+    for tp in (1, 2):
+        out, _ = cli(f"nccl lockstep tp {tp}", "--prompts-file", str(prompts),
+                     "--steps", "48", "--tp", str(tp))
+        rows[tp] = re.findall(r"^\[(\d+)\] (.*)$", out, re.M)
+    same = bool(rows[1]) and rows[1] == rows[2]
+    log(f"tp nccl lockstep batch, {TP_ROWS} rows at tp 2 (eager steps): "
+        f"rows {'equal' if same else 'DIFFER from'} tp 1's")
+    if not same:
+        raise AssertionError("nccl lockstep batch: tp 2 rows differ from "
+                             "tp 1's")
+    res["nccl lockstep t2"] = dict(rows=TP_ROWS, rows_equal=same)
+    return res
+
+
 def phase_small_reference(torch):
     """A small model with quantized-Gaussian weights (GQA, head size 128,
     so both kernels run): the forward through the kernels on the card
@@ -3171,7 +3618,69 @@ def phase_small_reference(torch):
     log(f"small model, kernels on the card vs plain on the CPU: 8 positions, "
         f"max_abs_err {worst:.3e}, {len(argmaxes)} distinct argmaxes")
     small_loops(torch, spec, host)
-    return max(worst, small_prefill(torch, spec, gpu, cpu))
+    return max(worst, small_prefill(torch, spec, gpu, cpu), small_f16(torch))
+
+
+def small_f16(torch):
+    """F16 weights (``--weights-float-type f16``, the dense product of
+    ops/linear.dense_matmul): a small GQA model written as an F16 .bin,
+    the forward on the card against the CPU at 8 positions and a 4-token
+    prefill chunk (logits within LOGIT_RTOL x max), and the CLI's greedy
+    stream, card and CPU, equal."""
+    import numpy as np
+
+    from distributed_llama_tpu_torch.frontend import cli
+    from distributed_llama_tpu_torch.io.loader import load_model, write_model
+    from distributed_llama_tpu_torch.models import llama
+    from distributed_llama_tpu_torch.models.spec import TransformerSpec
+    from distributed_llama_tpu_torch.models.synth import synth_params
+    from distributed_llama_tpu_torch.ops.quants import FloatType
+
+    spec = TransformerSpec(dim=512, hidden_dim=1376, n_layers=2, n_heads=4,
+                           n_kv_heads=2, vocab_size=32000, seq_len=64,
+                           weights_float_type=FloatType.F16)
+    path = SMOKE_DIR / "small_f16.bin"
+    write_model(str(path), spec, synth_params(spec, q40=False, seed=9))
+    _, host = load_model(str(path), weights_float_type=FloatType.F16)
+    if host["wq"].dtype != np.float16:
+        raise AssertionError(f"F16 load gave {host['wq'].dtype}")
+    gpu = llama.Llama(spec, llama.params_to_device(host, "cuda"))
+    cpu = llama.Llama(spec, llama.params_to_device(host, "cpu"))
+    cg, cc = llama.init_cache(spec, "cuda"), llama.init_cache(spec, "cpu")
+    worst = 0.0
+    with torch.inference_mode():
+        steps = [(pos, t) for pos, t in enumerate([1, 17, 400, 3])]
+        steps.append((4, [3, 999, 42, 7]))
+        for pos, t in steps:
+            a, b = gpu(cg, t, pos).cpu(), cpu(cc, t, pos)
+            err = (a - b).abs().max().item()
+            tol = llama.LOGIT_RTOL * b.abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"F16 pos {pos}: card vs CPU logits "
+                                     f"differ by {err} > {tol}")
+            worst = max(worst, err)
+    tok = SMOKE_DIR / "tokenizer_32000.bin"  # smoke_files wrote it
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["inference", "--model", str(path), "--tokenizer",
+                           str(tok), "--weights-float-type", "f16",
+                           "--prompt", "hi hi", "--steps", "16",
+                           "--temperature", "0", "--seed", "1", "--device",
+                           dev])
+        if rc != 0:
+            raise RuntimeError(f"F16 CLI on {dev} exited {rc}")
+        outs[dev] = _pieces(buf.getvalue())
+    log(f"small F16 model, card vs CPU: 5 calls (8 positions), max_abs_err "
+        f"{worst:.3e} (tol LOGIT_RTOL {llama.LOGIT_RTOL} x max); CLI "
+        f"--weights-float-type f16 greedy stream "
+        f"{'equal' if outs['cuda'] == outs['cpu'] else 'DIFFERS'} "
+        f"({len(outs['cuda'])} pieces)")
+    if outs["cuda"] != outs["cpu"] or len(outs["cuda"]) < 12:
+        raise AssertionError("F16 CLI: the card's stream differs from the "
+                             "CPU's")
+    return worst
 
 
 def small_loops(torch, spec, host):
@@ -3355,6 +3864,8 @@ def main() -> int:
     k5_kvbf16 = phase_k5(torch, timer, peaks, cache=torch.bfloat16)
     k6 = phase_k6(torch, timer, peaks)
     mark("kernels K1-K7 against plain")
+    tp_bands = phase_tp_bands(torch, timer, peaks)
+    mark("K1, K1m and K3 at tp band shapes")
     fused_rows = phase_fused(torch, timer, peaks)
     mark("fused kernels K8-K10 against plain")
     probe_rows, probe = phase_probe(torch, timer, peaks)
@@ -3366,7 +3877,7 @@ def main() -> int:
     mark("smoke model")
     e2e, out_a, ref_a = phase_e2e(torch, model, tok)
     e2e_prefill = phase_e2e_prefill(torch, model, tok, spec)
-    e2e_q80 = phase_e2e_q80(torch, model, tok, spec)
+    e2e_q80, ref_c = phase_e2e_q80(torch, model, tok, spec)
     e2e_bf16 = phase_e2e_bf16(torch, model, tok, spec, e2e_prefill)
     e2e_batch = phase_e2e_batch(torch, model, tok, spec.n_layers, "batch")
     e2e_batch_dq = phase_e2e_batch(
@@ -3392,6 +3903,11 @@ def main() -> int:
     mark("CLI runs a-j, o-r")
     e2e_cont = phase_e2e_continuous_runs(torch, model, tok, spec.n_layers)
     mark("CLI runs k-n")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp, tp_launches = tp_full_width(torch, spec, model, tok, ref_a, ref_c,
+                                    smi)
+    mark("tp_full_width")
     gc.collect()
     torch.cuda.empty_cache()
     logit_err, busy, prefill, fast, batch, continuous = phase_full_width(
@@ -3676,6 +4192,41 @@ def main() -> int:
                          "chain per call", shapes=rows)
 
     kernels += [probe_row(v, name) for v, name in PROBE_KERNELS.items()]
+
+    band_units = {
+        "q40_matvec": "one 7B token on one rank of the fused scheme: 32 x "
+                      "(wqkv, wo, w13, w2 bands) + the wcls band at T = 1 "
+                      "(the ref scheme's wo and w2 row bands in shapes)",
+        "q40_matvec_multi": f"one 7B {Q80_CHUNK}-token step on one rank: "
+                            f"32 x the four layer bands at T = {Q80_CHUNK}",
+        "q40_gemm": f"one 7B {CHUNK}-token chunk on one rank: 32 x the four "
+                    f"layer bands at T = {CHUNK}, with its parts"}
+    for k in kernels:
+        # each kernel's launches on rank 0 over tp_full_width's runs
+        k["tp_launches"] = {str(w): tp_launches[w].get(k["name"], 0)
+                            for w in TP_SIZES}
+        if k["name"] in band_units:
+            k["tp_bands"] = {
+                str(w): dict(unit_row(tp_bands[w][k["name"]]),
+                             bytes_bound_ms=sum(
+                                 r["bytes_bound_ms"] * r["per_token"]
+                                 for r in tp_bands[w][k["name"]]),
+                             max_abs_err=max(r["max_abs_err"] for r in
+                                             tp_bands[w][k["name"]]),
+                             launches=tp_launches[w].get(k["name"], 0),
+                             unit=band_units[k["name"]],
+                             shapes=tp_bands[w][k["name"]])
+                for w in TP_SIZES}
+    tp_idle = [f"{name} at tp {w}" for w in TP_SIZES for name in
+               ("q40_matvec", "q40_gemm", "decode_attention",
+                "prefill_attention") if not tp_launches[w].get(name)]
+    tp_idle += [name for name in ("q40_matvec_multi",
+                                  "decode_attention_batch",
+                                  "paged_attention")
+                if not tp_launches[2].get(name)]
+    if tp_idle:
+        raise AssertionError(f"kernels never launched on the tp path: "
+                             f"{tp_idle}")
     idle = [k["name"] for k in kernels if not k["launches"]] + [
         p["name"] for k in kernels for p in k.get("parts", ())
         if not p["launches"]]
@@ -3695,10 +4246,12 @@ def main() -> int:
                       "e2e_batch_dequant": e2e_batch_dq,
                       "e2e_fast": e2e_fast, "e2e_fused": e2e_fused,
                       "e2e_continuous": e2e_cont,
-                      "e2e_profile": e2e_profile, "e2e_resume": e2e_resume,
+                      "e2e_profile": e2e_profile,
+                      "e2e_resume": e2e_resume,
                       "probe": probe, "probe_kernels": probe_rows,
                       "prefill": prefill, "fast": fast, "batch_step": batch,
-                      "continuous": continuous,
+                      "continuous": continuous, "tp": tp,
+                      "tp_waits": TP_WAITS,
                       "batch_cache_saved_gb": saved, "build_s": build_s,
                       "sass": sass}))
     print(json.dumps({"ok": True, "device": {

@@ -76,9 +76,9 @@ from ..ops.layer import (fused, mega_supported, q40_head_fused,
                          q40_tail_fused_plain, rope_freq, rope_rows)
 from ..ops.layer import rotate as _rotate
 from ..ops.layer import supports as fusion_supports
-from ..ops.linear import (dense_matmul, dense_matmul_bf16, fake_quant_q80,
-                          fuse_q40_layer_matmuls, matmul, q40_to_device,
-                          rmsnorm, silu)
+from ..ops.linear import (FUSED_LOAD, dense_matmul, dense_matmul_bf16,
+                          fake_quant_q80, fusible, matmul,
+                          q40_concat_to_device, q40_to_device, rmsnorm, silu)
 from ..ops.paged_attention import paged_decode_attention as paged_flash
 from ..ops.paged_attention import \
     paged_decode_attention_plain as paged_flash_plain
@@ -405,10 +405,12 @@ def _post_attention(spec: TransformerSpec, lw: dict[str, Any],
 def _layer(spec: TransformerSpec, x: torch.Tensor, lw: dict[str, Any],
            cache: KVCache, idx: int, pos: int,
            rope: tuple[torch.Tensor, torch.Tensor],
-           route: Route = KERNELS) -> torch.Tensor:
+           route: Route = KERNELS, tail: Callable | None = None
+           ) -> torch.Tensor:
     """One transformer layer over T tokens: writes their k/v into the
     stacked cache in place at (idx, pos..pos+T-1), attends causally over
-    0..pos+T-1, returns the new residual (T, dim)."""
+    0..pos+T-1, returns the new residual (T, dim). ``tail(lw, x, ao,
+    route)`` replaces _post_attention (the tensor-parallel layer tail)."""
     t_len = x.shape[0]
     hs, n_kv = spec.head_size, spec.n_kv_heads
     q, k, v = _qkv_proj(spec, lw, x, rope, route)
@@ -420,6 +422,8 @@ def _layer(spec: TransformerSpec, x: torch.Tensor, lw: dict[str, Any],
     else:  # q is a strided slice of the rotated q|k: the kernel wants rows
         ao = route.prefill(q.reshape(t_len, spec.n_heads, hs).contiguous(),
                            cache.k, cache.v, idx, pos, spec.kv_mul)
+    if tail is not None:
+        return tail(lw, x, ao, route)
     return _post_attention(spec, lw, x, ao, route)
 
 
@@ -492,16 +496,34 @@ class Llama(nn.Module):
             return self.forward_fused(cache, self._token, self._pos,
                                       self.fusion, route, logits, at=pos)
         emb = p["tok_embedding"]
-        x = (emb[tokens[0]].reshape(1, spec.dim) if t_len == 1
+        x = (emb[tokens[0]].reshape(1, -1) if t_len == 1
              else emb[torch.tensor(tokens, device=emb.device)])
         x = x.to(torch.float32)
         rope = rope_tables(self.freq, pos, t_len)
         for idx, lw in enumerate(self.layers):
-            x = _layer(spec, x, lw, cache, idx, pos, rope, route)
+            x = _layer(spec, self._enter(x, idx), lw, cache, idx, pos, rope,
+                       route, self._post)
+        x = self._enter(x, spec.n_layers)
         if not logits:
             return None
-        x = rmsnorm(x, p["rms_final"])
-        return _mm(p["wcls"], x, route)
+        return self._logits(x, route)
+
+    # the layer loop's hooks: the single-device program here, the
+    # tensor-parallel one in parallel/tp.TPLlama (its combines and gathers)
+
+    def _enter(self, x: torch.Tensor, idx: int) -> torch.Tensor:
+        """x at the top of layer ``idx`` (idx = n_layers: after the last)."""
+        return x
+
+    def _post(self, lw: dict[str, Any], x: torch.Tensor, ao: torch.Tensor,
+              route: Route) -> torch.Tensor:
+        """The layer's tail after attention: x (T, dim) out."""
+        return _post_attention(self.spec, lw, x, ao, route)
+
+    def _logits(self, x: torch.Tensor, route: Route) -> torch.Tensor:
+        """Final norm and wcls: logits (T, vocab)."""
+        x = rmsnorm(x, self.params["rms_final"])
+        return _mm(self.params["wcls"], x, route)
 
     def forward_fused(self, cache: KVCache, token: torch.Tensor,
                       pos: torch.Tensor, mode: str,
@@ -590,6 +612,7 @@ class Llama(nn.Module):
         x = p["tok_embedding"][tokens].to(torch.float32)
         rope = rope_rows(self.freq, pos)
         for idx, lw in enumerate(self.layers):
+            x = self._enter(x, idx)
             q, k, v = _qkv_proj(spec, lw, x, rope, route)
             k4.index_put_((rows[idx], cols),
                           k.reshape(batch, n_kv, hs).to(k4.dtype))
@@ -597,9 +620,8 @@ class Llama(nn.Module):
                           v.reshape(batch, n_kv, hs).to(v4.dtype))
             ao = route.batch(q.reshape(batch, spec.n_heads, hs).contiguous(),
                              k4, v4, idx, pos, spec.kv_mul)
-            x = _post_attention(spec, lw, x, ao, route)
-        x = rmsnorm(x, p["rms_final"])
-        return _mm(p["wcls"], x, route)
+            x = self._post(lw, x, ao, route)
+        return self._logits(self._enter(x, n_layers), route)
 
     def forward_batch_ragged(self, cache: KVCache, tokens: torch.Tensor,
                              pos: torch.Tensor,
@@ -644,6 +666,7 @@ class Llama(nn.Module):
         x = p["tok_embedding"][tokens].to(torch.float32)
         rope = rope_rows(self.freq, pos)
         for idx, lw in enumerate(self.layers):
+            x = self._enter(x, idx)
             q, k, v = _qkv_proj(spec, lw, x, rope, route)
             if q8:
                 ao = paged_attention_q8(hs, kv_mul, n_pages, q, k, v,
@@ -651,9 +674,8 @@ class Llama(nn.Module):
             else:
                 ao = paged_decode_attention(hs, kv_mul, n_pages, q, k, v,
                                             *planes, idx, pos, table, route)
-            x = _post_attention(spec, lw, x, ao, route)
-        x = rmsnorm(x, p["rms_final"])
-        return _mm(p["wcls"], x, route)
+            x = self._post(lw, x, ao, route)
+        return self._logits(self._enter(x, spec.n_layers), route)
 
     def _batch_rows(self, batch: int, device) -> torch.Tensor:
         """(L, B) int64 rows layer*B + b of the (L*B, S, n_kv, hs) view,
@@ -668,12 +690,20 @@ class Llama(nn.Module):
 
 def params_to_device(params: dict[str, Any], device) -> dict[str, Any]:
     """Move a host numpy param tree onto ``device``: Q40 q/k/v and w1/w3 are
-    fused at load (ops/linear.fuse_q40_layer_matmuls), Q40 weights take the
-    port's device layout (ops/linear.q40_to_device), dense leaves keep their
+    fused at load into ``wqkv`` / ``w13`` (ops/linear.FUSED_LOAD, made on
+    the device by q40_concat_to_device), Q40 weights take the port's
+    device layout (ops/linear.q40_to_device), dense leaves keep their
     f32/f16 dtype."""
     device = torch.device(device)
-    out = {}
-    for k, v in fuse_q40_layer_matmuls(params).items():
+    out, fused = {}, set()
+    for dst, keys in FUSED_LOAD.items():
+        ws = fusible(params, keys)
+        if ws:
+            out[dst] = q40_concat_to_device(ws, device)
+            fused.update(keys)
+    for k, v in params.items():
+        if k in fused:
+            continue
         if isinstance(v, Q40Weight):
             out[k] = q40_to_device(v, device)
         else:

@@ -32,11 +32,20 @@ insert), because a rebound cache tensor would leave every later replay
 reading stale memory. The chain reads its (K, B) tokens and active flags
 back once. There is no fallback: a kernel that fails raises.
 
-Left out (later slices): speculative decoding and mixed dispatch, the KV
-tiers and remote page adoption, chunk-boundary prefill preemption
-(``prefill_hold``), the journal, recovery, suspend, the server, metrics,
-SLO, ledger and census books, chaos and the watchdog, tensor parallelism.
-Their engine arguments raise "not yet ported" when not at their defaults.
+With ``mesh`` (a parallel/mesh.TPGroup of size > 1; the JAX package's
+argument name) the engine is one tensor-parallel rank: the step, the
+admission prefill and every cache hold the rank's kv heads
+(parallel/tp.TPLlama's forward_batch_ragged / forward_batch_paged), the
+logits come back whole, and every rank schedules and samples the same
+way. A CUDA graph over the group's collectives is not yet ported: pass
+graph=False.
+
+Left out (later slices): speculative decoding and mixed dispatch (and
+their tensor-parallel twins), the KV tiers and remote page adoption,
+chunk-boundary prefill preemption (``prefill_hold``), the journal,
+recovery, suspend, the server, metrics, SLO, ledger and census books,
+chaos and the watchdog. Their engine arguments raise "not yet ported"
+when not at their defaults.
 """
 
 from __future__ import annotations
@@ -59,8 +68,10 @@ from ..models.llama import (FAST, KERNELS, Llama, gather_pages,
 from ..models.spec import TransformerSpec
 from ..ops import attention, paged_attention, q40
 from ..ops._build import build
+from ..parallel.mesh import TPGroup, single
+from ..parallel.tp import validate_kv_quant
 from .decode import GraphStep, sample_device_dynamic
-from .generate import run_chunked_prefill
+from .generate import _no_capture, _tp_model, run_chunked_prefill
 from .paging import SCRAP_PAGE, PagedAllocator
 from .sampling import Sampler
 
@@ -170,7 +181,9 @@ class ContinuousEngine:
     to ``device``) or a tree params_to_device already made on it.
     ``kv_quant`` None reads DLLAMA_KV_QUANT once (paged_attention.
     kv_quant_mode). ``graph=False`` runs the steps eagerly on the card
-    (tests)."""
+    (tests). ``mesh`` (a TPGroup) makes the engine one tensor-parallel
+    rank under ``scheme`` (None: DLLAMA_TP_SCHEME); ``params`` is then the
+    rank's host tree of bands."""
 
     def __init__(self, spec: TransformerSpec, params: dict[str, Any],
                  slots: int, temperature: float, topp: float, seed: int,
@@ -183,9 +196,10 @@ class ContinuousEngine:
                  dispatch_tokens: int = 0, metrics=None, slo=None,
                  chaos=None, journal=None, watchdog=None,
                  kv_host_pages: int = 0, kv_disk_dir: str | None = None,
-                 remote_pages: bool = False, slo_priority: bool = False):
+                 remote_pages: bool = False, slo_priority: bool = False,
+                 scheme: str | None = None):
         given = {name: value for name, value in (
-            ("mesh", mesh), ("spec_k", spec_k),
+            ("spec_k", spec_k),
             ("dispatch_tokens", dispatch_tokens), ("metrics", metrics),
             ("slo", slo), ("chaos", chaos), ("journal", journal),
             ("watchdog", watchdog), ("kv_host_pages", kv_host_pages),
@@ -195,6 +209,11 @@ class ContinuousEngine:
             raise ValueError(f"not yet ported: {', '.join(given)} (the "
                              f"port's continuous engine runs one device, "
                              f"contiguous or paged, f32/bf16 or q8 pages)")
+        if mesh is not None and not isinstance(mesh, TPGroup):
+            raise ValueError(f"not yet ported: mesh of type "
+                             f"{type(mesh).__name__} (the port's mesh is a "
+                             f"parallel/mesh.TPGroup, the tp axis; the JAX "
+                             f"package's dp and sp axes are not ported)")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if kv_quant is None:
@@ -217,18 +236,28 @@ class ContinuousEngine:
         self.block_steps = block_steps
         self.page_size = page_size
         self.kv_quant = kv_quant
-        self.device = torch.device(device)
+        self.group = mesh or single(device)
+        self.device = (self.group.device if mesh is not None
+                       else torch.device(device))
+        _no_capture(self.group, self.device, graph)
         self.graph = self.device.type == "cuda" if graph is None else graph
         if self.graph and self.device.type != "cuda":
             raise ValueError("a CUDA graph needs a CUDA device")
         if self.device.type == "cuda":
             build([*q40.KERNELS, *q40.HELPERS, *attention.KERNELS,
                    *attention.HELPERS, *paged_attention.KERNELS])
-        self.params = (params if _on_device(params)
-                       else params_to_device(params, self.device))
         # the small-T body is read once, as generate_batch reads it
         body = q40.multi_t_body()
-        self.model = Llama(spec, self.params, with_body(KERNELS, body))
+        if self.group.size > 1:
+            validate_kv_quant(spec, self.group.size, kv_quant)
+            self.model = _tp_model(spec, params, self.group, scheme,
+                                   with_body(KERNELS, body))
+            self.params = self.model.params
+        else:
+            self.params = (params if _on_device(params)
+                           else params_to_device(params, self.device))
+            self.model = Llama(spec, self.params, with_body(KERNELS, body))
+        kv_spec = self.model.spec  # the rank's kv heads under a mesh
         # admission prefill: every chunk (tail included) on one route
         self._prefill_route = (with_body(FAST, body) if fast_prefill
                                else self.model.route)
@@ -240,17 +269,18 @@ class ContinuousEngine:
             # +1 physical page: the reserved scrap page 0; both pools
             # raise unless page_size divides seq_len
             self.cache = (
-                init_cache_paged_q8(spec, n_pages + 1, page_size, self.device)
+                init_cache_paged_q8(kv_spec, n_pages + 1, page_size,
+                                    self.device)
                 if kv_quant == "q8" else
-                init_cache_paged(spec, n_pages + 1, page_size, self.device,
-                                 cache_dtype))
+                init_cache_paged(kv_spec, n_pages + 1, page_size,
+                                 self.device, cache_dtype))
             self._alloc = PagedAllocator(n_pages, page_size,
                                          prefix_share=prefix_share)
             self._stage_tbl = np.zeros((slots, self._max_pages), np.int32)
             self._table = torch.zeros((slots, self._max_pages),
                                       dtype=torch.int32, device=self.device)
         else:
-            self.cache = init_cache_batch(spec, slots, self.device,
+            self.cache = init_cache_batch(kv_spec, slots, self.device,
                                           cache_dtype)
         # the step's static device rows, staged by the host between replays
         self._tokens = torch.zeros(slots, dtype=torch.int64,
@@ -678,7 +708,7 @@ class ContinuousEngine:
                 scratch = (gather_pages_q8 if q8 else gather_pages)(
                     self.cache, tbl_dev, self.page_size)
             else:
-                scratch = init_cache(self.spec, self.device,
+                scratch = init_cache(self.model.spec, self.device,
                                      self._cache_dtype)
 
             def fwd(part, start_pos):
@@ -828,7 +858,8 @@ def generate_continuous(spec: TransformerSpec, params: dict[str, Any],
                         quiet: bool = False, fast_prefill: bool = False,
                         page_size: int = 0, kv_pages: int = 0,
                         kv_quant: str | None = None, device="cuda",
-                        graph: bool | None = None):
+                        graph: bool | None = None, mesh=None,
+                        scheme: str | None = None):
     """CLI entry (``--prompts-file --continuous``): encode the prompts,
     stream them through a pool of ``slots`` (0 = min(#prompts, 8)) and
     print the rows ("[i] 'text'") and the JAX CLI's stats lines."""
@@ -840,7 +871,8 @@ def generate_continuous(spec: TransformerSpec, params: dict[str, Any],
                            block_steps=block_steps,
                            fast_prefill=fast_prefill, page_size=page_size,
                            kv_pages=kv_pages, kv_quant=kv_quant,
-                           device=device, graph=graph)
+                           device=device, graph=graph, mesh=mesh,
+                           scheme=scheme)
     outs, stats = eng.run(reqs, steps, quiet=quiet)
     if not quiet:
         for b, (req, row) in enumerate(zip(reqs, outs)):

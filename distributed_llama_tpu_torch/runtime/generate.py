@@ -25,10 +25,22 @@ reads ``DLLAMA_LAYER_FUSION`` once (ops/layer.fusion_mode): under
 and --fast chain alike, goes through the fused decode layer
 (Llama.forward_fused), as the JAX package's forward does at T = 1.
 
+With ``group`` (parallel/mesh.TPGroup, size > 1) the engines run one
+tensor-parallel rank (parallel/tp.TPLlama over the rank's bands and kv
+heads, the JAX package's Engine(mesh=...) and generate_batch(mesh=...)):
+every rank runs the same loop, gathers the logits and samples the same
+coins, so every rank's stream is the same and nothing but the forward's
+collectives crosses. A CUDA graph over the group's collectives is not
+yet ported (gloo cannot be captured; a capture over NCCL hung in a 4-card
+run): the engines raise unless the caller passes graph=False. The fused
+decode layer is single-device only (the JAX package's sharded forward
+never takes it).
+
 Stats: I = device step time (the forward up to the host copy of the
-logits, which waits for the device), T = host time (sampling + loop). A
-single device exchanges nothing, so the S/R (sent/received) fields of the
-🔶 line are 0.
+logits, which waits for the device), T = host time (sampling + loop).
+S/R (sent/received) in the 🔶 line are the per-token collective bytes of
+parallel/comm_stats (0 on one device); a tensor-parallel run also prints
+the collectives it counted per token beside that budget.
 """
 
 from __future__ import annotations
@@ -47,9 +59,32 @@ from ..models.llama import (FAST, KERNELS, KVCache, Llama, init_cache,
 from ..models.spec import TransformerSpec
 from ..ops import attention, layer, q40
 from ..ops._build import build
+from ..parallel import collectives
+from ..parallel.comm_stats import (CommStats, ici_all_gather_bytes,
+                                   tp_collective_budget)
+from ..parallel.mesh import TPGroup, single
 from ..utils.rng import Xorshift64
 from .decode import DecodeLoop
 from .sampling import Sampler
+
+
+def _no_capture(group: TPGroup, device: torch.device,
+                graph: bool | None) -> None:
+    """Raise where a CUDA graph would have to capture a tp group's
+    collectives: gloo's run on host threads, and a capture over NCCL hung
+    in a 4-card run, so the caller asks for graph=False (nothing drops to
+    eager on its own)."""
+    if device.type == "cuda" and graph is not False and group.size > 1:
+        raise ValueError(
+            f"not yet ported: a CUDA graph over the tp group's collectives "
+            f"({group.backend}, tp={group.size}); pass graph=False")
+
+
+def _tp_model(spec: TransformerSpec, params: dict[str, Any],
+              group: TPGroup, scheme: str | None, route):
+    from ..parallel.tp import make_sharded_forward
+
+    return make_sharded_forward(spec, params, group, scheme, route)
 
 
 class Engine:
@@ -69,9 +104,11 @@ class Engine:
 
     def __init__(self, spec: TransformerSpec, params: dict[str, Any],
                  device="cuda", cache_dtype: torch.dtype = torch.float32,
-                 fast_prefill: bool = False):
+                 fast_prefill: bool = False, group: TPGroup | None = None,
+                 scheme: str | None = None):
         self.spec = spec
-        self.device = torch.device(device)
+        self.group = group or single(device)
+        self.device = self.group.device if group else torch.device(device)
         self.fast_prefill = fast_prefill
         body = q40.multi_t_body()
         fusion = layer.fusion_mode()
@@ -79,11 +116,24 @@ class Engine:
             # build (or find) the kernels now, not inside the first token
             build([*q40.KERNELS, *q40.HELPERS, *attention.KERNELS,
                    *attention.HELPERS, *layer.KERNELS])
-        self.params = params_to_device(params, self.device)
-        self.model = Llama(spec, self.params, with_body(KERNELS, body),
-                           fusion)
-        self.cache = init_cache(spec, self.device, cache_dtype)
+        if self.group.size > 1:
+            # ``params`` is the rank's host tree of bands
+            self.model = _tp_model(spec, params, self.group, scheme,
+                                   with_body(KERNELS, body))
+            self.params = self.model.params
+        else:
+            self.params = params_to_device(params, self.device)
+            self.model = Llama(spec, self.params, with_body(KERNELS, body),
+                               fusion)
+        self.tp_scheme = getattr(self.model, "scheme", None)
+        self.cache = init_cache(self.model.spec, self.device, cache_dtype)
         self._loops: dict = {}
+
+    def comm_stats(self) -> CommStats:
+        """The per-token collective bytes of this engine's scheme (0 on one
+        device)."""
+        return ici_all_gather_bytes(self.spec, self.group.size,
+                                    self.tp_scheme)
 
     @torch.inference_mode()
     def infer(self, token: int, pos: int) -> np.ndarray:
@@ -129,6 +179,7 @@ class Engine:
         cache viewed as (L, 1, S, n_kv, hs): K1 and K5; under a fused mode,
         Llama.forward_fused over the cache itself: K10, or K8, K5 and K9,
         with K1 for wcls."""
+        _no_capture(self.group, self.device, graph)
         key = (float(temperature), float(topp), graph)
         if key not in self._loops:
             model = self.model
@@ -279,6 +330,8 @@ def generate(engine: Engine, tokenizer: Tokenizer, sampler: Sampler,
                               out_tokens)
         if pre is not None:
             pos, token = pre, prompt_tokens[pre]
+    comm = engine.comm_stats()
+    census = collectives.CENSUS.kind_counts()
     stats = GenStats(final_pos=pos, final_token=token)
     while pos < steps:
         t0 = time.perf_counter()
@@ -308,8 +361,9 @@ def generate(engine: Engine, tokenizer: Tokenizer, sampler: Sampler,
         text = piece.decode("utf-8", errors="replace")
         if not quiet:
             print(f"🔶 G {gen_ms:7.2f} ms I {(t1 - t0) * 1000:7.2f} ms "
-                  f"T {(t2 - t1) * 1000:7.2f} ms S {0:7.0f} kB "
-                  f"R {0:7.0f} kB {text!r}")
+                  f"T {(t2 - t1) * 1000:7.2f} ms "
+                  f"S {comm.sent_bytes / 1024:7.0f} kB "
+                  f"R {comm.recv_bytes / 1024:7.0f} kB {text!r}")
         token = next_token
 
     if stats.tokens and not quiet:
@@ -321,7 +375,23 @@ def generate(engine: Engine, tokenizer: Tokenizer, sampler: Sampler,
         print(f"Avg transfer time:   {t:.2f} ms")
         print(f"Latency ms/token:    p50 {lat['p50']:.2f}  "
               f"p95 {lat['p95']:.2f}  p99 {lat['p99']:.2f}")
+        if engine.group.size > 1:
+            _print_census(engine, census, stats.tokens)
     return out_tokens, stats
+
+
+def _print_census(engine: Engine, before: dict, tokens: int) -> None:
+    """The collectives a token of the loop issued, by kind, beside the
+    scheme's budget (comm_stats.tp_collective_budget)."""
+    now = collectives.CENSUS.kind_counts()
+    got = {k: (now.get(k, 0) - before.get(k, 0)) / tokens
+           for k in collectives.KINDS if now.get(k, 0) - before.get(k, 0)}
+    budget = tp_collective_budget(engine.spec, engine.group.size,
+                                  engine.tp_scheme)
+    print(f"Collectives/token:   {sum(got.values()):g} "
+          f"({', '.join(f'{k} {v:g}' for k, v in got.items())}), budget "
+          f"{budget.n_collectives} ({engine.tp_scheme}, tp "
+          f"{engine.group.size}, {engine.group.backend})")
 
 
 def _truncate(tokens) -> list[int]:
@@ -436,7 +506,8 @@ def generate_batch(spec: TransformerSpec, params: dict[str, Any],
                    tokenizer: Tokenizer, prompts: list[str], steps: int,
                    temperature: float, topp: float, seed: int,
                    cache_dtype: torch.dtype = torch.float32, device="cuda",
-                   quiet: bool = False, graph: bool | None = None
+                   quiet: bool = False, graph: bool | None = None,
+                   group: TPGroup | None = None, scheme: str | None = None
                    ) -> tuple[list[list[int]], GenStats]:
     """Generate for B prompts in one lockstep batch (``--prompts-file``).
 
@@ -446,8 +517,12 @@ def generate_batch(spec: TransformerSpec, params: dict[str, Any],
     own prompt runs out. Row b samples from its own xorshift stream seeded
     ``seed + b``. Rows stop at BOS. The small-T body is read once here
     (``DLLAMA_MULTI_T_BODY``): for 2 <= B <= 8 'dequant' takes K1d.
-    ``graph=False`` runs the step eagerly on the card (tests)."""
-    device = torch.device(device)
+    ``graph=False`` runs the step eagerly on the card (tests). With
+    ``group`` the step is the rank's tensor-parallel forward_batch (K5 over
+    its kv heads), ``params`` the rank's host tree of bands."""
+    group = group or single(device)
+    device = group.device if group.size > 1 else torch.device(device)
+    _no_capture(group, device, graph)
     batch = len(prompts)
     steps = min(steps, spec.seq_len)
     body = q40.multi_t_body()
@@ -464,9 +539,13 @@ def generate_batch(spec: TransformerSpec, params: dict[str, Any],
 
     if device.type == "cuda":
         build([*q40.KERNELS, *attention.KERNELS])
-    model = Llama(spec, params_to_device(params, device),
-                  with_body(KERNELS, body))
-    cache = init_cache_batch(spec, batch, device, cache_dtype)
+    if group.size > 1:
+        model = _tp_model(spec, params, group, scheme,
+                          with_body(KERNELS, body))
+    else:
+        model = Llama(spec, params_to_device(params, device),
+                      with_body(KERNELS, body))
+    cache = init_cache_batch(model.spec, batch, device, cache_dtype)
 
     def step(tokens, pos):
         return model.forward_batch(cache, tokens, pos)

@@ -128,7 +128,7 @@ def test_cli_pieces_match_reference(model_files, capsys, mode):
     assert pieces(out) == want
 
 
-UNPORTED = [["--tp", "2"], ["--sp", "2"],
+UNPORTED = [["--tp", "2", "--profile", "d"], ["--sp", "2"],
             # --slots and --continuous are ported with --prompts-file;
             # --spec-k and --metrics are not ported there
             ["--slots", "4", "--prompts-file", "p.txt", "--continuous",
@@ -147,8 +147,10 @@ UNPORTED = [["--tp", "2"], ["--sp", "2"],
             # the continuous engine's flags outside --prompts-file
             ["--kv-page-size", "16"], ["--spec-k", "4"],
             ["--kv-quant", "q8"],
-            ["--tp-scheme", "fused"], ["--workers", "10.0.0.2:9998"],
-            ["--coordinator", "h:1"],
+            # the tp flags are ported: the next flag is the one named
+            ["--tp-scheme", "fused", "--sp", "2"],
+            ["--workers", "10.0.0.2:9998", "--stream-slices"],
+            ["--coordinator", "h:1", "--seed", "1", "--log-json"],
             ["--model-from-root", "h:1"]]
 CONTINUOUS_FLAGS = ("--continuous", "--slots", "--block-steps", "--kv-pages",
                     "--kv-page-size", "--kv-quant")
@@ -157,8 +159,9 @@ CONTINUOUS_FLAGS = ("--continuous", "--slots", "--block-steps", "--kv-pages",
 def _unported_flag(extra):
     """The flag the error must name: the first one that is not ported in
     this combination (the continuous engine's flags are ported with
-    --prompts-file --continuous)."""
-    ported = ("--fast", "--prompts-file")
+    --prompts-file --continuous; the tensor-parallel ones everywhere)."""
+    ported = ("--fast", "--prompts-file", "--tp", "--tp-scheme",
+              "--workers", "--coordinator", "--seed")
     if "--continuous" in extra and "--prompts-file" in extra:
         ported += CONTINUOUS_FLAGS
     return next(a for a in extra if a.startswith("--") and a not in ported)

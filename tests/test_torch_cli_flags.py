@@ -76,7 +76,7 @@ def test_port_runs_the_jax_stream_under_neutral_flags(model_files,  # noqa: F811
 
 
 @pytest.mark.parametrize("extra", [
-    ["--dispatch-tokens", "-1"], ["--num-hosts", "2"],
+    ["--dispatch-tokens", "-1"], ["--kv-host-pages", "8"],
     ["--spec-ngram", "3", "--spec-k", "4", "--prompts-file", "p.txt",
      "--continuous"]], ids=lambda a: "-".join(a[:2]))
 def test_other_values_stay_unported(extra, capsys, tmp_path):

@@ -1933,3 +1933,100 @@ def test_probe_main_traces_every_variant(capsys):
     assert len(lines) == 1 + len(nb_probe.VARIANTS)
     for line in lines[1:]:
         assert "(trace, 6 events)" in line and "GB/s" in line, line
+
+
+# tensor parallelism: a 7B rank's Q40 bands at tp 2 and 4 (parallel/tp.py:
+# the fused scheme's wqkv, w13 and wcls row bands and wo, w2 block bands,
+# the ref scheme's wo and w2 row bands), K1 and K1m by their plans and K3
+# at a prefill chunk, against plain
+def _band_shapes(tp):
+    return [(12288 // tp, 4096), (4096, 4096 // tp), (22016 // tp, 4096),
+            (4096, 11008 // tp), (32000 // tp, 4096), (4096 // tp, 4096),
+            (4096 // tp, 11008)]
+
+
+@pytest.mark.parametrize("t", [1, 8])
+@pytest.mark.parametrize("d,n", sorted({s for tp in (2, 4)
+                                        for s in _band_shapes(tp)}))
+def test_q40_matvec_kernels_match_plain_at_tp_band_shapes(gen, d, n, t):
+    _matvec_case(gen, d, n, t)
+
+
+@pytest.mark.parametrize("d,n", sorted({s for tp in (2, 4)
+                                        for s in _band_shapes(tp)[:4]}))
+def test_q40_gemm_kernel_matches_plain_at_tp_band_shapes(gen, d, n):
+    w = q40.random_q40(d, n, "cuda", gen)
+    x = torch.randn((16, n), device="cuda", generator=gen)
+    before = q40.KERNEL_GEMM.launches
+    got = q40.q40_matmul(w, x)
+    torch.cuda.synchronize()
+    assert q40.KERNEL_GEMM.launches == before + 1
+    want = q40.q40_matmul_plain(w, x)
+    err = (got - want).abs().max().item()
+    assert err <= q40.KERNEL_RTOL * want.abs().max().item(), err
+
+
+TP_SPEC = TransformerSpec(dim=512, hidden_dim=1024, n_layers=2, n_heads=8,
+                          n_kv_heads=4, vocab_size=512, seq_len=64,
+                          weights_float_type=FloatType.Q40)
+
+
+def _tp_card_rank(rank, world, port, out):
+    """A gloo rank on cuda:0 (its ranks share the card): a 12-token prefill
+    (K3, K4 over its bands), a decode step (K1, K2) and a 5-token chunk
+    (K1m), under fused and ref; rank 0 saves the logits."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from distributed_llama_tpu_torch.parallel.mesh import TPGroup
+    from distributed_llama_tpu_torch.parallel.tp import (make_sharded_forward,
+                                                         shard_params)
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    group = TPGroup(rank, world, dist.group.WORLD, torch.device("cuda", 0))
+    got = {}
+    for scheme in ("fused", "ref"):
+        bands = shard_params(synth_params(TP_SPEC, True, seed=3), rank,
+                             world, scheme)
+        model = make_sharded_forward(TP_SPEC, bands, group, scheme)
+        cache = llama.init_cache(model.spec, group.device)
+        with torch.inference_mode():
+            got[scheme] = [model(cache, list(range(1, 13)), 0).cpu(),
+                           model(cache, 3, 12).cpu(),
+                           model(cache, list(range(5)), 13).cpu()]
+    if rank == 0:
+        with open(out, "wb") as fh:
+            pickle.dump(got, fh)
+    dist.destroy_process_group()
+
+
+def test_tp2_gloo_step_on_the_card_matches_tp1(gen, tmp_path):
+    """Two gloo ranks sharing the card against the one-device forward
+    through the same kernels: within LOGIT_RTOL x max (fused's all_reduce
+    sums in another order; ref only gathers)."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    from distributed_llama_tpu_torch.parallel.mesh import free_port
+
+    out = tmp_path / "tp2.pkl"
+    mp.start_processes(_tp_card_rank, args=(2, free_port(), str(out)),
+                       nprocs=2, start_method="spawn")
+    with open(out, "rb") as fh:
+        got = pickle.load(fh)
+    model = llama.Llama(TP_SPEC, llama.params_to_device(
+        synth_params(TP_SPEC, True, seed=3), "cuda"))
+    cache = llama.init_cache(TP_SPEC, "cuda")
+    with torch.inference_mode():
+        want = [model(cache, list(range(1, 13)), 0).cpu(),
+                model(cache, 3, 12).cpu(),
+                model(cache, list(range(5)), 13).cpu()]
+    for scheme, calls in got.items():
+        for a, b in zip(calls, want):
+            err = (a - b).abs().max().item()
+            assert err <= llama.LOGIT_RTOL * b.abs().max().item(), (scheme,
+                                                                    err)

@@ -39,7 +39,9 @@ _BLOCKED = textwrap.dedent("""
 # modules the walk must reach (an __init__.py missing would hide them)
 NEW_MODULES = ("utils.it_split", "utils.rng", "obs.profiler",
                "runtime.checkpoint", "tools.nb_probe", "tools.plan_sweep",
-               "tools.stream_compare")
+               "tools.stream_compare", "parallel.mesh",
+               "parallel.comm_stats", "parallel.collectives", "parallel.tp",
+               "convert")
 
 
 def test_every_module_imports_with_jax_blocked():

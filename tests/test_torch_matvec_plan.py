@@ -87,3 +87,32 @@ def test_plan_is_a_pure_function_of_its_arguments():
 @pytest.mark.parametrize("t", [1, 2, 8])
 def test_ragged_shapes_have_a_plan(d, n, t):
     _check(t, d, n // 32, q40.matvec_plan(t, d, n // 32, SMS))
+
+
+def band_shapes(model, tp):
+    """A tensor-parallel rank's (d, n) Q40 matrices at ``tp``
+    (parallel/tp.py): column-parallel bands of d/tp rows (wqkv, w13, wcls,
+    and wo/w2 under the ref scheme) and the fused scheme's row-parallel
+    wo/w2 of n/tp input values (nb/tp Q40 blocks)."""
+    dim, hidden, kv, vocab = MODELS[model]
+    return {"wqkv": ((dim + 2 * kv) // tp, dim), "w13": (2 * hidden // tp, dim),
+            "wcls": (vocab // tp, dim), "wo-ref": (dim // tp, dim),
+            "w2-ref": (dim // tp, hidden), "wo-fused": (dim, dim // tp),
+            "w2-fused": (dim, hidden // tp)}
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+@pytest.mark.parametrize("model", sorted(MODELS))
+def test_plan_at_band_shapes(model, tp):
+    """Every band of 7B/13B/70B at tp 2, 4 and 8 has a plan that keeps the
+    rules at T = 1..8, and fills the SMs wherever some plan of the sweep
+    does."""
+    for name, (d, n) in band_shapes(model, tp).items():
+        assert n % 32 == 0, name
+        nb = n // 32
+        for t in range(1, 9):
+            plan = q40.matvec_plan(t, d, nb, SMS)
+            blocks = _check(t, d, nb, plan)
+            fills = any(p[2] * p[3] >= 0.96 * SMS
+                        for _, p in q40.matvec_plans(t, d, nb, SMS))
+            assert blocks >= 0.96 * SMS or not fills, (name, t, plan)
