@@ -185,10 +185,23 @@ no result line):
    K1m); each stream equals run a's (run c's for q80), or parts only at a
    near-tie of its top-2 logits; each run's ms per token and its counted
    collectives a token against the budget are logged beside the card's
-   name and power limit. At tp 2 the lockstep batch (4 rows, K1m and K5)
+   name and power limit. Before the ranks start, weight_stream serves the
+   smoke file over localhost (io/stream.WeightServer) and fetches rank 1
+   of tp 2's byte ranges under fused into a sparse file
+   (fetch_model_slices: bytes, ranges, seconds and GB/s logged), from
+   which rank 1 of "t2 fused" loads; fetch_model's whole-file path is
+   held byte for byte on a small model. "t2 fused" saves its generation
+   (the ranks' kv heads gathered to rank 0), resumed at tp 1 through the
+   CLI to run a's stream. At tp 2 the lockstep batch (4 rows, K1m and K5)
    and the continuous engine over f32 pages (K6, admission prefill
    through K3 and K4) run eagerly at 2 layers of 7B width and equal one
-   device's. What waits for a machine with more than one card is logged
+   device's; so do, through the CLI against tp 1 at the same flags, a
+   bf16 cache, --fast-prefill (K3b and K4b over the bands),
+   DLLAMA_MULTI_T_BODY=dequant over a bf16 cache (K1d, K5), bf16 pages
+   with --fast-prefill and Q8 pages (K6, K7) (TP_FLAG_RUNS), and a
+   --profile run whose every rank's trace holds
+   its collectives (T > 0) one event each, as many as the census. What
+   waits for a machine with more than one card is logged
    (TP_WAITS); where two GPUs are visible, ``inference --tp 2`` runs over
    NCCL, token by token under fused and overlap (with four GPUs also tp 4
    under fused, overlap and ref with q80 buffers), and the lockstep batch
@@ -3229,6 +3242,35 @@ TP_RUNS = {  # label -> (tp, scheme, extra flags); all 32 layers at 7B
 TP_DEPTH = 2   # layers of the 7B-wide model of the tp batch/continuous steps
 TP_ROWS = 4    # its lockstep rows, and the continuous engine's slots
 TP_REQS = 6    # the continuous engine's requests (CONT_PROMPTS[:6])
+# the tp configurations run at TP_DEPTH layers through the CLI, at tp 2
+# (fused, gloo ranks sharing the card) and at tp 1, their streams equal:
+# label -> (flags after the model's, env, the kernel of its own it must
+# launch at tp 2); {batch} and {cont} are the prompts files. With the tp
+# runs above they launch every kernel of the unfused path at tp 2: K2 and
+# K4 over a bf16 cache; K3b and K4b; K1d and K5 over a bf16 cache; K3b,
+# K4b and K6 over bf16 pages; K7
+TP_FLAG_RUNS = {
+    "kv bf16": (["--prompt", PROMPT, "--steps", str(TP_STEPS),
+                 "--prefill-chunk", str(TP_PREFILL), "--kv-cache-dtype",
+                 "bf16"], {}, "decode_attention_kvbf16"),
+    "fast-prefill": (["--prompt", PROMPT, "--steps", str(TP_STEPS),
+                      "--prefill-chunk", str(TP_PREFILL), "--fast-prefill"],
+                     {}, "q40_gemm_bf16"),
+    "dequant bf16-cache": (["--prompts-file", "{batch}", "--steps", "24",
+                            "--kv-cache-dtype", "bf16"],
+                           {"DLLAMA_MULTI_T_BODY": "dequant"},
+                           "q40_matvec_bf16"),
+    "bf16 pages fast-prefill": (["--prompts-file", "{cont}", "--continuous",
+                                 "--slots", str(TP_ROWS), "--prefill-chunk",
+                                 str(CONT_CHUNK), "--fast-prefill",
+                                 "--steps", "96", "--kv-page-size",
+                                 str(PAGE), "--kv-cache-dtype", "bf16"], {},
+                                "paged_attention_kvbf16"),
+    "q8 pages": (["--prompts-file", "{cont}", "--continuous", "--slots",
+                  str(TP_ROWS), "--prefill-chunk", str(CONT_CHUNK),
+                  "--steps", "96", "--kv-page-size", str(PAGE),
+                  "--kv-quant", "q8"], {}, "paged_attention_q8"),
+}
 # what the single card cannot run: gloo refuses send/recv of CUDA tensors
 # (the overlap scheme's ring hops), and a CUDA graph cannot capture gloo's
 # host-side collectives (over NCCL one hung: not yet ported)
@@ -3314,15 +3356,63 @@ def _tp_steps(torch, group, path, tok):
     return res
 
 
-def _tp_rank(rank, world, port, out, model, tok, depth_model):
+def _tp_flag_argv(label, depth_model, tok, paths):
+    """The CLI flags of TP_FLAG_RUNS[label] over the depth model."""
+    flags, env, _ = TP_FLAG_RUNS[label]
+    return ["--model", str(depth_model), "--tokenizer", str(tok),
+            "--temperature", "0", "--seed", "1",
+            *[f.format(**paths) for f in flags]], env
+
+
+def _tp_text(out):
+    """What a run printed of its tokens: the 🔶 pieces and the [i] rows."""
+    return _pieces(out), _cont_rows(out)
+
+
+def _tp_cli(cli, argv, group, env, streams):
+    """cmd_inference(argv) with ``group`` and ``env``, every kernel's count
+    set to 0 just before and read just after: (rc, stdout, launches,
+    wall s, the generated tokens of a single-prompt run)."""
+    import torch
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    streams.clear()
+    for k in _all_kernels():
+        k.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.cmd_inference(argv, group=group)
+        torch.cuda.synchronize()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if rc and group.rank:  # rank 0 reports its own; another rank stops all
+        raise RuntimeError(f"rank {group.rank}: {argv} exited {rc}")
+    return dict(rc=rc, out=buf.getvalue(), wall_s=time.perf_counter() - t0,
+                stream=streams[0] if streams else None,
+                launches={k.symbol: k.launches for k in _all_kernels()
+                          if k.launches})
+
+
+def _tp_rank(rank, world, port, out, model, tok, depth_model, sparse, state,
+             paths):
     """One rank of a gloo group whose ranks share cuda:0 (NCCL refuses two
     ranks on one device), with a subgroup of the first tp ranks for each
     smaller tp of TP_SIZES: each of TP_RUNS at its tp, on the ranks that
     hold it, through the CLI's inference entry with that group
     (``cmd_inference(argv, group=...)``), every kernel's count set to 0
-    just before and read just after, the generated tokens recorded; after
-    the tp 2 runs, _tp_steps over that group. Rank 0 pickles what it saw
-    to ``out``."""
+    just before and read just after, the generated tokens recorded. In
+    "t2 fused" rank 1 loads from ``sparse`` (its bands fetched by
+    weight_stream) and the ranks save the generation to ``state``. After
+    the tp 2 runs: _tp_steps over that group, TP_FLAG_RUNS and a
+    ``--profile`` run at TP_DEPTH layers into ``paths["profile"]``. Rank 0
+    pickles what it saw to ``out``."""
     import datetime
     import pickle
 
@@ -3362,27 +3452,29 @@ def _tp_rank(rank, world, port, out, model, tok, depth_model):
             if rank >= tp:
                 continue
             group = TPGroup(rank, tp, groups[tp], torch.device("cuda", 0))
-            streams.clear()
-            for k in _all_kernels():
-                k.launches = 0
-            buf = io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                rc = cli.cmd_inference([
-                    "--model", model, "--tokenizer", tok, "--prompt",
-                    PROMPT, "--steps", str(TP_STEPS), "--temperature", "0",
-                    "--seed", "1", "--tp", str(tp), "--tp-scheme",
-                    scheme, *extra], group=group)
-            torch.cuda.synchronize()
-            res[label] = dict(
-                rc=rc, out=buf.getvalue(), wall_s=time.perf_counter() - t0,
-                stream=streams[0] if streams else None,
-                launches={k.symbol: k.launches for k in _all_kernels()
-                          if k.launches})
+            first = label == "t2 fused"
+            res[label] = _tp_cli(cli, [
+                "--model", sparse if first and rank == 1 else model,
+                "--tokenizer", tok, "--prompt", PROMPT, "--steps",
+                str(TP_STEPS), "--temperature", "0", "--seed", "1", "--tp",
+                str(tp), "--tp-scheme", scheme, *extra,
+                *(["--save-state", state] if first else [])], group, {},
+                streams)
             if tp == 2 and label == "t2 q80":  # the last tp 2 run
                 generate.generate = loop
                 res["steps"] = _tp_steps(torch, group, depth_model, tok)
                 generate.generate = recorded
+                tp2 = ["--tp", "2", "--tp-scheme", "fused"]
+                for flag_label in TP_FLAG_RUNS:
+                    argv, env = _tp_flag_argv(flag_label, depth_model, tok,
+                                              paths)
+                    res[flag_label] = _tp_cli(cli, [*argv, *tp2], group,
+                                              env, streams)
+                res["profile"] = _tp_cli(cli, [
+                    "--model", depth_model, "--tokenizer", tok, "--prompt",
+                    PROMPT, "--steps", str(TP_STEPS), "--prefill-chunk",
+                    str(TP_PREFILL), "--temperature", "0", "--seed", "1",
+                    *tp2, "--profile", paths["profile"]], group, {}, streams)
     finally:
         generate.generate = loop
         dist.destroy_process_group()
@@ -3437,36 +3529,178 @@ def _tp_check(label, got, tp, n_layers, want, gaps, smi):
     return res
 
 
+def weight_stream(torch, spec, model):
+    """Root -> worker weight streaming (io/stream.py) over localhost on the
+    card's host: a WeightServer over the 7B smoke .bin, and rank 1 of tp 2
+    under the fused scheme fetching only the byte ranges its bands need
+    (wo and w2 whole: fused bands them on their input dim) into a sparse
+    file, which "t2 fused" then loads (tp_full_width). fetch_model's
+    whole-file path is held byte for byte on a small model, so no second
+    4.2 GB file is written. Returns the fetch's numbers and the sparse
+    file's path."""
+    import shutil
+
+    from distributed_llama_tpu_torch.io import stream
+    from distributed_llama_tpu_torch.io.loader import write_model
+    from distributed_llama_tpu_torch.models.spec import TransformerSpec
+    from distributed_llama_tpu_torch.models.synth import synth_params
+    from distributed_llama_tpu_torch.ops.quants import FloatType
+
+    where = SMOKE_DIR / "stream"
+    shutil.rmtree(where, ignore_errors=True)
+    where.mkdir(parents=True)
+    small_spec = TransformerSpec(dim=512, hidden_dim=1376, n_layers=2,
+                                 n_heads=4, n_kv_heads=2, vocab_size=1000,
+                                 seq_len=64, weights_float_type=FloatType.Q40)
+    small = where / "small.bin"
+    write_model(str(small), small_spec,
+                synth_params(small_spec, q40=True, seed=7))
+    server = stream.WeightServer(str(small), host="127.0.0.1")
+    try:
+        got = stream.fetch_model(f"127.0.0.1:{server.port}",
+                                 str(where / "small_fetched.bin"), quiet=True)
+    finally:
+        server.close()
+    if Path(got).read_bytes() != small.read_bytes():
+        raise AssertionError("fetch_model: the fetched small model differs "
+                             "from the served one")
+    sparse = where / "model.bin"
+    server = stream.WeightServer(str(model), host="127.0.0.1")
+    try:
+        t0 = time.perf_counter()
+        stream.fetch_model_slices(f"127.0.0.1:{server.port}", str(sparse),
+                                  FloatType.Q40, 2, {1}, "fused", quiet=True)
+        secs = time.perf_counter() - t0
+    finally:
+        server.close()
+    need = stream.needed_byte_ranges(spec, 2, {1}, "fused")
+    nbytes = sum(n for _, n in need)
+    resident = stream.verified_ranges(str(sparse))
+    if resident != need or sparse.stat().st_size != spec.file_size():
+        raise AssertionError(f"weight_stream: the sparse file holds "
+                             f"{len(resident or [])} ranges of the "
+                             f"{len(need)} needed")
+    res = dict(tp=2, rank=1, scheme="fused", bytes=nbytes, ranges=len(need),
+               file_bytes=spec.file_size(), seconds=secs,
+               gb_per_s=nbytes / secs / 1e9,
+               small_model_bytes=small.stat().st_size,
+               transport="localhost TCP, the model read from a warm page "
+                         "cache")
+    log(f"weight_stream: rank 1 of tp 2 (fused) fetched {nbytes} of "
+        f"{spec.file_size()} bytes ({100 * nbytes / spec.file_size():.1f}%) "
+        f"in {len(need)} ranges in {secs:.2f} s ({nbytes / secs / 1e9:.3f} "
+        f"GB/s over localhost); fetch_model gave the small model's "
+        f"{small.stat().st_size} bytes back exactly")
+    return res, sparse
+
+
+def _tp_flag_check(label, got, one, gaps):
+    """A TP_FLAG_RUNS run at tp 2 against the same flags at tp 1: rc 0,
+    the run's own kernel launched, the rows equal and the pieces equal
+    (or parting at a near-tie of tp 1's logits)."""
+    kernel = TP_FLAG_RUNS[label][2]
+    if got["rc"] != 0 or not got["launches"].get(kernel):
+        raise AssertionError(f"tp 2 {label}: exit {got['rc']}, {kernel} "
+                             f"launched {got['launches'].get(kernel)} times")
+    (pieces, rows), (want_pieces, want_rows) = (_tp_text(got["out"]),
+                                                _tp_text(one["out"]))
+    part = gap = None
+    if want_rows:  # the batch engines: every row equal
+        if rows != want_rows:
+            raise AssertionError(f"tp 2 {label}: its rows differ from tp "
+                                 f"1's")
+    elif not want_pieces:
+        raise AssertionError(f"tp 1 {label}: no tokens printed")
+    else:  # raises unless equal or parting at a near-tie
+        _, part, gap = _same_stream(f"tp 2 {label}", got["stream"],
+                                    one["stream"], gaps)
+    avg = re.search(r"Avg generation time: ([\d.]+) ms", got["out"])
+    log(f"tp 2 {label} ({TP_DEPTH} layers): {kernel} x "
+        f"{got['launches'].get(kernel)}, "
+        f"{'rows' if rows else 'stream'} equal to tp 1's"
+        + (f" (parting at a near-tie at step {part})" if part is not None
+           else "")
+        + (f", {avg.group(1)} ms/token" if avg else "")
+        + f", {got['wall_s']:.1f} s")
+    return dict(launches=got["launches"], wall_s=got["wall_s"],
+                ms_per_token_avg=float(avg.group(1)) if avg else None,
+                parts_at=part, gap=gap, rows=len(rows))
+
+
+def _tp_profile_check(got):
+    """The ``--profile`` run at tp 2: exit 0 (every rank found its trace's
+    collective events equal to the census and T > 0), and rank 0's lines
+    say so."""
+    out = got["out"]
+    m = re.search(r"Collectives in the trace: (\d+) \(([\d.]+) ms\), "
+                  r"census (\d+)", out)
+    it = re.search(r"🔶 I +([\d.]+) ms/token  T +([\d.]+) ms/token", out)
+    if got["rc"] != 0 or not m or not it or m.group(1) != m.group(3) \
+            or not float(m.group(2)) > 0:
+        raise AssertionError(f"tp 2 --profile: exit {got['rc']}, "
+                             f"{m.groups() if m else None}")
+    log(f"tp 2 --profile ({TP_DEPTH} layers, gloo): I {it.group(1)} T "
+        f"{it.group(2)} ms/token; {m.group(1)} collective events in rank "
+        f"0's trace ({m.group(2)} ms) = census {m.group(3)}; every rank's "
+        f"trace checked")
+    return dict(i_ms_per_token=float(it.group(1)),
+                t_ms_per_token=float(it.group(2)),
+                collective_events=int(m.group(1)), census=int(m.group(3)),
+                t_ms=float(m.group(2)), launches=got["launches"],
+                wall_s=got["wall_s"])
+
+
 def tp_full_width(torch, spec, model, tok, ref_a, ref_c, smi):
     """Llama-2-7B Q40 at full width (the smoke file, all 32 layers) through
     the CLI's inference entry at tp 2 and 4, the ranks sharing the card
     over a gloo group this phase builds (one spawn a size): TP_RUNS, each
     stream held against the one-device run's (run a, or run c for q80
-    buffers), then at tp 2 the lockstep and continuous steps at TP_DEPTH
-    layers against the same on one device. Returns the runs and each
-    kernel's launches at each tp (rank 0)."""
+    buffers), "t2 fused" with rank 1's weights streamed (weight_stream)
+    and its generation saved, then resumed at tp 1 to run a's stream; at
+    tp 2 the lockstep and continuous steps, TP_FLAG_RUNS and a --profile
+    run at TP_DEPTH layers against the same on one device. Returns the
+    runs and each kernel's launches at each tp (rank 0)."""
     import pickle
+    import shutil
 
     import torch.multiprocessing as mp
 
     from distributed_llama_tpu_torch.parallel.mesh import free_port
 
     depth = _tp_depth_model(spec, model)
+    paths = {"batch": str(SMOKE_DIR / "tp_batch.txt"),
+             "cont": str(SMOKE_DIR / "tp_cont.txt"),
+             "profile": str(SMOKE_DIR / "tp_profile")}
+    Path(paths["batch"]).write_text("\n".join(BATCH_PROMPTS[:TP_ROWS])
+                                    + "\n")
+    Path(paths["cont"]).write_text("\n".join(CONT_PROMPTS[:TP_REQS]) + "\n")
+    shutil.rmtree(paths["profile"], ignore_errors=True)
+    state = SMOKE_DIR / "state_t2.npz"
+    state.unlink(missing_ok=True)
     with torch.inference_mode():
         one = _tp_steps(torch, None, depth, tok)
+    ones = {}
+    for label in TP_FLAG_RUNS:
+        argv, env = _tp_flag_argv(label, depth, tok, paths)
+        gaps, streams = [], []
+        out, counts, wall, _ = _run_cli(torch, depth, tok, argv[4:], env,
+                                        gaps=gaps, streams=streams)
+        ones[label] = (dict(out=out, stream=streams[0] if streams else None),
+                       gaps)
+    streamed, sparse = weight_stream(torch, spec, model)
     world = max(TP_SIZES)
     out = SMOKE_DIR / "tp.pkl"
     out.unlink(missing_ok=True)
     t0 = time.perf_counter()
     mp.start_processes(_tp_rank, args=(
-        world, free_port(), str(out), str(model), str(tok), str(depth)),
-        nprocs=world, start_method="spawn")
+        world, free_port(), str(out), str(model), str(tok), str(depth),
+        str(sparse), str(state), paths), nprocs=world, start_method="spawn")
     with open(out, "rb") as fh:
         got = pickle.load(fh)
     log(f"tp: {world} ranks over {got['backend']} sharing cuda:0 (a group "
         f"this script built, the first 2 ranks a subgroup for tp 2), "
         f"{time.perf_counter() - t0:.1f} s with the spawn")
-    res, launches = {}, {}
+    res, launches = {"weight_stream": streamed}, {}
     for world in TP_SIZES:
         runs = [label for label, (tp, _, _) in TP_RUNS.items()
                 if tp == world]
@@ -3477,6 +3711,10 @@ def tp_full_width(torch, spec, model, tok, ref_a, ref_c, smi):
                                    want, gaps, smi)
             counts.update(got[label]["launches"])
         if world == 2:
+            res["t2 fused"]["rank1_weights"] = "streamed (weight_stream)"
+            res["t2 save, t1 resume"] = _tp_resume(torch, model, tok, state,
+                                                   got["t2 fused"], ref_a,
+                                                   spec.n_layers)
             steps = got["steps"]
             same = (steps["rows"] == one["rows"],
                     steps["outs"] == one["outs"])
@@ -3504,7 +3742,15 @@ def tp_full_width(torch, spec, model, tok, ref_a, ref_c, smi):
                 depth=TP_DEPTH, rows=TP_ROWS, requests=TP_REQS,
                 cont_steps=steps["cont_steps"], batch_launches=b,
                 cont_launches=c)
+            for label in TP_FLAG_RUNS:
+                res[f"t2 {label}"] = _tp_flag_check(label, got[label],
+                                                    *ones[label])
+                counts.update(got[label]["launches"])
+            res["t2 profile"] = _tp_profile_check(got["profile"])
+            counts.update(got["profile"]["launches"])
         launches[world] = dict(counts)
+    shutil.rmtree(SMOKE_DIR / "stream", ignore_errors=True)
+    state.unlink(missing_ok=True)
     if torch.cuda.device_count() < 2:
         log(f"tp over NCCL: not run ({torch.cuda.device_count()} GPU "
             f"visible); waiting for a machine with more than one card: "
@@ -3512,6 +3758,35 @@ def tp_full_width(torch, spec, model, tok, ref_a, ref_c, smi):
     else:
         res["nccl"] = tp_nccl(torch, model, tok, ref_a, ref_c)
     return res, launches
+
+
+def _tp_resume(torch, model, tok, state, saved, ref_a, n_layers):
+    """The "t2 fused" run's checkpoint (kv heads gathered to rank 0)
+    resumed at tp 1 through the CLI for the rest of run a's steps: K1 4L+1
+    and K2 L per step, and the joined tokens run a's (or parting at a
+    near-tie of run a's logits, as "t2 fused" may)."""
+    streams = []
+    out, counts, wall, finite = _run_cli(torch, model, tok, [
+        "--resume-state", str(state), "--steps", str(STEPS - TP_STEPS),
+        "--temperature", "0", "--seed", "1"], streams=streams)
+    steps = int(re.search(r"Generated tokens:\s+(\d+)", out).group(1))
+    _expect("t2 save, t1 resume run", counts, {
+        "q40_matvec": (4 * n_layers + 1) * steps,
+        "decode_attention": n_layers * steps})
+    if f"⏩ Resumed at pos {TP_STEPS} (" not in out or not all(finite):
+        raise AssertionError("t2 save, t1 resume: no resume line, or "
+                             "non-finite logits")
+    want, gaps = ref_a
+    joined = saved["stream"] + streams[0]
+    same, part, gap = _same_stream("t2 save, t1 resume", joined,
+                                   want[:len(joined)], gaps)
+    log(f"tp 2 --save-state ({state.stat().st_size} bytes) resumed at tp 1 "
+        f"for {steps} steps: the joined stream "
+        f"{'equals' if same else 'parts at a near-tie from'} run a's; "
+        f"{wall:.1f} s")
+    return dict(checkpoint_bytes=state.stat().st_size, resumed_steps=steps,
+                launches=counts, wall_s=wall, stream_equal=same,
+                parts_at=part, gap=gap)
 
 
 def tp_nccl(torch, model, tok, ref_a, ref_c):

@@ -55,16 +55,29 @@ ignored, as in the JAX CLI. A caller may pass its own group to
 card); its ranks then need an explicit --seed. A CUDA graph over the
 group's collectives is not yet ported: under tp on the card the lockstep
 batch and the continuous engine run their steps eagerly and say so, and
---fast exits 2 (it runs eagerly on the CPU, as without tp). --profile,
---save-state and --resume-state are not yet ported above tp 1, nor --sp
-above 1.
+--fast exits 2 (it runs eagerly on the CPU, as without tp). Under tp,
+--profile DIR traces each rank into DIR/rank<r> and fails the run (1)
+where a rank's trace holds no collective time or other collective events
+than the census; --save-state gathers the kv heads to rank 0, which
+writes the file, and --resume-state gives every rank its band, so a
+checkpoint moves between tp sizes. --sp above 1 is not ported.
+
+Weight streaming, as in the JAX CLI: --serve-weights PORT
+[--serve-weights-bind ADDR] serves the --model file's bytes (io/stream.py)
+while the run lasts; --model-from-root HOST:PORT fetches the file into
+the --model path first (fetch_model keeps a complete local copy), and with
+--stream-slices (an explicit --tp > 1, equal ranks per host) only the byte
+ranges this host's ranks read under the tp scheme. Both run once a host,
+before its ranks join the group (which then waits up to 3600 s for a
+peer that is still fetching); each rank then checks that its bands were
+the ones fetched and exits 2 before loading if not.
 
 Every other flag of the JAX package's ``inference`` exits 2 with "not yet
-ported" before the model loads; that includes --dispatch-tokens, the KV
-tier flags, --stream-slices and the weight-serving flags. --sp 1,
---spec-k 0, --kv-page-size 0, --dispatch-tokens 0, --kv-host-pages 0 and
---spec-ngram N without --spec-k name what the port runs and are accepted,
-as the JAX CLI runs its plain path at those values.
+ported" before the model loads; that includes --dispatch-tokens and the
+KV tier flags. --sp 1, --spec-k 0, --kv-page-size 0, --dispatch-tokens 0,
+--kv-host-pages 0 and --spec-ngram N without --spec-k name what the port
+runs and are accepted, as the JAX CLI runs its plain path at those
+values.
 
 ``convert`` is the port's converter (convert.py): Meta or HF checkpoints
 to a reference-format .bin.
@@ -87,21 +100,22 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import sys
 import time
 
 import torch
 
 from ..ops.quants import FloatType
+from ..parallel import collectives
 from ..parallel.comm_stats import SCHEMES
 
 _FT = {"f32": FloatType.F32, "f16": FloatType.F16, "q40": FloatType.Q40,
        "q80": FloatType.Q80}
 
 # the JAX package's inference flags the port does not run yet
-_UNPORTED_SWITCHES = ("--log-json", "--stream-slices")
-_UNPORTED_VALUED = ("--kv-disk-dir", "--kv-disk-gb", "--serve-weights",
-                    "--serve-weights-bind", "--model-from-root")
+_UNPORTED_SWITCHES = ("--log-json",)
+_UNPORTED_VALUED = ("--kv-disk-dir", "--kv-disk-gb")
 # unported flags that take the JAX CLI's type, and the value at which the
 # JAX CLI runs the path the port has (None: any value, while --spec-k is
 # off, as the n-gram drafter runs only under --spec-k); other values are
@@ -148,6 +162,31 @@ def _parser() -> argparse.ArgumentParser:
                          "first rank serves it)")
     ap.add_argument("--num-hosts", type=int, default=1)
     ap.add_argument("--host-id", type=int, default=None)
+    ap.add_argument("--serve-weights", type=int, default=None, metavar="PORT",
+                    help="(root) serve the model file's bytes on PORT so "
+                         "hosts without a local copy can fetch it — the "
+                         "reference's root->worker weight streaming "
+                         "(transformer.cpp:250-273). UNAUTHENTICATED, like "
+                         "the reference's socket protocol: run it on a "
+                         "trusted LAN only, and restrict the interface with "
+                         "--serve-weights-bind")
+    ap.add_argument("--serve-weights-bind", default="0.0.0.0", metavar="ADDR",
+                    help="interface the weight server listens on (default "
+                         "all; bind a cluster-internal address to keep the "
+                         "unauthenticated byte service off public networks)")
+    ap.add_argument("--model-from-root", default=None, metavar="HOST:PORT",
+                    help="(worker) fetch the model from the root's "
+                         "--serve-weights endpoint into the --model path "
+                         "when that file is absent (zero local model files, "
+                         "like reference workers, transformer.cpp:354-380)")
+    ap.add_argument("--stream-slices", action="store_true",
+                    help="with --model-from-root: fetch ONLY this host's "
+                         "tp weight bands (~1/tp of the matmul bytes, like "
+                         "the reference's per-worker slice scatter, "
+                         "transformer.cpp:250-273) instead of the whole "
+                         "file. Needs an explicit --tp and equal devices "
+                         "per host; the run cross-checks the assumed ranks "
+                         "against the actual group and aborts on mismatch")
     ap.add_argument("--nthreads", type=int, default=4,
                     help="accepted for reference-CLI compatibility; the "
                          "device manages its own threads")
@@ -269,11 +308,13 @@ def _lockstep_notes(args) -> None:
 
 
 def cmd_inference(argv: list[str], quiet: bool = False,
-                  group=None) -> int:
+                  group=None, streamed: bool = False) -> int:
     """``inference``: validate the flags, then run in this process (one
     device, or ``group``, a parallel/mesh.TPGroup the caller built), or
     spawn this host's tensor-parallel ranks, each running this function
-    with its own group."""
+    with its own group. The weight server and fetch run once, in the
+    process that spawns or runs (``streamed``: the spawning process ran
+    them)."""
     args = _parser().parse_args(argv)
     from ..parallel.comm_stats import tp_scheme
 
@@ -333,6 +374,16 @@ def cmd_inference(argv: list[str], quiet: bool = False,
         print(f"--num-hosts {args.num_hosts} needs --coordinator "
               f"host:port", file=sys.stderr)
         return 2
+    assumed = None  # the tp ranks whose bands --stream-slices fetches
+    if args.stream_slices:
+        if not args.model_from_root:
+            print("--stream-slices only applies with --model-from-root",
+                  file=sys.stderr)
+            return 2
+        assumed = _assumed_tp_ranks(args)
+        if isinstance(assumed, str):
+            print(assumed, file=sys.stderr)
+            return 2
     if args.host_id:  # non-root hosts run silently in lockstep
         quiet = True
     if args.profile is None:  # one-shot env hook (obs/profiler.py)
@@ -357,17 +408,10 @@ def cmd_inference(argv: list[str], quiet: bool = False,
     if isinstance(tp, str):
         print(tp, file=sys.stderr)
         return 2
-    if tp > 1:
-        above = [flag for flag, on in (("--profile", args.profile),
-                                       ("--save-state", args.save_state),
-                                       ("--resume-state", args.resume_state),
-                                       ("--fast", args.fast
-                                        and args.device == "cuda"))
-                 if on]
-        if above:
-            print(f"not yet ported: {', '.join(above)} with --tp {tp} (one "
-                  f"device only)", file=sys.stderr)
-            return 2
+    if tp > 1 and args.fast and args.device == "cuda":
+        print(f"not yet ported: --fast with --tp {tp} on the card (a CUDA "
+              f"graph over the group's collectives)", file=sys.stderr)
+        return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("no GPU: torch.cuda.is_available() is False — pass --device "
               "cpu to run on the CPU", file=sys.stderr)
@@ -379,8 +423,71 @@ def cmd_inference(argv: list[str], quiet: bool = False,
     if group is None and (tp > 1 or args.coordinator):
         if args.seed is None:  # one seed for every rank, picked here
             argv = [*argv, "--seed", str(_default_seed())]
-        return _spawn_ranks(argv, args, tp, quiet)
-    return _run(args, prompts, quiet, group, scheme, tp)
+        with _weight_streaming(args, quiet, scheme, assumed):
+            return _spawn_ranks(argv, args, tp, quiet)
+    with (contextlib.nullcontext() if streamed
+          else _weight_streaming(args, quiet, scheme, assumed)):
+        if assumed is not None and group is not None \
+                and group.rank not in assumed:
+            # the fetched bands are not this rank's: refuse before any
+            # forward reads the zeros in their place
+            print(f"--stream-slices fetched tp ranks {sorted(assumed)} but "
+                  f"this host's devices hold ranks [{group.rank}] — the "
+                  f"host->rank assumption does not match this topology; "
+                  f"re-run without --stream-slices", file=sys.stderr)
+            return 2
+        return _run(args, prompts, quiet, group, scheme, tp)
+
+
+def _assumed_tp_ranks(args) -> set[int] | str:
+    """The tp ranks this host's processes will hold, from the flags alone
+    (the fetch runs before the group exists): host i of H holds
+    parallel/mesh.local_ranks(tp, H, i). Each rank checks its own rank
+    against the set once its group exists. A string is the error that
+    exits 2 (the JAX CLI's messages)."""
+    from ..parallel.mesh import local_ranks
+
+    if not args.tp or args.tp <= 1:
+        return ("--stream-slices needs an explicit --tp > 1 (the slice "
+                "layout is the tp weight sharding)")
+    if args.tp % args.num_hosts:
+        return (f"--stream-slices assumes equal devices/host; mesh of "
+                f"{args.tp} devices does not divide over {args.num_hosts} "
+                f"hosts")
+    return set(local_ranks(args.tp, args.num_hosts, args.host_id or 0))
+
+
+@contextlib.contextmanager
+def _weight_streaming(args, quiet: bool, scheme: str,
+                      assumed: set[int] | None):
+    """The root's weight server, serving for the whole block, and the
+    worker's fetch, done before the block: once a host, before its ranks
+    join the group, so a dead transfer fails fast. With --stream-slices
+    the fetch takes only the bands of the ``assumed`` ranks under the
+    scheme (io/stream.fetch_model_slices); otherwise fetch_model decides
+    whether the local file is complete."""
+    server = None
+    if args.serve_weights is not None:
+        from ..io.stream import WeightServer
+
+        server = WeightServer(args.model, host=args.serve_weights_bind,
+                              port=args.serve_weights)
+        if not quiet:
+            print(f"⏩ serving weights on port {server.port}")
+    try:
+        if args.model_from_root:
+            from ..io.stream import fetch_model, fetch_model_slices
+
+            if assumed is not None:
+                fetch_model_slices(args.model_from_root, args.model,
+                                   _FT[args.weights_float_type], args.tp,
+                                   assumed, scheme, quiet=quiet)
+            else:
+                fetch_model(args.model_from_root, args.model, quiet=quiet)
+        yield
+    finally:
+        if server is not None:
+            server.close()
 
 
 def _default_seed() -> int:
@@ -420,9 +527,11 @@ def _spawn_ranks(argv: list[str], args, tp: int, quiet: bool) -> int:
     ranks = local_ranks(tp, args.num_hosts, args.host_id or 0)
     init = (f"tcp://{args.coordinator}" if args.coordinator
             else f"tcp://localhost:{free_port()}")
+    # another host may still be fetching its weights when this one joins
+    join_s = 3600.0 if args.coordinator else 600.0
     try:
         mp.start_processes(_rank_main, args=(argv, init, tp, ranks.start,
-                                             args.device, quiet),
+                                             args.device, quiet, join_s),
                            nprocs=len(ranks), start_method="spawn")
     except mp.ProcessExitedException as e:
         return e.exit_code if e.exit_code and e.exit_code > 0 else 1
@@ -433,14 +542,16 @@ def _spawn_ranks(argv: list[str], args, tp: int, quiet: bool) -> int:
 
 
 def _rank_main(local: int, argv: list[str], init: str, tp: int, first: int,
-               device_type: str, quiet: bool) -> None:
+               device_type: str, quiet: bool, join_s: float) -> None:
     """A spawned rank: join the group, run inference, leave."""
     from ..parallel.mesh import close, init_rank
 
     rank = first + local
-    group = init_rank(rank, tp, init, device_type, local=local)
+    group = init_rank(rank, tp, init, device_type, local=local,
+                      timeout_s=join_s)
     try:
-        rc = cmd_inference(argv, quiet=quiet or rank != 0, group=group)
+        rc = cmd_inference(argv, quiet=quiet or rank != 0, group=group,
+                           streamed=True)
     finally:
         sys.stdout.flush()
         close(group)
@@ -532,24 +643,32 @@ def _run(args, prompts, quiet: bool, group, scheme: str, tp: int) -> int:
                                                        engine, sampler)
         resume = (pos0, tok0)
         say(f"⏩ Resumed at pos {pos0} ({len(prev)} tokens so far)")
-    prof = contextlib.nullcontext()
+    prof, trace_dir = contextlib.nullcontext(), args.profile
     if args.profile:
         from ..obs.profiler import trace
 
-        prof = trace(args.profile, cuda=device.type == "cuda")
+        if sharded:  # each rank traces its own work
+            trace_dir = os.path.join(args.profile, f"rank{group.rank}")
+        prof = trace(trace_dir, cuda=device.type == "cuda")
+    issued = sum(collectives.CENSUS.kind_counts().values())
     run = generate_fast if args.fast else generate
     with prof:
         out, stats = run(engine, tokenizer, sampler, args.prompt or "",
                          args.steps, quiet=quiet,
                          prefill_chunk=args.prefill_chunk,
                          resume=resume, resume_prompt=rest)
+    rc = 0
     if args.profile:
-        _print_split(args, tokenizer, stats, rest if resume else None)
-    if args.save_state:
+        issued = (sum(collectives.CENSUS.kind_counts().values()) - issued
+                  if sharded else None)
+        rc = _print_split(args, trace_dir, tokenizer, stats,
+                          rest if resume else None, issued, quiet)
+    if args.save_state:  # after a failed split too: its gather is collective
         from ..io.tokenizer import BOS
         from ..runtime.checkpoint import save_generation_state
 
         if stats.final_pos > 0 and stats.final_token != BOS:
+            # under tp every rank gathers; rank 0 writes
             save_generation_state(args.save_state, engine, sampler,
                                   stats.final_pos, stats.final_token,
                                   prev + out, stats.prompt_rest)
@@ -557,7 +676,7 @@ def _run(args, prompts, quiet: bool, group, scheme: str, tp: int) -> int:
         else:
             say("💡 Generation ended (BOS or zero steps); nothing "
                 "resumable to save")
-    return 0
+    return rc
 
 
 def cmd_worker(argv: list[str]) -> int:
@@ -575,27 +694,48 @@ def cmd_worker(argv: list[str]) -> int:
     return cmd_inference(argv, quiet=True)
 
 
-def _print_split(args, tokenizer, stats, rest: list[int] | None) -> None:
+def _print_split(args, trace_dir: str, tokenizer, stats,
+                 rest: list[int] | None, issued: int | None,
+                 quiet: bool) -> int:
     """After a --profile run: where the trace went and its I/T split per
     generated token. The trace wraps the whole generate call, so a
     prefilled prompt's chunks are inside it and the line says so (a resumed
-    run prefills only its unconsumed prompt tail, ``rest``). A trace that
-    does not parse prints a note and the run still succeeds."""
-    print(f"⏩ Profiler trace written to {args.profile}")
-    try:
-        from ..utils.it_split import parse_trace, summarize
+    run prefills only its unconsumed prompt tail, ``rest``). On one device
+    a trace that does not parse prints a note and the run still succeeds
+    (0). Under tp (``issued``: the collectives the traced call issued, from
+    CENSUS) every rank checks its own trace: its T must be positive and
+    its collective events must equal ``issued``, else 1; rank 0 prints."""
+    from ..utils.it_split import parse_trace, summarize
 
-        n_prompt = (len(rest) if rest is not None
-                    else len(tokenizer.encode(args.prompt or "", bos=True,
-                                              eos=False)))
-        note = (f"; trace includes ~{n_prompt}-token prompt prefill"
-                if n_prompt > 1 else "")
-        summarize(parse_trace(args.profile), tokens=max(stats.tokens, 1),
-                  note=note)
+    if not quiet:
+        print(f"⏩ Profiler trace written to {trace_dir}")
+    try:
+        splits = parse_trace(trace_dir)
+        if not quiet:
+            n_prompt = (len(rest) if rest is not None
+                        else len(tokenizer.encode(args.prompt or "",
+                                                  bos=True, eos=False)))
+            note = (f"; trace includes ~{n_prompt}-token prompt prefill"
+                    if n_prompt > 1 else "")
+            summarize(splits, tokens=max(stats.tokens, 1), note=note)
     except Exception as e:  # a malformed trace must not fail the run
         print(f"💡 I/T split unavailable ({type(e).__name__}: {e}); run "
               f"python3 -m distributed_llama_tpu_torch.utils.it_split on "
               f"the trace dir", file=sys.stderr)
+        return 0 if issued is None else 1
+    if issued is None:
+        return 0
+    events = sum(s.transfer_events for s in splits.values())
+    t_ns = sum(s.transfer_ns for s in splits.values())
+    if not quiet:
+        print(f"💡 Collectives in the trace: {events} ({t_ns / 1e6:.3f} ms),"
+              f" census {issued}")
+    if events != issued or t_ns <= 0:
+        print(f"the trace in {trace_dir} holds {events} collective events "
+              f"({t_ns / 1e6:.3f} ms of T) where the run issued {issued}",
+              file=sys.stderr)
+        return 1
+    return 0
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -151,6 +151,47 @@ def load_model(path: str, spec: TransformerSpec | None = None,
     return spec, params
 
 
+class TensorRange(NamedTuple):
+    """One tensor's byte placement in the .bin: ``rows`` is the output dim
+    of a matmul tensor (whose row ``i`` is the contiguous bytes
+    [offset + i*(nbytes/rows), offset + (i+1)*(nbytes/rows))), None for the
+    replicated tensors (embedding, norms) and the RoPE gap."""
+
+    name: str
+    layer: int | None
+    offset: int
+    nbytes: int
+    rows: int | None
+
+
+def tensor_byte_ranges(spec: TransformerSpec) -> list[TensorRange]:
+    """The byte placement of every tensor in a .bin of ``spec``, in
+    load_model's order (the offset table io/stream fetches against)."""
+    out: list[TensorRange] = []
+    off = HEADER_BYTES
+
+    def add(name, layer, nbytes, rows=None):
+        nonlocal off
+        out.append(TensorRange(name, layer, off, nbytes, rows))
+        off += nbytes
+
+    add("tok_embedding", None, spec.vocab_size * spec.dim * 4)
+    shapes = spec.layer_matmul_shapes()
+    for layer in range(spec.n_layers):
+        add("rms_att", layer, spec.dim * 4)
+        add("rms_ffn", layer, spec.dim * 4)
+        for name, shape in shapes:
+            add(name, layer, spec.matmul_bytes(shape), rows=shape[0])
+    add("rms_final", None, spec.dim * 4)
+    add("_rope_gap", None, spec.rope_gap_bytes)
+    add("wcls", None, spec.matmul_bytes((spec.vocab_size, spec.dim)),
+        rows=spec.vocab_size)
+    if off != spec.file_size():
+        raise AssertionError(f"tensor table ends at {off}, the file at "
+                             f"{spec.file_size()}")
+    return out
+
+
 def _write_matmul(f, spec: TransformerSpec, x) -> None:
     """Write one matmul weight: an f32 array (encoded to the spec's type), or
     a planar ``Q40Weight`` whose codes are written as they are (synthetic

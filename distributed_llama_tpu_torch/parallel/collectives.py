@@ -16,12 +16,22 @@ in whatever order the backend picks (NCCL, gloo), so the overlap scheme
 equals the fused one within f32 rounding, not bit for bit as in the JAX
 package (tests/test_torch_tp.py holds them within the logit tolerance,
 with equal greedy streams).
+
+While a profiler runs, each collective's host work is a span named
+``tp::<kind>`` (all_gather, all_reduce, reduce_scatter,
+collective_permute) and each wait for an issued one a ``tp::wait`` span:
+the I/T split's T under gloo, whose collectives run on the host
+(utils/it_split.py). A trace holds one ``tp::<kind>`` span per CENSUS
+entry.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
+from ..utils.it_split import SPAN_PREFIX, WAIT_SPAN
 from .mesh import TPGroup
 
 KINDS = ("all_gather", "psum", "reduce_scatter", "ppermute")
@@ -54,13 +64,25 @@ def _dist():
     return dist
 
 
-def gather(x: torch.Tensor, g: TPGroup) -> torch.Tensor:
-    """all_gather of each rank's band along the last axis, rank order."""
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(g.size)]
-    _dist().all_gather(parts, x, group=g.group)
-    CENSUS.add("all_gather", (g.size - 1) * x.numel() * x.element_size())
-    return torch.cat(parts, dim=-1)
+def _span(name: str):
+    """While a profiler runs, a span over one collective's host work
+    (``tp::<kind>``, or WAIT_SPAN where an issued one is waited for):
+    gloo's collectives have no kernel, and utils/it_split reads these
+    spans as T. Without a profiler no span is made (one costs ~14 us)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
+def gather(x: torch.Tensor, g: TPGroup, dim: int = -1) -> torch.Tensor:
+    """all_gather of each rank's band along ``dim`` (the last axis by
+    default), in rank order."""
+    with _span(SPAN_PREFIX + "all_gather"):
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(g.size)]
+        _dist().all_gather(parts, x, group=g.group)
+        CENSUS.add("all_gather", (g.size - 1) * x.numel() * x.element_size())
+        return torch.cat(parts, dim=dim)
 
 
 class Pending:
@@ -68,36 +90,41 @@ class Pending:
     ffn gather): ``wait()`` returns the rank-ordered concatenation."""
 
     def __init__(self, x: torch.Tensor, g: TPGroup):
-        x = x.contiguous()
-        self.parts = [torch.empty_like(x) for _ in range(g.size)]
-        self.work = _dist().all_gather(self.parts, x, group=g.group,
-                                       async_op=True)
-        CENSUS.add("all_gather", (g.size - 1) * x.numel() * x.element_size())
+        with _span(SPAN_PREFIX + "all_gather"):
+            x = x.contiguous()
+            self.parts = [torch.empty_like(x) for _ in range(g.size)]
+            self.work = _dist().all_gather(self.parts, x, group=g.group,
+                                           async_op=True)
+            CENSUS.add("all_gather",
+                       (g.size - 1) * x.numel() * x.element_size())
 
     def wait(self) -> torch.Tensor:
-        self.work.wait()
-        return torch.cat(self.parts, dim=-1)
+        with _span(WAIT_SPAN):
+            self.work.wait()
+            return torch.cat(self.parts, dim=-1)
 
 
 def psum(x: torch.Tensor, g: TPGroup) -> torch.Tensor:
     """all_reduce (sum) of the ranks' full-width partials; ``x`` is summed
     in place and returned."""
-    x = x.contiguous()
-    _dist().all_reduce(x, group=g.group)
-    nbytes = x.numel() * x.element_size()
-    CENSUS.add("psum", 2 * (g.size - 1) * nbytes // g.size)
-    return x
+    with _span(SPAN_PREFIX + "all_reduce"):
+        x = x.contiguous()
+        _dist().all_reduce(x, group=g.group)
+        nbytes = x.numel() * x.element_size()
+        CENSUS.add("psum", 2 * (g.size - 1) * nbytes // g.size)
+        return x
 
 
 def scatter(x: torch.Tensor, g: TPGroup) -> torch.Tensor:
     """reduce_scatter along the last axis: rank r gets the f32 sum of band
     r of every rank's ``x``."""
-    chunks = [c.contiguous() for c in x.chunk(g.size, dim=-1)]
-    out = torch.empty_like(chunks[0])
-    _dist().reduce_scatter(out, chunks, group=g.group)
-    nbytes = x.numel() * x.element_size()
-    CENSUS.add("reduce_scatter", (g.size - 1) * nbytes // g.size)
-    return out
+    with _span(SPAN_PREFIX + "reduce_scatter"):
+        chunks = [c.contiguous() for c in x.chunk(g.size, dim=-1)]
+        out = torch.empty_like(chunks[0])
+        _dist().reduce_scatter(out, chunks, group=g.group)
+        nbytes = x.numel() * x.element_size()
+        CENSUS.add("reduce_scatter", (g.size - 1) * nbytes // g.size)
+        return out
 
 
 def ppermute_start(x: torch.Tensor, shift: int, g: TPGroup):
@@ -113,7 +140,8 @@ def ppermute_start(x: torch.Tensor, shift: int, g: TPGroup):
 
     ops = [dist.P2POp(dist.isend, x, peer(r + shift), group=g.group),
            dist.P2POp(dist.irecv, recv, peer(r - shift), group=g.group)]
-    works = dist.batch_isend_irecv(ops)
+    with _span(SPAN_PREFIX + "collective_permute"):
+        works = dist.batch_isend_irecv(ops)
     CENSUS.add("ppermute", x.numel() * x.element_size())
     return works, recv
 
@@ -132,8 +160,9 @@ def ring_reduce(part: torch.Tensor, g: TPGroup) -> torch.Tensor:
     hops = [(k, ppermute_start(chunks[(r + k) % s], k, g))
             for k in range(1, s)]
     for k, (works, recv) in hops:
-        for w in works:
-            w.wait()
+        with _span(WAIT_SPAN):
+            for w in works:
+                w.wait()
         stash[(r - k) % s] = recv
     acc = stash[0]
     for j in range(1, s):  # rank-order left fold

@@ -13,6 +13,12 @@ compatibility checking; the live cache prefix [0, pos) is stored as f32
 ('float32', 'bfloat16'). A checkpoint of either package resumes in the
 other.
 
+Under tensor parallelism the file is the same: the cache's kv heads in
+global order. Saving gathers the ranks' kv-head bands (cache axis 2, a
+contiguous band a rank) through parallel/collectives.py, so every rank
+must call it, and only rank 0 writes; loading gives each rank its own
+band. A checkpoint written at one tp resumes at any other, tp 1 included.
+
 The restore writes into the engine's cache in place and never rebinds it:
 the ``--fast`` loop's captured CUDA graph and the fused layer's static
 buffers hold that storage, and a new tensor would leave them reading stale
@@ -24,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel import collectives
 from .generate import Engine
 from .sampling import Sampler
 
@@ -47,11 +54,21 @@ def save_generation_state(path: str, engine: Engine, sampler: Sampler,
     ``prompt_rest``: prompt tokens the interrupted run had NOT yet consumed
     (GenStats.prompt_rest) — without them a resumed run would sample where
     the unsplit run forces, silently diverging.
+
+    Under a tp group every rank calls this (the kv-head bands are
+    gathered) and rank 0 writes the file.
     """
+    group = engine.group
 
     def prefix(t: torch.Tensor) -> np.ndarray:
-        return t[:, :pos].to(torch.float32).cpu().numpy()
+        live = t[:, :pos].to(torch.float32)
+        if group.size > 1:
+            live = collectives.gather(live, group, dim=2)
+        return live.cpu().numpy()
 
+    k, v = prefix(engine.cache.k), prefix(engine.cache.v)
+    if group.rank != 0:
+        return
     # write through a file object: np.savez(str_path) would silently append
     # '.npz', landing the file somewhere other than the path we report
     with open(path, "wb") as f:
@@ -59,8 +76,8 @@ def save_generation_state(path: str, engine: Engine, sampler: Sampler,
             f,
             version=np.int32(FORMAT_VERSION),
             header=np.frombuffer(engine.spec.header(), dtype=np.uint8),
-            k=prefix(engine.cache.k),
-            v=prefix(engine.cache.v),
+            k=k,
+            v=v,
             cache_dtype=np.array(_dtype_name(engine)),
             pos=np.int32(pos),
             token=np.int32(token),
@@ -95,9 +112,12 @@ def load_generation_state(
         raise ValueError(
             f"checkpoint cache dtype {saved_dtype!r} does not match the "
             f"engine's {want!r} — resume with the same --kv-cache-dtype")
+    n_kv = engine.cache.k.shape[2]  # the rank's kv heads
+    heads = slice(engine.group.rank * n_kv, (engine.group.rank + 1) * n_kv)
     for dst, src in ((engine.cache.k, z["k"]), (engine.cache.v, z["v"])):
         dst.zero_()  # the dead suffix, as a fresh cache has it
-        dst[:, :src.shape[1]].copy_(torch.from_numpy(src))
+        dst[:, :src.shape[1]].copy_(torch.from_numpy(
+            np.ascontiguousarray(src[:, :, heads])))
     sampler.rng.state = int(z["rng_state"])
     rest = (z["prompt_rest"].astype(int).tolist()
             if "prompt_rest" in z else [])

@@ -207,8 +207,9 @@ class ContinuousEngine:
             ("slo_priority", slo_priority)) if value}
         if given:
             raise ValueError(f"not yet ported: {', '.join(given)} (the "
-                             f"port's continuous engine runs one device, "
-                             f"contiguous or paged, f32/bf16 or q8 pages)")
+                             f"port's continuous engine runs one device or "
+                             f"a tp group, contiguous or paged, f32/bf16 "
+                             f"or q8 pages)")
         if mesh is not None and not isinstance(mesh, TPGroup):
             raise ValueError(f"not yet ported: mesh of type "
                              f"{type(mesh).__name__} (the port's mesh is a "

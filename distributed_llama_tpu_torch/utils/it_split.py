@@ -18,12 +18,24 @@ Which events count:
 
 * a trace with device kernels (``cat == "kernel"``, a run on the card)
   gives one split per device (the event's ``pid``), summed over its
-  streams; host events are ignored;
+  streams; host events are ignored, except the tensor-parallel
+  collectives' spans (below) where no kernel is a collective (gloo ranks
+  on the card: their collectives are host work); NCCL's collectives are
+  kernels;
 * a trace with none (a CPU run) gives one split per host thread, from its
-  TOP-LEVEL ``cpu_op`` events only (those no other ``cpu_op`` of the same
-  ``tid`` contains by ``ts``/``dur``): aten ops nest (``aten::linear`` ->
-  ``aten::matmul`` -> ``aten::mm``), and counting every level would count
-  the same time several times.
+  TOP-LEVEL ``cpu_op`` events and collective spans only (those no other
+  such event of the same ``tid`` contains by ``ts``/``dur``): aten ops
+  nest (``aten::linear`` -> ``aten::matmul`` -> ``aten::mm``), and
+  counting every level would count the same time several times. gloo's
+  own worker threads (those holding a ``gloo:`` event and no collective
+  span) are left out: their work is inside the collectives' spans.
+
+The collectives' spans are the ``user_annotation`` events that
+parallel/collectives.py makes while a profiler runs: ``tp::<kind>`` over
+one collective's host work (one per CENSUS entry) and ``tp::wait`` over
+the wait for an issued one; both are T. ``DeviceSplit.transfer_events``
+counts the collectives (the spans other than the waits, or the collective
+kernels).
 
 Names go to a base name: the identifier after the last ``::``, without the
 return type, template arguments or parameter list, so the demangled
@@ -62,6 +74,9 @@ _COLLECTIVE_RE = re.compile(
     r"|^send|^recv|ragged[_-]all[_-]to[_-]all"
     r"|(?i:ncclDevKernel_|ncclKernel_|allreduce|allgather|reducescatter"
     r"|sendrecv)")
+# the host spans of parallel/collectives.py (module docstring)
+SPAN_PREFIX = "tp::"
+WAIT_SPAN = SPAN_PREFIX + "wait"
 _TEMPLATE_RE = re.compile(r"<[^<>]*>")
 _IDENT_RE = re.compile(r"[A-Za-z_]\w*")
 # containment slack in microseconds: the trace rounds ts and dur to ns
@@ -77,6 +92,7 @@ class DeviceSplit:
         default_factory=collections.Counter)  # name -> ns
     counts: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)  # name -> events
+    transfer_events: int = 0  # collectives (waits not counted)
 
     @property
     def total_ns(self) -> float:
@@ -131,13 +147,22 @@ def parse_trace(path: str) -> dict[str, DeviceSplit]:
         events = [e for e in json.load(f).get("traceEvents", [])
                   if isinstance(e, dict) and "dur" in e and "ts" in e]
     kernels = [e for e in events if e.get("cat") == "kernel"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and str(e.get("name", "")).startswith(SPAN_PREFIX)]
     groups: dict[str, list[dict]] = collections.defaultdict(list)
     if kernels:
+        host = [] if any(_COLLECTIVE_RE.search(base_name(str(k["name"])))
+                         for k in kernels if "name" in k) else spans
         for ev in kernels:
             groups[f"/device:cuda:{ev.get('pid')}"].append(ev)
+        for evs in groups.values():
+            evs.extend(host)
     else:
-        for ev in events:
-            if ev.get("cat") == "cpu_op":
+        gloo = ({(e.get("pid"), e.get("tid")) for e in events
+                 if str(e.get("name", "")).startswith("gloo:")}
+                - {(e.get("pid"), e.get("tid")) for e in spans})
+        for ev in [e for e in events if e.get("cat") == "cpu_op"] + spans:
+            if (ev.get("pid"), ev.get("tid")) not in gloo:
                 groups[f"/host:CPU/{ev.get('pid')}/{ev.get('tid')}"].append(
                     ev)
         groups = {k: _top_level(v) for k, v in groups.items()}
@@ -145,14 +170,16 @@ def parse_trace(path: str) -> dict[str, DeviceSplit]:
     for key, evs in groups.items():
         split = DeviceSplit()
         for ev in evs:
+            wait = ev.get("name") == WAIT_SPAN
             name = base_name(str(ev.get("name", "")))
             if not name:
                 continue
             ns = float(ev["dur"]) * 1e3
             split.ops[name] += ns
             split.counts[name] += 1
-            if _COLLECTIVE_RE.search(name):
+            if wait or _COLLECTIVE_RE.search(name):
                 split.transfer_ns += ns
+                split.transfer_events += not wait
             else:
                 split.inference_ns += ns
         if split.ops:
@@ -213,7 +240,8 @@ def summarize(splits: dict[str, DeviceSplit], tokens: int = 0,
         agg.update(s.ops)
     width = max((len(k) for k, _ in agg.most_common(top)), default=4)
     for name, ns in agg.most_common(top):
-        tag = "T" if _COLLECTIVE_RE.search(name) else "I"
+        tag = ("T" if _COLLECTIVE_RE.search(name)
+               or name == base_name(WAIT_SPAN) else "I")
         print(f"   {tag} {name:<{width}} {ns / n_dev / denom / 1e6:10.3f} "
               f"{unit}", file=out)
     return i_ms / denom, t_ms / denom

@@ -128,14 +128,16 @@ def test_cli_pieces_match_reference(model_files, capsys, mode):
     assert pieces(out) == want
 
 
-UNPORTED = [["--tp", "2", "--profile", "d"], ["--sp", "2"],
+UNPORTED = [["--tp", "2", "--kv-disk-dir", "d"], ["--sp", "2"],
             # --slots and --continuous are ported with --prompts-file;
             # --spec-k and --metrics are not ported there
             ["--slots", "4", "--prompts-file", "p.txt", "--continuous",
              "--spec-k", "4"],
             ["--kv-pages", "64"], ["--dispatch-tokens", "8"],
             ["--block-steps", "4"], ["--kv-host-pages", "8"],
-            ["--stream-slices"],
+            # the weight-streaming flags are ported: the next flag is the
+            # one named
+            ["--stream-slices", "--log-json"],
             ["--continuous", "--prompts-file", "p.txt", "--metrics"],
             ["--metrics"],
             ["--log-json"],
@@ -149,9 +151,10 @@ UNPORTED = [["--tp", "2", "--profile", "d"], ["--sp", "2"],
             ["--kv-quant", "q8"],
             # the tp flags are ported: the next flag is the one named
             ["--tp-scheme", "fused", "--sp", "2"],
-            ["--workers", "10.0.0.2:9998", "--stream-slices"],
+            ["--workers", "10.0.0.2:9998", "--stream-slices",
+             "--log-json"],
             ["--coordinator", "h:1", "--seed", "1", "--log-json"],
-            ["--model-from-root", "h:1"]]
+            ["--model-from-root", "h:1", "--kv-disk-dir", "d"]]
 CONTINUOUS_FLAGS = ("--continuous", "--slots", "--block-steps", "--kv-pages",
                     "--kv-page-size", "--kv-quant")
 
@@ -159,9 +162,11 @@ CONTINUOUS_FLAGS = ("--continuous", "--slots", "--block-steps", "--kv-pages",
 def _unported_flag(extra):
     """The flag the error must name: the first one that is not ported in
     this combination (the continuous engine's flags are ported with
-    --prompts-file --continuous; the tensor-parallel ones everywhere)."""
+    --prompts-file --continuous; the tensor-parallel and weight-streaming
+    ones everywhere)."""
     ported = ("--fast", "--prompts-file", "--tp", "--tp-scheme",
-              "--workers", "--coordinator", "--seed")
+              "--workers", "--coordinator", "--seed", "--stream-slices",
+              "--model-from-root")
     if "--continuous" in extra and "--prompts-file" in extra:
         ported += CONTINUOUS_FLAGS
     return next(a for a in extra if a.startswith("--") and a not in ported)

@@ -196,8 +196,9 @@ def test_two_hosts_match_the_single_process_run(model_files, capfd):
     (["--tp-scheme", "overlap", "--sp", "2"], 2,
      "--tp-scheme overlap needs --sp 1"),
     (["--tp-scheme", "ring"], 2, "invalid choice"),
-    (["--tp", "2", "--device", "cpu", "--save-state", "s.npz"], 2,
-     "not yet ported: --save-state with --tp 2"),
+    (["--tp", "2", "--device", "cpu", "--save-state", "s.npz",
+      "--stream-slices"], 2,
+     "--stream-slices only applies with --model-from-root"),
 ], ids=["above-devices", "hosts", "num-hosts", "overlap-sp", "scheme",
         "save-state"])
 def test_tp_flag_checks_exit_before_loading(tmp_path, capsys, extra, rc,
