@@ -51,7 +51,8 @@ no result line):
    its key splits give the eager bits and leave every ticket at 0); the
    paged decode attention over f32 and bf16 pages (K6) and Q8
    pages (K7) at the same shapes with pages of 16 in a permuted pool, t_len
-   1, 4 and 8 (at t_len 1 K6 gives the bits of K5 under the same plan
+   1, 4, 8, 16 and 39 (the decode step, verify windows and mixed windows;
+   at t_len 1 K6 gives the bits of K5 under the same plan
    over the same values, and K7 gives K6's bits over the dequantized
    pool; graph replays across split counts); the fused decode layer's
    head (K8), tail (K9) and whole layer (K10, over an f32 and a bf16 cache,
@@ -79,7 +80,7 @@ no result line):
 3. End to end: a 7B-shaped Q40 model with random codes (seeded) and a
    32000-piece tokenizer are written to build/smoke/ (by a process started
    with phase 1, while the card runs phases 1 and 2), then the port's CLI
-   runs ``inference`` in-process seventeen times (runs e and f call the
+   runs ``inference`` in-process twenty times (runs e and f call the
    CLI's ``generate`` in phase 4), every kernel's launch count reset just
    before and read just after each run:
    a. 64 steps token by token, greedy: K1 4*L+1 = 129 and K2 L = 32
@@ -139,7 +140,19 @@ no result line):
       replays);
    r. run a's prompt for 32 steps with ``--save-state``, then 32 more with
       ``--resume-state``: K1 and K2 per step in each, and the joined stream
-      equals run a's.
+      equals run a's;
+   s. run k with ``--spec-k 4``: every device step a captured verify
+      dispatch of 8 x 4 flat rows (K3 4L+1 with its parts, K6 L at t_len
+      4), admission prefill as run k's; drafts accepted; its streams equal
+      run k's, or part only where run k's top-2 logits lie within the
+      logit tolerance (K3 against K1m);
+   t. run k with ``--dispatch-tokens 39`` (the auto budget at 8 slots and
+      chunk 32): every device step one (8, 39) mixed window (K3 on 312
+      rows, K6 L at t_len 39), no admission prefill; streams as run s's;
+   u. run n with ``--spec-k 4`` instead of its chains and ``--topp
+      0.05``: K7 over verify windows, seeded rejection sampling, the
+      32-page pool pausing or requeueing, drafts accepted; every window's
+      logits finite.
 4. Kernels against plain at full width: the first 4 positions of the same
    model through the forward with the kernels and with the plain versions;
    then 8 more kernel steps timed, and 8 under torch.profiler for the
@@ -198,7 +211,10 @@ no result line):
    device's; so do, through the CLI against tp 1 at the same flags, a
    bf16 cache, --fast-prefill (K3b and K4b over the bands),
    DLLAMA_MULTI_T_BODY=dequant over a bf16 cache (K1d, K5), bf16 pages
-   with --fast-prefill and Q8 pages (K6, K7) (TP_FLAG_RUNS), and a
+   with --fast-prefill and Q8 pages (K6, K7), and --spec-k 4 and
+   --dispatch-tokens 39 over f32 pages under fused and ref, each verify
+   and mixed window's collectives equal to the budget at t_len = its rows
+   (TP_FLAG_RUNS), and a
    --profile run whose every rank's trace holds
    its collectives (T > 0) one event each, as many as the census. What
    waits for a machine with more than one card is logged
@@ -207,7 +223,8 @@ no result line):
    under fused, overlap and ref with q80 buffers), and the lockstep batch
    at tp 2 against tp 1 (tp_nccl).
 6. The phase times, the ``kernels`` JSON line (each kernel's launches
-   summed over every CLI run, a-r; the probe's kernels over its chain),
+   summed over every CLI run, a-u; the probe's kernels over its chain;
+   K6's and K7's rows at t_len 16 and 39 beside their decode rows),
    then the result line ``{"ok": true, "device": {...}}`` as the last
    line.
 
@@ -976,7 +993,15 @@ def phase_k5(torch, timer, peaks, cache=None):
 
 K6_CASES = [  # (label, n_kv, kv_mul): two layers of the pool, layer 1 read
     ("7b", 32, 1), ("gqa8", 8, 8)]
-K6_T_LENS = (1, 4, 8)
+# t_len 1 (decode), 4 and 8 (verify windows) and 16 and 39 (mixed windows:
+# 39 = the auto budget at CONT_SLOTS slots and CONT_CHUNK, run t's)
+K6_T_LENS = (1, 4, 8, 16, 39)
+MIXED_BUDGET = CONT_SLOTS - 1 + CONT_CHUNK
+SPEC_K = 4  # runs s and u: the verify window
+# run u's nucleus: the random-code model's sampled law at temperature 0.8
+# is nearly flat over the vocabulary (logits of std ~2), so at top-p 0.9
+# no drafted token would be accepted; top-p 0.05 keeps its few largest
+SPEC_TOPP = 0.05
 K6_PAGES = ("f32", "bf16", "q8")
 
 
@@ -1027,8 +1052,8 @@ def _k6_replays(torch, run_k, planes, table, P, layer, n_q, hs, kv_mul,
 def phase_k6(torch, timer, peaks):
     """K6 (f32 and bf16 pages) and K7 (Q8 pages) against their plain
     versions at 7B and GQA shapes, page size PAGE, B = 1 and 8, shared
-    clocks 63 and 2047 and ragged ones, t_len 1, 4 and 8 (up to the
-    budget-edge clamp), the same bits on a second launch. The pool holds a
+    clocks 63 and 2047 and ragged ones, t_len 1, 4, 8, 16 and 39 (up to
+    the budget-edge clamp), the same bits on a second launch. The pool holds a
     contiguous (2B, 2048, n_kv, hs) batch cache's values in permuted
     physical pages; at t_len 1 K6 must give the bits of K5 under the same
     plan (each of K6_PLANS) over the same values, with the identity table
@@ -1163,6 +1188,13 @@ def phase_k6(torch, timer, peaks):
                                             f"(identity or permuted pool)")
                             k5_ms = timer(lambda: att.decode_attention_batch(
                                 qk5, *src, layer, pv, kv_mul))
+                        # the kernels line's rows: every t_len 1 shape,
+                        # and the wide windows' unit (7B, 8 rows, pos 63)
+                        unit = t_len == 1 or (
+                            t_len in (16, MIXED_BUDGET) and label == "7b"
+                            and batch == CONT_SLOTS
+                            and pos_label == "shared 63")
+                        if unit:
                             plain_ms = timer(lambda: plain_k(
                                 q, *planes, layer, pv, table, P, kv_mul))
                         last = [min(p + t_len - 1, S - 1) for p in pos]
@@ -1180,6 +1212,17 @@ def phase_k6(torch, timer, peaks):
                             return [x.reshape(batch, n_live * ps, n_kv, hs)
                                     .permute(0, 2, 1, 3) for x in (kk, vv)]
 
+                        ms = timer(run)
+                        if t_len > 8 and not unit:
+                            log(f"{kernel.symbol} {label} B={batch} "
+                                f"{pos_label} t={t_len}: max_abs_err "
+                                f"{err:.3e} (tol {att.KERNEL_ATOL:.0e}) "
+                                f"kernel {ms:.4f} ms")
+                            rows.append(dict(
+                                case=label, n_kv=n_kv, kv_mul=kv_mul,
+                                batch=batch, pos=pos_label, t_len=t_len,
+                                max_abs_err=err, ms=ms, pages=pages))
+                            continue
                         ks, vs = gather()
                         sees = torch.clamp(
                             pv[:, None].long() + torch.arange(
@@ -1198,7 +1241,6 @@ def phase_k6(torch, timer, peaks):
                         lib_err = (lib().permute(0, 2, 1, 3)
                                    .reshape(batch, t_len, -1).float()
                                    - want).abs().max().item()
-                        ms = timer(run)
                         gather_ms = timer(gather)
                         library_ms = timer(lib)
                         keys = [sum(min(p + i, S - 1) + 1
@@ -1884,6 +1926,11 @@ def _add_cli_launches(counts: dict[str, int]) -> None:
         CLI_LAUNCHES[symbol] = CLI_LAUNCHES.get(symbol, 0) + n
 
 
+# K6's and K7's launches at a window wider than a decode step, by (kernel,
+# t_len): the verify (runs s, u) and mixed (run t) dispatches
+WINDOW_LAUNCHES: dict[tuple[str, int], int] = {}
+
+
 def _run_cli(torch, model, tok, args: list[str], env=None, gaps=None,
              streams=None):
     """The CLI in-process, with ``env`` set in the environment, and with
@@ -2473,19 +2520,107 @@ def _cont_rows(out):
     return re.findall(r"^\[(\d+)\] (?!done:)(.*)$", out, re.M)
 
 
-def phase_e2e_continuous(torch, model, tok, n_layers, label, flags):
-    """Runs k-n: the 12 shared-prefix prompts through ``--prompts-file
-    --continuous --slots 8 --prefill-chunk 32 --steps 128`` and ``flags``.
-    Exact launch counts from the engine's own step and chunk counts: the
-    attention build the flags select (K5 contiguous, K6 f32 or bf16 pages,
-    K7 Q8 pages) L per device step, K1m 4L+1 per step (8 rows), K3 4L and
-    K4 (its bf16-cache build over bf16 pages) L per admission chunk with
-    their parts by the plans of each chunk's (T, start), every other
-    kernel 0. Every request completes without error, the page audit
-    is clean, and the steps are the graphs' warm-ups and replays."""
+@contextlib.contextmanager
+def _recorded_gaps(gaps: dict):
+    """Record, for every host sample a ContinuousEngine's Sampler takes,
+    the gap between the logits' two largest values and their largest
+    |value|, in ``gaps[seed]`` (a request's sampler is seeded seed + its
+    index)."""
+    import numpy as np
+
+    from distributed_llama_tpu_torch.runtime import continuous
+
+    base = continuous.Sampler
+
+    class Recording(base):
+        def __init__(self, vocab_size, temperature, topp, seed):
+            super().__init__(vocab_size, temperature, topp, seed)
+            self.gaps = gaps.setdefault(seed, [])
+
+        def sample(self, logits):
+            top = np.sort(np.asarray(logits, np.float32))[-2:]
+            self.gaps.append((float(top[1] - top[0]),
+                              float(np.abs(logits).max())))
+            return super().sample(logits)
+
+    continuous.Sampler = Recording
+    try:
+        yield
+    finally:
+        continuous.Sampler = base
+
+
+@contextlib.contextmanager
+def _checked_windows(seen: list):
+    """Record, for every verify or mixed dispatch a ContinuousEngine runs,
+    whether what came back is sound: ids inside the vocabulary (greedy) or
+    finite logits (sampled)."""
+    import numpy as np
+
+    from distributed_llama_tpu_torch.runtime import continuous
+
+    run = continuous.ContinuousEngine._run_window
+
+    def checked(self, kind, tokens, greedy_only):
+        out = run(self, kind, tokens, greedy_only)
+        seen.append(bool(((out >= 0) & (out < self.spec.vocab_size)).all()
+                         if greedy_only else np.isfinite(out).all()))
+        return out
+
+    continuous.ContinuousEngine._run_window = checked
+    try:
+        yield
+    finally:
+        continuous.ContinuousEngine._run_window = run
+
+
+def _gemm_launches(spec, t, calls):
+    """K3's launches, with its parts, for ``calls`` forwards of T = t > 8
+    flat rows (a verify or mixed window): 4L + 1 products a forward (the
+    four layer matrices and wcls), one x split pass each and one split-K
+    sum for each product gemm_tf32_plan splits."""
+    import torch
+
+    from distributed_llama_tpu_torch.ops import q40
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [(spec.dim + 2 * spec.kv_dim, spec.dim), (spec.dim, spec.dim),
+              (2 * spec.hidden_dim, spec.dim), (spec.dim, spec.hidden_dim)]
+    split = [q40.gemm_tf32_plan(t, d, n // 32, sms)[0] > 1
+             for d, n in shapes]
+    wcls = q40.gemm_tf32_plan(t, spec.vocab_size, spec.dim // 32,
+                              sms)[0] > 1
+    n = 4 * spec.n_layers + 1
+    return {"q40_gemm": n * calls, "q40_split_tf32": n * calls,
+            "q40_gemm_bf16_reduce": (spec.n_layers * sum(split) + wcls)
+            * calls}
+
+
+def _flag(flags, name):
+    return int(flags[flags.index(name) + 1]) if name in flags else 0
+
+
+def phase_e2e_continuous(torch, model, tok, n_layers, label, flags,
+                         gaps=None):
+    """Runs k-n and s-u: the 12 shared-prefix prompts through
+    ``--prompts-file --continuous --slots 8 --prefill-chunk 32 --steps
+    128`` and ``flags``. Exact launch counts from the engine's own step and
+    chunk counts: the attention build the flags select (K5 contiguous, K6
+    f32 or bf16 pages, K7 Q8 pages) L per device step; the products of a
+    step's 8 rows (K1m 4L+1), or of a verify window's 8K rows or a mixed
+    window's 8T rows (K3 4L+1 with its parts), per step; K3 4L and K4 (its
+    bf16-cache build over bf16 pages) L per admission chunk with their
+    parts by the plans of each chunk's (T, start) (none under
+    --dispatch-tokens), every other kernel 0. Every request completes
+    without error, every window's output is sound (ids in the vocabulary,
+    or finite logits), the page audit is clean, and the steps are the
+    graphs' warm-ups and replays. ``gaps`` records run k's host samples'
+    top-2 logit gaps (_recorded_gaps)."""
     paged = "--kv-page-size" in flags
     q8 = "q8" in flags
     bf16 = "bf16" in flags
+    spec_k = _flag(flags, "--spec-k")
+    budget = _flag(flags, "--dispatch-tokens")
     attn = ("decode_attention_batch" if not paged else "paged_attention_q8"
             if q8 else "paged_attention_kvbf16" if bf16
             else "paged_attention")
@@ -2495,8 +2630,10 @@ def phase_e2e_continuous(torch, model, tok, n_layers, label, flags):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    seen, windows = [], []
-    with _engine_spy(seen), _window_spy(windows):
+    seen, windows, sound = [], [], []
+    with _engine_spy(seen), _window_spy(windows), _checked_windows(sound), \
+            (_recorded_gaps(gaps) if gaps is not None
+             else contextlib.nullcontext()):
         out, counts, wall, _ = _run_cli(torch, model, tok, [
             "--prompts-file", str(path), "--continuous", "--slots",
             str(CONT_SLOTS), "--prefill-chunk", str(CONT_CHUNK), "--steps",
@@ -2504,40 +2641,80 @@ def phase_e2e_continuous(torch, model, tok, n_layers, label, flags):
     eng = seen[0][0]
     reqs = [r for _, r in seen]
     st = eng.stats
-    want = {"q40_matvec_multi": (4 * n_layers + 1) * st.steps,
-            attn: n_layers * st.steps}
+    width = spec_k or budget
+    if width:
+        want = _gemm_launches(eng.spec, CONT_SLOTS * width, st.steps)
+        WINDOW_LAUNCHES[(attn, width)] = (
+            WINDOW_LAUNCHES.get((attn, width), 0) + counts[attn])
+    else:
+        want = {"q40_matvec_multi": (4 * n_layers + 1) * st.steps}
+    want[attn] = n_layers * st.steps
     if st.prefill_chunks:
         if len(windows) != st.prefill_chunks or any(
                 t != CONT_CHUNK for t, _ in windows):
             raise AssertionError(f"{label} run: admission windows {windows}"
                                  f" for {st.prefill_chunks} chunks")
-        want.update(q40_gemm=4 * n_layers * st.prefill_chunks,
-                    **{prefill: n_layers * st.prefill_chunks},
-                    **_prefill_parts(eng.spec, CONT_CHUNK,
-                                     [p for _, p in windows], False, bf16))
+        for k, v in {"q40_gemm": 4 * n_layers * st.prefill_chunks,
+                     prefill: n_layers * st.prefill_chunks,
+                     **_prefill_parts(eng.spec, CONT_CHUNK,
+                                      [p for _, p in windows], False,
+                                      bf16)}.items():
+            want[k] = want.get(k, 0) + v
     _expect(f"{label} run", counts, want)
     rows = _cont_rows(out)
     m = re.search(r"Generated tokens:\s+(\d+) across (\d+) requests "
                   r"\((\d+) slots, (\d+) steps\)", out)
     errors = [r.error for r in reqs if r.error or not r.done.is_set()]
     audit = eng.audit_pages()
-    n_graphs = len(eng._chains) if eng.block_steps > 1 else 1
+    n_graphs = (len(eng._windows) if width else
+                len(eng._chains) if eng.block_steps > 1 else 1)
     if (len(rows) != len(CONT_PROMPTS) or int(m.group(2)) != len(reqs)
             or int(m.group(4)) != st.steps or errors or audit
-            or eng.graph_replays + n_graphs != st.steps):
+            or eng.graph_replays + n_graphs != st.steps
+            or not all(sound) or len(sound) != (st.steps if width else 0)):
         raise AssertionError(
             f"{label} run: {len(rows)} rows, {m.groups()}, errors {errors}, "
             f"audit {audit}, {eng.graph_replays} replays of {n_graphs} "
-            f"graphs for {st.steps} steps")
+            f"graphs for {st.steps} steps, {sum(sound)} of {len(sound)} "
+            f"windows sound")
     res = dict(flags=list(flags), requests=len(reqs), steps=st.steps,
                tokens=st.tokens, prefill_chunks=st.prefill_chunks,
                pauses=st.pauses, requeues=st.requeues,
                avg_active=st.avg_active, replays=eng.graph_replays,
                graphs=n_graphs, wall_s=wall, launches=counts,
                tokens_per_s=st.tokens_per_s,
+               ms_per_token=st.total_ms / max(st.tokens, 1),
+               ms_per_dispatch=st.total_ms / max(st.steps, 1),
                sampled_tokens=sum(r.n_sampled for r in reqs),
                peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
                cache_bytes=sum(t.nbytes for t in eng.cache))
+    if spec_k:
+        sp = re.search(r"Speculative:\s+K=(\d+), (\d+)/(\d+) drafts "
+                       r"accepted \((\d+)%\); ([\d.]+) ms/accepted token "
+                       r"over (\d+) verify dispatches", out)
+        if (not sp or int(sp.group(1)) != spec_k
+                or int(sp.group(2)) != st.spec_accepted
+                or int(sp.group(6)) != st.steps):
+            raise AssertionError(f"{label} run: speculative line "
+                                 f"{sp.groups() if sp else None}")
+        res.update(spec_k=spec_k, spec_proposed=st.spec_proposed,
+                   spec_accepted=st.spec_accepted,
+                   accept_rate=st.spec_accept_rate,
+                   ms_per_accepted_token=float(sp.group(5)))
+    if budget:
+        tb = re.search(r"Token budget:\s+(\d+) tokens/dispatch over (\d+) "
+                       r"mixed dispatches", out)
+        if (not tb or int(tb.group(1)) != budget
+                or eng.dispatch_tokens != budget
+                or int(tb.group(2)) != st.steps or st.prefill_chunks
+                or set(eng._windows) != {("mixed", True)}
+                or tuple(eng._windows[("mixed", True)].tokens.shape)
+                != (CONT_SLOTS, budget)):
+            raise AssertionError(f"{label} run: token budget line "
+                                 f"{tb.groups() if tb else None}, "
+                                 f"{st.prefill_chunks} admission chunks, "
+                                 f"windows {list(eng._windows)}")
+        res.update(dispatch_tokens=budget, overrun_steps=st.overrun_steps)
     a = eng.allocator
     if a is not None:
         res.update(n_pages=a.n_pages, page_bytes=res["cache_bytes"]
@@ -2546,21 +2723,61 @@ def phase_e2e_continuous(torch, model, tok, n_layers, label, flags):
                    evictions=a.evictions)
     log(f"e2e {label}: {json.dumps(res)}")
     res["rows"] = [text for _, text in rows]
+    res["outs"] = [list(r.out) for r in reqs]
+    res["prompts"] = [list(r.tokens) for r in reqs]
     del eng, seen, reqs
     return res
 
 
+def _near_tie_rows(label, got, want, gaps):
+    """Hold a greedy continuous run's token streams against run k's: each
+    equal, or parting at a sampled position where run k's two largest
+    logits lie within LOGIT_RTOL x max|logit| (the verify and mixed
+    windows' products take K3 at 8K or 8T rows where run k's take K1m at
+    8: their sums differ in the last bits). Returns the parting rows."""
+    from distributed_llama_tpu_torch.models.llama import LOGIT_RTOL
+
+    parted = []
+    for i, (a, b, prompt) in enumerate(zip(got["outs"], want["outs"],
+                                           want["prompts"])):
+        if a == b:
+            continue
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        m = j - (len(prompt) - 1)  # its index among the sampled tokens
+        seed_gaps = gaps.get(1 + i, [])
+        gap, top = seed_gaps[m] if 0 <= m < len(seed_gaps) else (
+            float("inf"), 0.0)
+        log(f"run {label}: request {i} parts from run k's at token {j}, "
+            f"where run k's top-2 logit gap is {gap:.3e} (tolerance "
+            f"{LOGIT_RTOL * top:.3e})")
+        if not gap <= LOGIT_RTOL * top:
+            raise AssertionError(f"run {label}: request {i} differs from "
+                                 f"run k's at token {j}, top-2 gap {gap} "
+                                 f"above the logit tolerance")
+        parted.append((i, j, gap))
+    return parted
+
+
 def phase_e2e_continuous_runs(torch, model, tok, n_layers):
-    """Runs k-n. k: f32 pages of PAGE (K6), prefix hits > 0; l: run k
-    without the page flags (contiguous, K5), its 12 streams equal to run
-    k's; m: bf16 pages with 16-step chains (the bf16-page K6); n: Q8 pages
-    (K7) with 16-step chains, seeded sampling and a 32-page pool that
+    """Runs k-n and s-u. k: f32 pages of PAGE (K6), prefix hits > 0; l:
+    run k without the page flags (contiguous, K5), its 12 streams equal to
+    run k's; m: bf16 pages with 16-step chains (the bf16-page K6); n: Q8
+    pages (K7) with 16-step chains, seeded sampling and a 32-page pool that
     pauses or requeues rows, with ~3.76x fewer bytes per page than run
-    k's."""
+    k's; s: run k with --spec-k SPEC_K (verify windows through K6 at t_len
+    SPEC_K and K3 at 8 x SPEC_K rows), drafts accepted; t: run k with
+    --dispatch-tokens MIXED_BUDGET (every dispatch one (8, MIXED_BUDGET)
+    window through K6 and K3, no admission prefill); s's and t's streams
+    equal run k's, or part at a near-tie of run k's top-2 logits; u: run n
+    with --spec-k SPEC_K instead of the chains and --topp SPEC_TOPP (K7
+    over verify windows, seeded rejection sampling, the 32-page pool
+    pausing or requeueing), drafts accepted."""
     page = ("--kv-page-size", str(PAGE))
+    gaps: dict = {}
     res = {
         "k": phase_e2e_continuous(torch, model, tok, n_layers, "k paged",
-                                  page),
+                                  page, gaps=gaps),
         "l": phase_e2e_continuous(torch, model, tok, n_layers,
                                   "l contiguous", ()),
         "m": phase_e2e_continuous(torch, model, tok, n_layers,
@@ -2573,8 +2790,21 @@ def phase_e2e_continuous_runs(torch, model, tok, n_layers):
                                                  "--temperature", "0.8",
                                                  "--seed", "7", "--kv-pages",
                                                  "32")),
+        "s": phase_e2e_continuous(torch, model, tok, n_layers,
+                                  "s speculative",
+                                  (*page, "--spec-k", str(SPEC_K))),
+        "t": phase_e2e_continuous(torch, model, tok, n_layers,
+                                  "t token budget",
+                                  (*page, "--dispatch-tokens",
+                                   str(MIXED_BUDGET))),
+        "u": phase_e2e_continuous(torch, model, tok, n_layers,
+                                  "u speculative q8",
+                                  (*page, "--kv-quant", "q8", "--spec-k",
+                                   str(SPEC_K), "--temperature", "0.8",
+                                   "--topp", str(SPEC_TOPP), "--seed", "7",
+                                   "--kv-pages", "32")),
     }
-    k, n = res["k"], res["n"]
+    k, n, s_, t, u = (res[x] for x in "knstu")
     same = sum(a == b for a, b in zip(k["rows"], res["l"]["rows"]))
     ratio = k["page_bytes"] / n["page_bytes"]
     log(f"continuous: run k's streams equal run l's in {same} of "
@@ -2588,8 +2818,32 @@ def phase_e2e_continuous_runs(torch, model, tok, n_layers):
     if n["pauses"] + n["requeues"] <= 0 or not 3.7 <= ratio <= 3.8:
         raise AssertionError(f"run n: no pause or requeue, or page bytes "
                              f"{ratio:.3f}x below run k's, not ~3.76x")
+    s_["parted"] = _near_tie_rows("s", s_, k, gaps)
+    t["parted"] = _near_tie_rows("t", t, k, gaps)
+    log(f"speculative (run s, K={SPEC_K}): {s_['spec_accepted']}/"
+        f"{s_['spec_proposed']} drafts accepted "
+        f"({s_['accept_rate']:.1%}), {s_['steps']} verify dispatches "
+        f"against run k's {k['steps']} steps; "
+        f"{s_['ms_per_accepted_token']:.3f} ms/accepted token against run "
+        f"k's {k['ms_per_token']:.3f} ms/token; {s_['ms_per_dispatch']:.3f}"
+        f" ms a verify dispatch against run k's {k['ms_per_dispatch']:.3f} "
+        f"ms a step; {len(s_['parted'])} rows part at a near-tie")
+    log(f"token budget (run t, T={MIXED_BUDGET}): {t['steps']} mixed "
+        f"dispatches of {t['ms_per_dispatch']:.3f} ms against run k's "
+        f"{k['steps']} steps of {k['ms_per_dispatch']:.3f} ms and "
+        f"{k['prefill_chunks']} admission chunks; {t['ms_per_token']:.3f} "
+        f"ms/token against {k['ms_per_token']:.3f}; {len(t['parted'])} rows"
+        f" part at a near-tie")
+    log(f"speculative q8 (run u): {u['spec_accepted']}/{u['spec_proposed']}"
+        f" drafts accepted ({u['accept_rate']:.1%}), {u['pauses']} pauses, "
+        f"{u['requeues']} requeues, {u['steps']} verify dispatches")
+    if s_["spec_accepted"] <= 0 or u["spec_accepted"] <= 0:
+        raise AssertionError("runs s and u: no draft accepted")
+    if u["pauses"] + u["requeues"] <= 0:
+        raise AssertionError("run u: no pause or requeue")
     for r in res.values():
-        r.pop("rows")
+        for key in ("rows", "outs", "prompts"):
+            r.pop(key)
     return res
 
 
@@ -2858,18 +3112,32 @@ CONT_CASES = {  # label -> engine options over the full-width weights
     "bf16 pages": {"page_size": PAGE, "cache_dtype": "bf16"},
     "q8 pages": {"page_size": PAGE, "kv_quant": "q8"},
 }
+# verify and mixed dispatches over f32 pages; their pools hold what 8 slots
+# of CONT_STEPS positions use (1.07 GB, not the default 17.2): every engine
+# lives through the turns
+WINDOW_CASES = {
+    "spec-k 4": {"page_size": PAGE, "spec_k": SPEC_K,
+                 "kv_pages": CONT_SLOTS * CONT_STEPS // PAGE},
+    "dispatch-tokens 39": {"page_size": PAGE,
+                           "dispatch_tokens": MIXED_BUDGET,
+                           "kv_pages": CONT_SLOTS * CONT_STEPS // PAGE},
+}
+CONT_CASES.update(WINDOW_CASES)
 
 
 def continuous_full_width(torch, engine, tokenizer, batch):
     """Continuous throughput at full width: 16 requests (the shared-prefix
     prompts, cycled) through 8 slots, CONT_STEPS positions each, admission
     prefill at CONT_CHUNK, fused chains of 16 captured steps, greedy, for
-    the contiguous cache and f32, bf16 and Q8 pages (one engine each over
-    the same device weights). After a warm-up run of each (the captures),
-    runs in turns (contiguous, f32, bf16, q8, q8, bf16, f32, contiguous;
-    medians); then one run of each under torch.profiler for the device
-    time, read against its unprofiled wall: the busy share. The lockstep
-    batch of the same call stands beside it."""
+    the contiguous cache and f32, bf16 and Q8 pages, and over f32 pages
+    verify dispatches (spec_k SPEC_K) and mixed ones (dispatch_tokens
+    MIXED_BUDGET; one engine each over the same device weights). After a
+    warm-up run of each (the captures), runs in turns (each case, then
+    the cases backwards; medians; the window cases one run each, after
+    the turns); then one run of each under
+    torch.profiler for the device time, read against its unprofiled
+    wall: the busy share, and the share of K3 with its parts. The
+    lockstep batch of the same call stands beside it."""
     from distributed_llama_tpu_torch.runtime.continuous import \
         ContinuousEngine
 
@@ -2897,8 +3165,10 @@ def continuous_full_width(torch, engine, tokenizer, batch):
         raise AssertionError("continuous full width: the f32-page streams "
                              "differ from the contiguous engine's")
     runs = {label: [] for label in engines}
-    order = list(engines)
-    for label in order + order[::-1]:
+    # the window cases once each, outside the turns (run t's 115 padded
+    # dispatches take ~7 s a run)
+    order = [label for label in engines if label not in WINDOW_CASES]
+    for label in order + order[::-1] + list(WINDOW_CASES):
         runs[label].append(run(label)[1])
     res = {}
     for label, eng in engines.items():
@@ -2909,6 +3179,8 @@ def continuous_full_width(torch, engine, tokenizer, batch):
         dev_ms = sum(m for _, m, _ in dev)
         paged = sum(m for k, m, _ in dev if "paged_attention" in k
                     or "decode_attention" in k)
+        gemm = sum(m for k, m, _ in dev if "q40_gemm" in k
+                   or "q40_split_tf32" in k)
         row = dict(ms=ms, runs_ms=[r["ms"] for r in runs[label]],
                    steps=mid["steps"], ms_per_step=ms / mid["steps"],
                    tokens=mid["tokens"], decode_tokens=mid["decode_tokens"],
@@ -2916,7 +3188,7 @@ def continuous_full_width(torch, engine, tokenizer, batch):
                    decode_tokens_per_s=mid["decode_tokens"] / ms * 1e3,
                    avg_active=mid["avg_active"],
                    device_ms_per_step=dev_ms,
-                   attention_ms_per_step=paged,
+                   attention_ms_per_step=paged, k3_ms_per_step=gemm,
                    busy=dev_ms * mid["steps"] / ms if dev_ms else None,
                    cache_bytes=sum(t.nbytes for t in eng.cache),
                    replays=eng.graph_replays)
@@ -2926,7 +3198,8 @@ def continuous_full_width(torch, engine, tokenizer, batch):
             f"ms/step, {row['decode_tokens_per_s']:.0f} decode tokens/s "
             f"({row['tokens_per_s']:.0f} with the prompt echoes), "
             f"avg_active {row['avg_active']:.2f}; device "
-            f"{dev_ms:.3f} ms/step (attention {paged:.3f}), busy "
+            f"{dev_ms:.3f} ms/step (attention {paged:.3f}, K3 with its "
+            f"parts {gemm:.3f}), busy "
             f"{row['busy'] or 0:.1%} ({prof_ms:.3f} ms/step under the "
             f"profiler); cache {row['cache_bytes'] / 1e9:.3f} GB")
         for key, m, count in dev[:8]:
@@ -3231,7 +3504,7 @@ def profile_prefill(torch, engine, tokens, wall_ms):
 # --------------------------------------------------------------------------
 
 TP_PREFILL = 16  # the tp runs' prefill chunk: K3 and K4 over the bands
-TP_STEPS = 36    # run a's prompt: 19 prefilled positions, 17 decode steps
+TP_STEPS = 28    # run a's prompt: 19 prefilled positions, 9 decode steps
 TP_RUNS = {  # label -> (tp, scheme, extra flags); all 32 layers at 7B
     "t2 fused": (2, "fused", ["--prefill-chunk", str(TP_PREFILL)]),
     "t2 ref": (2, "ref", ["--prefill-chunk", str(TP_PREFILL)]),
@@ -3271,6 +3544,20 @@ TP_FLAG_RUNS = {
                   "--steps", "96", "--kv-page-size", str(PAGE),
                   "--kv-quant", "q8"], {}, "paged_attention_q8"),
 }
+# the verify and mixed windows at tp 2 under fused and ref (a flag run's
+# own --tp-scheme comes after the loop's), their census per dispatch held
+# to the budget (_window_census)
+for _scheme in ("fused", "ref"):
+    for _label, _flags in (("spec-k", ["--spec-k", str(SPEC_K)]),
+                           ("dispatch-tokens",
+                            ["--dispatch-tokens", str(MIXED_BUDGET)])):
+        TP_FLAG_RUNS[f"{_label} {_scheme}"] = (
+            ["--prompts-file", "{cont}", "--continuous", "--slots",
+             str(TP_ROWS), "--prefill-chunk", str(CONT_CHUNK), "--steps",
+             "96", "--kv-page-size", str(PAGE), *_flags, "--tp-scheme",
+             _scheme], {}, "paged_attention")
+WINDOW_FLAG_RUNS = [label for label in TP_FLAG_RUNS
+                    if label.startswith(("spec-k", "dispatch-tokens"))]
 # what the single card cannot run: gloo refuses send/recv of CUDA tensors
 # (the overlap scheme's ring hops), and a CUDA graph cannot capture gloo's
 # host-side collectives (over NCCL one hung: not yet ported)
@@ -3400,6 +3687,35 @@ def _tp_cli(cli, argv, group, env, streams):
                           if k.launches})
 
 
+@contextlib.contextmanager
+def _window_census(records: list):
+    """Record, for every verify or mixed dispatch a tensor-parallel
+    ContinuousEngine runs, its collectives (parallel/collectives.CENSUS,
+    reset just before) beside comm_stats.tp_collective_budget at t_len =
+    the window's rows: {kind: (count, bytes)} each."""
+    from distributed_llama_tpu_torch.parallel import collectives as C
+    from distributed_llama_tpu_torch.parallel.comm_stats import \
+        tp_collective_budget
+    from distributed_llama_tpu_torch.runtime import continuous
+
+    step = continuous.ContinuousEngine._window_step
+
+    def counted(self, kind, w):
+        C.CENSUS.reset()
+        step(self, kind, w)
+        want = tp_collective_budget(self.spec, self.group.size,
+                                    self.model.scheme,
+                                    t_len=w.tokens.numel())
+        records.append(({k: tuple(v) for k, v in C.CENSUS.counts.items()},
+                        {k: (c, b) for k, c, b in want.entries}))
+
+    continuous.ContinuousEngine._window_step = counted
+    try:
+        yield
+    finally:
+        continuous.ContinuousEngine._window_step = step
+
+
 def _tp_rank(rank, world, port, out, model, tok, depth_model, sparse, state,
              paths):
     """One rank of a gloo group whose ranks share cuda:0 (NCCL refuses two
@@ -3468,8 +3784,11 @@ def _tp_rank(rank, world, port, out, model, tok, depth_model, sparse, state,
                 for flag_label in TP_FLAG_RUNS:
                     argv, env = _tp_flag_argv(flag_label, depth_model, tok,
                                               paths)
-                    res[flag_label] = _tp_cli(cli, [*argv, *tp2], group,
-                                              env, streams)
+                    census: list = []
+                    with _window_census(census):
+                        res[flag_label] = _tp_cli(cli, [*tp2, *argv], group,
+                                                  env, streams)
+                    res[flag_label]["census"] = census
                 res["profile"] = _tp_cli(cli, [
                     "--model", depth_model, "--tokenizer", tok, "--prompt",
                     PROMPT, "--steps", str(TP_STEPS), "--prefill-chunk",
@@ -3602,6 +3921,12 @@ def _tp_flag_check(label, got, one, gaps):
     if got["rc"] != 0 or not got["launches"].get(kernel):
         raise AssertionError(f"tp 2 {label}: exit {got['rc']}, {kernel} "
                              f"launched {got['launches'].get(kernel)} times")
+    census = got["census"]
+    if (label in WINDOW_FLAG_RUNS) != bool(census) or any(
+            have != want for have, want in census):
+        raise AssertionError(f"tp 2 {label}: window census against the "
+                             f"budget {census[:2]} ({len(census)} "
+                             f"dispatches)")
     (pieces, rows), (want_pieces, want_rows) = (_tp_text(got["out"]),
                                                 _tp_text(one["out"]))
     part = gap = None
@@ -3622,9 +3947,13 @@ def _tp_flag_check(label, got, one, gaps):
            else "")
         + (f", {avg.group(1)} ms/token" if avg else "")
         + f", {got['wall_s']:.1f} s")
+    if census:
+        log(f"tp 2 {label}: {len(census)} window dispatches, each issuing "
+            f"the budget's collectives {census[0][1]} (first window)")
     return dict(launches=got["launches"], wall_s=got["wall_s"],
                 ms_per_token_avg=float(avg.group(1)) if avg else None,
-                parts_at=part, gap=gap, rows=len(rows))
+                parts_at=part, gap=gap, rows=len(rows),
+                window_dispatches=len(census))
 
 
 def _tp_profile_check(got):
@@ -4177,7 +4506,7 @@ def main() -> int:
                                   _pieces(out_a))
     mark("CLI runs a-j, o-r")
     e2e_cont = phase_e2e_continuous_runs(torch, model, tok, spec.n_layers)
-    mark("CLI runs k-n")
+    mark("CLI runs k-n, s-u")
     gc.collect()
     torch.cuda.empty_cache()
     tp, tp_launches = tp_full_width(torch, spec, model, tok, ref_a, ref_c,
@@ -4415,10 +4744,44 @@ def main() -> int:
                          f"each t_len 1 shape a layer",
                     shapes=rows)
 
+    def window_row(name, pages, what, t_len):
+        """K6's or K7's row at a verify or mixed window of t_len queries:
+        one 7B dispatch of CONT_SLOTS rows at shared pos 63."""
+        rows = [r for r in k6 if r["pages"] == pages and r["t_len"] == t_len]
+        unit_rows = [dict(r, per_token=32) for r in rows
+                     if r["case"] == "7b" and r["batch"] == CONT_SLOTS
+                     and r["pos"] == "shared 63"]
+        return dict(name=name, route="cuda", t_len=t_len,
+                    source="distributed_llama_tpu_torch/csrc/"
+                           "paged_attention.cu",
+                    replaces="distributed_llama_tpu/ops/"
+                             "pallas_paged_attention.py:"
+                             + ("332" if pages == "q8" else "285"),
+                    launches=CLI_LAUNCHES[name],
+                    window_launches=WINDOW_LAUNCHES.get((name, t_len), 0),
+                    max_abs_err=max(r["max_abs_err"] for r in rows),
+                    **unit_row(unit_rows),
+                    gather_ms=sum(r["gather_ms"] * 32 for r in unit_rows),
+                    unit=f"one 7B dispatch of {CONT_SLOTS} rows at shared "
+                         f"pos 63, t_len {t_len} queries a row, over {what} "
+                         f"pages of {PAGE}: 32 layers; launches = the "
+                         f"kernel's over every run, window_launches = "
+                         f"those at this t_len (runs s-u); library = "
+                         f"scaled_dot_product_attention with the window's "
+                         f"causal mask over the live pages gathered "
+                         f"beforehand (gather timed apart as gather_ms)",
+                    shapes=rows)
+
     kernels += [
         paged_row("paged_attention", "f32", "f32"),
         paged_row("paged_attention_kvbf16", "bf16", "bf16"),
         paged_row("paged_attention_q8", "q8", "Q8"),
+        *(window_row(name, pages, what, t)
+          for name, pages, what in (
+              ("paged_attention", "f32", "f32"),
+              ("paged_attention_kvbf16", "bf16", "bf16"),
+              ("paged_attention_q8", "q8", "Q8"))
+          for t in (16, MIXED_BUDGET)),
     ]
     def fused_row(name, kind, rows, unit):
         unit_rows = [r for r in rows if r["per_token"]]

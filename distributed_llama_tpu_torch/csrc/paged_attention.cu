@@ -10,8 +10,12 @@
 //   values of a position's flattened head-major (n_kv, hs) row.
 //   Query i of row b sits at position pos[b] + i and sees keys
 //   0..min(pos[b] + i, max_pages * ps - 1): the budget-edge clamp of a
-//   verify window whose tail runs past the row's virtual plane. Key t of
-//   row b lives at page row layer * P + table[b, t / ps], offset t % ps.
+//   verify window whose tail runs past the row's virtual plane. t_len is
+//   1 for a decode step, K for a speculative verify window and the
+//   dispatch budget T for a token-budget mixed window; each (row, query)
+//   is its own grid row, so any t_len with batch * t_len <= 65535 runs.
+//   Key t of row b lives at page row layer * P + table[b, t / ps],
+//   offset t % ps.
 //   out (B, t_len, n_q * hs) f32.
 //
 // Replaces the JAX package's ops/pallas_paged_attention.py
@@ -292,8 +296,10 @@ int dispatch(const PagedArgs& a, const P& planes, int kv_mul, int n_pages,
   // the layer's pool positions, which the walk holds as ints
   const long long positions =
       (static_cast<long long>(a.layer_base) + n_pages) * a.ps;
+  // any window: a block takes one (row, query), so B * t_len is bound only
+  // by grid y (a verify window is K queries, a mixed one the budget)
   if (a.hs % 4 != 0 || a.hs > 128 || a.batch < 1 || a.t_len < 1 ||
-      a.t_len > 8 || a.batch * a.t_len > 65535 || a.ps < 1 ||
+      a.batch * a.t_len > 65535 || a.ps < 1 ||
       a.max_pages < 1 || n_pages < 1 || a.most < 1 || a.most > kMaxSplits ||
       a.least < 1 || positions > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -340,10 +346,11 @@ int dispatch_pages(const void* q, const void* k4, const void* v4, void* out,
 }  // namespace
 
 // Launch on `stream`; returns the cudaGetLastError() code (0 = launched).
-// Takes kv_mul in {1, 2, 4, 8}, hs a multiple of 4 up to 128, t_len 1..8
-// and the plan (most, least) with 1 <= most <= 32; `part` holds batch *
-// t_len * n_kv * most * kv_mul * (hs + 2) floats and `tickets` batch *
-// t_len * n_kv zeroed int32 (both untouched under a one-split plan). K6
+// Takes kv_mul in {1, 2, 4, 8}, hs a multiple of 4 up to 128, t_len >= 1
+// with batch * t_len <= 65535, and the plan (most, least) with 1 <= most <=
+// 32; `part` holds batch * t_len * n_kv * most * kv_mul * (hs + 2) floats
+// and `tickets` batch * t_len * n_kv zeroed int32 (both untouched under a
+// one-split plan). K6
 // over f32 pages:
 extern "C" int paged_attention(const void* q, const void* k4, const void* v4,
                                void* out, void* part, void* tickets,

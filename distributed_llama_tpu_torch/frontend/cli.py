@@ -22,19 +22,25 @@ With --prompts-file, --continuous runs the continuous-batching engine:
 dispatch), --prefill-chunk N [--fast-prefill] (admission prefill),
 --kv-cache-dtype, and with --kv-page-size P the paged KV pool with radix
 prefix sharing, sized by --kv-pages N and stored as --kv-quant f32|q8
-(DLLAMA_KV_QUANT when the flag is absent, read once here). The JAX CLI's
-checks and messages come with them: q8 without a page size, --continuous or
---slots without a prompts file and negative slots exit 2, and
---prefill-chunk with --prompts-file needs --continuous.
+(DLLAMA_KV_QUANT when the flag is absent, read once here), and over the
+pages --spec-k K [--spec-ngram N] (speculative decoding: K-query verify
+dispatches of n-gram drafts, runtime/speculative.py) or --dispatch-tokens
+T|-1 (token-budget mixed dispatches), which print the JAX CLI's
+"Speculative:" and "Token budget:" lines. The JAX CLI's checks and
+messages come with them: q8, --spec-k or --dispatch-tokens without a page
+size, --spec-k with --dispatch-tokens, --continuous or --slots without a
+prompts file and negative slots exit 2, and --prefill-chunk with
+--prompts-file needs --continuous.
 
 On the lockstep path --metrics, --spec-k K and --kv-page-size P print the
 JAX package's note that they only apply to the continuous engine, and the
-run goes on, as there; --slots, --block-steps and --kv-pages are ignored
-there, as in the JAX CLI. --continuous --kv-pages N without --kv-page-size
-reaches the engine, which raises ValueError after the load, as the JAX
-package's ContinuousEngine does. --nthreads is accepted and ignored, as in
-the JAX CLI. With --continuous, --spec-k and --metrics exit 2 "not yet
-ported"; without --prompts-file every flag of the continuous engine does.
+run goes on, as there; --slots, --block-steps, --kv-pages and
+--dispatch-tokens are ignored there, as in the JAX CLI. --continuous
+--kv-pages N without --kv-page-size reaches the engine, which raises
+ValueError after the load, as the JAX package's ContinuousEngine does.
+--nthreads is accepted and ignored, as in the JAX CLI. With --continuous,
+--metrics exits 2 "not yet ported"; without --prompts-file every flag of
+the continuous engine does (--spec-ngram with --spec-k too).
 Tensor parallelism: --tp N runs N ranks, one process each (spawned here):
 rank r on cuda:r over NCCL, or with --device cpu N gloo ranks on the CPU.
 --tp-scheme ref|fused|overlap (= DLLAMA_TP_SCHEME) picks the collectives
@@ -73,11 +79,10 @@ peer that is still fetching); each rank then checks that its bands were
 the ones fetched and exits 2 before loading if not.
 
 Every other flag of the JAX package's ``inference`` exits 2 with "not yet
-ported" before the model loads; that includes --dispatch-tokens and the
-KV tier flags. --sp 1, --spec-k 0, --kv-page-size 0, --dispatch-tokens 0,
---kv-host-pages 0 and --spec-ngram N without --spec-k name what the port
-runs and are accepted, as the JAX CLI runs its plain path at those
-values.
+ported" before the model loads; that includes the KV tier flags. --sp 1,
+--spec-k 0, --kv-page-size 0, --dispatch-tokens 0, --kv-host-pages 0 and
+--spec-ngram N without --spec-k name what the port runs and are
+accepted, as the JAX CLI runs its plain path at those values.
 
 ``convert`` is the port's converter (convert.py): Meta or HF checkpoints
 to a reference-format .bin.
@@ -117,11 +122,8 @@ _FT = {"f32": FloatType.F32, "f16": FloatType.F16, "q40": FloatType.Q40,
 _UNPORTED_SWITCHES = ("--log-json",)
 _UNPORTED_VALUED = ("--kv-disk-dir", "--kv-disk-gb")
 # unported flags that take the JAX CLI's type, and the value at which the
-# JAX CLI runs the path the port has (None: any value, while --spec-k is
-# off, as the n-gram drafter runs only under --spec-k); other values are
-# not yet ported
-_NEUTRAL_VALUED = {"--dispatch-tokens": (int, 0),
-                   "--kv-host-pages": (int, 0), "--spec-ngram": (int, None)}
+# JAX CLI runs the path the port has; other values are not yet ported
+_NEUTRAL_VALUED = {"--kv-host-pages": (int, 0)}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -246,7 +248,29 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics", action="store_true",
                     help="with --prompts-file: a note (nothing to collect)")
     ap.add_argument("--spec-k", type=int, default=0, metavar="K",
-                    help="with --prompts-file: a note (continuous only)")
+                    help="with --continuous and --kv-page-size: "
+                         "self-speculative decoding — draft up to K-1 "
+                         "tokens per row (n-gram prompt lookup, no second "
+                         "model) and verify them with the current token "
+                         "in ONE K-query dispatch; lossless (greedy "
+                         "streams equal, sampled rows keep the sampler's "
+                         "distribution via rejection sampling). Supersedes "
+                         "--block-steps (0 = off); on the lockstep batch a "
+                         "note")
+    ap.add_argument("--spec-ngram", type=int, default=None, metavar="N",
+                    help="longest n-gram the speculative drafter matches "
+                         "against the emitted stream (falls back to "
+                         "shorter n-grams down to 1; default 3)")
+    ap.add_argument("--dispatch-tokens", type=int, default=0, metavar="T",
+                    help="with --continuous and --kv-page-size: "
+                         "token-budget mixed dispatches — every device "
+                         "step carries all active decode rows (1 token "
+                         "each) plus ONE prefill slice cut to the "
+                         "remaining budget of T tokens, in a single "
+                         "fused forward (prefill no longer stalls "
+                         "in-flight decodes behind a separate chunk "
+                         "dispatch). -1 sizes from --prefill-chunk; "
+                         "0 = off. Incompatible with --spec-k")
     for flag in _UNPORTED_SWITCHES:
         ap.add_argument(flag, action="store_true", default=argparse.SUPPRESS,
                         help="not yet ported")
@@ -255,9 +279,8 @@ def _parser() -> argparse.ArgumentParser:
                         help="not yet ported")
     for flag, (kind, neutral) in _NEUTRAL_VALUED.items():
         ap.add_argument(flag, type=kind, default=argparse.SUPPRESS,
-                        help="not yet ported; the JAX CLI's plain path" + (
-                            f" at {neutral}" if neutral is not None else
-                            " without --spec-k") + " runs")
+                        help=f"not yet ported; the JAX CLI's plain path at "
+                             f"{neutral} runs")
     return ap
 
 
@@ -266,21 +289,20 @@ def _unported(args) -> list[str]:
              if f[2:].replace("-", "_") in vars(args)]
     for flag, (_, neutral) in _NEUTRAL_VALUED.items():
         value = vars(args).get(flag[2:].replace("-", "_"))
-        if value is None:
-            continue
-        if value != neutral and (neutral is not None or args.spec_k):
+        if value is not None and value != neutral:
             given.append(f"{flag} {value}")
     if args.sp != 1:
         given.append(f"--sp {args.sp}")
     if args.continuous:  # the continuous engine's unported options
         if args.metrics:
             given.append("--metrics")
-        if args.spec_k:
-            given.append(f"--spec-k {args.spec_k}")
     elif not args.prompts_file:  # flags of the batch paths, ported there
+        if args.spec_k and args.spec_ngram is not None:
+            given.append(f"--spec-ngram {args.spec_ngram}")
         for flag, value, neutral in (
                 ("--metrics", args.metrics, False),
                 ("--spec-k", args.spec_k, 0),
+                ("--dispatch-tokens", args.dispatch_tokens, 0),
                 ("--kv-page-size", args.kv_page_size, 0),
                 ("--kv-pages", args.kv_pages, 0),
                 ("--block-steps", args.block_steps, 1),
@@ -347,6 +369,15 @@ def cmd_inference(argv: list[str], quiet: bool = False,
     if args.spec_k and args.kv_page_size <= 0:
         print("--spec-k needs the paged KV cache: add --kv-page-size P "
               "(with --continuous)", file=sys.stderr)
+        return 2
+    if args.spec_k and args.dispatch_tokens:
+        print("--spec-k is incompatible with --dispatch-tokens: the "
+              "verify window and the prefill slice both claim the "
+              "per-row span (drop one)", file=sys.stderr)
+        return 2
+    if args.dispatch_tokens and args.kv_page_size <= 0:
+        print("--dispatch-tokens needs the paged KV cache: add "
+              "--kv-page-size P (with --continuous)", file=sys.stderr)
         return 2
     if args.kv_quant == "q8" and args.kv_page_size <= 0:
         print("--kv-quant q8 quantizes paged KV pages: add "
@@ -617,7 +648,11 @@ def _run(args, prompts, quiet: bool, group, scheme: str, tp: int) -> int:
                                 page_size=args.kv_page_size,
                                 kv_pages=args.kv_pages,
                                 kv_quant=args.kv_quant, device=device,
-                                quiet=quiet, **tp_args)
+                                quiet=quiet, spec_k=args.spec_k,
+                                spec_ngram=(3 if args.spec_ngram is None
+                                            else args.spec_ngram),
+                                dispatch_tokens=args.dispatch_tokens,
+                                **tp_args)
             return 0
         if not quiet:
             _lockstep_notes(args)

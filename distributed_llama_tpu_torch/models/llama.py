@@ -30,6 +30,15 @@ B = 1 over a single-sequence cache viewed as (L, 1, S, n_kv, hs) it is the
 T = 1 step with device inputs: K1 and K5, which at B = 1 computes K2's
 sums in K2's order, so its logits equal ``forward``'s bit for bit.
 
+``Llama.forward_batch_paged`` is that step over the paged pool (K6, or K7
+over Q8 pages); ``forward_batch_spec_paged`` (a speculative verify window
+of K tokens a row) and ``forward_batch_mixed_paged`` (a token-budget
+window of T positions a row, each row live for its span) are its
+(B, T)-window twins: the B*T rows go through every product as one flat
+batch (K3 above 8 rows), each window is written through the page table
+and then attends as a whole through K6/K7, query i of row b seeing
+positions 0..pos[b] + i.
+
 ``Llama.forward_fused`` (the JAX package's ``_forward_fused``, behind
 ``DLLAMA_LAYER_FUSION=headtail|on``) is the T = 1 step through the fused
 decode-layer kernels of ops/layer.py: K8, the k/v write, the decode
@@ -88,6 +97,7 @@ from ..ops.paged_attention import \
 from ..ops.q40 import q40_matmul, q40_matmul_plain
 from ..ops.quants import QK, FloatType, dequantize_q80_planes, \
     quantize_q80_torch
+from ..runtime.paging import SCRAP_PAGE
 from .spec import TransformerSpec
 
 __all__ = ["KVCache", "init_cache", "init_cache_batch", "init_cache_paged",
@@ -184,31 +194,51 @@ def paged_cache_planes(cache) -> tuple[tuple, int]:
             cache.v.view(L * P, *cache.v.shape[2:])), P
 
 
-def _page_coords(table: torch.Tensor, pos: torch.Tensor, idx: int,
-                 n_pages: int, page_size: int):
-    """(page row, offset) (B,) int64 of each row's position pos[b]: page
-    table[b, pos[b] // ps] of layer idx, computed on the device."""
-    page = table.gather(1, (pos // page_size).long()[:, None])[:, 0]
-    return idx * n_pages + page.long(), (pos % page_size).long()
+def _window_coords(table: torch.Tensor, pos: torch.Tensor, t_len: int,
+                   idx: int, n_pages: int, page_size: int,
+                   span: torch.Tensor | None = None):
+    """(page row, offset) (B, t_len) int64 of each row's window positions
+    pos[b] + i: page table[b, p // ps] of layer idx, computed on the
+    device. A position at or past the virtual plane (p >= max_pages * ps,
+    a window running past the budget edge) and, with ``span``, an offset
+    i >= span[b] (a mixed window's padding) go to the scrap page, never
+    clamped onto a live page (the JAX package's spec_verify_attention /
+    mixed_attention location math)."""
+    max_pages = table.shape[1]
+    i = torch.arange(t_len, device=pos.device)[None]
+    p = pos.long()[:, None] + i
+    live = p < max_pages * page_size
+    if span is not None:
+        live = live & (i < span.long()[:, None])
+    logical = torch.clamp(p // page_size, max=max_pages - 1)
+    page = torch.where(live, table.gather(1, logical).long(), SCRAP_PAGE)
+    return idx * n_pages + page, p % page_size
 
 
 def paged_decode_attention(head_size: int, kv_mul: int, n_pages: int,
                            q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            k4: torch.Tensor, v4: torch.Tensor, idx: int,
                            pos: torch.Tensor, table: torch.Tensor,
-                           route: Route) -> torch.Tensor:
-    """Decode attention over the paged pool: row b's k/v (B, n_kv*hs) are
-    written in place at (page table[b, pos[b] // ps], offset pos[b] % ps)
-    of the (L*P, ps, n_kv, hs) planes (a row parked on the scrap page
-    writes there), then q (B, n_q*hs) attends through ``route.paged``
-    (K6). Nothing is read on the host. Returns (B, n_q*hs)."""
-    B, n_kv = q.shape[0], k4.shape[2]
-    rows, off = _page_coords(table, pos, idx, n_pages, k4.shape[1])
-    k4.index_put_((rows, off), k.reshape(B, n_kv, head_size).to(k4.dtype))
-    v4.index_put_((rows, off), v.reshape(B, n_kv, head_size).to(v4.dtype))
-    ao = route.paged(q.reshape(B, 1, -1).contiguous(), k4, v4, idx, pos,
-                     table, n_pages, kv_mul)
-    return ao.reshape(B, -1)
+                           route: Route,
+                           span: torch.Tensor | None = None) -> torch.Tensor:
+    """Attention of a window of t_len queries per row over the paged pool
+    (the JAX package's paged_decode_attention at t_len 1,
+    spec_verify_attention at K and mixed_attention with ``span``): q
+    (B, t_len, n_q*hs), k/v (B, t_len, n_kv*hs). Row b's k/v at offset i
+    are written in place at the (page, offset) of position pos[b] + i
+    (_window_coords: past the virtual plane or the span, the scrap page),
+    then the whole window attends through ``route.paged`` (K6), query i
+    seeing positions 0..pos[b] + i. Nothing is read on the host. Returns
+    (B, t_len, n_q*hs)."""
+    B, t_len, n_kv = q.shape[0], q.shape[1], k4.shape[2]
+    rows, off = _window_coords(table, pos, t_len, idx, n_pages, k4.shape[1],
+                               span)
+    k4.index_put_((rows, off),
+                  k.reshape(B, t_len, n_kv, head_size).to(k4.dtype))
+    v4.index_put_((rows, off),
+                  v.reshape(B, t_len, n_kv, head_size).to(v4.dtype))
+    return route.paged(q.contiguous(), k4, v4, idx, pos, table, n_pages,
+                       kv_mul)
 
 
 def paged_attention_q8(head_size: int, kv_mul: int, n_pages: int,
@@ -216,20 +246,23 @@ def paged_attention_q8(head_size: int, kv_mul: int, n_pages: int,
                        kq4: torch.Tensor, kd4: torch.Tensor,
                        vq4: torch.Tensor, vd4: torch.Tensor, idx: int,
                        pos: torch.Tensor, table: torch.Tensor,
-                       route: Route) -> torch.Tensor:
-    """paged_decode_attention over Q8 pages: each row's flattened k/v is
-    quantized on write (quantize_q80_torch, the JAX package's
-    quantize_q80_jax), codes and deltas written at the same (page,
-    offset), then ``route.paged_q8`` (K7) attends. Returns (B, n_q*hs)."""
-    B, n_kv = q.shape[0], kq4.shape[2]
-    rows, off = _page_coords(table, pos, idx, n_pages, kq4.shape[1])
+                       route: Route,
+                       span: torch.Tensor | None = None) -> torch.Tensor:
+    """paged_decode_attention over Q8 pages (the JAX package's
+    paged_attention_q8, ``span`` its mixed-window write gate): each
+    (row, offset)'s flattened k/v is quantized on write
+    (quantize_q80_torch, the JAX package's quantize_q80_jax), codes and
+    deltas written at the same (page, offset), then ``route.paged_q8``
+    (K7) attends. Returns (B, t_len, n_q*hs)."""
+    B, t_len, n_kv = q.shape[0], q.shape[1], kq4.shape[2]
+    rows, off = _window_coords(table, pos, t_len, idx, n_pages,
+                               kq4.shape[1], span)
     for x, codes, deltas in ((k, kq4, kd4), (v, vq4, vd4)):
-        qs, d = quantize_q80_torch(x)
-        codes.index_put_((rows, off), qs.reshape(B, n_kv, head_size))
+        qs, d = quantize_q80_torch(x.reshape(B, t_len, -1))
+        codes.index_put_((rows, off), qs.reshape(B, t_len, n_kv, head_size))
         deltas.index_put_((rows, off), d)
-    ao = route.paged_q8(q.reshape(B, 1, -1).contiguous(), kq4, kd4, vq4,
-                        vd4, idx, pos, table, n_pages, kv_mul)
-    return ao.reshape(B, -1)
+    return route.paged_q8(q.contiguous(), kq4, kd4, vq4, vd4, idx, pos,
+                          table, n_pages, kv_mul)
 
 
 def gather_pages(cache: KVCache, table: torch.Tensor,
@@ -644,38 +677,87 @@ class Llama(nn.Module):
         Reads no device value on the host; the caller keeps each row's
         positions inside its mapped pages (or parks the row on the scrap
         page)."""
-        spec, p = self.spec, self.params
+        return self._paged_window(cache, tokens[:, None], pos, table, None,
+                                  route, "forward_batch_paged")[:, 0]
+
+    def forward_batch_spec_paged(self, cache, tokens: torch.Tensor,
+                                 pos: torch.Tensor, table: torch.Tensor,
+                                 route: Route | None = None
+                                 ) -> torch.Tensor:
+        """The K-query speculative verify step over the paged pool (the
+        JAX package's forward_batch_spec_paged): row b feeds tokens[b]
+        (its current token and K-1 drafts, (B, K) on the device) at
+        positions pos[b]..pos[b]+K-1 and gets all K next-token logit rows,
+        (B, K, vocab). Every step but attention takes the B*K query rows
+        as one flat batch (so the Q40 products run at T = B*K: K3 above
+        8 rows); attention runs the whole window through K6/K7, query i
+        seeing positions 0..pos[b]+i, after every write of the window. A
+        window position past the virtual plane writes to the scrap page.
+        Rejected drafts' k/v lie past the accepted position, where the
+        next dispatch overwrites them before anything reads them."""
+        return self._paged_window(cache, tokens, pos, table, None, route,
+                                  "forward_batch_spec_paged")
+
+    def forward_batch_mixed_paged(self, cache, tokens: torch.Tensor,
+                                  pos: torch.Tensor, span: torch.Tensor,
+                                  table: torch.Tensor,
+                                  route: Route | None = None
+                                  ) -> torch.Tensor:
+        """The token-budget mixed dispatch over the paged pool (the JAX
+        package's forward_batch_mixed_paged): tokens (B, T) with row b
+        live in columns 0..span[b]-1 (span (B,) int32: 1 for a decode
+        row, up to the budget for the prefill slice, 0 for an idle row),
+        positions pos[b]..pos[b]+T-1. Offsets at or past a row's span
+        write to the scrap page and give junk logit rows the caller
+        discards; live rows see exactly what sequential decode would.
+        Returns logits (B, T, vocab)."""
+        return self._paged_window(cache, tokens, pos, table, span, route,
+                                  "forward_batch_mixed_paged")
+
+    def _paged_window(self, cache, tokens: torch.Tensor, pos: torch.Tensor,
+                      table: torch.Tensor, span: torch.Tensor | None,
+                      route: Route | None, name: str) -> torch.Tensor:
+        """The paged forward over a (B, T) token window: logits
+        (B, T, vocab)."""
+        spec = self.spec
         route = self.route if route is None else route
-        batch = tokens.shape[0]
+        batch, t_len = tokens.shape
         planes, n_pages = paged_cache_planes(cache)
         ps = planes[0].shape[1]
         if pos.dtype != torch.int32 or tuple(pos.shape) != (batch,):
-            raise ValueError(f"forward_batch_paged: pos must be an int32 "
-                             f"({batch},) tensor, got {pos.dtype} "
-                             f"{tuple(pos.shape)}")
+            raise ValueError(f"{name}: pos must be an int32 ({batch},) "
+                             f"tensor, got {pos.dtype} {tuple(pos.shape)}")
+        if span is not None and (span.dtype != torch.int32
+                                 or tuple(span.shape) != (batch,)):
+            raise ValueError(f"{name}: span must be an int32 ({batch},) "
+                             f"tensor, got {span.dtype} "
+                             f"{tuple(span.shape)}")
         if (table.dtype != torch.int32
                 or tuple(table.shape) != (batch, spec.seq_len // ps)):
-            raise ValueError(f"forward_batch_paged: table must be int32 "
-                             f"({batch}, {spec.seq_len // ps}), got "
-                             f"{table.dtype} {tuple(table.shape)}")
+            raise ValueError(f"{name}: table must be int32 ({batch}, "
+                             f"{spec.seq_len // ps}), got {table.dtype} "
+                             f"{tuple(table.shape)}")
         if planes[0].shape[0] != spec.n_layers * n_pages:
-            raise ValueError("forward_batch_paged: the pool does not hold "
-                             "this model's layers")
-        q8 = isinstance(cache, PagedKVQ8)
+            raise ValueError(f"{name}: the pool does not hold this model's "
+                             f"layers")
+        attend = (paged_attention_q8 if isinstance(cache, PagedKVQ8)
+                  else paged_decode_attention)
         hs, kv_mul = spec.head_size, spec.kv_mul
-        x = p["tok_embedding"][tokens].to(torch.float32)
-        rope = rope_rows(self.freq, pos)
+        x = self.params["tok_embedding"][tokens.reshape(-1)].to(
+            torch.float32)
+        positions = (pos[:, None] + torch.arange(
+            t_len, dtype=torch.int32, device=pos.device)[None]).reshape(-1)
+        rope = rope_rows(self.freq, positions)
         for idx, lw in enumerate(self.layers):
             x = self._enter(x, idx)
             q, k, v = _qkv_proj(spec, lw, x, rope, route)
-            if q8:
-                ao = paged_attention_q8(hs, kv_mul, n_pages, q, k, v,
-                                        *planes, idx, pos, table, route)
-            else:
-                ao = paged_decode_attention(hs, kv_mul, n_pages, q, k, v,
-                                            *planes, idx, pos, table, route)
-            x = self._post(lw, x, ao, route)
-        return self._logits(self._enter(x, spec.n_layers), route)
+            ao = attend(hs, kv_mul, n_pages, q.reshape(batch, t_len, -1),
+                        k.reshape(batch, t_len, -1),
+                        v.reshape(batch, t_len, -1), *planes, idx, pos,
+                        table, route, span)
+            x = self._post(lw, x, ao.reshape(batch * t_len, -1), route)
+        logits = self._logits(self._enter(x, spec.n_layers), route)
+        return logits.reshape(batch, t_len, -1)
 
     def _batch_rows(self, batch: int, device) -> torch.Tensor:
         """(L, B) int64 rows layer*B + b of the (L*B, S, n_kv, hs) view,

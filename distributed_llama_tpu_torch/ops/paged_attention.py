@@ -10,8 +10,11 @@ n_kv, hs) (plus the (L*P, ps, n_kv*hs/32) f16 delta planes of Q8 pages);
 the device. Query i of row b sees keys 0..min(pos[b]+i, max_pages*ps-1)
 (the budget-edge clamp), key t living at page row layer*P + table[b, t //
 ps], offset t % ps. They return (B, t_len, n_q*hs) f32. The decode step
-launches t_len 1; t_len up to 8 (a verify window) is built and held against
-the plain version on the card.
+launches t_len 1, a speculative verify window t_len K and a token-budget
+mixed window t_len T (the dispatch budget, 39 at 8 slots and chunk 32):
+the kernels take any t_len with B*t_len <= MAX_ROWS (the launch's grid y
+holds one (row, query) a block, and the plan and scratch are sized by
+B*t_len; nothing in a block depends on t_len).
 
 The kernels run K5's walk (``attention.decode_attention_batch``) with the
 paged key address: each (row, query)'s keys are cut into splits across the
@@ -53,7 +56,7 @@ from .q40 import sm_count
 from .quants import QK, dequantize_q80_planes
 
 KV_QUANTS = ("f32", "q8")  # the --kv-quant vocabulary (f32 = cache dtype)
-MAX_T_LEN = 8  # the longest query window the kernels take
+MAX_ROWS = 65535  # B*t_len, the launch's grid y (one (row, query) a block)
 
 # (q, k4, v4, out, part, tickets, layer, pos, table, batch, t_len, n_pages,
 # max_pages, ps, n_kv, kv_mul, hs, most, least, scale, stream); Q8: kq4,
@@ -86,14 +89,16 @@ def kv_quant_mode() -> str:
 
 def supports_paged(page_size: int, n_kv: int, head_size: int, t_len: int,
                    kv_mul: int = 1, q8: bool = False) -> bool:
-    """The shapes K6 and K7 take: t_len 1..8 queries, kv_mul in {1, 2, 4,
-    8}, a head size that is a multiple of 4 up to 128, any page size; Q8
-    pages also need the flattened (n_kv, hs) row to divide into 32-value
-    blocks. (The JAX gate's VMEM budget has no counterpart: a block holds
-    no page.) A CUDA call outside them raises."""
+    """The shapes K6 and K7 take: t_len >= 1 queries a row (the caller
+    checks B*t_len <= MAX_ROWS), kv_mul in {1, 2, 4, 8}, a head size that
+    is a multiple of 4 up to 128, any page size; Q8 pages also need the
+    flattened (n_kv, hs) row to divide into 32-value blocks. (The JAX
+    gate's VMEM budget, which sends t_len > 8 to its XLA gather, has no
+    counterpart: a block holds one query and no page.) A CUDA call
+    outside them raises."""
     if q8 and (n_kv * head_size) % QK:
         return False
-    return (1 <= t_len <= MAX_T_LEN and kv_mul in _KV_MULS
+    return (t_len >= 1 and kv_mul in _KV_MULS
             and head_size % 4 == 0 and head_size <= _MAX_HEAD
             and page_size >= 1)
 
@@ -232,11 +237,12 @@ def _check(name, q, planes, layer, pos, table, n_pages, kv_mul,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: tensors must be contiguous and "
                              f"16-byte aligned")
-    if not supports_paged(ps, n_kv, hs, t_len, kv_mul, q8):
-        raise ValueError(f"{name}: the kernel takes t_len 1..{MAX_T_LEN}, "
+    if not supports_paged(ps, n_kv, hs, t_len, kv_mul, q8) \
+            or batch * t_len > MAX_ROWS:
+        raise ValueError(f"{name}: the kernel takes B*t_len <= {MAX_ROWS}, "
                          f"kv_mul in {_KV_MULS} and a head size that is a "
                          f"multiple of 4 up to {_MAX_HEAD} (Q8: n_kv*hs a "
-                         f"multiple of {QK}), got t_len={t_len} "
+                         f"multiple of {QK}), got B={batch} t_len={t_len} "
                          f"kv_mul={kv_mul} n_kv={n_kv} hs={hs}")
     if q.shape[2] != n_kv * kv_mul * hs:
         raise ValueError(f"{name}: q rows must hold {n_kv * kv_mul * hs} "

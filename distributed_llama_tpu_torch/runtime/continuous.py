@@ -40,12 +40,29 @@ logits come back whole, and every rank schedules and samples the same
 way. A CUDA graph over the group's collectives is not yet ported: pass
 graph=False.
 
-Left out (later slices): speculative decoding and mixed dispatch (and
-their tensor-parallel twins), the KV tiers and remote page adoption,
-chunk-boundary prefill preemption (``prefill_hold``), the journal,
-recovery, suspend, the server, metrics, SLO, ledger and census books,
-chaos and the watchdog. Their engine arguments raise "not yet ported"
-when not at their defaults.
+Over the paged pool two more dispatch kinds replace the step (the JAX
+engine's step_many routing). ``spec_k`` K (speculative decoding,
+runtime/speculative.py): each row feeds its current token plus its
+pending forced prompt tokens and then up to K-1 n-gram drafts in ONE
+K-query verify forward (``Llama.forward_batch_spec_paged``); the host
+replays each row position by position and stops at the first outcome that
+differs from the fed input, then rolls the page table back to the
+accepted length (``_trim_pages``). ``dispatch_tokens`` T (token-budget
+mixed dispatch): every active decode row takes one position and ONE row
+with forced prompt tokens left (the lowest request index) takes up to the
+rest of the budget, in one (slots, T) forward
+(``Llama.forward_batch_mixed_paged``); admission prefill is then off, the
+prompt rides the slices. Both need pages, they exclude each other, and on
+the card each is one captured graph per (kind, greedy_only) over static
+(slots, K) or (slots, T) token rows, the positions, the spans and the page
+table; the greedy graph argmaxes on the card and copies (B, K|T) int32
+back, the sampled one the logits.
+
+Left out (later slices): the KV tiers and remote page adoption,
+chunk-boundary prefill preemption (``prefill_hold``) and the SLO ranking
+of the mixed slice, the journal, recovery, suspend, the server, metrics,
+SLO, ledger and census books, chaos and the watchdog. Their engine
+arguments raise "not yet ported" when not at their defaults.
 """
 
 from __future__ import annotations
@@ -70,10 +87,11 @@ from ..ops import attention, paged_attention, q40
 from ..ops._build import build
 from ..parallel.mesh import TPGroup, single
 from ..parallel.tp import validate_kv_quant
-from .decode import GraphStep, sample_device_dynamic
+from .decode import GraphStep, greedy_verify_tokens, sample_device_dynamic
 from .generate import _no_capture, _tp_model, run_chunked_prefill
 from .paging import SCRAP_PAGE, PagedAllocator
 from .sampling import Sampler
+from .speculative import accept_or_resample, draft_tokens
 
 
 @dataclasses.dataclass
@@ -133,6 +151,14 @@ class ContinuousStats:
     pauses: int = 0          # page-starved slot pauses (one per dispatch)
     requeues: int = 0        # admissions the dry pool sent back
     prefill_chunks: int = 0  # admission-prefill forward passes
+    spec_proposed: int = 0   # drafted tokens fed to verify dispatches
+    spec_accepted: int = 0   # drafts the verify replay accepted
+    overrun_steps: int = 0   # mixed dispatches past the budget (0 here)
+
+    @property
+    def spec_accept_rate(self) -> float:
+        """Accepted drafts over proposed ones."""
+        return self.spec_accepted / max(self.spec_proposed, 1)
 
     @property
     def tokens_per_s(self) -> float:
@@ -161,6 +187,22 @@ class _Chain:
         self.index = buf((), torch.int64)
         self.toks = buf((k, batch), torch.int64)
         self.acts = buf((k, batch), torch.bool, False)
+        self.graph: GraphStep | None = None
+
+
+class _Window:
+    """The static buffers of one verify or mixed dispatch and its graph:
+    the (B, W) input tokens and what comes back, (B, W) int32 ids
+    (greedy) or (B, W, vocab) logits (sampled)."""
+
+    def __init__(self, width: int, batch: int, vocab: int,
+                 greedy_only: bool, device):
+        self.tokens = torch.zeros((batch, width), dtype=torch.int64,
+                                  device=device)
+        shape = (batch, width) if greedy_only else (batch, width, vocab)
+        self.out = torch.zeros(shape, dtype=torch.int32 if greedy_only
+                               else torch.float32, device=device)
+        self.greedy_only = greedy_only
         self.graph: GraphStep | None = None
 
 
@@ -193,14 +235,14 @@ class ContinuousEngine:
                  kv_pages: int = 0, prefix_share: bool = True,
                  kv_quant: str | None = None, device="cuda",
                  graph: bool | None = None, mesh=None, spec_k: int = 0,
+                 spec_ngram: int = 3,
                  dispatch_tokens: int = 0, metrics=None, slo=None,
                  chaos=None, journal=None, watchdog=None,
                  kv_host_pages: int = 0, kv_disk_dir: str | None = None,
                  remote_pages: bool = False, slo_priority: bool = False,
                  scheme: str | None = None):
         given = {name: value for name, value in (
-            ("spec_k", spec_k),
-            ("dispatch_tokens", dispatch_tokens), ("metrics", metrics),
+            ("metrics", metrics),
             ("slo", slo), ("chaos", chaos), ("journal", journal),
             ("watchdog", watchdog), ("kv_host_pages", kv_host_pages),
             ("kv_disk_dir", kv_disk_dir), ("remote_pages", remote_pages),
@@ -217,6 +259,35 @@ class ContinuousEngine:
                              f"package's dp and sp axes are not ported)")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
+        # the JAX engine's checks and messages
+        if spec_k:
+            if spec_k < 2:
+                raise ValueError(f"spec_k={spec_k}: the verify window is "
+                                 f"current token + K-1 drafts, so K >= 2 "
+                                 f"(K=0 disables)")
+            if page_size <= 0:
+                raise ValueError(
+                    "spec_k requires the paged KV cache (pass "
+                    "--kv-page-size with --spec-k): acceptance rollback "
+                    "truncates the page-table logical length")
+        if dispatch_tokens == -1:  # auto: every slot's decode token plus a
+            dispatch_tokens = slots - 1 + max(prefill_chunk, 2)  # slice
+        if dispatch_tokens:
+            if dispatch_tokens < 2:
+                raise ValueError(
+                    f"dispatch_tokens={dispatch_tokens}: the budget holds "
+                    f"decode rows plus a prefill slice, so it must be "
+                    f">= 2 (0 disables, -1 sizes from the chunk knob)")
+            if page_size <= 0:
+                raise ValueError(
+                    "dispatch_tokens requires the paged KV cache (pass "
+                    "--kv-page-size with --dispatch-tokens): the mixed "
+                    "window writes through per-row page tables")
+            if spec_k:
+                raise ValueError(
+                    "dispatch_tokens is incompatible with spec_k: the "
+                    "verify window and the prefill slice both claim the "
+                    "per-row span (unifying them is follow-up work)")
         if kv_quant is None:
             kv_quant = paged_attention.kv_quant_mode()
         if kv_pages and page_size <= 0:
@@ -235,6 +306,10 @@ class ContinuousEngine:
         self.seed = seed
         self.prefill_chunk = prefill_chunk
         self.block_steps = block_steps
+        self.spec_k = spec_k
+        self.spec_ngram = spec_ngram
+        self.dispatch_tokens = dispatch_tokens
+        self._mixed_rr = 0  # the budget's rotating fairness cursor
         self.page_size = page_size
         self.kv_quant = kv_quant
         self.group = mesh or single(device)
@@ -291,6 +366,11 @@ class ContinuousEngine:
                                    dtype=torch.float32, device=self.device)
         self._once: GraphStep | None = None
         self._chains: dict = {}  # (k, greedy_only) -> _Chain
+        self._windows: dict = {}  # (kind, greedy_only) -> _Window
+        self._span = torch.zeros(slots, dtype=torch.int32,
+                                 device=self.device)
+        width = spec_k or dispatch_tokens
+        self._stage_win = np.zeros((slots, max(width, 1)), np.int64)
         self._stage_i32 = np.zeros((3, slots), np.int32)
         self._stage_f32 = np.zeros((2, slots), np.float32)
         self._stage_active = np.zeros((slots,), np.bool_)
@@ -357,6 +437,40 @@ class ContinuousEngine:
             self._forward_into_logits()
         return self._logits.cpu().numpy()
 
+    def _window_step(self, kind: str, w: _Window) -> None:
+        """One verify or mixed forward over the static rows, its ids
+        (argmaxed on the device) or logits written into ``w.out``."""
+        if kind == "verify":
+            logits = self.model.forward_batch_spec_paged(
+                self.cache, w.tokens, self._pos, self._table)
+        else:
+            logits = self.model.forward_batch_mixed_paged(
+                self.cache, w.tokens, self._pos, self._span, self._table)
+        w.out.copy_(greedy_verify_tokens(logits) if w.greedy_only
+                    else logits)
+
+    def _run_window(self, kind: str, tokens: np.ndarray,
+                    greedy_only: bool) -> np.ndarray:
+        """Stage ``tokens`` (B, W) and run one window dispatch: one replay
+        of its graph (eager on the CPU or with graph=False); the host
+        reads (B, W) ids or (B, W, vocab) logits back once."""
+        key = (kind, greedy_only)
+        w = self._windows.get(key)
+        if w is None:
+            w = self._windows[key] = _Window(
+                tokens.shape[1], self.slots, self.spec.vocab_size,
+                greedy_only, self.device)
+            if self.graph:
+                w.graph = GraphStep(lambda: self._window_step(kind, w),
+                                    self.device)
+        _load(w.tokens, tokens)
+        with torch.inference_mode():
+            if w.graph is not None:
+                w.graph.run(1)
+            else:
+                self._window_step(kind, w)
+        return w.out.cpu().numpy()
+
     # -- properties ---------------------------------------------------------
 
     def audit_pages(self) -> list[str]:
@@ -374,7 +488,8 @@ class ContinuousEngine:
     @property
     def graph_replays(self) -> int:
         """Replays of every captured graph of this engine."""
-        graphs = [c.graph for c in self._chains.values()] + [self._once]
+        graphs = [c.graph for c in (*self._chains.values(),
+                                    *self._windows.values())] + [self._once]
         return sum(g.replays for g in graphs if g is not None)
 
     # -- paged-KV bookkeeping -----------------------------------------------
@@ -391,10 +506,13 @@ class ContinuousEngine:
             s.pages.append(pid)
         return True
 
-    def _grow_pages(self, pool, k: int, quiet: bool) -> set:
+    def _grow_pages(self, pool, k: int, quiet: bool,
+                    spans: dict | None = None) -> set:
         """Pre-chain page coverage: every active slot gets pages for its
-        next ``k`` positions, so no mid-chain write crosses into an
-        unmapped page. A slot the pool cannot serve yet is PAUSED for this
+        next ``k`` positions (``spans``, the mixed path's, gives each slot
+        its own; a deferred row's 0 needs none), so no mid-chain write
+        crosses into an unmapped page. A slot the pool cannot serve yet is
+        PAUSED for this
         dispatch (returned in the set): it rides the step masked inactive,
         its dead rewrite lands on its own page or the scrap page, and its
         sampler draws nothing, so its stream is untouched. Only when EVERY
@@ -407,7 +525,8 @@ class ContinuousEngine:
                 if s.free:
                     continue
                 active += 1
-                if not self._ensure_pages(s, min(s.pos + k, s.budget)):
+                need = k if spans is None else spans.get(b, 0)
+                if not self._ensure_pages(s, min(s.pos + need, s.budget)):
                     paused.add(b)
             if not paused or len(paused) < active:
                 self.stats.pauses += len(paused)
@@ -441,7 +560,14 @@ class ContinuousEngine:
         per-step path's (greedy exactly; sampled while the device and host
         samplers agree at every CDF boundary); a slot freed mid-chain
         re-admits at the chain boundary. Returns active slots + queued
-        requests."""
+        requests. With ``dispatch_tokens`` every iteration is a mixed
+        dispatch (step_mixed), with ``spec_k`` a verify dispatch
+        (step_spec): both supersede chaining (chained verifies would
+        stack drafts on unverified drafts)."""
+        if self.dispatch_tokens:
+            return self.step_mixed(quiet=quiet)
+        if self.spec_k:
+            return self.step_spec(quiet=quiet)
         if k <= 1:
             return self.step_once(quiet=quiet)
         self._sweep_cancelled()
@@ -544,9 +670,7 @@ class ContinuousEngine:
             self._stage_tables()
         with torch.inference_mode():
             logits = self._run_forward()
-        self.stats.steps += 1
-        self.stats.sum_active += active0
-        self.stats.max_active = max(self.stats.max_active, active0)
+        self._count_dispatch(active0)
         for i, s in enumerate(pool):
             if s.free:
                 continue
@@ -560,6 +684,193 @@ class ContinuousEngine:
             else:
                 nxt = int(s.sampler.sample(logits[i]))
                 self._advance(s, nxt, quiet, sampled=True)
+        self._admit()
+        return self._n_outstanding()
+
+    def _count_dispatch(self, n_active: int) -> None:
+        self.stats.steps += 1
+        self.stats.sum_active += n_active
+        self.stats.max_active = max(self.stats.max_active, n_active)
+
+    def step_spec(self, quiet: bool = True) -> int:
+        """One draft -> verify -> accept iteration over the pool (the JAX
+        engine's step_spec). Each active row feeds [current token |
+        window]: its pending forced prompt tokens first (they always
+        match, so the dispatch doubles as K-wide prompt chunking), then up
+        to K-1 n-gram drafts (speculative.draft_tokens) once the prompt is
+        through. One verify dispatch scores every position; the host
+        replays each row position by position with step_once's
+        bookkeeping (forced pops, then argmax or the sampler, then
+        _advance) and stops at the first position whose outcome differs
+        from the fed input (later logits saw a wrong token). Greedy rows
+        accept a draft that equals the argmax; sampled rows run
+        speculative.accept_or_resample (an accept coin for each reached
+        draft, a residual coin on rejection). Rows that did not retire
+        roll their page table back to the accepted length (_trim_pages).
+        The JAX engine's _resume_prefills belongs to prefill_hold, which
+        is not ported. Returns active slots + queued requests."""
+        K = self.spec_k
+        self._sweep_cancelled()
+        self._admit()
+        pool = self._pool
+        paused = self._grow_pages(pool, K, quiet)
+        if all(s.free for s in pool):
+            return self._n_outstanding()
+        st = self._stage_win
+        st_pos = self._stage_i32[1]
+        active0 = self._stage_active
+        kinds: list = [()] * self.slots  # window entry i (input i + 1):
+        #                                   'f' forced or 'd' drafted
+        greedy_only = True
+        for b, s in enumerate(pool):
+            active0[b] = not s.free and b not in paused
+            st[b, 0] = s.token
+            st[b, 1:] = 0
+            st_pos[b] = s.pos
+            if not active0[b]:
+                continue
+            if s.sampler.temperature != 0.0:
+                greedy_only = False
+            window = list(s.forced[:K - 1])
+            row_kinds = ["f"] * len(window)
+            room = K - 1 - len(window)
+            if room > 0 and not s.forced[K - 1:]:
+                # the lookup history: the emitted stream plus the forced
+                # tokens fed ahead of the drafts in this window
+                history = [s.req.tokens[0]] + s.req.out + window
+                drafts = draft_tokens(history, room, max_n=self.spec_ngram)
+                self.stats.spec_proposed += len(drafts)
+                window += [int(t) for t in drafts]
+                row_kinds += ["d"] * len(drafts)
+            st[b, 1:1 + len(window)] = window
+            kinds[b] = tuple(row_kinds)
+        _load(self._pos, st_pos)
+        self._stage_tables()
+        out = self._run_window("verify", st, greedy_only)
+        self._count_dispatch(int(active0.sum()))
+        vocab = self.spec.vocab_size
+        for b, s in enumerate(pool):
+            if s.free:
+                continue
+            if s.req.cancelled:
+                self._retire(s, quiet)
+                continue
+            if not active0[b]:
+                continue
+            row_kinds = kinds[b]
+            retired = False
+            for i in range(K):
+                accepted = False
+                drafted = i < len(row_kinds) and row_kinds[i] == "d"
+                if s.forced:
+                    nxt, sampled = s.forced.pop(0), False
+                elif s.sampler.temperature == 0.0:
+                    nxt = (int(out[b, i]) if greedy_only
+                           else int(np.argmax(out[b, i][:vocab])))
+                    sampled = True
+                    accepted = drafted and nxt == int(st[b, i + 1])
+                elif drafted:
+                    nxt, accepted = accept_or_resample(
+                        out[b, i], int(st[b, i + 1]), s.sampler)
+                    sampled = True
+                else:  # no draft fed here: the plain sampler
+                    nxt, sampled = int(s.sampler.sample(out[b, i])), True
+                self.stats.spec_accepted += accepted
+                if self._advance(s, nxt, quiet, sampled=sampled):
+                    retired = True
+                    break
+                if (i + 1 >= K or i >= len(row_kinds)
+                        or nxt != int(st[b, i + 1])):
+                    break  # window spent, or the fed input was wrong
+            if not retired:
+                self._trim_pages(s)
+        self._admit()
+        return self._n_outstanding()
+
+    def _trim_pages(self, s: _Slot) -> None:
+        """Speculative rollback: positions >= s.pos may hold rejected
+        drafts' k/v and position s.pos is rewritten by the next dispatch
+        before anything reads it, so pages covering only positions >=
+        s.pos go back to the pool (a page the radix tree also holds just
+        loses this slot's reference). The shared prefix always stays:
+        s.pos never falls below the share boundary."""
+        keep = max(self._alloc.pages_for(s.pos), s.shared)
+        if len(s.pages) > keep:
+            self._alloc.release_pages(s.pages[keep:])
+            del s.pages[keep:]
+
+    def step_mixed(self, quiet: bool = True) -> int:
+        """One token-budget mixed dispatch (the JAX engine's step_mixed):
+        every active row takes its one pending token, and ONE row with
+        forced prompt tokens left, the lowest request index (the JAX
+        engine's choice without an SLO ranking), takes up to the rest of
+        the budget, all in one (slots, T) forward. With more active rows
+        than T, the overflow rides deferred (span 0) under a rotating
+        cursor. The host replay is step_once's per position (forced pops,
+        then argmax or the sampler at the last position, then _advance),
+        so the streams are the separate-dispatch engine's. Returns active
+        slots + queued requests."""
+        T = self.dispatch_tokens
+        self._sweep_cancelled()
+        self._admit()
+        pool = self._pool
+        candidates = [b for b, s in enumerate(pool) if not s.free]
+        spans: dict[int, int] = {}
+        deferred: set = set()
+        if len(candidates) > T:
+            order = sorted(candidates,
+                           key=lambda b: (b - self._mixed_rr) % self.slots)
+            deferred = set(order[T:])
+            self._mixed_rr = (self._mixed_rr + T) % self.slots
+            spans = dict.fromkeys(order[:T], 1)
+        else:
+            spans = dict.fromkeys(candidates, 1)
+            room = T - len(candidates)
+            slice_rows = [b for b in candidates if pool[b].forced]
+            if room > 0 and slice_rows:
+                win = min(slice_rows, key=lambda b: pool[b].req.index)
+                spans[win] = 1 + min(len(pool[win].forced), room)
+        paused = self._grow_pages(pool, 1, quiet, spans=spans)
+        if all(s.free for s in pool):
+            return self._n_outstanding()
+        blk = self._stage_win
+        st_i32 = self._stage_i32
+        greedy_only = True
+        for b, s in enumerate(pool):
+            span = 0 if (s.free or b in paused or b in deferred) \
+                else spans.get(b, 0)
+            spans[b] = span
+            st_i32[0, b] = span
+            st_i32[1, b] = s.pos
+            blk[b] = 0
+            if span <= 0:
+                continue
+            if s.sampler.temperature != 0.0:
+                greedy_only = False
+            blk[b, 0] = s.token
+            blk[b, 1:span] = s.forced[:span - 1]
+        total_span = sum(spans.values())
+        self.stats.overrun_steps += max(0, -(-total_span // T) - 1)
+        _load(self._span, st_i32[0])
+        _load(self._pos, st_i32[1])
+        self._stage_tables()
+        out = self._run_window("mixed", blk, greedy_only)
+        self._count_dispatch(sum(1 for v in spans.values() if v > 0))
+        for b, s in enumerate(pool):
+            if s.free:
+                continue
+            if s.req.cancelled:
+                self._retire(s, quiet)
+                continue
+            for i in range(spans.get(b, 0)):
+                if s.forced:
+                    nxt, sampled = s.forced.pop(0), False
+                elif greedy_only:
+                    nxt, sampled = int(out[b, i]), True
+                else:
+                    nxt, sampled = int(s.sampler.sample(out[b, i])), True
+                if self._advance(s, nxt, quiet, sampled=sampled):
+                    break
         self._admit()
         return self._n_outstanding()
 
@@ -691,13 +1002,14 @@ class ContinuousEngine:
         scatter on the scrap page. Contiguous: a fresh scratch cache is
         prefilled and copied into the slot's row in place. Same gates as
         generate._prefill_prefix: off for short prompts, prompts past the
-        budget, or a BOS inside the prompt."""
+        budget, or a BOS inside the prompt; off under ``dispatch_tokens``,
+        where the prompt rides the mixed dispatches as their slice."""
         chunk = self.prefill_chunk
         tokens = s.req.tokens
         n_pre = len(tokens) - 1
         start = s.pos  # 0 or the page-aligned prefix-share boundary
-        if (chunk <= 1 or n_pre - start < 2 or n_pre >= s.budget
-                or BOS in tokens[1:]):
+        if (self.dispatch_tokens or chunk <= 1 or n_pre - start < 2
+                or n_pre >= s.budget or BOS in tokens[1:]):
             return
         paged = self._alloc is not None
         q8 = self.kv_quant == "q8"
@@ -860,7 +1172,8 @@ def generate_continuous(spec: TransformerSpec, params: dict[str, Any],
                         page_size: int = 0, kv_pages: int = 0,
                         kv_quant: str | None = None, device="cuda",
                         graph: bool | None = None, mesh=None,
-                        scheme: str | None = None):
+                        scheme: str | None = None, spec_k: int = 0,
+                        spec_ngram: int = 3, dispatch_tokens: int = 0):
     """CLI entry (``--prompts-file --continuous``): encode the prompts,
     stream them through a pool of ``slots`` (0 = min(#prompts, 8)) and
     print the rows ("[i] 'text'") and the JAX CLI's stats lines."""
@@ -873,7 +1186,9 @@ def generate_continuous(spec: TransformerSpec, params: dict[str, Any],
                            fast_prefill=fast_prefill, page_size=page_size,
                            kv_pages=kv_pages, kv_quant=kv_quant,
                            device=device, graph=graph, mesh=mesh,
-                           scheme=scheme)
+                           scheme=scheme, spec_k=spec_k,
+                           spec_ngram=spec_ngram,
+                           dispatch_tokens=dispatch_tokens)
     outs, stats = eng.run(reqs, steps, quiet=quiet)
     if not quiet:
         for b, (req, row) in enumerate(zip(reqs, outs)):
@@ -890,4 +1205,13 @@ def generate_continuous(spec: TransformerSpec, params: dict[str, Any],
                   f"{a.n_free} free; prefix hit "
                   f"rate {a.hit_rate:.0%}, {a.tokens_saved} prefill "
                   f"tokens saved, {a.evictions} evictions")
+        if eng.dispatch_tokens:
+            print(f"Token budget:        {eng.dispatch_tokens} "
+                  f"tokens/dispatch over {stats.steps} mixed dispatches")
+        if eng.spec_k:
+            print(f"Speculative:         K={eng.spec_k}, "
+                  f"{stats.spec_accepted}/{stats.spec_proposed} drafts "
+                  f"accepted ({stats.spec_accept_rate:.0%}); "
+                  f"{stats.total_ms / max(1, stats.tokens):.2f} "
+                  f"ms/accepted token over {stats.steps} verify dispatches")
     return outs, stats

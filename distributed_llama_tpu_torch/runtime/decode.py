@@ -120,6 +120,14 @@ def sample_device(logits: torch.Tensor, coin: torch.Tensor,
     return _nucleus_walk(probs, coin, topp)
 
 
+def greedy_verify_tokens(logits: torch.Tensor) -> torch.Tensor:
+    """The device argmax of a (B, K, V) verify (or mixed) logit block:
+    (B, K) int32, all the host replay needs when every active row is
+    greedy. torch.argmax returns the first maximum, as np.argmax (the host
+    sampler's) does, so ties break the same way."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
 def sample_device_dynamic(logits: torch.Tensor, coin: torch.Tensor,
                           temperature: torch.Tensor,
                           topp: torch.Tensor) -> torch.Tensor:

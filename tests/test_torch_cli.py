@@ -129,10 +129,10 @@ def test_cli_pieces_match_reference(model_files, capsys, mode):
 
 
 UNPORTED = [["--tp", "2", "--kv-disk-dir", "d"], ["--sp", "2"],
-            # --slots and --continuous are ported with --prompts-file;
-            # --spec-k and --metrics are not ported there
+            # --slots, --continuous and --spec-k are ported with
+            # --prompts-file; --kv-host-pages and --metrics are not
             ["--slots", "4", "--prompts-file", "p.txt", "--continuous",
-             "--spec-k", "4"],
+             "--spec-k", "4", "--kv-host-pages", "8"],
             ["--kv-pages", "64"], ["--dispatch-tokens", "8"],
             ["--block-steps", "4"], ["--kv-host-pages", "8"],
             # the weight-streaming flags are ported: the next flag is the
@@ -141,11 +141,11 @@ UNPORTED = [["--tp", "2", "--kv-disk-dir", "d"], ["--sp", "2"],
             ["--continuous", "--prompts-file", "p.txt", "--metrics"],
             ["--metrics"],
             ["--log-json"],
-            # --prompts-file --continuous is ported; --dispatch-tokens is
-            # not, and stops the run before the (absent) prompts file is
-            # opened
+            # --prompts-file --continuous --dispatch-tokens is ported; the
+            # KV tier flags are not, and stop the run before the (absent)
+            # prompts file is opened
             ["--prompts-file", "p.txt", "--continuous", "--dispatch-tokens",
-             "8"],
+             "8", "--kv-host-pages", "8"],
             # the continuous engine's flags outside --prompts-file
             ["--kv-page-size", "16"], ["--spec-k", "4"],
             ["--kv-quant", "q8"],
@@ -156,7 +156,8 @@ UNPORTED = [["--tp", "2", "--kv-disk-dir", "d"], ["--sp", "2"],
             ["--coordinator", "h:1", "--seed", "1", "--log-json"],
             ["--model-from-root", "h:1", "--kv-disk-dir", "d"]]
 CONTINUOUS_FLAGS = ("--continuous", "--slots", "--block-steps", "--kv-pages",
-                    "--kv-page-size", "--kv-quant")
+                    "--kv-page-size", "--kv-quant", "--spec-k",
+                    "--spec-ngram", "--dispatch-tokens")
 
 
 def _unported_flag(extra):

@@ -1,7 +1,7 @@
 """Flags the JAX CLI runs its plain path under, against the JAX CLI: the f16
 and q40 buffer types (the JAX package acts on the buffer type only at Q80,
 so both run the f32 program) and the neutral values of flags whose feature
-the port does not run yet (--dispatch-tokens 0, --num-hosts 1,
+the port does not run on this path (--dispatch-tokens 0, --num-hosts 1,
 --kv-host-pages 0, --spec-ngram N without --spec-k). On the
 tests/test_torch_cli.py fixture model, greedy, the port (--device cpu) must
 exit as the JAX CLI does (run with --tp 1) and print its token stream.
@@ -77,8 +77,9 @@ def test_port_runs_the_jax_stream_under_neutral_flags(model_files,  # noqa: F811
 
 @pytest.mark.parametrize("extra", [
     ["--dispatch-tokens", "-1"], ["--kv-host-pages", "8"],
-    ["--spec-ngram", "3", "--spec-k", "4", "--prompts-file", "p.txt",
-     "--continuous"]], ids=lambda a: "-".join(a[:2]))
+    # --spec-k (and so its drafter's --spec-ngram) runs only in the
+    # continuous engine
+    ["--spec-ngram", "3", "--spec-k", "4"]], ids=lambda a: "-".join(a[:2]))
 def test_other_values_stay_unported(extra, capsys, tmp_path):
     """The model path does not exist: exit 2 proves the CLI stopped before
     any load."""

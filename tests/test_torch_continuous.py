@@ -16,7 +16,8 @@ package's, on the CPU (the kernels' plain versions):
   ``Sampler``;
 * the engine's own contracts: paged streams equal contiguous ones, a
   re-used engine repeats its streams, ``cancel`` and ``fail_all`` free
-  slots and pages, and the unported arguments raise.
+  slots and pages, and the unported arguments (and bad spec_k and
+  dispatch_tokens values) raise.
 """
 
 import tempfile
@@ -255,8 +256,8 @@ def test_cancel_and_fail_all_free_slots_and_pages(model):
 
 @pytest.mark.parametrize("kw,match", [
     ({"mesh": object()}, "not yet ported: mesh"),
-    ({"spec_k": 2, "page_size": 4}, "not yet ported: spec_k"),
-    ({"dispatch_tokens": 8}, "not yet ported: dispatch_tokens"),
+    ({"spec_k": 1, "page_size": 4}, "K >= 2"),
+    ({"dispatch_tokens": 8}, "requires the paged KV cache"),
     ({"journal": object()}, "not yet ported: journal"),
     ({"kv_host_pages": 4, "page_size": 4}, "not yet ported: kv_host_pages"),
     ({"kv_disk_dir": "d"}, "not yet ported: kv_disk_dir"),

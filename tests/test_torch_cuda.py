@@ -17,8 +17,11 @@ replays across split boundaries with every ticket back at 0), K6's and
 K7's split walk (K6 at t_len 1 K5's bits under the default plan, one split
 and (32, 64) over the identity and a permuted pool, K7 K6's bits over the
 dequantized pool under every plan, windows against plain at the
-budget-edge clamp, graph replays with every ticket back at 0) and the
-small-T bf16-product Q40 body (K1d), and the on-device loops: a step
+budget-edge clamp, verify and mixed windows up to t_len 39, graph
+replays with every ticket back at 0) and the small-T bf16-product Q40
+body (K1d), the continuous engine's captured verify and mixed dispatches
+against eager ones bit for bit and its spec-on greedy streams against
+spec-off, and the on-device loops: a step
 captured in a CUDA graph and replayed gives the tokens of the same step
 run eagerly, with exact launch counts. Every test takes the ``gen``
 fixture, which skips it without a GPU; on one, run
@@ -1324,12 +1327,14 @@ def test_paged_split_q8_kernel_is_k6_over_the_dequantized_pool(gen, width,
 
 @pytest.mark.parametrize("pages", ["f32", "bf16", "q8"])
 @pytest.mark.parametrize("width", PAGED_WIDTHS)
-@pytest.mark.parametrize("t_len", [4, 8])
+@pytest.mark.parametrize("t_len", [4, 8, 16, 39])
 @pytest.mark.parametrize("plan", [None, (32, 64)])
 def test_paged_split_windows_match_plain(gen, pages, width, t_len, plan):
-    """t_len 4 and 8 at a long prefix, split across the grid: within
-    KERNEL_ATOL of plain, with windows running past the virtual plane (the
-    budget-edge clamp: the last queries see the same keys)."""
+    """t_len 4 and 8 (verify windows) and 16 and 39 (mixed windows: 39 is
+    the auto budget at 8 slots and chunk 32) at a long prefix, split
+    across the grid: within KERNEL_ATOL of plain, with windows running
+    past the virtual plane (the budget-edge clamp: the last queries see
+    the same keys)."""
     n_kv, kv_mul = width
     cache = torch.bfloat16 if pages == "bf16" else torch.float32
     _, _, _, _, moved, table, P = _long_pool(gen, cache, n_kv)
@@ -1401,9 +1406,9 @@ def test_paged_kernels_raise_instead_of_falling_back(gen):
         run(q, k4, v4, 0, pv, table.long(), 5, 1)
     with pytest.raises(ValueError, match="out of range"):
         run(q, k4, v4, 2, pv, table, 5, 1)
-    with pytest.raises(ValueError, match="t_len"):
-        run(torch.randn((2, 9, 128), device="cuda"), k4, v4, 0, pv, table,
-            5, 1)
+    with pytest.raises(ValueError, match="t_len"):  # past grid y
+        run(torch.randn((2, 32768, 128), device="cuda"), k4, v4, 0, pv,
+            table, 5, 1)
     with pytest.raises(ValueError, match="kv_mul"):
         run(torch.randn((2, 1, 384), device="cuda"), k4, v4, 0, pv, table,
             5, 3)
@@ -1511,6 +1516,152 @@ def test_captured_continuous_engine_matches_eager(gen, case, block,
               "paged_attention")
     assert g_counts[symbol] == spec.n_layers * g_steps
     assert replays + 1 == g_steps  # one graph: its warm-up, then replays
+
+
+WINDOW_CASES = {  # label -> engine options of a window dispatch
+    "verify": {"spec_k": 4},
+    "verify-q8": {"spec_k": 4, "kv_quant": "q8"},
+    "mixed": {"dispatch_tokens": 7},
+    "mixed-bf16": {"dispatch_tokens": 7, "cache_dtype": torch.bfloat16},
+}
+
+
+def _window_requests(spec):
+    rng = np.random.default_rng(7)
+    prefix = [1, *rng.integers(3, spec.vocab_size, 15)]
+    phrase = list(rng.integers(3, spec.vocab_size, 3))
+    return [prefix + phrase * r + list(rng.integers(3, spec.vocab_size, n))
+            for r, n in ((2, 2), (0, 9), (3, 4), (1, 12), (0, 1), (2, 6))]
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_captured_window_dispatch_is_the_eager_one(gen, case, temperature):
+    """A verify or mixed dispatch captured in a CUDA graph and replayed, and
+    the same engine run eagerly, side by side: after every dispatch the
+    window's output (the device argmax, or the logits when sampled) at
+    every live (row, offset) is the eager one's bit for bit, the streams
+    and page state equal, K6/K7 L launches a dispatch, the audits clean.
+    Live: an active row's offsets below its span (mixed) or below its
+    budget (verify). The rest is junk the host never reads: it attends
+    over the scrap page, whose dead writes of one dispatch land in no
+    fixed order."""
+    from distributed_llama_tpu_torch.runtime.continuous import (
+        ContinuousEngine, Request)
+
+    spec = _small_spec()
+    params = llama.params_to_device(synth_params(spec, q40=True, seed=5,
+                                                 scale=0.3), "cuda")
+    opts = WINDOW_CASES[case]
+    kind = "verify" if "spec_k" in opts else "mixed"
+    engines = [ContinuousEngine(spec, params, 3, temperature, 0.9, 11,
+                                prefill_chunk=4, page_size=8, device="cuda",
+                                graph=graph, **opts)
+               for graph in (True, False)]
+    reqs = [[eng.submit(Request(tokens=list(r), steps=40))
+             for r in _window_requests(spec)] for eng in engines]
+    symbol = ("paged_attention_q8" if "kv_quant" in opts else
+              "paged_attention_kvbf16" if "cache_dtype" in opts else
+              "paged_attention")
+    kernels = (*q40.KERNELS, *attention.KERNELS, *paged_attention.KERNELS)
+    dispatches = 0
+    width = opts.get("spec_k") or opts["dispatch_tokens"]
+    budgets = []  # each slot's budget when the window ran
+    run = engines[0]._run_window
+
+    def recorded(*args):
+        budgets[:] = [s.budget for s in engines[0]._pool]
+        return run(*args)
+
+    engines[0]._run_window = recorded
+    while True:
+        left = []
+        for eng in engines:
+            before = {k: k.launches for k in kernels}
+            left.append(eng.step_many(1))
+            torch.cuda.synchronize()
+            assert _deltas(before).get(symbol, 0) == spec.n_layers
+        dispatches += 1
+        eng = engines[0]
+        cols = np.arange(width)[None, :]
+        if kind == "verify":
+            live = (eng._stage_active[:, None]
+                    & (eng._stage_i32[1][:, None] + cols
+                       < np.array(budgets)[:, None]))
+        else:
+            live = cols < eng._stage_i32[0][:, None]
+        live = torch.from_numpy(live).to("cuda")
+        key = (kind, temperature == 0.0)
+        a, b = (e._windows[key].out for e in engines)
+        assert live.any() and torch.equal(a[live], b[live]), dispatches
+        assert left[0] == left[1]
+        assert [s.pages for s in engines[0]._pool] == \
+            [s.pages for s in engines[1]._pool]
+        if not left[0]:
+            break
+    assert [r.out for r in reqs[0]] == [r.out for r in reqs[1]]
+    assert engines[0].graph_replays + 1 == dispatches
+    assert all(eng.audit_pages() == [] for eng in engines)
+    st = engines[0].stats
+    if kind == "verify":
+        assert st.spec_proposed > 0
+    else:
+        assert st.prefill_chunks == 0
+
+
+def _recording_sampler(gaps):
+    """A Sampler whose every host sample records the gap of its logits'
+    two largest values and their largest |value|, by seed."""
+    from distributed_llama_tpu_torch.runtime.sampling import Sampler
+
+    class Recording(Sampler):
+        def __init__(self, vocab_size, temperature, topp, seed):
+            super().__init__(vocab_size, temperature, topp, seed)
+            self.gaps = gaps.setdefault(seed, [])
+
+        def sample(self, logits):
+            top = np.sort(np.asarray(logits, np.float32))[-2:]
+            self.gaps.append((float(top[1] - top[0]),
+                              float(np.abs(logits).max())))
+            return super().sample(logits)
+
+    return Recording
+
+
+@pytest.mark.parametrize("kv_quant", ["f32", "q8"])
+def test_spec_engine_greedy_streams_equal_spec_off(gen, kv_quant,
+                                                   monkeypatch):
+    """ContinuousEngine(spec_k=4) greedy against spec_k=0 on the card:
+    every stream equal, or parting only where the spec-off run's top-2
+    logits lie within LOGIT_RTOL x max|logit| (the verify rows take K3 at
+    B*K = 12 rows where decode takes K1m at 3: their sums differ in the
+    last bits); drafts accepted (random Q40 codes: the greedy streams
+    settle into short cycles the drafter copies)."""
+    from distributed_llama_tpu_torch.models.synth import synth_q40_fast
+    from distributed_llama_tpu_torch.runtime import continuous
+
+    spec = _small_spec()
+    params = llama.params_to_device(synth_q40_fast(spec, seed=5), "cuda")
+    reqs = _window_requests(spec)
+    gaps: dict = {}
+    runs = {}
+    for k in (0, 4):
+        if k == 0:
+            monkeypatch.setattr(continuous, "Sampler",
+                                _recording_sampler(gaps))
+        eng = continuous.ContinuousEngine(
+            spec, params, 3, 0.0, 0.9, 11, page_size=8, kv_quant=kv_quant,
+            spec_k=k, device="cuda")
+        runs[k] = eng.run(reqs, 40)
+        monkeypatch.undo()
+    (off, _), (on, st) = runs[0], runs[4]
+    assert st.spec_accepted > 0
+    for i, (a, b, r) in enumerate(zip(on, off, reqs)):
+        if a == b:
+            continue
+        j = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        gap, top = gaps[11 + i][j - (len(r) - 1)]
+        assert gap <= llama.LOGIT_RTOL * top, (i, j, gap, top)
 
 
 # ---------------------------------------------------------------------------

@@ -41,7 +41,7 @@ NEW_MODULES = ("utils.it_split", "utils.rng", "obs.profiler",
                "runtime.checkpoint", "tools.nb_probe", "tools.plan_sweep",
                "tools.stream_compare", "parallel.mesh",
                "parallel.comm_stats", "parallel.collectives", "parallel.tp",
-               "convert", "io.stream")
+               "convert", "io.stream", "runtime.speculative")
 
 
 def test_every_module_imports_with_jax_blocked():

@@ -262,7 +262,9 @@ def test_kv_quant_mode_reads_the_environment(monkeypatch):
 def test_supports_paged():
     assert pa.supports_paged(16, 32, 128, 1)
     assert pa.supports_paged(16, 8, 128, 8, kv_mul=8, q8=True)
-    assert not pa.supports_paged(16, 32, 128, 9)
+    # any window: a mixed window is t_len = the dispatch budget
+    assert pa.supports_paged(16, 32, 128, 39)
+    assert not pa.supports_paged(16, 32, 128, 0)
     assert not pa.supports_paged(16, 32, 130, 1)
     assert not pa.supports_paged(16, 32, 128, 1, kv_mul=3)
     assert not pa.supports_paged(16, 1, 12, 1, q8=True)  # 12 % 32
