@@ -153,6 +153,29 @@ no result line):
       0.05``: K7 over verify windows, seeded rejection sampling, the
       32-page pool pausing or requeueing, drafts accepted; every window's
       logits finite.
+   serve_full_width, after run u: ``python -m distributed_llama_tpu_torch
+   serve`` on the 7B file at full width and depth as a child process, run
+   k's engine flags (8 slots, pages of 16, chunk 32, 128 positions,
+   greedy) and --port 0 --journal --flightrec --watchdog-ms 60000: its
+   engine's graphs captured on its scheduler thread before the listener
+   opens; run k's 12 prompts from concurrent clients, every other one
+   streamed (NDJSON), each response equal to run k's stream for that
+   prompt or parting only at a near-tie of run k's top-2 logits; /health
+   serving, schema 3, with its paged_kv, slo, watch and sched blocks;
+   /metrics with the request-lifecycle families and a TTFT count of 12;
+   /debug/timeline a valid Chrome trace; then POST /profile over a burst
+   of 8 requests, whose torch.profiler trace (utils/it_split) must hold K6,
+   K1m and K3 events (each kernel's events go into its ``kernels`` row as
+   the ``serve`` part); then 6 long streamed requests and SIGTERM while
+   they are in flight: exit 0, every one of them live in the journal, the
+   drain's flight-recorder bundle valid; restarted on that journal the
+   server says "recovered 6" and finishes them, their replayed tokens
+   through K3/K4 admission prefill, and each journaled stream equals an
+   uninterrupted in-process run of the same requests or parts only at a
+   near-tie of its top-2 logits. Served decode tokens/s against run k's,
+   TTFT p50 and p95, ms a dispatch on the scheduler's clock, SIGTERM to
+   exit, restart to the first recovered token and device memory in use
+   are logged with the card's name and power limit.
 4. Kernels against plain at full width: the first 4 positions of the same
    model through the forward with the kernels and with the plain versions;
    then 8 more kernel steps timed, and 8 under torch.profiler for the
@@ -223,7 +246,8 @@ no result line):
    under fused, overlap and ref with q80 buffers), and the lockstep batch
    at tp 2 against tp 1 (tp_nccl).
 6. The phase times, the ``kernels`` JSON line (each kernel's launches
-   summed over every CLI run, a-u; the probe's kernels over its chain;
+   summed over every CLI run, a-u, and its POST /profile trace events in
+   serve_full_width as ``serve``; the probe's kernels over its chain;
    K6's and K7's rows at t_len 16 and 39 beside their decode rows),
    then the result line ``{"ok": true, "device": {...}}`` as the last
    line.
@@ -2729,7 +2753,7 @@ def phase_e2e_continuous(torch, model, tok, n_layers, label, flags,
     return res
 
 
-def _near_tie_rows(label, got, want, gaps):
+def _near_tie_rows(label, got, want, gaps, ref="run k"):
     """Hold a greedy continuous run's token streams against run k's: each
     equal, or parting at a sampled position where run k's two largest
     logits lie within LOGIT_RTOL x max|logit| (the verify and mixed
@@ -2748,12 +2772,12 @@ def _near_tie_rows(label, got, want, gaps):
         seed_gaps = gaps.get(1 + i, [])
         gap, top = seed_gaps[m] if 0 <= m < len(seed_gaps) else (
             float("inf"), 0.0)
-        log(f"run {label}: request {i} parts from run k's at token {j}, "
-            f"where run k's top-2 logit gap is {gap:.3e} (tolerance "
+        log(f"run {label}: request {i} parts from {ref}'s at token {j}, "
+            f"where {ref}'s top-2 logit gap is {gap:.3e} (tolerance "
             f"{LOGIT_RTOL * top:.3e})")
         if not gap <= LOGIT_RTOL * top:
             raise AssertionError(f"run {label}: request {i} differs from "
-                                 f"run k's at token {j}, top-2 gap {gap} "
+                                 f"{ref}'s at token {j}, top-2 gap {gap} "
                                  f"above the logit tolerance")
         parted.append((i, j, gap))
     return parted
@@ -2841,9 +2865,428 @@ def phase_e2e_continuous_runs(torch, model, tok, n_layers):
         raise AssertionError("runs s and u: no draft accepted")
     if u["pauses"] + u["requeues"] <= 0:
         raise AssertionError("run u: no pause or requeue")
+    ref_k = {"outs": k["outs"], "prompts": k["prompts"]}
     for r in res.values():
         for key in ("rows", "outs", "prompts"):
             r.pop(key)
+    ref_k["run"] = k
+    return res, ref_k, gaps
+
+
+# --------------------------------------------------------------------------
+# serve_full_width: the HTTP server over the continuous engine
+# --------------------------------------------------------------------------
+
+SERVE_LONG = 6            # drain: long requests in flight at the SIGTERM
+SERVE_LONG_STEPS = 256    # their positions (~180 sampled tokens each)
+SERVE_BURST = 8           # requests inside the POST /profile window
+SERVE_PROFILE_S = 3.0     # that capture's seconds
+SERVE_WATCHDOG_MS = 60000  # generous: no dispatch near it, the loop armed
+SERVE_DEVICE_ARGS: tuple = ()  # the serve child's extra flags (none here)
+# the kernels line's names by their trace events' base names
+SERVE_KERNELS = {"paged_attention": "paged_attention_kernel",
+                 "q40_matvec_multi": "q40_matvec_multi_kernel",
+                 "q40_gemm": "q40_gemm_kernel",
+                 "prefill_attention": "prefill_attention_kernel",
+                 "q40_matvec": "q40_matvec_kernel"}
+SERVE_EVENTS: dict[str, int] = {}  # kernel name -> events in the trace
+
+
+class _Served:
+    """``python -m distributed_llama_tpu_torch serve`` as a child process
+    with run k's engine flags on --port 0: its output read on a thread,
+    the bound port from its 🌐 line, JSON and NDJSON calls over HTTP,
+    and SIGTERM. Killed at exit if still running."""
+
+    def __init__(self, model, tok, where: Path):
+        import atexit
+        import threading
+
+        argv = [sys.executable, "-m", "distributed_llama_tpu_torch", "serve",
+                "--model", str(model), "--tokenizer", str(tok),
+                "--slots", str(CONT_SLOTS), "--kv-page-size", str(PAGE),
+                "--prefill-chunk", str(CONT_CHUNK), "--steps",
+                str(CONT_STEPS), "--temperature", "0", "--seed", "1",
+                "--port", "0", "--journal", str(where / "journal.wal"),
+                "--flightrec", str(where / "flightrec"), "--watchdog-ms",
+                str(SERVE_WATCHDOG_MS), "--drain-s", "0.5",
+                *SERVE_DEVICE_ARGS]
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self.lines: list[str] = []
+        self.port = None
+        self.ready = threading.Event()
+
+        def read():
+            for line in self.proc.stdout:
+                self.lines.append(line.rstrip("\n"))
+                m = re.search(r"🌐 serving on http://[^:]+:(\d+) ", line)
+                if m:
+                    self.port = int(m.group(1))
+                    self.ready.set()
+            self.ready.set()
+
+        self.reader = threading.Thread(target=read, daemon=True)
+        self.reader.start()
+        atexit.register(self.kill)
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def wait_ready(self, timeout: float) -> float:
+        """Seconds from the start to the 🌐 serving line."""
+        if not self.ready.wait(timeout) or self.port is None:
+            self.kill()
+            raise AssertionError("serve never printed its 🌐 line: "
+                                 + "\n".join(self.lines[-30:]))
+        return time.perf_counter() - self.t0
+
+    def url(self, path: str) -> str:
+        return f"http://127.0.0.1:{self.port}{path}"
+
+    def get(self, path: str) -> bytes:
+        import urllib.request
+
+        with urllib.request.urlopen(self.url(path), timeout=120) as r:
+            return r.read()
+
+    def post(self, path: str, obj: dict, stream_to: list | None = None):
+        """POST a JSON body: the decoded reply, or with ``stream_to`` the
+        NDJSON lines appended there as they arrive (the last one
+        returned)."""
+        import urllib.request
+
+        rq = urllib.request.Request(self.url(path),
+                                    data=json.dumps(obj).encode(),
+                                    headers={"Content-Type":
+                                             "application/json"})
+        with urllib.request.urlopen(rq, timeout=600) as r:
+            if stream_to is None:
+                return json.loads(r.read())
+            last = None
+            for line in r:
+                last = json.loads(line)
+                stream_to.append(last)
+            return last
+
+    def generate(self, prompt: str, steps: int, stream: bool,
+                 lines: list | None = None) -> list[int]:
+        """One greedy request's tokens (the prompt's echo included)."""
+        body = {"prompt": prompt, "steps": steps, "temperature": 0.0,
+                "stream": stream}
+        if not stream:
+            out = self.post("/generate", body)
+            return out["tokens"]
+        lines = [] if lines is None else lines
+        last = self.post("/generate", body, stream_to=lines)
+        if not last.get("done") or "error" in last:
+            raise AssertionError(f"stream ended with {last}")
+        return [ln["token"] for ln in lines if "token" in ln]
+
+    def stop(self, timeout: float = 120.0) -> tuple[int, float]:
+        """SIGTERM; (exit code, seconds to exit)."""
+        import signal
+
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise AssertionError("serve did not exit after SIGTERM")
+        dt = time.perf_counter() - t0
+        self.reader.join(10)
+        return rc, dt
+
+
+def _concurrently(fns) -> list:
+    """Run each callable on a thread of its own; their results in order
+    (the first exception raised here)."""
+    import threading
+
+    out: list = [None] * len(fns)
+    errs: list = []
+
+    def one(i, fn):
+        try:
+            out[i] = fn()
+        except BaseException as e:  # re-raised below, on this thread
+            errs.append(e)
+
+    threads = [threading.Thread(target=one, args=(i, fn))
+               for i, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    return out
+
+
+def _prom_value(text: str, name: str) -> float:
+    m = re.search(rf"^{re.escape(name)} (\S+)$", text, re.M)
+    if not m:
+        raise AssertionError(f"/metrics has no {name}")
+    return float(m.group(1))
+
+
+def _device_used_gb() -> float:
+    """Device memory in use on the card (every process), nvidia-smi."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=30)
+    except OSError:
+        return float("nan")
+    return float(out.stdout.split()[0]) / 1024 if out.returncode == 0 \
+        else float("nan")
+
+
+def phase_serve(torch, model, tok, ref_k, gaps, smi):
+    """serve_full_width: the port's ``serve`` on the 7B file at full width
+    and depth, as a child process with run k's engine flags, --port 0, a
+    journal, a flight recorder and a generous watchdog. Run k's 12 prompts
+    from concurrent clients, every other one streamed, greedy: each
+    response equals run k's stream for that prompt or parts from it only
+    at a near-tie of run k's top-2 logits; /health reads serving, schema
+    3, with its paged_kv, slo and watch blocks; /metrics has the request
+    lifecycle families and a TTFT count of 12; /debug/timeline validates
+    as a Chrome trace. Then POST /profile over a burst of SERVE_BURST
+    requests: its trace holds K6, K1m and K3 events (kernels the server
+    ran on the card), logged per kernel. Then SERVE_LONG streamed long
+    requests, SIGTERM while they are in flight: exit 0, every one of them
+    live in the journal, and the drain's flight-recorder bundle valid;
+    the server restarted on the same journal says "recovered N", finishes
+    them (the replayed tokens through K3/K4 admission prefill), and their
+    journaled streams equal an uninterrupted in-process run of the same
+    requests, or part only at a near-tie of its top-2 logits."""
+    import shutil
+
+    where = SMOKE_DIR / "serve"
+    shutil.rmtree(where, ignore_errors=True)
+    where.mkdir(parents=True)
+    served: list[_Served] = []
+    try:
+        return _serve_run(torch, model, tok, ref_k, gaps, smi, where,
+                          served)
+    except BaseException:
+        for i, srv in enumerate(served):  # what each server said
+            for line in srv.lines[-40:]:
+                log(f"serve child {i}: {line}")
+        raise
+
+
+def _serve_run(torch, model, tok, ref_k, gaps, smi, where, served):
+    """phase_serve's body; ``served`` collects the children it starts."""
+    import threading
+
+    from distributed_llama_tpu_torch.io.loader import load_model
+    from distributed_llama_tpu_torch.io.tokenizer import Tokenizer
+    from distributed_llama_tpu_torch.obs.flightrec import load_bundle
+    from distributed_llama_tpu_torch.obs.spans import validate_chrome_trace
+    from distributed_llama_tpu_torch.ops.quants import FloatType
+    from distributed_llama_tpu_torch.runtime.continuous import \
+        ContinuousEngine
+    from distributed_llama_tpu_torch.runtime.journal import load_journal
+    from distributed_llama_tpu_torch.utils import it_split
+
+    res: dict = {}
+    used = []
+    srv = _Served(model, tok, where)
+    served.append(srv)
+    res["start_s"] = srv.wait_ready(600)
+    # 1. run k's 12 prompts, concurrent, every other one streamed
+    t0 = time.perf_counter()
+    outs = _concurrently([
+        (lambda i=i: srv.generate(CONT_PROMPTS[i], CONT_STEPS,
+                                  stream=i % 2 == 1))
+        for i in range(len(CONT_PROMPTS))])
+    wall = time.perf_counter() - t0
+    used.append(_device_used_gb())
+    parted = _near_tie_rows("serve", {"outs": outs}, ref_k, gaps)
+    n_sampled = sum(len(o) - (len(p) - 1)
+                    for o, p in zip(outs, ref_k["prompts"]))
+    health = json.loads(srv.get("/health"))
+    metrics = srv.get("/metrics").decode()
+    timeline = json.loads(srv.get("/debug/timeline"))
+    validate_chrome_trace(timeline)
+    missing = [b for b in ("paged_kv", "slo", "watch", "sched")
+               if b not in health]
+    if (health.get("state") != "serving" or health.get("schema") != 3
+            or missing):
+        raise AssertionError(f"serve /health: state {health.get('state')},"
+                             f" schema {health.get('schema')}, missing "
+                             f"{missing}")
+    families = [f for f in ("dllama_request_ttft_seconds",
+                            "dllama_request_queue_wait_seconds",
+                            "dllama_request_decode_token_seconds",
+                            "dllama_requests_total",
+                            "dllama_engine_step_duration_seconds")
+                if f"# TYPE {f} " not in metrics]
+    ttft_n = _prom_value(metrics, "dllama_request_ttft_seconds_count")
+    if families or ttft_n != len(CONT_PROMPTS):
+        raise AssertionError(f"serve /metrics: missing {families}, TTFT "
+                             f"count {ttft_n}")
+    steps_n = _prom_value(metrics, "dllama_engine_step_duration_seconds_count")
+    step_ms = _prom_value(metrics, "dllama_engine_step_duration_seconds_sum"
+                          ) / max(steps_n, 1) * 1e3
+    k = ref_k["run"]
+    k_decode_tps = k["sampled_tokens"] / (k["tokens"] * k["ms_per_token"]
+                                          / 1e3)
+    res.update(requests=len(outs), wall_s=wall, sampled_tokens=n_sampled,
+               decode_tokens_per_s=n_sampled / wall,
+               run_k_decode_tokens_per_s=k_decode_tps,
+               ttft_s=health["ttft_s"], ms_per_dispatch=step_ms,
+               dispatches=steps_n, parted=parted,
+               timeline_events=len(timeline["traceEvents"]))
+    log(f"serve ({smi}): {len(outs)} requests from concurrent clients in "
+        f"{wall:.3f} s, {n_sampled / wall:.1f} decode tokens/s served "
+        f"against run k's {k_decode_tps:.1f}; {len(parted)} rows part at a "
+        f"near-tie")
+    log(f"serve ({smi}): TTFT p50 {health['ttft_s']['p50']:.4f} s, p95 "
+        f"{health['ttft_s']['p95']:.4f} s")
+    cost = health["sched"]["cost_totals"]
+    res["cost_totals"] = cost
+    log(f"serve ({smi}): {step_ms:.3f} ms a dispatch on the scheduler's "
+        f"clock over {steps_n:.0f} dispatches (run k: "
+        f"{k['ms_per_dispatch']:.3f} ms a step on the host's clock); the "
+        f"ledgers' dispatch seconds {cost['dispatch_s']:.3f}, admission "
+        f"prefill seconds {cost['prefill_s']:.3f} of the {wall:.3f} s wall")
+    # 2. POST /profile over a burst
+    prof_dir = where / "profile"
+    reply = srv.post("/profile", {"seconds": SERVE_PROFILE_S,
+                                  "dir": str(prof_dir)})
+    t_prof = time.perf_counter()
+    _concurrently([(lambda i=i: srv.generate(CONT_PROMPTS[i], CONT_STEPS,
+                                             stream=i % 2 == 0))
+                   for i in range(SERVE_BURST)])
+    burst_s = time.perf_counter() - t_prof
+    trace = None
+    while time.perf_counter() - t_prof < SERVE_PROFILE_S + 120:
+        files = sorted(prof_dir.glob("*.pt.trace.json"))
+        if files:
+            try:
+                trace = it_split.parse_trace(str(prof_dir))
+                break
+            except (ValueError, OSError):
+                pass  # still being written
+        time.sleep(0.5)
+    if trace is None:
+        raise AssertionError(f"POST /profile {reply}: no trace in "
+                             f"{prof_dir}")
+    dev = [v for key, v in trace.items() if key.startswith("/device:")]
+    events = {name: sum(v.counts.get(base, 0) for v in dev)
+              for name, base in SERVE_KERNELS.items()}
+    SERVE_EVENTS.update(events)
+    log(f"serve POST /profile ({SERVE_PROFILE_S} s over {SERVE_BURST} "
+        f"requests in {burst_s:.3f} s): kernel events {events}")
+    idle = [n for n in ("paged_attention", "q40_matvec_multi", "q40_gemm")
+            if not events[n]]
+    if idle:
+        raise AssertionError(f"serve: no {idle} events in the POST /profile"
+                             f" trace")
+    res.update(profile=dict(seconds=SERVE_PROFILE_S, burst_s=burst_s,
+                            events=events))
+    # 3. SIGTERM with long requests in flight
+    tokenizer = Tokenizer(str(tok), 32000)
+    prompts = [tokenizer.encode(CONT_PROMPTS[i]) for i in range(SERVE_LONG)]
+    streams = [[] for _ in range(SERVE_LONG)]
+
+    def long(i):
+        try:
+            srv.post("/generate", {"prompt": CONT_PROMPTS[i], "steps":
+                                   SERVE_LONG_STEPS, "temperature": 0.0,
+                                   "stream": True}, stream_to=streams[i])
+        except OSError:
+            pass  # the server went away: the journal carries the rest
+
+    clients = [threading.Thread(target=long, args=(i,))
+               for i in range(SERVE_LONG)]
+    for t in clients:
+        t.start()
+    t_wait = time.perf_counter()
+    while not all(len(st) >= len(p) - 1 + 8
+                  for st, p in zip(streams, prompts)):
+        if time.perf_counter() - t_wait > 120:
+            raise AssertionError("serve: the long requests never streamed")
+        time.sleep(0.02)
+    used.append(_device_used_gb())
+    rc, term_s = srv.stop()
+    for t in clients:
+        t.join(30)
+    entries = load_journal(str(where / "journal.wal"))
+    live = [e for e in entries if e.status is None]
+    if rc != 0 or len(live) < 4 or any(not e.sampled for e in live):
+        raise AssertionError(f"serve SIGTERM: exit {rc}, {len(live)} live "
+                             f"journal entries")
+    bundles = sorted((where / "flightrec").glob("*sigterm_drain*.json"))
+    if not bundles:
+        raise AssertionError("serve: the drain wrote no flight-recorder "
+                             "bundle")
+    bundle = load_bundle(str(bundles[0]))  # validate_bundle inside
+    log(f"serve ({smi}): SIGTERM to exit {term_s:.3f} s, exit {rc}; "
+        f"{len(live)} requests live in the journal; bundle "
+        f"{bundles[0].name} valid ({len(bundle.get('spans', []))} spans)")
+    # 4. restart on the journal
+    srv2 = _Served(model, tok, where)
+    served.append(srv2)
+    srv2.wait_ready(600)
+    t_first = None
+    while True:
+        h = json.loads(srv2.get("/health"))
+        if t_first is None and h["steps"] >= 1:
+            t_first = time.perf_counter() - srv2.t0
+        if t_first is not None and h["active"] == 0 and h["queued"] == 0:
+            break
+        if time.perf_counter() - srv2.t0 > 600:
+            raise AssertionError("serve restart: the recovered requests "
+                                 "never finished")
+        time.sleep(0.05)
+    used.append(_device_used_gb())
+    said = [ln for ln in srv2.lines if "🌐 recovered" in ln]
+    rc2, _ = srv2.stop()
+    if rc2 != 0 or not said or f"recovered {len(live)} journaled" \
+            not in said[0]:
+        raise AssertionError(f"serve restart: exit {rc2}, lines {said}")
+    after = load_journal(str(where / "journal.wal"))
+    recovered = []
+    for e in live:
+        new = [n for n in after if n.status == "done"
+               and n.tokens == e.replay_tokens]
+        if len(new) != 1:
+            raise AssertionError(f"serve restart: request {e.rid} has "
+                                 f"{len(new)} finished lives")
+        recovered.append(new[0].tokens[1:] + new[0].sampled)
+    # 5. the uninterrupted run of the same requests, in this process
+    spec, host = load_model(str(model), weights_float_type=FloatType.Q40)
+    eng = ContinuousEngine(spec, host, CONT_SLOTS, 0.0, 0.9, 1,
+                           page_size=PAGE, prefill_chunk=CONT_CHUNK,
+                           device="cuda")
+    del host
+    ref_gaps: dict = {}
+    live_prompts = [e.tokens for e in live]
+    with _recorded_gaps(ref_gaps):
+        ref_outs, _ = eng.run(live_prompts, SERVE_LONG_STEPS)
+    del eng
+    rparted = _near_tie_rows("serve recovery", {"outs": recovered},
+                             {"outs": ref_outs, "prompts": live_prompts},
+                             ref_gaps, ref="the uninterrupted run")
+    res.update(sigterm_to_exit_s=term_s, journaled=len(live),
+               restart_to_first_token_s=t_first,
+               recovered=len(recovered), recovery_parted=rparted,
+               bundle=bundles[0].name, device_used_gb=used,
+               peak_device_used_gb=max(used))
+    log(f"serve ({smi}): restart to the first recovered token "
+        f"{t_first:.3f} s; {len(recovered)} recovered streams, "
+        f"{len(rparted)} part from the uninterrupted run at a near-tie")
+    log(f"serve ({smi}): device memory in use (nvidia-smi, every process) "
+        f"{', '.join(f'{u:.2f}' for u in used)} GB, peak "
+        f"{max(used):.2f} GB")
+    log(f"e2e serve: {json.dumps(res)}")
     return res
 
 
@@ -4505,8 +4948,13 @@ def main() -> int:
     e2e_resume = phase_e2e_resume(torch, model, tok, spec.n_layers,
                                   _pieces(out_a))
     mark("CLI runs a-j, o-r")
-    e2e_cont = phase_e2e_continuous_runs(torch, model, tok, spec.n_layers)
+    e2e_cont, ref_k, gaps_k = phase_e2e_continuous_runs(torch, model, tok,
+                                                        spec.n_layers)
     mark("CLI runs k-n, s-u")
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e_serve = phase_serve(torch, model, tok, ref_k, gaps_k, smi)
+    mark("serve_full_width")
     gc.collect()
     torch.cuda.empty_cache()
     tp, tp_launches = tp_full_width(torch, spec, model, tok, ref_a, ref_c,
@@ -4865,6 +5313,12 @@ def main() -> int:
     if tp_idle:
         raise AssertionError(f"kernels never launched on the tp path: "
                              f"{tp_idle}")
+    for k in kernels:
+        if k["name"] in SERVE_KERNELS:
+            # the serve part: this kernel's events in serve_full_width's
+            # POST /profile trace (the server is a process of its own)
+            k["serve"] = {"trace_events": SERVE_EVENTS.get(k["name"], 0),
+                          "base_name": SERVE_KERNELS[k["name"]]}
     idle = [k["name"] for k in kernels if not k["launches"]] + [
         p["name"] for k in kernels for p in k.get("parts", ())
         if not p["launches"]]
@@ -4883,7 +5337,7 @@ def main() -> int:
                       "e2e_bf16": e2e_bf16, "e2e_batch": e2e_batch,
                       "e2e_batch_dequant": e2e_batch_dq,
                       "e2e_fast": e2e_fast, "e2e_fused": e2e_fused,
-                      "e2e_continuous": e2e_cont,
+                      "e2e_continuous": e2e_cont, "e2e_serve": e2e_serve,
                       "e2e_profile": e2e_profile,
                       "e2e_resume": e2e_resume,
                       "probe": probe, "probe_kernels": probe_rows,

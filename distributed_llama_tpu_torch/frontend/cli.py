@@ -1,5 +1,6 @@
 """CLI entry point: the ``inference`` and ``worker`` modes of the reference
-CLI, on one device or tensor-parallel over ranks, and ``convert``.
+CLI, on one device or tensor-parallel over ranks, ``serve`` (the HTTP
+server over the continuous engine, runtime/server.py) and ``convert``.
 
 Flags ported so far: --model, --tokenizer, --prompt, --steps,
 --temperature, --topp, --seed, --weights-float-type, --buffer-float-type
@@ -32,15 +33,19 @@ size, --spec-k with --dispatch-tokens, --continuous or --slots without a
 prompts file and negative slots exit 2, and --prefill-chunk with
 --prompts-file needs --continuous.
 
-On the lockstep path --metrics, --spec-k K and --kv-page-size P print the
-JAX package's note that they only apply to the continuous engine, and the
-run goes on, as there; --slots, --block-steps, --kv-pages and
+--metrics prints the run's Prometheus exposition on stderr (with
+--continuous the engine's metrics and the request lifecycle, on one prompt
+the per-token latency), and --log-json (= DLLAMA_LOG_JSON=1) turns the 🔶
+lines into NDJSON events, as in the JAX CLI. On the lockstep path
+--metrics, --spec-k K and --kv-page-size P print the JAX package's note
+that they only apply to the continuous engine, and the run goes on, as
+there; --slots, --block-steps, --kv-pages and
 --dispatch-tokens are ignored there, as in the JAX CLI. --continuous
 --kv-pages N without --kv-page-size reaches the engine, which raises
 ValueError after the load, as the JAX package's ContinuousEngine does.
---nthreads is accepted and ignored, as in the JAX CLI. With --continuous,
---metrics exits 2 "not yet ported"; without --prompts-file every flag of
-the continuous engine does (--spec-ngram with --spec-k too).
+--nthreads is accepted and ignored, as in the JAX CLI. Without
+--prompts-file every flag of the continuous engine exits 2 "not yet
+ported" (--spec-ngram with --spec-k too).
 Tensor parallelism: --tp N runs N ranks, one process each (spawned here):
 rank r on cuda:r over NCCL, or with --device cpu N gloo ranks on the CPU.
 --tp-scheme ref|fused|overlap (= DLLAMA_TP_SCHEME) picks the collectives
@@ -84,6 +89,18 @@ ported" before the model loads; that includes the KV tier flags. --sp 1,
 --spec-ngram N without --spec-k name what the port runs and are
 accepted, as the JAX CLI runs its plain path at those values.
 
+``serve`` takes the JAX CLI's flags on one device (--device cuda by
+default): --host, --port (0 picks a free one; the 🌐 line names it),
+--slots, --steps, the sampling flags, the continuous engine's (pages,
+chunk, chains, --spec-k, --dispatch-tokens, --kv-quant, --fast-prefill),
+--metrics/--no-metrics, --slo SPEC|off (default the serving policy),
+--journal PATH [--journal-fsync] (opened before the load; exit 1 on a
+corrupt journal or a config mismatch), --watchdog-ms, --drain-s,
+--flightrec DIR, --watch-interval, --log-json and --supervise
+[--max-restarts N]. The JAX CLI's exit-2 checks and messages come in its
+order; before them --chaos, the disaggregation flags, the KV tier flags
+above their neutral values and --tp above 1 exit 2 "not yet ported".
+
 ``convert`` is the port's converter (convert.py): Meta or HF checkpoints
 to a reference-format .bin.
 
@@ -119,11 +136,22 @@ _FT = {"f32": FloatType.F32, "f16": FloatType.F16, "q40": FloatType.Q40,
        "q80": FloatType.Q80}
 
 # the JAX package's inference flags the port does not run yet
-_UNPORTED_SWITCHES = ("--log-json",)
 _UNPORTED_VALUED = ("--kv-disk-dir", "--kv-disk-gb")
 # unported flags that take the JAX CLI's type, and the value at which the
 # JAX CLI runs the path the port has; other values are not yet ported
 _NEUTRAL_VALUED = {"--kv-host-pages": (int, 0)}
+
+
+def _obs_flags(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--log-json", action="store_true",
+                    help="emit runtime narration (🌐/⏩/🔶 lines) as "
+                         "newline-delimited JSON events instead of emoji "
+                         "text (same as DLLAMA_LOG_JSON=1)")
+
+
+def _apply_log_json(args) -> None:
+    if getattr(args, "log_json", False):
+        os.environ["DLLAMA_LOG_JSON"] = "1"
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -244,9 +272,11 @@ def _parser() -> argparse.ArgumentParser:
                          "--kv-page-size): q8 stores pool pages as Q80 "
                          "int8 codes and f16 deltas, ~1/3.8 of f32 page "
                          "bytes")
-    # notes on the lockstep path; not ported elsewhere
     ap.add_argument("--metrics", action="store_true",
-                    help="with --prompts-file: a note (nothing to collect)")
+                    help="print the run's Prometheus exposition on stderr "
+                         "(request lifecycle and engine metrics with "
+                         "--continuous, per-token latency on one prompt; "
+                         "a note on the lockstep batch)")
     ap.add_argument("--spec-k", type=int, default=0, metavar="K",
                     help="with --continuous and --kv-page-size: "
                          "self-speculative decoding — draft up to K-1 "
@@ -271,9 +301,7 @@ def _parser() -> argparse.ArgumentParser:
                          "in-flight decodes behind a separate chunk "
                          "dispatch). -1 sizes from --prefill-chunk; "
                          "0 = off. Incompatible with --spec-k")
-    for flag in _UNPORTED_SWITCHES:
-        ap.add_argument(flag, action="store_true", default=argparse.SUPPRESS,
-                        help="not yet ported")
+    _obs_flags(ap)
     for flag in _UNPORTED_VALUED:
         ap.add_argument(flag, nargs="*", default=argparse.SUPPRESS,
                         help="not yet ported")
@@ -285,7 +313,7 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _unported(args) -> list[str]:
-    given = [f for f in _UNPORTED_SWITCHES + _UNPORTED_VALUED
+    given = [f for f in _UNPORTED_VALUED
              if f[2:].replace("-", "_") in vars(args)]
     for flag, (_, neutral) in _NEUTRAL_VALUED.items():
         value = vars(args).get(flag[2:].replace("-", "_"))
@@ -293,14 +321,10 @@ def _unported(args) -> list[str]:
             given.append(f"{flag} {value}")
     if args.sp != 1:
         given.append(f"--sp {args.sp}")
-    if args.continuous:  # the continuous engine's unported options
-        if args.metrics:
-            given.append("--metrics")
-    elif not args.prompts_file:  # flags of the batch paths, ported there
+    if not args.prompts_file:  # flags of the batch paths, ported there
         if args.spec_k and args.spec_ngram is not None:
             given.append(f"--spec-ngram {args.spec_ngram}")
         for flag, value, neutral in (
-                ("--metrics", args.metrics, False),
                 ("--spec-k", args.spec_k, 0),
                 ("--dispatch-tokens", args.dispatch_tokens, 0),
                 ("--kv-page-size", args.kv_page_size, 0),
@@ -362,6 +386,7 @@ def cmd_inference(argv: list[str], quiet: bool = False,
               f"cache or q8 pages)",
               file=sys.stderr)
         return 2
+    _apply_log_json(args)
     # DLLAMA_KV_QUANT is read once, here, when the flag is absent
     from ..ops.paged_attention import kv_quant_mode
 
@@ -639,6 +664,11 @@ def _run(args, prompts, quiet: bool, group, scheme: str, tp: int) -> int:
 
             if sharded:
                 tp_args["mesh"] = tp_args.pop("group")
+            reg = None
+            if args.metrics:
+                from ..obs.metrics import Registry
+
+                reg = Registry()
             generate_continuous(spec, params, tokenizer, prompts, args.steps,
                                 args.temperature, args.topp, seed,
                                 slots=args.slots, cache_dtype=cache_dtype,
@@ -652,7 +682,9 @@ def _run(args, prompts, quiet: bool, group, scheme: str, tp: int) -> int:
                                 spec_ngram=(3 if args.spec_ngram is None
                                             else args.spec_ngram),
                                 dispatch_tokens=args.dispatch_tokens,
-                                **tp_args)
+                                metrics=reg, **tp_args)
+            if reg is not None and not quiet:
+                print(reg.expose(), file=sys.stderr, end="")
             return 0
         if not quiet:
             _lockstep_notes(args)
@@ -698,6 +730,20 @@ def _run(args, prompts, quiet: bool, group, scheme: str, tp: int) -> int:
                   if sharded else None)
         rc = _print_split(args, trace_dir, tokenizer, stats,
                           rest if resume else None, issued, quiet)
+    if args.metrics and not quiet:
+        # a one-shot run has no /metrics endpoint: its telemetry as a
+        # Prometheus text dump on stderr (the server's metric names)
+        from ..obs.metrics import Registry
+        from ..obs.trace import STEP_BUCKETS
+
+        reg = Registry()
+        h = reg.histogram("dllama_request_decode_token_seconds",
+                          "Per-token decode latency", buckets=STEP_BUCKETS)
+        for ms in stats.token_ms:
+            h.observe(ms / 1000.0)
+        reg.counter("dllama_generated_tokens_total",
+                    "Tokens generated this run").inc(stats.tokens)
+        print(reg.expose(), file=sys.stderr, end="")
     if args.save_state:  # after a failed split too: its gather is collective
         from ..io.tokenizer import BOS
         from ..runtime.checkpoint import save_generation_state
@@ -712,6 +758,283 @@ def _run(args, prompts, quiet: bool, group, scheme: str, tp: int) -> int:
             say("💡 Generation ended (BOS or zero steps); nothing "
                 "resumable to save")
     return rc
+
+# the JAX package's serve flags the port does not run yet, and the value at
+# which the JAX server runs the path the port has
+_SERVE_NEUTRAL = {"chaos": None, "disagg_role": None, "disagg_peer": None,
+                  "page_channel_port": 0, "handoff_min_pages": 2,
+                  "kv_host_pages": 0, "kv_disk_dir": None, "kv_disk_gb": 0.0}
+
+
+def _serve_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="dllama-torch serve")
+    ap.add_argument("--model", required=True,
+                    help="path to the reference-format .bin model")
+    ap.add_argument("--tokenizer", required=True)
+    ap.add_argument("--weights-float-type", default="q40", choices=sorted(_FT))
+    ap.add_argument("--buffer-float-type", default="f32", choices=sorted(_FT))
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=9990,
+                    help="listen port (0 = pick a free one; the 🌐 line "
+                         "names the bound port)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the model runs (default cuda; the CPU runs "
+                         "the kernels' plain versions)")
+    ap.add_argument("--slots", type=int, default=8,
+                    help="concurrent sequences (cache slots)")
+    ap.add_argument("--steps", type=int, default=64,
+                    help="default max new positions per request")
+    ap.add_argument("--temperature", type=float, default=0.8)
+    ap.add_argument("--topp", type=float, default=0.9)
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--tp", type=int, default=None,
+                    help="only 1 is ported for serve")
+    ap.add_argument("--tp-scheme", default=None, choices=SCHEMES,
+                    help="tp collective schedule (= DLLAMA_TP_SCHEME)")
+    ap.add_argument("--kv-cache-dtype", default="f32",
+                    choices=("f32", "bf16"))
+    ap.add_argument("--prefill-chunk", type=int, default=128, metavar="N",
+                    help="admission prefill: fill a new request's prompt "
+                         "in T=N chunked passes (0/1 disables)")
+    ap.add_argument("--block-steps", type=int, default=1, metavar="K",
+                    help="fuse K decode steps into one device dispatch "
+                         "(admission + per-token streaming at chain "
+                         "boundaries)")
+    ap.add_argument("--kv-page-size", type=int, default=0, metavar="P",
+                    help="paged KV cache with radix prefix sharing (0 = "
+                         "contiguous per-slot cache)")
+    ap.add_argument("--kv-pages", type=int, default=0, metavar="N",
+                    help="paged-KV pool size in pages (default: "
+                         "slots * seq_len / page-size)")
+    ap.add_argument("--kv-quant", default=None, choices=("f32", "q8"),
+                    help="KV page quantization (= DLLAMA_KV_QUANT; needs "
+                         "--kv-page-size)")
+    ap.add_argument("--spec-k", type=int, default=0, metavar="K",
+                    help="self-speculative decoding (needs "
+                         "--kv-page-size; 0 = off)")
+    ap.add_argument("--kv-host-pages", type=int, default=0, metavar="N",
+                    help="not yet ported above 0")
+    ap.add_argument("--kv-disk-dir", default=None, metavar="DIR",
+                    help="not yet ported")
+    ap.add_argument("--kv-disk-gb", type=float, default=0.0, metavar="G",
+                    help="not yet ported above 0")
+    ap.add_argument("--spec-ngram", type=int, default=3, metavar="N",
+                    help="longest drafter n-gram (falls back to 1)")
+    ap.add_argument("--dispatch-tokens", type=int, default=0, metavar="T",
+                    help="token-budget mixed dispatches (needs "
+                         "--kv-page-size; -1 sizes from --prefill-chunk; "
+                         "0 = off; incompatible with --spec-k)")
+    ap.add_argument("--fast-prefill", action="store_true",
+                    help="bf16 products for admission prefill")
+    ap.add_argument("--metrics", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="serve GET /metrics and collect request-lifecycle "
+                         "and engine metrics; --no-metrics turns "
+                         "collection off")
+    ap.add_argument("--slo", default=None, metavar="SPEC",
+                    help="SLO policy: name:ttft_ms:token_ms[,...], first "
+                         "class is the default; default the built-in "
+                         "interactive/batch policy; --slo off disables "
+                         "tracking")
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="not yet ported")
+    ap.add_argument("--journal", default=None, metavar="PATH",
+                    help="write-ahead request journal (runtime/journal.py): "
+                         "on restart the server re-admits incomplete "
+                         "requests and continues their streams")
+    ap.add_argument("--journal-fsync", default="batch",
+                    choices=("always", "batch", "off"),
+                    help="journal durability: fsync every record, once a "
+                         "scheduler step (default), or never")
+    ap.add_argument("--watchdog-ms", type=float, default=0.0, metavar="MS",
+                    help="step watchdog: a dispatch over this deadline "
+                         "marks /health degraded (0 = off)")
+    ap.add_argument("--drain-s", type=float, default=10.0, metavar="S",
+                    help="graceful-drain budget on SIGTERM: stop admission "
+                         "(503), finish in-flight requests for up to S "
+                         "seconds, journal the remainder, exit 0")
+    ap.add_argument("--supervise", action="store_true",
+                    help="run serve under the crash-loop supervisor: "
+                         "respawn on non-zero exits with backoff, forward "
+                         "SIGTERM for one graceful drain")
+    ap.add_argument("--max-restarts", type=int, default=None, metavar="N",
+                    help="(--supervise) give up after N respawns")
+    ap.add_argument("--disagg-role", default=None,
+                    choices=("prefill", "decode"), help="not yet ported")
+    ap.add_argument("--disagg-peer", default=None, metavar="HOST:PORT",
+                    help="not yet ported")
+    ap.add_argument("--page-channel-port", type=int, default=0,
+                    metavar="PORT", help="not yet ported")
+    ap.add_argument("--handoff-min-pages", type=int, default=2, metavar="N",
+                    help="not yet ported")
+    ap.add_argument("--watch-interval", type=float, default=0.0,
+                    metavar="S",
+                    help="watchtower incident detection every S seconds "
+                         "(0 = off; /debug/incidents either way)")
+    ap.add_argument("--flightrec", default=None, metavar="DIR",
+                    help="flight recorder: drop a postmortem bundle into "
+                         "DIR on a watchdog trip, the SIGTERM drain and "
+                         "each --supervise respawn")
+    _obs_flags(ap)
+    return ap
+
+
+def cmd_serve(argv: list[str]) -> int:
+    """``serve``: the HTTP server over the continuous engine
+    (runtime/server.py), on one device. The JAX CLI's checks and messages
+    in its order, after the refusal of what is not yet ported (chaos,
+    disaggregation, the KV tiers above their neutral values, --tp above
+    1), all before any load."""
+    ap = _serve_parser()
+    args = ap.parse_args(argv)
+    unported = [f"--{k.replace('_', '-')} {v}"
+                for k, v in _SERVE_NEUTRAL.items()
+                if getattr(args, k) != v]
+    if args.tp not in (None, 1):
+        unported.append(f"--tp {args.tp}")
+    if unported:
+        print(f"not yet ported: {', '.join(unported)} (the port's serve "
+              f"runs one device, with the journal, SLO, metrics, watchdog "
+              f"and flight recorder)", file=sys.stderr)
+        return 2
+    if args.supervise:
+        # re-exec this serve command (supervision flags stripped) under the
+        # crash-loop wrapper, before any load: the supervisor stays small
+        # and device-free
+        from ..runtime.supervisor import serve_child_cmd, supervise
+
+        return supervise(serve_child_cmd(argv),
+                         max_restarts=args.max_restarts,
+                         flightrec_dir=args.flightrec)
+    _apply_log_json(args)
+    from ..ops.paged_attention import kv_quant_mode
+
+    if args.kv_quant:
+        os.environ["DLLAMA_KV_QUANT"] = args.kv_quant
+    try:
+        args.kv_quant = kv_quant_mode()
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return 2
+    if args.slots < 1:
+        print(f"--slots must be positive, got {args.slots}", file=sys.stderr)
+        return 2
+    if args.fast_prefill and args.prefill_chunk <= 1:
+        print("--fast-prefill only affects admission prefill; pass "
+              "--prefill-chunk N (N > 1)", file=sys.stderr)
+        return 2
+    if args.spec_k and args.kv_page_size <= 0:
+        print("--spec-k needs the paged KV cache: add --kv-page-size P",
+              file=sys.stderr)
+        return 2
+    if args.spec_k and args.dispatch_tokens:
+        print("--spec-k is incompatible with --dispatch-tokens: the "
+              "verify window and the prefill slice both claim the "
+              "per-row span (drop one)", file=sys.stderr)
+        return 2
+    if args.dispatch_tokens and args.kv_page_size <= 0:
+        print("--dispatch-tokens needs the paged KV cache: add "
+              "--kv-page-size P", file=sys.stderr)
+        return 2
+    if args.kv_quant == "q8" and args.kv_page_size <= 0:
+        print("--kv-quant q8 quantizes paged KV pages: add "
+              "--kv-page-size P", file=sys.stderr)
+        return 2
+    from ..obs.slo import SLOPolicy
+
+    try:
+        slo = (None if args.slo == "off"
+               else SLOPolicy.parse(args.slo) if args.slo
+               else SLOPolicy.serving_default())
+    except ValueError as e:
+        print(f"serve: {e}", file=sys.stderr)
+        return 2
+    from ..parallel.comm_stats import tp_scheme
+
+    if args.tp_scheme:
+        os.environ["DLLAMA_TP_SCHEME"] = args.tp_scheme
+    try:
+        tp_scheme()  # validated before the load
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return 2
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("no GPU: torch.cuda.is_available() is False — pass --device "
+              "cpu to run on the CPU", file=sys.stderr)
+        return 1
+    journal = None
+    if args.journal:
+        from ..runtime.journal import JournalCorruption, RequestJournal
+
+        try:
+            # opened before the load: damage refuses in milliseconds; the
+            # config fingerprint (it needs the spec) attaches after it
+            journal = RequestJournal(args.journal, fsync=args.journal_fsync)
+        except JournalCorruption as e:
+            print(f"serve: journal {args.journal} is corrupt: {e}\n"
+                  f"       (move it aside to start fresh, or restore a "
+                  f"good copy to recover)", file=sys.stderr)
+            return 1
+    from ..io.loader import load_model
+    from ..io.tokenizer import Tokenizer
+    from ..runtime.journal import (JournalConfigMismatch, config_fingerprint,
+                                   weight_file_digest)
+    from ..runtime.server import InferenceServer
+
+    spec, params = load_model(
+        args.model, weights_float_type=_FT[args.weights_float_type],
+        buffer_float_type=_FT[args.buffer_float_type])
+    tokenizer = Tokenizer(args.tokenizer, spec.vocab_size)
+    seed = args.seed if args.seed is not None else _default_seed()
+    if journal is not None:
+        # what a replay depends on (the JAX CLI's record): the model, its
+        # types, 'single' for one device, the seed policy, the weights
+        seed_policy = (f"explicit:{args.seed}" if args.seed is not None
+                       else "time")
+        journal.set_config(config_fingerprint(
+            spec, "single", seed_policy,
+            weights_digest=weight_file_digest(args.model),
+            kv_quant=args.kv_quant, kv_cache_dtype=args.kv_cache_dtype))
+    cache_dtype = (torch.bfloat16 if args.kv_cache_dtype == "bf16"
+                   else torch.float32)
+    try:
+        server = InferenceServer(spec, params, tokenizer, args.host,
+                                 args.port, args.slots, args.steps,
+                                 args.temperature, args.topp, seed,
+                                 cache_dtype=cache_dtype,
+                                 prefill_chunk=args.prefill_chunk,
+                                 block_steps=args.block_steps,
+                                 fast_prefill=args.fast_prefill,
+                                 metrics=args.metrics,
+                                 page_size=args.kv_page_size,
+                                 kv_pages=args.kv_pages,
+                                 spec_k=args.spec_k,
+                                 spec_ngram=args.spec_ngram,
+                                 dispatch_tokens=args.dispatch_tokens,
+                                 slo=slo, journal=journal,
+                                 watchdog_s=args.watchdog_ms / 1e3,
+                                 drain_s=args.drain_s,
+                                 kv_quant=args.kv_quant,
+                                 flightrec_dir=args.flightrec,
+                                 watch_interval_s=args.watch_interval,
+                                 device=args.device)
+    except JournalConfigMismatch as e:
+        # the journal was written under another config: a replay would be
+        # deterministic and wrong, so refuse; the operator restores the
+        # config or moves the journal aside
+        print(f"serve: {e}", file=sys.stderr)
+        return 1
+    del params  # the host copy; the engine holds the device tree
+    endpoints = "POST /generate, GET /health" + (
+        ", GET /metrics, GET /debug/timeline, POST /profile"
+        if args.metrics else "")
+    print(f"🌐 serving on http://{args.host}:{server.port} "
+          f"({args.slots} slots, {endpoints})", flush=True)
+    if server.recovered:
+        print(f"🌐 recovered {server.recovered} journaled requests "
+              f"from {args.journal}", flush=True)
+    server.serve_forever()
+    return 0
 
 
 def cmd_worker(argv: list[str]) -> int:
@@ -776,7 +1099,7 @@ def _print_split(args, trace_dir: str, tokenizer, stats,
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
-        print(f"usage: dllama-torch {{inference|worker|convert}} "
+        print(f"usage: dllama-torch {{inference|worker|serve|convert}} "
               f"[options]\n{__doc__}")
         return 0 if argv else 1
     mode, rest = argv[0], argv[1:]
@@ -784,6 +1107,11 @@ def main(argv: list[str] | None = None) -> int:
         return cmd_inference(rest)
     if mode == "worker":
         return cmd_worker(rest)
+    if mode == "serve":
+        try:
+            return cmd_serve(rest)
+        except SystemExit as e:  # argparse's usage errors
+            return e.code if isinstance(e.code, int) else 1
     if mode == "convert":
         from ..convert import main as convert_main
 
@@ -792,11 +1120,12 @@ def main(argv: list[str] | None = None) -> int:
         except SystemExit as e:  # argparse's usage errors
             return e.code if isinstance(e.code, int) else 1
         return 0
-    if mode in ("serve", "train"):
+    if mode == "train":
         print(f"mode {mode!r} is not yet ported (this port runs "
-              f"'inference', 'worker' and 'convert')", file=sys.stderr)
+              f"'inference', 'worker', 'serve' and 'convert')",
+              file=sys.stderr)
         return 2
-    print(f"unknown mode {mode!r} (expected inference|worker|convert)",
+    print(f"unknown mode {mode!r} (expected inference|worker|serve|convert)",
           file=sys.stderr)
     return 1
 

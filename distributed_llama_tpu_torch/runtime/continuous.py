@@ -58,15 +58,25 @@ the card each is one captured graph per (kind, greedy_only) over static
 table; the greedy graph argmaxes on the card and copies (B, K|T) int32
 back, the sampled one the logits.
 
+The books are the JAX engine's: the census ring and the ledger book are
+always on (obs/ledger.py); ``metrics`` (an obs/metrics.Registry) adds the
+engine metrics and the span timeline, ``slo`` (an obs/slo.SLOPolicy) the
+verdict tracker, ``journal`` (runtime/journal.RequestJournal) the
+write-ahead journal with ``recover`` and ``suspend``, and ``watchdog``
+(runtime/supervisor.StepWatchdog) is armed around each dispatch, the host
+read of its tokens or logits included: CUDA work is asynchronous, so a
+hung kernel shows only where the host waits for it.
+
 Left out (later slices): the KV tiers and remote page adoption,
 chunk-boundary prefill preemption (``prefill_hold``) and the SLO ranking
-of the mixed slice, the journal, recovery, suspend, the server, metrics,
-SLO, ledger and census books, chaos and the watchdog. Their engine
-arguments raise "not yet ported" when not at their defaults.
+of admission and of the mixed slice (``slo_priority``), and chaos. Their
+engine arguments raise "not yet ported" when not at their defaults.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import threading
 import time
@@ -83,6 +93,8 @@ from ..models.llama import (FAST, KERNELS, Llama, gather_pages,
                             params_to_device, scatter_pages, scatter_pages_q8,
                             with_body)
 from ..models.spec import TransformerSpec
+from ..obs import tracectx
+from ..obs.ledger import CensusRing, LedgerBook
 from ..ops import attention, paged_attention, q40
 from ..ops._build import build
 from ..parallel.mesh import TPGroup, single
@@ -114,6 +126,18 @@ class Request:
     # called with each token as it lands in ``out`` (prompt echoes too);
     # must be fast and must not raise
     on_token: Any = None
+    # SLO priority class (obs/slo.py): None = the policy's default class
+    slo_class: str | None = None
+    # journal recovery: coins the sampler consumed in a previous life;
+    # admission skips the stream past them
+    coin_cursor: int = 0
+    # journal id of the previous life this request replays: its admit
+    # record carries it as ``recovers``, retiring the old life atomically
+    recovered_from: int | None = None
+    # prejournal() already assigned the index and journaled the admit
+    prejournaled: bool = False
+    # obs/tracectx.TraceContext, minted at ingress or by submit()
+    trace: Any = None
     # time.monotonic stamps (0.0 = not reached); t_first_token marks the
     # first SAMPLED token
     t_enqueue: float = 0.0
@@ -121,6 +145,10 @@ class Request:
     t_first_token: float = 0.0
     t_finish: float = 0.0
     n_sampled: int = 0
+    # the live obs/ledger.RequestLedger (opened by submit) and the bill a
+    # previous life carried across a recovery (merged into this one's)
+    ledger: Any = None
+    carried_cost: dict | None = None
 
 
 @dataclasses.dataclass
@@ -242,16 +270,15 @@ class ContinuousEngine:
                  remote_pages: bool = False, slo_priority: bool = False,
                  scheme: str | None = None):
         given = {name: value for name, value in (
-            ("metrics", metrics),
-            ("slo", slo), ("chaos", chaos), ("journal", journal),
-            ("watchdog", watchdog), ("kv_host_pages", kv_host_pages),
+            ("chaos", chaos), ("kv_host_pages", kv_host_pages),
             ("kv_disk_dir", kv_disk_dir), ("remote_pages", remote_pages),
             ("slo_priority", slo_priority)) if value}
         if given:
             raise ValueError(f"not yet ported: {', '.join(given)} (the "
                              f"port's continuous engine runs one device or "
                              f"a tp group, contiguous or paged, f32/bf16 "
-                             f"or q8 pages)")
+                             f"or q8 pages, with metrics, SLO, journal and "
+                             f"watchdog)")
         if mesh is not None and not isinstance(mesh, TPGroup):
             raise ValueError(f"not yet ported: mesh of type "
                              f"{type(mesh).__name__} (the port's mesh is a "
@@ -367,8 +394,8 @@ class ContinuousEngine:
         self._once: GraphStep | None = None
         self._chains: dict = {}  # (k, greedy_only) -> _Chain
         self._windows: dict = {}  # (kind, greedy_only) -> _Window
-        self._span = torch.zeros(slots, dtype=torch.int32,
-                                 device=self.device)
+        self._span_rows = torch.zeros(slots, dtype=torch.int32,
+                                      device=self.device)
         width = spec_k or dispatch_tokens
         self._stage_win = np.zeros((slots, max(width, 1)), np.int64)
         self._stage_i32 = np.zeros((3, slots), np.int32)
@@ -377,8 +404,53 @@ class ContinuousEngine:
         self._pool = [_Slot() for _ in range(slots)]
         self._queue: list[Request] = []
         self._lock = threading.Lock()
-        self._submitted = 0
         self.stats = ContinuousStats()
+        # the global bytes of the page planes (scrap page included; every
+        # rank's band under tp), for /health and the pool metrics
+        self.pool_bytes = (sum(int(a.nbytes) for a in self.cache)
+                           * self.group.size if page_size > 0 else 0)
+        self._init_books(metrics, slo, journal, watchdog, scheme)
+
+    def _init_books(self, metrics, slo, journal, watchdog, scheme) -> None:
+        """The JAX engine's books: the journal (new ids start past its
+        highest), the always-on ledger book and census ring, and with a
+        registry the engine metrics and span tracer (under tp the
+        collective budget's series), with a policy the SLO tracker."""
+        self._journal = journal
+        self._suspending = False  # drain: retire without journaling
+        self._watchdog = watchdog
+        self._submitted = 0 if journal is None else journal.next_id
+        self._book = LedgerBook()
+        self._census = CensusRing(self.slots)
+        self._ici_row_bytes = 0.0  # per-row collective bytes a step
+        self._obs = self._spans = None
+        if metrics is not None:
+            from ..obs.spans import SpanTracer
+            from ..obs.trace import EngineMetrics
+
+            self._obs = EngineMetrics(metrics)
+            if self._alloc is not None:
+                self._obs.kv_pages_free.set(self._alloc.n_free)
+                self._obs.bind_kv_pool(self.kv_quant, self.pool_bytes,
+                                       self._alloc.n_pages + 1)
+            self._spans = SpanTracer(on_drop=self._obs.spans_dropped.inc)
+            if self.group.size > 1:
+                from ..parallel.comm_stats import (tp_collective_budget,
+                                                   tp_scheme)
+
+                scheme = scheme or tp_scheme()
+                self._obs.bind_collectives(
+                    tp_collective_budget(self.spec, self.group.size, scheme),
+                    scheme, rows=self.slots)
+                self._ici_row_bytes = (self._obs.ici_bytes_per_step
+                                       / max(self.slots, 1))
+        if journal is not None and self._obs is not None:
+            journal.bind_metrics(self._obs.journal_records)
+        self._slo = None
+        if slo is not None:
+            from ..obs.slo import SLOTracker
+
+            self._slo = SLOTracker(slo, metrics)
 
     # -- the device step ----------------------------------------------------
 
@@ -445,7 +517,8 @@ class ContinuousEngine:
                 self.cache, w.tokens, self._pos, self._table)
         else:
             logits = self.model.forward_batch_mixed_paged(
-                self.cache, w.tokens, self._pos, self._span, self._table)
+                self.cache, w.tokens, self._pos, self._span_rows,
+                self._table)
         w.out.copy_(greedy_verify_tokens(logits) if w.greedy_only
                     else logits)
 
@@ -471,6 +544,50 @@ class ContinuousEngine:
                 self._window_step(kind, w)
         return w.out.cpu().numpy()
 
+    def capture_graphs(self) -> int:
+        """Capture now every CUDA graph step_many replays under this
+        engine's options (the forward of step_once, or the K-step chain,
+        the verify window or the mixed window, each greedy and sampled),
+        instead of lazily at the first dispatch of each shape. The server
+        calls it on its scheduler thread before the listener opens, so no
+        capture runs beside another thread's CUDA call. Every slot must be
+        free: the warm-up steps run over parked rows (position 0, pages on
+        the scrap page, the chain's rows inactive), whose writes are dead.
+        Returns the number of graphs captured (0 without graphs)."""
+        if not self.graph:
+            return 0
+        if any(not s.free for s in self._pool):
+            raise RuntimeError("capture_graphs needs every slot free")
+        n = 0
+        self._tokens.zero_()
+        self._pos.zero_()
+        if self._alloc is not None:
+            self._stage_tables()
+        for greedy_only in (True, False):
+            if self.dispatch_tokens or self.spec_k:
+                kind = "mixed" if self.dispatch_tokens else "verify"
+                if kind == "mixed":
+                    self._span_rows.zero_()
+                if (kind, greedy_only) not in self._windows:
+                    self._run_window(kind, np.zeros(
+                        (self.slots, self.dispatch_tokens or self.spec_k),
+                        np.int64), greedy_only)
+                    n += 1
+            elif self.block_steps > 1:
+                c = self._chain(self.block_steps, greedy_only)
+                if c.graph._graph is None:
+                    c.active.zero_()
+                    c.index.zero_()
+                    with torch.inference_mode():
+                        c.graph.run(1)  # warm-up + capture, no replay
+                    n += 1
+            elif greedy_only and self._once is None:
+                self._once = GraphStep(self._forward_into_logits, self.device)
+                with torch.inference_mode():
+                    self._once.run(1)
+                n += 1
+        return n
+
     # -- properties ---------------------------------------------------------
 
     def audit_pages(self) -> list[str]:
@@ -491,6 +608,234 @@ class ContinuousEngine:
         graphs = [c.graph for c in (*self._chains.values(),
                                     *self._windows.values())] + [self._once]
         return sum(g.replays for g in graphs if g is not None)
+
+    @property
+    def slo_tracker(self):
+        """The obs/slo.SLOTracker when a policy was given, else None."""
+        return self._slo
+
+    @property
+    def ledger_book(self) -> LedgerBook:
+        """The obs/ledger.LedgerBook (always on)."""
+        return self._book
+
+    @property
+    def sched_census(self) -> CensusRing:
+        """The obs/ledger.CensusRing of per-dispatch records (always on)."""
+        return self._census
+
+    # -- the books ------------------------------------------------------------
+
+    def _span(self, name: str, cat: str, **meta):
+        """A timeline span when tracing is on, else a free nullcontext."""
+        if self._spans is None:
+            return contextlib.nullcontext()
+        return self._spans.span(name, cat, **meta)
+
+    def _watch(self):
+        """The step watchdog armed around a dispatch, or a nullcontext."""
+        if self._watchdog is None:
+            return contextlib.nullcontext()
+        return self._watchdog
+
+    def _dispatched(self, t0: float, n_active: int, steps: int = 1) -> None:
+        """Inside a dispatch's armed window, after its host read: the
+        step metrics (DLLAMA_METRICS_SYNC first synchronizes the device,
+        so the time is the device's; obs/trace.sync_device_timing)."""
+        if self._obs is None:
+            return
+        if self._obs.sync and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._obs.record_step(time.monotonic() - t0, n_active, steps=steps)
+        if self._alloc is not None:
+            self._obs.kv_pages_free.set(self._alloc.n_free)
+
+    def _journal_sync(self) -> None:
+        """The step-boundary durability point: one fsync for the
+        iteration's records (batch policy) and the compaction check."""
+        if self._journal is None:
+            return
+        self._journal.sync()
+        self._journal.maybe_compact()
+
+    def _census_dispatch(self, kind: str, k: int, paused, active: int,
+                         dt_s: float, deferred=()) -> None:
+        """Charge both accounting halves from one pool walk after a
+        dispatch (the JAX engine's): per-slot ledger charges (row steps,
+        page steps, stalls by cause, pro-rated collective bytes) and the
+        dispatch's census record. A paused row waits on a dry pool
+        (``pool_dry``); a deferred row of a mixed dispatch on the budget
+        (``budget_wait``); queued requests on the queue."""
+        dt_share = dt_s / max(active, 1)
+        pages_held = 0
+        parked: dict = {}
+        class_page_s: dict = {}
+        for b, s in enumerate(self._pool):
+            if s.free:
+                continue
+            led = s.req.ledger
+            npages = len(s.pages)
+            if npages:
+                pages_held += npages
+                if led is not None:
+                    led.charge_pages(npages, k, dt_s)
+                cls = self._bill_class(s.req.slo_class)
+                class_page_s[cls] = class_page_s.get(cls, 0.0) + npages * dt_s
+            if b in paused or b in deferred:
+                cause = "pool_dry" if b in paused else "budget_wait"
+                parked[cause] = parked.get(cause, 0) + 1
+                if led is not None:
+                    led.charge_stall(cause, k, dt_s)
+            elif led is not None:
+                led.charge_rows(k, dt_share)
+                if self._ici_row_bytes:
+                    led.charge_ici(self._ici_row_bytes * k)
+        with self._lock:
+            queued = list(self._queue)
+        for req in queued:
+            if req.ledger is not None:
+                req.ledger.charge_stall("queue_wait", k, dt_s)
+        self._census.record(kind, k, active, parked, len(queued), pages_held)
+        if self._obs is not None:
+            for cause, n in parked.items():
+                self._obs.add_stall_seconds(cause, n * dt_s)
+            if queued:
+                self._obs.add_stall_seconds("queue_wait", len(queued) * dt_s)
+            for cls, page_s in class_page_s.items():
+                self._obs.add_page_seconds(cls, page_s)
+            self._obs.set_class_queue_depth(collections.Counter(
+                self._bill_class(r.slo_class) for r in queued))
+
+    def _close_ledger(self, rid: int, status: str) -> None:
+        """Close a request's ledger at its terminal event and export the
+        per-class cost histograms."""
+        snap = self._book.close_request(rid, status)
+        if snap is not None and self._obs is not None:
+            self._obs.observe_request_cost(snap)
+
+    def _bill_class(self, name: str | None) -> str:
+        """The accounting class: None resolves through the SLO policy's
+        default class; "default" only exists without a policy."""
+        if self._slo is not None:
+            return name or self._slo.policy.default_class
+        return name or "default"
+
+    def _trace_admit(self, req: Request) -> None:
+        """Mint a root trace for a request that arrived without one, and
+        record a zero-length link span where this life crossed a seam (a
+        journal recovery)."""
+        if req.trace is None:
+            req.trace = tracectx.mint()
+        if self._spans is not None and req.trace.link:
+            self._spans.add(req.trace.link, "link", time.perf_counter(),
+                            0.0, index=req.index,
+                            **tracectx.span_fields(req.trace))
+
+    def _journal_admit(self, req: Request) -> None:
+        """The one admit-record append, with the RESOLVED sampler config
+        (a restarted process would derive the default seed anew)."""
+        self._journal.admit(
+            req.index, req.tokens, steps=req.steps,
+            temperature=(req.temperature if req.temperature is not None
+                         else self.temperature),
+            topp=req.topp if req.topp is not None else self.topp,
+            seed=(req.seed if req.seed is not None
+                  else self.seed + req.index),
+            slo=req.slo_class, cursor=req.coin_cursor,
+            recovers=req.recovered_from,
+            trace=(req.trace.to_header() if req.trace is not None
+                   else None),
+            ledger=req.carried_cost)
+
+    def prejournal(self, req: Request) -> Request:
+        """Assign a request's index and journal its admit record now,
+        durably, without queueing it; a later submit() only queues it. A
+        caller that will never submit it retires the journaled life with
+        abandon_prejournaled()."""
+        if not req.tokens:
+            raise ValueError("request has no prompt tokens")
+        if self._journal is None:
+            raise ValueError("prejournal() without a journal has no "
+                             "durability to offer; call submit()")
+        req.t_enqueue = time.monotonic()
+        with self._lock:
+            req.index = self._submitted
+            self._submitted += 1
+        if req.trace is None:
+            req.trace = tracectx.mint()
+        self._journal_admit(req)
+        self._journal.sync(force=True)
+        req.prejournaled = True
+        return req
+
+    def abandon_prejournaled(self, req: Request) -> None:
+        """Retire a prejournaled life that will never be submitted."""
+        if self._journal is not None and req.prejournaled:
+            self._journal.retire(req.index, "cancelled")
+            self._journal.sync(force=True)
+
+    def recover(self, quiet: bool = True) -> int:
+        """Re-admit every incomplete journaled request (the JAX engine's
+        recover): each enters through submit() as a fresh request whose
+        prompt is the original prompt plus the tokens its previous life
+        sampled (they ride the forced window, or admission prefill, which
+        re-derives their k/v), with the sampler skipped to the journaled
+        coin cursor, so the continued stream is the uninterrupted one.
+        Its admit record carries ``recovers=<old id>``: one append opens
+        the new life and retires the old. A journal with live entries
+        must match this engine's config (JournalConfigMismatch); one with
+        none adopts it. Returns the number re-admitted."""
+        journal = self._journal
+        if journal is None:
+            raise ValueError("recover() needs a journal (construct the "
+                             "engine with journal=...): the atomic "
+                             "old-life handoff must land in the journal "
+                             "new records are written to")
+        entries = journal.incomplete()
+        if entries:
+            journal.check_config()
+        else:
+            journal.adopt_config()
+        for e in entries:
+            trace = None
+            if e.trace:
+                try:
+                    trace = tracectx.from_header(
+                        e.trace, link=tracectx.LINK_RECOVERS)
+                except ValueError:
+                    trace = None  # a damaged header never blocks recovery
+            req = Request(tokens=e.replay_tokens, steps=e.steps,
+                          temperature=e.temperature, topp=e.topp,
+                          seed=e.seed, slo_class=e.slo,
+                          coin_cursor=e.cursor, recovered_from=e.rid,
+                          trace=trace, carried_cost=e.ledger)
+            self.submit(req)
+            if self._obs is not None:
+                self._obs.recoveries.inc()
+            if not quiet:
+                print(f"[recover] request {e.rid} -> {req.index}: "
+                      f"{len(e.tokens)} prompt + {len(e.sampled)} sampled "
+                      f"tokens, coin cursor {e.cursor}")
+        journal.sync(force=True)
+        return len(entries)
+
+    def suspend(self, message: str = "draining: request journaled for "
+                                     "recovery") -> int:
+        """The drain's wrap-up: give up every outstanding request WITHOUT
+        retiring it in the journal (its records stay live for the next
+        process's recover()); waiters wake with ``error`` set. Returns the
+        number left journaled."""
+        if self._journal is None:
+            raise ValueError("suspend() without a journal would drop "
+                             "in-flight work on the floor; use fail_all")
+        n = self._n_outstanding()
+        self._suspending = True
+        try:
+            self.fail_all(message)
+        finally:
+            self._suspending = False
+        self._journal.sync(force=True)
+        return n
 
     # -- paged-KV bookkeeping -----------------------------------------------
 
@@ -530,9 +875,13 @@ class ContinuousEngine:
                     paused.add(b)
             if not paused or len(paused) < active:
                 self.stats.pauses += len(paused)
+                if paused and self._obs is not None:
+                    self._obs.pauses.inc(len(paused))
                 return paused
             victim = max(paused, key=lambda b: pool[b].req.index)
             s = pool[victim]
+            if self._obs is not None:
+                self._obs.reject("deadlock")
             s.req.error = (
                 f"kv page pool exhausted: {self._alloc.n_pages} pages of "
                 f"{self.page_size} positions, all pinned by concurrent "
@@ -576,6 +925,7 @@ class ContinuousEngine:
         paused = (self._grow_pages(pool, k, quiet)
                   if self._alloc is not None else ())
         if all(s.free for s in pool):
+            self._journal_sync()  # cover the sweep's and admission's records
             return self._n_outstanding()
         B = self.slots
         st_i32, st_f32 = self._stage_i32, self._stage_f32
@@ -615,17 +965,23 @@ class ContinuousEngine:
         _load(c.temps, st_f32[0])
         _load(c.topps, st_f32[1])
         c.index.zero_()
-        with torch.inference_mode():
-            if c.graph is not None:
-                c.graph.run(k)
-            else:
-                for _ in range(k):
-                    self._chain_step(c, greedy_only)
-        toks = c.toks.cpu().numpy()  # the chain's one read back
-        acts = c.acts.cpu().numpy()
+        t0 = time.monotonic()
+        with self._span("chain", "decode", steps=k, active=n_active0), \
+                self._watch():
+            with torch.inference_mode():
+                if c.graph is not None:
+                    c.graph.run(k)
+                else:
+                    for _ in range(k):
+                        self._chain_step(c, greedy_only)
+            toks = c.toks.cpu().numpy()  # the chain's one read back
+            acts = c.acts.cpu().numpy()
+            self._dispatched(t0, n_active0, k)
         self.stats.steps += k
         self.stats.sum_active += n_active0 * k
         self.stats.max_active = max(self.stats.max_active, n_active0)
+        self._census_dispatch("decode", k, paused, n_active0,
+                              time.monotonic() - t0)
         for b, s in enumerate(pool):
             if s.free:
                 continue
@@ -645,6 +1001,7 @@ class ContinuousEngine:
                 if self._advance(s, int(toks[i, b]), quiet, sampled=sampled):
                     break
         self._admit()
+        self._journal_sync()
         return self._n_outstanding()
 
     def step_once(self, quiet: bool = True) -> int:
@@ -657,6 +1014,7 @@ class ContinuousEngine:
         paused = (self._grow_pages(pool, 1, quiet)
                   if self._alloc is not None else ())
         if all(s.free for s in pool):
+            self._journal_sync()
             return self._n_outstanding()
         active0 = sum(not s.free and b not in paused
                       for b, s in enumerate(pool))
@@ -668,9 +1026,14 @@ class ContinuousEngine:
         _load(self._pos, st[1])
         if self._alloc is not None:
             self._stage_tables()
-        with torch.inference_mode():
-            logits = self._run_forward()
+        t0 = time.monotonic()
+        with self._span("step", "decode", active=active0), self._watch():
+            with torch.inference_mode():
+                logits = self._run_forward()
+            self._dispatched(t0, active0)
         self._count_dispatch(active0)
+        self._census_dispatch("decode", 1, paused, active0,
+                              time.monotonic() - t0)
         for i, s in enumerate(pool):
             if s.free:
                 continue
@@ -685,6 +1048,7 @@ class ContinuousEngine:
                 nxt = int(s.sampler.sample(logits[i]))
                 self._advance(s, nxt, quiet, sampled=True)
         self._admit()
+        self._journal_sync()
         return self._n_outstanding()
 
     def _count_dispatch(self, n_active: int) -> None:
@@ -715,6 +1079,7 @@ class ContinuousEngine:
         pool = self._pool
         paused = self._grow_pages(pool, K, quiet)
         if all(s.free for s in pool):
+            self._journal_sync()
             return self._n_outstanding()
         st = self._stage_win
         st_pos = self._stage_i32[1]
@@ -740,14 +1105,29 @@ class ContinuousEngine:
                 history = [s.req.tokens[0]] + s.req.out + window
                 drafts = draft_tokens(history, room, max_n=self.spec_ngram)
                 self.stats.spec_proposed += len(drafts)
+                if drafts:
+                    self._census.count_tokens("spec", len(drafts))
+                    if s.req.ledger is not None:
+                        s.req.ledger.charge_spec(len(drafts), 0)
+                if self._obs is not None:
+                    self._obs.spec_proposed.inc(len(drafts))
+                    if drafts:
+                        self._obs.count_dispatch_tokens("spec", len(drafts))
                 window += [int(t) for t in drafts]
                 row_kinds += ["d"] * len(drafts)
             st[b, 1:1 + len(window)] = window
             kinds[b] = tuple(row_kinds)
         _load(self._pos, st_pos)
         self._stage_tables()
-        out = self._run_window("verify", st, greedy_only)
-        self._count_dispatch(int(active0.sum()))
+        n_active0 = int(active0.sum())
+        t0 = time.monotonic()
+        with self._span("verify", "decode", k=K, active=n_active0), \
+                self._watch():
+            out = self._run_window("verify", st, greedy_only)
+            self._dispatched(t0, n_active0)
+        self._count_dispatch(n_active0)
+        self._census_dispatch("spec", 1, paused, n_active0,
+                              time.monotonic() - t0)
         vocab = self.spec.vocab_size
         for b, s in enumerate(pool):
             if s.free:
@@ -775,7 +1155,12 @@ class ContinuousEngine:
                     sampled = True
                 else:  # no draft fed here: the plain sampler
                     nxt, sampled = int(s.sampler.sample(out[b, i])), True
-                self.stats.spec_accepted += accepted
+                if accepted:
+                    self.stats.spec_accepted += 1
+                    if s.req.ledger is not None:
+                        s.req.ledger.charge_spec(0, 1)
+                    if self._obs is not None:
+                        self._obs.spec_accepted.inc()
                 if self._advance(s, nxt, quiet, sampled=sampled):
                     retired = True
                     break
@@ -785,6 +1170,7 @@ class ContinuousEngine:
             if not retired:
                 self._trim_pages(s)
         self._admit()
+        self._journal_sync()
         return self._n_outstanding()
 
     def _trim_pages(self, s: _Slot) -> None:
@@ -798,6 +1184,8 @@ class ContinuousEngine:
         if len(s.pages) > keep:
             self._alloc.release_pages(s.pages[keep:])
             del s.pages[keep:]
+            if self._obs is not None:
+                self._obs.kv_pages_free.set(self._alloc.n_free)
 
     def step_mixed(self, quiet: bool = True) -> int:
         """One token-budget mixed dispatch (the JAX engine's step_mixed):
@@ -832,6 +1220,7 @@ class ContinuousEngine:
                 spans[win] = 1 + min(len(pool[win].forced), room)
         paused = self._grow_pages(pool, 1, quiet, spans=spans)
         if all(s.free for s in pool):
+            self._journal_sync()
             return self._n_outstanding()
         blk = self._stage_win
         st_i32 = self._stage_i32
@@ -851,11 +1240,18 @@ class ContinuousEngine:
             blk[b, 1:span] = s.forced[:span - 1]
         total_span = sum(spans.values())
         self.stats.overrun_steps += max(0, -(-total_span // T) - 1)
-        _load(self._span, st_i32[0])
+        _load(self._span_rows, st_i32[0])
         _load(self._pos, st_i32[1])
         self._stage_tables()
-        out = self._run_window("mixed", blk, greedy_only)
-        self._count_dispatch(sum(1 for v in spans.values() if v > 0))
+        n_active0 = sum(1 for v in spans.values() if v > 0)
+        t0 = time.monotonic()
+        with self._span("mixed", "decode", budget=T, tokens=total_span,
+                        active=n_active0), self._watch():
+            out = self._run_window("mixed", blk, greedy_only)
+            self._dispatched(t0, n_active0)
+        self._count_dispatch(n_active0)
+        self._census_dispatch("mixed", 1, paused, n_active0,
+                              time.monotonic() - t0, deferred=deferred)
         for b, s in enumerate(pool):
             if s.free:
                 continue
@@ -872,6 +1268,7 @@ class ContinuousEngine:
                 if self._advance(s, nxt, quiet, sampled=sampled):
                     break
         self._admit()
+        self._journal_sync()
         return self._n_outstanding()
 
     def _advance(self, s: _Slot, nxt: int, quiet: bool,
@@ -888,8 +1285,19 @@ class ContinuousEngine:
             self._retire(s, quiet)
             return True
         s.req.out.append(nxt)
+        if sampled and self._journal is not None:
+            # sampled tokens only (forced echoes re-derive from the admit
+            # record), with the cumulative coin cursor: the sampler drew
+            # this token's coins before _advance ran
+            self._journal.token(s.req.index, nxt, s.sampler.rng.draws)
         self._notify(s.req, nxt)
         self.stats.tokens += 1
+        self._census.count_tokens("decode")
+        if s.req.ledger is not None:
+            s.req.ledger.charge_tokens()
+        if self._obs is not None:
+            self._obs.generated.inc()
+            self._obs.count_dispatch_tokens("decode")
         s.token = nxt
         if s.pos >= s.budget:
             self._retire(s, quiet)
@@ -915,8 +1323,13 @@ class ContinuousEngine:
                 if not self._queue:
                     return None
                 req = self._queue.pop(0)
+                if self._obs is not None:
+                    self._obs.set_queue_depth(len(self._queue))
             if not req.cancelled:
                 return req
+            if self._journal is not None:
+                self._journal.retire(req.index, "cancelled")
+            self._close_ledger(req.index, "cancelled")
             req.done.set()
 
     def _requeue_front(self, s: _Slot) -> None:
@@ -929,8 +1342,12 @@ class ContinuousEngine:
         s.req, s.pos, s.token, s.forced, s.sampler = None, 0, 0, [], None
         req.t_admit = 0.0
         self.stats.requeues += 1
+        if self._obs is not None:
+            self._obs.reject("pool_dry")
         with self._lock:
             self._queue.insert(0, req)
+            if self._obs is not None:
+                self._obs.set_queue_depth(len(self._queue))
 
     def _admit_paged(self, s: _Slot) -> str:
         """Paged admission: map the longest shared page-aligned prompt
@@ -962,6 +1379,17 @@ class ContinuousEngine:
             for t in tokens[1:m + 1]:
                 self._notify(req, t)
             self.stats.tokens += m
+            # the shared-prefix echo is prefill-kind work the radix tree
+            # covered instead of a forward pass
+            self._census.count_tokens("prefill", m)
+            if req.ledger is not None:
+                req.ledger.charge_tokens(m)
+                req.ledger.charge_prefill(0, m, 0.0)
+            if self._obs is not None:
+                self._obs.generated.inc(m)
+                self._obs.prefix_hits.inc()
+                self._obs.prefill_saved.inc(m)
+                self._obs.count_dispatch_tokens("prefill", m)
         return "ok"
 
     def _admit(self) -> None:
@@ -982,6 +1410,12 @@ class ContinuousEngine:
                 seed = (req.seed if req.seed is not None
                         else self.seed + req.index)
                 s.sampler = Sampler(spec.vocab_size, temp, topp, seed)
+                if req.coin_cursor:
+                    # journal recovery: skip the coins the first life drew
+                    # (its sampled tokens ride the forced window, drawing
+                    # none), so the next sample takes the coin the
+                    # uninterrupted run would have
+                    s.sampler.rng.skip(req.coin_cursor)
                 if self._alloc is not None \
                         and self._admit_paged(s) == "dry":
                     self._requeue_front(s)
@@ -1013,7 +1447,12 @@ class ContinuousEngine:
             return
         paged = self._alloc is not None
         q8 = self.kv_quant == "q8"
-        with torch.inference_mode():
+        t0 = time.monotonic()
+        chunks0 = self.stats.prefill_chunks
+        with self._span("prefill", "prefill", slot=slot_index,
+                        tokens=n_pre - start,
+                        **tracectx.span_fields(s.req.trace)), \
+                torch.inference_mode():
             if paged:
                 tbl = np.full((self._max_pages,), SCRAP_PAGE, np.int32)
                 tbl[:len(s.pages)] = s.pages
@@ -1054,6 +1493,21 @@ class ContinuousEngine:
         for t in tokens[start + 1:n_pre + 1]:
             self._notify(s.req, t)
         self.stats.tokens += n_pre - start
+        dt_prefill = time.monotonic() - t0
+        # steps=0: the census documents the dispatch's token composition
+        # and leaves the step, stall and page-step totals alone
+        self._census.count_tokens("prefill", n_pre - start)
+        self._census.record("prefill", 0, 0, {}, 0, 0,
+                            prefill_tokens=n_pre - start)
+        if s.req.ledger is not None:
+            s.req.ledger.charge_tokens(n_pre - start)
+            s.req.ledger.charge_prefill(
+                self.stats.prefill_chunks - chunks0, n_pre - start,
+                dt_prefill)
+        if self._obs is not None:
+            self._obs.generated.inc(n_pre - start)
+            self._obs.prefill.observe(dt_prefill)
+            self._obs.count_dispatch_tokens("prefill", n_pre - start)
         s.pos = n_pre
         s.token = tokens[n_pre]
         s.forced = []
@@ -1080,8 +1534,31 @@ class ContinuousEngine:
                 self._alloc.insert_prefix(s.req.tokens[:n_ins], s.pages)
             self._alloc.release_pages(s.pages)
             s.pages, s.shared = [], 0
-        s.req.t_finish = time.monotonic()
-        s.req.done.set()
+            if self._obs is not None:
+                self._obs.kv_pages_free.set(self._alloc.n_free)
+        req = s.req
+        req.t_finish = time.monotonic()
+        status = ("cancelled" if req.cancelled
+                  else "failed" if req.error is not None else "done")
+        if self._journal is not None and not self._suspending:
+            # a drain-suspended request writes no retirement: its records
+            # stay live for the next process's recover()
+            self._journal.retire(req.index, status)
+        if self._obs is not None:
+            self._obs.record_retire(req, req.t_finish)
+        if self._slo is not None:
+            self._slo.observe_request(req, req.t_finish)
+        if self._spans is not None and req.t_admit:
+            # lifecycle stamps are time.monotonic: re-anchor the
+            # admit->finish window on the tracer's perf_counter timeline
+            dur = req.t_finish - req.t_admit
+            start = time.perf_counter() - (time.monotonic() - req.t_admit)
+            self._spans.add("request", "request", start, dur,
+                            index=req.index, tokens=len(req.out),
+                            sampled=req.n_sampled, cancelled=req.cancelled,
+                            **tracectx.span_fields(req.trace))
+        self._close_ledger(req.index, status)
+        req.done.set()
         s.req = None
         # park the freed slot at pos 0 (its table row on the scrap page):
         # its dead writes land there until it is re-admitted
@@ -1090,15 +1567,30 @@ class ContinuousEngine:
     # -- entry points -------------------------------------------------------
 
     def submit(self, req: Request) -> Request:
-        """Queue a request (thread-safe). ``req.done`` fires when it
+        """Queue a request (thread-safe: handler threads call it while the
+        scheduler steps). Opens its ledger, mints its trace if it has
+        none, and with a journal appends its admit record BEFORE the
+        queue insert (write-ahead: the scheduler never samples for an id
+        the journal has not admitted). ``req.done`` fires when it
         retires."""
         if not req.tokens:
             raise ValueError("request has no prompt tokens")
-        req.t_enqueue = time.monotonic()
+        if not req.prejournaled:
+            req.t_enqueue = time.monotonic()
+            with self._lock:
+                req.index = self._submitted
+                self._submitted += 1
+        if req.ledger is None or not req.prejournaled:
+            req.ledger = self._book.open_request(
+                req.index, self._bill_class(req.slo_class),
+                carried=req.carried_cost)
+        self._trace_admit(req)
+        if self._journal is not None and not req.prejournaled:
+            self._journal_admit(req)
         with self._lock:
-            req.index = self._submitted
-            self._submitted += 1
             self._queue.append(req)
+            if self._obs is not None:
+                self._obs.set_queue_depth(len(self._queue))
         return req
 
     def cancel(self, req: Request) -> None:
@@ -1111,6 +1603,13 @@ class ContinuousEngine:
             if req not in self._queue:
                 return  # in flight (or done): the sweep owns it
             self._queue.remove(req)
+            if self._obs is not None:
+                self._obs.set_queue_depth(len(self._queue))
+        if self._journal is not None:
+            self._journal.retire(req.index, "cancelled")
+        if self._obs is not None:
+            self._obs.cancelled.inc()
+        self._close_ledger(req.index, "cancelled")
         req.done.set()
 
     def fail_all(self, message: str) -> None:
@@ -1118,8 +1617,19 @@ class ContinuousEngine:
         ``done``; the radix tree is torn down with them."""
         with self._lock:
             pending, self._queue = self._queue, []
+            if self._obs is not None:
+                self._obs.set_queue_depth(0)
         for req in pending:
             req.error = message
+            if self._journal is not None and not self._suspending:
+                self._journal.retire(req.index, "failed")
+            if self._obs is not None:
+                self._obs.failed.inc()
+            if self._slo is not None:
+                # never admitted, but attempted: a failed attempt
+                self._slo.observe(req.slo_class, None, None, 0,
+                                  failed=True)
+            self._close_ledger(req.index, "failed")
             req.done.set()
         for s in self._pool:
             if not s.free:
@@ -1127,6 +1637,8 @@ class ContinuousEngine:
                 self._retire(s, quiet=True)
         if self._alloc is not None:
             self._alloc.tree.clear()
+            if self._obs is not None:
+                self._obs.kv_pages_free.set(self._alloc.n_free)
 
     def run(self, requests: list[list[int]], steps: int,
             quiet: bool = True) -> tuple[list[list[int]], ContinuousStats]:
@@ -1139,7 +1651,10 @@ class ContinuousEngine:
                 raise ValueError(f"request {i} has no prompt tokens")
         self.stats = ContinuousStats()
         with self._lock:
-            self._submitted = 0
+            # request i samples from seed + i on every run; with a journal
+            # the ids keep counting, as new records must not alias old ones
+            if self._journal is None:
+                self._submitted = 0
         reqs = [self.submit(Request(tokens=list(r), steps=steps))
                 for r in requests]
         t0 = time.perf_counter()
@@ -1173,7 +1688,8 @@ def generate_continuous(spec: TransformerSpec, params: dict[str, Any],
                         kv_quant: str | None = None, device="cuda",
                         graph: bool | None = None, mesh=None,
                         scheme: str | None = None, spec_k: int = 0,
-                        spec_ngram: int = 3, dispatch_tokens: int = 0):
+                        spec_ngram: int = 3, dispatch_tokens: int = 0,
+                        metrics=None):
     """CLI entry (``--prompts-file --continuous``): encode the prompts,
     stream them through a pool of ``slots`` (0 = min(#prompts, 8)) and
     print the rows ("[i] 'text'") and the JAX CLI's stats lines."""
@@ -1188,7 +1704,7 @@ def generate_continuous(spec: TransformerSpec, params: dict[str, Any],
                            device=device, graph=graph, mesh=mesh,
                            scheme=scheme, spec_k=spec_k,
                            spec_ngram=spec_ngram,
-                           dispatch_tokens=dispatch_tokens)
+                           dispatch_tokens=dispatch_tokens, metrics=metrics)
     outs, stats = eng.run(reqs, steps, quiet=quiet)
     if not quiet:
         for b, (req, row) in enumerate(zip(reqs, outs)):

@@ -57,6 +57,7 @@ from ..io.tokenizer import BOS, Tokenizer
 from ..models.llama import (FAST, KERNELS, KVCache, Llama, init_cache,
                             init_cache_batch, params_to_device, with_body)
 from ..models.spec import TransformerSpec
+from ..obs.log import log_event
 from ..ops import attention, layer, q40
 from ..ops._build import build
 from ..parallel import collectives
@@ -360,23 +361,38 @@ def generate(engine: Engine, tokenizer: Tokenizer, sampler: Sampler,
         piece = tokenizer.decode_piece(token, next_token)
         text = piece.decode("utf-8", errors="replace")
         if not quiet:
-            print(f"🔶 G {gen_ms:7.2f} ms I {(t1 - t0) * 1000:7.2f} ms "
-                  f"T {(t2 - t1) * 1000:7.2f} ms "
-                  f"S {comm.sent_bytes / 1024:7.0f} kB "
-                  f"R {comm.recv_bytes / 1024:7.0f} kB {text!r}")
+            # the 🔶 stats line, or one NDJSON object per token with the
+            # same fields under DLLAMA_LOG_JSON=1 (obs/log.py)
+            log_event(
+                "decode.token",
+                f"🔶 G {gen_ms:7.2f} ms I {(t1 - t0) * 1000:7.2f} ms "
+                f"T {(t2 - t1) * 1000:7.2f} ms "
+                f"S {comm.sent_bytes / 1024:7.0f} kB "
+                f"R {comm.recv_bytes / 1024:7.0f} kB {text!r}",
+                pos=pos, token=int(next_token), gen_ms=round(gen_ms, 3),
+                infer_ms=round((t1 - t0) * 1000, 3),
+                host_ms=round((t2 - t1) * 1000, 3),
+                sent_bytes=comm.sent_bytes, recv_bytes=comm.recv_bytes,
+                piece=text)
         token = next_token
 
-    if stats.tokens and not quiet:
+    if stats.tokens:
         lat = summarize_values(stats.token_ms)
-        g, i, t = stats.avg
-        print(f"Generated tokens:    {stats.tokens}")
-        print(f"Avg generation time: {g:.2f} ms")
-        print(f"Avg inference time:  {i:.2f} ms")
-        print(f"Avg transfer time:   {t:.2f} ms")
-        print(f"Latency ms/token:    p50 {lat['p50']:.2f}  "
-              f"p95 {lat['p95']:.2f}  p99 {lat['p99']:.2f}")
-        if engine.group.size > 1:
-            _print_census(engine, census, stats.tokens)
+        if not quiet:
+            g, i, t = stats.avg
+            print(f"Generated tokens:    {stats.tokens}")
+            print(f"Avg generation time: {g:.2f} ms")
+            print(f"Avg inference time:  {i:.2f} ms")
+            print(f"Avg transfer time:   {t:.2f} ms")
+            print(f"Latency ms/token:    p50 {lat['p50']:.2f}  "
+                  f"p95 {lat['p95']:.2f}  p99 {lat['p99']:.2f}")
+            if engine.group.size > 1:
+                _print_census(engine, census, stats.tokens)
+        log_event("run.summary", None, tokens=stats.tokens,
+                  avg_ms=round(stats.total_ms / stats.tokens, 3),
+                  latency_ms={k: round(v, 3) for k, v in lat.items()},
+                  sent_bytes_per_token=comm.sent_bytes,
+                  recv_bytes_per_token=comm.recv_bytes)
     return out_tokens, stats
 
 
@@ -499,6 +515,9 @@ def generate_fast(engine: Engine, tokenizer: Tokenizer, sampler: Sampler,
         print(f"\nGenerated tokens:    {stats.tokens}")
         print(f"Avg generation time: {total_ms / max(1, len(chain)):.2f} ms "
               f"(fused loop, {executed} device steps)")
+    log_event("run.summary", None, tokens=stats.tokens,
+              avg_ms=round(total_ms / max(1, len(chain)), 3), fused=True,
+              device_steps=executed)
     return out_tokens, stats
 
 

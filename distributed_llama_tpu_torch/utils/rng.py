@@ -29,10 +29,15 @@ def random_f32(state: int) -> tuple[int, float]:
 
 
 class Xorshift64:
-    """Stateful generator of the sampler's coins."""
+    """Stateful generator of the sampler's coins. ``draws`` counts the
+    coins produced since construction: the request journal's coin cursor
+    (runtime/journal.py), which a recovered request's sampler skips to so
+    its stream continues with the coins the first life would have drawn
+    next (forced prompt steps and unreached draft slots draw none)."""
 
     def __init__(self, seed: int):
         self.state = seed & _MASK64
+        self.draws = 0
 
     def clone(self) -> "Xorshift64":
         """A copy at the current stream position: generate_fast pre-draws
@@ -40,11 +45,24 @@ class Xorshift64:
         the per-step loop would have consumed."""
         c = Xorshift64(0)
         c.state = self.state
+        c.draws = self.draws
         return c
 
     def f32(self) -> float:
         self.state, f = random_f32(self.state)
+        self.draws += 1
         return f
+
+    def skip(self, n: int) -> None:
+        """Advance ``n`` draws without producing coins (journal recovery:
+        every draw moves the state by one xorshift step)."""
+        if n < 0:
+            raise ValueError(f"cannot skip {n} draws")
+        s = self.state
+        for _ in range(n):
+            s, _u = random_u32(s)
+        self.state = s
+        self.draws += n
 
     def f32_array(self, n: int) -> np.ndarray:
         """The next n coins (the same sequence as n f32() calls): the state
@@ -54,4 +72,5 @@ class Xorshift64:
         for i in range(n):
             s, out[i] = random_u32(s)
         self.state = s
+        self.draws += n
         return (out >> np.uint32(8)).astype(np.float32) / np.float32(16777216.0)

@@ -130,17 +130,19 @@ def test_cli_pieces_match_reference(model_files, capsys, mode):
 
 UNPORTED = [["--tp", "2", "--kv-disk-dir", "d"], ["--sp", "2"],
             # --slots, --continuous and --spec-k are ported with
-            # --prompts-file; --kv-host-pages and --metrics are not
+            # --prompts-file; --kv-host-pages is not
             ["--slots", "4", "--prompts-file", "p.txt", "--continuous",
              "--spec-k", "4", "--kv-host-pages", "8"],
             ["--kv-pages", "64"], ["--dispatch-tokens", "8"],
             ["--block-steps", "4"], ["--kv-host-pages", "8"],
             # the weight-streaming flags are ported: the next flag is the
             # one named
-            ["--stream-slices", "--log-json"],
-            ["--continuous", "--prompts-file", "p.txt", "--metrics"],
-            ["--metrics"],
-            ["--log-json"],
+            ["--stream-slices", "--kv-disk-dir", "d"],
+            # --metrics and --log-json are ported: the next flag is named
+            ["--continuous", "--prompts-file", "p.txt", "--metrics",
+             "--kv-disk-dir", "d"],
+            ["--metrics", "--kv-disk-dir", "d"],
+            ["--log-json", "--kv-disk-gb", "2"],
             # --prompts-file --continuous --dispatch-tokens is ported; the
             # KV tier flags are not, and stop the run before the (absent)
             # prompts file is opened
@@ -152,8 +154,9 @@ UNPORTED = [["--tp", "2", "--kv-disk-dir", "d"], ["--sp", "2"],
             # the tp flags are ported: the next flag is the one named
             ["--tp-scheme", "fused", "--sp", "2"],
             ["--workers", "10.0.0.2:9998", "--stream-slices",
-             "--log-json"],
-            ["--coordinator", "h:1", "--seed", "1", "--log-json"],
+             "--log-json", "--kv-disk-dir", "d"],
+            ["--coordinator", "h:1", "--seed", "1", "--log-json",
+             "--kv-disk-gb", "1"],
             ["--model-from-root", "h:1", "--kv-disk-dir", "d"]]
 CONTINUOUS_FLAGS = ("--continuous", "--slots", "--block-steps", "--kv-pages",
                     "--kv-page-size", "--kv-quant", "--spec-k",
@@ -167,7 +170,7 @@ def _unported_flag(extra):
     ones everywhere)."""
     ported = ("--fast", "--prompts-file", "--tp", "--tp-scheme",
               "--workers", "--coordinator", "--seed", "--stream-slices",
-              "--model-from-root")
+              "--model-from-root", "--metrics", "--log-json")
     if "--continuous" in extra and "--prompts-file" in extra:
         ported += CONTINUOUS_FLAGS
     return next(a for a in extra if a.startswith("--") and a not in ported)

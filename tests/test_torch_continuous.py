@@ -258,10 +258,11 @@ def test_cancel_and_fail_all_free_slots_and_pages(model):
     ({"mesh": object()}, "not yet ported: mesh"),
     ({"spec_k": 1, "page_size": 4}, "K >= 2"),
     ({"dispatch_tokens": 8}, "requires the paged KV cache"),
-    ({"journal": object()}, "not yet ported: journal"),
+    ({"chaos": object()}, "not yet ported: chaos"),
     ({"kv_host_pages": 4, "page_size": 4}, "not yet ported: kv_host_pages"),
     ({"kv_disk_dir": "d"}, "not yet ported: kv_disk_dir"),
     ({"remote_pages": True}, "not yet ported: remote_pages"),
+    ({"slo_priority": True}, "not yet ported: slo_priority"),
     ({"kv_pages": 8}, "kv_pages requires page_size"),
     ({"kv_quant": "q8"}, "quantizes PAGE planes"),
     ({"kv_quant": "q4", "page_size": 4}, "expected f32|q8"),

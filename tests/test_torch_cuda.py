@@ -2181,3 +2181,107 @@ def test_tp2_gloo_step_on_the_card_matches_tp1(gen, tmp_path):
             err = (a - b).abs().max().item()
             assert err <= llama.LOGIT_RTOL * b.abs().max().item(), (scheme,
                                                                     err)
+
+
+SERVER_CASES = {  # label -> the server's engine options, paged f32
+    "step": {},
+    "chain4": {"block_steps": 4},
+    "verify": {"spec_k": 4},
+    "mixed": {"dispatch_tokens": 7},
+}
+
+
+def _serve_tokenizer(path, vocab):
+    from distributed_llama_tpu_torch.io.tokenizer import write_tokenizer
+
+    pieces = [b"<unk>", b"<s>", b"</s>", b" "]
+    pieces += [f"w{i}".encode() for i in range(len(pieces), vocab)]
+    write_tokenizer(str(path), pieces, [0.0] * len(pieces))
+    return str(path)
+
+
+@pytest.mark.parametrize("case", sorted(SERVER_CASES))
+def test_server_with_graphs_on_its_scheduler_serves_the_eager_streams(
+        gen, case, tmp_path):
+    """An in-process InferenceServer on the card captures its engine's
+    graphs on its scheduler thread (ContinuousEngine.capture_graphs, before
+    the listener opens) while another thread reads /health's payload and
+    the /metrics exposition without pause; then six concurrent clients
+    (three streamed; greedy and seeded) get from it the token streams an
+    eager (graph=False) server gives them, bit for bit. No prompt shares a
+    page with another, so no row's computation depends on the schedule."""
+    import json
+    import threading
+    import urllib.request
+
+    from distributed_llama_tpu_torch.io.tokenizer import Tokenizer
+    from distributed_llama_tpu_torch.runtime.server import InferenceServer
+
+    spec = _small_spec(seq_len=64)
+    params = llama.params_to_device(synth_params(spec, q40=True, seed=5,
+                                                 scale=0.3), "cuda")
+    tok = Tokenizer(_serve_tokenizer(tmp_path / "t.bin", spec.vocab_size),
+                    spec.vocab_size)
+    rng = np.random.default_rng(3)
+    prompts = [" ".join(f"w{t}" for t in rng.integers(4, spec.vocab_size, n))
+               for n in (3, 9, 5, 13, 2, 7)]
+    bodies = [{"prompt": p, "steps": 40, "stream": i % 2 == 1,
+               "temperature": 0.0 if i < 3 else 0.8, "seed": 100 + i}
+              for i, p in enumerate(prompts)]
+
+    def serve(graph):
+        srv = InferenceServer(spec, params, tok, "127.0.0.1", 0, 3, 40, 0.0,
+                              0.9, 1, page_size=8, prefill_chunk=4,
+                              quiet=True, device="cuda", graph=graph,
+                              **SERVER_CASES[case])
+        stop, reads = threading.Event(), [0]
+
+        def hammer():  # host reads only: they must not break a capture
+            while not stop.is_set():
+                srv._health_payload()
+                srv.registry.expose()
+                reads[0] += 1
+
+        t = threading.Thread(target=hammer)
+        t.start()
+        try:
+            srv.start()
+        finally:
+            stop.set()
+            t.join()
+        assert reads[0] > 0
+        if graph:
+            assert srv.engine.graph_replays == 0 and (
+                srv.engine._once or srv.engine._chains
+                or srv.engine._windows)
+
+        def ask(body):
+            rq = urllib.request.Request(
+                f"http://127.0.0.1:{srv.port}/generate",
+                data=json.dumps(body).encode())
+            with urllib.request.urlopen(rq, timeout=300) as r:
+                if not body["stream"]:
+                    return json.loads(r.read())["tokens"]
+                lines = [json.loads(ln) for ln in r]
+            assert lines[-1]["done"] and "error" not in lines[-1]
+            return [ln["token"] for ln in lines[:-1]]
+
+        outs = [None] * len(bodies)
+
+        def client(i):
+            outs[i] = ask(bodies[i])
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(bodies))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        health = srv._health_payload()
+        srv.stop()
+        assert health["state"] == "serving" and health["paged_kv"]
+        return outs
+
+    captured, eager = serve(True), serve(False)
+    assert all(o is not None and len(o) > 4 for o in captured)
+    assert captured == eager

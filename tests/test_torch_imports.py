@@ -41,7 +41,11 @@ NEW_MODULES = ("utils.it_split", "utils.rng", "obs.profiler",
                "runtime.checkpoint", "tools.nb_probe", "tools.plan_sweep",
                "tools.stream_compare", "parallel.mesh",
                "parallel.comm_stats", "parallel.collectives", "parallel.tp",
-               "convert", "io.stream", "runtime.speculative")
+               "convert", "io.stream", "runtime.speculative",
+               "obs.log", "utils.fingerprint", "obs.tracectx", "obs.metrics",
+               "obs.ledger", "obs.spans", "obs.trace", "obs.slo",
+               "runtime.journal", "runtime.supervisor", "obs.flightrec",
+               "obs.fleet", "obs.watch", "runtime.server")
 
 
 def test_every_module_imports_with_jax_blocked():
