@@ -176,6 +176,23 @@ no result line):
    TTFT p50 and p95, ms a dispatch on the scheduler's clock, SIGTERM to
    exit, restart to the first recovered token and device memory in use
    are logged with the card's name and power limit.
+   tier_full_width, after serve_full_width: run k's flags and two waves of
+   its 12 prompts (24 requests) over a 40-page pool, so the first wave's
+   cold prompt pages demote and the second wave re-hits them; with
+   ``--kv-host-pages 24`` and with ``--kv-host-pages 2 --kv-disk-dir D``
+   (pages reach disk), each over f32 and Q8 pages: the f32 streams equal
+   run k's (a near-tie parting allowed), both waves of each Q8 run those
+   of one untiered greedy Q8 run with run k's flags; demotions and promotions by tier above 0, the three-tier audit
+   clean, the prefill tokens saved by tier; ms a promoted page on the copy
+   stream's events, the admission pause, pinned bytes and device memory
+   logged. disagg_full_width: two ``serve`` children share the card, one
+   ``--disagg-role prefill`` (its page channel on localhost), one
+   ``--disagg-role decode --disagg-peer`` it; run k's 12 prompts to the
+   decode server give run k's streams, 12 handoffs shipped, pages and
+   bytes equal to comm_stats.dcn_handoff_budget; the page channel's GB/s
+   over localhost and the client TTFT p50/p95 beside serve_full_width's
+   logged; then the prefill child is killed and the same prompts are
+   served locally with the same streams.
 4. Kernels against plain at full width: the first 4 positions of the same
    model through the forward with the kernels and with the plain versions;
    then 8 more kernel steps timed, and 8 under torch.profiler for the
@@ -2625,7 +2642,7 @@ def _flag(flags, name):
 
 
 def phase_e2e_continuous(torch, model, tok, n_layers, label, flags,
-                         gaps=None):
+                         gaps=None, prompts=CONT_PROMPTS):
     """Runs k-n and s-u: the 12 shared-prefix prompts through
     ``--prompts-file --continuous --slots 8 --prefill-chunk 32 --steps
     128`` and ``flags``. Exact launch counts from the engine's own step and
@@ -2639,7 +2656,10 @@ def phase_e2e_continuous(torch, model, tok, n_layers, label, flags,
     without error, every window's output is sound (ids in the vocabulary,
     or finite logits), the page audit is clean, and the steps are the
     graphs' warm-ups and replays. ``gaps`` records run k's host samples'
-    top-2 logit gaps (_recorded_gaps)."""
+    top-2 logit gaps (_recorded_gaps). ``prompts`` (run k's by default)
+    go into the prompts file; with the KV tier flags the tier books, the
+    copy stream's ms a promoted page, the admission pause and the pinned
+    bytes come back too."""
     paged = "--kv-page-size" in flags
     q8 = "q8" in flags
     bf16 = "bf16" in flags
@@ -2650,7 +2670,7 @@ def phase_e2e_continuous(torch, model, tok, n_layers, label, flags,
             else "paged_attention")
     prefill = "prefill_attention" + ("_kvbf16" if bf16 else "")
     path = SMOKE_DIR / "continuous.txt"
-    path.write_text("\n".join(CONT_PROMPTS) + "\n")
+    path.write_text("\n".join(prompts) + "\n")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2692,7 +2712,7 @@ def phase_e2e_continuous(torch, model, tok, n_layers, label, flags,
     audit = eng.audit_pages()
     n_graphs = (len(eng._windows) if width else
                 len(eng._chains) if eng.block_steps > 1 else 1)
-    if (len(rows) != len(CONT_PROMPTS) or int(m.group(2)) != len(reqs)
+    if (len(rows) != len(prompts) or int(m.group(2)) != len(reqs)
             or int(m.group(4)) != st.steps or errors or audit
             or eng.graph_replays + n_graphs != st.steps
             or not all(sound) or len(sound) != (st.steps if width else 0)):
@@ -2745,6 +2765,34 @@ def phase_e2e_continuous(torch, model, tok, n_layers, label, flags,
                    / (a.n_pages + 1), prefix_hits=a.prefix_hits,
                    hit_rate=a.hit_rate, tokens_saved=a.tokens_saved,
                    evictions=a.evictions)
+        if a.tiered:
+            io_ = eng.page_io
+            tiers = re.search(r"KV tiers:\s+hbm (\d+) / host (\d+) / disk "
+                              r"(\d+) pages; (\d+) demotions, (\d+) "
+                              r"promotions", out)
+            if (not tiers or int(tiers.group(4)) != sum(
+                    a.demotions.values()) or int(tiers.group(5))
+                    != sum(a.promotions.values())):
+                raise AssertionError(f"{label} run: KV tiers line "
+                                     f"{tiers.groups() if tiers else None}")
+            res.update(
+                demotions=dict(a.demotions), promotions=dict(a.promotions),
+                tokens_saved_by_tier=dict(a.tokens_saved_by_tier),
+                tier_pages=a.tier_page_counts(), crc_drops=a.crc_drops,
+                promoted_pages=len(io_.upload_ms),
+                promote_ms_per_page=(statistics.median(io_.upload_ms)
+                                     if io_.upload_ms else None),
+                promote_ms_max=max(io_.upload_ms, default=None),
+                promote_ms_all=list(io_.upload_ms),
+                demote_reads=io_.demotions,
+                demote_ms_per_page=io_.demote_s * 1e3
+                / max(io_.demotions, 1),
+                promo_waits=st.promo_waits,
+                promo_wait_ms=st.promo_wait_s * 1e3
+                / max(st.promo_waits, 1),
+                pinned_bytes=io_.pinned_bytes,
+                device_used_gb=_device_used_gb(),
+                allocated_gb=torch.cuda.memory_allocated() / 1e9)
     log(f"e2e {label}: {json.dumps(res)}")
     res["rows"] = [text for _, text in rows]
     res["outs"] = [list(r.out) for r in reqs]
@@ -2894,11 +2942,12 @@ SERVE_EVENTS: dict[str, int] = {}  # kernel name -> events in the trace
 
 class _Served:
     """``python -m distributed_llama_tpu_torch serve`` as a child process
-    with run k's engine flags on --port 0: its output read on a thread,
-    the bound port from its 🌐 line, JSON and NDJSON calls over HTTP,
-    and SIGTERM. Killed at exit if still running."""
+    with run k's engine flags on --port 0 (and ``extra`` flags after
+    them): its output read on a thread, the bound port from its 🌐 line,
+    JSON and NDJSON calls over HTTP, and SIGTERM. Killed at exit if still
+    running."""
 
-    def __init__(self, model, tok, where: Path):
+    def __init__(self, model, tok, where: Path, extra=()):
         import atexit
         import threading
 
@@ -2910,7 +2959,7 @@ class _Served:
                 "--port", "0", "--journal", str(where / "journal.wal"),
                 "--flightrec", str(where / "flightrec"), "--watchdog-ms",
                 str(SERVE_WATCHDOG_MS), "--drain-s", "0.5",
-                *SERVE_DEVICE_ARGS]
+                *SERVE_DEVICE_ARGS, *extra]
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True)
@@ -3287,6 +3336,299 @@ def _serve_run(torch, model, tok, ref_k, gaps, smi, where, served):
         f"{', '.join(f'{u:.2f}' for u in used)} GB, peak "
         f"{max(used):.2f} GB")
     log(f"e2e serve: {json.dumps(res)}")
+    return res
+
+
+# --------------------------------------------------------------------------
+# tier_full_width and disagg_full_width: the KV tiers and prefill/decode
+# disaggregation at full width and depth
+# --------------------------------------------------------------------------
+
+TIER_PAGES = 40        # the pool: 8 slots x 4 own pages + the shared 4
+TIER_HOST = 24         # --kv-host-pages of the host-only runs
+TIER_SMALL_HOST = 2    # and of the runs that spill on to disk
+DISAGG_PAGES = 256     # each disaggregated child's pool
+CHANNEL_PAGES = 16     # 7B f32 pages of 16 through the localhost channel
+
+
+def phase_tier(torch, model, tok, n_layers, ref_k, gaps, smi):
+    """tier_full_width: run k's flags with two waves of run k's 12 prompts
+    (24 requests) and ``--kv-pages TIER_PAGES``: the first wave's cold
+    prompt pages demote when later admissions need pages, and the second
+    wave re-hits them (promotions). Four runs: ``--kv-host-pages
+    TIER_HOST`` alone, and ``--kv-host-pages TIER_SMALL_HOST --kv-disk-dir
+    D`` (pages reach disk), each over f32 pages and over Q8 pages. The f32
+    runs' streams equal run k's for both waves (a near-tie parting
+    allowed: a deeper share moves the suffix prefill's windows); both
+    waves of each Q8 run equal one untiered greedy Q8 run with run k's
+    flags (near-tie by that run's gaps);
+    demotions and promotions above 0 (disk ones in the disk runs), the
+    three-tier audit clean (phase_e2e_continuous holds it), prefill tokens
+    saved by tier; logged: ms a promoted page on the copy stream's
+    events, the admission pause, pinned bytes, device memory in use."""
+    import shutil
+
+    page = ("--kv-page-size", str(PAGE), "--kv-pages", str(TIER_PAGES))
+    prompts = CONT_PROMPTS + CONT_PROMPTS
+    n = len(CONT_PROMPTS)
+    # the Q8 runs' reference: run k's flags over Q8 pages, untiered
+    q8_gaps: dict = {}
+    ref_q8 = phase_e2e_continuous(
+        torch, model, tok, n_layers, "tier ref q8",
+        ("--kv-page-size", str(PAGE), "--kv-quant", "q8"), gaps=q8_gaps)
+    res = {"ref_q8": {k: v for k, v in ref_q8.items()
+                      if k not in ("outs", "prompts", "rows")}}
+    for kind in ("host", "disk"):
+        for quant in ("f32", "q8"):
+            label = f"tier {kind} {quant}"
+            disk = SMOKE_DIR / "kvdisk" / f"{kind}-{quant}"
+            shutil.rmtree(disk, ignore_errors=True)
+            tier = (("--kv-host-pages", str(TIER_HOST)) if kind == "host"
+                    else ("--kv-host-pages", str(TIER_SMALL_HOST),
+                          "--kv-disk-dir", str(disk)))
+            r = phase_e2e_continuous(
+                torch, model, tok, n_layers, label,
+                (*page, *tier, *(("--kv-quant", "q8") if quant == "q8"
+                                 else ())), prompts=prompts)
+            outs = r.pop("outs")
+            r.pop("prompts"), r.pop("rows")
+            want, want_gaps, ref = ((ref_k, gaps, "run k") if quant == "f32"
+                                    else (ref_q8, q8_gaps, "the untiered "
+                                          "Q8 run"))
+            r["parted"] = [
+                row for wave in (outs[:n], outs[n:])
+                for row in _near_tie_rows(label, {"outs": wave}, want,
+                                          want_gaps, ref=ref)]
+            dem, prom = r["demotions"], r["promotions"]
+            saved = r["tokens_saved_by_tier"]
+            if (sum(dem.values()) <= 0 or sum(prom.values()) <= 0
+                    or saved["host"] + saved["disk"] <= 0
+                    or (kind == "disk" and (dem["disk"] <= 0
+                                            or prom["disk"] <= 0))
+                    or (kind == "host" and dem["host"] <= 0)):
+                raise AssertionError(f"{label}: demotions {dem}, "
+                                     f"promotions {prom}, saved {saved}")
+            log(f"{label} ({smi}): demotions {dem}, promotions {prom}, "
+                f"prefill tokens saved by tier {saved}; "
+                f"{r['promote_ms_per_page']:.4f} ms a promoted page on the "
+                f"copy stream (median of {r['promoted_pages']}, max "
+                f"{r['promote_ms_max']:.4f}; in order "
+                f"{[round(x, 4) for x in r['promote_ms_all']]}), "
+                f"{r['demote_ms_per_page']:.4f} ms a demotion read (host "
+                f"clock, mean of {r['demote_reads']}), admission pause "
+                f"{r['promo_wait_ms']:.3f} ms over {r['promo_waits']} "
+                f"waits; {r['pinned_bytes'] / 1e6:.1f} MB pinned; device "
+                f"memory in use {r['device_used_gb']:.2f} GB (nvidia-smi), "
+                f"{r['allocated_gb']:.2f} GB allocated; "
+                f"{len(r['parted'])} rows part at a near-tie")
+            res[f"{kind}_{quant}"] = r
+    return res
+
+
+def _channel_rate(torch, spec):
+    """The page channel over localhost: CHANNEL_PAGES 7B f32 pages of PAGE
+    positions published and fetched (CRC-checked, acked) through
+    runtime/page_channel; GB/s of payload. Loopback, not a network."""
+    import numpy as np
+
+    from distributed_llama_tpu_torch.runtime.page_channel import (
+        PageChannelClient, PageChannelServer)
+    from distributed_llama_tpu_torch.runtime.pagewire import encode_record
+
+    rng = np.random.default_rng(0)
+    shape = (spec.n_layers, PAGE, spec.n_kv_heads, spec.head_size)
+    plane = rng.standard_normal(shape, dtype=np.float32)
+    records = [encode_record((plane, plane)) for _ in range(CHANNEL_PAGES)]
+    nbytes = CHANNEL_PAGES * 2 * plane.nbytes
+    server = PageChannelServer()
+    try:
+        client = PageChannelClient(f"127.0.0.1:{server.port}")
+        secs = []
+        for i in range(3):
+            server.publish(f"bench{i}", records)
+            t0 = time.perf_counter()
+            got = client.fetch(f"bench{i}", len(records))
+            secs.append(time.perf_counter() - t0)
+            if len(got) != CHANNEL_PAGES or any(g is None for g in got):
+                raise AssertionError("page channel bench: pages lost")
+    finally:
+        server.close()
+    return dict(pages=CHANNEL_PAGES, bytes=nbytes,
+                seconds=statistics.median(secs),
+                gb_per_s=nbytes / statistics.median(secs) / 1e9,
+                link="localhost loopback (not a network)")
+
+
+def phase_disagg(torch, model, tok, spec, ref_k, gaps, smi, serve_res):
+    """disagg_full_width: two ``serve`` children share the card, run k's
+    engine flags with pools of DISAGG_PAGES: one ``--disagg-role
+    prefill`` (its page channel on localhost), one ``--disagg-role decode
+    --disagg-peer`` it. Run k's 12 prompts go to the decode server, every
+    one streamed: each stream equals run k's (a near-tie parting allowed);
+    the decode server's handoffs are 12 shipped and none local or failed;
+    the pages and payload bytes the prefill server shipped equal the sum
+    of comm_stats.dcn_handoff_budget over the prompts. Logged: the page
+    channel's GB/s over localhost (labelled so), the client-side TTFT p50
+    and p95 (POST to the first sampled token's line) and the decode
+    server's /health TTFT beside serve_full_width's. Then the prefill
+    child is killed: the same 12 prompts again, served locally (verdict
+    failed), with the same streams."""
+    import shutil
+
+    where = SMOKE_DIR / "disagg"
+    shutil.rmtree(where, ignore_errors=True)
+    (where / "prefill").mkdir(parents=True)
+    (where / "decode").mkdir(parents=True)
+    served: list[_Served] = []
+    try:
+        return _disagg_run(torch, model, tok, spec, ref_k, gaps, smi,
+                           serve_res, where, served)
+    except BaseException:
+        for i, srv in enumerate(served):
+            for line in srv.lines[-40:]:
+                log(f"disagg child {i}: {line}")
+        raise
+    finally:
+        for srv in served:
+            srv.kill()
+
+
+def _disagg_run(torch, model, tok, spec, ref_k, gaps, smi, serve_res,
+                where, served):
+    from distributed_llama_tpu_torch.parallel.comm_stats import \
+        dcn_handoff_budget
+    from distributed_llama_tpu_torch.parallel.mesh import free_port
+
+    pool = ("--kv-pages", str(DISAGG_PAGES))
+    pre_port = free_port()
+    pre = _Served(model, tok, where / "prefill",
+                  extra=(*pool, "--port", str(pre_port), "--disagg-role",
+                         "prefill", "--page-channel-port", "0"))
+    served.append(pre)
+    dec = _Served(model, tok, where / "decode",
+                  extra=(*pool, "--disagg-role", "decode", "--disagg-peer",
+                         f"127.0.0.1:{pre_port}"))
+    served.append(dec)
+    res: dict = {"start_s": [pre.wait_ready(600), dec.wait_ready(600)]}
+    if pre.port != pre_port:
+        raise AssertionError(f"prefill child bound {pre.port}, not "
+                             f"{pre_port}")
+    deadline = time.perf_counter() + 60
+    while True:  # each banner follows its child's 🌐 serving line
+        banner = [ln for ln in pre.lines + dec.lines if "disagg role" in ln]
+        if len(banner) == 2 or time.perf_counter() > deadline:
+            break
+        time.sleep(0.05)
+    if len(banner) != 2:
+        raise AssertionError(f"disagg: role banners {banner}")
+
+    def timed(i):
+        """One streamed request: its tokens and the client's seconds from
+        the POST to the first sampled token's line."""
+        lines: list = []
+        n_pre = len(ref_k["prompts"][i]) - 1
+        t0 = time.perf_counter()
+        box = {}
+
+        def watch():
+            while "first" not in box and "done" not in box:
+                if len([ln for ln in lines if "token" in ln]) > n_pre:
+                    box["first"] = time.perf_counter() - t0
+                time.sleep(0.001)
+
+        import threading
+
+        w = threading.Thread(target=watch, daemon=True)
+        w.start()
+        try:
+            toks = dec.generate(CONT_PROMPTS[i], CONT_STEPS, stream=True,
+                                lines=lines)
+        finally:
+            box["done"] = True
+            w.join(5)
+        return toks, box.get("first", time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    got = _concurrently([(lambda i=i: timed(i))
+                         for i in range(len(CONT_PROMPTS))])
+    wall = time.perf_counter() - t0
+    outs = [g[0] for g in got]
+    ttft = sorted(g[1] for g in got)
+    parted = _near_tie_rows("disagg", {"outs": outs}, ref_k, gaps)
+    dec_metrics = dec.get("/metrics").decode()
+    pre_metrics = pre.get("/metrics").decode()
+    verdicts = {v: _prom_value(dec_metrics, f'dllama_handoff_requests_total'
+                               f'{{verdict="{v}"}}')
+                for v in ("shipped", "local", "failed")}
+    pages = _prom_value(pre_metrics, "dllama_dcn_pages_shipped_total")
+    nbytes = _prom_value(pre_metrics, "dllama_dcn_bytes_total")
+    budgets = [dcn_handoff_budget(spec, 1, len(p) - 1, PAGE)
+               for p in ref_k["prompts"]]
+    want_pages = sum(b["pages"] for b in budgets)
+    want_bytes = sum(b["bytes"] for b in budgets)
+    dec_health = json.loads(dec.get("/health"))
+    pre_health = json.loads(pre.get("/health"))
+    n = len(CONT_PROMPTS)
+    if (verdicts != {"shipped": n, "local": 0, "failed": 0}
+            or pages != want_pages or nbytes != want_bytes
+            or dec_health["disagg"]["pages_adopted"] <= 0
+            or pre_health["disagg"]["handoff_queue_depth"] != 0):
+        raise AssertionError(
+            f"disagg: verdicts {verdicts}, pages {pages} (budget "
+            f"{want_pages}), bytes {nbytes} (budget {want_bytes}), "
+            f"health {dec_health['disagg']} {pre_health['disagg']}")
+    hs = _prom_value(dec_metrics, "dllama_handoff_seconds_sum")
+    channel = _channel_rate(torch, spec)
+    used = _device_used_gb()
+
+    def pct(xs, q):
+        return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+    res.update(requests=n, wall_s=wall, verdicts=verdicts,
+               pages_shipped=pages, bytes_shipped=nbytes,
+               budget_pages=want_pages, budget_bytes=want_bytes,
+               pages_adopted=dec_health["disagg"]["pages_adopted"],
+               handoff_s_mean=hs / n, parted=parted,
+               client_ttft_s={"p50": pct(ttft, 0.5), "p95": pct(ttft, 0.95)},
+               decode_health_ttft_s=dec_health["ttft_s"],
+               serve_health_ttft_s=serve_res["ttft_s"], channel=channel,
+               device_used_gb=used)
+    log(f"disagg ({smi}): {n} requests through the decode server in "
+        f"{wall:.3f} s, handoffs {verdicts}, {pages:.0f} pages and "
+        f"{nbytes:.0f} B shipped (the budget's {want_pages} and "
+        f"{want_bytes}), {hs / n:.3f} s a handoff (decode server: POST "
+        f"/prefill to the pages fetched); {len(parted)} rows part at a "
+        f"near-tie")
+    log(f"disagg ({smi}): client TTFT p50 {pct(ttft, 0.5):.4f} s, p95 "
+        f"{pct(ttft, 0.95):.4f} s (POST to the first sampled token's "
+        f"line); decode /health TTFT p50 {dec_health['ttft_s']['p50']:.4f} "
+        f"s (from its re-admission); serve_full_width's /health TTFT p50 "
+        f"{serve_res['ttft_s']['p50']:.4f} s, p95 "
+        f"{serve_res['ttft_s']['p95']:.4f} s")
+    log(f"disagg: page channel {channel['gb_per_s']:.3f} GB/s over "
+        f"{channel['link']}: {channel['pages']} 7B f32 pages "
+        f"({channel['bytes']} B) in {channel['seconds']:.3f} s; device "
+        f"memory in use {used:.2f} GB (nvidia-smi, both children)")
+    # the prefill pool dies: the decode server serves locally
+    pre.kill()
+    again = _concurrently([
+        (lambda i=i: dec.generate(CONT_PROMPTS[i], CONT_STEPS,
+                                  stream=i % 2 == 1))
+        for i in range(n)])
+    dec_metrics = dec.get("/metrics").decode()
+    failed = _prom_value(dec_metrics,
+                         'dllama_handoff_requests_total{verdict="failed"}')
+    local_parted = _near_tie_rows("disagg peer down", {"outs": again},
+                                  ref_k, gaps)
+    rc, _ = dec.stop()
+    if failed != n or rc != 0:
+        raise AssertionError(f"disagg peer down: {failed} failed "
+                             f"handoffs, decode exit {rc}")
+    res.update(peer_down=dict(failed=failed, parted=local_parted))
+    log(f"disagg ({smi}): prefill child killed; {n} requests served "
+        f"locally (verdict failed {failed:.0f}), {len(local_parted)} rows "
+        f"part at a near-tie; decode exit {rc}")
+    log(f"e2e disagg: {json.dumps(res)}")
     return res
 
 
@@ -4957,6 +5299,16 @@ def main() -> int:
     mark("serve_full_width")
     gc.collect()
     torch.cuda.empty_cache()
+    e2e_tier = phase_tier(torch, model, tok, spec.n_layers, ref_k, gaps_k,
+                          smi)
+    mark("tier_full_width")
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e_disagg = phase_disagg(torch, model, tok, spec, ref_k, gaps_k, smi,
+                              e2e_serve)
+    mark("disagg_full_width")
+    gc.collect()
+    torch.cuda.empty_cache()
     tp, tp_launches = tp_full_width(torch, spec, model, tok, ref_a, ref_c,
                                     smi)
     mark("tp_full_width")
@@ -5338,6 +5690,7 @@ def main() -> int:
                       "e2e_batch_dequant": e2e_batch_dq,
                       "e2e_fast": e2e_fast, "e2e_fused": e2e_fused,
                       "e2e_continuous": e2e_cont, "e2e_serve": e2e_serve,
+                      "e2e_tier": e2e_tier, "e2e_disagg": e2e_disagg,
                       "e2e_profile": e2e_profile,
                       "e2e_resume": e2e_resume,
                       "probe": probe, "probe_kernels": probe_rows,

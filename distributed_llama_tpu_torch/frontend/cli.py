@@ -83,11 +83,17 @@ before its ranks join the group (which then waits up to 3600 s for a
 peer that is still fetching); each rank then checks that its bands were
 the ones fetched and exits 2 before loading if not.
 
+The KV tier flags (--kv-host-pages N, --kv-disk-dir DIR, --kv-disk-gb G)
+run with --prompts-file --continuous --kv-page-size P, on one device or
+under --tp (each rank tiers its own kv-head band; its disk tier lives in
+DIR/rank<r>), with the JAX CLI's checks and messages; the lockstep batch
+ignores them, as the JAX CLI does.
+
 Every other flag of the JAX package's ``inference`` exits 2 with "not yet
-ported" before the model loads; that includes the KV tier flags. --sp 1,
---spec-k 0, --kv-page-size 0, --dispatch-tokens 0, --kv-host-pages 0 and
---spec-ngram N without --spec-k name what the port runs and are
-accepted, as the JAX CLI runs its plain path at those values.
+ported" before the model loads. --sp 1, --spec-k 0, --kv-page-size 0,
+--dispatch-tokens 0 and --spec-ngram N without --spec-k name what the port
+runs and are accepted, as the JAX CLI runs its plain path at those
+values.
 
 ``serve`` takes the JAX CLI's flags on one device (--device cuda by
 default): --host, --port (0 picks a free one; the 🌐 line names it),
@@ -96,10 +102,12 @@ chunk, chains, --spec-k, --dispatch-tokens, --kv-quant, --fast-prefill),
 --metrics/--no-metrics, --slo SPEC|off (default the serving policy),
 --journal PATH [--journal-fsync] (opened before the load; exit 1 on a
 corrupt journal or a config mismatch), --watchdog-ms, --drain-s,
---flightrec DIR, --watch-interval, --log-json and --supervise
-[--max-restarts N]. The JAX CLI's exit-2 checks and messages come in its
-order; before them --chaos, the disaggregation flags, the KV tier flags
-above their neutral values and --tp above 1 exit 2 "not yet ported".
+--flightrec DIR, --watch-interval, --log-json, --supervise
+[--max-restarts N], the KV tier flags, and prefill/decode disaggregation:
+--disagg-role prefill|decode, --disagg-peer HOST:PORT,
+--page-channel-port PORT and --handoff-min-pages N (a 🌐 line names the
+role). The JAX CLI's exit-2 checks and messages come in its order; before
+them --chaos and --tp above 1 exit 2 "not yet ported".
 
 ``convert`` is the port's converter (convert.py): Meta or HF checkpoints
 to a reference-format .bin.
@@ -135,11 +143,37 @@ from ..parallel.comm_stats import SCHEMES
 _FT = {"f32": FloatType.F32, "f16": FloatType.F16, "q40": FloatType.Q40,
        "q80": FloatType.Q80}
 
-# the JAX package's inference flags the port does not run yet
-_UNPORTED_VALUED = ("--kv-disk-dir", "--kv-disk-gb")
-# unported flags that take the JAX CLI's type, and the value at which the
-# JAX CLI runs the path the port has; other values are not yet ported
-_NEUTRAL_VALUED = {"--kv-host-pages": (int, 0)}
+def _add_kv_tier_flags(ap: argparse.ArgumentParser) -> None:
+    """The KV tiers' flags, shared by inference --continuous and serve
+    (the JAX CLI's). All need --kv-page-size: tiering spills PAGES."""
+    ap.add_argument("--kv-host-pages", type=int, default=0, metavar="N",
+                    help="KV tiering (needs --kv-page-size): a pinned "
+                         "host-RAM pool of N pages; cold radix-tree prefix "
+                         "pages demote here (write-behind) instead of "
+                         "dropping, and promote back on a prefix hit by "
+                         "an upload on a copy stream (0 = no host tier)")
+    ap.add_argument("--kv-disk-dir", default=None, metavar="DIR",
+                    help="KV tiering: spill directory of the disk tier; "
+                         "host-pressure-cold pages land in append-only "
+                         "segment files with per-page read-back CRC32 "
+                         "sidecars (a damaged page re-derives via "
+                         "prefill, never serves wrong bytes)")
+    ap.add_argument("--kv-disk-gb", type=float, default=0.0, metavar="G",
+                    help="live-byte budget of the disk tier in GiB (needs "
+                         "--kv-disk-dir; 0 = uncapped)")
+
+
+def _check_kv_tier_args(args, where: str) -> str | None:
+    """The JAX CLI's checks of the tier flags, before any load: an error
+    string or None."""
+    if (args.kv_host_pages or args.kv_disk_dir) and args.kv_page_size <= 0:
+        return (f"--kv-host-pages/--kv-disk-dir spill paged KV: add "
+                f"--kv-page-size P{where}")
+    if args.kv_disk_gb and not args.kv_disk_dir:
+        return "--kv-disk-gb needs --kv-disk-dir (where else would it go?)"
+    if args.kv_host_pages < 0 or args.kv_disk_gb < 0:
+        return "--kv-host-pages/--kv-disk-gb must be >= 0"
+    return None
 
 
 def _obs_flags(ap: argparse.ArgumentParser) -> None:
@@ -301,24 +335,13 @@ def _parser() -> argparse.ArgumentParser:
                          "in-flight decodes behind a separate chunk "
                          "dispatch). -1 sizes from --prefill-chunk; "
                          "0 = off. Incompatible with --spec-k")
+    _add_kv_tier_flags(ap)
     _obs_flags(ap)
-    for flag in _UNPORTED_VALUED:
-        ap.add_argument(flag, nargs="*", default=argparse.SUPPRESS,
-                        help="not yet ported")
-    for flag, (kind, neutral) in _NEUTRAL_VALUED.items():
-        ap.add_argument(flag, type=kind, default=argparse.SUPPRESS,
-                        help=f"not yet ported; the JAX CLI's plain path at "
-                             f"{neutral} runs")
     return ap
 
 
 def _unported(args) -> list[str]:
-    given = [f for f in _UNPORTED_VALUED
-             if f[2:].replace("-", "_") in vars(args)]
-    for flag, (_, neutral) in _NEUTRAL_VALUED.items():
-        value = vars(args).get(flag[2:].replace("-", "_"))
-        if value is not None and value != neutral:
-            given.append(f"{flag} {value}")
+    given = []
     if args.sp != 1:
         given.append(f"--sp {args.sp}")
     if not args.prompts_file:  # flags of the batch paths, ported there
@@ -407,6 +430,10 @@ def cmd_inference(argv: list[str], quiet: bool = False,
     if args.kv_quant == "q8" and args.kv_page_size <= 0:
         print("--kv-quant q8 quantizes paged KV pages: add "
               "--kv-page-size P (with --continuous)", file=sys.stderr)
+        return 2
+    tier_err = _check_kv_tier_args(args, " (with --continuous)")
+    if tier_err:
+        print(tier_err, file=sys.stderr)
         return 2
     if (args.continuous or args.slots) and not args.prompts_file:
         print("--continuous/--slots need --prompts-file (the request "
@@ -682,7 +709,12 @@ def _run(args, prompts, quiet: bool, group, scheme: str, tp: int) -> int:
                                 spec_ngram=(3 if args.spec_ngram is None
                                             else args.spec_ngram),
                                 dispatch_tokens=args.dispatch_tokens,
-                                metrics=reg, **tp_args)
+                                metrics=reg,
+                                kv_host_pages=args.kv_host_pages,
+                                kv_disk_dir=args.kv_disk_dir,
+                                kv_disk_bytes=int(args.kv_disk_gb
+                                                  * (1 << 30)),
+                                **tp_args)
             if reg is not None and not quiet:
                 print(reg.expose(), file=sys.stderr, end="")
             return 0
@@ -761,9 +793,7 @@ def _run(args, prompts, quiet: bool, group, scheme: str, tp: int) -> int:
 
 # the JAX package's serve flags the port does not run yet, and the value at
 # which the JAX server runs the path the port has
-_SERVE_NEUTRAL = {"chaos": None, "disagg_role": None, "disagg_peer": None,
-                  "page_channel_port": 0, "handoff_min_pages": 2,
-                  "kv_host_pages": 0, "kv_disk_dir": None, "kv_disk_gb": 0.0}
+_SERVE_NEUTRAL = {"chaos": None}
 
 
 def _serve_parser() -> argparse.ArgumentParser:
@@ -812,12 +842,7 @@ def _serve_parser() -> argparse.ArgumentParser:
     ap.add_argument("--spec-k", type=int, default=0, metavar="K",
                     help="self-speculative decoding (needs "
                          "--kv-page-size; 0 = off)")
-    ap.add_argument("--kv-host-pages", type=int, default=0, metavar="N",
-                    help="not yet ported above 0")
-    ap.add_argument("--kv-disk-dir", default=None, metavar="DIR",
-                    help="not yet ported")
-    ap.add_argument("--kv-disk-gb", type=float, default=0.0, metavar="G",
-                    help="not yet ported above 0")
+    _add_kv_tier_flags(ap)
     ap.add_argument("--spec-ngram", type=int, default=3, metavar="N",
                     help="longest drafter n-gram (falls back to 1)")
     ap.add_argument("--dispatch-tokens", type=int, default=0, metavar="T",
@@ -860,13 +885,26 @@ def _serve_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-restarts", type=int, default=None, metavar="N",
                     help="(--supervise) give up after N respawns")
     ap.add_argument("--disagg-role", default=None,
-                    choices=("prefill", "decode"), help="not yet ported")
+                    choices=("prefill", "decode"),
+                    help="prefill/decode disaggregation: 'prefill' serves "
+                         "POST /prefill and the page channel (fills KV "
+                         "pages, samples the first token, ships the full "
+                         "prompt pages); 'decode' fronts clients and "
+                         "forwards long prompts to --disagg-peer, resuming "
+                         "the stream from the returned journal record. "
+                         "Needs --kv-page-size (pages are the transfer "
+                         "unit)")
     ap.add_argument("--disagg-peer", default=None, metavar="HOST:PORT",
-                    help="not yet ported")
+                    help="(--disagg-role decode) the prefill server")
     ap.add_argument("--page-channel-port", type=int, default=0,
-                    metavar="PORT", help="not yet ported")
+                    metavar="PORT",
+                    help="(--disagg-role prefill) page-channel listen port "
+                         "(0 = pick a free one; /health's disagg block "
+                         "names it)")
     ap.add_argument("--handoff-min-pages", type=int, default=2, metavar="N",
-                    help="not yet ported")
+                    help="(--disagg-role decode) forward only prompts "
+                         "spanning >= N full KV pages; shorter prompts "
+                         "prefill locally")
     ap.add_argument("--watch-interval", type=float, default=0.0,
                     metavar="S",
                     help="watchtower incident detection every S seconds "
@@ -881,9 +919,9 @@ def _serve_parser() -> argparse.ArgumentParser:
 
 def cmd_serve(argv: list[str]) -> int:
     """``serve``: the HTTP server over the continuous engine
-    (runtime/server.py), on one device. The JAX CLI's checks and messages
-    in its order, after the refusal of what is not yet ported (chaos,
-    disaggregation, the KV tiers above their neutral values, --tp above
+    (runtime/server.py), on one device, with the KV tiers and either role
+    of a disaggregated pair. The JAX CLI's checks and messages in its
+    order, after the refusal of what is not yet ported (chaos, --tp above
     1), all before any load."""
     ap = _serve_parser()
     args = ap.parse_args(argv)
@@ -894,8 +932,9 @@ def cmd_serve(argv: list[str]) -> int:
         unported.append(f"--tp {args.tp}")
     if unported:
         print(f"not yet ported: {', '.join(unported)} (the port's serve "
-              f"runs one device, with the journal, SLO, metrics, watchdog "
-              f"and flight recorder)", file=sys.stderr)
+              f"runs one device, with the journal, SLO, metrics, watchdog, "
+              f"flight recorder, KV tiers and disaggregation)",
+              file=sys.stderr)
         return 2
     if args.supervise:
         # re-exec this serve command (supervision flags stripped) under the
@@ -939,6 +978,26 @@ def cmd_serve(argv: list[str]) -> int:
     if args.kv_quant == "q8" and args.kv_page_size <= 0:
         print("--kv-quant q8 quantizes paged KV pages: add "
               "--kv-page-size P", file=sys.stderr)
+        return 2
+    tier_err = _check_kv_tier_args(args, "")
+    if tier_err:
+        print(tier_err, file=sys.stderr)
+        return 2
+    if args.disagg_role and args.kv_page_size <= 0:
+        print("--disagg-role ships KV PAGES between pools: add "
+              "--kv-page-size P", file=sys.stderr)
+        return 2
+    if args.disagg_role == "decode" and not args.disagg_peer:
+        print("--disagg-role decode needs --disagg-peer HOST:PORT (the "
+              "prefill server)", file=sys.stderr)
+        return 2
+    if args.disagg_peer and args.disagg_role != "decode":
+        print("--disagg-peer only means something with --disagg-role "
+              "decode", file=sys.stderr)
+        return 2
+    if args.handoff_min_pages < 1:
+        print(f"--handoff-min-pages must be >= 1, got "
+              f"{args.handoff_min_pages}", file=sys.stderr)
         return 2
     from ..obs.slo import SLOPolicy
 
@@ -994,7 +1053,9 @@ def cmd_serve(argv: list[str]) -> int:
         journal.set_config(config_fingerprint(
             spec, "single", seed_policy,
             weights_digest=weight_file_digest(args.model),
-            kv_quant=args.kv_quant, kv_cache_dtype=args.kv_cache_dtype))
+            kv_quant=args.kv_quant, kv_cache_dtype=args.kv_cache_dtype,
+            kv_host_pages=args.kv_host_pages,
+            kv_disk=bool(args.kv_disk_dir)))
     cache_dtype = (torch.bfloat16 if args.kv_cache_dtype == "bf16"
                    else torch.float32)
     try:
@@ -1017,7 +1078,15 @@ def cmd_serve(argv: list[str]) -> int:
                                  kv_quant=args.kv_quant,
                                  flightrec_dir=args.flightrec,
                                  watch_interval_s=args.watch_interval,
-                                 device=args.device)
+                                 device=args.device,
+                                 kv_host_pages=args.kv_host_pages,
+                                 kv_disk_dir=args.kv_disk_dir,
+                                 kv_disk_bytes=int(args.kv_disk_gb
+                                                   * (1 << 30)),
+                                 disagg_role=args.disagg_role,
+                                 disagg_peer=args.disagg_peer,
+                                 page_channel_port=args.page_channel_port,
+                                 handoff_min_pages=args.handoff_min_pages)
     except JournalConfigMismatch as e:
         # the journal was written under another config: a replay would be
         # deterministic and wrong, so refuse; the operator restores the
@@ -1030,6 +1099,12 @@ def cmd_serve(argv: list[str]) -> int:
         if args.metrics else "")
     print(f"🌐 serving on http://{args.host}:{server.port} "
           f"({args.slots} slots, {endpoints})", flush=True)
+    if args.disagg_role == "prefill":
+        print(f"🌐 disagg role: prefill (POST /prefill; page channel on "
+              f"port {server._page_channel.port})", flush=True)
+    elif args.disagg_role == "decode":
+        print(f"🌐 disagg role: decode (peer {args.disagg_peer}, handoff "
+              f"at >= {args.handoff_min_pages} full pages)", flush=True)
     if server.recovered:
         print(f"🌐 recovered {server.recovered} journaled requests "
               f"from {args.journal}", flush=True)

@@ -194,6 +194,33 @@ def paged_cache_planes(cache) -> tuple[tuple, int]:
             cache.v.view(L * P, *cache.v.shape[2:])), P
 
 
+def _page_plane(plane: torch.Tensor) -> torch.Tensor:
+    # the wire carries a bf16 plane as its raw 16-bit words
+    return plane.view(torch.int16) if plane.dtype == torch.bfloat16 \
+        else plane
+
+
+def fetch_page_planes(cache, pid: int) -> tuple:
+    """Host numpy copy of ONE physical page's planes, in the page wire
+    layout: ``(k, v)`` (L, page_size, n_kv, hs) for an f32 or bf16 pool
+    (bf16 as int16 words), ``(kq, kd, vq, vd)`` for Q8, i.e. ``pool[:,
+    pid]`` with no transpose, so a demote->promote round trip is
+    byte-identical (f32 bitwise, Q8 code-exact: nothing re-quantizes).
+    Blocks until the copy landed (the JAX package's np.asarray)."""
+    return tuple(_page_plane(p)[:, pid].cpu().numpy().copy()
+                 for p in cache)
+
+
+def write_page_planes(cache, pid: int, planes) -> None:
+    """Write one page's planes (fetch_page_planes' tuple) back into the
+    pool at physical page ``pid``, IN PLACE in the pool tensors (a captured
+    graph keeps reading the same memory)."""
+    with torch.no_grad():
+        for plane, p in zip(cache, planes):
+            src = torch.from_numpy(np.array(p, copy=True))
+            _page_plane(plane)[:, pid].copy_(src)
+
+
 def _window_coords(table: torch.Tensor, pos: torch.Tensor, t_len: int,
                    idx: int, n_pages: int, page_size: int,
                    span: torch.Tensor | None = None):

@@ -37,7 +37,7 @@ import dataclasses
 import os
 
 from ..models.spec import TransformerSpec
-from ..ops.quants import FloatType, batch_bytes
+from ..ops.quants import QK, FloatType, batch_bytes
 
 SCHEMES = ("ref", "fused", "overlap")
 
@@ -193,3 +193,55 @@ def reference_star_bytes(spec: TransformerSpec, n_slices: int) -> CommStats:
                       + _vb(ft, spec.dim // s) + _vb(ft, spec.hidden_dim // s)
                       + _vb(ft, spec.dim // s))
     return CommStats(spec.n_layers * send_layer, spec.n_layers * recv_layer)
+
+
+def kv_position_bytes(spec: TransformerSpec, n_slices: int,
+                      cache_itemsize: int = 4,
+                      kv_quant: str = "f32") -> int:
+    """K+V bytes of ONE sequence position on one device, all layers (the
+    JAX package's analysis/memory_model.kv_position_bytes): f32/bf16
+    ``cache_itemsize`` a value; q8 one int8 code a value plus one f16
+    delta a 32-value block of the (n_kv/tp, hs) row, 34 bytes for 32."""
+    kv_dim = (spec.n_kv_heads // n_slices) * spec.head_size
+    if kv_quant == "q8":
+        per = kv_dim + 2 * (kv_dim // QK)
+    elif kv_quant == "f32":
+        per = kv_dim * cache_itemsize
+    else:
+        raise ValueError(f"no KV byte model for kv_quant={kv_quant!r}")
+    return 2 * spec.n_layers * per
+
+
+def dcn_page_bytes(spec: TransformerSpec, n_slices: int, page_size: int,
+                   kv_quant: str = "f32",
+                   cache_itemsize: int = 4) -> int:
+    """Wire bytes of ONE shipped KV page (all layers, K+V, codes and deltas
+    for q8): the disk tier's record for the same page too (runtime/
+    pagewire packs both), so the handoff budget and the tiers price the
+    same bytes."""
+    return page_size * kv_position_bytes(spec, n_slices, cache_itemsize,
+                                         kv_quant)
+
+
+def dcn_handoff_budget(spec: TransformerSpec, n_slices: int,
+                       n_prompt_positions: int, page_size: int,
+                       kv_quant: str = "f32",
+                       cache_itemsize: int = 4) -> dict:
+    """The per-request page budget of a prefill->decode handoff: pages x
+    wire bytes, priced per kv_quant. Only FULL prompt pages ship (the
+    radix tree's sharing unit; the partial tail page re-derives by suffix
+    prefill on the decode pool), so the page count is floor(prompt
+    positions / page_size); ``skipped_positions`` is that suffix."""
+    if page_size < 1:
+        raise ValueError(f"page_size must be >= 1, got {page_size}")
+    pages = max(0, int(n_prompt_positions)) // page_size
+    per_page = dcn_page_bytes(spec, n_slices, page_size, kv_quant,
+                              cache_itemsize)
+    return {
+        "pages": pages,
+        "page_bytes": per_page,
+        "bytes": pages * per_page,
+        "skipped_positions": max(0, int(n_prompt_positions))
+        - pages * page_size,
+        "kv_quant": kv_quant,
+    }

@@ -352,6 +352,30 @@ def shard_cache_paged(cache, rank: int, n_slices: int):
     return shard_cache(cache, rank, n_slices)
 
 
+def stage_page_planes(planes, group, spec: TransformerSpec,
+                      q8: bool = False) -> tuple:
+    """The rank's band of one page payload (the JAX package's
+    stage_page_planes, which device_puts a host payload under the pool's
+    kv-head sharding): planes in the page wire layout of the FULL model
+    ``spec``, (L, ps, n_kv, hs) k/v planes and (L, ps, kv_dim/32) Q8 delta
+    planes on the aligned block bands, cut to this rank's kv heads. A
+    payload already of the band's width (the rank's own demoted page)
+    passes through: under a TPGroup each rank moves the pages of its own
+    band, and every rank's allocator makes the same decisions in
+    lockstep."""
+    if group is None or group.size <= 1:
+        return tuple(planes)
+    out = []
+    for i, p in enumerate(planes):
+        delta = q8 and i % 2 == 1
+        axis = p.ndim - (1 if delta else 2)
+        full = spec.kv_dim // QK if delta else spec.n_kv_heads
+        out.append(np.ascontiguousarray(
+            _slice(p, axis, group.rank, group.size))
+            if p.shape[axis] == full else p)
+    return tuple(out)
+
+
 # ---------------------------------------------------------------------------
 # the wire (a rank-local tensor at a Q80 cut point with no collective takes
 # models/llama._maybe_q80, the JAX package's _wire)

@@ -67,10 +67,22 @@ write-ahead journal with ``recover`` and ``suspend``, and ``watchdog``
 read of its tokens or logits included: CUDA work is asynchronous, so a
 hung kernel shows only where the host waits for it.
 
-Left out (later slices): the KV tiers and remote page adoption,
-chunk-boundary prefill preemption (``prefill_hold``) and the SLO ranking
-of admission and of the mixed slice (``slo_priority``), and chaos. Their
-engine arguments raise "not yet ported" when not at their defaults.
+The KV tiers (``kv_host_pages``, ``kv_disk_dir``, ``kv_disk_bytes``):
+cold radix-tree pages demote to a pinned host pool and on to disk instead
+of dropping (runtime/paging.py keeps the books, runtime/kv_io.py moves the
+bytes), and a prefix hit on a spilled page promotes it back: the request
+PAUSEs (rides the dispatches masked inactive, its admission prefill
+deferred) until the page's copy lands, which ``_settle_promotions`` checks
+at every step boundary. ``remote_pages`` makes the engine the decode pool
+of a disaggregated pair (runtime/disagg.py): shipped pages adopt through
+the same pending machinery (``ingest_remote``), and ``export_prefix_sync``
+serves the prefill pool's side. ``slo_priority`` pops the best-ranked SLO
+class first (and gives it the mixed slice); ``prefill_hold`` parks an
+admission prefill at a page-aligned chunk boundary (f32 pools) so a
+higher-ranked arrival prefills first. Tiering, adoption and preemption
+never change a request's stream.
+
+Left out (the next slice): chaos; the argument raises "not yet ported".
 """
 
 from __future__ import annotations
@@ -163,6 +175,14 @@ class _Slot:
     # came from the radix tree (refcounted, never written by this slot)
     pages: list = dataclasses.field(default_factory=list)
     shared: int = 0
+    # True while the slot's shared-prefix pages await a promotion upload:
+    # its admission prefill waits and it rides dispatches masked inactive
+    # until the payload lands (_settle_promotions)
+    await_promo: bool = False
+    # admission prefill parked at a page-aligned chunk boundary (a
+    # higher-ranked arrival preempted it): _resume_prefills continues it
+    prefill_pending: bool = False
+    t_promo: float = 0.0  # when the slot began waiting on a promotion
 
     @property
     def free(self) -> bool:
@@ -182,6 +202,8 @@ class ContinuousStats:
     spec_proposed: int = 0   # drafted tokens fed to verify dispatches
     spec_accepted: int = 0   # drafts the verify replay accepted
     overrun_steps: int = 0   # mixed dispatches past the budget (0 here)
+    promo_waits: int = 0     # admissions that paused on a promotion
+    promo_wait_s: float = 0.0  # their summed pause (admit to landing)
 
     @property
     def spec_accept_rate(self) -> float:
@@ -268,17 +290,15 @@ class ContinuousEngine:
                  chaos=None, journal=None, watchdog=None,
                  kv_host_pages: int = 0, kv_disk_dir: str | None = None,
                  remote_pages: bool = False, slo_priority: bool = False,
-                 scheme: str | None = None):
-        given = {name: value for name, value in (
-            ("chaos", chaos), ("kv_host_pages", kv_host_pages),
-            ("kv_disk_dir", kv_disk_dir), ("remote_pages", remote_pages),
-            ("slo_priority", slo_priority)) if value}
-        if given:
-            raise ValueError(f"not yet ported: {', '.join(given)} (the "
-                             f"port's continuous engine runs one device or "
-                             f"a tp group, contiguous or paged, f32/bf16 "
-                             f"or q8 pages, with metrics, SLO, journal and "
-                             f"watchdog)")
+                 scheme: str | None = None, kv_disk_bytes: int = 0,
+                 kv_tier_async: bool = True):
+        if chaos:
+            raise ValueError("not yet ported: chaos (the port's continuous "
+                             "engine runs one device or a tp group, "
+                             "contiguous or paged, f32/bf16 or q8 pages, "
+                             "with the KV tiers, remote page adoption, "
+                             "metrics, SLO, journal and watchdog; fault "
+                             "injection comes with the next slice)")
         if mesh is not None and not isinstance(mesh, TPGroup):
             raise ValueError(f"not yet ported: mesh of type "
                              f"{type(mesh).__name__} (the port's mesh is a "
@@ -326,6 +346,20 @@ class ContinuousEngine:
             raise ValueError("kv_quant='q8' quantizes PAGE planes; pass "
                              "page_size > 0 (--kv-page-size with "
                              "--kv-quant q8)")
+        if (kv_host_pages or kv_disk_dir) and page_size <= 0:
+            raise ValueError("KV tiering spills PAGES: pass page_size > 0 "
+                             "(--kv-page-size with --kv-host-pages/"
+                             "--kv-disk-dir)")
+        if remote_pages and page_size <= 0:
+            raise ValueError("remote_pages ingests KV PAGES: pass "
+                             "page_size > 0 (--kv-page-size with "
+                             "--disagg-role decode)")
+        if slo_priority and slo is None:
+            raise ValueError("slo_priority orders admission by SLO class: "
+                             "pass an SLO policy (slo=...)")
+        if kv_disk_bytes and not kv_disk_dir:
+            raise ValueError("kv_disk_bytes without kv_disk_dir: the disk "
+                             "tier needs a directory (--kv-disk-dir)")
         self.spec = spec
         self.slots = slots
         self.temperature = temperature
@@ -366,6 +400,7 @@ class ContinuousEngine:
                                else self.model.route)
         self._cache_dtype = cache_dtype
         self._alloc: PagedAllocator | None = None
+        self._io = None
         if page_size > 0:
             self._max_pages = spec.seq_len // page_size
             n_pages = kv_pages or slots * self._max_pages
@@ -377,8 +412,25 @@ class ContinuousEngine:
                 if kv_quant == "q8" else
                 init_cache_paged(kv_spec, n_pages + 1, page_size,
                                  self.device, cache_dtype))
-            self._alloc = PagedAllocator(n_pages, page_size,
-                                         prefix_share=prefix_share)
+            if kv_disk_dir and self.group.size > 1:
+                # one disk tier a rank: each holds its own band's pages
+                import os
+
+                kv_disk_dir = os.path.join(kv_disk_dir,
+                                           f"rank{self.group.rank}")
+            if kv_host_pages or kv_disk_dir or remote_pages:
+                from .kv_io import PageIO
+
+                self._io = PageIO(self.cache, self.device,
+                                  host_pages=kv_host_pages,
+                                  lockstep=self.group.size > 1)
+            self._alloc = PagedAllocator(
+                n_pages, page_size, prefix_share=prefix_share,
+                host_pages=kv_host_pages, disk_dir=kv_disk_dir,
+                disk_bytes=kv_disk_bytes, remote=remote_pages,
+                host_slab=self._io.slab if self._io is not None else None,
+                host_layout=self._io.layout if self._io is not None
+                else None)
             self._stage_tbl = np.zeros((slots, self._max_pages), np.int32)
             self._table = torch.zeros((slots, self._max_pages),
                                       dtype=torch.int32, device=self.device)
@@ -405,11 +457,64 @@ class ContinuousEngine:
         self._queue: list[Request] = []
         self._lock = threading.Lock()
         self.stats = ContinuousStats()
+        self._bind_tiers(kv_tier_async)
+        # SLO-aware admission: with slo_priority the best-ranked class pops
+        # first (FIFO within a class) and takes the mixed slice
+        self._prio = slo.rank if slo_priority else None
+        # chunk-boundary prefill preemption: called at page-aligned chunk
+        # boundaries of admission prefill (f32 pools); True parks the slot
+        self.prefill_hold = None
+        # handoff intake and page export: handler threads queue work here
+        # and the scheduler thread does it at its next iteration (the radix
+        # tree is the scheduler's alone)
+        self._remote_inbox: list = []
+        self._export_inbox: list = []
         # the global bytes of the page planes (scrap page included; every
         # rank's band under tp), for /health and the pool metrics
         self.pool_bytes = (sum(int(a.nbytes) for a in self.cache)
                            * self.group.size if page_size > 0 else 0)
         self._init_books(metrics, slo, journal, watchdog, scheme)
+
+    def _bind_tiers(self, kv_tier_async: bool) -> None:
+        """Bind the allocator's device I/O (runtime/kv_io.PageIO): the
+        demotion reads, the inline promotion stage, and with
+        ``kv_tier_async`` a PageUploader that stages disk payloads off the
+        scheduler thread (not under tp: when a promotion lands must be the
+        same on every rank). Remote-only (a decode pool): no demotion
+        reads."""
+        self._uploader = None
+        self._tier_seen = {"prom": 0, "dem": 0, "hbm": 0, "host": 0,
+                           "disk": 0}
+        alloc, io = self._alloc, self._io
+        if alloc is None or io is None:
+            return
+        from .paging import PageUploader
+
+        alloc.on_pending_drop = io.on_pending_drop
+        if alloc.tiered:
+            if kv_tier_async and not io.lockstep:
+                self._uploader = PageUploader(stage=io.stage_host,
+                                              on_cancel=io.release)
+            alloc.bind_device_io(io.fetch, stage=io.stage_inline,
+                                 uploader=self._uploader,
+                                 fetch_into=io.fetch_into)
+        else:
+            alloc.bind_device_io(None, stage=io.stage_inline)
+
+    @property
+    def page_io(self):
+        """The runtime/kv_io.PageIO of a tiered or remote engine, or
+        None."""
+        return self._io
+
+    def close(self) -> None:
+        """Release the engine's background resources: the KV tiers'
+        uploader thread. Idempotent; the engine must not step after it."""
+        if self._uploader is not None:
+            self._uploader.close()
+            self._uploader = None
+        if self.page_io is not None:
+            self.page_io.close()
 
     def _init_books(self, metrics, slo, journal, watchdog, scheme) -> None:
         """The JAX engine's books: the journal (new ids start past its
@@ -664,8 +769,10 @@ class ContinuousEngine:
         dispatch (the JAX engine's): per-slot ledger charges (row steps,
         page steps, stalls by cause, pro-rated collective bytes) and the
         dispatch's census record. A paused row waits on a dry pool
-        (``pool_dry``); a deferred row of a mixed dispatch on the budget
-        (``budget_wait``); queued requests on the queue."""
+        (``pool_dry``), a promotion (``promo_pending``) or its parked
+        prefill (``prefill_hold``); a deferred row of a mixed dispatch on
+        the budget (``budget_wait``); queued requests on the queue."""
+        alloc = self._alloc
         dt_share = dt_s / max(active, 1)
         pages_held = 0
         parked: dict = {}
@@ -682,7 +789,19 @@ class ContinuousEngine:
                 cls = self._bill_class(s.req.slo_class)
                 class_page_s[cls] = class_page_s.get(cls, 0.0) + npages * dt_s
             if b in paused or b in deferred:
-                cause = "pool_dry" if b in paused else "budget_wait"
+                # re-distinguish what _grow_pages lumped into one set:
+                # promotion and prefill parks resolve by themselves,
+                # pool_dry waits on a retirement
+                if b not in paused:
+                    cause = "budget_wait"
+                elif s.await_promo or (
+                        alloc is not None and alloc.pending_capable
+                        and alloc.slot_pending(s.pages)):
+                    cause = "promo_pending"
+                elif s.prefill_pending:
+                    cause = "prefill_hold"
+                else:
+                    cause = "pool_dry"
                 parked[cause] = parked.get(cause, 0) + 1
                 if led is not None:
                     led.charge_stall(cause, k, dt_s)
@@ -695,7 +814,10 @@ class ContinuousEngine:
         for req in queued:
             if req.ledger is not None:
                 req.ledger.charge_stall("queue_wait", k, dt_s)
-        self._census.record(kind, k, active, parked, len(queued), pages_held)
+        tier = (alloc.tier_page_counts()
+                if alloc is not None and alloc.tiered else None)
+        self._census.record(kind, k, active, parked, len(queued), pages_held,
+                            tier_pages=tier)
         if self._obs is not None:
             for cause, n in parked.items():
                 self._obs.add_stall_seconds(cause, n * dt_s)
@@ -839,6 +961,52 @@ class ContinuousEngine:
 
     # -- paged-KV bookkeeping -----------------------------------------------
 
+    def _settle_promotions(self, quiet: bool = True) -> None:
+        """Step-boundary promotion apply: launch every staged upload into
+        its pool page (runtime/kv_io.PageIO.settle, in place), mark the
+        ones whose copy landed, and release the slots that waited on them:
+        their deferred admission prefill runs now (suffix-only, as for an
+        HBM-resident prefix) and they dispatch on the next step. Scheduler
+        thread only."""
+        alloc = self._alloc
+        if alloc is None or not alloc.pending_capable:
+            return
+        applied = self._io.settle(alloc)
+        now = time.monotonic()
+        for b, s in enumerate(self._pool):
+            if s.free or not s.await_promo:
+                continue
+            if alloc.slot_pending(s.pages):
+                continue  # still uploading: stays paused
+            s.await_promo = False
+            self.stats.promo_wait_s += now - s.t_promo
+            self._maybe_prefill_slot(b, s)
+            if s.req.cancelled:
+                self._retire(s, quiet)
+        if applied:
+            self._update_tier_obs()
+
+    def _update_tier_obs(self) -> None:
+        """Push the allocator's tier ledger into the metrics (delta-tracked:
+        counters only move forward; a reset_counters re-bases)."""
+        if self._obs is None or self._alloc is None \
+                or not self._alloc.tiered:
+            return
+        a = self._alloc
+        for tier, gauge in self._obs.tier_pages.items():
+            gauge.set(a.tier_pages.get(tier, 0))
+        seen = self._tier_seen
+
+        def push(key, got, counter):
+            if got > seen[key]:
+                counter.inc(got - seen[key])
+            seen[key] = got
+
+        push("prom", sum(a.promotions.values()), self._obs.tier_promotions)
+        push("dem", sum(a.demotions.values()), self._obs.tier_demotions)
+        for tier, counter in self._obs.tier_saved.items():
+            push(tier, a.tokens_saved_by_tier.get(tier, 0), counter)
+
     def _ensure_pages(self, s: _Slot, n_positions: int) -> bool:
         """Grow a slot's page list to cover ``n_positions`` positions,
         evicting idle radix leaves when the free list is dry. False = the
@@ -862,22 +1030,34 @@ class ContinuousEngine:
         its dead rewrite lands on its own page or the scrap page, and its
         sampler draws nothing, so its stream is untouched. Only when EVERY
         active slot is starved (no retirement can ever free a page) does
-        the youngest request fail."""
+        the youngest request fail. A slot waiting on a promotion or parked
+        mid-prefill pauses too, without counting toward the deadlock."""
         while True:
             paused = set()
+            promo = set()
             active = 0
             for b, s in enumerate(pool):
                 if s.free:
                     continue
                 active += 1
+                if s.await_promo or s.prefill_pending or (
+                        self._alloc.pending_capable
+                        and self._alloc.slot_pending(s.pages)):
+                    # waiting on a promotion upload, or a parked admission
+                    # prefill (kept at its page-aligned park point): the
+                    # slot pauses, but resolves by itself, so the deadlock
+                    # breaker never sees it
+                    promo.add(b)
+                    continue
                 need = k if spans is None else spans.get(b, 0)
                 if not self._ensure_pages(s, min(s.pos + need, s.budget)):
                     paused.add(b)
-            if not paused or len(paused) < active:
-                self.stats.pauses += len(paused)
-                if paused and self._obs is not None:
-                    self._obs.pauses.inc(len(paused))
-                return paused
+            if promo or not paused or len(paused) < active:
+                if paused or promo:
+                    self.stats.pauses += len(paused) + len(promo)
+                    if self._obs is not None:
+                        self._obs.pauses.inc(len(paused) + len(promo))
+                return paused | promo
             victim = max(paused, key=lambda b: pool[b].req.index)
             s = pool[victim]
             if self._obs is not None:
@@ -919,8 +1099,11 @@ class ContinuousEngine:
             return self.step_spec(quiet=quiet)
         if k <= 1:
             return self.step_once(quiet=quiet)
+        self._drain_remote_inbox()
         self._sweep_cancelled()
         self._admit()
+        self._settle_promotions(quiet)
+        self._resume_prefills()
         pool = self._pool
         paused = (self._grow_pages(pool, k, quiet)
                   if self._alloc is not None else ())
@@ -1008,8 +1191,11 @@ class ContinuousEngine:
         """Admit queued requests, run ONE device step over the pool (the
         captured forward), sample on the host and retire finished rows.
         Returns active slots + queued requests (0 = idle)."""
+        self._drain_remote_inbox()
         self._sweep_cancelled()
         self._admit()
+        self._settle_promotions(quiet)
+        self._resume_prefills()
         pool = self._pool
         paused = (self._grow_pages(pool, 1, quiet)
                   if self._alloc is not None else ())
@@ -1071,11 +1257,13 @@ class ContinuousEngine:
         speculative.accept_or_resample (an accept coin for each reached
         draft, a residual coin on rejection). Rows that did not retire
         roll their page table back to the accepted length (_trim_pages).
-        The JAX engine's _resume_prefills belongs to prefill_hold, which
-        is not ported. Returns active slots + queued requests."""
+        Returns active slots + queued requests."""
         K = self.spec_k
+        self._drain_remote_inbox()
         self._sweep_cancelled()
         self._admit()
+        self._settle_promotions(quiet)
+        self._resume_prefills()
         pool = self._pool
         paused = self._grow_pages(pool, K, quiet)
         if all(s.free for s in pool):
@@ -1190,17 +1378,19 @@ class ContinuousEngine:
     def step_mixed(self, quiet: bool = True) -> int:
         """One token-budget mixed dispatch (the JAX engine's step_mixed):
         every active row takes its one pending token, and ONE row with
-        forced prompt tokens left, the lowest request index (the JAX
-        engine's choice without an SLO ranking), takes up to the rest of
-        the budget, all in one (slots, T) forward. With more active rows
-        than T, the overflow rides deferred (span 0) under a rotating
+        forced prompt tokens left (the best SLO rank under
+        ``slo_priority``, then the lowest request index) takes up to the
+        rest of the budget, all in one (slots, T) forward. With more active
+        rows than T, the overflow rides deferred (span 0) under a rotating
         cursor. The host replay is step_once's per position (forced pops,
         then argmax or the sampler at the last position, then _advance),
         so the streams are the separate-dispatch engine's. Returns active
         slots + queued requests."""
         T = self.dispatch_tokens
+        self._drain_remote_inbox()
         self._sweep_cancelled()
         self._admit()
+        self._settle_promotions(quiet)
         pool = self._pool
         candidates = [b for b, s in enumerate(pool) if not s.free]
         spans: dict[int, int] = {}
@@ -1216,7 +1406,11 @@ class ContinuousEngine:
             room = T - len(candidates)
             slice_rows = [b for b in candidates if pool[b].forced]
             if room > 0 and slice_rows:
-                win = min(slice_rows, key=lambda b: pool[b].req.index)
+                # the best SLO rank wins the slice (FIFO within a class)
+                rank = self._prio or (lambda cls: 0)
+                win = min(slice_rows,
+                          key=lambda b: (rank(pool[b].req.slo_class),
+                                         pool[b].req.index))
                 spans[win] = 1 + min(len(pool[win].forced), room)
         paused = self._grow_pages(pool, 1, quiet, spans=spans)
         if all(s.free for s in pool):
@@ -1311,18 +1505,86 @@ class ContinuousEngine:
                 self._retire(s, quiet=True)
 
     def _n_outstanding(self) -> int:
+        """Active slots + queued requests (a handoff still in the inbox
+        counts: its request is not queued yet)."""
         with self._lock:
-            queued = len(self._queue)
+            queued = len(self._queue) + len(self._remote_inbox)
         return sum(not s.free for s in self._pool) + queued
 
+    def ingest_remote(self, tokens, planes, req: Request) -> None:
+        """Thread-safe handoff intake (decode pool): queue shipped page
+        payloads and the re-admission request for the scheduler thread to
+        adopt at its next iteration. ``planes`` are the CRC-verified plane
+        tuples in full-prompt-page window order (a None entry marks a page
+        that never arrived: adoption stops at the gap)."""
+        if self._alloc is None or not self._alloc.remote:
+            raise ValueError("ingest_remote needs a remote_pages=True "
+                             "paged engine (the decode pool role)")
+        with self._lock:
+            self._remote_inbox.append((tokens, planes, req))
+
+    def export_prefix_sync(self, tokens, timeout: float = 30.0) -> list:
+        """Thread-safe page export (prefill pool): ask the scheduler thread
+        for the wire payloads of the tree-held full prompt pages of
+        ``tokens`` and wait for them ([] when nothing is held, or the
+        scheduler did not answer within ``timeout``: the handoff then
+        ships nothing and the decode pool prefills)."""
+        box = {"ev": threading.Event(), "planes": None}
+        with self._lock:
+            self._export_inbox.append((list(tokens), box))
+        box["ev"].wait(timeout)
+        return box["planes"] or []
+
+    def _drain_remote_inbox(self) -> None:
+        """Scheduler-thread half of ingest_remote/export_prefix_sync: adopt
+        shipped pages into the radix tree (promotion-pending) and submit
+        their requests, so admission finds the prefix published; answer
+        pending page exports from the tree."""
+        with self._lock:
+            if not (self._remote_inbox or self._export_inbox):
+                return
+            items, self._remote_inbox = self._remote_inbox, []
+            exports, self._export_inbox = self._export_inbox, []
+        for tokens, planes, req in items:
+            self.adopt_remote(tokens, planes)
+            self.submit(req)
+        if exports:
+            from .disagg import export_prefix_pages
+
+            for tokens, box in exports:
+                try:
+                    box["planes"] = export_prefix_pages(self, tokens)
+                finally:
+                    box["ev"].set()
+
+    def adopt_remote(self, tokens, planes) -> list:
+        """Adopt shipped pages (scheduler thread): under tp each rank keeps
+        its band of a full-width payload (parallel/tp.stage_page_planes).
+        Returns the adopted nodes."""
+        if self.group.size > 1:
+            from ..parallel.tp import stage_page_planes
+
+            q8 = self.kv_quant == "q8"
+            planes = [None if p is None else
+                      stage_page_planes(p, self.group, self.spec, q8)
+                      for p in planes]
+        return self._alloc.adopt_remote_pages(tokens, planes)
+
     def _pop_request(self) -> Request | None:
-        """Next live queued request (FIFO; requests cancelled before
-        admission are completed and skipped), or None."""
+        """Next live queued request (FIFO, or with ``slo_priority`` the
+        best-ranked class first, FIFO within a class; requests cancelled
+        before admission are completed and skipped), or None."""
         while True:
             with self._lock:
                 if not self._queue:
                     return None
-                req = self._queue.pop(0)
+                at = 0
+                if self._prio is not None and len(self._queue) > 1:
+                    rank = self._prio
+                    at = min(range(len(self._queue)),
+                             key=lambda i: (rank(self._queue[i].slo_class),
+                                            i))
+                req = self._queue.pop(at)
                 if self._obs is not None:
                     self._obs.set_queue_depth(len(self._queue))
             if not req.cancelled:
@@ -1338,7 +1600,8 @@ class ContinuousEngine:
         queue (later, smaller requests do not jump a starved one)."""
         req = s.req
         self._alloc.release_pages(s.pages)
-        s.pages, s.shared = [], 0
+        s.pages, s.shared, s.await_promo = [], 0, False
+        s.prefill_pending = False
         s.req, s.pos, s.token, s.forced, s.sampler = None, 0, 0, [], None
         req.t_admit = 0.0
         self.stats.requeues += 1
@@ -1416,10 +1679,19 @@ class ContinuousEngine:
                     # none), so the next sample takes the coin the
                     # uninterrupted run would have
                     s.sampler.rng.skip(req.coin_cursor)
-                if self._alloc is not None \
-                        and self._admit_paged(s) == "dry":
-                    self._requeue_front(s)
-                    return
+                if self._alloc is not None:
+                    if self._admit_paged(s) == "dry":
+                        self._requeue_front(s)
+                        return
+                    if self._alloc.pending_capable \
+                            and self._alloc.slot_pending(s.pages):
+                        # the shared prefix is being promoted (or is a
+                        # shipped page still uploading): admission prefill
+                        # waits until it lands (_settle_promotions)
+                        s.await_promo = True
+                        s.t_promo = time.monotonic()
+                        self.stats.promo_waits += 1
+                        break
                 self._maybe_prefill_slot(slot_index, s)
                 if s.req.cancelled:
                     self._retire(s, quiet=True)
@@ -1437,16 +1709,25 @@ class ContinuousEngine:
         prefilled and copied into the slot's row in place. Same gates as
         generate._prefill_prefix: off for short prompts, prompts past the
         budget, or a BOS inside the prompt; off under ``dispatch_tokens``,
-        where the prompt rides the mixed dispatches as their slice."""
+        where the prompt rides the mixed dispatches as their slice.
+
+        With ``prefill_hold`` (paged f32 pools) the chunks run one at a
+        time and the prefill PARKS at a page-aligned chunk boundary where
+        the hold fires (``s.prefill_pending``); _resume_prefills continues
+        it later. A Q8 pool never parks: a resumed prompt would attend over
+        dequantized earlier positions where the single pass attends f32."""
         chunk = self.prefill_chunk
         tokens = s.req.tokens
         n_pre = len(tokens) - 1
-        start = s.pos  # 0 or the page-aligned prefix-share boundary
+        start = s.pos  # 0, the prefix-share boundary or a park point
         if (self.dispatch_tokens or chunk <= 1 or n_pre - start < 2
                 or n_pre >= s.budget or BOS in tokens[1:]):
+            s.prefill_pending = False
             return
         paged = self._alloc is not None
         q8 = self.kv_quant == "q8"
+        hold = self.prefill_hold if paged and not q8 else None
+        end = n_pre
         t0 = time.monotonic()
         chunks0 = self.stats.prefill_chunks
         with self._span("prefill", "prefill", slot=slot_index,
@@ -1468,14 +1749,26 @@ class ContinuousEngine:
                 self.model(scratch, part, start_pos, logits=False,
                            route=self._prefill_route)
 
-            run_chunked_prefill(fwd, tokens[start:n_pre], start, chunk,
-                                self.spec.seq_len)
+            # the fixed window schedule a chunk at a time, yielding at
+            # page-aligned chunk boundaries where the hold fires
+            lo = start
+            while lo < n_pre:
+                hi = min(lo + chunk, n_pre)
+                run_chunked_prefill(fwd, tokens[lo:hi], lo, chunk,
+                                    self.spec.seq_len)
+                lo = hi
+                if (hold is not None and lo < n_pre
+                        and lo % self.page_size == 0 and hold(s)):
+                    end = lo
+                    break
             if paged:
                 if q8:
                     # re-quantizing moves bytes: a shared page keeps its
-                    # first publisher's encoding
+                    # first publisher's encoding, and a resumed prefill the
+                    # pages its earlier rounds wrote
                     tbl_sc = tbl.copy()
-                    tbl_sc[:s.shared] = SCRAP_PAGE
+                    tbl_sc[:max(s.shared, start // self.page_size)] = \
+                        SCRAP_PAGE
                     scatter_pages_q8(self.cache, scratch,
                                      torch.from_numpy(tbl_sc).to(self.device),
                                      self.page_size)
@@ -1484,33 +1777,44 @@ class ContinuousEngine:
                                   self.page_size)
                 # publish the prefilled full prompt pages now: a request
                 # admitted into the next slot this round already shares them
-                self._alloc.insert_prefix(tokens[:n_pre], s.pages)
+                self._alloc.insert_prefix(tokens[:end], s.pages)
             else:
                 self.cache.k[:, slot_index].copy_(scratch.k)
                 self.cache.v[:, slot_index].copy_(scratch.v)
         # echo the prefilled prompt tokens into the output and the count
-        s.req.out.extend(tokens[start + 1:n_pre + 1])
-        for t in tokens[start + 1:n_pre + 1]:
+        s.req.out.extend(tokens[start + 1:end + 1])
+        for t in tokens[start + 1:end + 1]:
             self._notify(s.req, t)
-        self.stats.tokens += n_pre - start
+        self.stats.tokens += end - start
         dt_prefill = time.monotonic() - t0
         # steps=0: the census documents the dispatch's token composition
         # and leaves the step, stall and page-step totals alone
-        self._census.count_tokens("prefill", n_pre - start)
+        self._census.count_tokens("prefill", end - start)
         self._census.record("prefill", 0, 0, {}, 0, 0,
-                            prefill_tokens=n_pre - start)
+                            prefill_tokens=end - start)
         if s.req.ledger is not None:
-            s.req.ledger.charge_tokens(n_pre - start)
+            s.req.ledger.charge_tokens(end - start)
             s.req.ledger.charge_prefill(
-                self.stats.prefill_chunks - chunks0, n_pre - start,
+                self.stats.prefill_chunks - chunks0, end - start,
                 dt_prefill)
         if self._obs is not None:
-            self._obs.generated.inc(n_pre - start)
+            self._obs.generated.inc(end - start)
             self._obs.prefill.observe(dt_prefill)
-            self._obs.count_dispatch_tokens("prefill", n_pre - start)
-        s.pos = n_pre
-        s.token = tokens[n_pre]
-        s.forced = []
+            self._obs.count_dispatch_tokens("prefill", end - start)
+        s.pos = end
+        s.token = tokens[end]
+        s.forced = list(tokens[end + 1:]) if end < n_pre else []
+        s.prefill_pending = end < n_pre
+
+    def _resume_prefills(self) -> None:
+        """Continue chunk-preempted admission prefills: every slot parked
+        at a page-aligned boundary re-enters _maybe_prefill_slot, which may
+        park it again while the hold still fires."""
+        for b, s in enumerate(self._pool):
+            if s.free or not s.prefill_pending or s.await_promo \
+                    or s.req.cancelled:
+                continue
+            self._maybe_prefill_slot(b, s)
 
     @staticmethod
     def _notify(req: Request, token: int) -> None:
@@ -1533,9 +1837,11 @@ class ContinuousEngine:
                 n_ins = min(s.pos, len(s.req.tokens))
                 self._alloc.insert_prefix(s.req.tokens[:n_ins], s.pages)
             self._alloc.release_pages(s.pages)
-            s.pages, s.shared = [], 0
+            s.pages, s.shared, s.await_promo = [], 0, False
             if self._obs is not None:
                 self._obs.kv_pages_free.set(self._alloc.n_free)
+                self._update_tier_obs()
+        s.prefill_pending = False
         req = s.req
         req.t_finish = time.monotonic()
         status = ("cancelled" if req.cancelled
@@ -1689,10 +1995,13 @@ def generate_continuous(spec: TransformerSpec, params: dict[str, Any],
                         graph: bool | None = None, mesh=None,
                         scheme: str | None = None, spec_k: int = 0,
                         spec_ngram: int = 3, dispatch_tokens: int = 0,
-                        metrics=None):
+                        metrics=None, kv_host_pages: int = 0,
+                        kv_disk_dir: str | None = None,
+                        kv_disk_bytes: int = 0):
     """CLI entry (``--prompts-file --continuous``): encode the prompts,
     stream them through a pool of ``slots`` (0 = min(#prompts, 8)) and
-    print the rows ("[i] 'text'") and the JAX CLI's stats lines."""
+    print the rows ("[i] 'text'") and the JAX CLI's stats lines (the KV
+    tiers' line too, with ``kv_host_pages`` or ``kv_disk_dir``)."""
     reqs = [tokenizer.encode(p or "", bos=True, eos=False) for p in prompts]
     slots = slots or min(len(reqs), 8)
     eng = ContinuousEngine(spec, params, slots, temperature, topp, seed,
@@ -1704,8 +2013,14 @@ def generate_continuous(spec: TransformerSpec, params: dict[str, Any],
                            device=device, graph=graph, mesh=mesh,
                            scheme=scheme, spec_k=spec_k,
                            spec_ngram=spec_ngram,
-                           dispatch_tokens=dispatch_tokens, metrics=metrics)
-    outs, stats = eng.run(reqs, steps, quiet=quiet)
+                           dispatch_tokens=dispatch_tokens, metrics=metrics,
+                           kv_host_pages=kv_host_pages,
+                           kv_disk_dir=kv_disk_dir,
+                           kv_disk_bytes=kv_disk_bytes)
+    try:
+        outs, stats = eng.run(reqs, steps, quiet=quiet)
+    finally:
+        eng.close()
     if not quiet:
         for b, (req, row) in enumerate(zip(reqs, outs)):
             print(f"[{b}] {decode_stream(tokenizer, req[0], row)!r}")
@@ -1721,6 +2036,15 @@ def generate_continuous(spec: TransformerSpec, params: dict[str, Any],
                   f"{a.n_free} free; prefix hit "
                   f"rate {a.hit_rate:.0%}, {a.tokens_saved} prefill "
                   f"tokens saved, {a.evictions} evictions")
+            if a.tiered:
+                counts = a.tier_page_counts()
+                saved = a.tokens_saved_by_tier
+                print(f"KV tiers:            hbm {counts['hbm']} / host "
+                      f"{counts['host']} / disk {counts['disk']} pages; "
+                      f"{sum(a.demotions.values())} demotions, "
+                      f"{sum(a.promotions.values())} promotions; "
+                      f"{saved['host'] + saved['disk']} prefill tokens "
+                      f"rescued from spilled tiers")
         if eng.dispatch_tokens:
             print(f"Token budget:        {eng.dispatch_tokens} "
                   f"tokens/dispatch over {stats.steps} mixed dispatches")

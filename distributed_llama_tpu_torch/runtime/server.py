@@ -26,8 +26,24 @@ Endpoints (the JAX server's, with its keys and messages):
                while serving (409 if one is already running); its Chrome
                trace reads with utils/it_split.parse_trace
 
-The JAX server's POST /prefill (prefill/decode disaggregation) is not
-ported.
+  POST /prefill  (``disagg_role="prefill"`` only) the decode pool's
+               internal handoff RPC: {"tokens": [ids], "steps": N, ...}
+               -> {"record": <journal wire record>, "hid", "n_pages",
+               "channel_port"} (the prompt's full pages published on the
+               page channel), or {"final": true, "out": [...]} when the
+               stream ended inside the prefill cut. /health gains a
+               "disagg" block (role, peer, page channel, handoff queue
+               depth) on both roles, and a "kv_tiers" block with the KV
+               tiers on
+
+Prefill/decode disaggregation (runtime/disagg.py): the prefill role binds
+the page channel (runtime/page_channel.py) on the listener's interface,
+admits by SLO rank and parks batch prefills for interactive arrivals
+(disagg.make_priority_hold); the decode role forwards every prompt of at
+least ``handoff_min_pages`` full pages to ``disagg_peer``, fetches the
+shipped pages and re-admits the request from its journal record. A peer
+failure of any kind serves the request locally. Serving over a tp group
+(and so tiering or disaggregation under it) is not yet ported.
 
 Threading model: ThreadingHTTPServer handles each connection on its own
 thread; handlers only encode, submit (thread-safe) and wait on the
@@ -98,7 +114,11 @@ class InferenceServer:
                  watchdog_s: float = 0.0, drain_s: float = 10.0,
                  kv_quant: str | None = None, flightrec_dir: str | None = None,
                  watch_interval_s: float = 0.0, device="cuda",
-                 graph: bool | None = None):
+                 graph: bool | None = None, kv_host_pages: int = 0,
+                 kv_disk_dir: str | None = None, kv_disk_bytes: int = 0,
+                 disagg_role: str | None = None,
+                 disagg_peer: str | None = None,
+                 page_channel_port: int = 0, handoff_min_pages: int = 2):
         if mesh is not None and mesh.size > 1:
             raise ValueError(
                 "not yet ported: serving over a tp group (the scheduler "
@@ -109,6 +129,24 @@ class InferenceServer:
         self.default_steps = steps
         self.quiet = quiet
         self.drain_s = drain_s
+        # prefill/decode disaggregation: "prefill" serves POST /prefill and
+        # the page channel; "decode" fronts clients and forwards long
+        # prompts to ``disagg_peer`` (host:port of the prefill server).
+        # None = single-pool serving.
+        if disagg_role not in (None, "prefill", "decode"):
+            raise ValueError(f"disagg_role {disagg_role!r}: expected "
+                             f"prefill|decode|None")
+        if disagg_role is not None and page_size <= 0:
+            raise ValueError("disaggregation ships KV PAGES: pass "
+                             "page_size > 0 (--kv-page-size)")
+        if disagg_role == "decode" and not disagg_peer:
+            raise ValueError("--disagg-role decode needs --disagg-peer "
+                             "HOST:PORT (the prefill server)")
+        self.disagg_role = disagg_role
+        self.disagg_peer = disagg_peer
+        self.handoff_min_pages = max(1, handoff_min_pages)
+        self._page_channel = None
+        self._disagg_obs = None
         # SLO policy (obs/slo.SLOPolicy) — verdicts per priority class in
         # /health + /metrics
         self.slo_policy = slo
@@ -158,7 +196,33 @@ class InferenceServer:
                                        slo=slo, journal=journal,
                                        watchdog=self._watchdog,
                                        kv_quant=kv_quant, device=device,
-                                       graph=graph)
+                                       graph=graph,
+                                       kv_host_pages=kv_host_pages,
+                                       kv_disk_dir=kv_disk_dir,
+                                       kv_disk_bytes=kv_disk_bytes,
+                                       remote_pages=(
+                                           disagg_role == "decode"),
+                                       slo_priority=(
+                                           disagg_role == "prefill"
+                                           and slo is not None))
+        if disagg_role == "prefill":
+            from .disagg import make_priority_hold
+            from .page_channel import PageChannelServer
+
+            # the channel binds the listener's interface: a 0.0.0.0 serve
+            # host means remote decode pools connect, and the page channel
+            # must be reachable from exactly as far
+            self._page_channel = PageChannelServer(
+                host=host if host else "0.0.0.0", port=page_channel_port)
+            if slo is not None:
+                # interactive prefills jump the queue AND preempt batch
+                # prefills at page-aligned chunk boundaries
+                self.engine.prefill_hold = make_priority_hold(
+                    self.engine, slo)
+        if disagg_role is not None and self.registry is not None:
+            from .disagg import DisaggMetrics
+
+            self._disagg_obs = DisaggMetrics(self.registry)
         # the scheduler thread's device: the current device is per thread,
         # so the index is read here, on the constructing thread
         dev = self.engine.device
@@ -175,7 +239,7 @@ class InferenceServer:
         self.flightrec.bind(spans=self.engine._spans,
                             census=self.engine.sched_census,
                             ledgers=self.engine.ledger_book)
-        self.flightrec.note("server.start", role="single",
+        self.flightrec.note("server.start", role=disagg_role or "single",
                             slots=slots, page_size=page_size)
         # incident-detection plane: always constructed — the
         # detectors run on every watch_tick() whether the periodic
@@ -355,6 +419,8 @@ class InferenceServer:
             def do_POST(self):
                 if self.path == "/profile":
                     return self._profile()
+                if self.path == "/prefill":
+                    return self._prefill_handoff()
                 if self.path != "/generate":
                     return self._json(404, {"error": "unknown path"})
                 if server.health.state in ("draining", "stopped"):
@@ -376,15 +442,120 @@ class InferenceServer:
                 except (ValueError, KeyError, TypeError) as e:
                     server.count_reject("bad_request")
                     return self._json(400, {"error": str(e)})
+                if server.disagg_role == "decode":
+                    req, submit = server.remote_prefill(req)
+                else:
+                    def submit(r=req):
+                        server.engine.submit(r)
                 if stream:
-                    return self._stream(req)
-                server.engine.submit(req)
+                    return self._stream(req, submit)
+                if submit is not None:
+                    submit()
                 req.done.wait()
                 if req.error is not None:
                     return self._json(500, {"error": req.error})
                 text = server.decode(req)
                 self._json(200, {"text": text, "tokens": req.out,
                                  "steps": len(req.out)})
+
+            def _prefill_handoff(self):
+                """POST /prefill (prefill role): the decode pool's RPC.
+                Body: {"tokens": [ids], "steps": N, "temperature"?,
+                "topp"?, "seed"?, "class"?, "trace"?}. Runs the prompt's
+                prefill and samples the FIRST token, publishes the full
+                prompt pages on the page channel, and returns the
+                request's journal record for the decode pool to re-admit,
+                or {"final": true, ...} when the stream ended inside the
+                prefill cut."""
+                from .disagg import (HANDOFF_CAT, SPAN_HANDOFF_RECV,
+                                     encode_handoff_pages, entry_for_stub,
+                                     prefill_stub, stub_needs_handoff)
+                from .journal import entry_to_wire
+                from .pagewire import record_payload_bytes
+
+                if server.disagg_role != "prefill":
+                    return self._json(404, {"error": "not a prefill pool"})
+                if server.health.state in ("draining", "stopped"):
+                    server.count_reject("draining")
+                    return self._json(503, {"error": "draining"})
+                try:
+                    n = int(self.headers.get("Content-Length", "0"))
+                    payload = json.loads(self.rfile.read(n) or b"{}")
+                    tokens = [int(t) for t in payload["tokens"]]
+                    steps = int(payload["steps"])
+                    if not tokens or steps < 1 \
+                            or len(tokens) > server.spec.seq_len:
+                        raise ValueError(
+                            f"bad handoff prompt/steps ({len(tokens)} "
+                            f"tokens, {steps} steps)")
+                    temp = payload.get("temperature")
+                    topp = payload.get("topp")
+                    seed = payload.get("seed")
+                    slo_class = payload.get("class")
+                except (ValueError, KeyError, TypeError) as e:
+                    server.count_reject("bad_request")
+                    return self._json(400, {"error": str(e)})
+                # continue the decode pool's trace from the RPC's
+                # traceparent: the recv half of the cross-pool anchor pair
+                trace_hdr = payload.get("trace")
+                recv_parent = None
+                if trace_hdr:
+                    try:
+                        recv_parent = tracectx.parse_header(str(trace_hdr))
+                    except ValueError:
+                        recv_parent = None
+                recv = (recv_parent.child() if recv_parent is not None
+                        else tracectx.mint())
+                t_recv0 = time.perf_counter()
+                stub, _ = prefill_stub(
+                    tokens, steps,
+                    temperature=None if temp is None else float(temp),
+                    topp=None if topp is None else float(topp),
+                    seed=None if seed is None else int(seed),
+                    slo_class=slo_class)
+                stub.trace = recv.child()
+                server.engine.submit(stub)
+                stub.done.wait()
+
+                def recv_span(pages: int) -> None:
+                    if server.engine._spans is not None:
+                        server.engine._spans.add(
+                            SPAN_HANDOFF_RECV, HANDOFF_CAT, t_recv0,
+                            time.perf_counter() - t_recv0, pages=pages,
+                            **tracectx.span_fields(recv))
+
+                if stub.error is not None:
+                    return self._json(500, {"error": stub.error})
+                if not stub_needs_handoff(stub):
+                    if server._disagg_obs is not None:
+                        server._disagg_obs.handoffs["local"].inc()
+                    recv_span(0)
+                    return self._json(200, {"final": True,
+                                            "out": stub.out})
+                try:
+                    entry = entry_for_stub(server.engine, stub)
+                except ValueError as e:  # sampled stream, no journal
+                    return self._json(500, {"error": str(e)})
+                payloads = server.engine.export_prefix_sync(tokens)
+                records = encode_handoff_pages(payloads)
+                hid = f"h{stub.index}"
+                server._page_channel.publish(hid, records,
+                                             trace=entry.trace)
+                recv_span(len(records))
+                if server._disagg_obs is not None:
+                    obs = server._disagg_obs
+                    obs.handoffs["shipped"].inc()
+                    if records:
+                        # PAYLOAD bytes (the budget's unit, framing left
+                        # out), reconcilable against dcn_handoff_budget
+                        obs.pages_shipped.inc(len(records))
+                        obs.bytes_shipped.inc(sum(
+                            record_payload_bytes(r) for r in records))
+                    obs.queue_depth.set(server._page_channel.queue_depth)
+                self._json(200, {
+                    "record": entry_to_wire(entry),
+                    "hid": hid, "n_pages": len(records),
+                    "channel_port": server._page_channel.port})
 
             def _profile(self):
                 """POST /profile: capture a torch.profiler trace for N
@@ -418,13 +589,17 @@ class InferenceServer:
                     return self._json(400, {"error": str(e)})
                 self._json(200, {"dir": trace_dir, "seconds": seconds})
 
-            def _stream(self, req):
+            def _stream(self, req, submit=None):
                 """Chunked newline-delimited JSON, one line per token.
 
                 The scheduler thread only enqueues (on_token must never
                 block the decode loop on a slow client socket); THIS
                 handler thread drains the queue and does the blocking
-                writes. The hook is registered before the submit."""
+                writes. ``submit`` hands the request to the engine AFTER
+                the hook is registered (the decode role passes its ingest
+                closure); None with ``done`` already set means the
+                request completed on the prefill peer: its tokens are
+                replayed."""
                 import queue
 
                 q: queue.Queue = queue.Queue()
@@ -440,12 +615,34 @@ class InferenceServer:
                                      + b"\r\n")
                     self.wfile.flush()
 
+                if submit is None and req.done.is_set():
+                    # completed inside the peer's prefill cut: replay the
+                    # finished stream as one burst
+                    try:
+                        prev = req.tokens[0]
+                        for tok in req.out:
+                            piece = server.tokenizer.decode_piece(prev, tok)
+                            prev = tok
+                            chunk({"token": tok,
+                                   "piece": piece.decode(
+                                       "utf-8", errors="replace")})
+                        chunk({"done": True, "text": server.decode(req),
+                               "steps": len(req.out)})
+                        self.wfile.write(b"0\r\n\r\n")
+                        self.wfile.flush()
+                    except OSError:
+                        pass
+                    return
+
                 # register with the server so stop() can join this thread
                 # once the request is woken — without the registry a
                 # handler blocked in q.get outlives the server silently
                 with server._streams_lock:
                     server._streams.add(threading.current_thread())
-                server.engine.submit(req)
+                if submit is not None:
+                    submit()
+                else:
+                    server.engine.submit(req)
                 prev = req.tokens[0]
                 sent = 0
                 try:
@@ -537,6 +734,104 @@ class InferenceServer:
 
         return decode_stream(self.tokenizer, req.tokens[0], req.out)
 
+    def remote_prefill(self, req: Request):
+        """Decode-role routing: a prompt of at least ``handoff_min_pages``
+        full pages goes to the prefill peer (POST /prefill), whose reply is
+        the finished stream (it ended inside the prefill cut) or a journal
+        record and page-channel coordinates; the shipped pages are fetched,
+        CRC-verified, and handed to the scheduler with the re-admission
+        request. Shorter prompts, and ANY peer failure, run locally.
+
+        Returns ``(request, submit_fn)``: the request to track (the
+        original, or the re-admission) and a thunk that hands it to the
+        engine, None when it is already complete. Callers register their
+        streaming hooks BEFORE calling the thunk."""
+        import urllib.request
+
+        from .disagg import HANDOFF_CAT, SPAN_HANDOFF_SEND, decode_request
+        from .journal import entry_from_wire
+        from .page_channel import PageChannelClient
+
+        local = (req, lambda: self.engine.submit(req))
+        n_full = (len(req.tokens) - 1) // max(self.engine.page_size, 1)
+        if n_full < self.handoff_min_pages:
+            if self._disagg_obs is not None:
+                self._disagg_obs.handoffs["local"].inc()
+            return local
+        t0 = time.monotonic()
+        # the RPC span, the send half of the cross-pool anchor pair: its
+        # traceparent rides the POST body
+        rpc = (req.trace.child() if req.trace is not None
+               else tracectx.mint())
+        t_send0 = time.perf_counter()
+
+        def send_span(pages: int) -> None:
+            if self.engine._spans is not None:
+                self.engine._spans.add(
+                    SPAN_HANDOFF_SEND, HANDOFF_CAT, t_send0,
+                    time.perf_counter() - t_send0, pages=pages,
+                    **tracectx.span_fields(rpc))
+
+        dreq = None
+        resp = None
+        try:
+            body = json.dumps({
+                "tokens": req.tokens, "steps": req.steps,
+                "temperature": req.temperature, "topp": req.topp,
+                "seed": req.seed, "class": req.slo_class,
+                "trace": rpc.to_header()}).encode()
+            rq = urllib.request.Request(
+                f"http://{self.disagg_peer}/prefill", data=body,
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(rq, timeout=120) as r:
+                resp = json.loads(r.read())
+            if resp.get("final"):
+                req.out.extend(int(t) for t in resp["out"])
+                req.done.set()
+                send_span(0)
+                return req, None
+            entry = entry_from_wire(resp["record"])
+            dreq = decode_request(entry, req.steps)
+            if self.engine._journal is not None:
+                # the durability point: the admit record lands BEFORE any
+                # page moves, so a crash mid-transfer recovers the request
+                self.engine.prejournal(dreq)
+            host = self.disagg_peer.rsplit(":", 1)[0]
+            client = PageChannelClient(f"{host}:{resp['channel_port']}")
+            planes = client.fetch(resp["hid"], int(resp["n_pages"]))
+            prompt = list(req.tokens)
+            if self._disagg_obs is not None:
+                obs = self._disagg_obs
+                obs.handoffs["shipped"].inc()
+                obs.handoff_latency.observe(time.monotonic() - t0)
+            send_span(int(resp["n_pages"]))
+            log_event("disagg.handoff_shipped", None, trace=rpc,
+                      peer=self.disagg_peer, pages=int(resp["n_pages"]))
+            return dreq, (lambda: self.engine.ingest_remote(
+                prompt, planes, dreq))
+        except (OSError, ValueError, KeyError, TypeError) as e:
+            log_event("disagg.handoff_failed",
+                      f"🔶 handoff to {self.disagg_peer} failed "
+                      f"({type(e).__name__}: {e}); serving locally",
+                      file=sys.stderr, trace=rpc,
+                      error=f"{type(e).__name__}: {e}")
+            if dreq is not None:
+                # the fallback serves the ORIGINAL request: retire the
+                # prejournaled life, or a recovery would replay it too
+                self.engine.abandon_prejournaled(dreq)
+            if resp is not None and resp.get("hid"):
+                # best effort: the prefill pool drops the published pages
+                try:
+                    host = self.disagg_peer.rsplit(":", 1)[0]
+                    PageChannelClient(
+                        f"{host}:{resp['channel_port']}",
+                        connect_window=2.0).ack(resp["hid"])
+                except (OSError, ValueError, KeyError):
+                    pass  # the channel's retention cap bounds the leak
+            if self._disagg_obs is not None:
+                self._disagg_obs.handoffs["failed"].inc()
+            return local
+
     def _health_payload(self) -> dict:
         """Assemble the GET /health JSON (the fleet plane's primary
         scrape surface — the registered producer of wiremodel's
@@ -586,6 +881,40 @@ class InferenceServer:
                 "prefill_tokens_saved": a.tokens_saved,
                 "evictions": a.evictions,
             }
+            if a.tiered:
+                # the KV tiers: per-tier page population, promotion and
+                # demotion flow, the prefill tokens the spilled tiers
+                # rescued (the dllama_kv_tier_pages series' JSON twin)
+                payload["kv_tiers"] = {
+                    "pages": a.tier_page_counts(),
+                    "host_capacity": (a.host.n_pages
+                                      if a.host else 0),
+                    "disk_live_bytes": (a.disk.live_bytes
+                                        if a.disk else 0),
+                    "disk_budget_bytes": (a.disk.budget_bytes
+                                          if a.disk else 0),
+                    "demotions": dict(a.demotions),
+                    "promotions": dict(a.promotions),
+                    "prefill_tokens_saved_by_tier":
+                        dict(a.tokens_saved_by_tier),
+                    "crc_drops": a.crc_drops,
+                }
+        if self.disagg_role is not None:
+            # the disaggregated topology: this pool's role, its peer and
+            # the handoff backlog (the dllama_handoff_* series' twin)
+            payload["disagg"] = {
+                "role": self.disagg_role,
+                "peer": self.disagg_peer,
+                "page_channel_port": (
+                    self._page_channel.port
+                    if self._page_channel is not None else None),
+                "handoff_queue_depth": (
+                    self._page_channel.queue_depth
+                    if self._page_channel is not None else 0),
+            }
+            if eng.allocator is not None:
+                payload["disagg"]["pages_adopted"] = \
+                    eng.allocator.remote_adopted
         if self.journal is not None:
             # recovery bookkeeping: requests replayed from the
             # journal at startup + append volume since
@@ -828,8 +1157,10 @@ class InferenceServer:
         except ValueError:
             pass  # not the main thread (tests): rely on stop()/drain()
         try:
-            while not stop_requested.is_set():
-                time.sleep(0.2)
+            # a wait on the event, not a sleep loop: the signal interrupts
+            # the lock wait, so the drain starts as the handler runs
+            while not stop_requested.wait(1.0):
+                pass
         except KeyboardInterrupt:
             pass
         finally:
@@ -937,6 +1268,9 @@ class InferenceServer:
             for t in pending:
                 t.join(timeout=max(0.05, remaining))
         self.httpd.server_close()
+        if self._page_channel is not None:
+            self._page_channel.close()
+        self.engine.close()  # the KV tiers' uploader thread
         if self._watchdog is not None:
             self._watchdog.close()
         if self.journal is not None:

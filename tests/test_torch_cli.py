@@ -128,9 +128,11 @@ def test_cli_pieces_match_reference(model_files, capsys, mode):
     assert pieces(out) == want
 
 
+# the KV tier flags are ported: a case whose first flag past the ported
+# ones is a tier flag exits 2 with the JAX CLI's own check and message
 UNPORTED = [["--tp", "2", "--kv-disk-dir", "d"], ["--sp", "2"],
             # --slots, --continuous and --spec-k are ported with
-            # --prompts-file; --kv-host-pages is not
+            # --prompts-file, and so is --kv-host-pages
             ["--slots", "4", "--prompts-file", "p.txt", "--continuous",
              "--spec-k", "4", "--kv-host-pages", "8"],
             ["--kv-pages", "64"], ["--dispatch-tokens", "8"],
@@ -143,9 +145,9 @@ UNPORTED = [["--tp", "2", "--kv-disk-dir", "d"], ["--sp", "2"],
              "--kv-disk-dir", "d"],
             ["--metrics", "--kv-disk-dir", "d"],
             ["--log-json", "--kv-disk-gb", "2"],
-            # --prompts-file --continuous --dispatch-tokens is ported; the
-            # KV tier flags are not, and stop the run before the (absent)
-            # prompts file is opened
+            # --prompts-file --continuous --dispatch-tokens is ported, and
+            # so are the KV tier flags: the JAX CLI's checks stop the run
+            # before the (absent) prompts file is opened
             ["--prompts-file", "p.txt", "--continuous", "--dispatch-tokens",
              "8", "--kv-host-pages", "8"],
             # the continuous engine's flags outside --prompts-file
@@ -163,31 +165,51 @@ CONTINUOUS_FLAGS = ("--continuous", "--slots", "--block-steps", "--kv-pages",
                     "--spec-ngram", "--dispatch-tokens")
 
 
+TIER_FLAGS = ("--kv-host-pages", "--kv-disk-dir", "--kv-disk-gb")
+
+
 def _unported_flag(extra):
     """The flag the error must name: the first one that is not ported in
     this combination (the continuous engine's flags are ported with
-    --prompts-file --continuous; the tensor-parallel and weight-streaming
-    ones everywhere)."""
+    --prompts-file --continuous; the tensor-parallel, weight-streaming and
+    KV tier ones everywhere), or None when every flag is ported."""
     ported = ("--fast", "--prompts-file", "--tp", "--tp-scheme",
               "--workers", "--coordinator", "--seed", "--stream-slices",
-              "--model-from-root", "--metrics", "--log-json")
+              "--model-from-root", "--metrics", "--log-json", *TIER_FLAGS)
     if "--continuous" in extra and "--prompts-file" in extra:
         ported += CONTINUOUS_FLAGS
-    return next(a for a in extra if a.startswith("--") and a not in ported)
+    return next((a for a in extra if a.startswith("--")
+                 and a not in ported), None)
 
 
 @pytest.mark.parametrize("extra", UNPORTED, ids=lambda a: a[0])
-def test_unported_flags_exit_2_before_loading(extra, capsys, tmp_path):
+def test_unported_flags_exit_2_before_loading(extra, capsys, tmp_path,
+                                              monkeypatch):
     """The model path does not exist: exit 2 proves the CLI stopped before
-    any load."""
+    any load. Where every flag is ported (a KV tier flag the JAX CLI's
+    checks refuse in this combination), the exit and the message are the
+    JAX CLI's for the same argv."""
+    from distributed_llama_tpu.frontend.cli import \
+        cmd_inference as jax_inference
     from distributed_llama_tpu_torch.frontend.cli import main
 
-    rc = main(["inference", "--model", str(tmp_path / "absent.bin"),
-               "--tokenizer", str(tmp_path / "absent.tok"), "--device",
-               "cpu", *extra])
+    # both CLIs export --log-json, --kv-quant and --tp-scheme into the
+    # environment: set each key (so monkeypatch restores it), then clear it
+    for key in ("DLLAMA_KV_QUANT", "DLLAMA_LOG_JSON", "DLLAMA_TP_SCHEME"):
+        monkeypatch.setenv(key, "")
+        monkeypatch.delenv(key)
+    base = ["--model", str(tmp_path / "absent.bin"),
+            "--tokenizer", str(tmp_path / "absent.tok")]
+    rc = main(["inference", *base, "--device", "cpu", *extra])
     assert rc == 2
     err = capsys.readouterr().err
-    assert "not yet ported" in err and _unported_flag(extra) in err
+    flag = _unported_flag(extra)
+    if flag is not None:
+        assert "not yet ported" in err and flag in err
+        return
+    assert any(a in TIER_FLAGS for a in extra)
+    assert jax_inference([*base, *extra]) == 2
+    assert err == capsys.readouterr().err and "not yet ported" not in err
 
 
 @pytest.mark.parametrize("chunk", [[], ["--prefill-chunk", "1"]],

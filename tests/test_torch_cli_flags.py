@@ -80,14 +80,26 @@ def test_port_runs_the_jax_stream_under_neutral_flags(model_files,  # noqa: F811
     # --spec-k (and so its drafter's --spec-ngram) runs only in the
     # continuous engine
     ["--spec-ngram", "3", "--spec-k", "4"]], ids=lambda a: "-".join(a[:2]))
-def test_other_values_stay_unported(extra, capsys, tmp_path):
+def test_other_values_stay_unported(extra, capsys, tmp_path, monkeypatch):
     """The model path does not exist: exit 2 proves the CLI stopped before
-    any load."""
+    any load. --kv-host-pages is ported: without --kv-page-size it exits 2
+    with the JAX CLI's own check and message."""
+    from distributed_llama_tpu.frontend.cli import \
+        cmd_inference as jax_inference
     from distributed_llama_tpu_torch.frontend.cli import main
 
-    rc = main(["inference", "--model", str(tmp_path / "absent.bin"),
-               "--tokenizer", str(tmp_path / "absent.tok"), "--device",
-               "cpu", *extra])
+    # both CLIs export --log-json, --kv-quant and --tp-scheme into the
+    # environment: set each key (so monkeypatch restores it), then clear it
+    for key in ("DLLAMA_KV_QUANT", "DLLAMA_LOG_JSON", "DLLAMA_TP_SCHEME"):
+        monkeypatch.setenv(key, "")
+        monkeypatch.delenv(key)
+    base = ["--model", str(tmp_path / "absent.bin"),
+            "--tokenizer", str(tmp_path / "absent.tok")]
+    rc = main(["inference", *base, "--device", "cpu", *extra])
     assert rc == 2
     err = capsys.readouterr().err
+    if extra[0] == "--kv-host-pages":
+        assert jax_inference([*base, *extra]) == 2
+        assert err == capsys.readouterr().err and "--kv-page-size" in err
+        return
     assert "not yet ported" in err and f"{extra[0]} {extra[1]}" in err

@@ -17,7 +17,8 @@ package's, on the CPU (the kernels' plain versions):
 * the engine's own contracts: paged streams equal contiguous ones, a
   re-used engine repeats its streams, ``cancel`` and ``fail_all`` free
   slots and pages, and the unported arguments (and bad spec_k and
-  dispatch_tokens values) raise.
+  dispatch_tokens values) raise; the KV tier and disaggregation arguments
+  take the JAX engine's checks, and a tiered engine its streams.
 """
 
 import tempfile
@@ -259,18 +260,41 @@ def test_cancel_and_fail_all_free_slots_and_pages(model):
     ({"spec_k": 1, "page_size": 4}, "K >= 2"),
     ({"dispatch_tokens": 8}, "requires the paged KV cache"),
     ({"chaos": object()}, "not yet ported: chaos"),
-    ({"kv_host_pages": 4, "page_size": 4}, "not yet ported: kv_host_pages"),
-    ({"kv_disk_dir": "d"}, "not yet ported: kv_disk_dir"),
-    ({"remote_pages": True}, "not yet ported: remote_pages"),
-    ({"slo_priority": True}, "not yet ported: slo_priority"),
+    # ported now (the ids stay): the JAX engine's check for the same
+    # input, or None where both engines take it and run the same streams
+    pytest.param({"kv_host_pages": 4, "page_size": 4}, None,
+                 id="kw4-not yet ported: kv_host_pages"),
+    pytest.param({"kv_disk_dir": "d"}, "KV tiering spills PAGES",
+                 id="kw5-not yet ported: kv_disk_dir"),
+    pytest.param({"remote_pages": True}, "remote_pages ingests KV PAGES",
+                 id="kw6-not yet ported: remote_pages"),
+    pytest.param({"slo_priority": True}, "slo_priority orders admission",
+                 id="kw7-not yet ported: slo_priority"),
     ({"kv_pages": 8}, "kv_pages requires page_size"),
     ({"kv_quant": "q8"}, "quantizes PAGE planes"),
     ({"kv_quant": "q4", "page_size": 4}, "expected f32|q8"),
     ({"page_size": 5}, "must divide seq_len")])
 def test_engine_rejects_what_it_does_not_run(model, kw, match):
+    from distributed_llama_tpu.runtime.continuous import \
+        ContinuousEngine as JaxEngine
     from distributed_llama_tpu_torch.runtime.continuous import \
         ContinuousEngine
 
+    if match is None:
+        # a tiered engine: the JAX engine's streams on the same requests
+        reqs = _requests(3)
+        want, _ = JaxEngine(SPEC, model[0], 2, 0.0, 0.9, 1,
+                            use_native_sampler=False, **kw).run(reqs, 20)
+        eng = ContinuousEngine(_port_spec(SPEC), model[1], 2, 0.0, 0.9, 1,
+                               device="cpu", **kw)
+        got, _ = eng.run(reqs, 20)
+        eng.close()
+        assert got == want and eng.allocator.tiered
+        assert eng.audit_pages() == []
+        return
+    if "not yet ported" not in match and "K >= 2" not in match:
+        with pytest.raises(ValueError, match=match):
+            JaxEngine(SPEC, model[0], 2, 0.0, 0.9, 1, **kw)
     with pytest.raises(ValueError, match=match):
         ContinuousEngine(_port_spec(SPEC), model[1], 2, 0.0, 0.9, 1,
                          device="cpu", **kw)

@@ -2285,3 +2285,214 @@ def test_server_with_graphs_on_its_scheduler_serves_the_eager_streams(
     captured, eager = serve(True), serve(False)
     assert all(o is not None and len(o) > 4 for o in captured)
     assert captured == eager
+
+
+# ---------------------------------------------------------------------------
+# the KV tiers on the card (runtime/kv_io.py): pinned host slab, copies on
+# a copy stream, captures beside promotions in flight
+# ---------------------------------------------------------------------------
+
+TIER_PAGE = 8
+
+
+def _tier_prompts(n, seed=11):
+    """Prompts with two full pages of their own (page 8) and a tail."""
+    rng = np.random.default_rng(seed)
+    return [[1, *rng.integers(4, 290, 2 * TIER_PAGE + 3)] for _ in range(n)]
+
+
+def _tier_engine(spec, params, **kw):
+    from distributed_llama_tpu_torch.runtime.continuous import \
+        ContinuousEngine
+
+    base = dict(page_size=TIER_PAGE, prefill_chunk=4, device="cuda")
+    base.update(kw)
+    return ContinuousEngine(spec, params, 2, 0.0, 0.9, 1, **base)
+
+
+def _drain(eng, k):
+    for _ in range(500):
+        if not eng.step_many(k):
+            return
+    raise AssertionError("the engine never drained")
+
+
+def test_capture_while_promotions_in_flight_replays_the_eager_streams(
+        gen, tmp_path, monkeypatch):
+    """Promotions in flight while the engine captures its 4-step chain
+    graph lazily: the uploader's gate opens only once the capture has
+    begun, and the capture waits until the uploader has staged disk
+    payloads into pinned memory inside it. A CUDA call from that thread
+    would fail the global-mode capture; the capture completes, and once
+    the uploads land the replays give the eager engine's streams, and
+    the untiered engine's."""
+    import threading
+    import time
+
+    spec = _small_spec(seq_len=64)
+    params = llama.params_to_device(synth_params(spec, q40=True, seed=5,
+                                                 scale=0.3), "cuda")
+    prompts = _tier_prompts(4)
+
+    def run(graph, tiered):
+        kw = (dict(kv_pages=12, kv_host_pages=2,
+                   kv_disk_dir=str(tmp_path / f"d{graph}"))
+              if tiered else dict(kv_pages=40))
+        eng = _tier_engine(spec, params, graph=graph, **kw)
+        first, _ = eng.run(prompts, 40)
+        if not tiered:
+            again, _ = eng.run(prompts, 40)
+            return first, again
+        a = eng.allocator
+        a.demote_cold(len(a.tree))
+        assert a.tier_page_counts()["hbm"] == 0
+        assert a.tier_page_counts()["disk"] > 0
+        gate = threading.Event()
+        eng._uploader.gate = gate
+        from distributed_llama_tpu_torch.runtime.continuous import Request
+
+        seen = {"in_capture": False, "staged_in_capture": 0, "pending": 0}
+        stage = eng._uploader._stage
+
+        def staging(job):
+            out = stage(job)
+            if seen["in_capture"]:
+                seen["staged_in_capture"] += 1
+            return out
+
+        eng._uploader._stage = staging
+        begin = torch.cuda.CUDAGraph.capture_begin
+
+        def capture_begin(self, *args, **kwargs):
+            begin(self, *args, **kwargs)
+            if gate.is_set():
+                return
+            # the capture has begun: let the uploader stage beside it
+            seen["pending"] = sum(not s.free and s.await_promo
+                                  for s in eng._pool)
+            seen["in_capture"] = True
+            gate.set()
+            deadline = time.monotonic() + 30
+            while (not seen["staged_in_capture"]
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)
+
+        monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin",
+                            capture_begin)
+        reqs = [eng.submit(Request(tokens=list(p), steps=40))
+                for p in prompts]
+        assert (4, True) not in eng._chains
+        eng.step_many(4)  # admits, promotes, captures the 4-step chain
+        seen["in_capture"] = False
+        monkeypatch.undo()
+        if graph:
+            assert eng._chains[(4, True)].graph._graph is not None
+            assert seen["pending"] > 0 and seen["staged_in_capture"] > 0
+        gate.set()
+        _drain(eng, 4)
+        assert eng.audit_pages() == []
+        assert sum(a.promotions.values()) > 0
+        assert not eng.page_io.inflight and eng.page_io.upload_ms
+        eng.close()
+        return first, [r.out for r in reqs]
+
+    captured, eager, plain = run(True, True), run(False, True), \
+        run(False, False)
+    assert captured == eager == plain
+
+
+@pytest.mark.parametrize("quant", ["f32", "q8"])
+@pytest.mark.parametrize("tier", ["host", "disk"])
+def test_demote_promote_round_trip_on_the_card(gen, tmp_path, quant, tier):
+    """A page a dispatch wrote just before its demotion (the write still
+    queued on the main stream) reads back to the host after the write,
+    and its promotion lands in a zeroed pool page bitwise (f32) and
+    code-exact (Q8); the main stream waits on the copy stream's event."""
+    from distributed_llama_tpu_torch.runtime.kv_io import PageIO
+    from distributed_llama_tpu_torch.runtime.paging import PagedAllocator
+
+    spec = _small_spec(seq_len=64)
+    cache = (llama.init_cache_paged(spec, 6, TIER_PAGE, "cuda")
+             if quant == "f32" else
+             llama.init_cache_paged_q8(spec, 6, TIER_PAGE, "cuda"))
+    io = PageIO(cache, "cuda", host_pages=2)
+    kw = ({"host_pages": 2, "host_slab": io.slab, "host_layout": io.layout}
+          if tier == "host" else {"disk_dir": str(tmp_path)})
+    alloc = PagedAllocator(5, TIER_PAGE, **kw)
+    alloc.bind_device_io(io.fetch, stage=io.stage_inline,
+                         fetch_into=io.fetch_into)
+    pid = alloc.alloc_page()
+    alloc.insert_prefix(list(range(TIER_PAGE)), [pid])
+    alloc.release_pages([pid])
+    for plane in cache:  # the "dispatch": queued, not synchronized
+        fill = torch.randn(plane[:, pid].shape, device="cuda",
+                           generator=gen) * 40
+        plane[:, pid].copy_(fill.to(plane.dtype))
+    assert alloc.demote_cold(1) == 1
+    want = llama.fetch_page_planes(cache, pid)
+    if tier == "host":
+        got = alloc.host.load(0)
+        assert np.shares_memory(got[0], io.slab)
+        assert all(a.tobytes() == b.tobytes() for a, b in zip(got, want))
+    for plane in cache:
+        plane[:, pid].zero_()
+    shared = alloc.match_prefix(list(range(TIER_PAGE)) + [0])
+    assert len(shared) == 1 and alloc.slot_pending(shared)
+    for _ in range(1000):
+        if io.settle(alloc) or not alloc.slot_pending(shared):
+            break
+    assert not alloc.slot_pending(shared)
+    back = llama.fetch_page_planes(cache, shared[0])
+    assert all(a.tobytes() == b.tobytes() for a, b in zip(want, back))
+    assert io.upload_ms and all(ms >= 0 for ms in io.upload_ms)
+    alloc.release_pages(shared)
+    assert alloc.audit([]) == []
+
+
+def test_host_tier_is_one_pinned_slab(gen, tmp_path):
+    """The host tier is one pinned allocation made with the engine: every
+    live host payload views it, and it is never reallocated."""
+    spec = _small_spec(seq_len=64)
+    params = llama.params_to_device(synth_params(spec, q40=True, seed=5,
+                                                 scale=0.3), "cuda")
+    eng = _tier_engine(spec, params, kv_pages=10, kv_host_pages=6)
+    io = eng.page_io
+    assert io._slab_t.is_pinned() and io._stage_t.is_pinned()
+    ptr = io._slab_t.data_ptr()
+    assert io.pinned_bytes == (6 + 4 + 1) * io.page_bytes
+    prompts = _tier_prompts(6)
+    eng.run(prompts, 40)
+    eng.run(prompts, 40)
+    a = eng.allocator
+    assert a.demotions["host"] > 0 and a.promotions["host"] > 0
+    assert io._slab_t.data_ptr() == ptr
+    for hid in a.host.live_ids():
+        assert all(np.shares_memory(p, io.slab) for p in a.host.load(hid))
+    assert eng.audit_pages() == []
+    eng.close()
+
+
+def test_a_failed_promotion_copy_raises(gen, tmp_path, monkeypatch):
+    """A copy that fails on the card raises out of the step: nothing
+    falls back to the host or carries on without the page."""
+    from distributed_llama_tpu_torch.runtime import kv_io
+    from distributed_llama_tpu_torch.runtime.continuous import Request
+
+    spec = _small_spec(seq_len=64)
+    params = llama.params_to_device(synth_params(spec, q40=True, seed=5,
+                                                 scale=0.3), "cuda")
+    eng = _tier_engine(spec, params, kv_pages=10,
+                       kv_disk_dir=str(tmp_path))
+    prompts = _tier_prompts(2)
+    eng.run(prompts, 40)
+    assert eng.allocator.demote_cold(len(eng.allocator.tree)) > 0
+
+    def broken(self, job, planes):
+        raise RuntimeError("CUDA error: an illegal memory access was "
+                           "encountered (injected)")
+
+    monkeypatch.setattr(kv_io.PageIO, "launch", broken)
+    eng.submit(Request(tokens=list(prompts[0]), steps=40))
+    with pytest.raises(RuntimeError, match="injected"):
+        _drain(eng, 1)
+    eng.close()

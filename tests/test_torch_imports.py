@@ -45,7 +45,9 @@ NEW_MODULES = ("utils.it_split", "utils.rng", "obs.profiler",
                "obs.log", "utils.fingerprint", "obs.tracectx", "obs.metrics",
                "obs.ledger", "obs.spans", "obs.trace", "obs.slo",
                "runtime.journal", "runtime.supervisor", "obs.flightrec",
-               "obs.fleet", "obs.watch", "runtime.server")
+               "obs.fleet", "obs.watch", "runtime.server",
+               "runtime.pagewire", "runtime.kv_io", "runtime.page_channel",
+               "runtime.disagg", "tools.c7_probe")
 
 
 def test_every_module_imports_with_jax_blocked():

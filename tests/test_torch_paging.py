@@ -201,8 +201,30 @@ def test_prefix_share_off_never_matches():
 
 @pytest.mark.parametrize("kw", [{"host_pages": 4}, {"disk_dir": "d"},
                                 {"disk_bytes": 1}, {"remote": True}])
-def test_tiers_are_not_yet_ported(kw):
-    with pytest.raises(ValueError, match="not yet ported"):
-        PagedAllocator(4, 2, **kw)
-    assert not paging.PagedAllocator.tiered
-    assert not paging.PagedAllocator.pending_capable
+def test_tiers_are_not_yet_ported(kw, tmp_path, monkeypatch):
+    """The tier arguments are ported: each builds the allocator the JAX
+    package builds for it (``remote`` is the JAX engine's attribute), and
+    the same demote / promote sequence gives both the same tier books."""
+    monkeypatch.chdir(tmp_path)
+    port = PagedAllocator(4, 2, **kw)
+    jkw = {k: v for k, v in kw.items() if k != "remote"}
+    if "disk_dir" in jkw:
+        jkw["disk_dir"] = "jax-d"
+    ref = ref_paging.PagedAllocator(4, 2, **jkw)
+    ref.remote = kw.get("remote", False)
+    for a in (port, ref):
+        assert (a.tiered, a.pending_capable) == (port.tiered,
+                                                  port.pending_capable)
+        a.bind_device_io(lambda pid: (np.full((2, 3), pid, np.float32),))
+        pages = [a.alloc_page() for _ in range(3)]
+        a.insert_prefix([1, 2, 3, 4, 5, 6], pages)
+        a.release_pages(pages)
+        a.demote_cold(2)
+        got = a.match_prefix([1, 2, 3, 4, 5, 6, 7])
+        for job in a.take_staged_promotions():
+            a.promotion_applied(job)
+        a.release_pages(got)
+    for name in ("tier_pages", "demotions", "promotions", "evictions"):
+        assert getattr(port, name) == getattr(ref, name), name
+    assert port.tier_page_counts() == ref.tier_page_counts()
+    assert port.audit([]) == ref.audit([]) == []

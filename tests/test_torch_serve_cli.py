@@ -1,9 +1,10 @@
 """The port's ``serve`` mode (frontend/cli.cmd_serve) against the JAX
 CLI's: every exit-2 check gives the JAX CLI's code and message for the
 same argv, a corrupt journal its exit 1, and the flags the port does not
-run yet (chaos, disaggregation, the KV tiers above their neutral values,
---tp above 1) exit 2 "not yet ported" — all before any load (the model
-path does not exist). Then ``python -m distributed_llama_tpu_torch serve
+run yet (chaos, --tp above 1) exit 2 "not yet ported" — all before any
+load (the model path does not exist). The disaggregation and KV tier
+flags are ported: their checks are the JAX CLI's, and an argv both CLIs
+accept goes on to the load (FileNotFoundError on the absent model). Then ``python -m distributed_llama_tpu_torch serve
 --device cpu --port 0`` as a child process: it prints the bound port,
 answers a request, and on SIGTERM drains, exits 0 and leaves the
 unfinished requests live in its journal; restarted on that journal it
@@ -26,20 +27,28 @@ from test_torch_cli import model_files  # noqa: F401  (the fixture)
 
 @pytest.fixture(autouse=True)
 def _env(monkeypatch):
-    """Both CLIs export --kv-quant and --log-json into the environment."""
+    """Both CLIs export --kv-quant and --log-json into the environment:
+    each key is set first, so monkeypatch restores it afterwards (a
+    delenv of an absent key would restore nothing), then cleared."""
     for key in ("DLLAMA_KV_QUANT", "DLLAMA_LOG_JSON", "DLLAMA_TP_SCHEME"):
-        monkeypatch.delenv(key, raising=False)
+        monkeypatch.setenv(key, "")
+        monkeypatch.delenv(key)
 
 
-def _both(argv, tmp_path, capsys):
+def _runs(argv, tmp_path):
+    """The JAX CLI's and the port's serve on ``argv`` (absent model)."""
     from distributed_llama_tpu.frontend.cli import cmd_serve as jax_serve
     from distributed_llama_tpu_torch.frontend.cli import main
 
     base = ["--model", str(tmp_path / "absent.bin"), "--tokenizer",
             str(tmp_path / "absent.tok")]
+    return (lambda: jax_serve(base + argv),
+            lambda: main(["serve", *base, "--device", "cpu", *argv]))
+
+
+def _both(argv, tmp_path, capsys):
     out = []
-    for run in (lambda: jax_serve(base + argv),
-                lambda: main(["serve", *base, "--device", "cpu", *argv])):
+    for run in _runs(argv, tmp_path):
         rc = run()
         out.append((rc, capsys.readouterr().err))
         for key in ("DLLAMA_KV_QUANT", "DLLAMA_LOG_JSON"):
@@ -77,15 +86,33 @@ REFUSED = [["--chaos", "step_delay_every=1"],
            ["--supervise", "--chaos", "x"]]
 
 
+# still refused: chaos and --tp above 1; every other case is ported now
+STILL_REFUSED = ("--chaos", "--tp")
+
+
 @pytest.mark.parametrize("argv", REFUSED, ids=lambda a: "_".join(a))
 def test_unported_flags_exit_2_before_loading(argv, tmp_path, capsys):
+    flag = next(a for a in argv if a != "--supervise")
+    if flag not in STILL_REFUSED:
+        # the disaggregation and tier flags: the JAX CLI's check and
+        # message, or, where both accept the argv, the load proceeds
+        outs = []
+        for run in _runs(argv, tmp_path):
+            try:
+                outs.append((run(), capsys.readouterr().err))
+            except FileNotFoundError as e:
+                outs.append(("load", str(e)))
+            for key in ("DLLAMA_KV_QUANT", "DLLAMA_LOG_JSON"):
+                os.environ.pop(key, None)
+        jax, port = outs
+        assert port == jax and "not yet ported" not in str(port[1])
+        return
     from distributed_llama_tpu_torch.frontend.cli import main
 
     rc = main(["serve", "--model", str(tmp_path / "absent.bin"),
                "--tokenizer", str(tmp_path / "absent.tok"), "--device",
                "cpu", *argv])
     err = capsys.readouterr().err
-    flag = next(a for a in argv if a != "--supervise")
     assert rc == 2 and "not yet ported" in err and flag in err
 
 
@@ -163,7 +190,13 @@ def test_serve_child_answers_drains_and_recovers(model_files, tmp_path):
     assert len(live) >= 1
     again = _Child(model, tok, journal)
     try:
-        said = [ln for ln in again.lines if "🌐 recovered" in ln]
+        # the line follows the serving line the reader woke on
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            said = [ln for ln in again.lines if "🌐 recovered" in ln]
+            if said or again.proc.poll() is not None:
+                break
+            time.sleep(0.01)
         assert said and f"recovered {len(live)} journaled" in said[0]
         deadline = time.time() + 60
         while time.time() < deadline:

@@ -140,7 +140,7 @@ def test_tp_defaults_to_one_and_a_callers_group_needs_a_seed(
     assert "explicit --seed" in capsys.readouterr().err
 
 
-def test_tp2_batch_rows_are_the_jax_clis(model_files, capfd):
+def test_tp2_batch_rows_are_the_jax_clis(model_files, capfd, monkeypatch):
     from distributed_llama_tpu.frontend.cli import main as ref_main
     from distributed_llama_tpu_torch.frontend.cli import main
 
@@ -148,6 +148,10 @@ def test_tp2_batch_rows_are_the_jax_clis(model_files, capfd):
     base = ["inference", "--model", model, "--tokenizer", tok,
             "--prompts-file", prompts, "--steps", "10", "--temperature",
             "0", "--seed", "1", "--tp", "2", "--tp-scheme", "ref"]
+    # the JAX CLI exports --tp-scheme into the environment: restore it
+    # after this test, or a later test in this process reads "ref"
+    monkeypatch.setenv("DLLAMA_TP_SCHEME", "")
+    monkeypatch.delenv("DLLAMA_TP_SCHEME")
     assert ref_main(base) == 0
     want = _rows(capfd.readouterr().out)
     assert len(want) == 2

@@ -50,11 +50,15 @@ def single(model_files):
                          ids=[f"{s}-{'slices' if c else 'whole'}"
                               for s, c in CASES])
 def test_worker_streams_its_weights_from_the_root(model_files, single, capfd,
-                                                  tmp_path, scheme, slices):
+                                                  tmp_path, scheme, slices,
+                                                  monkeypatch):
     from distributed_llama_tpu.frontend.cli import main as ref_main
     from distributed_llama_tpu_torch.io.stream import needed_byte_ranges
     from distributed_llama_tpu_torch.parallel.mesh import free_port
 
+    # the JAX CLI exports --tp-scheme into the environment: restore it
+    monkeypatch.setenv("DLLAMA_TP_SCHEME", "")
+    monkeypatch.delenv("DLLAMA_TP_SCHEME")
     model, tok, _ = model_files
     assert ref_main(["inference", "--model", model, "--tokenizer", tok, *GEN,
                      "--tp-scheme", scheme]) == 0

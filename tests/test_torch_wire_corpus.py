@@ -12,8 +12,8 @@ written by tools/make_wire_corpus.py through the JAX package's producers):
 * ``tracectx.parse_header`` reads ``traceparent/v1/header.txt`` and a
   seeded mint writes it again.
 
-The handoff and page-wire formats belong to prefill/decode
-disaggregation, which the port does not have yet.
+The handoff and page-wire formats (prefill/decode disaggregation) are
+held in tests/test_torch_pagewire.py.
 """
 
 import json
