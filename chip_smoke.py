@@ -192,7 +192,18 @@ no result line):
    bytes equal to comm_stats.dcn_handoff_budget; the page channel's GB/s
    over localhost and the client TTFT p50/p95 beside serve_full_width's
    logged; then the prefill child is killed and the same prompts are
-   served locally with the same streams.
+   served locally with the same streams. chaos_full_width: ``serve --chaos
+   step_delay_every=8,step_delay_ms=50,deny_pages=4`` as a child with run
+   k's flags (the CHAOS ARMED banner on stderr, run k's streams or a
+   near-tie parting, /health serving, /metrics parsing, TTFT and ms a
+   dispatch beside serve_full_width's); the twelve drills of
+   runtime/chaos.py through run_drills, every one green, the factory's
+   engines at 7B width cut to 4 layers and 128 positions (run k's slots,
+   pages and chunk), the process drills at their fixed small specs, all
+   on the card, their kernel launches counted; the four mutation arms
+   (leak-on-cancel, drop-on-demote, drop-page-in-flight,
+   corrupt-journal), each turning its drill red; and the port's
+   ``loadcheck --sweep-only --json`` on the card beside the CPU's row.
 4. Kernels against plain at full width: the first 4 positions of the same
    model through the forward with the kernels and with the plain versions;
    then 8 more kernel steps timed, and 8 under torch.profiler for the
@@ -3633,6 +3644,248 @@ def _disagg_run(torch, model, tok, spec, ref_k, gaps, smi, serve_res,
 
 
 # --------------------------------------------------------------------------
+# chaos_full_width: fault injection in the served engine, the drill suite
+# at 7B width, its mutation arms, and the load gate's sweep on the card
+# --------------------------------------------------------------------------
+
+CHAOS_EVERY, CHAOS_DELAY_MS, CHAOS_DENIALS = 8, 50, 4
+CHAOS_SPEC = (f"step_delay_every={CHAOS_EVERY},step_delay_ms="
+              f"{CHAOS_DELAY_MS},deny_pages={CHAOS_DENIALS}")
+CHAOS_DEPTH = 4     # the drills' 7B-wide engines: the first 4 layers
+CHAOS_PAGES = 40    # their pool: 8 slots x 8 pages of 16, oversubscribed
+# the mutation arms, each on its drill, with the violation it must raise
+CHAOS_ARMS = {"leak-on-cancel": ("disconnect", "leaked"),
+              "drop-on-demote": ("tier_spill_storm", "dropped its bytes"),
+              "drop-page-in-flight": ("kill_mid_handoff", "diverged"),
+              "corrupt-journal": ("kill_mid_decode", "JournalCorruption")}
+
+
+def _loadcheck_child(device: str) -> subprocess.Popen:
+    """``python -m distributed_llama_tpu_torch.tools.loadcheck --sweep-only
+    --json`` on ``device``, its output collected by the caller."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "distributed_llama_tpu_torch.tools.loadcheck",
+         "--sweep-only", "--json", "--device", device], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _loadcheck_row(child: subprocess.Popen, label: str) -> tuple[int, dict]:
+    try:
+        out, err = child.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.communicate()
+        raise AssertionError(f"loadcheck {label} did not finish in 300 s")
+    lines = out.strip().splitlines()
+    if child.returncode not in (0, 1) or not lines:
+        raise AssertionError(f"loadcheck {label} exited "
+                             f"{child.returncode}: {err[-2000:]}")
+    return child.returncode, json.loads(lines[-1])
+
+
+def _chaos_factory(spec, params, arm=None):
+    """The drills' fresh-engine factory at 7B width: run k's 8 slots,
+    pages of 16, chunk 32, greedy, CHAOS_PAGES pages, on the card; with
+    ``arm`` leak-on-cancel or drop-on-demote armed on whatever monkey the
+    drill brings (loadcheck's injection)."""
+    from distributed_llama_tpu_torch.obs.metrics import Registry
+    from distributed_llama_tpu_torch.runtime.chaos import arm_mutations
+    from distributed_llama_tpu_torch.runtime.continuous import \
+        ContinuousEngine
+
+    def make(chaos=None, **overrides):
+        chaos = arm_mutations(chaos, arm == "leak-on-cancel",
+                              arm == "drop-on-demote")
+        kw = dict(slots=CONT_SLOTS, temperature=0.0, topp=0.9, seed=1,
+                  metrics=Registry(), prefill_chunk=CONT_CHUNK,
+                  page_size=PAGE, kv_pages=CHAOS_PAGES, device="cuda")
+        kw.update(overrides)
+        return ContinuousEngine(spec, params, chaos=chaos, **kw)
+
+    return make
+
+
+def phase_chaos(torch, model, tok, spec, ref_k, gaps, smi, serve_res):
+    """chaos_full_width. (a) ``serve --chaos CHAOS_SPEC`` as a child on the
+    7B file at full width and depth with run k's engine flags, a journal
+    and a 60 s watchdog: the 🔶 CHAOS ARMED banner on stderr, run k's 12
+    prompts from concurrent clients each equal to run k's stream or
+    parting only at a near-tie, /health serving, /metrics parsing (every
+    sample line); the faults must have reached the engine: /health's
+    requeues plus pauses at least CHAOS_DENIALS (the serve phase's pool
+    never runs dry, so only a denial requeues or pauses), and ms a
+    dispatch at least serve_full_width's plus half the injected mean
+    (CHAOS_DELAY_MS / CHAOS_EVERY); TTFT p50/p95 and ms a dispatch logged
+    beside serve_full_width's. (b) The whole
+    drill suite through runtime/chaos.run_drills, every drill green: the
+    factory's engines at 7B width from the Q40 file cut to CHAOS_DEPTH
+    layers and 128 positions (run k's 8 slots, pages of 16, chunk 32,
+    greedy), the process drills at their fixed small specs, all on the
+    card; every kernel's count set to 0 just before and read just after.
+    (c) The four mutation arms, each on its drill: red, with its
+    violation. (d) loadcheck --sweep-only --json on the card and on the
+    CPU, started in the background once (a)'s server has stopped, so (a)
+    is timed alone and the sweeps run beside (b) and (c): the card's row
+    logged beside the CPU row; a point outside the baseline band is
+    reported (a near-tie may move a greedy stream), a crash or a usage
+    error fails."""
+    import dataclasses
+    import shutil
+
+    from distributed_llama_tpu_torch.io.loader import load_model
+    from distributed_llama_tpu_torch.models.llama import params_to_device
+    from distributed_llama_tpu_torch.ops.quants import FloatType
+    from distributed_llama_tpu_torch.runtime.chaos import (
+        render_drill_table, run_drills, scrape_problems)
+
+    t_phase = time.perf_counter()
+    where = SMOKE_DIR / "chaos"
+    shutil.rmtree(where, ignore_errors=True)
+    where.mkdir(parents=True)
+    res: dict = {}
+    # (a) the chaos-armed server
+    srv = _Served(model, tok, where, extra=("--chaos", CHAOS_SPEC))
+    try:
+        res["start_s"] = srv.wait_ready(600)
+        banner = [ln for ln in srv.lines if "🔶 CHAOS ARMED" in ln]
+        if not banner or CHAOS_SPEC not in banner[0]:
+            raise AssertionError(f"serve --chaos: no banner in "
+                                 f"{srv.lines[:20]}")
+        t0 = time.perf_counter()
+        outs = _concurrently([
+            (lambda i=i: srv.generate(CONT_PROMPTS[i], CONT_STEPS,
+                                      stream=i % 2 == 1))
+            for i in range(len(CONT_PROMPTS))])
+        wall = time.perf_counter() - t0
+        parted = _near_tie_rows("serve --chaos", {"outs": outs}, ref_k,
+                                gaps)
+        health = json.loads(srv.get("/health"))
+        text = srv.get("/metrics").decode()
+
+        class _Text:
+            def expose(self):
+                return text
+
+        problems = scrape_problems(_Text())
+        steps_n = _prom_value(text, "dllama_engine_step_duration_seconds_"
+                              "count")
+        step_ms = _prom_value(text, "dllama_engine_step_duration_seconds_"
+                              "sum") / max(steps_n, 1) * 1e3
+        if health.get("state") != "serving" or problems:
+            raise AssertionError(f"serve --chaos: state "
+                                 f"{health.get('state')}, /metrics "
+                                 f"{problems[:3]}")
+        denied = health.get("requeues", 0) + health.get("pauses", 0)
+        floor_ms = (serve_res["ms_per_dispatch"]
+                    + 0.5 * CHAOS_DELAY_MS / CHAOS_EVERY)
+        if denied < CHAOS_DENIALS or step_ms < floor_ms:
+            raise AssertionError(
+                f"serve --chaos: the faults did not reach the engine: "
+                f"requeues {health.get('requeues')} + pauses "
+                f"{health.get('pauses')} < {CHAOS_DENIALS} denials, or "
+                f"{step_ms:.3f} ms a dispatch < {floor_ms:.3f}")
+        rc, _ = srv.stop()
+        if rc != 0:
+            raise AssertionError(f"serve --chaos exited {rc}")
+    except BaseException:
+        for line in srv.lines[-40:]:
+            log(f"chaos serve child: {line}")
+        raise
+    finally:
+        srv.kill()
+    sweeps = {d: _loadcheck_child(d) for d in ("cuda", "cpu")}
+    res["serve"] = dict(requests=len(outs), wall_s=wall, parted=parted,
+                        ttft_s=health["ttft_s"], ms_per_dispatch=step_ms,
+                        dispatches=steps_n, pauses=health.get("pauses"),
+                        requeues=health.get("requeues"),
+                        serve_ttft_s=serve_res["ttft_s"],
+                        serve_ms_per_dispatch=serve_res["ms_per_dispatch"])
+    log(f"chaos serve ({smi}): --chaos {CHAOS_SPEC}: {len(outs)} requests "
+        f"in {wall:.3f} s, {len(parted)} rows part from run k at a "
+        f"near-tie; TTFT p50 {health['ttft_s']['p50']:.4f} s, p95 "
+        f"{health['ttft_s']['p95']:.4f} s (serve_full_width: "
+        f"{serve_res['ttft_s']['p50']:.4f}, "
+        f"{serve_res['ttft_s']['p95']:.4f}); {step_ms:.3f} ms a dispatch "
+        f"over {steps_n:.0f} (serve_full_width: "
+        f"{serve_res['ms_per_dispatch']:.3f}); requeues "
+        f"{health.get('requeues')}, pauses {health.get('pauses')} "
+        f"({CHAOS_DENIALS} denials injected); timed with no other process "
+        f"on the card")
+    # (b) the drill suite at 7B width, CHAOS_DEPTH layers
+    cut = _tp_depth_model(spec, model, CHAOS_DEPTH)
+    dspec, host = load_model(str(cut), weights_float_type=FloatType.Q40)
+    dspec = dataclasses.replace(dspec, seq_len=CONT_STEPS)
+    params = params_to_device(host, "cuda")
+    del host
+    log(f"chaos drills: engines at 7B width (dim {dspec.dim}, hidden "
+        f"{dspec.hidden_dim}, {dspec.n_heads} heads), depth cut to "
+        f"{dspec.n_layers} layers and {dspec.seq_len} positions; the "
+        f"process drills at their fixed small specs; all on the card")
+    free0 = torch.cuda.mem_get_info()[0]
+    for k in _all_kernels():
+        k.launches = 0
+    t0 = time.perf_counter()
+    results = run_drills(_chaos_factory(dspec, params),
+                         device="cuda")
+    drills_s = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in _all_kernels()}
+    _add_cli_launches(launches)
+    torch.cuda.synchronize()
+    free1 = torch.cuda.mem_get_info()[0]
+    log("chaos drills:\n" + render_drill_table(results))
+    red = [(r.name, r.violations) for r in results if not r.passed]
+    if red or len(results) != 12:
+        raise AssertionError(f"chaos drills red on the card: {red}")
+    handoff = next(r for r in results if r.name == "kill_mid_handoff")
+    log(f"chaos drills ({smi}): 12 green in {drills_s:.1f} s, beside the "
+        f"two loadcheck sweeps; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; kill_mid_handoff "
+        f"memory (bytes; memory_allocated is the whole process's) "
+        f"{handoff.details.get('memory', 'not measured')}; the card's "
+        f"free memory "
+        f"{free0 / 1e9:.2f} GB before the suite, {free1 / 1e9:.2f} GB after "
+        f"(1e9 bytes; the SIGKILLed recovery child's gone)")
+    # (c) the mutation arms
+    arms = {}
+    for arm, (drill, want) in CHAOS_ARMS.items():
+        inject = ({arm} if arm in ("corrupt-journal", "drop-page-in-flight")
+                  else None)
+        got = run_drills(_chaos_factory(dspec, params, arm),
+                         which={drill}, inject=inject, device="cuda")[0]
+        text = " ".join(got.violations)
+        if got.passed or want not in text:
+            raise AssertionError(f"chaos arm {arm}: drill {drill} "
+                                 f"{'green' if got.passed else 'red'}, "
+                                 f"violations {got.violations}")
+        arms[arm] = dict(drill=drill, violations=got.violations)
+        log(f"chaos arm {arm}: {drill} red ({text[:160]})")
+    del params
+    # (d) the load gate's sweep, card beside CPU
+    rows = {d: _loadcheck_row(child, d) for d, child in sweeps.items()}
+    (rc_gpu, gpu), (rc_cpu, cpu) = rows["cuda"], rows["cpu"]
+    if rc_cpu != 0:
+        raise AssertionError(f"loadcheck on the CPU: {cpu['gate']}")
+    if rc_gpu != 0 and not all("baseline band" in f
+                               for f in gpu["gate"]["failures"]):
+        raise AssertionError(f"loadcheck on the card: {gpu['gate']}")
+    sweep = [(g["rate"], g["goodput_tps"], c["goodput_tps"])
+             for g, c in zip(gpu["sweep"], cpu["sweep"])]
+    differ = [s for s in sweep if s[1] != s[2]]
+    log(f"chaos loadcheck ({smi}): goodput by rate (card, CPU) {sweep}; "
+        f"card gate {gpu['gate']['verdict']} {gpu['gate']['failures']}; "
+        f"{len(differ)} points differ")
+    res.update(drills={r.name: r.details for r in results},
+               drills_s=drills_s, launches=launches, arms=arms,
+               free_gb=[free0 / 1e9, free1 / 1e9],
+               loadcheck=dict(card=gpu["sweep"], cpu=cpu["sweep"],
+                              card_gate=gpu["gate"], differ=differ),
+               seconds=time.perf_counter() - t_phase)
+    log(f"chaos_full_width: {res['seconds']:.1f} s")
+    log(f"e2e chaos: {json.dumps(res, default=str)}")
+    return res
+
+
+# --------------------------------------------------------------------------
 # phase 4: kernels against plain at full width, end to end
 # --------------------------------------------------------------------------
 
@@ -4354,18 +4607,18 @@ TP_WAITS = ("--tp-scheme overlap (its ring hops are send/recv pairs, which "
             "hung in a 4-card run: not yet ported)")
 
 
-def _tp_depth_model(spec, model):
-    """The smoke model's first TP_DEPTH layers as a .bin of their own: its
-    header with the depth, its embedding and layers 0..TP_DEPTH-1, then
+def _tp_depth_model(spec, model, depth=TP_DEPTH):
+    """The smoke model's first ``depth`` layers as a .bin of their own: its
+    header with the depth, its embedding and layers 0..depth-1, then
     its tail (final norm, the legacy RoPE gap, wcls), copied byte for
     byte."""
     import dataclasses
 
     from distributed_llama_tpu_torch.models.spec import HEADER_BYTES
 
-    cut = dataclasses.replace(spec, n_layers=TP_DEPTH)
-    path = SMOKE_DIR / f"{Path(model).stem}_L{TP_DEPTH}.bin"
-    head = spec.vocab_size * spec.dim * 4 + TP_DEPTH * spec.block_bytes()
+    cut = dataclasses.replace(spec, n_layers=depth)
+    path = SMOKE_DIR / f"{Path(model).stem}_L{depth}.bin"
+    head = spec.vocab_size * spec.dim * 4 + depth * spec.block_bytes()
     tail = spec.file_size() - (HEADER_BYTES + spec.vocab_size * spec.dim * 4
                                + spec.n_layers * spec.block_bytes())
     tmp = path.with_suffix(".tmp")
@@ -5309,6 +5562,11 @@ def main() -> int:
     mark("disagg_full_width")
     gc.collect()
     torch.cuda.empty_cache()
+    e2e_chaos = phase_chaos(torch, model, tok, spec, ref_k, gaps_k, smi,
+                            e2e_serve)
+    mark("chaos_full_width")
+    gc.collect()
+    torch.cuda.empty_cache()
     tp, tp_launches = tp_full_width(torch, spec, model, tok, ref_a, ref_c,
                                     smi)
     mark("tp_full_width")
@@ -5691,6 +5949,7 @@ def main() -> int:
                       "e2e_fast": e2e_fast, "e2e_fused": e2e_fused,
                       "e2e_continuous": e2e_cont, "e2e_serve": e2e_serve,
                       "e2e_tier": e2e_tier, "e2e_disagg": e2e_disagg,
+                      "e2e_chaos": e2e_chaos,
                       "e2e_profile": e2e_profile,
                       "e2e_resume": e2e_resume,
                       "probe": probe, "probe_kernels": probe_rows,

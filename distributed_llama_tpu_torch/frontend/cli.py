@@ -106,8 +106,9 @@ corrupt journal or a config mismatch), --watchdog-ms, --drain-s,
 [--max-restarts N], the KV tier flags, and prefill/decode disaggregation:
 --disagg-role prefill|decode, --disagg-peer HOST:PORT,
 --page-channel-port PORT and --handoff-min-pages N (a 🌐 line names the
-role). The JAX CLI's exit-2 checks and messages come in its order; before
-them --chaos and --tp above 1 exit 2 "not yet ported".
+role), and --chaos SPEC (runtime/chaos.ChaosMonkey.parse; a 🔶 CHAOS ARMED
+banner on stderr). The JAX CLI's exit-2 checks and messages come in its
+order; before them --tp above 1 exits 2 "not yet ported".
 
 ``convert`` is the port's converter (convert.py): Meta or HF checkpoints
 to a reference-format .bin.
@@ -791,11 +792,6 @@ def _run(args, prompts, quiet: bool, group, scheme: str, tp: int) -> int:
                 "resumable to save")
     return rc
 
-# the JAX package's serve flags the port does not run yet, and the value at
-# which the JAX server runs the path the port has
-_SERVE_NEUTRAL = {"chaos": None}
-
-
 def _serve_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="dllama-torch serve")
     ap.add_argument("--model", required=True,
@@ -862,7 +858,11 @@ def _serve_parser() -> argparse.ArgumentParser:
                          "interactive/batch policy; --slo off disables "
                          "tracking")
     ap.add_argument("--chaos", default=None, metavar="SPEC",
-                    help="not yet ported")
+                    help="ARM DETERMINISTIC FAULT INJECTION (drills only — "
+                         "never in front of real traffic): "
+                         "key=value[,...] with step_delay_every, "
+                         "step_delay_ms, deny_pages, leak_on_cancel "
+                         "(runtime/chaos.ChaosMonkey)")
     ap.add_argument("--journal", default=None, metavar="PATH",
                     help="write-ahead request journal (runtime/journal.py): "
                          "on restart the server re-admits incomplete "
@@ -919,21 +919,16 @@ def _serve_parser() -> argparse.ArgumentParser:
 
 def cmd_serve(argv: list[str]) -> int:
     """``serve``: the HTTP server over the continuous engine
-    (runtime/server.py), on one device, with the KV tiers and either role
-    of a disaggregated pair. The JAX CLI's checks and messages in its
-    order, after the refusal of what is not yet ported (chaos, --tp above
+    (runtime/server.py), on one device, with the KV tiers, either role
+    of a disaggregated pair and chaos. The JAX CLI's checks and messages
+    in its order, after the refusal of what is not yet ported (--tp above
     1), all before any load."""
     ap = _serve_parser()
     args = ap.parse_args(argv)
-    unported = [f"--{k.replace('_', '-')} {v}"
-                for k, v in _SERVE_NEUTRAL.items()
-                if getattr(args, k) != v]
     if args.tp not in (None, 1):
-        unported.append(f"--tp {args.tp}")
-    if unported:
-        print(f"not yet ported: {', '.join(unported)} (the port's serve "
-              f"runs one device, with the journal, SLO, metrics, watchdog, "
-              f"flight recorder, KV tiers and disaggregation)",
+        print(f"not yet ported: --tp {args.tp} (the port's serve runs one "
+              f"device, with the journal, SLO, metrics, watchdog, flight "
+              f"recorder, KV tiers, disaggregation and chaos)",
               file=sys.stderr)
         return 2
     if args.supervise:
@@ -1000,14 +995,19 @@ def cmd_serve(argv: list[str]) -> int:
               f"{args.handoff_min_pages}", file=sys.stderr)
         return 2
     from ..obs.slo import SLOPolicy
+    from ..runtime.chaos import ChaosMonkey
 
     try:
         slo = (None if args.slo == "off"
                else SLOPolicy.parse(args.slo) if args.slo
                else SLOPolicy.serving_default())
+        chaos = ChaosMonkey.parse(args.chaos) if args.chaos else None
     except ValueError as e:
         print(f"serve: {e}", file=sys.stderr)
         return 2
+    if chaos is not None:
+        print("🔶 CHAOS ARMED: deterministic fault injection is live "
+              f"({args.chaos}) — drill traffic only", file=sys.stderr)
     from ..parallel.comm_stats import tp_scheme
 
     if args.tp_scheme:
@@ -1072,7 +1072,7 @@ def cmd_serve(argv: list[str]) -> int:
                                  spec_k=args.spec_k,
                                  spec_ngram=args.spec_ngram,
                                  dispatch_tokens=args.dispatch_tokens,
-                                 slo=slo, journal=journal,
+                                 slo=slo, chaos=chaos, journal=journal,
                                  watchdog_s=args.watchdog_ms / 1e3,
                                  drain_s=args.drain_s,
                                  kv_quant=args.kv_quant,

@@ -82,7 +82,14 @@ admission prefill at a page-aligned chunk boundary (f32 pools) so a
 higher-ranked arrival prefills first. Tiering, adoption and preemption
 never change a request's stream.
 
-Left out (the next slice): chaos; the argument raises "not yet ported".
+``chaos`` (a runtime/chaos.ChaosMonkey) arms the JAX engine's
+deterministic fault injection: a sleep before every Nth dispatch (inside
+the watchdog's armed window, before the replay or launch, so never inside
+a graph capture), refused page allocations (before the page table is
+staged), a page stolen from a cancelled release, a mixed slice cut past
+the budget (the window stays (slots, T); the overrun shows in
+``overrun_steps``), doubled ledger charges, ledgers left open, and tier
+demotions whose payload is dropped. Every hook is host-side.
 """
 
 from __future__ import annotations
@@ -201,7 +208,10 @@ class ContinuousStats:
     prefill_chunks: int = 0  # admission-prefill forward passes
     spec_proposed: int = 0   # drafted tokens fed to verify dispatches
     spec_accepted: int = 0   # drafts the verify replay accepted
-    overrun_steps: int = 0   # mixed dispatches past the budget (0 here)
+    # extra device-step equivalents of mixed dispatches packed past the
+    # budget: ceil(sum(span) / budget) - 1 each, nonzero only under the
+    # overrun_budget chaos mutation (the virtual clock charges them)
+    overrun_steps: int = 0
     promo_waits: int = 0     # admissions that paused on a promotion
     promo_wait_s: float = 0.0  # their summed pause (admit to landing)
 
@@ -292,13 +302,6 @@ class ContinuousEngine:
                  remote_pages: bool = False, slo_priority: bool = False,
                  scheme: str | None = None, kv_disk_bytes: int = 0,
                  kv_tier_async: bool = True):
-        if chaos:
-            raise ValueError("not yet ported: chaos (the port's continuous "
-                             "engine runs one device or a tp group, "
-                             "contiguous or paged, f32/bf16 or q8 pages, "
-                             "with the KV tiers, remote page adoption, "
-                             "metrics, SLO, journal and watchdog; fault "
-                             "injection comes with the next slice)")
         if mesh is not None and not isinstance(mesh, TPGroup):
             raise ValueError(f"not yet ported: mesh of type "
                              f"{type(mesh).__name__} (the port's mesh is a "
@@ -362,6 +365,9 @@ class ContinuousEngine:
                              "tier needs a directory (--kv-disk-dir)")
         self.spec = spec
         self.slots = slots
+        # deterministic fault injection (runtime/chaos.ChaosMonkey); None =
+        # every hook off
+        self._chaos = chaos
         self.temperature = temperature
         self.topp = topp
         self.seed = seed
@@ -498,6 +504,10 @@ class ContinuousEngine:
             alloc.bind_device_io(io.fetch, stage=io.stage_inline,
                                  uploader=self._uploader,
                                  fetch_into=io.fetch_into)
+            if self._chaos is not None:
+                # consulted per demotion; the monkey's drop_on_demote
+                # decides
+                alloc.corrupt_demote = self._chaos.demote_drop
         else:
             alloc.bind_device_io(None, stage=io.stage_inline)
 
@@ -743,6 +753,13 @@ class ContinuousEngine:
             return contextlib.nullcontext()
         return self._watchdog
 
+    def _chaos_dispatch(self) -> None:
+        """The chaos dispatch hook, inside the armed window and before the
+        replay or launch: an injected stall is the hang the watchdog must
+        detect, and it never falls between a capture's begin and end."""
+        if self._chaos is not None:
+            self._chaos.on_dispatch()
+
     def _dispatched(self, t0: float, n_active: int, steps: int = 1) -> None:
         """Inside a dispatch's armed window, after its host read: the
         step metrics (DLLAMA_METRICS_SYNC first synchronizes the device,
@@ -771,7 +788,11 @@ class ContinuousEngine:
         dispatch's census record. A paused row waits on a dry pool
         (``pool_dry``), a promotion (``promo_pending``) or its parked
         prefill (``prefill_hold``); a deferred row of a mixed dispatch on
-        the budget (``budget_wait``); queued requests on the queue."""
+        the budget (``budget_wait``); queued requests on the queue. The
+        chaos ``double_count_dispatch`` mutation multiplies the ledger side
+        only (``reps``), so the ledger-against-census sums must break."""
+        reps = 2 if (self._chaos is not None
+                     and self._chaos.dispatch_double()) else 1
         alloc = self._alloc
         dt_share = dt_s / max(active, 1)
         pages_held = 0
@@ -785,7 +806,7 @@ class ContinuousEngine:
             if npages:
                 pages_held += npages
                 if led is not None:
-                    led.charge_pages(npages, k, dt_s)
+                    led.charge_pages(npages, k, dt_s, reps)
                 cls = self._bill_class(s.req.slo_class)
                 class_page_s[cls] = class_page_s.get(cls, 0.0) + npages * dt_s
             if b in paused or b in deferred:
@@ -804,16 +825,16 @@ class ContinuousEngine:
                     cause = "pool_dry"
                 parked[cause] = parked.get(cause, 0) + 1
                 if led is not None:
-                    led.charge_stall(cause, k, dt_s)
+                    led.charge_stall(cause, k, dt_s, reps)
             elif led is not None:
-                led.charge_rows(k, dt_share)
+                led.charge_rows(k, dt_share, reps)
                 if self._ici_row_bytes:
-                    led.charge_ici(self._ici_row_bytes * k)
+                    led.charge_ici(self._ici_row_bytes * k, reps)
         with self._lock:
             queued = list(self._queue)
         for req in queued:
             if req.ledger is not None:
-                req.ledger.charge_stall("queue_wait", k, dt_s)
+                req.ledger.charge_stall("queue_wait", k, dt_s, reps)
         tier = (alloc.tier_page_counts()
                 if alloc is not None and alloc.tiered else None)
         self._census.record(kind, k, active, parked, len(queued), pages_held,
@@ -830,7 +851,10 @@ class ContinuousEngine:
 
     def _close_ledger(self, rid: int, status: str) -> None:
         """Close a request's ledger at its terminal event and export the
-        per-class cost histograms."""
+        per-class cost histograms. The chaos ``leak_ledger`` mutation skips
+        the close (the zero-open-ledgers-after-drain check must flag it)."""
+        if self._chaos is not None and self._chaos.ledger_leak():
+            return
         snap = self._book.close_request(rid, status)
         if snap is not None and self._obs is not None:
             self._obs.observe_request_cost(snap)
@@ -1013,6 +1037,8 @@ class ContinuousEngine:
         pool cannot cover it even after eviction."""
         need = self._alloc.pages_for(min(n_positions, self.spec.seq_len))
         while len(s.pages) < need:
+            if self._chaos is not None and self._chaos.deny_page():
+                return False  # injected transient starvation
             pid = self._alloc.alloc_page()
             if pid is None:
                 return False
@@ -1151,6 +1177,7 @@ class ContinuousEngine:
         t0 = time.monotonic()
         with self._span("chain", "decode", steps=k, active=n_active0), \
                 self._watch():
+            self._chaos_dispatch()
             with torch.inference_mode():
                 if c.graph is not None:
                     c.graph.run(k)
@@ -1214,6 +1241,7 @@ class ContinuousEngine:
             self._stage_tables()
         t0 = time.monotonic()
         with self._span("step", "decode", active=active0), self._watch():
+            self._chaos_dispatch()
             with torch.inference_mode():
                 logits = self._run_forward()
             self._dispatched(t0, active0)
@@ -1311,6 +1339,7 @@ class ContinuousEngine:
         t0 = time.monotonic()
         with self._span("verify", "decode", k=K, active=n_active0), \
                 self._watch():
+            self._chaos_dispatch()
             out = self._run_window("verify", st, greedy_only)
             self._dispatched(t0, n_active0)
         self._count_dispatch(n_active0)
@@ -1411,7 +1440,12 @@ class ContinuousEngine:
                 win = min(slice_rows,
                           key=lambda b: (rank(pool[b].req.slo_class),
                                          pool[b].req.index))
-                spans[win] = 1 + min(len(pool[win].forced), room)
+                extra = min(len(pool[win].forced), room)
+                if self._chaos is not None and self._chaos.budget_overrun():
+                    # mutation arm: the slice ignores the remaining budget
+                    # and takes the whole staging width
+                    extra = min(len(pool[win].forced), T - 1)
+                spans[win] = 1 + extra
         paused = self._grow_pages(pool, 1, quiet, spans=spans)
         if all(s.free for s in pool):
             self._journal_sync()
@@ -1441,6 +1475,7 @@ class ContinuousEngine:
         t0 = time.monotonic()
         with self._span("mixed", "decode", budget=T, tokens=total_span,
                         active=n_active0), self._watch():
+            self._chaos_dispatch()
             out = self._run_window("mixed", blk, greedy_only)
             self._dispatched(t0, n_active0)
         self._count_dispatch(n_active0)
@@ -1836,6 +1871,10 @@ class ContinuousEngine:
             if s.req.error is None and not s.req.cancelled:
                 n_ins = min(s.pos, len(s.req.tokens))
                 self._alloc.insert_prefix(s.req.tokens[:n_ins], s.pages)
+            elif self._chaos is not None and s.req.cancelled:
+                # mutation arm (leak_on_cancel): drop a page from the
+                # release so the drill's audit must flag it
+                s.pages = self._chaos.filter_release(s.pages)
             self._alloc.release_pages(s.pages)
             s.pages, s.shared, s.await_promo = [], 0, False
             if self._obs is not None:

@@ -118,11 +118,12 @@ def export_prefix_pages(engine: ContinuousEngine, tokens) -> list:
 
 def encode_handoff_pages(payloads, corrupt=None) -> list:
     """Frame each payload for the wire (pagewire.encode_record).
-    ``corrupt`` is the chaos hook (ChaosMonkey.page_drop): when it fires
-    for a page, the payload is replaced with ZEROS and re-framed with a
-    VALID CRC — the seeded in-flight corruption that slips past framing,
-    which only the bitwise stream gate can catch (the
-    drop-page-in-flight mutation arm)."""
+    ``corrupt`` is the chaos hook (runtime/chaos.ChaosMonkey.page_drop,
+    armed through ``DisaggPair(chaos=)``): when it fires for a page, the
+    payload is replaced with ZEROS and re-framed with a VALID CRC — the
+    seeded in-flight corruption that slips past framing, which only the
+    bitwise stream gate can catch (the drop-page-in-flight mutation arm
+    of the kill_mid_handoff drill)."""
     import numpy as np
 
     from .pagewire import encode_record

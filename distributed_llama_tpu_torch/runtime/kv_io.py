@@ -287,6 +287,19 @@ class PageIO:
             torch.cuda.current_stream(self.device).wait_event(io.event)
 
     def close(self) -> None:
+        """Stop staging, wait for every launched copy (a copy still
+        landing reads its pinned source, so the slab and the staging
+        buffers must outlive it: an engine torn down mid-promotion), then
+        drop this object's hold on the pinned buffers: ``pinned_bytes``
+        reads 0, and the memory goes back to the host allocator once the
+        engine's allocator, which views the slab, goes too."""
         with self._stage_cv:
             self._closed = True
             self._stage_cv.notify_all()
+        for job in self.inflight:
+            ev = job.io.event
+            if ev is not None and ev is not True:
+                ev.synchronize()
+        self.inflight = []
+        self._slab_t = self._stage_t = self._demote_t = None
+        self.slab = self._stage_np = None

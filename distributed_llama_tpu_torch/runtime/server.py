@@ -63,6 +63,11 @@ and degrades health, SIGTERM triggers a graceful drain — stop admission
 exit 0 — and the health state machine (starting/serving/degraded/
 draining/stopped) is surfaced in ``/health`` and the
 ``dllama_health_state`` gauge.
+
+Chaos (``chaos=``, a runtime/chaos.ChaosMonkey; ``serve --chaos``) arms
+the engine's deterministic fault injection for operator drills, and on a
+prefill pool strips the handoff RPC's traceparent under the
+drop-traceparent mutation.
 """
 
 from __future__ import annotations
@@ -118,7 +123,8 @@ class InferenceServer:
                  kv_disk_dir: str | None = None, kv_disk_bytes: int = 0,
                  disagg_role: str | None = None,
                  disagg_peer: str | None = None,
-                 page_channel_port: int = 0, handoff_min_pages: int = 2):
+                 page_channel_port: int = 0, handoff_min_pages: int = 2,
+                 chaos=None):
         if mesh is not None and mesh.size > 1:
             raise ValueError(
                 "not yet ported: serving over a tp group (the scheduler "
@@ -193,7 +199,8 @@ class InferenceServer:
                                        kv_pages=kv_pages, spec_k=spec_k,
                                        spec_ngram=spec_ngram,
                                        dispatch_tokens=dispatch_tokens,
-                                       slo=slo, journal=journal,
+                                       slo=slo, chaos=chaos,
+                                       journal=journal,
                                        watchdog=self._watchdog,
                                        kv_quant=kv_quant, device=device,
                                        graph=graph,
@@ -496,8 +503,13 @@ class InferenceServer:
                     server.count_reject("bad_request")
                     return self._json(400, {"error": str(e)})
                 # continue the decode pool's trace from the RPC's
-                # traceparent: the recv half of the cross-pool anchor pair
+                # traceparent: the recv half of the cross-pool anchor pair.
+                # The drop-traceparent mutation severs it here.
                 trace_hdr = payload.get("trace")
+                chaos = server.engine._chaos
+                if trace_hdr is not None and chaos is not None \
+                        and chaos.trace_drop():
+                    trace_hdr = None
                 recv_parent = None
                 if trace_hdr:
                     try:

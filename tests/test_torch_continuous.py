@@ -259,7 +259,8 @@ def test_cancel_and_fail_all_free_slots_and_pages(model):
     ({"mesh": object()}, "not yet ported: mesh"),
     ({"spec_k": 1, "page_size": 4}, "K >= 2"),
     ({"dispatch_tokens": 8}, "requires the paged KV cache"),
-    ({"chaos": object()}, "not yet ported: chaos"),
+    pytest.param({"chaos": "deny_pages=2,step_delay_every=3",
+                  "page_size": 4}, None, id="kw3-not yet ported: chaos"),
     # ported now (the ids stay): the JAX engine's check for the same
     # input, or None where both engines take it and run the same streams
     pytest.param({"kv_host_pages": 4, "page_size": 4}, None,
@@ -281,16 +282,32 @@ def test_engine_rejects_what_it_does_not_run(model, kw, match):
         ContinuousEngine
 
     if match is None:
-        # a tiered engine: the JAX engine's streams on the same requests
+        # a tiered or chaos-armed engine: the JAX engine's streams on the
+        # same requests (each engine armed by its own package's monkey,
+        # with equal counters after the run)
         reqs = _requests(3)
+        jkw, pkw = dict(kw), dict(kw)
+        if "chaos" in kw:
+            from distributed_llama_tpu.runtime.chaos import \
+                ChaosMonkey as JaxMonkey
+            from distributed_llama_tpu_torch.runtime.chaos import \
+                ChaosMonkey
+
+            jkw["chaos"] = JaxMonkey.parse(kw["chaos"])
+            pkw["chaos"] = ChaosMonkey.parse(kw["chaos"])
         want, _ = JaxEngine(SPEC, model[0], 2, 0.0, 0.9, 1,
-                            use_native_sampler=False, **kw).run(reqs, 20)
+                            use_native_sampler=False, **jkw).run(reqs, 20)
         eng = ContinuousEngine(_port_spec(SPEC), model[1], 2, 0.0, 0.9, 1,
-                               device="cpu", **kw)
+                               device="cpu", **pkw)
         got, _ = eng.run(reqs, 20)
         eng.close()
-        assert got == want and eng.allocator.tiered
-        assert eng.audit_pages() == []
+        assert got == want and eng.audit_pages() == []
+        if "chaos" in kw:
+            assert pkw["chaos"].injection_summary() == \
+                jkw["chaos"].injection_summary()
+            assert pkw["chaos"].denied_allocs == 2
+        else:
+            assert eng.allocator.tiered
         return
     if "not yet ported" not in match and "K >= 2" not in match:
         with pytest.raises(ValueError, match=match):

@@ -23,7 +23,10 @@ body (K1d), the continuous engine's captured verify and mixed dispatches
 against eager ones bit for bit and its spec-on greedy streams against
 spec-off, and the on-device loops: a step
 captured in a CUDA graph and replayed gives the tokens of the same step
-run eagerly, with exact launch counts. Every test takes the ``gen``
+run eagerly, with exact launch counts; last, the chaos drills on the
+card (the profiler drill captures every graph before the profiler
+starts; the whole suite green, its mutation arms red). Every test takes
+the ``gen``
 fixture, which skips it without a GPU; on one, run
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -2496,3 +2499,72 @@ def test_a_failed_promotion_copy_raises(gen, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="injected"):
         _drain(eng, 1)
     eng.close()
+
+
+def _chaos_factory(**kw):
+    """loadcheck's drill factory (the JAX tests' spec, f32 weights) on the
+    card."""
+    import argparse
+
+    from distributed_llama_tpu_torch.tools.loadcheck import \
+        build_engine_factory
+
+    args = dict(slots=4, page_size=4, kv_pages=20, spec_k=0, seed=7,
+                block_steps=1, device="cuda")
+    args.update(kw)
+    return build_engine_factory(argparse.Namespace(**args))
+
+
+@pytest.mark.parametrize("block_steps", [1, 4])
+def test_profiler_drill_captures_every_graph_before_the_profiler(
+        gen, monkeypatch, block_steps):
+    """profiler_under_load on the card: the drill captures every graph its
+    workload replays (ContinuousEngine.capture_graphs) before
+    start_capture, so no capture begins while the profiler's thread runs;
+    serving does not stall and the capture stops cleanly."""
+    from distributed_llama_tpu_torch.obs import profiler
+    from distributed_llama_tpu_torch.runtime import chaos, decode
+
+    seen = {"profiling": False, "captures_while": 0}
+    start = profiler.start_capture
+    capture = decode.GraphStep._capture
+
+    def starting(*args, **kwargs):
+        seen["profiling"] = True
+        return start(*args, **kwargs)
+
+    def capturing(self, *args, **kwargs):
+        if seen["profiling"]:
+            seen["captures_while"] += 1
+        return capture(self, *args, **kwargs)
+
+    monkeypatch.setattr(profiler, "start_capture", starting)
+    monkeypatch.setattr(decode.GraphStep, "_capture", capturing)
+    res = chaos.run_drills(_chaos_factory(block_steps=block_steps),
+                           which={"profiler_under_load"}, device="cuda")
+    assert res[0].passed, res[0].violations
+    assert seen["profiling"] and seen["captures_while"] == 0
+
+
+def test_drill_suite_green_on_the_card(gen):
+    """All twelve drills on the card at the JAX tests' spec, the process
+    drills' engines (and the recovery child) on the card too, the killed
+    handoff pool torn down without a leak; then each mutation arm turns
+    its drill red."""
+    from distributed_llama_tpu_torch.runtime import chaos
+
+    results = chaos.run_drills(_chaos_factory(), device="cuda")
+    assert [r.name for r in results] == [n for n, _ in chaos.DRILLS]
+    assert all(r.passed for r in results), [
+        (r.name, r.violations) for r in results if not r.passed]
+    mem = next(r for r in results
+               if r.name == "kill_mid_handoff").details["memory"]
+    # the killed decode pool went whole: its pinned buffers dropped at
+    # close, and the kill released at least what the fresh pool allocates
+    assert mem["killed_pool_pinned_after_close"] == 0
+    assert mem["killed_pool_released"] >= mem["restarted_pool_allocated"] > 0
+    for inject, drill in (("corrupt-journal", "kill_mid_decode"),
+                          ("drop-page-in-flight", "kill_mid_handoff")):
+        red = chaos.run_drills(_chaos_factory(), which={drill},
+                               inject={inject}, device="cuda")
+        assert not red[0].passed, inject

@@ -47,7 +47,8 @@ NEW_MODULES = ("utils.it_split", "utils.rng", "obs.profiler",
                "runtime.journal", "runtime.supervisor", "obs.flightrec",
                "obs.fleet", "obs.watch", "runtime.server",
                "runtime.pagewire", "runtime.kv_io", "runtime.page_channel",
-               "runtime.disagg", "tools.c7_probe")
+               "runtime.disagg", "tools.c7_probe", "runtime.chaos",
+               "tools.loadgen", "tools.loadcheck")
 
 
 def test_every_module_imports_with_jax_blocked():

@@ -1,10 +1,11 @@
 """The port's ``serve`` mode (frontend/cli.cmd_serve) against the JAX
 CLI's: every exit-2 check gives the JAX CLI's code and message for the
-same argv, a corrupt journal its exit 1, and the flags the port does not
-run yet (chaos, --tp above 1) exit 2 "not yet ported" — all before any
-load (the model path does not exist). The disaggregation and KV tier
+same argv, a corrupt journal its exit 1, and the flag the port does not
+run yet (--tp above 1) exits 2 "not yet ported" — all before any load
+(the model path does not exist). The disaggregation, KV tier and chaos
 flags are ported: their checks are the JAX CLI's, and an argv both CLIs
-accept goes on to the load (FileNotFoundError on the absent model). Then ``python -m distributed_llama_tpu_torch serve
+accept goes on to the load (FileNotFoundError on the absent model), or
+with --supervise to the supervisor (recorded here, not spawned). Then ``python -m distributed_llama_tpu_torch serve
 --device cpu --port 0`` as a child process: it prints the bound port,
 answers a request, and on SIGTERM drains, exits 0 and leaves the
 unfinished requests live in its journal; restarted on that journal it
@@ -86,16 +87,26 @@ REFUSED = [["--chaos", "step_delay_every=1"],
            ["--supervise", "--chaos", "x"]]
 
 
-# still refused: chaos and --tp above 1; every other case is ported now
-STILL_REFUSED = ("--chaos", "--tp")
+# still refused: --tp above 1; every other case is ported now
+STILL_REFUSED = ("--tp",)
 
 
 @pytest.mark.parametrize("argv", REFUSED, ids=lambda a: "_".join(a))
-def test_unported_flags_exit_2_before_loading(argv, tmp_path, capsys):
+def test_unported_flags_exit_2_before_loading(argv, tmp_path, capsys,
+                                              monkeypatch):
+    from distributed_llama_tpu.runtime import supervisor as jax_sup
+    from distributed_llama_tpu_torch.runtime import supervisor as port_sup
+
     flag = next(a for a in argv if a != "--supervise")
     if flag not in STILL_REFUSED:
-        # the disaggregation and tier flags: the JAX CLI's check and
-        # message, or, where both accept the argv, the load proceeds
+        # the disaggregation, tier and chaos flags: the JAX CLI's check
+        # and message, or, where both accept the argv, the load proceeds
+        # (with --supervise both re-exec first: the child command each
+        # would supervise is recorded instead of spawned)
+        children = []
+        for mod in (jax_sup, port_sup):
+            monkeypatch.setattr(mod, "supervise", lambda cmd, **kw:
+                                children.append(cmd) or 0)
         outs = []
         for run in _runs(argv, tmp_path):
             try:
@@ -106,6 +117,9 @@ def test_unported_flags_exit_2_before_loading(argv, tmp_path, capsys):
                 os.environ.pop(key, None)
         jax, port = outs
         assert port == jax and "not yet ported" not in str(port[1])
+        if "--supervise" in argv:
+            assert len(children) == 2 and all(
+                flag in c and "--supervise" not in c for c in children)
         return
     from distributed_llama_tpu_torch.frontend.cli import main
 
