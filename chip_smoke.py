@@ -4543,14 +4543,14 @@ def profile_prefill(torch, engine, tokens, wall_ms):
 
 TP_PREFILL = 16  # the tp runs' prefill chunk: K3 and K4 over the bands
 TP_STEPS = 28    # run a's prompt: 19 prefilled positions, 9 decode steps
-TP_RUNS = {  # label -> (tp, scheme, extra flags); all 32 layers at 7B
+TP_RUNS = {  # label -> (tp, scheme, extra flags); TP_DEPTH layers at 7B
     "t2 fused": (2, "fused", ["--prefill-chunk", str(TP_PREFILL)]),
     "t2 ref": (2, "ref", ["--prefill-chunk", str(TP_PREFILL)]),
     "t2 q80": (2, "fused", ["--buffer-float-type", "q80", "--prefill-chunk",
                             str(Q80_CHUNK)]),
     "t4 fused": (4, "fused", ["--prefill-chunk", str(TP_PREFILL)]),
 }
-TP_DEPTH = 2   # layers of the 7B-wide model of the tp batch/continuous steps
+TP_DEPTH = 4   # layers of the 7B-wide model of every tp, serve --tp, sp run
 TP_ROWS = 4    # its lockstep rows, and the continuous engine's slots
 TP_REQS = 6    # the continuous engine's requests (CONT_PROMPTS[:6])
 # the tp configurations run at TP_DEPTH layers through the CLI, at tp 2
@@ -4717,7 +4717,7 @@ def _tp_cli(cli, argv, group, env, streams):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    if rc and group.rank:  # rank 0 reports its own; another rank stops all
+    if rc and group.world_rank:  # rank 0 reports its own; another stops all
         raise RuntimeError(f"rank {group.rank}: {argv} exited {rc}")
     return dict(rc=rc, out=buf.getvalue(), wall_s=time.perf_counter() - t0,
                 stream=streams[0] if streams else None,
@@ -4761,7 +4761,8 @@ def _tp_rank(rank, world, port, out, model, tok, depth_model, sparse, state,
     smaller tp of TP_SIZES: each of TP_RUNS at its tp, on the ranks that
     hold it, through the CLI's inference entry with that group
     (``cmd_inference(argv, group=...)``), every kernel's count set to 0
-    just before and read just after, the generated tokens recorded. In
+    just before and read just after, the generated tokens recorded
+    (``model`` is the TP_DEPTH-layer file, as ``depth_model``). In
     "t2 fused" rank 1 loads from ``sparse`` (its bands fetched by
     weight_stream) and the ranks save the generation to ``state``. After
     the tp 2 runs: _tp_steps over that group, TP_FLAG_RUNS and a
@@ -4888,7 +4889,8 @@ def _tp_check(label, got, tp, n_layers, want, gaps, smi):
 
 def weight_stream(torch, spec, model):
     """Root -> worker weight streaming (io/stream.py) over localhost on the
-    card's host: a WeightServer over the 7B smoke .bin, and rank 1 of tp 2
+    card's host: a WeightServer over ``model`` (the 7B smoke .bin cut to
+    TP_DEPTH layers, ``spec`` its spec), and rank 1 of tp 2
     under the fused scheme fetching only the byte ranges its bands need
     (wo and w2 whole: fused bands them on their input dim) into a sparse
     file, which "t2 fused" then loads (tp_full_width). fetch_model's
@@ -5017,16 +5019,35 @@ def _tp_profile_check(got):
                 wall_s=got["wall_s"])
 
 
+def _depth_refs(torch, depth, tok):
+    """Runs a and c at TP_DEPTH layers of 7B width (the tp runs' anchors):
+    each one's tokens and its decode steps' top-2 logit gaps (run c's
+    prefilled positions have none)."""
+    gaps, streams = [], []
+    _run_cli(torch, depth, tok, ["--prompt", PROMPT, "--steps", str(STEPS),
+                                 "--temperature", "0", "--seed", "1"],
+             gaps=gaps, streams=streams)
+    ref_a = (streams[0], gaps)
+    gaps, streams = [], []
+    _run_cli(torch, depth, tok, [
+        "--prompt", PROMPT, "--steps", str(STEPS), "--temperature", "0",
+        "--seed", "1", "--buffer-float-type", "q80", "--prefill-chunk",
+        str(Q80_CHUNK)], gaps=gaps, streams=streams)
+    return ref_a, (streams[0], [(float("inf"), 0.0)] * 19 + gaps)
+
+
 def tp_full_width(torch, spec, model, tok, ref_a, ref_c, smi):
-    """Llama-2-7B Q40 at full width (the smoke file, all 32 layers) through
-    the CLI's inference entry at tp 2 and 4, the ranks sharing the card
-    over a gloo group this phase builds (one spawn a size): TP_RUNS, each
-    stream held against the one-device run's (run a, or run c for q80
-    buffers), "t2 fused" with rank 1's weights streamed (weight_stream)
-    and its generation saved, then resumed at tp 1 to run a's stream; at
-    tp 2 the lockstep and continuous steps, TP_FLAG_RUNS and a --profile
-    run at TP_DEPTH layers against the same on one device. Returns the
-    runs and each kernel's launches at each tp (rank 0)."""
+    """Llama-2-7B Q40 at full width, cut to TP_DEPTH layers, through the
+    CLI's inference entry at tp 2 and 4, the ranks sharing the card over a
+    gloo group this phase builds (one spawn a size): TP_RUNS, each stream
+    held against the one-device run's at that depth (run a, or run c for
+    q80 buffers, _depth_refs), "t2 fused" with rank 1's weights streamed
+    (weight_stream) and its generation saved, then resumed at tp 1 to run
+    a's stream; at tp 2 the lockstep and continuous steps, TP_FLAG_RUNS and
+    a --profile run against the same on one device. ``ref_a``/``ref_c``
+    (the 32-layer runs) anchor only tp_nccl. Returns the runs and each
+    kernel's launches at each tp (rank 0)."""
+    import dataclasses
     import pickle
     import shutil
 
@@ -5035,6 +5056,8 @@ def tp_full_width(torch, spec, model, tok, ref_a, ref_c, smi):
     from distributed_llama_tpu_torch.parallel.mesh import free_port
 
     depth = _tp_depth_model(spec, model)
+    dspec = dataclasses.replace(spec, n_layers=TP_DEPTH)
+    ref_ad, ref_cd = _depth_refs(torch, depth, tok)
     paths = {"batch": str(SMOKE_DIR / "tp_batch.txt"),
              "cont": str(SMOKE_DIR / "tp_cont.txt"),
              "profile": str(SMOKE_DIR / "tp_profile")}
@@ -5054,13 +5077,13 @@ def tp_full_width(torch, spec, model, tok, ref_a, ref_c, smi):
                                         gaps=gaps, streams=streams)
         ones[label] = (dict(out=out, stream=streams[0] if streams else None),
                        gaps)
-    streamed, sparse = weight_stream(torch, spec, model)
+    streamed, sparse = weight_stream(torch, dspec, depth)
     world = max(TP_SIZES)
     out = SMOKE_DIR / "tp.pkl"
     out.unlink(missing_ok=True)
     t0 = time.perf_counter()
     mp.start_processes(_tp_rank, args=(
-        world, free_port(), str(out), str(model), str(tok), str(depth),
+        world, free_port(), str(out), str(depth), str(tok), str(depth),
         str(sparse), str(state), paths), nprocs=world, start_method="spawn")
     with open(out, "rb") as fh:
         got = pickle.load(fh)
@@ -5073,15 +5096,15 @@ def tp_full_width(torch, spec, model, tok, ref_a, ref_c, smi):
                 if tp == world]
         counts = collections.Counter()
         for label in runs:
-            want, gaps = ref_c if "q80" in label else ref_a
-            res[label] = _tp_check(label, got[label], world, spec.n_layers,
+            want, gaps = ref_cd if "q80" in label else ref_ad
+            res[label] = _tp_check(label, got[label], world, TP_DEPTH,
                                    want, gaps, smi)
             counts.update(got[label]["launches"])
         if world == 2:
             res["t2 fused"]["rank1_weights"] = "streamed (weight_stream)"
-            res["t2 save, t1 resume"] = _tp_resume(torch, model, tok, state,
-                                                   got["t2 fused"], ref_a,
-                                                   spec.n_layers)
+            res["t2 save, t1 resume"] = _tp_resume(torch, depth, tok, state,
+                                                   got["t2 fused"], ref_ad,
+                                                   TP_DEPTH)
             steps = got["steps"]
             same = (steps["rows"] == one["rows"],
                     steps["outs"] == one["outs"])
@@ -5467,6 +5490,414 @@ def _bound_by(rows) -> str:
     return max(weight, key=weight.get)
 
 
+# --------------------------------------------------------------------------
+# serve_tp_full_width: serve --tp 2, rank 0 sending each dispatch's plan
+# --------------------------------------------------------------------------
+
+SERVE_TP_GREEDY = 8   # concurrent greedy requests (CONT_PROMPTS[:8])
+SERVE_TP_SEEDED = 4   # and seeded ones (CONT_PROMPTS[8:12])
+SERVE_TP_TIMEOUT = 60.0  # the plan channel's (tp_plan.DEFAULT_TIMEOUT_S)
+SERVE_TP_ARGS = ("--tp", "2")  # more ranks than cards: gloo, sharing it
+
+
+def _serve_tp_payloads():
+    out = [{"prompt": CONT_PROMPTS[i], "steps": CONT_STEPS,
+            "temperature": 0.0, "stream": i % 2 == 1}
+           for i in range(SERVE_TP_GREEDY)]
+    out += [{"prompt": CONT_PROMPTS[SERVE_TP_GREEDY + i],
+             "steps": CONT_STEPS, "temperature": 0.8, "topp": 0.9,
+             "seed": 100 + i, "stream": i % 2 == 0}
+            for i in range(SERVE_TP_SEEDED)]
+    return out
+
+
+def _served_tokens(srv, body):
+    """One request's tokens (the prompt's echo included)."""
+    if not body.get("stream"):
+        return srv.post("/generate", body)["tokens"]
+    lines: list = []
+    last = srv.post("/generate", body, stream_to=lines)
+    if not last.get("done") or "error" in last:
+        raise AssertionError(f"stream ended with {last}")
+    return [ln["token"] for ln in lines if "token" in ln]
+
+
+def _served_burst(srv, payloads):
+    """Every payload at once: (tokens per request, wall s, ms a dispatch
+    on the scheduler's clock, /health)."""
+    t0 = time.perf_counter()
+    outs = _concurrently([(lambda b=b: _served_tokens(srv, b))
+                          for b in payloads])
+    wall = time.perf_counter() - t0
+    metrics = srv.get("/metrics").decode()
+    n = _prom_value(metrics, "dllama_engine_step_duration_seconds_count")
+    ms = _prom_value(metrics, "dllama_engine_step_duration_seconds_sum") \
+        / max(n, 1) * 1e3
+    return outs, wall, ms, json.loads(srv.get("/health"))
+
+
+def _parting_gaps(torch, depth, tok, payloads, got, want):
+    """Rows where ``got`` parts from ``want``: each must be a greedy row
+    parting where the one-device forward at TP_DEPTH layers (the row's
+    tokens fed through Engine.infer) has its two largest logits within
+    LOGIT_RTOL x max|logit|. Returns [(row, token index, gap)]."""
+    import numpy as np
+
+    from distributed_llama_tpu_torch.io.loader import load_model
+    from distributed_llama_tpu_torch.io.tokenizer import BOS
+    from distributed_llama_tpu_torch.models.llama import LOGIT_RTOL
+    from distributed_llama_tpu_torch.ops.quants import FloatType
+    from distributed_llama_tpu_torch.runtime.generate import Engine
+
+    rows = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if not rows:
+        return []
+    spec, params = load_model(str(depth), weights_float_type=FloatType.Q40)
+    engine = Engine(spec, params, "cuda")
+    parted = []
+    for i in rows:
+        a, b = got[i], want[i]
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        if payloads[i]["temperature"] != 0.0 or j >= min(len(a), len(b)):
+            raise AssertionError(f"serve --tp 2: request {i} differs from "
+                                 f"tp 1's at token {j}")
+        engine.reset()
+        seq = [BOS] + list(b)
+        for pos in range(j + 1):
+            logits = engine.infer(seq[pos], pos)
+        top = np.sort(logits)[-2:]
+        gap, scale = float(top[1] - top[0]), float(np.abs(logits).max())
+        log(f"serve --tp 2: request {i} parts from tp 1's at token {j}, "
+            f"top-2 gap {gap:.3e} (tolerance {LOGIT_RTOL * scale:.3e})")
+        if not gap <= LOGIT_RTOL * scale:
+            raise AssertionError(f"serve --tp 2: request {i} parts at token "
+                                 f"{j} with top-2 gap {gap} above the logit "
+                                 f"tolerance")
+        parted.append((i, j, gap))
+    del engine
+    return parted
+
+
+def _tp_lines(srv):
+    """The plans rank 0 sent and each follower followed, from the child's
+    exit lines."""
+    text = "\n".join(srv.lines)
+    sent = re.search(r"🌐 tp: sent (\d+) dispatch plans", text)
+    followed = re.findall(r"🌐 tp rank \d+: followed (\d+) plans, every "
+                          r"digest equal", text)
+    return (int(sent.group(1)) if sent else None), [int(n) for n in
+                                                    followed]
+
+
+def _pairs(d: dict) -> str:
+    """'k v, ...' of a dict of floats (3 decimals)."""
+    return ", ".join(f"{k} {v:.3f}" for k, v in d.items())
+
+
+def phase_serve_tp(torch, depth, dspec, tok, smi, serve_res):
+    """serve_tp_full_width: ``serve --tp 2`` (rank 0 in the serve child,
+    one follower it spawns, gloo ranks sharing the card) on the 7B smoke
+    file cut to TP_DEPTH layers, against ``serve`` at tp 1 on the same
+    file (the tp 1 prefill role of the disaggregated pair, which serves
+    /generate as a plain server does): SERVE_TP_GREEDY concurrent greedy
+    requests and SERVE_TP_SEEDED seeded ones give tp 1's tokens (a greedy
+    row may part at a near-tie of the one-device logits); rank 0's
+    collectives equal the budget a forward (tp_collective_budget, the
+    logits gather only where a forward gathered logits); the plans sent
+    equal the dispatches the follower ran, and no digest differed (the
+    follower exits 0 and says so); a tp 2 decode role fed by that tp 1
+    prefill role gives tp 1's tokens; and the kill_tp_follower drill
+    (runtime/chaos.py, unsupervised: the respawn is a CPU test's): a
+    follower SIGKILLed mid-burst makes rank 0 fail the burst and exit
+    non-zero within the channel's timeout. Logs ms a dispatch beside
+    serve_full_width's (32 layers) and the plan point's share of it
+    (digest, pickle, send). Returns the phase's numbers and rank 0's
+    kernel launches under --tp 2."""
+    import shutil
+
+    from distributed_llama_tpu_torch.parallel.comm_stats import \
+        tp_collective_budget
+    from distributed_llama_tpu_torch.parallel.mesh import free_port
+    from distributed_llama_tpu_torch.runtime.chaos import \
+        drill_kill_tp_follower
+
+    where = SMOKE_DIR / "serve_tp"
+    shutil.rmtree(where, ignore_errors=True)
+    payloads = _serve_tp_payloads()
+    res: dict = {}
+    secs, t0 = {}, time.perf_counter()
+
+    def lap(label):  # the phase's seconds, part by part
+        nonlocal t0
+        secs[label] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    # the three children start together (their loads overlap): tp 2, and
+    # the pair of a tp 1 prefill role (tp 1's anchor) and a tp 2 decode
+    # role
+    pre_port = free_port()
+    flags = {"t2": SERVE_TP_ARGS,
+             "pre": ("--disagg-role", "prefill", "--port", str(pre_port)),
+             "dec": ("--disagg-role", "decode", "--disagg-peer",
+                     f"127.0.0.1:{pre_port}", *SERVE_TP_ARGS)}
+    srvs = {}
+    for label, extra in flags.items():
+        (where / label).mkdir(parents=True)
+        srvs[label] = _Served(depth, tok, where / label, extra)
+    try:
+        for label, srv in srvs.items():
+            res[f"{label}_start_s"] = srv.wait_ready(600)
+        lap("start")
+        runs = {label: _served_burst(srvs[label], payloads)
+                for label in ("pre", "t2")}
+        lap("bursts")
+        long = payloads[:SERVE_TP_GREEDY]
+        got = _concurrently([(lambda b=b: _served_tokens(srvs["dec"], b))
+                             for b in long])
+        shipped = _prom_value(srvs["dec"].get("/metrics").decode(),
+                              'dllama_handoff_requests_total'
+                              '{verdict="shipped"}')
+        lap("disagg")
+    finally:
+        rcs = {label: srv.stop()[0] for label, srv in srvs.items()}
+        lap("stop")
+    if any(rcs.values()):
+        raise AssertionError(f"serve children's exits {rcs}: "
+                             + "\n".join(srvs["t2"].lines[-30:]))
+    sent, followed = _tp_lines(srvs["t2"])
+    (o1, w1, ms1, _), (o2, w2, ms2, h2) = runs["pre"], runs["t2"]
+    parted = _parting_gaps(torch, depth, tok, payloads, o2, o1)
+    tp = h2["tp"]
+    budget = tp_collective_budget(dspec, 2, tp["scheme"]).kind_counts()
+    want = {"psum": budget["psum"] * tp["forwards"],
+            "all_gather": budget["all_gather"] * tp["logit_forwards"]}
+    if tp["collectives"] != want or tp["error"] is not None:
+        raise AssertionError(f"serve --tp 2: collectives {tp['collectives']}"
+                             f" over {tp['forwards']} forwards "
+                             f"({tp['logit_forwards']} with logits), want "
+                             f"{want}; error {tp['error']}")
+    if not tp["plans_sent"] or sent != tp["plans_sent"] \
+            or followed != [sent]:
+        raise AssertionError(f"serve --tp 2: /health plans {tp['plans_sent']}"
+                             f", rank 0 sent {sent}, followers followed "
+                             f"{followed}")
+    launches = tp["launches"]
+    starts = {k[:-len("_start_s")]: v for k, v in res.items()
+              if k.endswith("_start_s")}
+    log(f"serve --tp 2 ({TP_DEPTH} layers, 2 gloo ranks sharing the card: "
+        f"{smi}): {len(payloads)} requests ({SERVE_TP_GREEDY} greedy, "
+        f"{SERVE_TP_SEEDED} seeded) equal tp 1's ({len(parted)} part at a "
+        f"near-tie); {sent} plans sent = {followed[0]} followed, no digest "
+        f"differed; collectives {tp['collectives']} = budget over "
+        f"{tp['forwards']} forwards; {ms2:.3f} ms a dispatch against tp 1's "
+        f"{ms1:.3f} at {TP_DEPTH} layers and serve_full_width's "
+        f"{serve_res['ms_per_dispatch']:.3f} at 32 layers (of it the plan "
+        f"point: {_pairs(tp['plan_ms'])} ms); burst {w2:.2f} s against "
+        f"{w1:.2f} s; children ready in {_pairs(starts)} s")
+    res.update(requests=len(payloads), parted=parted, plans_sent=sent,
+               plans_followed=followed, forwards=tp["forwards"],
+               logit_forwards=tp["logit_forwards"],
+               collectives=tp["collectives"], ms_per_dispatch_t2=ms2,
+               ms_per_dispatch_t1=ms1, plan_ms=tp["plan_ms"],
+               serve_full_width_ms_per_dispatch=serve_res["ms_per_dispatch"],
+               burst_s_t2=w2, burst_s_t1=w1, launches_rank0=launches)
+    pd = _parting_gaps(torch, depth, tok, long, got, o1[:len(long)])
+    lap("partings")
+    if not shipped:
+        raise AssertionError("disagg under tp 2: nothing handed off")
+    log(f"serve --tp 2 decode role fed by a tp 1 prefill role: {len(long)} "
+        f"requests, {shipped:.0f} handed off, tokens equal tp 1's "
+        f"({len(pd)} part at a near-tie)")
+    res["disagg_decode_tp2"] = dict(requests=len(long), shipped=shipped,
+                                    parted=pd)
+    # the kill_tp_follower drill, unsupervised (one group start)
+    cmd = [sys.executable, "-m", "distributed_llama_tpu_torch", "serve",
+           "--model", str(depth),
+           "--tokenizer", str(tok), "--slots", str(CONT_SLOTS),
+           "--kv-page-size", str(PAGE), "--prefill-chunk", str(CONT_CHUNK),
+           "--seed", "1", "--port", "0", *SERVE_DEVICE_ARGS,
+           *SERVE_TP_ARGS, "--chaos", "step_delay_every=1,step_delay_ms=20"]
+    drill = drill_kill_tp_follower(
+        cmd, SERVE_TP_TIMEOUT,
+        payloads=[{"prompt": CONT_PROMPTS[i], "steps": CONT_STEPS,
+                   "temperature": 0, "stream": i % 2 == 0}
+                  for i in range(4)])
+    lap("drill")
+    if not drill.passed:
+        raise AssertionError(f"kill_tp_follower: {drill.violations}")
+    log(f"kill_tp_follower drill: rank 0 exited "
+        f"{drill.details['rank0_exit_s']:.2f} s after the kill (timeout "
+        f"{SERVE_TP_TIMEOUT:.0f} s) with exit {drill.details['rc']}, "
+        f"{drill.details['failed_requests']} of the burst failed and "
+        f"answered")
+    res["kill_tp_follower"] = drill.details
+    shutil.rmtree(where, ignore_errors=True)
+    res["seconds"] = secs
+    log(f"serve_tp_full_width seconds: {_pairs(secs)}")
+    return res, launches
+
+
+# --------------------------------------------------------------------------
+# sp_full_width: inference --sp N, the sp-sharded KV cache
+# --------------------------------------------------------------------------
+
+SP_PROMPT = " ".join(["hi"] * 1040)  # BOS + 1040 " hi" pieces: 1041 tokens
+SP_DECODE = 16     # decode steps after the prompt
+SP_CHUNK = 128     # its prefill chunk: position 1024 (sp 2's chunk
+#                    boundary) and 512 (sp 4's) fall inside the prefill
+SP_MESHES = ((2, 1), (2, 2), (4, 1))  # (sp, tp), all on 4 gloo ranks
+SP_BATCH_ROWS = 4  # the lockstep batch at sp 2
+
+
+def _sp_rank(rank, world, ports, out, depth, tok, batch):
+    """One of 4 processes sharing cuda:0. For each (sp, tp) of SP_MESHES
+    the first sp x tp of them join that mesh through the port's
+    parallel/mesh.init_mesh on its own port (gloo: the ranks outnumber
+    the card; global rank = sp index * tp + tp index), run ``inference``
+    through the CLI's entry (``cmd_inference(argv, group=...)``), the
+    lockstep batch too at sp 2 x tp 1, and leave it; rank 0 pickles what
+    it saw (its launches counted from 0 just before each run)."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from distributed_llama_tpu_torch.frontend import cli
+    from distributed_llama_tpu_torch.parallel.mesh import close, init_mesh
+    from distributed_llama_tpu_torch.runtime import generate
+
+    torch.set_num_threads(1)
+    loop = generate.generate
+    streams: list = []
+
+    def recorded(*args, **kwargs):
+        got = loop(*args, **kwargs)
+        streams.append(list(got[0]))
+        return got
+
+    generate.generate = recorded
+    res = {}
+    steps = str(len(SP_PROMPT.split()) + SP_DECODE)
+    try:
+        for port, (sp, tp) in zip(ports, SP_MESHES):
+            if rank >= sp * tp:
+                continue
+            g = init_mesh(rank, sp, tp, f"tcp://localhost:{port}", "cuda",
+                          timeout_s=300, backend="gloo")
+            try:
+                res[(sp, tp)] = _tp_cli(cli, [
+                    "--model", depth, "--tokenizer", tok, "--prompt",
+                    SP_PROMPT, "--steps", steps, "--prefill-chunk",
+                    str(SP_CHUNK), "--temperature", "0", "--seed", "1",
+                    "--tp", str(tp)], g, {}, streams)
+                if (sp, tp) == (2, 1):
+                    res["batch"] = _tp_cli(cli, [
+                        "--model", depth, "--tokenizer", tok,
+                        "--prompts-file", batch, "--steps", "64",
+                        "--temperature", "0", "--seed", "1", "--tp", "1"],
+                        g, {}, streams)
+            finally:
+                close(g)
+    finally:
+        generate.generate = loop
+    if rank == 0:
+        with open(out, "wb") as fh:
+            pickle.dump(res, fh)
+
+
+def phase_sp(torch, depth, dspec, tok, smi):
+    """sp_full_width: ``inference`` over the sp-sharded KV cache at 7B
+    width cut to TP_DEPTH layers, gloo ranks sharing the card: at sp 2 x
+    tp 1, sp 2 x tp 2 and sp 4 x tp 1, a SP_PROMPT of 1041 tokens
+    prefilled at --prefill-chunk SP_CHUNK (across position 1024, sp 2's
+    chunk boundary, and 512, sp 4's), then SP_DECODE decode steps; the
+    streams equal the one-device run's (or part at its near-tie), the
+    sp collectives a decode step are 3 x n_layers (one pmax, two psums a
+    layer), and every Q40 product runs on K1 and K3; the lockstep batch
+    at sp 2 gives the one-device rows. Returns the runs and rank 0's
+    launches."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    from distributed_llama_tpu_torch.parallel.mesh import free_port
+
+    t0 = time.perf_counter()
+    batch = SMOKE_DIR / "sp_batch.txt"
+    batch.write_text("\n".join(BATCH_PROMPTS[:SP_BATCH_ROWS]) + "\n")
+    steps = str(len(SP_PROMPT.split()) + SP_DECODE)
+    gaps, streams = [], []
+    _run_cli(torch, depth, tok, [
+        "--prompt", SP_PROMPT, "--steps", steps, "--prefill-chunk",
+        str(SP_CHUNK), "--temperature", "0", "--seed", "1"], gaps=gaps,
+        streams=streams)
+    one_batch, _, _, _ = _run_cli(torch, depth, tok, [
+        "--prompts-file", str(batch), "--steps", "64", "--temperature", "0",
+        "--seed", "1"])
+    n_echo = len(SP_PROMPT.split())  # prefilled: no logits, no gaps
+    gaps = [(float("inf"), 0.0)] * n_echo + gaps
+    out = SMOKE_DIR / "sp.pkl"
+    out.unlink(missing_ok=True)
+    ports = [free_port() for _ in SP_MESHES]
+    mp.start_processes(_sp_rank, args=(4, ports, str(out), str(depth),
+                                       str(tok), str(batch)),
+                       nprocs=4, start_method="spawn")
+    with open(out, "rb") as fh:
+        got = pickle.load(fh)
+    res, launches = {}, collections.Counter()
+    n_pre = -(-(len(SP_PROMPT.split())) // SP_CHUNK)
+    for (sp, tp) in SP_MESHES:
+        run = got[(sp, tp)]
+        text = run["out"]
+        if run["rc"] != 0:
+            raise AssertionError(f"sp {sp} x tp {tp}: exit {run['rc']}")
+        m = re.search(r"SP collectives/token: +([\d.]+) \((.*)\), budget "
+                      r"(\d+) \(sp (\d+), (\d+) bytes\)", text)
+        n_steps = int(re.search(r"Generated tokens:\s+(\d+)",
+                                text).group(1))
+        if not m or float(m.group(1)) != 3 * TP_DEPTH \
+                or int(m.group(3)) != 3 * TP_DEPTH or int(m.group(4)) != sp:
+            raise AssertionError(f"sp {sp} x tp {tp}: sp collectives a step "
+                                 f"{m.groups() if m else None}, want "
+                                 f"{3 * TP_DEPTH}")
+        same, part, gap = _same_stream(f"sp {sp} x tp {tp}", run["stream"],
+                                       streams[0][:len(run["stream"])],
+                                       gaps)
+        lc = run["launches"]
+        if lc.get("q40_matvec") != (4 * TP_DEPTH + 1) * n_steps \
+                or lc.get("q40_gemm") != 4 * TP_DEPTH * n_pre \
+                or lc.get("decode_attention") or lc.get("prefill_attention"):
+            raise AssertionError(f"sp {sp} x tp {tp}: launches {lc} over "
+                                 f"{n_steps} steps and {n_pre} chunks")
+        launches.update(lc)
+        res[f"sp{sp} tp{tp}"] = dict(
+            decode_steps=n_steps, sp_collectives_per_step=float(m.group(1)),
+            sp_bytes_per_step=int(m.group(5)), stream_equal=same,
+            parts_at=part, gap=gap, launches=lc, wall_s=run["wall_s"])
+        log(f"sp {sp} x tp {tp} ({TP_DEPTH} layers, {sp * tp} gloo ranks "
+            f"sharing the card: {smi}): {len(SP_PROMPT.split()) + 1}-token "
+            f"prompt at chunk {SP_CHUNK}, {n_steps} decode steps, stream "
+            f"{'equals' if same else 'parts at a near-tie from'} one "
+            f"device's; {m.group(1)} sp collectives a step ({m.group(2)}), "
+            f"{m.group(5)} bytes; {run['wall_s']:.1f} s")
+    rows = [ln for ln in got["batch"]["out"].splitlines()
+            if re.match(r"^\[\d+\] ", ln)]
+    want_rows = [ln for ln in one_batch.splitlines()
+                 if re.match(r"^\[\d+\] ", ln)]
+    if got["batch"]["rc"] != 0 or rows != want_rows \
+            or len(rows) != SP_BATCH_ROWS:
+        raise AssertionError(f"sp 2 lockstep batch: rows {rows} against "
+                             f"{want_rows}")
+    launches.update(got["batch"]["launches"])
+    res["sp2 batch"] = dict(rows=len(rows), equal=True,
+                            launches=got["batch"]["launches"])
+    res["seconds"] = time.perf_counter() - t0
+    log(f"sp 2 lockstep batch: {len(rows)} rows equal one device's; "
+        f"sp_full_width {res['seconds']:.1f} s")
+    return res, dict(launches)
+
+
 def main() -> int:
     import torch
 
@@ -5570,6 +6001,17 @@ def main() -> int:
     tp, tp_launches = tp_full_width(torch, spec, model, tok, ref_a, ref_c,
                                     smi)
     mark("tp_full_width")
+    import dataclasses
+
+    depth = _tp_depth_model(spec, model)
+    dspec = dataclasses.replace(spec, n_layers=TP_DEPTH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_tp, serve_tp_launches = phase_serve_tp(torch, depth, dspec, tok,
+                                                 smi, e2e_serve)
+    mark("serve_tp_full_width")
+    sp, sp_launches = phase_sp(torch, depth, dspec, tok, smi)
+    mark("sp_full_width")
     gc.collect()
     torch.cuda.empty_cache()
     logit_err, busy, prefill, fast, batch, continuous = phase_full_width(
@@ -5901,6 +6343,10 @@ def main() -> int:
         # each kernel's launches on rank 0 over tp_full_width's runs
         k["tp_launches"] = {str(w): tp_launches[w].get(k["name"], 0)
                             for w in TP_SIZES}
+        # rank 0 of serve --tp 2 (the serve child's own counts) and of
+        # the sp runs
+        k["tp_launches"]["serve_tp2"] = serve_tp_launches.get(k["name"], 0)
+        k["tp_launches"]["sp"] = sp_launches.get(k["name"], 0)
         if k["name"] in band_units:
             k["tp_bands"] = {
                 str(w): dict(unit_row(tp_bands[w][k["name"]]),
@@ -5920,6 +6366,12 @@ def main() -> int:
                                   "decode_attention_batch",
                                   "paged_attention")
                 if not tp_launches[2].get(name)]
+    tp_idle += [f"{name} under serve --tp 2" for name in
+                ("q40_matvec_multi", "q40_gemm", "prefill_attention",
+                 "paged_attention")
+                if not serve_tp_launches.get(name)]
+    tp_idle += [f"{name} under sp" for name in ("q40_matvec", "q40_gemm")
+                if not sp_launches.get(name)]
     if tp_idle:
         raise AssertionError(f"kernels never launched on the tp path: "
                              f"{tp_idle}")
@@ -5955,6 +6407,7 @@ def main() -> int:
                       "probe": probe, "probe_kernels": probe_rows,
                       "prefill": prefill, "fast": fast, "batch_step": batch,
                       "continuous": continuous, "tp": tp,
+                      "serve_tp": serve_tp, "sp": sp,
                       "tp_waits": TP_WAITS,
                       "batch_cache_saved_gb": saved, "build_s": build_s,
                       "sass": sass}))

@@ -44,8 +44,9 @@ there; --slots, --block-steps, --kv-pages and
 --kv-pages N without --kv-page-size reaches the engine, which raises
 ValueError after the load, as the JAX package's ContinuousEngine does.
 --nthreads is accepted and ignored, as in the JAX CLI. Without
---prompts-file every flag of the continuous engine exits 2 "not yet
-ported" (--spec-ngram with --spec-k too).
+--prompts-file the continuous engine's flags go through the JAX CLI's
+checks (q8, --spec-k or --dispatch-tokens without a page size exit 2 with
+its message) and are then ignored by the single-prompt path, as there.
 Tensor parallelism: --tp N runs N ranks, one process each (spawned here):
 rank r on cuda:r over NCCL, or with --device cpu N gloo ranks on the CPU.
 --tp-scheme ref|fused|overlap (= DLLAMA_TP_SCHEME) picks the collectives
@@ -71,7 +72,13 @@ batch and the continuous engine run their steps eagerly and say so, and
 where a rank's trace holds no collective time or other collective events
 than the census; --save-state gathers the kv heads to rank 0, which
 writes the file, and --resume-state gives every rank its band, so a
-checkpoint moves between tp sizes. --sp above 1 is not ported.
+checkpoint moves between tp sizes. Sequence parallelism: --sp S runs S x
+tp ranks (global rank = sp index x tp + tp index, parallel/mesh.init_mesh)
+whose KV cache holds seq_len / S positions each (parallel/ring.py), for
+the single prompt, the lockstep batch and the contiguous continuous
+engine; the paged pool raises the JAX package's ValueError, and the
+overlap scheme exits 2 with its message. --save-state gathers the
+position chunks too.
 
 Weight streaming, as in the JAX CLI: --serve-weights PORT
 [--serve-weights-bind ADDR] serves the --model file's bytes (io/stream.py)
@@ -89,11 +96,7 @@ under --tp (each rank tiers its own kv-head band; its disk tier lives in
 DIR/rank<r>), with the JAX CLI's checks and messages; the lockstep batch
 ignores them, as the JAX CLI does.
 
-Every other flag of the JAX package's ``inference`` exits 2 with "not yet
-ported" before the model loads. --sp 1, --spec-k 0, --kv-page-size 0,
---dispatch-tokens 0 and --spec-ngram N without --spec-k name what the port
-runs and are accepted, as the JAX CLI runs its plain path at those
-values.
+Every flag of the JAX package's ``inference`` is ported.
 
 ``serve`` takes the JAX CLI's flags on one device (--device cuda by
 default): --host, --port (0 picks a free one; the 🌐 line names it),
@@ -107,8 +110,11 @@ corrupt journal or a config mismatch), --watchdog-ms, --drain-s,
 --disagg-role prefill|decode, --disagg-peer HOST:PORT,
 --page-channel-port PORT and --handoff-min-pages N (a 🌐 line names the
 role), and --chaos SPEC (runtime/chaos.ChaosMonkey.parse; a 🔶 CHAOS ARMED
-banner on stderr). The JAX CLI's exit-2 checks and messages come in its
-order; before them --tp above 1 exits 2 "not yet ported".
+banner on stderr), and --tp N (this process rank 0, the other ranks
+spawned followers of its plans, runtime/tp_plan.py; NCCL with a GPU a
+rank, gloo on the CPU or where ranks outnumber the visible GPUs, which
+they then share: the 🌐 tp line says which). The JAX CLI's exit-2
+checks and messages come in its order.
 
 ``convert`` is the port's converter (convert.py): Meta or HF checkpoints
 to a reference-format .bin.
@@ -218,7 +224,10 @@ def _parser() -> argparse.ArgumentParser:
                          "the fused combines into ring hops and defers the "
                          "ffn gather (needs --sp 1); 'ref' keeps the "
                          "reference's 4-gather MatmulSlice schedule")
-    ap.add_argument("--sp", type=int, default=1, help="only 1 is ported")
+    ap.add_argument("--sp", type=int, default=1,
+                    help="sequence-parallel ways: the KV cache sharded over "
+                         "sp ranks in position chunks, attention combined "
+                         "by an LSE reduction (sp x tp ranks in all)")
     ap.add_argument("--workers", nargs="*", default=None,
                     help="accepted for reference-CLI compatibility; the "
                          "workers are the ranks (--tp)")
@@ -341,25 +350,6 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _unported(args) -> list[str]:
-    given = []
-    if args.sp != 1:
-        given.append(f"--sp {args.sp}")
-    if not args.prompts_file:  # flags of the batch paths, ported there
-        if args.spec_k and args.spec_ngram is not None:
-            given.append(f"--spec-ngram {args.spec_ngram}")
-        for flag, value, neutral in (
-                ("--spec-k", args.spec_k, 0),
-                ("--dispatch-tokens", args.dispatch_tokens, 0),
-                ("--kv-page-size", args.kv_page_size, 0),
-                ("--kv-pages", args.kv_pages, 0),
-                ("--block-steps", args.block_steps, 1),
-                ("--kv-quant", args.kv_quant, None)):
-            if value != neutral:
-                given.append(flag if value is True else f"{flag} {value}")
-    return given
-
-
 def _lockstep_notes(args) -> None:
     """The JAX package's notes for flags that do nothing on the lockstep
     batch path (they belong to the continuous engine)."""
@@ -393,23 +383,6 @@ def cmd_inference(argv: list[str], quiet: bool = False,
     except ValueError as e:
         print(e, file=sys.stderr)
         return 2
-    if scheme == "overlap" and args.sp > 1:
-        print("--tp-scheme overlap needs --sp 1: the ring-decomposed "
-              "combines assume un-chunked sequences (use --tp-scheme "
-              "fused with sp>1)", file=sys.stderr)
-        return 2
-    unported = _unported(args)
-    if unported:
-        print(f"not yet ported: {', '.join(unported)} (this port runs "
-              f"inference on one device or tensor-parallel ranks (--tp), "
-              f"token by token, with "
-              f"--prefill-chunk N [--fast-prefill] or --fast, a lockstep "
-              f"batch with --prompts-file, or continuous batching with "
-              f"--prompts-file --continuous [--kv-page-size P], with f32 or "
-              f"q80 buffers (f16 and q40 run f32) and an f32 or bf16 KV "
-              f"cache or q8 pages)",
-              file=sys.stderr)
-        return 2
     _apply_log_json(args)
     # DLLAMA_KV_QUANT is read once, here, when the flag is absent
     from ..ops.paged_attention import kv_quant_mode
@@ -436,6 +409,17 @@ def cmd_inference(argv: list[str], quiet: bool = False,
     if tier_err:
         print(tier_err, file=sys.stderr)
         return 2
+    if scheme == "overlap" and args.sp > 1:
+        print("--tp-scheme overlap needs --sp 1: the ring-decomposed "
+              "combines assume un-chunked sequences (use --tp-scheme "
+              "fused with sp>1)", file=sys.stderr)
+        return 2
+    if args.coordinator and args.seed is None:
+        # every rank samples the same chain, or ranks stop at different
+        # steps and the collectives hang
+        print("multi-host runs need an explicit --seed so every host "
+              "samples the same chain", file=sys.stderr)
+        return 2
     if (args.continuous or args.slots) and not args.prompts_file:
         print("--continuous/--slots need --prompts-file (the request "
               "queue)", file=sys.stderr)
@@ -447,12 +431,6 @@ def cmd_inference(argv: list[str], quiet: bool = False,
     if args.fast_prefill and args.prefill_chunk <= 1:
         print("--fast-prefill only affects chunked prefill; pass "
               "--prefill-chunk N (N > 1)", file=sys.stderr)
-        return 2
-    if args.coordinator and args.seed is None:
-        # every rank samples the same chain, or ranks stop at different
-        # steps and the collectives hang
-        print("multi-host runs need an explicit --seed so every host "
-              "samples the same chain", file=sys.stderr)
         return 2
     if args.num_hosts != 1 and not args.coordinator:
         print(f"--num-hosts {args.num_hosts} needs --coordinator "
@@ -488,27 +466,48 @@ def cmd_inference(argv: list[str], quiet: bool = False,
         if not prompts:
             print("prompts file is empty", file=sys.stderr)
             return 2
+    from ..io.loader import read_spec
+    from ..parallel.mesh import check_mesh
+
     tp = _resolve_tp(args, prompts, group)
     if isinstance(tp, str):
         print(tp, file=sys.stderr)
         return 2
-    if tp > 1 and args.fast and args.device == "cuda":
-        print(f"not yet ported: --fast with --tp {tp} on the card (a CUDA "
-              f"graph over the group's collectives)", file=sys.stderr)
+    sp = group.sp_size if group is not None else args.sp
+    sp_err = check_mesh(sp, tp)
+    if sp_err:
+        print(sp_err, file=sys.stderr)
+        return 2
+    if (tp > 1 or sp > 1) and args.fast and args.device == "cuda":
+        print(f"not yet ported: --fast with --tp {tp} --sp {sp} on the card "
+              f"(a CUDA graph over the group's collectives)",
+              file=sys.stderr)
         return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("no GPU: torch.cuda.is_available() is False — pass --device "
               "cpu to run on the CPU", file=sys.stderr)
         return 1
-    if group is not None and group.size > 1 and args.seed is None:
+    if group is not None and group.sharded and args.seed is None:
         print("a caller's tp group needs an explicit --seed so every rank "
               "samples the same chain", file=sys.stderr)
         return 2
-    if group is None and (tp > 1 or args.coordinator):
+    if group is None and (tp > 1 or sp > 1 or args.coordinator):
+        if not args.model_from_root:
+            # the header, read before any rank starts: a missing or
+            # foreign file fails here, as the JAX CLI's load does
+            spec = read_spec(args.model, _FT[args.weights_float_type],
+                             _FT[args.buffer_float_type])
+            if sp > 1 and args.continuous and args.kv_page_size > 0:
+                raise ValueError(f"paged KV cache requires sp=1, got "
+                                 f"sp={sp} (page tables break contiguous "
+                                 f"sequence chunks)")
+            sp_err = check_mesh(sp, tp, spec.seq_len)
+            if sp_err:
+                raise ValueError(sp_err)
         if args.seed is None:  # one seed for every rank, picked here
             argv = [*argv, "--seed", str(_default_seed())]
         with _weight_streaming(args, quiet, scheme, assumed):
-            return _spawn_ranks(argv, args, tp, quiet)
+            return _spawn_ranks(argv, args, tp, quiet, sp)
     with (contextlib.nullcontext() if streamed
           else _weight_streaming(args, quiet, scheme, assumed)):
         if assumed is not None and group is not None \
@@ -534,11 +533,13 @@ def _assumed_tp_ranks(args) -> set[int] | str:
     if not args.tp or args.tp <= 1:
         return ("--stream-slices needs an explicit --tp > 1 (the slice "
                 "layout is the tp weight sharding)")
-    if args.tp % args.num_hosts:
+    need = args.sp * args.tp  # global rank g holds tp index g % tp
+    if need % args.num_hosts:
         return (f"--stream-slices assumes equal devices/host; mesh of "
-                f"{args.tp} devices does not divide over {args.num_hosts} "
+                f"{need} devices does not divide over {args.num_hosts} "
                 f"hosts")
-    return set(local_ranks(args.tp, args.num_hosts, args.host_id or 0))
+    return {g % args.tp
+            for g in local_ranks(need, args.num_hosts, args.host_id or 0)}
 
 
 @contextlib.contextmanager
@@ -600,22 +601,23 @@ def _resolve_tp(args, prompts, group) -> int | str:
     return check_tp(tp, args.device, args.num_hosts) or tp
 
 
-def _spawn_ranks(argv: list[str], args, tp: int, quiet: bool) -> int:
-    """This host's ranks, one spawned process each, over a TCP store on
-    localhost (one host) or at --coordinator; the exit code is the first
-    failing rank's."""
+def _spawn_ranks(argv: list[str], args, tp: int, quiet: bool,
+                 sp: int = 1) -> int:
+    """This host's ranks (of sp x tp), one spawned process each, over a TCP
+    store on localhost (one host) or at --coordinator; the exit code is
+    the first failing rank's."""
     import torch.multiprocessing as mp
 
     from ..parallel.mesh import free_port, local_ranks
 
-    ranks = local_ranks(tp, args.num_hosts, args.host_id or 0)
+    ranks = local_ranks(sp * tp, args.num_hosts, args.host_id or 0)
     init = (f"tcp://{args.coordinator}" if args.coordinator
             else f"tcp://localhost:{free_port()}")
     # another host may still be fetching its weights when this one joins
     join_s = 3600.0 if args.coordinator else 600.0
     try:
         mp.start_processes(_rank_main, args=(argv, init, tp, ranks.start,
-                                             args.device, quiet, join_s),
+                                             args.device, quiet, join_s, sp),
                            nprocs=len(ranks), start_method="spawn")
     except mp.ProcessExitedException as e:
         return e.exit_code if e.exit_code and e.exit_code > 0 else 1
@@ -626,12 +628,13 @@ def _spawn_ranks(argv: list[str], args, tp: int, quiet: bool) -> int:
 
 
 def _rank_main(local: int, argv: list[str], init: str, tp: int, first: int,
-               device_type: str, quiet: bool, join_s: float) -> None:
-    """A spawned rank: join the group, run inference, leave."""
-    from ..parallel.mesh import close, init_rank
+               device_type: str, quiet: bool, join_s: float,
+               sp: int = 1) -> None:
+    """A spawned rank: join the sp x tp group, run inference, leave."""
+    from ..parallel.mesh import close, init_mesh
 
     rank = first + local
-    group = init_rank(rank, tp, init, device_type, local=local,
+    group = init_mesh(rank, sp, tp, init, device_type, local=local,
                       timeout_s=join_s)
     try:
         rc = cmd_inference(argv, quiet=quiet or rank != 0, group=group,
@@ -657,7 +660,7 @@ def _run(args, prompts, quiet: bool, group, scheme: str, tp: int) -> int:
     t0 = time.perf_counter()
     wft, bft = _FT[args.weights_float_type], _FT[args.buffer_float_type]
     group = group or single(args.device)
-    sharded = group.size > 1
+    sharded = group.sharded
     if sharded:
         spec, params = load_model_bands(args.model, group.rank, group.size,
                                         scheme, wft, bft)
@@ -667,14 +670,15 @@ def _run(args, prompts, quiet: bool, group, scheme: str, tp: int) -> int:
     device = group.device
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
-    ranks = (f"{tp} {device.type} ranks over {group.backend}: {where}"
+    ranks = (f"{group.world_size} {device.type} ranks over "
+             f"{group.backend}: {where}"
              if sharded else f"device {args.device}: {where}")
     say(f"💡 dim: {spec.dim}\n💡 hiddenDim: {spec.hidden_dim}\n"
         f"💡 nLayers: {spec.n_layers}\n💡 nHeads: {spec.n_heads}\n"
         f"💡 nKvHeads: {spec.n_kv_heads}\n"
         f"💡 vocabSize: {spec.vocab_size}\n💡 seqLen: {spec.seq_len}\n"
-        f"💡 nSlices: {tp} sp: 1 scheme: {scheme if sharded else '-'} "
-        f"({ranks})")
+        f"💡 nSlices: {tp} sp: {group.sp_size} scheme: "
+        f"{scheme if tp > 1 else '-'} ({ranks})")
     # under tp the batch engines' steps run eagerly: a CUDA graph over the
     # group's collectives is not yet ported (--fast is refused above)
     tp_args = dict(group=group, scheme=scheme,
@@ -748,7 +752,7 @@ def _run(args, prompts, quiet: bool, group, scheme: str, tp: int) -> int:
         from ..obs.profiler import trace
 
         if sharded:  # each rank traces its own work
-            trace_dir = os.path.join(args.profile, f"rank{group.rank}")
+            trace_dir = os.path.join(args.profile, f"rank{group.world_rank}")
         prof = trace(trace_dir, cuda=device.type == "cuda")
     issued = sum(collectives.CENSUS.kind_counts().values())
     run = generate_fast if args.fast else generate
@@ -814,7 +818,8 @@ def _serve_parser() -> argparse.ArgumentParser:
     ap.add_argument("--topp", type=float, default=0.9)
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--tp", type=int, default=None,
-                    help="only 1 is ported for serve")
+                    help="tensor-parallel ranks (default 1): rank 0 serves "
+                         "and sends each dispatch's plan to the others")
     ap.add_argument("--tp-scheme", default=None, choices=SCHEMES,
                     help="tp collective schedule (= DLLAMA_TP_SCHEME)")
     ap.add_argument("--kv-cache-dtype", default="f32",
@@ -919,18 +924,13 @@ def _serve_parser() -> argparse.ArgumentParser:
 
 def cmd_serve(argv: list[str]) -> int:
     """``serve``: the HTTP server over the continuous engine
-    (runtime/server.py), on one device, with the KV tiers, either role
-    of a disaggregated pair and chaos. The JAX CLI's checks and messages
-    in its order, after the refusal of what is not yet ported (--tp above
-    1), all before any load."""
+    (runtime/server.py), with the KV tiers, either role of a
+    disaggregated pair and chaos, on one device or over ``--tp N`` ranks
+    (this process is rank 0, the others are spawned followers,
+    runtime/tp_plan.py). The JAX CLI's checks and messages in its order,
+    all before any load."""
     ap = _serve_parser()
     args = ap.parse_args(argv)
-    if args.tp not in (None, 1):
-        print(f"not yet ported: --tp {args.tp} (the port's serve runs one "
-              f"device, with the journal, SLO, metrics, watchdog, flight "
-              f"recorder, KV tiers, disaggregation and chaos)",
-              file=sys.stderr)
-        return 2
     if args.supervise:
         # re-exec this serve command (supervision flags stripped) under the
         # crash-loop wrapper, before any load: the supervisor stays small
@@ -1021,6 +1021,151 @@ def cmd_serve(argv: list[str]) -> int:
         print("no GPU: torch.cuda.is_available() is False — pass --device "
               "cpu to run on the CPU", file=sys.stderr)
         return 1
+    seed = args.seed if args.seed is not None else _default_seed()
+    if (args.tp or 1) > 1:
+        return _serve_group(argv, args, slo, chaos, seed)
+    return _serve_run(args, slo, chaos, seed)
+
+
+def _serve_engine_kwargs(args, slo, chaos, seed) -> dict:
+    """The continuous engine's options under serve, the same on every
+    rank of a served tp group (runtime/server.InferenceServer passes
+    these on rank 0; a follower builds its engine from them)."""
+    return dict(slots=args.slots, temperature=args.temperature,
+                topp=args.topp, seed=seed,
+                cache_dtype=(torch.bfloat16 if args.kv_cache_dtype == "bf16"
+                             else torch.float32),
+                prefill_chunk=args.prefill_chunk,
+                block_steps=args.block_steps,
+                fast_prefill=args.fast_prefill, page_size=args.kv_page_size,
+                kv_pages=args.kv_pages, spec_k=args.spec_k,
+                spec_ngram=args.spec_ngram,
+                dispatch_tokens=args.dispatch_tokens, slo=slo, chaos=chaos,
+                kv_quant=args.kv_quant, kv_host_pages=args.kv_host_pages,
+                kv_disk_dir=args.kv_disk_dir,
+                kv_disk_bytes=int(args.kv_disk_gb * (1 << 30)))
+
+
+def _serve_group(argv: list[str], args, slo, chaos, seed: int) -> int:
+    """``serve --tp N``: spawn ranks 1..N-1 as followers, join the group
+    as rank 0 in this process and serve; then close the group and wait
+    for the followers. Exit 1 when a dispatch over the group failed or a
+    follower did not end cleanly."""
+    import multiprocessing
+
+    from ..io.loader import read_spec
+    from ..parallel.mesh import (check_tp, close, free_port, group_backend,
+                                 init_rank)
+    from ..parallel.tp import validate_sharding
+    from ..runtime.tp_plan import PlanChannel
+
+    # the header, read before any rank starts: a missing or foreign file
+    # fails here, as the JAX CLI's load does
+    spec = read_spec(args.model, _FT[args.weights_float_type],
+                     _FT[args.buffer_float_type])
+    backend = group_backend(args.tp, args.device)
+    err = (check_tp(args.tp, args.device) if backend == "nccl"
+           else None)
+    if err:
+        print(err, file=sys.stderr)
+        return 2
+    from ..parallel.comm_stats import tp_scheme
+
+    validate_sharding(spec, args.tp, tp_scheme())
+    init = f"tcp://localhost:{free_port()}"
+    ctx = multiprocessing.get_context("spawn")
+    followers = [ctx.Process(target=_serve_follower,
+                             args=(r, argv, init, seed, backend),
+                             daemon=True)
+                 for r in range(1, args.tp)]
+    for f in followers:
+        f.start()
+    group = init_rank(0, args.tp, init, args.device, local=0,
+                      backend=backend)
+    channel = PlanChannel(group)
+    rc = 1
+    try:
+        rc = _serve_run(args, slo, chaos, seed, group, channel, followers)
+    finally:
+        try:
+            channel.send_shutdown()
+        except Exception:  # noqa: BLE001 - the group is already gone
+            rc = rc or 1
+        close(group)
+        for f in followers:
+            f.join(channel.timeout_s)
+            if f.is_alive():
+                f.kill()
+                f.join()
+            if f.exitcode != 0:
+                print(f"serve: tp rank {followers.index(f) + 1} exited "
+                      f"{f.exitcode}", file=sys.stderr)
+                rc = rc or 1
+    return rc
+
+
+def _serve_follower(rank: int, argv: list[str], init: str, seed: int,
+                    backend: str) -> None:
+    """A spawned follower of ``serve --tp N``: join the group, load its
+    bands, build the engine rank 0 has, and follow rank 0's plans until
+    the shutdown plan (runtime/tp_plan.follow_loop)."""
+    import dataclasses
+
+    from ..obs.slo import SLOPolicy
+    from ..parallel.comm_stats import tp_scheme
+    from ..parallel.mesh import close, init_rank
+    from ..parallel.tp import load_model_bands
+    from ..runtime.chaos import ChaosMonkey
+    from ..runtime.continuous import ContinuousEngine
+    from ..runtime.tp_plan import PlanChannel, follow_loop
+
+    args = _serve_parser().parse_args(argv)
+    _apply_log_json(args)
+    if args.kv_quant:
+        os.environ["DLLAMA_KV_QUANT"] = args.kv_quant
+    if args.tp_scheme:
+        os.environ["DLLAMA_TP_SCHEME"] = args.tp_scheme
+    from ..ops.paged_attention import kv_quant_mode
+
+    args.kv_quant = kv_quant_mode()
+    slo = (None if args.slo == "off"
+           else SLOPolicy.parse(args.slo) if args.slo
+           else SLOPolicy.serving_default())
+    # rank 0's monkey decides; this copy replays its schedule, sleepless
+    chaos = (dataclasses.replace(ChaosMonkey.parse(args.chaos),
+                                 step_delay_s=0.0) if args.chaos else None)
+    group = init_rank(rank, args.tp, init, args.device, local=rank,
+                      backend=backend)
+    channel = PlanChannel(group)
+    scheme = tp_scheme()
+    try:
+        spec, params = load_model_bands(
+            args.model, rank, args.tp, scheme, _FT[args.weights_float_type],
+            _FT[args.buffer_float_type])
+        engine = ContinuousEngine(
+            spec, params, **_serve_engine_kwargs(args, slo, chaos, seed),
+            device=group.device, graph=False, mesh=group, scheme=scheme,
+            remote_pages=args.disagg_role == "decode",
+            slo_priority=args.disagg_role == "prefill" and slo is not None)
+        del params
+        if args.disagg_role == "prefill" and slo is not None:
+            from ..runtime.disagg import make_priority_hold
+
+            engine.prefill_hold = make_priority_hold(engine, slo)
+        try:
+            n = follow_loop(engine, channel)
+        finally:
+            engine.close()
+        print(f"🌐 tp rank {rank}: followed {n} plans, every digest equal "
+              f"to rank 0's", file=sys.stderr, flush=True)
+    finally:
+        close(group)
+
+
+def _serve_run(args, slo, chaos, seed: int, group=None,
+               channel=None, followers=()) -> int:
+    """The serving process (rank 0 under --tp): the journal, the load (the
+    rank's bands under a group), the server, until it drains."""
     journal = None
     if args.journal:
         from ..runtime.journal import JournalCorruption, RequestJournal
@@ -1040,49 +1185,51 @@ def cmd_serve(argv: list[str]) -> int:
                                    weight_file_digest)
     from ..runtime.server import InferenceServer
 
-    spec, params = load_model(
-        args.model, weights_float_type=_FT[args.weights_float_type],
-        buffer_float_type=_FT[args.buffer_float_type])
+    from ..parallel.comm_stats import tp_scheme
+
+    wft, bft = _FT[args.weights_float_type], _FT[args.buffer_float_type]
+    if group is not None:
+        from ..parallel.tp import load_model_bands
+
+        spec, params = load_model_bands(args.model, 0, group.size,
+                                        tp_scheme(), wft, bft)
+    else:
+        spec, params = load_model(args.model, weights_float_type=wft,
+                                  buffer_float_type=bft)
     tokenizer = Tokenizer(args.tokenizer, spec.vocab_size)
-    seed = args.seed if args.seed is not None else _default_seed()
     if journal is not None:
         # what a replay depends on (the JAX CLI's record): the model, its
-        # types, 'single' for one device, the seed policy, the weights
+        # types, the tp scheme ('single' for one device), the seed
+        # policy, the weights
         seed_policy = (f"explicit:{args.seed}" if args.seed is not None
                        else "time")
         journal.set_config(config_fingerprint(
-            spec, "single", seed_policy,
+            spec, tp_scheme() if group is not None else "single",
+            seed_policy,
             weights_digest=weight_file_digest(args.model),
             kv_quant=args.kv_quant, kv_cache_dtype=args.kv_cache_dtype,
             kv_host_pages=args.kv_host_pages,
             kv_disk=bool(args.kv_disk_dir)))
-    cache_dtype = (torch.bfloat16 if args.kv_cache_dtype == "bf16"
-                   else torch.float32)
+    opts = _serve_engine_kwargs(args, slo, chaos, seed)
+
+    def tp_alive():
+        dead = [i + 1 for i, f in enumerate(followers) if not f.is_alive()]
+        return f"tp ranks {dead} exited" if dead else None
+
     try:
         server = InferenceServer(spec, params, tokenizer, args.host,
-                                 args.port, args.slots, args.steps,
-                                 args.temperature, args.topp, seed,
-                                 cache_dtype=cache_dtype,
-                                 prefill_chunk=args.prefill_chunk,
-                                 block_steps=args.block_steps,
-                                 fast_prefill=args.fast_prefill,
-                                 metrics=args.metrics,
-                                 page_size=args.kv_page_size,
-                                 kv_pages=args.kv_pages,
-                                 spec_k=args.spec_k,
-                                 spec_ngram=args.spec_ngram,
-                                 dispatch_tokens=args.dispatch_tokens,
-                                 slo=slo, chaos=chaos, journal=journal,
+                                 args.port, opts.pop("slots"), args.steps,
+                                 opts.pop("temperature"), opts.pop("topp"),
+                                 opts.pop("seed"), **opts,
+                                 metrics=args.metrics, journal=journal,
                                  watchdog_s=args.watchdog_ms / 1e3,
                                  drain_s=args.drain_s,
-                                 kv_quant=args.kv_quant,
                                  flightrec_dir=args.flightrec,
                                  watch_interval_s=args.watch_interval,
-                                 device=args.device,
-                                 kv_host_pages=args.kv_host_pages,
-                                 kv_disk_dir=args.kv_disk_dir,
-                                 kv_disk_bytes=int(args.kv_disk_gb
-                                                   * (1 << 30)),
+                                 device=(group.device if group is not None
+                                         else args.device),
+                                 mesh=group, tp_channel=channel,
+                                 tp_alive=tp_alive if followers else None,
                                  disagg_role=args.disagg_role,
                                  disagg_peer=args.disagg_peer,
                                  page_channel_port=args.page_channel_port,
@@ -1108,7 +1255,22 @@ def cmd_serve(argv: list[str]) -> int:
     if server.recovered:
         print(f"🌐 recovered {server.recovered} journaled requests "
               f"from {args.journal}", flush=True)
+    if group is not None:
+        shared = (f" sharing {torch.cuda.device_count()} GPU(s)"
+                  if group.device.type == "cuda"
+                  and group.backend == "gloo" else "")
+        print(f"🌐 tp: {group.size} ranks over {group.backend}{shared} "
+              f"({tp_scheme()}; rank 0 sends each dispatch's plan; "
+              f"follower pids {' '.join(str(f.pid) for f in followers)})",
+              flush=True)
     server.serve_forever()
+    if group is not None:
+        print(f"🌐 tp: sent {channel.sent} dispatch plans", file=sys.stderr,
+              flush=True)
+    if server.tp_error is not None:
+        print(f"serve: the tp group failed: {server.tp_error}",
+              file=sys.stderr)
+        return 1
     return 0
 
 

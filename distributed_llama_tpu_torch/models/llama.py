@@ -465,15 +465,32 @@ def _post_attention(spec: TransformerSpec, lw: dict[str, Any],
 def _layer(spec: TransformerSpec, x: torch.Tensor, lw: dict[str, Any],
            cache: KVCache, idx: int, pos: int,
            rope: tuple[torch.Tensor, torch.Tensor],
-           route: Route = KERNELS, tail: Callable | None = None
-           ) -> torch.Tensor:
+           route: Route = KERNELS, tail: Callable | None = None,
+           attend: Callable | None = None) -> torch.Tensor:
     """One transformer layer over T tokens: writes their k/v into the
     stacked cache in place at (idx, pos..pos+T-1), attends causally over
     0..pos+T-1, returns the new residual (T, dim). ``tail(lw, x, ao,
-    route)`` replaces _post_attention (the tensor-parallel layer tail)."""
+    route)`` replaces _post_attention (the tensor-parallel layer tail),
+    ``attend(cache, q, k, v, idx, pos)`` the cache write and attention
+    (the sp-sharded cache's)."""
     t_len = x.shape[0]
     hs, n_kv = spec.head_size, spec.n_kv_heads
     q, k, v = _qkv_proj(spec, lw, x, rope, route)
+    if attend is not None:
+        ao = attend(cache, q, k, v, idx, pos)
+    else:
+        ao = _cache_attention(spec, cache, q, k, v, idx, pos, route)
+    if tail is not None:
+        return tail(lw, x, ao, route)
+    return _post_attention(spec, lw, x, ao, route)
+
+
+def _cache_attention(spec: TransformerSpec, cache: KVCache, q, k, v,
+                     idx: int, pos: int, route: Route) -> torch.Tensor:
+    """The stacked cache's write of T tokens' k/v at (idx, pos..) and
+    causal attention over 0..pos+T-1 (K2 at T = 1, else K4)."""
+    t_len = q.shape[0]
+    hs, n_kv = spec.head_size, spec.n_kv_heads
     cache.k[idx, pos:pos + t_len].copy_(k.reshape(t_len, n_kv, hs))
     cache.v[idx, pos:pos + t_len].copy_(v.reshape(t_len, n_kv, hs))
     if t_len == 1:
@@ -482,9 +499,7 @@ def _layer(spec: TransformerSpec, x: torch.Tensor, lw: dict[str, Any],
     else:  # q is a strided slice of the rotated q|k: the kernel wants rows
         ao = route.prefill(q.reshape(t_len, spec.n_heads, hs).contiguous(),
                            cache.k, cache.v, idx, pos, spec.kv_mul)
-    if tail is not None:
-        return tail(lw, x, ao, route)
-    return _post_attention(spec, lw, x, ao, route)
+    return ao
 
 
 LAYER_KEYS = ("rms_att", "rms_ffn", "wq", "wk", "wv", "wo", "w1", "w2", "w3",
@@ -526,6 +541,12 @@ class Llama(nn.Module):
                        and fusion_supports(spec, params) else None)
         self.layers = [_layer_view(params, i) for i in range(spec.n_layers)]
         self._rows: dict = {}
+        # positions the forward takes (the sp-sharded TPLlama's spec holds
+        # its cache chunk, the model's positions stay); the attention
+        # hooks replace the cache writes and attention where set
+        self.max_pos = spec.seq_len
+        self._attend: Callable | None = None
+        self._batch_attend: Callable | None = None
         device = params["tok_embedding"].device
         self.register_buffer("freq", rope_freq(spec.dim + spec.kv_dim,
                                                spec.head_size, device))
@@ -547,9 +568,9 @@ class Llama(nn.Module):
         tokens = ([int(tokens)] if isinstance(tokens, (int, np.integer))
                   else [int(t) for t in tokens])
         t_len = len(tokens)
-        if t_len < 1 or pos < 0 or pos + t_len > spec.seq_len:
+        if t_len < 1 or pos < 0 or pos + t_len > self.max_pos:
             raise ValueError(f"positions {pos}..{pos + t_len - 1} outside "
-                             f"the cache (seq_len {spec.seq_len})")
+                             f"the cache (seq_len {self.max_pos})")
         if t_len == 1 and self.fusion is not None:
             self._token.fill_(tokens[0])
             self._pos.fill_(pos)
@@ -562,7 +583,7 @@ class Llama(nn.Module):
         rope = rope_tables(self.freq, pos, t_len)
         for idx, lw in enumerate(self.layers):
             x = _layer(spec, self._enter(x, idx), lw, cache, idx, pos, rope,
-                       route, self._post)
+                       route, self._post, self._attend)
         x = self._enter(x, spec.n_layers)
         if not logits:
             return None
@@ -651,9 +672,9 @@ class Llama(nn.Module):
         batch = tokens.shape[0]
         device = tokens.device
         if isinstance(pos, (int, np.integer)):
-            if not 0 <= pos < spec.seq_len:
+            if not 0 <= pos < self.max_pos:
                 raise ValueError(f"position {pos} outside the cache "
-                                 f"(seq_len {spec.seq_len})")
+                                 f"(seq_len {self.max_pos})")
             pos = torch.full((batch,), int(pos), dtype=torch.int32,
                              device=device)
         if pos.dtype != torch.int32 or tuple(pos.shape) != (batch,):
@@ -674,6 +695,11 @@ class Llama(nn.Module):
         for idx, lw in enumerate(self.layers):
             x = self._enter(x, idx)
             q, k, v = _qkv_proj(spec, lw, x, rope, route)
+            if self._batch_attend is not None:
+                ao = self._batch_attend(k4, v4, q, k, v, rows[idx], cols,
+                                        pos)
+                x = self._post(lw, x, ao, route)
+                continue
             k4.index_put_((rows[idx], cols),
                           k.reshape(batch, n_kv, hs).to(k4.dtype))
             v4.index_put_((rows[idx], cols),

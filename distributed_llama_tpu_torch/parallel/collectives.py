@@ -23,6 +23,11 @@ collective_permute) and each wait for an issued one a ``tp::wait`` span:
 the I/T split's T under gloo, whose collectives run on the host
 (utils/it_split.py). A trace holds one ``tp::<kind>`` span per CENSUS
 entry.
+
+Sequence parallelism adds two kinds over the group's sp sub-group,
+``sp_pmax`` and ``sp_psum`` (parallel/ring.py's LSE combine: one pmax and
+two psums a layer), each charged 2 (S-1)/S x its payload as
+comm_stats.sp_lse_bytes charges them; they stay out of the tp budget.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ import torch
 from ..utils.it_split import SPAN_PREFIX, WAIT_SPAN
 from .mesh import TPGroup
 
-KINDS = ("all_gather", "psum", "reduce_scatter", "ppermute")
+KINDS = ("all_gather", "psum", "reduce_scatter", "ppermute", "sp_pmax",
+         "sp_psum")
 
 
 class Census:
@@ -82,6 +88,18 @@ def gather(x: torch.Tensor, g: TPGroup, dim: int = -1) -> torch.Tensor:
         parts = [torch.empty_like(x) for _ in range(g.size)]
         _dist().all_gather(parts, x, group=g.group)
         CENSUS.add("all_gather", (g.size - 1) * x.numel() * x.element_size())
+        return torch.cat(parts, dim=dim)
+
+
+def gather_sp(x: torch.Tensor, g: TPGroup, dim: int) -> torch.Tensor:
+    """all_gather over the sp ranks of the group's tp index, in sp order
+    along ``dim`` (a checkpoint's position chunks)."""
+    with _span(SPAN_PREFIX + "all_gather"):
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(g.sp_size)]
+        _dist().all_gather(parts, x, group=g.sp_group)
+        CENSUS.add("all_gather",
+                   (g.sp_size - 1) * x.numel() * x.element_size())
         return torch.cat(parts, dim=dim)
 
 
@@ -168,3 +186,23 @@ def ring_reduce(part: torch.Tensor, g: TPGroup) -> torch.Tensor:
     for j in range(1, s):  # rank-order left fold
         acc = acc + stash[j]
     return acc
+
+
+def _sp_reduce(x: torch.Tensor, g: TPGroup, op, kind: str) -> torch.Tensor:
+    with _span(SPAN_PREFIX + "all_reduce"):
+        x = x.contiguous()
+        _dist().all_reduce(x, op=op, group=g.sp_group)
+        nbytes = x.numel() * x.element_size()
+        CENSUS.add(kind, 2 * (g.sp_size - 1) * nbytes // g.sp_size)
+        return x
+
+
+def sp_pmax(x: torch.Tensor, g: TPGroup) -> torch.Tensor:
+    """all_reduce (max) over the sp ranks of the group's tp index; ``x``
+    is reduced in place and returned."""
+    return _sp_reduce(x, g, _dist().ReduceOp.MAX, "sp_pmax")
+
+
+def sp_psum(x: torch.Tensor, g: TPGroup) -> torch.Tensor:
+    """all_reduce (sum) over the sp ranks of the group's tp index."""
+    return _sp_reduce(x, g, _dist().ReduceOp.SUM, "sp_psum")

@@ -140,6 +140,21 @@ def tp_collective_budget(spec: TransformerSpec, n_slices: int,
          ("all_gather", 1, logits_bytes)))
 
 
+def sp_lse_bytes(spec: TransformerSpec, n_sp: int, n_tp: int = 1,
+                 t_len: int = 1) -> CommStats:
+    """Per-rank bytes a token of the sp flash-partial combine
+    (parallel/ring.py): each layer all-reduces m and l ((T, heads_loc, 1)
+    each) and o ((T, heads_loc, head_size)) across sp, a ring all-reduce
+    moving 2 (S-1)/S of the payload out of and into every rank."""
+    if n_sp <= 1:
+        return CommStats(0, 0)
+    heads_loc = spec.n_heads // n_tp
+    per_layer_vals = t_len * heads_loc * (2 + spec.head_size)
+    payload = per_layer_vals * 4 * spec.n_layers
+    moved = int(2 * payload * (n_sp - 1) / n_sp)
+    return CommStats(moved, moved)
+
+
 def collective_staging_bytes(spec: TransformerSpec, n_slices: int,
                              scheme: str | None = None,
                              t_len: int = 1) -> int:

@@ -10,8 +10,14 @@ gloo group whose ranks share one card, as chip_smoke.py does: NCCL
 refuses two ranks on one device). A group of size 1 has no process group
 and runs the single-device program.
 
-Sequence parallelism (the JAX mesh's ``sp`` axis) and data parallelism are
-not ported: a group is the tp axis alone.
+Sequence parallelism (the JAX mesh's ``sp`` axis): ``init_mesh`` joins an
+sp x tp world (global rank = sp_index * tp + tp_index, the JAX mesh's
+row-major (dp, sp, tp) order at dp 1) and makes two kinds of sub-group
+with ``new_group``: a tp group a sp index (its ``group``: the forward's
+collectives) and an sp group a tp index (``sp_group``: the sharded
+cache's LSE combine, parallel/ring.py). Every sp rank holds its tp index's
+whole weight band, and x is replicated over sp. Data parallelism is not
+ported.
 """
 
 from __future__ import annotations
@@ -24,19 +30,38 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class TPGroup:
-    rank: int
-    size: int
+    rank: int  # the tp index: the weight band and kv heads held
+    size: int  # tp
     group: Any  # a torch.distributed ProcessGroup; None at size 1
     device: torch.device
+    sp_rank: int = 0  # the sp index: the cache chunk held
+    sp_size: int = 1
+    sp_group: Any = None  # the sp sub-group; None at sp 1
+
+    @property
+    def sharded(self) -> bool:
+        """True where the forward is the sharded one (tp or sp above 1)."""
+        return self.size > 1 or self.sp_size > 1
+
+    @property
+    def world_rank(self) -> int:
+        """The global rank: sp_index * tp + tp_index (rank 0 prints, saves
+        and serves)."""
+        return self.sp_rank * self.size + self.rank
+
+    @property
+    def world_size(self) -> int:
+        return self.sp_size * self.size
 
     @property
     def backend(self) -> str:
         """'nccl', 'gloo', or 'none' for a group of one."""
-        if self.group is None:
+        pg = self.group if self.group is not None else self.sp_group
+        if pg is None:
             return "none"
         import torch.distributed as dist
 
-        return str(dist.get_backend(self.group))
+        return str(dist.get_backend(pg))
 
 
 def single(device) -> TPGroup:
@@ -50,6 +75,16 @@ def visible_devices(device_type: str) -> int | None:
     if device_type == "cuda":
         return torch.cuda.device_count() if torch.cuda.is_available() else 0
     return None
+
+
+def group_backend(ranks: int, device_type: str) -> str:
+    """The backend of a one-host group of ``ranks``: gloo on the CPU; on
+    the card NCCL where every rank has a GPU of its own, else gloo, the
+    ranks sharing the visible GPUs (init_rank puts rank r on cuda:(r mod
+    n); NCCL refuses two ranks on one device). With no GPU visible it is
+    NCCL, which check_tp then refuses."""
+    have = visible_devices(device_type)
+    return "gloo" if have is None or 0 < have < ranks else "nccl"
 
 
 def check_tp(tp: int, device_type: str, num_hosts: int = 1) -> str | None:
@@ -85,22 +120,27 @@ def free_port() -> int:
 
 
 def init_rank(rank: int, size: int, init_method: str, device_type: str,
-              local: int | None = None, timeout_s: float = 600.0) -> TPGroup:
+              local: int | None = None, timeout_s: float = 600.0,
+              backend: str | None = None) -> TPGroup:
     """Join the group as ``rank`` of ``size``: NCCL on ``cuda:local``
-    (local defaults to rank), gloo on the CPU. Nothing is switched
-    quietly: a CUDA rank without its device raises."""
+    (local defaults to rank), gloo on the CPU. ``backend='gloo'`` on the
+    card puts rank r on cuda:(local mod the visible GPUs), so ranks may
+    share one (NCCL refuses that). Nothing is switched quietly: a CUDA
+    rank without its device raises."""
     import datetime
 
     import torch.distributed as dist
 
     if device_type == "cuda":
         local = rank if local is None else local
+        if backend == "gloo" and torch.cuda.device_count():
+            local %= torch.cuda.device_count()
         if local >= torch.cuda.device_count():
             raise RuntimeError(f"rank {rank} needs cuda:{local}, have "
                                f"{torch.cuda.device_count()} GPUs")
         device = torch.device("cuda", local)
         torch.cuda.set_device(device)
-        backend = "nccl"
+        backend = backend or "nccl"
     else:
         device = torch.device("cpu")
         backend = "gloo"
@@ -113,9 +153,53 @@ def init_rank(rank: int, size: int, init_method: str, device_type: str,
     return TPGroup(rank, size, dist.group.WORLD, device)
 
 
+def check_mesh(sp: int, tp: int, seq_len: int | None = None) -> str | None:
+    """The error of an sp x tp mesh that does not fit the model (the JAX
+    package's validate_sharding message), or None."""
+    if sp < 1:
+        return f"--sp must be >= 1, got {sp}"
+    if seq_len is not None and seq_len % sp:
+        return f"seq_len={seq_len} not divisible by sp={sp}"
+    return None
+
+
+def init_mesh(rank: int, sp: int, tp: int, init_method: str,
+              device_type: str, local: int | None = None,
+              timeout_s: float = 600.0,
+              backend: str | None = None) -> TPGroup:
+    """Join an sp x tp world as global ``rank`` (= sp_index * tp +
+    tp_index): init_rank over the world (``backend`` as there), then
+    every rank makes every tp group (one a sp index) and every sp group
+    (one a tp index) in the same order, as ``new_group`` requires, and
+    keeps the two it belongs to. At sp 1 this is init_rank."""
+    world = init_rank(rank, sp * tp, init_method, device_type, local,
+                      timeout_s, backend)
+    if sp == 1:
+        return world
+    import datetime
+
+    import torch.distributed as dist
+
+    timeout = datetime.timedelta(seconds=timeout_s)
+    sp_index, tp_index = divmod(rank, tp)
+    tp_group = sp_group = None
+    for s in range(sp):
+        ranks = [s * tp + t for t in range(tp)]
+        g = dist.new_group(ranks, timeout=timeout) if tp > 1 else None
+        if s == sp_index:
+            tp_group = g
+    for t in range(tp):
+        g = dist.new_group([s * tp + t for s in range(sp)],
+                           timeout=timeout)
+        if t == tp_index:
+            sp_group = g
+    return TPGroup(tp_index, tp, tp_group, world.device, sp_index, sp,
+                   sp_group)
+
+
 def close(group: TPGroup) -> None:
     """Leave the group (the default process group, when it is one)."""
-    if group.group is None:
+    if group.group is None and group.sp_group is None:
         return
     import torch.distributed as dist
 

@@ -54,9 +54,14 @@ hidden_dim and vocab_size; overlap needs dim/tp whole; Q80 buffers need
 dim/tp and hidden_dim/tp in 32-value blocks; Q40 wo/w2 under fused/overlap
 need their block count to divide over tp.
 
-Left out (later slices): the speculative verify and mixed-dispatch twins,
-sequence parallelism (``_batch_sp_attention``), the page-plane staging of
-KV tiering.
+Under sequence parallelism (a group with ``sp_size`` S > 1, parallel/mesh.
+init_mesh) the rank's cache holds positions [s*C, (s+1)*C) of its kv heads,
+C = seq_len / S, and attention is parallel/ring.py's: the new rows written
+where they fall in the chunk, partials over the chunk, the LSE combine over
+the sp sub-group (the JAX package's _local_layer and _batch_sp_attention).
+Every Q40 product stays on the kernels. The paged, verify and mixed
+programs refuse sp > 1 with the JAX package's messages (page tables break
+contiguous sequence chunks), and so does the overlap scheme.
 """
 
 from __future__ import annotations
@@ -77,6 +82,8 @@ from ..ops.quants import (QK, FloatType, dequantize_q80_torch,
 from . import collectives as C
 from .comm_stats import tp_scheme
 from .mesh import TPGroup
+from .ring import (sp_batch_attention, sp_cache_attention, update_sp_cache,
+                   update_sp_rows)
 
 # the band each matmul weight takes: 'out' rows of its (d, n) matrix, or
 # 'in' columns (the Q40 block axis); the rest is replicated
@@ -127,9 +134,9 @@ def expected_shard_names(params: dict[str, Any], scheme: str | None = None):
 
 
 def validate_sharding(spec: TransformerSpec, n_slices: int,
-                      scheme: str | None = None) -> None:
-    """Check the spec divides over tp ranks before any weight is read, with
-    the JAX package's messages."""
+                      scheme: str | None = None, n_sp: int = 1) -> None:
+    """Check the spec divides over tp ranks (and its positions over sp)
+    before any weight is read, with the JAX package's messages."""
     scheme = scheme or tp_scheme()
     for req, name in ((spec.n_heads, "n_heads"),
                       (spec.n_kv_heads, "n_kv_heads"),
@@ -137,10 +144,19 @@ def validate_sharding(spec: TransformerSpec, n_slices: int,
                       (spec.vocab_size, "vocab_size")):
         if req % n_slices != 0:
             raise ValueError(f"{name}={req} not divisible by tp={n_slices}")
-    if scheme == "overlap" and n_slices > 1 and spec.dim % n_slices:
-        raise ValueError(
-            f"overlap tp scheme ring-chunks the residual width: "
-            f"dim={spec.dim} must divide by tp={n_slices}")
+    if spec.seq_len % n_sp != 0:
+        raise ValueError(f"seq_len={spec.seq_len} not divisible by sp={n_sp}")
+    if scheme == "overlap" and n_slices > 1:
+        if n_sp > 1:
+            raise ValueError(
+                f"overlap tp scheme requires sp=1, got sp={n_sp} (the "
+                f"ring-decomposed combines and the deferred ffn gather "
+                f"assume un-chunked sequences; use --tp-scheme fused "
+                f"with sp>1)")
+        if spec.dim % n_slices:
+            raise ValueError(
+                f"overlap tp scheme ring-chunks the residual width: "
+                f"dim={spec.dim} must divide by tp={n_slices}")
     if spec.buffer_float_type == FloatType.Q80:
         for req, name in ((spec.dim, "dim"), (spec.hidden_dim, "hidden_dim")):
             if (req // n_slices) % 32 != 0:
@@ -186,17 +202,20 @@ def _effective_scheme(scheme: str | None, n_slices: int) -> str:
     return scheme
 
 
-def local_spec(spec: TransformerSpec, n_slices: int) -> TransformerSpec:
+def local_spec(spec: TransformerSpec, n_slices: int,
+               n_sp: int = 1) -> TransformerSpec:
     """The rank's share of the model: dim/tp (its q width), n_heads/tp,
-    n_kv_heads/tp, hidden_dim/tp, vocab/tp. Head size, kv_mul and seq_len
-    stay; the rank's KV cache and the layer's q/k/v split read it."""
-    if n_slices == 1:
+    n_kv_heads/tp, hidden_dim/tp, vocab/tp, and seq_len/sp (its cache
+    chunk). Head size and kv_mul stay; the rank's KV cache and the layer's
+    q/k/v split read it."""
+    if n_slices == 1 and n_sp == 1:
         return spec
     return dataclasses.replace(
         spec, dim=spec.dim // n_slices, hidden_dim=spec.hidden_dim // n_slices,
         n_heads=spec.n_heads // n_slices,
         n_kv_heads=spec.n_kv_heads // n_slices,
-        vocab_size=spec.vocab_size // n_slices)
+        vocab_size=spec.vocab_size // n_slices,
+        seq_len=spec.seq_len // n_sp)
 
 
 # ---------------------------------------------------------------------------
@@ -335,11 +354,18 @@ def load_model_bands(path: str, rank: int, n_slices: int,
     return spec, params
 
 
-def shard_cache(cache: KVCache, rank: int, n_slices: int) -> KVCache:
+def shard_cache(cache: KVCache, rank: int, n_slices: int, sp_rank: int = 0,
+                n_sp: int = 1) -> KVCache:
     """The rank's kv-head band of a full (..., n_kv, hs) cache (contiguous,
-    batch and paged pools alike)."""
-    return KVCache(*(_slice(t, t.dim() - 2, rank, n_slices).contiguous()
-                     for t in cache))
+    batch and paged pools alike), and under sp its position chunk of a
+    contiguous (..., S, n_kv, hs) one."""
+    out = []
+    for t in cache:
+        t = _slice(t, t.dim() - 2, rank, n_slices)
+        if n_sp > 1:
+            t = _slice(t, t.dim() - 3, sp_rank, n_sp)
+        out.append(t.contiguous())
+    return KVCache(*out)
 
 
 def shard_cache_paged(cache, rank: int, n_slices: int):
@@ -373,6 +399,22 @@ def stage_page_planes(planes, group, spec: TransformerSpec,
         out.append(np.ascontiguousarray(
             _slice(p, axis, group.rank, group.size))
             if p.shape[axis] == full else p)
+    return tuple(out)
+
+
+def gather_page_planes(planes, group, q8: bool = False) -> tuple:
+    """stage_page_planes' inverse: every rank's band of one page payload
+    gathered across the tp ranks into the full model's wire layout (kv
+    heads, or a Q8 pool's delta blocks, in rank order). Every rank calls
+    it (a collective) and gets the whole payload; at tp 1 the planes pass
+    through."""
+    if group is None or group.size <= 1:
+        return tuple(planes)
+    out = []
+    for i, p in enumerate(planes):
+        dim = -1 if q8 and i % 2 == 1 else -2
+        band = torch.from_numpy(np.ascontiguousarray(p)).to(group.device)
+        out.append(C.gather(band, group, dim=dim).cpu().numpy())
     return tuple(out)
 
 
@@ -439,13 +481,81 @@ class TPLlama(Llama):
         self.full_spec = spec
         self.group = group
         self.scheme = _effective_scheme(scheme, group.size)
-        validate_sharding(spec, group.size, self.scheme)
-        super().__init__(local_spec(spec, group.size), params, route, "off")
+        validate_sharding(spec, group.size, self.scheme, group.sp_size)
+        super().__init__(local_spec(spec, group.size, group.sp_size), params,
+                         route, "off")
         self._pending: C.Pending | None = None
+        # forwards run and those that gathered logits: a forward's
+        # collectives are its budget's, less the logits gather when a
+        # prefill skips the logits (serve's /health reads these)
+        self.forwards = self.logit_forwards = 0
+        self.max_pos = spec.seq_len
+        if group.sp_size > 1:
+            self._attend = self._sp_attend
+            self._batch_attend = self._sp_batch_attend
+
+    # -- the sp-sharded cache (parallel/ring.py) -----------------------------
+
+    def _sp_ops(self):
+        g = self.group
+        return (lambda t: C.sp_pmax(t, g)), (lambda t: C.sp_psum(t, g))
+
+    def _sp_attend(self, cache: KVCache, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, idx: int, pos: int) -> torch.Tensor:
+        """T tokens at host position pos: the rows that fall in this rank's
+        chunk written in place, then the combined attention (T, n_q*hs)."""
+        spec, g = self.spec, self.group
+        t_len, hs = q.shape[0], spec.head_size
+        chunk = spec.seq_len
+        for plane, new in ((cache.k, k), (cache.v, v)):
+            update_sp_cache(plane[idx], new.reshape(t_len, -1, hs).to(
+                plane.dtype), pos, g.sp_rank, chunk)
+        return sp_cache_attention(
+            hs, spec.kv_mul, chunk, g.sp_rank,
+            q.reshape(t_len, spec.n_heads, hs), cache.k[idx], cache.v[idx],
+            pos, *self._sp_ops())
+
+    def _sp_batch_attend(self, k4: torch.Tensor, v4: torch.Tensor,
+                         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         rows: torch.Tensor, cols: torch.Tensor,
+                         pos: torch.Tensor) -> torch.Tensor:
+        """One token a row at device clocks pos (B,): each row's k/v
+        written where it falls in this rank's chunk, then the combined
+        attention (B, n_q*hs). Reads nothing on the host."""
+        spec, g = self.spec, self.group
+        batch, hs = q.shape[0], spec.head_size
+        chunk = spec.seq_len
+        for plane, new in ((k4, k), (v4, v)):
+            update_sp_rows(rows, cols, plane, new.reshape(batch, -1, hs),
+                           g.sp_rank, chunk)
+        return sp_batch_attention(
+            hs, spec.kv_mul, chunk, g.sp_rank,
+            q.reshape(batch, spec.n_heads, hs), k4[rows], v4[rows], pos,
+            *self._sp_ops())
+
+    def _refuse_sp(self, what: str) -> None:
+        if self.group.sp_size > 1:
+            raise ValueError(f"{what} requires sp=1, got "
+                             f"sp={self.group.sp_size} (page tables break "
+                             f"contiguous sequence chunks)")
+
+    def forward_batch_paged(self, *args, **kw):
+        self._refuse_sp("paged KV cache")
+        return super().forward_batch_paged(*args, **kw)
+
+    def forward_batch_spec_paged(self, *args, **kw):
+        self._refuse_sp("speculative verify")
+        return super().forward_batch_spec_paged(*args, **kw)
+
+    def forward_batch_mixed_paged(self, *args, **kw):
+        self._refuse_sp("mixed dispatch")
+        return super().forward_batch_mixed_paged(*args, **kw)
 
     def _enter(self, x: torch.Tensor, idx: int) -> torch.Tensor:
         """Overlap: the previous layer's ffn combine lands here (its gather
         waited for, the residual added); layer 0 takes x as it is."""
+        if idx == 0:
+            self.forwards += 1
         if self._pending is None:
             return x
         pending, self._pending = self._pending, None
@@ -489,6 +599,7 @@ class TPLlama(Llama):
 
     def _logits(self, x: torch.Tensor, route: Route) -> torch.Tensor:
         """The rank's vocab band, gathered: (T, vocab) on every rank."""
+        self.logit_forwards += 1
         band = super()._logits(x, route)
         if self.group.size == 1:
             return band
@@ -502,7 +613,7 @@ def make_sharded_forward(spec: TransformerSpec, params: dict[str, Any],
     bands (shard_params or load_model_bands cut it), moved onto
     ``group.device``."""
     scheme = _effective_scheme(scheme, group.size)
-    validate_sharding(spec, group.size, scheme)
+    validate_sharding(spec, group.size, scheme, group.sp_size)
     wq = params["wq"]
     rows = wq.qs.shape[-3] if isinstance(wq, Q40Weight) else wq.shape[-2]
     if group.size > 1 and rows != spec.dim // group.size:

@@ -1295,6 +1295,128 @@ DRILLS = (
 )
 
 
+def drill_kill_tp_follower(serve_cmd: list[str], timeout_s: float = 20.0,
+                           payloads=None, env=None) -> DrillResult:
+    """Serving over tp ranks: SIGKILL a follower mid-burst. ``serve_cmd``
+    starts ``serve --tp N`` (its dispatches slowed, e.g. by ``--chaos
+    step_delay_every=1,...``, so the burst is in flight). The drill passes
+    when every client is answered and at least one with an error (rank 0
+    failed the burst), and rank 0 is gone within ``timeout_s`` of the
+    kill: with ``--supervise`` in ``serve_cmd`` the supervisor then
+    respawned the whole group, which serves a request; without it the
+    serve process (rank 0) exited non-zero."""
+    import json
+    import os
+    import re
+    import signal
+    import subprocess
+    import threading
+    import urllib.request
+
+    violations, details = [], {}
+    supervised = "--supervise" in serve_cmd
+    proc = subprocess.Popen(serve_cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.DEVNULL, text=True, env=env)
+    lines = iter(proc.stdout)
+
+    def group_up():
+        """(port, follower pids) from the next group's banner lines."""
+        port = None
+        for line in lines:
+            m = re.search(r"serving on http://[\d.]+:(\d+)", line)
+            if m:
+                port = int(m.group(1))
+            m = re.search(r"follower pids ([\d ]+)\)", line)
+            if m:
+                return port, [int(p) for p in m.group(1).split()]
+        raise RuntimeError("the served group never came up")
+
+    def post(port, payload, out, i, first=None):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate",
+            data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=3 * timeout_s) as r:
+                if payload.get("stream"):
+                    rows = []
+                    for ln in r:
+                        rows.append(json.loads(ln))
+                        if first is not None:
+                            first.set()
+                    out[i] = "error" in rows[-1]
+                else:
+                    out[i] = "error" in json.loads(r.read())
+        except urllib.error.HTTPError:
+            out[i] = True  # answered, with an error status
+        except OSError as e:  # no answer at all
+            out[i] = f"unanswered: {e}"
+
+    try:
+        port, pids = group_up()
+        with open(f"/proc/{pids[0]}/stat") as fh:  # the follower's parent
+            rank0 = int(fh.read().rsplit(")", 1)[1].split()[1])
+        if not supervised and rank0 != proc.pid:
+            violations.append(f"rank 0 is pid {rank0}, not serve's {proc.pid}")
+        payloads = payloads or [
+            {"prompt": "hello there", "steps": 48, "temperature": 0,
+             "stream": i % 2 == 0} for i in range(4)]
+        out = [None] * len(payloads)
+        first = threading.Event()
+        threads = [threading.Thread(target=post,
+                                    args=(port, p, out, i, first))
+                   for i, p in enumerate(payloads)]
+        for t in threads:
+            t.start()
+        if not first.wait(3 * timeout_s):
+            violations.append("the burst never started streaming")
+        t0 = time.monotonic()
+        os.kill(pids[0], signal.SIGKILL)
+        while os.path.exists(f"/proc/{rank0}") and \
+                time.monotonic() - t0 < 3 * timeout_s:
+            with open(f"/proc/{rank0}/stat") as fh:
+                if fh.read().rsplit(")", 1)[1].split()[0] == "Z":
+                    break  # exited, not yet reaped
+            time.sleep(0.05)
+        details["rank0_exit_s"] = round(time.monotonic() - t0, 3)
+        if details["rank0_exit_s"] >= timeout_s:
+            violations.append(f"rank 0 outlived the kill by "
+                              f"{details['rank0_exit_s']} s (timeout "
+                              f"{timeout_s} s)")
+        for t in threads:
+            t.join(timeout_s)
+        unanswered = [o for o in out if not isinstance(o, bool)]
+        if unanswered:
+            violations.append(f"clients left waiting: {unanswered}")
+        details["failed_requests"] = sum(o is True for o in out)
+        if not details["failed_requests"]:
+            violations.append("no request of the burst failed")
+        if supervised:
+            port2, pids2 = group_up()  # the supervisor's respawn
+            details["respawned"] = pids2 != pids
+            got = [None]
+            post(port2, {"prompt": "hi", "steps": 8, "temperature": 0}, got,
+                 0)
+            if got[0] is not False:
+                violations.append(f"the respawned group did not serve: "
+                                  f"{got}")
+    except Exception as e:  # noqa: BLE001 - report, never crash the gate
+        violations.append(f"drill raised {type(e).__name__}: {e}")
+    finally:
+        proc.send_signal(signal.SIGTERM)  # a no-op once rank 0 is gone
+        try:
+            rc = proc.wait(3 * timeout_s)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+            violations.append("serve did not stop on SIGTERM")
+    details["supervisor_rc" if supervised else "rc"] = rc
+    if not supervised and rc == 0:
+        violations.append("rank 0 exited 0 after a follower died")
+    return DrillResult(name="kill_tp_follower", passed=not violations,
+                       violations=violations, details=details)
+
+
 def run_drills(make_engine, which=None, inject=None,
                device="cuda") -> list[DrillResult]:
     """Run the drill suite against fresh engines from ``make_engine``

@@ -18,6 +18,8 @@ global order. Saving gathers the ranks' kv-head bands (cache axis 2, a
 contiguous band a rank) through parallel/collectives.py, so every rank
 must call it, and only rank 0 writes; loading gives each rank its own
 band. A checkpoint written at one tp resumes at any other, tp 1 included.
+Under sequence parallelism the sp ranks' position chunks are gathered
+first (cache axis 1), and loading gives each rank its chunk.
 
 The restore writes into the engine's cache in place and never rebinds it:
 the ``--fast`` loop's captured CUDA graph and the fused layer's static
@@ -61,13 +63,15 @@ def save_generation_state(path: str, engine: Engine, sampler: Sampler,
     group = engine.group
 
     def prefix(t: torch.Tensor) -> np.ndarray:
+        if group.sp_size > 1:  # the position chunks, in sp order
+            t = collectives.gather_sp(t, group, dim=1)
         live = t[:, :pos].to(torch.float32)
         if group.size > 1:
             live = collectives.gather(live, group, dim=2)
         return live.cpu().numpy()
 
     k, v = prefix(engine.cache.k), prefix(engine.cache.v)
-    if group.rank != 0:
+    if group.world_rank != 0:
         return
     # write through a file object: np.savez(str_path) would silently append
     # '.npz', landing the file somewhere other than the path we report
@@ -114,10 +118,13 @@ def load_generation_state(
             f"engine's {want!r} — resume with the same --kv-cache-dtype")
     n_kv = engine.cache.k.shape[2]  # the rank's kv heads
     heads = slice(engine.group.rank * n_kv, (engine.group.rank + 1) * n_kv)
+    chunk = engine.cache.k.shape[1]  # the rank's positions (sp chunk)
+    first = engine.group.sp_rank * chunk
     for dst, src in ((engine.cache.k, z["k"]), (engine.cache.v, z["v"])):
         dst.zero_()  # the dead suffix, as a fresh cache has it
-        dst[:, :src.shape[1]].copy_(torch.from_numpy(
-            np.ascontiguousarray(src[:, :, heads])))
+        live = src[:, first:first + chunk, heads]
+        dst[:, :live.shape[1]].copy_(torch.from_numpy(
+            np.ascontiguousarray(live)))
     sampler.rng.state = int(z["rng_state"])
     rest = (z["prompt_rest"].astype(int).tolist()
             if "prompt_rest" in z else [])

@@ -306,7 +306,7 @@ class ContinuousEngine:
             raise ValueError(f"not yet ported: mesh of type "
                              f"{type(mesh).__name__} (the port's mesh is a "
                              f"parallel/mesh.TPGroup, the tp axis; the JAX "
-                             f"package's dp and sp axes are not ported)")
+                             f"package's dp axis is not ported)")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         # the JAX engine's checks and messages
@@ -382,6 +382,10 @@ class ContinuousEngine:
         self.group = mesh or single(device)
         self.device = (self.group.device if mesh is not None
                        else torch.device(device))
+        if page_size > 0 and self.group.sp_size > 1:
+            raise ValueError(f"paged KV cache requires sp=1, got "
+                             f"sp={self.group.sp_size} (page tables break "
+                             f"contiguous sequence chunks)")
         _no_capture(self.group, self.device, graph)
         self.graph = self.device.type == "cuda" if graph is None else graph
         if self.graph and self.device.type != "cuda":
@@ -391,7 +395,7 @@ class ContinuousEngine:
                    *attention.HELPERS, *paged_attention.KERNELS])
         # the small-T body is read once, as generate_batch reads it
         body = q40.multi_t_body()
-        if self.group.size > 1:
+        if self.group.sharded:
             validate_kv_quant(spec, self.group.size, kv_quant)
             self.model = _tp_model(spec, params, self.group, scheme,
                                    with_body(KERNELS, body))
@@ -462,6 +466,11 @@ class ContinuousEngine:
         self._pool = [_Slot() for _ in range(slots)]
         self._queue: list[Request] = []
         self._lock = threading.Lock()
+        # serving over tp ranks (runtime/tp_plan.py): rank 0's PlanLeader,
+        # and the intake its handlers fill between dispatches
+        self._leader = None
+        self._intake: list[Request] = []
+        self._cancels: list[Request] = []
         self.stats = ContinuousStats()
         self._bind_tiers(kv_tier_async)
         # SLO-aware admission: with slo_priority the best-ranked class pops
@@ -1119,6 +1128,8 @@ class ContinuousEngine:
         dispatch (step_mixed), with ``spec_k`` a verify dispatch
         (step_spec): both supersede chaining (chained verifies would
         stack drafts on unverified drafts)."""
+        if self._leader is not None:  # rank 0 under tp: plan, then launch
+            self._leader.dispatch_point(self, k)
         if self.dispatch_tokens:
             return self.step_mixed(quiet=quiet)
         if self.spec_k:
@@ -1543,8 +1554,63 @@ class ContinuousEngine:
         """Active slots + queued requests (a handoff still in the inbox
         counts: its request is not queued yet)."""
         with self._lock:
-            queued = len(self._queue) + len(self._remote_inbox)
+            queued = (len(self._queue) + len(self._remote_inbox)
+                      + len(self._intake))
         return sum(not s.free for s in self._pool) + queued
+
+    # -- serving over tp ranks (runtime/tp_plan.py) --------------------------
+
+    def bind_plan(self, leader) -> None:
+        """Make this engine rank 0 of a served tp group: handler-thread
+        submissions and cancellations wait in the intake, and every
+        step_many first sends them to the other ranks as a plan
+        (tp_plan.PlanLeader.dispatch_point), then applies them."""
+        if self.group.size <= 1:
+            raise ValueError("bind_plan needs a tp group (mesh of size > 1)")
+        self._leader = leader
+
+    def has_work(self) -> bool:
+        """True when a dispatch has something to do: active slots, queued
+        or intake requests, cancellations, handoffs or exports."""
+        with self._lock:
+            waiting = (self._queue or self._intake or self._cancels
+                       or self._remote_inbox or self._export_inbox)
+        return bool(waiting) or any(not s.free for s in self._pool)
+
+    def apply_plan(self, intake: list, cancels: list, remote: list,
+                   exports: list) -> None:
+        """One plan's inputs, applied in the same order on every rank:
+        admissions queued (a follower registers its mirrored requests
+        first; rank 0 registered them before its plan went out), shipped
+        pages adopted and their requests queued, cancellations, then page exports
+        gathered across the tp ranks (rank 0 answers the waiting
+        handler)."""
+        follower = self._leader is None
+        for req in intake:
+            if follower:
+                self._register(req)
+            self._enqueue(req)
+        for tokens, planes, req in remote:
+            self.adopt_remote(tokens, planes)
+            if follower:
+                self._register(req)
+            self._enqueue(req)
+        for req in cancels:
+            self._cancel_now(req)
+        if exports:
+            from .disagg import export_prefix_pages
+            from ..parallel.tp import gather_page_planes
+
+            q8 = self.kv_quant == "q8"
+            for tokens, box in exports:
+                try:
+                    planes = [gather_page_planes(p, self.group, q8)
+                              for p in export_prefix_pages(self, tokens)]
+                    if box is not None:
+                        box["planes"] = planes
+                finally:
+                    if box is not None:
+                        box["ev"].set()
 
     def ingest_remote(self, tokens, planes, req: Request) -> None:
         """Thread-safe handoff intake (decode pool): queue shipped page
@@ -1574,7 +1640,11 @@ class ContinuousEngine:
         """Scheduler-thread half of ingest_remote/export_prefix_sync: adopt
         shipped pages into the radix tree (promotion-pending) and submit
         their requests, so admission finds the prefix published; answer
-        pending page exports from the tree."""
+        pending page exports from the tree. Under a PlanLeader only the
+        plan point drains them (the followers adopt and gather with rank
+        0), so this returns at once."""
+        if self._leader is not None:
+            return
         with self._lock:
             if not (self._remote_inbox or self._export_inbox):
                 return
@@ -1918,6 +1988,17 @@ class ContinuousEngine:
         queue insert (write-ahead: the scheduler never samples for an id
         the journal has not admitted). ``req.done`` fires when it
         retires."""
+        self._register(req)
+        with self._lock:
+            if self._leader is not None:
+                self._intake.append(req)  # the next plan carries it
+                return req
+        self._enqueue(req)
+        return req
+
+    def _register(self, req: Request) -> None:
+        """submit's books: the id, the ledger, the trace and the journal's
+        admit record."""
         if not req.tokens:
             raise ValueError("request has no prompt tokens")
         if not req.prejournaled:
@@ -1932,16 +2013,26 @@ class ContinuousEngine:
         self._trace_admit(req)
         if self._journal is not None and not req.prejournaled:
             self._journal_admit(req)
+
+    def _enqueue(self, req: Request) -> None:
         with self._lock:
             self._queue.append(req)
             if self._obs is not None:
                 self._obs.set_queue_depth(len(self._queue))
-        return req
 
     def cancel(self, req: Request) -> None:
         """Cancel a request from any thread: a queued one completes now,
         an in-flight one retires (freeing its slot and pages) before the
-        next dispatch."""
+        next dispatch. Under a PlanLeader the cancellation waits for the
+        next plan, which every rank applies at the same point."""
+        req.on_token = None
+        if self._leader is not None:
+            with self._lock:
+                self._cancels.append(req)
+            return
+        self._cancel_now(req)
+
+    def _cancel_now(self, req: Request) -> None:
         req.on_token = None
         req.cancelled = True
         with self._lock:
@@ -1961,7 +2052,8 @@ class ContinuousEngine:
         """Fail every queued and in-flight request: ``error`` then
         ``done``; the radix tree is torn down with them."""
         with self._lock:
-            pending, self._queue = self._queue, []
+            pending, self._queue = self._queue + self._intake, []
+            self._intake, self._cancels = [], []
             if self._obs is not None:
                 self._obs.set_queue_depth(0)
         for req in pending:

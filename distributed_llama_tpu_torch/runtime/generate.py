@@ -62,7 +62,7 @@ from ..ops import attention, layer, q40
 from ..ops._build import build
 from ..parallel import collectives
 from ..parallel.comm_stats import (CommStats, ici_all_gather_bytes,
-                                   tp_collective_budget)
+                                   sp_lse_bytes, tp_collective_budget)
 from ..parallel.mesh import TPGroup, single
 from ..utils.rng import Xorshift64
 from .decode import DecodeLoop
@@ -75,10 +75,11 @@ def _no_capture(group: TPGroup, device: torch.device,
     collectives: gloo's run on host threads, and a capture over NCCL hung
     in a 4-card run, so the caller asks for graph=False (nothing drops to
     eager on its own)."""
-    if device.type == "cuda" and graph is not False and group.size > 1:
+    if device.type == "cuda" and graph is not False and group.sharded:
         raise ValueError(
             f"not yet ported: a CUDA graph over the tp group's collectives "
-            f"({group.backend}, tp={group.size}); pass graph=False")
+            f"({group.backend}, tp={group.size}, sp={group.sp_size}); pass "
+            f"graph=False")
 
 
 def _tp_model(spec: TransformerSpec, params: dict[str, Any],
@@ -117,7 +118,7 @@ class Engine:
             # build (or find) the kernels now, not inside the first token
             build([*q40.KERNELS, *q40.HELPERS, *attention.KERNELS,
                    *attention.HELPERS, *layer.KERNELS])
-        if self.group.size > 1:
+        if self.group.sharded:
             # ``params`` is the rank's host tree of bands
             self.model = _tp_model(spec, params, self.group, scheme,
                                    with_body(KERNELS, body))
@@ -131,10 +132,13 @@ class Engine:
         self._loops: dict = {}
 
     def comm_stats(self) -> CommStats:
-        """The per-token collective bytes of this engine's scheme (0 on one
-        device)."""
-        return ici_all_gather_bytes(self.spec, self.group.size,
-                                    self.tp_scheme)
+        """The per-token collective bytes of this engine's scheme and of
+        the sp combine (0 on one device)."""
+        tp_st = ici_all_gather_bytes(self.spec, self.group.size,
+                                     self.tp_scheme)
+        sp_st = sp_lse_bytes(self.spec, self.group.sp_size, self.group.size)
+        return CommStats(tp_st.sent_bytes + sp_st.sent_bytes,
+                         tp_st.recv_bytes + sp_st.recv_bytes)
 
     @torch.inference_mode()
     def infer(self, token: int, pos: int) -> np.ndarray:
@@ -386,7 +390,7 @@ def generate(engine: Engine, tokenizer: Tokenizer, sampler: Sampler,
             print(f"Avg transfer time:   {t:.2f} ms")
             print(f"Latency ms/token:    p50 {lat['p50']:.2f}  "
                   f"p95 {lat['p95']:.2f}  p99 {lat['p99']:.2f}")
-            if engine.group.size > 1:
+            if engine.group.sharded:
                 _print_census(engine, census, stats.tokens)
         log_event("run.summary", None, tokens=stats.tokens,
                   avg_ms=round(stats.total_ms / stats.tokens, 3),
@@ -402,12 +406,21 @@ def _print_census(engine: Engine, before: dict, tokens: int) -> None:
     now = collectives.CENSUS.kind_counts()
     got = {k: (now.get(k, 0) - before.get(k, 0)) / tokens
            for k in collectives.KINDS if now.get(k, 0) - before.get(k, 0)}
-    budget = tp_collective_budget(engine.spec, engine.group.size,
-                                  engine.tp_scheme)
-    print(f"Collectives/token:   {sum(got.values()):g} "
-          f"({', '.join(f'{k} {v:g}' for k, v in got.items())}), budget "
-          f"{budget.n_collectives} ({engine.tp_scheme}, tp "
-          f"{engine.group.size}, {engine.group.backend})")
+    sp = {k: got.pop(k) for k in ("sp_pmax", "sp_psum") if k in got}
+    g = engine.group
+    if g.size > 1:
+        budget = tp_collective_budget(engine.spec, g.size, engine.tp_scheme)
+        print(f"Collectives/token:   {sum(got.values()):g} "
+              f"({', '.join(f'{k} {v:g}' for k, v in got.items())}), "
+              f"budget {budget.n_collectives} ({engine.tp_scheme}, tp "
+              f"{g.size}, {g.backend})")
+    if g.sp_size > 1:
+        # the LSE combine: one pmax and two psums a layer
+        print(f"SP collectives/token: {sum(sp.values()):g} "
+              f"({', '.join(f'{k} {v:g}' for k, v in sp.items())}), budget "
+              f"{3 * engine.spec.n_layers} (sp {g.sp_size}, "
+              f"{sp_lse_bytes(engine.spec, g.sp_size, g.size).sent_bytes} "
+              f"bytes)")
 
 
 def _truncate(tokens) -> list[int]:
@@ -540,7 +553,7 @@ def generate_batch(spec: TransformerSpec, params: dict[str, Any],
     ``group`` the step is the rank's tensor-parallel forward_batch (K5 over
     its kv heads), ``params`` the rank's host tree of bands."""
     group = group or single(device)
-    device = group.device if group.size > 1 else torch.device(device)
+    device = group.device if group.sharded else torch.device(device)
     _no_capture(group, device, graph)
     batch = len(prompts)
     steps = min(steps, spec.seq_len)
@@ -558,7 +571,7 @@ def generate_batch(spec: TransformerSpec, params: dict[str, Any],
 
     if device.type == "cuda":
         build([*q40.KERNELS, *attention.KERNELS])
-    if group.size > 1:
+    if group.sharded:
         model = _tp_model(spec, params, group, scheme,
                           with_body(KERNELS, body))
     else:

@@ -42,8 +42,16 @@ admits by SLO rank and parks batch prefills for interactive arrivals
 (disagg.make_priority_hold); the decode role forwards every prompt of at
 least ``handoff_min_pages`` full pages to ``disagg_peer``, fetches the
 shipped pages and re-admits the request from its journal record. A peer
-failure of any kind serves the request locally. Serving over a tp group
-(and so tiering or disaggregation under it) is not yet ported.
+failure of any kind serves the request locally.
+
+Over a tp group (``mesh`` of size > 1, with ``tp_channel`` a
+runtime/tp_plan.PlanChannel) this server is rank 0: its engine sends each
+dispatch's plan to the other ranks (tp_plan.follow_loop) before it
+launches, every rank runs eager steps (a CUDA graph over the group's
+collectives is not yet ported), /health gains a ``tp`` block, drain and
+stop send the shutdown plan, and a dispatch that fails (a follower gone,
+a digest parted) fails every pending request and ends the server: the
+caller exits non-zero (``tp_error``).
 
 Threading model: ThreadingHTTPServer handles each connection on its own
 thread; handlers only encode, submit (thread-safe) and wait on the
@@ -124,12 +132,20 @@ class InferenceServer:
                  disagg_role: str | None = None,
                  disagg_peer: str | None = None,
                  page_channel_port: int = 0, handoff_min_pages: int = 2,
-                 chaos=None):
+                 chaos=None, tp_channel=None, tp_alive=None):
+        self._tp = None
+        # under tp: () -> None while every follower lives, else its error
+        self._tp_alive = tp_alive
         if mesh is not None and mesh.size > 1:
-            raise ValueError(
-                "not yet ported: serving over a tp group (the scheduler "
-                "would have to send each dispatch's plan to the other "
-                "ranks)")
+            if tp_channel is None:
+                raise ValueError("serving over a tp group needs its plan "
+                                 "channel (runtime/tp_plan.PlanChannel)")
+            if mesh.sp_size > 1:
+                raise ValueError("serve runs the paged pool: sp must be 1")
+            self._tp = tp_channel
+            graph = False  # eager steps: no graph over the collectives
+        # a failed dispatch under tp (a follower gone, books parted)
+        self.tp_error: str | None = None
         self.spec = spec
         self.tokenizer = tokenizer
         self.default_steps = steps
@@ -203,7 +219,9 @@ class InferenceServer:
                                        journal=journal,
                                        watchdog=self._watchdog,
                                        kv_quant=kv_quant, device=device,
-                                       graph=graph,
+                                       graph=graph, mesh=(
+                                           mesh if self._tp is not None
+                                           else None),
                                        kv_host_pages=kv_host_pages,
                                        kv_disk_dir=kv_disk_dir,
                                        kv_disk_bytes=kv_disk_bytes,
@@ -212,6 +230,10 @@ class InferenceServer:
                                        slo_priority=(
                                            disagg_role == "prefill"
                                            and slo is not None))
+        if self._tp is not None:
+            from .tp_plan import PlanLeader
+
+            self.engine.bind_plan(PlanLeader(tp_channel))
         if disagg_role == "prefill":
             from .disagg import make_priority_hold
             from .page_channel import PageChannelServer
@@ -268,6 +290,7 @@ class InferenceServer:
         if self.recovered:
             self.flightrec.note("server.recovered", n=self.recovered)
         self._shutdown = threading.Event()
+        self._stop_requested = threading.Event()  # SIGTERM, a tp failure
         self._stopped = threading.Event()  # stop() ran to completion
         self._ready = threading.Event()  # the scheduler's device set-up
         self._ready_error: BaseException | None = None
@@ -976,6 +999,24 @@ class InferenceServer:
         # (evidence stays on /debug/incidents — health is a heartbeat,
         # not a forensics dump)
         payload["watch"] = self._watch.snapshot()
+        if self._tp is not None:
+            from ..ops._build import ALL
+            from ..parallel import collectives
+
+            g = eng.group
+            payload["tp"] = {"ranks": g.size, "scheme": eng.model.scheme,
+                             "backend": g.backend,
+                             "plans_sent": self._tp.sent,
+                             "last_digest": self._tp.last_digest,
+                             "plan_ms": self._tp.plan_ms(),
+                             "timeout_s": self._tp.timeout_s,
+                             "error": self.tp_error,
+                             "forwards": eng.model.forwards,
+                             "logit_forwards": eng.model.logit_forwards,
+                             "collectives": collectives.CENSUS.kind_counts(),
+                             # rank 0's kernel launches since it started
+                             "launches": {k.symbol: k.launches
+                                          for k in ALL if k.launches}}
         if self.registry is not None:
             for key, name in (
                     ("ttft_s", "dllama_request_ttft_seconds"),
@@ -1084,10 +1125,22 @@ class InferenceServer:
         finally:
             self._ready.set()
         while not self._shutdown.is_set():
+            if self._tp is not None and not self.engine.has_work():
+                # idle: no plan, no dispatch; a follower that died while
+                # the server idled ends it all the same
+                gone = self._tp_alive() if self._tp_alive else None
+                if gone is not None:
+                    self._tp_failed(RuntimeError(gone))
+                    return
+                time.sleep(_IDLE_SLEEP_S)
+                continue
             try:
                 active = self.engine.step_many(self.engine.block_steps,
                                                quiet=self.quiet)
             except Exception as e:
+                if self._tp is not None:
+                    self._tp_failed(e)
+                    return
                 # a dead scheduler must not leave clients blocked forever:
                 # fail everything queued/in flight (handlers answer 500) and
                 # keep the loop alive — a persistent device fault just fails
@@ -1114,9 +1167,34 @@ class InferenceServer:
             if active == 0:
                 time.sleep(_IDLE_SLEEP_S)
 
+    def _tp_failed(self, e: BaseException) -> None:
+        """A dispatch over the tp group failed: the group cannot go on in
+        step. Fail everything pending (handlers answer as after fail_all)
+        and end serve_forever; the caller exits non-zero."""
+        import traceback
+
+        traceback.print_exc()
+        self.tp_error = f"{type(e).__name__}: {e}"
+        log_event("scheduler.tp_failed",
+                  f"🔶 tp dispatch failed: {e!r}; failing pending requests "
+                  f"and stopping", error=self.tp_error)
+        self.engine.fail_all(f"tp group failed: {self.tp_error}")
+        self._shutdown.set()
+        self._stop_requested.set()
+
+    def _send_shutdown(self) -> None:
+        """Under tp: the shutdown plan, once, after the scheduler stopped
+        (never after a failed dispatch: the group is gone)."""
+        if self._tp is None or self.tp_error is not None:
+            return
+        try:
+            self._tp.send_shutdown()
+        except Exception as e:  # a follower already gone
+            self.tp_error = f"{type(e).__name__}: {e}"
+
     def _outstanding(self) -> int:
         with self.engine._lock:
-            queued = len(self.engine._queue)
+            queued = len(self.engine._queue) + len(self.engine._intake)
         return queued + sum(not s.free for s in self.engine._pool)
 
     def _scheduler_stopped(self, timeout: float) -> bool:
@@ -1161,7 +1239,7 @@ class InferenceServer:
         drain gracefully — stop admission, finish in-flight work within the
         drain budget, journal whatever remains — and return (exit 0)."""
         self.start()
-        stop_requested = threading.Event()
+        stop_requested = self._stop_requested
         prev_handler = None
         try:
             prev_handler = signal.signal(
@@ -1207,6 +1285,7 @@ class InferenceServer:
         # suspend could double-process a request's slot
         self._shutdown.set()
         sched_ok = self._scheduler_stopped(30)
+        self._send_shutdown()
         remainder = self._outstanding()
         if remainder and sched_ok:
             if self.journal is not None:
@@ -1248,6 +1327,7 @@ class InferenceServer:
         self._watch_stop.set()
         self.httpd.shutdown()
         sched_ok = self._scheduler_stopped(30)
+        self._send_shutdown()
         for t in self._threads[1:]:
             t.join(timeout=5)
         if self._outstanding() and sched_ok:

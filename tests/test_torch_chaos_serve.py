@@ -2,7 +2,8 @@
 
 * the port's CLI parses --chaos through ChaosMonkey.parse: a bad spec
   exits 2 with the JAX CLI's ``serve: …`` message, a good one prints the
-  JAX CLI's 🔶 CHAOS ARMED banner on stderr and goes on to the load;
+  JAX CLI's 🔶 CHAOS ARMED banner on stderr and goes on to the load (at
+  --tp 2 too);
 * the server drops a disconnected stream's KV pages and counts an
   oversized prompt (the twins of tests/test_chaos.py's server cases);
 * a server armed with ``step_delay_every=1`` has its stream open at
@@ -70,14 +71,13 @@ def test_chaos_banner_on_stderr_then_the_load(tmp_path, capsys):
 
 
 def test_tp_above_one_still_refused(tmp_path, capsys):
-    from distributed_llama_tpu_torch.frontend.cli import main
-
-    rc = main(["serve", "--model", str(tmp_path / "m.bin"), "--tokenizer",
-               str(tmp_path / "t.bin"), "--device", "cpu", "--chaos",
-               "deny_pages=1", "--tp", "2"])
-    err = capsys.readouterr().err
-    assert rc == 2 and "not yet ported: --tp 2" in err
-    assert "CHAOS ARMED" not in err  # refused before anything else
+    """serve --tp 2 is ported: with --chaos it ends as the JAX CLI's does
+    (the banner, then the load of the absent model; the port reads the
+    header before it spawns a rank)."""
+    jax, port = _serve_both(["--chaos", "deny_pages=1", "--tp", "2"],
+                            tmp_path, capsys)
+    assert port == jax and port[0] == "load"
+    assert "CHAOS ARMED" in port[1] and "not yet ported" not in port[1]
 
 
 def _metric(port, name):

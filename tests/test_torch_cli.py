@@ -4,8 +4,8 @@ model: token streams must be equal, greedy and seeded (temperature 0.8,
 top-p 0.9, the numpy sampler on both sides), token by token and with
 ``--prefill-chunk``, q80 buffers, ``--fast-prefill`` and a bf16 KV cache,
 ``--profile`` / DLLAMA_PROFILE_DIR and ``--save-state`` / ``--resume-state``.
-Unported flags exit 2 before the model loads; the CUDA default fails
-without a GPU."""
+Flag combinations end as the JAX CLI's do (its checks' exit 2 and message
+before the model loads); the CUDA default fails without a GPU."""
 
 import ast
 import re
@@ -160,35 +160,23 @@ UNPORTED = [["--tp", "2", "--kv-disk-dir", "d"], ["--sp", "2"],
             ["--coordinator", "h:1", "--seed", "1", "--log-json",
              "--kv-disk-gb", "1"],
             ["--model-from-root", "h:1", "--kv-disk-dir", "d"]]
-CONTINUOUS_FLAGS = ("--continuous", "--slots", "--block-steps", "--kv-pages",
-                    "--kv-page-size", "--kv-quant", "--spec-k",
-                    "--spec-ngram", "--dispatch-tokens")
-
-
-TIER_FLAGS = ("--kv-host-pages", "--kv-disk-dir", "--kv-disk-gb")
-
-
-def _unported_flag(extra):
-    """The flag the error must name: the first one that is not ported in
-    this combination (the continuous engine's flags are ported with
-    --prompts-file --continuous; the tensor-parallel, weight-streaming and
-    KV tier ones everywhere), or None when every flag is ported."""
-    ported = ("--fast", "--prompts-file", "--tp", "--tp-scheme",
-              "--workers", "--coordinator", "--seed", "--stream-slices",
-              "--model-from-root", "--metrics", "--log-json", *TIER_FLAGS)
-    if "--continuous" in extra and "--prompts-file" in extra:
-        ported += CONTINUOUS_FLAGS
-    return next((a for a in extra if a.startswith("--")
-                 and a not in ported), None)
+def _outcome(run):
+    """(rc, stderr) of a CLI call, or ("load", the error's type) where the
+    call passed every check and failed at the load of the absent model."""
+    try:
+        return run(), None
+    except FileNotFoundError as e:
+        return "load", type(e).__name__
 
 
 @pytest.mark.parametrize("extra", UNPORTED, ids=lambda a: a[0])
 def test_unported_flags_exit_2_before_loading(extra, capsys, tmp_path,
                                               monkeypatch):
-    """The model path does not exist: exit 2 proves the CLI stopped before
-    any load. Where every flag is ported (a KV tier flag the JAX CLI's
-    checks refuse in this combination), the exit and the message are the
-    JAX CLI's for the same argv."""
+    """The model path does not exist. Every flag of ``inference`` is ported,
+    so the port ends as the JAX CLI does for the same argv: exit 2 with the
+    JAX CLI's message where one of its checks refuses the combination
+    (before any load), else past every check at the load of the absent
+    model."""
     from distributed_llama_tpu.frontend.cli import \
         cmd_inference as jax_inference
     from distributed_llama_tpu_torch.frontend.cli import main
@@ -200,16 +188,17 @@ def test_unported_flags_exit_2_before_loading(extra, capsys, tmp_path,
         monkeypatch.delenv(key)
     base = ["--model", str(tmp_path / "absent.bin"),
             "--tokenizer", str(tmp_path / "absent.tok")]
-    rc = main(["inference", *base, "--device", "cpu", *extra])
-    assert rc == 2
-    err = capsys.readouterr().err
-    flag = _unported_flag(extra)
-    if flag is not None:
-        assert "not yet ported" in err and flag in err
-        return
-    assert any(a in TIER_FLAGS for a in extra)
-    assert jax_inference([*base, *extra]) == 2
-    assert err == capsys.readouterr().err and "not yet ported" not in err
+    port = _outcome(lambda: main(["inference", *base, "--device", "cpu",
+                                  *extra]))
+    port_err = capsys.readouterr().err
+    for key in ("DLLAMA_KV_QUANT", "DLLAMA_LOG_JSON", "DLLAMA_TP_SCHEME"):
+        monkeypatch.delenv(key, raising=False)
+    jax = _outcome(lambda: jax_inference([*base, *extra]))
+    jax_err = capsys.readouterr().err
+    assert port == jax
+    assert "not yet ported" not in port_err
+    if port[0] == 2:
+        assert port_err == jax_err and port_err
 
 
 @pytest.mark.parametrize("chunk", [[], ["--prefill-chunk", "1"]],

@@ -5,7 +5,7 @@ the port does not run on this path (--dispatch-tokens 0, --num-hosts 1,
 --kv-host-pages 0, --spec-ngram N without --spec-k). On the
 tests/test_torch_cli.py fixture model, greedy, the port (--device cpu) must
 exit as the JAX CLI does (run with --tp 1) and print its token stream.
-Values that need an unported feature still exit 2 "not yet ported"."""
+Values that need the paged pool exit 2 with the JAX CLI's message."""
 
 import pytest
 from test_torch_cli import model_files  # noqa: F401  (the fixture model)
@@ -77,13 +77,11 @@ def test_port_runs_the_jax_stream_under_neutral_flags(model_files,  # noqa: F811
 
 @pytest.mark.parametrize("extra", [
     ["--dispatch-tokens", "-1"], ["--kv-host-pages", "8"],
-    # --spec-k (and so its drafter's --spec-ngram) runs only in the
-    # continuous engine
     ["--spec-ngram", "3", "--spec-k", "4"]], ids=lambda a: "-".join(a[:2]))
 def test_other_values_stay_unported(extra, capsys, tmp_path, monkeypatch):
     """The model path does not exist: exit 2 proves the CLI stopped before
-    any load. --kv-host-pages is ported: without --kv-page-size it exits 2
-    with the JAX CLI's own check and message."""
+    any load. Each value needs the paged pool, and without --kv-page-size
+    the port exits 2 with the JAX CLI's own check and message."""
     from distributed_llama_tpu.frontend.cli import \
         cmd_inference as jax_inference
     from distributed_llama_tpu_torch.frontend.cli import main
@@ -98,8 +96,6 @@ def test_other_values_stay_unported(extra, capsys, tmp_path, monkeypatch):
     rc = main(["inference", *base, "--device", "cpu", *extra])
     assert rc == 2
     err = capsys.readouterr().err
-    if extra[0] == "--kv-host-pages":
-        assert jax_inference([*base, *extra]) == 2
-        assert err == capsys.readouterr().err and "--kv-page-size" in err
-        return
-    assert "not yet ported" in err and f"{extra[0]} {extra[1]}" in err
+    assert jax_inference([*base, *extra]) == 2
+    assert err == capsys.readouterr().err and "--kv-page-size" in err
+    assert "not yet ported" not in err

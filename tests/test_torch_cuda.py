@@ -2186,6 +2186,130 @@ def test_tp2_gloo_step_on_the_card_matches_tp1(gen, tmp_path):
                                                                     err)
 
 
+SP_CALLS = [(list(range(1, 13)), 0), ([3], 12),
+            (list(range(2, 22)), 13), ([7], 33)]  # crosses position 32
+
+
+def _sp_card_rank(rank, world, port, out):
+    """A gloo rank of sp 2 on cuda:0 (its ranks share the card): the
+    SP_CALLS over the sp-sharded cache (K3 and K1 for the products, the
+    LSE combine over sp in torch); rank 0 saves the logits."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from distributed_llama_tpu_torch.parallel.mesh import TPGroup
+    from distributed_llama_tpu_torch.parallel.tp import make_sharded_forward
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    group = TPGroup(0, 1, None, torch.device("cuda", 0), rank, world,
+                    dist.group.WORLD)
+    model = make_sharded_forward(TP_SPEC, synth_params(TP_SPEC, True, seed=3),
+                                 group, "fused")
+    cache = llama.init_cache(model.spec, group.device)
+    with torch.inference_mode():
+        got = [model(cache, t, p).cpu() for t, p in SP_CALLS]
+    if rank == 0:
+        with open(out, "wb") as fh:
+            pickle.dump(got, fh)
+    dist.destroy_process_group()
+
+
+def test_sp2_gloo_forward_on_the_card_matches_one_device(gen, tmp_path):
+    """Two gloo sp ranks sharing the card (position chunks of 32) against
+    the one-device forward through the same kernels, across the chunk
+    boundary: within LOGIT_RTOL x max (the combine sums in another
+    order)."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    from distributed_llama_tpu_torch.parallel.mesh import free_port
+
+    out = tmp_path / "sp2.pkl"
+    mp.start_processes(_sp_card_rank, args=(2, free_port(), str(out)),
+                       nprocs=2, start_method="spawn")
+    with open(out, "rb") as fh:
+        got = pickle.load(fh)
+    model = llama.Llama(TP_SPEC, llama.params_to_device(
+        synth_params(TP_SPEC, True, seed=3), "cuda"))
+    cache = llama.init_cache(TP_SPEC, "cuda")
+    with torch.inference_mode():
+        want = [model(cache, t, p).cpu() for t, p in SP_CALLS]
+    for a, b in zip(got, want):
+        err = (a - b).abs().max().item()
+        assert err <= llama.LOGIT_RTOL * b.abs().max().item(), err
+
+
+def test_serve_tp2_gloo_on_the_card_serves_the_tp1_tokens(gen, tmp_path):
+    """``serve --tp 2`` on one card (gloo ranks sharing it, rank 0
+    sending each dispatch's plan) against ``serve`` on one device: four
+    concurrent greedy requests give the same tokens, the follower follows
+    every plan, and both exit 0 on SIGTERM."""
+    import json
+    import re
+    import signal
+    import subprocess
+    import sys
+    import threading
+    import urllib.request
+    from pathlib import Path
+
+    from distributed_llama_tpu_torch.io.loader import write_model
+
+    model = tmp_path / "m.bin"
+    write_model(str(model), TP_SPEC, synth_params(TP_SPEC, True, seed=3))
+    tok = _serve_tokenizer(tmp_path / "t.bin", TP_SPEC.vocab_size)
+    root = Path(__file__).resolve().parents[1]
+    prompts = [" ".join(f"w{4 + (7 * i + j) % 500}" for j in range(n))
+               for i, n in enumerate((3, 9, 17, 6))]
+
+    def serve(extra):
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "distributed_llama_tpu_torch", "serve",
+             "--model", str(model), "--tokenizer", tok, "--port", "0",
+             "--slots", "4", "--kv-page-size", "8", "--prefill-chunk", "8",
+             "--temperature", "0", "--seed", "1", *extra], cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        port, head = None, []
+        for line in proc.stdout:
+            head.append(line)
+            m = re.search(r"serving on http://[\d.]+:(\d+)", line)
+            if m:
+                port = int(m.group(1))
+            if port and ("🌐 tp:" in line or not extra):
+                break
+        out = [None] * len(prompts)
+
+        def go(i):
+            rq = urllib.request.Request(
+                f"http://127.0.0.1:{port}/generate",
+                data=json.dumps({"prompt": prompts[i], "steps": 40}).encode())
+            with urllib.request.urlopen(rq, timeout=300) as r:
+                out[i] = json.loads(r.read())["tokens"]
+
+        threads = [threading.Thread(target=go, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        proc.send_signal(signal.SIGTERM)
+        rest = "".join(head) + proc.stdout.read()
+        assert proc.wait(120) == 0, rest
+        return out, rest
+
+    one, _ = serve([])
+    two, rest = serve(["--tp", "2"])
+    assert two == one
+    assert "ranks over gloo sharing" in rest or \
+        torch.cuda.device_count() >= 2, rest
+    sent = re.search(r"sent (\d+) dispatch plans", rest).group(1)
+    assert f"followed {sent} plans" in rest
+
+
 SERVER_CASES = {  # label -> the server's engine options, paged f32
     "step": {},
     "chain4": {"block_steps": 4},

@@ -1,8 +1,7 @@
 """The port's ``serve`` mode (frontend/cli.cmd_serve) against the JAX
 CLI's: every exit-2 check gives the JAX CLI's code and message for the
-same argv, a corrupt journal its exit 1, and the flag the port does not
-run yet (--tp above 1) exits 2 "not yet ported" — all before any load
-(the model path does not exist). The disaggregation, KV tier and chaos
+same argv, and a corrupt journal its exit 1, all before any load (the
+model path does not exist). The disaggregation, KV tier, chaos and tp
 flags are ported: their checks are the JAX CLI's, and an argv both CLIs
 accept goes on to the load (FileNotFoundError on the absent model), or
 with --supervise to the supervisor (recorded here, not spawned). Then ``python -m distributed_llama_tpu_torch serve
@@ -87,47 +86,36 @@ REFUSED = [["--chaos", "step_delay_every=1"],
            ["--supervise", "--chaos", "x"]]
 
 
-# still refused: --tp above 1; every other case is ported now
-STILL_REFUSED = ("--tp",)
-
-
 @pytest.mark.parametrize("argv", REFUSED, ids=lambda a: "_".join(a))
 def test_unported_flags_exit_2_before_loading(argv, tmp_path, capsys,
                                               monkeypatch):
+    """Every flag of serve is ported (--tp above 1 too): the JAX CLI's
+    check and message, or, where both accept the argv, the load proceeds
+    (FileNotFoundError on the absent model; under --tp 2 the port reads
+    the header before it spawns a rank). With --supervise both re-exec
+    first: the child command each would supervise is recorded instead
+    of spawned."""
     from distributed_llama_tpu.runtime import supervisor as jax_sup
     from distributed_llama_tpu_torch.runtime import supervisor as port_sup
 
     flag = next(a for a in argv if a != "--supervise")
-    if flag not in STILL_REFUSED:
-        # the disaggregation, tier and chaos flags: the JAX CLI's check
-        # and message, or, where both accept the argv, the load proceeds
-        # (with --supervise both re-exec first: the child command each
-        # would supervise is recorded instead of spawned)
-        children = []
-        for mod in (jax_sup, port_sup):
-            monkeypatch.setattr(mod, "supervise", lambda cmd, **kw:
-                                children.append(cmd) or 0)
-        outs = []
-        for run in _runs(argv, tmp_path):
-            try:
-                outs.append((run(), capsys.readouterr().err))
-            except FileNotFoundError as e:
-                outs.append(("load", str(e)))
-            for key in ("DLLAMA_KV_QUANT", "DLLAMA_LOG_JSON"):
-                os.environ.pop(key, None)
-        jax, port = outs
-        assert port == jax and "not yet ported" not in str(port[1])
-        if "--supervise" in argv:
-            assert len(children) == 2 and all(
-                flag in c and "--supervise" not in c for c in children)
-        return
-    from distributed_llama_tpu_torch.frontend.cli import main
-
-    rc = main(["serve", "--model", str(tmp_path / "absent.bin"),
-               "--tokenizer", str(tmp_path / "absent.tok"), "--device",
-               "cpu", *argv])
-    err = capsys.readouterr().err
-    assert rc == 2 and "not yet ported" in err and flag in err
+    children = []
+    for mod in (jax_sup, port_sup):
+        monkeypatch.setattr(mod, "supervise", lambda cmd, **kw:
+                            children.append(cmd) or 0)
+    outs = []
+    for run in _runs(argv, tmp_path):
+        try:
+            outs.append((run(), capsys.readouterr().err))
+        except FileNotFoundError as e:
+            outs.append(("load", str(e)))
+        for key in ("DLLAMA_KV_QUANT", "DLLAMA_LOG_JSON"):
+            os.environ.pop(key, None)
+    jax, port = outs
+    assert port == jax and "not yet ported" not in str(port[1])
+    if "--supervise" in argv:
+        assert len(children) == 2 and all(
+            flag in c and "--supervise" not in c for c in children)
 
 
 class _Child:
