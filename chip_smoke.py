@@ -2017,6 +2017,35 @@ def _run_cli(torch, model, tok, args: list[str], env=None, gaps=None,
     return buf.getvalue(), launches, wall, finite
 
 
+def _reuse_loads(path):
+    """From now on, io/loader.load_model of ``path`` (the 7B smoke file,
+    read in this process) returns the host tree it read the first time,
+    a fresh dict over the same arrays, with its spec read anew (runs
+    differ in the buffer type): every in-process CLI run and phase after
+    run a skips the ~3.5 s read of the same 4.2 GB; run a reads the file,
+    and child processes read it themselves. Returns the undo."""
+    from distributed_llama_tpu_torch.io import loader
+
+    real = loader.load_model
+    cache = {}
+
+    def load(p, spec=None, weights_float_type=loader.FloatType.F32,
+             buffer_float_type=loader.FloatType.F32):
+        if str(p) != str(path):
+            return real(p, spec, weights_float_type, buffer_float_type)
+        if spec is None:
+            spec = loader.read_spec(p, weights_float_type, buffer_float_type)
+        if spec.weights_float_type not in cache:
+            cache[spec.weights_float_type] = real(p, spec=spec)[1]
+        return spec, dict(cache[spec.weights_float_type])
+
+    loader.load_model = load
+
+    def undo():
+        loader.load_model = real
+
+    return undo
+
 def phase_e2e(torch, model, tok):
     """Run a; also returns its token stream and its per-step top-2 logit
     gaps (the reference of the fused runs o and p)."""
@@ -4169,13 +4198,14 @@ def continuous_full_width(torch, engine, tokenizer, batch):
     prefill at CONT_CHUNK, fused chains of 16 captured steps, greedy, for
     the contiguous cache and f32, bf16 and Q8 pages, and over f32 pages
     verify dispatches (spec_k SPEC_K) and mixed ones (dispatch_tokens
-    MIXED_BUDGET; one engine each over the same device weights). After a
-    warm-up run of each (the captures), runs in turns (each case, then
-    the cases backwards; medians; the window cases one run each, after
-    the turns); then one run of each under
-    torch.profiler for the device time, read against its unprofiled
-    wall: the busy share, and the share of K3 with its parts. The
-    lockstep batch of the same call stands beside it."""
+    MIXED_BUDGET; one engine each over the same device weights). Each
+    engine captures its graphs first (ContinuousEngine.capture_graphs,
+    in place of a warm-up run), then one timed run of each, the window
+    cases last, whose streams give the f32-page against contiguous
+    equality; then one run of each under torch.profiler for the device
+    time, read against its unprofiled wall: the busy share, and the
+    share of K3 with its parts. The lockstep batch of the same call
+    stands beside it."""
     from distributed_llama_tpu_torch.runtime.continuous import \
         ContinuousEngine
 
@@ -4198,16 +4228,15 @@ def continuous_full_width(torch, engine, tokenizer, batch):
                           avg_active=st.avg_active, pauses=st.pauses,
                           requeues=st.requeues)
 
-    streams = {label: run(label)[0] for label in engines}  # captures
+    for eng in engines.values():
+        eng.capture_graphs()
+    runs, streams = {}, {}
+    for label in engines:  # the window cases last (CONT_CASES' order)
+        streams[label], row = run(label)
+        runs[label] = [row]
     if streams["f32 pages"] != streams["contiguous"]:
         raise AssertionError("continuous full width: the f32-page streams "
                              "differ from the contiguous engine's")
-    runs = {label: [] for label in engines}
-    # the window cases once each, outside the turns (run t's 115 padded
-    # dispatches take ~7 s a run)
-    order = [label for label in engines if label not in WINDOW_CASES]
-    for label in order + order[::-1] + list(WINDOW_CASES):
-        runs[label].append(run(label)[1])
     res = {}
     for label, eng in engines.items():
         mid = sorted(runs[label], key=lambda r: r["ms"])[0]
@@ -5898,6 +5927,346 @@ def phase_sp(torch, depth, dspec, tok, smi):
     return res, dict(launches)
 
 
+TRAIN_BATCH, TRAIN_SEQ = 4, 128   # the train runs' windows (tp 1's --batch,
+TRAIN_STEPS = 3                   # --seq), the CLI run's steps, and each
+TRAIN_GROUP_STEPS = 2             # gloo group's steps
+TRAIN_LR = 1e-4                   # the CLI's default
+TRAIN_CUT_DEPTH = 1     # (c)'s and (d)'s layers, at 7B width: the gloo
+#                         groups' gradient sums and (d)'s 5.6 GB checkpoint
+#                         move the embedding, wcls and one layer
+TRAIN_SEED = 1
+TRAIN_GROUPS = ((2, 1, 1), (1, 1, 2), (2, 1, 2), (1, 2, 1))  # (dp, sp, tp)
+TRAIN_LOSS_RTOL = 1e-5  # a group's losses against tp 1's (the sp gate)
+TRAIN_NARROW = dict(dim=256, hidden_dim=688, n_layers=2, n_heads=8,
+                    n_kv_heads=4, vocab_size=512, seq_len=64)
+
+
+def _train_corpus() -> str:
+    """A seeded corpus of short letter words: the windows of every train
+    run come from its tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(TRAIN_SEED)
+    letters = list(_LETTERS)
+    return " ".join("".join(rng.choice(letters, size=rng.integers(1, 6)))
+                    for _ in range(4000))
+
+
+def _train_windows(corpus, step: int, batch=TRAIN_BATCH):
+    """The train CLI's schedule: (batch, seq+1) windows, a pure function
+    of (seed, step)."""
+    import numpy as np
+
+    rng = np.random.default_rng((TRAIN_SEED, step))
+    starts = rng.integers(0, len(corpus) - TRAIN_SEQ, batch)
+    return np.stack([corpus[s:s + TRAIN_SEQ + 1] for s in starts])
+
+
+def _train_rank(rank, world, ports, out, depth, corpus):
+    """One of 4 processes sharing cuda:0. For each (dp, sp, tp) of
+    TRAIN_GROUPS the first dp x sp x tp of them join that mesh through
+    parallel/mesh.init_mesh on its own port (gloo: the ranks outnumber the
+    card), take TRAIN_GROUP_STEPS steps of parallel/train.make_train_step
+    (parallel/sp_train.make_sp_train_step at sp > 1) from the densified
+    ``depth`` model (TRAIN_CUT_DEPTH layers) over tp 1's windows, their
+    census read a step, and leave it, freeing the card; each rank pickles
+    its losses, census and ms a step."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from distributed_llama_tpu_torch.io.loader import (densify_params,
+                                                       load_model)
+    from distributed_llama_tpu_torch.ops.quants import FloatType
+    from distributed_llama_tpu_torch.parallel import collectives as C
+    from distributed_llama_tpu_torch.parallel.mesh import close, init_mesh
+    from distributed_llama_tpu_torch.parallel.sp_train import \
+        make_sp_train_step
+    from distributed_llama_tpu_torch.parallel.train import make_train_step
+
+    spec, host = load_model(depth, weights_float_type=FloatType.Q40)
+    dense = densify_params(host)
+    del host
+    torch.set_num_threads(1)  # the ranks share the host's cores
+    res = {}
+    for port, (dp, sp, tp) in zip(ports, TRAIN_GROUPS):
+        if rank >= dp * sp * tp:
+            continue
+        g = init_mesh(rank, sp, tp, f"tcp://localhost:{port}", "cuda",
+                      timeout_s=300, backend="gloo", dp=dp)
+        try:
+            make = make_sp_train_step if sp > 1 else make_train_step
+            init_fn, step_fn = make(spec, g, learning_rate=TRAIN_LR)
+            p, o = init_fn(dense)
+            run = dict(losses=[], census=[], ms=[])
+            for step in range(TRAIN_GROUP_STEPS):
+                C.CENSUS.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p, o, loss = step_fn(p, o, _train_windows(corpus, step))
+                run["losses"].append(float(loss))
+                run["ms"].append((time.perf_counter() - t0) * 1e3)
+                run["census"].append({k: c for k, (c, _) in
+                                      C.CENSUS.counts.items()})
+            res[(dp, sp, tp)] = run
+            del p, o, init_fn, step_fn
+            torch.cuda.empty_cache()
+        finally:
+            close(g)
+    with open(f"{out}.{rank}", "wb") as fh:
+        pickle.dump(res, fh)
+
+
+def _train_narrow(torch):
+    """(b)'s second half: step 0's loss and gradients of a narrow model
+    (TRAIN_NARROW, seeded) on the card against the same step on the CPU.
+    Returns (loss rel err, worst gradient err over the leaf's max)."""
+    import numpy as np
+
+    from distributed_llama_tpu_torch.models.spec import TransformerSpec
+    from distributed_llama_tpu_torch.parallel.train import (loss_and_grads,
+                                                            make_train_step)
+
+    spec = TransformerSpec(**TRAIN_NARROW)
+    rng = np.random.default_rng(TRAIN_SEED)
+
+    def t(*shape):
+        return (rng.standard_normal(shape) * 0.05).astype(np.float32)
+
+    tree = {"tok_embedding": t(spec.vocab_size, spec.dim),
+            "rms_final": 1 + t(spec.dim),
+            "wcls": t(spec.vocab_size, spec.dim),
+            "rms_att": 1 + t(spec.n_layers, spec.dim),
+            "rms_ffn": 1 + t(spec.n_layers, spec.dim)}
+    for name, shape in spec.layer_matmul_shapes():
+        tree[name] = t(spec.n_layers, *shape)
+    tok = torch.from_numpy(rng.integers(0, spec.vocab_size, (4, 33)))
+    got = {}
+    for dev in ("cpu", "cuda"):
+        init_fn, _ = make_train_step(spec, learning_rate=TRAIN_LR,
+                                     device=dev)
+        p, _ = init_fn(tree)
+        x = tok.to(dev)
+        loss, grads = loss_and_grads(spec, p, x[:, :-1], x[:, 1:],
+                                     x[:, 1:].numel())
+        got[dev] = float(loss), {k: v.cpu() for k, v in grads.items()}
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = got["cpu"], got["cuda"]
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    grad_err = max(float((g_gpu[k] - g).abs().max() / g.abs().max())
+                   for k, g in g_cpu.items())
+    return loss_err, grad_err
+
+
+def phase_train(torch, depth, dspec, tok, smi):
+    """train_full_width: training at 7B width, the weights a cut of the
+    Q40 smoke model densified to f32. At TP_DEPTH layers (1.07 B params):
+    (a) forward_seq's logits at the last position of one TRAIN_SEQ-token
+    window against the port's inference logits after a K3/K4 prefill of
+    the same tokens from the Q40 file (llama.LOGIT_RTOL of max|logit|;
+    K3 and K4 must launch); (b) the ``train`` CLI at tp 1, TRAIN_STEPS
+    steps at --batch TRAIN_BATCH --seq TRAIN_SEQ, losses finite and equal
+    to the library's (printed to 4 decimals), and a narrow model's step 0
+    on the card against the CPU (loss rtol 1e-5, gradients 1e-5 of each
+    leaf's max); (e) ms a step and tokens/s of the CLI's steps after the
+    first, its peak device memory. At TRAIN_CUT_DEPTH layers: (d) a 2 + 2
+    save/resume run in the library (its checkpoint of params and moments
+    written and read in full) gives the 4-step run's losses (rtol 1e-6,
+    the JAX gate); (c) gloo ranks sharing the card (_train_rank): dp 2,
+    tp 2, dp 2 x tp 2 and sp 2 give the tp 1 steps' losses within
+    TRAIN_LOSS_RTOL, their census train_collective_budget's every step,
+    and each group's ms a step. Returns the phase's numbers."""
+    import pickle
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from distributed_llama_tpu_torch.frontend import cli
+    from distributed_llama_tpu_torch.io.loader import (densify_params,
+                                                       load_model)
+    from distributed_llama_tpu_torch.io.tokenizer import Tokenizer
+    from distributed_llama_tpu_torch.models import llama
+    from distributed_llama_tpu_torch.ops.quants import FloatType
+    from distributed_llama_tpu_torch.parallel.mesh import free_port
+    from distributed_llama_tpu_torch.parallel.train import (
+        load_train_state, make_train_step, save_train_state,
+        template_params, train_collective_budget)
+
+    t0 = time.perf_counter()
+    data = SMOKE_DIR / "train_corpus.txt"
+    data.write_text(_train_corpus())
+    spec, host = load_model(str(depth), weights_float_type=FloatType.Q40)
+    corpus = np.asarray(Tokenizer(str(tok), spec.vocab_size).encode(
+        data.read_text(), bos=True, eos=False), dtype=np.int32)
+    dense = densify_params(host)
+    res = {"card": smi, "params": int(sum(v.size for v in dense.values()))}
+
+    # (a) the forward against the kernels
+    window = torch.from_numpy(_train_windows(corpus, 0)[:1, :TRAIN_SEQ])
+    for k in _all_kernels():
+        k.launches = 0
+    with torch.inference_mode():
+        model = llama.Llama(spec, llama.params_to_device(host, "cuda"))
+        want = model(llama.init_cache(spec, "cuda"), window[0].tolist(),
+                     0)[-1]
+        del model
+        dev = {k: torch.from_numpy(v).cuda() for k, v in dense.items()}
+        got = llama.forward_seq(spec, dev, window.cuda())[0, -1]
+        del dev
+    launches = {k.symbol: k.launches for k in _all_kernels() if k.launches}
+    err = (got - want).abs().max().item()
+    tol = llama.LOGIT_RTOL * want.abs().max().item()
+    if not (torch.isfinite(got).all() and err <= tol
+            and launches.get("q40_gemm") and launches.get(
+                "prefill_attention")):
+        raise AssertionError(f"train (a): forward_seq vs the K3/K4 prefill "
+                             f"{err:.3e} (tol {tol:.3e}), launches "
+                             f"{launches}")
+    res["forward_vs_kernels"] = dict(max_abs_err=err, tol=tol,
+                                     launches=launches)
+    log(f"train (a): forward_seq's last-position logits against the K3/K4 "
+        f"prefill of the same {TRAIN_SEQ} tokens: max_abs_err {err:.3e} "
+        f"(tol {tol:.3e} = LOGIT_RTOL x max|logit|), launches {launches}")
+    del got, want, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) + (e) the CLI at tp 1, against the library's steps
+    init_fn, step_fn = make_train_step(spec, learning_rate=TRAIN_LR,
+                                       device="cuda")
+    p, o = init_fn(dense)
+    ref = []
+    for step in range(TRAIN_STEPS):
+        p, o, loss = step_fn(p, o, _train_windows(corpus, step))
+        ref.append(float(loss))
+    del p, o, init_fn, step_fn, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t_cli = time.perf_counter()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        rc = cli.main(["train", "--model", str(depth), "--tokenizer",
+                       str(tok), "--data", str(data), "--weights-float-type",
+                       "q40", "--steps", str(TRAIN_STEPS), "--batch",
+                       str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--seed",
+                       str(TRAIN_SEED), "--learning-rate", str(TRAIN_LR)])
+    cli_s = time.perf_counter() - t_cli
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lines = re.findall(r"step +(\d+) +loss +([\d.]+) +([\d.]+) ms",
+                       buf.getvalue())
+    losses = [float(x) for _, x, _ in lines]
+    ms = [float(m) for _, _, m in lines]
+    if rc != 0 or len(losses) != TRAIN_STEPS or not np.isfinite(
+            losses).all() or not np.allclose(losses, ref, rtol=0,
+                                             atol=1e-4):
+        raise AssertionError(f"train (b): the CLI exited {rc}, losses "
+                             f"{losses} against the library's {ref}")
+    loss_err, grad_err = _train_narrow(torch)
+    if not (loss_err <= 1e-5 and grad_err <= 1e-5):
+        raise AssertionError(f"train (b): the narrow model's step on the "
+                             f"card against the CPU: loss {loss_err:.2e}, "
+                             f"gradients {grad_err:.2e}")
+    step_ms = statistics.median(ms[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    res["tp1"] = dict(layers=spec.n_layers, losses=losses, ms=ms,
+                      ms_per_step=step_ms,
+                      tokens_per_s=tokens / step_ms * 1e3,
+                      peak_device_gb=peak_gb, cli_s=cli_s,
+                      narrow_loss_rel_err=loss_err,
+                      narrow_grad_err=grad_err)
+    log(f"train (b, e) tp 1, {spec.n_layers} layers ({smi}): losses "
+        f"{losses}, {step_ms:.1f} ms a step after the first ({ms}), "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s, peak {peak_gb:.2f} GB, "
+        f"CLI {cli_s:.1f} s; narrow model card vs CPU: loss "
+        f"{loss_err:.2e}, gradients {grad_err:.2e}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) exact resume in the library, at TRAIN_CUT_DEPTH layers; its
+    # unsplit steps are (c)'s reference
+    cut = _tp_depth_model(spec, depth, TRAIN_CUT_DEPTH)
+    cspec, chost = load_model(str(cut), weights_float_type=FloatType.Q40)
+    cdense = densify_params(chost)
+    del chost
+    init_fn, step_fn = make_train_step(cspec, learning_rate=TRAIN_LR,
+                                       device="cuda")
+    unsplit, split = [], []
+    for losses, n in ((unsplit, 4), (split, 2)):
+        p, o = init_fn(cdense)
+        for step in range(n):
+            p, o, loss = step_fn(p, o, _train_windows(corpus, step))
+            losses.append(float(loss))
+    del cdense
+    ck = SMOKE_DIR / "train_state.npz"
+    t_io = time.perf_counter()
+    save_train_state(str(ck), cspec, p, o, step=2, data_seed=TRAIN_SEED)
+    save_s = time.perf_counter() - t_io
+    del p, o
+    torch.cuda.empty_cache()
+    t_io = time.perf_counter()
+    p, o = init_fn(template_params(cspec))
+    p, o, at = load_train_state(str(ck), cspec, p, o, return_step=True)
+    load_s = time.perf_counter() - t_io
+    for step in range(at, at + 2):
+        p, o, loss = step_fn(p, o, _train_windows(corpus, step))
+        split.append(float(loss))
+    ck_bytes = ck.stat().st_size
+    ck.unlink()
+    del p, o, init_fn, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (np.isfinite(unsplit).all() and np.allclose(
+            split, unsplit, rtol=1e-6, atol=0)):
+        raise AssertionError(f"train (d): split {split} against unsplit "
+                             f"{unsplit}")
+    res["resume"] = dict(layers=TRAIN_CUT_DEPTH, losses=unsplit,
+                         split=split, ckpt_bytes=ck_bytes, save_s=save_s,
+                         load_s=load_s)
+    log(f"train (d): {TRAIN_CUT_DEPTH} layer(s) at 7B width, 2 + 2 "
+        f"through a {ck_bytes / 1e9:.2f} GB checkpoint (save {save_s:.1f} "
+        f"s, load {load_s:.1f} s) gives the 4-step losses {unsplit} (rtol "
+        f"1e-6)")
+
+    # (c) the collectives, over gloo ranks sharing the card
+    out = SMOKE_DIR / "train.pkl"
+    ports = [free_port() for _ in TRAIN_GROUPS]
+    t_c = time.perf_counter()
+    mp.start_processes(_train_rank, args=(4, ports, str(out), str(cut),
+                                          corpus),
+                       nprocs=4, start_method="spawn")
+    ranks = []
+    for r in range(4):
+        with open(f"{out}.{r}", "rb") as fh:
+            ranks.append(pickle.load(fh))
+    res["groups_s"] = time.perf_counter() - t_c
+    for dp, sp, tp in TRAIN_GROUPS:
+        budget = train_collective_budget(cspec, tp=tp, dp=dp, sp=sp)
+        runs = [r[(dp, sp, tp)] for r in ranks if (dp, sp, tp) in r]
+        label = f"dp {dp} x sp {sp} x tp {tp}"
+        for run in runs:
+            if not np.allclose(run["losses"], unsplit[:TRAIN_GROUP_STEPS],
+                               rtol=TRAIN_LOSS_RTOL, atol=0) \
+                    or any(c != budget for c in run["census"]):
+                raise AssertionError(f"train (c) {label}: losses "
+                                     f"{run['losses']} against {unsplit}, "
+                                     f"census {run['census']}, budget "
+                                     f"{budget}")
+        worst = max(abs(a / b - 1) for run in runs
+                    for a, b in zip(run["losses"], unsplit))
+        res[label] = dict(layers=TRAIN_CUT_DEPTH, losses=runs[0]["losses"],
+                          ms=runs[0]["ms"], census=budget,
+                          loss_rel_err=worst)
+        log(f"train (c) {label}, {TRAIN_CUT_DEPTH} layer(s) ({len(runs)} "
+            f"gloo ranks sharing the card: {smi}): losses "
+            f"{runs[0]['losses']} (worst rel err {worst:.2e}), "
+            f"{runs[0]['ms'][-1]:.1f} ms a step ({runs[0]['ms']}), census "
+            f"{budget} a step")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"train_full_width {res['seconds']:.1f} s (groups "
+        f"{res['groups_s']:.1f} s)")
+    return res
+
 def main() -> int:
     import torch
 
@@ -5949,6 +6318,7 @@ def main() -> int:
     spec, model, tok = smoke_files(writer)
     mark("smoke model")
     e2e, out_a, ref_a = phase_e2e(torch, model, tok)
+    reuse_done = _reuse_loads(model)  # run a read the file; the rest reuse it
     e2e_prefill = phase_e2e_prefill(torch, model, tok, spec)
     e2e_q80, ref_c = phase_e2e_q80(torch, model, tok, spec)
     e2e_bf16 = phase_e2e_bf16(torch, model, tok, spec, e2e_prefill)
@@ -6012,6 +6382,10 @@ def main() -> int:
     mark("serve_tp_full_width")
     sp, sp_launches = phase_sp(torch, depth, dspec, tok, smi)
     mark("sp_full_width")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(torch, depth, dspec, tok, smi)
+    mark("train_full_width")
     gc.collect()
     torch.cuda.empty_cache()
     logit_err, busy, prefill, fast, batch, continuous = phase_full_width(
@@ -6387,6 +6761,7 @@ def main() -> int:
     if idle:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{idle}")
+    reuse_done()
     log("phase seconds: " + ", ".join(
         f"{label} {t - t0:.1f}" for (_, t0), (label, t) in zip(marks,
                                                                marks[1:])))
@@ -6407,7 +6782,7 @@ def main() -> int:
                       "probe": probe, "probe_kernels": probe_rows,
                       "prefill": prefill, "fast": fast, "batch_step": batch,
                       "continuous": continuous, "tp": tp,
-                      "serve_tp": serve_tp, "sp": sp,
+                      "serve_tp": serve_tp, "sp": sp, "train": train,
                       "tp_waits": TP_WAITS,
                       "batch_cache_saved_gb": saved, "build_s": build_s,
                       "sass": sass}))

@@ -1,6 +1,7 @@
 """CLI entry point: the ``inference`` and ``worker`` modes of the reference
 CLI, on one device or tensor-parallel over ranks, ``serve`` (the HTTP
-server over the continuous engine, runtime/server.py) and ``convert``.
+server over the continuous engine, runtime/server.py), ``train`` and
+``convert``.
 
 Flags ported so far: --model, --tokenizer, --prompt, --steps,
 --temperature, --topp, --seed, --weights-float-type, --buffer-float-type
@@ -116,6 +117,17 @@ rank, gloo on the CPU or where ranks outnumber the visible GPUs, which
 they then share: the 🌐 tp line says which). The JAX CLI's exit-2
 checks and messages come in its order.
 
+``train`` is the JAX CLI's training mode (parallel/train.py) with its
+flags (--model --tokenizer --data --weights-float-type --steps --batch
+--seq --learning-rate --seed --dp --tp --save-state --resume-state and
+the common --nthreads --coordinator --num-hosts --host-id
+--serve-weights --serve-weights-bind --model-from-root --stream-slices)
+and --device: the weights densified to f32, --dp x --tp ranks spawned
+as for inference (gloo on the CPU; NCCL with a GPU a rank, refused when
+the host has too few), the windows of a step a pure function of (--seed,
+step), the JAX CLI's checks, exit codes, messages and 🔶/⏩ lines, and
+checkpoints either CLI resumes.
+
 ``convert`` is the port's converter (convert.py): Meta or HF checkpoints
 to a reference-format .bin.
 
@@ -195,6 +207,44 @@ def _apply_log_json(args) -> None:
         os.environ["DLLAMA_LOG_JSON"] = "1"
 
 
+def _add_common(ap: argparse.ArgumentParser) -> None:
+    """The JAX CLI's ``_add_common`` flags: --nthreads, the multi-host
+    group and weight streaming."""
+    ap.add_argument("--nthreads", type=int, default=4,
+                    help="accepted for reference-CLI compatibility; the "
+                         "device manages its own threads")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="the TCP store of a multi-host group (host 0's "
+                         "first rank serves it)")
+    ap.add_argument("--num-hosts", type=int, default=1)
+    ap.add_argument("--host-id", type=int, default=None)
+    ap.add_argument("--serve-weights", type=int, default=None, metavar="PORT",
+                    help="(root) serve the model file's bytes on PORT so "
+                         "hosts without a local copy can fetch it — the "
+                         "reference's root->worker weight streaming "
+                         "(transformer.cpp:250-273). UNAUTHENTICATED, like "
+                         "the reference's socket protocol: run it on a "
+                         "trusted LAN only, and restrict the interface with "
+                         "--serve-weights-bind")
+    ap.add_argument("--serve-weights-bind", default="0.0.0.0", metavar="ADDR",
+                    help="interface the weight server listens on (default "
+                         "all; bind a cluster-internal address to keep the "
+                         "unauthenticated byte service off public networks)")
+    ap.add_argument("--model-from-root", default=None, metavar="HOST:PORT",
+                    help="(worker) fetch the model from the root's "
+                         "--serve-weights endpoint into the --model path "
+                         "when that file is absent (zero local model files, "
+                         "like reference workers, transformer.cpp:354-380)")
+    ap.add_argument("--stream-slices", action="store_true",
+                    help="with --model-from-root: fetch ONLY this host's "
+                         "tp weight bands (~1/tp of the matmul bytes, like "
+                         "the reference's per-worker slice scatter, "
+                         "transformer.cpp:250-273) instead of the whole "
+                         "file. Needs an explicit --tp and equal devices "
+                         "per host; the run cross-checks the assumed ranks "
+                         "against the actual group and aborts on mismatch")
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="dllama-torch inference")
     ap.add_argument("--model", required=True,
@@ -231,39 +281,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--workers", nargs="*", default=None,
                     help="accepted for reference-CLI compatibility; the "
                          "workers are the ranks (--tp)")
-    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                    help="the TCP store of a multi-host group (host 0's "
-                         "first rank serves it)")
-    ap.add_argument("--num-hosts", type=int, default=1)
-    ap.add_argument("--host-id", type=int, default=None)
-    ap.add_argument("--serve-weights", type=int, default=None, metavar="PORT",
-                    help="(root) serve the model file's bytes on PORT so "
-                         "hosts without a local copy can fetch it — the "
-                         "reference's root->worker weight streaming "
-                         "(transformer.cpp:250-273). UNAUTHENTICATED, like "
-                         "the reference's socket protocol: run it on a "
-                         "trusted LAN only, and restrict the interface with "
-                         "--serve-weights-bind")
-    ap.add_argument("--serve-weights-bind", default="0.0.0.0", metavar="ADDR",
-                    help="interface the weight server listens on (default "
-                         "all; bind a cluster-internal address to keep the "
-                         "unauthenticated byte service off public networks)")
-    ap.add_argument("--model-from-root", default=None, metavar="HOST:PORT",
-                    help="(worker) fetch the model from the root's "
-                         "--serve-weights endpoint into the --model path "
-                         "when that file is absent (zero local model files, "
-                         "like reference workers, transformer.cpp:354-380)")
-    ap.add_argument("--stream-slices", action="store_true",
-                    help="with --model-from-root: fetch ONLY this host's "
-                         "tp weight bands (~1/tp of the matmul bytes, like "
-                         "the reference's per-worker slice scatter, "
-                         "transformer.cpp:250-273) instead of the whole "
-                         "file. Needs an explicit --tp and equal devices "
-                         "per host; the run cross-checks the assumed ranks "
-                         "against the actual group and aborts on mismatch")
-    ap.add_argument("--nthreads", type=int, default=4,
-                    help="accepted for reference-CLI compatibility; the "
-                         "device manages its own threads")
+    _add_common(ap)
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="N > 1: prefill the prompt in T=N chunks; 0/1: "
                          "token by token")
@@ -602,22 +620,24 @@ def _resolve_tp(args, prompts, group) -> int | str:
 
 
 def _spawn_ranks(argv: list[str], args, tp: int, quiet: bool,
-                 sp: int = 1) -> int:
-    """This host's ranks (of sp x tp), one spawned process each, over a TCP
-    store on localhost (one host) or at --coordinator; the exit code is
-    the first failing rank's."""
+                 sp: int = 1, dp: int = 1, mode: str = "inference") -> int:
+    """This host's ranks (of dp x sp x tp), one spawned process each,
+    running ``mode`` (inference or train) over a TCP store on localhost
+    (one host) or at --coordinator; the exit code is the first failing
+    rank's."""
     import torch.multiprocessing as mp
 
     from ..parallel.mesh import free_port, local_ranks
 
-    ranks = local_ranks(sp * tp, args.num_hosts, args.host_id or 0)
+    ranks = local_ranks(dp * sp * tp, args.num_hosts, args.host_id or 0)
     init = (f"tcp://{args.coordinator}" if args.coordinator
             else f"tcp://localhost:{free_port()}")
     # another host may still be fetching its weights when this one joins
     join_s = 3600.0 if args.coordinator else 600.0
     try:
         mp.start_processes(_rank_main, args=(argv, init, tp, ranks.start,
-                                             args.device, quiet, join_s, sp),
+                                             args.device, quiet, join_s, sp,
+                                             dp, mode),
                            nprocs=len(ranks), start_method="spawn")
     except mp.ProcessExitedException as e:
         return e.exit_code if e.exit_code and e.exit_code > 0 else 1
@@ -629,16 +649,19 @@ def _spawn_ranks(argv: list[str], args, tp: int, quiet: bool,
 
 def _rank_main(local: int, argv: list[str], init: str, tp: int, first: int,
                device_type: str, quiet: bool, join_s: float,
-               sp: int = 1) -> None:
-    """A spawned rank: join the sp x tp group, run inference, leave."""
+               sp: int = 1, dp: int = 1, mode: str = "inference") -> None:
+    """A spawned rank: join the dp x sp x tp group, run ``mode``, leave."""
     from ..parallel.mesh import close, init_mesh
 
     rank = first + local
     group = init_mesh(rank, sp, tp, init, device_type, local=local,
-                      timeout_s=join_s)
+                      timeout_s=join_s, dp=dp)
     try:
-        rc = cmd_inference(argv, quiet=quiet or rank != 0, group=group,
-                           streamed=True)
+        if mode == "train":
+            rc = cmd_train(argv, quiet=quiet or rank != 0, group=group)
+        else:
+            rc = cmd_inference(argv, quiet=quiet or rank != 0, group=group,
+                               streamed=True)
     finally:
         sys.stdout.flush()
         close(group)
@@ -795,6 +818,158 @@ def _run(args, prompts, quiet: bool, group, scheme: str, tp: int) -> int:
             say("💡 Generation ended (BOS or zero steps); nothing "
                 "resumable to save")
     return rc
+
+def _train_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="dllama-torch train")
+    ap.add_argument("--model", required=True)
+    ap.add_argument("--tokenizer", required=True)
+    ap.add_argument("--data", required=True,
+                    help="UTF-8 text corpus; tokenized once, windows "
+                         "sampled per step")
+    ap.add_argument("--weights-float-type", default="f32", choices=sorted(_FT))
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=128,
+                    help="training window length (tokens per row)")
+    ap.add_argument("--learning-rate", type=float, default=1e-4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--save-state", default=None, metavar="PATH")
+    ap.add_argument("--resume-state", default=None, metavar="PATH")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the ranks run (default cuda: one GPU a "
+                         "rank over NCCL; cpu: gloo ranks)")
+    _add_common(ap)
+    return ap
+
+
+def cmd_train(argv: list[str], quiet: bool = False, group=None) -> int:
+    """``train``: next-token training on a text corpus (the JAX CLI's
+    mode, parallel/train.py). Weights densify to f32, the batch splits
+    over --dp ranks and the weights band over --tp ranks (the ref
+    scheme), and --save-state / --resume-state give exact-resume
+    checkpoints in the JAX package's format: a split run reproduces the
+    unsplit run's losses step for step (the data schedule is a pure
+    function of --seed and the step). The JAX CLI's checks come in its
+    order, in the process that spawns the dp x tp ranks (or runs alone);
+    ``group`` is a rank's parallel/mesh.TPGroup (a spawned rank, or a
+    caller's own). Only global rank 0 on host 0 prints and saves."""
+    args = _train_parser().parse_args(argv)
+    if args.host_id:  # multi-host training: only host 0 prints
+        quiet = True
+    if args.stream_slices:
+        # slice streaming is inference-only: training densifies and
+        # re-bands, so a host needs the whole tensors
+        print("--stream-slices is an inference/worker feature (training "
+              "re-shards densified weights); fetch the whole file instead"
+              if args.model_from_root else
+              "--stream-slices only applies with --model-from-root",
+              file=sys.stderr)
+        return 1
+    import numpy as np
+
+    from ..io.loader import read_spec
+    from ..io.tokenizer import Tokenizer
+    from ..parallel.mesh import check_tp
+
+    with (_weight_streaming(args, quiet, "ref", None) if group is None
+          else contextlib.nullcontext()):
+        # header-only read: validate flags before the multi-GB weights
+        spec = read_spec(args.model,
+                         weights_float_type=_FT[args.weights_float_type])
+        if args.seq + 1 > spec.seq_len:
+            print(f"--seq must be < seq_len ({spec.seq_len}), got "
+                  f"{args.seq}", file=sys.stderr)
+            return 2
+        tokenizer = Tokenizer(args.tokenizer, spec.vocab_size)
+        with open(args.data, "rb") as fh:
+            text = fh.read().decode("utf-8", errors="replace")
+        corpus = np.asarray(tokenizer.encode(text, bos=True, eos=False),
+                            dtype=np.int32)
+        if len(corpus) < args.seq + 1:  # one (seq+1)-token window minimum
+            print(f"corpus has {len(corpus)} tokens; need >= "
+                  f"{args.seq + 1}", file=sys.stderr)
+            return 2
+        if group is None:
+            err = check_tp(args.tp, args.device, args.num_hosts, args.dp)
+            if err:
+                print(err, file=sys.stderr)
+                return 2
+        if args.device == "cuda" and not torch.cuda.is_available():
+            print("no GPU: torch.cuda.is_available() is False — pass "
+                  "--device cpu to run on the CPU", file=sys.stderr)
+            return 1
+        if args.resume_state:
+            from ..parallel.train import read_train_meta
+
+            meta = read_train_meta(args.resume_state)
+            if meta.get("data_seed", args.seed) != args.seed:
+                # the data schedule is a pure function of (seed, step): a
+                # different seed silently breaks split == unsplit
+                print(f"--resume-state was trained with --seed "
+                      f"{meta['data_seed']}; pass the same seed (got "
+                      f"{args.seed})", file=sys.stderr)
+                return 2
+        if group is None and (args.dp * args.tp > 1 or args.coordinator):
+            return _spawn_ranks(argv, args, args.tp, quiet, dp=args.dp,
+                                mode="train")
+        return _train_run(args, spec, corpus, quiet, group)
+
+
+def _train_run(args, spec, corpus, quiet: bool, group) -> int:
+    """Build the rank's state (a fresh densified model, or a checkpoint),
+    then step through the (seed, step) data schedule."""
+    import numpy as np
+
+    from ..io.loader import densify_params, load_model
+    from ..parallel.mesh import single
+    from ..parallel.train import (load_train_state, make_train_step,
+                                  save_train_state, template_params)
+
+    group = group or single(args.device)
+    init_fn, step_fn = make_train_step(spec, group,
+                                       learning_rate=args.learning_rate)
+    start = 0
+    if args.resume_state:
+        # the checkpoint overwrites every value: a zero template gives the
+        # structure and bands without reading the model's weights
+        p, o = init_fn(template_params(spec))
+        p, o, start = load_train_state(args.resume_state, spec, p, o,
+                                       group=group, return_step=True)
+        if not quiet:
+            print(f"⏩ Resumed training at step {start}")
+    else:
+        _, params = load_model(args.model, spec=spec)
+        p, o = init_fn(densify_params(params))
+        del params
+
+    def windows(step: int) -> np.ndarray:
+        """(batch, seq+1) token windows — a pure function of (seed, step),
+        so a resumed run continues the identical schedule. The exclusive
+        high bound len - seq keeps the LAST corpus token reachable as a
+        target."""
+        rng = np.random.default_rng((args.seed, step))
+        starts = rng.integers(0, len(corpus) - args.seq, args.batch)
+        return np.stack([corpus[s:s + args.seq + 1] for s in starts])
+
+    for step in range(start, start + args.steps):
+        t0 = time.perf_counter()
+        p, o, loss = step_fn(p, o, windows(step))
+        loss = float(loss)
+        if not quiet:
+            print(f"🔶 step {step:5d}  loss {loss:8.4f}  "
+                  f"{(time.perf_counter() - t0) * 1000:7.1f} ms")
+    if args.save_state and not args.host_id:  # one writer: the root host
+        # every rank of the group gathers its bands; global rank 0 writes
+        save_train_state(args.save_state, spec, p, o,
+                         step=start + args.steps, data_seed=args.seed,
+                         group=group)
+        if not quiet:
+            print(f"⏩ Saved training state to {args.save_state} "
+                  f"(step {start + args.steps})")
+    return 0
+
 
 def _serve_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="dllama-torch serve")
@@ -1336,8 +1511,8 @@ def _print_split(args, trace_dir: str, tokenizer, stats,
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
-        print(f"usage: dllama-torch {{inference|worker|serve|convert}} "
-              f"[options]\n{__doc__}")
+        print(f"usage: dllama-torch {{inference|worker|serve|train|"
+              f"convert}} [options]\n{__doc__}")
         return 0 if argv else 1
     mode, rest = argv[0], argv[1:]
     if mode == "inference":
@@ -1358,12 +1533,12 @@ def main(argv: list[str] | None = None) -> int:
             return e.code if isinstance(e.code, int) else 1
         return 0
     if mode == "train":
-        print(f"mode {mode!r} is not yet ported (this port runs "
-              f"'inference', 'worker', 'serve' and 'convert')",
-              file=sys.stderr)
-        return 2
-    print(f"unknown mode {mode!r} (expected inference|worker|serve|convert)",
-          file=sys.stderr)
+        try:
+            return cmd_train(rest)
+        except SystemExit as e:  # argparse's usage errors
+            return e.code if isinstance(e.code, int) else 1
+    print(f"unknown mode {mode!r} (expected inference|worker|serve|train|"
+          f"convert)", file=sys.stderr)
     return 1
 
 

@@ -245,3 +245,26 @@ def write_model(path: str, spec: TransformerSpec, tensors: dict) -> None:
     if size != spec.file_size():
         raise ValueError(f"wrote {size} bytes to {path}, spec requires "
                          f"{spec.file_size()}")
+
+
+def densify_params(params: dict) -> dict:
+    """Decode/upcast a loaded parameter tree to dense float32 numpy (the
+    JAX package's io/loader.densify_params): the training tree, with the
+    loaded tree's keys (separate wq ... w3, never a fused wqkv/w13). Q40
+    weights decode through the exact codec value map (ops/quants.
+    dequantize_q40_torch on the CPU's threads: (code - 8) * f16 scale is
+    exact in f32, so any order gives dequantize_q40's bits); F16 upcasts
+    exactly."""
+    import torch
+
+    from ..ops.quants import dequantize_q40_torch
+
+    out = {}
+    for name, val in params.items():
+        if isinstance(val, Q40Weight):
+            out[name] = dequantize_q40_torch(
+                torch.from_numpy(np.ascontiguousarray(val.qs)),
+                torch.from_numpy(np.ascontiguousarray(val.d16))).numpy()
+        else:
+            out[name] = np.asarray(val, dtype=np.float32)
+    return out

@@ -46,6 +46,12 @@ attention and K9 per layer, or one K10. ``forward`` takes it at T = 1 when
 the module was built with a fused mode that ops/layer.supports; prefill
 chunks of T > 1, ``forward_batch`` and the paged forward stay unfused.
 
+``forward_seq`` (the JAX package's, the training path) runs a (B, T)
+batch of full windows without a cache, differentiably, over the dense
+f32 training tree: plain products and ``attention_core`` under the
+causal mask, with hooks for the window's positions and its attention
+(parallel/sp_train's ring).
+
 The precision is an explicit ``Route`` per call, where the JAX package
 traces a second program under a context variable (ops/linear.py
 ``matmul_precision("bf16")``): ``FAST`` is the ``--fast-prefill`` route for
@@ -106,7 +112,7 @@ __all__ = ["KVCache", "init_cache", "init_cache_batch", "init_cache_paged",
            "scatter_pages", "gather_pages_q8", "scatter_pages_q8",
            "attention_core", "Route", "KERNELS", "PLAIN", "FAST",
            "FAST_PLAIN", "with_body", "LOGIT_RTOL", "FAST_RTOL", "Llama",
-           "params_to_device", "params_from_reference"]
+           "forward_seq", "params_to_device", "params_from_reference"]
 
 
 class KVCache(NamedTuple):
@@ -430,12 +436,13 @@ def _maybe_q80(spec: TransformerSpec, x: torch.Tensor) -> torch.Tensor:
 def _qkv_proj(spec: TransformerSpec, lw: dict[str, Any], x: torch.Tensor,
               rope: tuple[torch.Tensor, torch.Tensor], route: Route):
     """norm -> (q80) -> q/k/v matmuls (fused wqkv when present) -> RoPE on
-    q and k. Returns q (T, dim), k (T, kv_dim), v (T, kv_dim)."""
+    q and k. x is (T, dim) or batched (B, T, dim), the RoPE tables (T, n/2).
+    Returns q (..., T, dim), k (..., T, kv_dim), v (..., T, kv_dim)."""
     xb = _maybe_q80(spec, rmsnorm(x, lw["rms_att"]))
     qk_dim = spec.dim + spec.kv_dim
     if "wqkv" in lw:
         qkv = _mm(lw["wqkv"], xb, route)
-        qk, v = qkv[:, :qk_dim], qkv[:, qk_dim:]
+        qk, v = qkv[..., :qk_dim], qkv[..., qk_dim:]
     else:
         qk = torch.cat([_mm(lw["wq"], xb, route),
                         _mm(lw["wk"], xb, route)], dim=-1)
@@ -443,7 +450,7 @@ def _qkv_proj(spec: TransformerSpec, lw: dict[str, Any], x: torch.Tensor,
     # q and k rotate together: head_dim = (2p) mod hs runs on across the
     # q/k boundary because dim is a multiple of hs
     qk = _rotate(qk, *rope)
-    return qk[:, :spec.dim], qk[:, spec.dim:], v
+    return qk[..., :spec.dim], qk[..., spec.dim:], v
 
 
 def _post_attention(spec: TransformerSpec, lw: dict[str, Any],
@@ -456,7 +463,7 @@ def _post_attention(spec: TransformerSpec, lw: dict[str, Any],
     if "w13" in lw:
         h13 = _mm(lw["w13"], xb, route)
         hid = h13.shape[-1] // 2
-        hb = silu(h13[:, :hid]) * h13[:, hid:]
+        hb = silu(h13[..., :hid]) * h13[..., hid:]
     else:
         hb = silu(_mm(lw["w1"], xb, route)) * _mm(lw["w3"], xb, route)
     return x + _mm(lw["w2"], _maybe_q80(spec, hb), route)
@@ -515,6 +522,50 @@ def _layer_view(params: dict[str, Any], i: int) -> dict[str, Any]:
             lw[k] = (Q40Weight(w.qs[i], w.d16[i]) if isinstance(w, Q40Weight)
                      else w[i])
     return lw
+
+
+def forward_seq(spec: TransformerSpec, params: dict[str, Any],
+                tokens: torch.Tensor, positions: torch.Tensor | None = None,
+                attention_fn: Callable | None = None,
+                route: Route = PLAIN) -> torch.Tensor:
+    """Batched full-sequence forward without a KV cache (the JAX package's
+    models/llama.forward_seq): tokens (B, T) int64 on the weights' device
+    -> logits (B, T, vocab) f32, causal attention inside the window.
+
+    The training and evaluation path, differentiable end to end (no in-place
+    write, no host read). Its weights are the dense f32 training tree
+    (io/loader.densify_params): every product is ``route.dense``
+    (F.linear; the JAX package computes these outside any Pallas kernel,
+    so there is no hand kernel to port) and attention is
+    ``attention_core``. ``positions`` (T,) are the window's absolute
+    positions (default 0..T-1), each row rotated at them, and
+    ``attention_fn(q, k, v) -> (B, T, n_q*hs)`` replaces the causal
+    attention (parallel/sp_train's ring attention). ``route`` may wrap the
+    dense product: parallel/train's tensor-parallel route adds the ref
+    scheme's collectives around each banded product."""
+    batch, t_len = tokens.shape
+    emb = params["tok_embedding"]
+    device = emb.device
+    x = emb[tokens].to(torch.float32)
+    if positions is None:
+        positions = torch.arange(t_len, device=device)
+    rope = rope_rows(rope_freq(spec.dim + spec.kv_dim, spec.head_size,
+                               device), positions)
+    hs = spec.head_size
+    mask = torch.ones(t_len, t_len, dtype=torch.bool, device=device).tril()
+    for idx in range(spec.n_layers):
+        lw = _layer_view(params, idx)
+        q, k, v = _qkv_proj(spec, lw, x, rope, route)
+        if attention_fn is not None:
+            ao = attention_fn(q, k, v)
+        else:
+            ao = attention_core(
+                hs, spec.kv_mul, q.reshape(batch, t_len, spec.n_heads, hs),
+                k.reshape(batch, t_len, spec.n_kv_heads, hs),
+                v.reshape(batch, t_len, spec.n_kv_heads, hs), mask)
+        x = _post_attention(spec, lw, x, ao, route)
+    x = rmsnorm(x, params["rms_final"])
+    return _mm(params["wcls"], x, route)
 
 
 class Llama(nn.Module):

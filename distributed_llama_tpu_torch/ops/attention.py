@@ -157,21 +157,22 @@ def attention_core(head_size: int, kv_mul: int, q: torch.Tensor,
                    mask: torch.Tensor | None) -> torch.Tensor:
     """Grouped (GQA) attention — the math every port path shares.
 
-    q: (T, n_q, hs); k/v: (S, n_kv, hs); mask: (T, S) True where a key is
-    visible, or None when every key is. Query head h = g*kv_mul + m attends
-    kv head g, via einsum against the unexpanded cache. f32 throughout.
-    Returns (T, n_q * hs).
+    q: (..., T, n_q, hs); k/v: (..., S, n_kv, hs) with the same leading
+    dims (a training batch); mask: (T, S) True where a key is visible, or
+    None when every key is. Query head h = g*kv_mul + m attends kv head g,
+    via einsum against the unexpanded cache. f32 throughout, and
+    differentiable (no in-place write). Returns (..., T, n_q * hs).
     """
-    t_len, n_q, _ = q.shape
+    *lead, t_len, n_q, _ = q.shape
     n_kv = k.shape[-2]
-    qg = q.reshape(t_len, n_kv, kv_mul, head_size).to(torch.float32)
-    scores = torch.einsum("tgmd,sgd->gmts", qg, k.to(torch.float32))
+    qg = q.reshape(*lead, t_len, n_kv, kv_mul, head_size).to(torch.float32)
+    scores = torch.einsum("...tgmd,...sgd->...gmts", qg, k.to(torch.float32))
     scores = scores * attention_scale(head_size)
     if mask is not None:
         scores = scores.masked_fill(~mask, float("-inf"))
     att = torch.softmax(scores, dim=-1)
-    out = torch.einsum("gmts,sgd->tgmd", att, v.to(torch.float32))
-    return out.reshape(t_len, n_q * head_size)
+    out = torch.einsum("...gmts,...sgd->...tgmd", att, v.to(torch.float32))
+    return out.reshape(*lead, t_len, n_q * head_size)
 
 
 def decode_attention_plain(q: torch.Tensor, k_all: torch.Tensor,

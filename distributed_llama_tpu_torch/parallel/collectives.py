@@ -28,6 +28,20 @@ Sequence parallelism adds two kinds over the group's sp sub-group,
 ``sp_pmax`` and ``sp_psum`` (parallel/ring.py's LSE combine: one pmax and
 two psums a layer), each charged 2 (S-1)/S x its payload as
 comm_stats.sp_lse_bytes charges them; they stay out of the tp budget.
+
+Training (parallel/train.py, parallel/sp_train.py) differentiates through
+``torch.autograd.Function`` collectives. Under tp (the ref scheme) each
+banded product's input passes ``tp_enter`` (identity forward, all_reduce
+of the gradient backward: a ``psum``) and its output bands ``tp_gather``
+(all_gather forward, this rank's slice of the gradient backward). The
+data-parallel sum of the gradients is ``data_psum`` (kind ``dp_psum``,
+charged as an all_reduce). Ring attention's hop is ``ring_hop``: rank j
+sends to rank j-1 (the JAX package's ``perm = [(j, (j-1) % S)]``) and its
+backward hops the other way; each hop counts one ``ppermute`` of its
+chunk. gloo refuses send/recv on CUDA tensors (chip_smoke.py's gloo ranks
+sharing one card), so there a hop is staged through host memory: the
+tensor is copied to the CPU, exchanged, and copied back — still one
+``ppermute`` in the census.
 """
 
 from __future__ import annotations
@@ -40,7 +54,7 @@ from ..utils.it_split import SPAN_PREFIX, WAIT_SPAN
 from .mesh import TPGroup
 
 KINDS = ("all_gather", "psum", "reduce_scatter", "ppermute", "sp_pmax",
-         "sp_psum")
+         "sp_psum", "dp_psum")
 
 
 class Census:
@@ -145,23 +159,28 @@ def scatter(x: torch.Tensor, g: TPGroup) -> torch.Tensor:
         return out
 
 
-def ppermute_start(x: torch.Tensor, shift: int, g: TPGroup):
-    """One ring hop, issued: rank i sends ``x`` to rank (i + shift) mod S
-    and receives rank (i - shift) mod S's. Returns (works, received)."""
+def _permute(x: torch.Tensor, shift: int, group, size: int, rank: int):
+    """One hop around ``group``, issued: rank i sends ``x`` to rank
+    (i + shift) mod size and receives rank (i - shift) mod size's.
+    Returns (works, received)."""
     dist = _dist()
     x = x.contiguous()
     recv = torch.empty_like(x)
-    r, s = g.rank, g.size
 
     def peer(i):  # a P2P op names its peer by global rank
-        return dist.get_global_rank(g.group, i % s)
+        return dist.get_global_rank(group, i % size)
 
-    ops = [dist.P2POp(dist.isend, x, peer(r + shift), group=g.group),
-           dist.P2POp(dist.irecv, recv, peer(r - shift), group=g.group)]
+    ops = [dist.P2POp(dist.isend, x, peer(rank + shift), group=group),
+           dist.P2POp(dist.irecv, recv, peer(rank - shift), group=group)]
     with _span(SPAN_PREFIX + "collective_permute"):
         works = dist.batch_isend_irecv(ops)
     CENSUS.add("ppermute", x.numel() * x.element_size())
     return works, recv
+
+
+def ppermute_start(x: torch.Tensor, shift: int, g: TPGroup):
+    """One ring hop over the tp ranks, issued (_permute)."""
+    return _permute(x, shift, g.group, g.size, g.rank)
 
 
 def ring_reduce(part: torch.Tensor, g: TPGroup) -> torch.Tensor:
@@ -206,3 +225,92 @@ def sp_pmax(x: torch.Tensor, g: TPGroup) -> torch.Tensor:
 def sp_psum(x: torch.Tensor, g: TPGroup) -> torch.Tensor:
     """all_reduce (sum) over the sp ranks of the group's tp index."""
     return _sp_reduce(x, g, _dist().ReduceOp.SUM, "sp_psum")
+
+
+# ---------------------------------------------------------------------------
+# training: differentiable collectives
+# ---------------------------------------------------------------------------
+
+class _TPEnter(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced over the tp group
+    backward (each rank's band contributes its part of dL/dx)."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return psum(gy.clone(), ctx.g), None
+
+
+class _TPGather(torch.autograd.Function):
+    """all_gather of the output bands along the last axis forward; this
+    rank's slice of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g, ctx.width = g, x.shape[-1]
+        return gather(x, g)
+
+    @staticmethod
+    def backward(ctx, gy):
+        lo = ctx.g.rank * ctx.width
+        return gy[..., lo:lo + ctx.width].contiguous(), None
+
+
+def tp_enter(x: torch.Tensor, g: TPGroup) -> torch.Tensor:
+    """A banded product's input: x forward, psum of its gradient backward."""
+    return _TPEnter.apply(x, g)
+
+
+def tp_gather(x: torch.Tensor, g: TPGroup) -> torch.Tensor:
+    """A banded product's output bands gathered in rank order; the
+    gradient's own band backward."""
+    return _TPGather.apply(x, g)
+
+
+def data_psum(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """all_reduce (sum) of a flat f32 buffer (a step's gradients and loss)
+    over ``group``, the data-parallel ranks; summed in place and
+    returned. Counted as ``dp_psum``."""
+    with _span(SPAN_PREFIX + "all_reduce"):
+        _dist().all_reduce(x, group=group)
+        nbytes = x.numel() * x.element_size()
+        CENSUS.add("dp_psum", 2 * (size - 1) * nbytes // size)
+        return x
+
+
+def _hop(x: torch.Tensor, shift: int, group, size: int,
+         rank: int) -> torch.Tensor:
+    """_permute, waited for. Under gloo a CUDA tensor goes through host
+    memory (gloo has no CUDA send/recv)."""
+    staged = x.is_cuda and _dist().get_backend(group) == "gloo"
+    send = x.detach().cpu() if staged else x.detach()
+    works, recv = _permute(send, shift, group, size, rank)
+    with _span(WAIT_SPAN):
+        for w in works:
+            w.wait()
+    return recv.to(x.device) if staged else recv
+
+
+class _RingHop(torch.autograd.Function):
+    """One ring hop over the sp ranks: rank j's chunk goes to rank j-1
+    forward; the gradient of what a rank received goes back to its sender
+    (rank j+1) backward."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return _hop(x, -1, g.sp_group, g.sp_size, g.sp_rank)
+
+    @staticmethod
+    def backward(ctx, gy):
+        g = ctx.g
+        return _hop(gy, 1, g.sp_group, g.sp_size, g.sp_rank), None
+
+
+def ring_hop(x: torch.Tensor, g: TPGroup) -> torch.Tensor:
+    """Rotate x one step around the group's sp ring (differentiable)."""
+    return _RingHop.apply(x, g)

@@ -16,8 +16,14 @@ row-major (dp, sp, tp) order at dp 1) and makes two kinds of sub-group
 with ``new_group``: a tp group a sp index (its ``group``: the forward's
 collectives) and an sp group a tp index (``sp_group``: the sharded
 cache's LSE combine, parallel/ring.py). Every sp rank holds its tp index's
-whole weight band, and x is replicated over sp. Data parallelism is not
-ported.
+whole weight band, and x is replicated over sp.
+
+Data parallelism (the mesh's ``dp`` axis, training only): ``init_mesh(...,
+dp=D)`` joins a dp x sp x tp world in the JAX make_mesh's row-major
+(dp, sp, tp) order (global rank = (dp_index * sp + sp_index) * tp +
+tp_index) and adds a dp sub-group for each (sp, tp) index (``dp_group``):
+parallel/train.py sums the gradients over it. A dp rank holds the whole
+tp band of its tp index and its share of the batch rows.
 """
 
 from __future__ import annotations
@@ -37,6 +43,9 @@ class TPGroup:
     sp_rank: int = 0  # the sp index: the cache chunk held
     sp_size: int = 1
     sp_group: Any = None  # the sp sub-group; None at sp 1
+    dp_rank: int = 0  # the dp index: the batch rows held (training)
+    dp_size: int = 1
+    dp_group: Any = None  # the dp sub-group; None at dp 1
 
     @property
     def sharded(self) -> bool:
@@ -45,18 +54,20 @@ class TPGroup:
 
     @property
     def world_rank(self) -> int:
-        """The global rank: sp_index * tp + tp_index (rank 0 prints, saves
-        and serves)."""
-        return self.sp_rank * self.size + self.rank
+        """The global rank: (dp_index * sp + sp_index) * tp + tp_index
+        (rank 0 prints, saves and serves)."""
+        return (self.dp_rank * self.sp_size + self.sp_rank) * self.size \
+            + self.rank
 
     @property
     def world_size(self) -> int:
-        return self.sp_size * self.size
+        return self.dp_size * self.sp_size * self.size
 
     @property
     def backend(self) -> str:
         """'nccl', 'gloo', or 'none' for a group of one."""
-        pg = self.group if self.group is not None else self.sp_group
+        pg = next((g for g in (self.group, self.sp_group, self.dp_group)
+                   if g is not None), None)
         if pg is None:
             return "none"
         import torch.distributed as dist
@@ -87,19 +98,25 @@ def group_backend(ranks: int, device_type: str) -> str:
     return "gloo" if have is None or 0 < have < ranks else "nccl"
 
 
-def check_tp(tp: int, device_type: str, num_hosts: int = 1) -> str | None:
+def check_tp(tp: int, device_type: str, num_hosts: int = 1,
+             dp: int = 1) -> str | None:
     """The error of a group that does not fit (the JAX package's make_mesh
-    message), or None: tp ranks split evenly over the hosts, one device
-    each, on no more devices than a host has."""
+    message), or None: dp x tp ranks split evenly over the hosts, one
+    device each, on no more devices than a host has."""
     if tp < 1:
         return f"--tp must be >= 1, got {tp}"
-    if tp % num_hosts:
-        return (f"--tp {tp} does not divide over {num_hosts} hosts (each "
-                f"host runs tp/num_hosts ranks)")
+    if dp < 1:
+        return f"--dp must be >= 1, got {dp}"
+    if dp * tp % num_hosts:
+        if dp == 1:
+            return (f"--tp {tp} does not divide over {num_hosts} hosts "
+                    f"(each host runs tp/num_hosts ranks)")
+        return (f"mesh {dp}x1x{tp} does not divide over {num_hosts} hosts "
+                f"(each host runs dp*tp/num_hosts ranks)")
     have = visible_devices(device_type)
-    need = tp // num_hosts
+    need = dp * tp // num_hosts
     if have is not None and need > 1 and need > have:  # one: no group
-        return (f"mesh 1x1x{tp} needs {need} devices on this host, have "
+        return (f"mesh {dp}x1x{tp} needs {need} devices on this host, have "
                 f"{have} (visible {device_type} devices)")
     return None
 
@@ -166,40 +183,58 @@ def check_mesh(sp: int, tp: int, seq_len: int | None = None) -> str | None:
 def init_mesh(rank: int, sp: int, tp: int, init_method: str,
               device_type: str, local: int | None = None,
               timeout_s: float = 600.0,
-              backend: str | None = None) -> TPGroup:
-    """Join an sp x tp world as global ``rank`` (= sp_index * tp +
-    tp_index): init_rank over the world (``backend`` as there), then
-    every rank makes every tp group (one a sp index) and every sp group
-    (one a tp index) in the same order, as ``new_group`` requires, and
-    keeps the two it belongs to. At sp 1 this is init_rank."""
-    world = init_rank(rank, sp * tp, init_method, device_type, local,
+              backend: str | None = None, dp: int = 1) -> TPGroup:
+    """Join a dp x sp x tp world as global ``rank`` (= (dp_index * sp +
+    sp_index) * tp + tp_index): init_rank over the world (``backend`` as
+    there), then every rank makes every tp group (one a (dp, sp) index),
+    every sp group (one a (dp, tp) index) and, at dp > 1, every dp group
+    (one a (sp, tp) index) in the same order, as ``new_group`` requires,
+    and keeps the ones it belongs to. At dp 1 and sp 1 this is
+    init_rank."""
+    world = init_rank(rank, dp * sp * tp, init_method, device_type, local,
                       timeout_s, backend)
-    if sp == 1:
+    if sp == 1 and dp == 1:
         return world
     import datetime
 
     import torch.distributed as dist
 
     timeout = datetime.timedelta(seconds=timeout_s)
-    sp_index, tp_index = divmod(rank, tp)
-    tp_group = sp_group = None
-    for s in range(sp):
-        ranks = [s * tp + t for t in range(tp)]
-        g = dist.new_group(ranks, timeout=timeout) if tp > 1 else None
-        if s == sp_index:
-            tp_group = g
-    for t in range(tp):
-        g = dist.new_group([s * tp + t for s in range(sp)],
-                           timeout=timeout)
-        if t == tp_index:
-            sp_group = g
+    dp_index, rest = divmod(rank, sp * tp)
+    sp_index, tp_index = divmod(rest, tp)
+
+    def at(d, s, t):
+        return (d * sp + s) * tp + t
+
+    tp_group = sp_group = dp_group = None
+    for d in range(dp):
+        for s in range(sp):
+            g = (dist.new_group([at(d, s, t) for t in range(tp)],
+                                timeout=timeout) if tp > 1 else None)
+            if (d, s) == (dp_index, sp_index):
+                tp_group = g
+        if sp == 1:
+            continue
+        for t in range(tp):
+            g = dist.new_group([at(d, s, t) for s in range(sp)],
+                               timeout=timeout)
+            if (d, t) == (dp_index, tp_index):
+                sp_group = g
+    if dp > 1:
+        for s in range(sp):
+            for t in range(tp):
+                g = dist.new_group([at(d, s, t) for d in range(dp)],
+                                   timeout=timeout)
+                if (s, t) == (sp_index, tp_index):
+                    dp_group = g
     return TPGroup(tp_index, tp, tp_group, world.device, sp_index, sp,
-                   sp_group)
+                   sp_group, dp_index, dp, dp_group)
 
 
 def close(group: TPGroup) -> None:
     """Leave the group (the default process group, when it is one)."""
-    if group.group is None and group.sp_group is None:
+    if group.group is None and group.sp_group is None \
+            and group.dp_group is None:
         return
     import torch.distributed as dist
 

@@ -1,6 +1,6 @@
-"""Sequence parallelism, the decode half: the sp-sharded KV cache (the JAX
-package's parallel/ring.py up to ``update_sp_cache``; ``ring_attention``,
-its training half, is not ported yet).
+"""Sequence parallelism: the sp-sharded KV cache (the JAX package's
+parallel/ring.py up to ``update_sp_cache``), and ``ring_attention``, its
+training half.
 
 The KV cache is sharded over the sp ranks in contiguous position chunks:
 rank s holds positions [s*C, (s+1)*C) of every layer, C = seq_len / sp. x
@@ -58,25 +58,30 @@ def _lse_merge(m, l, o, pm, pl, po):
 def _partial_attention(head_size: int, kv_mul: int, q: torch.Tensor,
                        k: torch.Tensor, v: torch.Tensor,
                        valid: torch.Tensor):
-    """Flash partials of q (T, n_q, hs) against one key chunk k/v
-    (C, n_kv, hs); valid (T, C) is True where the key is visible. Returns
-    m (T, n_q, 1), l (T, n_q, 1), o (T, n_q, hs), f32."""
-    t_len, n_q, _ = q.shape
-    n_kv = k.shape[1]
-    qg = q.float().reshape(t_len, n_kv, kv_mul, head_size)
+    """Flash partials of q (..., T, n_q, hs) against one key chunk k/v
+    (..., C, n_kv, hs) with the same leading dims (a training batch);
+    valid (T, C) is True where the key is visible. Returns m (..., T, n_q,
+    1), l (..., T, n_q, 1), o (..., T, n_q, hs), f32. Differentiable: a
+    row that sees no key gets m = -inf, l = 0, o = 0 and zero
+    gradients."""
+    *lead, t_len, n_q, _ = q.shape
+    n_kv = k.shape[-2]
+    qg = q.float().reshape(*lead, t_len, n_kv, kv_mul, head_size)
     scale = 1.0 / math.sqrt(head_size)
-    s = torch.einsum("tgmd,cgd->gmtc", qg, k.float()) * scale
-    s = s.masked_fill(~valid[None, None], float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)                     # (g, m, T, 1)
+    s = torch.einsum("...tgmd,...cgd->...gmtc", qg, k.float()) * scale
+    s = s.masked_fill(~valid, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)                     # (..., g, m, T, 1)
     finite = torch.isfinite(m)
     m_safe = torch.where(finite, m, torch.zeros_like(m))
     p = torch.where(finite, torch.exp(s - m_safe), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("gmtc,cgd->gmtd", p, v.float())
-    perm = (2, 0, 1, 3)  # -> (T, n_kv, kv_mul, ...)
-    return (m.permute(perm).reshape(t_len, n_q, 1),
-            l.permute(perm).reshape(t_len, n_q, 1),
-            o.permute(perm).reshape(t_len, n_q, head_size))
+    o = torch.einsum("...gmtc,...cgd->...gmtd", p, v.float())
+
+    def rows(a):  # (..., g, m, T, x) -> (..., T, n_q, x)
+        a = a.movedim(-2, -4)
+        return a.reshape(*lead, t_len, n_q, a.shape[-1])
+
+    return rows(m), rows(l), rows(o)
 
 
 def blockwise_chunk_partials(head_size: int, kv_mul: int, q: torch.Tensor,
@@ -196,3 +201,36 @@ def update_sp_rows(rows: torch.Tensor, cols: torch.Tensor,
     old = plane[rows, at]
     plane.index_put_((rows, at), torch.where(
         belongs[:, None, None], new_vals.to(plane.dtype), old))
+
+
+def ring_attention(head_size: int, kv_mul: int, q: torch.Tensor,
+                   k: torch.Tensor, v: torch.Tensor, q_start: int,
+                   chunk: int, group) -> torch.Tensor:
+    """Causal ring attention for full sequences (the JAX package's
+    parallel/ring.ring_attention): q (..., T_loc, n_q, hs) and k/v
+    (..., T_loc, n_kv, hs) are this rank's chunk, starting at absolute
+    position ``q_start``; ``group`` a parallel/mesh.TPGroup whose sp ring
+    the K/V chunks rotate around (the chunk held at step i came from sp
+    rank (sp_index + i) mod S). Returns (..., T_loc, n_q * hs), the exact
+    causal softmax over every rank's keys; differentiable."""
+    from .collectives import ring_hop
+
+    n = group.sp_size
+    *lead, t_len, n_q, _ = q.shape
+    dev = q.device
+    q_pos = q_start + torch.arange(t_len, device=dev)
+    m = torch.full((*lead, t_len, n_q, 1), float("-inf"), device=dev)
+    l = torch.zeros((*lead, t_len, n_q, 1), device=dev)
+    o = torch.zeros((*lead, t_len, n_q, head_size), device=dev)
+    kv = torch.stack([k.float(), v.float()])
+    for i in range(n):
+        src = (group.sp_rank + i) % n
+        key_pos = src * chunk + torch.arange(chunk, device=dev)
+        valid = key_pos[None, :] <= q_pos[:, None]
+        pm, pl, po = _partial_attention(head_size, kv_mul, q, kv[0], kv[1],
+                                        valid)
+        m, l, o = _lse_merge(m, l, o, pm, pl, po)
+        if i + 1 < n:
+            kv = ring_hop(kv, group)
+    out = o / torch.clamp(l, min=1e-38)
+    return out.reshape(*lead, t_len, n_q * head_size)

@@ -296,9 +296,17 @@ class InferenceServer:
         self._ready_error: BaseException | None = None
         # live streaming-handler threads (the _stream loop): stop() joins
         # these AFTER waking their requests — a blocked q.get/done.wait
-        # must not outlive the server (the thread-leak satellite)
+        # must not outlive the server (the thread-leak satellite).
+        # ``_handlers`` holds every one whose request reached the engine,
+        # ``_streams`` those whose stream has begun (a token taken off
+        # the queue: the engine has run the request). Under the lock,
+        # drain() and stop() close admission (``_closed``): a request
+        # reaches the engine before their count of outstanding work, and
+        # is woken by it, or is refused
+        self._handlers: set = set()
         self._streams: set = set()
         self._streams_lock = threading.Lock()
+        self._closed = False
         server = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -479,8 +487,10 @@ class InferenceServer:
                         server.engine.submit(r)
                 if stream:
                     return self._stream(req, submit)
-                if submit is not None:
-                    submit()
+                if submit is not None and not server._submit_open(submit):
+                    server.count_reject("draining")
+                    return self._json(503, {"error": "server is draining; "
+                                            "retry after restart"})
                 req.done.wait()
                 if req.error is not None:
                     return self._json(500, {"error": req.error})
@@ -639,10 +649,13 @@ class InferenceServer:
 
                 q: queue.Queue = queue.Queue()
                 req.on_token = q.put
-                self.send_response(200)
-                self.send_header("Content-Type", "application/x-ndjson")
-                self.send_header("Transfer-Encoding", "chunked")
-                self.end_headers()
+                me = threading.current_thread()
+
+                def headers():
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/x-ndjson")
+                    self.send_header("Transfer-Encoding", "chunked")
+                    self.end_headers()
 
                 def chunk(obj):
                     body = (json.dumps(obj) + "\n").encode()
@@ -654,6 +667,7 @@ class InferenceServer:
                     # completed inside the peer's prefill cut: replay the
                     # finished stream as one burst
                     try:
+                        headers()
                         prev = req.tokens[0]
                         for tok in req.out:
                             piece = server.tokenizer.decode_piece(prev, tok)
@@ -672,15 +686,15 @@ class InferenceServer:
                 # register with the server so stop() can join this thread
                 # once the request is woken — without the registry a
                 # handler blocked in q.get outlives the server silently
-                with server._streams_lock:
-                    server._streams.add(threading.current_thread())
-                if submit is not None:
-                    submit()
-                else:
-                    server.engine.submit(req)
+                if not server._submit_open(
+                        submit or (lambda: server.engine.submit(req)), me):
+                    server.count_reject("draining")
+                    return self._json(503, {"error": "server is draining; "
+                                            "retry after restart"})
                 prev = req.tokens[0]
                 sent = 0
                 try:
+                    headers()
                     while True:
                         try:
                             tok = q.get(timeout=0.1)
@@ -688,6 +702,9 @@ class InferenceServer:
                             if req.done.is_set() and sent == len(req.out):
                                 break
                             continue
+                        if not sent:  # the stream has begun
+                            with server._streams_lock:
+                                server._streams.add(me)
                         piece = server.tokenizer.decode_piece(prev, tok)
                         prev = tok
                         sent += 1
@@ -710,8 +727,8 @@ class InferenceServer:
                     server.engine.cancel(req)
                 finally:
                     with server._streams_lock:
-                        server._streams.discard(
-                            threading.current_thread())
+                        server._handlers.discard(me)
+                        server._streams.discard(me)
 
         self.httpd = ThreadingHTTPServer((host, port), Handler)
         self._threads: list[threading.Thread] = []
@@ -1192,6 +1209,26 @@ class InferenceServer:
         except Exception as e:  # a follower already gone
             self.tp_error = f"{type(e).__name__}: {e}"
 
+    def _submit_open(self, submit, handler=None) -> bool:
+        """Run ``submit`` (hand a request to the engine) unless drain() or
+        stop() has closed admission, and register ``handler`` (a
+        streaming handler's thread) for stop() to join. The check, the
+        submit and the registration hold ``_streams_lock``, which the
+        closing takes too, so no request reaches the engine after the
+        shutdown paths counted the outstanding work (it would never be
+        woken). False when refused."""
+        with self._streams_lock:
+            if self._closed:
+                return False
+            submit()
+            if handler is not None:
+                self._handlers.add(handler)
+            return True
+
+    def _close_admission(self) -> None:
+        with self._streams_lock:
+            self._closed = True
+
     def _outstanding(self) -> int:
         with self.engine._lock:
             queued = len(self.engine._queue) + len(self.engine._intake)
@@ -1270,6 +1307,7 @@ class InferenceServer:
             self.health.to("draining")
         except ValueError:
             return 0  # already stopped
+        self._close_admission()
         # the SIGTERM postmortem bundle: state AS THE DRAIN BEGINS —
         # in-flight work, queue depth, journal tail, recent spans
         self._flightrec_dump("sigterm_drain")
@@ -1320,6 +1358,7 @@ class InferenceServer:
         if self._stopped.is_set():
             return
         self._stopped.set()
+        self._close_admission()
         self._shutdown.set()
         # park the watch loop FIRST: a watch tick mid-teardown would
         # scrape a half-closed engine (the event also bounds the
@@ -1351,7 +1390,7 @@ class InferenceServer:
         deadline = time.monotonic() + 5.0
         while True:
             with self._streams_lock:
-                pending = [t for t in self._streams if t.is_alive()]
+                pending = [t for t in self._handlers if t.is_alive()]
             if not pending:
                 break
             remaining = deadline - time.monotonic()

@@ -1,5 +1,6 @@
-"""Import hygiene of the port: it imports with jax blocked, never loads the
-JAX package, and no source of it (or of chip_smoke.py) names either."""
+"""Import hygiene of the port: it imports with jax and optax blocked,
+never loads the JAX package, and no source of it (or of chip_smoke.py)
+names any of them."""
 
 import pathlib
 import re
@@ -20,7 +21,7 @@ _BLOCKED = textwrap.dedent("""
     class Block:
         def find_spec(self, name, path=None, target=None):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "distributed_llama_tpu"):
+            if top in ("jax", "jaxlib", "optax", "distributed_llama_tpu"):
                 raise ImportError(f"blocked import of {name}")
 
     sys.meta_path.insert(0, Block())
@@ -32,7 +33,8 @@ _BLOCKED = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     bad = [m for m in sys.modules
-           if m.split(".")[0] in ("jax", "jaxlib", "distributed_llama_tpu")]
+           if m.split(".")[0] in ("jax", "jaxlib", "optax",
+                                  "distributed_llama_tpu")]
     assert not bad, bad
     print(*names)
 """)
@@ -48,7 +50,8 @@ NEW_MODULES = ("utils.it_split", "utils.rng", "obs.profiler",
                "obs.fleet", "obs.watch", "runtime.server",
                "runtime.pagewire", "runtime.kv_io", "runtime.page_channel",
                "runtime.disagg", "tools.c7_probe", "runtime.chaos",
-               "tools.loadgen", "tools.loadcheck")
+               "tools.loadgen", "tools.loadcheck", "parallel.ring",
+               "parallel.train", "parallel.sp_train")
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -69,7 +72,7 @@ def test_sources_include_every_kernel_source():
         assert f"distributed_llama_tpu_torch/{rel}" in SOURCES, rel
 
 
-_JAX = re.compile(r"^\s*(import|from)\s+jax(lib)?\b", re.M)
+_JAX = re.compile(r"^\s*(import|from)\s+(jax(lib)?|optax)\b", re.M)
 _REF = re.compile(r"distributed_llama_tpu(?!_torch)")
 
 
