@@ -273,10 +273,28 @@ no result line):
    NCCL, token by token under fused and overlap (with four GPUs also tp 4
    under fused, overlap and ref with q80 buffers), and the lockstep batch
    at tp 2 against tp 1 (tp_nccl).
-6. The phase times, the ``kernels`` JSON line (each kernel's launches
+6. obs_full_width, after train_full_width: (a) parallel/shard_sim at
+   full width, one Llama-2-70B tp 8 rank under the ref scheme (80 layers
+   of Q40 bands, ~4.8 GB, made on the card from a seed; the f32
+   embedding; a seq-4096 cache shard) takes 64 decode steps through the
+   host loop with the counts set to 0 just before and read just after
+   (K1 321 and K2 80 a token) and the census equal to
+   tp_collective_budget(70b, 8) a token; K1 and K2 against plain at the
+   rank's shapes; its ms a token, and project_full_system's sum printed
+   as a projection beside its constants; (b) tools/tracecheck on the tp 2
+   --profile trace of tp_full_width (counts exact, coverage >=
+   COVERAGE_MIN, the time check SKIPped on gloo) and bench_drift_fields
+   on run q's trace (OK: no collective time on one card); (c) the
+   device-layout sidecar (io/kernel_cache.py) of the 7B file, a cold
+   load writing it and a warm one hitting it, each timed, and run a from
+   the warm load giving run a's stream; the sidecar is removed; (d)
+   costcheck, watchcheck and racecheck with --device cuda, their rows
+   equal to the CPU's and each inject arm exiting 1.
+7. The phase times, the ``kernels`` JSON line (each kernel's launches
    summed over every CLI run, a-u, and its POST /profile trace events in
    serve_full_width as ``serve``; the probe's kernels over its chain;
-   K6's and K7's rows at t_len 16 and 39 beside their decode rows),
+   K6's and K7's rows at t_len 16 and 39 beside their decode rows; K1's
+   and K2's the simulated 70B rank's launches and times as ``sim``),
    then the result line ``{"ok": true, "device": {...}}`` as the last
    line.
 
@@ -629,11 +647,13 @@ def phase_k1(torch, timer, peaks):
     return _matvec_rows(torch, timer, peaks, cases, seed=0)
 
 
-def phase_k2(torch, timer, peaks, cache=None):
+def phase_k2(torch, timer, peaks, cache=None, cases=K2_CASES,
+             positions=K2_POS, seq=K2_SEQ):
     """K2 against plain over an f32 cache, or over a bf16 one (``cache`` =
     torch.bfloat16, the kvbf16 build), at positions up to 2047 where its
-    plan splits the keys, with the same bits from a second launch; an
-    empty kernel's time beside the rows. The library yardstick is SDPA in
+    plan splits the keys (``cases``, ``positions`` and ``seq`` name other
+    shapes: obs_full_width's 70B tp 8 rank), with the same bits from a
+    second launch; an empty kernel's time beside the rows. The library yardstick is SDPA in
     f32, K2's function (f32 q and dots): over a bf16 cache on q and the
     live prefix cast to f32 beforehand (the cast not timed); SDPA in bf16,
     which rounds q and so computes another function, is printed beside it
@@ -652,15 +672,15 @@ def phase_k2(torch, timer, peaks, cache=None):
     empty_ms = timer(lambda: torch.cuda._sleep(0))
     log(f"an empty kernel (torch.cuda._sleep(0)): {empty_ms:.4f} ms")
     rows = []
-    for label, L, n_kv, kv_mul in K2_CASES:
-        shape = (L, K2_SEQ, n_kv, K2_HS)
+    for label, L, n_kv, kv_mul in cases:
+        shape = (L, seq, n_kv, K2_HS)
         k_all = torch.randn(shape, device="cuda", generator=g).to(cache)
         v_all = torch.randn(shape, device="cuda", generator=g).to(cache)
         n_q = n_kv * kv_mul
         q = torch.randn((n_q, K2_HS), device="cuda", generator=g)
         layer = L - 1
         scale = attention_scale(K2_HS)
-        for pos in K2_POS:
+        for pos in positions:
             before = kernel.launches
             got = decode_attention(q, k_all, v_all, layer, pos, kv_mul)
             torch.cuda.synchronize()
@@ -2039,6 +2059,7 @@ def _reuse_loads(path):
             cache[spec.weights_float_type] = real(p, spec=spec)[1]
         return spec, dict(cache[spec.weights_float_type])
 
+    load.real = real  # an honest read of the file (obs_full_width's)
     loader.load_model = load
 
     def undo():
@@ -6267,6 +6288,326 @@ def phase_train(torch, depth, dspec, tok, smi):
         f"{res['groups_s']:.1f} s)")
     return res
 
+# --------------------------------------------------------------------------
+# obs_full_width: profiling and attribution
+# --------------------------------------------------------------------------
+
+OBS_TP = 8             # the simulated rank: one of Llama-2-70B's tp 8 ranks
+OBS_SEQ = 4096         # its cache's positions (Llama-2-70B's context)
+OBS_STEPS = 64         # its decode steps through the host loop
+OBS_K2_POS = (63, 4095)
+
+
+def _obs_rank(torch, timer, peaks):
+    """(a) parallel/shard_sim at full width: one 70B tp 8 rank under the
+    ref scheme (80 layers of Q40 bands made on the card, the f32
+    embedding, a seq-OBS_SEQ cache shard) runs OBS_STEPS decode steps of
+    the host loop (TPLlama over the simulated group, each collective a
+    local stand-in): every kernel's count set to 0 just before and read
+    just after (K1 4L+1 and K2 L a token, nothing else), the census equal
+    to tp_collective_budget(70b, 8) a token, the logits finite; then K1
+    and K2 against plain at the rank's shapes, the rank's ms a token, and
+    project_full_system's sum, printed as a projection beside its
+    constants."""
+    import dataclasses
+
+    from distributed_llama_tpu_torch.models import synth
+    from distributed_llama_tpu_torch.parallel import collectives as C
+    from distributed_llama_tpu_torch.parallel import shard_sim
+    from distributed_llama_tpu_torch.parallel.comm_stats import \
+        tp_collective_budget
+
+    spec = synth.llama2_70b_spec(seq_len=OBS_SEQ)
+    L = spec.n_layers
+    t0 = time.perf_counter()
+    params = shard_sim.synth_rank_q40(spec, OBS_TP, seed=7, scheme="ref",
+                                      device="cuda")
+    cache = shard_sim.init_rank_cache(spec, OBS_TP, "cuda")
+    fwd = shard_sim.make_rank_forward(spec, OBS_TP, params, "ref")
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    band_gb = sum(t.numel() * t.element_size() for v in params.values()
+                  if not isinstance(v, torch.Tensor) for t in v) / 1e9
+    embed_gb = params["tok_embedding"].numel() * 4 / 1e9
+    cache_gb = 2 * cache.k.numel() * 4 / 1e9
+    budget = tp_collective_budget(spec, OBS_TP, "ref")
+    for k in _all_kernels():
+        k.launches = 0
+    C.CENSUS.reset()
+    token, finite = 1, True
+    with torch.inference_mode():
+        for pos in range(OBS_STEPS):
+            if pos == 1:  # the first step makes the kernels' plans
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            logits = fwd.forward(cache, token, pos)
+            finite = finite and bool(torch.isfinite(logits).all())
+            token = int(logits[0].argmax())
+        torch.cuda.synchronize()
+    ms_token = (time.perf_counter() - t1) * 1e3 / (OBS_STEPS - 1)
+    launches = {k.symbol: k.launches for k in _all_kernels() if k.launches}
+    census = {k: tuple(v) for k, v in C.CENSUS.counts.items()}
+    want_census = {k: (c * OBS_STEPS, b * OBS_STEPS)
+                   for k, c, b in budget.entries}
+    want = {"q40_matvec": (4 * L + 1) * OBS_STEPS,
+            "decode_attention": L * OBS_STEPS}
+    log(f"obs (a) shard_sim 70B tp {OBS_TP} rank (ref, {L} layers, seq "
+        f"{OBS_SEQ}): {band_gb:.2f} GB of Q40 bands + {embed_gb:.2f} GB "
+        f"embedding + {cache_gb:.2f} GB cache made in {made_s:.1f} s; "
+        f"{OBS_STEPS} steps: {ms_token:.3f} ms/token (host loop); launches "
+        f"{launches}; census {census} (budget x {OBS_STEPS} "
+        f"{want_census})")
+    if launches != want:
+        raise AssertionError(f"obs (a): launches {launches}, want {want}")
+    if census != want_census:
+        raise AssertionError(f"obs (a): census {census}, want the budget "
+                             f"{want_census}")
+    if not finite or tuple(logits.shape) != (1, spec.vocab_size):
+        raise AssertionError(f"obs (a): logits {tuple(logits.shape)}, "
+                             f"finite {finite}")
+    del fwd, params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    s, d, hid = OBS_TP, spec.dim, spec.hidden_dim
+    k1 = _matvec_rows(torch, timer, peaks, [
+        ("wqkv", (d + 2 * spec.kv_dim) // s, d, 1, L),
+        ("wo", d // s, d, 1, L), ("w13", 2 * hid // s, d, 1, L),
+        ("w2", d // s, hid, 1, L), ("wcls", spec.vocab_size // s, d, 1, 1)],
+        seed=70)
+    k2 = phase_k2(torch, timer, peaks,
+                  cases=[("70b-tp8", 2, spec.n_kv_heads // s, spec.kv_mul)],
+                  positions=OBS_K2_POS, seq=OBS_SEQ)
+    proj = shard_sim.project_full_system(spec, OBS_TP, ms_token,
+                                         scheme="ref")
+    log(f"obs (a) projection, not a measurement: {ms_token:.3f} ms/token "
+        f"(this rank, measured) + {proj.ici_bandwidth_ms:.4f} ms link "
+        f"bandwidth + {proj.ici_latency_ms:.4f} ms latency (modelled: "
+        f"{proj.n_collectives} collectives, {proj.gather_bytes_per_chip} B "
+        f"a rank a token over {shard_sim.NVLINK_GBPS_PER_DIRECTION} GB/s "
+        f"NVLink 4 a direction, datasheet, and "
+        f"{shard_sim.COLLECTIVE_LATENCY_US} us a hop, a planning "
+        f"assumption) = {proj.total_ms:.3f} ms/token for 70B at tp "
+        f"{OBS_TP}; a rank holds {proj.hbm_per_device_gib:.2f} GiB")
+    return dict(steps=OBS_STEPS, ms_per_token=ms_token, launches=launches,
+                census={k: list(v) for k, v in census.items()},
+                band_gb=band_gb, made_s=made_s, k1=k1, k2=k2,
+                projection=dict(dataclasses.asdict(proj),
+                                total_ms=proj.total_ms,
+                                gbps=shard_sim.NVLINK_GBPS_PER_DIRECTION,
+                                latency_us=shard_sim.COLLECTIVE_LATENCY_US,
+                                note="a projection, not a measurement"))
+
+
+def _tool_run(main, argv):
+    """One tool's main(argv) in process: (exit code, its last stdout line
+    as JSON or None); its stderr is kept out of the log."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    try:
+        return rc, json.loads(lines[-1]) if lines else None
+    except ValueError:
+        return rc, None
+
+
+def _obs_traces(torch, spec, model):
+    """(b) tools/tracecheck on traces the script already wrote: the tp 2
+    --profile run of tp_full_width (gloo ranks sharing the card, the
+    fused scheme, TP_DEPTH layers) must give every count row OK and
+    exact, coverage at or above COVERAGE_MIN and the time check SKIPped
+    (gloo); run q's --fast trace (one card) gives bench_drift_fields'
+    OK (no collective time) and its coverage, reported: the kernels the
+    CUDA graph replays were launched by cudaGraphLaunch, which no phase
+    span encloses, so they land in unattributed."""
+    from distributed_llama_tpu_torch.obs.drift import (COVERAGE_MIN,
+                                                       bench_drift_fields,
+                                                       reconcile_capture)
+    from distributed_llama_tpu_torch.tools import tracecheck
+    from distributed_llama_tpu_torch.utils.it_split import parse_trace
+
+    depth = SMOKE_DIR / f"{Path(model).stem}_L{TP_DEPTH}.bin"
+    prof = SMOKE_DIR / "tp_profile" / "rank0"
+    t0 = time.perf_counter()
+    rc, row = _tool_run(tracecheck.main, [
+        str(prof), "--model", str(depth), "--tp", "2", "--scheme", "fused",
+        "--chrome-out", str(SMOKE_DIR / "tracecheck_tp2.json"), "--json"])
+    rows = row["rows"] if row else []
+    counts = [r for r in rows if r["check"] == "count"]
+    time_row = next((r for r in rows if r["check"] == "time"), None)
+    log(f"obs (b) tracecheck tp 2 fused ({TP_DEPTH} layers, gloo): exit "
+        f"{rc}, {row and row['tokens']} forwards, coverage "
+        f"{row and row['coverage']}, rows "
+        f"{[(r['check'], r['kind'], r['measured'], r['modeled'], r['verdict']) for r in rows]}; "
+        f"phase ms/token {row and row['phase_ms_per_token']} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if rc != 0 or not counts or any(r["verdict"] != "OK"
+                                    or r["threshold"] != "exact"
+                                    for r in counts):
+        raise AssertionError(f"obs (b): tracecheck of the tp 2 trace "
+                             f"exited {rc}: {rows}")
+    if row["coverage"] < COVERAGE_MIN or time_row is None \
+            or time_row["verdict"] != "SKIP":
+        raise AssertionError(f"obs (b): coverage {row['coverage']}, time "
+                             f"{time_row}")
+    splits = parse_trace(str(SMOKE_DIR / "profile_q"))
+    fields = bench_drift_fields(splits, spec, 1, STEPS, scheme="fused")
+    att, rep = reconcile_capture(str(SMOKE_DIR / "profile_q"),
+                                 model=str(model), tp=1, scheme="fused",
+                                 tokens=STEPS)
+    log(f"obs (b) run q (--fast, one card): bench_drift_fields verdict "
+        f"{fields['verdict']}, measured collective "
+        f"{fields['collectives']['measured_ms_per_token']} ms/token; "
+        f"phase coverage {att.coverage:.4f} (the graph's replays "
+        f"unattributed), phase ms/token {att.phase_ms_per_token()}")
+    if fields["verdict"] != "OK" or att.collectives:
+        raise AssertionError(f"obs (b): run q {fields}")
+    return dict(tp2=row, run_q=dict(fields, coverage=att.coverage,
+                                    phase_ms_per_token=
+                                    att.phase_ms_per_token()))
+
+
+def _obs_sidecar(torch, model, tok, ref_a):
+    """(c) io/kernel_cache on the 7B file: a cold load (the file read and
+    split, the sidecar written) and a warm one (the sidecar memory-mapped)
+    each to the card, timed; run a from the warm load gives run a's
+    stream. The sidecar is removed at the end."""
+    from distributed_llama_tpu_torch.io import kernel_cache, loader
+    from distributed_llama_tpu_torch.models.llama import params_to_device
+    from distributed_llama_tpu_torch.ops.quants import FloatType
+
+    side = Path(kernel_cache.sidecar_path(str(model)))
+    side.unlink(missing_ok=True)
+    patched = loader.load_model
+    saved = os.environ.get("DLLAMA_TILED_CACHE")
+    os.environ["DLLAMA_TILED_CACHE"] = "1"
+    times = {}
+    try:
+        loader.load_model = getattr(patched, "real", patched)
+        for label in ("cold", "warm"):
+            t0 = time.perf_counter()
+            spec, tree = kernel_cache.load_model_packed(
+                str(model), FloatType.Q40, FloatType.F32, "cuda")
+            t1 = time.perf_counter()
+            dev = params_to_device(tree, "cuda")
+            torch.cuda.synchronize()
+            times[label] = (t1 - t0, time.perf_counter() - t1)
+            log(f"obs (c) {label} load of the 7B file: "
+                f"{times[label][0]:.2f} s to the host tree"
+                + (f" (read, split, {side.stat().st_size / 1e9:.2f} GB "
+                   f"sidecar written)" if label == "cold" else
+                   " (sidecar memory-mapped)")
+                + f", {times[label][1]:.2f} s to the card")
+            fused = "wqkv" in tree  # the sidecar's tree is fused
+            if fused != (label == "warm"):
+                raise AssertionError(f"obs (c) {label}: tree keys "
+                                     f"{sorted(tree)}")
+            del tree, dev
+            gc.collect()
+            torch.cuda.empty_cache()
+        loader.load_model = patched
+        out, counts, wall, _ = _run_cli(torch, model, tok, [
+            "--prompt", PROMPT, "--steps", str(STEPS), "--temperature", "0",
+            "--seed", "1"])
+    finally:
+        loader.load_model = patched
+        if saved is None:
+            os.environ.pop("DLLAMA_TILED_CACHE", None)
+        else:
+            os.environ["DLLAMA_TILED_CACHE"] = saved
+        side.unlink(missing_ok=True)
+    same = _pieces(out) == ref_a
+    log(f"obs (c) run a from the warm sidecar: stream "
+        f"{'equal to' if same else 'DIFFERENT from'} run a's, {wall:.1f} s;"
+        f" sidecar removed")
+    if not same:
+        raise AssertionError("obs (c): run a from the sidecar differs")
+    return dict(cold_host_s=times["cold"][0], cold_device_s=times["cold"][1],
+                warm_host_s=times["warm"][0], warm_device_s=times["warm"][1],
+                run_a_wall_s=wall, launches=counts)
+
+
+def _int_view(obj):
+    """A tool row without its wall-clock floats and fingerprint: what the
+    card's run and the CPU's must share."""
+    if isinstance(obj, dict):
+        return {k: _int_view(v) for k, v in obj.items()
+                if k != "env_fingerprint" and not isinstance(v, float)}
+    if isinstance(obj, list):
+        return [_int_view(v) for v in obj if not isinstance(v, float)]
+    return obj
+
+
+OBS_TOOLS = {  # tool -> its inject arms, each (argv) that must exit 1
+    "costcheck": (["--legs", "healthy", "--inject", "double-count-dispatch"],
+                  ["--legs", "healthy", "--inject", "leak-ledger"]),
+    "watchcheck": (["--inject", "mute-detector"],
+                   ["--inject", "jitter-thresholds"]),
+    "racecheck": (["--seam", "pool_adopt", "--inject", "drop-a-lock"],
+                  ["--seam", "ingest_sweep", "--inject", "reorder-inbox"]),
+}
+
+
+def _obs_tools(torch):
+    """(d) costcheck, watchcheck and racecheck with --device cuda: exit 0,
+    their rows equal the same tools' rows on the CPU (wall-clock floats
+    and fingerprint aside), and each inject arm on the card exits
+    exactly 1."""
+    import importlib
+
+    out = {}
+    threads = torch.get_num_threads()
+    for name, arms in OBS_TOOLS.items():
+        main = importlib.import_module(
+            f"distributed_llama_tpu_torch.tools.{name}").main
+        t0 = time.perf_counter()
+        rc, row = _tool_run(main, ["--device", "cuda"])
+        t1 = time.perf_counter()
+        torch.set_num_threads(1)
+        try:
+            rc_cpu, row_cpu = _tool_run(main, ["--device", "cpu"])
+        finally:
+            torch.set_num_threads(threads)
+        t2 = time.perf_counter()
+        arm_rcs = [_tool_run(main, [*argv, "--device", "cuda"])[0]
+                   for argv in arms]
+        same = row is not None and _int_view(row) == _int_view(row_cpu)
+        log(f"obs (d) {name}: card exit {rc} ({t1 - t0:.1f} s), cpu exit "
+            f"{rc_cpu} ({t2 - t1:.1f} s), rows "
+            f"{'equal' if same else 'DIFFERENT'}; inject arms on the card "
+            f"exit {arm_rcs} ({time.perf_counter() - t2:.1f} s)")
+        if rc != 0 or rc_cpu != 0 or not same or arm_rcs != [1] * len(arms):
+            raise AssertionError(f"obs (d) {name}: exits {rc}/{rc_cpu}, "
+                                 f"rows equal {same}, arms {arm_rcs}")
+        out[name] = dict(card_s=t1 - t0, cpu_s=t2 - t1, arms=arm_rcs,
+                         gate=row.get("gate") if "gate" in row
+                         else {"ok": row.get("ok")})
+    return out
+
+
+def phase_obs(torch, peaks, spec, model, tok, ref_a):
+    """obs_full_width: (a) _obs_rank, (b) _obs_traces, (c) _obs_sidecar,
+    (d) _obs_tools."""
+    t0 = time.perf_counter()
+    timer = Timer(torch)
+    rank = _obs_rank(torch, timer, peaks)
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    traces = _obs_traces(torch, spec, model)
+    t2 = time.perf_counter()
+    sidecar = _obs_sidecar(torch, model, tok, ref_a)
+    t3 = time.perf_counter()
+    tools = _obs_tools(torch)
+    t4 = time.perf_counter()
+    log(f"obs_full_width: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+        f"{t3 - t2:.1f} s, (d) {t4 - t3:.1f} s")
+    return dict(rank=rank, traces=traces, sidecar=sidecar, tools=tools,
+                seconds=dict(a=t1 - t0, b=t2 - t1, c=t3 - t2, d=t4 - t3))
+
+
 def main() -> int:
     import torch
 
@@ -6279,6 +6620,9 @@ def main() -> int:
               f"checkout", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    # every load but obs_full_width's (c) reads the .bin: no phase before
+    # it writes the 4.2 GB device-layout sidecar (io/kernel_cache.py)
+    os.environ["DLLAMA_TILED_CACHE"] = "0"
     t_start = time.perf_counter()
     marks = [("start", t_start)]
 
@@ -6386,6 +6730,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = phase_train(torch, depth, dspec, tok, smi)
     mark("train_full_width")
+    gc.collect()
+    torch.cuda.empty_cache()
+    obs = phase_obs(torch, peaks, spec, model, tok, _pieces(out_a))
+    mark("obs_full_width")
     gc.collect()
     torch.cuda.empty_cache()
     logit_err, busy, prefill, fast, batch, continuous = phase_full_width(
@@ -6733,6 +7081,26 @@ def main() -> int:
                              unit=band_units[k["name"]],
                              shapes=tp_bands[w][k["name"]])
                 for w in TP_SIZES}
+    sim = obs["rank"]
+    for k in kernels:
+        if k["name"] in ("q40_matvec", "decode_attention"):
+            # the 70B tp 8 rank of obs_full_width: its launches over its
+            # OBS_STEPS host-loop steps, and the kernel at its shapes
+            k1 = k["name"] == "q40_matvec"
+            rows = (sim["k1"] if k1 else
+                    [dict(r, per_token=80) for r in sim["k2"]
+                     if r["pos"] == OBS_K2_POS[-1]])
+            k["sim_launches"] = sim["launches"].get(k["name"], 0)
+            k["sim"] = dict(
+                unit_row(rows), launches=k["sim_launches"],
+                max_abs_err=max(r["max_abs_err"] for r in
+                                (sim["k1"] if k1 else sim["k2"])),
+                unit=(f"one token of a 70B tp {OBS_TP} rank (ref): 80 x "
+                      f"(wqkv, wo, w13, w2 bands) + the wcls band at T = 1"
+                      if k1 else f"one token of a 70B tp {OBS_TP} rank at "
+                      f"pos {OBS_K2_POS[-1]}: 80 layers, 1 kv head and "
+                      f"8 query heads"),
+                shapes=sim["k1"] if k1 else sim["k2"])
     tp_idle = [f"{name} at tp {w}" for w in TP_SIZES for name in
                ("q40_matvec", "q40_gemm", "decode_attention",
                 "prefill_attention") if not tp_launches[w].get(name)]
@@ -6783,6 +7151,9 @@ def main() -> int:
                       "prefill": prefill, "fast": fast, "batch_step": batch,
                       "continuous": continuous, "tp": tp,
                       "serve_tp": serve_tp, "sp": sp, "train": train,
+                      "obs": {k: v for k, v in obs.items() if k != "rank"}
+                      | {"rank": {k: v for k, v in sim.items()
+                                  if k not in ("k1", "k2")}},
                       "tp_waits": TP_WAITS,
                       "batch_cache_saved_gb": saved, "build_s": build_s,
                       "sass": sass}))

@@ -671,7 +671,7 @@ def _rank_main(local: int, argv: list[str], init: str, tp: int, first: int,
 
 def _run(args, prompts, quiet: bool, group, scheme: str, tp: int) -> int:
     """Load (the rank's bands under tp > 1), then generate."""
-    from ..io.loader import load_model
+    from ..io.kernel_cache import load_model_packed
     from ..io.tokenizer import Tokenizer
     from ..parallel.mesh import single
     from ..parallel.tp import load_model_bands
@@ -687,9 +687,8 @@ def _run(args, prompts, quiet: bool, group, scheme: str, tp: int) -> int:
     if sharded:
         spec, params = load_model_bands(args.model, group.rank, group.size,
                                         scheme, wft, bft)
-    else:
-        spec, params = load_model(args.model, weights_float_type=wft,
-                                  buffer_float_type=bft)
+    else:  # through the device-layout sidecar (io/kernel_cache.py)
+        spec, params = load_model_packed(args.model, wft, bft, args.device)
     device = group.device
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
@@ -1354,7 +1353,7 @@ def _serve_run(args, slo, chaos, seed: int, group=None,
                   f"       (move it aside to start fresh, or restore a "
                   f"good copy to recover)", file=sys.stderr)
             return 1
-    from ..io.loader import load_model
+    from ..io.kernel_cache import load_model_packed
     from ..io.tokenizer import Tokenizer
     from ..runtime.journal import (JournalConfigMismatch, config_fingerprint,
                                    weight_file_digest)
@@ -1368,9 +1367,8 @@ def _serve_run(args, slo, chaos, seed: int, group=None,
 
         spec, params = load_model_bands(args.model, 0, group.size,
                                         tp_scheme(), wft, bft)
-    else:
-        spec, params = load_model(args.model, weights_float_type=wft,
-                                  buffer_float_type=bft)
+    else:  # through the device-layout sidecar (io/kernel_cache.py)
+        spec, params = load_model_packed(args.model, wft, bft, args.device)
     tokenizer = Tokenizer(args.tokenizer, spec.vocab_size)
     if journal is not None:
         # what a replay depends on (the JAX CLI's record): the model, its

@@ -79,6 +79,8 @@ import torch
 from torch import nn
 
 from ..io.loader import Q40Weight
+from ..obs.profiler import span as phase
+from ..obs.spans import SCOPE_ATTN, SCOPE_EMBED, SCOPE_FFN, SCOPE_LOGITS
 from ..ops.attention import (attention_core, decode_attention,
                              decode_attention_batch,
                              decode_attention_batch_plain,
@@ -458,15 +460,17 @@ def _post_attention(spec: TransformerSpec, lw: dict[str, Any],
                     route: Route) -> torch.Tensor:
     """wo + residual, then the SwiGLU ffn sub-block + residual (each matmul
     input through the q80 cut point)."""
-    x = x + _mm(lw["wo"], _maybe_q80(spec, ao), route)
-    xb = _maybe_q80(spec, rmsnorm(x, lw["rms_ffn"]))
-    if "w13" in lw:
-        h13 = _mm(lw["w13"], xb, route)
-        hid = h13.shape[-1] // 2
-        hb = silu(h13[..., :hid]) * h13[..., hid:]
-    else:
-        hb = silu(_mm(lw["w1"], xb, route)) * _mm(lw["w3"], xb, route)
-    return x + _mm(lw["w2"], _maybe_q80(spec, hb), route)
+    with phase(SCOPE_ATTN):
+        x = x + _mm(lw["wo"], _maybe_q80(spec, ao), route)
+    with phase(SCOPE_FFN):
+        xb = _maybe_q80(spec, rmsnorm(x, lw["rms_ffn"]))
+        if "w13" in lw:
+            h13 = _mm(lw["w13"], xb, route)
+            hid = h13.shape[-1] // 2
+            hb = silu(h13[..., :hid]) * h13[..., hid:]
+        else:
+            hb = silu(_mm(lw["w1"], xb, route)) * _mm(lw["w3"], xb, route)
+        return x + _mm(lw["w2"], _maybe_q80(spec, hb), route)
 
 
 def _layer(spec: TransformerSpec, x: torch.Tensor, lw: dict[str, Any],
@@ -480,13 +484,12 @@ def _layer(spec: TransformerSpec, x: torch.Tensor, lw: dict[str, Any],
     route)`` replaces _post_attention (the tensor-parallel layer tail),
     ``attend(cache, q, k, v, idx, pos)`` the cache write and attention
     (the sp-sharded cache's)."""
-    t_len = x.shape[0]
-    hs, n_kv = spec.head_size, spec.n_kv_heads
-    q, k, v = _qkv_proj(spec, lw, x, rope, route)
-    if attend is not None:
-        ao = attend(cache, q, k, v, idx, pos)
-    else:
-        ao = _cache_attention(spec, cache, q, k, v, idx, pos, route)
+    with phase(SCOPE_ATTN):
+        q, k, v = _qkv_proj(spec, lw, x, rope, route)
+        if attend is not None:
+            ao = attend(cache, q, k, v, idx, pos)
+        else:
+            ao = _cache_attention(spec, cache, q, k, v, idx, pos, route)
     if tail is not None:
         return tail(lw, x, ao, route)
     return _post_attention(spec, lw, x, ao, route)
@@ -628,9 +631,10 @@ class Llama(nn.Module):
             return self.forward_fused(cache, self._token, self._pos,
                                       self.fusion, route, logits, at=pos)
         emb = p["tok_embedding"]
-        x = (emb[tokens[0]].reshape(1, -1) if t_len == 1
-             else emb[torch.tensor(tokens, device=emb.device)])
-        x = x.to(torch.float32)
+        with phase(SCOPE_EMBED):
+            x = (emb[tokens[0]].reshape(1, -1) if t_len == 1
+                 else emb[torch.tensor(tokens, device=emb.device)])
+            x = x.to(torch.float32)
         rope = rope_tables(self.freq, pos, t_len)
         for idx, lw in enumerate(self.layers):
             x = _layer(spec, self._enter(x, idx), lw, cache, idx, pos, rope,
@@ -638,7 +642,8 @@ class Llama(nn.Module):
         x = self._enter(x, spec.n_layers)
         if not logits:
             return None
-        return self._logits(x, route)
+        with phase(SCOPE_LOGITS):
+            return self._logits(x, route)
 
     # the layer loop's hooks: the single-device program here, the
     # tensor-parallel one in parallel/tp.TPLlama (its combines and gathers)
@@ -681,7 +686,8 @@ class Llama(nn.Module):
         mega = mode == "on" and mega_supported(spec)
         dim, kv_dim, hs = spec.dim, spec.kv_dim, spec.head_size
         kv_mul = spec.kv_mul
-        x = p["tok_embedding"][token].to(torch.float32)  # (1, dim)
+        with phase(SCOPE_EMBED):
+            x = p["tok_embedding"][token].to(torch.float32)  # (1, dim)
         rows = pos.long() if at is None else None
         for idx, lw in enumerate(self.layers):
             if mega:
@@ -706,8 +712,9 @@ class Llama(nn.Module):
                            lw["rms_ffn"])
         if not logits:
             return None
-        x = rmsnorm(x, p["rms_final"])
-        return _mm(p["wcls"], x, route)
+        with phase(SCOPE_LOGITS):
+            x = rmsnorm(x, p["rms_final"])
+            return _mm(p["wcls"], x, route)
 
     def forward_batch(self, cache: KVCache, tokens: torch.Tensor,
                       pos: int | torch.Tensor,
@@ -741,24 +748,28 @@ class Llama(nn.Module):
         v4 = cache.v.view(n_layers * batch, seq_len, n_kv, hs)
         rows = self._batch_rows(batch, device)
         cols = pos.long()
-        x = p["tok_embedding"][tokens].to(torch.float32)
+        with phase(SCOPE_EMBED):
+            x = p["tok_embedding"][tokens].to(torch.float32)
         rope = rope_rows(self.freq, pos)
         for idx, lw in enumerate(self.layers):
             x = self._enter(x, idx)
-            q, k, v = _qkv_proj(spec, lw, x, rope, route)
-            if self._batch_attend is not None:
-                ao = self._batch_attend(k4, v4, q, k, v, rows[idx], cols,
-                                        pos)
-                x = self._post(lw, x, ao, route)
-                continue
-            k4.index_put_((rows[idx], cols),
-                          k.reshape(batch, n_kv, hs).to(k4.dtype))
-            v4.index_put_((rows[idx], cols),
-                          v.reshape(batch, n_kv, hs).to(v4.dtype))
-            ao = route.batch(q.reshape(batch, spec.n_heads, hs).contiguous(),
-                             k4, v4, idx, pos, spec.kv_mul)
+            with phase(SCOPE_ATTN):
+                q, k, v = _qkv_proj(spec, lw, x, rope, route)
+                if self._batch_attend is not None:
+                    ao = self._batch_attend(k4, v4, q, k, v, rows[idx],
+                                            cols, pos)
+                else:
+                    k4.index_put_((rows[idx], cols),
+                                  k.reshape(batch, n_kv, hs).to(k4.dtype))
+                    v4.index_put_((rows[idx], cols),
+                                  v.reshape(batch, n_kv, hs).to(v4.dtype))
+                    ao = route.batch(
+                        q.reshape(batch, spec.n_heads, hs).contiguous(),
+                        k4, v4, idx, pos, spec.kv_mul)
             x = self._post(lw, x, ao, route)
-        return self._logits(self._enter(x, n_layers), route)
+        x = self._enter(x, n_layers)
+        with phase(SCOPE_LOGITS):
+            return self._logits(x, route)
 
     def forward_batch_ragged(self, cache: KVCache, tokens: torch.Tensor,
                              pos: torch.Tensor,
@@ -847,20 +858,24 @@ class Llama(nn.Module):
         attend = (paged_attention_q8 if isinstance(cache, PagedKVQ8)
                   else paged_decode_attention)
         hs, kv_mul = spec.head_size, spec.kv_mul
-        x = self.params["tok_embedding"][tokens.reshape(-1)].to(
-            torch.float32)
+        with phase(SCOPE_EMBED):
+            x = self.params["tok_embedding"][tokens.reshape(-1)].to(
+                torch.float32)
         positions = (pos[:, None] + torch.arange(
             t_len, dtype=torch.int32, device=pos.device)[None]).reshape(-1)
         rope = rope_rows(self.freq, positions)
         for idx, lw in enumerate(self.layers):
             x = self._enter(x, idx)
-            q, k, v = _qkv_proj(spec, lw, x, rope, route)
-            ao = attend(hs, kv_mul, n_pages, q.reshape(batch, t_len, -1),
-                        k.reshape(batch, t_len, -1),
-                        v.reshape(batch, t_len, -1), *planes, idx, pos,
-                        table, route, span)
+            with phase(SCOPE_ATTN):
+                q, k, v = _qkv_proj(spec, lw, x, rope, route)
+                ao = attend(hs, kv_mul, n_pages, q.reshape(batch, t_len, -1),
+                            k.reshape(batch, t_len, -1),
+                            v.reshape(batch, t_len, -1), *planes, idx, pos,
+                            table, route, span)
             x = self._post(lw, x, ao.reshape(batch * t_len, -1), route)
-        logits = self._logits(self._enter(x, spec.n_layers), route)
+        x = self._enter(x, spec.n_layers)
+        with phase(SCOPE_LOGITS):
+            logits = self._logits(x, route)
         return logits.reshape(batch, t_len, -1)
 
     def _batch_rows(self, batch: int, device) -> torch.Tensor:

@@ -75,3 +75,34 @@ def llama2_7b_spec(**overrides) -> TransformerSpec:
               weights_float_type=FloatType.Q40)
     kw.update(overrides)
     return TransformerSpec(**kw)
+
+
+def llama2_13b_spec(**overrides) -> TransformerSpec:
+    """The Llama-2-13B shape (params.json: dim 5120, 40 layers and heads,
+    multi-head attention) at Q40."""
+    kw = dict(dim=5120, hidden_dim=13824, n_layers=40, n_heads=40,
+              n_kv_heads=40, vocab_size=32000, seq_len=2048,
+              weights_float_type=FloatType.Q40)
+    kw.update(overrides)
+    return TransformerSpec(**kw)
+
+
+def llama2_70b_spec(**overrides) -> TransformerSpec:
+    """The Llama-2-70B shape (dim 8192, 80 layers, grouped-query attention
+    with 64 query and 8 kv heads, hidden 28672) at Q40. The whole model
+    fits one 80 GB card; one tp 8 rank's bands are about 4.8 GB
+    (parallel/shard_sim.py)."""
+    kw = dict(dim=8192, hidden_dim=28672, n_layers=80, n_heads=64,
+              n_kv_heads=8, vocab_size=32000, seq_len=2048,
+              weights_float_type=FloatType.Q40)
+    kw.update(overrides)
+    return TransformerSpec(**kw)
+
+
+def small_bench_spec(**overrides) -> TransformerSpec:
+    """A tiny Q40 shape for CPU runs of the tools."""
+    kw = dict(dim=256, hidden_dim=704, n_layers=4, n_heads=4, n_kv_heads=4,
+              vocab_size=1024, seq_len=256,
+              weights_float_type=FloatType.Q40)
+    kw.update(overrides)
+    return TransformerSpec(**kw)

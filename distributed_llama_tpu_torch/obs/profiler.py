@@ -46,6 +46,20 @@ _active_dir: str | None = None
 TRACE_LEAD_S = 0.05
 
 
+def span(name: str):
+    """While a profiler runs, a ``record_function`` span named ``name``:
+    the forwards' phases (obs/spans.py's embed, attn, ffn, logits, which
+    obs/xprof buckets a trace by) and the collectives' ``tp::`` spans
+    (utils/it_split reads them as T). Without a profiler no span is made
+    (one costs ~14 us), so a forward costs nothing more and a captured
+    graph is the same."""
+    import torch
+
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
 def env_profile_dir() -> str | None:
     """DLLAMA_PROFILE_DIR, or None when unset/empty."""
     return os.environ.get("DLLAMA_PROFILE_DIR") or None

@@ -42,16 +42,27 @@ chunk. gloo refuses send/recv on CUDA tensors (chip_smoke.py's gloo ranks
 sharing one card), so there a hop is staged through host memory: the
 tensor is copied to the CPU, exchanged, and copied back — still one
 ``ppermute`` in the census.
+
+A simulated rank (parallel/shard_sim.py: a group whose process group is
+mesh.LOCAL_SIM) runs the tp forward's collectives as local stand-ins of
+the same output shape, the JAX package's shard_sim tile gather, identity
+psum, band-slice scatter and identity ppermute: a gather tiles the band
+``size`` times, an all_reduce and a hop return their input, a
+reduce_scatter keeps band 0. Each is counted in CENSUS and spanned as the
+real one, so the census of a simulated forward equals the budget; values
+are garbage by construction (every gathered band is this rank's).
 """
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
+# a span over one collective's host work (``tp::<kind>``, or WAIT_SPAN
+# where an issued one is waited for) while a profiler runs: gloo's
+# collectives have no kernel, and utils/it_split reads these spans as T
+from ..obs.profiler import span as _span
 from ..utils.it_split import SPAN_PREFIX, WAIT_SPAN
-from .mesh import TPGroup
+from .mesh import LOCAL_SIM, TPGroup
 
 KINDS = ("all_gather", "psum", "reduce_scatter", "ppermute", "sp_pmax",
          "sp_psum", "dp_psum")
@@ -84,14 +95,8 @@ def _dist():
     return dist
 
 
-def _span(name: str):
-    """While a profiler runs, a span over one collective's host work
-    (``tp::<kind>``, or WAIT_SPAN where an issued one is waited for):
-    gloo's collectives have no kernel, and utils/it_split reads these
-    spans as T. Without a profiler no span is made (one costs ~14 us)."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
+def _simulated(g: TPGroup) -> bool:
+    return g.group is LOCAL_SIM
 
 
 def gather(x: torch.Tensor, g: TPGroup, dim: int = -1) -> torch.Tensor:
@@ -99,8 +104,11 @@ def gather(x: torch.Tensor, g: TPGroup, dim: int = -1) -> torch.Tensor:
     default), in rank order."""
     with _span(SPAN_PREFIX + "all_gather"):
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(g.size)]
-        _dist().all_gather(parts, x, group=g.group)
+        if _simulated(g):
+            parts = [x] * g.size
+        else:
+            parts = [torch.empty_like(x) for _ in range(g.size)]
+            _dist().all_gather(parts, x, group=g.group)
         CENSUS.add("all_gather", (g.size - 1) * x.numel() * x.element_size())
         return torch.cat(parts, dim=dim)
 
@@ -124,15 +132,19 @@ class Pending:
     def __init__(self, x: torch.Tensor, g: TPGroup):
         with _span(SPAN_PREFIX + "all_gather"):
             x = x.contiguous()
-            self.parts = [torch.empty_like(x) for _ in range(g.size)]
-            self.work = _dist().all_gather(self.parts, x, group=g.group,
-                                           async_op=True)
+            if _simulated(g):
+                self.parts, self.work = [x] * g.size, None
+            else:
+                self.parts = [torch.empty_like(x) for _ in range(g.size)]
+                self.work = _dist().all_gather(self.parts, x, group=g.group,
+                                               async_op=True)
             CENSUS.add("all_gather",
                        (g.size - 1) * x.numel() * x.element_size())
 
     def wait(self) -> torch.Tensor:
         with _span(WAIT_SPAN):
-            self.work.wait()
+            if self.work is not None:
+                self.work.wait()
             return torch.cat(self.parts, dim=-1)
 
 
@@ -141,7 +153,8 @@ def psum(x: torch.Tensor, g: TPGroup) -> torch.Tensor:
     in place and returned."""
     with _span(SPAN_PREFIX + "all_reduce"):
         x = x.contiguous()
-        _dist().all_reduce(x, group=g.group)
+        if not _simulated(g):
+            _dist().all_reduce(x, group=g.group)
         nbytes = x.numel() * x.element_size()
         CENSUS.add("psum", 2 * (g.size - 1) * nbytes // g.size)
         return x
@@ -152,8 +165,11 @@ def scatter(x: torch.Tensor, g: TPGroup) -> torch.Tensor:
     r of every rank's ``x``."""
     with _span(SPAN_PREFIX + "reduce_scatter"):
         chunks = [c.contiguous() for c in x.chunk(g.size, dim=-1)]
-        out = torch.empty_like(chunks[0])
-        _dist().reduce_scatter(out, chunks, group=g.group)
+        if _simulated(g):
+            out = chunks[0]
+        else:
+            out = torch.empty_like(chunks[0])
+            _dist().reduce_scatter(out, chunks, group=g.group)
         nbytes = x.numel() * x.element_size()
         CENSUS.add("reduce_scatter", (g.size - 1) * nbytes // g.size)
         return out
@@ -180,6 +196,11 @@ def _permute(x: torch.Tensor, shift: int, group, size: int, rank: int):
 
 def ppermute_start(x: torch.Tensor, shift: int, g: TPGroup):
     """One ring hop over the tp ranks, issued (_permute)."""
+    if _simulated(g):
+        with _span(SPAN_PREFIX + "collective_permute"):
+            x = x.contiguous()
+            CENSUS.add("ppermute", x.numel() * x.element_size())
+            return [], x
     return _permute(x, shift, g.group, g.size, g.rank)
 
 

@@ -34,6 +34,19 @@ from typing import Any
 
 import torch
 
+class LocalSim:
+    """The process group of a simulated rank (parallel/shard_sim.py): one
+    tp rank's program on one device, each collective a local stand-in of
+    the same output shape that parallel/collectives.py counts as the real
+    one and that moves nothing."""
+
+    def __repr__(self) -> str:
+        return "LOCAL_SIM"
+
+
+LOCAL_SIM = LocalSim()
+
+
 @dataclasses.dataclass(frozen=True)
 class TPGroup:
     rank: int  # the tp index: the weight band and kv heads held
@@ -70,6 +83,8 @@ class TPGroup:
                    if g is not None), None)
         if pg is None:
             return "none"
+        if pg is LOCAL_SIM:
+            return "sim"
         import torch.distributed as dist
 
         return str(dist.get_backend(pg))
@@ -78,6 +93,14 @@ class TPGroup:
 def single(device) -> TPGroup:
     """The group of one: the single-device program."""
     return TPGroup(0, 1, None, torch.device(device))
+
+
+def sim_group(size: int, device) -> TPGroup:
+    """Rank 0 of a tp group of ``size`` simulated on one device: its
+    collectives are parallel/collectives.py's local stand-ins (the
+    LOCAL_SIM group)."""
+    return TPGroup(0, size, LOCAL_SIM if size > 1 else None,
+                   torch.device(device))
 
 
 def visible_devices(device_type: str) -> int | None:

@@ -75,8 +75,10 @@ import torch
 from ..io.loader import Q40_BLOCK, Q40Weight, q40_blocks_into, read_spec
 from ..models.llama import (KERNELS, KVCache, Llama, PagedKVQ8, Route, _mm,
                             _maybe_q80, params_to_device)
+from ..obs.profiler import span as phase
 from ..models.spec import HEADER_BYTES, TransformerSpec
 from ..ops.linear import rmsnorm, silu
+from ..obs.spans import SCOPE_ATTN, SCOPE_FFN
 from ..ops.quants import (QK, FloatType, dequantize_q80_torch,
                           quantize_q80_torch)
 from . import collectives as C
@@ -559,7 +561,8 @@ class TPLlama(Llama):
         if self._pending is None:
             return x
         pending, self._pending = self._pending, None
-        return x + _wire_unpack(self.full_spec, pending.wait())
+        with phase(SCOPE_FFN):  # the previous layer's ffn combine
+            return x + _wire_unpack(self.full_spec, pending.wait())
 
     def _combine(self, part: torch.Tensor) -> torch.Tensor:
         """fused: the block's row-parallel partials summed across ranks
@@ -576,26 +579,30 @@ class TPLlama(Llama):
         if g.size == 1:
             return super()._post(lw, x, ao, route)
         if self.scheme == "ref":
-            xb = _wire_gather(spec, ao, g)                 # (T, dim)
-            x = x + _wire_gather(spec, _mm(lw["wo"], xb, route), g)
+            with phase(SCOPE_ATTN):
+                xb = _wire_gather(spec, ao, g)             # (T, dim)
+                x = x + _wire_gather(spec, _mm(lw["wo"], xb, route), g)
+            with phase(SCOPE_FFN):
+                xb = _maybe_q80(spec, rmsnorm(x, lw["rms_ffn"]))
+                hb = _wire_gather(spec, _swiglu_local(lw, xb, route), g)
+                return x + _wire_gather(spec, _mm(lw["w2"], hb, route), g)
+        with phase(SCOPE_ATTN):
+            part = _mm(lw["wo"], _maybe_q80(spec, ao), route)  # partials
+            if self.scheme == "fused":
+                x = x + self._combine(part)
+            else:  # overlap: ring reduce, gather consumed in-layer
+                x = x + _wire_gather(spec, C.ring_reduce(part, g), g)
+        with phase(SCOPE_FFN):
             xb = _maybe_q80(spec, rmsnorm(x, lw["rms_ffn"]))
-            hb = _wire_gather(spec, _swiglu_local(lw, xb, route), g)
-            return x + _wire_gather(spec, _mm(lw["w2"], hb, route), g)
-        part = _mm(lw["wo"], _maybe_q80(spec, ao), route)  # (T, dim) partial
-        if self.scheme == "fused":
-            x = x + self._combine(part)
-        else:  # overlap: ring reduce, gather consumed in-layer
-            x = x + _wire_gather(spec, C.ring_reduce(part, g), g)
-        xb = _maybe_q80(spec, rmsnorm(x, lw["rms_ffn"]))
-        hb = _maybe_q80(spec, _swiglu_local(lw, xb, route))
-        part = _mm(lw["w2"], hb, route)
-        if self.scheme == "fused":
-            return x + self._combine(part)
-        # overlap: the gather is issued here and consumed by the next
-        # layer's _enter (or the logits)
-        band = C.ring_reduce(part, g)
-        self._pending = C.Pending(_wire_pack(spec, band), g)
-        return x
+            hb = _maybe_q80(spec, _swiglu_local(lw, xb, route))
+            part = _mm(lw["w2"], hb, route)
+            if self.scheme == "fused":
+                return x + self._combine(part)
+            # overlap: the gather is issued here and consumed by the next
+            # layer's _enter (or the logits)
+            band = C.ring_reduce(part, g)
+            self._pending = C.Pending(_wire_pack(spec, band), g)
+            return x
 
     def _logits(self, x: torch.Tensor, route: Route) -> torch.Tensor:
         """The rank's vocab band, gathered: (T, vocab) on every rank."""

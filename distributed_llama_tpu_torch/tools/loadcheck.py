@@ -67,6 +67,19 @@ SPEC_KW = dict(dim=64, hidden_dim=160, n_layers=2, n_heads=4, n_kv_heads=2,
                vocab_size=128, seq_len=32)
 
 
+def require_device(tool: str, device: str) -> bool:
+    """False, with the message, where ``--device cuda`` finds no GPU: the
+    port's tools never carry on on the CPU in the card's place."""
+    if device == "cuda":
+        import torch
+
+        if not torch.cuda.is_available():
+            print(f"{tool}: no GPU: torch.cuda.is_available() is False "
+                  f"— pass --device cpu to run on the CPU", file=sys.stderr)
+            return False
+    return True
+
+
 def _policy():
     """The gate's SLO policy, in VIRTUAL seconds (1.0 = one device step):
     interactive wants a first token within 12 steps of ARRIVAL (queue
@@ -558,13 +571,8 @@ def main(argv=None) -> int:
                   "runtime/speculative.py)", file=sys.stderr)
             return 2
 
-    if args.device == "cuda":
-        import torch
-
-        if not torch.cuda.is_available():
-            print("loadcheck: no GPU: torch.cuda.is_available() is False "
-                  "— pass --device cpu to run on the CPU", file=sys.stderr)
-            return 1
+    if not require_device("loadcheck", args.device):
+        return 1
     from ..models.spec import TransformerSpec
     from ..runtime.chaos import (DISAGG_DRILLS, DRILLS, RECOVERY_DRILLS,
                                  TIERING_DRILLS, render_drill_table,

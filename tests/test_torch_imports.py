@@ -51,7 +51,11 @@ NEW_MODULES = ("utils.it_split", "utils.rng", "obs.profiler",
                "runtime.pagewire", "runtime.kv_io", "runtime.page_channel",
                "runtime.disagg", "tools.c7_probe", "runtime.chaos",
                "tools.loadgen", "tools.loadcheck", "parallel.ring",
-               "parallel.train", "parallel.sp_train")
+               "parallel.train", "parallel.sp_train", "parallel.shard_sim",
+               "obs.xprof", "obs.drift", "io.kernel_cache",
+               "tools.tracecheck", "tools.make_trace_fixture",
+               "tools.costcheck", "tools.tracejoin", "tools.watchcheck",
+               "tools.fleetcheck", "tools.racecheck")
 
 
 def test_every_module_imports_with_jax_blocked():

@@ -138,6 +138,23 @@ def _tokens(reply):
     return body["tokens"]
 
 
+def _wait_journaled_open(path, n, timeout_s):
+    """Poll the journal until ``n`` requests hold open (unretired)
+    records, or the deadline passes; returns the last count seen."""
+    from distributed_llama_tpu_torch.runtime.journal import load_journal
+
+    deadline = time.time() + timeout_s
+    seen = 0
+    while True:
+        try:
+            seen = sum(e.status is None for e in load_journal(str(path)))
+        except (OSError, ValueError):
+            seen = 0  # not created yet, or caught mid-append
+        if seen >= n or time.time() > deadline:
+            return seen
+        time.sleep(0.05)
+
+
 def _burst(port, payloads=BURST):
     """Every payload at once, on its own thread: the replies in order."""
     out = [None] * len(payloads)
@@ -274,7 +291,7 @@ def test_journal_records_the_tp_scheme_and_recovers_at_tp2(
     flags = [*CONFIGS["paged"], "--tp", "2", "--journal", str(path)]
     env = {"DLLAMA_TP_SCHEME": "ref"}
     child = Served(model_files, [*flags, "--drain-s", "0", "--chaos",
-                                 "step_delay_every=1,step_delay_ms=100"],
+                                 "step_delay_every=1,step_delay_ms=250"],
                    env=env)
     greedy = [{"prompt": " ".join(["hi"] * n), "steps": 30,
                "temperature": 0} for n in (2, 3, 5)]
@@ -283,9 +300,13 @@ def test_journal_records_the_tp_scheme_and_recovers_at_tp2(
     try:
         for t in threads:
             t.start()
-        time.sleep(1.0)  # in flight
+        # in flight: every request journaled and still open (its admit
+        # record reaches the file at the first dispatch's sync), however
+        # slowly a loaded host serves the posts
+        open_ = _wait_journaled_open(path, len(greedy), 60)
     finally:
         rc, err = child.stop()
+    assert open_ == len(greedy), (open_, err[-2000:])
     for t in threads:
         t.join(60)
     assert rc == 0, err

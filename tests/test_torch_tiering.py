@@ -19,8 +19,10 @@ cases of tests/test_recovery.py.
   the fingerprint's tier keys refuse a changed tier config.
 """
 
+import itertools
 import os
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -546,7 +548,13 @@ def test_recovery_promotes_disk_resident_prefix_bitwise(params, tmp_path):
     eng = _engine(params, journal=RequestJournal(path), **tiered)
     warm(eng)
     v = eng.submit(victim())
-    for _ in range(6):
+    # six dispatches at least, and on until the prefix's promotion from
+    # disk (the uploader thread's) has landed and two tokens are sampled:
+    # a loaded host may not run the uploader within the six
+    deadline = time.monotonic() + 60
+    for step in itertools.count():
+        if step >= 6 and (v.n_sampled >= 2 or time.monotonic() > deadline):
+            break
         eng.step_many(eng.block_steps, quiet=True)
     assert not v.done.is_set() and v.n_sampled >= 2
     eng.close()
