@@ -3939,7 +3939,7 @@ def phase_chaos(torch, model, tok, spec, ref_k, gaps, smi, serve_res):
 # phase 4: kernels against plain at full width, end to end
 # --------------------------------------------------------------------------
 
-def phase_full_width(torch, model, tok, peaks, ref):
+def phase_full_width(torch, model, tok, peaks, ref, card0, sim_mem):
     from distributed_llama_tpu_torch.io.loader import load_model
     from distributed_llama_tpu_torch.io.tokenizer import Tokenizer
     from distributed_llama_tpu_torch.models import llama
@@ -3947,7 +3947,11 @@ def phase_full_width(torch, model, tok, peaks, ref):
     from distributed_llama_tpu_torch.runtime.generate import Engine
 
     spec, host = load_model(str(model), weights_float_type=FloatType.Q40)
+    torch.cuda.synchronize()
+    blocks0 = active_blocks(torch)
     engine = Engine(spec, host, "cuda")
+    torch.cuda.synchronize()
+    load = blocks_since(torch, blocks0)  # analysis_full_width (a)
     del host
     tokenizer = Tokenizer(str(tok), spec.vocab_size)
     tokens = tokenizer.encode(PROMPT)[:4]
@@ -3984,7 +3988,11 @@ def phase_full_width(torch, model, tok, peaks, ref):
     fast["capture_reading"] = capture_reading(torch, engine, tokenizer)
     batch = batch_full_width(torch, engine)
     continuous = continuous_full_width(torch, engine, tokenizer, batch)
-    return worst, busy, prefill, fast, batch, continuous
+    gc.collect()
+    torch.cuda.empty_cache()
+    analysis = phase_analysis(torch, engine, tokenizer, load, card0,
+                              sim_mem)
+    return worst, busy, prefill, fast, batch, continuous, analysis
 
 
 def host_reading(torch):
@@ -6317,8 +6325,13 @@ def _obs_rank(torch, timer, peaks):
     from distributed_llama_tpu_torch.parallel.comm_stats import \
         tp_collective_budget
 
+    from distributed_llama_tpu_torch.analysis.memory_model import \
+        device_footprint
+
     spec = synth.llama2_70b_spec(seq_len=OBS_SEQ)
     L = spec.n_layers
+    torch.cuda.synchronize()
+    blocks0 = active_blocks(torch)
     t0 = time.perf_counter()
     params = shard_sim.synth_rank_q40(spec, OBS_TP, seed=7, scheme="ref",
                                       device="cuda")
@@ -6326,6 +6339,10 @@ def _obs_rank(torch, timer, peaks):
     fwd = shard_sim.make_rank_forward(spec, OBS_TP, params, "ref")
     torch.cuda.synchronize()
     made_s = time.perf_counter() - t0
+    # analysis_full_width (a): the rank's resident bytes against its price
+    sim_mem = dict(blocks_since(torch, blocks0),
+                   priced=device_footprint(spec, OBS_TP,
+                                           "ref").resident_bytes)
     band_gb = sum(t.numel() * t.element_size() for v in params.values()
                   if not isinstance(v, torch.Tensor) for t in v) / 1e9
     embed_gb = params["tok_embedding"].numel() * 4 / 1e9
@@ -6391,6 +6408,7 @@ def _obs_rank(torch, timer, peaks):
     return dict(steps=OBS_STEPS, ms_per_token=ms_token, launches=launches,
                 census={k: list(v) for k, v in census.items()},
                 band_gb=band_gb, made_s=made_s, k1=k1, k2=k2,
+                memory=sim_mem,
                 projection=dict(dataclasses.asdict(proj),
                                 total_ms=proj.total_ms,
                                 gbps=shard_sim.NVLINK_GBPS_PER_DIRECTION,
@@ -6608,6 +6626,282 @@ def phase_obs(torch, peaks, spec, model, tok, ref_a):
                 seconds=dict(a=t1 - t0, b=t2 - t1, c=t3 - t2, d=t4 - t3))
 
 
+# --------------------------------------------------------------------------
+# analysis_full_width: the memory model and the sync census on the card
+# --------------------------------------------------------------------------
+
+ANALYSIS_STEPS = 8       # (b): host-loop steps and --fast replays
+ANALYSIS_DISPATCHES = 4  # (b): continuous dispatches (16-step chains)
+ANALYSIS_PAGES = CONT_SLOTS * CONT_STEPS // PAGE  # (a): each pool's pages
+
+
+def card_in_use(torch) -> int:
+    """Bytes in use on the card (mem_get_info), read before this process
+    allocates anything: the CUDA context and whatever else holds the
+    card."""
+    free, total = torch.cuda.mem_get_info(0)
+    return total - free
+
+
+def active_blocks(torch) -> dict:
+    """The caching allocator's live blocks: address -> (block bytes, the
+    bytes the tensor asked for)."""
+    return {b["address"]: (b["size"], b.get("requested_size", b["size"]))
+            for seg in torch.cuda.memory_snapshot() for b in seg["blocks"]
+            if b["state"] == "active_allocated"}
+
+
+def blocks_since(torch, before: dict) -> dict:
+    """What the allocator handed out since ``before`` (active_blocks) and
+    still holds: blocks, their bytes, the bytes the tensors asked for,
+    and memory_allocated()'s count of them."""
+    new = [v for a, v in active_blocks(torch).items() if a not in before]
+    return dict(blocks=len(new), allocated=sum(s for s, _ in new),
+                requested=sum(r for _, r in new))
+
+
+def _check_resident(label: str, got: dict, priced: int) -> None:
+    """The tensors asked for exactly the priced bytes; memory_allocated()
+    holds them plus the allocator's rounding of each block (512 B, and a
+    large block's unsplit tail under 1 MiB)."""
+    log(f"analysis (a) {label}: {got['blocks']} blocks asked for "
+        f"{got['requested']} B, priced {priced} B; memory_allocated "
+        f"+{got['allocated']} B (allocator rounding "
+        f"{got['allocated'] - got['requested']} B)")
+    if got["requested"] != priced:
+        raise AssertionError(f"analysis (a): {label} asked for "
+                             f"{got['requested']} B, priced {priced} B")
+    if not 0 <= got["allocated"] - got["requested"] < (1 << 20) * \
+            got["blocks"]:
+        raise AssertionError(f"analysis (a): {label}: rounding "
+                             f"{got['allocated'] - got['requested']} B")
+
+
+class SyncCensus:
+    """torch.cuda.set_sync_debug_mode("warn") around a block: every sync
+    the card reports is kept as the file:line of its innermost frame in
+    the port's package, and judged against the D001 pragmas there (a sync
+    is allowed only on a line a ``# dlint: allow[D001]`` pragma covers)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.sites: collections.Counter = collections.Counter()
+
+    def __enter__(self):
+        import traceback
+        import warnings
+
+        pkg = str(ROOT / "distributed_llama_tpu_torch") + os.sep
+
+        def hook(message, category, filename, lineno, file=None,
+                 line=None):
+            if "synchronizing CUDA operation" not in str(message):
+                return
+            for fr in reversed(traceback.extract_stack()[:-1]):
+                if fr.filename.startswith(pkg):
+                    rel = Path(fr.filename).relative_to(ROOT).as_posix()
+                    self.sites[(rel, fr.lineno)] += 1
+                    return
+            self.sites[(f"{filename} (outside the package)", lineno)] += 1
+
+        self._warn = warnings.catch_warnings()
+        self._warn.__enter__()
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode(0)
+        self._warn.__exit__(*exc)
+        return False
+
+    def disallowed(self) -> list:
+        from distributed_llama_tpu_torch.analysis.lint import parse_pragmas
+
+        bad = []
+        for rel, line in self.sites:
+            path = ROOT / rel
+            if not path.is_file():
+                bad.append((rel, line))
+                continue
+            same, below = parse_pragmas(path.read_text().splitlines())
+            if "D001" not in same.get(line, set()) | below.get(line, set()):
+                bad.append((rel, line))
+        return sorted(bad)
+
+
+def _peak_over(torch, fn) -> tuple[int, int]:
+    """(max_memory_allocated() during ``fn`` less what was allocated just
+    before it, the bytes still held after it less that)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base,
+            torch.cuda.memory_allocated() - base)
+
+
+def phase_analysis(torch, engine, tokenizer, load, card0, sim_mem):
+    """analysis_full_width on the 7B engine phase_full_width loaded (and
+    obs_full_width's 70B tp 8 rank, measured there):
+    (a) the card's capacity against memory_model.CARD_MEMORY_BYTES; the
+    memory in use before the first allocation inside the headroom; the
+    load's new allocator blocks (memory_snapshot) against the priced
+    weights + replicated + RoPE table + cache: the bytes the tensors asked
+    for equal the price exactly, and memory_allocated() holds them plus
+    the allocator's rounding of each block; max_memory_allocated() over
+    a host-loop step, a --fast replay and a 128-token prefill chunk, less
+    what was allocated before, against the priced activations +
+    workspaces of that width; the continuous f32 and Q8 pools against
+    their price; the 70B rank's resident bytes against its price.
+    (b) the sync census (SyncCensus) over ANALYSIS_STEPS host-loop steps,
+    as many --fast replays and ANALYSIS_DISPATCHES continuous dispatches:
+    the syncs a step, each site's file:line; red on a site no D001 pragma
+    allows. (c) python -m distributed_llama_tpu_torch.analysis --all
+    --device cuda exits 0 (its main, in this process)."""
+    import numpy as np
+
+    from distributed_llama_tpu_torch.analysis import memory_model as M
+    from distributed_llama_tpu_torch.runtime.continuous import (
+        ContinuousEngine, Request)
+
+    spec = engine.spec
+    res = {}
+    t0 = time.perf_counter()
+    # (a) capacity and the context
+    total = torch.cuda.get_device_properties(0).total_memory
+    headroom = int(M.CARD_MEMORY_BYTES * M.MEMORY_HEADROOM_FRACTION)
+    log(f"analysis (a) card: total_memory {total} B (model "
+        f"{M.CARD_MEMORY_BYTES}); in use before the first allocation "
+        f"{card0} B, headroom {headroom} B")
+    if total != M.CARD_MEMORY_BYTES:
+        raise AssertionError(f"analysis (a): total_memory {total} != "
+                             f"CARD_MEMORY_BYTES {M.CARD_MEMORY_BYTES}")
+    if not 0 < card0 <= headroom:
+        raise AssertionError(f"analysis (a): {card0} B in use before the "
+                             f"first allocation, headroom {headroom}")
+    rep = M.device_footprint(spec, 1, "fused", model="7b")
+    want = rep.resident_bytes
+    log(f"analysis (a) the 7B load's price: {want} B (weights "
+        f"{rep.weights_bytes} + replicated {rep.replicated_bytes} + RoPE "
+        f"{rep.rope_bytes} + cache {rep.kv_cache_bytes})")
+    _check_resident("load", load, want)
+    res["load"] = dict(load, priced=want)
+    # peaks over one step of each width
+    tokens = tokenizer.encode(PROMPT_512)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    loop = engine.decode_loop(0.0, 0.9)
+    first, coins = np.array([tokens[0]]), np.zeros((1, loop.max_steps),
+                                                  np.float32)
+    prompts = np.full((1, loop.max_steps + 1), -1, np.int64)
+    with torch.inference_mode():
+        loop.run(prompts, first, coins, np.array([0], np.int32), 2)
+    peaks = {}
+    for label, t_len, fn in (
+            ("host-loop step", 1, lambda: engine.infer(tokens[1], 1)),
+            ("--fast replay", 1, lambda: loop.run(
+                prompts, first, coins, np.array([2], np.int32), 1)),
+            (f"prefill chunk of {CHUNK}", CHUNK,
+             lambda: engine.prefill(tokens[:CHUNK], 0, chunk=CHUNK))):
+        with torch.inference_mode():
+            peak, kept = _peak_over(torch, fn)
+        price = (M.activation_bytes_analytic(spec, 1, t_len)
+                 + M.kernel_workspace_bytes(spec, 1, t_len, sms=sms))
+        log(f"analysis (a) {label}: peak {peak} B over the resident "
+            f"({kept} B kept), priced activations + workspaces {price} B")
+        if peak > price:
+            raise AssertionError(f"analysis (a): {label} peaked {peak} B "
+                                 f"over the resident, priced {price} B")
+        peaks[label] = dict(peak=peak, kept=kept, priced=price)
+    res["peaks"] = peaks
+    pools, engines = {}, {}
+    for kv_quant in ("f32", "q8"):
+        eng = ContinuousEngine(
+            spec, engine.params, CONT_SLOTS, 0.0, 0.9, 1,
+            prefill_chunk=CONT_CHUNK, block_steps=16, page_size=PAGE,
+            kv_pages=ANALYSIS_PAGES,
+            kv_quant=None if kv_quant == "f32" else kv_quant)
+        got = sum(t.nbytes for t in eng.cache)
+        priced = M.kv_page_pool_bytes(spec, 1, ANALYSIS_PAGES, PAGE,
+                                      kv_quant=kv_quant)
+        log(f"analysis (a) continuous {kv_quant} pool: {got} B, priced "
+            f"{priced} B ({ANALYSIS_PAGES} pages of {PAGE} + the scrap "
+            f"page)")
+        if got != priced:
+            raise AssertionError(f"analysis (a): the {kv_quant} pool holds "
+                                 f"{got} B, priced {priced} B")
+        pools[kv_quant] = dict(bytes=got, priced=priced)
+        engines[kv_quant] = eng
+    res["pools"] = pools
+    _check_resident(f"70B tp {OBS_TP} rank", sim_mem, sim_mem["priced"])
+    res["rank_70b"] = sim_mem
+    t1 = time.perf_counter()
+    # (b) the sync census
+    eng = engines["f32"]
+    eng.capture_graphs()
+    census = {}
+    segments = (
+        ("host-loop steps", ANALYSIS_STEPS, lambda: [
+            engine.infer(t, 8 + i)
+            for i, t in enumerate(tokens[:ANALYSIS_STEPS])]),
+        ("--fast replays", ANALYSIS_STEPS, lambda: loop.run(
+            prompts, first, coins, np.array([16], np.int32),
+            ANALYSIS_STEPS)),
+        ("continuous dispatches", ANALYSIS_DISPATCHES, lambda: [
+            eng.step_many(16) for _ in range(ANALYSIS_DISPATCHES)]))
+    for r in (tokenizer.encode(CONT_PROMPTS[0]),
+              tokenizer.encode(CONT_PROMPTS[1])):
+        eng.submit(Request(tokens=list(r), steps=CONT_STEPS))
+    bad = []
+    for label, n, fn in segments:
+        with torch.inference_mode(), SyncCensus(torch) as c:
+            fn()
+        torch.cuda.synchronize()
+        sites = {f"{rel}:{line}": k for (rel, line), k in
+                 sorted(c.sites.items())}
+        syncs = sum(c.sites.values())
+        log(f"analysis (b) {label}: {syncs} syncs over {n} "
+            f"({syncs / n:.2f} a step) at {sites}")
+        census[label] = dict(n=n, syncs=syncs, per_step=syncs / n,
+                             sites=sites)
+        bad += [f"{rel}:{line} ({label})" for rel, line in c.disallowed()]
+    if bad:
+        raise AssertionError(f"analysis (b): syncs at sites no D001 pragma "
+                             f"allows: {bad}")
+    res["sync_census"] = census
+    engines.clear()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    # (c) the analysis gate on the card host: the CLI's main in process
+    # (a child would spend its start-up reaching the card again)
+    from distributed_llama_tpu_torch.analysis.__main__ import main as gate
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = gate(["--all", "--device", "cuda"])
+    tail = out.getvalue().strip().splitlines()
+    contracts = [ln for ln in tail if " contract " in ln]
+    summary = [ln for ln in tail if ln not in contracts and ln.startswith(
+        ("dlint:", "threadcheck:", "wirecheck:", "shardcheck: 8"))]
+    log(f"analysis (c) --all --device cuda: exit {rc}; {summary}; "
+        f"{len(contracts)} contracts")
+    for ln in contracts:
+        log(f"  {ln}")
+    if rc != 0:
+        raise AssertionError(f"analysis (c): exit {rc}: {tail[-20:]}")
+    res["cli"] = dict(rc=rc, summary=summary, contracts=contracts)
+    t3 = time.perf_counter()
+    res["seconds"] = dict(a=t1 - t0, b=t2 - t1, c=t3 - t2)
+    log(f"analysis_full_width: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, "
+        f"(c) {t3 - t2:.1f} s")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -6630,6 +6924,7 @@ def main() -> int:
         marks.append((label, time.perf_counter()))
 
     writer = start_smoke_writer()
+    card0 = card_in_use(torch)  # analysis_full_width (a): before any tensor
     smi, name, peaks, build_s = phase_card(torch)
     sass = phase_sass()
     mark("card and build")
@@ -6736,9 +7031,10 @@ def main() -> int:
     mark("obs_full_width")
     gc.collect()
     torch.cuda.empty_cache()
-    logit_err, busy, prefill, fast, batch, continuous = phase_full_width(
-        torch, model, tok, peaks, ref_a)
-    mark("full width")
+    (logit_err, busy, prefill, fast, batch, continuous,
+     analysis) = phase_full_width(torch, model, tok, peaks, ref_a, card0,
+                                  obs["rank"]["memory"])
+    mark("full width and analysis_full_width")
     small_err = phase_small_reference(torch)
     mark("small model")
 
@@ -7151,6 +7447,7 @@ def main() -> int:
                       "prefill": prefill, "fast": fast, "batch_step": batch,
                       "continuous": continuous, "tp": tp,
                       "serve_tp": serve_tp, "sp": sp, "train": train,
+                      "analysis": analysis,
                       "obs": {k: v for k, v in obs.items() if k != "rank"}
                       | {"rank": {k: v for k, v in sim.items()
                                   if k not in ("k1", "k2")}},

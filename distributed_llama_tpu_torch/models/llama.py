@@ -633,6 +633,7 @@ class Llama(nn.Module):
         emb = p["tok_embedding"]
         with phase(SCOPE_EMBED):
             x = (emb[tokens[0]].reshape(1, -1) if t_len == 1
+                 # dlint: allow[D001] a chunk's ids: one upload a chunk
                  else emb[torch.tensor(tokens, device=emb.device)])
             x = x.to(torch.float32)
         rope = rope_tables(self.freq, pos, t_len)

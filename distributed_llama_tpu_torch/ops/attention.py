@@ -384,6 +384,7 @@ def decode_attention_batch_plain(q: torch.Tensor, k4: torch.Tensor,
     batch = q.shape[0]
     return torch.cat([
         decode_attention_plain(q[b], k4, v4, layer * batch + b, p, kv_mul)
+        # dlint: allow[D001] plain version: host positions
         for b, p in enumerate(pos.tolist())])
 
 

@@ -112,6 +112,7 @@ def _paged_plain(q: torch.Tensor, read, layer: int, pos: torch.Tensor,
     batch, t_len, _ = q.shape
     s_virt = table.shape[1] * page_size
     outs = []
+    # dlint: allow[D001] plain version: host positions
     for b, p in enumerate(pos.tolist()):
         last = min(p + t_len - 1, s_virt - 1)
         n_live = last // page_size + 1

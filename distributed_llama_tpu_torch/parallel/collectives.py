@@ -308,6 +308,7 @@ def _hop(x: torch.Tensor, shift: int, group, size: int,
     """_permute, waited for. Under gloo a CUDA tensor goes through host
     memory (gloo has no CUDA send/recv)."""
     staged = x.is_cuda and _dist().get_backend(group) == "gloo"
+    # dlint: allow[D001] gloo: no CUDA send/recv
     send = x.detach().cpu() if staged else x.detach()
     works, recv = _permute(send, shift, group, size, rank)
     with _span(WAIT_SPAN):

@@ -27,8 +27,12 @@ The link constants are the card's, each an argument of every function:
   assumption until NCCL is timed on two or more GPUs;
 * ``HANDOFF_GIB_PER_S`` = 10 GiB/s and ``HANDOFF_LATENCY_US`` = 200 us:
   the host-to-host link a prefill->decode handoff crosses, planning
-  constants (the JAX package takes its DCN pair from its memory model;
-  the port keeps them here until that model is ported).
+  constants of the port's memory model (analysis/memory_model.py), as
+  the JAX package takes its DCN pair from its own.
+
+A rank's device memory is that model's: ``rank_memory_bytes`` is
+``memory_model.device_footprint``'s total, priced against the card's
+capacity less its headroom.
 """
 
 from __future__ import annotations
@@ -38,6 +42,9 @@ from typing import Any
 
 import torch
 
+from ..analysis.memory_model import (  # noqa: F401  (re-exported)
+    CARD_MEMORY_BYTES, GIB, HANDOFF_GIB_PER_S, HANDOFF_LATENCY_US,
+    MEMORY_HEADROOM_FRACTION, device_footprint, usable_memory_bytes)
 from ..io.loader import Q40Weight
 from ..models.llama import KERNELS, KVCache, Route, params_to_device
 from ..models.spec import TransformerSpec
@@ -46,13 +53,8 @@ from .comm_stats import (collective_hops, collective_staging_bytes,
 from .mesh import sim_group
 from .tp import TPLlama
 
-GIB = 1024 ** 3
 NVLINK_GBPS_PER_DIRECTION = 450.0  # datasheet: H100 SXM5 NVLink 4
 COLLECTIVE_LATENCY_US = 2.0        # planning: a collective's launch, a hop
-HANDOFF_GIB_PER_S = 10.0           # planning: host-to-host link
-HANDOFF_LATENCY_US = 200.0         # planning: a handoff's fixed cost
-CARD_MEMORY_BYTES = 80 * 10 ** 9   # datasheet: H100 80 GB
-MEMORY_HEADROOM_FRACTION = 0.10    # allocator slack and fragmentation
 
 
 def synth_rank_q40(spec: TransformerSpec, n_slices: int, seed: int = 0,
@@ -313,20 +315,13 @@ class FullSystemProjection:
 
 def rank_memory_bytes(spec: TransformerSpec, n_slices: int,
                       scheme: str | None = None) -> int:
-    """One rank's resident device bytes at decode: its Q40 bands in the
-    port's layout (18 bytes a 32-value block), the f32 embedding and
-    norms every rank holds, its f32 KV shard at seq_len, and the largest
-    collective's staging (comm_stats.collective_staging_bytes)."""
-    per_layer = sum(d * n for _, (d, n) in spec.layer_matmul_shapes())
-    values = (spec.n_layers * per_layer
-              + spec.vocab_size * spec.dim) // n_slices
-    weights = values // 32 * 18
-    replicated = (spec.vocab_size * spec.dim
-                  + (2 * spec.n_layers + 1) * spec.dim) * 4
-    cache = (2 * spec.n_layers * spec.seq_len
-             * (spec.n_kv_heads // n_slices) * spec.head_size * 4)
-    return (weights + replicated + cache
-            + collective_staging_bytes(spec, n_slices, scheme))
+    """One rank's device bytes at decode: analysis/memory_model's total for
+    its config (its Q40 bands at 18 bytes a 32-value block, the f32
+    embedding and norms every rank holds, its f32 KV shard at seq_len, the
+    activations and kernel workspaces of a T = 1 step, and the largest
+    collective's staging)."""
+    return device_footprint(spec, n_slices,
+                            scheme or tp_scheme()).total_bytes
 
 
 def project_full_system(spec: TransformerSpec, n_slices: int,
@@ -348,7 +343,7 @@ def project_full_system(spec: TransformerSpec, n_slices: int,
                                       latency_us),
             bw_ms + lat_ms)
     mem = rank_memory_bytes(spec, n_slices, scheme)
-    usable = int(CARD_MEMORY_BYTES * (1 - MEMORY_HEADROOM_FRACTION))
+    usable = usable_memory_bytes()
     return FullSystemProjection(shard_ms, bw_ms, lat_ms, n_slices,
                                 budget.moved_bytes, budget.n_collectives,
                                 hbm_per_device_gib=round(mem / GIB, 3),

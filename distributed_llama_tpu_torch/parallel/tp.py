@@ -416,6 +416,7 @@ def gather_page_planes(planes, group, q8: bool = False) -> tuple:
     for i, p in enumerate(planes):
         dim = -1 if q8 and i % 2 == 1 else -2
         band = torch.from_numpy(np.ascontiguousarray(p)).to(group.device)
+        # dlint: allow[D001] a page payload goes to the wire
         out.append(C.gather(band, group, dim=dim).cpu().numpy())
     return tuple(out)
 

@@ -284,6 +284,7 @@ def save_train_state(path: str, spec: TransformerSpec,
             payload[f"leaf_{i}"] = np.asarray(opt_state.count, np.int32)
             continue
         t = _leaf(part, key, params, opt_state)
+        # dlint: allow[D001] a checkpoint holds host arrays
         payload[f"leaf_{i}"] = _global(t, _band_axis(key, t),
                                        group).cpu().numpy()
     if group.world_rank != 0:

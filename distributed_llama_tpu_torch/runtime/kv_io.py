@@ -149,6 +149,7 @@ class PageIO:
         if self.cuda:
             ev = torch.cuda.Event()
             ev.record()
+            # dlint: allow[D001] the demoted bytes go to the host
             ev.synchronize()  # the bytes are the host's from here on
         self.demote_s += time.perf_counter() - t0
         self.demotions += 1
@@ -168,6 +169,7 @@ class PageIO:
         still reading the row lands); returns the row's views."""
         ev = self._row_events.pop(hid, None)
         if ev is not None:
+            # dlint: allow[D001] the row's last copy lands first
             ev.synchronize()
         return self._read(pid, plane_views(self.slab[hid], self.layout))
 
@@ -246,6 +248,7 @@ class PageIO:
         if ev is True:
             return True
         if self.lockstep:
+            # dlint: allow[D001] tp lockstep: ranks resume together
             ev.synchronize()
             return True
         return ev.query()
@@ -299,6 +302,7 @@ class PageIO:
         for job in self.inflight:
             ev = job.io.event
             if ev is not None and ev is not True:
+                # dlint: allow[D001] copies land before the slab goes
                 ev.synchronize()
         self.inflight = []
         self._slab_t = self._stage_t = self._demote_t = None

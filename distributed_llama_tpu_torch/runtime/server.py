@@ -573,6 +573,7 @@ class InferenceServer:
                     return self._json(500, {"error": stub.error})
                 if not stub_needs_handoff(stub):
                     if server._disagg_obs is not None:
+                        # wirecheck: allow[W002] a counter's label child
                         server._disagg_obs.handoffs["local"].inc()
                     recv_span(0)
                     return self._json(200, {"final": True,
@@ -589,6 +590,7 @@ class InferenceServer:
                 recv_span(len(records))
                 if server._disagg_obs is not None:
                     obs = server._disagg_obs
+                    # wirecheck: allow[W002] a counter's label child
                     obs.handoffs["shipped"].inc()
                     if records:
                         # PAYLOAD bytes (the budget's unit, framing left
@@ -808,6 +810,7 @@ class InferenceServer:
         n_full = (len(req.tokens) - 1) // max(self.engine.page_size, 1)
         if n_full < self.handoff_min_pages:
             if self._disagg_obs is not None:
+                # wirecheck: allow[W002] a counter's label child
                 self._disagg_obs.handoffs["local"].inc()
             return local
         t0 = time.monotonic()
@@ -854,6 +857,7 @@ class InferenceServer:
             prompt = list(req.tokens)
             if self._disagg_obs is not None:
                 obs = self._disagg_obs
+                # wirecheck: allow[W002] a counter's label child
                 obs.handoffs["shipped"].inc()
                 obs.handoff_latency.observe(time.monotonic() - t0)
             send_span(int(resp["n_pages"]))
@@ -881,6 +885,7 @@ class InferenceServer:
                 except (OSError, ValueError, KeyError):
                     pass  # the channel's retention cap bounds the leak
             if self._disagg_obs is not None:
+                # wirecheck: allow[W002] a counter's label child
                 self._disagg_obs.handoffs["failed"].inc()
             return local
 
