@@ -17,9 +17,12 @@ no result line):
    HGMMA), every K3 GEMM function a tf32 HGMMA (wgmma) and UTMALDG (TMA),
    every K3b GEMM function HGMMA and UTMALDG or UBLKCP (bulk copy), every
    K4 function a tf32 HMMA (mma.sync) and UTMALDG, every K4b function the
-   async copy, K8 and K9 their rings' per-thread async copy (LDGSTS);
-   ``cuobjdump -res-usage``: no K1, K1m, K3, K4 or K9 function spills
-   (stack or local memory), registers logged.
+   async copy, K8 and K9 their rings' per-thread async copy (LDGSTS),
+   the probe's P2 and P4 (K1's skeleton) a bf16 MMA and the async copy,
+   P2 no 16-byte shared store or load of x but 16-byte global loads, and
+   the unpack's and x's instructions of K1, P2 and P4 counted;
+   ``cuobjdump -res-usage``: no K1, K1m, K3, K4, K9, P2 or P4 function
+   spills (stack or local memory), registers logged.
 2. Kernels against their plain versions on the card at the Llama-2-7B
    shapes: the Q40 matvec (K1, tensor-core products) on
    wqkv/wo/w13/w2/wcls and 13B's and 70B's w2, the decode
@@ -63,7 +66,8 @@ no result line):
    kernels (B10: P1 probe_stream, P2 probe_xglobal, P3 probe_nomask, P4
    probe_signed, and P0 probe_classic, the classic T = 1 row body that
    the fused tail gives the bits of) and K1 at the 13B w13 and wqkv
-   shapes, then the probe's own traced chain at w13 (tools/nb_probe.py,
+   shapes, P2 and P4 (K1's skeleton: x pre-laid, signed codes) with K1's
+   bits, then the probe's own traced chain at w13 (tools/nb_probe.py,
    every variant, K1 its own row, 4 layers x 4
    reps, exactly 16 trace events of each variant's kernel, the trace time
    beside the chain's CUDA-event time). Max error against the
@@ -481,11 +485,25 @@ SASS_CHECKS = [
      [("UTMALDG", "UBLKCP")]),
     ("q40_head_fused", "q40_head_kernel", [("LDGSTS",)]),
     ("q40_tail_fused", "q40_tail_kernel", [("LDGSTS",)]),
+    ("probe_xglobal", "probe_xglobal_kernel",
+     [("HMMA.BF16", "HGMMA.BF16"), ("LDGSTS", "UBLKCP", "UTMALDG")]),
+    ("probe_signed", "probe_signed_kernel",
+     [("HMMA.BF16", "HGMMA.BF16"), ("LDGSTS", "UBLKCP", "UTMALDG")]),
 ]
-# K1, K1m, K3, K4 and K9 (K8's stack is RoPE's precise sinf / cosf, whose
-# slow path keeps its reduction in local memory)
+# K1, K1m, K3, K4, K9 and the probe's P2 and P4 (K8's stack is RoPE's
+# precise sinf / cosf, whose slow path keeps its reduction in local memory)
 SPILL_FREE = ("q40_matvec", "q40_matvec_multi", "q40_gemm",
-              "prefill_attention", "q40_tail_fused")
+              "prefill_attention", "q40_tail_fused", "probe_xglobal",
+              "probe_signed")
+# What K1 and the probe's P2 and P4, built on its skeleton, differ in: the
+# instructions of the code unpack (mask and XOR, shift, byte permute, the
+# bf16x2 subtraction) and of x's 16-byte shared-memory staging and reads
+# against P2's 16-byte global loads, counted in each function's SASS
+SASS_CENSUS = {"LOP3": r"\bLOP3\b", "SHF": r"\bSHF\b", "PRMT": r"\bPRMT\b",
+               "HFMA2.BF16": r"\bHFMA2\.BF16", "STS.128": r"\bSTS\.128\b",
+               "LDS.128": r"\bLDS(\.U)?\.128\b",
+               "LDG.128": r"\bLDG\.E[\w.]*\.128\b"}
+SASS_CENSUS_OF = ("q40_matvec", "probe_xglobal", "probe_signed")
 
 
 def phase_sass():
@@ -498,10 +516,14 @@ def phase_sass():
     warpgroup MMA and a TMA or bulk copy (UBLKCP), every K4 function (one
     per cache type and kv_mul) a tf32 warp MMA (HMMA...TF32) and a TMA
     copy, every K4b function the async copy, K8 and K9 the per-thread
-    async copy of their rings (LDGSTS). ``cuobjdump -res-usage`` gives
+    async copy of their rings (LDGSTS), the probe's P2 and P4 (K1's
+    skeleton) a bf16 MMA and the async copy. ``cuobjdump -res-usage`` gives
     each function's registers (at launch) and its stack and local memory:
-    K1's, K1m's, K3's, K4's and K9's functions must spill nothing. Returns
-    {kernel: {instruction: count, "max_regs": n, "spill_bytes": n}}."""
+    K1's, K1m's, K3's, K4's, K9's, P2's and P4's functions must spill
+    nothing. K1's, P2's and P4's instructions of SASS_CENSUS are counted
+    ("census"); P2's must hold no 16-byte shared store or load (it stages
+    no x) and a 16-byte global load. Returns {kernel: {instruction: count,
+    "max_regs": n, "spill_bytes": n}}."""
     from distributed_llama_tpu_torch.ops import _build
 
     tool = _disassembler()
@@ -540,7 +562,20 @@ def phase_sass():
         if symbol in SPILL_FREE and counts["spill_bytes"]:
             raise AssertionError(f"{symbol}: {counts['spill_bytes']} bytes "
                                  f"of stack or local memory (a spill)")
+        if symbol in SASS_CENSUS_OF:
+            counts["census"] = {m: sum(len(re.findall(rx, sec))
+                                       for sec in funcs)
+                                for m, rx in SASS_CENSUS.items()}
+            log(f"SASS census of {fn}: " + ", ".join(
+                f"{m} x{n}" for m, n in counts["census"].items()))
         found[symbol] = counts
+    # P2 stages no x: no 16-byte shared stores or loads (K1's staging and
+    # B reads), its B fragments come as 16-byte global loads
+    p2 = found["probe_xglobal"]["census"]
+    if p2["STS.128"] or p2["LDS.128"] or not p2["LDG.128"]:
+        raise AssertionError(f"SASS of probe_xglobal_kernel: x through "
+                             f"shared memory or no 16-byte global load: "
+                             f"{p2}")
     return found
 
 
@@ -1705,7 +1740,10 @@ def phase_probe(torch, timer, peaks):
     shapes, timed (the Timer's medians) beside the bound, the plain time
     and cuBLAS's f32 GEMV on the weight dequantized beforehand (none for
     P1: no library call computes its XOR fold); P2 and P3 are timed on x
-    prepared beforehand, as their wrappers prepare it once per call. Then
+    prepared beforehand, as their wrappers prepare it once per call. P2
+    and P4, K1's skeleton at K1's plan, must return K1's bits (P4 over
+    the same codes made signed); P2's plan beside the one a block staging
+    no x would take. Then
     the probe's own run at w13 (tools/nb_probe.run_variant, every variant,
     PROBE_LAYERS x PROBE_REPS chained calls each, traced): every count set
     to 0 just before and read just after; its trace must hold exactly
@@ -1723,8 +1761,12 @@ def phase_probe(torch, timer, peaks):
         w = q40.random_q40(d, n, "cuda", g)
         ws = Q40Weight(nbp.to_signed(w.qs), w.d16)
         x = torch.randn((n,), device="cuda", generator=g)
-        xpad, xprep = nbp.pad_x(x), nbp.prep_nomask(x)
+        xlaid, xprep = nbp.lay_x(x), nbp.prep_nomask(x)
         wf = dequantize_q40_torch(w.qs, w.d16)
+        sms = q40.sm_count(x.device)
+        log(f"B10 P2/P4 {shape}: K1's plan (wr, wk, grid_x, splits, kb) "
+            f"{q40.matvec_plan(1, d, nb, sms)}; a block staging no x would "
+            f"take {q40.matvec_plan(1, d, nb, sms, 3, False)}")
         library_ms = timer(lambda: torch.matmul(x[None], wf.T))
         # (variant, kernel, run, plain, rtol, x bytes read, library ms)
         cases = [
@@ -1736,10 +1778,9 @@ def phase_probe(torch, timer, peaks):
             ("k1", "q40_matvec", lambda: q40.q40_matmul(w, x[None])[0],
              lambda: q40.q40_matmul_plain(w, x[None])[0], q40.KERNEL_RTOL,
              n * 4, library_ms),
-            ("v0r", "probe_xglobal",
-             lambda: nbp._launch(nbp.XGLOBAL, w, [xpad], d, nb),
+            ("v0r", "probe_xglobal", lambda: nbp.probe_xglobal_laid(w, xlaid),
              lambda: nbp.probe_xglobal_plain(w, x), nbp.KERNEL_RTOL,
-             nb * nbp.BLOCK_PAD * 4, library_ms),
+             xlaid.numel() * 2, library_ms),
             ("v1", "probe_nomask",
              lambda: nbp._launch(nbp.NOMASK, w, [xprep], d, nb),
              lambda: nbp.probe_nomask_plain(w, xprep),
@@ -1751,6 +1792,12 @@ def phase_probe(torch, timer, peaks):
             got = run()
             want = plain()
             torch.cuda.synchronize()
+            if variant == "k1":
+                k1_bits = got
+            elif variant in nbp.K1_SKELETON and not torch.equal(got, k1_bits):
+                raise AssertionError(
+                    f"B10 {variant} {shape}: not K1's bits (max diff "
+                    f"{(got - k1_bits).abs().max().item():.3e})")
             err = (got - want).abs().max().item()
             tol = rtol * want.abs().max().item()
             ms = timer(run)
@@ -1765,7 +1812,8 @@ def phase_probe(torch, timer, peaks):
                 f"({nbytes / ms / 1e6:.0f} GB/s, {b_ms / ms:.1%} of the "
                 f"bound) plain {plain_ms:.4f} ms gemv "
                 + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none")
-                + f" bound {b_ms:.4f} ms ({b_by})")
+                + f" bound {b_ms:.4f} ms ({b_by})"
+                + ("; K1's bits" if variant in nbp.K1_SKELETON else ""))
             if not err <= tol:
                 raise AssertionError(f"B10 {variant} {shape}: error {err} "
                                      f"above {tol}")
@@ -1773,7 +1821,7 @@ def phase_probe(torch, timer, peaks):
                              d=d, n=n, max_abs_err=err, tol=tol, ms=ms,
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                              library_ms=lib_ms, share=b_ms / ms))
-        del w, ws, x, xpad, xprep, wf
+        del w, ws, x, xlaid, xprep, wf, k1_bits
     return rows, probe_chain(torch)
 
 
@@ -1801,8 +1849,9 @@ def probe_chain(torch):
         # the timed chain (v0 and v0_128 both launch probe_classic)
         want[nbp.RUNS[r["variant"]].symbol] += 1 + 3 * calls
     _expect("probe run", launches, want)
+    k1 = next(r for r in results if r["variant"] == "k1")
     for r in results:
-        log(f"probe: {nbp.describe(r)}")
+        log(f"probe: {nbp.describe(r, k1)}")
         if r["events"] != calls:
             raise AssertionError(f"probe {r['variant']}: {r['events']} "
                                  f"trace events, want {calls}")

@@ -10,6 +10,12 @@
 // Columns: (token, piece) pairs, column P t + p, so an n8 column set holds
 // 8 / P tokens: P = 3 takes one set for T <= 2 and three for T = 8, P = 1
 // one set for every T <= 8.
+//
+// Two policies, for the Q40 layout probe's bodies (nb_probe.cu): kXLaid,
+// x already split and laid out in global memory in the staging order
+// below (P2), read from there with 16-byte non-coherent loads, so the
+// block stages no x; and Codes, how a code word becomes its bf16 operands
+// (UnsignedCodes, q40_tc.cuh: K1's; P4's signed nibbles).
 #pragma once
 
 #include <cuda_fp16.h>
@@ -64,7 +70,7 @@ static __device__ __forceinline__ uint32_t scaled_bf16(uint32_t v,
   return w;
 }
 
-template <int T, int P>
+template <int T, int P, bool kXLaid = false, typename Codes = UnsignedCodes>
 __device__ __forceinline__ void matvec_body(
     const uint8_t* __restrict__ qs, const uint8_t* __restrict__ d16,
     const float* __restrict__ x, float* __restrict__ out,
@@ -81,7 +87,7 @@ __device__ __forceinline__ void matvec_body(
   const int code_bytes = rows * sbc * 16;
   const int slot_bytes = code_bytes + rows * sw;
   uint8_t* xs = smem;
-  uint8_t* ring = smem + static_cast<size_t>(kb) * C * 64;
+  uint8_t* ring = kXLaid ? smem : smem + static_cast<size_t>(kb) * C * 64;
   float* red = reinterpret_cast<float*>(ring + kStages * slot_bytes);
   int* last = reinterpret_cast<int*>(red + warps * 32 * C);
 
@@ -104,6 +110,17 @@ __device__ __forceinline__ void matvec_body(
           : 0;
   const int total = my_tiles * stages;
   const uintptr_t d16_addr = reinterpret_cast<uintptr_t>(d16);
+  // 16-byte chunk `chunk` of this split's x in the staging order below:
+  // from shared memory, or (kXLaid) from the laid-out copy in global memory
+  const uint4* x_laid =
+      reinterpret_cast<const uint4*>(x) + static_cast<size_t>(k0) * C * 4;
+  auto x_chunk = [&](int chunk) -> uint4 {
+    if constexpr (kXLaid) {
+      return __ldg(x_laid + chunk);
+    } else {
+      return reinterpret_cast<const uint4*>(xs)[chunk];
+    }
+  };
 
   // The copier, all threads together, a stage a call. Codes: chunk i =
   // tid + threads k (k < 4) is block i % sbc of row i / sbc, so a warp
@@ -170,8 +187,9 @@ __device__ __forceinline__ void matvec_body(
   // x[:, k0 .. k0 + kn) in P bf16 pieces, permuted to the B fragment:
   // 16-byte chunk ((b * C + P t + p) * 4 + c) holds piece p of values
   // 4c..4c+3 and 16+4c..16+4c+3 of block b of token t (read after the
-  // first stage's barrier). P = 1: x rounded to nearest even.
-  for (int i = tid; i < kn * T * 4; i += threads) {
+  // first stage's barrier). P = 1: x rounded to nearest even. With kXLaid
+  // the caller's copy holds this order for all nb blocks; nothing is staged.
+  for (int i = tid; !kXLaid && i < kn * T * 4; i += threads) {
     const int cc = i & 3;
     const int bt = i >> 2;
     const int t = bt % T;
@@ -255,21 +273,20 @@ __device__ __forceinline__ void matvec_body(
         sc[2][i] = f23.x;
         sc[3][i] = f23.y;
       }
-      const uint8_t* xb =
-          xs + (static_cast<size_t>(sbc * st + 4 * wki) * C * 4 + c) * 16;
+      const int xb = (sbc * st + 4 * wki) * C * 4 + c;  // my blocks' chunks
       if constexpr (P == 1) {
         // the scales inside A: a fresh accumulator a stage (4 blocks, 8
         // k-steps) added into the f32 registers, as a tensor-core sum
         // over hundreds of k-steps drifts
         float f[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
         auto block = [&](int jb) {
-          const uint4 bx = *reinterpret_cast<const uint4*>(
-              xb + (jb * C + min(g, C - 1)) * 64);  // columns >= T: unused
+          // columns >= T: unused
+          const uint4 bx = x_chunk(xb + (jb * C + min(g, C - 1)) * 4);
 #pragma unroll
           for (int q = 0; q < 2; ++q) {
             uint32_t la[2], ha[2], lb[2], hb[2], h0, l0, h1, l1;
-            codes_bf16(q4[jb][2 * q], la, ha);
-            codes_bf16(q4[jb][2 * q + 1], lb, hb);
+            Codes::widen(q4[jb][2 * q], la, ha);
+            Codes::widen(q4[jb][2 * q + 1], lb, hb);
             split_scale(sc[jb][2 * q], h0, l0);
             split_scale(sc[jb][2 * q + 1], h1, l1);
             const uint32_t a0[4] = {
@@ -299,13 +316,13 @@ __device__ __forceinline__ void matvec_body(
 #pragma unroll
           for (int m = 0; m < M; ++m) {
             const int col = min(8 * m + g, C - 1);  // columns >= C: unused
-            bx[m] = *reinterpret_cast<const uint4*>(xb + (jb * C + col) * 64);
+            bx[m] = x_chunk(xb + (jb * C + col) * 4);
           }
 #pragma unroll
           for (int q = 0; q < 2; ++q) {
             uint32_t la[2], ha[2], lb[2], hb[2];
-            codes_bf16(q4[jb][2 * q], la, ha);
-            codes_bf16(q4[jb][2 * q + 1], lb, hb);
+            Codes::widen(q4[jb][2 * q], la, ha);
+            Codes::widen(q4[jb][2 * q + 1], lb, hb);
             const uint32_t a0[4] = {la[0], lb[0], la[1], lb[1]};
             const uint32_t a1[4] = {ha[0], hb[0], ha[1], hb[1]};
             const float s0 = sc[jb][2 * q];
@@ -400,10 +417,11 @@ __device__ __forceinline__ void matvec_body(
   cp_async_wait<0>();  // no copy outlives the block
 }
 
-// One launch of `kernel` (a matvec_body<T, P> entry point) under a plan
-// from ops/q40.matvec_plan: wr x wk warps a block, grid_x blocks a split,
-// `splits` splits of kb Q40 blocks.
-template <int T, int P, typename Kernel>
+// One launch of `kernel` (a matvec_body<T, P, kXLaid> entry point) under a
+// plan from ops/q40.matvec_plan: wr x wk warps a block, grid_x blocks a
+// split, `splits` splits of kb Q40 blocks. With kXLaid, x is the laid-out
+// copy and no shared memory is asked for it.
+template <int T, int P, bool kXLaid = false, typename Kernel>
 int launch_matvec(Kernel kernel, const void* qs, const void* d16,
                   const void* x, void* out, void* part, void* tickets, int d,
                   int nb, int wr, int wk, int grid_x, int splits, int kb,
@@ -413,7 +431,7 @@ int launch_matvec(Kernel kernel, const void* qs, const void* d16,
       splits * kb < nb) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = smem_bytes(T, kb, wr, wk, P);
+  const size_t smem = smem_bytes(T, kXLaid ? 0 : kb, wr, wk, P);
   const cudaError_t e = opt_in_smem(kernel, smem, granted);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<dim3(grid_x, splits), wr * wk * 32, smem, stream>>>(

@@ -43,19 +43,32 @@ static __device__ __forceinline__ uint32_t minus136(uint32_t v) {
   return r;
 }
 
+// Four codes c, one a byte (0..15), as (c - 8) in two bf16 pairs: (v0, v1)
+// and (v2, v3).
+static __device__ __forceinline__ void nibbles_bf16(uint32_t n,
+                                                    uint32_t (&v)[2]) {
+  v[0] = minus136(__byte_perm(n, 0x43u, 0x4140));
+  v[1] = minus136(__byte_perm(n, 0x43u, 0x4342));
+}
+
 // One 32-bit word of a row's Q40 block (bytes 4c..4c+3: values 4c..4c+3
 // in the low nibbles, 16+4c.. in the high ones) as code - 8 in bf16 pairs:
 // lo[0] = (v0, v1), lo[1] = (v2, v3) of the low nibbles, hi likewise.
 static __device__ __forceinline__ void codes_bf16(uint32_t w,
                                                   uint32_t (&lo)[2],
                                                   uint32_t (&hi)[2]) {
-  const uint32_t l = w & 0x0F0F0F0Fu;
-  const uint32_t h = (w >> 4) & 0x0F0F0F0Fu;
-  lo[0] = minus136(__byte_perm(l, 0x43u, 0x4140));
-  lo[1] = minus136(__byte_perm(l, 0x43u, 0x4342));
-  hi[0] = minus136(__byte_perm(h, 0x43u, 0x4140));
-  hi[1] = minus136(__byte_perm(h, 0x43u, 0x4342));
+  nibbles_bf16(w & 0x0F0F0F0Fu, lo);
+  nibbles_bf16((w >> 4) & 0x0F0F0F0Fu, hi);
 }
+
+// K1's and K1m's codes (the codec's unsigned nibbles), as the skeleton
+// (q40_matvec.cuh matvec_body) widens a code word.
+struct UnsignedCodes {
+  static __device__ __forceinline__ void widen(uint32_t w, uint32_t (&lo)[2],
+                                               uint32_t (&hi)[2]) {
+    codes_bf16(w, lo, hi);
+  }
+};
 
 // c = a . b on the tensor cores (m16n8k16, bf16 operands, f32 sums) from a
 // zero accumulator, and c += a . b. Not volatile, so the compiler may

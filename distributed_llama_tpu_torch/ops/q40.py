@@ -165,13 +165,15 @@ MATVEC_TILE_BYTES = 4096
 MATVEC_SPLIT_BYTES = 16384
 
 
-def matvec_smem(t: int, kb: int, wr: int, wk: int, pieces: int = 3) -> int:
+def matvec_smem(t: int, kb: int, wr: int, wk: int, pieces: int = 3,
+                x_staged: bool = True) -> int:
     """Shared memory of a K1/K1m (``pieces`` 3) or K1d (1) block
     (csrc/q40_matvec.cuh smem_bytes): kb Q40 blocks of x in ``pieces``
-    bf16 pieces for t tokens, the ring (a stage: 32 wr rows x 4 wk blocks
-    of codes and each row's 8 wk + 8 bytes of scale words), each warp's 32
-    x pieces x t f32 sums, and a flag."""
-    return (kb * pieces * t * 64
+    bf16 pieces for t tokens (none when x is read laid out from global
+    memory, the probe's P2: ``x_staged`` False), the ring (a stage: 32 wr
+    rows x 4 wk blocks of codes and each row's 8 wk + 8 bytes of scale
+    words), each warp's 32 x pieces x t f32 sums, and a flag."""
+    return ((kb if x_staged else 0) * pieces * t * 64
             + MATVEC_STAGES * (2048 * wr * wk + 32 * wr * (8 * wk + 8))
             + wr * wk * 32 * pieces * t * 4 + 16)
 
@@ -186,22 +188,23 @@ def matvec_blocks_per_sm(t: int, warps: int, smem: int,
 
 
 def _matvec_cost(t: int, d: int, kb: int, wr: int, grid_x: int,
-                 splits: int, sms: int) -> float:
+                 splits: int, sms: int, x_staged: bool = True) -> float:
     """The modelled time of a K1/K1m plan, in bytes of the busiest SM: its
     blocks (as many as the grid puts on one SM) each walk their row tiles
     (32 wr rows x kb Q40 blocks of 18 bytes, plus a tile's fixed cost)
     after their own fixed cost and x's staging (t * kb * 128 bytes from
-    L2, at half the weight's cost)."""
+    L2, at half the weight's cost; none when x is not staged)."""
     rows = 32 * wr
     tiles = -(-d // rows)
     tile_bytes = (rows * kb * 18 + MATVEC_TILE_BYTES
                   + (MATVEC_SPLIT_BYTES if splits > 1 else 0))
     block = (-(-tiles // grid_x) * tile_bytes + MATVEC_BLOCK_BYTES
-             + t * kb * 64)
+             + (t * kb * 64 if x_staged else 0))
     return -(-grid_x * splits // sms) * block
 
 
-def matvec_plans(t: int, d: int, nb: int, sms: int, pieces: int = 3):
+def matvec_plans(t: int, d: int, nb: int, sms: int, pieces: int = 3,
+                 x_staged: bool = True):
     """Every K1/K1m (``pieces`` 3) or K1d (1) plan (wr, wk, grid_x, splits,
     kb) for T = t, d rows and nb Q40 blocks on ``sms`` SMs, with its
     modelled cost: blocks of wr x wk
@@ -210,7 +213,8 @@ def matvec_plans(t: int, d: int, nb: int, sms: int, pieces: int = 3):
     shared memory, each split giving every warp a block of its first stage
     (4 wk blocks, or all nb), and grid_x blocks a split: one wave, as many
     as the SMs hold (matvec_blocks_per_sm), at most one a tile. Yields
-    (cost, plan)."""
+    (cost, plan). ``x_staged`` False prices blocks that stage no x (the
+    probe's P2)."""
     for splits in range(1, min(MATVEC_MAX_SPLITS, nb) + 1):
         kb = -(-nb // splits)
         if -(-nb // kb) != splits:
@@ -221,19 +225,20 @@ def matvec_plans(t: int, d: int, nb: int, sms: int, pieces: int = 3):
                 warps = wr * wk
                 if warps not in MATVEC_WARPS or last < min(nb, 4 * wk):
                     continue
-                smem = matvec_smem(t, kb, wr, wk, pieces)
+                smem = matvec_smem(t, kb, wr, wk, pieces, x_staged)
                 if smem > _SMEM_LIMIT:
                     continue
                 per_sm = matvec_blocks_per_sm(t, warps, smem, pieces)
                 tiles = -(-d // (32 * wr))
                 grid_x = max(1, min(tiles, sms * per_sm // splits))
-                yield (_matvec_cost(t, d, kb, wr, grid_x, splits, sms),
+                yield (_matvec_cost(t, d, kb, wr, grid_x, splits, sms,
+                                    x_staged),
                        (wr, wk, grid_x, splits, kb))
 
 
 @functools.lru_cache(maxsize=None)
-def matvec_plan(t: int, d: int, nb: int, sms: int,
-                pieces: int = 3) -> tuple[int, int, int, int, int]:
+def matvec_plan(t: int, d: int, nb: int, sms: int, pieces: int = 3,
+                x_staged: bool = True) -> tuple[int, int, int, int, int]:
     """(wr, wk, grid_x, splits, kb) of K1 (t = 1), K1m (t = 2..8) or, with
     one piece, K1d (t = 2..8): of the plans of matvec_plans whose blocks
     keep at least 96% of the SMs
@@ -241,8 +246,9 @@ def matvec_plan(t: int, d: int, nb: int, sms: int,
     cost; on a tie the fewest splits, then the most rows a tile, then the
     most warps (the model does not see a block's warps: on the H100 8
     warps beat 4 at equal rows, by up to 1.35x at T = 3..5,
-    tools/plan_sweep.py)."""
-    plans = list(matvec_plans(t, d, nb, sms, pieces))
+    tools/plan_sweep.py). ``x_staged`` False: the plan that blocks staging
+    no x would take (printed beside the probe's P2, which runs K1's)."""
+    plans = list(matvec_plans(t, d, nb, sms, pieces, x_staged))
     fill = [cp for cp in plans if cp[1][2] * cp[1][3] >= 0.96 * sms]
     best = min(((cost, plan[3], -plan[0], -plan[0] * plan[1]), plan)
                for cost, plan in fill or plans)
@@ -442,19 +448,30 @@ def bf16_split3(x: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return p0, p1, (r1 - p1) * 256.0
 
 
+def split_sums(codes: torch.Tensor, d16: torch.Tensor,
+               pieces: tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """The arithmetic of q40_matmul_split_model from its operands: codes
+    (d, nb, 32) f32, code - 8 in the order of the block's values; d16 (d,
+    nb) the f16 scales; pieces the three (T, nb, 32) f32 bf16 pieces of x.
+    Each piece's exact products with the codes summed per Q40 block in
+    f32, scaled by the block's scale and summed over the blocks in f32,
+    then the pieces joined as p0 + (p1 + p2 / 2^8) / 2^8: (T, d)."""
+    scale = d16.to(torch.float32)
+    sums = [(torch.einsum("tbj,rbj->trb", p, codes) * scale).sum(-1)
+            for p in pieces]
+    return sums[0] + (sums[1] + sums[2] / 256.0) / 256.0
+
+
 def q40_matmul_split_model(w: Q40Weight, x: torch.Tensor) -> torch.Tensor:
     """K1's and K1m's arithmetic in plain torch (a model for the tests; no
     route calls it): x in its three bf16 pieces (bf16_split3), each piece's
     exact products with code - 8 summed per Q40 block in f32, scaled by the
     block's f16 scale and summed over the blocks in f32, then the pieces
-    joined as p0 + (p1 + p2 / 2^8) / 2^8."""
+    joined as p0 + (p1 + p2 / 2^8) / 2^8 (split_sums)."""
     d, nb = w.qs.shape[-3], w.qs.shape[-2]
     codes = torch.cat([w.qs & 0xF, w.qs >> 4], -1).to(torch.float32) - 8.0
-    scale = w.d16.to(torch.float32)
     xt = x.to(torch.float32).reshape(-1, nb, QK)
-    sums = [(torch.einsum("tbj,rbj->trb", p, codes) * scale).sum(-1)
-            for p in bf16_split3(xt)]
-    out = sums[0] + (sums[1] + sums[2] / 256.0) / 256.0
+    out = split_sums(codes, w.d16, bf16_split3(xt))
     return out.reshape(*x.shape[:-1], d)
 
 
@@ -562,10 +579,13 @@ def q40_matmul(w: Q40Weight, x: torch.Tensor, bf16: bool = False,
 
 
 def _matvec(w: Q40Weight, x: torch.Tensor, out: torch.Tensor, t: int,
-            d: int, nb: int, stream: int, pieces: int) -> None:
+            d: int, nb: int, stream: int, pieces: int,
+            kernel: CudaKernel | None = None) -> None:
     """K1 (t = 1), K1m (``pieces`` 3) or K1d (1) over matvec_plan's blocks
     and K splits; with more than one split the kernel's last block per
-    tile adds the partials (scratch (splits, t, d)) behind a ticket."""
+    tile adds the partials (scratch (splits, t, d)) behind a ticket. At
+    t = 1 ``kernel`` may name another kernel of K1's arguments and plan
+    (the Q40 layout probe's P2 and P4, tools/nb_probe.py)."""
     plan = matvec_plan(t, d, nb, sm_count(x.device), pieces)
     wr, splits = plan[0], plan[3]
     if splits > 1 and -(-d // (32 * wr)) > MATVEC_TICKETS:
@@ -576,7 +596,7 @@ def _matvec(w: Q40Weight, x: torch.Tensor, out: torch.Tensor, t: int,
     ptrs = (w.qs.data_ptr(), w.d16.data_ptr(), x.data_ptr(), out.data_ptr(),
             part.data_ptr(), _tickets(x.device).data_ptr())
     if t == 1:
-        KERNEL.launch(*ptrs, d, nb, *plan, stream)
+        (kernel or KERNEL).launch(*ptrs, d, nb, *plan, stream)
     else:
         kernel = KERNEL_MULTI if pieces == 3 else KERNEL_MULTI_BF16
         kernel.launch(*ptrs, t, d, nb, *plan, stream)

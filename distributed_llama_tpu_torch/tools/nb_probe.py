@@ -16,14 +16,17 @@ values), with the kernels of csrc/nb_probe.cu:
            per call.
   v0_128 — P0 again: the JAX probe's 128-row tile is a constraint of the
            TPU's compiler with no counterpart here (its line says so).
-  v0r    — P2 probe_xglobal: P0's row body reading x from a padded global
-           copy (torch pads it once per call) instead of restaging it in
-           shared memory in every block.
-  i4     — P4 probe_signed: codes stored as signed nibbles (byte ^ 0x88,
-           made once per chain outside the timed window), sign-extended,
-           with no - 8 term.
+  v0r    — P2 probe_xglobal: K1's tensor-core skeleton at K1's plan with
+           x pre-laid: split into its three bf16 pieces and permuted into
+           K1's B-fragment order by torch once per call (lay_x), read by
+           the kernel from global memory; no staging of x in shared memory.
+  i4     — P4 probe_signed: K1's skeleton at K1's plan over codes stored
+           as signed nibbles (byte ^ 0x88, made once per chain outside the
+           timed window), widened to K1's bf16 operands.
   k1     — K1 itself (ops/q40.KERNEL), the port's production T = 1 body
-           (tensor-core products, split K), read beside the others.
+           (tensor-core products, split K), read beside the others; the
+           v0r and i4 lines give their time against K1's of the same run
+           (P2 and P4 return K1's bits).
 
 Method, as the JAX probe's: weights are made on the device from a seeded
 torch.Generator; layer 0 of each variant is held against a float64 numpy
@@ -84,10 +87,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 CLASSIC = CudaKernel("nb_probe.cu", "probe_classic",
                      [_P] * 4 + [_I] * 2 + [_P])
 STREAM = CudaKernel("nb_probe.cu", "probe_stream", [_P] * 3 + [_I] * 2 + [_P])
+# P2 and P4 take K1's arguments (ops/q40.KERNEL) and run at its plan
 XGLOBAL = CudaKernel("nb_probe.cu", "probe_xglobal",
-                     [_P] * 4 + [_I] * 2 + [_P])
+                     [_P] * 6 + [_I] * 7 + [_P])
 NOMASK = CudaKernel("nb_probe.cu", "probe_nomask", [_P] * 4 + [_I] * 2 + [_P])
-SIGNED = CudaKernel("nb_probe.cu", "probe_signed", [_P] * 4 + [_I] * 2 + [_P])
+SIGNED = CudaKernel("nb_probe.cu", "probe_signed", [_P] * 6 + [_I] * 7 + [_P])
 KERNELS = (CLASSIC, STREAM, XGLOBAL, NOMASK, SIGNED)
 # the kernel each variant launches, and the name its trace events carry
 RUNS = {"dma": STREAM, "v0": CLASSIC, "v1": NOMASK, "v0_128": CLASSIC,
@@ -149,9 +153,33 @@ def probe_xglobal_plain(w: Q40Weight, x: torch.Tensor) -> torch.Tensor:
     return q40.q40_matmul_plain(w, x.reshape(1, -1)).reshape(-1)
 
 
-def pad_x(x: torch.Tensor) -> torch.Tensor:
-    """x (n,) -> (nb, BLOCK_PAD): each 32-value block zero-padded (P2)."""
-    return F.pad(x.reshape(-1, QK), (0, BLOCK_PAD - QK)).contiguous()
+def lay_x(x: torch.Tensor) -> torch.Tensor:
+    """x (n,) f32 -> P2's x, (nb, 3, 4, 8) bf16 (nb * 192 bytes): x's three
+    exact bf16 pieces (ops/q40.bf16_split3) in the B-fragment order K1
+    stages in shared memory (csrc/q40_matvec.cuh, T = 1): 16-byte chunk
+    (b * 3 + p) * 4 + c holds piece p of values 4c..4c+3, then
+    16+4c..16+4c+3, of block b."""
+    pieces = torch.stack(q40.bf16_split3(x.reshape(-1, 2, 4, 4)))
+    # (p, b, half, c, e) -> (b, p, c, half, e); each piece is a bf16 value
+    laid = pieces.permute(1, 0, 3, 2, 4).to(torch.bfloat16).contiguous()
+    return laid.reshape(-1, 3, 4, 8)
+
+
+def unlay_x(xlaid: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """lay_x's inverse: the three pieces, each (nb, 32) f32."""
+    nb = xlaid.shape[0]
+    pieces = xlaid.to(torch.float32).reshape(nb, 3, 4, 2, 4).permute(
+        1, 0, 3, 2, 4)
+    return tuple(p.reshape(nb, QK).contiguous() for p in pieces)
+
+
+def probe_xglobal_split_model(w: Q40Weight,
+                              xlaid: torch.Tensor) -> torch.Tensor:
+    """P2's arithmetic in plain torch: ops/q40.q40_matmul_split_model's
+    sums over the pieces read back from lay_x's buffer: (d,) f32."""
+    codes = torch.cat([w.qs & 0xF, w.qs >> 4], -1).to(torch.float32) - 8.0
+    pieces = tuple(p[None] for p in unlay_x(xlaid))
+    return q40.split_sums(codes, w.d16, pieces).reshape(-1)
 
 
 def prep_nomask(x: torch.Tensor) -> torch.Tensor:
@@ -177,6 +205,27 @@ def probe_nomask_plain(w: Q40Weight, xprep: torch.Tensor) -> torch.Tensor:
 def _signed_nibbles(v: torch.Tensor) -> torch.Tensor:
     v = v.to(torch.int16)
     return v - 16 * (v >= 8).to(torch.int16)
+
+
+def widen_signed(qs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """P4's widening of signed codes (to_signed) as csrc/nb_probe.cu
+    SignedCodes does it, bit for bit: each nibble s masked and XORed with
+    8 (c = s ^ 8, one LOP3), put in the mantissa of bf16 128 (0x4300 | c =
+    128 + c), 136 taken away: (lo, hi) f32, code - 8 of the low and the
+    high nibbles."""
+    def widen(nib):
+        c = ((nib & 0xF) ^ 0x8).to(torch.int16) | 0x4300
+        return c.view(torch.bfloat16).to(torch.float32) - 136.0
+    return widen(qs), widen(qs >> 4)
+
+
+def probe_signed_split_model(ws: Q40Weight, x: torch.Tensor) -> torch.Tensor:
+    """P4's arithmetic in plain torch over signed codes: the codes widened
+    by widen_signed, x in its three bf16 pieces, ops/q40.split_sums: (d,)
+    f32."""
+    codes = torch.cat(widen_signed(ws.qs), -1)
+    xt = x.to(torch.float32).reshape(1, -1, QK)
+    return q40.split_sums(codes, ws.d16, q40.bf16_split3(xt)).reshape(-1)
 
 
 def probe_signed_plain(ws: Q40Weight, x: torch.Tensor) -> torch.Tensor:
@@ -256,15 +305,38 @@ def probe_stream(w: Q40Weight) -> torch.Tensor:
     return _launch(STREAM, w, [], d, nb)
 
 
+def _launch_k1_plan(kernel: CudaKernel, w: Q40Weight, x: torch.Tensor,
+                    d: int, nb: int) -> torch.Tensor:
+    """P2 or P4: one launch at K1's plan, split-K scratch and tickets
+    (ops/q40._matvec)."""
+    out = torch.empty(d, dtype=torch.float32, device=w.qs.device)
+    stream = torch.cuda.current_stream(w.qs.device).cuda_stream
+    q40._matvec(w, x, out, 1, d, nb, stream, 3, kernel)
+    return out
+
+
 def probe_xglobal(w: Q40Weight, x: torch.Tensor) -> torch.Tensor:
-    """P2: K1's function with x read from a padded global copy (pad_x,
-    made here once per call)."""
+    """P2: K1's function and bits, x laid out here once per call (lay_x)
+    and read by the kernel from global memory."""
     if _on_cpu(w):
         return probe_xglobal_plain(w, x)
-    nb = w.qs.shape[-2]
-    xpad = pad_x(x)
-    d, nb = _check("probe_xglobal", w, (xpad, nb * BLOCK_PAD))
-    return _launch(XGLOBAL, w, [xpad], d, nb)
+    _check("probe_xglobal", w, (x, w.qs.shape[-2] * QK))
+    return probe_xglobal_laid(w, lay_x(x))
+
+
+def probe_xglobal_laid(w: Q40Weight, xlaid: torch.Tensor) -> torch.Tensor:
+    """P2 on x already laid out (lay_x): the kernel alone, as the probe's
+    phase times it (on the CPU, its split model)."""
+    if _on_cpu(w):
+        return probe_xglobal_split_model(w, xlaid)
+    d, nb = _check("probe_xglobal", w)
+    if (xlaid.dtype != torch.bfloat16 or tuple(xlaid.shape) != (nb, 3, 4, 8)
+            or not xlaid.is_contiguous() or xlaid.device != w.qs.device
+            or xlaid.data_ptr() % 16):
+        raise ValueError(f"probe_xglobal: x must be lay_x's contiguous, "
+                         f"16-byte aligned bf16 ({nb}, 3, 4, 8) on "
+                         f"{w.qs.device}")
+    return _launch_k1_plan(XGLOBAL, w, xlaid, d, nb)
 
 
 def probe_nomask(w: Q40Weight, xprep: torch.Tensor) -> torch.Tensor:
@@ -277,12 +349,12 @@ def probe_nomask(w: Q40Weight, xprep: torch.Tensor) -> torch.Tensor:
 
 
 def probe_signed(ws: Q40Weight, x: torch.Tensor) -> torch.Tensor:
-    """P4 over signed codes (to_signed)."""
+    """P4 over signed codes (to_signed): K1's function, and its bits on the
+    codes before to_signed."""
     if _on_cpu(ws):
         return probe_signed_plain(ws, x)
-    nb = ws.qs.shape[-2]
-    d, nb = _check("probe_signed", ws, (x, nb * QK), staged=True)
-    return _launch(SIGNED, ws, [x], d, nb)
+    d, nb = _check("probe_signed", ws, (x, ws.qs.shape[-2] * QK))
+    return _launch_k1_plan(SIGNED, ws, x, d, nb)
 
 
 # ------------------------------------------------------------- harness
@@ -403,12 +475,23 @@ def run_variant(name: str, shape: str, w: Q40Weight, x: torch.Tensor,
     return res
 
 
-def describe(r: dict) -> str:
-    """One variant's line."""
+# the variants built on K1's skeleton, and what each changes in it
+K1_SKELETON = {"v0r": "x pre-laid", "i4": "signed codes"}
+
+
+def describe(r: dict, k1: dict | None = None) -> str:
+    """One variant's line; a variant on K1's skeleton is read against
+    ``k1``, K1's result from the same run, where it was timed."""
     head = (f"{r['shape']:5s} {r['variant']:6s} {r['kernel']:14s} parity "
             f"{r['parity_err']:.2e}, {r['calls']} chained calls")
     note = {"v0_128": " (P0: the 128-row tile has no GPU meaning)",
             "k1": " (K1, the production body)"}.get(r["variant"], "")
+    if r["variant"] in K1_SKELETON:
+        vs_k1 = ""
+        if r["ms"] is not None and k1 is not None and k1["ms"] is not None:
+            vs_k1 = (f"; K1 {k1['ms']:.4f} ms/call in this run, "
+                     f"{r['ms'] / k1['ms']:.3f}x it")
+        note = f" (K1 skeleton: {K1_SKELETON[r['variant']]}{vs_k1})"
     if r["ms"] is None:
         return f"{head}: time, rate and share not measured (cpu){note}"
     return (f"{head}: {r['ms']:.4f} ms/call (trace, {r['events']} events) "
@@ -450,15 +533,23 @@ def main(argv: list[str] | None = None) -> int:
     w = synth(args.layers, d, n, args.device)
     x = torch.randn((n,), device=args.device,
                     generator=torch.Generator(args.device).manual_seed(1))
+    results = {}
+    for name in sorted(names, key=lambda v: v != "k1"):  # K1 first
+        try:
+            results[name] = run_variant(name, args.shape, w, x, args.reps)
+        except Exception as e:  # noqa: BLE001 - variants fail independently
+            results[name] = e
+    k1 = results.get("k1")
+    k1 = None if isinstance(k1, Exception) else k1
     failed = 0
     for name in names:
-        try:
-            print(describe(run_variant(name, args.shape, w, x, args.reps)),
-                  flush=True)
-        except Exception as e:  # noqa: BLE001 - variants fail independently
+        r = results[name]
+        if isinstance(r, Exception):
             failed += 1
-            print(f"{args.shape} {name}: FAILED ({type(e).__name__}: {e})",
+            print(f"{args.shape} {name}: FAILED ({type(r).__name__}: {r})",
                   flush=True)
+        else:
+            print(describe(r, k1), flush=True)
     return 1 if failed else 0
 
 

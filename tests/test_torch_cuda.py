@@ -2007,8 +2007,9 @@ def test_captured_fused_loop_matches_eager_and_host(gen, mode):
 
 
 # ---------------------------------------------------------------------------
-# B10: the Q40 layout probe's kernels (P1-P4), the traced chain, and
-# --profile / --save-state / --resume-state on the card
+# B10: the Q40 layout probe's kernels (P1-P4; P2 and P4 on K1's skeleton,
+# with K1's bits), the traced chain, and --profile / --save-state /
+# --resume-state on the card
 # ---------------------------------------------------------------------------
 
 from distributed_llama_tpu_torch.tools import nb_probe  # noqa: E402
@@ -2061,18 +2062,80 @@ def test_probe_kernels_match_plain(gen, variant, d, n):
 
 
 def test_probe_kernels_raise_instead_of_falling_back(gen):
+    """P3 stages x whole and refuses a width past shared memory; P4, on
+    K1's skeleton, splits K at that width as K1 does and gives its bits.
+    Inputs the kernels do not take raise."""
     w = q40.random_q40(8, 32 * 2048, "cuda", gen)  # staged x: 295 KB
     x = torch.randn((32 * 2048,), device="cuda", generator=gen)
     with pytest.raises(ValueError, match="staging"):
-        nb_probe.probe_signed(w, x)
-    with pytest.raises(ValueError, match="staging"):
         nb_probe.probe_nomask(w, nb_probe.prep_nomask(x))
+    ws = Q40Weight(nb_probe.to_signed(w.qs), w.d16)
+    assert torch.equal(nb_probe.probe_signed(ws, x),
+                       q40.q40_matmul(w, x[None])[0])
     w = q40.random_q40(8, 64, "cuda", gen)
     with pytest.raises(ValueError, match="float32"):
         nb_probe.probe_signed(w, torch.zeros(64, device="cuda",
                                              dtype=torch.float64))
     with pytest.raises(ValueError, match="aligned"):
         nb_probe.probe_signed(w, torch.zeros(65, device="cuda")[1:])
+    with pytest.raises(ValueError, match="float32"):
+        nb_probe.probe_xglobal(w, torch.zeros(64, device="cuda",
+                                              dtype=torch.float64))
+    xlaid = nb_probe.lay_x(torch.zeros(64, device="cuda"))
+    with pytest.raises(ValueError, match="lay_x"):
+        nb_probe.probe_xglobal_laid(w, xlaid.to(torch.float32))
+    with pytest.raises(ValueError, match="lay_x"):
+        nb_probe.probe_xglobal_laid(w, xlaid[:1])
+
+
+def _k1_skeleton_case(variant, w, x):
+    """(P2 or P4 call, its kernel) on K1's weight w and x."""
+    if variant == "v0r":
+        return lambda: nb_probe.probe_xglobal(w, x), nb_probe.XGLOBAL
+    ws = Q40Weight(nb_probe.to_signed(w.qs), w.d16)
+    return lambda: nb_probe.probe_signed(ws, x), nb_probe.SIGNED
+
+
+@pytest.mark.parametrize("variant", ["v0r", "i4"])
+@pytest.mark.parametrize("d,n", PROBE_SHAPES)
+def test_probe_k1_skeleton_kernels_give_k1_bits(gen, variant, d, n):
+    """P2 (x pre-laid) and P4 (signed codes) form K1's exact products in
+    K1's MMA order at K1's plan: K1's bits, one launch a call, the same
+    bits from a second launch, every split-K ticket back at 0."""
+    w = q40.random_q40(d, n, "cuda", gen)
+    x = torch.randn((n,), device="cuda", generator=gen)
+    run, kernel = _k1_skeleton_case(variant, w, x)
+    before = kernel.launches
+    got = run()
+    again = run()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, q40.q40_matmul(w, x[None])[0])
+    assert not q40._tickets(x.device).any()
+
+
+@pytest.mark.parametrize("variant", ["v0r", "i4"])
+def test_probe_k1_skeleton_kernels_replay_split_k_from_a_graph(gen, variant):
+    """At 70B's w2 K1's plan splits K: P2 and P4 captured in a CUDA graph
+    and replayed on new x give K1's eager bits and leave every ticket at
+    0 (P2's graph holds lay_x's torch ops too)."""
+    d, n = 8192, 28672
+    assert q40.matvec_plan(1, d, n // 32, _sms())[3] > 1
+    w = q40.random_q40(d, n, "cuda", gen)
+    x = torch.randn((n,), device="cuda", generator=gen)
+    run, _ = _k1_skeleton_case(variant, w, x)
+    run()  # the eager first call (tickets, opt-in)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    for seed in range(3):
+        x.copy_(torch.randn((n,), device="cuda", generator=gen))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, q40.q40_matmul(w, x[None])[0]), seed
+        assert not q40._tickets(x.device).any()
 
 
 def test_probe_main_traces_every_variant(capsys):
