@@ -52,12 +52,14 @@ no result line):
    ragged positions, over an f32 and a bf16 cache (at B = 1 bit for bit
    K2; the same bits from two launches; graph replays at clocks that cross
    its key splits give the eager bits and leave every ticket at 0); the
-   paged decode attention over f32 and bf16 pages (K6) and Q8
-   pages (K7) at the same shapes with pages of 16 in a permuted pool, t_len
-   1, 4, 8, 16 and 39 (the decode step, verify windows and mixed windows;
-   at t_len 1 K6 gives the bits of K5 under the same plan
-   over the same values, and K7 gives K6's bits over the dequantized
-   pool; graph replays across split counts); the fused decode layer's
+   paged decode attention over f32 and bf16 pages (K6 at t_len 1, K6w at
+   windows) and Q8 pages (K7, K7w) at the same shapes with pages of 16 in
+   a permuted pool, t_len 1, 4, 8, 16 and 39 (the decode step, verify
+   windows and mixed windows; at t_len 1 K6 gives the bits of K5 under the
+   same plan over the same values, and K7 and K7w give K6's and K6w's bits
+   over the dequantized pool; each window timed beside its bound, SDPA,
+   the gather and the split walk windows took before; graph replays
+   across split counts at t_len 1 and 39); the fused decode layer's
    head (K8), tail (K9) and whole layer (K10, over an f32 and a bf16 cache,
    part by part) at the 7B and GQA shapes at pos 0, 63 and 2047, timed
    beside the unfused port path for the same work, K8's and K9's rows with
@@ -146,17 +148,19 @@ no result line):
       ``--resume-state``: K1 and K2 per step in each, and the joined stream
       equals run a's;
    s. run k with ``--spec-k 4``: every device step a captured verify
-      dispatch of 8 x 4 flat rows (K3 4L+1 with its parts, K6 L at t_len
+      dispatch of 8 x 4 flat rows (K3 4L+1 with its parts, K6w L at t_len
       4), admission prefill as run k's; drafts accepted; its streams equal
       run k's, or part only where run k's top-2 logits lie within the
       logit tolerance (K3 against K1m);
    t. run k with ``--dispatch-tokens 39`` (the auto budget at 8 slots and
       chunk 32): every device step one (8, 39) mixed window (K3 on 312
-      rows, K6 L at t_len 39), no admission prefill; streams as run s's;
+      rows, K6w L at t_len 39), no admission prefill; streams as run s's;
    u. run n with ``--spec-k 4`` instead of its chains and ``--topp
-      0.05``: K7 over verify windows, seeded rejection sampling, the
+      0.05``: K7w over verify windows, seeded rejection sampling, the
       32-page pool pausing or requeueing, drafts accepted; every window's
-      logits finite.
+      logits finite;
+   v. run m with ``--spec-k 4`` instead of its chains: K6w over bf16
+      pages, drafts accepted.
    serve_full_width, after run u: ``python -m distributed_llama_tpu_torch
    serve`` on the 7B file at full width and depth as a child process, run
    k's engine flags (8 slots, pages of 16, chunk 32, 128 positions,
@@ -295,9 +299,10 @@ no result line):
    costcheck, watchcheck and racecheck with --device cuda, their rows
    equal to the CPU's and each inject arm exiting 1.
 7. The phase times, the ``kernels`` JSON line (each kernel's launches
-   summed over every CLI run, a-u, and its POST /profile trace events in
+   summed over every CLI run, a-v, and its POST /profile trace events in
    serve_full_width as ``serve``; the probe's kernels over its chain;
-   K6's and K7's rows at t_len 16 and 39 beside their decode rows; K1's
+   K6w's and K7w's rows at t_len 16 and 39 beside K6's and K7's decode
+   rows, each with a layer at pos 2047; K1's
    and K2's the simulated 70B rank's launches and times as ``sim``),
    then the result line ``{"ok": true, "device": {...}}`` as the last
    line.
@@ -1118,15 +1123,17 @@ K6_PLANS = (None, (1, 1), (32, 64))
 
 
 def _k6_replays(torch, run_k, planes, table, P, layer, n_q, hs, kv_mul,
-                batch, symbol, label):
-    """K6 or K7 at t_len 1 captured in a CUDA graph over device positions
-    and replayed at K5_REPLAYS' clocks, which cross its plan's split
-    counts: every replay gives an eager launch's bits, and every split
-    ticket is back at 0 after it."""
+                batch, symbol, label, t_len=1):
+    """K6 or K7 at t_len 1, or K6w or K7w at a window of ``t_len``,
+    captured in a CUDA graph over device positions and replayed at
+    K5_REPLAYS' clocks, which cross its plan's split counts: every replay
+    gives an eager launch's bits, and every split ticket is back at 0
+    after it."""
     from distributed_llama_tpu_torch.ops import attention as att
+    from distributed_llama_tpu_torch.ops import paged_attention as pa
 
     g = torch.Generator(device="cuda").manual_seed(13)
-    q = torch.randn((batch, 1, n_q * hs), device="cuda", generator=g)
+    q = torch.randn((batch, t_len, n_q * hs), device="cuda", generator=g)
     pv = torch.tensor(K5_REPLAYS[0][:batch], dtype=torch.int32,
                       device="cuda")
     run_k(q, *planes, layer, pv, table, P, kv_mul)  # eager first
@@ -1134,9 +1141,12 @@ def _k6_replays(torch, run_k, planes, table, P, layer, n_q, hs, kv_mul,
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = run_k(q, *planes, layer, pv, table, P, kv_mul)
-    plan = att.decode_plan(planes[0].shape[2], batch,
-                           torch.cuda.get_device_properties(
-                               0).multi_processor_count)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_kv, s_virt = planes[0].shape[2], table.shape[1] * planes[0].shape[1]
+    if t_len == 1:
+        plan = att.decode_plan(n_kv, batch, sms)
+    else:
+        plan = pa.window_plan(n_kv, batch, t_len, kv_mul, sms)
     splits = set()
     for pos in K5_REPLAYS:
         pv.copy_(torch.tensor(pos[:batch], dtype=torch.int32))
@@ -1149,27 +1159,36 @@ def _k6_replays(torch, run_k, planes, table, P, layer, n_q, hs, kv_mul,
                                       kv_mul)):
             raise AssertionError(f"{symbol} {label}: replay at "
                                  f"{pos[:batch]} not the eager bits")
-        splits |= {att.decode_splits(p + 1, plan)[0] for p in pos[:batch]}
+        splits |= {att.decode_splits(p + 1, plan)[0] if t_len == 1 else
+                   pa.window_splits(min(p + t_len - 1, s_virt - 1) + 1,
+                                    plan)[0] for p in pos[:batch]}
     del graph
-    log(f"{symbol} {label}: {len(K5_REPLAYS)} graph replays give the eager "
-        f"bits, tickets back at 0; split counts {sorted(splits)} under "
-        f"plan {plan}")
+    log(f"{symbol} {label} t={t_len}: {len(K5_REPLAYS)} graph replays give "
+        f"the eager bits, tickets back at 0; split counts {sorted(splits)} "
+        f"under plan {plan}")
 
 
 def phase_k6(torch, timer, peaks):
-    """K6 (f32 and bf16 pages) and K7 (Q8 pages) against their plain
-    versions at 7B and GQA shapes, page size PAGE, B = 1 and 8, shared
-    clocks 63 and 2047 and ragged ones, t_len 1, 4, 8, 16 and 39 (up to
-    the budget-edge clamp), the same bits on a second launch. The pool holds a
-    contiguous (2B, 2048, n_kv, hs) batch cache's values in permuted
-    physical pages; at t_len 1 K6 must give the bits of K5 under the same
-    plan (each of K6_PLANS) over the same values, with the identity table
-    and with the permuted one, and K7 must give K6's bits over the
-    dequantized pool (at the default plan and at (32, 64)); then K6's and
-    K7's graph replays (_k6_replays). Times: the kernel, K5 at t_len 1 on
-    the contiguous cache (f32 for Q8 pages), the plain version (t_len 1),
-    and the library yardstick, SDPA over the row's live pages gathered
-    beforehand (the gather, with the Q8 dequantize, timed apart)."""
+    """K6 (f32 and bf16 pages) and K7 (Q8 pages) at t_len 1, and K6w and
+    K7w at the windows of t_len 4, 8, 16 and 39 (up to the budget-edge
+    clamp), against their plain versions at 7B and GQA shapes, page size
+    PAGE, B = 1 and 8, shared clocks 63 and 2047 and ragged ones, the same
+    bits on a second launch. The pool holds a contiguous (2B, 2048, n_kv,
+    hs) batch cache's values in permuted physical pages; at t_len 1 K6
+    must give the bits of K5 under the same plan (each of K6_PLANS) over
+    the same values, with the identity table and with the permuted one;
+    K7 and K7w must give K6's and K6w's bits over the dequantized pool (at
+    the default plan and at (32, 64)); then the graph replays
+    (_k6_replays) at t_len 1 and MIXED_BUDGET. Times at every shape: the
+    kernel, its bound (bytes: each live key's K and V once a (row, kv
+    head), q and out; operations: 4 hs a (query head, visible key), in
+    TF32 passes for the windows, 3 over f32 and Q8 pages and 2 over bf16
+    ones), K5 at t_len 1 on the contiguous cache (f32 for Q8 pages), at a
+    window the split walk K6 and K7 took there before the window kernels
+    (``walk_ms``: one block a (row, query)), the plain version (t_len 1
+    and the unit windows), and the library yardstick, SDPA over the row's
+    live pages gathered beforehand (the gather, with the Q8 dequantize,
+    timed apart)."""
     import torch.nn.functional as F
 
     from distributed_llama_tpu_torch.ops import attention as att
@@ -1181,8 +1200,10 @@ def phase_k6(torch, timer, peaks):
     g = torch.Generator(device="cuda").manual_seed(11)
     S, hs, layer, ps = K2_SEQ, K2_HS, 1, PAGE
     mp = S // ps
-    kernels = {"f32": pa.PAGED_KERNEL, "bf16": pa.PAGED_KERNEL_KVBF16,
-               "q8": pa.PAGED_KERNEL_Q8}
+    kernels = {"f32": (pa.PAGED_KERNEL, pa.WINDOW_KERNEL),
+               "bf16": (pa.PAGED_KERNEL_KVBF16, pa.WINDOW_KERNEL_KVBF16),
+               "q8": (pa.PAGED_KERNEL_Q8, pa.WINDOW_KERNEL_Q8)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for label, n_kv, kv_mul in K6_CASES:
         n_q = n_kv * kv_mul
@@ -1223,10 +1244,11 @@ def phase_k6(torch, timer, peaks):
                     run_k = pa.paged_decode_attention
                     plain_k = pa.paged_decode_attention_plain
                     bpv = ck.element_size()
-                kernel = kernels[pages]
                 for pos_label, pos in _k5_positions(batch):
                     pv = torch.tensor(pos, dtype=torch.int32, device="cuda")
                     for t_len in K6_T_LENS:
+                        window = t_len >= pa.WINDOW_MIN_T
+                        kernel = kernels[pages][window]
                         q = torch.randn((batch, t_len, n_q * hs),
                                         device="cuda", generator=g)
 
@@ -1252,7 +1274,7 @@ def phase_k6(torch, timer, peaks):
                                 f"{kernel.symbol} {label} B={batch} "
                                 f"{pos_label} t={t_len}: other bits on a "
                                 f"second launch")
-                        k5_ms = plain_ms = None
+                        k5_ms = plain_ms = walk_ms = None
                         if pages == "q8":
                             for plan in (None, (32, 64)):
                                 k6 = pa.paged_decode_attention(
@@ -1263,9 +1285,10 @@ def phase_k6(torch, timer, peaks):
                                     plan=plan)
                                 if not torch.equal(k6, k7):
                                     raise AssertionError(
-                                        f"K7 {label} B={batch} {pos_label} "
-                                        f"t={t_len} plan {plan}: not K6's "
-                                        f"bits over the dequantized pool")
+                                        f"{kernel.symbol} {label} B={batch} "
+                                        f"{pos_label} t={t_len} plan {plan}:"
+                                        f" not K6's bits over the "
+                                        f"dequantized pool")
                         if t_len == 1:
                             qk5 = q.reshape(batch, n_q, hs)
                             src = (base_k, base_v) if pages == "q8" \
@@ -1304,6 +1327,16 @@ def phase_k6(torch, timer, peaks):
                         if unit:
                             plain_ms = timer(lambda: plain_k(
                                 q, *planes, layer, pv, table, P, kv_mul))
+                        if window:
+                            # the route windows took before K6w and K7w:
+                            # K6's or K7's split walk, a block a (row,
+                            # query), under its default plan
+                            walk = (kernels[pages][0], kernels[pages][0])
+                            walk_plan = pa.paged_plan(n_kv, batch, t_len,
+                                                      sms)
+                            walk_ms = timer(lambda: pa._launch(
+                                walk, q, planes, layer, pv, table, P, kv_mul,
+                                walk_plan))
                         last = [min(p + t_len - 1, S - 1) for p in pos]
                         n_live = max(last) // ps + 1
                         idx = (layer * P + table[:, :n_live]).reshape(-1)
@@ -1320,16 +1353,6 @@ def phase_k6(torch, timer, peaks):
                                     .permute(0, 2, 1, 3) for x in (kk, vv)]
 
                         ms = timer(run)
-                        if t_len > 8 and not unit:
-                            log(f"{kernel.symbol} {label} B={batch} "
-                                f"{pos_label} t={t_len}: max_abs_err "
-                                f"{err:.3e} (tol {att.KERNEL_ATOL:.0e}) "
-                                f"kernel {ms:.4f} ms")
-                            rows.append(dict(
-                                case=label, n_kv=n_kv, kv_mul=kv_mul,
-                                batch=batch, pos=pos_label, t_len=t_len,
-                                max_abs_err=err, ms=ms, pages=pages))
-                            continue
                         ks, vs = gather()
                         sees = torch.clamp(
                             pv[:, None].long() + torch.arange(
@@ -1354,25 +1377,33 @@ def phase_k6(torch, timer, peaks):
                                     for i in range(t_len)) for p in pos]
                         nbytes = (2 * sum(x + 1 for x in last) * n_kv * hs
                                   * bpv + 2 * batch * t_len * n_q * hs * 4)
+                        # the windows' dots are TF32 passes on the
+                        # tensor cores: 3 over f32 and Q8 pages, 2 over bf16
+                        passes = 1 if not window else \
+                            2 if pages == "bf16" else 3
                         b_ms, b_by = bound(nbytes,
-                                           4.0 * sum(keys) * n_q * hs, peaks)
+                                           4.0 * passes * sum(keys) * n_q
+                                           * hs, peaks, tf32=window)
                         log(f"{kernel.symbol} {label} B={batch} {pos_label}"
                             f" t={t_len}: max_abs_err {err:.3e} (tol "
                             f"{att.KERNEL_ATOL:.0e}) kernel {ms:.4f} ms "
                             f"bound {b_ms:.5f} ms ({b_by}) K5 "
-                            f"{_f(k5_ms)} plain {_f(plain_ms)} sdpa "
-                            f"{library_ms:.4f} ms (err {lib_err:.1e}) + "
-                            f"gather {gather_ms:.4f} ms")
+                            f"{_f(k5_ms)} walk {_f(walk_ms)} plain "
+                            f"{_f(plain_ms)} sdpa {library_ms:.4f} ms (err "
+                            f"{lib_err:.1e}) + gather {gather_ms:.4f} ms")
                         rows.append(dict(
                             case=label, n_kv=n_kv, kv_mul=kv_mul,
                             batch=batch, pos=pos_label, t_len=t_len,
                             max_abs_err=err, ms=ms, k5_ms=k5_ms,
-                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                            walk_ms=walk_ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by,
                             library_ms=library_ms, gather_ms=gather_ms,
                             pages=pages))
-                _k6_replays(torch, run_k, planes, table, P, layer, n_q, hs,
-                            kv_mul, batch, kernel.symbol,
-                            f"{label} B={batch}")
+                for t_len in (1, MIXED_BUDGET):
+                    _k6_replays(torch, run_k, planes, table, P, layer, n_q,
+                                hs, kv_mul, batch,
+                                kernels[pages][t_len > 1].symbol,
+                                f"{label} B={batch}", t_len)
                 del planes
                 if pages == "q8":
                     del kq4, kd4, vq4, vd4, deq
@@ -2778,6 +2809,8 @@ def phase_e2e_continuous(torch, model, tok, n_layers, label, flags,
     attn = ("decode_attention_batch" if not paged else "paged_attention_q8"
             if q8 else "paged_attention_kvbf16" if bf16
             else "paged_attention")
+    if spec_k or budget:  # every device step a window: K6w or K7w
+        attn = attn.replace("paged_attention", "paged_window")
     prefill = "prefill_attention" + ("_kvbf16" if bf16 else "")
     path = SMOKE_DIR / "continuous.txt"
     path.write_text("\n".join(prompts) + "\n")
@@ -2947,14 +2980,15 @@ def phase_e2e_continuous_runs(torch, model, tok, n_layers):
     run k's; m: bf16 pages with 16-step chains (the bf16-page K6); n: Q8
     pages (K7) with 16-step chains, seeded sampling and a 32-page pool that
     pauses or requeues rows, with ~3.76x fewer bytes per page than run
-    k's; s: run k with --spec-k SPEC_K (verify windows through K6 at t_len
-    SPEC_K and K3 at 8 x SPEC_K rows), drafts accepted; t: run k with
+    k's; s: run k with --spec-k SPEC_K (verify windows through K6w at
+    t_len SPEC_K and K3 at 8 x SPEC_K rows), drafts accepted; t: run k with
     --dispatch-tokens MIXED_BUDGET (every dispatch one (8, MIXED_BUDGET)
-    window through K6 and K3, no admission prefill); s's and t's streams
+    window through K6w and K3, no admission prefill); s's and t's streams
     equal run k's, or part at a near-tie of run k's top-2 logits; u: run n
-    with --spec-k SPEC_K instead of the chains and --topp SPEC_TOPP (K7
+    with --spec-k SPEC_K instead of the chains and --topp SPEC_TOPP (K7w
     over verify windows, seeded rejection sampling, the 32-page pool
-    pausing or requeueing), drafts accepted."""
+    pausing or requeueing), drafts accepted; v: run m with --spec-k SPEC_K
+    instead of its chains (K6w over bf16 pages), drafts accepted."""
     page = ("--kv-page-size", str(PAGE))
     gaps: dict = {}
     res = {
@@ -2985,8 +3019,12 @@ def phase_e2e_continuous_runs(torch, model, tok, n_layers):
                                    str(SPEC_K), "--temperature", "0.8",
                                    "--topp", str(SPEC_TOPP), "--seed", "7",
                                    "--kv-pages", "32")),
+        "v": phase_e2e_continuous(torch, model, tok, n_layers,
+                                  "v speculative bf16 pages",
+                                  (*page, "--kv-cache-dtype", "bf16",
+                                   "--spec-k", str(SPEC_K))),
     }
-    k, n, s_, t, u = (res[x] for x in "knstu")
+    k, n, s_, t, u, v = (res[x] for x in "knstuv")
     same = sum(a == b for a, b in zip(k["rows"], res["l"]["rows"]))
     ratio = k["page_bytes"] / n["page_bytes"]
     log(f"continuous: run k's streams equal run l's in {same} of "
@@ -3019,8 +3057,11 @@ def phase_e2e_continuous_runs(torch, model, tok, n_layers):
     log(f"speculative q8 (run u): {u['spec_accepted']}/{u['spec_proposed']}"
         f" drafts accepted ({u['accept_rate']:.1%}), {u['pauses']} pauses, "
         f"{u['requeues']} requeues, {u['steps']} verify dispatches")
-    if s_["spec_accepted"] <= 0 or u["spec_accepted"] <= 0:
-        raise AssertionError("runs s and u: no draft accepted")
+    log(f"speculative bf16 pages (run v): {v['spec_accepted']}/"
+        f"{v['spec_proposed']} drafts accepted ({v['accept_rate']:.1%}), "
+        f"{v['steps']} verify dispatches of {v['ms_per_dispatch']:.3f} ms")
+    if min(s_["spec_accepted"], u["spec_accepted"], v["spec_accepted"]) <= 0:
+        raise AssertionError("runs s, u and v: no draft accepted")
     if u["pauses"] + u["requeues"] <= 0:
         raise AssertionError("run u: no pause or requeue")
     ref_k = {"outs": k["outs"], "prompts": k["prompts"]}
@@ -4323,7 +4364,7 @@ def continuous_full_width(torch, engine, tokenizer, batch):
                                  host=False)
         dev_ms = sum(m for _, m, _ in dev)
         paged = sum(m for k, m, _ in dev if "paged_attention" in k
-                    or "decode_attention" in k)
+                    or "paged_window" in k or "decode_attention" in k)
         gemm = sum(m for k, m, _ in dev if "q40_gemm" in k
                    or "q40_split_tf32" in k)
         row = dict(ms=ms, runs_ms=[r["ms"] for r in runs[label]],
@@ -4700,7 +4741,7 @@ for _scheme in ("fused", "ref"):
             ["--prompts-file", "{cont}", "--continuous", "--slots",
              str(TP_ROWS), "--prefill-chunk", str(CONT_CHUNK), "--steps",
              "96", "--kv-page-size", str(PAGE), *_flags, "--tp-scheme",
-             _scheme], {}, "paged_attention")
+             _scheme], {}, "paged_window")
 WINDOW_FLAG_RUNS = [label for label in TP_FLAG_RUNS
                     if label.startswith(("spec-k", "dispatch-tokens"))]
 # what the single card cannot run: gloo refuses send/recv of CUDA tensors
@@ -7282,7 +7323,7 @@ def main() -> int:
     ]
 
     def paged_row(name, pages, what):
-        rows = [r for r in k6 if r["pages"] == pages]
+        rows = [r for r in k6 if r["pages"] == pages and r["t_len"] == 1]
         unit_rows = [dict(r, per_token=32) for r in rows
                      if r["case"] == "7b" and r["batch"] == CONT_SLOTS
                      and r["pos"] == "shared 63" and r["t_len"] == 1]
@@ -7312,15 +7353,18 @@ def main() -> int:
                     shapes=rows)
 
     def window_row(name, pages, what, t_len):
-        """K6's or K7's row at a verify or mixed window of t_len queries:
-        one 7B dispatch of CONT_SLOTS rows at shared pos 63."""
-        rows = [r for r in k6 if r["pages"] == pages and r["t_len"] == t_len]
-        unit_rows = [dict(r, per_token=32) for r in rows
-                     if r["case"] == "7b" and r["batch"] == CONT_SLOTS
-                     and r["pos"] == "shared 63"]
+        """K6w's or K7w's row at a verify or mixed window of t_len
+        queries: one 7B dispatch of CONT_SLOTS rows at shared pos 63, and
+        one layer at shared pos 2047 beside it."""
+        rows = [r for r in k6 if r["pages"] == pages and r["t_len"] > 1]
+        at_t = [r for r in rows if r["t_len"] == t_len
+                and r["case"] == "7b" and r["batch"] == CONT_SLOTS]
+        unit_rows = [dict(r, per_token=32) for r in at_t
+                     if r["pos"] == "shared 63"]
+        far = next(r for r in at_t if r["pos"] == "shared 2047")
         return dict(name=name, route="cuda", t_len=t_len,
                     source="distributed_llama_tpu_torch/csrc/"
-                           "paged_attention.cu",
+                           "paged_window.cu",
                     replaces="distributed_llama_tpu/ops/"
                              "pallas_paged_attention.py:"
                              + ("332" if pages == "q8" else "285"),
@@ -7329,6 +7373,10 @@ def main() -> int:
                     max_abs_err=max(r["max_abs_err"] for r in rows),
                     **unit_row(unit_rows),
                     gather_ms=sum(r["gather_ms"] * 32 for r in unit_rows),
+                    walk_ms=sum(r["walk_ms"] * 32 for r in unit_rows),
+                    pos_2047={k: far[k] for k in (
+                        "ms", "bound_ms", "bound_by", "library_ms",
+                        "gather_ms", "walk_ms")},
                     unit=f"one 7B dispatch of {CONT_SLOTS} rows at shared "
                          f"pos 63, t_len {t_len} queries a row, over {what} "
                          f"pages of {PAGE}: 32 layers; launches = the "
@@ -7336,7 +7384,11 @@ def main() -> int:
                          f"those at this t_len (runs s-u); library = "
                          f"scaled_dot_product_attention with the window's "
                          f"causal mask over the live pages gathered "
-                         f"beforehand (gather timed apart as gather_ms)",
+                         f"beforehand (gather timed apart as gather_ms); "
+                         f"walk_ms = the split walk K6/K7 ran windows with "
+                         f"before (one block a (row, query)); pos_2047 = "
+                         f"one layer at shared pos 2047; shapes = every "
+                         f"window shape a layer",
                     shapes=rows)
 
     kernels += [
@@ -7345,9 +7397,9 @@ def main() -> int:
         paged_row("paged_attention_q8", "q8", "Q8"),
         *(window_row(name, pages, what, t)
           for name, pages, what in (
-              ("paged_attention", "f32", "f32"),
-              ("paged_attention_kvbf16", "bf16", "bf16"),
-              ("paged_attention_q8", "q8", "Q8"))
+              ("paged_window", "f32", "f32"),
+              ("paged_window_kvbf16", "bf16", "bf16"),
+              ("paged_window_q8", "q8", "Q8"))
           for t in (16, MIXED_BUDGET)),
     ]
     def fused_row(name, kind, rows, unit):

@@ -27,7 +27,8 @@ what the port really allocates:
                and K1m's split-K partials (splits, T, d) and their
                tickets, K3's x split (2, T, n) or K3b's rounded x (T, n)
                and their split partials, the flash-decode split buffers
-               and tickets of K2/K5/K6/K7 (one static buffer a shape and
+               and tickets of K2/K5/K6/K7 and of the window kernels
+               K6w/K7w at B x t_len rows (one static buffer a shape and
                plan) and K4's split partials (``kernel_workspace_bytes``;
                the fused layer's few dim-wide vectors sit in the headroom;
                the plans are the kernels' own,
@@ -342,6 +343,29 @@ def decode_scratch_bytes(spec: TransformerSpec, n_slices: int,
             + _rounded(rows * n_kv * 4))
 
 
+def window_scratch_bytes(spec: TransformerSpec, n_slices: int, batch: int,
+                         t_len: int, sms: int = H100_SMS) -> int:
+    """The window kernels' split buffer and tickets (K6w and K7w: a paged
+    verify or mixed window of ``batch`` rows of ``t_len`` >= WINDOW_MIN_T
+    queries,
+    ops/paged_attention._launch): _decode_scratch at batch x t_len rows
+    under the window plan's most splits, made once and kept; none below
+    WINDOW_MIN_T or for a one-split plan."""
+    from ..ops import paged_attention
+
+    n_kv = spec.n_kv_heads // n_slices
+    if t_len < paged_attention.WINDOW_MIN_T or n_kv < 1:
+        return 0
+    most = paged_attention.window_plan(n_kv, batch, t_len, spec.kv_mul,
+                                       sms)[0]
+    if most == 1:
+        return 0
+    rows = batch * t_len
+    return (_rounded(rows * n_kv * most * spec.kv_mul
+                     * (spec.head_size + 2) * 4)
+            + _rounded(rows * n_kv * 4))
+
+
 def prefill_split_bytes(spec: TransformerSpec, n_slices: int, t_len: int,
                         pos: int | None = None, sms: int = H100_SMS,
                         bf16: bool = False) -> int:
@@ -373,15 +397,18 @@ def kernel_workspace_bytes(spec: TransformerSpec, n_slices: int,
                            sms: int = H100_SMS, bf16: bool = False) -> int:
     """What the hand kernels hold beside the activations at a dispatch of
     ``batch`` rows of ``t_len`` tokens: the largest matmul transient, the
-    matvec tickets, the decode split buffer of this shape and K4's split
-    partials (t_len > 1); ``bf16`` prices the --fast-prefill route (K3b,
-    K4b)."""
+    matvec tickets, the decode split buffer of this shape, K4's split
+    partials (t_len > 1) and the window kernels' split buffer of a paged
+    window of this shape (t_len >= WINDOW_MIN_T); ``bf16`` prices the
+    --fast-prefill
+    route (K3b, K4b)."""
     rows = batch * t_len
     return (matmul_workspace_bytes(spec, n_slices, rows, sms, bf16)
             + matvec_ticket_bytes()
             + decode_scratch_bytes(spec, n_slices, batch, sms=sms)
             + prefill_split_bytes(spec, n_slices, t_len, sms=sms,
-                                  bf16=bf16))
+                                  bf16=bf16)
+            + window_scratch_bytes(spec, n_slices, batch, t_len, sms))
 
 
 # -- the assembled report ---------------------------------------------------

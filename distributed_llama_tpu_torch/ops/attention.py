@@ -295,8 +295,8 @@ def decode_attention_split_model(q: torch.Tensor, k_all: torch.Tensor,
 class _DecodeScratch(NamedTuple):
     """K2's, K5's, K6's and K7's split partials, (rows x n_kv x most) x
     kv_mul x (hs + 2) f32, and their per-(row, kv head) tickets, int32
-    zeros that every launch leaves zero (K6's and K7's rows: B * t_len
-    queries)."""
+    zeros that every launch leaves zero; the window kernels K6w and K7w
+    take the same buffers at B * t_len rows (ops/paged_attention.py)."""
 
     part: torch.Tensor
     tickets: torch.Tensor

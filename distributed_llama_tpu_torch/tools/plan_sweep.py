@@ -280,7 +280,9 @@ PAGE = 16
 def _paged_variants() -> dict:
     """{keys in flight: (lib, {symbol: fn})}: paged_attention.cu built
     with -DPAGED_KEYS_AHEAD=n for each n."""
-    return _variants("paged_attention.cu", paged_attention.KERNELS,
+    return _variants("paged_attention.cu",
+                     [k for k in paged_attention.KERNELS
+                      if k.source == "paged_attention.cu"],
                      {n: [f"-DPAGED_KEYS_AHEAD={n}"] for n in DECODE_AHEAD})
 
 

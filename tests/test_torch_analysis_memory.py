@@ -239,3 +239,36 @@ def test_workspaces_follow_the_kernels_plans():
     assert M.matmul_workspace_bytes(spec, 1, t, sms, bf16=True) == want
     assert M.kernel_workspace_bytes(spec, 1, t, sms=sms) > gemm
     assert np.isfinite(M.prefill_split_bytes(spec, 1, t, sms=sms))
+
+
+@pytest.mark.parametrize("batch,t_len", [(1, 1), (1, 4), (2, 16), (8, 39)])
+def test_window_scratch_is_the_window_kernels_buffer(batch, t_len):
+    """The window kernels' (K6w, K7w) split buffer and tickets are
+    _decode_scratch at B x t_len rows under the window plan's most
+    splits, none below WINDOW_MIN_T or under a one-split plan; the
+    dispatch's kernel workspace holds them beside the decode buffer."""
+    from distributed_llama_tpu_torch.ops import paged_attention as pa
+
+    sms = M.H100_SMS
+    for name in ("7b", "70b"):
+        spec = S.model_spec(name, "q40")
+        for n_slices in (1, 2, 8):
+            n_kv = spec.n_kv_heads // n_slices
+            got = M.window_scratch_bytes(spec, n_slices, batch, t_len, sms)
+            most = pa.window_plan(n_kv, batch, t_len, spec.kv_mul, sms)[0]
+            rows = batch * t_len
+            want = (0 if t_len < pa.WINDOW_MIN_T or most == 1 else
+                    M._rounded(rows * n_kv * most * spec.kv_mul
+                               * (spec.head_size + 2) * 4)
+                    + M._rounded(rows * n_kv * 4))
+            assert got == want
+            whole = M.kernel_workspace_bytes(spec, n_slices, t_len, batch,
+                                             sms)
+            rest = (M.matmul_workspace_bytes(spec, n_slices, rows, sms)
+                    + M.matvec_ticket_bytes()
+                    + M.decode_scratch_bytes(spec, n_slices, batch, sms=sms)
+                    + M.prefill_split_bytes(spec, n_slices, t_len, sms=sms))
+            assert whole == rest + want
+    # a one-row verify window of the 7B splits its keys: priced
+    assert M.window_scratch_bytes(S.model_spec("7b", "q40"), 1, 1, 4,
+                                  sms) > 0

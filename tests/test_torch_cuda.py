@@ -1116,9 +1116,10 @@ PAGED_POS = {1: [0, 13, 31], 4: [0, 9, 30], 8: [3, 17, 29]}
 @pytest.mark.parametrize("t_len", [1, 4, 8])
 @pytest.mark.parametrize("ps", [4, 16])
 def test_paged_kernels_match_plain(gen, pages, kv_mul, hs, t_len, ps):
-    """K6 (f32 and bf16 pages) and K7 against their plain versions over a
-    scrambled table, mid-page clocks, and a window running past the
-    virtual plane (the budget-edge clamp)."""
+    """K6 (f32 and bf16 pages) and K7 at t_len 1, K6w and K7w at the
+    windows of 4 and 8, against their plain versions over a scrambled
+    table, mid-page clocks, and a window running past the virtual plane
+    (the budget-edge clamp)."""
     L, n_kv, max_pages = 2, 2, 32 // ps
     P = 3 * max_pages + 2
     dtype = torch.bfloat16 if pages == "bf16" else torch.float32
@@ -1127,17 +1128,22 @@ def test_paged_kernels_match_plain(gen, pages, kv_mul, hs, t_len, ps):
     q = torch.randn((3, t_len, n_kv * kv_mul * hs), device="cuda",
                     generator=gen)
     pv = torch.tensor(PAGED_POS[t_len], dtype=torch.int32, device="cuda")
+    window = t_len >= paged_attention.WINDOW_MIN_T
     if pages == "q8":
         planes = _q8_pool(k4, v4)
         run = paged_attention.paged_decode_attention_q8
         plain = paged_attention.paged_decode_attention_q8_plain
-        kernel = paged_attention.PAGED_KERNEL_Q8
+        kernel = (paged_attention.WINDOW_KERNEL_Q8 if window
+                  else paged_attention.PAGED_KERNEL_Q8)
     else:
         planes = [k4, v4]
         run = paged_attention.paged_decode_attention
         plain = paged_attention.paged_decode_attention_plain
-        kernel = (paged_attention.PAGED_KERNEL if pages == "f32"
-                  else paged_attention.PAGED_KERNEL_KVBF16)
+        kernel = {(False, "f32"): paged_attention.PAGED_KERNEL,
+                  (False, "bf16"): paged_attention.PAGED_KERNEL_KVBF16,
+                  (True, "f32"): paged_attention.WINDOW_KERNEL,
+                  (True, "bf16"): paged_attention.WINDOW_KERNEL_KVBF16}[
+                      window, pages]
     for layer in range(L):
         before = kernel.launches
         got = run(q, *planes, layer, pv, table, P, kv_mul)
@@ -1220,6 +1226,8 @@ def test_paged_kernel_at_a_long_prefix_is_k5_at_one_split(gen, cache,
 @pytest.mark.parametrize("t_len", [1, 4])
 def test_paged_q8_kernel_is_k6_over_the_dequantized_pool(gen, kv_mul,
                                                          t_len):
+    """K7 at t_len 1 and K7w at a verify window of 4: K6's and K6w's bits
+    over the pool of the dequantized values."""
     from distributed_llama_tpu_torch.ops.quants import dequantize_q80_planes
 
     L, ps, n_kv, hs, max_pages = 2, 8, 4, 64, 4
@@ -1304,8 +1312,9 @@ def test_paged_split_kernel_at_t1_is_k5_bit_for_bit(gen, cache, width, plan):
 @pytest.mark.parametrize("t_len", [1, 4])
 def test_paged_split_q8_kernel_is_k6_over_the_dequantized_pool(gen, width,
                                                                plan, t_len):
-    """K7 under every plan at a long prefix: K6's bits over the pool of
-    its dequantized values, the same bits twice, tickets back at 0."""
+    """K7 (t_len 1) and K7w (t_len 4) under every plan at a long prefix:
+    K6's and K6w's bits over the pool of its dequantized values, the same
+    bits twice, tickets back at 0."""
     from distributed_llama_tpu_torch.ops.quants import dequantize_q80_planes
 
     n_kv, kv_mul = width
@@ -1333,11 +1342,11 @@ def test_paged_split_q8_kernel_is_k6_over_the_dequantized_pool(gen, width,
 @pytest.mark.parametrize("t_len", [4, 8, 16, 39])
 @pytest.mark.parametrize("plan", [None, (32, 64)])
 def test_paged_split_windows_match_plain(gen, pages, width, t_len, plan):
-    """t_len 4 and 8 (verify windows) and 16 and 39 (mixed windows: 39 is
-    the auto budget at 8 slots and chunk 32) at a long prefix, split
-    across the grid: within KERNEL_ATOL of plain, with windows running
-    past the virtual plane (the budget-edge clamp: the last queries see
-    the same keys)."""
+    """K6w and K7w at t_len 4 and 8 (verify windows) and 16 and 39 (mixed
+    windows: 39 is the auto budget at 8 slots and chunk 32) at a long
+    prefix, split across the grid: within KERNEL_ATOL of plain, with
+    windows running past the virtual plane (the budget-edge clamp: the
+    last queries see the same keys)."""
     n_kv, kv_mul = width
     cache = torch.bfloat16 if pages == "bf16" else torch.float32
     _, _, _, _, moved, table, P = _long_pool(gen, cache, n_kv)
@@ -1394,6 +1403,99 @@ def test_paged_split_kernels_replay_from_a_graph(gen, pages):
         assert torch.equal(replayed, run(q, *planes, 1, pv, table, P,
                                          kv_mul)), pos
         seen |= {attention.decode_splits(p + 1, plan)[0] for p in pos}
+    assert 1 in seen and len(seen) > 2
+
+
+# the window kernels' (K6w, K7w) shapes: the decode walk's widths, and
+# each (B, clocks) with a shared 63, a shared 2047 and ragged ones
+WINDOW_T_LENS = [2, 4, 8, 16, 39]
+
+
+@pytest.mark.parametrize("pages", ["f32", "bf16", "q8"])
+@pytest.mark.parametrize("width", PAGED_WIDTHS)
+@pytest.mark.parametrize("t_len", WINDOW_T_LENS)
+@pytest.mark.parametrize("batch", [1, 8])
+def test_window_kernels_match_plain(gen, pages, width, t_len, batch):
+    """K6w (f32 and bf16 pages) and K7w at every window length, B 1 and
+    8, clocks 63, 2047 and ragged (past the plane's edge): one launch of
+    the window kernel (of K6's or K7's split walk below WINDOW_MIN_T),
+    within KERNEL_ATOL of plain, the same bits on a second launch, K7w
+    K6w's bits over the dequantized pool, every ticket back at 0."""
+    from distributed_llama_tpu_torch.ops.quants import dequantize_q80_planes
+
+    n_kv, kv_mul = width
+    cache = torch.bfloat16 if pages == "bf16" else torch.float32
+    _, _, _, _, moved, table, P = _long_pool(gen, cache, n_kv, B=batch)
+    window = t_len >= paged_attention.WINDOW_MIN_T
+    if pages == "q8":
+        planes = _q8_pool(*moved)
+        run = paged_attention.paged_decode_attention_q8
+        plain = paged_attention.paged_decode_attention_q8_plain
+        kernel = (paged_attention.WINDOW_KERNEL_Q8 if window
+                  else paged_attention.PAGED_KERNEL_Q8)
+        deq = [dequantize_q80_planes(planes[0], planes[1]).contiguous(),
+               dequantize_q80_planes(planes[2], planes[3]).contiguous()]
+    else:
+        planes = moved
+        run = paged_attention.paged_decode_attention
+        plain = paged_attention.paged_decode_attention_plain
+        kernel = {(False, "f32"): paged_attention.PAGED_KERNEL,
+                  (False, "bf16"): paged_attention.PAGED_KERNEL_KVBF16,
+                  (True, "f32"): paged_attention.WINDOW_KERNEL,
+                  (True, "bf16"): paged_attention.WINDOW_KERNEL_KVBF16}[
+                      window, pages]
+    q = torch.randn((batch, t_len, n_kv * kv_mul * 128), device="cuda",
+                    generator=gen)
+    ragged = [5, 2047, 900, 63, 1500, 17, 2040, 1023][:batch]
+    for pos in ([63] * batch, [2047] * batch, ragged):
+        pv = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        before = kernel.launches
+        got = run(q, *planes, 1, pv, table, P, kv_mul)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        want = plain(q, *planes, 1, pv, table, P, kv_mul)
+        assert (got - want).abs().max().item() <= attention.KERNEL_ATOL, pos
+        assert torch.equal(got, run(q, *planes, 1, pv, table, P, kv_mul))
+        if pages == "q8":
+            assert torch.equal(got, paged_attention.paged_decode_attention(
+                q, *deq, 1, pv, table, P, kv_mul)), pos
+        _no_tickets()
+
+
+@pytest.mark.parametrize("pages", ["f32", "bf16", "q8"])
+@pytest.mark.parametrize("t_len", [4, 39])
+def test_window_kernels_replay_from_a_graph(gen, pages, t_len):
+    """K6w and K7w captured in a CUDA graph over device positions (a
+    verify window of 4, a mixed one of 39) and replayed at clocks that
+    cross their plan's split counts: every replay gives the eager bits
+    and leaves every ticket at 0."""
+    n_kv, kv_mul, B = 8, 4, 1
+    cache = torch.bfloat16 if pages == "bf16" else torch.float32
+    _, _, _, _, moved, table, P = _long_pool(gen, cache, n_kv, B=B)
+    planes = _q8_pool(*moved) if pages == "q8" else moved
+    run = (paged_attention.paged_decode_attention_q8 if pages == "q8"
+           else paged_attention.paged_decode_attention)
+    q = torch.randn((B, t_len, n_kv * kv_mul * 128), device="cuda",
+                    generator=gen)
+    pv = torch.tensor([5], dtype=torch.int32, device="cuda")
+    run(q, *planes, 1, pv, table, P, kv_mul)  # eager first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run(q, *planes, 1, pv, table, P, kv_mul)
+    plan = paged_attention.window_plan(n_kv, B, t_len, kv_mul, _sms())
+    seen = set()
+    for p in (0, 127, 2047, 300, 1000, 64, 2040):
+        pv.copy_(torch.tensor([p], dtype=torch.int32))
+        q.copy_(torch.randn(q.shape, device="cuda", generator=gen))
+        graph.replay()
+        torch.cuda.synchronize()
+        replayed = out.clone()
+        _no_tickets()
+        assert torch.equal(replayed, run(q, *planes, 1, pv, table, P,
+                                         kv_mul)), p
+        seen.add(paged_attention.window_splits(min(p + t_len - 1, 2047) + 1,
+                                               plan)[0])
     assert 1 in seen and len(seen) > 2
 
 
@@ -1544,7 +1646,8 @@ def test_captured_window_dispatch_is_the_eager_one(gen, case, temperature):
     the same engine run eagerly, side by side: after every dispatch the
     window's output (the device argmax, or the logits when sampled) at
     every live (row, offset) is the eager one's bit for bit, the streams
-    and page state equal, K6/K7 L launches a dispatch, the audits clean.
+    and page state equal, K6w/K7w L launches a dispatch (the window
+    kernels: both widths are WINDOW_MIN_T or more), the audits clean.
     Live: an active row's offsets below its span (mixed) or below its
     budget (verify). The rest is junk the host never reads: it attends
     over the scrap page, whose dead writes of one dispatch land in no
@@ -1563,12 +1666,13 @@ def test_captured_window_dispatch_is_the_eager_one(gen, case, temperature):
                for graph in (True, False)]
     reqs = [[eng.submit(Request(tokens=list(r), steps=40))
              for r in _window_requests(spec)] for eng in engines]
-    symbol = ("paged_attention_q8" if "kv_quant" in opts else
-              "paged_attention_kvbf16" if "cache_dtype" in opts else
-              "paged_attention")
+    width = opts.get("spec_k") or opts["dispatch_tokens"]
+    assert width >= paged_attention.WINDOW_MIN_T
+    symbol = ("paged_window_q8" if "kv_quant" in opts else
+              "paged_window_kvbf16" if "cache_dtype" in opts else
+              "paged_window")
     kernels = (*q40.KERNELS, *attention.KERNELS, *paged_attention.KERNELS)
     dispatches = 0
-    width = opts.get("spec_k") or opts["dispatch_tokens"]
     budgets = []  # each slot's budget when the window ran
     run = engines[0]._run_window
 

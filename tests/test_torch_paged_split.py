@@ -7,10 +7,13 @@ pages gathered in logical order up to the budget-edge clamp, then
 package's Pallas ``paged_decode_attention_kernel`` and ``_q8`` in interpret
 mode at 1e-5 abs (ATT_TOL, as tests/test_torch_paged_attention.py holds the
 plain versions: the same f32 softmax in another order), over f32, bf16 and
-Q8 pools, t_len 1, 4 and 8, kv_mul 1, 2, 4 and 8 and plans of one to 32
-splits; its own identities bit for bit (page placement, K5's model at
-t_len 1); the default plan and the grid's split count; the constants the
-kernel source holds; and a bad plan."""
+Q8 pools, t_len 1, kv_mul 1, 2, 4 and 8 and plans of one to 32 splits; its
+own identities bit for bit (page placement, K5's model at t_len 1); the
+default plan and the grid's split count; the constants the kernel source
+holds; and a bad plan. The card takes windows of t_len 4 and 8 to K6w and
+K7w (csrc/paged_window.cu), so those cases hold the window model
+(``paged_attention.paged_window_model``) and the window plan instead;
+tests/test_torch_paged_window.py holds the window route in full."""
 
 import re
 from pathlib import Path
@@ -94,8 +97,10 @@ def _jax_ref(q, planes, layer, pos, table, P, kv_mul, t_len):
 @pytest.mark.parametrize("kv_mul", [1, 2, 4, 8])
 @pytest.mark.parametrize("t_len", [1, 4, 8])
 def test_split_model_matches_pallas_paged(pages, kv_mul, t_len):
-    """The model under every plan against the Pallas kernel over a
-    scrambled table, including the clamp of the last row's window."""
+    """The model of the route the card takes at t_len (the split walk at
+    1, the window model at 4 and 8) under every plan against the Pallas
+    kernel over a scrambled table, including the clamp of the last row's
+    window."""
     n_kv, P = _n_kv(kv_mul), 13
     k4, v4 = _pool(n_kv, seed=10 * kv_mul + t_len)
     planes = _planes(k4, v4, pages)
@@ -103,10 +108,11 @@ def test_split_model_matches_pallas_paged(pages, kv_mul, t_len):
     q = np.random.default_rng(t_len + kv_mul).standard_normal(
         (3, t_len, n_kv * kv_mul * HS)).astype(np.float32)
     want = _jax_ref(q, planes, 1, POS, table, P, kv_mul, t_len)
+    model = (pa.paged_attention_split_model if t_len == 1
+             else pa.paged_window_model)
     for plan in PLANS:
-        got = pa.paged_attention_split_model(
-            torch.from_numpy(q), planes, 1, POS, torch.from_numpy(table), P,
-            kv_mul, plan)
+        got = model(torch.from_numpy(q), planes, 1, POS,
+                    torch.from_numpy(table), P, kv_mul, plan)
         assert tuple(got.shape) == want.shape == q.shape
         np.testing.assert_allclose(got.numpy(), want, atol=ATT_TOL, rtol=0,
                                    err_msg=f"plan {plan}")
@@ -171,9 +177,21 @@ def test_split_model_at_t1_is_the_contiguous_split_model(cache, kv_mul,
 @pytest.mark.parametrize("batch", [1, 3, 8, 64])
 @pytest.mark.parametrize("t_len", [1, 4, 8])
 def test_default_plan_and_the_grid(n_kv, batch, t_len):
-    """The default plan is decode_plan over B*t_len items (K5's plan for
-    the same rows at t_len 1), and the grid's split count, decode_want of
-    the clamped virtual plane's keys, covers every (row, query)'s plan."""
+    """At t_len 1 the default plan is decode_plan over the B rows (K5's
+    plan for the same rows), and the grid's split count, decode_want of
+    the clamped virtual plane's keys, covers every row's plan. The windows
+    of t_len 4 and 8 take the window plan (kv_mul 1): its grid,
+    window_want of the clamped virtual plane's keys, covers every row's
+    plan over its deepest query's keys."""
+    if t_len > 1:
+        plan = pa.window_plan(n_kv, batch, t_len, 1, SMS)
+        for ps, max_pages in ((16, 128), (8, 4), (1, 2048), (16, 1)):
+            s_virt = ps * max_pages
+            grid = pa.window_want(s_virt, plan)
+            for pos in range(0, s_virt, max(1, s_virt // 97)):
+                keys = min(pos + t_len - 1, s_virt - 1) + 1
+                assert pa.window_splits(keys, plan)[0] <= grid
+        return
     plan = pa.paged_plan(n_kv, batch, t_len, SMS)
     assert plan == attention.decode_plan(n_kv, batch * t_len, SMS)
     if t_len == 1:
